@@ -5,19 +5,31 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernel from ``s2sr_tpu_torch/csrc``, holds it
-against its plain PyTorch version on the card, drives the port's ``/api/wow`` path
-(``process_wow_sr`` and ``SREngine.enhance_serving_many``) at the full
-width of ``realesrgan_x4`` with random weights from seed 0, checks the
-outputs and that every residual dense block of that run went through the
-kernel, and times the kernel and the SR stage. Nothing is caught: any
+It builds the hand-written kernels from ``s2sr_tpu_torch/csrc`` (one
+``nvcc`` per source, all started together) and holds each against its
+plain PyTorch version on the card. It drives two paths of the port with
+random weights from seed 0, each at the full width of its model:
+
+- the ``/api/wow`` path (``process_wow_sr`` and
+  ``SREngine.enhance_serving_many``) on ``realesrgan_x4``, whose residual
+  dense blocks run the ``rdb`` kernel (phases kernel, main, numbers);
+- SwinIR serving on ``swinir_x4`` (``process_wow_sr`` on the exact path,
+  the halo-tiled engine path, a 3×5 upload), whose Swin blocks run the
+  ``swin_block`` kernel, or ``window_attention`` under
+  ``S2SR_SWINIR_FUSED_LEVEL=attn`` (phases swin_kernel, swin_main,
+  swin_numbers).
+
+It checks the outputs, that every block of each path went through its
+kernel, and times the kernels and the SR stages. Nothing is caught: any
 failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernels'
-JSON record. Without CUDA, or without the package beside it, it exits
-non-zero and prints no result.
+JSON record, and the one before that the card's name and power limit.
+Without CUDA, or without the package beside it, it exits non-zero and
+prints no result.
 
-``--phases`` picks a subset (device, build, kernel, main, numbers) for
-a quick check; the default runs them all.
+``--phases`` picks a subset (device, build, kernel, main, numbers,
+swin_kernel, swin_main, swin_numbers) for a quick check; the default
+runs them all.
 """
 
 from __future__ import annotations
@@ -30,7 +42,9 @@ import tempfile
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernel", "main", "numbers")
+PHASES = ("device", "build", "kernel", "main", "numbers", "swin_kernel",
+          "swin_main", "swin_numbers")
+KERNEL_SOURCES = ("rdb", "window_attention")
 
 # H100 SXM dense peaks (NVIDIA data sheet) used for the bounds
 PEAK_BF16_FLOPS = 989e12
@@ -132,14 +146,21 @@ def phase_device(state):
 
 
 def phase_build(state):
+    from concurrent.futures import ThreadPoolExecutor
+
     from s2sr_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    seconds, log = _build.build("rdb")
-    ptxas = [ln for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
+    # one nvcc per source, all at once
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        built = dict(zip(KERNEL_SOURCES, pool.map(_build.build,
+                                                  KERNEL_SOURCES)))
+    ptxas = {name: [ln for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln or "smem" in ln]
+             for name, (_, log) in built.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "per_kernel_seconds": {"rdb": seconds}, "ptxas": {"rdb": ptxas}})
+          "per_kernel_seconds": {n: b[0] for n, b in built.items()},
+          "ptxas": ptxas})
 
 
 def drop_dense_input(w, b, i: int):
@@ -471,6 +492,465 @@ def phase_numbers(state):
                             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# --- SwinIR: swin_block and window_attention ------------------------------
+
+# Per token of one Swin block (C 180, 6 heads of 30, 64-token windows,
+# MLP 360): qkv 2·180·540, proj 2·180·180, fc1 and fc2 2·180·360 each,
+# QKᵀ and PV 2·64·180 each
+SWIN_FLOP_PER_TOKEN = {
+    "swin_block": 2 * (180 * 540 + 180 * 180 + 2 * 180 * 360)
+    + 2 * 2 * 64 * 180,
+    "window_attention": 2 * (180 * 540 + 180 * 180) + 2 * 2 * 64 * 180,
+}
+SWIN_WEIGHTS = {"swin_block": 180 * 540 + 180 * 180 + 2 * 180 * 360,
+                "window_attention": 180 * 540 + 180 * 180}
+SWIN_REPLACES = {
+    "swin_block": "s2sr_tpu/ops/pallas/window_attention.py:338",
+    "window_attention": "s2sr_tpu/ops/pallas/window_attention.py:385",
+}
+SWIN_BLOCKS = 36
+# Full swinir_x4 in bf16 against fp32, relative to the largest output:
+# the plain model on the CPU sits 0.012–0.015 from fp32 (both levels)
+# and the attn level 0.015–0.022 from the block level (measured on
+# 40×56 with chip_smoke's weights when written)
+SWIN_BF16_TOL = 0.05
+
+
+def swin_kernels() -> dict:
+    """name → (wrapper, plain version, whether it holds the MLP)."""
+    from s2sr_tpu_torch.ops import window_attention as wa
+
+    return {"swin_block": (wa.swin_block, wa.swin_block_reference, True),
+            "window_attention": (wa.window_attention,
+                                 wa.window_attention_reference, False)}
+
+
+def swin_inputs(shape, dtype, shift: int, seed: int = 0, device="cuda"):
+    """Input and tables (in ``dtype`` and in fp32) of one Swin block.
+
+    Block-style weights (tests/test_window_attention.py's scales, bias
+    table ×5, MLP 0.03) and x of scale 0.05: attention moves the output
+    by 0.36–0.59 and the whole block by 0.74–0.79, while |out| stays
+    under 1, where a bf16 ulp is ≤ 2⁻⁸ (the plain versions on the CPU at
+    (1, 24, 32))."""
+    import torch
+
+    from s2sr_tpu_torch.ops import window_attention as wa
+
+    g = torch.Generator().manual_seed(seed)
+
+    def n(*size, s=1.0):
+        return torch.randn(*size, generator=g) * s
+
+    c, hid = 180, 360
+    p = {"norm1.weight": 1 + n(c, s=0.1), "norm1.bias": n(c, s=0.05),
+         "attn.qkv.weight": n(3 * c, c, s=0.05), "attn.qkv.bias": n(3 * c, s=0.02),
+         "attn.proj.weight": n(c, c, s=0.05), "attn.proj.bias": n(c, s=0.02),
+         "attn.relative_position_bias_table": n(225, 6, s=0.5),
+         "norm2.weight": 1 + n(c, s=0.1), "norm2.bias": n(c, s=0.05),
+         "mlp.fc1.weight": n(hid, c, s=0.03), "mlp.fc1.bias": n(hid, s=0.02),
+         "mlp.fc2.weight": n(c, hid, s=0.03), "mlp.fc2.bias": n(c, s=0.02)}
+    x = (n(*shape, c) * 0.05).to(dtype).to(device)
+    t = wa.tables_to(wa.build_block_tables(p, 6, 8, shift, dtype), device)
+    t32 = wa.tables_to(wa.build_block_tables(p, 6, 8, shift, torch.float32),
+                       device)
+    return x, t, t32
+
+
+def swin_faults(t: dict, mlp: bool) -> dict:
+    """Tables whose plain version computes what a faulty kernel would:
+    the shift mask dropped, every window given mask type 0 (interior,
+    all zeros, so it equals the dropped mask) or type 3 (corner), the
+    relative-position bias dropped, and (whole block) the MLP dropped."""
+    import torch
+
+    out = {}
+    if t["shift"]:
+        out["mask_dropped"] = {**t, "masks": torch.zeros_like(t["masks"])}
+        for k in (0, 3):
+            out[f"mask_type{k}"] = {**t, "masks": t["masks"][k:k + 1]
+                                    .expand(4, -1, -1).contiguous()}
+    out["bias_dropped"] = {**t, "bias": torch.zeros_like(t["bias"])}
+    if mlp:
+        out["mlp_dropped"] = {**t, "w2": torch.zeros_like(t["w2"]),
+                              "bf2": torch.zeros_like(t["bf2"])}
+    return out
+
+
+def swin_bound_ms(name: str, shape, dtype) -> tuple:
+    """Least time for one launch on the H100: the larger of its FLOPs at
+    the dtype's dense peak and its bytes (x and out once, the weights,
+    the bias table and masks)."""
+    import torch
+
+    bsz, h, w = shape
+    tokens = bsz * h * w
+    item = 2 if dtype == torch.bfloat16 else 4
+    flops = SWIN_FLOP_PER_TOKEN[name] * tokens
+    nbytes = (2 * tokens * 180 * item + SWIN_WEIGHTS[name] * item
+              + (6 + 4) * 64 * 64 * 4)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def phase_swin_kernel(state):
+    import torch
+
+    from s2sr_tpu_torch.ops import window_attention as wa
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # The error is max |kernel − plain| over the kernel's own change to
+    # its input: max |out − x| of the fp32 plain version for swin_block,
+    # max |y| for window_attention (which adds no residual). fp32: the
+    # two sum the same products in other orders. bf16: both round at the
+    # same places, so only a near-tie rounded apart differs (the plain
+    # bf16 version sits 0.006 of the change from the fp32 one on the
+    # CPU). Each case also holds the kernel further than the tolerance
+    # from the plain version with each planted fault (0.45–0.84 of the
+    # change on the CPU).
+    tol = {torch.float32: 1e-4, torch.bfloat16: 0.05}
+    grids = [(1, 24, 32), (2, 40, 72), (1, 512, 512)]
+    launches0 = dict(wa.LAUNCHES)
+    failures = []
+    worst = {}
+    t0 = time.perf_counter()
+    emit({"phase": "swin_kernel", "smem_bytes": wa.kernel_smem_bytes()})
+    for name, (fn, ref, mlp) in swin_kernels().items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for grid in grids:
+                for shift in (0, 4):
+                    x, t, t32 = swin_inputs(grid, dtype, shift)
+                    got = fn(x, t).float()
+                    torch.cuda.synchronize()
+                    want32 = ref(x.float(), t32)
+                    change = ((want32 - x.float()) if mlp else want32) \
+                        .abs().max().item()
+                    err = (got - ref(x, t).float()).abs().max().item()
+                    rel = err / change
+                    faults = {k: (got - ref(x, f).float()).abs().max().item()
+                              / change
+                              for k, f in swin_faults(t, mlp).items()}
+                    finite = bool(torch.isfinite(got).all().item())
+                    emit({"phase": "swin_kernel", "kernel": name,
+                          "dtype": str(dtype), "shape": [*grid, 180],
+                          "shift": shift, "max_abs_err": err,
+                          "max_change": change, "rel_err": rel,
+                          "tolerance": tol[dtype],
+                          "rel_err_vs_planted_fault": faults,
+                          "finite": finite})
+                    case = f"{name} {dtype} {grid} shift {shift}"
+                    if not finite or not rel <= tol[dtype]:
+                        failures.append(f"{case}: rel err {rel} over "
+                                        f"{tol[dtype]}")
+                    if not min(faults.values()) > tol[dtype]:
+                        failures.append(f"{case}: a planted fault is within "
+                                        f"tolerance {faults}")
+                    if dtype == torch.bfloat16:
+                        a, r = worst.get(name, (0.0, 0.0))
+                        worst[name] = (max(a, err), max(r, rel))
+                    del x, t, t32, got, want32
+                    torch.cuda.empty_cache()
+    # comparison launches are not main-path launches
+    wa.LAUNCHES.update(launches0)
+    if failures:
+        raise AssertionError("swin kernels vs plain:\n" + "\n".join(failures))
+    state["swin_err"] = worst
+    emit({"phase": "swin_kernel", "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def at_level(level: str, fn):
+    """``fn()`` with SwinIR's ``FUSED_LEVEL`` set to ``level``, as
+    ``S2SR_SWINIR_FUSED_LEVEL`` would set it."""
+    from s2sr_tpu_torch.models import swinir as swin_mod
+
+    old = swin_mod.FUSED_LEVEL
+    swin_mod.FUSED_LEVEL = level
+    try:
+        return fn()
+    finally:
+        swin_mod.FUSED_LEVEL = old
+
+
+def check_swin_against_plain(eng) -> dict:
+    """The main path's SwinIR at full width, with the kernels on the card
+    (fp32 and bf16, both fused levels), against the same weights in fp32
+    on the CPU, where every block runs its plain version, relative to
+    the reference's largest output. The random init's Linear weights
+    (std 0.02) barely move the output, so here they and the bias tables
+    are scaled ×5: the 36 blocks then change the output by a multiple of
+    the tolerance. Two exact-path images: 40×56 (window multiples) and
+    37×53 (reflect-padded)."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models.swinir import SwinIR
+
+    kw = {"scale": eng.model.scale, "embed_dim": 180, "depths": (6,) * 6,
+          "num_heads": (6,) * 6, "window_size": 8}
+    sd = {k: v.detach().cpu() * (5 if k.endswith(
+              ("qkv.weight", "proj.weight", "fc1.weight", "fc2.weight",
+               "bias_table")) else 1)
+          for k, v in eng.model.state_dict().items()}
+
+    def net(dtype, device):
+        m = SwinIR(**kw, dtype=dtype)
+        m.load_state_dict(sd)
+        return m.to(device).eval().pack()
+
+    # fp32: 36 blocks and ~20 convs summing in other orders; bf16: see
+    # SWIN_BF16_TOL. Zeroing every block's proj and fc2 moves the output
+    # by 0.84 of its largest value on the CPU, so a lost block shows.
+    tol32, tolbf = 1e-3, SWIN_BF16_TOL
+    res = {}
+    m32, mbf = net(torch.float32, "cuda"), net(torch.bfloat16, "cuda")
+    ref_model = net(torch.float32, "cpu")
+    blockless = net(torch.float32, "cpu")
+    for b in blockless.blocks():
+        b.tables["wo"].zero_()
+        b.tables["w2"].zero_()
+        b.tables["bf2"].zero_()
+    for i, (h, w) in enumerate(((40, 56), (37, 53))):
+        x = torch.from_numpy(synthetic_fields((h, w), seed=20 + i)
+                             ).float()[None] / 255.0
+        ref = ref_model(x)
+        scale = ref.abs().max().item()
+        trunk = (blockless(x) - ref).abs().max().item() / scale
+        outs = {"fp32": m32(x.cuda()), "bf16": mbf(x.cuda()),
+                "bf16_attn": at_level("attn", lambda: mbf(x.cuda()))}
+        rels = {k: (o.cpu() - ref).abs().max().item() / scale
+                for k, o in outs.items()}
+        emit({"phase": "swin_main", "check": "full swinir_x4 vs fp32 plain "
+              "on CPU", "image": [h, w], "ref_max_abs": scale,
+              "rel_change_without_blocks": trunk, "rel_err": rels,
+              "tol_fp32": tol32, "tol_bf16": tolbf})
+        if not (rels["fp32"] <= tol32 and rels["bf16"] <= tolbf
+                and rels["bf16_attn"] <= tolbf and np.isfinite(scale)
+                and trunk > 5 * tolbf):
+            raise AssertionError(f"full SwinIR disagrees with the plain "
+                                 f"path at {h}x{w}: {rels}, blocks move "
+                                 f"the output by {trunk}")
+        for k, v in rels.items():
+            res[k] = max(res.get(k, 0.0), v)
+    return res
+
+
+def phase_swin_main(state):
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields, synthetic_scene
+    from s2sr_tpu_torch.models import engine as engine_mod
+    from s2sr_tpu_torch.ops import window_attention as wa
+    from s2sr_tpu_torch.pipelines.wow_sr import process_wow_sr
+    from s2sr_tpu_torch.tiles.png import decode_png
+
+    t0 = time.perf_counter()
+    work = state["work"]
+    weights = str(work / "weights")              # empty: random init
+    eng = engine_mod.get_engine("swinir_x4", weights_dir=weights,
+                                device="cuda")
+    blocks = eng.model.blocks()
+    if (eng.dtype != torch.bfloat16 or len(blocks) != SWIN_BLOCKS
+            or eng.model.conv_first.out_channels != 180
+            or {(b.heads, b.window) for b in blocks} != {(6, 8)}):
+        raise AssertionError("main path must be full-width bf16 swinir_x4")
+
+    # the plain versions must not run on the card in this phase
+    plain = {"swin_block_reference": wa.swin_block_reference,
+             "window_attention_reference": wa.window_attention_reference}
+
+    def guard(name):
+        def refuse(x, t):
+            if x.is_cuda:
+                raise AssertionError(f"{name} ran on the card on the main path")
+            return plain[name](x, t)
+        return refuse
+
+    for name in plain:
+        setattr(wa, name, guard(name))
+    try:
+        for k in wa.LAUNCHES:
+            wa.LAUNCHES[k] = 0
+        forwards = 0
+        # 1. process_wow_sr on a 512×384 scene: the exact path, one forward
+        tif = work / "swin_exact_512x384.tif"
+        synthetic_scene(tif, size=(512, 384), seed=4)
+        chunks0 = eng.chunks_dispatched
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        result = process_wow_sr(tif, work / "out_swin", model="swinir_x4",
+                                weights_dir=weights, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        forwards += 1
+        meta = result["sr_metadata"]
+        png = decode_png(Path(result["outputs"]["sr_png"]).read_bytes())
+        if (png.shape != (2048, 1536, 3) or meta["output_size"] != [2048, 1536]
+                or meta["precision"] != "bfloat16"
+                or eng.chunks_dispatched != chunks0
+                or wa.LAUNCHES["swin_block"] != SWIN_BLOCKS):
+            raise AssertionError(f"swin exact 512x384: png {png.shape}, "
+                                 f"meta {meta}, launches {wa.LAUNCHES}")
+        stages = {s["name"]: s["seconds"] for s in meta["timing"]["stages"]}
+        emit({"phase": "swin_main", "scene": "exact_512x384",
+              "swin_block_launches": wa.LAUNCHES["swin_block"],
+              "seconds": round(secs, 3), "stages": stages,
+              "png_mean": float(png.mean())})
+
+        # 2. the halo-tiled engine path: 600×520 → 9 windows of 288²
+        eng_t = engine_mod.get_engine("swinir_x4", weights_dir=weights,
+                                      device="cuda", exact_area=0)
+        img = synthetic_fields((600, 520), seed=5)
+        wins = eng_t._serving_parts(img)[0]
+        before, chunks0 = wa.LAUNCHES["swin_block"], eng_t.chunks_dispatched
+        t1 = time.perf_counter()
+        out = eng_t.enhance_serving(img)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        chunks = eng_t.chunks_dispatched - chunks0
+        launches = wa.LAUNCHES["swin_block"] - before
+        forwards += chunks
+        if (wins.shape != (9, 288, 288, 3) or out.shape != (2400, 2080, 3)
+                or launches != SWIN_BLOCKS * chunks or chunks == 0):
+            raise AssertionError(f"swin tiled 600x520: windows {wins.shape}, "
+                                 f"out {out.shape}, {launches} launches for "
+                                 f"{chunks} chunks")
+        emit({"phase": "swin_main", "scene": "tiled_600x520",
+              "windows": list(wins.shape), "chunks": chunks,
+              "swin_block_launches": launches, "seconds": round(secs, 3),
+              "out_mean": float(out.mean())})
+
+        # 3. a 3×5 upload: the reflect pad to 8×8 passes both sides
+        up = np.random.default_rng(6).integers(0, 256, (3, 5, 3)).astype(
+            np.uint8)
+        before = wa.LAUNCHES["swin_block"]
+        out = eng.enhance_serving(up)
+        forwards += 1
+        if (out.shape != (12, 20, 3) or out.dtype != np.uint8
+                or wa.LAUNCHES["swin_block"] - before != SWIN_BLOCKS):
+            raise AssertionError(f"3x5 upload: {out.shape} {out.dtype}")
+        emit({"phase": "swin_main", "scene": "upload_3x5",
+              "out_shape": list(out.shape), "out_mean": float(out.mean())})
+
+        # 4. S2SR_SWINIR_FUSED_LEVEL=attn: one forward on the attention
+        # kernel, against the block-kernel forward
+        x = torch.from_numpy(synthetic_fields((64, 48), seed=7)).cuda() \
+            .float()[None] / 255.0
+        before = dict(wa.LAUNCHES)
+        out_b = eng.model(x)
+        out_a = at_level("attn", lambda: eng.model(x))
+        torch.cuda.synchronize()
+        forwards += 1
+        d_block = wa.LAUNCHES["swin_block"] - before["swin_block"]
+        d_attn = wa.LAUNCHES["window_attention"] - before["window_attention"]
+        rel = ((out_a - out_b).abs().max() / out_b.abs().max()).item()
+        emit({"phase": "swin_main", "check": "attn level vs block level",
+              "image": [64, 48], "rel_diff": rel, "tol": SWIN_BF16_TOL,
+              "swin_block_launches": d_block,
+              "window_attention_launches": d_attn})
+        if (d_block != SWIN_BLOCKS or d_attn != SWIN_BLOCKS
+                or not rel <= SWIN_BF16_TOL):
+            raise AssertionError(f"attn level: launches {d_block}/{d_attn}, "
+                                 f"rel diff {rel}")
+        torch.cuda.synchronize()
+        main_launches = dict(wa.LAUNCHES)
+    finally:
+        for name, fn in plain.items():
+            setattr(wa, name, fn)
+    if main_launches["swin_block"] != SWIN_BLOCKS * forwards:
+        raise AssertionError(f"{main_launches} swin_block launches for "
+                             f"{forwards} block-level forwards")
+    state["swin_launches"] = main_launches
+    state["swin_engine"] = eng
+    state["swin_model_rel_err"] = check_swin_against_plain(eng)
+    wa.LAUNCHES.update(main_launches)
+    emit({"phase": "swin_main", "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def phase_swin_numbers(state):
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models import engine as engine_mod
+    from s2sr_tpu_torch.ops import window_attention as wa
+
+    t0 = time.perf_counter()
+    card = state.get("card") or card_line()
+    launches0 = dict(wa.LAUNCHES)
+    shape, dtype = (1, 512, 512), torch.bfloat16
+    numbers = {}
+    for name, (fn, ref, _) in swin_kernels().items():
+        per_shift = {}
+        for shift in (0, 4):
+            x, t, _ = swin_inputs(shape, dtype, shift)
+            per_shift[shift] = (time_cuda(lambda: fn(x, t), iters=10),
+                                time_cuda(lambda: ref(x, t), iters=5))
+            del x, t
+        # the main path runs both shifts equally often
+        ms = sum(v[0] for v in per_shift.values()) / 2
+        plain_ms = sum(v[1] for v in per_shift.values()) / 2
+        bound_ms, bound_by = swin_bound_ms(name, shape, dtype)
+        numbers[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+        emit({"phase": "swin_numbers", "card": card, "kernel": name,
+              "shape": [*shape, 180], "dtype": "bfloat16",
+              "ms_by_shift": {s: v[0] for s, v in per_shift.items()},
+              "plain_ms_by_shift": {s: v[1] for s, v in per_shift.items()},
+              **numbers[name],
+              "tflops": SWIN_FLOP_PER_TOKEN[name] * 512 * 512 / ms / 1e9})
+        torch.cuda.empty_cache()
+    wa.LAUNCHES.update(launches0)
+    # warm 512² exact enhance_serving
+    eng = state.get("swin_engine") or engine_mod.get_engine(
+        "swinir_x4", weights_dir=str(state["work"] / "weights"),
+        device="cuda")
+    img = synthetic_fields((512, 512), seed=3)
+    eng.enhance_serving(img)
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        eng.enhance_serving(img)
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - t1)
+    emit({"phase": "swin_numbers", "card": card, "sr_512_seconds": reps,
+          "sr_512_mpix_per_s": 512 * 512 / min(reps) / 1e6})
+    emit({"phase": "swin_numbers", "card": card,
+          "profile": "one warm 512² swinir_x4 enhance_serving",
+          **device_breakdown(lambda: eng.enhance_serving(img))})
+    wa.LAUNCHES.update(launches0)
+    state["swin_numbers"] = numbers
+    emit({"phase": "swin_numbers",
+          "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def kernels_record(state) -> list | None:
+    """The kernels' JSON record, or None if a phase it needs did not run."""
+    if not {"rdb_numbers", "main_launches", "swin_numbers",
+            "swin_launches", "swin_err"} <= state.keys():
+        return None
+    rows = [{"name": "rdb", "route": "cuda",
+             "source": "s2sr_tpu_torch/csrc/rdb.cu",
+             "replaces": "s2sr_tpu/ops/pallas/fused_rdb_v4.py:234",
+             "launches": state["main_launches"],
+             "max_abs_err": state["rdb_max_abs_err"],
+             "rel_err": state["rdb_rel_err"],
+             **state["rdb_numbers"], "library_ms": None}]
+    for name in ("swin_block", "window_attention"):
+        err, rel = state["swin_err"][name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "s2sr_tpu_torch/csrc/window_attention.cu",
+                     "replaces": SWIN_REPLACES[name],
+                     "launches": state["swin_launches"][name],
+                     "max_abs_err": err, "rel_err": rel,
+                     **state["swin_numbers"][name], "library_ms": None})
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -503,18 +983,13 @@ def main() -> int:
             emit({"phase_done": phase,
                   "seconds": round(time.perf_counter() - t1, 3)})
     card = state.get("card") or card_line()
+    kernels = kernels_record(state)
+    if kernels is not None and any(r["launches"] == 0 for r in kernels):
+        raise AssertionError(f"a kernel never ran on its path: {kernels}")
     print(card, flush=True)
-    if "rdb_numbers" in state and "main_launches" in state:
-        emit({"kernels": [{
-            "name": "rdb", "route": "cuda",
-            "source": "s2sr_tpu_torch/csrc/rdb.cu",
-            "replaces": "s2sr_tpu/ops/pallas/fused_rdb_v4.py:234",
-            "launches": state["main_launches"],
-            "max_abs_err": state["rdb_max_abs_err"],
-            "rel_err": state["rdb_rel_err"],
-            **state["rdb_numbers"], "library_ms": None}],
-            "card": card,
-            "total_seconds": round(time.perf_counter() - t0, 3)})
+    if kernels is not None:
+        emit({"kernels": kernels, "card": card,
+              "total_seconds": round(time.perf_counter() - t0, 3)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,19 +1,24 @@
-"""SR inference engine for the ``rrdbnet`` family (the port of
-``s2sr_tpu/models/engine.py``).
+"""SR inference engine for the ``rrdbnet`` and ``swinir`` families (the
+port of ``s2sr_tpu/models/engine.py``).
 
 Contract, as in the JAX engine:
 - input uint8 (H, W, 3), output uint8 (sH, sW, 3);
 - ``/255`` in, ``trunc(clip(x·255))`` out (truncation, not rounding);
 - the network sees **BGR** (channel flip), so released weights give the
   reference's pixels;
-- images with ``H·W > tile²·4`` are halo-tiled; smaller ones zero-pad
-  to a 64-multiple bucket with a 0/1 mask, which is exact.
+- images with ``H·W`` above the engage area are halo-tiled. RRDBNet:
+  area ``tile²·4``, and smaller images zero-pad to a 64-multiple bucket
+  with a 0/1 mask, which is exact. SwinIR: area
+  ``max(tile²·4, SWINIR_EXACT_AREA)`` (its tiled path is approximate),
+  smaller images run the exact per-shape forward, and the halo is at
+  least 16 px.
 
 The serving path (:meth:`SREngine.enhance_serving`) cuts every image
 into fixed windows that run in power-of-two chunks of at most
-``batch_size``; each chunk's trunk runs its 69 residual dense blocks
-through the fused kernel. PyTorch runs eagerly, so there is no
-per-shape compile; the engine runs on ``cuda`` unless ``device="cpu"``.
+``batch_size``; each chunk's trunk runs its 69 residual dense blocks, or
+36 Swin blocks, through the hand-written kernels. PyTorch runs eagerly,
+so there is no per-shape compile; the engine runs on ``cuda`` unless
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from ..parallel.tiling import TilePlan, bucket_pad, tiled_apply
 from ..utils import setup_logging
 from .registry import get_model_config
 from .rrdbnet import RRDBNet
-from .weights import resolve_params
+from .swinir import SwinIR
+from .weights import resolve_params, swinir_kwargs
 
 logger = setup_logging("s2sr_tpu_torch.engine")
 
@@ -38,6 +44,9 @@ logger = setup_logging("s2sr_tpu_torch.engine")
 _HALO_MARGIN_MAX_LSB = 0.25
 _HALO_PAD_LADDER = (6, 8, 10)
 _MAX_INFLIGHT = 3
+# SwinIR's tiled path is approximate at any halo, so images up to this
+# area run the exact whole-image forward (engine.py of the JAX package)
+SWINIR_EXACT_AREA = 2560 * 2560
 
 
 def resolve_device(device) -> torch.device:
@@ -92,7 +101,7 @@ def _memoized_probe(fingerprint, model, scale, dtype, pad, device) -> float:
 
 
 class SREngine:
-    """A loaded RRDBNet super-resolution model on one device."""
+    """A loaded RRDBNet or SwinIR super-resolution model on one device."""
 
     def __init__(
         self,
@@ -108,11 +117,12 @@ class SREngine:
         device: str | torch.device = "cuda",
     ):
         config = get_model_config(model_name)
-        if config["family"] == "swinir":
-            raise NotImplementedError(
-                "SwinIR serving is not ported yet (ROADMAP queue 1 item 10)")
-        if config["family"] != "rrdbnet":
-            raise ValueError(f"SREngine drives rrdbnet models, got {model_name}")
+        self.family = config["family"]
+        if self.family not in ("rrdbnet", "swinir"):
+            raise ValueError(
+                f"SREngine drives rrdbnet/swinir models, got {model_name}")
+        if dtype == "int8" and self.family == "swinir":
+            raise ValueError("dtype='int8' is only supported for rrdbnet")
         if dtype == "int8":
             raise NotImplementedError(
                 "the int8-mixed trunk is not ported yet (ROADMAP queue 1 "
@@ -127,17 +137,29 @@ class SREngine:
         self.batch_size = batch_size
         self.dtype = torch.float32 if dtype == "float32" else torch.bfloat16
         self.bgr_order = bgr_order
-        self.engage_area = (int(exact_area) if exact_area is not None
-                            else tile_size * tile_size * 4)
-        # batches beyond 16 windows run the upsample tail in groups of 16
+        if exact_area is not None:
+            self.engage_area = int(exact_area)
+        elif self.family == "swinir":
+            self.engage_area = max(tile_size * tile_size * 4,
+                                   SWINIR_EXACT_AREA)
+        else:
+            self.engage_area = tile_size * tile_size * 4
+        # batches beyond 16 windows run the RRDBNet upsample tail in
+        # groups of 16
         self.up_sub = 16 if batch_size > 16 else None
         self.chunks_dispatched = 0
 
         sd, self.pretrained = resolve_params(model_name, weights_dir)
-        self.model = RRDBNet(
-            num_in_ch=config.get("num_in_ch", 3), num_feat=config["channels"],
-            num_block=config["blocks"], num_grow_ch=config["growth"],
-            scale=self.scale, dtype=self.dtype)
+        if self.family == "swinir":
+            # halo 16, as the reference's SwinIR wrapper
+            self.tile_pad = max(tile_pad, 16)
+            self.model = SwinIR(**swinir_kwargs(config), dtype=self.dtype)
+        else:
+            self.model = RRDBNet(
+                num_in_ch=config.get("num_in_ch", 3),
+                num_feat=config["channels"], num_block=config["blocks"],
+                num_grow_ch=config["growth"], scale=self.scale,
+                dtype=self.dtype)
         self.model.load_state_dict(sd)
         self.model.to(self.device).eval().pack()
         if not self.pretrained:
@@ -146,9 +168,11 @@ class SREngine:
                 "(offline environment); drop the released .pth there for "
                 "real quality", model_name, weights_dir)
 
-        # halo-exactness guard for loaded checkpoints (random init skips)
+        # halo-exactness guard for loaded RRDBNet checkpoints (random init
+        # skips; SwinIR's tiled path is approximate, so it has no probe)
         self.halo_margin_lsb: float | None = None
-        if pad_probe and self.pretrained and self.tile_pad < max(_HALO_PAD_LADDER):
+        if (pad_probe and self.family == "rrdbnet" and self.pretrained
+                and self.tile_pad < max(_HALO_PAD_LADDER)):
             fp = weights_fingerprint(weights_dir, model_name)
 
             def probe(pad):
@@ -177,6 +201,8 @@ class SREngine:
     # -- model and uint8 contract ----------------------------------------
 
     def _fwd(self, x: torch.Tensor, mask: torch.Tensor | None = None):
+        if self.family == "swinir":
+            return self.model(x)
         return self.model(x, mask=mask, up_sub_batch=self.up_sub)
 
     def _to_float(self, img_u8: torch.Tensor) -> torch.Tensor:
@@ -212,6 +238,8 @@ class SREngine:
             out = tiled_apply(self._fwd, x, tile=self.tile_size,
                               pad=self.tile_pad, scale=s,
                               batch_size=self.batch_size)
+        elif self.family == "swinir":
+            out = self._fwd(x[None])[0]
         else:
             hb, wb = -(-h // 64) * 64, -(-w // 64) * 64
             if hb == h and wb == w:
@@ -261,6 +289,8 @@ class SREngine:
         h, w, _ = img.shape
         win = self.tile_size + 2 * self.tile_pad
         if h * w <= self.engage_area:
+            if self.family == "swinir":
+                return None             # the exact per-shape path
             padded, mask = bucket_pad(img)
             return padded[None], {"kind": "small", "h": h, "w": w,
                                   "mask": mask[None]}

@@ -126,8 +126,16 @@ def test_halo_probe_matches_jax(tiny):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        engine_mod.SREngine("swinir_x4", weights_dir=tmp_path, device="cpu")
+    # SwinIR is ported: swinir_x4 builds on the CPU from its random init,
+    # with the reference's halo of at least 16 and the exact-area rule
+    eng = engine_mod.SREngine("swinir_x4", weights_dir=tmp_path, device="cpu")
+    assert eng.family == "swinir" and not eng.pretrained
+    assert eng.tile_pad >= 16 and eng.scale == 4
+    assert eng.engage_area == engine_mod.SWINIR_EXACT_AREA == 2560 * 2560
+    assert len(eng.model.blocks()) == 36
+    with pytest.raises(ValueError, match="only supported for rrdbnet"):
+        engine_mod.SREngine("swinir_x2", weights_dir=tmp_path, dtype="int8",
+                            device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         engine_mod.SREngine("realesrgan_anime", weights_dir=tmp_path,
                             dtype="int8", device="cpu")

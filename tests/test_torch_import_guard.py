@@ -22,7 +22,8 @@ def all_modules():
 
 def test_modules_import_with_jax_blocked():
     mods = all_modules()
-    assert "s2sr_tpu_torch.ops.rdb" in mods and len(mods) >= 25
+    assert {"s2sr_tpu_torch.ops.rdb", "s2sr_tpu_torch.ops.window_attention",
+            "s2sr_tpu_torch.models.swinir"} <= set(mods) and len(mods) >= 27
     code = "\n".join([
         "import sys",
         "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic'):",
@@ -35,6 +36,8 @@ def test_modules_import_with_jax_blocked():
         "    getattr(chip_smoke, 'phase_' + p)",
         "from s2sr_tpu_torch.ops import _build",
         "assert _build.lib_path('rdb').name.startswith('librdb_')",
+        "assert _build.lib_path('window_attention').name.startswith("
+        "'libwindow_attention_')",
         "print('ok')",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
