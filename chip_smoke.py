@@ -19,6 +19,10 @@ random weights from seed 0, each at the full width of its model:
   ``S2SR_SWINIR_FUSED_LEVEL=attn`` (phases swin_kernel, swin_main,
   swin_numbers).
 
+It also drives the RDB ablation ladder (``s2sr_tpu_torch.bench.rdb_ladder``)
+at the main path's chunk shape, whose rungs run the ``rdb_v1``, ``rdb_v2``
+and ``rdb_v3`` kernels of ``csrc/rdb_ladder.cu`` (phase ladder).
+
 It checks the outputs, that every block of each path went through its
 kernel, and times the kernels and the SR stages. Nothing is caught: any
 failure exits non-zero. The last line of standard output is
@@ -28,13 +32,14 @@ Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 
 ``--phases`` picks a subset (device, build, kernel, main, numbers,
-swin_kernel, swin_main, swin_numbers) for a quick check; the default
-runs them all.
+swin_kernel, swin_main, swin_numbers, ladder) for a quick check; the
+default runs them all.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -43,8 +48,8 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernel", "main", "numbers", "swin_kernel",
-          "swin_main", "swin_numbers")
-KERNEL_SOURCES = ("rdb", "window_attention")
+          "swin_main", "swin_numbers", "ladder")
+KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder")
 
 # H100 SXM dense peaks (NVIDIA data sheet) used for the bounds
 PEAK_BF16_FLOPS = 989e12
@@ -155,8 +160,10 @@ def phase_build(state):
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         built = dict(zip(KERNEL_SOURCES, pool.map(_build.build,
                                                   KERNEL_SOURCES)))
+    # each kernel's entry line (its mangled name), registers and spills
     ptxas = {name: [ln for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln or "smem" in ln]
+                    if any(key in ln for key in ("entry function", "registers",
+                                                 "spill", "smem"))]
              for name, (_, log) in built.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_kernel_seconds": {n: b[0] for n, b in built.items()},
@@ -176,6 +183,62 @@ def drop_dense_input(w, b, i: int):
     return w
 
 
+def hold_against_plain(phase, name, run, plain, cases, tiling):
+    """Hold one fused-RDB kernel against its plain version on the card.
+
+    For fp32 and bf16 and each ``(shape, masked_hw)`` of ``cases``, the
+    inputs of :func:`rdb_inputs` go through ``run(x, w, b, mask)`` (the
+    kernel) and ``plain(x, w, b, mask)`` (its plain version, from the same
+    flat weights). The error is max |kernel − plain| over the largest
+    change the block makes, max |out − x| of the fp32 ``rdb_reference``:
+    x itself cancels, and a bf16 ulp of a large x cannot hide the block's
+    own work. Each case also runs the plain version with each of x1..x4
+    stored as zero: the kernel must sit further than the tolerance from
+    all four, or the check could not see a dense connection gone wrong.
+    Raises on any failure; returns the worst bf16 (abs, rel) error."""
+    import torch
+
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+
+    tol = {torch.float32: 1e-4, torch.bfloat16: 0.05}
+    worst_abs = worst_rel = 0.0
+    failures = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, masked_hw in cases:
+            x, w, b, mask = rdb_inputs(shape, dtype, masked_hw)
+            got = run(x, w, b, mask).float()
+            torch.cuda.synchronize()
+            change = (rdb_mod.rdb_reference(x.float(), w, b, mask)
+                      - x.float()).abs().max().item()
+
+            def err_vs(wt):
+                return (got - plain(x, wt, b, mask).float()).abs().max().item()
+
+            err = err_vs(w)
+            faults = {f"x{i}_zero": err_vs(drop_dense_input(w, b, i)) / change
+                      for i in (1, 2, 3, 4)}
+            rel = err / change
+            finite = bool(torch.isfinite(got).all().item())
+            emit({"phase": phase, "kernel": name, "dtype": str(dtype),
+                  "shape": list(shape), "masked": masked_hw is not None,
+                  **tiling(dtype), "max_abs_err": err, "max_change": change,
+                  "rel_err": rel, "tolerance": tol[dtype],
+                  "rel_err_vs_planted_fault": faults, "finite": finite})
+            case = f"{name} {dtype} {shape} masked={masked_hw}"
+            if not finite or not rel <= tol[dtype]:
+                failures.append(f"{case}: rel err {rel} over {tol[dtype]}")
+            if not min(faults.values()) > tol[dtype]:
+                failures.append(f"{case}: a planted fault is within "
+                                f"tolerance {faults}")
+            if dtype == torch.bfloat16:
+                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            del x, w, b, mask, got
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"{name} kernel vs plain:\n" + "\n".join(failures))
+    return worst_abs, worst_rel
+
+
 def phase_kernel(state):
     import torch
 
@@ -183,63 +246,19 @@ def phase_kernel(state):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    # The error is max |kernel - plain| over the largest change the block
-    # makes, max |out - x| of the fp32 plain version: x itself cancels,
-    # and a bf16 ulp of a large x cannot hide the block's own work.
-    # fp32: the two sum the 1,728 products of each output in different
-    # orders (cuDNN may pick Winograd/FFT), ~1e-6 of the change.
-    # bf16: the plain version rounds to bf16 after every conv and add,
-    # the kernel only where it stores.
-    # Each case also runs the plain version with each of x1..x4 stored
-    # as zero: the kernel must sit further than the tolerance from all
-    # four, or the check could not see a dense connection gone wrong.
-    tol = {torch.float32: 1e-4, torch.bfloat16: 0.05}
+    # fp32: the kernel and the plain version sum the 1,728 products of
+    # each output in different orders (cuDNN may pick Winograd/FFT), ~1e-6
+    # of the change. bf16: the plain version rounds to bf16 after every
+    # conv and add, the kernel only where it stores.
     cases = [((2, 70, 50), None), ((2, 70, 50), (61, 37)),
              ((16, 264, 264), None), ((1, 576, 448), (576, 432))]
-    worst_abs = worst_rel = 0.0
-    failures = []
     t0 = time.perf_counter()
     launches0 = rdb_mod.LAUNCHES
-    for dtype in (torch.float32, torch.bfloat16):
-        tiling = rdb_mod.kernel_tiling(dtype)
-        for shape, masked_hw in cases:
-            x, w, b, mask = rdb_inputs(shape, dtype, masked_hw)
-            got = rdb_mod.rdb(x, w, b, mask).float()
-            torch.cuda.synchronize()
-            change = (rdb_mod.rdb_reference(x.float(), w, b, mask)
-                      - x.float()).abs().max().item()
-
-            def err_vs(wt):
-                want = rdb_mod.rdb_reference(x, wt, b, mask).float()
-                return (got - want).abs().max().item()
-
-            err = err_vs(w)
-            faults = {f"x{i}_zero": err_vs(drop_dense_input(w, b, i)) / change
-                      for i in (1, 2, 3, 4)}
-            rel = err / change
-            finite = bool(torch.isfinite(got).all().item())
-            emit({"phase": "kernel", "kernel": "rdb", "dtype": str(dtype),
-                  "shape": list(shape), "masked": masked_hw is not None,
-                  "tile": tiling["tile"], "smem_bytes": tiling["smem_bytes"],
-                  "max_abs_err": err, "max_change": change,
-                  "rel_err": rel, "tolerance": tol[dtype],
-                  "rel_err_vs_planted_fault": faults, "finite": finite})
-            if not finite or not rel <= tol[dtype]:
-                failures.append(f"{dtype} {shape} masked={masked_hw}: "
-                                f"rel err {rel} over {tol[dtype]}")
-            if not min(faults.values()) > tol[dtype]:
-                failures.append(f"{dtype} {shape} masked={masked_hw}: a "
-                                f"planted fault is within tolerance {faults}")
-            if dtype == torch.bfloat16:
-                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-            del x, w, b, mask, got
-            torch.cuda.empty_cache()
+    state["rdb_max_abs_err"], state["rdb_rel_err"] = hold_against_plain(
+        "kernel", "rdb", rdb_mod.rdb, rdb_mod.rdb_reference, cases,
+        rdb_mod.kernel_tiling)
     # comparison launches are not main-path launches
     rdb_mod.LAUNCHES = launches0
-    if failures:
-        raise AssertionError("rdb kernel vs plain:\n" + "\n".join(failures))
-    state["rdb_max_abs_err"] = worst_abs
-    state["rdb_rel_err"] = worst_rel
     emit({"phase": "kernel", "seconds": round(time.perf_counter() - t0, 3)})
 
 
@@ -928,10 +947,91 @@ def phase_swin_numbers(state):
           "seconds": round(time.perf_counter() - t0, 3)})
 
 
+# --- the RDB ablation ladder: rdb_v1, rdb_v2 and rdb_v3 --------------------
+
+LADDER_REPLACES = {"v1": "s2sr_tpu/ops/pallas/fused_rdb.py:219",
+                   "v2": "s2sr_tpu/ops/pallas/fused_rdb.py:472",
+                   "v3": "s2sr_tpu/ops/pallas/fused_rdb.py:673"}
+# the ladder at the main path's chunk shape: chains of 12 per variant,
+# one untimed and two timed
+LADDER_SHAPE, LADDER_CHAIN, LADDER_RUNS = (16, 264, 264), 12, 2
+
+
+def on_flat_weights(fn, rung: str):
+    """A rung's ``fn(x, packed)`` as ``f(x, w, b, mask)`` on the flat
+    weights of ``ops/rdb.py`` (the rungs take no mask)."""
+    from s2sr_tpu_torch.ops import rdb_ladder as lad
+
+    return lambda x, w, b, mask: fn(x, lad.pack_ladder_weights(w, b, rung,
+                                                               x.dtype))
+
+
+def phase_ladder(state):
+    import torch
+
+    from s2sr_tpu_torch.bench import rdb_ladder as bench
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.ops import rdb_ladder as lad
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    card = state.get("card") or card_line()
+    # Each rung against its own plain version, as phase kernel holds rdb,
+    # on an image smaller than a tile, a ragged one and the chunk shape.
+    # fp32: the two sum each product in other orders. bf16: both round at
+    # the same places (every product output and slot add in v2/v3; p1..p4
+    # and x_k in v1), so only a sum landing near a rounding tie differs.
+    cases = [(shape, None) for shape in ((1, 12, 12), (2, 70, 50),
+                                         LADDER_SHAPE)]
+    launches0 = dict(lad.LAUNCHES)
+    worst = {}
+    for rung in lad.RUNGS:
+        worst[rung] = hold_against_plain(
+            "ladder", f"rdb_{rung}", on_flat_weights(lad.WRAPPERS[rung], rung),
+            on_flat_weights(lad.REFERENCES[rung], rung), cases,
+            functools.partial(lad.kernel_tiling, rung))
+    # comparison launches are not the ladder's launches
+    lad.LAUNCHES.update(launches0)
+
+    # the ladder itself, as `python -m s2sr_tpu_torch.bench.rdb_ladder`
+    # runs it; its v4 launches are not main-path launches of rdb
+    rdb0 = rdb_mod.LAUNCHES
+    for k in lad.LAUNCHES:
+        lad.LAUNCHES[k] = 0
+    lines = bench.ladder(bench.VARIANTS, LADDER_SHAPE, LADDER_CHAIN,
+                         LADDER_RUNS, "cuda",
+                         emit=lambda obj: emit({"phase": "ladder", **obj}))
+    torch.cuda.synchronize()
+    launches = dict(lad.LAUNCHES)
+    rdb_mod.LAUNCHES = rdb0
+    per_launch = {ln["variant"]: ln["ms_per_launch"] for ln in lines}
+
+    # each rung's plain version at the same shape, for the record
+    bound_ms, bound_by = rdb_bound_ms(LADDER_SHAPE, torch.bfloat16,
+                                      masked=False)
+    numbers = {}
+    for rung in lad.RUNGS:
+        x, w, b, _ = rdb_inputs(LADDER_SHAPE, torch.bfloat16)
+        pk = lad.pack_ladder_weights(w, b, rung, torch.bfloat16)
+        plain_ms = time_cuda(lambda: lad.REFERENCES[rung](x, pk), iters=3,
+                             warmup=1)
+        numbers[rung] = {"ms": per_launch[rung], "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+        emit({"phase": "ladder", "card": card, "kernel": f"rdb_{rung}",
+              "shape": list(LADDER_SHAPE), "dtype": "bfloat16",
+              "ladder_launches": launches[rung], **numbers[rung]})
+        del x, w, b, pk
+        torch.cuda.empty_cache()
+    state["ladder"] = {"launches": launches, "numbers": numbers,
+                       "err": worst}
+    emit({"phase": "ladder", "seconds": round(time.perf_counter() - t0, 3)})
+
+
 def kernels_record(state) -> list | None:
     """The kernels' JSON record, or None if a phase it needs did not run."""
     if not {"rdb_numbers", "main_launches", "swin_numbers",
-            "swin_launches", "swin_err"} <= state.keys():
+            "swin_launches", "swin_err", "ladder"} <= state.keys():
         return None
     rows = [{"name": "rdb", "route": "cuda",
              "source": "s2sr_tpu_torch/csrc/rdb.cu",
@@ -948,6 +1048,14 @@ def kernels_record(state) -> list | None:
                      "launches": state["swin_launches"][name],
                      "max_abs_err": err, "rel_err": rel,
                      **state["swin_numbers"][name], "library_ms": None})
+    lad = state["ladder"]
+    for rung, replaces in LADDER_REPLACES.items():
+        err, rel = lad["err"][rung]
+        rows.append({"name": f"rdb_{rung}", "route": "cuda",
+                     "source": "s2sr_tpu_torch/csrc/rdb_ladder.cu",
+                     "replaces": replaces, "launches": lad["launches"][rung],
+                     "max_abs_err": err, "rel_err": rel,
+                     **lad["numbers"][rung], "library_ms": None})
     return rows
 
 

@@ -281,6 +281,20 @@ int launch(const void* x, const void* mask, void* out, const void* w,
 constexpr int TILE_BF16 = 16;
 constexpr int TILE_F32 = 8;
 
+// Multiply-adds one block executes for its output tile, halo recompute
+// included: run_stage's tasks cover each stage's region in whole pixel
+// groups, every task over COUT columns and 9 * CIN taps.
+template <int TILE>
+constexpr long long macs_per_tile() {
+  long long macs = 0;
+  for (int s = 1; s <= 5; ++s) {
+    const int rs = TILE + 2 * (HALO - s);
+    const int groups = (rs * rs + 32 * PIX - 1) / (32 * PIX);
+    macs += (long long)groups * 32 * PIX * stage_cout(s) * 9 * stage_cin(s);
+  }
+  return macs;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x, out: (B, H, W, 64) contiguous;
@@ -307,4 +321,9 @@ extern "C" int s2sr_rdb_tile(int dtype) {
 extern "C" long long s2sr_rdb_smem_bytes(int dtype) {
   return dtype == 0 ? (long long)smem_bytes<float, TILE_F32>()
                     : (long long)smem_bytes<__nv_bfloat16, TILE_BF16>();
+}
+
+// Multiply-adds executed per output tile (halo included), by dtype.
+extern "C" long long s2sr_rdb_macs_per_tile(int dtype) {
+  return dtype == 0 ? macs_per_tile<TILE_F32>() : macs_per_tile<TILE_BF16>();
 }

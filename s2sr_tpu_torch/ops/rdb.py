@@ -37,13 +37,18 @@ _CIN = (NF, NF + G, NF + 2 * G, NF + 3 * G, NF + 4 * G)
 _COUT = (G, G, G, G, NF)
 
 
-def pack_rdb_weights(kernels, biases, dtype: torch.dtype):
-    """Five OIHW conv kernels + biases → ``(w, b)`` float32 flat buffers
-    holding values rounded to ``dtype``."""
+def check_kernel_shapes(kernels) -> None:
+    """Raise unless ``kernels`` are the five OIHW conv kernels of an RDB."""
     for k, (cin, cout) in enumerate(zip(_CIN, _COUT)):
         if tuple(kernels[k].shape) != (cout, cin, 3, 3):
             raise ValueError(f"conv{k + 1} kernel has shape "
                              f"{tuple(kernels[k].shape)}, want {(cout, cin, 3, 3)}")
+
+
+def pack_rdb_weights(kernels, biases, dtype: torch.dtype):
+    """Five OIHW conv kernels + biases → ``(w, b)`` float32 flat buffers
+    holding values rounded to ``dtype``."""
+    check_kernel_shapes(kernels)
     w = torch.cat([k.detach().to(dtype).float().permute(2, 3, 1, 0).reshape(-1)
                    for k in kernels])
     b = torch.cat([bb.detach().to(dtype).float().reshape(-1) for bb in biases])
@@ -129,18 +134,21 @@ def _lib():
         lib.s2sr_rdb_forward.restype = ctypes.c_int
         lib.s2sr_rdb_tile.argtypes = [ctypes.c_int]
         lib.s2sr_rdb_tile.restype = ctypes.c_int
-        lib.s2sr_rdb_smem_bytes.argtypes = [ctypes.c_int]
-        lib.s2sr_rdb_smem_bytes.restype = ctypes.c_longlong
+        for name in ("s2sr_rdb_smem_bytes", "s2sr_rdb_macs_per_tile"):
+            getattr(lib, name).argtypes = [ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_longlong
         lib._s2sr_typed = True
     return lib
 
 
 def kernel_tiling(dtype: torch.dtype) -> dict:
-    """The kernel's output tile side and shared-memory bytes per block."""
+    """The kernel's output tile side, shared-memory bytes per block and
+    multiply-adds executed per tile (halo recompute included)."""
     lib = _lib()
     code = _DTYPE_CODE[dtype]
     return {"tile": int(lib.s2sr_rdb_tile(code)),
-            "smem_bytes": int(lib.s2sr_rdb_smem_bytes(code))}
+            "smem_bytes": int(lib.s2sr_rdb_smem_bytes(code)),
+            "macs_per_tile": int(lib.s2sr_rdb_macs_per_tile(code))}
 
 
 def _check(x, w, b, mask):

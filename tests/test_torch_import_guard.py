@@ -23,7 +23,8 @@ def all_modules():
 def test_modules_import_with_jax_blocked():
     mods = all_modules()
     assert {"s2sr_tpu_torch.ops.rdb", "s2sr_tpu_torch.ops.window_attention",
-            "s2sr_tpu_torch.models.swinir"} <= set(mods) and len(mods) >= 27
+            "s2sr_tpu_torch.models.swinir", "s2sr_tpu_torch.ops.rdb_ladder",
+            "s2sr_tpu_torch.bench.rdb_ladder"} <= set(mods) and len(mods) >= 29
     code = "\n".join([
         "import sys",
         "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic'):",
@@ -38,6 +39,10 @@ def test_modules_import_with_jax_blocked():
         "assert _build.lib_path('rdb').name.startswith('librdb_')",
         "assert _build.lib_path('window_attention').name.startswith("
         "'libwindow_attention_')",
+        "assert _build.lib_path('rdb_ladder').name.startswith("
+        "'librdb_ladder_')",
+        "assert 'ladder' in chip_smoke.PHASES",
+        "assert 'rdb_ladder' in chip_smoke.KERNEL_SOURCES",
         "print('ok')",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
