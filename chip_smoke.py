@@ -21,7 +21,10 @@ random weights from seed 0, each at the full width of its model:
 
 It also drives the RDB ablation ladder (``s2sr_tpu_torch.bench.rdb_ladder``)
 at the main path's chunk shape, whose rungs run the ``rdb_v1``, ``rdb_v2``
-and ``rdb_v3`` kernels of ``csrc/rdb_ladder.cu`` (phase ladder).
+and ``rdb_v3`` kernels of ``csrc/rdb_ladder.cu`` (phase ladder), and the
+matrix-unit microbenchmark (``s2sr_tpu_torch.bench.mxu`` and
+``bench.peak``), whose chains and pairs run the ``matmul_chain`` and
+``pair_chain`` kernels of ``csrc/matmul_chain.cu`` (phase mxu).
 
 It checks the outputs, that every block of each path went through its
 kernel, and times the kernels and the SR stages. Nothing is caught: any
@@ -32,7 +35,7 @@ Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 
 ``--phases`` picks a subset (device, build, kernel, main, numbers,
-swin_kernel, swin_main, swin_numbers, ladder) for a quick check; the
+swin_kernel, swin_main, swin_numbers, ladder, mxu) for a quick check; the
 default runs them all.
 """
 
@@ -48,8 +51,8 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernel", "main", "numbers", "swin_kernel",
-          "swin_main", "swin_numbers", "ladder")
-KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder")
+          "swin_main", "swin_numbers", "ladder", "mxu")
+KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder", "matmul_chain")
 
 # H100 SXM dense peaks (NVIDIA data sheet) used for the bounds
 PEAK_BF16_FLOPS = 989e12
@@ -1028,10 +1031,184 @@ def phase_ladder(state):
     emit({"phase": "ladder", "seconds": round(time.perf_counter() - t0, 3)})
 
 
+# --- the matrix-unit microbenchmark: matmul_chain and pair_chain -----------
+
+MXU_REPLACES = {"matmul_chain": "scripts/bench_mxu.py:60",
+                "pair_chain": "scripts/bench_mxu.py:169"}
+MXU_M = 27840
+# the benchmark at full size: the TPU script's chains and the pairs its
+# notes measured
+MXU_KS = (192, 128, 256, 512)
+MXU_PAIRS = ((96, 160), (96, 128), (288, 128), (384, 192), (64, 128))
+# held against the plain version: (M, K, N), N None for the chain
+MXU_CASES = {"matmul_chain": [(48, 64, None), (1000, 96, None)]
+             + [(MXU_M, k, None) for k in MXU_KS],
+             "pair_chain": [(1000, 64, 128), (MXU_M, 96, 160),
+                            (MXU_M, 288, 128), (MXU_M, 384, 192)]}
+MXU_CHECK_REPEAT = 8
+# max |kernel − plain| over max |plain|: both round each float32 product
+# to bf16, but sum it in other orders, so a rounding moves by one ulp now
+# and then and the chain carries it
+MXU_TOL = 2.0 ** -5
+# the record's shapes (pairs 96×160) and repeat count
+MXU_RECORD = {"matmul_chain": (192, None, "cuda_dot", "torch_dot"),
+              "pair_chain": (96, 160, "pair", "torch_pair")}
+MXU_HI = 1024
+
+
+def mxu_inputs(m: int, k: int, n, seed: int):
+    """Zero-mean inputs on the card: x ~ N(0, 1), each weight N(0, 1) over
+    the square root of its fan-in, bf16. A chain of them stays O(1) and
+    does not collapse onto one vector, so a planted fault shows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(shape, fan_in):
+        v = rng.normal(size=shape) / np.sqrt(fan_in)
+        return torch.from_numpy(v.astype(np.float32)).to("cuda", torch.bfloat16)
+
+    x = t((m, k), 1)
+    return x, ((t((k, k), k),) if n is None else (t((k, n), k), t((n, k), n)))
+
+
+def mxu_faults(ws) -> dict:
+    """name → (weights, steps added): what the plain version computes for
+    a kernel that runs one step fewer, reads each weight in the other
+    order (transposed), or (pairs) swaps w1 and w2."""
+    def transposed(w):
+        return w.t().contiguous().view(w.shape)
+
+    out = {"one_step_fewer": (ws, -1),
+           "w_transposed": (tuple(transposed(w) for w in ws), 0)}
+    if len(ws) == 2:
+        out["w1_w2_swapped"] = ((ws[1].reshape(ws[0].shape),
+                                 ws[0].reshape(ws[1].shape)), 0)
+    return out
+
+
+def sass_counts(lib) -> dict:
+    """Per kernel of the built library, the SASS instructions that show
+    the tensor cores at work (HMMA), the A loads (LDSM) and the shared
+    stores (STS), as ``cuobjdump -sass`` lists them."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"HMMA": 0, "LDSM": 0, "STS": 0}
+        elif name:
+            for op in counts[name]:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    return counts
+
+
+def phase_mxu(state):
+    import torch
+
+    from s2sr_tpu_torch.bench import mxu as bench
+    from s2sr_tpu_torch.bench import peak as peak_bench
+    from s2sr_tpu_torch.ops import _build
+    from s2sr_tpu_torch.ops import matmul_chain as mc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    card = state.get("card") or card_line()
+    sass = sass_counts(_build.lib_path("matmul_chain"))
+    emit({"phase": "mxu", "sass": sass})
+    if not sass or any(c["HMMA"] == 0 for c in sass.values()):
+        raise AssertionError(f"a matmul_chain kernel has no HMMA: {sass}")
+
+    # 1. each kernel against its plain version, staged equal to unstaged,
+    # every planted fault further than the tolerance
+    r = MXU_CHECK_REPEAT
+    failures, worst = [], {}
+    for name, cases in MXU_CASES.items():
+        fn, ref = mc.WRAPPERS[name], mc.REFERENCES[name]
+        for i, (m, k, n) in enumerate(cases):
+            x, ws = mxu_inputs(m, k, n, seed=i)
+            got = fn(x, *ws, r)
+            staged = fn(x, *ws, r, stage=True)
+            torch.cuda.synchronize()
+            want = ref(x, *ws, r).float()
+            scale = want.abs().max().item()
+            err = (got.float() - want).abs().max().item()
+            faults = {f: (got.float() - ref(x, *fws, r + dr).float()).abs()
+                      .max().item() / scale
+                      for f, (fws, dr) in mxu_faults(ws).items()}
+            finite = bool(torch.isfinite(got.float()).all().item())
+            same = torch.equal(got, staged)
+            emit({"phase": "mxu", "kernel": name, "m": m, "k": k,
+                  "n": n or k, "repeat": r,
+                  **mc.kernel_tiling(name, k, n or k, False),
+                  "max_abs_err": err, "max_abs_plain": scale,
+                  "rel_err": err / scale, "tolerance": MXU_TOL,
+                  "staged_equals_unstaged": same,
+                  "rel_err_vs_planted_fault": faults, "finite": finite})
+            case = f"{name} ({m}, {k}, {n})"
+            if not (finite and err / scale <= MXU_TOL and same):
+                failures.append(f"{case}: rel err {err / scale}, staged equal "
+                                f"{same}, finite {finite}")
+            if not min(faults.values()) > MXU_TOL:
+                failures.append(f"{case}: a planted fault is within "
+                                f"tolerance {faults}")
+            if (k, n) == MXU_RECORD[name][:2] and m == MXU_M:
+                worst[name] = (err, err / scale)
+            del x, ws, got, staged, want
+    if failures:
+        raise AssertionError("mxu kernels vs plain:\n" + "\n".join(failures))
+
+    # 2. the benchmark at full size, as `python -m s2sr_tpu_torch.bench.mxu`
+    # runs it, chains then pairs
+    for key in mc.LAUNCHES:
+        mc.LAUNCHES[key] = 0
+    lines = bench.run(MXU_KS, (), MXU_M, hi=MXU_HI,
+                      emit=lambda obj: emit({"phase": "mxu", **obj}))
+    lines += bench.run((), MXU_PAIRS, MXU_M, hi=MXU_HI,
+                       emit=lambda obj: emit({"phase": "mxu", **obj}))
+    torch.cuda.synchronize()
+    launches = dict(mc.LAUNCHES)
+    if not all(ln["finite"] for ln in lines):
+        raise AssertionError(f"a benchmark chain is not finite: {lines}")
+
+    # 3. the card's cuBLAS rate
+    peak_bench.peak(runs=3, emit=lambda obj: emit({"phase": "mxu", **obj}))
+
+    # 4. the record's numbers: K = 192 (pairs 96×160) at repeat 1024
+    launches0 = dict(mc.LAUNCHES)
+    numbers = {}
+    for name, (k, n, kernel_bench, lib_bench) in MXU_RECORD.items():
+        line = {ln["bench"]: ln for ln in lines
+                if ln["k"] == k and ln["n"] == (n or k)}
+        x, ws = mxu_inputs(MXU_M, k, n, seed=0)
+        plain_ms = time_cuda(lambda: mc.REFERENCES[name](x, *ws, MXU_HI),
+                             iters=2, warmup=1)
+        numbers[name] = {"ms": line[kernel_bench]["ms_hi"],
+                         "plain_ms": plain_ms,
+                         "bound_ms": line[kernel_bench]["bound_ms_hi"],
+                         "bound_by": "operations",
+                         "library_ms": line[lib_bench]["ms_hi"]}
+        emit({"phase": "mxu", "card": card, "kernel": name, "m": MXU_M,
+              "k": k, "n": n or k, "repeat": MXU_HI,
+              "bench_launches": launches[name], **numbers[name]})
+        del x, ws
+    mc.LAUNCHES.update(launches0)
+    state["mxu"] = {"launches": launches, "numbers": numbers, "err": worst}
+    emit({"phase": "mxu", "seconds": round(time.perf_counter() - t0, 3)})
+
+
 def kernels_record(state) -> list | None:
     """The kernels' JSON record, or None if a phase it needs did not run."""
     if not {"rdb_numbers", "main_launches", "swin_numbers",
-            "swin_launches", "swin_err", "ladder"} <= state.keys():
+            "swin_launches", "swin_err", "ladder", "mxu"} <= state.keys():
         return None
     rows = [{"name": "rdb", "route": "cuda",
              "source": "s2sr_tpu_torch/csrc/rdb.cu",
@@ -1056,6 +1233,14 @@ def kernels_record(state) -> list | None:
                      "replaces": replaces, "launches": lad["launches"][rung],
                      "max_abs_err": err, "rel_err": rel,
                      **lad["numbers"][rung], "library_ms": None})
+    mxu = state["mxu"]
+    for name, replaces in MXU_REPLACES.items():
+        err, rel = mxu["err"][name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "s2sr_tpu_torch/csrc/matmul_chain.cu",
+                     "replaces": replaces, "launches": mxu["launches"][name],
+                     "max_abs_err": err, "rel_err": rel,
+                     **mxu["numbers"][name]})
     return rows
 
 

@@ -24,7 +24,9 @@ def test_modules_import_with_jax_blocked():
     mods = all_modules()
     assert {"s2sr_tpu_torch.ops.rdb", "s2sr_tpu_torch.ops.window_attention",
             "s2sr_tpu_torch.models.swinir", "s2sr_tpu_torch.ops.rdb_ladder",
-            "s2sr_tpu_torch.bench.rdb_ladder"} <= set(mods) and len(mods) >= 29
+            "s2sr_tpu_torch.bench.rdb_ladder", "s2sr_tpu_torch.ops.matmul_chain",
+            "s2sr_tpu_torch.bench.mxu", "s2sr_tpu_torch.bench.peak"
+            } <= set(mods) and len(mods) >= 32
     code = "\n".join([
         "import sys",
         "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic'):",
@@ -43,6 +45,10 @@ def test_modules_import_with_jax_blocked():
         "'librdb_ladder_')",
         "assert 'ladder' in chip_smoke.PHASES",
         "assert 'rdb_ladder' in chip_smoke.KERNEL_SOURCES",
+        "assert _build.lib_path('matmul_chain').name.startswith("
+        "'libmatmul_chain_')",
+        "assert 'mxu' in chip_smoke.PHASES",
+        "assert 'matmul_chain' in chip_smoke.KERNEL_SOURCES",
         "print('ok')",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,0 +1,308 @@
+"""Port's matrix-unit microbenchmark (``s2sr_tpu_torch.ops.matmul_chain``,
+``s2sr_tpu_torch.bench.mxu`` and ``bench.peak``) against the JAX
+package's Pallas kernels ``_pallas_chain`` and ``_pair_chain`` of
+``scripts/bench_mxu.py``, run in interpret mode.
+
+The script's kernels take no ``interpret`` flag and read the module
+globals ``M``/``MT`` when traced, so the test loads the script as a
+module of its own and patches that module only: ``pl.pallas_call``
+becomes ``pallas_call(..., interpret=True)`` and ``M, MT = 96, 48``.
+
+On the CPU the wrappers run their plain PyTorch versions; the CUDA
+kernels are held against those versions on the card by ``chip_smoke.py``
+(phase mxu). :func:`emulate_product` replays the kernel's fragment
+indexing (``ldmatrix`` addresses, the packed B fragments, the
+accumulator layout) in numpy, so the layout the kernel relies on is
+checked here too.
+"""
+
+import functools
+import importlib.util
+import json
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+
+from s2sr_tpu_torch.bench import mxu as bench
+from s2sr_tpu_torch.bench import peak as peak_bench
+from s2sr_tpu_torch.ops import matmul_chain as mc
+
+ROOT = Path(__file__).resolve().parent.parent
+M, MT = 96, 48
+
+
+@pytest.fixture(scope="module")
+def script():
+    spec = importlib.util.spec_from_file_location(
+        "bench_mxu_under_test", ROOT / "scripts" / "bench_mxu.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def jax_mxu(script, monkeypatch):
+    """The script's module with its Pallas calls in interpret mode at
+    M, MT = 96, 48."""
+    monkeypatch.setattr(script, "pl", types.SimpleNamespace(
+        pallas_call=functools.partial(pl.pallas_call, interpret=True),
+        BlockSpec=pl.BlockSpec))
+    monkeypatch.setattr(script, "M", M)
+    monkeypatch.setattr(script, "MT", MT)
+    return script
+
+
+def zero_mean(shape, fan_in, seed):
+    """N(0, 1) / sqrt(fan_in), rounded to bf16, as float32 numpy: a chain
+    of such products stays O(1) and does not collapse onto one vector,
+    so a wrong step shows."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=shape) / np.sqrt(fan_in)
+    return torch.from_numpy(v.astype(np.float32)).bfloat16().float().numpy()
+
+
+def compare(got: torch.Tensor, want: np.ndarray) -> dict:
+    """Bit-equal, or the share of elements that differ and the largest
+    difference in bf16 ulps of the largest output."""
+    g = got.float().numpy()
+    diff = np.abs(g - want)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    return {"equal": bool((diff == 0).all()), "share": float((diff > 0).mean()),
+            "ulps": float(diff.max() / ulp)}
+
+
+# Both round each float32 product to bf16, but not bit for bit: at one
+# step the JAX kernel equals the exactly rounded product, while torch's
+# float32 CPU product sums in another order and lands 1 ulp off on
+# 0.005–0.02% of the elements. Each step mixes a row's errors into all of
+# its columns, so after 3 steps 0.26–0.61% of the elements differ, all
+# within 0.5 bf16 ulp of the largest output (measured on these inputs).
+# Allowed: 1 bf16 ulp of the largest output, on at most 0.1% of the
+# elements after one step (products) and 1% after three (chains).
+SHARE = {1: 1e-3, 3: 1e-2}
+
+
+def assert_tracks(got, want, steps):
+    r = compare(got, want)
+    assert r["equal"] or (r["ulps"] <= 1 and r["share"] <= SHARE[steps]), r
+
+
+@pytest.mark.parametrize("stage", [False, True])
+@pytest.mark.parametrize("repeat", [1, 3])
+@pytest.mark.parametrize("k", [64, 96, 192])
+def test_chain_matches_jax_pallas(jax_mxu, k, repeat, stage):
+    x = zero_mean((M, k), 1, 1)
+    w = zero_mean((k, k), k, 2)
+    want = np.asarray(jax_mxu._pallas_chain(k, repeat, stage)(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    ).astype(jnp.float32))
+    got = mc.matmul_chain(torch.from_numpy(x).bfloat16(),
+                          torch.from_numpy(w).bfloat16(), repeat, stage)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, k)
+    assert_tracks(got, want, repeat)
+
+
+@pytest.mark.parametrize("stage", [False, True])
+@pytest.mark.parametrize("k,n", [(64, 32), (96, 128)])
+def test_pair_matches_jax_pallas(jax_mxu, k, n, stage):
+    x = zero_mean((M, k), 1, 3)
+    w1 = zero_mean((k, n), k, 4)
+    w2 = zero_mean((n, k), n, 5)
+    want = np.asarray(jax_mxu._pair_chain(k, n, 3, stage)(
+        *(jnp.asarray(v, jnp.bfloat16) for v in (x, w1, w2))
+    ).astype(jnp.float32))
+    got = mc.pair_chain(*(torch.from_numpy(v).bfloat16() for v in (x, w1, w2)),
+                        3, stage)
+    assert got.shape == (M, k)
+    assert_tracks(got, want, 3)
+
+
+def test_chain_is_not_trivial():
+    """The zero-mean chain stays away from zero and from a step fewer, so
+    the comparisons above can see a wrong step."""
+    x = torch.from_numpy(zero_mean((M, 96), 1, 1)).bfloat16()
+    w = torch.from_numpy(zero_mean((96, 96), 96, 2)).bfloat16()
+    out = mc.matmul_chain_reference(x, w, 8).float()
+    fewer = mc.matmul_chain_reference(x, w, 7).float()
+    assert 0.3 < out.abs().max() < 30
+    assert (out - fewer).abs().max() > 0.5 * out.abs().max()
+
+
+@pytest.mark.parametrize("name", mc.KERNELS)
+def test_stage_changes_no_value(name):
+    x = torch.from_numpy(zero_mean((40, 64), 1, 6)).bfloat16()
+    ws = ((torch.from_numpy(zero_mean((64, 64), 64, 7)).bfloat16(),)
+          if name == "matmul_chain" else
+          (torch.from_numpy(zero_mean((64, 48), 64, 7)).bfloat16(),
+           torch.from_numpy(zero_mean((48, 64), 48, 8)).bfloat16()))
+    before = dict(mc.LAUNCHES)
+    plain = mc.WRAPPERS[name](x, *ws, 4)
+    staged = mc.WRAPPERS[name](x, *ws, 4, stage=True)
+    assert torch.equal(plain, staged)
+    assert torch.equal(plain, mc.REFERENCES[name](x, *ws, 4))
+    assert mc.LAUNCHES == before == {"matmul_chain": 0, "pair_chain": 0}
+
+
+@pytest.mark.parametrize("name", mc.KERNELS)
+def test_library_equals_plain_on_cpu(name):
+    x = torch.from_numpy(zero_mean((64, 96), 1, 9)).bfloat16()
+    if name == "matmul_chain":
+        ws = (torch.from_numpy(zero_mean((96, 96), 96, 10)).bfloat16(),)
+        lib = mc.matmul_chain_library(x, *ws, 5)
+    else:
+        ws = (torch.from_numpy(zero_mean((96, 32), 96, 10)).bfloat16(),
+              torch.from_numpy(zero_mean((32, 96), 32, 11)).bfloat16())
+        lib = mc.pair_chain_library(x, *ws, 5)
+    want = mc.REFERENCES[name](x, *ws, 5)
+    assert lib.dtype == torch.bfloat16
+    assert_tracks(lib, want.float().numpy(), 3)
+
+
+def emulate_product(a: np.ndarray, packed: np.ndarray, kout: int) -> np.ndarray:
+    """The kernel's ``product()`` for one warp, in float32 numpy: A
+    fragments gathered as ``ldmatrix.x4`` returns them from the addresses
+    the lanes give, B fragments read from the packed weights, each
+    m16n8k16 done from the fragments in the PTX layout, and the
+    accumulators written where the kernel writes them."""
+    kin = a.shape[1]
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    out = np.zeros((16, kout), np.float32)
+    pk = packed.reshape(kin // 16, kout // 16, 32, 8)
+    for kt in range(kin // 16):
+        # ldmatrix: lane L addresses row L % 16, column 16kt + 8(L // 16);
+        # matrix i is rows 8i..8i+7 of the addresses; lane l receives
+        # row l // 4, elements 2(l % 4), 2(l % 4) + 1 of each matrix
+        rows = lanes % 16
+        cols = 16 * kt + 8 * (lanes // 16)
+        frag = np.zeros((32, 4, 2), np.float32)
+        for i in range(4):
+            src = 8 * i + lanes // 4
+            for e in range(2):
+                frag[:, i, e] = a[rows[src], cols[src] + 2 * t + e]
+        # the A tile as m16n8k16 reads a0..a3 from the lanes
+        tile_a = np.zeros((16, 16), np.float32)
+        for i, (dr, dc) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+            for e in range(2):
+                tile_a[g + dr, 2 * t + e + dc] = frag[:, i, e]
+        for nt in range(kout // 16):
+            for j in range(2):
+                tile_b = np.zeros((16, 8), np.float32)
+                for h in range(2):
+                    for p in range(2):
+                        # b_h: rows 2t + p + 8h, column g
+                        tile_b[2 * t + p + 8 * h, g] = pk[kt, nt, :, 4 * j + 2 * h + p]
+                d = tile_a @ tile_b
+                # c0, c1 at row g, columns 2t, 2t+1; c2, c3 at row g + 8
+                col = 16 * nt + 8 * j + 2 * t
+                for e in range(2):
+                    out[g, col + e] += d[g, 2 * t + e]
+                    out[g + 8, col + e] += d[g + 8, 2 * t + e]
+    return out
+
+
+@pytest.mark.parametrize("kin,kout", [(16, 16), (64, 96), (96, 32)])
+def test_fragment_emulation_matches_matmul(kin, kout):
+    a = zero_mean((16, kin), 1, 12)
+    w = zero_mean((kin, kout), kin, 13)
+    packed = mc.pack_fragments(torch.from_numpy(w)).numpy()
+    assert packed.shape == (kin // 16, kout // 16, 8, 4, 2, 2, 2)
+    np.testing.assert_allclose(emulate_product(a, packed, kout), a @ w,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_pack_fragments_is_a_permutation():
+    w = torch.arange(32 * 48, dtype=torch.float32).reshape(32, 48)
+    packed = mc.pack_fragments(w).reshape(2, 3, 32, 8)
+    # lane 4g + t of slab (kt, nt): rows 2t, 2t+1, 2t+8, 2t+9 of column
+    # 16nt + g, then of column 16nt + 8 + g
+    kt, nt, g, t = 1, 2, 5, 3
+    want = [w[16 * kt + r, 16 * nt + 8 * j + g].item()
+            for j in range(2) for r in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)]
+    assert packed[kt, nt, 4 * g + t].tolist() == want
+    assert sorted(packed.flatten().tolist()) == w.flatten().tolist()
+
+
+@pytest.mark.parametrize("bad,err", [
+    (lambda x, w: (x.float(), w.float()), TypeError),
+    (lambda x, w: (x, w[:, :32].contiguous()), ValueError),
+    (lambda x, w: (x[:, :40].contiguous(), w[:40, :40].contiguous()), ValueError),
+    (lambda x, w: (x[:, ::2], w[::2, ::2]), ValueError),
+    (lambda x, w: (x[:0], w), ValueError),
+    (lambda x, w: (x[0], w), ValueError),
+])
+def test_chain_checks_raise(bad, err):
+    x = torch.zeros(8, 64, dtype=torch.bfloat16)
+    w = torch.zeros(64, 64, dtype=torch.bfloat16)
+    with pytest.raises(err):
+        mc.matmul_chain(*bad(x, w), 2)
+
+
+def test_pair_checks_raise():
+    x = torch.zeros(8, 64, dtype=torch.bfloat16)
+    w1 = torch.zeros(64, 32, dtype=torch.bfloat16)
+    w2 = torch.zeros(32, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        mc.pair_chain(x, w1, w1, 2)                   # w2 must be (N, K)
+    with pytest.raises(ValueError):
+        mc.pair_chain(x, w1, w2, -1)
+    big = torch.zeros(528, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        mc.pair_chain(x, big.T.contiguous(), big, 1)  # N over 512
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        mc.pair_chain(x.to("meta"), w1.to("meta"), w2.to("meta"), 1)
+
+
+def test_bench_chains_on_cpu(capsys):
+    assert bench.main(["--device", "cpu", "--m", "64", "--ks", "32", "--lo",
+                       "1", "--hi", "3", "--runs", "1"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [ln["bench"] for ln in lines] == list(bench.CHAIN_VARIANTS)
+    for ln in lines:
+        assert {"bench", "k", "n", "tf_s", "ms_lo", "ms_hi", "m", "device",
+                "card", "bound_ms_hi", "rows_per_block", "finite"} <= set(ln)
+        assert (ln["k"], ln["n"], ln["m"]) == (32, 32, 64)
+        assert ln["device"] == ln["card"] == "cpu" and ln["finite"]
+        assert ln["ms_lo"] > 0 and ln["ms_hi"] > 0 and ln["bound_ms_hi"] > 0
+        assert ln["rows_per_block"] is None
+
+
+def test_bench_pairs_on_cpu(capsys):
+    assert bench.main(["--device", "cpu", "--m", "64", "--pairs", "32x16",
+                       "--lo", "1", "--hi", "3", "--runs", "1"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [ln["bench"] for ln in lines] == list(bench.PAIR_VARIANTS)
+    for ln in lines:
+        assert (ln["k"], ln["n"], ln["m"]) == (32, 16, 64) and ln["finite"]
+        # 4·M·K·N per step at the hi repeat count, over the H100's peak
+        assert ln["bound_ms_hi"] == pytest.approx(
+            max(4 * 64 * 32 * 16 * 3 / 989e12,
+                (2 * 64 * 32 * 2 + 2 * 32 * 16 * 2) / 3.35e12) * 1e3)
+
+
+def test_bench_scales_weights_so_the_chain_stays_finite():
+    """``bench_mxu.py`` feeds unscaled uniform data, which overflows bf16
+    within tens of steps; the port scales W by 2/K (w1 by 2/K, w2 by
+    2/N), as ``bench_peak.py`` does."""
+    x, (w,) = bench.inputs(np.random.default_rng(0), 64, 96, None, "cpu")
+    assert float(w.float().sum(0).mean()) == pytest.approx(1.0, rel=0.1)
+    assert torch.isfinite(mc.matmul_chain(x, w, 64).float()).all()
+    unscaled = (w.float() * 96 / 2).bfloat16()
+    assert not torch.isfinite(mc.matmul_chain(x, unscaled, 64).float()).all()
+
+
+def test_peak_runs_on_cpu():
+    lines = []
+    summary = peak_bench.peak(shapes=((32, 16, (1, 2, 4)),), runs=1,
+                              device="cpu", emit=lines.append)
+    assert [ln["bench"] for ln in lines] == ["peak_chain", "peak_summary"]
+    assert lines[0]["m"] == 32 and lines[0]["k"] == 16
+    assert set(lines[0]["min_times_ms"]) == {"1", "2", "4"}
+    assert summary["data_sheet_tf_s"] == 989.0 and summary["card"] == "cpu"
+    assert set(summary["per_shape"]) == {"32x16x16"}
