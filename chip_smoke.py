@@ -27,7 +27,11 @@ matrix-unit microbenchmark (``s2sr_tpu_torch.bench.mxu`` and
 ``pair_chain`` kernels of ``csrc/matmul_chain.cu`` (phase mxu).
 
 It checks the outputs, that every block of each path went through its
-kernel, and times the kernels and the SR stages. Nothing is caught: any
+kernel, the main path's contracts on the card (a float32 engine with
+PyTorch's default TF32 flags within 1e-4 of the CPU, ``enhance_serving``
+byte-equal to ``enhance``, the masked bucket bit-equal to the unpadded
+forward, the WOW chain byte-equal to the CPU's), and times the kernels
+and the SR stages. Nothing is caught: any
 failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernels'
 JSON record, and the one before that the card's name and power limit.
@@ -142,6 +146,19 @@ def rdb_bound_ms(shape, dtype, masked: bool) -> tuple:
                                  else "bytes")
 
 
+def ieee_phase(phase):
+    """A phase that holds kernels against plain versions in IEEE float32:
+    TF32 off for cuDNN and cuBLAS while it runs, the process's flags as
+    they were after it."""
+    @functools.wraps(phase)
+    def run(state):
+        from s2sr_tpu_torch.utils.precision import ieee_fp32
+
+        with ieee_fp32():
+            return phase(state)
+    return run
+
+
 def phase_device(state):
     import torch
 
@@ -163,14 +180,36 @@ def phase_build(state):
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         built = dict(zip(KERNEL_SOURCES, pool.map(_build.build,
                                                   KERNEL_SOURCES)))
-    # each kernel's entry line (its mangled name), registers and spills
-    ptxas = {name: [ln for ln in log.splitlines()
-                    if any(key in ln for key in ("entry function", "registers",
-                                                 "spill", "smem"))]
-             for name, (_, log) in built.items()}
+    ptxas = {name: ptxas_summary(log) for name, (_, log) in built.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_kernel_seconds": {n: b[0] for n, b in built.items()},
           "ptxas": ptxas})
+    # the tensor-core kernels, one line each: registers and spills
+    for name, pattern in (("rdb", "rdb_tc_kernel"),
+                          ("matmul_chain", "wg_chain_kernel")):
+        emit({"phase": "build", "kernel": pattern, "ptxas": {
+            k: v for k, v in ptxas[name].items() if pattern in k}})
+
+
+def ptxas_summary(log: str) -> dict:
+    """Per kernel entry of ptxas's ``-v`` report: registers, stack frame
+    and spill bytes, e.g. ``{"_Z...": "168 reg, 0 stack, 0/0 spill"}``."""
+    import re
+
+    out, name, frame = {}, None, ""
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = f"{m.group(1)} stack, {m.group(2)}/{m.group(3)} spill"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = f"{m.group(1)} reg, {frame}"
+    return out
 
 
 def drop_dense_input(w, b, i: int):
@@ -242,13 +281,13 @@ def hold_against_plain(phase, name, run, plain, cases, tiling):
     return worst_abs, worst_rel
 
 
+@ieee_phase
 def phase_kernel(state):
     import torch
 
+    from s2sr_tpu_torch.ops import _build
     from s2sr_tpu_torch.ops import rdb as rdb_mod
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     # fp32: the kernel and the plain version sum the 1,728 products of
     # each output in different orders (cuDNN may pick Winograd/FFT), ~1e-6
     # of the change. bf16: the plain version rounds to bf16 after every
@@ -256,6 +295,11 @@ def phase_kernel(state):
     cases = [((2, 70, 50), None), ((2, 70, 50), (61, 37)),
              ((16, 264, 264), None), ((1, 576, 448), (576, 432))]
     t0 = time.perf_counter()
+    sass = sass_counts(_build.lib_path("rdb"))
+    emit({"phase": "kernel", "sass": sass})
+    tc = [c for k, c in sass.items() if "rdb_tc_kernel" in k]
+    if len(tc) != 1 or tc[0]["HMMA"] == 0:
+        raise AssertionError(f"rdb's bf16 kernel issues no HMMA: {sass}")
     launches0 = rdb_mod.LAUNCHES
     state["rdb_max_abs_err"], state["rdb_rel_err"] = hold_against_plain(
         "kernel", "rdb", rdb_mod.rdb, rdb_mod.rdb_reference, cases,
@@ -348,90 +392,210 @@ def phase_main(state):
           "equal_to_single": same})
     state["main_launches"] += launches
     state["engine"] = eng
-    check_against_plain(eng)
+    eng32 = check_against_plain(eng, work)
+    check_byte_contracts(eng, eng32)
     check_wow_chain()
     emit({"phase": "main", "seconds": round(time.perf_counter() - t0, 3)})
 
 
+def wow_op_checks() -> dict:
+    """Each op of the WOW chain alone on the card against the CPU: the
+    colour conversions over the whole 256³ cube, CLAHE on an even-tile
+    and an odd-tile channel, the blur and the weighted add. Returns
+    op → count of differing pixels."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.ops import blur, clahe, color
+
+    grid = np.meshgrid(*(np.arange(256),) * 3, indexing="ij")
+    cube = torch.from_numpy(np.stack(grid, -1).reshape(-1, 3).astype(np.uint8))
+    img = torch.from_numpy(synthetic_fields((512, 384), seed=11))
+    rng = np.random.default_rng(12)
+    odd = torch.from_numpy(rng.integers(0, 256, (67, 93)).astype(np.uint8))
+    ops = {
+        **{name: (getattr(color, name), cube) for name in (
+            "rgb_to_hsv_u8", "hsv_to_rgb_u8", "rgb_to_lab_u8",
+            "lab_to_rgb_u8")},
+        "clahe_u8_512x384": (clahe.clahe_u8, img[..., 1].contiguous()),
+        "clahe_u8_67x93": (clahe.clahe_u8, odd),
+        "gaussian_blur_u8": (lambda a: blur.gaussian_blur_u8(a, 1.2), img),
+        "add_weighted_u8": (lambda a: blur.add_weighted_u8(
+            a, 1.4, a.flip(0), -0.4), img),
+    }
+    counts = {}
+    for name, (fn, x) in ops.items():
+        cpu = fn(x)
+        gpu = fn(x.cuda()).cpu()
+        diff = cpu != gpu
+        counts[name] = int((diff.any(-1) if x.shape[-1] == 3 else diff).sum())
+    return counts
+
+
 def check_wow_chain() -> None:
-    """The WOW chain on the card against the same chain on the CPU. The
-    ops are integer or float32 elementwise; CUDA's ``powf`` and the
-    CLAHE blend may land a ``.5`` tie on the other side, which the chain
-    spreads over a few LSB of the same pixel, so bound the share of
-    pixels touched (as the CPU tests bound it against JAX)."""
+    """The WOW chain on the card against the same chain on the CPU, byte
+    for byte: first each op alone, then the chain on a 512×384 image.
+    Every float op rounds once, as IEEE has it, on both devices
+    (``ops/color.py`` says how), so no pixel may differ."""
     import numpy as np
     import torch
 
     from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
     from s2sr_tpu_torch.ops.enhance import enhance_for_crops
 
+    ops = wow_op_checks()
+    emit({"phase": "main", "check": "WOW ops on the card vs the CPU",
+          "pixels_differing": ops})
     img = torch.from_numpy(synthetic_fields((512, 384), seed=11))
     cpu = enhance_for_crops(img).numpy()
     gpu = enhance_for_crops(img.cuda()).cpu().numpy()
     diff = np.abs(cpu.astype(np.int16) - gpu.astype(np.int16))
-    touched = float(np.any(diff > 0, axis=-1).mean())
+    touched = int(np.any(diff > 0, axis=-1).sum())
     emit({"phase": "main", "check": "WOW chain on the card vs the CPU",
           "image": [512, 384], "max_abs_diff": int(diff.max()),
-          "pixels_touched": touched, "tol_pixels_touched": 0.01})
-    if gpu.shape != cpu.shape or touched > 0.01:
-        raise AssertionError(f"WOW chain on the card touches {touched} of "
-                             "the pixels the CPU chain gives")
+          "pixels_differing": touched, "tol_pixels_differing": 0})
+    if gpu.shape != cpu.shape or touched or any(ops.values()):
+        raise AssertionError(f"WOW chain on the card differs from the CPU: "
+                             f"{touched} pixels; ops {ops}")
 
 
-def check_against_plain(eng) -> None:
+def check_against_plain(eng, work: Path):
     """The main path's model on a small masked bucket, against the same
-    weights in fp32 on the CPU (where every RDB runs its plain version):
-    the fp32 kernel path and the bf16 serving path, relative to the
-    reference's largest output.
+    weights in fp32 on the CPU (where every RDB runs its plain version),
+    relative to the reference's largest output: a float32 engine with
+    the process's TF32 flags as PyTorch sets them (the model turns TF32
+    off itself, tolerance 1e-4), the same forward with TF32 forced on
+    (printed, to show the check tells the two apart), and the bf16
+    serving path.
 
     The random init scales every conv by 0.1, so its x4 output is ~1e-4
     and would hide an error. Here the RDB convs are scaled ×5 and the
     others ×4: the output spans about 0..0.7 and the 69 RDBs move it by
-    up to ~0.15 (their last convs zeroed, on the CPU)."""
+    up to ~0.15 (their last convs zeroed, on the CPU). Returns the float32
+    engine."""
+    import contextlib
+    from unittest import mock
+
     import numpy as np
     import torch
 
     from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
-    from s2sr_tpu_torch.models.rrdbnet import RRDBNet
+    from s2sr_tpu_torch.models import engine as engine_mod
+    from s2sr_tpu_torch.models import rrdbnet as rrdb_mod
     from s2sr_tpu_torch.ops import rdb as rdb_mod
     from s2sr_tpu_torch.parallel.tiling import bucket_pad
 
+    defaults = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+    if defaults != (True, False):
+        raise AssertionError(f"TF32 flags are not PyTorch's defaults: "
+                             f"{defaults}")
     launches0 = rdb_mod.LAUNCHES
     img, mask = bucket_pad(synthetic_fields((40, 52), seed=9))
     x = torch.from_numpy(img).float()[None] / 255.0
     m = torch.from_numpy(mask)[None]
-    n_block = len(eng.model.body)
     sd = {k: v.detach().cpu() * (1 if not k.endswith("weight")
                                  else 5 if k.startswith("body.") else 4)
           for k, v in eng.model.state_dict().items()}
 
     def net(dtype, device):
-        model = RRDBNet(num_block=n_block, dtype=dtype)
+        model = rrdb_mod.RRDBNet(num_block=len(eng.model.body), dtype=dtype)
         model.load_state_dict(sd)
         return model.to(device).pack()
 
     ref = net(torch.float32, "cpu")(x, mask=m)
-    out32 = net(torch.float32, "cuda")(x.cuda(), mask=m.cuda()).cpu()
+    eng32 = engine_mod.SREngine("realesrgan_x4", weights_dir=str(
+        work / "weights"), dtype="float32", device="cuda")
+    eng32.model.load_state_dict(sd)
+    eng32.model.pack()
+    out32 = eng32._fwd(x.cuda(), m.cuda()).cpu()
+    # TF32 forced: the model's own scope bypassed, cuDNN's flag on
+    with mock.patch.object(rrdb_mod, "ieee_fp32",
+                           lambda enabled=True: contextlib.nullcontext()):
+        torch.backends.cudnn.allow_tf32 = True
+        out_tf32 = eng32._fwd(x.cuda(), m.cuda()).cpu()
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = defaults
     outbf = net(torch.bfloat16, "cuda")(x.cuda(), mask=m.cuda()).cpu()
     rdb_mod.LAUNCHES = launches0
     scale = ref.abs().max().item()
     rel32 = (out32 - ref).abs().max().item() / scale
+    rel_tf32 = (out_tf32 - ref).abs().max().item() / scale
     relbf = (outbf - ref).abs().max().item() / scale
     # fp32: ~350 convs each summing in another order (~1e-7 each);
     # bf16: 8-bit mantissas through 69 blocks (0.031 for the plain
     # version in bf16 on the CPU)
-    tol32, tolbf = 1e-3, 0.1
+    tol32, tolbf = 1e-4, 0.1
     u8 = [np.trunc(np.clip(t[0, :160, :208].numpy() * 255, 0, 255))
           for t in (ref, out32)]
     emit({"phase": "main", "check": "full model vs fp32 plain on CPU",
           "image": [40, 52], "bucket": list(img.shape[:2]),
           "ref_max_abs": scale, "ref_u8_mean": float(u8[0].mean()),
-          "rel_err_fp32": rel32, "tol_fp32": tol32,
+          "tf32_flags_at_start": list(defaults),
+          "rel_err_fp32_engine_defaults": rel32, "tol_fp32": tol32,
+          "rel_err_fp32_tf32_forced": rel_tf32,
           "rel_err_bf16": relbf, "tol_bf16": tolbf,
           "u8_bytes_differing_fp32": int((u8[0] != u8[1]).sum())})
     if not (rel32 <= tol32 and relbf <= tolbf and np.isfinite(scale)):
         raise AssertionError(f"full model disagrees with the plain path: "
                              f"fp32 {rel32}, bf16 {relbf}")
+    if not rel_tf32 > rel32:
+        raise AssertionError(f"the check cannot tell TF32 ({rel_tf32}) from "
+                             f"IEEE float32 ({rel32})")
+    return eng32
+
+
+# the byte contracts' tiled scenes (bf16 engine, fp32 engine) and the
+# image whose bucket is held to its unpadded forward
+CONTRACT_SCENES = (("bf16", (1024, 1024)), ("fp32", (600, 520)))
+CONTRACT_BUCKET = (576, 432)
+
+
+def check_byte_contracts(eng, eng32) -> None:
+    """The main path's two exactness contracts on the card, in bf16 and
+    in fp32: ``enhance_serving`` (fixed windows in power-of-two chunks)
+    equals ``enhance`` (``tiled_apply``) byte for byte on a tiled scene,
+    and the 576×432 image zero-padded to its 576×448 bucket with a mask
+    gives the unpadded forward bit for bit, on the model output before
+    uint8."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.parallel.tiling import bucket_pad
+
+    launches0 = rdb_mod.LAUNCHES
+    failures = []
+    for (label, side), e in zip(CONTRACT_SCENES, (eng, eng32)):
+        img = synthetic_fields(side, seed=13)
+        serving = e.enhance_serving(img)
+        whole = e.enhance(img)
+        n_diff = int(np.any(serving != whole, axis=-1).sum())
+        h, w = CONTRACT_BUCKET
+        up = synthetic_fields((h, w), seed=14)
+        padded, mask = bucket_pad(up)
+        x = e._to_float(torch.from_numpy(up).cuda())[None]
+        xp = e._to_float(torch.from_numpy(padded).cuda())[None]
+        mk = torch.from_numpy(mask).cuda()[None]
+        exact = e._fwd(x)
+        bucket = e._fwd(xp * mk, mk)[:, :4 * h, :4 * w]
+        torch.cuda.synchronize()
+        b_diff = int((exact != bucket).sum().item())
+        emit({"phase": "main", "check": "byte contracts", "dtype": label,
+              "serving_scene": list(side),
+              "serving_vs_enhance_pixels_differing": n_diff,
+              "bucket": list(padded.shape[:2]), "image": [h, w],
+              "bucket_vs_unpadded_values_differing": b_diff,
+              "bucket_max_abs_diff": (exact - bucket).abs().max().item()})
+        if n_diff or b_diff or serving.shape != whole.shape:
+            failures.append(f"{label}: serving differs on {n_diff} pixels, "
+                            f"bucket on {b_diff} values")
+    rdb_mod.LAUNCHES = launches0
+    if failures:
+        raise AssertionError("byte contracts broken on the card: "
+                             + "; ".join(failures))
 
 
 def device_breakdown(fn, top: int = 8) -> dict:
@@ -617,13 +781,12 @@ def swin_bound_ms(name: str, shape, dtype) -> tuple:
                                  else "bytes")
 
 
+@ieee_phase
 def phase_swin_kernel(state):
     import torch
 
     from s2sr_tpu_torch.ops import window_attention as wa
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     # The error is max |kernel − plain| over the kernel's own change to
     # its input: max |out − x| of the fp32 plain version for swin_block,
     # max |y| for window_attention (which adds no residual). fp32: the
@@ -969,6 +1132,7 @@ def on_flat_weights(fn, rung: str):
                                                                x.dtype))
 
 
+@ieee_phase
 def phase_ladder(state):
     import torch
 
@@ -976,8 +1140,6 @@ def phase_ladder(state):
     from s2sr_tpu_torch.ops import rdb as rdb_mod
     from s2sr_tpu_torch.ops import rdb_ladder as lad
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     card = state.get("card") or card_line()
     # Each rung against its own plain version, as phase kernel holds rdb,
@@ -1041,9 +1203,10 @@ MXU_M = 27840
 MXU_KS = (192, 128, 256, 512)
 MXU_PAIRS = ((96, 160), (96, 128), (288, 128), (384, 192), (64, 128))
 # held against the plain version: (M, K, N), N None for the chain
-MXU_CASES = {"matmul_chain": [(48, 64, None), (1000, 96, None)]
+MXU_CASES = {"matmul_chain": [(48, 64, None), (1000, 96, None),
+                              (1000, 160, None), (100, 80, None)]
              + [(MXU_M, k, None) for k in MXU_KS],
-             "pair_chain": [(1000, 64, 128), (MXU_M, 96, 160),
+             "pair_chain": [(1000, 64, 128), (1000, 96, 128), (MXU_M, 96, 160),
                             (MXU_M, 288, 128), (MXU_M, 384, 192)]}
 MXU_CHECK_REPEAT = 8
 # max |kernel − plain| over max |plain|: both round each float32 product
@@ -1090,8 +1253,9 @@ def mxu_faults(ws) -> dict:
 
 def sass_counts(lib) -> dict:
     """Per kernel of the built library, the SASS instructions that show
-    the tensor cores at work (HMMA), the A loads (LDSM) and the shared
-    stores (STS), as ``cuobjdump -sass`` lists them."""
+    the tensor cores at work (HMMA for mma.sync, HGMMA for wgmma), the A
+    loads (LDSM) and the shared stores (STS), as ``cuobjdump -sass``
+    lists them."""
     import re
     import shutil
 
@@ -1103,7 +1267,7 @@ def sass_counts(lib) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"HMMA": 0, "LDSM": 0, "STS": 0}
+            counts[name] = {"HMMA": 0, "HGMMA": 0, "LDSM": 0, "STS": 0}
         elif name:
             for op in counts[name]:
                 if re.search(rf"\b{op}\b", line):
@@ -1111,6 +1275,7 @@ def sass_counts(lib) -> dict:
     return counts
 
 
+@ieee_phase
 def phase_mxu(state):
     import torch
 
@@ -1119,13 +1284,19 @@ def phase_mxu(state):
     from s2sr_tpu_torch.ops import _build
     from s2sr_tpu_torch.ops import matmul_chain as mc
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     card = state.get("card") or card_line()
     sass = sass_counts(_build.lib_path("matmul_chain"))
     emit({"phase": "mxu", "sass": sass})
-    if not sass or any(c["HMMA"] == 0 for c in sass.values()):
-        raise AssertionError(f"a matmul_chain kernel has no HMMA: {sass}")
+    # the wgmma instances (wg_chain_kernel) must issue HGMMA, the mma.sync
+    # ones (chain_kernel) HMMA
+    wg = {k: c for k, c in sass.items() if "wg_chain_kernel" in k}
+    mma = {k: c for k, c in sass.items() if "wg_chain_kernel" not in k
+           and "chain_kernel" in k}
+    if (len(wg) != 10 or not mma or any(c["HGMMA"] == 0 for c in wg.values())
+            or any(c["HMMA"] == 0 for c in mma.values())):
+        raise AssertionError(f"a matmul_chain kernel lacks its tensor-core "
+                             f"instruction: {sass}")
 
     # 1. each kernel against its plain version, staged equal to unstaged,
     # every planted fault further than the tolerance

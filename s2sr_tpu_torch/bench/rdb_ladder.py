@@ -42,6 +42,7 @@ import torch
 from ..models.weights import init_state_dict
 from ..ops import rdb as rdb_mod
 from ..ops import rdb_ladder as ladder_mod
+from ..utils.precision import ieee_fp32
 
 FLOP_PER_PIXEL = 2 * 9 * (64 * 192 + 32 * (160 + 128 + 96 + 64))
 VARIANTS = ("plain", "v1", "v2", "v3", "v4")
@@ -104,11 +105,7 @@ def kernel_info(name: str, shape, dtype, device: str) -> dict:
 def gate(fns32: dict, xs: torch.Tensor, w, b, emit) -> None:
     """Each kernel variant in float32 against ``rdb_reference`` (TF32
     off for the reference's convs), max abs error < 1e-4."""
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with ieee_fp32():
         want = rdb_mod.rdb_reference(xs, w, b)
         for name, fn in fns32.items():
             if name == "plain":
@@ -118,9 +115,6 @@ def gate(fns32: dict, xs: torch.Tensor, w, b, emit) -> None:
                   "max_err": err, "tolerance": GATE_TOL})
             if not err < GATE_TOL:
                 raise AssertionError(f"{name} inexact on {xs.device}: {err}")
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = flags
 
 
 def sync(device: str) -> None:

@@ -12,44 +12,43 @@
 //
 // x and the result are (M, K), row-major. The point of the function is the
 // rate of the matrix unit with the operands kept on chip, so every product
-// runs on the tensor cores: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
-// A from shared memory through ldmatrix, B as 16-byte fragment loads.
+// runs on the tensor cores.
 //
 // What bounds it: operations. 2*M*K*K*repeat FLOP (chain; 4*M*K*N*repeat
 // for the pair) at 989 TFLOP/s against (M*K*2 in and out + the weights)
 // bytes at 3.35 TB/s: at M = 27,840, K = 192, repeat 1024 that is 2.13 ms
-// against 6.4 us. The design keeps every byte of the chain on chip:
+// against 6.4 us. Both paths keep every byte of the chain on chip. Rows are
+// independent, so a warpgroup or a warp owns its rows for all `repeat`
+// steps and no block-wide barrier follows the weights' load.
 //
-// - Rows are independent, so each warp owns 16 rows (one m16 tile) and runs
-//   all `repeat` steps on them alone: the carry lives in the warp's own rows
-//   of shared memory, and no block-wide barrier follows the weights' load.
-//   Step i+1 reads every column of step i's output, so a product first
-//   loads its whole A operand (16 x K, K/4 registers a lane) into
-//   registers, and only then writes its output over the carry, 64 columns
-//   at a time from float32 accumulators; __syncwarp orders the two.
-// - The weights are packed by the wrapper into the mma B-fragment order
-//   (ops/matmul_chain.py::pack_fragments): one 16-byte load per lane gives
-//   the fragments of a 16 x 16 slab, conflict-free, and each is loaded one
-//   k-slab ahead of the products that use it. They are copied into shared
-//   memory once per block where they fit beside at least 4 warps' carry
-//   (K*K*2 bytes: 72 KB at K = 192, 128 KB at K = 256), and read from L2
-//   where they do not (K = 512: 512 KB; the 384 x 192 pair: 288 KB).
+// - wgmma (wg_chain_kernel, the path wherever an instance exists and W
+//   fits shared memory): the carry stays in registers from step to step;
+//   the section "the wgmma path" below says how.
+// - mma.sync (chain_kernel: K 512, the 384 x 192 pair and widths without a
+//   wgmma instance): mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
+//   A from shared memory through ldmatrix, B as 16-byte fragment loads.
+//   Each warp owns 16 rows (one m16 tile): the carry lives in the warp's
+//   own rows of shared memory. Step i+1 reads every column of step i's
+//   output, so a product first loads its whole A operand (16 x K, K/4
+//   registers a lane) into registers, and only then writes its output over
+//   the carry, 64 columns at a time from float32 accumulators; __syncwarp
+//   orders the two. The weights are packed by the wrapper into the mma
+//   B-fragment order (ops/matmul_chain.py::pack_fragments): one 16-byte
+//   load per lane gives the fragments of a 16 x 16 slab, conflict-free,
+//   each loaded one k-slab ahead of the products that use it, from shared
+//   memory where they fit beside at least 4 warps' carry, else from L2
+//   (K = 512: 512 KB; the 384 x 192 pair: 288 KB). The A operand's
+//   registers are sized for the widest K of the template (KMAX 128, 256 or
+//   512); a block has 16 warps at KMAX 128 and 8 above (the registers),
+//   fewer where shared memory runs out.
 // - Staging (the `stage` variants) writes each product's output in more
-//   copies side by side in the row, as the TPU kernel writes its (MT, 3K)
-//   stage: the chain 3 copies, the pair 2 (the carry and one stage slot).
-//   Slot 0 is the next A operand in every variant, so staging changes no
-//   value; the extra copies are real shared-memory stores (their count is
-//   a runtime argument). The carry of an mma.sync chain must pass through
-//   shared memory anyway (ldmatrix reads it there), so the unstaged kernel
-//   already stores one copy per product.
-// - The A operand's registers are sized for the widest K of the template
-//   (KMAX 128, 256 or 512); K and N are runtime multiples of 16 up to it.
-//   A block has 16 warps at KMAX 128 and 8 above (the registers), fewer
-//   where shared memory runs out. The ragged last row block is masked:
-//   rows past M load zeros and are not stored.
-//
-// Not here yet: wgmma, TMA and warp specialisation, and K-slab staging of
-// weights that do not fit shared memory (later work).
+//   copies side by side in a row of shared memory, as the TPU kernel
+//   writes its (MT, 3K) stage: the chain 3 copies, the pair 2. Slot 0 is
+//   read back as the next A operand, so staging changes no value; the
+//   copies are real shared-memory stores (their count is a runtime
+//   argument). On the mma.sync path the carry itself is slot 0.
+// - The ragged last row block is masked: rows past M load zeros and are
+//   not stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,10 +86,14 @@ struct Plan {
   int copies;
   int kmax;
   long long smem;
+  int wgmma;             // 1: wg_chain_kernel (below), 0: chain_kernel
 };
 
-Plan make_plan(int k, int n, int pair, int stage) {
+Plan make_plan(int k, int n, int pair, int stage);
+
+Plan make_mma_plan(int k, int n, int pair, int stage) {
   Plan p;
+  p.wgmma = 0;
   const int width = pair && n > k ? n : k;          // widest product output
   p.copies = stage ? (pair ? 2 : 3) : 1;
   p.ldc = p.copies * width + PAD;
@@ -269,6 +272,456 @@ chain_kernel(Args a) {
   }
 }
 
+// --- the wgmma path ---------------------------------------------------------
+//
+// One warpgroup (4 warps, 128 threads) owns 64 rows for all `repeat` steps,
+// and the carry never leaves registers. wgmma.mma_async takes A from
+// registers in the layout of mma.m16n8k16's A fragment (warp w: rows
+// 16w..16w+15), and its float32 accumulator gives, for each 16 columns,
+// the values of one k16 slab of that layout: d[8s..8s+7] are rows g, g+8 of
+// columns 16s + 2t (+1) and 16s + 8 + 2t (+1). So bf16(acc) is the next
+// product's A with one cvt.rn.bf16x2 per pair: no shuffle, no shared
+// memory. W sits in shared memory as the wgmma canonical K-major image with
+// the 128-byte swizzle (ops/matmul_chain.py::pack_wgmma builds it): blocks of
+// 64 K values, each N rows of 128 bytes, the 16-byte chunk c of row n at
+// chunk c ^ (n % 8). One cp.async.bulk per weight matrix brings it in,
+// completing on an mbarrier. Blocks are persistent, one per SM, with NWG
+// warpgroups that walk 64-row tiles; while one warpgroup converts its
+// accumulator, another's wgmmas run.
+
+constexpr int WG_ROWS = 64;
+constexpr int WG_THREADS = 128;
+
+// wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16 with A from registers
+// and B from the descriptor: d (N/2 floats) = A @ B (+ d if scale_d)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float* d, const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<144>(float* d, const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71"
+      "}, {%72, %73, %74, %75}, %76, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<160>(float* d, const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float* d, const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Shared-memory descriptor of a K-major, 128-byte-swizzled B operand at
+// shared address `addr`: 8-row groups 1024 bytes apart (SBO 64), the
+// leading offset unused by this layout (1), layout type 1 (SWIZZLE_128B).
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
+}
+
+// Bytes of one weight matrix's image: K padded to 64, times N, bf16.
+__host__ __device__ constexpr int image_bytes(int kin, int nout) {
+  return (kin + 63) / 64 * 64 * nout * 2;
+}
+
+// acc (N floats of this thread) = A (64 x KIN, registers) @ W, W's image at
+// shared address `w`. N above 256 runs as two halves of N / 2 columns.
+template <int KIN, int NOUT>
+__device__ __forceinline__ void wg_product(float (&acc)[NOUT / 2],
+                                           const uint32_t (&a)[KIN / 16][4],
+                                           uint32_t w) {
+  constexpr int PARTS = NOUT > 256 ? 2 : 1;
+  constexpr int NI = NOUT / PARTS;
+  static_assert(NI % 16 == 0 && NI <= 256, "wgmma N");
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KIN / 16; ++kk) {
+    const uint32_t kaddr = w + (kk / 4) * NOUT * 128 + (kk % 4) * 32;
+#pragma unroll
+    for (int p = 0; p < PARTS; ++p)
+      wgmma_rs<NI>(acc + p * (NI / 2), a[kk], b_desc(kaddr + p * NI * 128),
+                   kk > 0);
+  }
+  wgmma_commit_wait();
+}
+
+template <int W>
+__device__ __forceinline__ void to_operand(uint32_t (&a)[W / 16][4],
+                                           const float (&acc)[W / 2]) {
+#pragma unroll
+  for (int s = 0; s < W / 16; ++s)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[s][r] = pack_bf16(acc[8 * s + 2 * r], acc[8 * s + 2 * r + 1]);
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Staging: the operand (64 x W, row-major in the stage, row stride ldc
+// bf16) stored into `copies` slots side by side, then read back from slot
+// 0; each thread reads back what it stored.
+template <int W>
+__device__ __forceinline__ void stage_operand(uint32_t (&a)[W / 16][4],
+                                              uint32_t stage, int ldc,
+                                              int copies, int sw, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < W / 16; ++s)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = g + 8 * (r & 1), col = 16 * s + 8 * (r >> 1) + 2 * t;
+      const uint32_t at = stage + 2 * (row * ldc + col);
+      for (int c = 0; c < copies; ++c) st_shared(at + 2 * c * sw, a[s][r]);
+      a[s][r] = ld_shared(at);
+    }
+}
+
+struct WgArgs {
+  const bf16* x;
+  bf16* out;
+  const void* w[2];      // smem images of w1, w2 (ops/matmul_chain.py::pack_wgmma)
+  int m, repeat, copies, ldc;
+};
+
+// Rows of this warp's A fragment through x or out: r = 0..3 of slab s at
+// rows g (+8), columns 16s + 2t (+8).
+template <int K, bool LOAD>
+__device__ __forceinline__ void rows_io(uint32_t (&a)[K / 16][4],
+                                        const bf16* x, bf16* out, int row0,
+                                        int m, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < K / 16; ++s)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = row0 + g + 8 * (r & 1);
+      const size_t at = (size_t)row * K + 16 * s + 8 * (r >> 1) + 2 * t;
+      if constexpr (LOAD)
+        a[s][r] = row < m ? __ldg(reinterpret_cast<const unsigned int*>(x + at))
+                          : 0u;
+      else if (row < m)
+        *reinterpret_cast<uint32_t*>(out + at) = a[s][r];
+    }
+}
+
+template <int K, int N, bool PAIR, int NWG>
+__global__ void __launch_bounds__(NWG * WG_THREADS, 1) wg_chain_kernel(WgArgs p) {
+  constexpr int B1 = image_bytes(K, N);
+  constexpr int B2 = PAIR ? image_bytes(N, K) : 0;
+  const uint32_t raw = smem_addr(smem);
+  const uint32_t w1 = (raw + 1023) & ~1023u;        // the swizzle's 1024-byte atoms
+  const uint32_t bar = w1 + B1 + B2;
+  const uint32_t stage0 = bar + 16;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(B1 + B2) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1], %2, [%3];\n"
+                 ::"r"(w1), "l"(p.w[0]), "r"(B1), "r"(bar) : "memory");
+    if constexpr (PAIR)
+      asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                   "[%0], [%1], %2, [%3];\n"
+                   ::"r"(w1 + B1), "l"(p.w[1]), "r"(B2), "r"(bar) : "memory");
+  }
+  {
+    uint32_t done = 0;
+    while (!done)
+      asm volatile("{\n.reg .pred q;\n"
+                   "mbarrier.try_wait.parity.shared::cta.b64 q, [%1], %2;\n"
+                   "selp.u32 %0, 1, 0, q;\n}\n"
+                   : "=r"(done) : "r"(bar), "r"(0) : "memory");
+  }
+  const int wg = threadIdx.x / WG_THREADS, nwg = blockDim.x / WG_THREADS;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+  constexpr int SW = PAIR && N > K ? N : K;            // stage slot width
+  const uint32_t stage = stage0 + 2 * (wg * WG_ROWS + warp * 16) * p.ldc;
+  const int tiles = (p.m + WG_ROWS - 1) / WG_ROWS;
+  for (int tile = blockIdx.x * nwg + wg; tile < tiles; tile += gridDim.x * nwg) {
+    const int row0 = tile * WG_ROWS + warp * 16;
+    uint32_t a[K / 16][4];
+    rows_io<K, true>(a, p.x, nullptr, row0, p.m, lane);
+    if (p.copies) stage_operand<K>(a, stage, p.ldc, p.copies, SW, lane);
+    for (int step = 0; step < p.repeat; ++step) {
+      if constexpr (PAIR) {
+        uint32_t mid[N / 16][4];
+        {
+          float acc[N / 2];
+          wg_product<K, N>(acc, a, w1);
+          to_operand<N>(mid, acc);
+        }
+        if (p.copies) stage_operand<N>(mid, stage, p.ldc, p.copies, SW, lane);
+        float acc[K / 2];
+        wg_product<N, K>(acc, mid, w1 + B1);
+        to_operand<K>(a, acc);
+      } else {
+        float acc[K / 2];
+        wg_product<K, K>(acc, a, w1);
+        to_operand<K>(a, acc);
+      }
+      if (p.copies) stage_operand<K>(a, stage, p.ldc, p.copies, SW, lane);
+    }
+    rows_io<K, false>(a, nullptr, p.out, row0, p.m, lane);
+  }
+}
+
+// The wgmma instances: (K, N, pair, warpgroups per block). Warpgroups by
+// the registers a thread holds (A of the widest input, the accumulator of
+// the widest output): 4 under 128 registers, 3 under 168, else 2.
+struct WgInstance {
+  int k, n, pair, nwg;
+  void (*kernel)(WgArgs);
+};
+const WgInstance WG_INSTANCES[] = {
+    {64, 64, 0, 4, wg_chain_kernel<64, 64, false, 4>},
+    {96, 96, 0, 4, wg_chain_kernel<96, 96, false, 4>},
+    {128, 128, 0, 3, wg_chain_kernel<128, 128, false, 3>},
+    {160, 160, 0, 3, wg_chain_kernel<160, 160, false, 3>},
+    {192, 192, 0, 2, wg_chain_kernel<192, 192, false, 2>},
+    {256, 256, 0, 2, wg_chain_kernel<256, 256, false, 2>},
+    {64, 128, 1, 3, wg_chain_kernel<64, 128, true, 3>},
+    {96, 128, 1, 3, wg_chain_kernel<96, 128, true, 3>},
+    {96, 160, 1, 3, wg_chain_kernel<96, 160, true, 3>},
+    {288, 128, 1, 2, wg_chain_kernel<288, 128, true, 2>},
+};
+
+const WgInstance* find_instance(int k, int n, int pair) {
+  for (const WgInstance& w : WG_INSTANCES)
+    if (w.k == k && w.n == (pair ? n : k) && w.pair == pair) return &w;
+  return nullptr;
+}
+
+// The wgmma path where an instance exists and its weights (and, staged,
+// at least one warpgroup's stage) fit shared memory; else chain_kernel.
+// K 512 and the 384 x 192 pair (weights of 512 and 288 KB) take the latter.
+Plan make_plan(int k, int n, int pair, int stage) {
+  const WgInstance* w = find_instance(k, n, pair);
+  if (!w) return make_mma_plan(k, n, pair, stage);
+  Plan p;
+  p.wgmma = 1;
+  p.w_smem = 1;
+  p.kmax = 0;
+  p.copies = stage ? (pair ? 2 : 3) : 0;
+  const int width = pair && n > k ? n : k;
+  p.ldc = stage ? p.copies * width + PAD : 0;
+  const long long fixed = 1024 + image_bytes(k, pair ? n : k) +
+                          (pair ? image_bytes(n, k) : 0) + 16;
+  const long long per_wg = 2LL * WG_ROWS * p.ldc;
+  long long nwg = w->nwg;
+  if (per_wg && (SMEM_LIMIT - fixed) / per_wg < nwg) nwg = (SMEM_LIMIT - fixed) / per_wg;
+  if (fixed > SMEM_LIMIT || nwg < 1) return make_mma_plan(k, n, pair, stage);
+  p.warps = (int)nwg * 4;
+  p.smem = fixed + nwg * per_wg;
+  return p;
+}
+
+int launch_wgmma(const Args& a, const Plan& p, cudaStream_t stream) {
+  const WgInstance* w = find_instance(a.k, a.n, a.pair);
+  cudaError_t e = cudaFuncSetAttribute(
+      w->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return (int)e;
+  const int nwg = p.warps / 4;
+  const int groups = ((a.m + WG_ROWS - 1) / WG_ROWS + nwg - 1) / nwg;
+  WgArgs g;
+  g.x = a.x;
+  g.out = a.out;
+  g.w[0] = a.w[0];
+  g.w[1] = a.w[1];
+  g.m = a.m;
+  g.repeat = a.repeat;
+  g.copies = p.copies;
+  g.ldc = p.ldc;
+  w->kernel<<<groups < sms ? groups : sms, nwg * WG_THREADS, (size_t)p.smem,
+              stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
 template <int KMAX, bool W_SMEM>
 int launch(const Args& a, const Plan& p, cudaStream_t stream) {
   void (*kernel)(Args) = chain_kernel<KMAX, W_SMEM>;
@@ -318,6 +771,7 @@ extern "C" int s2sr_matmul_chain_forward(const void* x, void* out,
   a.copies = p.copies;
   a.ldc = p.ldc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.wgmma) return launch_wgmma(a, p, st);
   switch (p.kmax) {
     case 128: return launch_kmax<128>(a, p, st);
     case 256: return launch_kmax<256>(a, p, st);
@@ -328,8 +782,9 @@ extern "C" int s2sr_matmul_chain_forward(const void* x, void* out,
 // The launch plan of a (K, N, pair, stage): what = 0 rows per block, 1
 // dynamic shared-memory bytes per block, 2 whether the weights sit in
 // shared memory (1) or are read from L2 (0), 3 warps per block, 4 the
-// register class of A (KMAX), 5 copies of each product's output stored;
-// -1 for an unknown field or shape.
+// register class of A (KMAX; 0 on the wgmma path), 5 copies of each
+// product's output stored, 6 the path (1 wgmma, 0 mma.sync, whose
+// weights are fragment-packed); -1 for an unknown field or shape.
 extern "C" long long s2sr_matmul_chain_query(int K, int N, int pair, int stage,
                                              int what) {
   if (!valid(1, K, N, pair, 0)) return -1;
@@ -341,6 +796,7 @@ extern "C" long long s2sr_matmul_chain_query(int K, int N, int pair, int stage,
     case 3: return p.warps;
     case 4: return p.kmax;
     case 5: return p.copies;
+    case 6: return p.wgmma;
   }
   return -1;
 }

@@ -22,23 +22,26 @@
 // far above the H100's ~295 FLOP/byte balance point. The design keeps
 // the intermediates x1..x4 in shared memory and never writes them to
 // device memory (what the TPU kernel keeps out of HBM too), so the
-// kernel's time is its arithmetic. This first version does that
-// arithmetic on the CUDA cores in float32 FMA (67 TFLOP/s peak), not on
-// the tensor cores (989 TFLOP/s bf16); wgmma is the next step.
+// kernel's time is its arithmetic.
 //
-// Structure: each thread block owns one TILE x TILE output tile of one
-// image. It loads the input with a 5-pixel halo into dynamic shared
-// memory (zero outside the image), then computes x1..x4 over regions
-// that shrink by one pixel per side per stage (halo 4, 3, 2, 1), each
-// stored planar [channel][y][x] so that the 32 lanes of a warp read 32
-// neighbouring pixels of one channel without bank conflicts. Finally x5
-// and the residual over the tile itself go straight to device memory.
-// A warp task is 128 pixels (4 per lane) x 16 output channels: per
-// (tap, input channel) a lane does 4 shared loads, 4 uniform 16-byte
-// weight loads (broadcast from L1/L2) and 64 FMAs.
+// Two kernels, one per storage type, with the same structure: each thread
+// block owns one output tile of one image, loads the input with a 5-pixel
+// halo into dynamic shared memory (zero outside the image), then computes
+// x1..x4 over regions that shrink by one pixel per side per stage (halo
+// 4, 3, 2, 1); x5 and the residual over the tile itself go straight to
+// device memory.
 //
-// Tiles: bf16 16x16 (200,704 B shared), fp32 8x8 (172,032 B shared),
-// both under the 227 KB a block may opt into.
+// - bfloat16 (the main path), rdb_tc_kernel below: every stage is an
+//   implicit GEMM on the tensor cores (mma.sync.m16n8k16, float32
+//   accumulators), 16x16 tiles, the sources pixel-major with a swizzle
+//   (200,704 B shared).
+// - float32, rdb_kernel: float32 FMA on the CUDA cores (the tensor cores
+//   would make it TF32), 8x8 tiles (172,032 B shared), the sources planar
+//   [channel][y][x] so that the 32 lanes of a warp read 32 neighbouring
+//   pixels of one channel without bank conflicts. A warp task is 128
+//   pixels (4 per lane) x 16 output channels: per (tap, input channel) a
+//   lane does 4 shared loads, 4 uniform 16-byte weight loads (broadcast
+//   from L1/L2) and 64 FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,17 +75,11 @@ __host__ __device__ constexpr int src_off(int tile, int j) {
   return off;
 }
 
+// the CUDA-core kernel below is instantiated for float32 only
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
 }
 
 // One conv stage S (1..5) over the sources 0..S-1 held in shared memory.
@@ -278,8 +275,269 @@ int launch(const void* x, const void* mask, void* out, const void* w,
   return (int)cudaGetLastError();
 }
 
-constexpr int TILE_BF16 = 16;
 constexpr int TILE_F32 = 8;
+
+// --- bf16: implicit GEMM on the tensor cores --------------------------------
+//
+// Each conv stage is a product of the im2col matrix of its region (pixels x
+// 9 * Cin) with the weights (9 * Cin x Cout) on mma.sync.m16n8k16 (bf16 in,
+// float32 accumulators), without an im2col copy. The sources x, x1..x4 stay
+// in shared memory pixel-major (NHWC, channels contiguous) with an XOR
+// swizzle on the 16-byte chunk index: chunk q of a buffer is stored at
+// q ^ ((q >> 3) & 7) in its low three bits, so the 8 pixels of one ldmatrix
+// phase hit 8 different chunks of a 128-byte line (x has 8 chunks a pixel,
+// x1..x4 four). A k16 slab of the im2col matrix is one (source, tap, 16
+// channels): ldmatrix.x4 takes one row address a lane, and lane l points
+// at its pixel (l % 16 of the M tile) shifted by the tap, at channel chunk
+// 2c + l / 16. The 16 pixels of an M tile may span two rows of the region.
+// The weights come packed by the wrapper in the B-fragment order of the
+// slabs the kernel walks (ops/rdb.py::pack_rdb_fragments), one 16-byte load
+// a lane for 16 output channels, loaded one slab ahead from L2.
+//
+// A stage's M tiles (16 region pixels each) are dealt to the 8 warps in
+// turn, warp w taking tiles w, w + 8, ...; a warp keeps the accumulators of
+// all its tiles and all output channels, so each B fragment serves MT M
+// tiles and each A fragment all the channels. Every output is a sum over
+// the same slabs in the same order wherever its pixel lies (tile, batch,
+// image), which the serving contracts need.
+
+constexpr int TC_TILE = 16;
+constexpr int TC_WARPS = 8;
+
+__host__ __device__ constexpr int tc_side(int j) { return TC_TILE + 2 * (HALO - j); }
+// byte offset of source buffer j (0 = x, 1..4 = x1..x4), each a multiple of
+// 128 bytes
+__host__ __device__ constexpr int tc_off(int j) {
+  int off = 0;
+  for (int k = 0; k < j; ++k) off += tc_side(k) * tc_side(k) * src_chans(k) * 2;
+  return off;
+}
+// M tiles of stage s's region, and the most a warp takes
+__host__ __device__ constexpr int tc_mtiles(int s) {
+  return (tc_side(s) * tc_side(s) + 15) / 16;
+}
+__host__ __device__ constexpr int tc_mt(int s) {
+  return (tc_mtiles(s) + TC_WARPS - 1) / TC_WARPS;
+}
+// uint4s (per lane, 32 lanes) of the packed weights before stage s
+__host__ __device__ constexpr int tc_woff(int s) {
+  int off = 0;
+  for (int k = 1; k < s; ++k) off += 9 * stage_cin(k) / 16 * stage_cout(k) / 16 * 32;
+  return off;
+}
+
+__device__ __forceinline__ uint32_t swz(uint32_t q) { return q ^ ((q >> 3) & 7); }
+
+__device__ __forceinline__ void tc_ldmatrix(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void tc_mma(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One conv stage S (1..5) on the tensor cores.
+template <int S>
+__device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict__ wf,
+                                         const float* __restrict__ bias,
+                                         const float* __restrict__ mask,
+                                         __nv_bfloat16* __restrict__ out,
+                                         int b, int H, int W, int oy0, int ox0) {
+  constexpr int RS = tc_side(S);          // region side of this stage
+  constexpr int NPIX = RS * RS;
+  constexpr int NT = tc_mtiles(S);
+  constexpr int MT = tc_mt(S);
+  constexpr int COUT = stage_cout(S);
+  constexpr int NB = COUT / 16;           // 16-channel blocks: one uint4 each
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint4* ws = wf + tc_woff(S) + lane;
+
+  // this lane's ldmatrix pixel in each of the warp's M tiles
+  int py[MT], px[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    int p = (warp + TC_WARPS * m) * 16 + (lane & 15);
+    p = p < NPIX ? p : NPIX - 1;
+    py[m] = p / RS;
+    px[m] = p % RS;
+  }
+  float acc[MT][2 * NB][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < 2 * NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  uint4 bcur[NB], bnext[NB];
+#pragma unroll
+  for (int n = 0; n < NB; ++n) bcur[n] = __ldg(ws + n * 32);
+  int slab = 0;
+  constexpr int NSLAB = 9 * stage_cin(S) / 16;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int rj = tc_side(j);
+    const int cq = src_chans(j) / 8;      // 16-byte chunks a pixel
+    const int d = S - 1 - j;              // the region's offset in source j
+    const uint32_t base = sbase + tc_off(j);
+    int sp0[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) sp0[m] = (py[m] + d) * rj + px[m] + d;
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int toff = (tap / 3) * rj + tap % 3;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c >= src_chans(j) / 16) break;
+        const int nxt = slab + 1 < NSLAB ? slab + 1 : slab;
+#pragma unroll
+        for (int n = 0; n < NB; ++n) bnext[n] = __ldg(ws + (nxt * NB + n) * 32);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (warp + TC_WARPS * m >= NT) break;
+          const uint32_t q = (uint32_t)(sp0[m] + toff) * cq + 2 * c + (lane >> 4);
+          uint32_t a[4];
+          tc_ldmatrix(a, base + swz(q) * 16);
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {
+            tc_mma(acc[m][2 * n], a, bcur[n].x, bcur[n].y);
+            tc_mma(acc[m][2 * n + 1], a, bcur[n].z, bcur[n].w);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NB; ++n) bcur[n] = bnext[n];
+        ++slab;
+      }
+    }
+  }
+
+  // epilogue: accumulator (m, n8 tile k, e) is region pixel (tile, g + 8(e/2))
+  // at channel 8k + 2t + e % 2
+  const size_t img_off = (size_t)b * H * W;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    if (warp + TC_WARPS * m >= NT) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = (warp + TC_WARPS * m) * 16 + g + 8 * h;
+      if (p >= NPIX) continue;
+      const int ry = p / RS, rx = p % RS;
+      if constexpr (S < 5) {
+        constexpr int HS = HALO - S;
+        const int gy = oy0 - HS + ry, gx = ox0 - HS + rx;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const float mk = !inside ? 0.f
+                         : (mask ? mask[img_off + (size_t)gy * W + gx] : 1.f);
+        // x_S at its own region's pixel p: 4 chunks a pixel
+        const uint32_t dst = sbase + tc_off(S);
+#pragma unroll
+        for (int k = 0; k < 2 * NB; ++k) {
+          const int co = 8 * k + 2 * t;
+          float v0 = acc[m][k][2 * h] + __ldg(bias + (S - 1) * G + co);
+          float v1 = acc[m][k][2 * h + 1] + __ldg(bias + (S - 1) * G + co + 1);
+          v0 = (v0 >= 0.f ? v0 : 0.2f * v0) * mk;
+          v1 = (v1 >= 0.f ? v1 : 0.2f * v1) * mk;
+          if (!inside) v0 = v1 = 0.f;
+          const __nv_bfloat162 pr = __floats2bfloat162_rn(v0, v1);
+          const uint32_t q = (uint32_t)p * 4 + k;
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst + swz(q) * 16 + 4 * t),
+                       "r"(*reinterpret_cast<const uint32_t*>(&pr)) : "memory");
+        }
+      } else {
+        const int gy = oy0 + ry, gx = ox0 + rx;
+        if (gy >= H || gx >= W) continue;
+        const size_t pix = img_off + (size_t)gy * W + gx;
+        const float mk = mask ? mask[pix] : 1.f;
+        // x at the same pixel: region 0 has a 5-pixel halo, 8 chunks a pixel
+        const int xp = (ry + HALO) * tc_side(0) + rx + HALO;
+#pragma unroll
+        for (int k = 0; k < 2 * NB; ++k) {
+          const int co = 8 * k + 2 * t;
+          const uint32_t q = (uint32_t)xp * 8 + k;
+          uint32_t xin;
+          asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(xin)
+                       : "r"(sbase + swz(q) * 16 + 4 * t) : "memory");
+          const float2 xf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&xin));
+          const float v0 = (acc[m][k][2 * h] + __ldg(bias + 4 * G + co)) * 0.2f + xf.x;
+          const float v1 = (acc[m][k][2 * h + 1] + __ldg(bias + 4 * G + co + 1)) * 0.2f + xf.y;
+          const __nv_bfloat162 pr = __floats2bfloat162_rn(v0 * mk, v1 * mk);
+          *reinterpret_cast<__nv_bfloat162*>(out + pix * NF + co) = pr;
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TC_WARPS * 32, 1)
+rdb_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
+              __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wf,
+              const float* __restrict__ bias, int H, int W) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const int b = blockIdx.z;
+  const int oy0 = blockIdx.y * TC_TILE, ox0 = blockIdx.x * TC_TILE;
+  const size_t img_off = (size_t)b * H * W;
+  {
+    // input tile + 5-px halo, 16-byte cp.async copies, zero-filled outside
+    // the image (a source size of 0 reads nothing)
+    constexpr int R = tc_side(0);
+    for (int i = threadIdx.x; i < R * R * 8; i += TC_WARPS * 32) {
+      const int p = i >> 3, c = i & 7;
+      const int gy = oy0 - HALO + p / R, gx = ox0 - HALO + p % R;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const __nv_bfloat16* src =
+          in ? x + (img_off + (size_t)gy * W + gx) * NF + 8 * c : x;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   ::"r"(sbase + swz((uint32_t)i) * 16), "l"(src), "r"(in ? 16 : 0)
+                   : "memory");
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  __syncthreads();
+  tc_stage<1>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
+  __syncthreads();
+  tc_stage<2>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
+  __syncthreads();
+  tc_stage<3>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
+  __syncthreads();
+  tc_stage<4>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
+  __syncthreads();
+  tc_stage<5>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
+}
+
+constexpr size_t tc_smem_bytes() { return (size_t)tc_off(5); }
+
+int launch_tc(const void* x, const void* mask, void* out, const void* wf,
+              const void* bias, int B, int H, int W, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(
+      rdb_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + TC_TILE - 1) / TC_TILE, (H + TC_TILE - 1) / TC_TILE, B);
+  rdb_tc_kernel<<<grid, TC_WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
+      static_cast<__nv_bfloat16*>(out), static_cast<const uint4*>(wf),
+      static_cast<const float*>(bias), H, W);
+  return (int)cudaGetLastError();
+}
+
+// Multiply-adds the tensor-core kernel executes per output tile: every M
+// tile of each stage's region (16 pixels, the last one padded) over all
+// 9 * Cin x Cout.
+constexpr long long tc_macs_per_tile() {
+  long long macs = 0;
+  for (int s = 1; s <= 5; ++s)
+    macs += (long long)tc_mtiles(s) * 16 * 9 * stage_cin(s) * stage_cout(s);
+  return macs;
+}
 
 // Multiply-adds one block executes for its output tile, halo recompute
 // included: run_stage's tasks cover each stage's region in whole pixel
@@ -299,31 +557,33 @@ constexpr long long macs_per_tile() {
 
 // dtype: 0 = float32, 1 = bfloat16. x, out: (B, H, W, 64) contiguous;
 // mask: (B, H, W) float32 or null; w: the five HWIO conv kernels
-// flattened and concatenated (float32); bias: 192 float32.
+// flattened and concatenated (float32), read by the float32 kernel; wf:
+// the same weights as bf16 B fragments (ops/rdb.py::pack_rdb_fragments),
+// read by the bfloat16 kernel (null for float32); bias: 192 float32.
 // Returns the CUDA error code of the launch (0 = success).
 extern "C" int s2sr_rdb_forward(const void* x, const void* mask, void* out,
-                                const void* w, const void* bias, int B, int H,
-                                int W, int dtype, void* stream) {
+                                const void* w, const void* wf,
+                                const void* bias, int B, int H, int W,
+                                int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float, TILE_F32>(x, mask, out, w, bias, B, H, W, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, TILE_BF16>(x, mask, out, w, bias, B, H, W,
-                                            st);
+  if (dtype == 1 && wf)
+    return launch_tc(x, mask, out, wf, bias, B, H, W, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Output tile side and dynamic shared-memory bytes per block, by dtype.
 extern "C" int s2sr_rdb_tile(int dtype) {
-  return dtype == 0 ? TILE_F32 : TILE_BF16;
+  return dtype == 0 ? TILE_F32 : TC_TILE;
 }
 
 extern "C" long long s2sr_rdb_smem_bytes(int dtype) {
   return dtype == 0 ? (long long)smem_bytes<float, TILE_F32>()
-                    : (long long)smem_bytes<__nv_bfloat16, TILE_BF16>();
+                    : (long long)tc_smem_bytes();
 }
 
 // Multiply-adds executed per output tile (halo included), by dtype.
 extern "C" long long s2sr_rdb_macs_per_tile(int dtype) {
-  return dtype == 0 ? macs_per_tile<TILE_F32>() : macs_per_tile<TILE_BF16>();
+  return dtype == 0 ? macs_per_tile<TILE_F32>() : tc_macs_per_tile();
 }

@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.rdb import G, NF, pack_rdb_weights, rdb
+from ..utils.precision import ieee_fp32
 
 
 def _lrelu(t: torch.Tensor) -> torch.Tensor:
@@ -153,7 +154,12 @@ class RRDBNet(nn.Module):
     @torch.no_grad()
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 up_sub_batch: int | None = None) -> torch.Tensor:
-        """(N, H, W, C) float in [0, 1] → (N, sH, sW, C) float32."""
+        """(N, H, W, C) float in [0, 1] → (N, sH, sW, C) float32. A float32
+        model runs its convs in IEEE float32 (TF32 off), as JAX does."""
+        with ieee_fp32(self.dtype == torch.float32):
+            return self._forward(x, mask, up_sub_batch)
+
+    def _forward(self, x, mask, up_sub_batch):
         dtype = self.dtype
         n, h, w, _ = x.shape
         x = x.permute(0, 3, 1, 2)

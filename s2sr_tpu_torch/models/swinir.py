@@ -45,6 +45,7 @@ from ..ops.window_attention import (
     swin_block,
     window_attention,
 )
+from ..utils.precision import ieee_fp32
 
 # "block": the whole Swin block in one kernel launch; "attn": the
 # attention-only kernel, the MLP in plain torch
@@ -257,7 +258,13 @@ class SwinIR(nn.Module):
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) in [0, 1] → (B, sH, sW, 3) float32."""
+        """(B, H, W, 3) in [0, 1] → (B, sH, sW, 3) float32. A float32 model
+        runs its convs and products in IEEE float32 (TF32 off), as JAX
+        does."""
+        with ieee_fp32(self.dtype == torch.float32):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         level = FUSED_LEVEL
         if level not in ("block", "attn"):
             raise ValueError(f"fused level must be 'block' or 'attn', got "

@@ -11,7 +11,9 @@ integer algorithm, in PyTorch (the port of ``s2sr_tpu/ops/clahe.py``).
    replicate edges. Even tile sizes take the half-tile region form of
    the blend (fixed neighbour LUTs per region, weights ``r/th``), odd
    ones the per-pixel form — the same split and expressions as the JAX
-   package, so the float roundings agree.
+   package, so the float roundings agree. Divisions go through
+   :func:`~s2sr_tpu_torch.ops.color.div`, so that the card rounds them
+   as the CPU does.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .color import div
 
 
 def _blend(v00, v01, v10, v11, xa, ya):
@@ -73,8 +77,8 @@ def clahe_u8(channel: torch.Tensor, clip_limit: float = 2.5,
         dev = channel.device
         ys = torch.arange(h, dtype=torch.float32, device=dev)
         xs = torch.arange(w, dtype=torch.float32, device=dev)
-        tyf = ys / th - 0.5
-        txf = xs / tw - 0.5
+        tyf = div(ys, th) - 0.5
+        txf = div(xs, tw) - 0.5
         ty1f = torch.floor(tyf)
         tx1f = torch.floor(txf)
         ya = (tyf - ty1f)[:, None]
@@ -123,8 +127,8 @@ def _apply_luts_regions(channel: torch.Tensor, lut: torch.Tensor,
              for ty, tx in ((t1y, t1x), (t1y, t2x), (t2y, t1x), (t2y, t2x))]
     vals = [torch.gather(q, 1, regions) for q in quads]
 
-    ya = (torch.arange(th, dtype=torch.float32, device=dev) / th)[:, None]
-    xa = (torch.arange(tw, dtype=torch.float32, device=dev) / tw)[None, :]
+    ya = div(torch.arange(th, dtype=torch.float32, device=dev), th)[:, None]
+    xa = div(torch.arange(tw, dtype=torch.float32, device=dev), tw)[None, :]
     ya = ya.expand(th, tw).reshape(-1)
     xa = xa.expand(th, tw).reshape(-1)
     out = _blend(*vals, xa, ya)

@@ -14,8 +14,11 @@ and rounded to bf16::
 as the TPU kernels do; it costs stores and changes no value.
 
 - :func:`matmul_chain` / :func:`pair_chain` are the wrappers. On a CUDA
-  tensor they launch the kernel in ``csrc/matmul_chain.cu`` (``mma.sync``
-  bf16 with float32 accumulators) or raise; on a CPU tensor they run the
+  tensor they launch the kernel in ``csrc/matmul_chain.cu`` or raise:
+  ``wgmma`` with the carry in registers and W in shared memory
+  (:func:`pack_wgmma`) where the source has an instance and W fits,
+  else ``mma.sync`` with W fragment-packed (:func:`pack_fragments`), both
+  bf16 with float32 accumulators; on a CPU tensor they run the
   plain version (:func:`matmul_chain_reference` /
   :func:`pair_chain_reference`). Shapes and types are checked first, on
   either device: bf16, contiguous, any M ≥ 1, K and N multiples of 16 in
@@ -39,7 +42,7 @@ LAUNCHES = {name: 0 for name in KERNELS}
 MAX_WIDTH = 512
 
 _QUERY = {"rows_per_block": 0, "smem_bytes": 1, "w_in_smem": 2, "warps": 3,
-          "kmax": 4, "copies": 5}
+          "kmax": 4, "copies": 5, "wgmma": 6}
 
 
 # --- plain versions ----------------------------------------------------------
@@ -153,6 +156,24 @@ def pack_fragments(w: torch.Tensor) -> torch.Tensor:
              .permute(0, 4, 6, 2, 5, 1, 3).contiguous())
 
 
+def pack_wgmma(w: torch.Tensor) -> torch.Tensor:
+    """``w (K, N)`` as the kernel's shared-memory image of ``wgmma``'s
+    K-major B operand with the 128-byte swizzle: K zero-padded to a
+    multiple of 64, then ``[K/64][N][64]`` (row ``n`` holds column ``n`` of
+    ``w``, 64 K values in 128 bytes), the 16-byte chunk ``c`` of row ``n``
+    stored at chunk ``c ^ (n % 8)``."""
+    k, n = w.shape
+    kp = -(-k // 64) * 64
+    wt = torch.zeros(n, kp, dtype=w.dtype, device=w.device)
+    wt[:, :k] = w.t()
+    blocks = wt.reshape(n, kp // 64, 8, 8).permute(1, 0, 2, 3)   # [kb][n][c][e]
+    rows = torch.arange(n, device=w.device)
+    chunk = torch.arange(8, device=w.device)[None, :] ^ (rows[:, None] % 8)
+    # chunk j of row n holds logical chunk j ^ (n % 8)
+    idx = chunk[None, :, :, None].expand(kp // 64, n, 8, 8)
+    return torch.gather(blocks, 2, idx).contiguous()
+
+
 def _lib():
     from ._build import load
 
@@ -214,9 +235,11 @@ def _launch(name: str, x: torch.Tensor, ws, repeat: int,
         raise ValueError(f"{name} wants a 16-byte aligned x")
     m, k = x.shape
     n = ws[0].shape[1]
-    packed = [pack_fragments(w) for w in ws]
-    out = torch.empty_like(x)
     lib = _lib()
+    wgmma = lib.s2sr_matmul_chain_query(k, n, int(len(ws) == 2), int(stage),
+                                        _QUERY["wgmma"]) == 1
+    packed = [(pack_wgmma if wgmma else pack_fragments)(w) for w in ws]
+    out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.s2sr_matmul_chain_forward(

@@ -9,12 +9,15 @@ and the output (the exact masked-bucket serving path, which the TPU
 kernel refused).
 
 - :func:`rdb` is the wrapper. On a CUDA tensor it launches the kernel in
-  ``csrc/rdb.cu`` (one launch per block, x1..x4 kept in shared memory)
-  or raises; on a CPU tensor it runs :func:`rdb_reference`.
+  ``csrc/rdb.cu`` (one launch per block, x1..x4 kept in shared memory;
+  bf16 on the tensor cores, fp32 on the CUDA cores) or raises; on a CPU
+  tensor it runs :func:`rdb_reference`.
 - :data:`LAUNCHES` counts kernel launches, nothing else.
 - What bounds the kernel on the H100 is operations (479,232 FLOP per
   pixel against 256 bytes per pixel in bf16); the source's header says
   what the design does about it.
+- :func:`pack_rdb_fragments` lays the packed weights out as the bf16
+  kernel's B fragments.
 
 Weights travel packed: :func:`pack_rdb_weights` rounds the five conv
 kernels and biases to the compute dtype (as the reference casts them)
@@ -66,6 +69,45 @@ def unpack_rdb_weights(w: torch.Tensor, b: torch.Tensor):
         off += n
         boff += cout
     return kernels, biases
+
+
+def fragment_index(device=None) -> torch.Tensor:
+    """Indices into :func:`pack_rdb_weights`' flat ``w`` that put it in the
+    bf16 kernel's B-fragment order (``csrc/rdb.cu``, ``rdb_tc_kernel``).
+
+    Stage s's im2col matrix has rows (source j, tap, channel) in the order
+    the kernel walks its k16 slabs: sources x, x1, .. x_{s-1}, then the 9
+    taps, then the source's channels; columns are the stage's output
+    channels. Each (K_s, Cout_s) matrix of indices is laid out as
+    ``mma.m16n8k16``'s B fragments, ``[K/16][Cout/16][lane][8]`` (lane
+    ``4g + t``: rows 2t, 2t+1, 2t+8, 2t+9 of column g, then of column
+    8 + g), and the stages follow one another."""
+    key = str(device)
+    if key not in _FRAG_INDEX:
+        parts, off = [], 0
+        for s, (cin, cout) in enumerate(zip(_CIN, _COUT), start=1):
+            flat = torch.arange(9 * cin * cout).view(9, cin, cout) + off
+            rows = []
+            for j in range(s):
+                lo, c = (0, NF) if j == 0 else (NF + (j - 1) * G, G)
+                rows.append(flat[:, lo:lo + c].reshape(9 * c, cout))
+            mat = torch.cat(rows)                           # (9·cin, cout)
+            k, n = mat.shape
+            parts.append(mat.reshape(k // 16, 2, 4, 2, n // 16, 2, 8)
+                         .permute(0, 4, 6, 2, 5, 1, 3).reshape(-1))
+            off += 9 * cin * cout
+        _FRAG_INDEX[key] = torch.cat(parts).to(device)
+    return _FRAG_INDEX[key]
+
+
+_FRAG_INDEX: dict = {}
+
+
+def pack_rdb_fragments(w: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_rdb_weights`' flat float32 ``w`` as the bf16 kernel's B
+    fragments (:func:`fragment_index`); exact, since ``w`` holds bf16
+    values."""
+    return w[fragment_index(w.device)].to(torch.bfloat16)
 
 
 def _mask_nchw(mask, x):
@@ -128,9 +170,9 @@ def _lib():
     lib = load("rdb")
     if not getattr(lib, "_s2sr_typed", False):
         vp = ctypes.c_void_p
-        lib.s2sr_rdb_forward.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int,
+        lib.s2sr_rdb_forward.argtypes = [vp, vp, vp, vp, vp, vp,
                                          ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_int, vp]
+                                         ctypes.c_int, ctypes.c_int, vp]
         lib.s2sr_rdb_forward.restype = ctypes.c_int
         lib.s2sr_rdb_tile.argtypes = [ctypes.c_int]
         lib.s2sr_rdb_tile.restype = ctypes.c_int
@@ -192,12 +234,15 @@ def rdb(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if bsz * h * wd == 0:
         return out
     lib = _lib()
+    # the bf16 kernel reads its weights as B fragments, packed per call
+    # (one gather of 240k values)
+    wf = pack_rdb_fragments(w) if x.dtype == torch.bfloat16 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.s2sr_rdb_forward(
             x.data_ptr(), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), w.data_ptr(), b.data_ptr(), bsz, h, wd,
-            _DTYPE_CODE[x.dtype], stream)
+            out.data_ptr(), w.data_ptr(), None if wf is None else wf.data_ptr(),
+            b.data_ptr(), bsz, h, wd, _DTYPE_CODE[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"rdb kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

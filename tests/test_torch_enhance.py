@@ -69,6 +69,46 @@ def test_hsv_to_rgb_full_cube():
         assert np.array_equal(tc.hsv_to_rgb_u8(t(part)).numpy(), want)
 
 
+def _lab_cube():
+    L, a, b = np.meshgrid(np.arange(256), np.arange(256), np.arange(256),
+                          indexing="ij")
+    return np.stack([L, a, b], -1).reshape(-1, 3).astype(np.uint8)
+
+
+def test_srgb_thresholds_from_eager_jax():
+    """The port's 255 sRGB thresholds are the bisection of the JAX
+    package's eager float32 encoding over the bit patterns of [0, 1]."""
+    k = np.arange(1, 256, dtype=np.float32)
+    lo = np.zeros(255, np.int64)
+    hi = np.full(255, 0x3F800000, np.int64)
+    with jax.disable_jit():
+        while (hi - lo > 1).any():
+            mid = lo + (hi - lo) // 2
+            x = jnp.asarray(mid.astype(np.uint32).view(np.float32))
+            up = np.asarray(jnp.round(jc._linear_to_srgb(x) * 255.0)) >= k
+            hi, lo = np.where(up, mid, hi), np.where(up, lo, mid)
+    assert np.array_equal(hi.astype(np.uint32), tc._SRGB_U8_THRESHOLD_BITS)
+
+
+def test_lab_to_rgb_full_cube_eager():
+    """All 256³ Lab triples against eager JAX (one rounding per op, as
+    the port runs), byte for byte, in 16 slices to bound memory."""
+    for part in np.array_split(_lab_cube(), 16):
+        with jax.disable_jit():
+            want = np.asarray(jc.lab_to_rgb_u8(jnp.asarray(part)))
+        assert np.array_equal(tc.lab_to_rgb_u8(t(part)).numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(67, 93), (100, 60)])
+def test_clahe_eager(shape):
+    """Per-pixel blend (an odd tile side) against eager JAX, byte for
+    byte, on images holding every uint8 value."""
+    ch = rand_u8(shape, 7)
+    with jax.disable_jit():
+        want = np.asarray(jcl.clahe_u8(jnp.asarray(ch), 2.5, 8, 8))
+    assert np.array_equal(tcl.clahe_u8(t(ch), 2.5, 8, 8).numpy(), want)
+
+
 @pytest.mark.parametrize("shape", [(64, 64), (128, 96), (67, 93),
                                    (100, 60), (256, 192)])
 def test_clahe(shape):

@@ -217,6 +217,99 @@ def test_fragment_emulation_matches_matmul(kin, kout):
                                rtol=1e-5, atol=1e-5)
 
 
+# the wgmma path's products in phase mxu of chip_smoke.py: (K_in, N_out)
+WGMMA_PRODUCTS = [(k, k) for k in (64, 96, 128, 160, 192, 256)] + [
+    pr for k, n in ((64, 128), (96, 128), (96, 160), (288, 128))
+    for pr in ((k, n), (n, k))]
+
+
+def wgmma_b_tile(image: np.ndarray, kin: int, nout: int, kk: int) -> np.ndarray:
+    """The (16, N) B operand that the kernel's ``wgmma``s of k-slab ``kk``
+    read from the shared-memory image: descriptor start ``(kk // 4)·N·128
+    + (kk % 4)·32`` (+ ``p·NI·128`` for part ``p`` above 256 columns), then
+    for element (k, n) the canonical K-major address ``start + (n // 8)·SBO
+    + (n % 8)·128 + 2k`` with SBO 1024 bytes, and the 128-byte swizzle
+    applied to the address: bits 4–6 XOR bits 7–9."""
+    raw = image.reshape(-1)                       # bf16 elements
+    parts = 2 if nout > 256 else 1
+    ni = nout // parts
+    tile = np.zeros((16, nout), raw.dtype)
+    for p in range(parts):
+        start = (kk // 4) * nout * 128 + (kk % 4) * 32 + p * ni * 128
+        n = np.arange(ni)[None, :]
+        k = np.arange(16)[:, None]
+        addr = start + (n // 8) * 1024 + (n % 8) * 128 + 2 * k
+        addr = addr ^ (((addr >> 7) & 7) << 4)
+        tile[:, p * ni:(p + 1) * ni] = raw[addr // 2]
+    return tile
+
+
+@pytest.mark.parametrize("kin,nout", WGMMA_PRODUCTS)
+def test_wgmma_image_unpacks_to_w(kin, nout):
+    """Walking the descriptors over ``pack_wgmma``'s image gives back W,
+    slab by slab, for every product of phase mxu."""
+    w = zero_mean((kin, nout), kin, 21)
+    image = mc.pack_wgmma(torch.from_numpy(w)).numpy()
+    assert image.size == -(-kin // 64) * 64 * nout          # the C image_bytes / 2
+    got = np.concatenate([wgmma_b_tile(image, kin, nout, kk)
+                          for kk in range(kin // 16)])
+    assert np.array_equal(got, w)
+
+
+def test_wgmma_chain_step_emulation():
+    """One chain step of a warpgroup as the kernel runs it, in numpy: A in
+    wgmma's register layout (warp w rows 16w.., lane 4g + t: registers
+    r = 0..3 at row g + 8(r & 1), columns 16s + 8(r >> 1) + 2t), B from
+    the image through the descriptors, the f32 accumulator in its layout
+    (n8 block j: d[4j], d[4j+1] at row g, columns 8j + 2t, +1; d[4j+2],
+    d[4j+3] at row g + 8), then ``to_operand``'s pairing d[8s + 2r],
+    d[8s + 2r + 1] → register r of slab s. Reassembled, the next A must
+    be A @ W."""
+    kin, nout = 96, 160
+    a = zero_mean((64, kin), 1, 22)
+    w = zero_mean((kin, nout), kin, 23)
+    image = mc.pack_wgmma(torch.from_numpy(w)).numpy()
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+
+    def regs_of(mat, width):               # [warp][lane][slab][reg][2]
+        out = np.zeros((4, 32, width // 16, 4, 2), np.float32)
+        for wp in range(4):
+            for s_ in range(width // 16):
+                for r in range(4):
+                    row = 16 * wp + g + 8 * (r & 1)
+                    col = 16 * s_ + 8 * (r >> 1) + 2 * t
+                    out[wp, :, s_, r, 0] = mat[row, col]
+                    out[wp, :, s_, r, 1] = mat[row, col + 1]
+        return out
+
+    areg = regs_of(a, kin)
+    acc = np.zeros((4, 32, nout // 2), np.float32)
+    for kk in range(kin // 16):
+        # the A slab as the warpgroup holds it, then the product
+        slab = np.zeros((64, 16), np.float32)
+        for wp in range(4):
+            for r in range(4):
+                for e in range(2):
+                    slab[16 * wp + g + 8 * (r & 1), 8 * (r >> 1) + 2 * t + e] = \
+                        areg[wp, :, kk, r, e]
+        d = slab @ wgmma_b_tile(image, kin, nout, kk)
+        for wp in range(4):
+            for j in range(nout // 8):
+                for e in range(2):
+                    acc[wp, :, 4 * j + e] += d[16 * wp + g, 8 * j + 2 * t + e]
+                    acc[wp, :, 4 * j + 2 + e] += d[16 * wp + g + 8, 8 * j + 2 * t + e]
+    nxt = np.zeros((64, nout), np.float32)
+    for wp in range(4):
+        for s_ in range(nout // 16):
+            for r in range(4):
+                row = 16 * wp + g + 8 * (r & 1)
+                col = 16 * s_ + 8 * (r >> 1) + 2 * t
+                nxt[row, col] = acc[wp, :, 8 * s_ + 2 * r]
+                nxt[row, col + 1] = acc[wp, :, 8 * s_ + 2 * r + 1]
+    np.testing.assert_allclose(nxt, a @ w, rtol=1e-5, atol=1e-5)
+
+
 def test_pack_fragments_is_a_permutation():
     w = torch.arange(32 * 48, dtype=torch.float32).reshape(32, 48)
     packed = mc.pack_fragments(w).reshape(2, 3, 32, 8)

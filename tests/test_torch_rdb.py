@@ -135,3 +135,154 @@ def test_pack_rejects_wrong_widths():
     kernels = [torch.zeros(16, 32, 3, 3)] * 5
     with pytest.raises(ValueError, match="conv1"):
         pack_rdb_weights(kernels, [torch.zeros(16)] * 5, torch.float32)
+
+
+# --- the bf16 tensor-core kernel's indexing, emulated in numpy --------------
+
+TC_TILE, TC_HALO, TC_WARPS = 16, 5, 8
+
+
+def _swz(q):
+    """The kernel's chunk swizzle: 16-byte chunk q stored at q ^ ((q >> 3)
+    & 7) in its low three bits."""
+    return q ^ ((q >> 3) & 7)
+
+
+def _tc_layout():
+    """Per source j (0 = x, 1..4 = x1..x4): (byte offset, region side,
+    channels), as ``tc_off`` / ``tc_side`` lay them out."""
+    out, off = [], 0
+    for j in range(5):
+        side, ch = TC_TILE + 2 * (TC_HALO - j), 64 if j == 0 else 32
+        out.append((off, side, ch))
+        off += side * side * ch * 2
+    return out, off
+
+
+def _unpack_b_slabs(wf: np.ndarray, cin: int, cout: int) -> np.ndarray:
+    """A stage's B fragments (``[K/16][Cout/16][lane][8]``) read back as the
+    mma reads them: lane 4g + t's uint4 of n16 block n gives, for n8 tile
+    2n + h, b0 = rows 2t, 2t+1 and b1 = rows 2t+8, 2t+9 of column g."""
+    pk = wf.reshape(9 * cin // 16, cout // 16, 32, 8)
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    out = np.zeros((9 * cin // 16, 16, cout), np.float32)
+    for n in range(cout // 16):
+        for h in range(2):
+            for a in range(2):
+                for e in range(2):
+                    out[:, 2 * t + e + 8 * a, 16 * n + 8 * h + g] = \
+                        pk[:, n, :, 4 * h + 2 * a + e]
+    return out
+
+
+def emulate_tc_rdb(x, wf, bias, mask=None):
+    """``rdb_tc_kernel`` in float32 numpy, tile by tile: the input halo
+    written at swizzled chunks, every k16 slab's A gathered as ldmatrix.x4
+    returns it from the per-lane tap addresses, B from the fragments, and
+    x1..x4 stored back through the swizzled addresses (in float32, so the
+    result is the fp32 RDB)."""
+    bsz, h, w, _ = x.shape
+    layout, nbytes = _tc_layout()
+    cins, couts = (64, 96, 128, 160, 192), (32, 32, 32, 32, 64)
+    slabs, off = [], 0
+    for cin, cout in zip(cins, couts):
+        n = 9 * cin * cout
+        slabs.append(_unpack_b_slabs(wf[off:off + n], cin, cout))
+        off += n
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    out = np.zeros_like(x)
+    for b in range(bsz):
+        for oy0 in range(0, h, TC_TILE):
+            for ox0 in range(0, w, TC_TILE):
+                mem = np.full(nbytes // 2, np.nan, np.float32)
+                r0 = layout[0][1]
+                for p in range(r0 * r0):
+                    gy, gx = oy0 - TC_HALO + p // r0, ox0 - TC_HALO + p % r0
+                    inside = 0 <= gy < h and 0 <= gx < w
+                    for c in range(8):
+                        at = _swz(p * 8 + c) * 8
+                        mem[at:at + 8] = x[b, gy, gx, 8 * c:8 * c + 8] \
+                            if inside else 0
+                for s in range(1, 6):
+                    rs = TC_TILE + 2 * (TC_HALO - s)
+                    npix, cout = rs * rs, couts[s - 1]
+                    for mt in range((npix + 15) // 16):
+                        tile_d = np.zeros((16, cout), np.float32)
+                        pix = np.minimum(mt * 16 + lanes % 16, npix - 1)
+                        py, px = pix // rs, pix % rs
+                        k = 0
+                        for j in range(s):
+                            base, rj, cj = layout[j]
+                            sp0 = (py + s - 1 - j) * rj + px + s - 1 - j
+                            for tap in range(9):
+                                toff = (tap // 3) * rj + tap % 3
+                                for c in range(cj // 16):
+                                    q = (sp0 + toff) * (cj // 8) + 2 * c + lanes // 16
+                                    addr = base + _swz(q) * 16
+                                    rows = mem[(addr // 2)[:, None] + np.arange(8)]
+                                    # lane L: row L % 16, columns 8(L // 16)..
+                                    tile_a = np.concatenate([rows[:16], rows[16:]], 1)
+                                    tile_d += tile_a @ slabs[s - 1][k]
+                                    k += 1
+                        for hh in range(2):
+                            p = mt * 16 + g + 8 * hh
+                            for kk in range(cout // 8):
+                                for e in range(2):
+                                    co = 8 * kk + 2 * t + e
+                                    v = tile_d[g + 8 * hh, co] + bias[(s - 1) * 32 + co]
+                                    for ln in range(32):
+                                        if p[ln] >= npix:
+                                            continue
+                                        ry, rx = divmod(int(p[ln]), rs)
+                                        if s < 5:
+                                            hs = TC_HALO - s
+                                            gy, gx = oy0 - hs + ry, ox0 - hs + rx
+                                            ins = 0 <= gy < h and 0 <= gx < w
+                                            mk = (mask[b, gy, gx] if mask is not None
+                                                  else 1.0) if ins else 0.0
+                                            val = v[ln] if v[ln] >= 0 else 0.2 * v[ln]
+                                            addr = (layout[s][0] + _swz(int(p[ln]) * 4 + kk) * 16
+                                                    + 4 * int(t[ln]) + 2 * e)
+                                            mem[addr // 2] = val * mk if ins else 0.0
+                                        else:
+                                            gy, gx = oy0 + ry, ox0 + rx
+                                            if gy >= h or gx >= w:
+                                                continue
+                                            xp = (ry + TC_HALO) * r0 + rx + TC_HALO
+                                            xin = mem[(_swz(xp * 8 + kk) * 16
+                                                       + 4 * int(t[ln]) + 2 * e) // 2]
+                                            mk = mask[b, gy, gx] if mask is not None else 1.0
+                                            out[b, gy, gx, co[ln]] = (v[ln] * 0.2 + xin) * mk
+    return out
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_tc_kernel_emulation_matches_reference(rdb_params, masked):
+    """The bf16 kernel's indexing (swizzled pixel-major buffers, per-lane
+    ldmatrix tap addresses, the B-fragment packer, the epilogue stores),
+    emulated in float32 on a 2×2-tile image, gives the fp32 RDB."""
+    x = np.random.default_rng(4).normal(size=(1, 18, 21, 64)).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.zeros((1, 18, 21), np.float32)
+        mask[:, :13, :17] = 1
+        x = x * mask[..., None]
+    w, b = torch_weights(rdb_params)
+    wf = w[rdb_mod.fragment_index()].numpy()
+    got = emulate_tc_rdb(x, wf, b.numpy(), mask)
+    want = rdb_reference(torch.from_numpy(x), w, b,
+                         None if mask is None else torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_fragment_index_is_a_permutation():
+    idx = rdb_mod.fragment_index()
+    assert sorted(idx.tolist()) == list(range(idx.numel()))
+    # stage 1, slab 0 (x, tap 0, channels 0..15), lane 4g + t of n16
+    # block 0: rows 2t, 2t+1, 2t+8, 2t+9 of column g, then of column 8 + g
+    g, t = 3, 2
+    want = [(r * 32 + col) for col in (g, 8 + g)
+            for r in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)]
+    assert idx[(0 * 2 + 0) * 256 + (4 * g + t) * 8:][:8].tolist() == want
