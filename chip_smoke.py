@@ -14,10 +14,11 @@ random weights from seed 0, each at the full width of its model:
   ``SREngine.enhance_serving_many``) on ``realesrgan_x4``, whose residual
   dense blocks run the ``rdb`` kernel (phases kernel, main, numbers);
 - SwinIR serving on ``swinir_x4`` (``process_wow_sr`` on the exact path,
-  the halo-tiled engine path, a 3×5 upload), whose Swin blocks run the
+  the halo-tiled engine path, a 3×5 upload, exact 2048² and 2560² images
+  with the strip tail held to the whole tail), whose Swin blocks run the
   ``swin_block`` kernel, or ``window_attention`` under
   ``S2SR_SWINIR_FUSED_LEVEL=attn`` (phases swin_kernel, swin_main,
-  swin_numbers).
+  swin_large, swin_numbers).
 
 It also drives the RDB ablation ladder (``s2sr_tpu_torch.bench.rdb_ladder``)
 at the main path's chunk shape, whose rungs run the ``rdb_v1``, ``rdb_v2``
@@ -39,8 +40,8 @@ Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 
 ``--phases`` picks a subset (device, build, kernel, main, numbers,
-swin_kernel, swin_main, swin_numbers, ladder, mxu) for a quick check; the
-default runs them all.
+swin_kernel, swin_main, swin_large, swin_numbers, ladder, mxu) for a quick
+check; the default runs them all.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernel", "main", "numbers", "swin_kernel",
-          "swin_main", "swin_numbers", "ladder", "mxu")
+          "swin_main", "swin_large", "swin_numbers", "ladder", "mxu")
 KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder", "matmul_chain")
 
 # H100 SXM dense peaks (NVIDIA data sheet) used for the bounds
@@ -186,7 +187,8 @@ def phase_build(state):
           "ptxas": ptxas})
     # the tensor-core kernels, one line each: registers and spills
     for name, pattern in (("rdb", "rdb_tc_kernel"),
-                          ("matmul_chain", "wg_chain_kernel")):
+                          ("matmul_chain", "wg_chain_kernel"),
+                          ("window_attention", "swin_tc_kernel")):
         emit({"phase": "build", "kernel": pattern, "ptxas": {
             k: v for k, v in ptxas[name].items() if pattern in k}})
 
@@ -747,10 +749,17 @@ def swin_faults(t: dict, mlp: bool) -> dict:
     """Tables whose plain version computes what a faulty kernel would:
     the shift mask dropped, every window given mask type 0 (interior,
     all zeros, so it equals the dropped mask) or type 3 (corner), the
-    relative-position bias dropped, and (whole block) the MLP dropped."""
+    relative-position bias dropped, heads 0 and 1 given each other's q,
+    k and v columns (a packer or fragment offset off by one head), and
+    (whole block) the MLP dropped."""
     import torch
 
     out = {}
+    cols = 3 * t["dp"]
+    perm = torch.arange(t["wqkv"].shape[1], device=t["wqkv"].device)
+    perm[:2 * cols] = torch.cat([perm[cols:2 * cols], perm[:cols]])
+    out["heads_0_1_swapped"] = {**t, "wqkv": t["wqkv"][:, perm].contiguous(),
+                                "bqkv": t["bqkv"][perm].contiguous()}
     if t["shift"]:
         out["mask_dropped"] = {**t, "masks": torch.zeros_like(t["masks"])}
         for k in (0, 3):
@@ -785,6 +794,7 @@ def swin_bound_ms(name: str, shape, dtype) -> tuple:
 def phase_swin_kernel(state):
     import torch
 
+    from s2sr_tpu_torch.ops import _build
     from s2sr_tpu_torch.ops import window_attention as wa
 
     # The error is max |kernel − plain| over the kernel's own change to
@@ -794,17 +804,24 @@ def phase_swin_kernel(state):
     # same places, so only a near-tie rounded apart differs (the plain
     # bf16 version sits 0.006 of the change from the fp32 one on the
     # CPU). Each case also holds the kernel further than the tolerance
-    # from the plain version with each planted fault (0.45–0.84 of the
-    # change on the CPU).
+    # from the plain version with each planted fault (0.45–1.03 of the
+    # change on the CPU at (1, 24, 32); the head swap 0.63–0.87).
     tol = {torch.float32: 1e-4, torch.bfloat16: 0.05}
     grids = [(1, 24, 32), (2, 40, 72), (1, 512, 512)]
     launches0 = dict(wa.LAUNCHES)
     failures = []
     worst = {}
     t0 = time.perf_counter()
-    emit({"phase": "swin_kernel", "smem_bytes": wa.kernel_smem_bytes()})
+    sass = sass_counts(_build.lib_path("window_attention"))
+    emit({"phase": "swin_kernel", "sass": sass})
+    tc = [c for k, c in sass.items() if "swin_tc_kernel" in k]
+    if len(tc) != 2 or any(c["HMMA"] == 0 for c in tc):
+        raise AssertionError(f"a bf16 Swin kernel issues no HMMA: {sass}")
     for name, (fn, ref, mlp) in swin_kernels().items():
         for dtype in (torch.float32, torch.bfloat16):
+            tiling = wa.kernel_tiling(dtype, mlp)
+            emit({"phase": "swin_kernel", "kernel": name, "dtype": str(dtype),
+                  **tiling})
             for grid in grids:
                 for shift in (0, 4):
                     x, t, t32 = swin_inputs(grid, dtype, shift)
@@ -1056,7 +1073,194 @@ def phase_swin_main(state):
     emit({"phase": "swin_main", "seconds": round(time.perf_counter() - t0, 3)})
 
 
+# SwinIR's exact path at its large sizes: the strip tail engages above
+# TAIL_STRIP_AREA (1280²), and SWINIR_EXACT_AREA (2560²) is the largest
+# exact image
+SWIN_LARGE_SIDES = (2048, 2560)
+
+
+def phase_swin_large(state):
+    """Exact ``enhance_serving`` of 2048² and 2560² images on the
+    full-width bf16 ``swinir_x4`` engine: one forward each (36
+    ``swin_block`` launches, no chunk), its seconds and peak device
+    memory; then, on the 2048² image's trunk features, the strip tail
+    against the whole tail."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models import engine as engine_mod
+    from s2sr_tpu_torch.models import swinir as swin_mod
+    from s2sr_tpu_torch.ops import window_attention as wa
+
+    t0 = time.perf_counter()
+    eng = state.get("swin_engine") or engine_mod.get_engine(
+        "swinir_x4", weights_dir=str(state["work"] / "weights"),
+        device="cuda")
+    model = eng.model
+    launches0 = dict(wa.LAUNCHES)
+    captured, failures = {}, []
+    strips = model._tail_strips
+
+    def capture(feat):
+        out = strips(feat)
+        captured["feat"], captured["strips"] = feat, out
+        return out
+
+    for side in SWIN_LARGE_SIDES:
+        if side * side > eng.engage_area:
+            raise AssertionError(f"{side}² is not on the exact path")
+        img = synthetic_fields((side, side), seed=30)
+        wa.LAUNCHES["swin_block"] = 0
+        chunks0 = eng.chunks_dispatched
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model._tail_strips = capture
+        try:
+            t1 = time.perf_counter()
+            out = eng.enhance_serving(img)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+        finally:
+            del model._tail_strips
+        peak = torch.cuda.max_memory_allocated()
+        launches = wa.LAUNCHES["swin_block"]
+        trunk = side * side > swin_mod.TAIL_STRIP_AREA
+        emit({"phase": "swin_large", "card": state.get("card"),
+              "image": [side, side], "out_shape": list(out.shape),
+              "swin_block_launches": launches,
+              "chunks_dispatched_delta": eng.chunks_dispatched - chunks0,
+              "strip_tail": "strips" in captured, "seconds": secs,
+              "peak_memory_bytes": peak, "out_mean": float(out.mean())})
+        if (out.shape != (4 * side, 4 * side, 3) or out.dtype != np.uint8
+                or launches != SWIN_BLOCKS or eng.chunks_dispatched != chunks0
+                or ("strips" in captured) != trunk):
+            raise AssertionError(f"swin exact {side}²: out {out.shape}, "
+                                 f"{launches} launches, chunks "
+                                 f"{eng.chunks_dispatched - chunks0}")
+        del out
+        if side == SWIN_LARGE_SIDES[0]:
+            # The strip tail against the whole tail on the same features
+            # (bit-equal on the CPU, tests/test_torch_swinir.py). Held on
+            # the card: at most 1% of values apart, each by at most one
+            # bf16 ulp of the output's largest value (2⁻⁷ of it). Printed
+            # beside it: whether the whole tail repeats itself bit for bit,
+            # and each tail conv alone on the first strip's rows against the
+            # same conv on the whole map (cuDNN picks an algorithm by shape).
+            feat, got = captured.pop("feat"), captured.pop("strips")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                want = model._tail(feat)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            with torch.no_grad():
+                repeats = bool(torch.equal(model._tail(feat), want))
+            differ = got != want
+            share = differ.float().mean().item()
+            diff = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            per_conv = tail_conv_shares(model, feat)
+            emit({"phase": "swin_large", "check": "strip tail vs whole tail",
+                  "trunk": list(feat.shape), "out": list(want.shape),
+                  "byte_equal": bool(torch.equal(got, want)),
+                  "share_differing": share, "tol_share": 0.01,
+                  "max_abs_diff": diff, "max_abs_out": scale,
+                  "tol_abs": 2.0 ** -7 * scale,
+                  "whole_tail_repeats_bit_for_bit": repeats,
+                  "share_differing_per_conv_strip_vs_whole": per_conv,
+                  "peak_memory_bytes_whole_tail": peak})
+            if (got.shape != want.shape or share > 0.01
+                    or diff > 2.0 ** -7 * scale):
+                failures.append(f"strip tail differs from the whole tail: "
+                                f"{share} of values, up to {diff}")
+            del feat, got, want, differ
+        captured.clear()
+        torch.cuda.empty_cache()
+    wa.LAUNCHES.update(launches0)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    emit({"phase": "swin_large", "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def tail_conv_shares(model, feat) -> dict:
+    """Each conv of SwinIR's tail, on its whole-map input (the tail run
+    layer by layer on ``feat``), applied to the first strip's rows and to
+    the whole map: per conv, the share of the strip's output rows (all but
+    its last, which sees the strip's own zero padding) that differ."""
+    import torch
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    from s2sr_tpu_torch.models import swinir as swin_mod
+
+    rows = swin_mod.TAIL_STRIP + 2 * swin_mod._TAIL_PAD
+    layers = ([("conv_before_upsample", model.conv_before_upsample[0])]
+              + [(f"upsample.{i}", m) for i, m in enumerate(model.upsample)]
+              + [("conv_last", model.conv_last)])
+    out, x = {}, feat
+    with torch.no_grad():
+        for name, m in layers:
+            if isinstance(m, nn.PixelShuffle):
+                x = F.pixel_shuffle(x, m.upscale_factor)
+                rows *= m.upscale_factor
+                continue
+            whole = swin_mod._conv(x, m, model.dtype)
+            strip = swin_mod._conv(x[:, :, :rows], m, model.dtype)
+            out[name] = (whole[:, :, :rows - 1] != strip[:, :, :rows - 1]
+                         ).float().mean().item()
+            del strip
+            x = (F.leaky_relu(whole, 0.01) if name == "conv_before_upsample"
+                 else whole)
+            del whole
+    return out
+
+
+def l2_copy_rate() -> float:
+    """Bytes per second, read plus written, that ``Tensor.copy_`` moves
+    between two 8 MiB bf16 tensors kept in the 50 MB L2: 20 copies in a
+    CUDA graph (no launch gaps), replayed warm, CUDA events. A lower bound
+    on the L2's rate, at which the run prices the Swin kernels' table
+    reads."""
+    import torch
+
+    src = torch.ones(4 << 20, dtype=torch.bfloat16, device="cuda")
+    dst = torch.empty_like(src)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dst.copy_(src)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(20):
+            dst.copy_(src)
+    ms = time_cuda(graph.replay, iters=10, warmup=2) / 20
+    return 2 * src.numel() * 2 / (ms * 1e-3)
+
+
+def swin_l2_bytes(name: str, shape, dtype) -> int:
+    """Bytes a launch reads from L2 for its tables, per window: the
+    matrices as the kernel reads them (bf16 fragments with K padded; the
+    fp32 matrices), the bias of every head and the window's mask."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.ops import window_attention as wa
+
+    bsz, h, w = shape
+    windows = bsz * (h // 8) * (w // 8)
+    keys = ("wqkv", "wo") + (("w1", "w2") if name == "swin_block" else ())
+    if dtype == torch.bfloat16:
+        mats = sum(int(np.prod(wa._MMA_SHAPES[k + "_mma"])) * 2 for k in keys)
+    else:
+        mats = sum(int(np.prod(wa._TABLE_SHAPES[k])) * 4 for k in keys)
+    return windows * (mats + (6 + 1) * 64 * 64 * 4)
+
+
 def phase_swin_numbers(state):
+    import numpy as np
     import torch
 
     from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
@@ -1067,8 +1271,11 @@ def phase_swin_numbers(state):
     card = state.get("card") or card_line()
     launches0 = dict(wa.LAUNCHES)
     shape, dtype = (1, 512, 512), torch.bfloat16
+    l2_rate = l2_copy_rate()
+    emit({"phase": "swin_numbers", "card": card,
+          "l2_bytes_per_s_copy_8MiB": l2_rate})
     numbers = {}
-    for name, (fn, ref, _) in swin_kernels().items():
+    for name, (fn, ref, mlp) in swin_kernels().items():
         per_shift = {}
         for shift in (0, 4):
             x, t, _ = swin_inputs(shape, dtype, shift)
@@ -1081,12 +1288,22 @@ def phase_swin_numbers(state):
         bound_ms, bound_by = swin_bound_ms(name, shape, dtype)
         numbers[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by}
+        tiling = wa.kernel_tiling(dtype, mlp)
+        tokens = int(np.prod(shape))
+        l2 = swin_l2_bytes(name, shape, dtype)
         emit({"phase": "swin_numbers", "card": card, "kernel": name,
               "shape": [*shape, 180], "dtype": "bfloat16",
               "ms_by_shift": {s: v[0] for s, v in per_shift.items()},
               "plain_ms_by_shift": {s: v[1] for s, v in per_shift.items()},
               **numbers[name],
-              "tflops": SWIN_FLOP_PER_TOKEN[name] * 512 * 512 / ms / 1e9})
+              "tflops_useful": SWIN_FLOP_PER_TOKEN[name] * tokens / ms / 1e9,
+              "tflops_executed": 2 * tiling["macs_per_window"] * tokens / 64
+              / ms / 1e9,
+              "blocks_per_sm": tiling["blocks_per_sm"],
+              "smem_bytes": tiling["smem_bytes"],
+              "l2_table_bytes_per_launch": l2,
+              "l2_table_ms_at_copy_rate": l2 / l2_rate * 1e3,
+              "l2_table_bytes_per_s_in_kernel": l2 / (ms * 1e-3)})
         torch.cuda.empty_cache()
     wa.LAUNCHES.update(launches0)
     # warm 512² exact enhance_serving

@@ -30,7 +30,13 @@ erf form in float32 and the tanh form in bfloat16, as the JAX package's
   raise; on a CPU tensor they run the plain version.
 - :data:`LAUNCHES` counts kernel launches per kernel, nothing else.
 - :func:`build_block_tables` turns one block's weights (the released
-  checkpoint's names and layouts) into the kernel's inputs.
+  checkpoint's names and layouts) into the kernel's inputs; for bf16 it
+  adds the matrices as the tensor-core kernel's B fragments
+  (:func:`pack_mma_b`).
+
+The bf16 kernel runs every product on the tensor cores; the fp32 one
+runs float32 FMA on the CUDA cores (``csrc/window_attention.cu`` says
+why and how).
 """
 
 from __future__ import annotations
@@ -101,6 +107,33 @@ def mask_type_index(nh: int, nw: int) -> np.ndarray:
 
 # --- tables --------------------------------------------------------------
 
+def mma_b_index(kpad: int, n: int) -> torch.Tensor:
+    """For each slot of :func:`pack_mma_b`'s output, in order, the flat
+    index of the (kpad, n) matrix element it holds: ``mma.m16n8k16``'s B
+    fragments ``[kpad/16][n/8][lane][4]``, lane ``4g + t`` holding rows
+    2t, 2t+1, 2t+8, 2t+9 of column g of its k16 slab and n8 tile, the
+    order in which ``swin_tc_kernel`` loads them (one 8-byte load a lane
+    per tile)."""
+    # row 16s + 8a + 2t + e, column 8j + g → [s][j][g][t][a][e]
+    return (torch.arange(kpad * n).reshape(kpad // 16, 2, 4, 2, n // 8, 8)
+            .permute(0, 4, 5, 2, 1, 3).reshape(-1))
+
+
+def pack_mma_b(w: torch.Tensor, kpad: int) -> torch.Tensor:
+    """A (K, N) matrix, K padded with zero rows to ``kpad`` (a multiple of
+    16) and N a multiple of 8, as the bf16 B fragments of
+    :func:`mma_b_index`, shape (kpad/16, N/8, 32, 4)."""
+    k, n = w.shape
+    wp = torch.zeros(kpad, n, dtype=torch.bfloat16, device=w.device)
+    wp[:k] = w
+    idx = mma_b_index(kpad, n).to(w.device)
+    return wp.reshape(-1)[idx].reshape(kpad // 16, n // 8, 32, 4)
+
+
+# the bf16 kernel's packed matrices: key → the table's matrix
+MMA_KEYS = {"wqkv_mma": "wqkv", "wo_mma": "wo", "w1_mma": "w1",
+            "w2_mma": "w2"}
+
 def build_block_tables(p, num_heads: int, window: int, shift: int,
                        dtype: torch.dtype) -> dict:
     """One Swin block's kernel inputs from its weights ``p`` (a mapping
@@ -118,7 +151,10 @@ def build_block_tables(p, num_heads: int, window: int, shift: int,
     - ``wo`` (heads·dp, cp): proj, rows per head;
     - ``w1`` (C, hp), ``w2`` (hidden, cp);
     - ``bias`` (heads, N, N): the relative-position bias;
-    - ``masks`` (4, N, N): the shift-mask types (zeros when unshifted).
+    - ``masks`` (4, N, N): the shift-mask types (zeros when unshifted);
+    - bf16 only, :data:`MMA_KEYS`: ``wqkv``, ``wo``, ``w1``, ``w2`` as B
+      fragments (:func:`pack_mma_b`), K padded to cp (wqkv, w1), hp (w2).
+    A table that changes must be built again, so that both copies agree.
     """
     def f32(name):
         return p[name].detach().float()
@@ -165,7 +201,7 @@ def build_block_tables(p, num_heads: int, window: int, shift: int,
     def mat(t):
         return t.to(dtype).contiguous()
 
-    return {
+    t = {
         "g1": vec("norm1.weight", c), "b1": vec("norm1.bias", c),
         "wqkv": wqkv.reshape(c, -1).to(dtype).contiguous(),
         "bqkv": bqkv.reshape(-1).to(dtype).float().contiguous(),
@@ -180,6 +216,11 @@ def build_block_tables(p, num_heads: int, window: int, shift: int,
         "hidden": hidden, "window": window, "shift": shift,
         "dtype": dtype,
     }
+    if dtype == torch.bfloat16:
+        kpad = {"wqkv": cp, "wo": num_heads * dp, "w1": cp, "w2": hp}
+        for key, name in MMA_KEYS.items():
+            t[key] = pack_mma_b(t[name], kpad[name])
+    return t
 
 
 def tables_to(t: dict, device) -> dict:
@@ -277,18 +318,31 @@ def _lib():
     lib = load("window_attention")
     if not getattr(lib, "_s2sr_typed", False):
         vp = ctypes.c_void_p
-        lib.s2sr_swin_forward.argtypes = ([vp] * 16 + [ctypes.c_int] * 6
+        lib.s2sr_swin_forward.argtypes = ([vp] * 20 + [ctypes.c_int] * 6
                                           + [vp])
         lib.s2sr_swin_forward.restype = ctypes.c_int
-        lib.s2sr_swin_smem_bytes.argtypes = []
+        lib.s2sr_swin_smem_bytes.argtypes = [ctypes.c_int]
         lib.s2sr_swin_smem_bytes.restype = ctypes.c_longlong
+        lib.s2sr_swin_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.s2sr_swin_blocks_per_sm.restype = ctypes.c_int
+        lib.s2sr_swin_macs_per_window.argtypes = [ctypes.c_int] * 2
+        lib.s2sr_swin_macs_per_window.restype = ctypes.c_longlong
         lib._s2sr_typed = True
     return lib
 
 
-def kernel_smem_bytes() -> int:
-    """Dynamic shared memory per block of both kernels."""
-    return int(_lib().s2sr_swin_smem_bytes())
+def kernel_tiling(dtype: torch.dtype, mlp: bool = True) -> dict:
+    """The kernel's shared-memory bytes per block, its resident blocks per
+    SM on the current device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
+    and the multiply-adds it executes per 64-token window, pads included."""
+    lib, code = _lib(), _DTYPE_CODE[dtype]
+    blocks = int(lib.s2sr_swin_blocks_per_sm(code, int(mlp)))
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-blocks}")
+    return {"smem_bytes": int(lib.s2sr_swin_smem_bytes(code)),
+            "blocks_per_sm": blocks,
+            "macs_per_window": int(lib.s2sr_swin_macs_per_window(code,
+                                                                 int(mlp)))}
 
 
 # the tables' shapes at the kernel's configuration (C 180 → 192,
@@ -300,6 +354,9 @@ _TABLE_SHAPES = {
     "w2": (360, 192), "bf2": (192,),
 }
 _MATRICES = ("wqkv", "wo", "w1", "w2")
+# the bf16 kernel's B fragments (pack_mma_b), bf16
+_MMA_SHAPES = {"wqkv_mma": (12, 72, 32, 4), "wo_mma": (12, 24, 32, 4),
+               "w1_mma": (12, 48, 32, 4), "w2_mma": (24, 24, 32, 4)}
 
 
 def _check(name: str, x: torch.Tensor, t: dict) -> None:
@@ -319,13 +376,21 @@ def _check(name: str, x: torch.Tensor, t: dict) -> None:
     if x.shape[1] % cfg["window"] or x.shape[2] % cfg["window"]:
         raise ValueError(f"{name}: H and W must be multiples of "
                          f"{cfg['window']}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} wants a contiguous NHWC tensor")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name} wants a contiguous, 16-byte aligned NHWC "
+                         f"tensor")
     if not 0 <= t["shift"] < cfg["window"]:
         raise ValueError(f"{name}: shift {t['shift']} out of range")
-    for key, shape in _TABLE_SHAPES.items():
-        v = t[key]
-        want_dtype = x.dtype if key in _MATRICES else torch.float32
+    shapes = dict(_TABLE_SHAPES)
+    if x.dtype == torch.bfloat16:
+        shapes.update(_MMA_SHAPES)
+    for key, shape in shapes.items():
+        v = t.get(key)
+        if v is None:
+            raise ValueError(f"{name}: table {key} missing; build the tables "
+                             f"with build_block_tables")
+        want_dtype = (x.dtype if key in _MATRICES or key in _MMA_SHAPES
+                      else torch.float32)
         if (v.device != x.device or v.dtype != want_dtype
                 or tuple(v.shape) != shape or not v.is_contiguous()):
             raise ValueError(f"{name}: table {key} must be a contiguous "
@@ -342,6 +407,8 @@ def _launch(name: str, x: torch.Tensor, t: dict, mlp: bool) -> torch.Tensor:
     if bsz * h * w == 0:
         return out
     lib = _lib()
+    frags = ([t[k].data_ptr() for k in MMA_KEYS]
+             if x.dtype == torch.bfloat16 else [None] * 4)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.s2sr_swin_forward(
@@ -349,7 +416,8 @@ def _launch(name: str, x: torch.Tensor, t: dict, mlp: bool) -> torch.Tensor:
             *(t[k].data_ptr() for k in ("g1", "b1", "wqkv", "bqkv", "wo",
                                         "bo", "bias", "masks", "g2", "b2",
                                         "w1", "bf1", "w2", "bf2")),
-            bsz, h, w, t["shift"], _DTYPE_CODE[x.dtype], int(mlp), stream)
+            *frags, bsz, h, w, t["shift"], _DTYPE_CODE[x.dtype], int(mlp),
+            stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
