@@ -22,7 +22,9 @@ random weights from seed 0, each at the full width of its model:
 
 It also drives the RDB ablation ladder (``s2sr_tpu_torch.bench.rdb_ladder``)
 at the main path's chunk shape, whose rungs run the ``rdb_v1``, ``rdb_v2``
-and ``rdb_v3`` kernels of ``csrc/rdb_ladder.cu`` (phase ladder), and the
+and ``rdb_v3`` kernels (bf16 ``v1`` and ``v3`` on the tensor cores in
+``csrc/rdb_ladder_tc.cu``, the rest in ``csrc/rdb_ladder.cu``; phase
+ladder), and the
 matrix-unit microbenchmark (``s2sr_tpu_torch.bench.mxu`` and
 ``bench.peak``), whose chains and pairs run the ``matmul_chain`` and
 ``pair_chain`` kernels of ``csrc/matmul_chain.cu`` (phase mxu).
@@ -57,7 +59,8 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernel", "main", "numbers", "swin_kernel",
           "swin_main", "swin_large", "swin_numbers", "ladder", "mxu")
-KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder", "matmul_chain")
+KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder", "rdb_ladder_tc",
+                  "matmul_chain")
 
 # H100 SXM dense peaks (NVIDIA data sheet) used for the bounds
 PEAK_BF16_FLOPS = 989e12
@@ -182,13 +185,15 @@ def phase_build(state):
         built = dict(zip(KERNEL_SOURCES, pool.map(_build.build,
                                                   KERNEL_SOURCES)))
     ptxas = {name: ptxas_summary(log) for name, (_, log) in built.items()}
+    state["ptxas"] = ptxas
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_kernel_seconds": {n: b[0] for n, b in built.items()},
           "ptxas": ptxas})
     # the tensor-core kernels, one line each: registers and spills
     for name, pattern in (("rdb", "rdb_tc_kernel"),
                           ("matmul_chain", "wg_chain_kernel"),
-                          ("window_attention", "swin_tc_kernel")):
+                          ("window_attention", "swin_tc_kernel"),
+                          ("rdb_ladder_tc", "_tc_kernel")):
         emit({"phase": "build", "kernel": pattern, "ptxas": {
             k: v for k, v in ptxas[name].items() if pattern in k}})
 
@@ -1341,12 +1346,148 @@ LADDER_SHAPE, LADDER_CHAIN, LADDER_RUNS = (16, 264, 264), 12, 2
 
 
 def on_flat_weights(fn, rung: str):
-    """A rung's ``fn(x, packed)`` as ``f(x, w, b, mask)`` on the flat
-    weights of ``ops/rdb.py`` (the rungs take no mask)."""
+    """A rung's wrapper ``fn(x, packed, images)`` as ``f(x, w, b, mask)``
+    on the flat weights of ``ops/rdb.py`` (the rungs take no mask); the
+    tensor-core kernels' images packed on the way."""
+    import torch
+
     from s2sr_tpu_torch.ops import rdb_ladder as lad
 
-    return lambda x, w, b, mask: fn(x, lad.pack_ladder_weights(w, b, rung,
-                                                               x.dtype))
+    def run(x, w, b, mask):
+        packed = lad.pack_ladder_weights(w, b, rung, x.dtype)
+        images = (lad.pack_tc_images(packed, rung)
+                  if x.dtype == torch.bfloat16 and rung in lad.TC_RUNGS
+                  else None)
+        return fn(x, packed, images)
+    return run
+
+
+def on_flat_reference(rung: str):
+    """The rung's plain version as ``f(x, w, b, mask)``."""
+    from s2sr_tpu_torch.ops import rdb_ladder as lad
+
+    return lambda x, w, b, mask: lad.REFERENCES[rung](
+        x, lad.pack_ladder_weights(w, b, rung, x.dtype))
+
+
+def conv_v3_padded(v, w, rows: int):
+    """``ops/rdb_ladder.py::_conv_v3`` with the staged matrix padded in M
+    to ``rows`` (zero rows appended, the product sliced back): the same
+    values through the float32 product cuBLAS runs at that M."""
+    import torch
+    import torch.nn.functional as F
+
+    _, h, wd, _ = v.shape
+    vp = F.pad(v, (0, 0, 1, 1, 1, 1))
+    staged = torch.cat([vp[:, dy:dy + h, dx:dx + wd]
+                        for dy in range(3) for dx in range(3)], -1)
+    flat = staged.reshape(-1, staged.shape[-1]).float()
+    padded = flat.new_zeros(max(rows, flat.shape[0]), flat.shape[1])
+    padded[:flat.shape[0]] = flat
+    out = (padded @ w)[:flat.shape[0]]
+    return out.reshape(*staged.shape[:-1], -1).to(v.dtype)
+
+
+def ladder_step0(card) -> dict:
+    """Why the bf16 CUDA-core v3 kernel read 0 against its plain version
+    at some shapes and not at others: the kernel (``ladder_kernel<bf16,
+    9>``, sums each output over k in order with ``fmaf``) against
+    ``rdb_v3_reference`` as it is and with every staged product padded in
+    M to the chunk shape's rows, and the CUDA-core v2 against its plain
+    version (three products summed in float32, so other roundings). Max
+    abs error and the count of differing outputs."""
+    import math
+
+    import torch
+
+    from s2sr_tpu_torch.ops import rdb_ladder as lad
+
+    rows = math.prod(LADDER_SHAPE)
+    out = {}
+    for shape in ((1, 12, 12), (2, 70, 50), LADDER_SHAPE):
+        x, w, b, _ = rdb_inputs(shape, torch.bfloat16)
+        line = {}
+        for rung in ("v3", "v2"):
+            pk = lad.pack_ladder_weights(w, b, rung, torch.bfloat16)
+            got = lad.rdb_ladder_cuda_cores(x, pk, rung).float()
+            wants = {"plain": lad.REFERENCES[rung](x, pk)}
+            if rung == "v3" and shape != LADDER_SHAPE:
+                wants["plain_padded_m"] = lad._delta_rdb(
+                    x, pk, functools.partial(conv_v3_padded, rows=rows))
+            for name, want in wants.items():
+                d = (got - want.float()).abs()
+                line[f"{rung}_vs_{name}"] = {"max_abs_err": d.max().item(),
+                                             "n_differ": int((d > 0).sum())}
+        out[str(list(shape))] = line
+        del x, w, b
+        torch.cuda.empty_cache()
+    emit({"phase": "ladder", "card": card, "check": "step 0: bf16 CUDA-core "
+          "v3 vs plain, as is and with M padded", "padded_rows": rows,
+          "results": out})
+    return out
+
+
+def ladder_l2_bytes(rung: str, shape) -> int:
+    """Bytes a tensor-core rung's launch streams from L2 into shared memory,
+    as ``csrc/rdb_ladder_tc.cu`` stages them: per block and product, each
+    pass (128 region pixels) of each K slab copies B's slab (N rows of 128
+    bytes) and, for the products of x, the pass's A slab (128 pixels × 128
+    bytes) from the image; the other A slabs come from shared memory."""
+    import math
+
+    import torch
+
+    from s2sr_tpu_torch.ops import rdb_ladder as lad
+
+    tile = lad.kernel_tiling(rung, torch.bfloat16)["tile"]
+    shapes = lad.tc_image_shapes(rung)       # (K slabs, N, 8, 8) per product
+    per_block = 0
+    for j, (slabs, n, _, _) in enumerate(shapes):
+        side = tile + 2 * (4 - j)
+        passes = math.ceil(side * side / 128)
+        per_block += passes * slabs * (n * 128 + (128 * 128 if j == 0 else 0))
+    bsz, h, w = shape
+    return per_block * bsz * math.ceil(h / tile) * math.ceil(w / tile)
+
+
+def ladder_tc_report(state, lines: list, parent_ms: dict) -> None:
+    """Per tensor-core rung: route, SASS counts (HGMMA must be nonzero; no
+    tensor-core instruction in any CUDA-core kernel of rdb_ladder.cu),
+    registers and spills, blocks per SM, useful and executed TFLOP/s at
+    the ladder shape, and the CUDA-core kernel's time in the same run."""
+    import torch
+
+    from s2sr_tpu_torch.ops import _build
+    from s2sr_tpu_torch.ops import rdb_ladder as lad
+
+    tc = sass_counts(_build.lib_path("rdb_ladder_tc"))
+    cc = sass_counts(_build.lib_path("rdb_ladder"))
+    bad = [k for k, c in cc.items() if c["HMMA"] or c["HGMMA"]]
+    bad += [k for k, c in tc.items() if "_tc_kernel" in k and not c["HGMMA"]]
+    if bad or len([k for k in tc if "_tc_kernel" in k]) != 2:
+        raise AssertionError(f"ladder kernels on the wrong route: {bad}; "
+                             f"tc {tc}; cuda cores {cc}")
+    ptxas = state.get("ptxas", {})
+    by_variant = {ln["variant"]: ln for ln in lines}
+    for rung in lad.TC_RUNGS:
+        name = f"{rung}_tc_kernel"
+        ln = by_variant[rung]
+        l2_bytes = ladder_l2_bytes(rung, LADDER_SHAPE)
+        emit({"phase": "ladder", "card": state.get("card"), "kernel":
+              f"rdb_{rung}", "route": "wgmma",
+              "sass": {k: c for k, c in tc.items() if name in k},
+              "ptxas": {k: v for k, v in ptxas.get("rdb_ladder_tc", {}).items()
+                        if name in k} or "cached build: see phase build",
+              **lad.kernel_tiling(rung, torch.bfloat16),
+              "useful_tflop_s": ln["tf_s"],
+              "executed_tflop_s": ln["tf_s"] * ln["executed_over_useful"],
+              "executed_over_useful": ln["executed_over_useful"],
+              "ms": ln["ms_per_launch"],
+              "l2_bytes_per_launch": l2_bytes,
+              "l2_tb_s": l2_bytes / ln["ms_per_launch"] / 1e9,
+              "cuda_core_kernel_ms": parent_ms[rung],
+              "cuda_core_kernel_tiling": lad.kernel_tiling(
+                  rung, torch.bfloat16, cuda_cores=True)})
 
 
 @ieee_phase
@@ -1364,6 +1505,8 @@ def phase_ladder(state):
     # fp32: the two sum each product in other orders. bf16: both round at
     # the same places (every product output and slot add in v2/v3; p1..p4
     # and x_k in v1), so only a sum landing near a rounding tie differs.
+    # bf16 v1 and v3 run on the tensor cores (wgmma), which sum in another
+    # order than the plain version's cuBLAS product: bf16 flips.
     cases = [(shape, None) for shape in ((1, 12, 12), (2, 70, 50),
                                          LADDER_SHAPE)]
     launches0 = dict(lad.LAUNCHES)
@@ -1371,10 +1514,11 @@ def phase_ladder(state):
     for rung in lad.RUNGS:
         worst[rung] = hold_against_plain(
             "ladder", f"rdb_{rung}", on_flat_weights(lad.WRAPPERS[rung], rung),
-            on_flat_weights(lad.REFERENCES[rung], rung), cases,
+            on_flat_reference(rung), cases,
             functools.partial(lad.kernel_tiling, rung))
     # comparison launches are not the ladder's launches
     lad.LAUNCHES.update(launches0)
+    ladder_step0(card)
 
     # the ladder itself, as `python -m s2sr_tpu_torch.bench.rdb_ladder`
     # runs it; its v4 launches are not main-path launches of rdb
@@ -1388,6 +1532,18 @@ def phase_ladder(state):
     launches = dict(lad.LAUNCHES)
     rdb_mod.LAUNCHES = rdb0
     per_launch = {ln["variant"]: ln["ms_per_launch"] for ln in lines}
+
+    # the CUDA-core kernels the tensor-core ones replaced, in the same run
+    parent_ms = {}
+    xb, w, b, _ = rdb_inputs(LADDER_SHAPE, torch.bfloat16)
+    for rung in lad.TC_RUNGS:
+        pk = lad.pack_ladder_weights(w, b, rung, torch.bfloat16)
+        _, ms = bench.time_chain(
+            lambda v, pk=pk, rung=rung: lad.rdb_ladder_cuda_cores(v, pk, rung),
+            xb, LADDER_CHAIN, LADDER_RUNS, "cuda")
+        parent_ms[rung] = ms / LADDER_CHAIN
+    del xb, w, b
+    ladder_tc_report(state, lines, parent_ms)
 
     # each rung's plain version at the same shape, for the record
     bound_ms, bound_by = rdb_bound_ms(LADDER_SHAPE, torch.bfloat16,
@@ -1616,8 +1772,9 @@ def kernels_record(state) -> list | None:
     lad = state["ladder"]
     for rung, replaces in LADDER_REPLACES.items():
         err, rel = lad["err"][rung]
+        source = "rdb_ladder_tc.cu" if rung in ("v1", "v3") else "rdb_ladder.cu"
         rows.append({"name": f"rdb_{rung}", "route": "cuda",
-                     "source": "s2sr_tpu_torch/csrc/rdb_ladder.cu",
+                     "source": f"s2sr_tpu_torch/csrc/{source}",
                      "replaces": replaces, "launches": lad["launches"][rung],
                      "max_abs_err": err, "rel_err": rel,
                      **lad["numbers"][rung], "library_ms": None})

@@ -6,7 +6,9 @@ Port of ``scripts/bench_kernels.py``'s gate and timing. Variants:
 - ``plain``: ``ops/rdb.py::rdb_reference`` (cuDNN convs), the counterpart
   of the JAX ladder's XLA variants ``xla`` / ``xp``;
 - ``v1``, ``v2``, ``v3``: the K-packed concat rung and the delta-form
-  rungs in ``csrc/rdb_ladder.cu`` (``ops/rdb_ladder.py``);
+  rungs (``ops/rdb_ladder.py``): in bfloat16 ``v1`` and ``v3`` on the
+  tensor cores (``csrc/rdb_ladder_tc.cu``), ``v2`` and the float32 gate
+  on the CUDA cores (``csrc/rdb_ladder.cu``);
 - ``v4``: ``ops/rdb.py::rdb``, the main path's kernel ``csrc/rdb.cu``.
 
 Each kernel variant is first gated in float32 at (1, 40, 72) against
@@ -16,9 +18,9 @@ times back to back, each run fed the last one's output, timed with CUDA
 events. One JSON line per variant: ``variant, shape, chain,
 ms_per_chain, tf_s`` (useful TFLOP/s at 479,232 FLOP per pixel),
 ``compile_s`` (the first chain's seconds, kernel build included),
-``ms_per_launch``, ``card``, and for the kernels the tile and the FLOP
-the kernel executes per output pixel (halo recompute included), as the
-kernel source counts them.
+``ms_per_launch``, ``card``, and for the kernels the tiling and route and
+the FLOP the kernel executes per output pixel (halo recompute included),
+as the kernel source counts them.
 
 ``--device cpu`` runs the wrappers' plain versions (use a small
 ``--shape``): a check of the harness, not a measurement of a card.
@@ -83,8 +85,12 @@ def variant_fns(variants, kernels, biases, dtype, device) -> dict:
             blocks, b14, b5 = ladder_mod.pack_ladder_weights(w, b, name, dtype)
             packed = (tuple(t.to(device) for t in blocks), b14.to(device),
                       b5.to(device))
+            # the tensor-core kernels' B images, packed once
+            images = (ladder_mod.pack_tc_images(packed, name)
+                      if device != "cpu" and dtype == torch.bfloat16
+                      and name in ladder_mod.TC_RUNGS else None)
             fns[name] = (lambda x, fn=ladder_mod.WRAPPERS[name],
-                         packed=packed: fn(x, packed))
+                         packed=packed, images=images: fn(x, packed, images))
     return fns
 
 

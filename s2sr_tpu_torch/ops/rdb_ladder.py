@@ -30,10 +30,15 @@ side (three (pixels, 3·Cin)×(3·Cin, N) products per conv), ``v3`` stages
 all nine taps (one (pixels, 9·Cin)×(9·Cin, N) product per conv).
 
 - :func:`rdb_v1` / :func:`rdb_v2` / :func:`rdb_v3` are the wrappers. On
-  a CUDA tensor they launch the kernel in ``csrc/rdb_ladder.cu`` or
-  raise; on a CPU tensor they run the rung's plain version
-  (:data:`REFERENCES`).
+  a CUDA tensor they launch a kernel or raise: bfloat16 ``v1`` and ``v3``
+  the tensor-core kernels of ``csrc/rdb_ladder_tc.cu`` (``wgmma``; they
+  take the bf16 B images of :func:`pack_tc_images`), everything else the
+  CUDA-core kernels of ``csrc/rdb_ladder.cu``. On a CPU tensor they run
+  the rung's plain version (:data:`REFERENCES`).
 - :data:`LAUNCHES` counts kernel launches per rung, nothing else.
+- :func:`rdb_ladder_cuda_cores` launches the CUDA-core kernel of any rung
+  and dtype, bf16 ``v1``/``v3`` included: the kernels the tensor-core ones
+  replaced, kept to compare with them on the card. It counts nothing.
 - Weights travel as the TPU rungs pack them (``pack_rdb_weights_v1`` /
   ``_v2`` / ``_v3``): ``((w0, w1, w2, w3, w4), b14, b5)``, all float32
   tensors; the five matrices hold values rounded to the compute dtype
@@ -48,14 +53,19 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from .matmul_chain import pack_wgmma
 from .rdb import NF, G, check_kernel_shapes, unpack_rdb_weights
 
 RUNGS = ("v1", "v2", "v3")
 LAUNCHES = {rung: 0 for rung in RUNGS}
+# the rungs whose bfloat16 instance runs on the tensor cores
+TC_RUNGS = ("v1", "v3")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _RUNG_CODE = {"v1": 1, "v2": 2, "v3": 3}
 _QUERY = {"tile": 0, "chunk": 1, "smem_bytes": 2, "macs_per_tile": 3}
+_TC_QUERY = {"tile": 0, "pass_pixels": 1, "smem_bytes": 2,
+             "macs_per_tile": 3, "blocks_per_sm": 4}
 LANES = 4 * G                     # v1's growth buffer: x1..x4 stacked
 # source j (0 = x, 1..4 = x_j): input channels and product width
 _SRC_CIN = (NF, G, G, G, G)
@@ -145,6 +155,34 @@ def pack_ladder_weights(w: torch.Tensor, b: torch.Tensor, rung: str,
     ``ops/rdb.py::pack_rdb_weights``."""
     kernels, biases = unpack_rdb_weights(w, b)
     return PACKERS[rung](kernels, biases, dtype)
+
+
+def tc_matrices(packed, rung: str) -> tuple:
+    """The five (K, N) matrices the tensor-core kernel of ``rung`` runs,
+    from its packed float32 weights, rows in the kernel's K order. v3: the
+    packed ``(9·Cin, N)`` as they are, rows (tap, cin). v1: ``wx`` without
+    x's 64 zero pad lanes, ``(576, 192)`` rows (tap, channel), and each
+    ``wg_k`` as ``(1152, N)`` rows (tap, lane), the zero rows of x_k..x4
+    kept."""
+    blocks, _, _ = packed
+    if rung == "v3":
+        return tuple(blocks)
+    if rung != "v1":
+        raise ValueError(f"no tensor-core kernel for rung {rung}")
+    wx, *wg = blocks
+    x_rows = wx.reshape(9, LANES, wx.shape[-1])[:, :NF].reshape(9 * NF, -1)
+    return (x_rows, *(w.reshape(9 * LANES, w.shape[-1]) for w in wg))
+
+
+def pack_tc_images(packed, rung: str) -> tuple:
+    """The bf16 B images of the tensor-core kernel of ``rung`` (``v1`` or
+    ``v3``), from the rung's packed weights: each matrix of
+    :func:`tc_matrices` as ``matmul_chain.pack_wgmma`` lays it out, K
+    zero-padded to a multiple of 64, ``[K/64][N][64]`` with the 128-byte
+    swizzle. Pack once per set of weights, outside a timed loop; the
+    weights already hold bf16 values, so the images are exact."""
+    return tuple(pack_wgmma(m.to(torch.bfloat16)) for m in tc_matrices(packed,
+                                                                       rung))
 
 
 # --- plain versions --------------------------------------------------------
@@ -258,15 +296,44 @@ def _lib():
     return lib
 
 
-def kernel_tiling(rung: str, dtype: torch.dtype) -> dict:
-    """The rung's output tile side, pixels per staged chunk, dynamic
-    shared-memory bytes per block and multiply-adds executed per output
-    tile (halo recompute, chunk padding and v1's zero rows included), as
-    the kernel source computes them."""
+def _tc_lib():
+    from ._build import load
+
+    lib = load("rdb_ladder_tc")
+    if not getattr(lib, "_s2sr_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.s2sr_rdb_ladder_tc_forward.argtypes = [ci, vp, vp, vp, vp, vp, vp,
+                                                   vp, vp, vp, ci, ci, ci, vp]
+        lib.s2sr_rdb_ladder_tc_forward.restype = ci
+        lib.s2sr_rdb_ladder_tc_query.argtypes = [ci, ci]
+        lib.s2sr_rdb_ladder_tc_query.restype = ctypes.c_longlong
+        lib._s2sr_typed = True
+    return lib
+
+
+def _on_tensor_cores(rung: str, dtype: torch.dtype) -> bool:
+    return rung in TC_RUNGS and dtype == torch.bfloat16
+
+
+def kernel_tiling(rung: str, dtype: torch.dtype,
+                  cuda_cores: bool = False) -> dict:
+    """The tiling of the kernel the wrapper launches for ``rung`` and
+    ``dtype`` (``cuda_cores``: of the CUDA-core kernel whatever the dtype),
+    as the kernel source computes it: output tile side, dynamic
+    shared-memory bytes per block, multiply-adds executed per output tile
+    (halo recompute, padding and v1's zero rows included) and the route;
+    the CUDA-core kernels give pixels per staged chunk, the tensor-core
+    ones region pixels per pass and blocks per SM."""
+    if _on_tensor_cores(rung, dtype) and not cuda_cores:
+        lib = _tc_lib()
+        out = {key: int(lib.s2sr_rdb_ladder_tc_query(_RUNG_CODE[rung], what))
+               for key, what in _TC_QUERY.items()}
+        return {**out, "route": "wgmma"}
     lib = _lib()
-    return {key: int(lib.s2sr_rdb_ladder_query(_RUNG_CODE[rung],
-                                                _DTYPE_CODE[dtype], what))
-            for key, what in _QUERY.items()}
+    out = {key: int(lib.s2sr_rdb_ladder_query(_RUNG_CODE[rung],
+                                               _DTYPE_CODE[dtype], what))
+           for key, what in _QUERY.items()}
+    return {**out, "route": "cuda_cores"}
 
 
 def _check(x, packed, rung):
@@ -290,48 +357,103 @@ def _check(x, packed, rung):
                              f"{x.device}")
 
 
-def _launch(x: torch.Tensor, packed, rung: str) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return REFERENCES[rung](x, packed)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"rdb_{rung}: unsupported device {x.device}")
+def tc_image_shapes(rung: str) -> list:
+    """Shapes of :func:`pack_tc_images`' five images: ``(K/64, N, 8, 8)``
+    (16-byte chunks of 8 values), K padded to a multiple of 64."""
+    ks = (9 * NF, *(9 * (LANES if rung == "v1" else G),) * 4)
+    return [(-(-k // 64), n, 8, 8) for k, (_, n) in
+            zip(ks, (s[-2:] for s in _SHAPES[rung]))]
+
+
+def _check_images(x, images, rung):
+    want = tc_image_shapes(rung)
+    if len(images) != len(want):
+        raise ValueError(f"rdb_{rung} wants {len(want)} B images, got "
+                         f"{len(images)}")
+    for j, (t, shape) in enumerate(zip(images, want)):
+        if (t.device != x.device or t.dtype != torch.bfloat16
+                or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"rdb_{rung} image {j} must be a contiguous, "
+                             f"16-byte aligned bfloat16 {shape} tensor on "
+                             f"{x.device}")
+
+
+def _run_kernel(x, packed, rung, images):
+    """One launch on the card: the tensor-core kernel when ``images`` is
+    given, else the CUDA-core kernel. Returns the output."""
     _check(x, packed, rung)
     bsz, h, wd, _ = x.shape
     out = torch.empty_like(x)
     if bsz * h * wd == 0:
         return out
     blocks, b14, b5 = packed
-    lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.s2sr_rdb_ladder_forward(
-            _RUNG_CODE[rung], x.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in blocks), b14.data_ptr(), b5.data_ptr(),
-            bsz, h, wd, _DTYPE_CODE[x.dtype], stream)
+        if images is not None:
+            _check_images(x, images, rung)
+            rc = _tc_lib().s2sr_rdb_ladder_tc_forward(
+                _RUNG_CODE[rung], x.data_ptr(), out.data_ptr(),
+                *(t.data_ptr() for t in images), b14.data_ptr(),
+                b5.data_ptr(), bsz, h, wd, stream)
+        else:
+            rc = _lib().s2sr_rdb_ladder_forward(
+                _RUNG_CODE[rung], x.data_ptr(), out.data_ptr(),
+                *(t.data_ptr() for t in blocks), b14.data_ptr(),
+                b5.data_ptr(), bsz, h, wd, _DTYPE_CODE[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"rdb_{rung} kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def _launch(x: torch.Tensor, packed, rung: str, images=None) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return REFERENCES[rung](x, packed)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"rdb_{rung}: unsupported device {x.device}")
+    if not _on_tensor_cores(rung, x.dtype):
+        images = None
+    elif images is None:
+        raise ValueError(f"rdb_{rung} in bfloat16 on the card runs the "
+                         "tensor-core kernel: pass images=pack_tc_images("
+                         f"packed, {rung!r}), packed once")
+    out = _run_kernel(x, packed, rung, images)
     LAUNCHES[rung] += 1
     return out
 
 
-def rdb_v1(x: torch.Tensor, packed) -> torch.Tensor:
+def rdb_ladder_cuda_cores(x: torch.Tensor, packed, rung: str) -> torch.Tensor:
+    """One RDB through the CUDA-core kernel of ``rung`` in
+    ``csrc/rdb_ladder.cu``, for a CUDA tensor of either dtype: for bf16
+    ``v1``/``v3`` the kernel the tensor-core one replaced, kept to compare
+    the two on the card. Not a path of the port; counts nothing."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"rdb_ladder_cuda_cores wants a CUDA tensor, "
+                           f"got {x.device}")
+    return _run_kernel(x, packed, rung, None)
+
+
+def rdb_v1(x: torch.Tensor, packed, images=None) -> torch.Tensor:
     """One RDB through the v1 rung, (B, H, W, 64) → same, in ``x.dtype``.
-    ``packed``: :func:`pack_rdb_weights_v1` output on ``x``'s device.
-    CPU tensors run :func:`rdb_v1_reference`; CUDA tensors launch the
-    kernel or raise."""
-    return _launch(x, packed, "v1")
+    ``packed``: :func:`pack_rdb_weights_v1` output on ``x``'s device;
+    ``images``: ``pack_tc_images(packed, "v1")``, which a bf16 CUDA tensor
+    needs (the tensor-core kernel) and other calls ignore. CPU tensors run
+    :func:`rdb_v1_reference`; CUDA tensors launch the kernel or raise."""
+    return _launch(x, packed, "v1", images)
 
 
-def rdb_v2(x: torch.Tensor, packed) -> torch.Tensor:
+def rdb_v2(x: torch.Tensor, packed, images=None) -> torch.Tensor:
     """One RDB through the v2 rung; as :func:`rdb_v1` with
-    :func:`pack_rdb_weights_v2` weights."""
-    return _launch(x, packed, "v2")
+    :func:`pack_rdb_weights_v2` weights. Every dtype runs on the CUDA
+    cores, so ``images`` is ignored."""
+    return _launch(x, packed, "v2", images)
 
 
-def rdb_v3(x: torch.Tensor, packed) -> torch.Tensor:
+def rdb_v3(x: torch.Tensor, packed, images=None) -> torch.Tensor:
     """One RDB through the v3 rung; as :func:`rdb_v1` with
-    :func:`pack_rdb_weights_v3` weights."""
-    return _launch(x, packed, "v3")
+    :func:`pack_rdb_weights_v3` weights and ``pack_tc_images(packed,
+    "v3")``."""
+    return _launch(x, packed, "v3", images)
 
 
 WRAPPERS = {"v1": rdb_v1, "v2": rdb_v2, "v3": rdb_v3}
