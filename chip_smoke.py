@@ -1427,12 +1427,19 @@ def ladder_step0(card) -> dict:
     return out
 
 
-def ladder_l2_bytes(rung: str, shape) -> int:
-    """Bytes a tensor-core rung's launch streams from L2 into shared memory,
-    as ``csrc/rdb_ladder_tc.cu`` stages them: per block and product, each
-    pass (128 region pixels) of each K slab copies B's slab (N rows of 128
-    bytes) and, for the products of x, the pass's A slab (128 pixels × 128
-    bytes) from the image; the other A slabs come from shared memory."""
+def ladder_l2_bytes(rung: str, shape) -> dict:
+    """Bytes a tensor-core rung's launch moves, as ``csrc/rdb_ladder_tc.cu``
+    stages them. From L2 into shared memory: ``x_a`` and ``b``, in all
+    ``total``. v1, v3: per block and product, each pass (128 region pixels)
+    of each K slab copies B's slab (N rows of 128 bytes) and, for the
+    products of x, the pass's A slab (128 pixels × 128 bytes) from the
+    image. v2: each pass (128 positions at pitch P, the region side rounded
+    up to 8) copies B's slabs, of x_j's [dx 2 | zero] slabs only the half
+    it reads, and, for x, its band (128 + 2P rows of 128 bytes) once per
+    dx tap. Inside shared memory: ``a_from_slots``, the A bytes copied
+    from the slots (read once, written once), and ``wgmma_reads``, what
+    the wgmmas read (per k16 step and warpgroup 64 × 32 bytes of A and
+    N × 32 of B)."""
     import math
 
     import torch
@@ -1441,13 +1448,33 @@ def ladder_l2_bytes(rung: str, shape) -> int:
 
     tile = lad.kernel_tiling(rung, torch.bfloat16)["tile"]
     shapes = lad.tc_image_shapes(rung)       # (K slabs, N, 8, 8) per product
-    per_block = 0
+    x_a = b = slots = reads = 0
     for j, (slabs, n, _, _) in enumerate(shapes):
         side = tile + 2 * (4 - j)
-        passes = math.ceil(side * side / 128)
-        per_block += passes * slabs * (n * 128 + (128 * 128 if j == 0 else 0))
+        k16 = (9 * 64 if j == 0 else 9 * 128 if rung == "v1" else 9 * 32) // 16
+        if rung == "v2":
+            pitch = -(-side // 8) * 8
+            passes = math.ceil(((side - 1) * pitch + side) / 128)
+            rows = 128 + 2 * pitch
+            if j == 0:
+                b += passes * slabs * n * 128
+                x_a += passes * 3 * rows * 128
+            else:
+                b += passes * 3 * n * (128 + 64)
+                slots += passes * rows * (128 + 64)
+        else:
+            passes = math.ceil(side * side / 128)
+            b += passes * slabs * n * 128
+            if j == 0:
+                x_a += passes * slabs * 128 * 128
+            else:                            # v3's slab 4 holds tap 8 alone
+                slots += passes * 128 * (slabs * 128 - (64 if rung == "v3"
+                                                        else 0))
+        reads += passes * k16 * 2 * (64 * 32 + n * 32)
     bsz, h, w = shape
-    return per_block * bsz * math.ceil(h / tile) * math.ceil(w / tile)
+    blocks = bsz * math.ceil(h / tile) * math.ceil(w / tile)
+    return {"x_a": x_a * blocks, "b": b * blocks, "total": (x_a + b) * blocks,
+            "a_from_slots": slots * blocks, "wgmma_reads": reads * blocks}
 
 
 def ladder_tc_report(state, lines: list, parent_ms: dict) -> None:
@@ -1464,7 +1491,7 @@ def ladder_tc_report(state, lines: list, parent_ms: dict) -> None:
     cc = sass_counts(_build.lib_path("rdb_ladder"))
     bad = [k for k, c in cc.items() if c["HMMA"] or c["HGMMA"]]
     bad += [k for k, c in tc.items() if "_tc_kernel" in k and not c["HGMMA"]]
-    if bad or len([k for k in tc if "_tc_kernel" in k]) != 2:
+    if bad or len([k for k in tc if "_tc_kernel" in k]) != len(lad.TC_RUNGS):
         raise AssertionError(f"ladder kernels on the wrong route: {bad}; "
                              f"tc {tc}; cuda cores {cc}")
     ptxas = state.get("ptxas", {})
@@ -1472,7 +1499,7 @@ def ladder_tc_report(state, lines: list, parent_ms: dict) -> None:
     for rung in lad.TC_RUNGS:
         name = f"{rung}_tc_kernel"
         ln = by_variant[rung]
-        l2_bytes = ladder_l2_bytes(rung, LADDER_SHAPE)
+        l2 = ladder_l2_bytes(rung, LADDER_SHAPE)
         emit({"phase": "ladder", "card": state.get("card"), "kernel":
               f"rdb_{rung}", "route": "wgmma",
               "sass": {k: c for k, c in tc.items() if name in k},
@@ -1483,8 +1510,11 @@ def ladder_tc_report(state, lines: list, parent_ms: dict) -> None:
               "executed_tflop_s": ln["tf_s"] * ln["executed_over_useful"],
               "executed_over_useful": ln["executed_over_useful"],
               "ms": ln["ms_per_launch"],
-              "l2_bytes_per_launch": l2_bytes,
-              "l2_tb_s": l2_bytes / ln["ms_per_launch"] / 1e9,
+              "l2_bytes_per_launch": l2["total"],
+              "l2_bytes_x_a": l2["x_a"], "l2_bytes_b": l2["b"],
+              "a_from_slots_bytes": l2["a_from_slots"],
+              "wgmma_read_bytes": l2["wgmma_reads"],
+              "l2_tb_s": l2["total"] / ln["ms_per_launch"] / 1e9,
               "cuda_core_kernel_ms": parent_ms[rung],
               "cuda_core_kernel_tiling": lad.kernel_tiling(
                   rung, torch.bfloat16, cuda_cores=True)})
@@ -1505,8 +1535,8 @@ def phase_ladder(state):
     # fp32: the two sum each product in other orders. bf16: both round at
     # the same places (every product output and slot add in v2/v3; p1..p4
     # and x_k in v1), so only a sum landing near a rounding tie differs.
-    # bf16 v1 and v3 run on the tensor cores (wgmma), which sum in another
-    # order than the plain version's cuBLAS product: bf16 flips.
+    # bf16 v1, v2 and v3 run on the tensor cores (wgmma), which sum in
+    # another order than the plain version's cuBLAS products: bf16 flips.
     cases = [(shape, None) for shape in ((1, 12, 12), (2, 70, 50),
                                          LADDER_SHAPE)]
     launches0 = dict(lad.LAUNCHES)
@@ -1754,6 +1784,8 @@ def kernels_record(state) -> list | None:
     if not {"rdb_numbers", "main_launches", "swin_numbers",
             "swin_launches", "swin_err", "ladder", "mxu"} <= state.keys():
         return None
+    from s2sr_tpu_torch.ops.rdb_ladder import TC_RUNGS
+
     rows = [{"name": "rdb", "route": "cuda",
              "source": "s2sr_tpu_torch/csrc/rdb.cu",
              "replaces": "s2sr_tpu/ops/pallas/fused_rdb_v4.py:234",
@@ -1772,7 +1804,7 @@ def kernels_record(state) -> list | None:
     lad = state["ladder"]
     for rung, replaces in LADDER_REPLACES.items():
         err, rel = lad["err"][rung]
-        source = "rdb_ladder_tc.cu" if rung in ("v1", "v3") else "rdb_ladder.cu"
+        source = "rdb_ladder_tc.cu" if rung in TC_RUNGS else "rdb_ladder.cu"
         rows.append({"name": f"rdb_{rung}", "route": "cuda",
                      "source": f"s2sr_tpu_torch/csrc/{source}",
                      "replaces": replaces, "launches": lad["launches"][rung],

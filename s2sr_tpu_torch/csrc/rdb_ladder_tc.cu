@@ -1,18 +1,24 @@
-// RDB ablation ladder, rungs v1 and v3 in bfloat16 on the tensor cores
+// RDB ablation ladder, rungs v1, v2 and v3 in bfloat16 on the tensor cores
 // (wgmma), for NVIDIA Hopper (sm_90a).
 //
 // Replaces, for bfloat16, the TPU kernels
-// s2sr_tpu/ops/pallas/fused_rdb.py::rdb_pallas (rung v1) and ::rdb_pallas_v3
-// (rung v3); csrc/rdb_ladder.cu keeps their float32 instances and rung v2 on
-// the CUDA cores. Each computes, in one launch per block of the network, the
-// function of ops/rdb_ladder.py::rdb_v1_reference / rdb_v3_reference and
-// rounds where they round:
+// s2sr_tpu/ops/pallas/fused_rdb.py::rdb_pallas (rung v1), ::rdb_pallas_v2
+// (rung v2) and ::rdb_pallas_v3 (rung v3); csrc/rdb_ladder.cu keeps their
+// float32 instances on the CUDA cores. Each computes, in one launch per
+// block of the network, the function of
+// ops/rdb_ladder.py::rdb_v1_reference / rdb_v2_reference / rdb_v3_reference
+// and rounds where they round:
 //
 // - v3, the delta form with the 9-tap im2col staged: the conv of each source
 //   (x, then x1..x4) is one product (pixels, 9 Cin) x (9 Cin, N) that emits
 //   its contributions to every later stage, [c5|c4|..|c_{j+1}], N = 192,
 //   160, 128, 96, 64. Every product output and every slot add rounds to
 //   bf16; bias, LeakyReLU and the tail 0.2 (x5 + b5) + x run in float32.
+// - v2, the same delta form with the TPU kernel's 3-tap staging: the three
+//   dx taps of a source side by side as K (3 Cin per position) in one
+//   staged band, its three dy parts read from that band as row-shifted
+//   views. One float32 accumulator runs over the three dy parts: the
+//   plain version's float32 sum of three products, in another order.
 // - v1, the K-packed concat form: the conv of x emits [p1|p2|p3|p4|p5]
 //   (N = 192; p1..p4 rounded to bf16, p5 kept in float32), then each stage
 //   k = 2..5 convolves the growth buffer, x1..x4 stacked in 128 lanes,
@@ -31,29 +37,42 @@
 //   c1..c5, v1's p_k then x_k, and v1's float32 p5) live in shared memory,
 //   pixel-major, over the region R_k where stage k is needed (side
 //   TILE + 2 (5 - k)), read and written by plain accesses.
-// - A product runs in passes of 128 region pixels, 64 per warpgroup (one
-//   wgmma M tile). A pass walks K in slabs of 64: the warpgroup's A slab is
-//   64 pixels x 64 K values, B's slab N x 64, both in wgmma's K-major
+// - A product runs in passes of 128 positions, 64 per warpgroup (one
+//   wgmma M tile), and walks K in steps of up to 64: the warpgroup's A is
+//   64 positions x 64 K values, B's slab N x 64, both in wgmma's K-major
 //   canonical layout with the 128-byte swizzle (row r of 128 bytes, 16-byte
 //   chunk c stored at chunk c ^ (r % 8), 8-row groups 1024 bytes apart) and
-//   read by descriptor. A slab of x is one tap's 64 channels, copied from
-//   device memory by cp.async (zero-filled outside the image); a slab of
-//   x_j (v3) is two taps of 32 channels, and of v1's growth buffer one tap's
-//   64 lanes, copied from the slots through registers. B's slab comes from
-//   the wrapper's packed image (ops/rdb_ladder.py::pack_tc_images) by
-//   cp.async. The ring of 81,920 bytes holds two stages of A and B at N 192
-//   down to four at N 32: while the wgmmas of one step run, the threads
-//   stage the step one to three ahead, across the passes of a product. Both
-//   warpgroups issue in every step, also over an M tile past the region:
-//   a branch on the warpgroup would serialise the wgmmas.
-// - Every column is computed for every pixel of the product's region; the
-//   epilogue keeps each column where its slot's region holds the pixel.
+//   read by descriptor. B's slab comes from the wrapper's packed image
+//   (ops/rdb_ladder.py::pack_tc_images) by cp.async through a ring of
+//   stages, staged one to six steps ahead of the wgmmas, across the passes
+//   of a product. Both warpgroups issue in every step, also over an M tile
+//   past the region: a branch on the warpgroup would serialise the wgmmas.
+// - v1 and v3 stage A in the ring beside B, per step: a slab of x is one
+//   tap's 64 channels, copied from device memory by cp.async (zero-filled
+//   outside the image); a slab of x_j (v3) is two taps of 32 channels, and
+//   of v1's growth buffer one tap's 64 lanes, copied from the slots
+//   through registers. The ring of 81,920 bytes holds two stages of A and
+//   B at N 192 down to four at N 32.
+// - v2 stages A once per pass and dx group into a band outside the ring:
+//   positions are laid out at a row pitch P (a multiple of 8 positions, at
+//   least the region's side), position q = qy P + qx one 128-byte row, and
+//   the band holds the pass's 128 rows and the 2 P below them. The dy part
+//   of a step reads the band from row dy P: its descriptor start moves by
+//   dy P 128 bytes, whole 1024-byte swizzle atoms, so the base-offset field
+//   stays 0. x's groups are its three dx taps (64 K each), copied from
+//   device memory once per pass and group; x_j's are [dx 0 | dx 1] (64 K)
+//   and [dx 2] (32 K, 2 of 4 k16 steps, only its half of B copied), from
+//   the slots. The positions of a row past the region's side are computed
+//   and dropped. The ring holds B alone (61,440 bytes: two stages at N 192
+//   up to seven at N 64) and the band 22,528 bytes.
+// - Every column is computed for every position of the product's region;
+//   the epilogue keeps each column where its slot's region holds the pixel.
 // - Weights are read from L2 once per pass (not resident: x's B alone is
 //   221,184 bytes); chip_smoke.py's ladder_l2_bytes counts every byte a
 //   launch streams.
 //
-// Tiles: v3 16 x 16 (slots 146,944 B), v1 14 x 14 (slots and p5 143,872 B);
-// the ring takes 81,920 B.
+// Tiles: v3 and v2 16 x 16 (slots 146,944 B), v1 14 x 14 (slots and p5
+// 143,872 B).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,7 +86,7 @@ constexpr int NF = 64;                  // features
 constexpr int G = 32;                   // growth channels
 constexpr int WGS = 2;                  // warpgroups per block
 constexpr int THREADS = 128 * WGS;
-constexpr int PASS = 64 * WGS;          // region pixels per pass
+constexpr int PASS = 64 * WGS;          // positions per pass
 constexpr int A_SLAB = 64 * 128;        // bytes: one warpgroup's A slab
 constexpr int RING = 2 * (WGS * A_SLAB + 192 * 128);   // two stages at N 192
 constexpr long long SMEM_LIMIT = 232448;
@@ -75,63 +94,96 @@ constexpr long long SMEM_LIMIT = 232448;
 __host__ __device__ constexpr int side(int tile, int k) { return tile + 2 * (5 - k); }
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// The ring's stages for a product of N columns: [A of WG 0 | A of WG 1 | B]
-// rounded up to the swizzle's 1024-byte atoms, as many as the ring holds
-// (2 for N 96..192, 3 for 64, 4 for 32); the stages run NBUF - 1 steps
-// ahead of the wgmmas.
-template <int N>
+// The ring's stages for a product of N columns: [A (A_BYTES) | B] rounded
+// up to the swizzle's 1024-byte atoms, as many as BYTES holds (v1, v3: A
+// of both warpgroups, 2 stages for N 96..192, 3 for 64, 4 for 32; v2: B
+// alone, 2 for N 192 up to 7 for 64); the stages run NBUF - 1 steps ahead
+// of the wgmmas.
+template <int N, int A_BYTES, int BYTES>
 struct Ring {
-  static constexpr int STAGE = cdiv(WGS * A_SLAB + N * 128, 1024) * 1024;
-  static constexpr int NBUF = RING / STAGE;
+  static constexpr int STAGE = cdiv(A_BYTES + N * 128, 1024) * 1024;
+  static constexpr int NBUF = BYTES / STAGE;
+  static constexpr int A = A_BYTES;
   static_assert(NBUF >= 2, "the ring holds two stages");
 };
-// columns of v3's source j product, [c5 (64) | c4 | ... | c_{j+1}]
+// columns of the delta form's source j product, [c5 (64) | c4 | ... | c_{j+1}]
 __host__ __device__ constexpr int src_n(int j) { return NF + G * (4 - j); }
 
 // --- the rungs' tilings ----------------------------------------------------
 
-// byte offset, after the ring, of slot k (1..5; bf16, pixel-major, 32
-// channels, 64 for k = 5) over R_k; slot_off(tile, 6) ends the slots
+// byte offset, after the ring (and v2's band), of slot k (1..5; bf16,
+// pixel-major, 32 channels, 64 for k = 5) over R_k; slot_off(tile, 6) ends
+// the slots
 __host__ __device__ constexpr int slot_off(int tile, int k) {
   int off = 0;
   for (int i = 1; i < k; ++i) off += (i < 5 ? G : NF) * 2 * side(tile, i) * side(tile, i);
   return off;
 }
 
+// Each rung: TILE; RING_BYTES of ring; BAND bytes of band (v2); VALUES
+// bytes of stage values; per product j (source x, then x_j or v1's stage
+// j + 1) its region's side, the M rows it runs (positions), the K values
+// executed per position and its N.
 struct V3 {
   static constexpr int TILE = 16;
+  static constexpr int RING_BYTES = RING;
+  static constexpr int BAND = 0;
   static constexpr int VALUES = slot_off(TILE, 6);
   // K values executed per pixel of source j: 9 taps of Cin
   static constexpr int k_exec(int j) { return 9 * (j == 0 ? NF : G); }
   static constexpr int region(int j) { return side(TILE, j + 1); }
+  static constexpr int rows(int j) { return region(j) * region(j); }
+  static constexpr int n(int j) { return src_n(j); }
+};
+
+struct V2 {
+  static constexpr int TILE = 16;
+  static constexpr int RING_BYTES = 61440;
+  // (host and device: the kernel reads them too)
+  __host__ __device__ static constexpr int region(int j) { return side(TILE, j + 1); }
+  // the band's row pitch over product j's region: 24, 24, 24, 24, 16
+  __host__ __device__ static constexpr int pitch(int j) {
+    return cdiv(region(j), 8) * 8;
+  }
+  // a pass's 128 rows and the 2 P rows its dy parts reach below them
+  static constexpr int BAND = (PASS + 2 * 24) * 128;
+  static constexpr int VALUES = slot_off(TILE, 6);
+  // position qy P + qx for qy, qx < region: the last is (S - 1) P + S - 1
+  __host__ __device__ static constexpr int rows(int j) {
+    return (region(j) - 1) * pitch(j) + region(j);
+  }
+  // x: 3 dy x 3 dx x 64; x_j: 3 dy x (64 + 32)
+  static constexpr int k_exec(int j) { return j == 0 ? 9 * NF : 3 * 3 * G; }
   static constexpr int n(int j) { return src_n(j); }
 };
 
 struct V1 {
   static constexpr int TILE = 14;
+  static constexpr int RING_BYTES = RING;
+  static constexpr int BAND = 0;
   // slots 1..4 (p_k, then x_k), then p5 in float32 over the tile
   static constexpr int P5 = slot_off(TILE, 5);
   static constexpr int VALUES = P5 + NF * 4 * TILE * TILE;
   // stage k = 1..5: x's 9 x 64 taps, else the growth buffer's 9 x 128
   static constexpr int k_exec(int j) { return j == 0 ? 9 * NF : 9 * 4 * G; }
   static constexpr int region(int j) { return side(TILE, j + 1); }
+  static constexpr int rows(int j) { return region(j) * region(j); }
   static constexpr int n(int j) { return j == 0 ? NF + 4 * G : (j < 4 ? G : NF); }
 };
 
 template <typename R>
 struct Cfg {
   static constexpr int TILE = R::TILE;
-  static constexpr long long SMEM = 1024 + RING + R::VALUES;   // + alignment
+  static constexpr long long SMEM =
+      1024 + R::RING_BYTES + R::BAND + R::VALUES;   // + alignment
   static_assert(SMEM <= SMEM_LIMIT, "shared memory over the block limit");
   // Multiply-adds one block executes for its tile: each product over its
-  // region in passes of PASS pixels (both warpgroups issue in every pass),
-  // all N columns, k_exec K values.
+  // rows in passes of PASS positions (both warpgroups issue in every
+  // pass), all N columns, k_exec K values.
   static constexpr long long macs() {
     long long m = 0;
-    for (int j = 0; j < 5; ++j) {
-      const int s = R::region(j);
-      m += (long long)cdiv(s * s, PASS) * PASS * R::k_exec(j) * R::n(j);
-    }
+    for (int j = 0; j < 5; ++j)
+      m += (long long)cdiv(R::rows(j), PASS) * PASS * R::k_exec(j) * R::n(j);
     return m;
   }
 };
@@ -323,11 +375,26 @@ struct Args {
 
 // Block-wide context: image, tile origin, shared addresses.
 struct Ctx {
-  uint32_t ring;          // 1024-aligned: the ring's stages (Ring<N>)
-  uint32_t vals;          // the stage values after the ring
+  uint32_t ring;          // 1024-aligned: the ring's stages (Ring<...>)
+  uint32_t band;          // 1024-aligned, after the ring: v2's band
+  uint32_t vals;          // the stage values after the ring and the band
   unsigned char* base;    // the ring's generic address, for plain accesses
   int b, oy0, ox0;
 };
+
+template <typename R>
+__device__ __forceinline__ Ctx make_ctx(unsigned char* smem) {
+  Ctx c;
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem);
+  c.ring = (raw + 1023) & ~1023u;
+  c.band = c.ring + R::RING_BYTES;
+  c.vals = c.band + R::BAND;
+  c.base = smem + (c.ring - raw);
+  c.b = blockIdx.z;
+  c.oy0 = blockIdx.y * R::TILE;
+  c.ox0 = blockIdx.x * R::TILE;
+  return c;
+}
 
 // The value of type T at shared address `addr`, by a plain C++ access, so
 // that the compiler may overlap the loads of an epilogue or a stage.
@@ -337,12 +404,15 @@ __device__ __forceinline__ T& sh(const Ctx& c, uint32_t addr) {
 }
 
 // B slab s of an image with N columns to shared address b0: N rows of 128
-// bytes, already swizzled by the packer, one 16-byte cp.async per chunk.
+// bytes, already swizzled by the packer, one 16-byte cp.async per chunk;
+// `half`: only the logical chunks 0..3 (K 0..31), which a step of 2 k16
+// steps reads.
 template <int N>
-__device__ __forceinline__ void stage_b(uint32_t b0, const bf16* img, int s) {
+__device__ __forceinline__ void stage_b(uint32_t b0, const bf16* img, int s,
+                                        bool half = false) {
   const char* src = reinterpret_cast<const char*>(img) + (size_t)s * N * 128;
   for (int i = threadIdx.x; i < N * 8; i += THREADS)
-    cp_async16(b0 + 16 * i, src + 16 * i, true);
+    if (!half || ((i ^ (i >> 3)) & 7) < 4) cp_async16(b0 + 16 * i, src + 16 * i, true);
 }
 
 // shared address of pass pixel p's chunk ch in the A slabs at a0
@@ -371,24 +441,28 @@ __device__ __forceinline__ void stage_x(const Ctx& c, const Args& a, uint32_t a0
   }
 }
 
-// The product of one source: passes of PASS region pixels over NSLAB K
-// slabs (KS(s) k16 steps of slab s), walked as one sequence of steps
-// through the ring, each step's copies one cp.async group: step it + NBUF - 1
-// is staged while step it's wgmmas run, across the passes too; after a
-// pass's last slab, epi(pass, acc) on each warpgroup whose M tile holds
-// region pixels. stage(a0, b0, pass, s) stages A's slab s at a0 (WG 0's;
-// WG 1's at a0 + A_SLAB) and B's at b0.
-template <int N, int NSLAB, typename KS, typename StageF, typename Epi>
+// The product of one source: passes of PASS positions (npix in all) over
+// NSLAB K steps (KS(s) k16 steps of step s), walked as one sequence of
+// steps through the ring Rg, each step's copies one cp.async group: step
+// it + NBUF - 1 is staged while step it's wgmmas run, across the passes
+// too; after a pass's last step, epi(pass, acc) on each warpgroup whose M
+// tile holds positions. stage(base, b0, pass, s) stages step s into the
+// ring stage at base (A at base, WG 1's at base + A_SLAB; B at b0).
+// a_at(base, pass, s) is WG 0's A for the step (WG 1's + A_SLAB). When
+// band(pass, s) returns true it has just staged A outside the ring: every
+// copy lands and shows to the wgmmas before the step's.
+template <int N, int NSLAB, typename Rg, typename KS, typename StageF,
+          typename AAt, typename Band, typename Epi>
 __device__ __forceinline__ void product(const Ctx& c, int npix, KS ks,
-                                        StageF stage, Epi epi) {
-  using Rg = Ring<N>;
+                                        StageF stage, AAt a_at, Band band,
+                                        Epi epi) {
   const int wg = threadIdx.x >> 7;
   const int steps = cdiv(npix, PASS) * NSLAB;
   auto stage_step = [&](int st) {
     if (st < steps) {
       const int pass = st / NSLAB;
       const uint32_t base = c.ring + (st % Rg::NBUF) * Rg::STAGE;
-      stage(base, base + WGS * A_SLAB, pass, st - pass * NSLAB);
+      stage(base, base + Rg::A, pass, st - pass * NSLAB);
     }
     cp_async_commit();                    // empty past the end: counts stay
   };
@@ -401,10 +475,16 @@ __device__ __forceinline__ void product(const Ctx& c, int npix, KS ks,
   for (int it = 0; it < steps; ++it) {
     const int pass = it / NSLAB, s = it - pass * NSLAB;
     const uint32_t base = c.ring + (it % Rg::NBUF) * Rg::STAGE;
+    if (band(pass, s)) {                  // the wgmmas before have ended
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_async_shared();
+      __syncthreads();
+    }
     // both warpgroups issue, also over M tiles past the region (zero
     // rows): a branch on the warpgroup would serialise the wgmmas
     wgmma_fence();
-    const uint32_t a0 = base + wg * A_SLAB, b0 = base + WGS * A_SLAB;
+    const uint32_t a0 = a_at(base, pass, s) + wg * A_SLAB, b0 = base + Rg::A;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       if (kk < ks(s)) wgmma_ss<N>(acc, desc(a0 + 32 * kk), desc(b0 + 32 * kk),
@@ -419,6 +499,16 @@ __device__ __forceinline__ void product(const Ctx& c, int npix, KS ks,
   }
   __syncthreads();
 }
+
+// v1's and v3's steps: A and B staged in the ring, A first
+template <int N>
+using SlabRing = Ring<N, WGS * A_SLAB, RING>;
+struct AInRing {
+  __device__ __forceinline__ uint32_t operator()(uint32_t base, int, int) const { return base; }
+};
+struct NoBand {
+  __device__ __forceinline__ bool operator()(int, int) const { return false; }
+};
 
 // This thread's two accumulator rows: M-tile row 16 * warp + g + 8 h
 // (h = 0, 1) holds, in registers 4 i + 2 h and 4 i + 2 h + 1, the columns
@@ -460,7 +550,43 @@ __device__ __forceinline__ void store_out(const Ctx& c, const Args& a, int qy,
   *reinterpret_cast<uint32_t*>(a.out + at) = pack(y0, y1);
 }
 
-// --- v3: the delta form, 9-tap staging ---------------------------------------
+// --- the delta form (v3, v2) -------------------------------------------------
+
+// Source J's product at pixel (qy, qx) of R_{J+1}, accumulator half h: its
+// columns [c5 (64) | c4 | ... | c_{J+1}], each rounded to bf16, into slot k
+// from column col0 where R_k holds the pixel (x: stored, x_1..x_3: added,
+// rounded; x_4: the tail, out).
+template <int TILE, int J, int N>
+__device__ __forceinline__ void delta_update(const Ctx& c, const Args& a, int qy,
+                                             int qx, int h, const float (&acc)[N / 2]) {
+#pragma unroll
+  for (int k = 5; k > J; --k) {
+    const int col0 = k == 5 ? 0 : NF + G * (4 - k);
+    const int chans = k == 5 ? NF : G;
+    const int o = k - J - 1;              // R_k's corner in R_{J+1}
+    const int sk = side(TILE, k);
+    if (qy < o || qy >= o + sk || qx < o || qx >= o + sk) continue;
+    const uint32_t at = c.vals + slot_off(TILE, k) +
+        (((qy - o) * sk + qx - o) * chans + acc_col()) * 2;
+#pragma unroll
+    for (int nb = 0; nb < chans / 8; ++nb) {
+      const int r = 4 * (col0 / 8 + nb) + 2 * h;
+      const float r0 = rnd(acc[r]), r1 = rnd(acc[r + 1]);
+      if constexpr (J == 0) {
+        sh<uint32_t>(c, at + 16 * nb) = pack(r0, r1);
+      } else {
+        const float2 old = unpack(sh<uint32_t>(c, at + 16 * nb));
+        if constexpr (J < 4)
+          sh<uint32_t>(c, at + 16 * nb) = pack(old.x + r0, old.y + r1);
+        else
+          store_out(c, a, qy, qx, 8 * nb + acc_col(), rnd(old.x + r0),
+                    rnd(old.y + r1));
+      }
+    }
+  }
+}
+
+// --- v3: 9-tap staging --------------------------------------------------------
 
 // Source J (0 = x, else x_J) over R_{J+1}, its slot updates, then x_{J+1}.
 template <int J>
@@ -496,55 +622,120 @@ __device__ __forceinline__ void v3_source(const Ctx& c, const Args& a) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = acc_pixel(pass, h);
-      if (i >= S * S) continue;
-      const int qy = i / S, qx = i % S;
-      // columns [c5 (64) | c4 | ... | c_{J+1}]: slot k from column col0
-#pragma unroll
-      for (int k = 5; k > J; --k) {
-        const int col0 = k == 5 ? 0 : NF + G * (4 - k);
-        const int chans = k == 5 ? NF : G;
-        const int o = k - J - 1;          // R_k's corner in R_{J+1}
-        const int sk = side(TILE, k);
-        if (qy < o || qy >= o + sk || qx < o || qx >= o + sk) continue;
-        const uint32_t at = c.vals + slot_off(TILE, k) +
-            (((qy - o) * sk + qx - o) * chans + acc_col()) * 2;
-#pragma unroll
-        for (int nb = 0; nb < chans / 8; ++nb) {
-          const int r = 4 * (col0 / 8 + nb) + 2 * h;
-          const float r0 = rnd(acc[r]), r1 = rnd(acc[r + 1]);
-          if constexpr (J == 0) {
-            sh<uint32_t>(c, at + 16 * nb) = pack(r0, r1);
-          } else {
-            const float2 old = unpack(sh<uint32_t>(c, at + 16 * nb));
-            if constexpr (J < 4)
-              sh<uint32_t>(c, at + 16 * nb) = pack(old.x + r0, old.y + r1);
-            else
-              store_out(c, a, qy, qx, 8 * nb + acc_col(), rnd(old.x + r0),
-                        rnd(old.y + r1));
-          }
-        }
-      }
+      if (i < S * S) delta_update<TILE, J, N>(c, a, i / S, i % S, h, acc);
     }
   };
-  product<N, NSLAB>(c, S * S, ks, stage, epi);
+  product<N, NSLAB, SlabRing<N>>(c, S * S, ks, stage, AInRing(), NoBand(), epi);
   if constexpr (J < 4) activate<TILE, J + 1>(c, a);
 }
 
 __global__ void __launch_bounds__(THREADS, 1) v3_tc_kernel(Args a) {
   extern __shared__ __align__(1024) unsigned char tc_smem[];
-  Ctx c;
-  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(tc_smem);
-  c.ring = (raw + 1023) & ~1023u;
-  c.vals = c.ring + RING;
-  c.base = tc_smem + (c.ring - raw);
-  c.b = blockIdx.z;
-  c.oy0 = blockIdx.y * V3::TILE;
-  c.ox0 = blockIdx.x * V3::TILE;
+  const Ctx c = make_ctx<V3>(tc_smem);
   v3_source<0>(c, a);
   v3_source<1>(c, a);
   v3_source<2>(c, a);
   v3_source<3>(c, a);
   v3_source<4>(c, a);
+}
+
+// --- v2: 3-tap staging, the dy parts from one band ---------------------------
+
+// The band of x for one pass and dx tap: row r is position q = pass * PASS
+// + r at pitch P (window row q / P, column q % P) and holds the 64 channels
+// of window pixel (q / P, q % P + dx), i.e. image pixel (oy0 - 5 + q / P,
+// ox0 - 5 + q % P + dx), copied by cp.async; zero outside the image and the
+// window (side S + 2).
+template <int S, int P>
+__device__ __forceinline__ void band_x(const Ctx& c, const Args& a, int pass, int dx) {
+  for (int e = threadIdx.x; e < (PASS + 2 * P) * 8; e += THREADS) {
+    const int r = e >> 3, ch = e & 7;
+    const int q = pass * PASS + r;
+    const int wy = q / P, wx = q % P + dx;
+    const int gy = c.oy0 - 5 + wy, gx = c.ox0 - 5 + wx;
+    const bool in = wy < S + 2 && wx < S + 2 && gy >= 0 && gy < a.H && gx >= 0 &&
+                    gx < a.W;
+    const bf16* src = in ? a.x + (((size_t)c.b * a.H + gy) * a.W + gx) * NF + 8 * ch
+                         : a.x;
+    cp_async16(c.band + swz(r, ch), src, in);
+  }
+}
+
+// The band of x_J (J >= 1) for one pass and group g, from slot J over R_J
+// (side S + 2, where pixel (qy, qx) of R_{J+1} sits at (qy + 1, qx + 1)):
+// row r, position q as above, holds for g = 0 the 32 channels of R_J pixel
+// (q / P, q % P) in chunks 0..3 and of (q / P, q % P + 1) in chunks 4..7,
+// for g = 1 those of (q / P, q % P + 2) in chunks 0..3 (4..7 are not read).
+// Zero past R_J.
+template <int J, int S, int P>
+__device__ __forceinline__ void band_slots(const Ctx& c, int pass, int g) {
+  const uint32_t src = c.vals + slot_off(V2::TILE, J);
+  const int chans = g == 0 ? 8 : 4;
+  for (int e = threadIdx.x; e < (PASS + 2 * P) * chans; e += THREADS) {
+    const int r = g == 0 ? e >> 3 : e >> 2, ch = g == 0 ? e & 7 : e & 3;
+    const int q = pass * PASS + r;
+    const int wy = q / P, wx = q % P + 2 * g + (ch >> 2);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (wy < S + 2 && wx < S + 2)
+      v = sh<uint4>(c, src + ((wy * (S + 2) + wx) * G + 8 * (ch & 3)) * 2);
+    sh<uint4>(c, c.band + swz(r, ch)) = v;
+  }
+}
+
+// Source J over R_{J+1} at pitch P: per pass, K groups (x: dx 0, 1, 2;
+// x_J: [dx 0 | dx 1], [dx 2]), each staged into the band once and read by
+// its three dy steps from band row dy P; B's slab for (dy, group) through
+// the ring. Then x_{J+1}.
+template <int J>
+__device__ __forceinline__ void v2_source(const Ctx& c, const Args& a) {
+  constexpr int TILE = V2::TILE;
+  constexpr int S = V2::region(J);
+  constexpr int P = V2::pitch(J);
+  constexpr int N = src_n(J);
+  constexpr int NSLAB = J == 0 ? 9 : 6;   // step s: group s / 3, dy s % 3
+  const bf16* img = a.img[J];
+  auto ks = [](int s) { return J > 0 && s >= 3 ? 2 : 4; };
+  auto stage = [&](uint32_t, uint32_t b0, int, int s) {
+    const int g = s / 3, dy = s % 3;
+    // B's K order is v3's (dy, dx, cin) for x, and per dy [dx 0 | dx 1],
+    // [dx 2 | zero] for x_J (pack_tc_images)
+    if constexpr (J == 0)
+      stage_b<N>(b0, img, 3 * dy + g);
+    else
+      stage_b<N>(b0, img, 2 * dy + g, g == 1);
+  };
+  auto a_at = [&](uint32_t, int, int s) { return c.band + (s % 3) * P * 128; };
+  auto band = [&](int pass, int s) {
+    if (s % 3) return false;
+    if constexpr (J == 0)
+      band_x<S, P>(c, a, pass, s / 3);
+    else
+      band_slots<J, S, P>(c, pass, s / 3);
+    return true;
+  };
+  auto epi = [&](int pass, const float(&acc)[N / 2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = acc_pixel(pass, h);
+      const int qy = i / P, qx = i % P;
+      if (qy < S && qx < S) delta_update<TILE, J, N>(c, a, qy, qx, h, acc);
+    }
+  };
+  static_assert((P * 128) % 1024 == 0, "a dy shift is whole swizzle atoms");
+  static_assert(PASS + 2 * P <= V2::BAND / 128, "the band holds a pass");
+  product<N, NSLAB, Ring<N, 0, V2::RING_BYTES>>(c, V2::rows(J), ks, stage, a_at,
+                                                band, epi);
+  if constexpr (J < 4) activate<TILE, J + 1>(c, a);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) v2_tc_kernel(Args a) {
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const Ctx c = make_ctx<V2>(tc_smem);
+  v2_source<0>(c, a);
+  v2_source<1>(c, a);
+  v2_source<2>(c, a);
+  v2_source<3>(c, a);
+  v2_source<4>(c, a);
 }
 
 // --- v1: the K-packed concat form --------------------------------------------
@@ -586,7 +777,7 @@ __device__ __forceinline__ void v1_stage1(const Ctx& c, const Args& a) {
       }
     }
   };
-  product<N, 9>(c, S * S, ks, stage, epi);
+  product<N, 9, SlabRing<N>>(c, S * S, ks, stage, AInRing(), NoBand(), epi);
   activate<TILE, 1>(c, a);
 }
 
@@ -647,19 +838,12 @@ __device__ __forceinline__ void v1_stage(const Ctx& c, const Args& a) {
       }
     }
   };
-  product<N, 18>(c, S * S, ks, stage, epi);
+  product<N, 18, SlabRing<N>>(c, S * S, ks, stage, AInRing(), NoBand(), epi);
 }
 
 __global__ void __launch_bounds__(THREADS, 1) v1_tc_kernel(Args a) {
   extern __shared__ __align__(1024) unsigned char tc_smem[];
-  Ctx c;
-  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(tc_smem);
-  c.ring = (raw + 1023) & ~1023u;
-  c.vals = c.ring + RING;
-  c.base = tc_smem + (c.ring - raw);
-  c.b = blockIdx.z;
-  c.oy0 = blockIdx.y * V1::TILE;
-  c.ox0 = blockIdx.x * V1::TILE;
+  const Ctx c = make_ctx<V1>(tc_smem);
   v1_stage1(c, a);
   v1_stage<2>(c, a);
   v1_stage<3>(c, a);
@@ -705,7 +889,7 @@ long long field(void (*kernel)(Args), int what) {
 
 }  // namespace
 
-// rung: 1 (v1) or 3 (v3). x, out: (B, H, W, 64) bf16, contiguous, 16-byte
+// rung: 1 (v1), 2 (v2) or 3 (v3). x, out: (B, H, W, 64) bf16, contiguous, 16-byte
 // aligned; img0..img4: the rung's five bf16 B images as
 // ops/rdb_ladder.py::pack_tc_images packs them; b14: 128, b5: 64 float32.
 // Returns the CUDA error code of the launch (0 = success).
@@ -726,6 +910,7 @@ extern "C" int s2sr_rdb_ladder_tc_forward(int rung, const void* x, void* out,
   a.W = W;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rung == 1) return launch<V1>(v1_tc_kernel, a, B, st);
+  if (rung == 2) return launch<V2>(v2_tc_kernel, a, B, st);
   if (rung == 3) return launch<V3>(v3_tc_kernel, a, B, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -736,6 +921,7 @@ extern "C" int s2sr_rdb_ladder_tc_forward(int rung, const void* x, void* out,
 // rows included), 4 blocks per SM; -1 for an unknown rung or field.
 extern "C" long long s2sr_rdb_ladder_tc_query(int rung, int what) {
   if (rung == 1) return field<V1>(v1_tc_kernel, what);
+  if (rung == 2) return field<V2>(v2_tc_kernel, what);
   if (rung == 3) return field<V3>(v3_tc_kernel, what);
   return -1;
 }

@@ -27,18 +27,20 @@ accumulator slots c1..c5 kept in the storage dtype::
 
 ``v1`` and ``v2`` stage the three ``dx`` taps of one ``dy`` side by
 side (three (pixels, 3·Cin)×(3·Cin, N) products per conv), ``v3`` stages
-all nine taps (one (pixels, 9·Cin)×(9·Cin, N) product per conv).
+all nine taps (one (pixels, 9·Cin)×(9·Cin, N) product per conv). On the
+tensor cores ``v2`` stages the ``dx`` taps once per band of positions and
+reads its three ``dy`` parts from that band, row-shifted.
 
 - :func:`rdb_v1` / :func:`rdb_v2` / :func:`rdb_v3` are the wrappers. On
-  a CUDA tensor they launch a kernel or raise: bfloat16 ``v1`` and ``v3``
-  the tensor-core kernels of ``csrc/rdb_ladder_tc.cu`` (``wgmma``; they
-  take the bf16 B images of :func:`pack_tc_images`), everything else the
-  CUDA-core kernels of ``csrc/rdb_ladder.cu``. On a CPU tensor they run
-  the rung's plain version (:data:`REFERENCES`).
+  a CUDA tensor they launch a kernel or raise: bfloat16 rungs the
+  tensor-core kernels of ``csrc/rdb_ladder_tc.cu`` (``wgmma``; they take
+  the bf16 B images of :func:`pack_tc_images`), float32 the CUDA-core
+  kernels of ``csrc/rdb_ladder.cu``. On a CPU tensor they run the rung's
+  plain version (:data:`REFERENCES`).
 - :data:`LAUNCHES` counts kernel launches per rung, nothing else.
 - :func:`rdb_ladder_cuda_cores` launches the CUDA-core kernel of any rung
-  and dtype, bf16 ``v1``/``v3`` included: the kernels the tensor-core ones
-  replaced, kept to compare with them on the card. It counts nothing.
+  and dtype, bf16 included: the kernels the tensor-core ones replaced,
+  kept to compare with them on the card. It counts nothing.
 - Weights travel as the TPU rungs pack them (``pack_rdb_weights_v1`` /
   ``_v2`` / ``_v3``): ``((w0, w1, w2, w3, w4), b14, b5)``, all float32
   tensors; the five matrices hold values rounded to the compute dtype
@@ -59,7 +61,7 @@ from .rdb import NF, G, check_kernel_shapes, unpack_rdb_weights
 RUNGS = ("v1", "v2", "v3")
 LAUNCHES = {rung: 0 for rung in RUNGS}
 # the rungs whose bfloat16 instance runs on the tensor cores
-TC_RUNGS = ("v1", "v3")
+TC_RUNGS = ("v1", "v2", "v3")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _RUNG_CODE = {"v1": 1, "v2": 2, "v3": 3}
@@ -160,13 +162,21 @@ def pack_ladder_weights(w: torch.Tensor, b: torch.Tensor, rung: str,
 def tc_matrices(packed, rung: str) -> tuple:
     """The five (K, N) matrices the tensor-core kernel of ``rung`` runs,
     from its packed float32 weights, rows in the kernel's K order. v3: the
-    packed ``(9·Cin, N)`` as they are, rows (tap, cin). v1: ``wx`` without
-    x's 64 zero pad lanes, ``(576, 192)`` rows (tap, channel), and each
-    ``wg_k`` as ``(1152, N)`` rows (tap, lane), the zero rows of x_k..x4
-    kept."""
+    packed ``(9·Cin, N)`` as they are, rows (tap, cin). v2: ``wx (3, 192,
+    192)`` flattened, which is v3's ``(576, 192)``; each ``w_j (3, 96, N)``
+    with every ``dy``'s 96 rows (dx, cin) padded to 128, ``(384, N)``, so
+    that a K slab of 64 holds ``[dx 0 | dx 1]`` or ``[dx 2 | zero]`` of
+    one ``dy``. v1: ``wx`` without x's 64 zero pad lanes, ``(576, 192)``
+    rows (tap, channel), and each ``wg_k`` as ``(1152, N)`` rows (tap,
+    lane), the zero rows of x_k..x4 kept."""
     blocks, _, _ = packed
     if rung == "v3":
         return tuple(blocks)
+    if rung == "v2":
+        wx, *ws = blocks
+        return (wx.reshape(9 * NF, -1),
+                *(F.pad(w, (0, 0, 0, 128 - w.shape[1])).reshape(384, -1)
+                  for w in ws))
     if rung != "v1":
         raise ValueError(f"no tensor-core kernel for rung {rung}")
     wx, *wg = blocks
@@ -175,8 +185,8 @@ def tc_matrices(packed, rung: str) -> tuple:
 
 
 def pack_tc_images(packed, rung: str) -> tuple:
-    """The bf16 B images of the tensor-core kernel of ``rung`` (``v1`` or
-    ``v3``), from the rung's packed weights: each matrix of
+    """The bf16 B images of the tensor-core kernel of ``rung`` (one of
+    :data:`TC_RUNGS`), from the rung's packed weights: each matrix of
     :func:`tc_matrices` as ``matmul_chain.pack_wgmma`` lays it out, K
     zero-padded to a multiple of 64, ``[K/64][N][64]`` with the 128-byte
     swizzle. Pack once per set of weights, outside a timed loop; the
@@ -360,7 +370,8 @@ def _check(x, packed, rung):
 def tc_image_shapes(rung: str) -> list:
     """Shapes of :func:`pack_tc_images`' five images: ``(K/64, N, 8, 8)``
     (16-byte chunks of 8 values), K padded to a multiple of 64."""
-    ks = (9 * NF, *(9 * (LANES if rung == "v1" else G),) * 4)
+    k_src = {"v1": 9 * LANES, "v2": 3 * 128, "v3": 9 * G}[rung]   # x_j's K
+    ks = (9 * NF, *(k_src,) * 4)
     return [(-(-k // 64), n, 8, 8) for k, (_, n) in
             zip(ks, (s[-2:] for s in _SHAPES[rung]))]
 
@@ -425,8 +436,8 @@ def _launch(x: torch.Tensor, packed, rung: str, images=None) -> torch.Tensor:
 def rdb_ladder_cuda_cores(x: torch.Tensor, packed, rung: str) -> torch.Tensor:
     """One RDB through the CUDA-core kernel of ``rung`` in
     ``csrc/rdb_ladder.cu``, for a CUDA tensor of either dtype: for bf16
-    ``v1``/``v3`` the kernel the tensor-core one replaced, kept to compare
-    the two on the card. Not a path of the port; counts nothing."""
+    the kernel the tensor-core one replaced, kept to compare the two on
+    the card. Not a path of the port; counts nothing."""
     if x.device.type != "cuda":
         raise RuntimeError(f"rdb_ladder_cuda_cores wants a CUDA tensor, "
                            f"got {x.device}")
@@ -444,8 +455,8 @@ def rdb_v1(x: torch.Tensor, packed, images=None) -> torch.Tensor:
 
 def rdb_v2(x: torch.Tensor, packed, images=None) -> torch.Tensor:
     """One RDB through the v2 rung; as :func:`rdb_v1` with
-    :func:`pack_rdb_weights_v2` weights. Every dtype runs on the CUDA
-    cores, so ``images`` is ignored."""
+    :func:`pack_rdb_weights_v2` weights and ``pack_tc_images(packed,
+    "v2")``."""
     return _launch(x, packed, "v2", images)
 
 

@@ -1,20 +1,21 @@
 """The bf16 tensor-core ladder rungs' data movement (``csrc/rdb_ladder_tc.cu``,
-``v1_tc_kernel`` and ``v3_tc_kernel``), emulated in NumPy and held to the
-port's plain versions.
+``v1_tc_kernel``, ``v2_tc_kernel`` and ``v3_tc_kernel``), emulated in NumPy
+and held to the port's plain versions.
 
 The kernels run only on the card (``chip_smoke.py``, phase ``ladder``).
 Here every address they compute is followed in NumPy, in float32 so that
 the result is the float32 rung: shared memory is an array of 2-byte
 cells addressed by byte; the A slabs are staged at the kernel's swizzled
 addresses (x by 16-byte copies from the image, zero outside it; x_j and
-v1's growth buffer from the pixel-major slots); B slabs are copied from
-the packed images; each ``wgmma`` reads both operands through the
-128-byte swizzle of its descriptor's address, and its accumulator is
-handed out in the hardware's register layout, which the kernel's
-epilogues read back. The ring's next slab is staged before the current
-slab's product is read, as the kernel overlaps them, so a stage that
-overwrote the buffer in use would show. The packers are checked on their
-own.
+v1's growth buffer from the pixel-major slots; v2's band once per pass
+and dx group, read by its three dy steps at descriptor starts dy·P·128
+bytes apart); B slabs are copied from the packed images; each ``wgmma``
+reads both operands through the 128-byte swizzle of its descriptor's
+address, and its accumulator is handed out in the hardware's register
+layout, which the kernel's epilogues read back. The ring's next slab is
+staged before the current slab's product is read, as the kernel overlaps
+them, so a stage that overwrote the buffer in use would show. The
+packers are checked on their own.
 """
 
 import numpy as np
@@ -29,13 +30,24 @@ WGS, THREADS = 2, 256
 PASS = 64 * WGS
 A_SLAB = 64 * 128
 RING = 2 * (WGS * A_SLAB + 192 * 128)
-TILE = {"v1": 14, "v3": 16}
+TILE = {"v1": 14, "v2": 16, "v3": 16}
+# v2: the ring holds B alone; the band after it holds a pass's 128 rows
+# and the 2·24 rows its dy parts reach below them
+RING_BYTES = {"v1": RING, "v2": 61440, "v3": RING}
+BAND = {"v1": 0, "v2": (PASS + 2 * 24) * 128, "v3": 0}
+SMEM_LIMIT = 232448
 
 
-def ring_stages(n):
-    """``Ring<N>``: bytes of one stage (1024-byte atoms) and stages."""
-    stage = cdiv(WGS * A_SLAB + n * 128, 1024) * 1024
-    return stage, RING // stage
+def ring_stages(n, a_bytes=WGS * A_SLAB, ring=RING):
+    """``Ring<N, A_BYTES, BYTES>``: bytes of one stage (1024-byte atoms)
+    and stages."""
+    stage = cdiv(a_bytes + n * 128, 1024) * 1024
+    return stage, ring // stage
+
+
+def pitch(s):
+    """v2's band pitch over a region of side s: a multiple of 8 rows."""
+    return cdiv(s, 8) * 8
 
 
 def side(tile, k):
@@ -53,7 +65,12 @@ def slot_off(tile, k):
 
 def values_bytes(rung):
     t = TILE[rung]
-    return slot_off(t, 6) if rung == "v3" else slot_off(t, 5) + NF * 4 * t * t
+    return slot_off(t, 5) + NF * 4 * t * t if rung == "v1" else slot_off(t, 6)
+
+
+def smem_bytes(rung):
+    """``Cfg<R>::SMEM``: alignment, ring, band, stage values."""
+    return 1024 + RING_BYTES[rung] + BAND[rung] + values_bytes(rung)
 
 
 def swz(r, c):
@@ -82,22 +99,34 @@ def src_n(j):
 
 
 def rung_n(rung, j):
-    if rung == "v3":
+    if rung != "v1":
         return src_n(j)
     return NF + 4 * G if j == 0 else (G if j < 4 else NF)
 
 
 def rung_k(rung, j):
-    if rung == "v3":
-        return 9 * (NF if j == 0 else G)
-    return 9 * NF if j == 0 else 9 * LANES
+    """K values executed per position of product j."""
+    if rung == "v1":
+        return 9 * NF if j == 0 else 9 * LANES
+    return 9 * (NF if j == 0 else G)         # v2: 3 dy x (64 + 32) for x_j
+
+
+def image_k(rung, j):
+    """K rows of product j's B image (before padding to 64)."""
+    return 3 * 128 if rung == "v2" and j > 0 else rung_k(rung, j)
+
+
+def rung_rows(rung, j):
+    """M rows product j runs: its region's pixels, or for v2 its
+    positions qy·P + qx up to the region's last."""
+    s = side(TILE[rung], j + 1)
+    return (s - 1) * pitch(s) + s if rung == "v2" else s * s
 
 
 def macs_per_tile(rung):
-    """What ``Cfg<R>::macs`` counts: each product over its region in
-    passes of 128 pixels, all N columns, the executed K."""
-    t = TILE[rung]
-    return sum(cdiv(side(t, j + 1) ** 2, PASS) * PASS * rung_k(rung, j)
+    """What ``Cfg<R>::macs`` counts: each product over its rows in passes
+    of 128 positions, all N columns, the executed K."""
+    return sum(cdiv(rung_rows(rung, j), PASS) * PASS * rung_k(rung, j)
                * rung_n(rung, j) for j in range(5))
 
 
@@ -112,10 +141,13 @@ class Block:
         self.h, self.w = x.shape[1:3]
         # NaN everywhere the kernel has not written: a read of a cell it
         # never stored would poison the output
-        self.mem = np.full((RING + values_bytes(rung)) // 2, np.nan,
+        self.ring = RING_BYTES[rung]
+        self.band = self.ring
+        self.vals = self.band + BAND[rung]
+        self.mem = np.full((self.vals + values_bytes(rung)) // 2, np.nan,
                            np.float32)
-        self.vals = RING
         self.macs = 0
+        self.starts = set()           # every descriptor start, less 32·kk
 
     # --- shared memory -----------------------------------------------------
 
@@ -137,9 +169,13 @@ class Block:
 
     # --- staging -----------------------------------------------------------
 
-    def stage_b(self, b0, j, n, s):
-        src = self.images[j][s * n * 64:(s + 1) * n * 64]
-        self.st(b0 + 2 * np.arange(n * 64), src)
+    def stage_b(self, b0, j, n, s, half=False):
+        """B slab s of image j; ``half``: only the chunks holding logical
+        chunks 0..3 (physical chunk c of row r holds c ^ (r % 8))."""
+        src = self.images[j][s * n * 64:(s + 1) * n * 64].reshape(-1, 8)
+        i = np.arange(n * 8)
+        keep = ((i ^ (i >> 3)) & 7) < 4 if half else np.ones(i.size, bool)
+        self.st16(b0 + 16 * i[keep], src[keep])
 
     def stage_x(self, a0, s_side, pas, tap):
         dy, dx = tap // 3, tap % 3
@@ -204,18 +240,21 @@ class Block:
         v1 = regs[tid, 4 * i + 2 * h + 1].ravel()
         return row, col, v0, v1
 
-    def product(self, n, nslab, npix, ks, stage, epi):
-        """The passes' slabs as one sequence of steps through the ring of
-        ``ring_stages(n)``: step it + NBUF - 1 (across passes) is staged
-        before step it's product is read, as the kernel stages it while
-        the wgmmas run, so a stage that overwrote a buffer in use shows."""
-        size, nbuf = ring_stages(n)
+    def product(self, n, nslab, npix, ks, stage, epi,
+                a_bytes=WGS * A_SLAB, a_at=None, band=None):
+        """The passes' steps as one sequence through the ring of
+        ``ring_stages(n, a_bytes)``: step it + NBUF - 1 (across passes) is
+        staged before step it's product is read, as the kernel stages it
+        while the wgmmas run, so a stage that overwrote a buffer in use
+        shows. ``a_at(base, pass, s)``: WG 0's A (default: the ring stage);
+        ``band(pass, s)`` stages A outside the ring before the step."""
+        size, nbuf = ring_stages(n, a_bytes, self.ring)
         steps = cdiv(npix, PASS) * nslab
 
         def stage_step(st):
             if st < steps:
                 base = (st % nbuf) * size
-                stage(base, base + WGS * A_SLAB, st // nslab, st % nslab)
+                stage(base, base + a_bytes, st // nslab, st % nslab)
 
         for st in range(nbuf - 1):
             stage_step(st)
@@ -223,11 +262,15 @@ class Block:
         for it in range(steps):
             pas, s = it // nslab, it % nslab
             base = (it % nbuf) * size
+            if band is not None:
+                band(pas, s)
+            a0 = base if a_at is None else a_at(base, pas, s)
             stage_step(it + nbuf - 1)
             for wg in range(WGS):                 # both issue, always
                 for kk in range(ks(s)):
-                    a = self.read_operand(base + wg * A_SLAB + 32 * kk, 64)
-                    bm = self.read_operand(base + WGS * A_SLAB + 32 * kk, n)
+                    self.starts.update((a0 + wg * A_SLAB, base + a_bytes))
+                    a = self.read_operand(a0 + wg * A_SLAB + 32 * kk, 64)
+                    bm = self.read_operand(base + a_bytes + 32 * kk, n)
                     prod = a.astype(np.float64) @ bm.T.astype(np.float64)
                     self.macs += 64 * 16 * n
                     acc[wg] = prod if s == 0 and kk == 0 else acc[wg] + prod
@@ -285,35 +328,110 @@ class Block:
 
         def epi(i, col, v0, v1):
             ok = i < s_side * s_side
-            i, col, v0, v1 = i[ok], col[ok], v0[ok], v1[ok]
-            qy, qx = i // s_side, i % s_side
-            k = np.where(col < NF, 5, 4 - (col - NF) // G)
-            ch = np.where(col < NF, col, (col - NF) % G)
-            o = k - j - 1
-            sk = tile + 2 * (5 - k)
-            inr = (qy >= o) & (qy < o + sk) & (qx >= o) & (qx < o + sk)
-            offs = np.array([slot_off(tile, kk) for kk in range(6)])
-            at = self.vals + offs[k] + slot_at((qy - o) * sk + qx - o, ch,
-                                               np.where(k < 5, G, NF))
-            at, v0, v1, qy, qx, ch = (a[inr] for a in (at, v0, v1, qy, qx, ch))
-            if j == 0:
-                self.st(at, v0)
-                self.st(at + 2, v1)
-            elif j < 4:
-                self.st(at, self.ld(at) + v0)
-                self.st(at + 2, self.ld(at + 2) + v1)
-            else:
-                self.store_out(qy, qx, ch, (self.ld(at) + v0,
-                                            self.ld(at + 2) + v1))
+            self.delta_update(j, tile, i[ok] // s_side, i[ok] % s_side,
+                              col[ok], v0[ok], v1[ok])
 
         self.product(n, nslab, s_side * s_side,
                      lambda s: 2 if j > 0 and s == 4 else 4, stage, epi)
         if j < 4:
             self.activate(tile, j + 1)
 
+    def delta_update(self, j, tile, qy, qx, col, v0, v1):
+        """Source j's columns at pixel (qy, qx) of R_{j+1} into the slots
+        (``delta_update`` in the kernel)."""
+        k = np.where(col < NF, 5, 4 - (col - NF) // G)
+        ch = np.where(col < NF, col, (col - NF) % G)
+        o = k - j - 1
+        sk = tile + 2 * (5 - k)
+        inr = (qy >= o) & (qy < o + sk) & (qx >= o) & (qx < o + sk)
+        offs = np.array([slot_off(tile, kk) for kk in range(6)])
+        at = self.vals + offs[k] + slot_at((qy - o) * sk + qx - o, ch,
+                                           np.where(k < 5, G, NF))
+        at, v0, v1, qy, qx, ch = (a[inr] for a in (at, v0, v1, qy, qx, ch))
+        if j == 0:
+            self.st(at, v0)
+            self.st(at + 2, v1)
+        elif j < 4:
+            self.st(at, self.ld(at) + v0)
+            self.st(at + 2, self.ld(at + 2) + v1)
+        else:
+            self.store_out(qy, qx, ch, (self.ld(at) + v0,
+                                        self.ld(at + 2) + v1))
+
     def run_v3(self):
         for j in range(5):
             self.v3_source(j)
+
+    # --- v2 ------------------------------------------------------------------
+
+    def band_x(self, pas, dx, s_side, p):
+        """x's band for one pass and dx tap: row r is position q = pass·128
+        + r at pitch p, window pixel (q / p, q % p + dx); zero outside the
+        image and the window."""
+        e = np.arange((PASS + 2 * p) * 8)
+        r, ch = e >> 3, e & 7
+        q = pas * PASS + r
+        wy, wx = q // p, q % p + dx
+        gy, gx = self.oy0 - 5 + wy, self.ox0 - 5 + wx
+        inside = ((wy < s_side + 2) & (wx < s_side + 2) & (gy >= 0)
+                  & (gy < self.h) & (gx >= 0) & (gx < self.w))
+        v = np.zeros((e.size, 8), np.float32)
+        v[inside] = self.x[self.b, gy[inside], gx[inside]].reshape(
+            -1, 8, 8)[np.arange(inside.sum()), ch[inside]]
+        self.st16(self.band + swz(r, ch), v)
+
+    def band_slots(self, j, pas, g, s_side, p):
+        """x_j's band for one pass and group g (0: [dx 0 | dx 1], 1: [dx
+        2], chunks 0..3 only) from slot j over R_j (side s_side + 2)."""
+        chans = 8 if g == 0 else 4
+        e = np.arange((PASS + 2 * p) * chans)
+        r, ch = e // chans, e % chans
+        q = pas * PASS + r
+        wy, wx = q // p, q % p + 2 * g + (ch >> 2)
+        valid = (wy < s_side + 2) & (wx < s_side + 2)
+        addr = (self.vals + slot_off(TILE["v2"], j)
+                + slot_at(wy * (s_side + 2) + wx, 8 * (ch & 3), G))
+        v = np.zeros((e.size, 8), np.float32)
+        v[valid] = self.ld16(addr[valid])
+        self.st16(self.band + swz(r, ch), v)
+
+    def v2_source(self, j):
+        tile = TILE["v2"]
+        s_side = side(tile, j + 1)
+        p = pitch(s_side)
+        n = src_n(j)
+        nslab = 9 if j == 0 else 6           # step s: group s / 3, dy s % 3
+
+        def stage(a0, b0, pas, s):
+            g, dy = s // 3, s % 3
+            if j == 0:
+                self.stage_b(b0, 0, n, 3 * dy + g)
+            else:
+                self.stage_b(b0, j, n, 2 * dy + g, half=g == 1)
+
+        def band(pas, s):
+            if s % 3 == 0:
+                if j == 0:
+                    self.band_x(pas, s // 3, s_side, p)
+                else:
+                    self.band_slots(j, pas, s // 3, s_side, p)
+
+        def epi(i, col, v0, v1):
+            qy, qx = i // p, i % p
+            ok = (qy < s_side) & (qx < s_side)
+            self.delta_update(j, tile, qy[ok], qx[ok], col[ok], v0[ok],
+                              v1[ok])
+
+        self.product(n, nslab, rung_rows("v2", j),
+                     lambda s: 2 if j > 0 and s >= 3 else 4, stage, epi,
+                     a_bytes=0, band=band,
+                     a_at=lambda base, pas, s: self.band + (s % 3) * p * 128)
+        if j < 4:
+            self.activate(tile, j + 1)
+
+    def run_v2(self):
+        for j in range(5):
+            self.v2_source(j)
 
     # --- v1 ------------------------------------------------------------------
 
@@ -398,14 +516,15 @@ class Block:
 
 def emulate(rung, x, packed):
     """The rung's tensor-core kernel over the whole image, in float32:
-    returns (output, multiply-adds executed per block)."""
+    returns (output, multiply-adds executed per block, the descriptor
+    starts of every block's wgmmas less their k16 offsets)."""
     images = [t.numpy() for t in fp32_images(packed, rung)]
     _, b14, b5 = packed
     x = x.numpy()
     out = np.full_like(x, np.nan)
     bsz, h, w, _ = x.shape
     tile = TILE[rung]
-    macs = set()
+    macs, starts = set(), set()
     for b in range(bsz):
         for by in range(cdiv(h, tile)):
             for bx in range(cdiv(w, tile)):
@@ -413,8 +532,9 @@ def emulate(rung, x, packed):
                             b5.numpy().ravel(), out, b, by * tile, bx * tile)
                 getattr(blk, f"run_{rung}")()
                 macs.add(blk.macs)
+                starts |= blk.starts
     assert len(macs) == 1
-    return out, macs.pop()
+    return out, macs.pop(), starts
 
 
 def fp32_images(packed, rung):
@@ -439,8 +559,8 @@ def weights():
     return kernels, biases
 
 
-# images that cross a tile edge in both directions (v3 tile 16, v1 14)
-SHAPES = {"v3": (1, 19, 17), "v1": (2, 16, 15)}
+# images that cross a tile edge in both directions (v2, v3 tile 16, v1 14)
+SHAPES = {"v3": (1, 19, 17), "v2": (1, 17, 19), "v1": (2, 16, 15)}
 
 
 @pytest.mark.parametrize("rung", lad.TC_RUNGS)
@@ -449,13 +569,20 @@ def test_emulation_matches_reference(weights, rung):
     rng = np.random.default_rng(8)
     x = torch.from_numpy(rng.normal(0, 0.5, (*SHAPES[rung], 64))
                          .astype(np.float32))
-    got, macs = emulate(rung, x, packed)
+    got, macs, starts = emulate(rung, x, packed)
     want = lad.REFERENCES[rung](x, packed).numpy()
     assert np.isfinite(got).all()
     assert np.abs(want - x.numpy()).max() > 0.3        # the block does work
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     # the executed count the kernel source reports is what ran
     assert macs == macs_per_tile(rung)
+    # every descriptor starts on a swizzle atom, so its base offset is 0;
+    # v2's dy parts too, dy·P·128 bytes into the band (P 24 and 16)
+    assert all(a % 1024 == 0 for a in starts)
+    if rung == "v2":
+        band = RING_BYTES["v2"]
+        assert {band + dy * p * 128 + wg * A_SLAB for dy in range(3)
+                for p in (24, 16) for wg in range(WGS)} <= starts
 
 
 @pytest.mark.parametrize("rung", lad.TC_RUNGS)
@@ -464,8 +591,18 @@ def test_executed_over_useful(rung):
     column over each product's region; v1 also the zero rows."""
     useful = 9 * (64 * 192 + 32 * (160 + 128 + 96 + 64))
     ratio = macs_per_tile(rung) / (TILE[rung] ** 2 * useful)
-    assert ratio == pytest.approx({"v3": 2.0962, "v1": 2.5118}[rung],
-                                  abs=1e-4)
+    assert ratio == pytest.approx({"v3": 2.0962, "v2": 2.2500,
+                                   "v1": 2.5118}[rung], abs=1e-4)
+
+
+@pytest.mark.parametrize("rung", lad.TC_RUNGS)
+def test_shared_memory_fits(rung):
+    """``Cfg<R>::SMEM`` under the block limit, and the ring's stages at
+    every N the rung runs: two or more (``Ring``'s assertion)."""
+    assert smem_bytes(rung) <= SMEM_LIMIT
+    a_bytes = 0 if rung == "v2" else WGS * A_SLAB
+    for j in range(5):
+        assert ring_stages(rung_n(rung, j), a_bytes, RING_BYTES[rung])[1] >= 2
 
 
 def unpack_image(img, k):
@@ -489,9 +626,12 @@ def test_images_are_exact_permutations(weights, rung):
     for j, (img, blk) in enumerate(zip(images, blocks)):
         assert img.dtype == torch.bfloat16 and img.is_contiguous()
         n = blk.shape[-1]
-        got = unpack_image(img.float().numpy(), rung_k(rung, j))
-        if rung == "v3":
-            want = blk.numpy()
+        got = unpack_image(img.float().numpy(), image_k(rung, j))
+        if rung == "v3" or (rung == "v2" and j == 0):
+            want = blk.numpy().reshape(-1, n)
+        elif rung == "v2":               # each dy's 96 rows padded to 128
+            want = np.pad(blk.numpy(), ((0, 0), (0, 128 - blk.shape[1]),
+                                        (0, 0))).reshape(-1, n)
         else:
             rows = blk.numpy().reshape(9, LANES, n)
             if j == 0:                   # x's pad lanes are dropped: zero
@@ -505,12 +645,21 @@ def test_images_are_exact_permutations(weights, rung):
                                       np.sort(blk.numpy()[blk.numpy() != 0]))
 
 
+def test_v2_x_image_is_v3s(weights):
+    """Where v2's K is not padded (x: rows (dy, dx, cin) are v3's (tap,
+    cin)), its B image equals v3's element for element."""
+    ims = {r: lad.pack_tc_images(lad.PACKERS[r](*weights, torch.bfloat16), r)
+           for r in ("v2", "v3")}
+    assert torch.equal(ims["v2"][0], ims["v3"][0])
+
+
 def test_tc_route_by_rung_and_dtype(weights):
-    """Only bf16 v1 and v3 take the tensor-core route (and so want the
-    images on the card); on the CPU every rung runs its plain version."""
+    """bf16 v1, v2 and v3 take the tensor-core route (and so want the
+    images on the card), float32 does not; on the CPU every rung runs its
+    plain version."""
     packed = lad.PACKERS["v3"](*weights, torch.bfloat16)
     x = torch.empty(1, 4, 4, 64, dtype=torch.bfloat16)
     assert lad.rdb_v3(x.zero_(), packed).shape == x.shape    # CPU: plain
-    assert lad._on_tensor_cores("v3", torch.bfloat16)
-    assert not lad._on_tensor_cores("v2", torch.bfloat16)
-    assert not lad._on_tensor_cores("v1", torch.float32)
+    for rung in ("v1", "v2", "v3"):
+        assert lad._on_tensor_cores(rung, torch.bfloat16)
+        assert not lad._on_tensor_cores(rung, torch.float32)
