@@ -13,6 +13,12 @@ random weights from seed 0, each at the full width of its model:
 - the ``/api/wow`` path (``process_wow_sr`` and
   ``SREngine.enhance_serving_many``) on ``realesrgan_x4``, whose residual
   dense blocks run the ``rdb`` kernel (phases kernel, main, numbers);
+- the HTTP server (``s2sr_tpu_torch.server.app`` over a live socket): its
+  job routes ``/api/pipeline`` (offline synthetic scene → tiles → WOW SR
+  → SR tiles), ``/api/wow``, ``/api/enhance`` (two uploads coalesced) and
+  ``/api/sr`` (the farm chain; scale 2 fails as in the JAX server), each
+  polled to its end, then a download, a tile of each tree and the
+  read-only routes, on the same ``realesrgan_x4`` (phase server);
 - SwinIR serving on ``swinir_x4`` (``process_wow_sr`` on the exact path,
   the halo-tiled engine path, a 3×5 upload, exact 2048² and 2560² images
   with the strip tail held to the whole tail), whose Swin blocks run the
@@ -33,8 +39,11 @@ It checks the outputs, that every block of each path went through its
 kernel, the main path's contracts on the card (a float32 engine with
 PyTorch's default TF32 flags within 1e-4 of the CPU, ``enhance_serving``
 byte-equal to ``enhance``, the masked bucket bit-equal to the unpadded
-forward, the WOW chain byte-equal to the CPU's), and times the kernels
-and the SR stages. Nothing is caught: any
+forward, the WOW chain byte-equal to the CPU's; the server's
+``/api/wow`` GeoTIFF byte-equal to a direct ``process_wow_sr``, the farm
+chain byte-equal to the CPU's, a batch of tiles within the CPU tests'
+bounds of the CPU's), and times the kernels, the SR stages and the
+server's jobs. Nothing is caught: any
 failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernels'
 JSON record, and the one before that the card's name and power limit.
@@ -42,8 +51,8 @@ Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 
 ``--phases`` picks a subset (device, build, kernel, main, numbers,
-swin_kernel, swin_main, swin_large, swin_numbers, ladder, mxu) for a quick
-check; the default runs them all.
+server, swin_kernel, swin_main, swin_large, swin_numbers, ladder, mxu)
+for a quick check; the default runs them all.
 """
 
 from __future__ import annotations
@@ -57,8 +66,9 @@ import tempfile
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernel", "main", "numbers", "swin_kernel",
-          "swin_main", "swin_large", "swin_numbers", "ladder", "mxu")
+PHASES = ("device", "build", "kernel", "main", "numbers", "server",
+          "swin_kernel", "swin_main", "swin_large", "swin_numbers", "ladder",
+          "mxu")
 KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder", "rdb_ladder_tc",
                   "matmul_chain")
 
@@ -683,6 +693,353 @@ def phase_numbers(state):
     emit({"phase": "numbers", "seconds": round(time.perf_counter() - t0, 3)})
     state["rdb_numbers"] = {"ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# --- the HTTP server's job routes ------------------------------------------
+
+SERVER_AOI = {"type": "Feature", "geometry": {"type": "Polygon", "coordinates": [[
+    [35.0, 32.0], [35.02, 32.0], [35.02, 32.02], [35.0, 32.02], [35.0, 32.0]]]}}
+TILE_STATUSES = ("tiling", "tiling_original", "tiling_sr")
+
+
+class LiveServer:
+    """The port's app served by ``server/http.py::serve`` on 127.0.0.1 in
+    a thread of its own, stopped through serve()'s shutdown path."""
+
+    def __init__(self, app):
+        import socket
+
+        self.app = app
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self.port = s.getsockname()[1]
+        self.base = f"http://127.0.0.1:{self.port}"
+
+    def __enter__(self):
+        import asyncio
+        import threading
+
+        from s2sr_tpu_torch.server.http import serve
+
+        self.loop = asyncio.new_event_loop()
+        started = threading.Event()
+
+        async def main():
+            self.stop = asyncio.Event()
+            ready = asyncio.Event()
+            task = asyncio.ensure_future(serve(
+                self.app, host="127.0.0.1", port=self.port, stop=self.stop,
+                ready=ready))
+            await ready.wait()
+            started.set()
+            await task
+
+        self.thread = threading.Thread(
+            target=lambda: self.loop.run_until_complete(main()), daemon=True)
+        self.thread.start()
+        if not started.wait(30):
+            raise AssertionError("server did not start")
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.call_soon_threadsafe(self.stop.set)
+        self.thread.join(timeout=60)
+        self.loop.close()
+        if self.thread.is_alive():
+            raise AssertionError("server did not shut down")
+
+    def request(self, method, path, body=None, headers=None) -> bytes:
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=body,
+                                     headers=headers or {}, method=method)
+        with urllib.request.urlopen(req, timeout=120) as r:
+            if r.status != 200:
+                raise AssertionError(f"{method} {path}: HTTP {r.status}")
+            return r.read()
+
+    def json(self, method, path, body=None, headers=None):
+        if isinstance(body, dict):
+            body = json.dumps(body).encode()
+            headers = {"Content-Type": "application/json"}
+        return json.loads(self.request(method, path, body, headers))
+
+    def poll(self, path, timeout: float = 300.0) -> dict:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            job = self.json("GET", path)
+            if job["status"] in ("completed", "failed"):
+                return job
+            time.sleep(0.02)
+        raise AssertionError(f"{path} did not finish: {job}")
+
+
+def multipart_png(img, fields: dict, boundary: str) -> tuple:
+    from s2sr_tpu_torch.tiles.png import encode_png
+
+    body = b""
+    for name, value in fields.items():
+        body += (f"--{boundary}\r\nContent-Disposition: form-data; "
+                 f'name="{name}"\r\n\r\n{value}\r\n').encode()
+    body += (f"--{boundary}\r\nContent-Disposition: form-data; "
+             f'name="image"; filename="up.png"\r\n'
+             f"Content-Type: image/png\r\n\r\n").encode()
+    body += encode_png(img) + f"\r\n--{boundary}--\r\n".encode()
+    return body, {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+def tile_mtimes(data_dir: Path) -> dict:
+    return {p: p.stat().st_mtime_ns for tree in ("tiles", "tiles_wow", "tiles_sr")
+            for p in (data_dir / tree).glob("*/*/*.png")}
+
+
+def check_farm_chain() -> dict:
+    """The farm chain on the card against the CPU, byte for byte, on a
+    512×384 image (the WOW chain's check, with the farm's constants)."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.ops.enhance import enhance_farm
+
+    img = torch.from_numpy(synthetic_fields((512, 384), seed=11))
+    cpu = enhance_farm(img).numpy()
+    gpu = enhance_farm(img.cuda()).cpu().numpy()
+    touched = int(np.any(cpu != gpu, axis=-1).sum())
+    if gpu.shape != cpu.shape or touched:
+        raise AssertionError(f"farm chain on the card differs from the CPU "
+                             f"on {touched} pixels")
+    return {"image": [512, 384], "pixels_differing": touched,
+            "tol_pixels_differing": 0}
+
+
+def check_tile_batch(sr_tif: Path, zoom: int) -> dict:
+    """One base-zoom batch of tiles of ``sr_tif`` warped on the card and
+    on the CPU, bit for bit: every op of the warp rounds once, as IEEE
+    has it, on both devices (one kernel per op, the divisions by a 0-dim
+    tensor), so the floats and the RGBA bytes must be equal. (Against
+    jitted JAX, whose compiler contracts multiply-adds, the CPU tests
+    allow 0.01 and 5e-4 of the bytes.)"""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.geo import read_geotiff
+    from s2sr_tpu_torch.geo.warp import warp_bilinear_batch
+    from s2sr_tpu_torch.tiles import pyramid
+
+    raster = read_geotiff(sr_tif)
+    src = torch.from_numpy(pyramid._rgba_source(raster))
+    keys, ctrls = next(pyramid.base_zoom_batches(raster, zoom))
+    ctrls = torch.from_numpy(ctrls)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s, c = src.to(dev), ctrls.to(dev)
+        out[dev] = (warp_bilinear_batch(s, c, 256, 256)[0].cpu().numpy(),
+                    pyramid._warp_tiles_rgba_u8(s, c, 256, False).cpu().numpy())
+    ferr = float(np.abs(out["cuda"][0] - out["cpu"][0]).max())
+    a, b = out["cpu"][1].astype(np.int32), out["cuda"][1].astype(np.int32)
+    flips = (a[..., 3] == 0) != (b[..., 3] == 0)
+    diff = np.abs(a - b)
+    diff[flips] = 0
+    rec = {"tiles": len(keys), "zoom": zoom, "float_max_abs_diff": ferr,
+           "bytes_differing": int((diff > 0).sum()), "values": int(diff.size),
+           "max_byte_diff": int(diff.max()), "coverage_flips": int(flips.sum()),
+           "tol_differing": 0}
+    if ferr or diff.any() or flips.any():
+        raise AssertionError(f"tile batch on the card vs the CPU: {rec}")
+    return rec
+
+
+def phase_server(state):
+    """The port's HTTP server over a live socket at full width: the four
+    job routes, polled to their end, then downloads, tiles and the
+    read-only routes; the rdb launches they made, the /api/wow output
+    against a direct ``process_wow_sr`` call, the farm chain and a tile
+    batch against the CPU."""
+    import threading
+
+    import torch
+
+    from s2sr_tpu_torch.config import Settings
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields, synthetic_scene
+    from s2sr_tpu_torch.models.engine import loaded_engines
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.pipelines.wow_sr import process_wow_sr
+    from s2sr_tpu_torch.server.app import create_app
+    from s2sr_tpu_torch.tiles.png import decode_png
+    from s2sr_tpu_torch.utils import write_json
+
+    t0 = time.perf_counter()
+    card = state.get("card") or card_line()
+    root = state["work"] / "server"
+    data = root / "data"
+    write_json(SERVER_AOI, root / "aoi.geojson")
+    settings = Settings(data_dir=str(data), aoi_path=str(root / "aoi.geojson"),
+                        offline=True, weights_dir=str(state["work"] / "weights"),
+                        tile_min_zoom=12, tile_max_zoom=13)
+    app = create_app(settings, device="cuda")
+    changes: dict = {}                        # job id → [(status, t)]
+    update = app.jobs.update
+
+    def timed_update(job_id, **fields):
+        if "status" in fields:
+            changes.setdefault(job_id, []).append(
+                (fields["status"], time.perf_counter()))
+        return update(job_id, **fields)
+
+    app.jobs.update = timed_update
+    wow_scene = root / "scene_1024.tif"
+    synthetic_scene(wow_scene, size=(1024, 1024), seed=3)
+
+    def engine_chunks() -> int:
+        return sum(e.chunks_dispatched for e in loaded_engines())
+
+    total_launches = total_chunks = 0
+
+    def drive(route, post, status_path, expect="completed"):
+        """POST, poll to the end; the job's record, seconds, stages,
+        tiles written and rdb launches."""
+        nonlocal total_launches, total_chunks
+        before = tile_mtimes(data)
+        chunks0 = engine_chunks()
+        rdb_mod.LAUNCHES = 0
+        t1 = time.perf_counter()
+        ids = post()
+        recs = [srv.poll(status_path + i) for i in ids]
+        secs = time.perf_counter() - t1
+        launches, chunks = rdb_mod.LAUNCHES, engine_chunks() - chunks0
+        total_launches += launches
+        total_chunks += chunks
+        after = tile_mtimes(data)
+        written = sum(1 for p, m in after.items() if before.get(p) != m)
+        for rec in recs:
+            if rec["status"] != expect:
+                raise AssertionError(f"{route}: {rec['status']}: {rec['message']}")
+        steps = changes[ids[0]]
+        stages = {a[0]: round(b[1] - a[1], 4) for a, b in zip(steps, steps[1:])}
+        tiling = sum(v for k, v in stages.items() if k in TILE_STATUSES)
+        line = {"phase": "server", "route": route, "jobs": len(ids),
+                "status": recs[0]["status"], "seconds": round(secs, 4),
+                "stage_seconds": stages, "tiles_written": written,
+                "tiles_per_s": round(written / tiling, 1) if tiling else None,
+                "rdb_launches": launches, "chunks": chunks, "card": card}
+        result = recs[0].get("result") or {}
+        if "sr_metadata" in result:
+            line["sr_stage_seconds"] = {
+                st["name"]: st["seconds"]
+                for st in result["sr_metadata"]["timing"]["stages"]}
+        emit(line)
+        return recs
+
+    with LiveServer(app) as srv:
+        pipe = drive("/api/pipeline", lambda: [srv.json(
+            "POST", "/api/pipeline", {"min_zoom": 12, "max_zoom": 13})["job_id"]],
+            "/api/pipeline/")[0]
+        if [st["status"] for st in pipe["steps"]] != ["completed"] * 4:
+            raise AssertionError(f"pipeline steps: {pipe['steps']}")
+        source = pipe["input_file"]
+        wow = drive("/api/wow", lambda: [srv.json("POST", "/api/wow", {
+            "input_file": str(wow_scene)})["job_id"]], "/api/sr/")[0]
+
+        def post_enhance():
+            gate = threading.Event()          # hold the runner: coalesce
+            app.runner.submit("hold", lambda: gate.wait(120))
+            ids = []
+            for k, (shape, seed) in enumerate((((200, 152), 5), ((96, 128), 6))):
+                body, headers = multipart_png(synthetic_fields(shape, seed=seed),
+                                              {"model": "realesrgan_x4"}, f"b{k}")
+                ids.append(srv.json("POST", "/api/enhance", body, headers)["job_id"])
+            gate.set()
+            return ids
+
+        enh = drive("/api/enhance", post_enhance, "/api/sr/")
+        if [r.get("coalesced") for r in enh] != [2, 2]:
+            raise AssertionError(f"enhance jobs did not coalesce: {enh}")
+        drive("/api/sr", lambda: [srv.json("POST", "/api/sr", {
+            "input_file": source, "scale": 4})["job_id"]], "/api/sr/")
+        bad = drive("/api/sr x2", lambda: [srv.json("POST", "/api/sr", {
+            "input_file": source, "scale": 2})["job_id"]], "/api/sr/",
+            expect="failed")[0]
+        if not bad["message"].startswith("Unknown model: realesrgan_x2"):
+            raise AssertionError(f"/api/sr x2: {bad['message']}")
+
+        n_rdb = None
+        for e in loaded_engines():
+            if e.model_name == "realesrgan_x4" and e.device.type == "cuda":
+                if e.dtype != torch.bfloat16 or len(e.model.body) != 23:
+                    raise AssertionError("server must run full-width bf16 "
+                                         "realesrgan_x4")
+                n_rdb = 3 * len(e.model.body)
+        if n_rdb is None or total_chunks == 0 or \
+                total_launches != n_rdb * total_chunks:
+            raise AssertionError(f"server: {total_launches} rdb launches for "
+                                 f"{total_chunks} chunks (want {n_rdb} x chunks)")
+        state["main_launches"] = state.get("main_launches", 0) + total_launches
+
+        # downloads, tiles and the read-only routes
+        name = Path(wow["result"]["outputs"]["sr_png"]).name
+        wow_id = Path(wow["output_dir"]).name
+        png = decode_png(srv.request("GET", f"/api/sr/download/{wow_id}/{name}"))
+        if png.shape != (4096, 4096, 3):
+            raise AssertionError(f"downloaded SR PNG {png.shape}")
+        fetched = {}
+        for tree in ("tiles", "tiles_wow", "tiles_sr"):
+            one = next((data / tree).glob("*/*/*.png"))
+            tile = decode_png(srv.request("GET", f"/{tree}/" + "/".join(one.parts[-3:])))
+            if tile.shape != (256, 256, 4):
+                raise AssertionError(f"{tree} tile {tile.shape}")
+            fetched[tree] = "/".join(one.parts[-3:])
+        meta = srv.json("GET", "/api/metadata")
+        model = meta["models"]["realesrgan_x4"]
+        if not (meta["tilesAvailable"] and meta["wowTilesAvailable"]
+                and meta["srTilesAvailable"]) or "halo_margin_lsb" not in model:
+            raise AssertionError(f"/api/metadata: {meta}")
+        runtime = srv.json("GET", "/api/runtime")
+        kinds = [d.get("kind") for d in runtime["devices"]]
+        if torch.cuda.get_device_name(0) not in kinds or \
+                runtime["devices"][0]["platform"] != "gpu":
+            raise AssertionError(f"/api/runtime devices: {runtime['devices']}")
+        metrics = srv.request("GET", "/metrics").decode()
+        for want in ('s2sr_jobs{status="completed"} 5',
+                     's2sr_jobs{status="failed"} 1'):
+            if want not in metrics:
+                raise AssertionError(f"/metrics lacks {want!r}:\n{metrics}")
+        emit({"phase": "server", "download_png": list(png.shape),
+              "tiles_fetched": fetched, "metadata_model": model,
+              "runtime_devices": runtime["devices"],
+              "metrics_lines": len(metrics.splitlines())})
+
+        # the device's idle share of one warm /api/wow job
+        def wow_job():
+            job_id = srv.json("POST", "/api/wow", {
+                "input_file": str(wow_scene)})["job_id"]
+            rec = srv.poll(f"/api/sr/{job_id}")
+            if rec["status"] != "completed":
+                raise AssertionError(f"profiled /api/wow: {rec['message']}")
+
+        launches0 = rdb_mod.LAUNCHES
+        prof = device_breakdown(wow_job)
+        emit({"phase": "server", "card": card,
+              "profile": "one warm /api/wow job, 1024² scene, POST to completed",
+              "device_idle_share": 1.0 - prof["device_busy_share"], **prof})
+
+    # the /api/wow output against process_wow_sr on the same engine and scene
+    direct = process_wow_sr(wow_scene, root / "direct",
+                            weights_dir=settings.weights_dir, device="cuda")
+    job_tif = Path(wow["result"]["outputs"]["sr_tif"]).read_bytes()
+    same = Path(direct["outputs"]["sr_tif"]).read_bytes() == job_tif
+    rdb_mod.LAUNCHES = launches0
+    farm = check_farm_chain()
+    tiles = check_tile_batch(Path(wow["result"]["outputs"]["sr_tif"]),
+                             zoom=settings.tile_max_zoom + 2)
+    emit({"phase": "server", "check": "/api/wow GeoTIFF vs process_wow_sr",
+          "bytes": len(job_tif), "byte_equal": same})
+    emit({"phase": "server", "check": "farm chain on the card vs the CPU", **farm})
+    emit({"phase": "server", "check": "tile batch on the card vs the CPU", **tiles})
+    if not same:
+        raise AssertionError("/api/wow GeoTIFF differs from process_wow_sr")
+    emit({"phase": "server", "rdb_launches": total_launches,
+          "chunks": total_chunks, "seconds": round(time.perf_counter() - t0, 3)})
 
 
 # --- SwinIR: swin_block and window_attention ------------------------------

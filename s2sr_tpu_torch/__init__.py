@@ -8,17 +8,19 @@ tests hold it against.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU they raise instead of falling back.
 
-Layout (this slice: the ``/api/wow`` x4 SR path):
+Layout:
     config/     settings dataclass
-    utils/      logging, stage timing
-    geo/        affine, CRS math, GeoTIFF codec (numpy)
-    fetch/      seeded synthetic scenes
-    models/     registry, weights, RRDBNet, SREngine
-    ops/        fused RDB kernel wrapper + WOW colour/CLAHE/blur chain
+    utils/      logging, stage timing, files/JSON, request validation
+    geo/        affine, CRS math, GeoTIFF codec (numpy), device warp
+    fetch/      seeded synthetic scenes, offline scene selection
+    models/     registry, weights, RRDBNet, SwinIR, SREngine
+    ops/        kernel wrappers + WOW/farm colour/CLAHE/blur chains
     csrc/       hand-written CUDA C++ kernels (sm_90a)
     parallel/   halo tiling
-    tiles/      pure-Python PNG encoder
-    pipelines/  raster I/O, WOW SR pipeline
+    tiles/      PNG codec, mercator math, XYZ pyramid
+    pipelines/  raster I/O, WOW and farm SR pipelines
+    server/     HTTP framework, job store/runner/journal, the API app
+    bench/      RDB ladder, matrix-unit benchmark, cuBLAS peak
     cli/        command line entry points
 """
 

@@ -23,6 +23,9 @@ so there is no per-shape compile; the engine runs on ``cuda`` unless
 
 from __future__ import annotations
 
+import json
+import os
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -75,8 +78,16 @@ def probe_halo_margin(model: RRDBNet, scale: int, pad: int, device, *,
     return float((whole - tiled).abs().max().item() * 255.0)
 
 
-# margins memoized per (weight file, pad, dtype) within the process
+# Margins memoized per (weight file, pad, dtype): in the process, and in
+# a JSON sidecar (``$S2SR_TORCH_CACHE/halo_probe.json``, by default under
+# ``~/.cache/s2sr_tpu_torch``) so a later process skips the probe.
 _PROBE_MEMO: dict = {}
+
+
+def _probe_store_path() -> Path:
+    root = os.environ.get("S2SR_TORCH_CACHE",
+                          Path.home() / ".cache" / "s2sr_tpu_torch")
+    return Path(root) / "halo_probe.json"
 
 
 def weights_fingerprint(weights_dir, model_name: str) -> str | None:
@@ -95,9 +106,24 @@ def _memoized_probe(fingerprint, model, scale, dtype, pad, device) -> float:
     if fingerprint is None:
         return probe_halo_margin(model, scale, pad, device)
     key = f"{fingerprint}|pad={pad}|dtype={dtype}"
-    if key not in _PROBE_MEMO:
-        _PROBE_MEMO[key] = probe_halo_margin(model, scale, pad, device)
-    return _PROBE_MEMO[key]
+    if key in _PROBE_MEMO:
+        return _PROBE_MEMO[key]
+    store = _probe_store_path()
+    try:
+        disk = json.loads(store.read_text())
+    except (OSError, ValueError):
+        disk = {}
+    if key in disk:
+        _PROBE_MEMO[key] = float(disk[key])
+        return _PROBE_MEMO[key]
+    margin = _PROBE_MEMO[key] = probe_halo_margin(model, scale, pad, device)
+    disk[key] = margin
+    try:
+        store.parent.mkdir(parents=True, exist_ok=True)
+        store.write_text(json.dumps(disk))
+    except OSError as exc:      # the sidecar saves time, it is not needed
+        logger.warning("halo probe sidecar not written: %s", exc)
+    return margin
 
 
 class SREngine:
@@ -349,6 +375,16 @@ class SREngine:
 
 
 _ENGINE_CACHE: dict = {}
+# held while an engine is built, so two threads (the server's runner and
+# a direct caller) never build the same engine twice
+_ENGINE_LOCK = threading.Lock()
+
+
+def loaded_engines() -> list:
+    """Resident engines (``/api/metadata`` lists them: ``pretrained``
+    false means random init because the weights were absent). A snapshot
+    taken without the build lock, so a handler never waits for a build."""
+    return list(_ENGINE_CACHE.values())
 
 
 def get_engine(model_name: str = "realesrgan_x4", **kwargs) -> SREngine:
@@ -367,6 +403,7 @@ def get_engine(model_name: str = "realesrgan_x4", **kwargs) -> SREngine:
         kwargs.setdefault("exact_area", settings.sr_exact_area)
     kwargs["device"] = str(resolve_device(kwargs["device"]))
     key = (model_name, tuple(sorted(kwargs.items())))
-    if key not in _ENGINE_CACHE:
-        _ENGINE_CACHE[key] = SREngine(model_name, **kwargs)
-    return _ENGINE_CACHE[key]
+    with _ENGINE_LOCK:
+        if key not in _ENGINE_CACHE:
+            _ENGINE_CACHE[key] = SREngine(model_name, **kwargs)
+        return _ENGINE_CACHE[key]

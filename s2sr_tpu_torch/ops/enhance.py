@@ -1,8 +1,14 @@
-"""The WOW crop-enhancement chain, uint8 → uint8, in PyTorch (the port of
-``s2sr_tpu/ops/enhance.py::enhance_for_crops``): Lab CLAHE (clip 2.5,
-8×8) → unsharp (σ 1.2, 1.4/−0.4) → HSV green-mask (35 < H < 85)
-saturation ×1.2, with the reference's float → uint8 truncation of the
-boosted HSV array. It runs on the tensor's device.
+"""The crop-enhancement chains, uint8 → uint8, in PyTorch (the port of
+``s2sr_tpu/ops/enhance.py``). They run on the tensor's device.
+
+- WOW (``enhance_for_crops``): Lab CLAHE (clip 2.5, 8×8) → unsharp
+  (σ 1.2, 1.4/−0.4) → HSV green-mask (35 < H < 85) saturation ×1.2;
+- farm (``enhance_farm``): Lab CLAHE (clip 2.5, 8×8) → unsharp (σ 1.5,
+  2.2/−1.2) → green saturation ×1.3;
+- ``enhance_local_contrast``: CLAHE on L alone.
+
+Both boosts truncate the boosted float HSV array to uint8, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -37,3 +43,17 @@ def enhance_for_crops(img: torch.Tensor) -> torch.Tensor:
     sharpened = add_weighted_u8(
         enhanced, 1.4, gaussian_blur_u8(enhanced, 1.2), -0.4)
     return _vegetation_boost(sharpened, 1.2)
+
+
+def enhance_farm(img: torch.Tensor) -> torch.Tensor:
+    """The farm chain: uint8 (H, W, 3) → uint8 (H, W, 3)."""
+    enhanced = _clahe_on_l(img, 2.5, 8)
+    sharpened = add_weighted_u8(
+        enhanced, 1.0 + 1.2, gaussian_blur_u8(enhanced, 1.5), -1.2)
+    return _vegetation_boost(sharpened, 1.3)
+
+
+def enhance_local_contrast(img: torch.Tensor, clip_limit: float = 3.0,
+                           grid_size: int = 8) -> torch.Tensor:
+    """CLAHE on the Lab L channel alone: uint8 → uint8."""
+    return _clahe_on_l(img, clip_limit, grid_size)

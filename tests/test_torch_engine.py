@@ -160,17 +160,24 @@ def test_get_engine_caches(tiny):
 
 
 def test_settings_match_jax(tmp_path, monkeypatch):
+    from s2sr_tpu.config.settings import Settings as JaxSettings
     from s2sr_tpu.config.settings import load_settings as jax_load
     from s2sr_tpu_torch.config import Settings, load_settings
 
+    # every field of the JAX Settings, in its order, with its defaults
     names = [f for f in Settings.__dataclass_fields__]
-    assert names == ["sr_tile_size", "sr_tile_pad", "sr_batch_size",
-                     "sr_dtype", "sr_exact_area", "sr_pad_probe"]
+    assert names == list(JaxSettings.model_fields)
+    assert {n: getattr(Settings(), n) for n in names} == \
+        JaxSettings().model_dump()
+    assert Settings().max_upload_bytes == JaxSettings().max_upload_bytes
+    assert Settings().data_path == JaxSettings().data_path
     env = tmp_path / ".env"
     env.write_text("# knobs\nSR_TILE_SIZE=128\nsr_dtype='float32'\n"
-                   "SR_PAD_PROBE=false\nUNRELATED=1\n")
+                   "SR_PAD_PROBE=false\nUNRELATED=1\nMAX_CLOUD_PCT=12.5\n"
+                   "OFFLINE=off\nTILE_MAX_ZOOM=' 15 '\n")
     monkeypatch.setenv("SR_BATCH_SIZE", "8")
     monkeypatch.setenv("sr_tile_size", "192")      # environment beats .env
+    monkeypatch.setenv("DATA_DIR", str(tmp_path / "d"))
     for env_file in (None, env):
         want, got = jax_load(env_file), load_settings(env_file)
         assert {n: getattr(got, n) for n in names} == \

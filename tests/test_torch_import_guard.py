@@ -25,8 +25,15 @@ def test_modules_import_with_jax_blocked():
     assert {"s2sr_tpu_torch.ops.rdb", "s2sr_tpu_torch.ops.window_attention",
             "s2sr_tpu_torch.models.swinir", "s2sr_tpu_torch.ops.rdb_ladder",
             "s2sr_tpu_torch.bench.rdb_ladder", "s2sr_tpu_torch.ops.matmul_chain",
-            "s2sr_tpu_torch.bench.mxu", "s2sr_tpu_torch.bench.peak"
-            } <= set(mods) and len(mods) >= 32
+            "s2sr_tpu_torch.bench.mxu", "s2sr_tpu_torch.bench.peak",
+            "s2sr_tpu_torch.utils.files", "s2sr_tpu_torch.utils.validation",
+            "s2sr_tpu_torch.pipelines.farm_sr", "s2sr_tpu_torch.cli.farm_sr",
+            "s2sr_tpu_torch.fetch.smart_fetch", "s2sr_tpu_torch.geo.warp",
+            "s2sr_tpu_torch.tiles.mercator", "s2sr_tpu_torch.tiles.pyramid",
+            "s2sr_tpu_torch.tiles.tiling", "s2sr_tpu_torch.server.http",
+            "s2sr_tpu_torch.server.jobs", "s2sr_tpu_torch.server.persistence",
+            "s2sr_tpu_torch.server.app", "s2sr_tpu_torch.cli.serve",
+            } <= set(mods) and len(mods) >= 56
     code = "\n".join([
         "import sys",
         "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic'):",
@@ -49,6 +56,7 @@ def test_modules_import_with_jax_blocked():
         "'libmatmul_chain_')",
         "assert 'mxu' in chip_smoke.PHASES",
         "assert 'matmul_chain' in chip_smoke.KERNEL_SOURCES",
+        "assert 'server' in chip_smoke.PHASES",
         "print('ok')",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
