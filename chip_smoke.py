@@ -12,13 +12,16 @@ random weights from seed 0, each at the full width of its model:
 
 - the ``/api/wow`` path (``process_wow_sr`` and
   ``SREngine.enhance_serving_many``) on ``realesrgan_x4``, whose residual
-  dense blocks run the ``rdb`` kernel (phases kernel, main, numbers);
+  dense blocks run the ``rdb`` kernel, and at precision "int8" (the
+  int8-mixed trunk) the ``rdb_i8`` kernel (phases kernel, main, numbers);
 - the HTTP server (``s2sr_tpu_torch.server.app`` over a live socket): its
   job routes ``/api/pipeline`` (offline synthetic scene → tiles → WOW SR
   → SR tiles), ``/api/wow``, ``/api/enhance`` (two uploads coalesced) and
   ``/api/sr`` (the farm chain; scale 2 fails as in the JAX server), each
   polled to its end, then a download, a tile of each tree and the
-  read-only routes, on the same ``realesrgan_x4`` (phase server);
+  read-only routes, a ``"turbo"`` (int8) ``/api/wow`` job and a JPEG
+  ``/api/enhance`` upload, on the same ``realesrgan_x4``; the committed
+  upload fixtures decoded against PIL's SHA-256 (phase server);
 - SwinIR serving on ``swinir_x4`` (``process_wow_sr`` on the exact path,
   the halo-tiled engine path, a 3×5 upload, exact 2048² and 2560² images
   with the strip tail held to the whole tail), whose Swin blocks run the
@@ -39,11 +42,12 @@ It checks the outputs, that every block of each path went through its
 kernel, the main path's contracts on the card (a float32 engine with
 PyTorch's default TF32 flags within 1e-4 of the CPU, ``enhance_serving``
 byte-equal to ``enhance``, the masked bucket bit-equal to the unpadded
-forward, the WOW chain byte-equal to the CPU's; the server's
+forward, the WOW chain byte-equal to the CPU's; the int8 engine's bucket
+bit-equal too and its PSNR against bf16's above 35 dB; the server's
 ``/api/wow`` GeoTIFF byte-equal to a direct ``process_wow_sr``, the farm
-chain byte-equal to the CPU's, a batch of tiles within the CPU tests'
-bounds of the CPU's), and times the kernels, the SR stages and the
-server's jobs. Nothing is caught: any
+chain byte-equal to the CPU's, a batch of tiles, bilinear and lanczos,
+within the CPU tests' bounds of the CPU's), and times the kernels, the
+SR stages, the upload decodes and the server's jobs. Nothing is caught: any
 failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernels'
 JSON record, and the one before that the card's name and power limit.
@@ -200,7 +204,7 @@ def phase_build(state):
           "per_kernel_seconds": {n: b[0] for n, b in built.items()},
           "ptxas": ptxas})
     # the tensor-core kernels, one line each: registers and spills
-    for name, pattern in (("rdb", "rdb_tc_kernel"),
+    for name, pattern in (("rdb", "rdb_tc_kernel"), ("rdb", "rdb_i8_kernel"),
                           ("matmul_chain", "wg_chain_kernel"),
                           ("window_attention", "swin_tc_kernel"),
                           ("rdb_ladder_tc", "_tc_kernel")):
@@ -298,6 +302,121 @@ def hold_against_plain(phase, name, run, plain, cases, tiling):
     return worst_abs, worst_rel
 
 
+# the int8 RDB (precision "int8"): its shapes on the card, the main path's
+# chunk shape and a masked bucket; its bound counts the x conv's 12,288 of
+# the 26,624 multiply-adds a pixel at the int8 rate
+RDB_I8_CASES = (((16, 264, 264), None), ((1, 40, 72), (33, 61)))
+RDB_I8_REPLACES = "s2sr_tpu/models/rrdbnet_int8.py:155"
+PEAK_I8_OPS = 1979e12
+RDB_I8_X_MACS = 9 * 64 * 192
+
+
+def rdb_i8_bound_ms(shape, masked: bool) -> tuple:
+    """Least time for one int8-mixed RDB on the H100: its x conv's
+    operations at the int8 peak plus the rest at the bf16 peak, against
+    its bytes (x and out in bf16, the int8 x conv, the bf16 rest, 192
+    factors and biases, the mask)."""
+    bsz, h, w = shape
+    pixels = bsz * h * w
+    x_ops = 2 * RDB_I8_X_MACS * pixels
+    rest = RDB_FLOP_PER_PIXEL * pixels - x_ops
+    t_ops = (x_ops / PEAK_I8_OPS + rest / PEAK_BF16_FLOPS) * 1e3
+    nbytes = (2 * pixels * 64 * 2 + RDB_I8_X_MACS
+              + (RDB_WEIGHT_FLOATS - 192 - RDB_I8_X_MACS) * 2 + 2 * 192 * 4
+              + (pixels * 4 if masked else 0))
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def rdb_i8_params(x, w, b):
+    """One RDB's int8 x conv from its packed float weights, quantized as
+    ``rrdbnet_int8.quantize_body_mixed`` does, with the activation scale
+    max|x| / 127 that calibration on x would give: (wx8, deq, qm)."""
+    from s2sr_tpu_torch.models.rrdbnet_int8 import (_pack_rdb_kernels,
+                                                    _quantize_kernel)
+    from s2sr_tpu_torch.ops.rdb import unpack_rdb_weights
+
+    kernels, biases = unpack_rdb_weights(w, b)
+    p = {f"conv{k}": {"kernel": kernels[k - 1].permute(2, 3, 1, 0),
+                      "bias": biases[k - 1]} for k in range(1, 6)}
+    w8, sw = _quantize_kernel(_pack_rdb_kernels(p)[0])
+    s_act = x.float().abs().amax().clamp(min=1e-12) / 127.0
+    return w8, (sw * s_act).float(), float(1.0 / s_act)
+
+
+def hold_i8_against_plain(state) -> None:
+    """``rdb_i8`` (the int8 instance of the bf16 kernel) against
+    ``rdb_i8_reference`` on the card at :data:`RDB_I8_CASES`, within 0.05
+    of max |out − x| of the fp32 plain version (the bf16 ``rdb``'s bound),
+    with three planted faults further than that: stage 1's dequantization
+    factors zeroed, stage 5's zeroed, and qm doubled (x saturates). Then
+    its ms per launch at the chunk shape beside its bound, its plain
+    version's and the bf16 ``rdb``'s ms in the same run."""
+    import torch
+
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+
+    tol = 0.05
+    launches0 = rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES
+    failures, worst = [], (0.0, 0.0)
+    for shape, masked_hw in RDB_I8_CASES:
+        x, w, b, mask = rdb_inputs(shape, torch.bfloat16, masked_hw)
+        wx8, deq, qm = rdb_i8_params(x, w, b)
+        got = rdb_mod.rdb_i8(x, w, b, wx8, deq, qm, mask).float()
+        torch.cuda.synchronize()
+        change = (rdb_mod.rdb_i8_reference(x.float(), w, b, wx8, deq, qm, mask)
+                  - x.float()).abs().max().item()
+
+        def err_vs(deq_=deq, qm_=qm):
+            ref = rdb_mod.rdb_i8_reference(x, w, b, wx8, deq_, qm_, mask)
+            return (got - ref.float()).abs().max().item()
+
+        def zeroed(lo, hi):
+            d = deq.clone()
+            d[lo:hi] = 0
+            return d
+
+        err = err_vs()
+        faults = {"stage1_deq_zero": err_vs(deq_=zeroed(160, 192)) / change,
+                  "stage5_deq_zero": err_vs(deq_=zeroed(0, 64)) / change,
+                  "qm_doubled": err_vs(qm_=2 * qm) / change}
+        rel = err / change
+        finite = bool(torch.isfinite(got).all().item())
+        emit({"phase": "kernel", "kernel": "rdb_i8", "dtype": "bfloat16+int8",
+              "shape": list(shape), "masked": masked_hw is not None,
+              **rdb_mod.kernel_tiling_i8(), "qm": qm, "max_abs_err": err,
+              "max_change": change, "rel_err": rel, "tolerance": tol,
+              "rel_err_vs_planted_fault": faults, "finite": finite})
+        case = f"rdb_i8 {shape} masked={masked_hw}"
+        if not finite or not rel <= tol:
+            failures.append(f"{case}: rel err {rel} over {tol}")
+        if not min(faults.values()) > tol:
+            failures.append(f"{case}: a planted fault is within {tol}: {faults}")
+        worst = max(worst, (err, rel), key=lambda e: e[1])
+        if masked_hw is None:
+            ms = time_cuda(lambda: rdb_mod.rdb_i8(x, w, b, wx8, deq, qm),
+                           iters=10)
+            plain_ms = time_cuda(lambda: rdb_mod.rdb_i8_reference(
+                x, w, b, wx8, deq, qm), iters=10)
+            bf16_ms = time_cuda(lambda: rdb_mod.rdb(x, w, b), iters=10)
+            bound_ms, bound_by = rdb_i8_bound_ms(shape, masked=False)
+            state["rdb_i8_numbers"] = {"ms": ms, "plain_ms": plain_ms,
+                                       "bound_ms": bound_ms,
+                                       "bound_by": bound_by}
+            emit({"phase": "kernel", "card": state.get("card"),
+                  "kernel": "rdb_i8", "shape": list(shape), "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "rdb_bf16_ms_same_run": bf16_ms,
+                  "i8_over_bf16": ms / bf16_ms})
+        del x, w, b, mask, got, wx8, deq
+        torch.cuda.empty_cache()
+    rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES = launches0
+    if failures:
+        raise AssertionError("rdb_i8 kernel vs plain:\n" + "\n".join(failures))
+    state["rdb_i8_max_abs_err"], state["rdb_i8_rel_err"] = worst
+
+
 @ieee_phase
 def phase_kernel(state):
     import torch
@@ -317,12 +436,16 @@ def phase_kernel(state):
     tc = [c for k, c in sass.items() if "rdb_tc_kernel" in k]
     if len(tc) != 1 or tc[0]["HMMA"] == 0:
         raise AssertionError(f"rdb's bf16 kernel issues no HMMA: {sass}")
+    i8 = [c for k, c in sass.items() if "rdb_i8_kernel" in k]
+    if len(i8) != 1 or i8[0]["IMMA"] == 0 or i8[0]["HMMA"] == 0:
+        raise AssertionError(f"rdb's int8 kernel issues no IMMA or HMMA: {sass}")
     launches0 = rdb_mod.LAUNCHES
     state["rdb_max_abs_err"], state["rdb_rel_err"] = hold_against_plain(
         "kernel", "rdb", rdb_mod.rdb, rdb_mod.rdb_reference, cases,
         rdb_mod.kernel_tiling)
     # comparison launches are not main-path launches
     rdb_mod.LAUNCHES = launches0
+    hold_i8_against_plain(state)
     emit({"phase": "kernel", "seconds": round(time.perf_counter() - t0, 3)})
 
 
@@ -412,7 +535,223 @@ def phase_main(state):
     eng32 = check_against_plain(eng, work)
     check_byte_contracts(eng, eng32)
     check_wow_chain()
+    check_int8_engine(state, eng)
     emit({"phase": "main", "seconds": round(time.perf_counter() - t0, 3)})
+
+
+# the int8 engine's calibration held to the CPU's over its first blocks
+INT8_CALIB_BLOCKS = 2
+
+
+# the int8 trunk held card vs CPU: conv weights ×10 (plain Kaiming, as
+# tests/test_torch_int8.py::unscaled_tree), so that the trunk moves the
+# output; the image it runs on; the bound on max |card − CPU| over the
+# CPU output's largest magnitude
+INT8_TRUNK_WEIGHT_SCALE = 10.0
+INT8_TRUNK_IMAGE = (48, 40)
+INT8_TRUNK_TOL = 0.1
+
+
+def check_int8_trunk(state) -> None:
+    """A full-width int8 engine on converted weights (seed-0 init, conv
+    weights ×10: with the init's own 0.1 scale the trunk barely moves the
+    output, and a wrong trunk would not show) against the same quantized
+    model moved to the CPU, where every RDB runs ``rdb_i8_reference`` on
+    the card's ``wx8``, ``deq`` and ``qm``: the model's float output
+    within :data:`INT8_TRUNK_TOL` of the CPU output's largest magnitude.
+    Three planted faults in the per-block settings lie further than that:
+    each block given the next block's, rdb1's and rdb3's swapped, and
+    rdb2's ``deq`` zeroed."""
+    import copy
+
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models.engine import SREngine
+    from s2sr_tpu_torch.models.weights import init_state_dict
+
+    wdir = state["work"] / "weights_int8_trunk"
+    wdir.mkdir(exist_ok=True)
+    sd = {k: v * INT8_TRUNK_WEIGHT_SCALE if k.endswith(".weight") else v
+          for k, v in init_state_dict(seed=0).items()}
+    torch.save(sd, wdir / "realesrgan_x4.pth")
+    eng = SREngine("realesrgan_x4", weights_dir=str(wdir), dtype="int8",
+                   device="cuda")
+    if not eng.quantized or len(eng.model.body) != 23:
+        raise AssertionError("the int8 trunk check wants a full-width "
+                             "quantized realesrgan_x4")
+    x = torch.from_numpy(synthetic_fields(INT8_TRUNK_IMAGE, seed=14))
+    x = x.float()[None] / 255.0
+    card = eng.model(x.cuda()).float().cpu()
+    cpu = copy.deepcopy(eng.model).cpu()
+    want = cpu(x).float()
+    scale = want.abs().max().item()
+    rel = (card - want).abs().max().item() / scale
+    qb = {f"rdb{j}": {k: torch.stack([torch.as_tensor(getattr(
+        getattr(b, f"rdb{j}"), k)) for b in cpu.body])
+        for k in ("wx8", "deq", "qm")} for j in (1, 2, 3)}
+    zeroed = copy.deepcopy(qb)
+    zeroed["rdb2"]["deq"].zero_()
+    planted = {
+        "next_blocks_settings": {r: {k: v.roll(-1, 0) for k, v in d.items()}
+                                 for r, d in qb.items()},
+        "rdb1_rdb3_swapped": {"rdb1": qb["rdb3"], "rdb2": qb["rdb2"],
+                              "rdb3": qb["rdb1"]},
+        "rdb2_deq_zeroed": zeroed}
+    faults = {}
+    for name, bad in planted.items():
+        m = copy.deepcopy(cpu).quantize(bad)
+        faults[name] = (card - m(x).float()).abs().max().item() / scale
+    emit({"phase": "main", "check": "int8 trunk, card vs CPU",
+          "weights": f"seed-0 init, conv weights x{INT8_TRUNK_WEIGHT_SCALE}",
+          "image": list(INT8_TRUNK_IMAGE), "output_max_abs": scale,
+          "rel_err": rel, "tolerance": INT8_TRUNK_TOL,
+          "rel_err_vs_planted_fault": faults})
+    if not rel <= INT8_TRUNK_TOL:
+        raise AssertionError(f"int8 trunk: card vs CPU {rel} over "
+                             f"{INT8_TRUNK_TOL}")
+    if not min(faults.values()) > INT8_TRUNK_TOL:
+        raise AssertionError(f"int8 trunk: a planted fault is within "
+                             f"{INT8_TRUNK_TOL}: {faults}")
+    state["int8_trunk_rel_err"] = rel
+    del eng, cpu
+    torch.cuda.empty_cache()
+
+
+def check_int8_engine(state, eng) -> None:
+    """The int8-mixed trunk (precision "int8", the ``/api/wow`` field
+    "turbo") on the card: full-width ``realesrgan_x4`` from seed-0 random
+    init, every RDB in ``rdb_i8``.
+
+    - its calibration (one fp32 forward, TF32 off) against the CPU's on
+      the same input over the first blocks: the largest relative
+      difference of the activation scales;
+    - ``process_wow_sr`` on the 1024² scene at precision "int8": rdb_i8
+      launches = 69 × chunks and no bf16 rdb launch, metadata "int8";
+    - the 576×432 image's 576×448 bucket against the unpadded int8
+      forward: 0 differing values (model output, before uint8);
+    - :func:`check_int8_trunk`: the quantized trunk card vs CPU, on
+      weights that let it move the output;
+    - PSNR of its uint8 1024² output against the bf16 engine's, above
+      JAX's 35 dB bar (vacuous on random init, whose trunk barely moves
+      the output; reported as measured);
+    - warm 1024² SR seconds and MPix/s, int8 and bf16 in turns."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields, synthetic_scene
+    from s2sr_tpu_torch.models import engine as engine_mod
+    from s2sr_tpu_torch.models.rrdbnet import RRDBNet
+    from s2sr_tpu_torch.models.rrdbnet_int8 import calibrate_act_scales
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.parallel.tiling import bucket_pad
+    from s2sr_tpu_torch.pipelines.wow_sr import process_wow_sr
+
+    work = state["work"]
+    weights = str(work / "weights")
+    eng8 = engine_mod.get_engine("realesrgan_x4", weights_dir=weights,
+                                 dtype="int8", device="cuda")
+    if not (eng8.quantized and eng8.model.quantized
+            and len(eng8.model.body) == 23 and eng8.dtype == torch.bfloat16):
+        raise AssertionError("the int8 engine must be full-width "
+                             "realesrgan_x4 with its trunk quantized")
+    n_rdb = 3 * len(eng8.model.body)
+
+    # calibration on the card vs the CPU, the first blocks of the same net
+    calib = torch.from_numpy(synthetic_fields(size=(256, 256), seed=42))
+    calib = calib.float()[None].flip(-1) / 255.0
+    nb = min(INT8_CALIB_BLOCKS, len(eng8.model.body))
+    cut = RRDBNet(num_block=nb, dtype=torch.bfloat16)
+    sd = {k: v for k, v in eng8.model.state_dict().items()
+          if not k.startswith("body.") or int(k.split(".")[1]) < nb}
+    cut.load_state_dict(sd)
+    cpu_s = calibrate_act_scales(cut, calib)
+    card_s = calibrate_act_scales(cut.cuda(), calib.cuda()).cpu()
+    qm_card = np.array([[getattr(b, f"rdb{j}").qm for j in (1, 2, 3)]
+                        for b in eng8.model.body[:nb]])
+    calib_rel = float(((card_s - cpu_s).abs() / cpu_s).max())
+    engine_rel = float(np.abs(1.0 / (qm_card * card_s[:, :, 0].numpy()) - 1).max())
+    emit({"phase": "main", "check": "int8 calibration, card vs CPU",
+          "blocks": nb, "scales_max_rel_diff": calib_rel,
+          "engine_qm_vs_card_scale_max_rel_diff": engine_rel,
+          "tolerance": 1e-5})
+    if not calib_rel <= 1e-5:
+        raise AssertionError(f"int8 calibration: card vs CPU {calib_rel}")
+    del cut
+
+    # the /api/wow path at precision "int8"
+    tif = work / "tiled_1024.tif"
+    if not tif.exists():
+        synthetic_scene(tif, size=(1024, 1024), seed=3)
+    chunks0 = eng8.chunks_dispatched
+    rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    result = process_wow_sr(tif, work / "out_int8", weights_dir=weights,
+                            precision="int8", device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    launches, bf16_launches = rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES
+    chunks = eng8.chunks_dispatched - chunks0
+    meta = result["sr_metadata"]
+    stages = {st["name"]: st["seconds"] for st in meta["timing"]["stages"]}
+    emit({"phase": "main", "scene": "tiled_1024", "precision": "int8",
+          "chunks": chunks, "rdb_i8_launches": launches,
+          "rdb_launches": bf16_launches, "seconds": round(secs, 3),
+          "sr_stage_seconds": stages["Real-ESRGAN x4 (GAN upscaling)"],
+          "metadata_precision": meta["precision"]})
+    if (launches != n_rdb * chunks or chunks == 0 or bf16_launches
+            or meta["precision"] != "int8"):
+        raise AssertionError(f"int8 /api/wow path: {launches} rdb_i8 and "
+                             f"{bf16_launches} rdb launches for {chunks} "
+                             f"chunks, precision {meta['precision']}")
+    state["main_launches_i8"] = state.get("main_launches_i8", 0) + launches
+
+    launches0 = rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_I8
+    # the bucket contract
+    h, w = CONTRACT_BUCKET
+    up = synthetic_fields((h, w), seed=14)
+    padded, mask = bucket_pad(up)
+    x = eng8._to_float(torch.from_numpy(up).cuda())[None]
+    xp = eng8._to_float(torch.from_numpy(padded).cuda())[None]
+    mk = torch.from_numpy(mask).cuda()[None]
+    exact = eng8._fwd(x)
+    bucket = eng8._fwd(xp * mk, mk)[:, :4 * h, :4 * w]
+    torch.cuda.synchronize()
+    b_diff = int((exact != bucket).sum().item())
+    emit({"phase": "main", "check": "byte contracts", "dtype": "int8",
+          "bucket": list(padded.shape[:2]), "image": [h, w],
+          "bucket_vs_unpadded_values_differing": b_diff,
+          "bucket_max_abs_diff": (exact - bucket).abs().max().item()})
+    if b_diff:
+        raise AssertionError(f"int8 bucket differs from the unpadded "
+                             f"forward on {b_diff} values")
+    del exact, bucket, x, xp
+    check_int8_trunk(state)
+
+    # quality against bf16, and the warm rate in turns
+    img = synthetic_fields((1024, 1024), seed=3)
+    out8, out16 = eng8.enhance_serving(img), eng.enhance_serving(img)
+    mse = np.mean((out8.astype(np.float64) - out16) ** 2) / 255.0 ** 2
+    psnr = 99.0 if mse == 0 else float(10 * np.log10(1.0 / mse))
+    reps = {"bfloat16": [], "int8": []}
+    for e, name in ((eng, "bfloat16"), (eng8, "int8"), (eng8, "int8"),
+                    (eng, "bfloat16")):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        e.enhance_serving(img)
+        torch.cuda.synchronize()
+        reps[name].append(time.perf_counter() - t1)
+    rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_I8 = launches0
+    rate = {k: 1024 * 1024 / min(v) / 1e6 for k, v in reps.items()}
+    emit({"phase": "main", "check": "int8 vs bf16, 1024² scene",
+          "card": state.get("card"), "psnr_db": psnr, "tolerance_db": 35.0,
+          "pixels_differing": int(np.any(out8 != out16, axis=-1).sum()),
+          "sr_1024_seconds": reps, "sr_1024_mpix_per_s": rate,
+          "int8_over_bf16_rate": rate["int8"] / rate["bfloat16"]})
+    if not psnr > 35.0:
+        raise AssertionError(f"int8 vs bf16 PSNR {psnr} dB")
+    state["int8_numbers"] = {"psnr_db": psnr, "mpix_per_s": rate}
 
 
 def wow_op_checks() -> dict:
@@ -774,18 +1113,94 @@ class LiveServer:
         raise AssertionError(f"{path} did not finish: {job}")
 
 
-def multipart_png(img, fields: dict, boundary: str) -> tuple:
-    from s2sr_tpu_torch.tiles.png import encode_png
-
+def multipart_image(data: bytes, fields: dict, boundary: str,
+                    filename: str = "up.png",
+                    ctype: str = "image/png") -> tuple:
     body = b""
     for name, value in fields.items():
         body += (f"--{boundary}\r\nContent-Disposition: form-data; "
                  f'name="{name}"\r\n\r\n{value}\r\n').encode()
     body += (f"--{boundary}\r\nContent-Disposition: form-data; "
-             f'name="image"; filename="up.png"\r\n'
-             f"Content-Type: image/png\r\n\r\n").encode()
-    body += encode_png(img) + f"\r\n--{boundary}--\r\n".encode()
+             f'name="image"; filename="{filename}"\r\n'
+             f"Content-Type: {ctype}\r\n\r\n").encode()
+    body += data + f"\r\n--{boundary}--\r\n".encode()
     return body, {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+def multipart_png(img, fields: dict, boundary: str) -> tuple:
+    from s2sr_tpu_torch.tiles.png import encode_png
+
+    return multipart_image(encode_png(img), fields, boundary)
+
+
+# upload fixtures with the SHA-256 of PIL's RGB decode of each
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures_torch"
+# the lanczos warp against the CPU: the CPU tests' bounds against JAX
+LANCZOS_FLOAT_TOL = 0.01
+LANCZOS_BYTE_SHARE = 5e-4
+LANCZOS_TILES = 8
+
+
+def check_fixture_decodes(card) -> None:
+    """Each committed upload fixture decoded by the port on this machine
+    (no PIL here) to bytes whose SHA-256 is the one PIL gave when it was
+    committed; the seconds each decode took on this host."""
+    import hashlib
+
+    from s2sr_tpu_torch.pipelines.io import decode_upload
+
+    manifest = json.loads((FIXTURES / "fixtures.json").read_text())
+    failures = []
+    for name, rec in manifest.items():
+        data = (FIXTURES / name).read_bytes()
+        t1 = time.perf_counter()
+        rgb = decode_upload(data, name)
+        secs = time.perf_counter() - t1
+        sha = hashlib.sha256(rgb.tobytes()).hexdigest()
+        same = sha == rec["sha256"] and list(rgb.shape) == rec["shape"]
+        emit({"phase": "server", "check": "upload decode vs PIL's SHA-256",
+              "fixture": name, "bytes": len(data), "shape": list(rgb.shape),
+              "decode_seconds": secs, "sha256_equal": same, "card": card})
+        if not same:
+            failures.append(name)
+    if failures:
+        raise AssertionError(f"decodes differ from PIL's: {failures}")
+
+
+def check_lanczos_batch(sr_tif: Path, zoom: int) -> dict:
+    """The lanczos warp of a few base-zoom tiles of ``sr_tif`` on the card
+    against the CPU: floats within 0.01 of 255, RGBA bytes equal on at
+    least 99.95% of the values and within 1 elsewhere (the CPU tests'
+    bounds against jitted JAX; lanczos's sin and cos may round otherwise
+    on the card)."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.geo import read_geotiff
+    from s2sr_tpu_torch.geo.warp import warp_lanczos_batch
+    from s2sr_tpu_torch.tiles import pyramid
+
+    raster = read_geotiff(sr_tif)
+    src = torch.from_numpy(pyramid._rgba_source(raster))
+    keys, ctrls = next(pyramid.base_zoom_batches(raster, zoom))
+    ctrls = torch.from_numpy(ctrls[:LANCZOS_TILES])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s_, c = src.to(dev), ctrls.to(dev)
+        out[dev] = (warp_lanczos_batch(s_, c, 256, 256)[0].cpu().numpy(),
+                    pyramid._warp_tiles_rgba_u8(s_, c, 256, True).cpu().numpy())
+    ferr = float(np.abs(out["cuda"][0] - out["cpu"][0]).max())
+    a, b = out["cpu"][1].astype(np.int32), out["cuda"][1].astype(np.int32)
+    diff = np.abs(a - b)
+    rec = {"tiles": int(ctrls.shape[0]), "zoom": zoom,
+           "float_max_abs_diff": ferr, "tol_float": LANCZOS_FLOAT_TOL,
+           "bytes_differing": int((diff > 0).sum()), "values": int(diff.size),
+           "max_byte_diff": int(diff.max()),
+           "tol_share_differing": LANCZOS_BYTE_SHARE}
+    if (not ferr <= LANCZOS_FLOAT_TOL or diff.max() > 1
+            or (diff > 0).mean() > LANCZOS_BYTE_SHARE):
+        raise AssertionError(f"lanczos batch on the card vs the CPU: {rec}")
+    return rec
 
 
 def tile_mtimes(data_dir: Path) -> dict:
@@ -895,6 +1310,7 @@ def phase_server(state):
         return sum(e.chunks_dispatched for e in loaded_engines())
 
     total_launches = total_chunks = 0
+    last: dict = {}
 
     def drive(route, post, status_path, expect="completed"):
         """POST, poll to the end; the job's record, seconds, stages,
@@ -902,13 +1318,15 @@ def phase_server(state):
         nonlocal total_launches, total_chunks
         before = tile_mtimes(data)
         chunks0 = engine_chunks()
-        rdb_mod.LAUNCHES = 0
+        rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = 0
         t1 = time.perf_counter()
         ids = post()
         recs = [srv.poll(status_path + i) for i in ids]
         secs = time.perf_counter() - t1
         launches, chunks = rdb_mod.LAUNCHES, engine_chunks() - chunks0
-        total_launches += launches
+        last.update(launches=launches, launches_i8=rdb_mod.LAUNCHES_I8,
+                    chunks=chunks)
+        total_launches += launches + rdb_mod.LAUNCHES_I8
         total_chunks += chunks
         after = tile_mtimes(data)
         written = sum(1 for p, m in after.items() if before.get(p) != m)
@@ -922,7 +1340,8 @@ def phase_server(state):
                 "status": recs[0]["status"], "seconds": round(secs, 4),
                 "stage_seconds": stages, "tiles_written": written,
                 "tiles_per_s": round(written / tiling, 1) if tiling else None,
-                "rdb_launches": launches, "chunks": chunks, "card": card}
+                "rdb_launches": launches, "rdb_i8_launches": last["launches_i8"],
+                "chunks": chunks, "card": card}
         result = recs[0].get("result") or {}
         if "sr_metadata" in result:
             line["sr_stage_seconds"] = {
@@ -1009,6 +1428,36 @@ def phase_server(state):
               "runtime_devices": runtime["devices"],
               "metrics_lines": len(metrics.splitlines())})
 
+        # precision "turbo": the int8-mixed trunk, every RDB in rdb_i8
+        turbo = drive("/api/wow turbo", lambda: [srv.json("POST", "/api/wow", {
+            "input_file": str(wow_scene), "precision": "turbo"})["job_id"]],
+            "/api/sr/")[0]
+        md = turbo["result"]["sr_metadata"]
+        if (turbo["precision"] != "int8" or md["precision"] != "int8"
+                or last["launches"] or not last["chunks"]
+                or last["launches_i8"] != n_rdb * last["chunks"]):
+            raise AssertionError(f"/api/wow turbo: precision {md['precision']}, "
+                                 f"{last} (want {n_rdb} rdb_i8 x chunks)")
+        state["main_launches_i8"] = (state.get("main_launches_i8", 0)
+                                     + last["launches_i8"])
+        models = srv.json("GET", "/api/metadata")["models"]
+        if models.get("realesrgan_x4:int8", {}).get("precision") != "int8":
+            raise AssertionError(f"/api/metadata lists no int8 engine: {models}")
+
+        # a JPEG upload (the committed 1024×768 fixture), decoded by the port
+        jpg = (FIXTURES / "upload_1024x768.jpg").read_bytes()
+        up = drive("/api/enhance jpeg", lambda: [srv.json(
+            "POST", "/api/enhance", *multipart_image(
+                jpg, {"model": "realesrgan_x4"}, "bj", "up.jpg",
+                "image/jpeg"))["job_id"]], "/api/sr/")[0]
+        md = up["result"]["sr_metadata"]
+        if (md["original_size"] != [768, 1024]
+                or md["output_size"] != [3072, 4096]
+                or last["launches"] != n_rdb * last["chunks"]):
+            raise AssertionError(f"/api/enhance jpeg: {md['original_size']} → "
+                                 f"{md['output_size']}, {last}")
+        state["main_launches"] += last["launches"]
+
         # the device's idle share of one warm /api/wow job
         def wow_job():
             job_id = srv.json("POST", "/api/wow", {
@@ -1036,6 +1485,11 @@ def phase_server(state):
           "bytes": len(job_tif), "byte_equal": same})
     emit({"phase": "server", "check": "farm chain on the card vs the CPU", **farm})
     emit({"phase": "server", "check": "tile batch on the card vs the CPU", **tiles})
+    lanczos = check_lanczos_batch(Path(wow["result"]["outputs"]["sr_tif"]),
+                                  zoom=settings.tile_max_zoom + 2)
+    emit({"phase": "server", "check": "lanczos batch on the card vs the CPU",
+          **lanczos})
+    check_fixture_decodes(card)
     if not same:
         raise AssertionError("/api/wow GeoTIFF differs from process_wow_sr")
     emit({"phase": "server", "rdb_launches": total_launches,
@@ -2013,7 +2467,8 @@ def mxu_faults(ws) -> dict:
 
 def sass_counts(lib) -> dict:
     """Per kernel of the built library, the SASS instructions that show
-    the tensor cores at work (HMMA for mma.sync, HGMMA for wgmma), the A
+    the tensor cores at work (HMMA for mma.sync, HGMMA for wgmma, IMMA for
+    the int8 mma.sync), the A
     loads (LDSM) and the shared stores (STS), as ``cuobjdump -sass``
     lists them."""
     import re
@@ -2027,7 +2482,8 @@ def sass_counts(lib) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"HMMA": 0, "HGMMA": 0, "LDSM": 0, "STS": 0}
+            counts[name] = {"HMMA": 0, "HGMMA": 0, "IMMA": 0, "LDSM": 0,
+                            "STS": 0}
         elif name:
             for op in counts[name]:
                 if re.search(rf"\b{op}\b", line):
@@ -2138,8 +2594,9 @@ def phase_mxu(state):
 
 def kernels_record(state) -> list | None:
     """The kernels' JSON record, or None if a phase it needs did not run."""
-    if not {"rdb_numbers", "main_launches", "swin_numbers",
-            "swin_launches", "swin_err", "ladder", "mxu"} <= state.keys():
+    if not {"rdb_numbers", "main_launches", "rdb_i8_numbers",
+            "main_launches_i8", "swin_numbers", "swin_launches", "swin_err",
+            "ladder", "mxu"} <= state.keys():
         return None
     from s2sr_tpu_torch.ops.rdb_ladder import TC_RUNGS
 
@@ -2149,7 +2606,15 @@ def kernels_record(state) -> list | None:
              "launches": state["main_launches"],
              "max_abs_err": state["rdb_max_abs_err"],
              "rel_err": state["rdb_rel_err"],
-             **state["rdb_numbers"], "library_ms": None}]
+             **state["rdb_numbers"], "library_ms": None},
+            # no TPU kernel: JAX runs this conv as XLA's int8 convolution
+            {"name": "rdb_i8", "route": "cuda",
+             "source": "s2sr_tpu_torch/csrc/rdb.cu",
+             "replaces": RDB_I8_REPLACES,
+             "launches": state["main_launches_i8"],
+             "max_abs_err": state["rdb_i8_max_abs_err"],
+             "rel_err": state["rdb_i8_rel_err"],
+             **state["rdb_i8_numbers"], "library_ms": None}]
     for name in ("swin_block", "window_attention"):
         err, rel = state["swin_err"][name]
         rows.append({"name": name, "route": "cuda",

@@ -66,7 +66,7 @@ class Settings:
     sr_exact_area: int = 0
     # per-checkpoint halo-exactness probe at engine build
     sr_pad_probe: bool = True
-    mesh_shape: str = ""         # multi-device layout (not ported yet)
+    mesh_shape: str = ""         # one device only: "dp=1"; more raise
     offline: bool = True         # no network fetches
     weights_dir: str = "models"  # converted-weight cache directory
 

@@ -35,6 +35,15 @@
 //   implicit GEMM on the tensor cores (mma.sync.m16n8k16, float32
 //   accumulators), 16x16 tiles, the sources pixel-major with a swizzle
 //   (200,704 B shared).
+// - bfloat16 with an int8 x stage (precision "int8", the int8-mixed trunk of
+//   s2sr_tpu/models/rrdbnet_int8.py::_rdb_packed_mixed), rdb_i8_kernel: the
+//   same kernel, but x is quantized to int8 as it is loaded (round half to
+//   even of x * qm, clamped to +-127; 43,264 B instead of 86,528) and the
+//   9 * 64 rows of x in every stage run on mma.sync.m16n8k32 s8 x s8 into
+//   int32, dequantized per output channel into the float32 accumulators
+//   before x1..x4 add their bf16 products (157,440 B shared). The JAX
+//   package computes this conv with XLA's int8 convolution; it has no TPU
+//   kernel of its own.
 // - float32, rdb_kernel: float32 FMA on the CUDA cores (the tensor cores
 //   would make it TF32), 8x8 tiles (172,032 B shared), the sources planar
 //   [channel][y][x] so that the 32 lanes of a warp read 32 neighbouring
@@ -306,10 +315,11 @@ constexpr int TC_WARPS = 8;
 
 __host__ __device__ constexpr int tc_side(int j) { return TC_TILE + 2 * (HALO - j); }
 // byte offset of source buffer j (0 = x, 1..4 = x1..x4), each a multiple of
-// 128 bytes
-__host__ __device__ constexpr int tc_off(int j) {
+// 128 bytes; with i8, x is stored as int8 (one byte a value)
+__host__ __device__ constexpr int tc_off(int j, bool i8 = false) {
   int off = 0;
-  for (int k = 0; k < j; ++k) off += tc_side(k) * tc_side(k) * src_chans(k) * 2;
+  for (int k = 0; k < j; ++k)
+    off += tc_side(k) * tc_side(k) * src_chans(k) * (i8 && k == 0 ? 1 : 2);
   return off;
 }
 // M tiles of stage s's region, and the most a warp takes
@@ -324,6 +334,19 @@ __host__ __device__ constexpr int tc_woff(int s) {
   int off = 0;
   for (int k = 1; k < s; ++k) off += 9 * stage_cin(k) / 16 * stage_cout(k) / 16 * 32;
   return off;
+}
+
+// uint4s (per lane, 32 lanes) of the packed int8 x fragments before stage s:
+// 18 k32 slabs of Cout / 16 blocks each
+__host__ __device__ constexpr int i8_woff(int s) {
+  int off = 0;
+  for (int k = 1; k < s; ++k) off += 9 * NF / 32 * stage_cout(k) / 16 * 32;
+  return off;
+}
+// column of stage s's output channel 0 in the packed 64 -> 192 x conv,
+// whose columns are [a5 | a4 | a3 | a2 | a1] (rrdbnet.py::packed_prefix_kernels)
+__host__ __device__ constexpr int i8_col(int s) {
+  return s == 5 ? 0 : NF + (4 - s) * G;
 }
 
 __device__ __forceinline__ uint32_t swz(uint32_t q) { return q ^ ((q >> 3) & 7); }
@@ -342,11 +365,39 @@ __device__ __forceinline__ void tc_mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One conv stage S (1..5) on the tensor cores.
-template <int S>
+__device__ __forceinline__ void i8_mma(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// round(v * qm) clamped to +-127 as int8 in the low byte: jnp.round is
+// round half to even, as rintf
+__device__ __forceinline__ uint32_t quant1(float v, float qm) {
+  const float q = fminf(fmaxf(rintf(__fmul_rn(v, qm)), -127.f), 127.f);
+  return (uint32_t)(int)q & 0xffu;
+}
+
+// four bf16 values (two words, lower channel in the low half) -> four int8
+__device__ __forceinline__ uint32_t quant4(uint32_t lo, uint32_t hi, float qm) {
+  return quant1(__uint_as_float(lo << 16), qm)
+         | quant1(__uint_as_float(lo & 0xffff0000u), qm) << 8
+         | quant1(__uint_as_float(hi << 16), qm) << 16
+         | quant1(__uint_as_float(hi & 0xffff0000u), qm) << 24;
+}
+
+// One conv stage S (1..5) on the tensor cores. With I8, x's rows come from
+// the int8 copy of x (s8 B fragments wq, dequantized by deq) and the
+// residual reads x from device memory.
+template <int S, bool I8>
 __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict__ wf,
+                                         const uint4* __restrict__ wq,
+                                         const float* __restrict__ deq,
                                          const float* __restrict__ bias,
                                          const float* __restrict__ mask,
+                                         const __nv_bfloat16* __restrict__ x,
                                          __nv_bfloat16* __restrict__ out,
                                          int b, int H, int W, int oy0, int ox0) {
   constexpr int RS = tc_side(S);          // region side of this stage
@@ -369,24 +420,85 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
     px[m] = p % RS;
   }
   float acc[MT][2 * NB][4];
+  // the bf16 fragments of x's rows (the first 9 * 64 / 16 slabs) are not
+  // read by the int8 instance
+  int slab = I8 ? 9 * NF / 16 : 0;
+  if constexpr (I8) {
+    // x's rows: k32 slabs of (tap, 32 channels) of the int8 copy of x (4
+    // chunks a pixel), int32 accumulators
+    int iacc[MT][2 * NB][4];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int n = 0; n < 2 * NB; ++n)
+      for (int n = 0; n < 2 * NB; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) iacc[m][n][e] = 0;
+    const uint4* qs = wq + i8_woff(S) + lane;
+    constexpr int NQ = 9 * NF / 32;
+    uint4 qcur[NB], qnext[NB];
+#pragma unroll
+    for (int n = 0; n < NB; ++n) qcur[n] = __ldg(qs + n * 32);
+    const int r0 = tc_side(0);
+    int sp0[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) sp0[m] = (py[m] + S - 1) * r0 + px[m] + S - 1;
+    int qsl = 0;
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int toff = (tap / 3) * r0 + tap % 3;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int nxt = qsl + 1 < NQ ? qsl + 1 : qsl;
+#pragma unroll
+        for (int n = 0; n < NB; ++n) qnext[n] = __ldg(qs + (nxt * NB + n) * 32);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (warp + TC_WARPS * m >= NT) break;
+          const uint32_t q = (uint32_t)(sp0[m] + toff) * 4 + 2 * c + (lane >> 4);
+          uint32_t a[4];
+          tc_ldmatrix(a, sbase + swz(q) * 16);
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {
+            i8_mma(iacc[m][2 * n], a, qcur[n].x, qcur[n].y);
+            i8_mma(iacc[m][2 * n + 1], a, qcur[n].z, qcur[n].w);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NB; ++n) qcur[n] = qnext[n];
+        ++qsl;
+      }
+    }
+    // dequantize: accumulator (m, n8 tile k, e) is channel 8k + 2t + e % 2;
+    // |sum| <= 127 * 127 * 576 < 2^24, so the conversion is exact
+#pragma unroll
+    for (int k = 0; k < 2 * NB; ++k) {
+      const float d0 = __ldg(deq + i8_col(S) + 8 * k + 2 * t);
+      const float d1 = __ldg(deq + i8_col(S) + 8 * k + 2 * t + 1);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[m][k][e] = __fmul_rn(__int2float_rn(iacc[m][k][e]), (e & 1) ? d1 : d0);
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < 2 * NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+  }
 
   uint4 bcur[NB], bnext[NB];
 #pragma unroll
-  for (int n = 0; n < NB; ++n) bcur[n] = __ldg(ws + n * 32);
-  int slab = 0;
+  for (int n = 0; n < NB; ++n) bcur[n] = __ldg(ws + (slab * NB + n) * 32);
   constexpr int NSLAB = 9 * stage_cin(S) / 16;
 #pragma unroll
-  for (int j = 0; j < S; ++j) {
+  for (int j = I8 ? 1 : 0; j < S; ++j) {
     const int rj = tc_side(j);
     const int cq = src_chans(j) / 8;      // 16-byte chunks a pixel
     const int d = S - 1 - j;              // the region's offset in source j
-    const uint32_t base = sbase + tc_off(j);
+    const uint32_t base = sbase + tc_off(j, I8);
     int sp0[MT];
 #pragma unroll
     for (int m = 0; m < MT; ++m) sp0[m] = (py[m] + d) * rj + px[m] + d;
@@ -436,7 +548,7 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
         const float mk = !inside ? 0.f
                          : (mask ? mask[img_off + (size_t)gy * W + gx] : 1.f);
         // x_S at its own region's pixel p: 4 chunks a pixel
-        const uint32_t dst = sbase + tc_off(S);
+        const uint32_t dst = sbase + tc_off(S, I8);
 #pragma unroll
         for (int k = 0; k < 2 * NB; ++k) {
           const int co = 8 * k + 2 * t;
@@ -455,15 +567,21 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
         if (gy >= H || gx >= W) continue;
         const size_t pix = img_off + (size_t)gy * W + gx;
         const float mk = mask ? mask[pix] : 1.f;
-        // x at the same pixel: region 0 has a 5-pixel halo, 8 chunks a pixel
+        // x at the same pixel: region 0 has a 5-pixel halo, 8 chunks a
+        // pixel; the int8 instance keeps only x's int8 copy, so it reads the
+        // residual from device memory
         const int xp = (ry + HALO) * tc_side(0) + rx + HALO;
 #pragma unroll
         for (int k = 0; k < 2 * NB; ++k) {
           const int co = 8 * k + 2 * t;
-          const uint32_t q = (uint32_t)xp * 8 + k;
           uint32_t xin;
-          asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(xin)
-                       : "r"(sbase + swz(q) * 16 + 4 * t) : "memory");
+          if constexpr (I8) {
+            xin = __ldg(reinterpret_cast<const unsigned int*>(x + pix * NF + co));
+          } else {
+            const uint32_t q = (uint32_t)xp * 8 + k;
+            asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(xin)
+                         : "r"(sbase + swz(q) * 16 + 4 * t) : "memory");
+          }
           const float2 xf = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(&xin));
           const float v0 = (acc[m][k][2 * h] + __ldg(bias + 4 * G + co)) * 0.2f + xf.x;
@@ -502,18 +620,64 @@ rdb_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mas
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
   __syncthreads();
-  tc_stage<1>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
+  tc_stage<1, false>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0);
   __syncthreads();
-  tc_stage<2>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
+  tc_stage<2, false>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0);
   __syncthreads();
-  tc_stage<3>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
+  tc_stage<3, false>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0);
   __syncthreads();
-  tc_stage<4>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
+  tc_stage<4, false>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0);
   __syncthreads();
-  tc_stage<5>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
+  tc_stage<5, false>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0);
 }
 
-constexpr size_t tc_smem_bytes() { return (size_t)tc_off(5); }
+// The int8 x stage: wq holds the packed 64 -> 192 x conv as int8 B fragments
+// of m16n8k32 (ops/rdb.py::pack_rdb_i8_fragments), deq its 192 dequantization
+// factors in packed column order, qm x's quantization multiplier.
+__global__ void __launch_bounds__(TC_WARPS * 32, 1)
+rdb_i8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
+              __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wf,
+              const uint4* __restrict__ wq, const float* __restrict__ deq,
+              const float* __restrict__ bias, float qm, int H, int W) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const int b = blockIdx.z;
+  const int oy0 = blockIdx.y * TC_TILE, ox0 = blockIdx.x * TC_TILE;
+  const size_t img_off = (size_t)b * H * W;
+  {
+    // input tile + 5-px halo quantized on the way in: one 16-byte load of 8
+    // channels becomes 8 bytes of chunk (c / 2) of a 4-chunk pixel; zero
+    // outside the image (quant(0) = 0)
+    constexpr int R = tc_side(0);
+    for (int i = threadIdx.x; i < R * R * 8; i += TC_WARPS * 32) {
+      const int p = i >> 3, c = i & 7;
+      const int gy = oy0 - HALO + p / R, gx = ox0 - HALO + p % R;
+      uint32_t lo = 0, hi = 0;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+            x + (img_off + (size_t)gy * W + gx) * NF + 8 * c));
+        lo = quant4(v.x, v.y, qm);
+        hi = quant4(v.z, v.w, qm);
+      }
+      const uint32_t q = (uint32_t)p * 4 + (c >> 1);
+      asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n"
+                   ::"r"(sbase + swz(q) * 16 + 8 * (c & 1)), "r"(lo), "r"(hi)
+                   : "memory");
+    }
+  }
+  __syncthreads();
+  tc_stage<1, true>(sbase, wf, wq, deq, bias, mask, x, out, b, H, W, oy0, ox0);
+  __syncthreads();
+  tc_stage<2, true>(sbase, wf, wq, deq, bias, mask, x, out, b, H, W, oy0, ox0);
+  __syncthreads();
+  tc_stage<3, true>(sbase, wf, wq, deq, bias, mask, x, out, b, H, W, oy0, ox0);
+  __syncthreads();
+  tc_stage<4, true>(sbase, wf, wq, deq, bias, mask, x, out, b, H, W, oy0, ox0);
+  __syncthreads();
+  tc_stage<5, true>(sbase, wf, wq, deq, bias, mask, x, out, b, H, W, oy0, ox0);
+}
+
+constexpr size_t tc_smem_bytes(bool i8 = false) { return (size_t)tc_off(5, i8); }
 
 int launch_tc(const void* x, const void* mask, void* out, const void* wf,
               const void* bias, int B, int H, int W, cudaStream_t stream) {
@@ -526,6 +690,22 @@ int launch_tc(const void* x, const void* mask, void* out, const void* wf,
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
       static_cast<__nv_bfloat16*>(out), static_cast<const uint4*>(wf),
       static_cast<const float*>(bias), H, W);
+  return (int)cudaGetLastError();
+}
+
+int launch_i8(const void* x, const void* mask, void* out, const void* wf,
+              const void* wq, const void* deq, const void* bias, float qm,
+              int B, int H, int W, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes(true);
+  const cudaError_t e = cudaFuncSetAttribute(
+      rdb_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + TC_TILE - 1) / TC_TILE, (H + TC_TILE - 1) / TC_TILE, B);
+  rdb_i8_kernel<<<grid, TC_WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
+      static_cast<__nv_bfloat16*>(out), static_cast<const uint4*>(wf),
+      static_cast<const uint4*>(wq), static_cast<const float*>(deq),
+      static_cast<const float*>(bias), qm, H, W);
   return (int)cudaGetLastError();
 }
 
@@ -571,6 +751,24 @@ extern "C" int s2sr_rdb_forward(const void* x, const void* mask, void* out,
   if (dtype == 1 && wf)
     return launch_tc(x, mask, out, wf, bias, B, H, W, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 RDB with its x stage in int8: x, out (B, H, W, 64) bf16; mask as
+// above; wf the bf16 B fragments (x's rows are not read); wq the int8 B
+// fragments of the packed x conv (ops/rdb.py::pack_rdb_i8_fragments); deq
+// its 192 dequantization factors in packed column order; bias 192 float32;
+// qm x's quantization multiplier. Returns the CUDA error code of the launch.
+extern "C" int s2sr_rdb_i8_forward(const void* x, const void* mask, void* out,
+                                   const void* wf, const void* wq,
+                                   const void* deq, const void* bias, float qm,
+                                   int B, int H, int W, void* stream) {
+  if (!wf || !wq || !deq) return (int)cudaErrorInvalidValue;
+  return launch_i8(x, mask, out, wf, wq, deq, bias, qm, B, H, W,
+                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" long long s2sr_rdb_i8_smem_bytes() {
+  return (long long)tc_smem_bytes(true);
 }
 
 // Output tile side and dynamic shared-memory bytes per block, by dtype.

@@ -149,18 +149,16 @@ class SREngine:
                 f"SREngine drives rrdbnet/swinir models, got {model_name}")
         if dtype == "int8" and self.family == "swinir":
             raise ValueError("dtype='int8' is only supported for rrdbnet")
-        if dtype == "int8":
-            raise NotImplementedError(
-                "the int8-mixed trunk is not ported yet (ROADMAP queue 1 "
-                "item 8)")
-        if dtype not in ("bfloat16", "float32"):
-            raise ValueError(f"dtype must be bfloat16 or float32, got {dtype}")
+        if dtype not in ("bfloat16", "float32", "int8"):
+            raise ValueError(f"dtype must be bfloat16, float32 or int8, "
+                             f"got {dtype}")
         self.device = resolve_device(device)
         self.model_name = model_name
         self.scale = config["scale"]
         self.tile_size = tile_size
         self.tile_pad = tile_pad
         self.batch_size = batch_size
+        # "int8": the int8-mixed trunk (rrdbnet_int8.py) in bfloat16
         self.dtype = torch.float32 if dtype == "float32" else torch.bfloat16
         self.bgr_order = bgr_order
         if exact_area is not None:
@@ -193,11 +191,16 @@ class SREngine:
                 "%s: no converted weights in %s — using random init "
                 "(offline environment); drop the released .pth there for "
                 "real quality", model_name, weights_dir)
+        if dtype == "int8":
+            self._quantize()
 
         # halo-exactness guard for loaded RRDBNet checkpoints (random init
-        # skips; SwinIR's tiled path is approximate, so it has no probe)
+        # skips; SwinIR's tiled path is approximate, so it has no probe; an
+        # int8 engine serves the quantized forward, which the float probe
+        # does not measure)
         self.halo_margin_lsb: float | None = None
         if (pad_probe and self.family == "rrdbnet" and self.pretrained
+                and not self.quantized
                 and self.tile_pad < max(_HALO_PAD_LADDER)):
             fp = weights_fingerprint(weights_dir, model_name)
 
@@ -223,6 +226,31 @@ class SREngine:
                         self.tile_pad = pad_try
                         self.halo_margin_lsb = margin
                         break
+
+    def _quantize(self) -> None:
+        """Calibrate once (one float32 forward, TF32 off, on the engine's
+        device) on the JAX engine's input, ``synthetic_fields((256, 256),
+        seed=42)`` in the channel order the trunk is served, and attach the
+        int8-mixed trunk."""
+        from ..fetch.synthetic import synthetic_fields
+        from .rrdbnet_int8 import quantize_rrdbnet
+
+        calib = torch.from_numpy(synthetic_fields(size=(256, 256), seed=42))
+        calib = calib.to(self.device).float()[None] / 255.0
+        if self.bgr_order:
+            calib = calib.flip(-1)
+        self.model.quantize(quantize_rrdbnet(self.model, calib))
+
+    @property
+    def quantized(self) -> bool:
+        """Whether the model serves the int8-mixed trunk."""
+        return getattr(self.model, "quantized", False)
+
+    @property
+    def precision(self) -> str:
+        """The precision served: "int8", "bfloat16" or "float32"."""
+        return "int8" if self.quantized else str(self.dtype).replace(
+            "torch.", "")
 
     # -- model and uint8 contract ----------------------------------------
 
@@ -389,10 +417,14 @@ def loaded_engines() -> list:
 
 def get_engine(model_name: str = "realesrgan_x4", **kwargs) -> SREngine:
     """Process-wide engine cache; execution knobs the caller leaves out
-    come from :func:`get_settings` before the cache key is formed."""
+    come from :func:`get_settings` before the cache key is formed. A
+    ``Settings.mesh_shape`` over more than one device raises
+    (:func:`~..parallel.mesh.check_single_device`)."""
     from ..config import get_settings
+    from ..parallel.mesh import check_single_device
 
     settings = get_settings()
+    check_single_device(settings.mesh_shape)
     kwargs.setdefault("tile_size", settings.sr_tile_size)
     kwargs.setdefault("tile_pad", settings.sr_tile_pad)
     kwargs.setdefault("batch_size", settings.sr_batch_size)

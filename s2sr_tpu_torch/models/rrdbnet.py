@@ -10,7 +10,9 @@ so a ``.pth`` state dict loads as it is.
   Inside, the trunk runs in channels-last NCHW, whose memory is NHWC: a
   ``permute`` hands each RDB a contiguous (B, H, W, 64) view at no cost.
 - Every residual dense block goes through :func:`s2sr_tpu_torch.ops.rdb.rdb`
-  (the fused kernel on CUDA tensors), with and without the mask.
+  (the fused kernel on CUDA tensors), with and without the mask; after
+  :meth:`RRDBNet.quantize` (the int8-mixed trunk, ``rrdbnet_int8.py``)
+  through :func:`~s2sr_tpu_torch.ops.rdb.rdb_i8` instead.
 - ``dtype`` is the compute dtype (bf16 or fp32); weights are cast per
   conv and sums round where the reference's do.
 - ``mask`` (N, H, W[, 1]) of 0/1 re-zeroes every conv input outside the
@@ -24,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.rdb import G, NF, pack_rdb_weights, rdb
+from ..ops.rdb import G, NF, pack_rdb_weights, rdb, rdb_i8
 from ..utils.precision import ieee_fp32
 
 
@@ -81,6 +83,11 @@ class ResidualDenseBlock(nn.Module):
         self.register_buffer("w_packed", None, persistent=False)
         self.register_buffer("b_packed", None, persistent=False)
         self.packed_dtype: torch.dtype | None = None
+        # the int8 x conv, set by quantize(): HWIO weights, dequantization
+        # factors, x's quantization multiplier
+        self.register_buffer("wx8", None, persistent=False)
+        self.register_buffer("deq", None, persistent=False)
+        self.qm: float | None = None
 
     def pack(self, dtype: torch.dtype) -> None:
         """Pack the five convs' weights for the kernel in ``dtype``."""
@@ -89,11 +96,23 @@ class ResidualDenseBlock(nn.Module):
             [c.weight for c in convs], [c.bias for c in convs], dtype)
         self.packed_dtype = dtype
 
+    def quantize(self, wx8: torch.Tensor, deq: torch.Tensor, qm) -> None:
+        """Run the x conv in int8 from now on: ``wx8`` (3, 3, 64, 192) int8
+        HWIO, ``deq`` (192,) float32, ``qm`` (one RDB of
+        ``rrdbnet_int8.quantize_body_mixed``)."""
+        dev = self.conv1.weight.device
+        self.wx8 = wx8.to(dev).contiguous()
+        self.deq = deq.to(dev, torch.float32).contiguous()
+        self.qm = float(qm)
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None):
         """(B, H, W, 64) → same; ``mask`` float32 (B, H, W) or None."""
         if self.packed_dtype != x.dtype:
             raise RuntimeError(f"RDB weights packed for {self.packed_dtype}, "
                                f"input is {x.dtype}: call RRDBNet.pack()")
+        if self.wx8 is not None:
+            return rdb_i8(x.contiguous(), self.w_packed, self.b_packed,
+                          self.wx8, self.deq, self.qm, mask)
         return rdb(x.contiguous(), self.w_packed, self.b_packed, mask)
 
 
@@ -118,6 +137,7 @@ class RRDBNet(nn.Module):
             raise ValueError(f"scale must be 2 or 4, got {scale}")
         self.scale = scale
         self.dtype = dtype
+        self.quantized = False
         self.conv_first = nn.Conv2d(num_in_ch, num_feat, 3, padding=1)
         self.body = nn.ModuleList(RRDB(num_feat, num_grow_ch)
                                   for _ in range(num_block))
@@ -134,6 +154,17 @@ class RRDBNet(nn.Module):
         for block in self.body:
             for r in (block.rdb1, block.rdb2, block.rdb3):
                 r.pack(self.dtype)
+        return self
+
+    def quantize(self, qbody: dict) -> "RRDBNet":
+        """Serve the int8-mixed trunk of ``qbody``
+        (``rrdbnet_int8.quantize_body_mixed``: stacked per block)."""
+        for i, block in enumerate(self.body):
+            for j in (1, 2, 3):
+                q = qbody[f"rdb{j}"]
+                getattr(block, f"rdb{j}").quantize(q["wx8"][i], q["deq"][i],
+                                                   q["qm"][i])
+        self.quantized = True
         return self
 
     def _upsample(self, f, m2=None, m4=None):
@@ -153,13 +184,15 @@ class RRDBNet(nn.Module):
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
-                up_sub_batch: int | None = None) -> torch.Tensor:
+                up_sub_batch: int | None = None, rdb_fn=None) -> torch.Tensor:
         """(N, H, W, C) float in [0, 1] → (N, sH, sW, C) float32. A float32
-        model runs its convs in IEEE float32 (TF32 off), as JAX does."""
+        model runs its convs in IEEE float32 (TF32 off), as JAX does.
+        ``rdb_fn(index, x, mask)`` replaces the residual dense blocks
+        (index 0 .. 3·blocks − 1; x NHWC, mask (N, H, W) or None)."""
         with ieee_fp32(self.dtype == torch.float32):
-            return self._forward(x, mask, up_sub_batch)
+            return self._forward(x, mask, up_sub_batch, rdb_fn)
 
-    def _forward(self, x, mask, up_sub_batch):
+    def _forward(self, x, mask, up_sub_batch, rdb_fn=None):
         dtype = self.dtype
         n, h, w, _ = x.shape
         x = x.permute(0, 3, 1, 2)
@@ -175,10 +208,11 @@ class RRDBNet(nn.Module):
         slope = torch.tensor(0.2, dtype=dtype, device=x.device)
         feat = m(_conv(x, self.conv_first, dtype))
         body = feat.contiguous(memory_format=torch.channels_last)
-        for block in self.body:
+        for i, block in enumerate(self.body):
             out = body.permute(0, 2, 3, 1)                   # NHWC view
-            for r in (block.rdb1, block.rdb2, block.rdb3):
-                out = r(out, mask_k)
+            for j, r in enumerate((block.rdb1, block.rdb2, block.rdb3)):
+                out = (r(out, mask_k) if rdb_fn is None
+                       else rdb_fn(3 * i + j, out, mask_k))
             body = (out.permute(0, 3, 1, 2) * slope + body).contiguous(
                 memory_format=torch.channels_last)
         feat = m(feat + _conv(body, self.conv_body, dtype))

@@ -18,6 +18,12 @@ kernel refused).
   what the design does about it.
 - :func:`pack_rdb_fragments` lays the packed weights out as the bf16
   kernel's B fragments.
+- :func:`rdb_i8` is the same block with its packed 64→192 x conv in int8
+  (precision "int8", ``s2sr_tpu/models/rrdbnet_int8.py::_rdb_packed_mixed``):
+  on a CUDA tensor the bf16 kernel's int8 instance (``rdb_i8_kernel``),
+  on a CPU tensor :func:`rdb_i8_reference`; :data:`LAUNCHES_I8` counts its
+  launches, and :func:`pack_rdb_i8_fragments` lays the int8 x conv out as
+  that kernel's B fragments.
 
 Weights travel packed: :func:`pack_rdb_weights` rounds the five conv
 kernels and biases to the compute dtype (as the reference casts them)
@@ -34,6 +40,9 @@ import torch.nn.functional as F
 NF = 64
 G = 32
 LAUNCHES = 0
+LAUNCHES_I8 = 0
+# columns of the packed 64 → 192 x conv, [a5|a4|a3|a2|a1]
+WX_COLS = NF + 4 * G
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _CIN = (NF, NF + G, NF + 2 * G, NF + 3 * G, NF + 4 * G)
@@ -110,6 +119,60 @@ def pack_rdb_fragments(w: torch.Tensor) -> torch.Tensor:
     return w[fragment_index(w.device)].to(torch.bfloat16)
 
 
+def fragment_index_i8(device=None) -> torch.Tensor:
+    """Indices into the flattened HWIO int8 x conv (3, 3, 64, 192), whose
+    columns are ``[a5|a4|a3|a2|a1]``, that put it in the int8 kernel's B
+    fragments (``csrc/rdb.cu``, ``rdb_i8_kernel``).
+
+    Stage s reads the columns of its own output channels; its matrix has
+    rows (tap, channel), 18 k32 slabs. Each is laid out as
+    ``mma.m16n8k32``'s s8 B fragments, ``[18][Cout/16][lane][16]`` (lane
+    ``4g + t``, byte ``8h + 4a + e``: row 16a + 4t + e of column 8h + g),
+    and the stages follow one another."""
+    key = str(device)
+    if key not in _FRAG_INDEX_I8:
+        flat = torch.arange(9 * NF * WX_COLS).view(9 * NF, WX_COLS)
+        parts = []
+        for s, cout in enumerate(_COUT, start=1):
+            col = 0 if s == 5 else NF + (4 - s) * G
+            mat = flat[:, col:col + cout]                  # (576, cout)
+            parts.append(mat.reshape(18, 2, 4, 4, cout // 16, 2, 8)
+                         .permute(0, 4, 6, 2, 5, 1, 3).reshape(-1))
+        _FRAG_INDEX_I8[key] = torch.cat(parts).to(device)
+    return _FRAG_INDEX_I8[key]
+
+
+_FRAG_INDEX_I8: dict = {}
+
+
+def pack_rdb_i8_fragments(wx8: torch.Tensor) -> torch.Tensor:
+    """The int8 x conv, HWIO (3, 3, 64, 192) with columns ``[a5|..|a1]``
+    (``rrdbnet_int8.py::quantize_body_mixed``'s ``wx8``), as the int8
+    kernel's B fragments (:func:`fragment_index_i8`), flat int8."""
+    if tuple(wx8.shape) != (3, 3, NF, WX_COLS) or wx8.dtype != torch.int8:
+        raise ValueError(f"wx8 must be int8 (3, 3, {NF}, {WX_COLS}), got "
+                         f"{wx8.dtype} {tuple(wx8.shape)}")
+    return wx8.reshape(-1)[fragment_index_i8(wx8.device)].contiguous()
+
+
+def quant_i8(x: torch.Tensor, qm) -> torch.Tensor:
+    """``rrdbnet_int8.py::_quant`` as float32 integer values:
+    ``round(x·qm)`` (half to even, in float32), clamped to ±127."""
+    qm = torch.as_tensor(qm, dtype=torch.float32, device=x.device)
+    return torch.round(x.float() * qm).clamp_(-127, 127)
+
+
+def conv_i8_int(x8: torch.Tensor, wx8: torch.Tensor) -> torch.Tensor:
+    """The int8 conv's exact int32-valued sums, as float32: NCHW
+    integer-valued ``x8`` with OIHW ``wx8``. Every partial sum is an
+    integer with |sum| ≤ 127²·576 < 2²⁴, so float32 adds it exactly in
+    any order; TF32 is kept off."""
+    from ..utils.precision import ieee_fp32
+
+    with ieee_fp32():
+        return F.conv2d(x8, wx8.float(), padding=1)
+
+
 def _mask_nchw(mask, x):
     if mask is None:
         return None
@@ -164,6 +227,55 @@ def rdb_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out.permute(0, 2, 3, 1).contiguous()
 
 
+def rdb_i8_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     wx8: torch.Tensor, deq: torch.Tensor, qm,
+                     mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the int8-mixed block (``_rdb_packed_mixed``
+    of the JAX package), (B, H, W, 64) → same, in ``x.dtype``.
+
+    x is quantized with ``qm``, the packed 64→192 x conv (``wx8``, int8
+    HWIO) runs on the int8 values (:func:`conv_i8_int`) and is dequantized
+    by ``deq[col]`` into ``x.dtype``; x1..x4's convs, biases, LeakyReLU,
+    mask and residual are :func:`rdb_reference`'s, from the float weights
+    ``w``, ``b``."""
+    dtype = x.dtype
+    ks, bs = unpack_rdb_weights(w, b)
+    ks = [k.to(dtype) for k in ks]
+    bs = [bb.to(dtype).view(1, -1, 1, 1) for bb in bs]
+    xc = x.permute(0, 3, 1, 2)
+    mk = _mask_nchw(mask, x)
+    slope = torch.tensor(0.2, dtype=dtype, device=x.device)
+
+    def m(t):
+        return t if mk is None else t * mk
+
+    def lrelu(t):
+        return torch.where(t >= 0, t, t * slope)
+
+    def sl(k, lo, hi):
+        return ks[k - 1][:, lo:hi]
+
+    def conv(t, kernel):
+        return F.conv2d(t, kernel, padding=1)
+
+    prod = conv_i8_int(quant_i8(xc, qm), wx8.permute(3, 2, 0, 1))  # OIHW
+    acc = (prod * deq.float().view(1, -1, 1, 1)).to(dtype)   # [a5|..|a1]
+    w1 = torch.cat([sl(k, NF, NF + G) for k in (5, 4, 3, 2)], 0)
+    w2 = torch.cat([sl(k, NF + G, NF + 2 * G) for k in (5, 4, 3)], 0)
+    w3 = torch.cat([sl(k, NF + 2 * G, NF + 3 * G) for k in (5, 4)], 0)
+    w4 = sl(5, NF + 3 * G, NF + 4 * G)
+    x1 = m(lrelu(acc[:, -G:] + bs[0]))
+    acc = acc[:, :-G] + conv(x1, w1)
+    x2 = m(lrelu(acc[:, -G:] + bs[1]))
+    acc = acc[:, :-G] + conv(x2, w2)
+    x3 = m(lrelu(acc[:, -G:] + bs[2]))
+    acc = acc[:, :-G] + conv(x3, w3)
+    x4 = m(lrelu(acc[:, -G:] + bs[3]))
+    x5 = acc[:, :-G] + conv(x4, w4) + bs[4]
+    out = m(x5 * slope + xc)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
 def _lib():
     from ._build import load
 
@@ -174,6 +286,12 @@ def _lib():
                                          ctypes.c_int, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_int, vp]
         lib.s2sr_rdb_forward.restype = ctypes.c_int
+        lib.s2sr_rdb_i8_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                            ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int, vp]
+        lib.s2sr_rdb_i8_forward.restype = ctypes.c_int
+        lib.s2sr_rdb_i8_smem_bytes.argtypes = []
+        lib.s2sr_rdb_i8_smem_bytes.restype = ctypes.c_longlong
         lib.s2sr_rdb_tile.argtypes = [ctypes.c_int]
         lib.s2sr_rdb_tile.restype = ctypes.c_int
         for name in ("s2sr_rdb_smem_bytes", "s2sr_rdb_macs_per_tile"):
@@ -246,4 +364,57 @@ def rdb(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"rdb kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    return out
+
+
+def kernel_tiling_i8() -> dict:
+    """:func:`kernel_tiling` of the int8 instance: its tile and work are
+    the bf16 kernel's, its shared memory holds x in int8."""
+    return {**kernel_tiling(torch.bfloat16),
+            "smem_bytes": int(_lib().s2sr_rdb_i8_smem_bytes())}
+
+
+def rdb_i8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           wx8: torch.Tensor, deq: torch.Tensor, qm,
+           mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One residual dense block with its x conv in int8, (B, H, W, 64) →
+    same, in ``x.dtype``.
+
+    ``w``, ``b``: :func:`pack_rdb_weights` output (the float convs of
+    x1..x4); ``wx8``: the int8 x conv, HWIO (3, 3, 64, 192) with columns
+    ``[a5|..|a1]``; ``deq``: its 192 float32 dequantization factors in
+    packed column order; ``qm``: x's quantization multiplier (a float).
+    CPU tensors run :func:`rdb_i8_reference`; CUDA tensors launch the
+    bf16 kernel's int8 instance or raise (it takes bfloat16 only)."""
+    global LAUNCHES_I8
+    if x.device.type == "cpu":
+        return rdb_i8_reference(x, w, b, wx8, deq, qm, mask)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"rdb_i8: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"rdb_i8's kernel takes bfloat16, got {x.dtype}")
+    _check(x, w, b, mask)
+    if wx8.device != x.device:
+        raise ValueError(f"rdb_i8 wx8 must be on {x.device}")
+    if (deq.device != x.device or deq.dtype != torch.float32
+            or deq.numel() != WX_COLS or not deq.is_contiguous()):
+        raise ValueError(f"rdb_i8 deq must be {WX_COLS} contiguous float32 "
+                         f"on {x.device}")
+    bsz, h, wd, _ = x.shape
+    out = torch.empty_like(x)
+    if bsz * h * wd == 0:
+        return out
+    lib = _lib()
+    # both B-fragment sets are packed per call, as in rdb
+    wf = pack_rdb_fragments(w)
+    wq = pack_rdb_i8_fragments(wx8)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.s2sr_rdb_i8_forward(
+            x.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), wf.data_ptr(), wq.data_ptr(),
+            deq.data_ptr(), b.data_ptr(), float(qm), bsz, h, wd, stream)
+    if rc != 0:
+        raise RuntimeError(f"rdb_i8 kernel launch failed: CUDA error {rc}")
+    LAUNCHES_I8 += 1
     return out

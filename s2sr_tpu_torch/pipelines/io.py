@@ -1,9 +1,12 @@
 """Raster/image input normalisation and SR output writing.
 
-GeoTIFF → first 3 bands (or a gray band replicated), min-max scaled to
-uint8 when >8-bit; PNG input through the package's own decoder. Output
-is a GeoTIFF with the rescaled transform when georeferenced, else a
-PNG, plus the unconditional PNG twin — written without PIL.
+GeoTIFF (by its ``.tif`` / ``.tiff`` suffix) → first 3 bands (or a gray
+band replicated), min-max scaled to uint8 when >8-bit. Any other upload
+is decoded by its content, as PIL does for the JAX package: PNG and JPEG
+by the package's own decoders, to the bytes PIL's ``convert("RGB")``
+gives. Output is a GeoTIFF with the rescaled transform when
+georeferenced, else a PNG, plus the unconditional PNG twin — written
+without PIL.
 """
 
 from __future__ import annotations
@@ -14,17 +17,42 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..geo import Affine, CRS, GeoTiff, read_geotiff, write_geotiff
+from ..tiles.jpeg import decode_jpeg
 from ..tiles.png import decode_png, encode_png
+
+# formats PIL opens that the port does not decode, by their magic bytes
+_OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
+                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+
+
+def decode_upload(data: bytes, name: str = "upload") -> np.ndarray:
+    """An uploaded image's bytes → uint8 (H, W, 3) RGB, picked by content:
+    PNG and JPEG (gray replicated, alpha dropped). A format PIL would
+    open that the port does not decode raises naming it."""
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        img = decode_png(data)
+    elif data[:3] == b"\xff\xd8\xff":
+        img = decode_jpeg(data)
+    else:
+        fmt = next((f for magic, f in _OTHER_FORMATS
+                    if data.startswith(magic)), None)
+        if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+            fmt = "WebP"
+        if fmt is None:
+            raise ValueError(f"cannot identify image file {name!r}")
+        raise ValueError(f"{fmt} uploads are not decoded by the port yet "
+                         "(ROADMAP queue 3 item 5)")
+    if img.shape[2] < 3:
+        img = np.repeat(img[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(img[:, :, :3])
 
 
 def load_rgb(path: Path | str) -> Tuple[np.ndarray, Optional[Affine], Optional[CRS]]:
-    """→ (uint8 (H, W, 3) RGB, transform?, crs?). GeoTIFF or 8-bit PNG."""
+    """→ (uint8 (H, W, 3) RGB, transform?, crs?). GeoTIFF by suffix, any
+    other file by :func:`decode_upload`."""
     path = Path(path)
     if path.suffix.lower() not in (".tif", ".tiff"):
-        img = decode_png(path.read_bytes())
-        if img.shape[2] < 3:
-            img = np.repeat(img[:, :, :1], 3, axis=2)
-        return np.ascontiguousarray(img[:, :, :3]), None, None
+        return decode_upload(path.read_bytes(), str(path)), None, None
     r = read_geotiff(path)
     if r.count >= 3:
         img = r.data[:, :, :3]

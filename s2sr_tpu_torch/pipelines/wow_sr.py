@@ -47,7 +47,8 @@ def apply_wow_sr(
     """SR + enhancement → saved raster, metadata.
 
     ``precision``: None/"default" follows ``Settings.sr_dtype``;
-    "bfloat16"/"float32" pin the engine dtype for this job."""
+    "bfloat16"/"float32"/"int8" pin the engine dtype for this job ("int8":
+    the int8-mixed trunk, ``models/rrdbnet_int8.py``)."""
     model_display = MODEL_DISPLAY.get(model, model)
     logger.info("WOW Super-Resolution (%s + Enhanced): %s", model_display,
                 input_path)
@@ -106,9 +107,13 @@ def apply_wow_sr(
         "effective_resolution_m": 10.0 / scale,
         "optimized_for": "z18_crop_visibility",
         "pretrained": engine.pretrained,
-        "precision": str(engine.dtype).replace("torch.", ""),
+        "precision": engine.precision,
         "timing": timer.summary(),
     }
+    if engine.quantized:
+        metadata["precision_note"] = (
+            "int8-mixed trunk: the 64->192 x conv of each residual dense "
+            "block in int8 (opt-in turbo mode)")
     return final_output, metadata
 
 

@@ -100,8 +100,7 @@ class WowRequest:
     max_cloud_cover: float = 30.0
     force_fetch: bool = False
     # "default" follows Settings.sr_dtype; "bfloat16"/"float32" pin the
-    # engine dtype; "int8"/"turbo" select the int8-mixed trunk, which is
-    # not ported yet (the job fails with the engine's message)
+    # engine dtype; "int8"/"turbo" select the int8-mixed trunk
     precision: str = "default"
 
 
@@ -293,7 +292,7 @@ def create_app(settings: Optional[Settings] = None,
                 # probe not applicable)
                 "tile_pad": e.tile_pad,
                 "halo_margin_lsb": e.halo_margin_lsb,
-                "precision": str(e.dtype).replace("torch.", ""),
+                "precision": e.precision,
             }
             # one model can be resident at several precisions at once:
             # suffix-key the extras, never clobber

@@ -136,9 +136,9 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(ValueError, match="only supported for rrdbnet"):
         engine_mod.SREngine("swinir_x2", weights_dir=tmp_path, dtype="int8",
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="bfloat16, float32 or int8"):
         engine_mod.SREngine("realesrgan_anime", weights_dir=tmp_path,
-                            dtype="int8", device="cpu")
+                            dtype="int4", device="cpu")
 
 
 def test_cuda_default_raises_without_gpu(tiny):
@@ -198,3 +198,38 @@ def test_random_init_without_weights(tmp_path):
     assert eng.dtype == torch.bfloat16
     out = eng.enhance_serving(np.full((16, 12, 3), 128, np.uint8))
     assert out.shape == (64, 48, 3) and out.dtype == np.uint8
+
+
+@pytest.mark.parametrize("spec", ["dp=4,sp=2", " dp = 1 ", "dp=1,,tp=1",
+                                  "", "fsdp=8"])
+def test_parse_mesh_shape_matches_jax(spec):
+    """The port's copy of the parser gives JAX's tuples, exactly."""
+    from s2sr_tpu.parallel.mesh import parse_mesh_shape as jax_parse
+    from s2sr_tpu_torch.parallel.mesh import parse_mesh_shape
+
+    assert parse_mesh_shape(spec) == jax_parse(spec)
+
+
+@pytest.mark.parametrize("spec, serves", [("dp=1", True), ("dp=1,tp=1", True),
+                                          ("dp=4", False), ("dp=2,sp=2", False)])
+def test_get_engine_mesh_shape(tiny, monkeypatch, spec, serves):
+    """A mesh over one device serves (JAX serves it identically on one
+    chip); any other raises naming ROADMAP queue 1 item 16."""
+    from s2sr_tpu_torch.config import settings as settings_mod
+
+    _, _, d, _ = tiny
+    monkeypatch.setenv("MESH_SHAPE", spec)
+    settings_mod.get_settings.cache_clear()
+    try:
+        if serves:
+            eng = engine_mod.get_engine("rrdb_tiny", weights_dir=str(d),
+                                        dtype="float32", device="cpu")
+            out = eng.enhance_serving(np.zeros((8, 8, 3), np.uint8))
+            assert out.shape == (32, 32, 3)
+        else:
+            with pytest.raises(ValueError, match="ROADMAP queue 1 item 16"):
+                engine_mod.get_engine("rrdb_tiny", weights_dir=str(d),
+                                      dtype="float32", device="cpu")
+    finally:
+        monkeypatch.delenv("MESH_SHAPE")
+        settings_mod.get_settings.cache_clear()

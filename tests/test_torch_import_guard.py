@@ -33,7 +33,9 @@ def test_modules_import_with_jax_blocked():
             "s2sr_tpu_torch.tiles.tiling", "s2sr_tpu_torch.server.http",
             "s2sr_tpu_torch.server.jobs", "s2sr_tpu_torch.server.persistence",
             "s2sr_tpu_torch.server.app", "s2sr_tpu_torch.cli.serve",
-            } <= set(mods) and len(mods) >= 56
+            "s2sr_tpu_torch.models.rrdbnet_int8", "s2sr_tpu_torch.tiles.jpeg",
+            "s2sr_tpu_torch.parallel.mesh",
+            } <= set(mods) and len(mods) >= 59
     code = "\n".join([
         "import sys",
         "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic'):",
@@ -57,6 +59,8 @@ def test_modules_import_with_jax_blocked():
         "assert 'mxu' in chip_smoke.PHASES",
         "assert 'matmul_chain' in chip_smoke.KERNEL_SOURCES",
         "assert 'server' in chip_smoke.PHASES",
+        "from s2sr_tpu_torch.ops import rdb",
+        "assert callable(rdb.rdb_i8) and rdb.LAUNCHES_I8 == 0",
         "print('ok')",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

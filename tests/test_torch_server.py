@@ -581,18 +581,80 @@ def test_listings_and_download(apps, scenario):
         assert resp.headers["Cache-Control"] == "public, max-age=86400"
 
 
-def test_turbo_precision_fails_until_int8_is_ported(apps, scenario):
-    """``precision="turbo"`` passes validation as in JAX (→ "int8"); the
-    port's engine has no int8 trunk yet, so the job fails with that."""
+def test_turbo_precision_completes(apps, scenario):
+    """``precision="turbo"`` (→ "int8") completes on ``/api/wow`` and on a
+    coalesced ``/api/enhance`` pair in the port's app, on the int8-mixed
+    trunk: the jobs and their metadata say "int8", ``/api/metadata`` lists
+    the int8 engine beside the float one, and the pair equals each upload
+    served alone through the WOW chain."""
+    import torch
+
+    from s2sr_tpu_torch.ops.enhance import enhance_for_crops
+
     _, app, _ = apps
     scene = str(data_dir(app) / "source" / "scene.tif")
     resp, payload = call(app, "POST", "/api/wow", json_body={
         "input_file": scene, "precision": "turbo"})
     assert resp.status_code == 200
-    app.runner.join(60)
+    gate = threading.Event()
+    app.runner.submit("hold", lambda: gate.wait(120))
+    ids = []
+    for seed in (7, 8):
+        body, headers = multipart({"model": "realesrgan_x4",
+                                   "precision": "turbo"}, upload_png(seed))
+        resp, enh = call(app, "POST", "/api/enhance", body=body,
+                         headers=headers)
+        assert resp.status_code == 200, enh
+        ids.append(enh["job_id"])
+    gate.set()
+    app.runner.join(120)
     job = app.jobs.get(payload["job_id"])
-    assert job["precision"] == "int8" and job["status"] == "failed"
-    assert "not ported yet (ROADMAP queue 1 item 8)" in job["message"]
+    assert job["precision"] == "int8" and job["status"] == "completed", job
+    meta = job["result"]["sr_metadata"]
+    assert meta["precision"] == "int8" and "int8" in meta["precision_note"]
+    engine = next(e for e in engine_mod.loaded_engines() if e.quantized)
+    for job_id, seed in zip(ids, (7, 8)):
+        rec = app.jobs.get(job_id)
+        assert rec["status"] == "completed" and rec.get("coalesced") == 2, rec
+        png = decode_png(Path(rec["result"]["outputs"]["sr_png"]).read_bytes())
+        alone = engine.enhance_serving(decode_png(upload_png(seed)))
+        assert np.array_equal(png, enhance_for_crops(
+            torch.from_numpy(alone)).numpy()), job_id
+    _, md = call(app, "GET", "/api/metadata")
+    assert md["models"]["realesrgan_x4:int8"]["precision"] == "int8"
+    assert md["models"]["realesrgan_x4"]["precision"] == "float32"
+
+
+@pytest.mark.parametrize("fixture", ["upload_420.jpg",
+                                     "upload_progressive_422_restart.jpg",
+                                     "upload_rgb16_adam7.png",
+                                     "upload_palette4_trns.png"])
+def test_jpeg_and_png_uploads_complete(apps, scenario, fixture):
+    """A JPEG or non-8-bit PNG upload on ``/api/enhance`` completes in the
+    port's app (JAX opens it with PIL), and its SR output is the engine's
+    on PIL's decode of the file through the WOW chain, byte for byte."""
+    import io
+
+    import torch
+    from PIL import Image
+
+    from s2sr_tpu_torch.ops.enhance import enhance_for_crops
+
+    _, app, _ = apps
+    data = (Path(__file__).parent / "fixtures_torch" / fixture).read_bytes()
+    body, headers = multipart({"model": "realesrgan_x4"}, data)
+    resp, payload = call(app, "POST", "/api/enhance", body=body,
+                         headers=headers)
+    assert resp.status_code == 200, payload
+    app.runner.join(120)
+    rec = app.jobs.get(payload["job_id"])
+    assert rec["status"] == "completed", rec
+    png = decode_png(Path(rec["result"]["outputs"]["sr_png"]).read_bytes())
+    pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    engine = next(e for e in engine_mod.loaded_engines()
+                  if e.model_name == "realesrgan_x4" and not e.quantized)
+    want = enhance_for_crops(torch.from_numpy(engine.enhance_serving(pil)))
+    assert np.array_equal(png, want.numpy())
 
 
 def test_create_app_refuses_missing_cuda(tmp_path):
