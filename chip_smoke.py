@@ -20,8 +20,15 @@ random weights from seed 0, each at the full width of its model:
   ``/api/sr`` (the farm chain; scale 2 fails as in the JAX server), each
   polled to its end, then a download, a tile of each tree and the
   read-only routes, a ``"turbo"`` (int8) ``/api/wow`` job and a JPEG
-  ``/api/enhance`` upload, on the same ``realesrgan_x4``; the committed
-  upload fixtures decoded against PIL's SHA-256 (phase server);
+  and a lossy WebP ``/api/enhance`` upload, on the same
+  ``realesrgan_x4``; the committed upload fixtures (PNG, JPEG with its
+  CMYK and arithmetic variants, BMP, GIF, WebP, TIFF by content)
+  decoded against PIL's SHA-256 (phase server);
+- field-boundary vectors (``s2sr_tpu_torch.vectors``): the card's
+  ``fields.geojson`` held to the CPU's on a 1024² planted scene, then
+  over a live socket ``/api/wow`` → ``/api/vectors`` (the job finds the
+  4096² WOW output) and a 4096² planted raster under ``torch.profiler``
+  (phase vectors);
 - SwinIR serving on ``swinir_x4`` (``process_wow_sr`` on the exact path,
   the halo-tiled engine path, a 3×5 upload, exact 2048² and 2560² images
   with the strip tail held to the whole tail), whose Swin blocks run the
@@ -55,7 +62,7 @@ Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 
 ``--phases`` picks a subset (device, build, kernel, main, numbers,
-server, swin_kernel, swin_main, swin_large, swin_numbers, ladder, mxu)
+server, vectors, swin_kernel, swin_main, swin_large, swin_numbers, ladder, mxu)
 for a quick check; the default runs them all.
 """
 
@@ -71,7 +78,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernel", "main", "numbers", "server",
-          "swin_kernel", "swin_main", "swin_large", "swin_numbers", "ladder",
+          "vectors", "swin_kernel", "swin_main", "swin_large", "swin_numbers", "ladder",
           "mxu")
 KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder", "rdb_ladder_tc",
                   "matmul_chain")
@@ -1458,6 +1465,29 @@ def phase_server(state):
                                  f"{md['output_size']}, {last}")
         state["main_launches"] += last["launches"]
 
+        # a lossy WebP upload (the committed 1024×768 fixture, quality 80:
+        # a phone photo scaled for upload), decoded by the port's VP8
+        from s2sr_tpu_torch.pipelines.io import decode_upload
+
+        webp = (FIXTURES / "upload_1024x768.webp").read_bytes()
+        t1 = time.perf_counter()
+        decode_upload(webp, "upload_1024x768.webp")
+        webp_decode_s = time.perf_counter() - t1
+        up = drive("/api/enhance webp", lambda: [srv.json(
+            "POST", "/api/enhance", *multipart_image(
+                webp, {"model": "realesrgan_x4"}, "bw", "up.webp",
+                "image/webp"))["job_id"]], "/api/sr/")[0]
+        md = up["result"]["sr_metadata"]
+        if (md["original_size"] != [768, 1024]
+                or md["output_size"] != [3072, 4096]
+                or last["launches"] != n_rdb * last["chunks"]):
+            raise AssertionError(f"/api/enhance webp: {md['original_size']} → "
+                                 f"{md['output_size']}, {last}")
+        state["main_launches"] += last["launches"]
+        emit({"phase": "server", "upload": "upload_1024x768.webp",
+              "bytes": len(webp), "decode_seconds": webp_decode_s,
+              "card": card})
+
         # the device's idle share of one warm /api/wow job
         def wow_job():
             job_id = srv.json("POST", "/api/wow", {
@@ -1494,6 +1524,222 @@ def phase_server(state):
         raise AssertionError("/api/wow GeoTIFF differs from process_wow_sr")
     emit({"phase": "server", "rdb_launches": total_launches,
           "chunks": total_chunks, "seconds": round(time.perf_counter() - t0, 3)})
+
+
+# --- field-boundary vectors ----------------------------------------------------
+
+VECTORS_SIDE = 1024            # card vs CPU, and the /api/wow scene
+VECTORS_LARGE = 4096           # the planted raster of the profiled job
+VECTORS_V2_SIDE = 512          # v2, card vs CPU (the CPU's k-means is slow)
+ZONES_404 = ("Management zones not found. Run v2 vector extraction "
+             "with --zones")
+
+
+def _geojson_sans_time(g: dict) -> dict:
+    g = json.loads(json.dumps(g))
+    g["properties"].pop("generated_at", None)
+    for f in g["features"]:
+        f["properties"].pop("created_at", None)
+    return g
+
+
+def vector_split(tif: Path, aoi: Path) -> dict:
+    """The segmentation chain of one raster with a sync after each stage
+    (``segment_fields(timings=...)``), and the fixpoint passes and host
+    syncs it made."""
+    import numpy as np
+
+    from s2sr_tpu_torch.geo import read_geotiff
+    from s2sr_tpu_torch.vectors import ops
+    from s2sr_tpu_torch.vectors.extraction import (
+        ExtractionConfig, bucket_shape, compute_vegetation_mask,
+        crop_raster_to_aoi, load_aoi_geojson, segment_fields)
+
+    config = ExtractionConfig()
+    working = crop_raster_to_aoi(read_geotiff(tif), load_aoi_geojson(aoi))
+    th, tw = working.data.shape[:2]
+    hb, wb = bucket_shape(th, tw)
+    padded = np.zeros((hb, wb, working.count), working.data.dtype)
+    padded[:th, :tw] = working.data
+    working.data = padded
+    mask, _ = compute_vegetation_mask(working, config, "cuda")
+    segment_fields(mask, config, valid_hw=(th, tw), device="cuda")   # warm
+    timings: dict = {}
+    t1 = time.perf_counter()
+    segment_fields(mask, config, timings, valid_hw=(th, tw), device="cuda")
+    passes = dict(ops.PASSES)
+    syncs = sum(-(-n // ops.CHECK_EVERY_CUDA) for n in passes.values())
+    return {"seconds": time.perf_counter() - t1, "stages": timings,
+            "passes": passes, "check_every": ops.CHECK_EVERY_CUDA,
+            "host_syncs": syncs, "frame": [hb, wb]}
+
+
+def phase_vectors(state):
+    """Field-boundary vectors on ``realesrgan_x4``: (a) the card's
+    ``fields.geojson`` against the CPU's on a 1024² planted scene;
+    (b) over a live socket, ``/api/wow`` on a 1024² scene, then
+    ``/api/vectors`` with no raster_path (it must find that 4096²
+    output), then with a 4096² planted raster, then the vector GETs;
+    (c) that 4096² job under ``torch.profiler``: seconds, stage split,
+    fixpoint passes and the device's idle share; (d) v2 on a 5-band
+    planted raster, card against CPU."""
+    from urllib.error import HTTPError
+
+    import torch
+
+    from s2sr_tpu_torch.config import Settings
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_scene
+    from s2sr_tpu_torch.models.engine import loaded_engines
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.server.app import create_app
+    from s2sr_tpu_torch.utils import write_json
+    from s2sr_tpu_torch.vectors import ops
+    from s2sr_tpu_torch.vectors.extraction import extract_field_polygons
+    from s2sr_tpu_torch.vectors.synthetic import write_planted_scene
+
+    t0 = time.perf_counter()
+    card = state.get("card") or card_line()
+    root = state["work"] / "vectors"
+
+    # (a) card against CPU, both in the port
+    tif, aoi = write_planted_scene(root / "planted", VECTORS_SIDE, seed=1)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        res = extract_field_polygons(aoi, [tif], root / f"out_{dev}",
+                                     device=dev)
+        runs[dev] = (res, time.perf_counter() - t1, dict(ops.PASSES))
+    (card_res, card_s, card_passes), (cpu_res, cpu_s, _) = runs["cuda"], runs["cpu"]
+    same = (_geojson_sans_time(card_res["geojson"])
+            == _geojson_sans_time(cpu_res["geojson"]))
+    emit({"phase": "vectors", "check": "fields.geojson, card vs CPU",
+          "side": VECTORS_SIDE, "features": card_res["feature_count"],
+          "equal": same, "card_seconds": card_s, "cpu_seconds": cpu_s,
+          "card_stage_timings_s": card_res["stage_timings_s"],
+          "passes": card_passes, "card": card})
+    if not same or card_res["feature_count"] <= 0:
+        raise AssertionError(f"vectors card vs CPU: equal {same}, "
+                             f"{card_res['feature_count']} features")
+
+    # (b) the users' chain over a live socket
+    data = root / "data"
+    write_json(SERVER_AOI, root / "aoi.geojson")
+    settings = Settings(data_dir=str(data), aoi_path=str(root / "aoi.geojson"),
+                        offline=True, weights_dir=str(state["work"] / "weights"),
+                        tile_min_zoom=12, tile_max_zoom=13)
+    app = create_app(settings, device="cuda")
+    scene = root / "scene_1024.tif"
+    synthetic_scene(scene, size=(VECTORS_SIDE, VECTORS_SIDE), seed=5)
+    big_tif, big_aoi = write_planted_scene(root / "planted_large",
+                                           VECTORS_LARGE, seed=2)
+    with LiveServer(app) as srv:
+        chunks0 = sum(e.chunks_dispatched for e in loaded_engines())
+        rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = 0
+        t1 = time.perf_counter()
+        wow = srv.poll("/api/sr/" + srv.json("POST", "/api/wow", {
+            "input_file": str(scene)})["job_id"], timeout=600)
+        wow_s = time.perf_counter() - t1
+        launches = rdb_mod.LAUNCHES
+        chunks = sum(e.chunks_dispatched for e in loaded_engines()) - chunks0
+        n_rdb = next(3 * len(e.model.body) for e in loaded_engines()
+                     if e.model_name == "realesrgan_x4"
+                     and e.device.type == "cuda" and not e.quantized)
+        if wow["status"] != "completed" or launches != n_rdb * chunks \
+                or not chunks:
+            raise AssertionError(f"/api/wow: {wow['status']}, {launches} rdb "
+                                 f"launches for {chunks} chunks")
+        state["main_launches"] = state.get("main_launches", 0) + launches
+        t1 = time.perf_counter()
+        found = srv.poll("/api/vectors/" + srv.json(
+            "POST", "/api/vectors", {})["job_id"], timeout=600)
+        found_s = time.perf_counter() - t1
+        if found["status"] != "completed" or found["raster_paths"] != [
+                wow["result"]["outputs"]["sr_tif"]]:
+            raise AssertionError(f"/api/vectors after /api/wow: {found}")
+        emit({"phase": "vectors", "route": "/api/wow then /api/vectors",
+              "wow_seconds": wow_s, "rdb_launches": launches,
+              "chunks": chunks, "vector_seconds": found_s,
+              "raster": Path(found["raster_paths"][0]).name,
+              "features": found["result"]["feature_count"],
+              "source_method": found["result"]["source_method"],
+              "card": card})
+
+        def planted_job():
+            job_id = srv.json("POST", "/api/vectors", {
+                "raster_path": str(big_tif), "aoi_path": str(big_aoi)})["job_id"]
+            rec = srv.poll(f"/api/vectors/{job_id}", timeout=600)
+            if rec["status"] != "completed":
+                raise AssertionError(f"/api/vectors 4096²: {rec['message']}")
+            planted.append(rec)
+
+        planted: list = []
+        t1 = time.perf_counter()
+        planted_job()                         # warm
+        first_s = time.perf_counter() - t1
+        prof = device_breakdown(planted_job)
+        rec = planted[-1]
+        passes = dict(ops.PASSES)
+        meta = srv.json("GET", "/api/vectors/metadata")
+        fields = srv.json("GET", "/vectors/fields.geojson")
+        try:
+            srv.request("GET", "/vectors/zones.geojson")
+            raise AssertionError("/vectors/zones.geojson answered 200")
+        except HTTPError as err:
+            zones = (err.code, json.loads(err.read())["detail"])
+        n = rec["result"]["feature_count"]
+        if (n <= 0 or len(fields["features"]) != n
+                or meta.get("featureCount") != n or not meta["vectorsAvailable"]
+                or zones != (404, ZONES_404)):
+            raise AssertionError(f"vector GETs: {n} features, "
+                                 f"{len(fields['features'])} served, "
+                                 f"metadata {meta.get('featureCount')}, "
+                                 f"zones {zones}")
+        timings = meta["metadata"]["stage_timings_s"]
+        syncs = sum(-(-k // ops.CHECK_EVERY_CUDA) for k in passes.values())
+        host = timings["polygonise"] + timings["cleanup"]
+        emit({"phase": "vectors", "route": "/api/vectors 4096² planted",
+              "profile": "POST to completed, warm", "features": n,
+              "first_seconds": first_s, "seconds": prof["wall_ms"] / 1e3,
+              "stage_timings_s": timings, "passes": passes,
+              "check_every": ops.CHECK_EVERY_CUDA, "host_syncs": syncs,
+              "device_idle_share": 1.0 - prof["device_busy_share"],
+              "host_polygonise_share": host / (prof["wall_ms"] / 1e3),
+              **prof, "card": card})
+    split = vector_split(big_tif, big_aoi)
+    emit({"phase": "vectors", "check": "segmentation stage split, 4096²",
+          **split, "card": card})
+
+    # (d) v2 (gradient watershed, k-means zones) on a 5-band planted
+    # raster, card against CPU: the fields equal; the zones' k-means sums
+    # run in another order on the card, so their labels are compared,
+    # not required equal
+    from s2sr_tpu_torch.vectors.extraction_v2 import (
+        ExtractionConfigV2, extract_field_polygons_v2)
+
+    tif5, aoi5 = write_planted_scene(root / "planted5", VECTORS_V2_SIDE,
+                                     seed=3, bands=5)
+    v2 = {}
+    for dev in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        res = extract_field_polygons_v2(aoi5, tif5, root / f"v2_{dev}",
+                                        ExtractionConfigV2(use_osm_roads=False),
+                                        device=dev)
+        zones = root / f"v2_{dev}" / "zones.geojson"
+        v2[dev] = (res, time.perf_counter() - t1,
+                   json.loads(zones.read_text())["features"]
+                   if zones.exists() else [])
+    same = (_geojson_sans_time(v2["cuda"][0]["geojson"])
+            == _geojson_sans_time(v2["cpu"][0]["geojson"]))
+    zones_same = v2["cuda"][2] == v2["cpu"][2]
+    emit({"phase": "vectors", "check": "v2 fields.geojson, card vs CPU",
+          "side": VECTORS_V2_SIDE, "features": v2["cuda"][0]["feature_count"],
+          "equal": same, "zones": [len(v2["cuda"][2]), len(v2["cpu"][2])],
+          "zones_equal": zones_same, "card_seconds": v2["cuda"][1],
+          "cpu_seconds": v2["cpu"][1], "card": card})
+    if not same or v2["cuda"][0]["feature_count"] <= 0:
+        raise AssertionError(f"v2 card vs CPU: equal {same}, "
+                             f"{v2['cuda'][0]['feature_count']} features")
+    emit({"phase": "vectors", "seconds": round(time.perf_counter() - t0, 3)})
 
 
 # --- SwinIR: swin_block and window_attention ------------------------------

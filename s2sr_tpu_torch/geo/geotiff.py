@@ -166,6 +166,7 @@ def _lzw_decode(data: bytes) -> bytes:
         while nbits >= width:
             code = (buf >> (nbits - width)) & ((1 << width) - 1)
             nbits -= width
+            buf &= (1 << nbits) - 1          # keep only the unread bits
             if code == CLEAR:
                 reset()
                 width = 9

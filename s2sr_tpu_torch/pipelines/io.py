@@ -2,11 +2,11 @@
 
 GeoTIFF (by its ``.tif`` / ``.tiff`` suffix) → first 3 bands (or a gray
 band replicated), min-max scaled to uint8 when >8-bit. Any other upload
-is decoded by its content, as PIL does for the JAX package: PNG and JPEG
-by the package's own decoders, to the bytes PIL's ``convert("RGB")``
-gives. Output is a GeoTIFF with the rescaled transform when
-georeferenced, else a PNG, plus the unconditional PNG twin — written
-without PIL.
+is decoded by its content, as PIL does for the JAX package: PNG, JPEG,
+GIF, BMP, WebP and TIFF by the package's own decoders (``tiles/``), to
+the bytes PIL's ``convert("RGB")`` gives. Output is a GeoTIFF with the
+rescaled transform when georeferenced, else a PNG, plus the
+unconditional PNG twin — written without PIL.
 """
 
 from __future__ import annotations
@@ -17,31 +17,39 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..geo import Affine, CRS, GeoTiff, read_geotiff, write_geotiff
+from ..tiles.bmp import decode_bmp
+from ..tiles.gif import decode_gif
 from ..tiles.jpeg import decode_jpeg
 from ..tiles.png import decode_png, encode_png
+from ..tiles.tiff import decode_tiff
+from ..tiles.webp import decode_webp
 
-# formats PIL opens that the port does not decode, by their magic bytes
-_OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
-                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+
+def _decoder(data: bytes):
+    """The decoder of ``data``'s format, by its magic bytes, or None."""
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return decode_png
+    if data[:3] == b"\xff\xd8\xff":
+        return decode_jpeg
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return decode_gif
+    if data[:2] == b"BM":
+        return decode_bmp
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return decode_webp
+    if data[:4] in (b"II*\x00", b"MM\x00*"):
+        return decode_tiff
+    return None
 
 
 def decode_upload(data: bytes, name: str = "upload") -> np.ndarray:
-    """An uploaded image's bytes → uint8 (H, W, 3) RGB, picked by content:
-    PNG and JPEG (gray replicated, alpha dropped). A format PIL would
-    open that the port does not decode raises naming it."""
-    if data[:8] == b"\x89PNG\r\n\x1a\n":
-        img = decode_png(data)
-    elif data[:3] == b"\xff\xd8\xff":
-        img = decode_jpeg(data)
-    else:
-        fmt = next((f for magic, f in _OTHER_FORMATS
-                    if data.startswith(magic)), None)
-        if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-            fmt = "WebP"
-        if fmt is None:
-            raise ValueError(f"cannot identify image file {name!r}")
-        raise ValueError(f"{fmt} uploads are not decoded by the port yet "
-                         "(ROADMAP queue 3 item 5)")
+    """An uploaded image's bytes → uint8 (H, W, 3) RGB, picked by content
+    (gray replicated, alpha dropped): what PIL's ``convert("RGB")``
+    gives, or ``ValueError`` where PIL raises."""
+    decode = _decoder(data)
+    if decode is None:
+        raise ValueError(f"cannot identify image file {name!r}")
+    img = decode(data)
     if img.shape[2] < 3:
         img = np.repeat(img[:, :, :1], 3, axis=2)
     return np.ascontiguousarray(img[:, :, :3])

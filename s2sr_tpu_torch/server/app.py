@@ -14,10 +14,13 @@ pyramid on ``device`` (``cuda`` unless the caller passes ``"cpu"``).
 Handlers never touch the device; the runner thread does, and builds the
 first engine there.
 
+The vector job segments on ``device`` too (``vectors/``), on the same
+runner thread.
+
 Routes: /health /metrics /api/runtime /api/config /api/metadata
-/tiles* /api/sr* /api/wow /api/enhance /api/pipeline* + SPA fallback.
-The JAX server's vector and decode routes are not ported yet
-(:data:`NOT_PORTED_ROUTES`).
+/tiles* /api/sr* /api/wow /api/enhance /api/pipeline* /vectors/*
+/api/vectors* + SPA fallback. The JAX server's decode route is not
+ported yet (:data:`NOT_PORTED_ROUTES`).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from ..pipelines.io import load_rgb
 from ..pipelines.wow_sr import MODEL_DISPLAY, process_wow_sr
 from ..tiles import process_raster_to_tiles
 from ..utils import find_latest_metadata, read_json, setup_logging
-from ..utils.validation import ValidationError, parse
+from ..utils.validation import ValidationError, VectorRequest, parse
 from .http import (
     App,
     BackgroundTasks,
@@ -57,15 +60,9 @@ from .persistence import DurableJobStore
 logger = setup_logging("s2sr_tpu_torch.server")
 
 # Routes of the JAX server this app does not register yet: their
-# subsystems (vectors, ROADMAP queue 1 item 13; decode, item 14) are not
-# ported.
+# subsystem (decode, ROADMAP queue 1 item 14) is not ported.
 NOT_PORTED_ROUTES = (
     ("POST", "/api/decode"),
-    ("GET", "/vectors/fields.geojson"),
-    ("GET", "/vectors/zones.geojson"),
-    ("GET", "/api/vectors/metadata"),
-    ("POST", "/api/vectors"),
-    ("GET", "/api/vectors/{job_id}"),
 )
 
 
@@ -78,6 +75,11 @@ def _new_job_id(prefix: str = "") -> str:
 
 TILE_HEADERS = {
     "Cache-Control": "public, max-age=86400",
+    "Access-Control-Allow-Origin": "*",
+}
+
+GEOJSON_HEADERS = {
+    "Cache-Control": "public, max-age=3600",
     "Access-Control-Allow-Origin": "*",
 }
 
@@ -623,6 +625,133 @@ def create_app(settings: Optional[Settings] = None,
             jobs.update_if(job_id, "queued", status=status, message=message)
         return {"job_id": job_id, "status": status, "message": message,
                 "model": model, "precision": precision}
+
+    # ------------------------------------------------------------------
+    # vectors
+    # ------------------------------------------------------------------
+
+    def run_vector_extraction_job(job_id: str, aoi_path: Path,
+                                  raster_paths: list, config_dict: dict) -> None:
+        try:
+            jobs.update(job_id, status="processing",
+                        message="Extracting field boundaries...")
+            from ..vectors.extraction import ExtractionConfig, extract_field_polygons
+
+            config = ExtractionConfig(
+                ndvi_threshold=config_dict.get("ndvi_threshold", 0.3),
+                min_area_ha=config_dict.get("min_area_ha", 0.1),
+                max_area_ha=config_dict.get("max_area_ha", 500.0),
+                simplify_tolerance_m=config_dict.get("simplify_tolerance_m", 5.0),
+            )
+            result = extract_field_polygons(
+                aoi_geojson=aoi_path, raster_paths=raster_paths,
+                out_dir=vectors_dir, config=config, device=device,
+            )
+            jobs.update(
+                job_id, status="completed",
+                message=f"Extracted {result['feature_count']} field polygons",
+                result={
+                    "feature_count": result["feature_count"],
+                    "output_path": result["output_path"],
+                    "source_method": result["source_method"],
+                })
+        except Exception as exc:
+            logger.error("Vector extraction job %s failed: %s", job_id, exc)
+            jobs.update(job_id, status="failed", message=str(exc))
+
+    @app.get("/vectors/fields.geojson")
+    async def get_fields_geojson():
+        fields_path = vectors_dir / "fields.geojson"
+        if not fields_path.exists():
+            raise HTTPException(
+                404, "Field vectors not found. Run vector extraction first: "
+                     "make vectors")
+        return json_response(read_json(fields_path), headers={
+            **GEOJSON_HEADERS, "Content-Type": "application/geo+json"})
+
+    @app.get("/vectors/zones.geojson")
+    async def get_zones_geojson():
+        zones_path = vectors_dir / "zones.geojson"
+        if not zones_path.exists():
+            raise HTTPException(
+                404, "Management zones not found. Run v2 vector extraction "
+                     "with --zones")
+        return json_response(read_json(zones_path), headers={
+            **GEOJSON_HEADERS, "Content-Type": "application/geo+json"})
+
+    @app.get("/api/vectors/metadata")
+    async def get_vectors_metadata():
+        fields_path = vectors_dir / "fields.geojson"
+        metadata_path = vectors_dir / "extraction_metadata.json"
+        result = {
+            "vectorsAvailable": fields_path.exists(),
+            "endpoint": "/vectors/fields.geojson",
+        }
+        if metadata_path.exists():
+            result["metadata"] = read_json(metadata_path)
+        if fields_path.exists():
+            try:
+                geojson = read_json(fields_path)
+                result["featureCount"] = len(geojson.get("features", []))
+                result["properties"] = geojson.get("properties", {})
+            except Exception as exc:
+                logger.warning("Failed to read fields.geojson: %s", exc)
+        return result
+
+    @app.post("/api/vectors")
+    async def start_vector_extraction(request: Request,
+                                      background_tasks: BackgroundTasks):
+        body = _validate(VectorRequest, request)
+        if body.aoi_path:
+            aoi_path = Path(body.aoi_path)
+        else:
+            aoi_path = Path(settings.aoi_path)
+        if not aoi_path.exists():
+            raise HTTPException(404, f"AOI file not found: {aoi_path}")
+
+        raster_paths: list = []
+        if body.raster_path:
+            raster_paths.append(Path(body.raster_path))
+        else:
+            # the rasters the job routes write: wow, then sr, then the
+            # source scene, newest first
+            for search_dir in (data_dir / "wow", data_dir / "sr", source_dir):
+                if search_dir.exists():
+                    tifs = sorted(search_dir.rglob("*.tif"),
+                                  key=lambda x: x.stat().st_mtime, reverse=True)
+                    if tifs:
+                        raster_paths.append(tifs[0])
+                        break
+        if not raster_paths:
+            raise HTTPException(
+                404, "No raster files found. Run the pipeline or specify "
+                     "raster_path.")
+
+        job_id = _new_job_id("vectors_")
+        config = {
+            "ndvi_threshold": body.ndvi_threshold,
+            "min_area_ha": body.min_area_ha,
+            "max_area_ha": body.max_area_ha,
+            "simplify_tolerance_m": body.simplify_tolerance_m,
+        }
+        jobs.create(job_id, status="queued",
+                    message="Vector extraction queued",
+                    aoi_path=str(aoi_path),
+                    raster_paths=[str(p) for p in raster_paths],
+                    config=config)
+        background_tasks.add_task(
+            runner.submit, job_id,
+            lambda: run_vector_extraction_job(job_id, aoi_path, raster_paths,
+                                              config))
+        return {"job_id": job_id, "status": "queued",
+                "message": f"Vector extraction started from {raster_paths[0].name}"}
+
+    @app.get("/api/vectors/{job_id}")
+    async def get_vector_job_status(job_id: str):
+        job = jobs.get(job_id)
+        if job is None:
+            raise HTTPException(404, "Job not found")
+        return job
 
     # ------------------------------------------------------------------
     # pipeline

@@ -19,9 +19,26 @@ has no PIL, so the port decodes on the host with the same arithmetic:
 - no EXIF rotation, since ``Image.open`` applies none.
 
 A complete progressive file is output without block smoothing, as
-libjpeg does once every coefficient is known. Arithmetic coding,
-lossless and hierarchical files, 12-bit samples and 4-component (CMYK,
-YCCK) files raise ``ValueError`` naming what they are.
+libjpeg does once every coefficient is known. Besides:
+
+- arithmetic coding, sequential and progressive (SOF9, SOF10; the
+  QM-coder and models of ``jdarith.c`` in :mod:`.jpeg_arith`);
+- lossless files (SOF3, 8-bit, every component sampled 1×1): the seven
+  predictors, the point transform, restarts per row; libjpeg-turbo
+  converts no colour there, so PIL refuses a 3-component file that
+  JFIF or an Adobe transform marks as YCbCr, and so does this decoder;
+- 4-component files: CMYK, or YCCK (Adobe transform 2) converted to
+  CMYK as ``jdcolor.c::ycck_cmyk_convert``; PIL reads them inverted
+  ("CMYK;I", Adobe's convention) and converts with ``cmyk2rgb``;
+- corrupt entropy data as libjpeg recovers from it: a code no table
+  holds reads as symbol 0 after 17 bits, DC predictions wrap at 16
+  bits, and an MCU that needs bits past its segment's end is decoded
+  on zeros while the rest of that restart interval stays zero.
+
+A scan whose data ends without a marker (a truncated file) raises, as
+PIL does without ``LOAD_TRUNCATED_IMAGES``; so do hierarchical files,
+arithmetic lossless files and samples of other than 8 bits, which PIL
+refuses too.
 """
 
 from __future__ import annotations
@@ -30,6 +47,7 @@ import struct
 
 import numpy as np
 
+from .jpeg_arith import decode_scan_arith
 from .png import check_image_size
 
 # zigzag index → natural (row-major) index, with libjpeg's 16 spare
@@ -41,19 +59,20 @@ _NATURAL = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
     + [63] * 16)
 
+# frames PIL's libjpeg-turbo refuses ("broken data stream")
 _UNSUPPORTED_SOF = {
-    0xC3: "lossless (SOF3)", 0xC5: "hierarchical (SOF5)",
-    0xC6: "hierarchical (SOF6)", 0xC7: "hierarchical lossless (SOF7)",
-    0xC9: "arithmetic-coded (SOF9)", 0xCA: "arithmetic-coded progressive (SOF10)",
+    0xC5: "hierarchical (SOF5)", 0xC6: "hierarchical (SOF6)",
+    0xC7: "hierarchical lossless (SOF7)",
     0xCB: "arithmetic-coded lossless (SOF11)",
     0xCD: "arithmetic-coded hierarchical (SOF13)",
     0xCE: "arithmetic-coded hierarchical (SOF14)",
     0xCF: "arithmetic-coded hierarchical lossless (SOF15)"}
-_REFUSED = "not decoded by the port yet (ROADMAP queue 3 item 5)"
+_FRAMES = {0xC0: "huffman", 0xC1: "huffman", 0xC2: "progressive",
+           0xC9: "arith", 0xCA: "arith_progressive", 0xC3: "lossless"}
 
 
 def _refuse(what: str):
-    return ValueError(f"{what} JPEG is {_REFUSED}")
+    return ValueError(f"{what} JPEG is not decoded (PIL refuses it too)")
 
 
 # --- entropy decoding --------------------------------------------------------
@@ -61,8 +80,8 @@ def _refuse(what: str):
 def _huff_lut(counts: bytes, symbols: bytes) -> list:
     """A 16-bit lookup table: the next 16 bits of the stream → ``length <<
     8 | symbol`` (canonical codes, JPEG Annex C); a bad code reads as
-    symbol 0 of length 16."""
-    lut = np.full(1 << 16, 16 << 8, np.int64)
+    symbol 0 after 17 bits, as ``jpeg_huff_decode`` gives up."""
+    lut = np.full(1 << 16, 17 << 8, np.int64)
     code = k = 0
     for length in range(1, 17):
         for _ in range(counts[length - 1]):
@@ -77,12 +96,14 @@ def _huff_lut(counts: bytes, symbols: bytes) -> list:
 class _Bits:
     """An entropy-coded segment (stuffing removed) read at bit ``pos``
     through ``win``, the 32 bits that start at each byte; past its end the
-    stream reads as zeros, as libjpeg fills it."""
+    stream reads as zeros, as libjpeg fills it, for ``pad`` bytes (room
+    for one MCU); ``nbits`` is the segment's real length."""
 
-    __slots__ = ("win", "pos")
+    __slots__ = ("win", "pos", "nbits")
 
-    def __init__(self, seg: bytes):
-        b = np.zeros(len(seg) + 8, np.uint64)
+    def __init__(self, seg: bytes, pad: int = 8):
+        self.nbits = 8 * len(seg)
+        b = np.zeros(len(seg) + pad, np.uint64)
         b[:len(seg)] = np.frombuffer(seg, np.uint8)
         self.win = ((b[:-3] << np.uint64(24)) | (b[1:-2] << np.uint64(16))
                     | (b[2:-1] << np.uint64(8)) | b[3:]).tolist()
@@ -117,16 +138,19 @@ def _segments(data: bytes, pos: int) -> tuple:
 
 
 class _Scan:
-    """One scan's decoding state over its restart segments."""
+    """One scan's decoding state over its restart segments; a missing
+    segment reads as an empty one."""
 
-    def __init__(self, segs: list):
+    def __init__(self, segs: list, pad: int):
         self.segs = segs
         self.seg = 0
-        self.bits = _Bits(segs[0])
+        self.pad = pad
+        self.bits = _Bits(segs[0], pad)
 
     def restart(self):
         self.seg += 1
-        self.bits = _Bits(self.segs[self.seg])
+        seg = self.segs[self.seg] if self.seg < len(self.segs) else b""
+        self.bits = _Bits(seg, self.pad)
 
 
 def _decode_scan(scan: _Scan, comps: list, blocks: "_McuBlocks", coef: list,
@@ -136,18 +160,25 @@ def _decode_scan(scan: _Scan, comps: list, blocks: "_McuBlocks", coef: list,
     memoryview of coefficients in natural order, 64 a block; as fast to
     index from Python as a list, at 2 bytes a coefficient). ``blocks[m]``
     lists the (component slot, block index) of MCU m in order."""
-    win = scan.bits.win
+    win, nbits = scan.bits.win, scan.bits.nbits
     pos = 0
     pred = [0] * len(comps)
     eobrun = 0
     p1, m1 = 1 << al, -1 << al
     natural = _NATURAL.tolist()
+    short = False            # libjpeg's insufficient_data
     for m in range(mcus):
         if restart and m and m % restart == 0:
             scan.restart()
-            win, pos = scan.bits.win, 0
+            win, nbits, pos = scan.bits.win, scan.bits.nbits, 0
             pred = [0] * len(comps)
             eobrun = 0
+            short = False
+        if short:
+            continue
+        if pos > nbits:
+            short = True
+            continue
         for slot, blk in blocks[m]:
             c = comps[slot]
             out = coef[c["index"]]
@@ -164,7 +195,8 @@ def _decode_scan(scan: _Scan, comps: list, blocks: "_McuBlocks", coef: list,
                         v += 1 - (1 << s)
                     s = v
                 pred[slot] += s
-                out[base] = pred[slot] << al if progressive else pred[slot]
+                v = pred[slot] << al if progressive else pred[slot]
+                out[base] = ((v + 0x8000) & 0xFFFF) - 0x8000
                 if progressive:
                     continue
                 ac = lut_ac[c["ta"]]
@@ -277,21 +309,28 @@ _FIX = {"0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433,
         "2_053119869": 16819, "2_562915447": 20995, "3_072711026": 25172}
 
 
+def _w16(x):
+    """Wrap to int16, as a 16-bit SIMD add or multiply keeps its low half."""
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
+
+
 def _idct_1d(v: list, descale: int) -> list:
     """One 8-point pass of ``jpeg_idct_islow`` on int64 arrays ``v[0..7]``
     (the shortcuts for zero AC terms give the same values); outputs
-    descaled by ``descale`` bits with rounding."""
+    descaled by ``descale`` bits with rounding. The sums the AVX2 version
+    forms in 16 bits (``in0 ± in4``, ``z3``, ``z4``) wrap as there; valid
+    data never reaches that range."""
     f = _FIX
     z2, z3 = v[2], v[6]
     z1 = (z2 + z3) * f["0_541196100"]
     tmp2 = z1 - z3 * f["1_847759065"]
     tmp3 = z1 + z2 * f["0_765366865"]
-    tmp0 = (v[0] + v[4]) << _CONST_BITS
-    tmp1 = (v[0] - v[4]) << _CONST_BITS
+    tmp0 = _w16(v[0] + v[4]) << _CONST_BITS
+    tmp1 = _w16(v[0] - v[4]) << _CONST_BITS
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
     t0, t1, t2, t3 = v[7], v[5], v[3], v[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, _w16(t0 + t2), _w16(t1 + t3)
     z5 = (z3 + z4) * f["1_175875602"]
     t0 = t0 * f["0_298631336"]
     t1 = t1 * f["2_053119869"]
@@ -312,19 +351,23 @@ def _idct_1d(v: list, descale: int) -> list:
 
 
 def idct_islow(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
-    """libjpeg's accurate integer IDCT: (N, 64) natural-order coefficients
-    and their 64 quantizers → (N, 8, 8) uint8 samples, through the
-    post-IDCT range-limit table (values wrap modulo 1024 before the clamp,
-    as ``& RANGE_MASK`` does)."""
-    x = coef.astype(np.int64).reshape(-1, 8, 8) * qtable.astype(np.int64).reshape(8, 8)
+    """libjpeg's accurate integer IDCT as libjpeg-turbo's AVX2 version
+    computes it (the one PIL runs on x86-64): (N, 64) natural-order
+    coefficients and their 64 quantizers → (N, 8, 8) uint8 samples. The
+    dequantized coefficients are 16-bit products, the first pass's
+    outputs saturate to 16 bits, and the samples saturate to 0..255 (the
+    C version wraps values beyond ±512 first); only corrupt data reaches
+    any of these limits."""
+    x = _w16(coef.astype(np.int64).reshape(-1, 8, 8)
+             * qtable.astype(np.int64).reshape(8, 8))
     # pass 1: columns (along the row index), into the work array
     ws = _idct_1d([x[:, k, :] for k in range(8)], _CONST_BITS - _PASS1_BITS)
-    ws = np.stack(ws, axis=1)
+    ws = np.clip(np.stack(ws, axis=1), -0x8000, 0x7FFF)
     # pass 2: rows
     out = _idct_1d([ws[:, :, k] for k in range(8)],
                    _CONST_BITS + _PASS1_BITS + 3)
     out = np.stack(out, axis=2)
-    return np.clip(((out + 512) & 1023) - 512 + 128, 0, 255).astype(np.uint8)
+    return np.clip(out + 128, 0, 255).astype(np.uint8)
 
 
 def _edge_pad(p: np.ndarray, axis: int) -> np.ndarray:
@@ -410,29 +453,70 @@ def _ycc_tables():
 _YCC = _ycc_tables()
 
 
-def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
-    """``jdcolor.c::ycc_rgb_convert`` on uint8 planes → (H, W, 3) uint8."""
+def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+               clip: bool = True) -> np.ndarray:
+    """``jdcolor.c::ycc_rgb_convert`` on uint8 planes → (H, W, 3) uint8
+    (int64 before the range limit with ``clip=False``)."""
     cr_r, cb_b, cr_g, cb_g = _YCC
     yi = y.astype(np.int64)
     r = yi + cr_r[cr]
     g = yi + ((cb_g[cb] + cr_g[cr]) >> 16)
     b = yi + cb_b[cb]
-    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+    rgb = np.stack([r, g, b], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8) if clip else rgb
+
+
+def _output_lossless(frame, planes, jfif, adobe, transform) -> np.ndarray:
+    """Lossless samples, shifted back by the point transform and kept as
+    8-bit samples; libjpeg-turbo converts no colour in lossless mode, so
+    a 3-component file marked YCbCr is refused, as PIL refuses it."""
+    if "lossless_pt" not in frame:
+        raise ValueError("JPEG lossless frame has no scan")
+    pt = frame["lossless_pt"]
+    img = np.stack([(np.asarray(p, np.int64) << pt) & 0xFF for p in planes],
+                   -1).astype(np.uint8)
+    if img.shape[2] == 3 and (jfif or (adobe and transform != 0)):
+        raise ValueError("broken data stream: lossless JPEG in YCbCr")
+    if img.shape[2] == 4:
+        return cmyk_to_rgb(255 - img)
+    return img
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's ``Convert.c::cmyk2rgb`` on (H, W, 4) uint8: with nk = 255 − K,
+    each channel nk − MULDIV255(C, nk), MULDIV255 rounding as PIL's
+    ``((t >> 8) + t) >> 8`` with t = a·b + 128."""
+    c = cmyk.astype(np.int32)
+    nk = 255 - c[..., 3:4]
+    t = c[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
 # --- the file ---------------------------------------------------------------
 
-def decode_jpeg(data: bytes) -> np.ndarray:
+def decode_jpeg(data: bytes, colour: str | None = None) -> np.ndarray:
+    try:
+        return _decode(data, colour)
+    except (IndexError, KeyError, struct.error):
+        # a header that ends early or names a table or component the file
+        # never defines: libjpeg stops with an error, PIL raises
+        raise ValueError("broken data stream when reading JPEG") from None
+
+
+def _decode(data: bytes, colour: str | None = None) -> np.ndarray:
     """Decode a JPEG → (H, W, 3) uint8 RGB, or (H, W, 1) for a grayscale
     file: the bytes PIL's ``Image.open(...).convert("RGB")`` gives (gray
-    replicated to RGB there)."""
+    replicated to RGB there). ``colour`` overrides libjpeg's colour-space
+    rule for 3 components: ``"ycc"`` converts, ``"none"`` keeps the
+    samples (libtiff's two settings)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG")
     qt: dict = {}
     lut_dc: dict = {}
     lut_ac: dict = {}
     frame = None
-    progressive = False
+    mode = None
+    dac: dict = {}
     restart = 0
     jfif = adobe = False
     transform = None
@@ -486,29 +570,37 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         elif marker in _UNSUPPORTED_SOF:
             raise _refuse(_UNSUPPORTED_SOF[marker])
         elif marker == 0xCC:
-            raise _refuse("arithmetic-coded (DAC)")
-        elif marker in (0xC0, 0xC1, 0xC2):
-            frame = _frame(seg, marker)
-            progressive = marker == 0xC2
-            coef = [np.zeros(c["bh"] * c["bw"] * 64, np.int16)
-                    for c in frame["comps"]]
+            for i in range(0, len(seg) - 1, 2):   # arithmetic conditioning
+                tc, tb, cs = seg[i] >> 4, seg[i] & 15, seg[i + 1]
+                dac[("ac", tb) if tc else ("dc", tb)] = (
+                    cs if tc else (cs & 15, cs >> 4))
+        elif marker in _FRAMES:
+            mode = _FRAMES[marker]
+            frame = _frame(seg, mode)
+            if mode == "lossless":
+                coef = [[[0] * frame["width"] for _ in range(frame["height"])]
+                        for _ in frame["comps"]]
+            else:
+                coef = [np.zeros(c["bh"] * c["bw"] * 64, np.int16)
+                        for c in frame["comps"]]
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("JPEG scan before its frame header")
             pos = _scan(data, pos, seg, frame, coef, restart, qt, lut_dc,
-                        lut_ac, progressive)
+                        lut_ac, mode, dac)
     if frame is None:
         raise ValueError("JPEG without a frame header")
-    return _output(frame, coef, jfif, adobe, transform)
+    if mode == "lossless":
+        return _output_lossless(frame, coef, jfif, adobe, transform)
+    return _output(frame, coef, jfif, adobe, transform, colour)
 
 
-def _frame(seg: bytes, marker: int) -> dict:
+def _frame(seg: bytes, mode: str) -> dict:
     precision, height, width, nc = struct.unpack(">BHHB", seg[:6])
     if precision != 8:
         raise _refuse(f"{precision}-bit")
-    if nc not in (1, 3):
-        raise _refuse(f"{nc}-component (CMYK / YCCK)" if nc == 4
-                      else f"{nc}-component")
+    if nc not in (1, 3, 4):
+        raise _refuse(f"{nc}-component")
     if height == 0 or width == 0:
         raise _refuse("DNL-sized")
     check_image_size(width, height)
@@ -525,8 +617,12 @@ def _frame(seg: bytes, marker: int) -> dict:
         c["dh"] = -(-height * c["v"] // vmax)
         c["wb"], c["hb"] = -(-c["dw"] // 8), -(-c["dh"] // 8)
         c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]  # stored, padded
+    if mode == "lossless" and (hmax, vmax) != (1, 1):
+        raise ValueError("JPEG lossless with subsampled components is not "
+                         "decoded")
     return {"width": width, "height": height, "comps": comps, "hmax": hmax,
-            "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "qt": {}}
+            "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "qt": {},
+            "precision": precision}
 
 
 class _McuBlocks:
@@ -556,17 +652,18 @@ class _McuBlocks:
                 for slot, row, step, off in self.parts]
 
 
-def _scan(data, pos, seg, frame, coef, restart, qt, lut_dc, lut_ac,
-          progressive):
+def _scan(data, pos, seg, frame, coef, restart, qt, lut_dc, lut_ac, mode,
+          dac):
     ns = seg[0]
     by_id = {c["id"]: c for c in frame["comps"]}
     comps = []
+    lossless = mode == "lossless"
     for k in range(ns):
         c = by_id[seg[1 + 2 * k]]
         c["td"], c["ta"] = seg[2 + 2 * k] >> 4, seg[2 + 2 * k] & 15
         # the quantization table in force when a component is first
         # scanned is the one its IDCT uses (libjpeg latches it)
-        if c["index"] not in frame["qt"]:
+        if not lossless and c["index"] not in frame["qt"]:
             if c["tq"] not in qt:
                 raise ValueError(f"JPEG quantization table {c['tq']} "
                                  "is not defined")
@@ -574,20 +671,98 @@ def _scan(data, pos, seg, frame, coef, restart, qt, lut_dc, lut_ac,
         comps.append(c)
     ss, se, a = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
     ah, al = a >> 4, a & 15
-    blocks = _McuBlocks(frame, comps)
+    if mode in ("progressive", "arith_progressive") and (
+            (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1))
+            or (ah and al != ah - 1) or al > 13):
+        raise ValueError("broken data stream: invalid progressive scan")
     segs, end = _segments(data, pos)
+    if end >= len(data):
+        # no marker after the scan: libjpeg asks for more data and PIL
+        # refuses the file
+        raise ValueError("image file is truncated")
+    if lossless:
+        _lossless_scan(segs, comps, frame, coef, restart, lut_dc, ss, al)
+        return end
+    blocks = _McuBlocks(frame, comps)
+    progressive = mode in ("progressive", "arith_progressive")
     try:
-        _decode_scan(_Scan(segs), comps, blocks,
-                     [memoryview(c) for c in coef], len(blocks), restart,
-                     lut_dc, lut_ac, ss, se, ah, al, progressive)
-    except (IndexError, KeyError, ValueError):
-        # the bits ran out, a restart segment or a Huffman table is
-        # missing, or a coefficient left libjpeg's 16 bits
-        raise ValueError("JPEG scan data is truncated or corrupt") from None
+        if mode.startswith("arith"):
+            decode_scan_arith(segs, comps, blocks, [memoryview(c) for c in coef],
+                              len(blocks), restart, dac, ss, se, ah, al,
+                              progressive, _NATURAL.tolist())
+        else:
+            pad = 8 + 216 * len(blocks[0])   # one MCU's most bits, on zeros
+            _decode_scan(_Scan(segs, pad), comps, blocks,
+                         [memoryview(c) for c in coef], len(blocks), restart,
+                         lut_dc, lut_ac, ss, se, ah, al, progressive)
+    except (IndexError, KeyError):
+        # a Huffman table is missing or the run left its block
+        raise ValueError("JPEG scan data is corrupt") from None
     return end
 
 
-def _output(frame, coef, jfif, adobe, transform) -> np.ndarray:
+_PREDICTORS = (
+    None, lambda a, b, c: a, lambda a, b, c: b, lambda a, b, c: c,
+    lambda a, b, c: a + b - c, lambda a, b, c: a + ((b - c) >> 1),
+    lambda a, b, c: b + ((a - c) >> 1), lambda a, b, c: (a + b) >> 1)
+
+
+def _lossless_scan(segs, comps, frame, planes, restart, lut_dc, psv, pt):
+    """A lossless scan (``jdlhuff.c``, ``jddiffct.c``, ``jdpred.c``):
+    Huffman-coded differences, undifferenced per row with predictor
+    ``psv``; the first row of the scan and of each restart interval
+    predicts from 2^(P-Pt-1) then from the left, the first column from
+    above; values modulo 2^16, then shifted left by ``pt``."""
+    if not 1 <= psv <= 7:
+        raise ValueError(f"JPEG lossless predictor {psv} is out of range")
+    width, height = frame["width"], frame["height"]
+    if restart and restart % width:
+        raise _refuse("lossless with a restart interval inside a row,")
+    rows_per_interval = restart // width if restart else 0
+    predict = _PREDICTORS[psv]
+    init = 1 << (frame["precision"] - pt - 1)
+    seg_i = 0
+    bits = _Bits(segs[0], 8 + 4 * width * len(comps))
+    win, pos = bits.win, 0
+    for y in range(height):
+        if rows_per_interval and y and y % rows_per_interval == 0:
+            seg_i += 1
+            bits = _Bits(segs[seg_i] if seg_i < len(segs) else b"",
+                         8 + 4 * width * len(comps))
+            win, pos = bits.win, 0
+        first = y == 0 or (rows_per_interval and y % rows_per_interval == 0)
+        diffs = [[0] * width for _ in comps]
+        for x in range(width):
+            for slot, c in enumerate(comps):
+                e = lut_dc[c["td"]][(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                pos += e >> 8
+                s = e & 0xFF
+                if s == 16:
+                    d = 32768
+                elif s:
+                    d = (win[pos >> 3] >> (32 - s - (pos & 7))) & ((1 << s) - 1)
+                    pos += s
+                    if d < 1 << (s - 1):
+                        d += 1 - (1 << s)
+                else:
+                    d = 0
+                diffs[slot][x] = d
+        for slot, c in enumerate(comps):
+            row = planes[c["index"]][y]
+            above = planes[c["index"]][y - 1] if y else None
+            d = diffs[slot]
+            for x in range(width):
+                if first:
+                    p = init if x == 0 else row[x - 1]
+                elif x == 0:
+                    p = above[0]
+                else:
+                    p = predict(row[x - 1], above[x], above[x - 1])
+                row[x] = (p + d[x]) & 0xFFFF
+    frame["lossless_pt"] = pt
+
+
+def _output(frame, coef, jfif, adobe, transform, colour=None) -> np.ndarray:
     height, width = frame["height"], frame["width"]
     planes = []
     for c in frame["comps"]:
@@ -605,8 +780,16 @@ def _output(frame, coef, jfif, adobe, transform) -> np.ndarray:
         planes.append(up[:height, :width])
     if len(planes) == 1:
         return planes[0][:, :, None]
+    if len(planes) == 4:
+        if adobe and transform != 0:              # YCCK → CMYK
+            cmy = 255 - ycc_to_rgb(*planes[:3], clip=False)
+            planes = [*np.moveaxis(np.clip(cmy, 0, 255).astype(np.uint8), -1, 0),
+                      planes[3]]
+        return cmyk_to_rgb(255 - np.stack(planes, -1))
     ids = [c["id"] for c in frame["comps"]]
-    if jfif:
+    if colour is not None:
+        ycc = colour == "ycc"
+    elif jfif:
         ycc = True
     elif adobe:
         ycc = transform != 0

@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
+from typing import Optional
 
 _INT_STR = re.compile(r"[+-]?[0-9]+(?:_[0-9]+)*(?:\.0+)?")
 _TRUE = frozenset(("1", "on", "t", "true", "y", "yes"))
@@ -131,3 +132,16 @@ def parse(cls, data: dict):
     if errors:
         raise ValidationError(cls.__name__, errors)
     return cls(**values)
+
+
+@dataclasses.dataclass
+class VectorRequest:
+    """``POST /api/vectors``: the JAX server's pydantic model, same
+    fields, defaults and lax coercions (through :func:`parse`)."""
+
+    aoi_path: Optional[str] = None
+    raster_path: Optional[str] = None
+    ndvi_threshold: float = 0.3
+    min_area_ha: float = 0.1
+    max_area_ha: float = 500.0
+    simplify_tolerance_m: float = 5.0

@@ -450,18 +450,28 @@ def _sof(marker: int, precision: int = 8, nc: int = 3) -> bytes:
     (_sof(0xCA), "arithmetic-coded progressive"), (_sof(0xC5), "hierarchical"),
     (_sof(0xC1, precision=12), "12-bit"), (_sof(0xC0, nc=4), "CMYK")])
 def test_unsupported_jpeg_refused_by_name(data, named):
-    """What the decoder does not decode raises, naming the kind and
-    its ROADMAP item."""
-    with pytest.raises(ValueError, match=f"{named}.*ROADMAP queue 3 item 5"):
+    """A frame header and nothing after it, of each kind: PIL refuses the
+    bytes, and so does the decoder. Complete files of the kinds PIL
+    decodes (lossless, arithmetic, CMYK) decode to PIL's bytes
+    (``test_torch_decode_jpeg.py``); hierarchical and 12-bit ones PIL
+    refuses whole, and the decoder names them."""
+    with pytest.raises(Exception):
+        Image.open(io.BytesIO(data)).convert("RGB")
+    with pytest.raises(ValueError):
         decode_jpeg(data)
+    if named in ("hierarchical", "12-bit"):
+        with pytest.raises(ValueError, match=f"{named}.*PIL refuses it too"):
+            decode_jpeg(data)
 
 
 def test_cmyk_jpeg_from_pil_refused():
-    """A real 4-component file (PIL's CMYK with the Adobe marker)."""
+    """A real 4-component file (PIL's CMYK with the Adobe marker): since
+    the CMYK decode it is no longer refused, and gives PIL's bytes
+    (inverted Adobe CMYK through PIL's ``cmyk2rgb``)."""
     buf = io.BytesIO()
     Image.fromarray(photo(16, 16)).convert("CMYK").save(buf, format="JPEG")
-    with pytest.raises(ValueError, match="CMYK"):
-        decode_upload(buf.getvalue())
+    data = buf.getvalue()
+    assert np.array_equal(decode_upload(data), pil_rgb(data))
 
 
 # --- headers that declare more than the data holds ---------------------------
@@ -495,12 +505,21 @@ def test_decompression_bomb_refused_as_pil_refuses(kind):
 
 @pytest.mark.parametrize("kind", ["png", "jpeg"])
 def test_declared_size_without_its_data_refused(kind):
-    """13000² is under the limit; with the data of a 16² image the file
-    is refused as truncated, early: a PNG inflates no more than its
-    header needs and is checked before its samples are allocated; a
-    JPEG's bits run out in its first rows."""
-    with pytest.raises(ValueError, match="truncated"):
-        decode_upload(_declared(kind, 13000))
+    """A header that declares more than the file holds. PNG: 13000² with
+    the data of 16² is refused as truncated, early (PIL refuses it too):
+    it inflates no more than its header needs and is checked before its
+    samples are allocated. JPEG: libjpeg zero-fills what the data does not
+    reach (gray below the last decoded MCU) and PIL returns that image;
+    so does the decoder, byte-equal, here at 600² (the decode of a
+    13000² fill takes the decoder minutes where PIL's C takes a second)."""
+    if kind == "png":
+        with pytest.raises(ValueError, match="truncated"):
+            decode_upload(_declared(kind, 13000))
+        return
+    data = _declared(kind, 600)
+    got = decode_upload(data)
+    assert got.shape == (600, 600, 3) and np.array_equal(got, pil_rgb(data))
+    assert (got[100:] == 128).all()
 
 
 # --- load_rgb: the decoder by the file's content --------------------------------
@@ -522,9 +541,13 @@ def test_load_rgb_sniffs_content_not_suffix(tmp_path):
     ("WebP", b"RIFF\x00\x00\x00\x00WEBPVP8 "),
     ("TIFF", b"II*\x00\x08\x00\x00\x00")])
 def test_load_rgb_refuses_other_formats_by_name(tmp_path, fmt, data):
-    """Formats PIL opens and the port does not: named in the error."""
+    """GIF, BMP, WebP and TIFF are decoded since these decoders landed
+    (``test_torch_decode_formats.py``); these headers with nothing after
+    them PIL refuses, and so does ``load_rgb``."""
     (tmp_path / "up.png").write_bytes(data)
-    with pytest.raises(ValueError, match=f"{fmt}.*ROADMAP queue 3 item 5"):
+    with pytest.raises(Exception):
+        Image.open(tmp_path / "up.png").convert("RGB")
+    with pytest.raises(ValueError):
         load_rgb(tmp_path / "up.png")
 
 

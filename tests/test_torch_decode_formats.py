@@ -1,0 +1,394 @@
+"""The port's BMP, GIF, TIFF and WebP upload decoders
+(``s2sr_tpu_torch/tiles/{bmp,gif,tiff,webp}.py``, through
+``pipelines/io.py::decode_upload``) against PIL, which the JAX package
+opens every non-GeoTIFF upload with (``Image.open(path).convert("RGB")``).
+
+Tolerance: byte-equal to PIL, or PIL and the port both refusing the same
+bytes. PIL writes the BMP, GIF, TIFF and WebP files it can (every mode,
+compression and codec option it exposes); a small writer below makes the
+BMP variants PIL cannot write (OS/2 and V4/V5 headers, 16-bit and
+bitfield layouts, RLE8/RLE4 with deltas, top-down rows).
+"""
+
+import io
+import struct
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from s2sr_tpu_torch.pipelines.io import decode_upload, load_rgb
+
+from test_torch_decode import photo, pil_rgb
+
+
+def _same_as_pil(data: bytes) -> None:
+    want = pil_rgb(data)
+    got = decode_upload(data)
+    assert got.dtype == np.uint8 and got.flags.c_contiguous
+    assert got.shape == want.shape and np.array_equal(got, want)
+
+
+def _both_refuse(data: bytes) -> None:
+    with pytest.raises(Exception):
+        pil_rgb(data)
+    with pytest.raises(ValueError):
+        decode_upload(data)
+
+
+def _pil_file(img: Image.Image, fmt: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, format=fmt, **kw)
+    return buf.getvalue()
+
+
+def _noise(shape, seed=0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, shape).astype(np.uint8)
+
+
+# --- BMP ------------------------------------------------------------------------
+
+def bmp_file(width, height, bits, pixels, compression=0, header=40,
+             palette=None, masks=None, topdown=False, colors=0,
+             offset=None) -> bytes:
+    """A BMP of ``pixels`` (the stored pixel bytes) with the given header
+    (12, 40, 52, 56, 108, 124), palette (RGB entries), bitfield masks
+    (in the V2+ header, or after a 40-byte one) and data offset."""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, width, height, 1, bits)
+        pad = 3
+    else:
+        h = 2 ** 32 - height if topdown else height
+        info = struct.pack("<IIIHHIIiiII", header, width, h, 1, bits,
+                           compression, len(pixels), 2835, 2835, colors, 0)
+        if header >= 52 and masks is not None:
+            m = list(masks) + [0] * (4 - len(masks))
+            info += struct.pack("<4I", *m)[:header - 40]
+        info += bytes(header - len(info))
+        pad = 4
+    extra = struct.pack("<3I", *masks[:3]) if header == 40 and masks else b""
+    pal = b"".join(bytes((b, g, r)) + bytes(pad - 3)
+                   for r, g, b in (palette if palette is not None else []))
+    body = info + extra + pal
+    off = 14 + len(body) if offset is None else offset
+    body += bytes(max(0, off - 14 - len(body)))
+    return (b"BM" + struct.pack("<IHHI", 14 + len(body) + len(pixels), 0, 0,
+                                off) + body + pixels)
+
+
+def _rows(rows: np.ndarray, stride: int) -> bytes:
+    return b"".join(r.tobytes() + bytes(stride - len(r.tobytes())) for r in rows)
+
+
+W, H = 13, 7
+PAL = [tuple(int(v) for v in c) for c in _noise((16, 3), 1)]
+
+
+def _indices(bits: int, gray=False) -> bytes:
+    idx = np.random.default_rng(bits).integers(0, min(1 << bits, 16), (H, W))
+    if bits == 8:
+        idx[0, 0] = 200                           # past the 16-entry palette
+    if bits == 1:
+        packed = np.packbits(idx.astype(np.uint8), axis=1)
+    elif bits == 4:
+        p = np.zeros((H, W + 1), np.uint8)
+        p[:, :W] = idx
+        packed = (p[:, 0::2] << 4) | p[:, 1::2]
+    else:
+        packed = idx.astype(np.uint8)
+    return packed
+
+
+def _paletted(bits, header=40, topdown=False, gray=False):
+    packed = _indices(bits)
+    stride = ((W * bits + 31) >> 3) & ~3
+    rows = packed if topdown else packed[::-1]
+    n = min(1 << bits, 16)
+    pal = ([(0, 0, 0), (255, 255, 255)] if bits == 1 else
+           [(i, i, i) for i in range(n)]) if gray else PAL[:n]
+    return bmp_file(W, H, bits, _rows(rows, stride), header=header,
+                    palette=pal, colors=0 if header == 12 else len(pal),
+                    topdown=topdown)
+
+
+def _packed16():
+    px = np.random.default_rng(16).integers(0, 65536, (H, W)).astype("<u2")
+    return _rows(px[::-1], ((W * 16 + 31) >> 3) & ~3)
+
+
+def _packed32():
+    return _noise((H, W, 4), 32)[::-1].tobytes()
+
+
+def _rle8():
+    data = bytearray()
+    for _ in range(H):
+        data += bytes([3, 5, 0, 4, 1, 2, 3, 4, 2, 7, 0, 0])
+    return bytes(data + bytes([0, 1]))
+
+
+def _rle8_delta():
+    # a run, a delta (PIL reads two bytes past the escape's two), an
+    # absolute run of odd length (padded), end of line and a final run
+    data = bytes([5, 1, 0, 2, 9, 9, 2, 0, 0, 3, 4, 5, 6, 0, 0, 0])
+    data += bytes([W, 7, 0, 0]) * (H - 1)
+    return data + bytes([0, 1])
+
+
+def _rle4():
+    data = bytearray()
+    for _ in range(H):
+        data += bytes([5, 0x12, 0, 5, 0x34, 0x56, 0x70, 0, 3, 0x89, 0, 0])
+    return bytes(data)
+
+
+M32 = {"bgrx": (0xFF0000, 0xFF00, 0xFF, 0x0),
+       "xbgr": (0xFF000000, 0xFF0000, 0xFF00, 0x0),
+       "abgr": (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+       "rgba": (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+       "bgra": (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+       "zero_masks": (0, 0, 0, 0)}
+
+BMP_CASES = {
+    **{f"pil_{m}": (lambda m=m: _pil_file(
+        Image.fromarray(photo(13, 17, seed=4)).convert(m), "BMP"))
+       for m in ("1", "L", "RGB", "RGBA")},
+    "pil_P": lambda: _pil_file(Image.fromarray(photo(13, 17)).quantize(37),
+                               "BMP"),
+    **{f"pal{b}_h{h}": (lambda b=b, h=h: _paletted(b, h))
+       for b in (1, 4, 8) for h in (40, 12, 124)},
+    **{f"pal{b}_topdown": (lambda b=b: _paletted(b, topdown=True))
+       for b in (1, 4, 8)},
+    "pal1_black_white": lambda: _paletted(1, gray=True),
+    "pal8_gray_ramp": lambda: _paletted(8, gray=True),
+    "rgb555": lambda: bmp_file(W, H, 16, _packed16()),
+    "bitfields_565_h40": lambda: bmp_file(W, H, 16, _packed16(), 3,
+                                          masks=(0xF800, 0x7E0, 0x1F)),
+    "bitfields_555_h56": lambda: bmp_file(W, H, 16, _packed16(), 3, header=56,
+                                          masks=(0x7C00, 0x3E0, 0x1F, 0)),
+    "raw32": lambda: bmp_file(W, H, 32, _packed32()),
+    **{f"bitfields32_{k}": (lambda m=m: bmp_file(W, H, 32, _packed32(), 3,
+                                                  header=108, masks=m))
+       for k, m in M32.items()},
+    "bitfields32_h40": lambda: bmp_file(W, H, 32, _packed32(), 3,
+                                        masks=(0xFF0000, 0xFF00, 0xFF)),
+    "raw24_v5": lambda: bmp_file(W, H, 24, _rows(
+        _noise((H, W * 3), 24)[::-1], 40), header=124),
+    "os2_24": lambda: bmp_file(W, H, 24, _rows(_noise((H, W * 3), 24)[::-1],
+                                               40), header=12),
+    "rle8": lambda: bmp_file(W, H, 8, _rle8(), 1, palette=PAL, colors=16),
+    "rle8_delta": lambda: bmp_file(W, H, 8, _rle8_delta(), 1, palette=PAL,
+                                   colors=16),
+    "rle4": lambda: bmp_file(W, H, 4, _rle4(), 2, palette=PAL, colors=16),
+    "offset_past_header": lambda: bmp_file(
+        W, H, 8, _rows(_indices(8)[::-1], 16), palette=PAL, colors=16,
+        offset=14 + 40),
+}
+
+
+@pytest.mark.parametrize("name", list(BMP_CASES))
+def test_bmp_matches_pil(name):
+    """Every header, depth, bitfield layout, RLE and row order PIL reads:
+    byte-equal (indices past the palette black, a gray palette read as
+    gray values, as PIL does)."""
+    _same_as_pil(BMP_CASES[name]())
+
+
+BMP_REFUSED = {
+    "truncated": lambda: bmp_file(W, H, 24, _rows(
+        _noise((H, W * 3), 24)[::-1], 40)[:-5]),
+    "depth_2": lambda: bmp_file(W, H, 2, bytes(64)),
+    "compression_jpeg": lambda: bmp_file(W, H, 24, bytes(320), 4),
+    "bitfields_odd_masks": lambda: bmp_file(W, H, 16, _packed16(), 3,
+                                            masks=(0xF00, 0xF0, 0xF)),
+    "rle_short_of_pixels": lambda: bmp_file(W, H, 8, bytes([3, 5, 0, 1]), 1,
+                                            palette=PAL, colors=16),
+    "pal4_gray": lambda: _paletted(4, gray=True),
+    "header_size_20": lambda: b"BM" + bytes(8) + struct.pack("<II", 30, 20)
+    + bytes(30),
+}
+
+
+@pytest.mark.parametrize("name", list(BMP_REFUSED))
+def test_bmp_refused_as_pil_refuses(name):
+    _both_refuse(BMP_REFUSED[name]())
+
+
+# --- GIF ------------------------------------------------------------------------
+
+def _gif_frames(n, **kw):
+    frames = [Image.fromarray(photo(40, 50, seed=s)) for s in range(n)]
+    return _pil_file(frames[0], "GIF", save_all=True, append_images=frames[1:],
+                     **kw)
+
+
+def _gif_offset_frame():
+    """A 20×30 frame at (7, 5) on a 40×50 screen: PIL's canvas grows to
+    neither side and fills the rest with index 0."""
+    data = bytearray(_pil_file(Image.fromarray(photo(20, 30, 6)), "GIF"))
+    data[6:10] = struct.pack("<HH", 50, 40)
+    at = data.index(b"\x2c")
+    data[at + 1:at + 5] = struct.pack("<HH", 7, 5)
+    return bytes(data)
+
+
+def _gif_bigger_frame():
+    data = bytearray(_pil_file(Image.fromarray(photo(20, 30, 7)), "GIF"))
+    at = data.index(b"\x2c")
+    data[at + 1:at + 5] = struct.pack("<HH", 3, 2)    # canvas grows
+    return bytes(data)
+
+
+GIF_CASES = {
+    "rgb": lambda: _pil_file(Image.fromarray(photo(37, 53)), "GIF"),
+    "rgb_interlaced": lambda: _pil_file(Image.fromarray(photo(37, 53)), "GIF",
+                                        interlace=True),
+    "rgb_not_interlaced": lambda: _pil_file(Image.fromarray(photo(37, 53)),
+                                            "GIF", interlace=False),
+    "gray": lambda: _pil_file(Image.fromarray(photo(37, 53)).convert("L"),
+                              "GIF"),
+    "palette_transparency": lambda: _pil_file(
+        Image.fromarray(photo(37, 53)).quantize(7), "GIF", transparency=3),
+    "tiny": lambda: _pil_file(Image.fromarray(_noise((3, 5, 3))), "GIF"),
+    "large_lzw_table": lambda: _pil_file(Image.fromarray(_noise((120, 160, 3))),
+                                         "GIF"),
+    "animated_disposal_2": lambda: _gif_frames(3, duration=100, loop=0,
+                                               disposal=2),
+    "animated_transparency": lambda: _gif_frames(3, transparency=0),
+    "frame_offset": _gif_offset_frame,
+    "frame_past_screen": _gif_bigger_frame,
+}
+
+
+@pytest.mark.parametrize("name", list(GIF_CASES))
+def test_gif_matches_pil(name):
+    """The first frame, interlaced or not, global or local table, with a
+    transparent index (written as any other), on a canvas that the frame
+    may not fill or may grow: byte-equal."""
+    _same_as_pil(GIF_CASES[name]())
+
+
+@pytest.mark.parametrize("cut", [100, 30])
+def test_gif_refused_as_pil_refuses(cut):
+    _both_refuse(_pil_file(Image.fromarray(photo(40, 50)), "GIF")[:cut])
+
+
+# --- TIFF by content ------------------------------------------------------------
+
+def _tiff_images():
+    rgb = Image.fromarray(photo(29, 37, seed=5))
+    gray = np.asarray(rgb.convert("L"))
+    return {
+        "RGB": rgb, "L": rgb.convert("L"), "1": rgb.convert("1"),
+        "P": rgb.quantize(19), "RGBA": rgb.convert("RGBA"),
+        "LA": rgb.convert("LA"), "CMYK": rgb.convert("CMYK"),
+        "I;16": Image.fromarray(gray.astype(np.uint16) * 7),
+        "I": Image.fromarray(gray.astype(np.int32) * 3 - 100),
+        "F": Image.fromarray(gray.astype(np.float32) * 1.3 - 20),
+    }
+
+
+TIFF_CASES = [(m, c) for m in ("RGB", "L", "1", "P", "RGBA", "LA", "CMYK",
+                                "I;16", "I", "F")
+              for c in (None, "tiff_lzw", "tiff_deflate", "packbits")]
+TIFF_CASES += [("RGB", "jpeg"), ("L", "jpeg"), ("RGB", "lzma"),
+               ("I;16", "lzma")]
+
+
+@pytest.mark.parametrize("mode, compression", TIFF_CASES)
+def test_tiff_by_content_matches_pil(mode, compression):
+    """A TIFF upload decodes to PIL's convert("RGB") of the mode PIL gives
+    it (16-bit and 32-bit gray clipped, float truncated, palette through
+    the colour map, CMYK through cmyk2rgb), every compression PIL
+    writes but ZSTD (LZMA through the standard library), JPEG-compressed
+    strips through the JPEG decoder: byte-equal."""
+    _same_as_pil(_pil_file(_tiff_images()[mode], "TIFF",
+                           compression=compression))
+
+
+def test_tiff_predictor_and_suffix(tmp_path):
+    """Horizontal differencing; and a TIFF named without a .tif suffix gets
+    PIL's conversion, not load_rgb's GeoTIFF min-max scaling (the same
+    16-bit file by its .tif name is scaled)."""
+    _same_as_pil(_pil_file(_tiff_images()["RGB"], "TIFF",
+                           compression="tiff_lzw", tiffinfo={317: 2}))
+    data = _pil_file(_tiff_images()["I;16"], "TIFF")
+    (tmp_path / "upload").write_bytes(data)
+    (tmp_path / "scene.tif").write_bytes(data)
+    by_content, _, _ = load_rgb(tmp_path / "upload")
+    by_suffix, _, _ = load_rgb(tmp_path / "scene.tif")
+    assert np.array_equal(by_content, pil_rgb(data))
+    assert not np.array_equal(by_suffix, by_content)
+
+
+def test_tiff_refused_as_pil_refuses():
+    """A TIFF whose first directory lies past the end of the file."""
+    _both_refuse(b"II*\x00" + struct.pack("<I", 4096) + bytes(32))
+
+
+def test_tiff_large_lzw_and_lossless_webp_match_pil():
+    """A 384×512 LZW TIFF and lossless WebP: the readers' bit windows stay
+    bounded (a reader that shifted one big integer of the whole stream
+    took minutes on photo-sized files)."""
+    img = Image.fromarray(photo(384, 512, seed=21))
+    _same_as_pil(_pil_file(img, "TIFF", compression="tiff_lzw"))
+    _same_as_pil(_pil_file(img, "WEBP", lossless=True))
+
+
+# --- WebP -----------------------------------------------------------------------
+
+def _webp(img, **kw) -> bytes:
+    mode = "RGBA" if img.shape[-1] == 4 else "RGB"
+    return _pil_file(Image.fromarray(img, mode), "WEBP", **kw)
+
+
+def _alpha_photo(h, w, seed):
+    return np.concatenate([photo(h, w, seed), _noise((h, w, 1), seed)], -1)
+
+
+def _webp_anim(**kw):
+    frames = [Image.fromarray(photo(40, 50, s)) for s in range(3)]
+    return _pil_file(frames[0], "WEBP", save_all=True,
+                     append_images=frames[1:], duration=100, **kw)
+
+
+WEBP_CASES = {
+    "lossless": lambda: _webp(photo(37, 53, 3), lossless=True),
+    "lossless_q0": lambda: _webp(photo(37, 53, 3), lossless=True, quality=0),
+    "lossless_m6": lambda: _webp(photo(37, 53, 3), lossless=True, method=6),
+    "lossless_noise": lambda: _webp(_noise((45, 67, 3)), lossless=True),
+    "lossless_palette_bundled": lambda: _webp(
+        (photo(30, 41, 1) // 128 * 255).astype(np.uint8), lossless=True),
+    "lossless_palette": lambda: _webp((photo(30, 41, 1) // 64 * 64)
+                                      .astype(np.uint8), lossless=True),
+    "lossless_1x1": lambda: _webp(_noise((1, 1, 3)), lossless=True),
+    "lossless_alpha": lambda: _webp(_alpha_photo(40, 50, 2), lossless=True),
+    "lossless_alpha_exact": lambda: _webp(_alpha_photo(40, 50, 2),
+                                          lossless=True, exact=True),
+    "lossy_q80": lambda: _webp(photo(37, 53, 3), quality=80),
+    "lossy_q10": lambda: _webp(photo(37, 53, 3), quality=10),
+    "lossy_q100": lambda: _webp(photo(37, 53, 3), quality=100),
+    "lossy_m0": lambda: _webp(photo(37, 53, 3), quality=80, method=0),
+    "lossy_m6": lambda: _webp(photo(37, 53, 3), quality=50, method=6),
+    "lossy_noise": lambda: _webp(_noise((45, 67, 3)), quality=90),
+    "lossy_1x1": lambda: _webp(_noise((1, 1, 3)), quality=75),
+    "lossy_17x33": lambda: _webp(photo(17, 33, 4), quality=75),
+    "lossy_alpha": lambda: _webp(_alpha_photo(40, 50, 2), quality=80),
+    "animated_lossy": lambda: _webp_anim(quality=70),
+    "animated_lossless": lambda: _webp_anim(lossless=True),
+}
+
+
+@pytest.mark.parametrize("name", list(WEBP_CASES))
+def test_webp_matches_pil(name):
+    """VP8L (every transform the encoder picks, colour cache, palettes with
+    pixel bundling), VP8 (segments, both 16×16 and 4×4 prediction, the
+    loop filter, fancy upsampling), with alpha (dropped by convert, never
+    premultiplied) and the first frame of an animation: byte-equal."""
+    _same_as_pil(WEBP_CASES[name]())
+
+
+@pytest.mark.parametrize("lossless", [False, True])
+def test_webp_truncated_refused_as_pil_refuses(lossless):
+    data = _webp(photo(40, 50, 5), lossless=lossless, quality=80)
+    _both_refuse(data[:len(data) // 2])

@@ -1,5 +1,7 @@
-"""``s2sr_tpu_torch`` and ``chip_smoke.py`` import with ``jax`` and
-``s2sr_tpu`` blocked, and no source line imports either."""
+"""``s2sr_tpu_torch`` and ``chip_smoke.py`` import with ``jax``,
+``s2sr_tpu``, ``PIL``, ``pydantic``, ``requests`` and ``cv2`` blocked
+(the card's machine has none of the last four), and no source line
+imports ``jax`` or ``s2sr_tpu``."""
 
 import pkgutil
 import re
@@ -35,10 +37,22 @@ def test_modules_import_with_jax_blocked():
             "s2sr_tpu_torch.server.app", "s2sr_tpu_torch.cli.serve",
             "s2sr_tpu_torch.models.rrdbnet_int8", "s2sr_tpu_torch.tiles.jpeg",
             "s2sr_tpu_torch.parallel.mesh",
-            } <= set(mods) and len(mods) >= 59
+            "s2sr_tpu_torch.vectors", "s2sr_tpu_torch.vectors.ops",
+            "s2sr_tpu_torch.vectors.geometry",
+            "s2sr_tpu_torch.vectors.extraction",
+            "s2sr_tpu_torch.vectors.synthetic",
+            "s2sr_tpu_torch.tiles.bmp", "s2sr_tpu_torch.tiles.gif",
+            "s2sr_tpu_torch.tiles.webp", "s2sr_tpu_torch.tiles.tiff",
+            "s2sr_tpu_torch.tiles.jpeg_arith",
+            "s2sr_tpu_torch.vectors.extraction_v2",
+            "s2sr_tpu_torch.pipelines.generate_vectors",
+            "s2sr_tpu_torch.cli.generate_vectors",
+            "s2sr_tpu_torch.cli.vectors_v2",
+            } <= set(mods) and len(mods) >= 74
     code = "\n".join([
         "import sys",
-        "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic'):",
+        "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic',"
+        " 'requests', 'cv2'):",
         "    sys.modules[name] = None",
         "import importlib",
         f"for m in {mods!r}:",
@@ -59,6 +73,7 @@ def test_modules_import_with_jax_blocked():
         "assert 'mxu' in chip_smoke.PHASES",
         "assert 'matmul_chain' in chip_smoke.KERNEL_SOURCES",
         "assert 'server' in chip_smoke.PHASES",
+        "assert 'vectors' in chip_smoke.PHASES",
         "from s2sr_tpu_torch.ops import rdb",
         "assert callable(rdb.rdb_i8) and rdb.LAUNCHES_I8 == 0",
         "print('ok')",

@@ -203,6 +203,14 @@ def _probe_requests(scene: str):
         "spa_fallback": ("GET", "/some/client/route", {}),
         "spa_traversal": ("GET", "/../../../../../../etc/passwd", {}),
         "spa_static_file": ("GET", "/enhance.html", {}),
+        "vectors_fields_404": ("GET", "/vectors/fields.geojson", {}),
+        "vectors_zones_404": ("GET", "/vectors/zones.geojson", {}),
+        "vectors_metadata_empty": ("GET", "/api/vectors/metadata", {}),
+        "vectors_status_404": ("GET", "/api/vectors/nope", {}),
+        "vectors_aoi_404": ("POST", "/api/vectors", {"json_body": {
+            "aoi_path": "/nonexistent/aoi.geojson"}}),
+        "vectors_json_array": ("POST", "/api/vectors", {"body": b"[1]"}),
+        "vectors_get_405": ("GET", "/api/vectors", {}),
     }
 
 
@@ -296,6 +304,13 @@ COERCION = [
     ("PipelineRequest", "run_sr", "false", False),
     ("PipelineRequest", "sr_type", "farm", "farm"),
     ("PipelineRequest", "generate_original_tiles", "no", False),
+    ("VectorRequest", "ndvi_threshold", "0.4", 0.4),
+    ("VectorRequest", "min_area_ha", True, 1.0),
+    ("VectorRequest", "max_area_ha", 100, 100.0),
+    ("VectorRequest", "simplify_tolerance_m", "x", REJECT),
+    ("VectorRequest", "raster_path", None, None),
+    ("VectorRequest", "raster_path", 3, REJECT),
+    ("VectorRequest", "aoi_path", "a.geojson", "a.geojson"),
 ]
 
 
@@ -327,7 +342,7 @@ def test_coercion_table_is_pydantics():
 
 
 @pytest.mark.parametrize("spec", ["SRRequest", "WowRequest",
-                                  "PipelineRequest"])
+                                  "PipelineRequest", "VectorRequest"])
 def test_port_coercion_matches_table(spec):
     for s, name, value, want in COERCION:
         if s != spec:
@@ -628,11 +643,18 @@ def test_turbo_precision_completes(apps, scenario):
 @pytest.mark.parametrize("fixture", ["upload_420.jpg",
                                      "upload_progressive_422_restart.jpg",
                                      "upload_rgb16_adam7.png",
-                                     "upload_palette4_trns.png"])
+                                     "upload_palette4_trns.png",
+                                     "upload_rle8.bmp",
+                                     "upload_animated.gif",
+                                     "upload_lossy_alpha.webp",
+                                     "upload_gray16.tiff_upload",
+                                     "upload_arithmetic_progressive.jpg"])
 def test_jpeg_and_png_uploads_complete(apps, scenario, fixture):
-    """A JPEG or non-8-bit PNG upload on ``/api/enhance`` completes in the
-    port's app (JAX opens it with PIL), and its SR output is the engine's
-    on PIL's decode of the file through the WOW chain, byte for byte."""
+    """An upload on ``/api/enhance`` in any format PIL opens (JPEG and its
+    arithmetic variant, non-8-bit PNG, BMP, GIF, WebP, a TIFF without
+    its suffix) completes in the port's app (JAX opens it with PIL), and
+    its SR output is the engine's on PIL's decode of the file through the
+    WOW chain, byte for byte."""
     import io
 
     import torch
@@ -824,3 +846,86 @@ def test_halo_probe_sidecar_and_loaded_engines(tmp_path, monkeypatch):
         registry.MODELS.pop("rrdb_probe", None)
         for key in [k for k in engine_mod._ENGINE_CACHE if k[0] == "rrdb_probe"]:
             del engine_mod._ENGINE_CACHE[key]
+
+
+# --- the vector job ---------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def vector_runs(apps, scenario, tmp_path_factory):
+    """Per app: a job on a planted 128² raster (one shared path), the
+    geojson and metadata it leaves, then a job with no raster_path,
+    which finds the newest raster under data/wow (wow > sr > source):
+    the same planted scene written there for both apps, since earlier
+    tests leave the two apps' WOW outputs different."""
+    import shutil
+
+    from s2sr_tpu_torch.vectors.synthetic import write_planted_scene
+
+    tif, aoi = write_planted_scene(tmp_path_factory.mktemp("planted"), 128, 0)
+    runs = []
+    for app in apps[:2]:
+        newest = data_dir(app) / "wow" / "vectors_probe" / "planted_wow.tif"
+        newest.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(tif, newest)
+        out = {"ids": {}}
+        resp, payload = call(app, "POST", "/api/vectors", json_body={
+            "raster_path": str(tif), "aoi_path": str(aoi),
+            "min_area_ha": "0.1"})
+        assert resp.status_code == 200, payload
+        out["queued"] = payload
+        out["ids"]["planted"] = payload["job_id"]
+        app.runner.join(300)
+        out["fields"] = call(app, "GET", "/vectors/fields.geojson")
+        out["metadata"] = call(app, "GET", "/api/vectors/metadata")[1]
+        resp, payload = call(app, "POST", "/api/vectors", json_body={})
+        assert resp.status_code == 200, payload
+        out["ids"]["found"] = payload["job_id"]
+        out["found_queued"] = payload
+        app.runner.join(300)
+        out["status"] = {k: call(app, "GET", f"/api/vectors/{v}")[1]
+                         for k, v in out["ids"].items()}
+        runs.append(out)
+    return runs
+
+
+def _geojson(resp) -> dict:
+    g = json.loads(resp.body)
+    g["properties"].pop("generated_at")
+    for f in g["features"]:
+        f["properties"].pop("created_at")
+    return g
+
+
+@pytest.mark.parametrize("job", ["planted", "found"])
+def test_vector_job_record_matches_jax(apps, scenario, vector_runs, job):
+    """Through both apps on the same data: equal job records (wall-clock
+    fields dropped, data dir and ids normalised); the planted raster
+    yields fields, the raster search finds the WOW output."""
+    (jax_app, app, _), (jrun, run) = apps, vector_runs
+    jids = {**scenario[0]["ids"], **jrun["ids"]}
+    ids = {**scenario[1]["ids"], **run["ids"]}
+    want = normalize(jrun["status"][job], jax_app, jids)
+    got = normalize(run["status"][job], app, ids)
+    assert got == want and got["status"] == "completed"
+    if job == "planted":
+        assert got["result"]["feature_count"] > 0
+    else:
+        assert got["raster_paths"] == ["<data>/wow/vectors_probe/planted_wow.tif"]
+        assert (normalize(run["found_queued"], app, ids)
+                == normalize(jrun["found_queued"], jax_app, jids))
+
+
+def test_vector_geojson_and_metadata_match_jax(apps, vector_runs):
+    (jax_app, app, _), (jrun, run) = apps, vector_runs
+    (jresp, _), (resp, _) = jrun["fields"], run["fields"]
+    assert resp.status_code == jresp.status_code == 200
+    assert resp.headers == jresp.headers
+    assert resp.headers["Content-Type"] == "application/geo+json"
+    got, want = _geojson(resp), _geojson(jresp)
+    assert got == want and got["properties"]["feature_count"] > 0
+    strip = [normalize(r["metadata"], a, r["ids"])
+             for a, r in ((app, run), (jax_app, jrun))]
+    for m in strip:
+        m["metadata"].pop("stage_timings_s")
+        m["properties"].pop("generated_at")
+    assert strip[0] == strip[1]
