@@ -21,9 +21,20 @@ random weights from seed 0, each at the full width of its model:
   polled to its end, then a download, a tile of each tree and the
   read-only routes, a ``"turbo"`` (int8) ``/api/wow`` job and a JPEG
   and a lossy WebP ``/api/enhance`` upload, on the same
-  ``realesrgan_x4``; the committed upload fixtures (PNG, JPEG with its
-  CMYK and arithmetic variants, BMP, GIF, WebP, TIFF by content)
-  decoded against PIL's SHA-256 (phase server);
+  ``realesrgan_x4``; ``/api/decode`` (a QR, a plate with and without
+  the SR retry, a non-image, an upload over the limit) and one decode
+  with its retry under ``torch.profiler``; the committed upload fixtures
+  (PNG, JPEG with its CMYK and arithmetic variants, BMP, GIF, WebP, TIFF
+  by content with CCITT fax, ZSTD and CIELab) decoded against PIL's
+  SHA-256 (phase server);
+- the QR/serial scan (``s2sr_tpu_torch.decode``), whose binarizer runs on
+  the card: QR codes of versions 1 to 40 at every level, inverted,
+  mirrored, rotated, warped, blurred, in Kanji, ECI and
+  structured-append, and in a 1024×768 scene, each decoded on the card
+  and held to the CPU; the committed plates' OCR held to the JAX
+  package's recorded answers; the low-quality plate's SR retry on the
+  full-width ``realesrgan_x4``, its RDBs in the ``rdb`` kernel (phase
+  decode);
 - field-boundary vectors (``s2sr_tpu_torch.vectors``): the card's
   ``fields.geojson`` held to the CPU's on a 1024² planted scene, then
   over a live socket ``/api/wow`` → ``/api/vectors`` (the job finds the
@@ -62,8 +73,8 @@ Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 
 ``--phases`` picks a subset (device, build, kernel, main, numbers,
-server, vectors, swin_kernel, swin_main, swin_large, swin_numbers, ladder, mxu)
-for a quick check; the default runs them all.
+server, vectors, decode, swin_kernel, swin_main, swin_large, swin_numbers,
+ladder, mxu) for a quick check; the default runs them all.
 """
 
 from __future__ import annotations
@@ -78,7 +89,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernel", "main", "numbers", "server",
-          "vectors", "swin_kernel", "swin_main", "swin_large", "swin_numbers", "ladder",
+          "vectors", "decode", "swin_kernel", "swin_main", "swin_large", "swin_numbers", "ladder",
           "mxu")
 KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder", "rdb_ladder_tc",
                   "matmul_chain")
@@ -1104,6 +1115,16 @@ class LiveServer:
                 raise AssertionError(f"{method} {path}: HTTP {r.status}")
             return r.read()
 
+    def call(self, method, path, body=None, headers=None) -> tuple:
+        """(status, parsed JSON body or None), 4xx and 5xx included."""
+        import urllib.error
+
+        try:
+            return 200, json.loads(self.request(method, path, body, headers))
+        except urllib.error.HTTPError as err:
+            raw = err.read()
+            return err.code, json.loads(raw) if raw else None
+
     def json(self, method, path, body=None, headers=None):
         if isinstance(body, dict):
             body = json.dumps(body).encode()
@@ -1270,6 +1291,63 @@ def check_tile_batch(sr_tif: Path, zoom: int) -> dict:
     if ferr or diff.any() or flips.any():
         raise AssertionError(f"tile batch on the card vs the CPU: {rec}")
     return rec
+
+
+def check_decode_route(srv, state, card, engine_chunks) -> None:
+    """``POST /api/decode`` over the live socket: a QR PNG (the port's own
+    PNG encoder) and the low-quality plate with the retry off, each equal
+    to the JAX package's recorded answer; a non-image (400) and an upload
+    over the limit (413); the plate with the retry, which must run the
+    card's ``realesrgan_x4`` (rdb launches = 69 × chunks)."""
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.pipelines.io import decode_upload
+    from s2sr_tpu_torch.tiles.png import encode_png
+
+    manifest = json.loads((FIXTURES / "fixtures.json").read_text())
+    qr = encode_png(decode_upload((FIXTURES / "scan_qr.png").read_bytes()))
+    plate = (FIXTURES / "scan_plate_low_quality.png").read_bytes()
+    limit = srv.app.settings.max_upload_bytes
+    probes = [
+        ("qr", qr, {}, 200, dict(manifest["scan_qr.png"]["decode_no_retry"],
+                                 filename="scan.png")),
+        ("plate, enhance_retry=false", plate, {"enhance_retry": "false"}, 200,
+         dict(manifest["scan_plate_low_quality.png"]["decode_no_retry"],
+              filename="scan.png")),
+        ("non-image", b"GIF89a but not really", {}, 400,
+         {"detail": "could not decode uploaded image"}),
+        ("over the upload limit", bytes(limit + 1), {}, 413,
+         {"detail": f"Upload exceeds maximum allowed size of "
+                    f"{limit // (1024 * 1024)} MB"}),
+        ("plate with the retry", plate, {}, 200, None),
+    ]
+    failures = []
+    for k, (name, data, fields, want_code, want) in enumerate(probes):
+        body, headers = multipart_image(data, fields, f"bd{k}", "scan.png")
+        chunks0 = engine_chunks()
+        rdb_mod.LAUNCHES = 0
+        t1 = time.perf_counter()
+        code, out = srv.call("POST", "/api/decode", body, headers)
+        secs = time.perf_counter() - t1
+        launches, chunks = rdb_mod.LAUNCHES, engine_chunks() - chunks0
+        if want is None:            # the retry: rdb on the card, 69 a chunk
+            ok = (code == 200 and out["retried_with_enhancement"] and chunks
+                  and launches == 69 * chunks)
+            state["main_launches"] = state.get("main_launches", 0) + launches
+        else:
+            ok = code == want_code and same_scan(out, want) and launches == 0
+        line = {"phase": "server", "route": "/api/decode", "probe": name,
+                "status": code, "seconds": round(secs, 4),
+                "rdb_launches": launches, "chunks": chunks, "as_expected": ok,
+                "card": card}
+        if code == 200:
+            line.update(serial=out["serial"],
+                        retried=out["retried_with_enhancement"],
+                        stages=[a["stage"] for a in out["attempts"]])
+        emit(line)
+        if not ok:
+            failures.append((name, code, out))
+    if failures:
+        raise AssertionError(f"/api/decode: {failures}")
 
 
 def phase_server(state):
@@ -1488,6 +1566,9 @@ def phase_server(state):
               "bytes": len(webp), "decode_seconds": webp_decode_s,
               "card": card})
 
+        # the QR/serial scan, POST to response
+        check_decode_route(srv, state, card, engine_chunks)
+
         # the device's idle share of one warm /api/wow job
         def wow_job():
             job_id = srv.json("POST", "/api/wow", {
@@ -1500,6 +1581,21 @@ def phase_server(state):
         prof = device_breakdown(wow_job)
         emit({"phase": "server", "card": card,
               "profile": "one warm /api/wow job, 1024² scene, POST to completed",
+              "device_idle_share": 1.0 - prof["device_busy_share"], **prof})
+
+        # the device's idle share of one /api/decode with its SR retry
+        plate = (FIXTURES / "scan_plate_low_quality.png").read_bytes()
+
+        def decode_request():
+            code, out = srv.call("POST", "/api/decode", *multipart_image(
+                plate, {}, "bp", "plate.png"))
+            if code != 200 or not out["retried_with_enhancement"]:
+                raise AssertionError(f"profiled /api/decode: {code} {out}")
+
+        prof = device_breakdown(decode_request)
+        emit({"phase": "server", "card": card,
+              "profile": "one /api/decode with its SR retry, low-quality "
+                         "plate, POST to response",
               "device_idle_share": 1.0 - prof["device_busy_share"], **prof})
 
     # the /api/wow output against process_wow_sr on the same engine and scene
@@ -1740,6 +1836,297 @@ def phase_vectors(state):
         raise AssertionError(f"v2 card vs CPU: equal {same}, "
                              f"{v2['cuda'][0]['feature_count']} features")
     emit({"phase": "vectors", "seconds": round(time.perf_counter() - t0, 3)})
+
+
+# --- the QR/serial scan: POST /api/decode's flow -----------------------------
+
+DECODE_VERSIONS = (1, 5, 10, 25, 40)
+DECODE_SCENE = (768, 1024)        # a phone photo scaled for upload
+OCR_CONF_TOL = 1e-6
+LOCATION_TOL = 1e-6
+# data streams of the segment modes encode_qr does not pick itself:
+# Kanji "あ", ECI 26 (UTF-8) + byte "HI", structured append + "PART-1"
+QR_SEGMENTS = {
+    "kanji": ("1000" + f"{1:08b}" + f"{288:013b}", "あ"),
+    "eci": ("0111" + "00011010" + "0100" + f"{2:08b}"
+            + "".join(f"{ord(c):08b}" for c in "HI"), "HI"),
+    "structured_append": ("0011" + "0" * 16 + "0100" + f"{6:08b}"
+                          + "".join(f"{b:08b}" for b in b"PART-1"), "PART-1"),
+}
+
+
+def qr_symbol(text: str, level: str, version: int, bits: str | None = None):
+    """The port's encoder's symbol of ``text``, or of the raw data stream
+    ``bits`` (any segment modes) wrapped as the encoder wraps its own:
+    terminator, pad bytes, RS blocks, interleave, patterns, format, mask."""
+    from unittest import mock
+
+    from s2sr_tpu_torch.decode import qr_encode
+
+    if bits is None:
+        return qr_encode.encode_qr(text, level=level, version=version)
+    with mock.patch.object(qr_encode, "_encoded_bits",
+                           lambda *a: [int(c) for c in bits]):
+        return qr_encode.encode_qr("x", level=level, version=version, mask=0)
+
+
+def qr_payload(version: int, level: str) -> str:
+    """An alphanumeric payload that fills about half of the symbol."""
+    from s2sr_tpu_torch.decode.qr_tables import data_capacity
+
+    n = max(4, (data_capacity(version, level) * 8 - 17) * 2 // 11 // 2)
+    return (f"V{version}{level}-" + "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+            * 60)[:n]
+
+
+def warp_perspective(img, corners, fill: int = 255):
+    """``img`` warped so its corners land on ``corners`` (TL, TR, BR, BL),
+    by an inverse homography sampled at pixel centres, nearest, ``fill``
+    outside."""
+    import numpy as np
+
+    from s2sr_tpu_torch.decode.locate import _homography
+
+    h, w = img.shape[:2]
+    src = np.array([(0, 0), (w, 0), (w, h), (0, h)], np.float64)
+    H = _homography(np.asarray(corners, np.float64), src)   # out → in
+    yy, xx = np.mgrid[:h, :w] + 0.5
+    p = H @ np.stack([xx.ravel(), yy.ravel(), np.ones(h * w)])
+    xs = np.floor(p[0] / p[2]).astype(int)
+    ys = np.floor(p[1] / p[2]).astype(int)
+    ok = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    out = np.full(h * w, fill, img.dtype)
+    out[ok] = img[ys[ok], xs[ok]]
+    return out.reshape(h, w)
+
+
+def noisy_blur(img, seed: int, sigma: float = 10.0):
+    """A 3×3 box blur and seeded Gaussian noise."""
+    import numpy as np
+
+    p = np.pad(img.astype(np.float32), 1, mode="edge")
+    h, w = img.shape
+    blur = sum(p[dy:dy + h, dx:dx + w] for dy in range(3)
+               for dx in range(3)) / 9.0
+    rng = np.random.default_rng(seed)
+    return np.clip(blur + rng.normal(0, sigma, blur.shape), 0,
+                   255).astype(np.uint8)
+
+
+def qr_scene(code, seed: int):
+    """A 1024×768 noisy RGB scene (a lit gradient with texture) with the
+    code, pixel-repeated ×2, at an off-centre spot."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = DECODE_SCENE
+    ramp = (np.linspace(70, 190, w)[None, :, None]
+            + np.linspace(-20, 20, h)[:, None, None]) * np.array([1.0, 0.95, 0.85])
+    scene = ramp + rng.normal(0, 9, (h, w, 3))
+    big = np.kron(code, np.ones((2, 2), np.uint8)).astype(np.float64)
+    y0, x0 = 180, 430
+    scene[y0:y0 + big.shape[0], x0:x0 + big.shape[1]] = \
+        big[..., None] * 0.85 + 20 + rng.normal(0, 6, big.shape + (3,))
+    return np.clip(scene, 0, 255).astype(np.uint8)
+
+
+def qr_cases() -> list:
+    """(name, image, payload): versions 1, 5, 10, 25, 40 × levels L, M, Q,
+    H; inverted, mirrored, rotated 90°, perspective and noisy-blurred
+    variants of three of them; the segment-mode symbols; and one code in
+    a 1024×768 noisy RGB scene."""
+    import numpy as np
+
+    from s2sr_tpu_torch.decode.qr_encode import render
+
+    cases = []
+    base = {}
+    for v in DECODE_VERSIONS:
+        for level in "LMQH":
+            text = qr_payload(v, level)
+            scale = {25: 5, 40: 4}.get(v) or max(4, min(8, 560 // (4 * v + 25)))
+            img = render(qr_symbol(text, level, v), scale, 4)
+            cases.append((f"v{v}-{level}", img, text))
+            base[(v, level)] = (img, text)
+    for v, level in ((5, "M"), (10, "Q"), (25, "H")):
+        img, text = base[(v, level)]
+        h, w = img.shape
+        cases += [
+            (f"v{v}-{level} inverted", 255 - img, text),
+            (f"v{v}-{level} mirrored", np.ascontiguousarray(img[:, ::-1]), text),
+            (f"v{v}-{level} rotated 90", np.ascontiguousarray(np.rot90(img)), text),
+            (f"v{v}-{level} perspective", warp_perspective(img, [
+                (0.03 * w, 0.02 * h), (0.98 * w, 0.05 * h),
+                (0.95 * w, 0.97 * h), (0.01 * w, 0.94 * h)]), text),
+            (f"v{v}-{level} noise+blur", noisy_blur(img, seed=v), text)]
+    for name, (bits, text) in QR_SEGMENTS.items():
+        cases.append((name, render(qr_symbol("", "M", 2, bits), 8, 4), text))
+    code = render(qr_symbol("SN-KBTX-1234567", "M", 3), 4, 4)
+    cases.append(("scene 1024x768", qr_scene(code, seed=5), "SN-KBTX-1234567"))
+    return cases
+
+
+def same_scan(got, want, path="") -> bool:
+    """Equal results: dicts, lists and values; floats within 1e-6."""
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and set(got) == set(want)
+                and all(same_scan(got[k], want[k], f"{path}.{k}") for k in want))
+    if isinstance(want, (list, tuple)):
+        return (isinstance(got, (list, tuple)) and len(got) == len(want)
+                and all(same_scan(g, w) for g, w in zip(got, want)))
+    if isinstance(want, float):
+        return abs(got - want) <= OCR_CONF_TOL
+    return got == want
+
+
+def as_json(obj):
+    return json.loads(json.dumps(obj))
+
+
+def binarized_differences(img) -> int:
+    """Pixels where the card's bool maps differ from the CPU's at every
+    scale ``decode_qr`` binarizes, in both pad modes."""
+    from s2sr_tpu_torch.decode.locate import binarize
+
+    diff = 0
+    for s in (1, 2, 4):
+        view = img[::s, ::s] if s > 1 else img
+        if min(view.shape[:2]) < 21:
+            break
+        for mode in ("white", "edge"):
+            diff += int((binarize(view, mode, device="cuda")
+                         != binarize(view, mode, device="cpu")).sum())
+    return diff
+
+
+def upscale4(arr):
+    import numpy as np
+
+    return np.kron(arr, np.ones((4, 4, 1), np.uint8))
+
+
+def phase_decode(state):
+    """The QR/serial scan of ``/api/decode`` (``s2sr_tpu_torch.decode``)
+    with binarization on the card: QR codes of every level at versions 1
+    to 40 and their variants, decoded on the card and held to the CPU;
+    the committed plates' OCR and scan flow held to the JAX package's
+    recorded answers; the low-quality plate's SR retry on the card's
+    full-width ``realesrgan_x4`` (rdb launches = 69 × chunks)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.decode.locate import _binarize_device, binarize
+    from s2sr_tpu_torch.decode.ocr import ocr_image
+    from s2sr_tpu_torch.decode.qr_decode import decode_qr
+    from s2sr_tpu_torch.decode.service import decode_with_retry
+    from s2sr_tpu_torch.models import engine as engine_mod
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.pipelines.io import decode_upload
+
+    card = state.get("card") or card_line()
+    t0 = time.perf_counter()
+    failures = []
+    n_diff = 0
+    for name, img, text in qr_cases():
+        t1 = time.perf_counter()
+        got = decode_qr(img, device="cuda")
+        secs = time.perf_counter() - t1
+        want = decode_qr(img, device="cpu")
+        got_d = got and dataclasses.asdict(got)
+        want_d = want and dataclasses.asdict(want)
+        diff = binarized_differences(img)
+        n_diff += diff
+        ok = got is not None and got.text == text and \
+            same_scan(as_json(got_d), as_json(want_d))
+        line = {"phase": "decode", "qr": name, "shape": list(img.shape),
+                "decoded": got is not None and got.text == text,
+                "equal_to_cpu": ok, "binarized_differences": diff,
+                "seconds": round(secs, 4)}
+        if got is not None:
+            line.update(version=got.version, ec_level=got.ec_level,
+                        errors_corrected=got.errors_corrected,
+                        inverted=got.inverted, mirrored=got.mirrored)
+        if name.startswith("scene"):
+            line["card"] = card
+        emit(line)
+        if not ok:
+            failures.append(name)
+    emit({"phase": "decode", "check": "binarized maps, card vs CPU",
+          "differing_pixels": n_diff})
+    if n_diff:
+        emit({"phase": "decode", "why": "the card's threshold is the CPU's "
+              "float32 additions in the same order; a difference means an "
+              "operation rounded differently on the card"})
+        failures.append(f"{n_diff} binarized pixels differ")
+
+    # binarize alone at 1024×768 on the card (the device part and the
+    # one copy back), warm
+    scene = qr_scene(np.zeros((8, 8), np.uint8), seed=1)
+    gray = scene.astype(np.float32) @ np.array([0.299, 0.587, 0.114], np.float32)
+    pad = torch.full((1024, 1024), 255.0, device="cuda")
+    pad[:768, :] = torch.from_numpy(gray).cuda()
+    dev_ms = time_cuda(lambda: _binarize_device(pad), iters=20)
+    for _ in range(2):
+        binarize(scene, device="cuda")
+    t1 = time.perf_counter()
+    for _ in range(10):
+        binarize(scene, device="cuda")
+    bin_s = (time.perf_counter() - t1) / 10
+    emit({"phase": "decode", "binarize": "1024x768", "device_ms": dev_ms,
+          "host_call_seconds": bin_s, "card": card})
+
+    # the plates: OCR and the scan flow against the recorded JAX answers
+    manifest = json.loads((FIXTURES / "fixtures.json").read_text())
+    for name, rec in manifest.items():
+        if "ocr" not in rec:
+            continue
+        img = decode_upload((FIXTURES / name).read_bytes(), name)
+        t1 = time.perf_counter()
+        ocr = as_json(ocr_image(img, device="cuda"))
+        ocr_s = time.perf_counter() - t1
+        flow = as_json(decode_with_retry(img, enhance_fn=upscale4,
+                                         device="cuda"))
+        flow0 = as_json(decode_with_retry(img, enhance_fn=None, device="cuda"))
+        ok = (same_scan(ocr, rec["ocr"]) and same_scan(flow, rec["decode_upscale4"])
+              and same_scan(flow0, rec["decode_no_retry"]))
+        emit({"phase": "decode", "plate": name, "text": ocr["text"],
+              "confidence": ocr["confidence"], "serial": flow["serial"],
+              "equal_to_jax_record": ok, "ocr_seconds": round(ocr_s, 4),
+              "card": card})
+        if not ok:
+            failures.append(name)
+
+    # the SR retry on the card: the low-quality plate through the full-width
+    # bf16 realesrgan_x4 (the route's engine), every RDB in rdb_tc_kernel
+    eng = engine_mod.get_engine("realesrgan_x4",
+                                weights_dir=str(state["work"] / "weights"),
+                                device="cuda")
+    plate = decode_upload((FIXTURES / "scan_plate_low_quality.png").read_bytes())
+    eng.enhance_serving(plate)                          # warm
+    torch.cuda.synchronize()
+    chunks0 = eng.chunks_dispatched
+    rdb_mod.LAUNCHES = 0
+    t1 = time.perf_counter()
+    out = decode_with_retry(plate, enhance_fn=eng.enhance_serving,
+                            device="cuda")
+    retry_s = time.perf_counter() - t1
+    launches, chunks = rdb_mod.LAUNCHES, eng.chunks_dispatched - chunks0
+    n_rdb = 3 * len(eng.model.body)
+    emit({"phase": "decode", "retry": "scan_plate_low_quality.png",
+          "shape": list(plate.shape), "seconds": round(retry_s, 4),
+          "retried_with_enhancement": out["retried_with_enhancement"],
+          "stages": [a["stage"] for a in out["attempts"]],
+          "serial": out["serial"], "rdb_launches": launches, "chunks": chunks,
+          "card": card})
+    if not out["retried_with_enhancement"] or not chunks or \
+            launches != n_rdb * chunks or len(eng.model.body) != 23:
+        failures.append(f"retry: {launches} rdb launches for {chunks} chunks")
+    state["main_launches"] = state.get("main_launches", 0) + launches
+    emit({"phase": "decode", "seconds": round(time.perf_counter() - t0, 3)})
+    if failures:
+        raise AssertionError(f"decode: {failures}")
 
 
 # --- SwinIR: swin_block and window_attention ------------------------------

@@ -15,12 +15,14 @@ Handlers never touch the device; the runner thread does, and builds the
 first engine there.
 
 The vector job segments on ``device`` too (``vectors/``), on the same
-runner thread.
+runner thread. The QR/serial scan (``/api/decode``, ``decode/``)
+binarizes on ``device`` in the handler's worker thread, and its SR
+retry runs the ``realesrgan_x4`` engine on the runner.
 
 Routes: /health /metrics /api/runtime /api/config /api/metadata
-/tiles* /api/sr* /api/wow /api/enhance /api/pipeline* /vectors/*
-/api/vectors* + SPA fallback. The JAX server's decode route is not
-ported yet (:data:`NOT_PORTED_ROUTES`).
+/tiles* /api/sr* /api/wow /api/enhance /api/decode /api/pipeline*
+/vectors/* /api/vectors* + SPA fallback: the JAX server's table, whole
+and in order.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from ..config import Settings, get_settings
 from ..fetch.smart_fetch import ensure_best_image
 from ..models.engine import get_engine, loaded_engines, resolve_device
 from ..pipelines.farm_sr import process_farm_sr
-from ..pipelines.io import load_rgb
+from ..pipelines.io import decode_upload, load_rgb
 from ..pipelines.wow_sr import MODEL_DISPLAY, process_wow_sr
 from ..tiles import process_raster_to_tiles
 from ..utils import find_latest_metadata, read_json, setup_logging
@@ -58,12 +60,6 @@ from .jobs import JobRunner
 from .persistence import DurableJobStore
 
 logger = setup_logging("s2sr_tpu_torch.server")
-
-# Routes of the JAX server this app does not register yet: their
-# subsystem (decode, ROADMAP queue 1 item 14) is not ported.
-NOT_PORTED_ROUTES = (
-    ("POST", "/api/decode"),
-)
 
 
 def _new_job_id(prefix: str = "") -> str:
@@ -625,6 +621,54 @@ def create_app(settings: Optional[Settings] = None,
             jobs.update_if(job_id, "queued", status=status, message=message)
         return {"job_id": job_id, "status": status, "message": message,
                 "model": model, "precision": precision}
+
+    @app.post("/api/decode")
+    async def decode_scan_upload(request: Request):
+        """QR/serial scan with SR-enhance retry — server-side port of the
+        reference client's jsQR/Tesseract flow
+        (`enhance.component.ts:251-359`, `qr-ocr.service.ts`)."""
+        fields, files = request.multipart()
+        if "image" not in files:
+            raise HTTPException(400, "missing 'image' upload field")
+        upload = files["image"]
+        if len(upload.content) > settings.max_upload_bytes:
+            raise HTTPException(
+                413, f"Upload exceeds maximum allowed size of "
+                     f"{settings.max_upload_bytes // (1024 * 1024)} MB")
+        from ..decode.service import decode_with_retry
+
+        try:
+            img = decode_upload(upload.content, upload.filename or "upload")
+        except Exception:
+            raise HTTPException(400, "could not decode uploaded image")
+        if img.shape[0] * img.shape[1] > 16_000_000:
+            raise HTTPException(413, "image too large to scan (>16 MPix)")
+
+        enhance_fn = None
+        if fields.get("enhance_retry", "true").lower() != "false":
+            def enhance_fn(arr):
+                def _on_device():
+                    # the job paths' engine-cache key, and the bucketed
+                    # serving path
+                    engine = get_engine("realesrgan_x4",
+                                        weights_dir=settings.weights_dir,
+                                        device=device)
+                    return engine.enhance_serving(arr)
+
+                # device work goes through the runner (sole device
+                # owner) — never concurrently with a running job; on a
+                # busy runner the wait bounds out and decode keeps its
+                # first-pass answer
+                return runner.run_sync(_on_device, timeout=240.0,
+                                       label="decode_sr")
+
+        # the scan (host locating, optional OCR, possibly an SR retry) is
+        # heavy — run it off the event loop so job polling and tile
+        # serving stay responsive
+        result = await asyncio.to_thread(
+            decode_with_retry, img, enhance_fn=enhance_fn, device=device)
+        result["filename"] = Path(upload.filename or "").name or "upload"
+        return result
 
     # ------------------------------------------------------------------
     # vectors

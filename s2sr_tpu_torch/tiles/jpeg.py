@@ -23,10 +23,12 @@ libjpeg does once every coefficient is known. Besides:
 
 - arithmetic coding, sequential and progressive (SOF9, SOF10; the
   QM-coder and models of ``jdarith.c`` in :mod:`.jpeg_arith`);
-- lossless files (SOF3, 8-bit, every component sampled 1×1): the seven
-  predictors, the point transform, restarts per row; libjpeg-turbo
-  converts no colour there, so PIL refuses a 3-component file that
-  JFIF or an Adobe transform marks as YCbCr, and so does this decoder;
+- lossless files (SOF3, 8-bit): the seven predictors, the point
+  transform, restarts per MCU row; H×V samples of a subsampled
+  component an MCU, each replicated over its Hmax/H × Vmax/V pixels, as
+  libjpeg-turbo upsamples in lossless mode; libjpeg-turbo converts no
+  colour there, so PIL refuses a 3-component file that JFIF or an Adobe
+  transform marks as YCbCr, and so does this decoder;
 - 4-component files: CMYK, or YCCK (Adobe transform 2) converted to
   CMYK as ``jdcolor.c::ycck_cmyk_convert``; PIL reads them inverted
   ("CMYK;I", Adobe's convention) and converts with ``cmyk2rgb``;
@@ -468,13 +470,20 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
 
 def _output_lossless(frame, planes, jfif, adobe, transform) -> np.ndarray:
     """Lossless samples, shifted back by the point transform and kept as
-    8-bit samples; libjpeg-turbo converts no colour in lossless mode, so
-    a 3-component file marked YCbCr is refused, as PIL refuses it."""
+    8-bit samples, a subsampled component replicated up to full size;
+    libjpeg-turbo converts no colour in lossless mode, so a 3-component
+    file marked YCbCr is refused, as PIL refuses it."""
     if "lossless_pt" not in frame:
         raise ValueError("JPEG lossless frame has no scan")
     pt = frame["lossless_pt"]
-    img = np.stack([(np.asarray(p, np.int64) << pt) & 0xFF for p in planes],
-                   -1).astype(np.uint8)
+    h, w = frame["height"], frame["width"]
+    full = []
+    for c, p in zip(frame["comps"], planes):
+        a = np.asarray(p, np.int64)[:c["dh"], :c["dw"]]
+        a = np.repeat(np.repeat(a, frame["vmax"] // c["v"], 0),
+                      frame["hmax"] // c["h"], 1)[:h, :w]
+        full.append((a << pt) & 0xFF)
+    img = np.stack(full, -1).astype(np.uint8)
     if img.shape[2] == 3 and (jfif or (adobe and transform != 0)):
         raise ValueError("broken data stream: lossless JPEG in YCbCr")
     if img.shape[2] == 4:
@@ -578,8 +587,11 @@ def _decode(data: bytes, colour: str | None = None) -> np.ndarray:
             mode = _FRAMES[marker]
             frame = _frame(seg, mode)
             if mode == "lossless":
-                coef = [[[0] * frame["width"] for _ in range(frame["height"])]
-                        for _ in frame["comps"]]
+                # one sample a data unit: planes padded to whole MCUs
+                ux = -(-frame["width"] // frame["hmax"])
+                uy = -(-frame["height"] // frame["vmax"])
+                coef = [[[0] * (ux * c["h"]) for _ in range(uy * c["v"])]
+                        for c in frame["comps"]]
             else:
                 coef = [np.zeros(c["bh"] * c["bw"] * 64, np.int16)
                         for c in frame["comps"]]
@@ -617,8 +629,9 @@ def _frame(seg: bytes, mode: str) -> dict:
         c["dh"] = -(-height * c["v"] // vmax)
         c["wb"], c["hb"] = -(-c["dw"] // 8), -(-c["dh"] // 8)
         c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]  # stored, padded
-    if mode == "lossless" and (hmax, vmax) != (1, 1):
-        raise ValueError("JPEG lossless with subsampled components is not "
+    if mode == "lossless" and any(hmax % c["h"] or vmax % c["v"]
+                                  for c in comps):
+        raise ValueError("JPEG lossless with fractional sampling is not "
                          "decoded")
     return {"width": width, "height": height, "comps": comps, "hmax": hmax,
             "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "qt": {},
@@ -709,56 +722,77 @@ _PREDICTORS = (
 
 def _lossless_scan(segs, comps, frame, planes, restart, lut_dc, psv, pt):
     """A lossless scan (``jdlhuff.c``, ``jddiffct.c``, ``jdpred.c``):
-    Huffman-coded differences, undifferenced per row with predictor
-    ``psv``; the first row of the scan and of each restart interval
-    predicts from 2^(P-Pt-1) then from the left, the first column from
-    above; values modulo 2^16, then shifted left by ``pt``."""
+    Huffman-coded differences, one sample per data unit (H×V of each
+    component an MCU when interleaved), undifferenced per component row
+    with predictor ``psv``; each component's first row of the scan and of
+    each restart interval predicts from 2^(P-Pt-1) then from the left,
+    the first column from above; values modulo 2^16, then shifted left by
+    ``pt``."""
     if not 1 <= psv <= 7:
         raise ValueError(f"JPEG lossless predictor {psv} is out of range")
-    width, height = frame["width"], frame["height"]
-    if restart and restart % width:
+    if len(comps) == 1:                  # one sample an MCU
+        c = comps[0]
+        mcux, mcuy, units = c["dw"], c["dh"], [(0, c, 1, 1)]
+    else:
+        mcux = -(-frame["width"] // frame["hmax"])
+        mcuy = -(-frame["height"] // frame["vmax"])
+        units = [(slot, c, c["h"], c["v"]) for slot, c in enumerate(comps)]
+    if restart and restart % mcux:
         raise _refuse("lossless with a restart interval inside a row,")
-    rows_per_interval = restart // width if restart else 0
+    rows_per_interval = restart // mcux if restart else 0
     predict = _PREDICTORS[psv]
     init = 1 << (frame["precision"] - pt - 1)
     seg_i = 0
-    bits = _Bits(segs[0], 8 + 4 * width * len(comps))
+    per_row = sum(h * v for _, _, h, v in units) * mcux
+    bits = _Bits(segs[0], 8 + 4 * per_row)
     win, pos = bits.win, 0
-    for y in range(height):
-        if rows_per_interval and y and y % rows_per_interval == 0:
+    for my in range(mcuy):
+        if rows_per_interval and my and my % rows_per_interval == 0:
             seg_i += 1
             bits = _Bits(segs[seg_i] if seg_i < len(segs) else b"",
-                         8 + 4 * width * len(comps))
+                         8 + 4 * per_row)
             win, pos = bits.win, 0
-        first = y == 0 or (rows_per_interval and y % rows_per_interval == 0)
-        diffs = [[0] * width for _ in comps]
-        for x in range(width):
-            for slot, c in enumerate(comps):
-                e = lut_dc[c["td"]][(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
-                pos += e >> 8
-                s = e & 0xFF
-                if s == 16:
-                    d = 32768
-                elif s:
-                    d = (win[pos >> 3] >> (32 - s - (pos & 7))) & ((1 << s) - 1)
-                    pos += s
-                    if d < 1 << (s - 1):
-                        d += 1 - (1 << s)
-                else:
-                    d = 0
-                diffs[slot][x] = d
-        for slot, c in enumerate(comps):
-            row = planes[c["index"]][y]
-            above = planes[c["index"]][y - 1] if y else None
-            d = diffs[slot]
-            for x in range(width):
-                if first:
-                    p = init if x == 0 else row[x - 1]
-                elif x == 0:
-                    p = above[0]
-                else:
-                    p = predict(row[x - 1], above[x], above[x - 1])
-                row[x] = (p + d[x]) & 0xFFFF
+        restart_row = my == 0 or (rows_per_interval
+                                  and my % rows_per_interval == 0)
+        diffs = [[[0] * (mcux * h) for _ in range(v)] for _, _, h, v in units]
+        for mx in range(mcux):
+            for slot, c, h, v in units:
+                lut = lut_dc[c["td"]]
+                for dv in range(v):
+                    drow = diffs[slot][dv]
+                    for dh in range(h):
+                        e = lut[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                        pos += e >> 8
+                        s = e & 0xFF
+                        if s == 16:
+                            d = 32768
+                        elif s:
+                            d = (win[pos >> 3] >> (32 - s - (pos & 7))) \
+                                & ((1 << s) - 1)
+                            pos += s
+                            if d < 1 << (s - 1):
+                                d += 1 - (1 << s)
+                        else:
+                            d = 0
+                        drow[mx * h + dh] = d
+        for slot, c, h, v in units:
+            plane = planes[c["index"]]
+            for dv in range(v):
+                y = my * v + dv
+                if y >= len(plane):
+                    continue
+                row, d = plane[y], diffs[slot][dv]
+                width = min(len(row), len(d))
+                above = plane[y - 1] if y else None
+                first = restart_row and dv == 0
+                for x in range(width):
+                    if first:
+                        p = init if x == 0 else row[x - 1]
+                    elif x == 0:
+                        p = above[0]
+                    else:
+                        p = predict(row[x - 1], above[x], above[x - 1])
+                    row[x] = (p + d[x]) & 0xFFFF
     frame["lossless_pt"] = pt
 
 

@@ -5,14 +5,16 @@ the JAX package with ``PIL.Image.open(path).convert("RGB")``, not by its
 GeoTIFF reader, so it gets PIL's mode conversion, not ``load_rgb``'s
 min-max scaling. The strips and tiles are read with the port's reader
 (``geo/geotiff.py``: none, LZW, Deflate or PackBits, and libtiff's
-LZMA; horizontal predictor; chunky or planar; strips or tiles);
-JPEG-compressed ones
-(compression 7) go through ``tiles/jpeg.py`` with the file's
-``JPEGTables``, in libtiff's colour handling (YCbCr converted to RGB,
-anything else taken as stored). Then PIL's conversion of the mode PIL
-gives the layout, as asked of Pillow 12.1:
+LZMA through the standard library and ZSTD through ``tiles/zstd.py``;
+horizontal predictor; chunky or planar; strips or tiles); CCITT fax
+strips (compressions 2, 3, 4; FillOrder 2 too) through
+``tiles/ccitt.py``; JPEG-compressed ones (compression 7) through
+``tiles/jpeg.py`` with the file's ``JPEGTables``, in libtiff's colour
+handling (YCbCr converted to RGB, anything else taken as stored). Then
+PIL's conversion of the mode PIL gives the layout, as asked of Pillow
+12.1:
 
-- ``1`` (1-bit, photometric 0 or 1): 0 or 255;
+- ``1`` (1-bit, photometric 0 or 1; fax too): 0 or 255;
 - ``L`` (8-bit gray, alone or with an extra sample, which is dropped;
   photometric 0 inverted): the value;
 - ``I;16`` (16-bit unsigned gray) and ``I`` (32-bit signed gray): the
@@ -23,10 +25,12 @@ gives the layout, as asked of Pillow 12.1:
   16-bit entries divided by 256;
 - ``RGB`` (8-bit, and 8-bit with an extra sample, alpha or not: the
   extra sample is dropped; 16-bit samples keep their high byte);
-- ``CMYK`` (8-bit, photometric 5): PIL's ``cmyk2rgb``.
+- ``CMYK`` (8-bit, photometric 5): PIL's ``cmyk2rgb``;
+- ``LAB`` (8-bit CIELab, photometric 8): LittleCMS's Lab → sRGB
+  transform (``tiles/lab.py``).
 
-Other layouts (YCbCr without JPEG, Lab, other widths) and compressions
-(CCITT fax, ZSTD) raise ``ValueError`` naming them.
+Other layouts (YCbCr without JPEG, ICC and ITU Lab, other widths)
+raise ``ValueError`` naming them, as PIL refuses them.
 """
 
 from __future__ import annotations
@@ -38,14 +42,20 @@ import numpy as np
 
 from ..geo.geotiff import _decompress, _read_ifd
 from .jpeg import cmyk_to_rgb, decode_jpeg
+from . import zstd
+from .ccitt import decode_fax
+from .lab import lab_to_rgb
 from .png import check_image_size
 
 _JPEG = 7
 _LZMA = 34925
+_ZSTD = 50000
 _JPEG_TABLES = 347
 _COLORMAP = 320
 _EXTRA_SAMPLES = 338
 _FILL_ORDER = 266
+_T4_OPTIONS = 292
+_FAX = (2, 3, 4)
 
 
 def _chunks(f, tags: dict, height: int, width: int) -> list:
@@ -77,8 +87,11 @@ def _chunks(f, tags: dict, height: int, width: int) -> list:
 
 
 def _inflate(raw: bytes, compression: int) -> bytes:
-    """A strip or tile decompressed: the GeoTIFF reader's codecs, and
-    libtiff's LZMA (an xz stream) through the standard library."""
+    """A strip or tile decompressed: the GeoTIFF reader's codecs,
+    libtiff's LZMA (an xz stream) through the standard library, and
+    libtiff's ZSTD (one Zstandard frame) through ``tiles/zstd.py``."""
+    if compression == _ZSTD:
+        return zstd.decompress(raw)
     if compression == _LZMA:
         import lzma
 
@@ -139,12 +152,17 @@ def decode_tiff(data: bytes) -> np.ndarray:
     photometric = int(tags.get(262, [1 if spp < 3 else 2])[0])
     predictor = int(tags.get(317, [1])[0])
     extra = [int(v) for v in tags.get(_EXTRA_SAMPLES, [])]
-    if int(tags.get(_FILL_ORDER, [1])[0]) != 1:
+    fill_order = int(tags.get(_FILL_ORDER, [1])[0])
+    if fill_order != 1 and compression not in _FAX:
         raise ValueError("TIFF fill order 2 is not decoded")
     if len(set(bits_all)) != 1:
         raise ValueError(f"TIFF with mixed sample widths {bits_all}")
     gray = photometric in (0, 1) and spp - len(extra) == 1
-    if compression == _JPEG:
+    if compression in _FAX:
+        if not (gray and spp == 1 and bits == 1):
+            raise ValueError("CCITT fax TIFF of this layout is not decoded")
+        layout = "1"
+    elif compression == _JPEG:
         layout = "jpeg"
         if photometric not in (1, 2, 6) or bits != 8 or spp not in (1, 3):
             raise ValueError("JPEG-compressed TIFF of this layout is not "
@@ -161,6 +179,8 @@ def decode_tiff(data: bytes) -> np.ndarray:
         layout = "F"
     elif photometric == 3 and spp == 1 and bits in (1, 2, 4, 8) and fmt == 1:
         layout = "P"
+    elif photometric == 8 and spp == 3 and fmt == 1 and bits == 8:
+        layout = "LAB"
     elif photometric == 2 and fmt == 1 and bits in (8, 16) and (
             spp == 3 or (spp == 4 and len(extra) == 1)):
         layout = "RGB"
@@ -177,8 +197,12 @@ def decode_tiff(data: bytes) -> np.ndarray:
     out = np.zeros((height, width, spp if layout != "jpeg" else 3),
                    dtype.newbyteorder("=") if bits >= 8 else np.uint8)
     tables = bytes(tags.get(_JPEG_TABLES, []))
+    t4_options = int(tags.get(_T4_OPTIONS, [0])[0])
     for y0, x0, rows, cols, plane, raw in _chunks(f, tags, height, width):
-        if layout == "jpeg":
+        if compression in _FAX:
+            arr = decode_fax(raw, compression, cols, rows, t4_options,
+                             fill_order)[:, :, None]
+        elif layout == "jpeg":
             arr = _jpeg_chunk(raw, tables, photometric)
             if arr.shape[2] == 1:
                 arr = np.repeat(arr, 3, axis=2)
@@ -201,6 +225,8 @@ def _to_rgb(px: np.ndarray, layout: str, photometric: int, bits: int,
             tags: dict) -> np.ndarray:
     if layout == "CMYK":
         return cmyk_to_rgb(px)
+    if layout == "LAB":
+        return lab_to_rgb(px)
     if layout in ("jpeg", "RGB"):
         rgb = px[:, :, :3]
         if bits == 16:

@@ -5,7 +5,16 @@ each, which the port's decoders are held to where PIL is absent
 ``.tiff_upload`` file is a TIFF under a name without the ``.tif``
 suffix, as an upload reaches the server.
 
-Run from the repository root, where PIL is installed:
+The scan fixtures (``scan_*.png``: serial plates rendered by PIL and a
+QR code) also carry the JAX package's answers, which ``chip_smoke.py``
+phase decode holds the card to: ``ocr`` (``ocr_image``),
+``decode_no_retry`` (``decode_with_retry`` without an engine) and
+``decode_upscale4`` (with a ×4 pixel-repeat standing in for the engine).
+The OCR's glyph atlas, the six DejaVu faces PIL renders at 64 px, is
+written to ``s2sr_tpu_torch/decode/glyphs.npz``.
+
+Run from the repository root, where PIL and the JAX package are
+installed:
 
     python tests/fixtures_torch/make_fixtures.py
 """
@@ -27,7 +36,7 @@ sys.path.insert(0, str(HERE.parent.parent))
 
 from test_torch_decode import own_jpeg, photo, pil_jpeg, png_bytes  # noqa: E402
 from test_torch_decode_formats import (  # noqa: E402
-    BMP_CASES, _alpha_photo, _pil_file, _webp)
+    BMP_CASES, _alpha_photo, _lab_file, _pil_file, _webp, fax_file)
 from test_torch_decode_jpeg import S420, arith_file  # noqa: E402
 
 
@@ -78,16 +87,112 @@ def fixtures() -> dict:
         # a phone photo scaled for upload: the card times its decode and
         # its /api/enhance job
         "upload_1024x768.webp": _webp(photo(768, 1024, seed=19), quality=80),
+        # the TIFF tail: CCITT fax (T.4 2-D, T.6 with FillOrder 2 and
+        # photometric 0, Modified Huffman), ZSTD (predictor 2; and a
+        # 480×640 one-strip photo: a frame of several blocks with
+        # predefined, RLE, FSE and repeated sequence tables), CIELab
+        "upload_fax_t4_2d.tiff_upload": fax_file("t4_2d_fill_bits"),
+        "upload_fax_t6_fill_order_2.tiff_upload": fax_file("t6_fill_order_2"),
+        "upload_fax_mh.tiff_upload": fax_file("mh_photometric_1"),
+        "upload_zstd_predictor.tiff_upload": _pil_file(
+            Image.fromarray(photo(41, 57, seed=20)), "TIFF", compression="zstd",
+            tiffinfo={317: 2}),
+        "upload_zstd_large.tiff_upload": _pil_file(
+            Image.fromarray(photo(480, 640, seed=3) // 4 * 4), "TIFF",
+            compression="zstd", strip_size=1 << 22),
+        "upload_lab.tiff_upload": _lab_file(_lab_photo(45, 61, seed=21)),
     }
 
 
+def _lab_photo(h: int, w: int, seed: int) -> np.ndarray:
+    """A photo's channels as CIELab bytes (L; a and b signed, both signs)."""
+    rgb = photo(h, w, seed=seed).astype(np.int64)
+    return np.stack([rgb[..., 0], rgb[..., 1] - 100, 90 - rgb[..., 2]],
+                    -1).astype(np.uint8)
+
+
+def glyph_patches() -> tuple:
+    """The JAX OCR's atlas glyphs, as its ``_atlas`` renders them: each
+    face of ``_FONT_FILES`` at 64 px, every ``CHARSET`` character drawn
+    at (8, 8) on a 96² canvas, thresholded at 96, cropped tight."""
+    from PIL import ImageDraw, ImageFont
+    from s2sr_tpu.decode.ocr import CHARSET, _FONT_FILES
+
+    patches, labels = [], []
+    for path, _ in _FONT_FILES:
+        font = ImageFont.truetype(path, 64)
+        for ch in CHARSET:
+            img = Image.new("L", (96, 96), 0)
+            ImageDraw.Draw(img).text((8, 8), ch, fill=255, font=font)
+            a = np.asarray(img) > 96
+            ys, xs = np.nonzero(a)
+            if len(ys):
+                patches.append(a[ys.min():ys.max() + 1, xs.min():xs.max() + 1])
+                labels.append(ch)
+    return patches, labels
+
+
+def scan_fixtures() -> dict:
+    """Plates as JAX's ``tests/test_ocr.py`` renders them (bold, mono,
+    serif, two lines, inverted, and a low-quality one that asks for the
+    SR retry) and a QR code, as PNG uploads."""
+    from PIL import ImageDraw, ImageFont
+    from s2sr_tpu.decode.qr_encode import encode_qr, render as qr_render
+    from test_ocr import FONT_BOLD, FONT_MONO, render
+
+    serif = ImageFont.truetype(
+        "/usr/share/fonts/truetype/dejavu/DejaVuSerif.ttf", 48)
+    img = Image.new("L", (10 + 48 * 10, 144), 255)
+    ImageDraw.Draw(img).text((8, 48), "MFG-2024-B", fill=0, font=serif)
+    two = Image.new("RGB", (430, 160), (245, 245, 240))
+    d = ImageDraw.Draw(two)
+    bold = ImageFont.truetype(FONT_BOLD, 40)
+    d.text((16, 18), "MODEL 8X42", fill=(10, 10, 10), font=bold)
+    d.text((16, 84), "SERIAL 00912", fill=(10, 10, 10), font=bold)
+    plates = {
+        "scan_plate_bold.png": render("SN KBTX-1234567"),
+        "scan_plate_mono.png": render("AB12CD34EF", font_path=FONT_MONO,
+                                      size=36),
+        "scan_plate_serif.png": np.asarray(img),
+        "scan_plate_two_lines.png": np.asarray(two),
+        "scan_plate_inverted.png": render("VIN 7890 AC", fg=(240, 240, 235),
+                                          bg=(20, 24, 28)),
+        "scan_plate_low_quality.png": render("KQ4Z-77812X0", size=13, pad=8),
+        "scan_qr.png": np.stack([qr_render(encode_qr(
+            "SN-KBTX-1234567", level="M"))] * 3, -1),
+    }
+    return {name: _pil_file(Image.fromarray(a), "PNG")
+            for name, a in plates.items()}
+
+
+def upscale4(arr: np.ndarray) -> np.ndarray:
+    return np.kron(arr, np.ones((4, 4, 1), np.uint8))
+
+
+def scan_record(rgb: np.ndarray) -> dict:
+    """The JAX package's answers on one scan fixture's RGB decode."""
+    from s2sr_tpu.decode.ocr import ocr_image
+    from s2sr_tpu.decode.service import decode_with_retry
+
+    rec = {"ocr": ocr_image(rgb),
+           "decode_no_retry": decode_with_retry(rgb, enhance_fn=None),
+           "decode_upscale4": decode_with_retry(rgb, enhance_fn=upscale4)}
+    return json.loads(json.dumps(rec))
+
+
 def main() -> None:
+    from s2sr_tpu_torch.decode.ocr import GLYPHS, pack_glyphs
+
+    np.savez_compressed(GLYPHS, **pack_glyphs(*glyph_patches()))
     manifest = {}
-    for name, data in fixtures().items():
+    scans = scan_fixtures()
+    for name, data in {**fixtures(), **scans}.items():
         (HERE / name).write_bytes(data)
         rgb = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
         manifest[name] = {"shape": list(rgb.shape),
                           "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
+        if name in scans:
+            manifest[name].update(scan_record(rgb))
     (HERE / "fixtures.json").write_text(json.dumps(manifest, indent=1) + "\n")
 
 

@@ -293,6 +293,9 @@ TIFF_CASES = [(m, c) for m in ("RGB", "L", "1", "P", "RGBA", "LA", "CMYK",
               for c in (None, "tiff_lzw", "tiff_deflate", "packbits")]
 TIFF_CASES += [("RGB", "jpeg"), ("L", "jpeg"), ("RGB", "lzma"),
                ("I;16", "lzma")]
+TIFF_CASES += [(m, "zstd") for m in ("RGB", "L", "1", "P", "RGBA", "LA", "CMYK",
+                                     "I;16", "I", "F")]
+TIFF_CASES += [("1", c) for c in ("group3", "group4", "tiff_ccitt")]
 
 
 @pytest.mark.parametrize("mode, compression", TIFF_CASES)
@@ -300,8 +303,9 @@ def test_tiff_by_content_matches_pil(mode, compression):
     """A TIFF upload decodes to PIL's convert("RGB") of the mode PIL gives
     it (16-bit and 32-bit gray clipped, float truncated, palette through
     the colour map, CMYK through cmyk2rgb), every compression PIL
-    writes but ZSTD (LZMA through the standard library), JPEG-compressed
-    strips through the JPEG decoder: byte-equal."""
+    writes (LZMA through the standard library, ZSTD through
+    ``tiles/zstd.py``, CCITT fax through ``tiles/ccitt.py``),
+    JPEG-compressed strips through the JPEG decoder: byte-equal."""
     _same_as_pil(_pil_file(_tiff_images()[mode], "TIFF",
                            compression=compression))
 
@@ -333,6 +337,293 @@ def test_tiff_large_lzw_and_lossless_webp_match_pil():
     img = Image.fromarray(photo(384, 512, seed=21))
     _same_as_pil(_pil_file(img, "TIFF", compression="tiff_lzw"))
     _same_as_pil(_pil_file(img, "WEBP", lossless=True))
+
+
+# --- TIFF: CCITT fax, ZSTD, CIELab ---------------------------------------------------
+
+def _ifd(data: bytes) -> dict:
+    """tag → (type, count, value bytes) of a little-endian TIFF's first
+    directory."""
+    off = struct.unpack("<I", data[4:8])[0]
+    out = {}
+    size = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8}
+    for i in range(struct.unpack("<H", data[off:off + 2])[0]):
+        tag, typ, cnt, val = struct.unpack("<HHI4s", data[off + 2 + 12 * i:
+                                                         off + 14 + 12 * i])
+        n = size.get(typ, 1) * cnt
+        if n > 4:
+            at = struct.unpack("<I", val)[0]
+            val = data[at:at + n]
+        out[tag] = (typ, cnt, val[:n])
+    return out
+
+
+def _rewrite_tiff(data: bytes, strip: bytes | None = None, **tags) -> bytes:
+    """``data`` (one strip) written again with its strip replaced and
+    tags set (``t262=0``), other tags kept: a minimal writer for the
+    variants PIL will not write (photometric 0 fax, FillOrder 2)."""
+    ifd = _ifd(data)
+    vals = {t: (typ, cnt, raw) for t, (typ, cnt, raw) in ifd.items()}
+    offs = struct.unpack("<I", ifd[273][2][:4])[0]
+    if strip is None:
+        strip = data[offs:offs + struct.unpack("<I", ifd[279][2][:4])[0]]
+    for name, v in tags.items():
+        vals[int(name[1:])] = (3, 1, struct.pack("<H", v))
+    vals[279] = (4, 1, struct.pack("<I", len(strip)))
+    entries = sorted(vals.items())
+    head = 8
+    ifd_size = 2 + 12 * len(entries) + 4
+    extra = bytearray()
+    strip_at = head + ifd_size
+    body = bytearray()
+    blob_at = strip_at + len(strip)
+    for tag, (typ, cnt, raw) in entries:
+        if tag == 273:
+            raw = struct.pack("<I", strip_at)
+            typ, cnt = 4, 1
+        if len(raw) > 4:
+            ptr = blob_at + len(extra)
+            extra += raw + (b"\0" if len(raw) % 2 else b"")
+            raw = struct.pack("<I", ptr)
+        body += struct.pack("<HHI", tag, typ, cnt) + raw.ljust(4, b"\0")
+    return (b"II*\x00" + struct.pack("<I", head) + struct.pack("<H", len(entries))
+            + bytes(body) + b"\0\0\0\0" + strip + bytes(extra))
+
+
+_REVERSED = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
+
+
+def _fax_image():
+    rng = np.random.default_rng(3)
+    runs = np.repeat(rng.random((24, 40)) > 0.5, 9, axis=1)
+    page = np.asarray(Image.fromarray(photo(24, 360, seed=4)).convert("1"))
+    return Image.fromarray(np.concatenate([runs, page], 0).astype(np.uint8) * 255
+                           ).convert("1")
+
+
+FAX_CASES = {
+    # name: (compression, save options, rewrite: photometric, fill order)
+    "t4_1d_photometric_1": ("group3", {}, None, None),
+    "t4_2d": ("group3", {"tiffinfo": {292: 1}}, None, None),
+    "t4_2d_fill_bits": ("group3", {"tiffinfo": {292: 5}}, None, None),
+    "t4_1d_fill_bits": ("group3", {"tiffinfo": {292: 4}}, None, None),
+    "t4_photometric_0": ("group3", {}, 0, None),
+    "t4_2d_fill_order_2": ("group3", {"tiffinfo": {292: 1}}, None, 2),
+    "t6_photometric_1": ("group4", {}, None, None),
+    "t6_photometric_0": ("group4", {}, 0, None),
+    "t6_fill_order_2": ("group4", {}, 0, 2),
+    "mh_photometric_1": ("tiff_ccitt", {}, None, None),
+    "mh_photometric_0": ("tiff_ccitt", {}, 0, None),
+    "mh_fill_order_2": ("tiff_ccitt", {}, None, 2),
+}
+
+
+def fax_file(name: str) -> bytes:
+    """A 1-bit page (runs and a dithered photo, 360 wide) as PIL writes
+    it under ``name``'s compression and options (one strip), rewritten
+    with photometric 0 (PIL writes 1) or FillOrder 2 (the strip's bits
+    reversed, as libtiff reads them back) where the case asks."""
+    comp, kw, photometric, fill = FAX_CASES[name]
+    data = _pil_file(_fax_image(), "TIFF", compression=comp,
+                     strip_size=1 << 20, **kw)
+    tags = {}
+    if photometric is not None:
+        tags["t262"] = photometric
+    if fill is None:
+        return _rewrite_tiff(data, **tags) if tags else data
+    ifd = _ifd(data)
+    at = struct.unpack("<I", ifd[273][2][:4])[0]
+    strip = data[at:at + struct.unpack("<I", ifd[279][2][:4])[0]]
+    return _rewrite_tiff(data, strip.translate(_REVERSED), t266=fill, **tags)
+
+
+@pytest.mark.parametrize("name", list(FAX_CASES))
+def test_tiff_fax_matches_pil(name):
+    """CCITT fax strips (Modified Huffman, T.4 1-D and 2-D with and
+    without fill bits, T.6) under photometric 0 and 1 and FillOrder 2
+    decode to PIL's bytes."""
+    data = fax_file(name)
+    if FAX_CASES[name][2] == 0:
+        assert np.asarray(Image.open(io.BytesIO(data))).mean() != \
+            np.asarray(_fax_image()).mean()
+    _same_as_pil(data)
+
+
+@pytest.mark.parametrize("name", ["t4_2d", "mh_photometric_1",
+                                  "t6_photometric_1"])
+def test_tiff_fax_refused_as_pil_refuses(name):
+    """A T.4 or Modified Huffman strip cut to a third, and any fax strip
+    under an 8-bit layout: PIL refuses them, and so does the port. (A T.6
+    strip cut short PIL decodes in part, as libtiff fills what it read;
+    the port refuses it: ROADMAP queue 3.)"""
+    data = fax_file(name)
+    ifd = _ifd(data)
+    at = struct.unpack("<I", ifd[273][2][:4])[0]
+    cut = data[at:at + struct.unpack("<I", ifd[279][2][:4])[0] // 3]
+    if not name.startswith("t6"):
+        _both_refuse(_rewrite_tiff(data, cut))
+    _both_refuse(_rewrite_tiff(data, t258=8))
+
+
+def test_tiff_zstd_predictor_and_blocks_match_pil():
+    """ZSTD with horizontal differencing (RGB and 16-bit gray), and a
+    one-strip 480×640 photo: a frame of several blocks whose literals
+    are Huffman-coded with a new or the previous tree and whose sequence
+    tables repeat from block to block."""
+    from s2sr_tpu_torch.tiles import zstd
+
+    _same_as_pil(_pil_file(_tiff_images()["RGB"], "TIFF", compression="zstd",
+                           tiffinfo={317: 2}))
+    _same_as_pil(_pil_file(_tiff_images()["I;16"], "TIFF", compression="zstd",
+                           tiffinfo={317: 2}))
+    rng = np.random.default_rng(5)
+    y, x = np.mgrid[:480, :640]
+    base = 128 + 60 * np.sin(x / 17.0) * np.cos(y / 23.0)
+    blocks = (rng.integers(0, 4, (31, 41)) * 20)[y // 16, x // 16]
+    img = np.stack([base + blocks, base * 0.8 + blocks, 255 - base], -1) // 32 * 32
+    data = _pil_file(Image.fromarray(img.astype(np.uint8)), "TIFF",
+                     compression="zstd", strip_size=1 << 22)
+    assert len(data) > 16 * 1024 and img.size > 2 * 128 * 1024
+    seen = []
+    real = zstd._sequences
+
+    def spy(buf, pos, end, state):
+        n = buf[pos]
+        if n:
+            at = pos + (1 if n < 128 else 2 if n < 255 else 3)
+            seen.append(buf[at])
+        return real(buf, pos, end, state)
+
+    zstd._sequences = spy
+    try:
+        _same_as_pil(data)
+    finally:
+        zstd._sequences = real
+    modes = {(m >> s) & 3 for m in seen for s in (2, 4, 6)}
+    assert len(seen) > 1 and 3 in modes          # a repeated table
+
+
+def _zstd_frame(blocks: list, content: bytes, checksum: bool = True) -> bytes:
+    """A single-segment frame of the given (type, payload) blocks."""
+    fhd = 0x20 | (0x04 if checksum else 0) | 0xC0      # 8-byte content size
+    out = struct.pack("<IB", 0xFD2FB528, fhd) + struct.pack("<Q", len(content))
+    for k, (kind, payload, size) in enumerate(blocks):
+        last = k == len(blocks) - 1
+        out += struct.pack("<I", last | (kind << 1) | (size << 3))[:3] + payload
+    if checksum:
+        from s2sr_tpu_torch.tiles.zstd import xxh64
+
+        out += struct.pack("<I", xxh64(content) & 0xFFFFFFFF)
+    return out
+
+
+def _huffman_literals(text: bytes, streams: int) -> bytes:
+    """A compressed literals section of ``text`` (two symbols, 'A' and
+    'B'): a direct-weight tree, then 1 or 4 backward streams."""
+    weights = [0] * 65 + [1]               # 'A' (65) weight 1; 'B' implied
+    tree = bytes([127 + len(weights)]) + bytes(
+        (weights[i] << 4) | (weights[i + 1] if i + 1 < len(weights) else 0)
+        for i in range(0, len(weights), 2))
+
+    def stream(part: bytes) -> bytes:
+        v = 1
+        for ch in part:
+            v = (v << 1) | (ch == ord("B"))
+        return v.to_bytes((v.bit_length() + 7) // 8, "little")
+
+    if streams == 1:
+        body = stream(text)
+    else:
+        q = (len(text) + 3) // 4
+        parts = [stream(text[i * q:(i + 1) * q]) for i in range(4)]
+        body = struct.pack("<HHH", *(len(p) for p in parts[:3])) + b"".join(parts)
+    comp = len(tree) + len(body)
+    head = 2 | ((0 if streams == 1 else 1) << 2) | (len(text) << 4) | (comp << 14)
+    return struct.pack("<I", head)[:3] + tree + body
+
+
+def test_zstd_frames_libtiff_does_not_write():
+    """Frames built here for what libtiff's ZSTD does not emit: raw and
+    RLE blocks, RLE and raw literals without sequences, direct Huffman
+    weights in 1 and 4 streams, a skippable frame before, the content
+    checksum (XXH64) verified, and a wrong checksum refused. XXH64 against
+    its published vectors."""
+    from s2sr_tpu_torch.tiles.zstd import ZstdError, decompress, xxh64
+
+    assert [xxh64(b""), xxh64(b"a"), xxh64(b"abc")] == [
+        0xEF46DB3751D8E999, 0xD24EC4F1A98C6E5B, 0x44BC2CF5AD770999]
+    text = bytes(np.random.default_rng(2).choice([65, 66], 300).astype(np.uint8))
+    content = b"raw!" + b"\x07" * 9 + b"Z" * 20 + b"lit" + text + text
+    # (block type, payload, block size): raw, RLE, then compressed blocks
+    # of RLE literals, raw literals and Huffman literals, no sequences
+    blocks = [(0, b"raw!", 4), (1, b"\x07", 9),
+              (2, bytes([1 | (20 << 3), ord("Z"), 0]), 3),
+              (2, bytes([0 | (3 << 3)]) + b"lit" + b"\0", 5)]
+    for streams in (1, 4):
+        payload = _huffman_literals(text, streams) + b"\0"
+        blocks.append((2, payload, len(payload)))
+    frame = _zstd_frame(blocks, content)
+    skip = struct.pack("<II", 0x184D2A5E, 5) + b"hello"
+    assert decompress(skip + frame) == content
+    assert decompress(_zstd_frame(blocks, content, checksum=False)) == content
+    bad = bytearray(frame)
+    bad[-1] ^= 1
+    with pytest.raises(ZstdError, match="checksum"):
+        decompress(bytes(bad))
+    with pytest.raises(ValueError):
+        decompress(frame[:-9])
+
+
+def test_zstd_tif_named_file_refused_as_jax_refuses(tmp_path):
+    """A ``.tif``-named file goes through the GeoTIFF readers, and JAX's
+    refuses ZSTD: so does the port's (by content it decodes)."""
+    from s2sr_tpu.pipelines.io import load_rgb as jax_load_rgb
+
+    data = _pil_file(_tiff_images()["RGB"], "TIFF", compression="zstd")
+    path = tmp_path / "scene.tif"
+    path.write_bytes(data)
+    with pytest.raises(ValueError, match="50000"):
+        jax_load_rgb(path)
+    with pytest.raises(ValueError, match="50000"):
+        load_rgb(path)
+    assert np.array_equal(decode_upload(data), pil_rgb(data))
+
+
+def _lab_file(lab: np.ndarray, **kw) -> bytes:
+    h, w = lab.shape[:2]
+    return _pil_file(Image.frombytes("LAB", (w, h), lab.tobytes()), "TIFF", **kw)
+
+
+@pytest.mark.parametrize("compression", [None, "tiff_lzw", "zstd"])
+def test_tiff_lab_matches_pil(compression):
+    """A CIELab photo (photometric 8) decodes to PIL's LittleCMS bytes."""
+    rgb = photo(37, 45, seed=12).astype(np.float64)
+    lab = np.stack([rgb[..., 0], rgb[..., 1] - 100, 90 - rgb[..., 2]], -1)
+    data = _lab_file(lab.astype(np.int64).astype(np.uint8), compression=compression)
+    assert Image.open(io.BytesIO(data)).mode == "LAB"
+    _same_as_pil(data)
+
+
+def test_lab_cube_matches_pil():
+    """Every one of the 256³ Lab triples (one 4096² image): the port's
+    bytes equal PIL's (LittleCMS's 33³ table and its tetrahedral reads)."""
+    from s2sr_tpu_torch.tiles.lab import lab_to_rgb
+
+    cube = np.arange(1 << 24, dtype=np.uint32)
+    lab = np.stack([cube >> 16, (cube >> 8) & 255, cube & 255], -1).astype(
+        np.uint8).reshape(4096, 4096, 3)
+    want = np.asarray(Image.frombytes("LAB", (4096, 4096), lab.tobytes())
+                      .convert("RGB"))
+    got = lab_to_rgb(lab)
+    assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize("photometric", [9, 10])
+def test_icc_and_itu_lab_refused_as_pil_refuses(photometric):
+    """ICC Lab (9) and ITU Lab (10): PIL does not open them; neither does
+    the port."""
+    lab = np.random.default_rng(0).integers(0, 256, (20, 30, 3)).astype(np.uint8)
+    _both_refuse(_rewrite_tiff(_lab_file(lab), t262=photometric))
 
 
 # --- WebP -----------------------------------------------------------------------

@@ -642,3 +642,87 @@ def test_truncated_jpeg_refused_as_pil_refuses(cut):
         pil_rgb(data)
     with pytest.raises(ValueError, match="truncated"):
         decode_jpeg(data)
+
+
+# --- lossless with subsampled components -------------------------------------------
+
+def lossless_subsampled(img, sampling, psv=1, restart_mcu_rows=0,
+                        ids=(82, 71, 66)) -> bytes:
+    """A lossless (SOF3) file of RGB-labelled components sampled as
+    ``sampling`` (H, V per component): each component's plane taken every
+    Hmax/H, Vmax/V pixels and padded to whole MCUs by repeating its edge;
+    H×V samples of each component an MCU, interleaved; the first row of
+    each component (of the scan, of each restart interval) predicted from
+    2^7 and the left."""
+    h, w, nc = img.shape
+    hmax = max(s[0] for s in sampling)
+    vmax = max(s[1] for s in sampling)
+    mcux, mcuy = -(-w // hmax), -(-h // vmax)
+    counts = [0] * 16
+    counts[4] = 17
+    out = b"\xff\xd8" + _seg(0xC4, bytes([0]) + bytes(counts) + bytes(range(17)))
+    out += _seg(0xC3, struct.pack(">BHHB", 8, h, w, nc) + b"".join(
+        bytes([i, (s[0] << 4) | s[1], 0]) for i, s in zip(ids, sampling)))
+    if restart_mcu_rows:
+        out += _seg(0xDD, struct.pack(">H", restart_mcu_rows * mcux))
+    out += _seg(0xDA, bytes([nc]) + b"".join(bytes([i, 0]) for i in ids)
+                + bytes([psv, 0, 0]))
+    planes = []
+    for c, (hh, vv) in enumerate(sampling):
+        p = img[::vmax // vv, ::hmax // hh, c].astype(np.int64)
+        planes.append(np.pad(p, ((0, mcuy * vv - p.shape[0]),
+                                 (0, mcux * hh - p.shape[1])), mode="edge"))
+    wr = _LWriter()
+    rst = 0
+    for my in range(mcuy):
+        start = restart_mcu_rows and my and my % restart_mcu_rows == 0
+        if start:
+            wr.flush()
+            out += bytes(wr.out) + bytes([0xFF, 0xD0 + rst % 8])
+            rst += 1
+            wr = _LWriter()
+        first_row = my == 0 or start
+        for mx in range(mcux):
+            for c, (hh, vv) in enumerate(sampling):
+                p = planes[c]
+                for dv in range(vv):
+                    for dh in range(hh):
+                        y, x = my * vv + dv, mx * hh + dh
+                        if first_row and dv == 0:
+                            pred = 128 if x == 0 else p[y, x - 1]
+                        elif x == 0:
+                            pred = p[y - 1, 0]
+                        else:
+                            ra, rb, rc = p[y, x - 1], p[y - 1, x], p[y - 1, x - 1]
+                            pred = [0, ra, rb, rc, ra + rb - rc,
+                                    ra + ((rb - rc) >> 1), rb + ((ra - rc) >> 1),
+                                    (ra + rb) >> 1][psv]
+                        d = int(p[y, x] - pred)
+                        s = abs(d).bit_length()
+                        wr.put(s, 5)
+                        if s:
+                            wr.put(d if d > 0 else d + (1 << s) - 1, s)
+    wr.flush()
+    return out + bytes(wr.out) + b"\xff\xd9"
+
+
+SUBSAMPLED_LOSSLESS = {
+    "h2v2": (((2, 2), (1, 1), (1, 1)), {}),
+    "h2v1_odd": (((2, 1), (1, 1), (1, 1)), {"psv": 4}),
+    "h1v2_psv7": (((1, 2), (1, 1), (1, 1)), {"psv": 7}),
+    "h2v2_restart": (((2, 2), (1, 1), (1, 1)), {"restart_mcu_rows": 3,
+                                                "psv": 5}),
+    "chroma_full_luma_half": (((1, 1), (2, 2), (2, 2)), {"psv": 6}),
+}
+
+
+@pytest.mark.parametrize("name", list(SUBSAMPLED_LOSSLESS))
+def test_subsampled_lossless_jpeg_matches_pil(name):
+    """PIL (libjpeg-turbo) decodes a lossless JPEG whose components are
+    subsampled, replicating each subsampled sample over its Hmax/H ×
+    Vmax/V pixels: the port gives the same bytes (odd sizes, predictors,
+    restarts)."""
+    sampling, kw = SUBSAMPLED_LOSSLESS[name]
+    img = photo(21, 27, seed=9)
+    data = lossless_subsampled(img, sampling, **kw)
+    assert np.array_equal(decode_upload(data), pil_rgb(data))

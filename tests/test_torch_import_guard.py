@@ -1,7 +1,8 @@
 """``s2sr_tpu_torch`` and ``chip_smoke.py`` import with ``jax``,
 ``s2sr_tpu``, ``PIL``, ``pydantic``, ``requests`` and ``cv2`` blocked
 (the card's machine has none of the last four), and no source line
-imports ``jax`` or ``s2sr_tpu``."""
+imports ``jax`` or ``s2sr_tpu``. The decode package's OCR builds its
+templates from the committed glyph file without PIL."""
 
 import pkgutil
 import re
@@ -48,7 +49,15 @@ def test_modules_import_with_jax_blocked():
             "s2sr_tpu_torch.pipelines.generate_vectors",
             "s2sr_tpu_torch.cli.generate_vectors",
             "s2sr_tpu_torch.cli.vectors_v2",
-            } <= set(mods) and len(mods) >= 74
+            "s2sr_tpu_torch.decode", "s2sr_tpu_torch.decode.galois",
+            "s2sr_tpu_torch.decode.qr_tables",
+            "s2sr_tpu_torch.decode.qr_decode",
+            "s2sr_tpu_torch.decode.qr_encode",
+            "s2sr_tpu_torch.decode.serial", "s2sr_tpu_torch.decode.locate",
+            "s2sr_tpu_torch.decode.ocr", "s2sr_tpu_torch.decode.service",
+            "s2sr_tpu_torch.tiles.zstd", "s2sr_tpu_torch.tiles.ccitt",
+            "s2sr_tpu_torch.tiles.lab",
+            } <= set(mods) and len(mods) >= 86
     code = "\n".join([
         "import sys",
         "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic',"
@@ -74,6 +83,9 @@ def test_modules_import_with_jax_blocked():
         "assert 'matmul_chain' in chip_smoke.KERNEL_SOURCES",
         "assert 'server' in chip_smoke.PHASES",
         "assert 'vectors' in chip_smoke.PHASES",
+        "assert 'decode' in chip_smoke.PHASES",
+        "from s2sr_tpu_torch.decode.ocr import _atlas",
+        "assert _atlas()[0].shape == (222, 432)",
         "from s2sr_tpu_torch.ops import rdb",
         "assert callable(rdb.rdb_i8) and rdb.LAUNCHES_I8 == 0",
         "print('ok')",

@@ -145,12 +145,27 @@ def data_dir(app) -> Path:
 # --- routes and probes ---------------------------------------------------
 
 def test_route_table_is_jax_minus_unported(apps):
+    """Since the decode route is ported, the port registers the JAX
+    server's whole route table, in order (nothing is left unported)."""
     jax_app, app, _ = apps
-    want = [(r.method, r.raw_path) for r in jax_app.routes
-            if (r.method, r.raw_path) not in app_mod.NOT_PORTED_ROUTES]
+    want = [(r.method, r.raw_path) for r in jax_app.routes]
     assert [(r.method, r.raw_path) for r in app.routes] == want
-    jax_all = {(r.method, r.raw_path) for r in jax_app.routes}
-    assert set(app_mod.NOT_PORTED_ROUTES) <= jax_all
+    assert ("POST", "/api/decode") in want
+    assert not hasattr(app_mod, "NOT_PORTED_ROUTES")
+
+
+def qr_png(text: str = "SN-KBTX-1234567") -> bytes:
+    from s2sr_tpu_torch.decode.qr_encode import encode_qr, render
+
+    return encode_png(np.stack([render(encode_qr(text, level="M"))] * 3, -1))
+
+
+def plate_png() -> bytes:
+    """A small, low-quality serial plate (the JAX OCR test's): no QR, a
+    weak OCR read, so the scan asks for the SR retry."""
+    from test_ocr import render
+
+    return encode_png(render("KQ4Z-77812X0", size=13, pad=8))
 
 
 def _probe_requests(scene: str):
@@ -211,6 +226,26 @@ def _probe_requests(scene: str):
             "aoi_path": "/nonexistent/aoi.geojson"}}),
         "vectors_json_array": ("POST", "/api/vectors", {"body": b"[1]"}),
         "vectors_get_405": ("GET", "/api/vectors", {}),
+        # the QR/serial scan (no job; the SR retry off or not needed)
+        "decode_qr": ("POST", "/api/decode", dict(zip(
+            ("body", "headers"), multipart({}, qr_png())))),
+        "decode_plate_no_retry": ("POST", "/api/decode", dict(zip(
+            ("body", "headers"), multipart({"enhance_retry": "false"},
+                                           plate_png())))),
+        "decode_qr_no_retry": ("POST", "/api/decode", dict(zip(
+            ("body", "headers"), multipart({"enhance_retry": "FALSE"},
+                                           qr_png("AB12"))))),
+        "decode_non_image": ("POST", "/api/decode", dict(zip(
+            ("body", "headers"), multipart({}, b"not an image at all")))),
+        "decode_no_image": ("POST", "/api/decode", dict(zip(
+            ("body", "headers"), multipart({"enhance_retry": "false"},
+                                           None)))),
+        "decode_too_large": ("POST", "/api/decode", dict(zip(
+            ("body", "headers"), multipart({}, big)))),
+        "decode_over_16mpix": ("POST", "/api/decode", dict(zip(
+            ("body", "headers"), multipart({}, encode_png(
+                np.full((4001, 4001), 200, np.uint8)))))),
+        "decode_get_405": ("GET", "/api/decode", {}),
     }
 
 
@@ -735,6 +770,58 @@ def test_live_socket_round_trip(apps, tmp_path):
     assert not thread.is_alive(), "server did not shut down"
     with pytest.raises(RuntimeError):
         app.runner.submit("post-shutdown", lambda: None)
+
+
+def test_decode_retry_runs_on_the_runner_unjournaled(apps, scenario):
+    """A low-quality plate on ``/api/decode`` asks for the SR retry in
+    both apps: it runs ``realesrgan_x4``'s ``enhance_serving`` through the
+    runner (``run_sync`` label ``decode_sr``) and rescans the ×4 image;
+    the runner's ``_sync_decode_sr_*`` pseudo-job never reaches the
+    journal. The rescan reads an SR output, where the two engines may
+    differ by an LSB, so the stages and the retry flag are compared, not
+    the text."""
+    body, headers = multipart({}, plate_png())
+    out = []
+    for app in apps[:2]:
+        labels = []
+        run_sync = app.runner.run_sync
+
+        def spy(fn, timeout=300.0, label="inline", _run=run_sync, _l=labels):
+            _l.append((label, timeout))
+            return _run(fn, timeout=timeout, label=label)
+
+        app.runner.run_sync = spy
+        try:
+            resp, payload = call(app, "POST", "/api/decode", body=body,
+                                 headers=headers)
+        finally:
+            del app.runner.run_sync
+        assert resp.status_code == 200, payload
+        assert labels == [("decode_sr", 240.0)]
+        assert payload["retried_with_enhancement"] is True
+        assert payload["filename"] == "up.png"
+        out.append([a["stage"] for a in payload["attempts"]])
+        journal = (data_dir(app) / "jobs.jsonl").read_text()
+        assert "_sync_" not in journal
+    assert out[0] == out[1] == ["original", "enhanced"]
+
+
+def test_durable_store_never_journals_unknown_ids(tmp_path):
+    """JAX's ``test_server.py`` rule on the port's store: updates for ids
+    that were never created (the runner's ``_sync_*`` pseudo-jobs) are
+    refused and never come back after a reopen."""
+    from s2sr_tpu_torch.server.persistence import DurableJobStore
+
+    journal = tmp_path / "j.jsonl"
+    store = DurableJobStore(journal)
+    store.create("real", status="queued")
+    assert store.update("_sync_decode_sr_1", status="failed") is False
+    assert store.update("real", status="completed") is True
+    store.close()
+    store2 = DurableJobStore(journal)
+    assert store2.get("_sync_decode_sr_1") is None
+    assert set(store2.all()) == {"real"}
+    assert store2.get("real")["status"] == "completed"
 
 
 # --- offline scene selection (fetch/smart_fetch.py) -----------------------
