@@ -27,6 +27,17 @@ random weights from seed 0, each at the full width of its model:
   (PNG, JPEG with its CMYK and arithmetic variants, BMP, GIF, WebP, TIFF
   by content with CCITT fax, ZSTD and CIELab) decoded against PIL's
   SHA-256 (phase server);
+- scene acquisition (``s2sr_tpu_torch.fetch``, ``geo/cog.py``) against a
+  local server standing in for Earth-Search, its COG bucket and UP42 (a
+  Sentinel-2-sized visual COG and band crops made from ``--seed``):
+  ``smart_fetch`` online (STAC search, range reads, the AOI clip on the
+  card, equal to the CPU's), the RGB-band merge, the multiband stack
+  (SCL nearest) card vs CPU, the UP42 order flow with a retry, then
+  ``run_esrgan_and_tiles`` on the fetched scene (its RDBs in the ``rdb``
+  kernel) and the device's tile warp rate (phase fetch); phase server
+  adds ``/api/pipeline`` online at zooms 10–16, the PNG encoder in use
+  (native or pure, and why) with one pyramid on each, and a host
+  ``cProfile`` of a warm ``/api/wow`` job on each encoder;
 - the QR/serial scan (``s2sr_tpu_torch.decode``), whose binarizer runs on
   the card: QR codes of versions 1 to 40 at every level, inverted,
   mirrored, rotated, warped, blurred, in Kanji, ECI and
@@ -73,8 +84,9 @@ Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 
 ``--phases`` picks a subset (device, build, kernel, main, numbers,
-server, vectors, decode, swin_kernel, swin_main, swin_large, swin_numbers,
-ladder, mxu) for a quick check; the default runs them all.
+fetch, server, vectors, decode, swin_kernel, swin_main, swin_large,
+swin_numbers, ladder, mxu) for a quick check; the default runs them all.
+``--seed`` seeds the fetched scene's pixels.
 """
 
 from __future__ import annotations
@@ -82,13 +94,14 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernel", "main", "numbers", "server",
+PHASES = ("device", "build", "kernel", "main", "numbers", "fetch", "server",
           "vectors", "decode", "swin_kernel", "swin_main", "swin_large", "swin_numbers", "ladder",
           "mxu")
 KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder", "rdb_ladder_tc",
@@ -1052,6 +1065,457 @@ def phase_numbers(state):
                             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# --- scene acquisition: fetch/, geo/cog.py, the ESRGAN tiles --------------
+
+S2_SIDE = 10980               # one Sentinel-2 tile at 10 m
+S2_SMALL_SIDE = 5490          # if writing the whole tile would take > 30 s
+BAND_SIDE = 2745              # the bands' crop around the AOI
+S2_RES = 10.0
+SCL_CODES = (4, 5, 6, 8, 9, 3)   # vegetation, bare, water, clouds, shadow
+
+
+class AssetServer:
+    """A ``ThreadingHTTPServer`` on 127.0.0.1 that stands in for
+    Earth-Search, its COG bucket and UP42: files of a directory answered
+    with ``Range`` (206) and JSON routes; requests and bytes per path."""
+
+    def __init__(self, root: Path):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        owner = self
+        self.root, self.routes, self.stats = root, {}, {}
+        self.lock = threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                owner.answer(self, "GET")
+
+            def do_POST(self):
+                owner.answer(self, "POST")
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def answer(self, h, method: str) -> None:
+        import urllib.parse
+
+        path = urllib.parse.urlsplit(h.path).path
+        n = int(h.headers.get("Content-Length") or 0)
+        body = h.rfile.read(n) if n else b""
+        file = self.root / path.lstrip("/")
+        headers: dict = {}
+        if path in self.routes:
+            status, out = self.routes[path](method, body)
+            headers["Content-Type"] = "application/json"
+        elif method == "GET" and file.is_file():
+            size = file.stat().st_size
+            start, end = 0, size - 1
+            status = 200
+            if h.headers.get("Range"):
+                a, b = h.headers["Range"].split("=")[1].split("-")
+                start, end, status = int(a), min(int(b), size - 1), 206
+                headers["Content-Range"] = f"bytes {start}-{end}/{size}"
+            with open(file, "rb") as f:
+                f.seek(start)
+                out = f.read(end - start + 1)
+        else:
+            status, out = 404, b'{"detail": "Not Found"}'
+        with self.lock:
+            st = self.stats.setdefault(path, [0, 0])
+            st[0] += 1
+            st[1] += len(out)
+        h.send_response(status)
+        for k, v in headers.items():
+            h.send_header(k, v)
+        h.send_header("Content-Length", str(len(out)))
+        h.end_headers()
+        h.wfile.write(out)
+
+    def json_route(self, path: str, reply, status: int = 200) -> None:
+        self.routes[path] = lambda method, body: (
+            status, json.dumps(reply(method, body) if callable(reply)
+                               else reply).encode())
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=30)
+
+
+class FetchTimer:
+    """Seconds of a fetch's stages, from wrappers around the functions
+    that do them: the STAC search (``smart_fetch.check_remote_catalog``),
+    the COG reads (``PublicSentinel2Client._download_asset``: the range
+    requests and their decode) and the AOI clip (``_clip_to_aoi``, which
+    ends in its copy back); and the range files the reads made."""
+
+    def __enter__(self):
+        from s2sr_tpu_torch.fetch import client, smart_fetch
+        from s2sr_tpu_torch.geo import cog
+
+        self.seconds = {"search": 0.0, "range_reads": 0.0, "clip": 0.0}
+        self.files: list = []
+        timer = self
+
+        def timed(fn, stage):
+            @functools.wraps(fn)
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    timer.seconds[stage] += time.perf_counter() - t0
+            return run
+
+        class Recorded(cog.HttpRangeFile):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                timer.files.append(self)
+
+        cls = client.PublicSentinel2Client
+        self.saved = [(smart_fetch, "check_remote_catalog"),
+                      (cls, "_download_asset"), (cls, "_clip_to_aoi"),
+                      (cog, "HttpRangeFile")]
+        self.saved = [(o, n, getattr(o, n)) for o, n in self.saved]
+        smart_fetch.check_remote_catalog = timed(
+            smart_fetch.check_remote_catalog, "search")
+        cls._download_asset = timed(cls._download_asset, "range_reads")
+        cls._clip_to_aoi = timed(cls._clip_to_aoi, "clip")
+        cog.HttpRangeFile = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
+
+    def reads(self) -> dict:
+        return {"requests_made": sum(f.requests_made for f in self.files),
+                "bytes_fetched": sum(f.bytes_fetched for f in self.files)}
+
+
+def s2_grid(side: int):
+    """The EPSG:32636 transform of a ``side``² 10 m tile whose west and
+    north edges lie 30% of a full tile (32.9 km) from the AOI's centre."""
+    import numpy as np
+
+    from s2sr_tpu_torch.fetch.synthetic import DEFAULT_BOUNDS
+    from s2sr_tpu_torch.geo import Affine
+    from s2sr_tpu_torch.geo.crs import lonlat_to_utm
+
+    w, s, e, n = DEFAULT_BOUNDS
+    cx, cy = lonlat_to_utm(np.array([(w + e) / 2]), np.array([(s + n) / 2]),
+                           36, True)
+    off = int(0.3 * S2_SIDE) * S2_RES
+    return Affine(S2_RES, 0.0, float(np.floor(cx[0] / S2_RES) * S2_RES - off),
+                  0.0, -S2_RES, float(np.floor(cy[0] / S2_RES) * S2_RES + off))
+
+
+def stac_item(base: str, scene_id: str, visual: str) -> dict:
+    from datetime import datetime, timedelta, timezone
+
+    acq = datetime.now(timezone.utc) - timedelta(days=1)
+    assets = {"visual": {"href": base + visual}}
+    assets.update({k: {"href": f"{base}/bands/{k}.tif"}
+                   for k in ("red", "green", "blue", "nir", "scl")})
+    return {"id": scene_id, "type": "Feature", "collection": "sentinel-2-l2a",
+            "properties": {"datetime": acq.strftime("%Y-%m-%dT%H:%M:%SZ"),
+                           "eo:cloud_cover": 3.2},
+            "assets": assets}
+
+
+def fetch_assets(state) -> dict:
+    """The canned scene, written once per run and served by an
+    :class:`AssetServer`: the ``visual`` asset (a Sentinel-2 tile of RGB
+    uint8 in EPSG:32636 at 10 m, deflate strips with the predictor, as
+    the port's GeoTIFF writer writes them; pixels from ``--seed``), the
+    red, green, blue and nir bands (uint16) and scl (uint8 class codes)
+    on a 2745² crop of the same grid around the AOI, and the STAC reply
+    of two items: one with the visual asset, one whose visual asset
+    answers 404."""
+    if "assets" in state:
+        return state["assets"]
+    import numpy as np
+
+    from s2sr_tpu_torch.fetch.synthetic import DEFAULT_BOUNDS
+    from s2sr_tpu_torch.geo import CRS, Affine, GeoTiff, write_geotiff
+
+    root = state["work"] / "assets"
+    (root / "bands").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(state["seed"])
+    t0 = time.perf_counter()
+    parcels = rng.integers(30, 226, (S2_SIDE // 20 + 1, S2_SIDE // 20 + 1, 3),
+                           dtype=np.uint8)
+    visual = np.repeat(np.repeat(parcels, 20, 0), 20, 1)[:S2_SIDE, :S2_SIDE]
+    visual += rng.integers(0, 24, visual.shape, dtype=np.uint8)
+    made_s = time.perf_counter() - t0
+    # project the whole tile's write from 16 strips of it
+    t0 = time.perf_counter()
+    rows = 16 * ((1 << 20) // (S2_SIDE * 3))
+    write_geotiff(GeoTiff(visual[:rows], transform=s2_grid(S2_SIDE),
+                          crs=CRS(32636)), root / "probe.tif")
+    projected = (time.perf_counter() - t0) * S2_SIDE / rows
+    (root / "probe.tif").unlink()
+    side = S2_SIDE if projected <= 30 else S2_SMALL_SIDE
+    tr = s2_grid(side)
+    t0 = time.perf_counter()
+    write_geotiff(GeoTiff(np.ascontiguousarray(visual[:side, :side]),
+                          transform=tr, crs=CRS(32636)), root / "visual.tif")
+    write_s = time.perf_counter() - t0
+    if side != S2_SIDE:
+        emit({"phase": "fetch", "note": f"visual asset cut to {side}² "
+              f"(writing {S2_SIDE}² was projected at {projected:.1f} s, "
+              "over 30 s, on this host)"})
+    # the bands: a BAND_SIDE² crop centred on the AOI, on the same grid
+    w, s, e, n = DEFAULT_BOUNDS
+    from s2sr_tpu_torch.geo.crs import lonlat_to_utm
+
+    cx, cy = lonlat_to_utm(np.array([(w + e) / 2]), np.array([(s + n) / 2]),
+                           36, True)
+    c0 = int((cx[0] - tr.c) / S2_RES) - BAND_SIDE // 2
+    r0 = int((tr.f - cy[0]) / S2_RES) - BAND_SIDE // 2
+    crop = visual[r0:r0 + BAND_SIDE, c0:c0 + BAND_SIDE]
+    btr = tr * Affine.translation(c0, r0)
+    for k, key in enumerate(("red", "green", "blue", "nir")):
+        band = crop[:, :, k % 3].astype(np.uint16) * 12 + rng.integers(
+            0, 40, crop.shape[:2], dtype=np.uint16)
+        write_geotiff(GeoTiff(band[:, :, None], transform=btr, crs=CRS(32636)),
+                      root / "bands" / f"{key}.tif")
+    codes = np.asarray(SCL_CODES, np.uint8)[rng.integers(
+        0, len(SCL_CODES), (BAND_SIDE // 30 + 1, BAND_SIDE // 30 + 1))]
+    scl = np.repeat(np.repeat(codes, 30, 0), 30, 1)[:BAND_SIDE, :BAND_SIDE]
+    write_geotiff(GeoTiff(np.ascontiguousarray(scl)[:, :, None], transform=btr,
+                          crs=CRS(32636)), root / "bands" / "scl.tif")
+    srv = AssetServer(root)
+    items = {"S2_VISUAL": stac_item(srv.base, "S2_VISUAL", "/visual.tif"),
+             "S2_NO_VISUAL": stac_item(srv.base, "S2_NO_VISUAL",
+                                       "/missing/visual.tif")}
+    srv.json_route("/search", {"type": "FeatureCollection",
+                               "features": [items["S2_VISUAL"]]})
+    state["assets"] = {"server": srv, "root": root, "side": side,
+                       "items": items, "visual_bytes":
+                       (root / "visual.tif").stat().st_size}
+    w, s, e, n = DEFAULT_BOUNDS
+    state["assets"]["aoi"] = {"type": "Polygon", "coordinates": [[
+        [w, s], [e, s], [e, n], [w, n], [w, s]]]}
+    emit({"phase": "fetch", "assets": {
+        "visual": f"{side}x{side}x3 uint8 EPSG:32636 10 m, deflate strips",
+        "visual_bytes": state["assets"]["visual_bytes"],
+        "bands": f"red, green, blue, nir uint16 and scl uint8, "
+                 f"{BAND_SIDE}x{BAND_SIDE} crop of the same grid",
+        "pixels_seconds": round(made_s, 3),
+        "write_seconds": round(write_s, 3),
+        "projected_full_write_seconds": round(projected, 3),
+        "seed": state["seed"]}})
+    return state["assets"]
+
+
+def clip_card_vs_cpu(path: Path, url: str, aoi: dict, settings) -> int:
+    """Bytes apart between the card's clip (the fetched GeoTIFF) and the
+    CPU's clip of the same COG window."""
+    import numpy as np
+
+    from s2sr_tpu_torch.fetch.client import PublicSentinel2Client
+    from s2sr_tpu_torch.geo import read_geotiff
+
+    cpu = PublicSentinel2Client(settings, device="cpu")
+    window = cpu._stream_window(url, aoi)
+    want = cpu._clip_to_aoi(window, aoi).data
+    got = read_geotiff(path).data
+    if got.shape != want.shape:
+        raise AssertionError(f"clip {got.shape} vs CPU {want.shape}")
+    return int(np.count_nonzero(got != want))
+
+
+def phase_fetch(state):
+    """Scene acquisition on the card against local servers: (a)
+    ``smart_fetch`` online over the default AOI (STAC search, range reads
+    of the visual COG, the 1024² clip on the card, equal to the CPU's),
+    (b) the RGB-band merge when the visual asset answers 404, (c)
+    ``fetch_and_stack_multiband`` card vs CPU, (d) ``UP42Client``
+    through a failed reply, an order poll and the download, (f)
+    ``run_esrgan_and_tiles`` on the fetched scene (rdb launches, tiles/s)
+    and (e) ``warp_tiles_device_benchmark`` on its SR raster."""
+    import numpy as np
+
+    from s2sr_tpu_torch.config import Settings
+    from s2sr_tpu_torch.fetch import client, multiband, smart_fetch
+    from s2sr_tpu_torch.geo import read_geotiff
+    from s2sr_tpu_torch.models.engine import loaded_engines
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.pipelines.esrgan_tiles import run_esrgan_and_tiles
+    from s2sr_tpu_torch.tiles.mercator import tiles_for_bounds
+    from s2sr_tpu_torch.tiles.pyramid import warp_tiles_device_benchmark
+
+    card = state.get("card") or card_line()
+    assets = fetch_assets(state)
+    srv, aoi = assets["server"], assets["aoi"]
+    root = state["work"] / "fetch"
+    settings = Settings(offline=False, data_dir=str(root / "data"),
+                        weights_dir=str(state["work"] / "weights"))
+    smart_fetch.STAC_URL = srv.base + "/search"
+
+    # (a) smart_fetch online: search → range reads → clip on the card
+    srv.stats.clear()
+    with FetchTimer() as ft:
+        t0 = time.perf_counter()
+        path, meta = smart_fetch.smart_fetch(aoi, root / "source",
+                                             settings=settings, device="cuda")
+        total = time.perf_counter() - t0
+    if meta.get("source") != "aws_earth_search" or \
+            meta.get("scene_id") != "S2_VISUAL":
+        raise AssertionError(f"smart_fetch online: {meta}")
+    reads = ft.reads()
+    apart = clip_card_vs_cpu(path, srv.base + "/visual.tif", aoi, settings)
+    share = reads["bytes_fetched"] / assets["visual_bytes"]
+    emit({"phase": "fetch", "case": "smart_fetch online, visual COG",
+          "seconds": round(total, 4),
+          "stage_seconds": {k: round(v, 4) for k, v in ft.seconds.items()},
+          **reads, "visual_bytes": assets["visual_bytes"],
+          "share_of_file": share, "clip": list(read_geotiff(path).data.shape),
+          "clip_bytes_apart_card_vs_cpu": apart, "card": card})
+    if apart or share > 0.25:
+        raise AssertionError(f"smart_fetch: {apart} bytes apart, "
+                             f"{share:.4f} of the file read")
+    state["fetched_scene"] = path
+
+    # (b) the visual asset answers 404: the RGB bands merged
+    item = assets["items"]["S2_NO_VISUAL"]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        with FetchTimer() as ft:
+            t0 = time.perf_counter()
+            p, m = client.PublicSentinel2Client(settings, device=dev
+                                                ).fetch_best_scene(
+                aoi, root / f"merge_{dev}",
+                scene={"scene_id": item["id"], "feature": item})
+            secs = time.perf_counter() - t0
+        outs[dev] = read_geotiff(p).data
+        if dev == "cuda":
+            line = {"phase": "fetch", "case": "visual 404 -> RGB band merge",
+                    "seconds": round(secs, 4),
+                    "stage_seconds": {k: round(v, 4)
+                                      for k, v in ft.seconds.items()},
+                    **ft.reads(), "scene_id": m["scene_id"]}
+    apart = int(np.count_nonzero(outs["cuda"] != outs["cpu"]))
+    emit({**line, "clip_bytes_apart_card_vs_cpu": apart,
+          "band_bytes": sum((assets["root"] / "bands" / f"{k}.tif").stat()
+                            .st_size for k in ("red", "green", "blue")),
+          "card": card})
+    if apart or not outs["cuda"].any():
+        raise AssertionError(f"RGB merge: {apart} bytes apart card vs CPU")
+
+    # (c) multiband: red, NIR bilinear and SCL nearest on the card
+    multiband.EARTH_SEARCH = srv.base + "/search"
+    stacks = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p, m = multiband.fetch_and_stack_multiband(
+            aoi, root / f"mb_{dev}", settings=settings, device=dev)
+        stacks[dev] = (read_geotiff(p).data, time.perf_counter() - t0)
+    got, want = stacks["cuda"][0], stacks["cpu"][0]
+    apart = {b: int(np.count_nonzero(got[..., i] != want[..., i]))
+             for i, b in enumerate(("red", "nir", "scl"))}
+    classes = sorted(int(v) for v in np.unique(got[..., 2]))
+    emit({"phase": "fetch", "case": "fetch_and_stack_multiband",
+          "seconds": round(stacks["cuda"][1], 4),
+          "cpu_seconds": round(stacks["cpu"][1], 4),
+          "shape": list(got.shape), "values_apart_card_vs_cpu": apart,
+          "scl_classes": classes, "card": card})
+    if any(apart.values()) or not set(classes) <= set(SCL_CODES) | {0}:
+        raise AssertionError(f"multiband: {apart}, classes {classes}")
+
+    # (d) UP42: token, catalog (one 500 first), order, poll, download
+    up = {"catalog": 0, "polls": 0}
+
+    def catalog(method, body):
+        up["catalog"] += 1
+        return (500, b"{}") if up["catalog"] == 1 else (200, json.dumps(
+            {"features": [assets["items"]["S2_VISUAL"]]}).encode())
+
+    def order(method, body):
+        up["polls"] += 1
+        return {"id": "ord-1", "status": "RUNNING" if up["polls"] == 1
+                else "FULFILLED",
+                "assets": [{"url": srv.base + "/up42/asset.tif"}]}
+
+    srv.json_route("/up42/auth", {"access_token": "tok", "expires_in": 3600})
+    srv.routes["/up42/catalog"] = catalog
+    srv.json_route("/up42/api/orders", lambda m, b: {"id": "ord-1"} if b
+                   else {"content": []})
+    srv.json_route("/up42/api/orders/ord-1", order)
+    (assets["root"] / "up42").mkdir(exist_ok=True)
+    (assets["root"] / "up42" / "asset.tif").write_bytes(path.read_bytes())
+    up_settings = Settings(
+        offline=False, up42_username="user", up42_password="pw",
+        up42_auth_url=srv.base + "/up42/auth",
+        up42_api_base=srv.base + "/up42/api",
+        up42_catalog_url=srv.base + "/up42/catalog")
+    up42 = client.UP42Client(up_settings)
+    up42.wait_for_order = functools.partial(client.UP42Client.wait_for_order,
+                                            up42, poll_s=0.05)
+    t0 = time.perf_counter()
+    p, m = up42.fetch_best_scene(aoi, root / "up42")
+    secs = time.perf_counter() - t0
+    emit({"phase": "fetch", "case": "UP42Client.fetch_best_scene",
+          "seconds": round(secs, 4), "catalog_requests": up["catalog"],
+          "order_polls": up["polls"], "order_id": m["order_id"],
+          "scene_id": m["scene_id"]})
+    if (up["catalog"] != 2 or up["polls"] != 2 or m["order_id"] != "ord-1"
+            or Path(p).read_bytes() != path.read_bytes()):
+        raise AssertionError(f"UP42: {up}, {m}")
+
+    # (f) the ESRGAN tiles of the fetched scene, z15-17
+    def engine_chunks() -> int:
+        return sum(e.chunks_dispatched for e in loaded_engines())
+
+    bounds = _mercator_bounds_of(read_geotiff(path))
+    zooms = {z: len(list(tiles_for_bounds(bounds, z))) for z in range(15, 21)}
+    emit({"phase": "fetch", "cut": "run_esrgan_and_tiles at z15-17, not "
+          "JAX's default z18-20", "base_tiles_by_zoom": zooms})
+    rdb_mod.LAUNCHES = 0
+    chunks0 = engine_chunks()
+    t0 = time.perf_counter()
+    res = run_esrgan_and_tiles(path, root / "esrgan", min_zoom=15, max_zoom=17,
+                               weights_dir=settings.weights_dir, device="cuda")
+    secs = time.perf_counter() - t0
+    launches, chunks = rdb_mod.LAUNCHES, engine_chunks() - chunks0
+    stages = {s["name"]: s["seconds"] for s in res["timing"]["stages"]}
+    tile_s = stages.get("tiles z15-17")
+    emit({"phase": "fetch", "case": "run_esrgan_and_tiles z15-17",
+          "seconds": round(secs, 4), "stage_seconds": stages,
+          "tiles": res["tile_count"],
+          "tiles_per_s": res["tile_count"] / tile_s if tile_s else None,
+          "rdb_launches": launches, "chunks": chunks, "card": card})
+    if not res["tile_count"] or not chunks or launches != 69 * chunks:
+        raise AssertionError(f"esrgan tiles: {res['tile_count']} tiles, "
+                             f"{launches} rdb launches for {chunks} chunks")
+    state["main_launches"] = state.get("main_launches", 0) + launches
+
+    # (e) the device's tiles/s at z16 on the 4096² SR raster
+    sr = read_geotiff(res["sr_output"])
+    warp_tiles_device_benchmark(sr, 16, device="cuda")          # warm
+    t0 = time.perf_counter()
+    n = warp_tiles_device_benchmark(sr, 16, device="cuda")
+    secs = time.perf_counter() - t0
+    emit({"phase": "fetch", "case": "warp_tiles_device_benchmark z16",
+          "raster": list(sr.data.shape), "tiles": n, "seconds": round(secs, 4),
+          "device_tiles_per_s": n / secs, "card": card})
+
+
+def _mercator_bounds_of(raster):
+    from s2sr_tpu_torch.geo.crs import CRS, transform_bounds
+
+    return transform_bounds(raster.crs, CRS(3857), *raster.bounds)
+
+
 # --- the HTTP server's job routes ------------------------------------------
 
 SERVER_AOI = {"type": "Feature", "geometry": {"type": "Polygon", "coordinates": [[
@@ -1350,6 +1814,181 @@ def check_decode_route(srv, state, card, engine_chunks) -> None:
         raise AssertionError(f"/api/decode: {failures}")
 
 
+def check_online_pipeline(state, card) -> None:
+    """``/api/pipeline`` with ``offline=False`` over a live socket at JAX's
+    default zooms 10–16: the job fetches the canned scene (STAC search,
+    range reads, the clip on the card, all on the runner), tiles it, runs
+    the SR and tiles that; POST → completed with the stage split and the
+    fetch's own split; the SR GeoTIFF against ``process_wow_sr`` on the
+    fetched file."""
+    from s2sr_tpu_torch.config import Settings
+    from s2sr_tpu_torch.fetch import smart_fetch
+    from s2sr_tpu_torch.models.engine import loaded_engines
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.pipelines.wow_sr import process_wow_sr
+    from s2sr_tpu_torch.server.app import create_app
+    from s2sr_tpu_torch.utils import write_json
+
+    assets = fetch_assets(state)
+    smart_fetch.STAC_URL = assets["server"].base + "/search"
+    root = state["work"] / "server_online"
+    write_json({"type": "Feature", "geometry": assets["aoi"]},
+               root / "aoi.geojson")
+    settings = Settings(data_dir=str(root / "data"),
+                        aoi_path=str(root / "aoi.geojson"), offline=False,
+                        weights_dir=str(state["work"] / "weights"))
+    app = create_app(settings, device="cuda")
+    changes: list = []
+    update = app.jobs.update
+
+    def timed_update(job_id, **fields):
+        if "status" in fields:
+            changes.append((fields["status"], time.perf_counter()))
+        return update(job_id, **fields)
+
+    app.jobs.update = timed_update
+    chunks0 = sum(e.chunks_dispatched for e in loaded_engines())
+    rdb_mod.LAUNCHES = 0
+    with LiveServer(app) as srv, FetchTimer() as ft:
+        t0 = time.perf_counter()
+        job_id = srv.json("POST", "/api/pipeline", {})["job_id"]
+        rec = srv.poll(f"/api/pipeline/{job_id}", timeout=900)
+        secs = time.perf_counter() - t0
+    launches = rdb_mod.LAUNCHES
+    chunks = sum(e.chunks_dispatched for e in loaded_engines()) - chunks0
+    if rec["status"] != "completed" or \
+            [st["status"] for st in rec["steps"]] != ["completed"] * 4:
+        raise AssertionError(f"online pipeline: {rec['status']}: "
+                             f"{rec.get('message')} {rec.get('steps')}")
+    fetched = rec["fetch_metadata"]
+    if fetched.get("source") != "aws_earth_search":
+        raise AssertionError(f"online pipeline fetched {fetched}")
+    stages = {a[0]: round(b[1] - a[1], 4) for a, b in zip(changes, changes[1:])}
+    tiles = {name: sum(1 for _ in (root / "data" / name).glob("*/*/*.png"))
+             for name in ("tiles", "tiles_wow")}
+    tiling = sum(v for k, v in stages.items() if k in TILE_STATUSES)
+    sr_tif = Path(rec["steps"][2]["details"]["output"])
+    direct = process_wow_sr(rec["input_file"], root / "direct",
+                            weights_dir=settings.weights_dir, device="cuda")
+    same = Path(direct["outputs"]["sr_tif"]).read_bytes() == sr_tif.read_bytes()
+    emit({"phase": "server", "route": "/api/pipeline online",
+          "zooms": [10, 16], "seconds": round(secs, 4),
+          "stage_seconds": stages,
+          "fetch_stage_seconds": {k: round(v, 4) for k, v in ft.seconds.items()},
+          **ft.reads(), "tiles": tiles,
+          "tiles_per_s": round(sum(tiles.values()) / tiling, 1) if tiling else None,
+          "rdb_launches": launches, "chunks": chunks,
+          "sr_tif_bytes": sr_tif.stat().st_size,
+          "sr_tif_equal_to_process_wow_sr": same, "card": card})
+    if not same or not chunks or launches != 69 * chunks:
+        raise AssertionError(f"online pipeline: SR GeoTIFF equal {same}, "
+                             f"{launches} rdb launches for {chunks} chunks")
+    state["main_launches"] = state.get("main_launches", 0) + launches
+
+
+def check_png_encoders(sr_tif: Path, card) -> None:
+    """The encoder in use and why, and one pyramid (z14–16 of the /api/wow
+    SR raster) on each encoder: tiles/s, and every tile's pixels equal."""
+    import numpy as np
+
+    from s2sr_tpu_torch import native
+    from s2sr_tpu_torch.geo import read_geotiff
+    from s2sr_tpu_torch.tiles.png import decode_png
+    from s2sr_tpu_torch.tiles.pyramid import generate_xyz_tiles
+
+    encoder = native.png_encoder()
+    emit({"phase": "server", **encoder, "card": card})
+    raster = read_geotiff(sr_tif)
+    out = sr_tif.parent / "encoders"
+    rates = {}
+    load = native.load
+    for name in ("native", "pure"):
+        if name == "pure":
+            native.load = lambda: None
+        try:
+            t0 = time.perf_counter()
+            generate_xyz_tiles(raster, out / name, 14, 16, device="cuda")
+            secs = time.perf_counter() - t0
+        finally:
+            native.load = load
+        n = sum(1 for _ in (out / name).glob("*/*/*.png"))
+        rates[name] = {"tiles": n, "seconds": round(secs, 4),
+                       "tiles_per_s": n / secs}
+    names = sorted(p.relative_to(out / "native")
+                   for p in (out / "native").glob("*/*/*.png"))
+    pure = sorted(p.relative_to(out / "pure")
+                  for p in (out / "pure").glob("*/*/*.png"))
+    differ = sum(not np.array_equal(decode_png((out / "native" / p).read_bytes()),
+                                    decode_png((out / "pure" / p).read_bytes()))
+                 for p in names)
+    same_bytes = sum((out / "native" / p).read_bytes()
+                     == (out / "pure" / p).read_bytes() for p in names)
+    emit({"phase": "server", "check": "one pyramid z14-16 on each encoder",
+          "encoder": encoder["png_encoder"], **{f"{k}": v for k, v in
+                                                rates.items()},
+          "tiles_with_pixels_apart": differ, "tiles_byte_equal": same_bytes,
+          "card": card})
+    if names != pure or differ or not names:
+        raise AssertionError(f"encoders: {len(names)} vs {len(pure)} tiles, "
+                             f"{differ} with pixels apart")
+
+
+def host_profile_wow(srv, app, scene: Path, card, top: int = 15) -> None:
+    """``cProfile`` of one warm ``/api/wow`` job's run on the runner
+    thread, on the native encoder and on the pure one: the top functions
+    by cumulative time. (Python 3.12's profiler sees every thread, so the
+    caller waits on an event, not by polling, while the job runs.)"""
+    import cProfile
+    import pstats
+    import threading
+
+    from s2sr_tpu_torch import native
+
+    load = native.load
+    for name in ("native", "pure"):
+        prof = cProfile.Profile()
+        done = threading.Event()
+        submit = app.runner.submit
+
+        def profiled(job_id, fn, *a, **k):
+            def run():
+                prof.enable()
+                try:
+                    return fn()
+                finally:
+                    prof.disable()
+                    done.set()
+            return submit(job_id, run, *a, **k)
+
+        app.runner.submit = profiled
+        if name == "pure":
+            native.load = lambda: None
+        try:
+            t0 = time.perf_counter()
+            job_id = srv.json("POST", "/api/wow",
+                              {"input_file": str(scene)})["job_id"]
+            if not done.wait(600):
+                raise AssertionError("profiled /api/wow did not finish")
+            secs = time.perf_counter() - t0
+        finally:
+            native.load = load
+            del app.runner.submit
+        rec = srv.poll(f"/api/sr/{job_id}")
+        if rec["status"] != "completed":
+            raise AssertionError(f"profiled /api/wow: {rec['message']}")
+        st = pstats.Stats(prof)
+        rows = sorted(st.stats.items(), key=lambda kv: kv[1][3],
+                      reverse=True)[:top]
+        emit({"phase": "server", "profile": f"host cProfile of one warm "
+              f"/api/wow job's run (1024² scene), {name} encoder",
+              "seconds": round(secs, 4), "total_tt": st.total_tt,
+              "top_cumulative": [
+                  {"func": f"{Path(f).name}:{line}({fn})", "ncalls": nc,
+                   "tottime": round(tt, 4), "cumtime": round(ct, 4)}
+                  for (f, line, fn), (_cc, nc, tt, ct, _c) in rows],
+              "card": card})
+
+
 def phase_server(state):
     """The port's HTTP server over a live socket at full width: the four
     job routes, polled to their end, then downloads, tiles and the
@@ -1569,6 +2208,11 @@ def phase_server(state):
         # the QR/serial scan, POST to response
         check_decode_route(srv, state, card, engine_chunks)
 
+        # the host's time in one warm /api/wow job, on each PNG encoder
+        launches0 = rdb_mod.LAUNCHES
+        host_profile_wow(srv, app, wow_scene, card)
+        state["main_launches"] += rdb_mod.LAUNCHES - launches0
+
         # the device's idle share of one warm /api/wow job
         def wow_job():
             job_id = srv.json("POST", "/api/wow", {
@@ -1618,6 +2262,8 @@ def phase_server(state):
     check_fixture_decodes(card)
     if not same:
         raise AssertionError("/api/wow GeoTIFF differs from process_wow_sr")
+    check_png_encoders(Path(wow["result"]["outputs"]["sr_tif"]), card)
+    check_online_pipeline(state, card)
     emit({"phase": "server", "rdb_launches": total_launches,
           "chunks": total_chunks, "seconds": round(time.perf_counter() - t0, 3)})
 
@@ -3280,6 +3926,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the fetched scene's pixels (phase fetch)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -3299,14 +3947,21 @@ def main() -> int:
         return 3
     sys.path.insert(0, str(root))
 
+    # every HTTP request of the run goes to a server of its own on
+    # 127.0.0.1: never through a proxy
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = "127.0.0.1,localhost"
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="s2sr_smoke_") as work:
-        state: dict = {"work": Path(work)}
-        for phase in phases:
-            t1 = time.perf_counter()
-            globals()[f"phase_{phase}"](state)
-            emit({"phase_done": phase,
-                  "seconds": round(time.perf_counter() - t1, 3)})
+        state: dict = {"work": Path(work), "seed": args.seed}
+        try:
+            for phase in phases:
+                t1 = time.perf_counter()
+                globals()[f"phase_{phase}"](state)
+                emit({"phase_done": phase,
+                      "seconds": round(time.perf_counter() - t1, 3)})
+        finally:
+            if "assets" in state:
+                state["assets"]["server"].close()
     card = state.get("card") or card_line()
     kernels = kernels_record(state)
     if kernels is not None and any(r["launches"] == 0 for r in kernels):

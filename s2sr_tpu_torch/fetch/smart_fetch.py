@@ -1,16 +1,17 @@
-"""Smart fetch: best-scene selection between local cache and remote catalog.
-
-The port of ``s2sr_tpu/fetch/smart_fetch.py``, with the same decision
+"""Smart fetch: best-scene selection between local cache and remote catalog
+(the port of ``s2sr_tpu/fetch/smart_fetch.py``), with the same decision
 rules:
 
 - local scan: ``*.tif`` + sidecar metadata (three sidecar name
   patterns), filter by age/cloud, sort cloud asc then date desc;
-- no imagery at all → the deterministic synthetic fixture scene, so the
-  pipeline always completes offline.
+- remote: an Earth-Search STAC POST to ``STAC_URL`` (skipped offline);
+- fetch only when remote is >5 % better cloud, or >3 days newer at
+  equal-or-better cloud, or forced; same-scene short-circuit;
+- graceful degradation ladder: remote failure → local → synthetic
+  fixture scene, so the pipeline always completes offline.
 
-Only the offline branch is ported: the remote catalog and the fetch
-client are not (ROADMAP queue 1 item 12), so with ``offline=False``
-:func:`check_remote_catalog` raises instead of acting as if offline.
+The fetched scene is clipped to the AOI on ``device`` (the card unless
+the caller asks for the CPU; ``fetch/client.py``).
 """
 
 from __future__ import annotations
@@ -19,11 +20,16 @@ from datetime import datetime, timedelta, timezone
 from pathlib import Path
 from typing import Optional, Tuple
 
+import torch
+
 from ..config import Settings, get_settings
 from ..utils import ensure_directory, read_json, setup_logging, write_json
+from .client import PublicSentinel2Client, http_json, stac_payload
 from .synthetic import DEFAULT_BOUNDS, synthetic_scene
 
 logger = setup_logging("s2sr_tpu_torch.smart_fetch")
+
+STAC_URL = "https://earth-search.aws.element84.com/v1/search"
 
 
 def get_local_images(source_dir: Path) -> list[dict]:
@@ -106,9 +112,28 @@ def check_remote_catalog(
     if settings.offline:
         logger.info("offline mode: skipping remote catalog")
         return None
-    raise NotImplementedError(
-        "the remote catalog search is not ported yet (ROADMAP queue 1 "
-        "item 12); run with offline=True")
+    payload = stac_payload(aoi_geometry, max_age_days, max_cloud_cover, 10)
+    try:
+        features = http_json(STAC_URL, 30, json_body=payload).get(
+            "features", [])
+    except Exception as exc:
+        logger.warning("Remote catalog search failed: %s", exc)
+        return None
+    if not features:
+        return None
+    best = features[0]
+    props = best.get("properties", {})
+    raw = str(props.get("datetime") or "")  # STAC allows null datetime
+    try:
+        acq = datetime.fromisoformat(raw.replace("Z", "+00:00"))
+    except ValueError:
+        acq = datetime.now(timezone.utc).replace(tzinfo=None)
+    return {
+        "scene_id": best.get("id", "unknown"),
+        "acquisition_date": acq,
+        "cloud_cover": props.get("eo:cloud_cover", 100),
+        "feature": best,
+    }
 
 
 def _synthesize_scene(source_dir: Path, aoi_geometry: Optional[dict]) -> Tuple[Path, dict]:
@@ -160,13 +185,44 @@ def smart_fetch(
     max_cloud_cover: float = 30.0,
     force_fetch: bool = False,
     settings: Optional[Settings] = None,
+    device: str | torch.device = "cuda",
 ) -> Tuple[Path, dict]:
+    """(scene path, metadata): a fetched scene, the best local one, or
+    the synthetic fixture. ``settings`` (default :func:`get_settings`)
+    gives ``offline``; a fetched scene is clipped on ``device``."""
+    settings = settings or get_settings()
     ensure_directory(source_dir)
     best_local = select_best_local_image(source_dir, max_age_days, max_cloud_cover)
-    # offline: None; online raises until the fetch client is ported, so
-    # the JAX package's fetch-or-keep rules have nothing to compare yet
-    check_remote_catalog(aoi_geometry, max_age_days, max_cloud_cover, settings)
-    reason = "force_fetch=True" if force_fetch else ""
+    best_remote = check_remote_catalog(aoi_geometry, max_age_days,
+                                       max_cloud_cover, settings)
+
+    should_fetch = False
+    reason = ""
+    if force_fetch:
+        should_fetch, reason = True, "force_fetch=True"
+    elif best_local is None:
+        should_fetch, reason = True, "No suitable local image"
+    elif best_remote is not None:
+        lc, rc = best_local["cloud_cover"], best_remote["cloud_cover"]
+        ld = best_local["acquisition_date"].replace(tzinfo=None)
+        rd = best_remote["acquisition_date"].replace(tzinfo=None)
+        if rc < lc - 5:
+            should_fetch, reason = True, f"Remote better cloud ({rc}% vs {lc}%)"
+        elif rd > ld + timedelta(days=3) and rc <= lc:
+            should_fetch, reason = True, f"Remote newer ({rd.date()} vs {ld.date()})"
+        elif best_local["scene_id"] == best_remote["scene_id"]:
+            reason = "Same scene already local"
+
+    if should_fetch and best_remote is not None:
+        logger.info("Fetching from remote: %s", reason)
+        client = PublicSentinel2Client(settings, device=device)
+        try:
+            return client.fetch_best_scene(aoi_geometry, Path(source_dir),
+                                           scene=best_remote,
+                                           max_age_days=max_age_days,
+                                           max_cloud=max_cloud_cover)
+        except Exception as exc:
+            logger.warning("Remote fetch failed (%s); falling back", exc)
 
     if best_local is not None:
         logger.info("Using local image: %s (%s)", best_local["path"].name,
@@ -200,10 +256,12 @@ def ensure_best_image(
     max_cloud_cover: float = 30.0,
     force_fetch: bool = False,
     settings: Optional[Settings] = None,
+    device: str | torch.device = "cuda",
 ) -> Tuple[Path, dict]:
-    """(scene path, metadata) for the pipeline: the best local scene, or
-    the synthetic fixture. ``settings`` (default :func:`get_settings`)
-    gives the AOI, ``data_dir`` and ``offline``."""
+    """(scene path, metadata) for the pipeline: :func:`smart_fetch` over
+    the settings' AOI. ``settings`` (default :func:`get_settings`) gives
+    the AOI, ``data_dir`` and ``offline``; a fetched scene is clipped on
+    ``device``."""
     settings = settings or get_settings()
     if source_dir is None:
         source_dir = Path(settings.data_dir) / "source"
@@ -224,4 +282,5 @@ def ensure_best_image(
         max_cloud_cover=max_cloud_cover,
         force_fetch=force_fetch,
         settings=settings,
+        device=device,
     )

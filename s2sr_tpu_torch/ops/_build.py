@@ -5,7 +5,9 @@
 Libraries are cached by a hash of the source and the flags in
 ``build/kernels/`` beside the package (override with
 ``S2SR_TORCH_BUILD_DIR``), so the first use builds and later uses load.
-Nothing here runs at import time.
+Host libraries (C++ for the CPU, such as ``native/pngenc.cc``) are built
+the same way with ``g++`` (:func:`build_host`) into the same directory,
+never beside their source. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,12 +17,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-Wall")
 
 _LIBS: dict = {}
 
@@ -54,19 +58,49 @@ def build(name: str) -> tuple:
     ``(seconds, compiler output)``, ``(0.0, "")`` on a cache hit; the
     output holds ptxas's ``-v`` report. Raises with the output if
     ``nvcc`` fails."""
-    lib = lib_path(name)
+    return _compile([_nvcc(), *NVCC_FLAGS], CSRC / f"{name}.cu",
+                    lib_path(name), ())
+
+
+def _compile(compiler: list, src: Path, lib: Path, libs) -> tuple:
     if lib.exists():
         return 0.0, ""
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.run([*compiler, "-o", str(tmp), str(src), *libs],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        raise RuntimeError(f"{Path(compiler[0]).name} failed for "
+                           f"{src.name}:\n{proc.stdout}")
     os.replace(tmp, lib)
     return time.perf_counter() - t0, proc.stdout
+
+
+def host_lib_path(src: Path, flags=()) -> Path:
+    """The cached library of a host source built with ``flags`` (defines
+    and libraries)."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(
+        [*GXX_FLAGS, *flags]).encode()).hexdigest()
+    return build_dir() / f"lib{src.stem}_{digest[:16]}.so"
+
+
+def build_host(src: Path, flags=()) -> Path:
+    """Compile the C++ host source ``src`` with ``g++`` and ``flags``
+    (``-D`` defines, then ``-l`` libraries) into the build directory
+    unless it is cached; the library's path. Raises with the compiler's
+    output if the build fails."""
+    lib = host_lib_path(src, flags)
+    if lib.exists():
+        return lib
+    gxx = shutil.which(os.environ.get("CXX", "g++"))
+    if gxx is None:
+        raise RuntimeError("no C++ compiler: put g++ on PATH or set CXX")
+    defines = [f for f in flags if not f.startswith("-l")]
+    _compile([gxx, *GXX_FLAGS, *defines], src, lib,
+             [f for f in flags if f.startswith("-l")])
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

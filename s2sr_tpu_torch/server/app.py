@@ -14,8 +14,9 @@ pyramid on ``device`` (``cuda`` unless the caller passes ``"cpu"``).
 Handlers never touch the device; the runner thread does, and builds the
 first engine there.
 
-The vector job segments on ``device`` too (``vectors/``), on the same
-runner thread. The QR/serial scan (``/api/decode``, ``decode/``)
+The pipeline's fetch (STAC search, COG range reads, the AOI clip on
+``device``; ``fetch/``) runs on the runner too. The vector job segments
+on ``device`` (``vectors/``), on the same runner thread. The QR/serial scan (``/api/decode``, ``decode/``)
 binarizes on ``device`` in the handler's worker thread, and its SR
 retry runs the ``realesrgan_x4`` engine on the runner.
 
@@ -38,6 +39,7 @@ from uuid import uuid4
 
 import numpy as np
 
+from .. import native
 from ..config import Settings, get_settings
 from ..fetch.smart_fetch import ensure_best_image
 from ..models.engine import get_engine, loaded_engines, resolve_device
@@ -177,7 +179,8 @@ def create_app(settings: Optional[Settings] = None,
 
     @app.get("/api/runtime")
     async def get_runtime():
-        """Runtime surface: device inventory, job counts, queue depth."""
+        """Runtime surface: device inventory, job counts, queue depth, and
+        the PNG encoder in use (``native`` or ``pure``, with the reason)."""
 
         def _list_devices():
             if not device.startswith("cuda"):
@@ -199,9 +202,12 @@ def create_app(settings: Optional[Settings] = None,
                 _device_cache.append(devices)
         else:
             devices = _device_cache[0]
+        # the first call may build the encoder: off the event loop
+        encoder = await asyncio.to_thread(native.png_encoder)
         by_status = jobs.count_by_status()
         return {
             "devices": devices,
+            **encoder,
             "jobs_total": sum(by_status.values()),
             "jobs_by_status": by_status,
             "runner_active": runner.active_count,
@@ -366,7 +372,7 @@ def create_app(settings: Optional[Settings] = None,
                 input_file, fetch_metadata = ensure_best_image(
                     source_dir=source_dir, max_age_days=max_age_days,
                     max_cloud_cover=max_cloud_cover, force_fetch=force_fetch,
-                    settings=settings,
+                    settings=settings, device=device,
                 )
                 jobs.update(
                     job_id, input_file=str(input_file),
@@ -813,6 +819,7 @@ def create_app(settings: Optional[Settings] = None,
                 source_dir=source_dir, max_age_days=body.max_age_days,
                 max_cloud_cover=body.max_cloud_cover,
                 force_fetch=body.force_fetch, settings=settings,
+                device=device,
             )
             jobs.update(job_id, input_file=str(input_file),
                         fetch_metadata=fetch_metadata)

@@ -13,6 +13,15 @@ A row comes out as libtiff gives it: a white run as 0 bits, a black run
 as 1 bits; the photometric interpretation is applied by the caller.
 ``FillOrder`` 2 (bits stored least significant first) is read by
 reversing each byte, as libtiff's fax reader does.
+
+A T.6 strip that ends early is decoded as libtiff's ``Fax4Decode``
+decodes it ("don't error on badly-terminated strips"): past the end of
+the data it reads zeros while bits remain in its accumulator, the row it
+was in is filled with the runs it had, and the strip stops there; the
+rows never reached are left as 0 samples (PIL hands back its buffer,
+whose bytes there were never written). If no row was complete, the
+strip is refused, as libtiff refuses it. T.4 and Modified Huffman
+strips cut short are refused, as libtiff refuses them.
 """
 
 from __future__ import annotations
@@ -217,6 +226,19 @@ def decode_fax(data: bytes, compression: int, width: int, rows: int,
     data = bytes(data)
     if fill_order == 2:
         data = data.translate(_REVERSE)
+    try:
+        return _decode(data, compression, width, rows, t4_options)
+    except ValueError:
+        if compression != 4:
+            raise
+        out, _written, stopped = fax4_libtiff(data, width, rows)
+        if not stopped:
+            raise
+        return out
+
+
+def _decode(data: bytes, compression: int, width: int, rows: int,
+            t4_options: int) -> np.ndarray:
     bits = _Bits(data)
     out = np.zeros((rows, width), np.uint8)
     ref: list = []
@@ -238,3 +260,247 @@ def decode_fax(data: bytes, compression: int, width: int, rows: int,
         out[y] = _pixels(changes, width)
         ref = [c for c in changes if c < width]
     return out
+
+
+# --- T.6 as libtiff's Fax4Decode reads a strip that ends early --------------
+#
+# libtiff's tables (tif_fax3sm.c): a 7-bit lookup for the 2-D modes, 12
+# bits for white runs, 13 for black; 7 zero bits are an EOL in the first,
+# 11 in the others; a lookup that matches no code consumes nothing.
+
+
+def _libtiff_table(width: int, codes: dict) -> list:
+    """(state, length, param) per ``width``-bit peek."""
+    table = [("null", 0, 0)] * (1 << width)
+    for code, entry in codes.items():
+        at = int(code, 2) << (width - len(code))
+        table[at:at + (1 << (width - len(code)))] = \
+            [entry] * (1 << (width - len(code)))
+    return table
+
+
+def _libtiff_runs(term: list, makeup: list) -> dict:
+    codes = {c: ("term", len(c), i) for i, c in enumerate(term)}
+    codes.update({c: ("makeup", len(c), 64 * (i + 1))
+                  for i, c in enumerate(makeup)})
+    codes.update({c: ("makeup", len(c), 1792 + 64 * i)
+                  for i, c in enumerate(_EXT_MAKEUP)})
+    codes["0" * 11] = ("eol", 11, 0)
+    return codes
+
+
+_LT_MAIN = _libtiff_table(7, {
+    "0001": ("pass", 4, 0), "001": ("horiz", 3, 0), "1": ("v0", 1, 0),
+    "011": ("vr", 3, 1), "000011": ("vr", 6, 2), "0000011": ("vr", 7, 3),
+    "010": ("vl", 3, 1), "000010": ("vl", 6, 2), "0000010": ("vl", 7, 3),
+    "0000001": ("ext", 7, 0), "0000000": ("eol", 7, 0)})
+_LT_WHITE = _libtiff_table(12, _libtiff_runs(_WHITE_TERM, _WHITE_MAKEUP))
+_LT_BLACK = _libtiff_table(13, _libtiff_runs(_BLACK_TERM, _BLACK_MAKEUP))
+
+
+class _Eof(Exception):
+    """The data ran out with no bit left in the accumulator."""
+
+
+class _BadCode(Exception):
+    """A code libtiff reports and skips to the end of the row on."""
+
+
+class _Acc:
+    """libtiff's bit accumulator (``NeedBits8``/``NeedBits16``): bytes
+    are loaded as a lookup needs them; past the end of the data a lookup
+    is padded with zeros unless the accumulator is empty."""
+
+    def __init__(self, data: bytes):
+        self.data, self.cp, self.acc, self.avail = data, 0, 0, 0
+
+    def need(self, n: int) -> None:
+        while self.avail < n:
+            if self.cp >= len(self.data):
+                if self.avail == 0:
+                    raise _Eof
+                self.acc <<= n - self.avail
+                self.avail = n
+            else:
+                self.acc = (self.acc << 8) | self.data[self.cp]
+                self.cp += 1
+                self.avail += 8
+
+    def get(self, n: int) -> int:
+        return (self.acc >> (self.avail - n)) & ((1 << n) - 1)
+
+    def clear(self, n: int) -> None:
+        self.avail -= n
+        self.acc &= (1 << max(self.avail, 0)) - 1
+
+    def lookup(self, width: int, table: list) -> tuple:
+        self.need(width)
+        entry = table[self.get(width)]
+        self.clear(entry[1])
+        return entry
+
+
+class _Fax4:
+    """The state of libtiff's 2-D decoder over one strip: one run array
+    of 2·nruns entries, zeroed, whose halves are the row being decoded
+    and the reference row (runs alternate white, black)."""
+
+    def __init__(self, data: bytes, width: int):
+        self.bits = _Acc(data)
+        self.lastx = width
+        self.nruns = 2 * ((width + 31) // 32 * 32)
+        self.runs = [0] * (2 * self.nruns)
+        self.cur, self.ref = 0, self.nruns
+        self.runs[self.ref] = width          # the reference: one white row
+        self.eol = False
+
+    def setvalue(self, x: int) -> None:
+        if self.pa >= self.cur + self.nruns:
+            raise ValueError("CCITT row overflows libtiff's run buffer")
+        self.runs[self.pa] = self.run_length + x
+        self.pa += 1
+        self.a0 += x
+        self.run_length = 0
+
+    def check_b1(self) -> None:
+        if self.pa != self.cur:
+            while self.b1 <= self.a0 and self.b1 < self.lastx:
+                if self.pb + 1 >= self.ref + self.nruns:
+                    raise ValueError("CCITT reference row overflow")
+                self.b1 += self.runs[self.pb] + self.runs[self.pb + 1]
+                self.pb += 2
+
+    def next_b(self) -> int:
+        v = self.runs[self.pb]
+        self.pb += 1
+        return v
+
+    def horizontal(self) -> None:
+        """Two runs, the first in the colour of the run being coded."""
+        order = ((_LT_WHITE, 12), (_LT_BLACK, 13))
+        if (self.pa - self.cur) & 1:
+            order = order[::-1]
+        for table, width in order:
+            while True:
+                state, _, param = self.bits.lookup(width, table)
+                if state == "term":
+                    self.setvalue(param)
+                    break
+                if state != "makeup":
+                    raise _BadCode
+                self.a0 += param
+                self.run_length += param
+
+    def expand2d(self) -> bool:
+        """One row (``EXPAND2D``); False where the data ran out."""
+        lastx = self.lastx
+        try:
+            try:
+                while self.a0 < lastx:
+                    if self.pa >= self.cur + self.nruns:
+                        raise ValueError("CCITT row overflows libtiff's "
+                                         "run buffer")
+                    state, _, param = self.bits.lookup(7, _LT_MAIN)
+                    if state == "pass":
+                        self.check_b1()
+                        if self.pb + 1 >= self.ref + self.nruns:
+                            raise ValueError("CCITT reference row overflow")
+                        self.b1 += self.next_b()
+                        self.run_length += self.b1 - self.a0
+                        self.a0 = self.b1
+                        self.b1 += self.next_b()
+                    elif state == "horiz":
+                        self.horizontal()
+                        self.check_b1()
+                    elif state == "v0" or state == "vr":
+                        self.check_b1()
+                        self.setvalue(self.b1 - self.a0 + param)
+                        self.b1 += self.next_b()
+                    elif state == "vl":
+                        self.check_b1()
+                        if self.b1 < self.a0 + param:
+                            raise _BadCode
+                        self.setvalue(self.b1 - self.a0 - param)
+                        self.pb -= 1
+                        self.b1 -= self.runs[self.pb]
+                    else:                      # ext, eol
+                        self.runs[self.pa] = lastx - self.a0
+                        self.pa += 1
+                        if state == "eol":
+                            self.bits.need(4)
+                            self.bits.clear(4)
+                            self.eol = True
+                        raise _BadCode
+                if self.run_length:
+                    if self.run_length + self.a0 < lastx:
+                        self.bits.need(1)
+                        if not self.bits.get(1):
+                            raise _BadCode
+                        self.bits.clear(1)
+                    self.setvalue(0)
+            except _BadCode:
+                pass
+        except _Eof:
+            self.cleanup()
+            return False
+        self.cleanup()
+        return True
+
+    def cleanup(self) -> None:
+        """``CLEANUP_RUNS``: a row that does not end at its width is cut
+        or padded with white."""
+        lastx = self.lastx
+        if self.run_length:
+            self.setvalue(0)
+        if self.a0 != lastx:
+            while self.a0 > lastx and self.pa > self.cur:
+                self.pa -= 1
+                self.a0 -= self.runs[self.pa]
+            if self.a0 < lastx:
+                self.a0 = max(self.a0, 0)
+                if (self.pa - self.cur) & 1:
+                    self.setvalue(0)
+                self.setvalue(lastx - self.a0)
+            elif self.a0 > lastx:
+                self.setvalue(lastx)
+                self.setvalue(0)
+
+    def fill(self, row: np.ndarray) -> None:
+        """``_TIFFFax3fillruns``: the runs in order, each cut at the
+        row's end (in the run array too)."""
+        runs, x, lastx = self.runs, 0, self.lastx
+        end = self.pa
+        if (end - self.cur) & 1:
+            runs[end] = 0
+            end += 1
+        for i in range(self.cur, end):
+            run = runs[i]
+            if x + run > lastx or run > lastx:
+                runs[i] = run = lastx - x
+            if run:
+                row[x:x + run] = (i - self.cur) & 1
+                x += run
+
+
+def fax4_libtiff(data: bytes, width: int, rows: int) -> tuple:
+    """A T.6 strip decoded as libtiff decodes it → ((rows, width) 0/1
+    samples, rows written, whether the strip stopped early: the data ran
+    out or an EOL came). Rows past the one it stopped in stay 0. Raises
+    where libtiff fails the strip: it stopped before any row was
+    complete."""
+    st = _Fax4(bytes(data), width)
+    out = np.zeros((rows, width), np.uint8)
+    for y in range(rows):
+        st.a0 = st.run_length = 0
+        st.pa = st.cur
+        st.pb = st.ref
+        st.b1 = st.next_b()
+        if not st.expand2d() or st.eol:
+            st.fill(out[y])
+            if y == 0:
+                raise ValueError("CCITT strip ends before its first row")
+            return out, y + 1, True
+        st.fill(out[y])
+        st.setvalue(0)                 # the reference's closing change
+        st.cur, st.ref = st.ref, st.cur
+    return out, rows, False

@@ -1,7 +1,11 @@
-"""Pure-Python PNG codec (numpy filtering + stdlib zlib).
+"""PNG codec: the native encoder when it builds, else numpy filtering +
+stdlib zlib.
 
-The port's copy of the JAX package's pure encoder and decoder, so the
-PNG twin of an SR output needs neither PIL nor a native library.
+The port's copy of the JAX package's encoder and pure decoder:
+:func:`encode_png` takes the native (C++, libpng) encoder of
+``s2sr_tpu_torch/native`` when it loads and falls back to the
+pure-Python one otherwise, as the JAX package does, so neither PIL nor
+a native library is needed. ``native.png_encoder()`` says which runs.
 """
 
 from __future__ import annotations
@@ -35,7 +39,48 @@ def _chunk(tag: bytes, payload: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray, level: int = 3, filter_sub: bool = True) -> bytes:
-    """Encode (H, W), (H, W, 3) or (H, W, 4) uint8 → PNG bytes."""
+    """Encode (H, W), (H, W, 3) or (H, W, 4) uint8 → PNG bytes.
+
+    Uses the native encoder (``s2sr_tpu_torch/native``; the Sub filter
+    on every row) when it loads, else the pure-Python path, as the JAX
+    package's ``encode_png`` does."""
+    native = _native_encode(img, level)
+    if native is not None:
+        return native
+    return _encode_png_py(img, level, filter_sub)
+
+
+def _native_encode(img: np.ndarray, level: int) -> Optional[bytes]:
+    """The native encoder's bytes, or None where it is not built or
+    fails (an output over ``h·w·c + 4096`` bytes: the caller then takes
+    the pure path)."""
+    import ctypes
+
+    from ..native import load
+
+    lib = load()
+    if lib is None:
+        return None
+    if img.ndim == 2:
+        img = img[:, :, None]
+    h, w, c = img.shape
+    if c not in (1, 2, 3, 4) or img.dtype != np.uint8:
+        return None
+    img = np.ascontiguousarray(img)
+    cap = h * w * c + (1 << 12)
+    out = ctypes.create_string_buffer(cap)
+    out_len = ctypes.c_size_t(0)
+    rc = lib.s2sr_png_encode(
+        img.ctypes.data_as(ctypes.c_char_p), h, w, c, level,
+        out, cap, ctypes.byref(out_len))
+    if rc != 0:
+        return None
+    return ctypes.string_at(out, out_len.value)
+
+
+def _encode_png_py(img: np.ndarray, level: int = 3,
+                   filter_sub: bool = True) -> bytes:
+    """Pure-Python encoder (always available)."""
     if img.ndim == 2:
         img = img[:, :, None]
     h, w, c = img.shape

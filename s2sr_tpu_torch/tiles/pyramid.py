@@ -7,8 +7,12 @@
   uint8 there, with one device-to-host copy per batch;
 - lower zooms: 2×2 alpha-weighted averaging of child tiles on the host
   (the ``average`` resampler);
-- output: ``{out}/{z}/{x}/{y}.png`` RGBA, XYZ addressing, encoded by the
-  port's pure-Python PNG encoder.
+- output: ``{out}/{z}/{x}/{y}.png`` RGBA, XYZ addressing, encoded by
+  ``tiles/png.py::encode_png`` (the native encoder when it builds, else
+  the pure-Python one).
+
+:func:`warp_tiles_device_benchmark` dispatches the base-zoom warps alone
+and reads back one int, for the device's tiles/s.
 """
 
 from __future__ import annotations
@@ -173,3 +177,31 @@ def generate_xyz_tiles(
             level = _downsample_level(level, tile_size)
     logger.info("Tile generation complete: %d tiles → %s", count, output_dir)
     return output_dir
+
+
+def warp_tiles_device_benchmark(
+    raster: GeoTiff,
+    zoom: int,
+    tile_size: int = TILE_SIZE,
+    batch: int = 32,
+    grid: int = 17,
+    resampling: str = "bilinear",
+    device: str | torch.device = "cuda",
+) -> int:
+    """Dispatch every base-zoom warp batch on ``device`` and read back ONE
+    probe int; the tile count.
+
+    Timing :func:`generate_xyz_tiles` mixes the device's work with the
+    copies back and the host's encode; this isolates the device's tiles/s.
+    The probe sums one pixel per tile so every batch's work is live."""
+    src = torch.from_numpy(raster.data[:, :, :3].astype(np.float32)).to(device)
+    probe = torch.zeros((), dtype=torch.int32, device=device)
+    count = 0
+    for chunk, ctrls in base_zoom_batches(raster, zoom, tile_size, batch,
+                                          grid):
+        rgba = _warp_tiles_rgba_u8(src, torch.from_numpy(ctrls).to(device),
+                                   tile_size, resampling == "lanczos")
+        probe = probe + rgba[:, 0, 0, 0].to(torch.int32).sum()
+        count += len(chunk)
+    int(probe.item())                  # ONE readback for the whole run
+    return count

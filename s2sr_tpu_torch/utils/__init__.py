@@ -1,4 +1,5 @@
 from .logging import setup_logging
+from .retry import retry_with_backoff
 from .files import (
     ensure_directory,
     find_latest_file,
@@ -11,6 +12,7 @@ from .timing import StageTimer, stage_timer
 
 __all__ = [
     "setup_logging",
+    "retry_with_backoff",
     "ensure_directory",
     "find_latest_file",
     "find_latest_metadata",

@@ -454,8 +454,8 @@ def test_tiff_fax_matches_pil(name):
 def test_tiff_fax_refused_as_pil_refuses(name):
     """A T.4 or Modified Huffman strip cut to a third, and any fax strip
     under an 8-bit layout: PIL refuses them, and so does the port. (A T.6
-    strip cut short PIL decodes in part, as libtiff fills what it read;
-    the port refuses it: ROADMAP queue 3.)"""
+    strip cut short PIL decodes in part, as libtiff fills what it read:
+    ``test_tiff_fax_t6_cut_short_matches_pil``.)"""
     data = fax_file(name)
     ifd = _ifd(data)
     at = struct.unpack("<I", ifd[273][2][:4])[0]
@@ -463,6 +463,34 @@ def test_tiff_fax_refused_as_pil_refuses(name):
     if not name.startswith("t6"):
         _both_refuse(_rewrite_tiff(data, cut))
     _both_refuse(_rewrite_tiff(data, t258=8))
+
+
+@pytest.mark.parametrize("fraction", [1 / 3, 1 / 2, 9 / 10])
+@pytest.mark.parametrize("name", ["t6_photometric_1", "t6_photometric_0",
+                                  "t6_fill_order_2"])
+def test_tiff_fax_t6_cut_short_matches_pil(name, fraction):
+    """A T.6 strip cut short decodes as libtiff decodes it: the complete
+    rows, then the row the data ran out in, filled with the runs read
+    (zeros read past the end), equal to PIL's bytes. PIL's rows after
+    that are its buffer's bytes, never written (they differ from one
+    process to the next); the port's are the 0 sample, one value."""
+    from s2sr_tpu_torch.tiles import ccitt
+
+    data = fax_file(name)
+    ifd = _ifd(data)
+    at = struct.unpack("<I", ifd[273][2][:4])[0]
+    cut = data[at:at + int(struct.unpack("<I", ifd[279][2][:4])[0] * fraction)]
+    short = _rewrite_tiff(data, cut)
+    if FAX_CASES[name][3] == 2:
+        cut = cut.translate(_REVERSED)
+    _, written, stopped = ccitt.fax4_libtiff(cut, 360, 48)
+    assert stopped and 1 < written < 48
+    want, got, full = pil_rgb(short), decode_upload(short), pil_rgb(data)
+    assert got.shape == want.shape == (48, 360, 3)
+    assert np.array_equal(got[:written], want[:written])
+    assert np.array_equal(got[:written - 1], full[:written - 1])
+    assert not np.array_equal(got[written - 1], full[written - 1])
+    assert (got[written:] == got[written, 0, 0]).all()
 
 
 def test_tiff_zstd_predictor_and_blocks_match_pil():

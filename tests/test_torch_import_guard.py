@@ -1,7 +1,7 @@
 """``s2sr_tpu_torch`` and ``chip_smoke.py`` import with ``jax``,
 ``s2sr_tpu``, ``PIL``, ``pydantic``, ``requests`` and ``cv2`` blocked
-(the card's machine has none of the last four), and no source line
-imports ``jax`` or ``s2sr_tpu``. The decode package's OCR builds its
+(the card's machine has none of the last four: the fetch clients speak
+``urllib``), and no source line imports ``jax`` or ``s2sr_tpu``. The decode package's OCR builds its
 templates from the committed glyph file without PIL."""
 
 import pkgutil
@@ -57,7 +57,14 @@ def test_modules_import_with_jax_blocked():
             "s2sr_tpu_torch.decode.ocr", "s2sr_tpu_torch.decode.service",
             "s2sr_tpu_torch.tiles.zstd", "s2sr_tpu_torch.tiles.ccitt",
             "s2sr_tpu_torch.tiles.lab",
-            } <= set(mods) and len(mods) >= 86
+            "s2sr_tpu_torch.fetch.client", "s2sr_tpu_torch.fetch.multiband",
+            "s2sr_tpu_torch.geo.cog", "s2sr_tpu_torch.native",
+            "s2sr_tpu_torch.utils.retry",
+            "s2sr_tpu_torch.pipelines.esrgan_tiles",
+            "s2sr_tpu_torch.cli.fetch", "s2sr_tpu_torch.cli.fetch_scene",
+            "s2sr_tpu_torch.cli.multiband", "s2sr_tpu_torch.cli.tile",
+            "s2sr_tpu_torch.cli.esrgan_tiles",
+            } <= set(mods) and len(mods) >= 97
     code = "\n".join([
         "import sys",
         "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic',"
@@ -84,6 +91,9 @@ def test_modules_import_with_jax_blocked():
         "assert 'server' in chip_smoke.PHASES",
         "assert 'vectors' in chip_smoke.PHASES",
         "assert 'decode' in chip_smoke.PHASES",
+        "assert 'fetch' in chip_smoke.PHASES",
+        "from s2sr_tpu_torch.fetch import client, smart_fetch",
+        "assert smart_fetch.STAC_URL == client.EARTH_SEARCH",
         "from s2sr_tpu_torch.decode.ocr import _atlas",
         "assert _atlas()[0].shape == (222, 432)",
         "from s2sr_tpu_torch.ops import rdb",

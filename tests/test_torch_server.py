@@ -601,7 +601,10 @@ def test_metrics_and_runtime_match_jax(apps, scenario):
     assert lines(app) == lines(jax_app)
     _, jrt = call(jax_app, "GET", "/api/runtime")
     _, rt = call(app, "GET", "/api/runtime")
-    assert list(rt) == list(jrt)
+    # the port adds the PNG encoder in use and why (native.png_encoder)
+    encoder = ("png_encoder", "png_encoder_reason")
+    assert [k for k in rt if k not in encoder] == list(jrt)
+    assert rt["png_encoder"] in ("native", "pure") and rt["png_encoder_reason"]
     assert set(rt["devices"][0]) == set(jrt["devices"][0]) == {
         "id", "platform", "kind"}
     for key in ("jobs_total", "jobs_by_status", "runner_active",
@@ -892,15 +895,26 @@ def test_synthetic_fallback_matches_jax(tmp_path):
     assert again == got_path and meta == got_meta
 
 
-def test_online_fetch_is_not_ported(tmp_path):
+def test_online_fetch_is_not_ported(tmp_path, monkeypatch):
+    """The online fetch is ported (``fetch/client.py``): with
+    ``offline=False`` and the catalog unreachable (a closed local port),
+    ``ensure_best_image`` no longer raises "not ported" but walks JAX's
+    ladder down to the synthetic fixture. (The fetch itself is held to
+    the JAX package in ``tests/test_torch_fetch.py``.)"""
+    import socket
+
     from s2sr_tpu_torch.fetch import smart_fetch as sf
 
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setattr(sf, "STAC_URL", f"http://127.0.0.1:{port}/search")
+    monkeypatch.setenv("no_proxy", "127.0.0.1")
     settings = Settings(offline=False, data_dir=str(tmp_path),
                         aoi_path=str(tmp_path / "missing.geojson"))
-    with pytest.raises(NotImplementedError,
-                       match=r"not ported yet \(ROADMAP queue 1 item 12\)"):
-        sf.ensure_best_image(settings=settings)
-    assert not list((tmp_path / "source").glob("*.tif"))
+    path, meta = sf.ensure_best_image(settings=settings, device="cpu")
+    assert meta["source"] == "synthetic_fallback"
+    assert list((tmp_path / "source").glob("*.tif")) == [path]
 
 
 # --- the engine cache /api/metadata reads ---------------------------------

@@ -76,14 +76,17 @@ def test_png_twin_and_georeference(setup):
 @pytest.mark.parametrize("shape", [(17, 23, 3), (8, 5, 4), (9, 6)])
 def test_png_codec_matches_jax(shape, filter_sub):
     from s2sr_tpu.tiles import png as jpng
-    from s2sr_tpu_torch.tiles.png import encode_png
+    from s2sr_tpu_torch.tiles.png import _encode_png_py, encode_png
 
     img = np.random.default_rng(4).integers(0, 256, shape).astype(np.uint8)
     want = img if img.ndim == 3 else img[:, :, None]
     data = encode_png(img, filter_sub=filter_sub)
     assert np.array_equal(jpng.decode_png(data), want)
     assert np.array_equal(decode_png(data), want)
-    assert data == jpng._encode_png_py(img, filter_sub=filter_sub)
+    # both take their native encoder where it builds, else the pure path
+    assert data == jpng.encode_png(img, filter_sub=filter_sub)
+    assert _encode_png_py(img, filter_sub=filter_sub) == \
+        jpng._encode_png_py(img, filter_sub=filter_sub)
 
 
 def test_cli_entry_point(setup, capsys):
