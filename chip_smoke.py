@@ -51,6 +51,18 @@ random weights from seed 0, each at the full width of its model:
   over a live socket ``/api/wow`` → ``/api/vectors`` (the job finds the
   4096² WOW output) and a 4096² planted raster under ``torch.profiler``
   (phase vectors);
+- the classic SR path (``s2sr_tpu_torch.pipelines.super_resolution``):
+  ``process_sentinel2_sr`` on a 512² GeoTIFF through the full-width
+  ``edsr_x4``/``x3``/``x2`` and ``espcn_x4``, and the luma ``espcn_x4`` and
+  ``lapsrn_x8`` converted from ``.pb`` graphs written here; the masked
+  bucket bit-equal to the unpadded forward, the float32 models card vs
+  CPU, the converters against ``execute_graphdef`` on the card, batched
+  serving byte-equal to single, each conv layer's shape and batch
+  invariance under cuDNN and PyTorch's own convolution, and ``sr_cli``
+  (modes edsr and realesrgan, with tiles) in a child process (phase
+  classic); ``cli.warmup`` in a child process on an empty build
+  directory, then again on the same one, its ``rdb`` and ``swin_block``
+  launches counted in the child (phase warmup);
 - SwinIR serving on ``swinir_x4`` (``process_wow_sr`` on the exact path,
   the halo-tiled engine path, a 3×5 upload, exact 2048² and 2560² images
   with the strip tail held to the whole tail), whose Swin blocks run the
@@ -84,8 +96,9 @@ Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 
 ``--phases`` picks a subset (device, build, kernel, main, numbers,
-fetch, server, vectors, decode, swin_kernel, swin_main, swin_large,
-swin_numbers, ladder, mxu) for a quick check; the default runs them all.
+fetch, server, vectors, decode, classic, warmup, swin_kernel, swin_main,
+swin_large, swin_numbers, ladder, mxu) for a quick check; the default
+runs them all.
 ``--seed`` seeds the fetched scene's pixels.
 """
 
@@ -102,8 +115,8 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernel", "main", "numbers", "fetch", "server",
-          "vectors", "decode", "swin_kernel", "swin_main", "swin_large", "swin_numbers", "ladder",
-          "mxu")
+          "vectors", "decode", "classic", "warmup", "swin_kernel",
+          "swin_main", "swin_large", "swin_numbers", "ladder", "mxu")
 KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder", "rdb_ladder_tc",
                   "matmul_chain")
 
@@ -2775,6 +2788,624 @@ def phase_decode(state):
         raise AssertionError(f"decode: {failures}")
 
 
+# --- the classic SR path (EDSR, ESPCN, LapSRN), sr_cli, warmup ------------
+
+CLASSIC_SCENE = 512            # the GeoTIFF each classic model upscales
+CLASSIC_BUCKET = (576, 432)    # masked bucket (576×448) vs unpadded
+CLASSIC_CPU_SIDE = 64          # float32 models card vs CPU
+CLASSIC_F32_TOL = 1e-5         # of max |out|: card vs CPU, converters
+CLASSIC_UPLOADS = ((100, 90), (120, 64), (64, 64), (128, 128), (70, 128),
+                   (100, 90), (64, 64), (128, 100))   # 3 buckets
+# per input pixel: head, 2·32 body convs, body conv, the upsample convs
+# at their resolutions, the tail at the output's (MACs; ×2 for FLOP)
+EDSR_MACS = {4: 9 * (3 * 256 + 66 * 256 * 256 + 256 * 1024
+                     + 4 * 256 * 1024 + 16 * 256 * 3),
+             3: 9 * (3 * 256 + 66 * 256 * 256 + 256 * 2304 + 9 * 256 * 3),
+             2: 9 * (3 * 256 + 66 * 256 * 256 + 256 * 1024 + 4 * 256 * 3)}
+
+
+def _pb_varint(v: int) -> bytes:
+    out = b""
+    while True:
+        b, v = v & 0x7F, v >> 7
+        if not v:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _pb_field(num: int, wire: int, payload) -> bytes:
+    key = _pb_varint((num << 3) | wire)
+    if wire == 0:
+        return key + _pb_varint(payload)
+    if wire == 5:
+        return key + payload
+    return key + _pb_varint(len(payload)) + payload
+
+
+class GraphWriter:
+    """A frozen TF GraphDef written from its protobuf wire format, wired
+    as the released EDSR / ESPCN / LapSRN graphs are (Conv2D + BiasAdd,
+    DepthToSpace, Conv2DBackpropInput, Relu / LeakyRelu / Tanh, Add,
+    Sub), for the ``.pb`` converters and the graph executor."""
+
+    def __init__(self, seed: int):
+        import numpy as np
+
+        self.rng = np.random.default_rng(seed)
+        self.parts = [self._node("x", "Placeholder",
+                                 attrs=self._attr("dtype", _pb_field(6, 0, 1)))]
+        self.n = 0
+
+    @staticmethod
+    def _attr(key: str, value: bytes) -> bytes:
+        return _pb_field(5, 2, _pb_field(1, 2, key.encode())
+                         + _pb_field(2, 2, value))
+
+    def _node(self, name, op, inputs=(), attrs=b""):
+        body = _pb_field(1, 2, name.encode()) + _pb_field(2, 2, op.encode())
+        for i in inputs:
+            body += _pb_field(3, 2, i.encode())
+        return _pb_field(1, 2, body + attrs)
+
+    def _name(self, prefix):
+        self.n += 1
+        return f"{prefix}_{self.n}"
+
+    def const(self, arr, prefix="c"):
+        import numpy as np
+
+        arr = np.asarray(arr)
+        dtype, raw = ((3, arr.astype("<i4")) if arr.dtype.kind == "i"
+                      else (1, arr.astype("<f4")))
+        shape = b"".join(_pb_field(2, 2, _pb_field(1, 0, s))
+                         for s in arr.shape)
+        tensor = (_pb_field(1, 0, dtype) + _pb_field(2, 2, shape)
+                  + _pb_field(4, 2, raw.tobytes()))
+        name = self._name(prefix)
+        self.parts.append(self._node(
+            name, "Const", attrs=self._attr("value", _pb_field(8, 2, tensor))))
+        return name
+
+    def _op(self, op, inputs, attrs=b""):
+        name = self._name(op.lower())
+        t = self._attr("T", _pb_field(6, 0, 1))
+        self.parts.append(self._node(name, op, inputs, attrs + t))
+        return name
+
+    def _conv_attrs(self, stride=1):
+        strides = b"".join(_pb_field(3, 0, s) for s in (1, stride, stride, 1))
+        return (self._attr("padding", _pb_field(2, 2, b"SAME"))
+                + self._attr("strides", _pb_field(1, 2, strides)))
+
+    def weight(self, *shape, gain=1.0):
+        import numpy as np
+
+        fan_in = int(np.prod(shape[:-1]))
+        return (self.rng.standard_normal(shape) * gain
+                * np.sqrt(1.0 / fan_in)).astype(np.float32)
+
+    def conv(self, inp, kh, cin, cout, gain=1.0):
+        w = self.const(self.weight(kh, kh, cin, cout, gain=gain), "w")
+        c = self._op("Conv2D", [inp, w], self._conv_attrs())
+        b = self.const(self.rng.standard_normal(cout).astype("f4") * 0.05, "b")
+        return self._op("BiasAdd", [c, b])
+
+    def tconv(self, inp, c, out_shape):
+        import numpy as np
+
+        oshape = self.const(np.asarray(out_shape, np.int32), "os")
+        w = self.const(self.weight(4, 4, c, c), "tw")
+        return self._op("Conv2DBackpropInput", [oshape, w, inp],
+                        self._conv_attrs(2))
+
+    def unary(self, op, inp, alpha=None):
+        import struct
+
+        attrs = b"" if alpha is None else self._attr(
+            "alpha", _pb_field(4, 5, struct.pack("<f", alpha)))
+        return self._op(op, [inp], attrs)
+
+    def binary(self, op, a, b):
+        return self._op(op, [a, b])
+
+    def d2s(self, inp, block):
+        return self._op("DepthToSpace", [inp], self._attr(
+            "block_size", _pb_field(3, 0, block)))
+
+    def write(self, path: Path) -> Path:
+        path.write_bytes(b"".join(self.parts))
+        return path
+
+
+def edsr_graph(path: Path, feat: int, blocks: int, scale: int) -> Path:
+    """EDSR as the Saafke graphs wire it: x − mean, head, residual blocks,
+    body conv + skip, the depth-to-space stages, tail + mean."""
+    import numpy as np
+
+    g = GraphWriter(seed=scale)
+    mean = g.const(np.float32([114.444, 111.4605, 103.02]), "mean")
+    head = g.conv(g.binary("Sub", "x", mean), 3, 3, feat)
+    cur = head
+    for _ in range(blocks):
+        r = g.unary("Relu", g.conv(cur, 3, feat, feat))
+        cur = g.binary("Add", cur, g.conv(r, 3, feat, feat, gain=0.1))
+    cur = g.binary("Add", head, g.conv(cur, 3, feat, feat))
+    s = scale
+    while s > 1:
+        f = 3 if s == 3 else 2
+        cur = g.d2s(g.conv(cur, 3, feat, feat * f * f), f)
+        s //= f
+    g.binary("Add", g.conv(cur, 3, feat, 3), mean)
+    return g.write(path)
+
+
+def espcn_graph(path: Path, scale: int) -> Path:
+    """The released luma ESPCN: 5×5/64, tanh, 3×3/32, tanh, 3×3/s²,
+    depth-to-space."""
+    g = GraphWriter(seed=10 + scale)
+    t = g.unary("Tanh", g.conv("x", 5, 1, 64))
+    t = g.unary("Tanh", g.conv(t, 3, 64, 32))
+    g.d2s(g.conv(t, 3, 32, scale * scale), scale)
+    return g.write(path)
+
+
+def lapsrn_graph(path: Path, scale: int, hw, feat: int = 64,
+                 depth: int = 5) -> Path:
+    """The released luma LapSRN for an input of ``hw`` (its transposed
+    convs carry their output shapes): per ×2 level the embeddings, the
+    feature and image transposed convs and the residual."""
+    import numpy as np
+
+    g = GraphWriter(seed=20 + scale)
+    fcur = g.unary("LeakyRelu", g.conv("x", 3, 1, feat), alpha=0.2)
+    icur, size = "x", np.array(hw)
+    for _ in range(int(np.log2(scale))):
+        e = fcur
+        for _ in range(depth):
+            e = g.unary("LeakyRelu", g.conv(e, 3, feat, feat), alpha=0.2)
+        size = size * 2
+        fcur = g.tconv(e, feat, [1, int(size[0]), int(size[1]), feat])
+        res = g.conv(fcur, 3, feat, 1)
+        iup = g.tconv(icur, 1, [1, int(size[0]), int(size[1]), 1])
+        icur = g.binary("Add", iup, res)
+    return g.write(path)
+
+
+def _classic_weights_dir(state) -> Path:
+    """An empty ``weights_dir`` for the classic models (seeded random init
+    until a phase drops a ``.pb`` there), through the environment the
+    settings read."""
+    from s2sr_tpu_torch.config import settings as settings_mod
+    from s2sr_tpu_torch.pipelines import super_resolution as sr
+
+    wdir = state["work"] / "classic_weights"
+    wdir.mkdir(exist_ok=True)
+    os.environ["WEIGHTS_DIR"] = str(wdir)
+    settings_mod.get_settings.cache_clear()
+    sr._MODEL_CACHE.clear()
+    return wdir
+
+
+def classic_scene_run(tif: Path, out: Path, model: str, scale: int,
+                      card: str, label: str) -> None:
+    """``process_sentinel2_sr`` on the card, cold then warm; the warm
+    seconds (host clock, ending in ``synchronize``), MPix/s of input, the
+    output checked (shape, finite uint8, PNG twin equal to the GeoTIFF)."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.geo import read_geotiff
+    from s2sr_tpu_torch.pipelines.super_resolution import process_sentinel2_sr
+    from s2sr_tpu_torch.tiles.png import decode_png
+
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        result = process_sentinel2_sr(tif, out, scale=scale, model=model,
+                                      device="cuda")
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t1)
+    meta = result["sr_metadata"]
+    side = CLASSIC_SCENE * scale
+    sr_tif = read_geotiff(result["outputs"]["sr_tif"]).data
+    png = decode_png(Path(result["outputs"]["sr_png"]).read_bytes())
+    if sr_tif.shape != (side, side, 3) or sr_tif.dtype != np.uint8 or \
+            not np.array_equal(sr_tif, png) or meta["output_size"] != [side, side]:
+        raise AssertionError(f"classic {label}: output {sr_tif.shape} "
+                             f"{meta}")
+    stage = meta["timing"]["stages"][0]["seconds"]
+    emit({"phase": "classic", "scene": f"{CLASSIC_SCENE}^2", "model": label,
+           "cold_seconds": round(runs[0], 4), "seconds": round(runs[1], 4),
+           "mpix_per_s": CLASSIC_SCENE ** 2 / runs[1] / 1e6,
+           "sr_stage_seconds": stage,
+           "sr_stage_mpix_per_s": CLASSIC_SCENE ** 2 / stage / 1e6,
+           "output_mean": float(sr_tif.mean()), "card": card})
+
+
+def classic_forward_ms(model, c: int) -> dict:
+    """One warm forward at the scene's size, CUDA events: as served
+    (PyTorch's own convs) and, for the record of what the pin costs, with
+    cuDNN's choice (``invariant_convs`` bypassed for this timing only)."""
+    import contextlib
+
+    import torch
+
+    from s2sr_tpu_torch.models import classic
+
+    x = torch.rand(1, CLASSIC_SCENE, CLASSIC_SCENE, c, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+    ms = time_cuda(lambda: model(x), iters=3, warmup=1)
+    pinned = classic.invariant_convs
+    classic.invariant_convs = lambda device, dtype: contextlib.nullcontext()
+    try:
+        cudnn_ms = time_cuda(lambda: model(x), iters=3, warmup=1)
+    finally:
+        classic.invariant_convs = pinned
+    return {"forward_ms": ms, "cudnn_forward_ms": cudnn_ms}
+
+
+# the classic models' conv layers, by model: (label, dtype, cin, cout,
+# kernel, transposed, the input side as a multiple of the model input)
+CLASSIC_CONVS = (
+    ("edsr head", "bfloat16", 3, 256, 3, False, 1),
+    ("edsr body", "bfloat16", 256, 256, 3, False, 1),
+    ("edsr up1", "bfloat16", 256, 1024, 3, False, 1),
+    ("edsr up2", "bfloat16", 256, 1024, 3, False, 2),
+    ("edsr tail x4", "bfloat16", 256, 3, 3, False, 4),
+    ("espcn conv1", "float32", 3, 64, 5, False, 1),
+    ("espcn luma conv1", "float32", 1, 64, 5, False, 1),
+    ("espcn conv2", "float32", 64, 32, 3, False, 1),
+    ("espcn conv3", "float32", 32, 48, 3, False, 1),
+    ("lapsrn head", "float32", 1, 64, 3, False, 1),
+    ("lapsrn embed L1", "float32", 64, 64, 3, False, 1),
+    ("lapsrn embed L3", "float32", 64, 64, 3, False, 4),
+    ("lapsrn up_feat L1", "float32", 64, 64, 4, True, 1),
+    ("lapsrn up_feat L3", "float32", 64, 64, 4, True, 4),
+    ("lapsrn res L3", "float32", 64, 1, 3, False, 8),
+    ("lapsrn up_img L3", "float32", 1, 1, 4, True, 4),
+)
+
+
+def classic_conv_invariance(card: str) -> dict:
+    """Each classic conv layer alone on the card, under cuDNN's default
+    choice, cuDNN restricted to deterministic algorithms, and PyTorch's
+    own CUDA convolution: the values that differ between the unpadded
+    576×432 input and its zero-padded 576×448 bucket (on the unpadded
+    region), and between image 0 of a batch of 5 at 128² and the same
+    image alone (and of a batch of 2 at 64²); and its ms at 576×432. A
+    conv whose count is not 0 breaks the bucket's or the batch's equality
+    with single serving: the models run PyTorch's own convolutions
+    (``utils/precision.py::invariant_convs``, mode "native" here), and
+    this says why and at what cost."""
+    import contextlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from s2sr_tpu_torch.models.classic import _layout
+    from s2sr_tpu_torch.utils.precision import ieee_fp32
+
+    modes = {"default": contextlib.nullcontext,
+             "deterministic": lambda: torch.backends.cudnn.flags(
+                 enabled=True, benchmark=False, deterministic=True),
+             "native": lambda: torch.backends.cudnn.flags(enabled=False)}
+    g = torch.Generator("cuda").manual_seed(5)
+    out = {}
+    for label, dt, cin, cout, k, transposed, mult in CLASSIC_CONVS:
+        dtype = getattr(torch, dt)
+        w = torch.randn(cin if transposed else cout, cout if transposed
+                        else cin, k, k, device="cuda", generator=g,
+                        dtype=torch.float32).to(dtype) * (1.0 / (k * k * cin)) ** 0.5
+
+        def op(x):
+            x = _layout(x)
+            if transposed:
+                return F.conv_transpose2d(x, w, stride=2)
+            return F.conv2d(x, w, padding=k // 2)
+
+        h, wd = (CLASSIC_BUCKET[0] * mult, CLASSIC_BUCKET[1] * mult)
+        hb, wb = h, -(-CLASSIC_BUCKET[1] // 64) * 64 * mult
+        s = 2 if transposed else 1
+        x = torch.rand(1, cin, h, wd, device="cuda", generator=g).to(dtype)
+        xb = torch.rand(5, cin, 128 * mult, 128 * mult, device="cuda",
+                        generator=g).to(dtype)
+        xb2 = torch.rand(2, cin, 64 * mult, 64 * mult, device="cuda",
+                         generator=g).to(dtype)
+        row = {}
+        for mode, ctx in modes.items():
+            with ctx(), ieee_fp32():
+                a = op(x)
+                b = op(F.pad(x, (0, wb - wd, 0, hb - h)))
+                bucket = int((a != b[..., :a.shape[2], :a.shape[3]]).sum())
+                del a, b
+                batch = {}
+                for n, xs in ((5, xb), (2, xb2)):
+                    many, one = op(xs)[:1], op(xs[:1])
+                    batch[n] = int((many != one).sum())
+                ms = time_cuda(lambda: op(x), iters=3, warmup=1)
+            row[mode] = {"bucket": bucket, "batch_5x128": batch[5],
+                         "batch_2x64": batch[2], "ms": ms}
+            torch.cuda.empty_cache()
+        out[label] = row
+    emit({"phase": "classic", "check": "conv invariance by layer",
+          "bucket": [list(CLASSIC_BUCKET), [CLASSIC_BUCKET[0], -(-CLASSIC_BUCKET[1] // 64) * 64]],
+          "differing_values": out, "card": card})
+    return out
+
+
+def check_classic_bucket(models: dict, card: str) -> dict:
+    """The masked 64-multiple bucket against the unpadded forward at
+    576×432, model output compared bit for bit (float32 models under IEEE
+    float32, EDSR in bf16): the count of differing values, 0 required."""
+    import torch
+    import torch.nn.functional as F
+
+    h, w = CLASSIC_BUCKET
+    hb, wb = -(-h // 64) * 64, -(-w // 64) * 64
+    diffs = {}
+    for label, model in models.items():
+        g = torch.Generator("cuda").manual_seed(1)
+        x = torch.rand(1, h, w, model.num_ch, device="cuda", generator=g)
+        want = model(x)
+        mask = torch.zeros(1, hb, wb, 1, device="cuda")
+        mask[:, :h, :w] = 1
+        got = model(F.pad(x, (0, 0, 0, wb - w, 0, hb - h)), mask)
+        s = model.scale
+        diffs[label] = int((got[:, :h * s, :w * s] != want).sum())
+        del want, got
+        torch.cuda.empty_cache()
+    emit({"phase": "classic", "check": "masked bucket vs unpadded",
+          "shape": [h, w], "bucket": [hb, wb], "differing_values": diffs,
+          "card": card})
+    return diffs
+
+
+def check_classic_cpu(models: dict, card: str) -> dict:
+    """The float32 models at 64² on the card against the same weights on
+    the CPU: max |card − CPU| over the CPU output's largest magnitude."""
+    import copy
+
+    import torch
+
+    errs = {}
+    for label, model in models.items():
+        if model.dtype != torch.float32:
+            continue
+        g = torch.Generator().manual_seed(2)
+        x = torch.rand(1, CLASSIC_CPU_SIDE, CLASSIC_CPU_SIDE, model.num_ch,
+                       generator=g)
+        want = copy.deepcopy(model).cpu()(x)
+        got = model(x.cuda()).cpu()
+        errs[label] = float((got - want).abs().max() / want.abs().max())
+    emit({"phase": "classic", "check": "card vs CPU", "side": CLASSIC_CPU_SIDE,
+          "rel_err": errs, "tol": CLASSIC_F32_TOL, "card": card})
+    return errs
+
+
+def check_classic_converters(graphs: dict, card: str) -> dict:
+    """Each ``.pb`` converter's model on the card against
+    ``execute_graphdef`` on the card over the same file (EDSR in float32,
+    in the graph's 255 domain): max |model − graph| over max |graph|."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.models import pb_reader
+    from s2sr_tpu_torch.models.classic import EDSR, ESPCN, LapSRN
+    from s2sr_tpu_torch.models.graph_executor import execute_graphdef
+    from s2sr_tpu_torch.models.weights import params_from_jax_classic
+
+    errs = {}
+    for label, (path, family, scale, hw) in graphs.items():
+        rng = np.random.default_rng(3)
+        mean = None
+        if family == "edsr":
+            tree, cfg = pb_reader.convert_edsr_pb(path, scale)
+            mean = cfg["mean"]
+            model = EDSR(scale, num_feat=cfg["channels"],
+                         num_blocks=cfg["blocks"], dtype=torch.float32)
+            x = (rng.random((1, *hw, 3)) * 255).astype(np.float32)
+            x_in, out_scale = x / 255.0, 255.0
+        else:
+            tree = getattr(pb_reader, f"convert_{family}_pb")(path, scale)
+            model = (ESPCN(scale, num_ch=1) if family == "espcn" else
+                     LapSRN(scale, num_ch=1))
+            x = rng.random((1, *hw, 1)).astype(np.float32)
+            x_in, out_scale = x, 1.0
+        model.load_state_dict(params_from_jax_classic(tree, family, mean=mean))
+        model = model.cuda().eval()
+        want = execute_graphdef(path, {"x": x}, device="cuda")
+        got = model(torch.from_numpy(x_in).cuda()) * out_scale
+        if got.shape != want.shape:
+            raise AssertionError(f"converter {label}: {got.shape} vs "
+                                 f"{want.shape}")
+        errs[label] = float((got - want).abs().max() / want.abs().max())
+    emit({"phase": "classic", "check": "converters vs execute_graphdef",
+          "rel_err": errs, "tol": CLASSIC_F32_TOL, "card": card})
+    return errs
+
+
+def check_classic_many(models: dict, card: str) -> dict:
+    """``run_classic_sr_many`` over 8 mixed-size uploads (3 buckets, one
+    on the grid) against ``run_classic_sr`` one at a time: byte-equal."""
+    import numpy as np
+
+    from s2sr_tpu_torch.pipelines.super_resolution import (
+        run_classic_sr, run_classic_sr_many)
+
+    rng = np.random.default_rng(4)
+    ups = [rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+           for h, w in CLASSIC_UPLOADS]
+    equal = {}
+    for label, model in models.items():
+        many = run_classic_sr_many(model, ups)
+        singles = [run_classic_sr(model, up) for up in ups]
+        equal[label] = all(
+            a.shape == (h * model.scale, w * model.scale, 3)
+            and np.array_equal(a, b)
+            for a, b, (h, w) in zip(many, singles, CLASSIC_UPLOADS))
+    emit({"phase": "classic", "check": "run_classic_sr_many vs single",
+          "uploads": len(ups), "buckets": 3, "byte_equal": equal,
+          "card": card})
+    return equal
+
+
+def run_cli(args: list, cwd: Path, env: dict, timeout: int) -> tuple:
+    """A ``python -m`` CLI of the port in a child process: (seconds,
+    stdout). Raises with its output if it fails."""
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t1
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return secs, proc.stdout
+
+
+def child_env(**extra) -> dict:
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, **extra)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root), *filter(None, [env.get("PYTHONPATH")])])
+    return env
+
+
+def phase_classic(state):
+    """The classic SR path on the card: ``process_sentinel2_sr`` on a 512²
+    GeoTIFF through the full-width registry models (``edsr_x4``/``x3``/
+    ``x2`` bf16, ``espcn_x4``) and the luma ``espcn_x4`` / ``lapsrn_x8``
+    from ``.pb`` graphs; the masked bucket against the unpadded forward;
+    the float32 models card vs CPU; the converters against the card's
+    graph executor; batched serving against single; ``sr_cli`` in modes
+    edsr and realesrgan with ``--tile`` in a child process."""
+    import shutil
+
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_scene
+    from s2sr_tpu_torch.pipelines.super_resolution import create_sr_model
+
+    t0 = time.perf_counter()
+    card = state.get("card") or card_line()
+    work = state["work"] / "classic"
+    work.mkdir()
+    wdir = _classic_weights_dir(state)
+    tif = work / "scene.tif"
+    synthetic_scene(tif, size=(CLASSIC_SCENE, CLASSIC_SCENE), seed=3)
+    failures = []
+
+    models = {}
+    for model, scale in (("edsr", 4), ("edsr", 3), ("edsr", 2),
+                         ("espcn", 4)):
+        label = f"{model}_x{scale}"
+        classic_scene_run(tif, work / label, model, scale, card, label)
+        net = models[label] = create_sr_model(model, scale, device="cuda")
+        want = (torch.bfloat16, 256, 32) if model == "edsr" else \
+            (torch.float32, None, None)
+        got = (net.dtype, getattr(net, "num_feat", None),
+               getattr(net, "num_blocks", None))
+        if got != want or net.num_ch != 3:
+            failures.append(f"{label}: {got}, {net.num_ch} channels")
+        fwd = classic_forward_ms(net, 3)
+        emit({"phase": "classic", "model": label, **fwd,
+              "tflops": (2 * EDSR_MACS[scale] * CLASSIC_SCENE ** 2
+                         / fwd["forward_ms"] / 1e9
+                         if model == "edsr" else None),
+              "card": card})
+
+    graphs = {"edsr_x4": (edsr_graph(work / "edsr_x4.pb", 64, 4, 4),
+                          "edsr", 4, (48, 40)),
+              "espcn_x4": (espcn_graph(work / "espcn_x4.pb", 4), "espcn", 4,
+                           (48, 40)),
+              "lapsrn_x8": (lapsrn_graph(work / "lapsrn_x8.pb", 8, (48, 40)),
+                            "lapsrn", 8, (48, 40))}
+    conv_errs = check_classic_converters(graphs, card)
+    failures += [f"converter {k}: {v}" for k, v in conv_errs.items()
+                 if not v <= CLASSIC_F32_TOL]
+
+    # the released luma graphs dropped in weights_dir: the pipeline
+    # converts them and runs the YCrCb luma path
+    for label, model, scale in (("espcn_x4", "espcn", 4),
+                                ("lapsrn_x8", "lapsrn", 8)):
+        shutil.copy(graphs[label][0], wdir / f"{label}.pb")
+        classic_scene_run(tif, work / f"{label}_luma", model, scale, card,
+                          f"{label}_luma")
+        net = models[f"{label}_luma"] = create_sr_model(model, scale,
+                                                       device="cuda")
+        if net.num_ch != 1 or net.dtype != torch.float32:
+            failures.append(f"{label}_luma: {net.num_ch} channels")
+        emit({"phase": "classic", "model": f"{label}_luma",
+              **classic_forward_ms(net, 1), "card": card})
+
+    classic_conv_invariance(card)
+    diffs = check_classic_bucket(models, card)
+    failures += [f"bucket {k}: {v} values differ" for k, v in diffs.items()
+                 if v]
+    cpu_errs = check_classic_cpu(models, card)
+    failures += [f"card vs CPU {k}: {v}" for k, v in cpu_errs.items()
+                 if not v <= CLASSIC_F32_TOL]
+    equal = check_classic_many({k: models[k] for k in
+                                ("edsr_x4", "espcn_x4", "espcn_x4_luma",
+                                 "lapsrn_x8_luma")}, card)
+    failures += [f"many {k}" for k, v in equal.items() if not v]
+
+    # the CLI in a child process: EDSR (classic) and the WOW path, tiled
+    env = child_env(WEIGHTS_DIR=str(work / "cli_weights"))
+    for mode in ("edsr", "realesrgan"):
+        secs, out = run_cli(
+            ["s2sr_tpu_torch.cli.sr_cli", str(tif), "-o", f"cli_{mode}",
+             "--mode", mode, "--tile", "--min-zoom", "12", "--max-zoom",
+             "14"], work, env, timeout=300)
+        tiles = list((work / f"cli_{mode}" / "tiles").rglob("*.png"))
+        emit({"phase": "classic", "cli": f"sr_cli --mode {mode} --tile",
+              "seconds": round(secs, 3), "tiles": len(tiles),
+              "stdout_tail": out.strip().splitlines()[-2:], "card": card})
+        if "SR complete" not in out or not tiles:
+            failures.append(f"sr_cli {mode}: {out[-500:]}")
+    emit({"phase": "classic", "seconds": round(time.perf_counter() - t0, 3)})
+    if failures:
+        raise AssertionError(f"classic: {failures}")
+
+
+def phase_warmup(state):
+    """``cli.warmup --models realesrgan_x4,swinir_x4`` in a child process
+    on an empty build directory (every library built), then again on the
+    same directory (every library cached): the cold and warm seconds, the
+    build seconds per library, and the rdb / swin_block launches of each
+    run (counted by the child, whose counts start at 0)."""
+    import re
+
+    card = state.get("card") or card_line()
+    build = state["work"] / "warmup_build"
+    work = state["work"] / "warmup"
+    work.mkdir()
+    env = child_env(S2SR_TORCH_BUILD_DIR=str(build))
+    total = {"rdb": 0, "swin_block": 0}
+    for run in ("cold", "warm"):
+        secs, out = run_cli(["s2sr_tpu_torch.cli.warmup", "--models",
+                             "realesrgan_x4,swinir_x4"], work, env,
+                            timeout=600)
+        libs = {name: (how, float(secs_)) for how, name, secs_ in re.findall(
+            r"^\s*(built|cached) (\S+) in ([0-9.]+)s$", out, re.M)}
+        launches = {k: int(v) for k, v in re.findall(
+            r"(\w+) (\d+)", out.split("kernel launches: ")[1].splitlines()[0])}
+        warmed = [ln.strip() for ln in out.splitlines() if "warmed" in ln]
+        emit({"phase": "warmup", "run": run, "seconds": round(secs, 3),
+              "libraries": {k: {"state": v[0], "seconds": v[1]}
+                            for k, v in libs.items()},
+              "launches": launches, "warmed": warmed, "card": card})
+        want = "built" if run == "cold" else "cached"
+        if len(libs) != len(KERNEL_SOURCES) + 1 or any(
+                v[0] != want for k, v in libs.items() if k != "pngenc"):
+            raise AssertionError(f"warmup {run}: libraries {libs}")
+        if not launches["rdb"] or not launches["swin_block"]:
+            raise AssertionError(f"warmup {run}: launches {launches}")
+        for k in total:
+            total[k] += launches[k]
+    state["warmup_launches"] = total
+
+
 # --- SwinIR: swin_block and window_attention ------------------------------
 
 # Per token of one Swin block (C 180, 6 heads of 30, 64-token windows,
@@ -3879,10 +4510,12 @@ def kernels_record(state) -> list | None:
         return None
     from s2sr_tpu_torch.ops.rdb_ladder import TC_RUNGS
 
+    # phase warmup's child processes count their own launches
+    warm = state.get("warmup_launches", {})
     rows = [{"name": "rdb", "route": "cuda",
              "source": "s2sr_tpu_torch/csrc/rdb.cu",
              "replaces": "s2sr_tpu/ops/pallas/fused_rdb_v4.py:234",
-             "launches": state["main_launches"],
+             "launches": state["main_launches"] + warm.get("rdb", 0),
              "max_abs_err": state["rdb_max_abs_err"],
              "rel_err": state["rdb_rel_err"],
              **state["rdb_numbers"], "library_ms": None},
@@ -3899,7 +4532,8 @@ def kernels_record(state) -> list | None:
         rows.append({"name": name, "route": "cuda",
                      "source": "s2sr_tpu_torch/csrc/window_attention.cu",
                      "replaces": SWIN_REPLACES[name],
-                     "launches": state["swin_launches"][name],
+                     "launches": (state["swin_launches"][name]
+                                  + warm.get(name, 0)),
                      "max_abs_err": err, "rel_err": rel,
                      **state["swin_numbers"][name], "library_ms": None})
     lad = state["ladder"]

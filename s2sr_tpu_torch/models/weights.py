@@ -1,13 +1,16 @@
-"""RRDBNet and SwinIR weights for the port: ``.pth`` and flat-key
-``.npz`` loading, JAX param trees, and the deterministic random inits.
+"""RRDBNet, SwinIR and classic-model weights for the port: ``.pth`` and
+flat-key ``.npz`` loading and writing, JAX param trees, and the
+deterministic random inits.
 
 The port's modules carry the released checkpoints' parameter names and
 OIHW layout, so a ``.pth`` state dict needs only unwrapping. The JAX
 package's trees (HWIO kernels, Linear weights (in, out), the RRDB stack
 on a leading ``body`` axis, SwinIR's ``layers``/``blocks`` lists) and
 its ``.npz`` files (the same tree flattened with ``/`` keys) map over
-with :func:`params_from_jax` and :func:`params_from_jax_swinir`. No
-download happens here.
+with :func:`params_from_jax`, :func:`params_from_jax_swinir` and
+:func:`params_from_jax_classic`; :func:`convert_checkpoint` writes a
+released RRDBNet ``.pth`` as that ``.npz`` (:func:`save_params`), so
+either package loads what the other wrote. No download happens here.
 """
 
 from __future__ import annotations
@@ -67,7 +70,69 @@ def params_from_jax(tree: Mapping[str, Any]) -> StateDict:
     return sd
 
 
+def rrdbnet_tree(sd: Mapping[str, Any]) -> dict:
+    """A (possibly wrapped) released RRDBNet state dict → the JAX
+    package's param tree of numpy arrays (HWIO kernels, the RRDB stack on
+    a leading ``body`` axis): ``s2sr_tpu.models.weights.
+    convert_rrdbnet_state_dict`` without JAX."""
+    if "params_ema" in sd:
+        sd = sd["params_ema"]
+    elif "params" in sd:
+        sd = sd["params"]
+
+    def arr(v) -> np.ndarray:
+        return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+    def conv(prefix):
+        return {"kernel": np.transpose(arr(sd[f"{prefix}.weight"]),
+                                       (2, 3, 1, 0)),
+                "bias": arr(sd[f"{prefix}.bias"])}
+
+    num_block = 1 + max(int(k.split(".")[1]) for k in sd
+                        if k.startswith("body."))
+    body = {f"rdb{j}": {f"conv{k}": {
+        leaf: np.stack([conv(f"body.{i}.rdb{j}.conv{k}")[leaf]
+                        for i in range(num_block)])
+        for leaf in ("kernel", "bias")} for k in (1, 2, 3, 4, 5)}
+        for j in (1, 2, 3)}
+    tree = {"body": body}
+    for name in _TOP_CONVS:
+        if f"{name}.weight" in sd:
+            tree[name] = conv(name)
+    return tree
+
+
+def convert_checkpoint(pth_path: Path | str, out_path: Path | str) -> Path:
+    """A released RRDBNet ``.pth`` → the JAX package's flat ``.npz``
+    (the same keys and values as ``s2sr_tpu.models.weights.
+    convert_checkpoint``; either package loads it)."""
+    return save_params(rrdbnet_tree(load_torch_checkpoint(pth_path)),
+                       out_path)
+
+
 # --- flat npz (the JAX package's layout) -------------------------------
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested tree → ``/``-joined keys; lists flatten with index keys."""
+    out: Dict[str, np.ndarray] = {}
+    items = (tree.items() if isinstance(tree, dict)
+             else ((str(i), v) for i, v in enumerate(tree)))
+    for key, value in items:
+        name = f"{prefix}/{key}" if prefix else key
+        if isinstance(value, (dict, list, tuple)):
+            out.update(_flatten(value, name))
+        else:
+            out[name] = np.asarray(value)
+    return out
+
+
+def save_params(tree, path: Path | str) -> Path:
+    """A JAX-layout param tree of arrays → a flat ``.npz``."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **_flatten(tree))
+    return path
+
 
 def _listify(node):
     """Rebuild list nodes: a dict whose keys are exactly 0..n-1."""
@@ -101,6 +166,54 @@ def load_npz_tree(path: Path | str) -> dict:
 def load_params(path: Path | str) -> StateDict:
     """A JAX-layout rrdbnet ``.npz`` → the port's state dict."""
     return params_from_jax(load_npz_tree(path))
+
+
+# --- classic models (EDSR, ESPCN, LapSRN) ------------------------------
+
+def params_from_jax_classic(tree: Mapping[str, Any], family: str,
+                            mean=None) -> StateDict:
+    """A JAX ``classic.py`` param tree of numpy arrays → the state dict of
+    :mod:`s2sr_tpu_torch.models.classic`'s module: HWIO → OIHW, EDSR's
+    stacked ``body`` split into blocks and its ``mean`` buffer (``mean``,
+    else the tree's, else DIV2K's: JAX keeps it on the instance), LapSRN's
+    ``up_feat`` / ``up_img`` as ``conv_transpose2d`` weights (HWIO
+    permuted (3, 2, 0, 1), the layout the forward conv's OIHW has)."""
+    sd: StateDict = {}
+
+    def conv(name, p):
+        sd[f"{name}.weight"] = _hwio_to_oihw(p["kernel"])
+        sd[f"{name}.bias"] = _np(p["bias"])
+
+    if family == "edsr":
+        from .classic import DIV2K_MEAN
+
+        conv("head", tree["head"])
+        body = tree["body"]
+        for i in range(np.asarray(body["conv1"]["kernel"]).shape[0]):
+            for c in ("conv1", "conv2"):
+                conv(f"body.{i}.{c}", {k: np.asarray(v)[i]
+                                       for k, v in body[c].items()})
+        conv("body_conv", tree["body_conv"])
+        for i, up in enumerate(tree["upsample"]):
+            conv(f"upsample.{i}", up)
+        conv("tail", tree["tail"])
+        if mean is None:
+            mean = tree.get("mean", DIV2K_MEAN)
+        sd["mean"] = _np(mean)
+    elif family == "espcn":
+        for name in ("conv1", "conv2", "conv3"):
+            conv(name, tree[name])
+    elif family == "lapsrn":
+        conv("head", tree["head"])
+        for li, level in enumerate(tree["levels"]):
+            for ei, embed in enumerate(level["embed"]):
+                conv(f"levels.{li}.embed.{ei}", embed)
+            conv(f"levels.{li}.res", level["res"])
+            for name in ("up_feat", "up_img"):
+                sd[f"levels.{li}.{name}"] = _hwio_to_oihw(level[name])
+    else:
+        raise ValueError(f"not a classic model family: {family}")
+    return sd
 
 
 # --- random init --------------------------------------------------------

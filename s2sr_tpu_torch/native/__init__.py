@@ -20,7 +20,7 @@ from typing import Optional
 
 SOURCE = Path(__file__).resolve().parent / "pngenc.cc"
 # libpng + zlib first; then zlib alone (a machine without libpng's headers)
-_FLAG_SETS = (("-lpng", "-lz"), ("-DS2SR_PNG_ZLIB_ONLY", "-lz"))
+FLAG_SETS = (("-lpng", "-lz"), ("-DS2SR_PNG_ZLIB_ONLY", "-lz"))
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -39,7 +39,7 @@ def load() -> Optional[ctypes.CDLL]:
         from ..ops._build import build_host
 
         errors = []
-        for flags in _FLAG_SETS:
+        for flags in FLAG_SETS:
             try:
                 lib = ctypes.CDLL(str(build_host(SOURCE, flags)))
             except (RuntimeError, OSError) as exc:

@@ -7,7 +7,9 @@ Libraries are cached by a hash of the source and the flags in
 ``S2SR_TORCH_BUILD_DIR``), so the first use builds and later uses load.
 Host libraries (C++ for the CPU, such as ``native/pngenc.cc``) are built
 the same way with ``g++`` (:func:`build_host`) into the same directory,
-never beside their source. Nothing here runs at import time.
+never beside their source. :func:`build_all` builds or loads every one of
+them (``cli.warmup`` runs it before a server takes traffic). Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -110,3 +112,39 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
     return _LIBS[name]
+
+
+def build_all() -> dict:
+    """Build, or find in the cache, every library of ``csrc/`` (one
+    ``nvcc`` per source, all started together; only where CUDA is
+    available) and of ``native/`` (``g++``). Returns ``{name:
+    {"seconds": s, "cached": bool}}``; the native PNG encoder's entry
+    adds ``"encoder"`` ("native" or "pure": a failed host build leaves
+    the pure encoder, as at run time). Raises if an ``nvcc`` build
+    fails."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from .. import native
+
+    def kernel(name):
+        cached = lib_path(name).exists()
+        t0 = time.perf_counter()
+        build(name)
+        return name, {"seconds": time.perf_counter() - t0, "cached": cached}
+
+    def host():
+        cached = any(host_lib_path(native.SOURCE, flags).exists()
+                     for flags in native.FLAG_SETS)
+        t0 = time.perf_counter()
+        encoder = native.png_encoder()["png_encoder"]
+        return native.SOURCE.stem, {"seconds": time.perf_counter() - t0,
+                                    "cached": cached, "encoder": encoder}
+
+    names = (sorted(p.stem for p in CSRC.glob("*.cu"))
+             if torch.cuda.is_available() else [])
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        futures = [pool.submit(kernel, n) for n in names]
+        futures.append(pool.submit(host))
+        return dict(f.result() for f in futures)

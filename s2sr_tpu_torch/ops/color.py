@@ -263,3 +263,28 @@ def hsv_to_rgb_u8(hsv: torch.Tensor) -> torch.Tensor:
 
     rgb = torch.stack([pick(2), pick(1), pick(0)], dim=-1)
     return torch.trunc(rgb * 255.0).clamp(0, 255).to(torch.uint8)
+
+
+# --- float YCrCb (cv2 COLOR_RGB2YCrCb float semantics) -----------------
+#
+# The reference's cv2.dnn_superres runs ESPCN/LapSRN on the luma channel
+# of a float [0, 1] YCrCb image and upscales chroma with bicubic; the
+# classic models' luma path reproduces that flow. cv2's float constants:
+# delta = 0.5, Cr = (R − Y)·0.713 + delta, Cb = (B − Y)·0.564 + delta.
+
+def rgb_to_ycrcb_f32(rgb: torch.Tensor) -> torch.Tensor:
+    """float32 (..., 3) RGB → (..., 3) YCrCb, cv2's float formula."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cr = (r - y) * 0.713 + 0.5
+    cb = (b - y) * 0.564 + 0.5
+    return torch.stack([y, cr, cb], dim=-1)
+
+
+def ycrcb_to_rgb_f32(ycc: torch.Tensor) -> torch.Tensor:
+    """float32 (..., 3) YCrCb → (..., 3) RGB, cv2's float formula."""
+    y, cr, cb = ycc[..., 0], ycc[..., 1] - 0.5, ycc[..., 2] - 0.5
+    r = y + 1.403 * cr
+    g = y - 0.714 * cr - 0.344 * cb
+    b = y + 1.773 * cb
+    return torch.stack([r, g, b], dim=-1)

@@ -30,3 +30,30 @@ def ieee_fp32(enabled: bool = True):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@contextlib.contextmanager
+def invariant_convs(device: torch.device, dtype: torch.dtype):
+    """PyTorch's own convolutions inside the block (im2col and a GEMM per
+    image), whose rounding depends neither on the image's shape nor on
+    the batch: a zero-padded bucket and a batch then give the unpadded
+    single image's values. On CUDA cuDNN is off: it picks its algorithm
+    by shape and batch size (a transposed conv differs between 576×432
+    and its 576×448 bucket, a 256-channel bf16 conv between a batch of 2
+    and one image at 64²; ``chip_smoke.py`` phase ``classic``). On the
+    CPU oneDNN is off for float32, for the same reason; the CPU's bf16
+    convs are not shape-invariant either way and keep oneDNN. The flag
+    as it was afterwards."""
+    if device.type == "cuda":
+        backend = torch.backends.cudnn
+    elif device.type == "cpu" and dtype == torch.float32:
+        backend = torch.backends.mkldnn
+    else:
+        yield
+        return
+    flag = backend.enabled
+    backend.enabled = False
+    try:
+        yield
+    finally:
+        backend.enabled = flag

@@ -577,7 +577,15 @@ def test_multiband_matches_jax(srv, tmp_path, monkeypatch):
 
 # --- UP42 ------------------------------------------------------------------
 
-def up42_routes(srv, reuse: bool):
+def up42_scenes(srv) -> list:
+    """The catalog's two scenes, stamped once: both clients must be
+    served the same bytes, and ``stac_feature`` stamps ``datetime.now``
+    to the second."""
+    return [stac_feature(srv.base, "UP_A", 12.0, 1),
+            stac_feature(srv.base, "UP_B", 3.0, 2)]
+
+
+def up42_routes(srv, reuse: bool, scenes: list):
     polls = []
 
     def order_status(h, b):
@@ -586,8 +594,6 @@ def up42_routes(srv, reuse: bool):
         return json_route({"id": "ord-9", "status": status, "assets": [
             {"url": srv.base + "/asset.tif"}]})(h, b)
 
-    scenes = [stac_feature(srv.base, "UP_A", 12.0, 1),
-              stac_feature(srv.base, "UP_B", 3.0, 2)]
     orders = [{"id": "ord-0", "params": {"id": "UP_X"}}]
     if reuse:
         orders.append({"id": "ord-9", "params": {"id": "UP_B"}})
@@ -623,12 +629,13 @@ def test_up42_fetch_best_scene_matches_jax(srv, tmp_path, monkeypatch, reuse):
                 up42_catalog_url=srv.base + "/catalog",
                 up42_username="user", up42_password="pw", offline=False)
     runs = {}
+    scenes = up42_scenes(srv)
     for name, mods, make in (
             ("jax", (jclient, jretry), lambda: jclient.UP42Client(
                 JaxSettings(**urls))),
             ("torch", (client, retry), lambda: client.UP42Client(
                 Settings(**urls)))):
-        up42_routes(srv, reuse)
+        up42_routes(srv, reuse, scenes)
         srv.log = []
         sleeps = fake_clock(monkeypatch, mods)
         path, meta = make().fetch_best_scene(AOI, tmp_path / name)

@@ -64,7 +64,13 @@ def test_modules_import_with_jax_blocked():
             "s2sr_tpu_torch.cli.fetch", "s2sr_tpu_torch.cli.fetch_scene",
             "s2sr_tpu_torch.cli.multiband", "s2sr_tpu_torch.cli.tile",
             "s2sr_tpu_torch.cli.esrgan_tiles",
-            } <= set(mods) and len(mods) >= 97
+            "s2sr_tpu_torch.ops.resize", "s2sr_tpu_torch.models.classic",
+            "s2sr_tpu_torch.models.pb_reader",
+            "s2sr_tpu_torch.models.graph_executor",
+            "s2sr_tpu_torch.pipelines.super_resolution",
+            "s2sr_tpu_torch.cli.sr_cli", "s2sr_tpu_torch.cli.convert_weights",
+            "s2sr_tpu_torch.cli.warmup",
+            } <= set(mods) and len(mods) >= 105
     code = "\n".join([
         "import sys",
         "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic',"
@@ -92,6 +98,8 @@ def test_modules_import_with_jax_blocked():
         "assert 'vectors' in chip_smoke.PHASES",
         "assert 'decode' in chip_smoke.PHASES",
         "assert 'fetch' in chip_smoke.PHASES",
+        "assert {'classic', 'warmup'} <= set(chip_smoke.PHASES)",
+        "from s2sr_tpu_torch.ops._build import build_all",
         "from s2sr_tpu_torch.fetch import client, smart_fetch",
         "assert smart_fetch.STAC_URL == client.EARTH_SEARCH",
         "from s2sr_tpu_torch.decode.ocr import _atlas",

@@ -114,13 +114,15 @@ def apps(tmp_path_factory):
     common = dict(aoi_path=str(aoi), offline=True, weights_dir=str(weights),
                   tile_min_zoom=12, tile_max_zoom=13, max_upload_mb=1)
     out = []
+    # one stamp for both apps: a second boundary between them would give
+    # the two sidecars different dates
+    acq = datetime.now(timezone.utc) - timedelta(days=1)
     for name, make in (("jax", lambda s: jax_app_mod.create_app(
             JaxSettings(**s))), ("torch", lambda s: app_mod.create_app(
                 Settings(**s), device="cpu"))):
         data = d / name / "data"
         scene = data / "source" / "scene.tif"
         synthetic_scene(scene, size=(64, 64), seed=4)
-        acq = datetime.now(timezone.utc) - timedelta(days=1)
         write_json({"scene_id": "fixture", "cloud_cover_pct": 1.0,
                     "acquisition_date": acq.strftime("%Y-%m-%dT%H:%M:%SZ")},
                    scene.with_suffix(".json"))
