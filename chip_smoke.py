@@ -63,6 +63,14 @@ random weights from seed 0, each at the full width of its model:
   classic); ``cli.warmup`` in a child process on an empty build
   directory, then again on the same one, its ``rdb`` and ``swin_block``
   launches counted in the child (phase warmup);
+- training (``s2sr_tpu_torch.training``, ``cli.train``): one float32
+  step card vs CPU, then ``cli.train`` at full width (23 blocks, 64/32,
+  ×4, batch 16, crop 48, bf16, the device pipeline, chunk 32, 64 steps)
+  with remat and the blur/noise/JPEG degradations and without remat,
+  SwinIR at ``swinir_x4``'s width, a resume against an unbroken run
+  under deterministic algorithms, and the trained checkpoint exported
+  (``convert_weights --from-ckpt``) and served by ``SREngine``, its RDBs
+  in the ``rdb`` kernel (phase train);
 - SwinIR serving on ``swinir_x4`` (``process_wow_sr`` on the exact path,
   the halo-tiled engine path, a 3×5 upload, exact 2048² and 2560² images
   with the strip tail held to the whole tail), whose Swin blocks run the
@@ -96,9 +104,9 @@ Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 
 ``--phases`` picks a subset (device, build, kernel, main, numbers,
-fetch, server, vectors, decode, classic, warmup, swin_kernel, swin_main,
-swin_large, swin_numbers, ladder, mxu) for a quick check; the default
-runs them all.
+fetch, server, vectors, decode, classic, warmup, train, swin_kernel,
+swin_main, swin_large, swin_numbers, ladder, mxu) for a quick check; the
+default runs them all.
 ``--seed`` seeds the fetched scene's pixels.
 """
 
@@ -115,7 +123,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernel", "main", "numbers", "fetch", "server",
-          "vectors", "decode", "classic", "warmup", "swin_kernel",
+          "vectors", "decode", "classic", "warmup", "train", "swin_kernel",
           "swin_main", "swin_large", "swin_numbers", "ladder", "mxu")
 KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder", "rdb_ladder_tc",
                   "matmul_chain")
@@ -1024,6 +1032,7 @@ def device_breakdown(fn, top: int = 8) -> dict:
     device_ms = sum(r[0] for r in rows)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
+            "launches": sum(r[1] for r in rows),
             "top": [{"kernel": k[:120], "ms": ms, "calls": n,
                      "share_of_device": ms / device_ms if device_ms else None}
                     for ms, n, k in rows[:top]]}
@@ -3406,6 +3415,270 @@ def phase_warmup(state):
     state["warmup_launches"] = total
 
 
+# --- training: cli.train at full width, resume, serving what was trained ---
+
+# The full-width trainer's shape (realesrgan_x4: 23 blocks, 64/32) and
+# swinir_x4's (SwinIR-M)
+TRAIN_RRDB = ["--blocks", "23", "--feat", "64", "--grow", "32",
+              "--batch", "16", "--crop", "48", "--chunk", "32",
+              "--steps", "64", "--pool", "48"]
+TRAIN_SWIN = ["--family", "swinir", "--embed-dim", "180",
+              "--depths", "6,6,6,6,6,6", "--heads", "6,6,6,6,6,6",
+              "--window", "8", "--batch", "16", "--crop", "48",
+              "--chunk", "4", "--steps", "8", "--pool", "8"]
+TRAIN_DEGRADE = ["--blur-sigma", "1.0", "--noise-std", "0.01",
+                 "--jpeg", "30,95"]
+# One forward of RRDBNet-23 ×4 per LR pixel: 69 RDBs, conv_first and
+# conv_body at 1×, the phase-split up-convs at 1× and 2×, conv_hr and
+# conv_last at 4×
+RRDB_FWD_FLOP_PER_PIXEL = (69 * RDB_FLOP_PER_PIXEL + 2 * 9 * 3 * 64
+                           + 2 * 9 * 64 * 64 + 5 * 2 * 9 * 64 * 256
+                           + 16 * 2 * 9 * 64 * 64 + 16 * 2 * 9 * 64 * 3)
+
+# Save at step 4 of 8, resume, run to 8, against an unbroken run, under
+# torch's deterministic algorithms (warnings name any op without one);
+# one JSON line
+RESUME_CHILD = r"""
+import json, sys, warnings
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+torch.backends.cudnn.benchmark = False
+from s2sr_tpu_torch.models.weights import tree_flatten
+from s2sr_tpu_torch.training.checkpoint import CheckpointManager
+from s2sr_tpu_torch.training.train import (TrainConfig, init_training,
+    make_chunked_train_step, make_pool_sampler, restore_flexible)
+cfg = TrainConfig(num_block=2, lr_decay_steps=8, ema_decay=0.999)
+g = torch.Generator().manual_seed(0)
+pool = torch.rand(4, 192, 192, 3, generator=g).cuda()
+sample = make_pool_sampler(4, 32, 4, blur_sigma=1.0, noise_std=0.01,
+                           jpeg_range=(30.0, 95.0))
+gen = torch.Generator(device="cuda").manual_seed(0)
+lr, hr = (torch.stack(t) for t in zip(*[sample(pool, gen) for _ in range(8)]))
+run, _ = make_chunked_train_step(cfg)
+with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    p0, o0 = init_training(cfg, seed=0, device="cuda")
+    pa, oa, la = run(p0, o0, lr, hr)
+    pb, ob, lb1 = run(p0, o0, lr[:4], hr[:4])
+    mgr = CheckpointManager(sys.argv[1])
+    mgr.save(4, pb, ob)
+    pb, ob, step, ok = restore_flexible(mgr, cfg, device="cuda")
+    pb, ob, lb2 = run(pb, ob, lr[4:], hr[4:])
+    torch.cuda.synchronize()
+lb = torch.cat([lb1, lb2])
+pairs = [(la, lb)] + [
+    (x, y) for a, b in ((pa, pb), (oa.mu, ob.mu), (oa.nu, ob.nu),
+                        (oa.ema, ob.ema))
+    for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0])]
+rel = max(float((x.float() - y.float()).abs().max()
+                / y.float().abs().max().clamp_min(1e-30)) for x, y in pairs)
+print(json.dumps({
+    "restored_step": step, "opt_restored": ok,
+    "bit_equal": all(torch.equal(x, y) for x, y in pairs),
+    "max_rel_diff": rel, "losses_unbroken": la.tolist(),
+    "losses_resumed": lb.tolist(),
+    "nondeterministic_ops": sorted({str(w.message)[:160] for w in caught
+                                    if "deterministic" in str(w.message)})}))
+"""
+
+
+def train_cli(args: list, work: Path, label: str, card: str) -> dict:
+    """``cli.train`` in a child process on the card: its steady steps/s,
+    peak device memory and every step's loss (``--loss-log``)."""
+    import re
+
+    import numpy as np
+
+    log = work / f"{label}.losses"
+    secs, out = run_cli(["s2sr_tpu_torch.cli.train", *args,
+                         "--ckpt-dir", str(work / label),
+                         "--loss-log", str(log)], work, child_env(),
+                        timeout=900)
+    losses = [float(v) for v in log.read_text().split()]
+    rates = re.findall(r"\(([0-9.]+) steps/s\)", out)
+    peak = int(re.search(r"peak device memory: (\d+) bytes", out).group(1))
+    head = next(ln for ln in out.splitlines() if ln.startswith("training:"))
+    rec = {"phase": "train", "run": label, "seconds": round(secs, 3),
+           "config": head, "steps": len(losses),
+           "steps_per_s": float(rates[-1]) if rates else None,
+           "peak_memory_bytes": peak, "first_losses": losses[:4],
+           "last_losses": losses[-4:], "card": card}
+    emit(rec)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train {label}: a loss is not finite")
+    rec["losses"] = losses
+    return rec
+
+
+def phase_train(state):
+    """Training on the card (``s2sr_tpu_torch.training``, no kernel of
+    its own: cuDNN's convolutions and PyTorch's autograd, as JAX training
+    runs XLA's): (1) one float32 step of a 2-block 64/32 model on the card
+    against the same step on the CPU, then four full-width steps under
+    ``torch.profiler``; (2) ``cli.train`` at full width
+    (23 blocks, 64/32, ×4, batch 16, LR crop 48, bf16, the device
+    pipeline, chunk 32, 64 steps on the synthetic pool) with remat and the
+    blur/noise/JPEG degradations, and without remat: loss finite and the
+    mean of the last 16 losses below that of the first 16, steps/s and
+    peak memory; (3) SwinIR at swinir_x4's width, 8 steps; (4) save,
+    resume and run on against an unbroken run under deterministic
+    algorithms (bit-equal, or the ops without one named and the runs held
+    within 1e-6); (5) the remat run's checkpoint exported by
+    ``convert_weights --from-ckpt`` and served by ``SREngine`` on
+    ``realesrgan_x4``, its RDBs in the ``rdb`` kernel (launches counted),
+    held within the bf16 tolerance of ``rrdbnet_apply`` on the same
+    weights, and ``cli.evaluate`` on its output."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models.engine import SREngine
+    from s2sr_tpu_torch.models.rrdbnet import rrdbnet_apply
+    from s2sr_tpu_torch.models.weights import (load_npz_tree, tree_flatten,
+                                               tree_to_torch, tree_unflatten)
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.tiles.png import encode_png
+    from s2sr_tpu_torch.training.train import (TrainConfig, init_training,
+                                               make_device_pool_train_step,
+                                               make_train_step)
+
+    card = state.get("card") or card_line()
+    work = state["work"] / "train"
+    work.mkdir()
+
+    # (1) float32: card against CPU, one step
+    cfg = TrainConfig(num_block=2, dtype="float32", learning_rate=1e-4)
+    params, opt = init_training(cfg, seed=0, device="cpu")
+    hr = np.stack([synthetic_fields((64, 64), seed=s) for s in (1, 2)])
+    hr = torch.from_numpy(hr.astype(np.float32) / 255.0)
+    lr = hr.reshape(2, 16, 4, 16, 4, 3).mean((2, 4))
+    step, _ = make_train_step(cfg)
+    p_cpu, _, l_cpu = step(params, opt, lr, hr)
+    to_card = [t.cuda() for t in tree_flatten(params)[0]]
+    p_card, _, l_card = step(tree_unflatten(tree_flatten(params)[1], to_card),
+                             opt.to("cuda"), lr.cuda(), hr.cuda())
+    loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    p_err = max(float((a.cpu() - b).abs().max()) for a, b in
+                zip(tree_flatten(p_card)[0], tree_flatten(p_cpu)[0]))
+    emit({"phase": "train", "check": "float32 step card vs CPU",
+          "model": "2 blocks, 64/32, x4", "batch": [2, 16, 16],
+          "loss_cpu": float(l_cpu), "loss_rel_err": loss_rel,
+          "params_max_abs_err": p_err, "tol": 1e-5, "card": card})
+    if not (loss_rel <= 1e-5 and p_err <= 1e-5):
+        raise AssertionError(f"float32 step: loss {loss_rel}, params {p_err}")
+
+    # where a full-width step's time goes: 4 warm steps in this process
+    # (cuDNN's benchmark mode, as the CLI sets it) under torch.profiler
+    bench0 = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    cfg = TrainConfig(remat=True, lr_decay_steps=64)
+    params, opt = init_training(cfg, seed=0, device="cuda")
+    pool = torch.from_numpy(np.stack([
+        synthetic_fields((384, 384), seed=1 + i) for i in range(8)
+    ]).astype(np.float32) / 255.0).cuda()
+    run, _ = make_device_pool_train_step(cfg, 48, 16, 4)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state_ = {"p": params, "o": opt}
+
+    def steps():
+        state_["p"], state_["o"], _ = run(state_["p"], state_["o"], pool, gen)
+
+    steps()
+    prof = device_breakdown(steps, top=6)
+    torch.backends.cudnn.benchmark = bench0
+    emit({"phase": "train", "check": "full-width step under the profiler",
+          "steps": 4, "step_ms": prof["wall_ms"] / 4,
+          "device_ms_per_step": prof["device_ms"] / 4,
+          "device_busy_share": prof["device_busy_share"],
+          "kernel_launches_per_step": prof["launches"] / 4,
+          "top": prof["top"], "card": card})
+    del state_, pool
+
+    # (2) full width
+    full = {}
+    for label, extra in (("remat_degrade", ["--remat", *TRAIN_DEGRADE]),
+                         ("no_remat", ["--no-remat"])):
+        rec = full[label] = train_cli(TRAIN_RRDB + extra, work, label, card)
+        losses = rec["losses"]
+        first, last = np.mean(losses[:16]), np.mean(losses[-16:])
+        flop = 16 * 48 * 48 * RRDB_FWD_FLOP_PER_PIXEL * (
+            4 if label.startswith("remat") else 3)
+        emit({"phase": "train", "run": label, "mean_first_16": first,
+              "mean_last_16": last, "step_tflop": flop / 1e12,
+              "step_ms": (1e3 / rec["steps_per_s"]
+                          if rec["steps_per_s"] else None),
+              "bound_ms": flop / PEAK_BF16_FLOPS * 1e3, "card": card})
+        if not (len(losses) == 64 and last < first):
+            raise AssertionError(f"train {label}: loss did not fall "
+                                 f"({first} → {last})")
+
+    # (3) SwinIR at swinir_x4's width
+    swin = train_cli(TRAIN_SWIN, work, "swinir_x4", card)
+    if swin["steps"] != 8:
+        raise AssertionError(f"swinir: {swin['steps']} steps")
+
+    # (4) resume against an unbroken run, deterministic algorithms
+    env = child_env(CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, "-c", RESUME_CHILD,
+                          str(work / "resume")], cwd=work, env=env,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"resume child failed: {out.stderr[-3000:]}")
+    res = _json.loads(out.stdout.strip().splitlines()[-1])
+    emit({"phase": "train", "check": "resume at 4 of 8 vs unbroken",
+          **res, "card": card})
+    if not (res["restored_step"] == 4 and res["opt_restored"]
+            and (res["bit_equal"] or (res["nondeterministic_ops"]
+                                      and res["max_rel_diff"] <= 1e-6))):
+        raise AssertionError(f"resume: {res}")
+
+    # (5) serve what was trained
+    wdir = work / "weights"
+    secs, out = run_cli(["s2sr_tpu_torch.cli.convert_weights", "--from-ckpt",
+                         str(work / "remat_degrade"), "--model-name",
+                         "realesrgan_x4", "-o",
+                         str(wdir / "realesrgan_x4.npz")], work, child_env(),
+                        timeout=300)
+    scene = synthetic_fields((128, 128), seed=77)
+    small = scene.reshape(32, 4, 32, 4, 3).mean((1, 3)).round().astype(
+        np.uint8)
+    rdb_mod.LAUNCHES = 0
+    eng = SREngine("realesrgan_x4", weights_dir=str(wdir), device="cuda")
+    sr = eng.enhance(small)
+    torch.cuda.synchronize()
+    launches = rdb_mod.LAUNCHES
+    state["train_launches"] = launches
+    if not (eng.pretrained and launches >= 69 and sr.shape == scene.shape):
+        raise AssertionError(f"serving the trained weights: pretrained "
+                             f"{eng.pretrained}, rdb launches {launches}, "
+                             f"shape {sr.shape}")
+    x = torch.from_numpy(small).float().cuda()[None] / 255.0
+    tree = tree_to_torch(load_npz_tree(wdir / "realesrgan_x4.npz"), "cuda")
+    with torch.no_grad():
+        got = eng.model(x)
+        want = rrdbnet_apply(tree, x, scale=4, dtype=torch.bfloat16)
+    rdb_mod.LAUNCHES = launches
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    (work / "sr.png").write_bytes(encode_png(sr))
+    (work / "hr.png").write_bytes(encode_png(scene))
+    _, ev = run_cli(["s2sr_tpu_torch.cli.evaluate", str(work / "sr.png"),
+                     str(work / "hr.png")], work, child_env(), timeout=300)
+    emit({"phase": "train", "check": "trained weights served",
+          "export_seconds": round(secs, 3), "rdb_launches": launches,
+          "pretrained": eng.pretrained, "kernel_vs_rrdbnet_apply_rel": rel,
+          "tol_bf16": 0.1, "evaluate_sr_vs_hr": _json.loads(
+              ev.strip().splitlines()[-1]), "card": card})
+    if not (np.isfinite(scale) and rel <= 0.1):
+        raise AssertionError(f"served model vs rrdbnet_apply: {rel}")
+    state["train"] = {"full": {k: {kk: v[kk] for kk in (
+        "steps_per_s", "peak_memory_bytes")} for k, v in full.items()},
+        "swinir": {kk: swin[kk] for kk in ("steps_per_s",
+                                            "peak_memory_bytes")}}
+
+
 # --- SwinIR: swin_block and window_attention ------------------------------
 
 # Per token of one Swin block (C 180, 6 heads of 30, 64-token windows,
@@ -4515,7 +4788,8 @@ def kernels_record(state) -> list | None:
     rows = [{"name": "rdb", "route": "cuda",
              "source": "s2sr_tpu_torch/csrc/rdb.cu",
              "replaces": "s2sr_tpu/ops/pallas/fused_rdb_v4.py:234",
-             "launches": state["main_launches"] + warm.get("rdb", 0),
+             "launches": (state["main_launches"] + warm.get("rdb", 0)
+                          + state.get("train_launches", 0)),
              "max_abs_err": state["rdb_max_abs_err"],
              "rel_err": state["rdb_rel_err"],
              **state["rdb_numbers"], "library_ms": None},

@@ -18,13 +18,22 @@ so a ``.pth`` state dict loads as it is.
 - ``mask`` (N, H, W[, 1]) of 0/1 re-zeroes every conv input outside the
   true rectangle, so a zero-padded bucket computes exactly the unpadded
   forward on it.
+
+:func:`rrdbnet_apply` is the functional, differentiable forward the
+trainer runs: any width, on a param tree in the JAX package's layout
+(HWIO kernels, the RRDB stack on a leading ``body`` axis), its residual
+dense blocks in plain ``F.conv2d`` (the kernel has no backward, as JAX
+training runs XLA's convs), each RRDB block optionally rematerialised.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.rdb import G, NF, pack_rdb_weights, rdb, rdb_i8
 from ..utils.precision import ieee_fp32
@@ -231,4 +240,124 @@ class RRDBNet(nn.Module):
             out = torch.cat(outs, 0)
         else:
             out = self._upsample(feat, m2, m4)
+        return out.permute(0, 2, 3, 1)
+
+
+# --- the functional forward (training) -----------------------------------
+
+class _Conv(NamedTuple):
+    """One conv's OIHW weight and bias, as ``_conv`` reads them."""
+
+    weight: torch.Tensor
+    bias: torch.Tensor
+
+
+def _oihw(p: dict) -> _Conv:
+    """A JAX-layout conv ``{"kernel": HWIO, "bias"}`` as OIHW views."""
+    return _Conv(p["kernel"].permute(3, 2, 0, 1), p["bias"])
+
+
+def _pack_body(body: dict, dtype) -> list:
+    """Per block and RDB, the per-source wide kernels of
+    ``rrdbnet.py::_rdb_packed`` (``wx``: conv5..conv1's x slices → the
+    accumulator ``[a5|a4|a3|a2|a1]``; ``w1``..``w4`` likewise) and the
+    five biases, in ``dtype``, built once over the stacked block axis:
+    casting and slicing commute, so these are the values a per-conv cast
+    gives."""
+    blocks = None
+    for name, convs in body.items():
+        k = {i: convs[f"conv{i}"]["kernel"].to(dtype).permute(0, 4, 3, 1, 2)
+             for i in range(1, 6)}                  # (nb, O, I, 3, 3)
+        g, nf = k[1].shape[1], k[1].shape[2]
+
+        def wide(lo, hi, srcs):
+            return torch.cat([k[i][:, :, lo:hi] for i in srcs], 1).unbind(0)
+
+        ws = (wide(0, nf, (5, 4, 3, 2, 1)), wide(nf, nf + g, (5, 4, 3, 2)),
+              wide(nf + g, nf + 2 * g, (5, 4, 3)),
+              wide(nf + 2 * g, nf + 3 * g, (5, 4)),
+              wide(nf + 3 * g, nf + 4 * g, (5,)))
+        bs = [convs[f"conv{i}"]["bias"].to(dtype)[:, None, :, None, None]
+              .unbind(0) for i in range(1, 6)]
+        if blocks is None:
+            blocks = [dict() for _ in ws[0]]
+        for j, blk in enumerate(blocks):
+            blk[name] = ([w[j] for w in ws], [b[j] for b in bs])
+    return blocks
+
+
+def _rdb_train(x: torch.Tensor, ws: list, bs: list, slope: float,
+               mk=None) -> torch.Tensor:
+    """One RDB (NCHW, in the weights' dtype) in ``_rdb_packed``'s order:
+    the accumulator's 32-lane tail consumed per stage."""
+    g = bs[0].shape[1]
+
+    def lrelu(t):
+        return torch.where(t >= 0, t, t * slope)
+
+    def m(t):
+        return t if mk is None else t * mk
+
+    acc = F.conv2d(x, ws[0], padding=1)
+    for k in range(1, 5):
+        xk = m(lrelu(acc[:, -g:] + bs[k - 1]))
+        acc = acc[:, :-g] + F.conv2d(xk, ws[k], padding=1)
+    return m((acc + bs[4]) * slope + x)
+
+
+def _rrdb_block(x: torch.Tensor, blk: dict, slope: float,
+                mk=None) -> torch.Tensor:
+    out = x
+    for name in ("rdb1", "rdb2", "rdb3"):
+        out = _rdb_train(out, *blk[name], slope, mk)
+    return out * slope + x
+
+
+def rrdbnet_apply(params: dict, x: torch.Tensor, scale: int = 4,
+                  dtype: torch.dtype = torch.bfloat16, remat: bool = False,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(N, H, W, C) float in [0, 1] → (N, sH, sW, C) float32 through the
+    param tree ``params`` (the JAX layout: ``conv_first``, ``body`` with
+    every leaf stacked over blocks, ``conv_body``, ``conv_up1``,
+    ``conv_up2``, ``conv_hr``, ``conv_last``; HWIO kernels), differentiable
+    in both. Each conv reads its input and weights in ``dtype``; float32
+    runs with TF32 off. ``remat`` recomputes each RRDB block's
+    activations in the backward pass instead of keeping them. ``mask``
+    (N, H, W[, 1]) of 0/1 makes a zero-padded bucket compute the unpadded
+    forward on the true rectangle."""
+    with ieee_fp32(dtype == torch.float32):
+        n, h, w, _ = x.shape
+        xc = x.permute(0, 3, 1, 2)
+        mk = None if mask is None else mask.reshape(n, 1, h, w).to(dtype)
+        # 0.2 in the compute dtype, as JAX's weakly typed constant rounds
+        slope = float(torch.tensor(0.2, dtype=dtype))
+
+        def m(t):
+            return t if mk is None else t * mk
+
+        feat = m(_conv(xc, _oihw(params["conv_first"]), dtype))
+        out = feat
+        for blk in _pack_body(params["body"], dtype):
+            if remat and torch.is_grad_enabled():
+                out = checkpoint(_rrdb_block, out, blk, slope, mk,
+                                 use_reentrant=False)
+            else:
+                out = _rrdb_block(out, blk, slope, mk)
+        feat = m(feat + _conv(out, _oihw(params["conv_body"]), dtype))
+        m2 = m4 = None
+        if mk is not None:
+            m2 = _nearest_x2(mk)
+            m4 = _nearest_x2(m2)
+        mtop = m4 if scale == 4 else m2
+        f = _lrelu(_up_conv_fused(feat, _oihw(params["conv_up1"]), dtype))
+        if m2 is not None:
+            f = f * m2
+        if scale == 4:
+            f = _lrelu(_up_conv_fused(f, _oihw(params["conv_up2"]), dtype))
+            if m4 is not None:
+                f = f * m4
+        f = _lrelu(_conv(f, _oihw(params["conv_hr"]), dtype))
+        if mtop is not None:
+            f = f * mtop
+        out = _conv(f, _oihw(params["conv_last"]), dtype).float()
         return out.permute(0, 2, 3, 1)

@@ -27,6 +27,12 @@ dict loads with ``load_state_dict``.
   ``F.pad(mode="reflect")`` raises).
 - The DIV2K mean is subtracted before and added after, scaled by
   ``img_range`` (the weights were trained with it).
+
+:func:`swinir_apply` is the functional, differentiable forward the
+trainer runs on a param tree in the JAX package's layout: every block in
+plain ``torch`` (the kernels have no backward; JAX training pins its XLA
+attention, ``fused_attn="0"``), each residual group optionally
+rematerialised.
 """
 
 from __future__ import annotations
@@ -37,15 +43,19 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.window_attention import (
     build_block_tables,
     gelu,
     layer_norm,
+    relative_position_index,
+    shift_mask,
     swin_block,
     window_attention,
 )
 from ..utils.precision import ieee_fp32
+from .weights import tree_map
 
 # "block": the whole Swin block in one kernel launch; "attn": the
 # attention-only kernel, the MLP in plain torch
@@ -294,3 +304,126 @@ class SwinIR(nn.Module):
             out = self._tail(feat)
         out = out.permute(0, 2, 3, 1).float() / self.img_range + mean
         return out[:, :h0 * self.scale, :w0 * self.scale]
+
+
+# --- the functional forward (training) -----------------------------------
+
+def _ln(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with float32 statistics, output in ``x.dtype``."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+    out = ((xf - mean) * torch.rsqrt(var + eps) * p["weight"].float()
+           + p["bias"].float())
+    return out.to(x.dtype)
+
+
+def _lin(x: torch.Tensor, p: dict) -> torch.Tensor:
+    return x @ p["weight"] + p["bias"]
+
+
+def _conv_hwio(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """3×3 SAME conv of an NHWC map with a HWIO kernel, as NHWC."""
+    out = F.conv2d(x.permute(0, 3, 1, 2), p["kernel"].permute(3, 2, 0, 1),
+                   padding=1)
+    return (out + p["bias"].view(1, -1, 1, 1)).permute(0, 2, 3, 1)
+
+
+def _attention_train(x, p, heads: int, bias_idx, mask):
+    """Window attention over (B·nW, N, C) windows, as JAX's unfused path
+    computes it (windows unpaired: a pair's cross terms weigh exactly 0)."""
+    bw, n, c = x.shape
+    hd = c // heads
+    qkv = _lin(x, p["qkv"]).reshape(bw, n, 3, heads, hd)
+    q, k, v = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+    q = q * (hd ** -0.5)
+    attn = q @ k.transpose(-1, -2)
+    bias = p["relative_position_bias_table"][bias_idx]      # (N, N, heads)
+    attn = attn + bias.permute(2, 0, 1)[None].to(attn.dtype)
+    if mask is not None:
+        nw = mask.shape[0]
+        attn = (attn.reshape(-1, nw, heads, n, n)
+                + mask[None, :, None].to(attn.dtype)).reshape(bw, heads, n, n)
+    attn = torch.softmax(attn, -1).to(v.dtype)
+    out = (attn @ v).transpose(1, 2).reshape(bw, n, c)
+    return _lin(out, p["proj"])
+
+
+def _swin_block_train(x, p, h, w, heads, window, shift, bias_idx, mask):
+    b, _, c = x.shape
+    y = _ln(x, p["norm1"]).reshape(b, h, w, c)
+    if shift:
+        y = torch.roll(y, (-shift, -shift), (1, 2))
+    win = y.reshape(b, h // window, window, w // window, window, c)
+    win = win.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
+    a = _attention_train(win, p["attn"], heads, bias_idx,
+                         mask if shift else None)
+    y = a.reshape(b, h // window, w // window, window, window, c)
+    y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+    if shift:
+        y = torch.roll(y, (shift, shift), (1, 2))
+    x = x + y.reshape(b, h * w, c)
+    y = _ln(x, p["norm2"])
+    y = _lin(F.gelu(_lin(y, p["mlp"]["fc1"]),
+                    approximate="tanh" if x.dtype == torch.bfloat16
+                    else "none"), p["mlp"]["fc2"])
+    return x + y
+
+
+def _rstb_train(x, layer, h, w, heads, window, bias_idx, mask):
+    y = x
+    for i, blk in enumerate(layer["blocks"]):
+        y = _swin_block_train(y, blk, h, w, heads, window,
+                              0 if i % 2 == 0 else window // 2,
+                              bias_idx, mask)
+    img = _conv_hwio(y.reshape(x.shape[0], h, w, -1), layer["conv"])
+    return x + img.reshape(x.shape)
+
+
+def swinir_apply(params: dict, x: torch.Tensor, scale: int = 4,
+                 num_heads=(6,) * 6, window_size: int = 8,
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 img_range: float = 1.0) -> torch.Tensor:
+    """(B, H, W, 3) in [0, 1] → (B, sH, sW, 3) float32 through the JAX
+    layout's SwinIR tree (``conv_first``, ``norm_embed``, ``layers`` of
+    ``blocks`` and ``conv``, ``norm``, ``conv_after_body``,
+    ``conv_before_upsample``, ``upsample``, ``conv_last``), differentiable
+    in both. The tree is cast to ``dtype`` once, LayerNorm statistics are
+    float32, GELU is tanh in bf16 and erf in float32; float32 runs with
+    TF32 off. ``remat`` recomputes each residual group's activations in
+    the backward pass."""
+    with ieee_fp32(dtype == torch.float32):
+        w = window_size
+        _, h0, w0, _ = x.shape
+        x = reflect_pad(x.float(), (w - h0 % w) % w, (w - w0 % w) % w)
+        b, h, ww, _ = x.shape
+        mean = torch.tensor(DIV2K_MEAN, device=x.device)
+        x = ((x - mean) * img_range).to(dtype)
+        if dtype != torch.float32:
+            params = tree_map(lambda a: a.to(dtype), params)
+        bias_idx = torch.from_numpy(relative_position_index(w)).to(x.device)
+        mask = torch.from_numpy(shift_mask(h, ww, w, w // 2)).to(x.device)
+
+        feat = _conv_hwio(x, params["conv_first"])
+        tokens = _ln(feat.reshape(b, h * ww, -1), params["norm_embed"])
+        for layer, heads in zip(params["layers"], num_heads):
+            if remat and torch.is_grad_enabled():
+                tokens = checkpoint(_rstb_train, tokens, layer, h, ww, heads,
+                                    w, bias_idx, mask, use_reentrant=False)
+            else:
+                tokens = _rstb_train(tokens, layer, h, ww, heads, w,
+                                     bias_idx, mask)
+        body = _ln(tokens, params["norm"]).reshape(b, h, ww, -1)
+        feat = feat + _conv_hwio(body, params["conv_after_body"])
+
+        f = F.leaky_relu(_conv_hwio(feat, params["conv_before_upsample"]),
+                         0.01)
+        s = scale
+        for up in params["upsample"]:
+            factor = 2 if s % 2 == 0 else 3
+            f = _conv_hwio(f, up).permute(0, 3, 1, 2)
+            f = F.pixel_shuffle(f, factor).permute(0, 2, 3, 1)
+            s = s // 2 if factor == 2 else 1
+        out = _conv_hwio(f, params["conv_last"])
+        out = out.float() / img_range + mean
+        return out[:, :h0 * scale, :w0 * scale]

@@ -10,11 +10,15 @@ its ``.npz`` files (the same tree flattened with ``/`` keys) map over
 with :func:`params_from_jax`, :func:`params_from_jax_swinir` and
 :func:`params_from_jax_classic`; :func:`convert_checkpoint` writes a
 released RRDBNet ``.pth`` as that ``.npz`` (:func:`save_params`), so
-either package loads what the other wrote. No download happens here.
+either package loads what the other wrote. :func:`download_weights`
+fetches a released RRDBNet ``.pth`` from the registry's URL when
+``Settings.offline`` is False (:func:`resolve_params`), and
+:func:`train_state_from_jax` carries a JAX training state across.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from pathlib import Path
 from typing import Any, Dict, Mapping
@@ -166,6 +170,101 @@ def load_npz_tree(path: Path | str) -> dict:
 def load_params(path: Path | str) -> StateDict:
     """A JAX-layout rrdbnet ``.npz`` → the port's state dict."""
     return params_from_jax(load_npz_tree(path))
+
+
+# --- param trees (training) --------------------------------------------
+
+def tree_flatten(tree) -> tuple:
+    """A nested dict/list tree → (leaves in key order, structure)."""
+    if isinstance(tree, dict):
+        leaves, defs = [], []
+        for k, v in tree.items():
+            lv, d = tree_flatten(v)
+            leaves += lv
+            defs.append((k, d))
+        return leaves, ("dict", defs)
+    if isinstance(tree, (list, tuple)):
+        leaves, defs = [], []
+        for v in tree:
+            lv, d = tree_flatten(v)
+            leaves += lv
+            defs.append(d)
+        return leaves, ("list", defs)
+    return [tree], None
+
+
+def tree_unflatten(struct, leaves) -> Any:
+    """Inverse of :func:`tree_flatten`."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return next(it)
+        kind, defs = d
+        if kind == "dict":
+            return {k: build(sub) for k, sub in defs}
+        return [build(sub) for sub in defs]
+
+    return build(struct)
+
+
+def tree_map(fn, tree, *rest) -> Any:
+    """``fn`` over the leaves of ``tree`` (and of same-structured
+    ``rest``), keeping the structure."""
+    leaves, struct = tree_flatten(tree)
+    others = [tree_flatten(t)[0] for t in rest]
+    return tree_unflatten(struct, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_to_torch(tree, device="cpu") -> Any:
+    """A tree of arrays → float32 tensors on ``device`` (copies)."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,
+                                           device=device), tree)
+
+
+def tree_to_numpy(tree) -> Any:
+    """A tree of tensors → numpy arrays on the host."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def train_state_from_jax(params, opt_state, device="cpu") -> tuple:
+    """A JAX training state, ``(params, optax state)`` with numpy leaves,
+    → the port's ``(params, OptState)`` on ``device``: the Adam moments
+    and count (``ScaleByAdamState``), the schedule count
+    (``ScaleByScheduleState``) and the weight EMA (``EmaState``) found
+    by kind anywhere in the state's nested tuples."""
+    from ..training.train import OptState
+
+    found: dict = {}
+
+    def walk(s):
+        fields = getattr(s, "_fields", None)
+        if fields is not None and {"count", "mu", "nu"} <= set(fields):
+            found["adam"] = s
+        elif fields is not None and tuple(fields) == ("count",):
+            found["schedule"] = s
+        elif fields is not None and tuple(fields) == ("ema",):
+            found["ema"] = s
+        elif isinstance(s, (tuple, list)):
+            for x in s:
+                walk(x)
+
+    walk(opt_state)
+    if "adam" not in found:
+        raise ValueError("no Adam state (count, mu, nu) in the JAX state")
+    adam = found["adam"]
+
+    def count(c):
+        return torch.tensor(int(np.asarray(c)), dtype=torch.int32,
+                            device=device)
+
+    return tree_to_torch(params, device), OptState(
+        count=count(adam.count), mu=tree_to_torch(adam.mu, device),
+        nu=tree_to_torch(adam.nu, device),
+        schedule_count=(count(found["schedule"].count)
+                        if "schedule" in found else None),
+        ema=(tree_to_torch(found["ema"].ema, device)
+             if "ema" in found else None))
 
 
 # --- classic models (EDSR, ESPCN, LapSRN) ------------------------------
@@ -336,6 +435,52 @@ def params_from_jax_swinir(tree: Mapping[str, Any]) -> StateDict:
     return sd
 
 
+def swinir_tree(sd: Mapping[str, Any], depths) -> dict:
+    """The port's SwinIR state dict → the JAX package's param tree of
+    numpy arrays (HWIO kernels, Linear weights (in, out)): the inverse of
+    :func:`params_from_jax_swinir`."""
+    def arr(name):
+        v = sd[name]
+        return (v.detach().cpu().float().numpy() if torch.is_tensor(v)
+                else np.asarray(v, np.float32))
+
+    def conv(name):
+        return {"kernel": np.ascontiguousarray(
+            np.transpose(arr(f"{name}.weight"), (2, 3, 1, 0))),
+            "bias": arr(f"{name}.bias")}
+
+    def lin(name):
+        return {"weight": np.ascontiguousarray(arr(f"{name}.weight").T),
+                "bias": arr(f"{name}.bias")}
+
+    def norm(name):
+        return {"weight": arr(f"{name}.weight"), "bias": arr(f"{name}.bias")}
+
+    layers = []
+    for li, depth in enumerate(depths):
+        blocks = []
+        for bi in range(depth):
+            pre = f"layers.{li}.residual_group.blocks.{bi}"
+            blocks.append({
+                "norm1": norm(f"{pre}.norm1"),
+                "attn": {"qkv": lin(f"{pre}.attn.qkv"),
+                         "proj": lin(f"{pre}.attn.proj"),
+                         "relative_position_bias_table": arr(
+                             f"{pre}.attn.relative_position_bias_table")},
+                "norm2": norm(f"{pre}.norm2"),
+                "mlp": {"fc1": lin(f"{pre}.mlp.fc1"),
+                        "fc2": lin(f"{pre}.mlp.fc2")}})
+        layers.append({"blocks": blocks, "conv": conv(f"layers.{li}.conv")})
+    ups = []
+    while f"upsample.{2 * len(ups)}.weight" in sd:
+        ups.append(conv(f"upsample.{2 * len(ups)}"))
+    return {"conv_first": conv("conv_first"),
+            "norm_embed": norm("patch_embed.norm"), "layers": layers,
+            "norm": norm("norm"), "conv_after_body": conv("conv_after_body"),
+            "conv_before_upsample": conv("conv_before_upsample.0"),
+            "conv_last": conv("conv_last"), "upsample": ups}
+
+
 def _trunc_normal(shape, g: torch.Generator, std: float) -> torch.Tensor:
     """Normal(0, std) truncated to ±2 std by redrawing (jax.random.
     truncated_normal(-2, 2) · std)."""
@@ -408,11 +553,54 @@ def swinir_kwargs(config: Mapping[str, Any]) -> dict:
             "window_size": config["window_size"]}
 
 
+def download_weights(model_name: str, dest_dir: Path | str,
+                     url: str | None = None,
+                     timeout: float = 120.0) -> Path:
+    """Download the released checkpoint on first use (cache keyed by the
+    model's name; fetch the registry's URL when absent) → the cached
+    ``.pth`` path. Written to ``.pth.partial`` and renamed, so a reader
+    never sees a torn file. Raises on a network failure: callers gate on
+    ``Settings.offline`` and fall back to random init loudly."""
+    from .registry import get_model_config
+
+    if url is None:
+        url = get_model_config(model_name).get("url")
+    if not url:
+        raise ValueError(f"no release URL registered for {model_name}")
+    dest_dir = Path(dest_dir)
+    dest_dir.mkdir(parents=True, exist_ok=True)
+    dest = dest_dir / f"{model_name}.pth"
+    if dest.exists():
+        return dest
+
+    import urllib.request
+
+    tmp = dest.with_suffix(".pth.partial")
+    req = urllib.request.Request(url, headers={"User-Agent": "s2sr-tpu/2.0"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp, \
+            open(tmp, "wb") as out:
+        while True:
+            chunk = resp.read(1 << 20)
+            if not chunk:
+                break
+            out.write(chunk)
+    tmp.rename(dest)
+    return dest
+
+
 def resolve_params(model_name: str, weights_dir: Path | str,
-                   seed: int = 0) -> tuple[StateDict, bool]:
-    """A converted ``.npz`` if present, else a released ``.pth``, else
-    the deterministic random init, for either family. Returns
-    ``(state_dict, pretrained)``."""
+                   seed: int = 0,
+                   allow_download: bool | None = None
+                   ) -> tuple[StateDict, bool]:
+    """The weights of ``model_name`` → ``(state_dict, pretrained)``.
+
+    RRDBNet: a converted ``.npz`` if present; else a released ``.pth``,
+    downloaded first from the registry's URL when it is absent and
+    downloads are allowed (``allow_download=None`` reads
+    ``Settings.offline``), converted to the ``.npz`` beside it and loaded
+    from there; else (a failed download is logged as an error) the
+    deterministic random init. SwinIR: the ``.npz``, else the ``.pth``,
+    else the random init; it never downloads."""
     from .registry import get_model_config
 
     config = get_model_config(model_name)
@@ -429,8 +617,21 @@ def resolve_params(model_name: str, weights_dir: Path | str,
                                       seed=seed), False
     if npz.exists():
         return load_params(npz), True
+    if not pth.exists():
+        if allow_download is None:
+            from ..config import get_settings
+
+            allow_download = not get_settings().offline
+        if allow_download and config.get("url"):
+            try:
+                download_weights(model_name, weights_dir)
+            except Exception as exc:  # serve on, loudly
+                logging.getLogger("s2sr_tpu_torch.weights").error(
+                    "weight download failed for %s: %s — falling back to "
+                    "random init", model_name, exc)
     if pth.exists():
-        return convert_rrdbnet_state_dict(load_torch_checkpoint(pth)), True
+        convert_checkpoint(pth, npz)
+        return load_params(npz), True
     return init_state_dict(num_feat=config["channels"],
                            num_block=config["blocks"],
                            num_grow_ch=config["growth"],

@@ -1,11 +1,13 @@
-"""Gaussian blur and weighted add with cv2's uint8 semantics, in PyTorch
-(the port of ``s2sr_tpu/ops/blur.py``).
+"""Gaussian blur, weighted add and unsharp mask with cv2's semantics, in
+PyTorch (the port of ``s2sr_tpu/ops/blur.py``).
 
 - auto kernel size for 8U input: ``ksize = round(σ·3·2 + 1) | 1``,
 - ``BORDER_REFLECT_101`` edges (torch's ``reflect`` pad),
 - cv2's fixed-point u8 path: an 8-bit kernel summing to 256, an exact
   horizontal pass, a vertical accumulation to value·2¹⁶ and a half-up
-  descale. Every sum is an exact integer below 2²⁴ in float32.
+  descale. Every sum is an exact integer below 2²⁴ in float32;
+- :func:`gaussian_blur`: the float32 separable blur (the training
+  degradation), on the tensor's device.
 """
 
 from __future__ import annotations
@@ -58,6 +60,28 @@ def _reflect_pad(x: torch.Tensor, pad: int, dim: int) -> torch.Tensor:
     return t if x.dim() == 3 else t[..., 0]
 
 
+def _reflect101(n: int, pad: int, device) -> torch.Tensor:
+    """Indices of a reflect-101 pad by ``pad`` (< n) on both sides."""
+    i = torch.arange(-pad, n + pad, device=device).abs()
+    return (n - 1) - ((n - 1) - i).abs()
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float,
+                  ksize: Optional[int] = None) -> torch.Tensor:
+    """Separable Gaussian blur of float (..., H, W, C) → float32,
+    reflect-101 borders, the taps summed in order."""
+    if ksize is None:
+        ksize = auto_ksize(sigma)
+    k = gaussian_kernel_1d(ksize, sigma)
+    pad = ksize // 2
+    x = img.float()
+    h, w = x.shape[-3], x.shape[-2]
+    xp = x.index_select(-3, _reflect101(h, pad, x.device))
+    x = sum(xp[..., i:i + h, :, :] * float(k[i]) for i in range(ksize))
+    xp = x.index_select(-2, _reflect101(w, pad, x.device))
+    return sum(xp[..., i:i + w, :] * float(k[i]) for i in range(ksize))
+
+
 def gaussian_blur_u8(img: torch.Tensor, sigma: float,
                      ksize: Optional[int] = None) -> torch.Tensor:
     """uint8 in → uint8 out, cv2.GaussianBlur's fixed-point u8 path."""
@@ -80,3 +104,10 @@ def add_weighted_u8(a: torch.Tensor, alpha: float, b: torch.Tensor,
     """cv2.addWeighted on uint8 (saturating, round-to-nearest)."""
     out = a.float() * alpha + b.float() * beta + gamma
     return torch.round(out).clamp(0, 255).to(torch.uint8)
+
+
+def unsharp_mask_u8(img: torch.Tensor, sigma: float, amount: float,
+                    ksize: Optional[int] = None) -> torch.Tensor:
+    """``addWeighted(img, 1+amount, blur(img), -amount)`` on uint8."""
+    blurred = gaussian_blur_u8(img, sigma, ksize)
+    return add_weighted_u8(img, 1.0 + amount, blurred, -amount)

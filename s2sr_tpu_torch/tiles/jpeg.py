@@ -832,3 +832,191 @@ def _output(frame, coef, jfif, adobe, transform, colour=None) -> np.ndarray:
     if not ycc:
         return np.stack(planes, -1)
     return ycc_to_rgb(*planes)
+
+
+# --- the encoder's lossy half, for a host round trip ---------------------------
+
+_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    np.int64)
+_CHROMA_Q = np.full(64, 99, np.int64)
+_CHROMA_Q[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [
+    17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
+
+
+def quality_tables(quality: int) -> tuple:
+    """``jpeg_set_quality(quality, force_baseline=TRUE)``: the Annex K
+    tables scaled by libjpeg's curve, natural order."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return tuple(np.clip((t * scale + 50) // 100, 1, 255)
+                 for t in (_LUMA_Q, _CHROMA_Q))
+
+
+def _rgb_ycc(rgb: np.ndarray) -> tuple:
+    """``jccolor.c::rgb_ycc_convert``: 16-bit fixed point tables."""
+    def fix(x):
+        return int(x * 65536 + 0.5)
+
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    half, off = 1 << 15, 128 << 16
+    y = (fix(0.29900) * r + fix(0.58700) * g + fix(0.11400) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b
+          + off + half - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b
+          + off + half - 1) >> 16
+    return y, cb, cr
+
+
+def _pad_edge(p: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """``p`` extended to (rows, cols) by replicating its last row and
+    column (``expand_right_edge`` / ``expand_bottom_edge``)."""
+    return np.pad(p, ((0, rows - p.shape[0]), (0, cols - p.shape[1])),
+                  mode="edge")
+
+
+def _h2v2_down(p: np.ndarray) -> np.ndarray:
+    """``jcsample.c::h2v2_downsample``: 2×2 sums with the biases 1, 2, 1,
+    2, … along each output row, shifted down by 2."""
+    s = p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2]
+    bias = 1 + (np.arange(s.shape[1]) & 1)
+    return (s + bias) >> 2
+
+
+def _fdct_1d(v: list, out_shift: int, dc_shift_left: bool) -> list:
+    """One pass of ``jfdctint.c::jpeg_fdct_islow`` on int64 arrays
+    ``v[0..7]``."""
+    f = _FIX
+    tmp0, tmp7 = v[0] + v[7], v[0] - v[7]
+    tmp1, tmp6 = v[1] + v[6], v[1] - v[6]
+    tmp2, tmp5 = v[2] + v[5], v[2] - v[5]
+    tmp3, tmp4 = v[3] + v[4], v[3] - v[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+
+    def descale(x, n):
+        return (x + (1 << (n - 1))) >> n
+
+    out = [None] * 8
+    if dc_shift_left:
+        out[0] = (tmp10 + tmp11) << _PASS1_BITS
+        out[4] = (tmp10 - tmp11) << _PASS1_BITS
+    else:
+        out[0] = descale(tmp10 + tmp11, _PASS1_BITS)
+        out[4] = descale(tmp10 - tmp11, _PASS1_BITS)
+    z1 = (tmp12 + tmp13) * f["0_541196100"]
+    out[2] = descale(z1 + tmp13 * f["0_765366865"], out_shift)
+    out[6] = descale(z1 - tmp12 * f["1_847759065"], out_shift)
+    z1, z2 = tmp4 + tmp7, tmp5 + tmp6
+    z3, z4 = tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * f["1_175875602"]
+    tmp4 = tmp4 * f["0_298631336"]
+    tmp5 = tmp5 * f["2_053119869"]
+    tmp6 = tmp6 * f["3_072711026"]
+    tmp7 = tmp7 * f["1_501321110"]
+    z1 = z1 * -f["0_899976223"]
+    z2 = z2 * -f["2_562915447"]
+    z3 = z3 * -f["1_961570560"] + z5
+    z4 = z4 * -f["0_390180644"] + z5
+    out[7] = descale(tmp4 + z1 + z3, out_shift)
+    out[5] = descale(tmp5 + z2 + z4, out_shift)
+    out[3] = descale(tmp6 + z2 + z3, out_shift)
+    out[1] = descale(tmp7 + z1 + z4, out_shift)
+    return out
+
+
+def fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """libjpeg's accurate integer forward DCT of (N, 8, 8) level-shifted
+    samples → (N, 8, 8) coefficients scaled up by 8."""
+    x = blocks.astype(np.int64)
+    rows = _fdct_1d([x[:, :, k] for k in range(8)],
+                    _CONST_BITS - _PASS1_BITS, True)
+    ws = np.stack(rows, axis=2)
+    cols = _fdct_1d([ws[:, k, :] for k in range(8)],
+                    _CONST_BITS + _PASS1_BITS, False)
+    return np.stack(cols, axis=1)
+
+
+def _reciprocals(divisor: np.ndarray) -> tuple:
+    """``jcdctmgr.c::compute_reciprocal`` for 16-bit DCT elements:
+    (reciprocal, correction, shift) with which ``((|t| + c)·fq) >> r``
+    quantizes."""
+    fq, cs, rs = [], [], []
+    for d in divisor.tolist():
+        if d == 1:
+            fq.append(1)
+            cs.append(0)
+            rs.append(0)
+            continue
+        b = d.bit_length() - 1
+        r = 16 + b
+        q, rem = divmod(1 << r, d)
+        c = d // 2
+        if rem == 0:
+            q >>= 1
+            r -= 1
+        elif rem <= d // 2:
+            c += 1
+        else:
+            q += 1
+        fq.append(q)
+        cs.append(c)
+        rs.append(r)
+    return tuple(np.array(a, np.int64) for a in (fq, cs, rs))
+
+
+def _quantize(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
+    """libjpeg-turbo's quantization of (N, 64) coefficients scaled by 8:
+    the divisors 8·q as reciprocal products, rounding to nearest with
+    ties away from zero."""
+    fq, c, r = _reciprocals(qtable.astype(np.int64) << 3)
+    a = np.abs(coef)
+    q = ((a + c) * fq) >> r
+    return np.where(coef < 0, -q, q)
+
+
+def _encode_plane(plane: np.ndarray, qtable: np.ndarray) -> np.ndarray:
+    """A component plane padded to whole blocks → its quantized
+    coefficients (bh, bw, 64), natural order."""
+    h, w = plane.shape
+    bl = (plane - 128).reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+    coef = fdct_islow(bl.reshape(-1, 8, 8)).reshape(-1, 64)
+    return _quantize(coef, qtable).reshape(h // 8, w // 8, 64)
+
+
+def jpeg_roundtrip(rgb: np.ndarray, quality: int) -> np.ndarray:
+    """(H, W, 3) uint8 RGB → the pixels a baseline 4:2:0 JPEG of it at
+    ``quality`` decodes to, as libjpeg-turbo with its defaults encodes
+    and decodes (OpenCV's ``imencode``/``imdecode``): the fixed-point
+    YCbCr conversion, ``h2v2`` downsampling, the edges replicated to
+    whole blocks, the islow forward DCT and reciprocal quantization; then
+    this module's islow IDCT, fancy upsampling and colour conversion. The
+    entropy stage is lossless and skipped."""
+    rgb = np.asarray(rgb, np.uint8)
+    height, width = rgb.shape[:2]
+    tl, tc = quality_tables(quality)
+    y, cb, cr = _rgb_ycc(rgb)
+    planes = []
+    # luma: full size, padded to its blocks
+    bw, bh = -(-width // 8), -(-height // 8)
+    planes.append((_encode_plane(_pad_edge(y, 8 * bh, 8 * bw), tl),
+                   tl, height, width))
+    # chroma: the input padded to the downsampler's width and to whole row
+    # pairs, 2×2-averaged, then padded to its blocks by row replication
+    dw, dh = -(-width // 2), -(-height // 2)
+    cbw, cbh = -(-dw // 8), -(-dh // 8)
+    for c in (cb, cr):
+        sub = _h2v2_down(_pad_edge(c, 2 * dh, 16 * cbw))
+        planes.append((_encode_plane(_pad_edge(sub, 8 * cbh, 8 * cbw), tc),
+                       tc, dh, dw))
+    out = []
+    for k, (coef, qt, ph, pw) in enumerate(planes):
+        bh_, bw_ = coef.shape[:2]
+        px = idct_islow(coef.reshape(-1, 64), qt).reshape(bh_, bw_, 8, 8)
+        plane = px.transpose(0, 2, 1, 3).reshape(bh_ * 8, bw_ * 8)[:ph, :pw]
+        up = plane if k == 0 else _upsample(plane, 2, 2)
+        out.append(up[:height, :width])
+    return ycc_to_rgb(*out)

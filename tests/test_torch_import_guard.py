@@ -70,7 +70,12 @@ def test_modules_import_with_jax_blocked():
             "s2sr_tpu_torch.pipelines.super_resolution",
             "s2sr_tpu_torch.cli.sr_cli", "s2sr_tpu_torch.cli.convert_weights",
             "s2sr_tpu_torch.cli.warmup",
-            } <= set(mods) and len(mods) >= 105
+            "s2sr_tpu_torch.training", "s2sr_tpu_torch.training.train",
+            "s2sr_tpu_torch.training.data",
+            "s2sr_tpu_torch.training.checkpoint",
+            "s2sr_tpu_torch.cli.train", "s2sr_tpu_torch.cli.evaluate",
+            "s2sr_tpu_torch.ops.jpeg", "s2sr_tpu_torch.utils.metrics",
+            } <= set(mods) and len(mods) >= 113
     code = "\n".join([
         "import sys",
         "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic',"
@@ -99,6 +104,9 @@ def test_modules_import_with_jax_blocked():
         "assert 'decode' in chip_smoke.PHASES",
         "assert 'fetch' in chip_smoke.PHASES",
         "assert {'classic', 'warmup'} <= set(chip_smoke.PHASES)",
+        "assert 'train' in chip_smoke.PHASES",
+        "from s2sr_tpu_torch.training import train",
+        "assert train.make_pool_sampler(2, 16, 2).crop_hr == 32",
         "from s2sr_tpu_torch.ops._build import build_all",
         "from s2sr_tpu_torch.fetch import client, smart_fetch",
         "assert smart_fetch.STAC_URL == client.EARTH_SEARCH",

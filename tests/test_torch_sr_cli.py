@@ -1,6 +1,7 @@
 """The port's remaining CLIs against the JAX package: ``sr_cli`` (modes
 edsr, realesrgan and farm, with ``--tile``), ``convert_weights`` (a
-``.pth`` to JAX's ``.npz``; ``--from-ckpt`` refused) and ``warmup``
+``.pth`` to JAX's ``.npz``; ``--from-ckpt`` without a checkpoint
+refused) and ``warmup``
 (``ops/_build.py::build_all`` and each hot path once), on the CPU."""
 
 import json
@@ -143,6 +144,8 @@ def test_convert_weights_npz_equals_jax(tmp_path, wrap, capsys):
 
 
 def test_convert_weights_from_ckpt_refused(tmp_path, capsys):
+    """``--from-ckpt`` on a directory without a training checkpoint exits
+    non-zero and writes nothing; no source at all is a usage error."""
     from s2sr_tpu_torch.cli import convert_weights
 
     for argv in (["--from-ckpt", str(tmp_path)],
@@ -151,7 +154,7 @@ def test_convert_weights_from_ckpt_refused(tmp_path, capsys):
         with pytest.raises(SystemExit) as exc:
             convert_weights.main(argv)
         assert exc.value.code not in (0, None)
-        assert "item 15" in str(exc.value.code)
+        assert "no checkpoints" in str(exc.value.code)
     assert not list(tmp_path.iterdir())
     with pytest.raises(SystemExit) as exc:
         convert_weights.main([])
