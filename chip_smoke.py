@@ -65,12 +65,20 @@ random weights from seed 0, each at the full width of its model:
   launches counted in the child (phase warmup);
 - training (``s2sr_tpu_torch.training``, ``cli.train``): one float32
   step card vs CPU, then ``cli.train`` at full width (23 blocks, 64/32,
-  ×4, batch 16, crop 48, bf16, the device pipeline, chunk 32, 64 steps)
+  ×4, batch 16, crop 48, bf16, the device pipeline, chunk 16, 32 steps)
   with remat and the blur/noise/JPEG degradations and without remat,
   SwinIR at ``swinir_x4``'s width, a resume against an unbroken run
   under deterministic algorithms, and the trained checkpoint exported
   (``convert_weights --from-ckpt``) and served by ``SREngine``, its RDBs
   in the ``rdb`` kernel (phase train);
+- the second-order Real-ESRGAN degradation and the GAN trainer
+  (``training/{degradation,gan}.py``, ``cli.train_demo``): the chain and
+  one G+D step card vs CPU on the same draws, the draws' branch
+  frequencies on the card, the sampler's time per batch and the G/D split
+  of a full-width step, ``cli.train_demo`` at full width (32 L1 steps with
+  ``--second-order``, then 32 GAN steps from that checkpoint), and the
+  GAN-tuned weights served by ``SREngine``, its RDBs in the ``rdb``
+  kernel (phase gan);
 - SwinIR serving on ``swinir_x4`` (``process_wow_sr`` on the exact path,
   the halo-tiled engine path, a 3×5 upload, exact 2048² and 2560² images
   with the strip tail held to the whole tail), whose Swin blocks run the
@@ -104,7 +112,7 @@ Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 
 ``--phases`` picks a subset (device, build, kernel, main, numbers,
-fetch, server, vectors, decode, classic, warmup, train, swin_kernel,
+fetch, server, vectors, decode, classic, warmup, train, gan, swin_kernel,
 swin_main, swin_large, swin_numbers, ladder, mxu) for a quick check; the
 default runs them all.
 ``--seed`` seeds the fetched scene's pixels.
@@ -123,8 +131,9 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernel", "main", "numbers", "fetch", "server",
-          "vectors", "decode", "classic", "warmup", "train", "swin_kernel",
-          "swin_main", "swin_large", "swin_numbers", "ladder", "mxu")
+          "vectors", "decode", "classic", "warmup", "train", "gan",
+          "swin_kernel", "swin_main", "swin_large", "swin_numbers", "ladder",
+          "mxu")
 KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder", "rdb_ladder_tc",
                   "matmul_chain")
 
@@ -3420,8 +3429,8 @@ def phase_warmup(state):
 # The full-width trainer's shape (realesrgan_x4: 23 blocks, 64/32) and
 # swinir_x4's (SwinIR-M)
 TRAIN_RRDB = ["--blocks", "23", "--feat", "64", "--grow", "32",
-              "--batch", "16", "--crop", "48", "--chunk", "32",
-              "--steps", "64", "--pool", "48"]
+              "--batch", "16", "--crop", "48", "--chunk", "16",
+              "--steps", "32", "--pool", "16"]
 TRAIN_SWIN = ["--family", "swinir", "--embed-dim", "180",
               "--depths", "6,6,6,6,6,6", "--heads", "6,6,6,6,6,6",
               "--window", "8", "--batch", "16", "--crop", "48",
@@ -3510,24 +3519,12 @@ def train_cli(args: list, work: Path, label: str, card: str) -> dict:
     return rec
 
 
-def phase_train(state):
-    """Training on the card (``s2sr_tpu_torch.training``, no kernel of
-    its own: cuDNN's convolutions and PyTorch's autograd, as JAX training
-    runs XLA's): (1) one float32 step of a 2-block 64/32 model on the card
-    against the same step on the CPU, then four full-width steps under
-    ``torch.profiler``; (2) ``cli.train`` at full width
-    (23 blocks, 64/32, ×4, batch 16, LR crop 48, bf16, the device
-    pipeline, chunk 32, 64 steps on the synthetic pool) with remat and the
-    blur/noise/JPEG degradations, and without remat: loss finite and the
-    mean of the last 16 losses below that of the first 16, steps/s and
-    peak memory; (3) SwinIR at swinir_x4's width, 8 steps; (4) save,
-    resume and run on against an unbroken run under deterministic
-    algorithms (bit-equal, or the ops without one named and the runs held
-    within 1e-6); (5) the remat run's checkpoint exported by
-    ``convert_weights --from-ckpt`` and served by ``SREngine`` on
-    ``realesrgan_x4``, its RDBs in the ``rdb`` kernel (launches counted),
-    held within the bf16 tolerance of ``rrdbnet_apply`` on the same
-    weights, and ``cli.evaluate`` on its output."""
+def serve_checkpoint(ckpt: Path, work: Path, phase: str, card: str) -> int:
+    """A training checkpoint exported by ``convert_weights --from-ckpt`` and
+    served by ``SREngine`` on ``realesrgan_x4``: its RDBs in the ``rdb``
+    kernel (launches counted, returned), held within the bf16 tolerance
+    of ``rrdbnet_apply`` on the same weights, and ``cli.evaluate`` on its
+    output."""
     import json as _json
 
     import numpy as np
@@ -3536,10 +3533,72 @@ def phase_train(state):
     from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
     from s2sr_tpu_torch.models.engine import SREngine
     from s2sr_tpu_torch.models.rrdbnet import rrdbnet_apply
-    from s2sr_tpu_torch.models.weights import (load_npz_tree, tree_flatten,
-                                               tree_to_torch, tree_unflatten)
+    from s2sr_tpu_torch.models.weights import load_npz_tree, tree_to_torch
     from s2sr_tpu_torch.ops import rdb as rdb_mod
     from s2sr_tpu_torch.tiles.png import encode_png
+
+    wdir = work / "weights"
+    secs, out = run_cli(["s2sr_tpu_torch.cli.convert_weights", "--from-ckpt",
+                         str(ckpt), "--model-name", "realesrgan_x4", "-o",
+                         str(wdir / "realesrgan_x4.npz")], work, child_env(),
+                        timeout=300)
+    scene = synthetic_fields((128, 128), seed=77)
+    small = scene.reshape(32, 4, 32, 4, 3).mean((1, 3)).round().astype(
+        np.uint8)
+    rdb_mod.LAUNCHES = 0
+    eng = SREngine("realesrgan_x4", weights_dir=str(wdir), device="cuda")
+    sr = eng.enhance(small)
+    torch.cuda.synchronize()
+    launches = rdb_mod.LAUNCHES
+    if not (eng.pretrained and launches >= 69 and sr.shape == scene.shape):
+        raise AssertionError(f"serving the trained weights: pretrained "
+                             f"{eng.pretrained}, rdb launches {launches}, "
+                             f"shape {sr.shape}")
+    x = torch.from_numpy(small).float().cuda()[None] / 255.0
+    tree = tree_to_torch(load_npz_tree(wdir / "realesrgan_x4.npz"), "cuda")
+    with torch.no_grad():
+        got = eng.model(x)
+        want = rrdbnet_apply(tree, x, scale=4, dtype=torch.bfloat16)
+    rdb_mod.LAUNCHES = launches
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    (work / "sr.png").write_bytes(encode_png(sr))
+    (work / "hr.png").write_bytes(encode_png(scene))
+    _, ev = run_cli(["s2sr_tpu_torch.cli.evaluate", str(work / "sr.png"),
+                     str(work / "hr.png")], work, child_env(), timeout=300)
+    emit({"phase": phase, "check": "trained weights served",
+          "checkpoint": ckpt.name, "export_seconds": round(secs, 3),
+          "rdb_launches": launches, "pretrained": eng.pretrained,
+          "kernel_vs_rrdbnet_apply_rel": rel, "tol_bf16": 0.1,
+          "evaluate_sr_vs_hr": _json.loads(ev.strip().splitlines()[-1]),
+          "card": card})
+    if not (np.isfinite(scale) and rel <= 0.1):
+        raise AssertionError(f"served model vs rrdbnet_apply: {rel}")
+    return launches
+
+
+def phase_train(state):
+    """Training on the card (``s2sr_tpu_torch.training``, no kernel of
+    its own: cuDNN's convolutions and PyTorch's autograd, as JAX training
+    runs XLA's): (1) one float32 step of a 2-block 64/32 model on the card
+    against the same step on the CPU, then four full-width steps under
+    ``torch.profiler``; (2) ``cli.train`` at full width
+    (23 blocks, 64/32, ×4, batch 16, LR crop 48, bf16, the device
+    pipeline, chunk 16, 32 steps on 16 synthetic scenes) with remat and the
+    blur/noise/JPEG degradations, and without remat: loss finite and the
+    mean of the last 16 losses below that of the first 16, steps/s and
+    peak memory; (3) SwinIR at swinir_x4's width, 8 steps; (4) save,
+    resume and run on against an unbroken run under deterministic
+    algorithms (bit-equal, or the ops without one named and the runs held
+    within 1e-6); (5) the remat run's checkpoint exported by
+    ``convert_weights --from-ckpt`` and served (:func:`serve_checkpoint`)."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models.weights import tree_flatten, tree_unflatten
     from s2sr_tpu_torch.training.train import (TrainConfig, init_training,
                                                make_device_pool_train_step,
                                                make_train_step)
@@ -3610,7 +3669,7 @@ def phase_train(state):
               "step_ms": (1e3 / rec["steps_per_s"]
                           if rec["steps_per_s"] else None),
               "bound_ms": flop / PEAK_BF16_FLOPS * 1e3, "card": card})
-        if not (len(losses) == 64 and last < first):
+        if not (len(losses) == 32 and last < first):
             raise AssertionError(f"train {label}: loss did not fall "
                                  f"({first} → {last})")
 
@@ -3635,48 +3694,377 @@ def phase_train(state):
         raise AssertionError(f"resume: {res}")
 
     # (5) serve what was trained
-    wdir = work / "weights"
-    secs, out = run_cli(["s2sr_tpu_torch.cli.convert_weights", "--from-ckpt",
-                         str(work / "remat_degrade"), "--model-name",
-                         "realesrgan_x4", "-o",
-                         str(wdir / "realesrgan_x4.npz")], work, child_env(),
-                        timeout=300)
-    scene = synthetic_fields((128, 128), seed=77)
-    small = scene.reshape(32, 4, 32, 4, 3).mean((1, 3)).round().astype(
-        np.uint8)
-    rdb_mod.LAUNCHES = 0
-    eng = SREngine("realesrgan_x4", weights_dir=str(wdir), device="cuda")
-    sr = eng.enhance(small)
-    torch.cuda.synchronize()
-    launches = rdb_mod.LAUNCHES
-    state["train_launches"] = launches
-    if not (eng.pretrained and launches >= 69 and sr.shape == scene.shape):
-        raise AssertionError(f"serving the trained weights: pretrained "
-                             f"{eng.pretrained}, rdb launches {launches}, "
-                             f"shape {sr.shape}")
-    x = torch.from_numpy(small).float().cuda()[None] / 255.0
-    tree = tree_to_torch(load_npz_tree(wdir / "realesrgan_x4.npz"), "cuda")
-    with torch.no_grad():
-        got = eng.model(x)
-        want = rrdbnet_apply(tree, x, scale=4, dtype=torch.bfloat16)
-    rdb_mod.LAUNCHES = launches
-    scale = float(want.abs().max())
-    rel = float((got - want).abs().max()) / scale
-    (work / "sr.png").write_bytes(encode_png(sr))
-    (work / "hr.png").write_bytes(encode_png(scene))
-    _, ev = run_cli(["s2sr_tpu_torch.cli.evaluate", str(work / "sr.png"),
-                     str(work / "hr.png")], work, child_env(), timeout=300)
-    emit({"phase": "train", "check": "trained weights served",
-          "export_seconds": round(secs, 3), "rdb_launches": launches,
-          "pretrained": eng.pretrained, "kernel_vs_rrdbnet_apply_rel": rel,
-          "tol_bf16": 0.1, "evaluate_sr_vs_hr": _json.loads(
-              ev.strip().splitlines()[-1]), "card": card})
-    if not (np.isfinite(scale) and rel <= 0.1):
-        raise AssertionError(f"served model vs rrdbnet_apply: {rel}")
+    state["train_launches"] = serve_checkpoint(work / "remat_degrade", work,
+                                               "train", card)
     state["train"] = {"full": {k: {kk: v[kk] for kk in (
         "steps_per_s", "peak_memory_bytes")} for k, v in full.items()},
         "swinir": {kk: swin[kk] for kk in ("steps_per_s",
                                             "peak_memory_bytes")}}
+
+
+# --- GAN training and the second-order degradation ------------------------
+
+# cli.train_demo at realesrgan_x4's width (23 blocks, 64/32, ×4): batch 16,
+# LR crop 48, bf16, remat, the device pipeline, chunk 8 (the first chunk of
+# each phase warms up, the rate is read over the rest)
+TRAIN_DEMO_FULL = ["--feat", "64", "--blocks", "23", "--grow", "32",
+                   "--batch", "16", "--crop", "48", "--remat",
+                   "--pipeline", "device", "--chunk", "8", "--pool", "4",
+                   "--eval-size", "64", "--eval-scenes", "1"]
+# The U-Net discriminator (num_feat_d 32) per 192² image, one forward:
+# 2·9·(cin·cout) per pixel of each conv at its resolution
+D_FWD_FLOP_192 = 2 * 9 * (
+    192 ** 2 * (3 * 32 + 64 * 32 + 32 * 32 + 32 * 1)
+    + 96 ** 2 * (32 * 64 + 128 * 64) + 48 ** 2 * (64 * 128 + 256 * 128)
+    + 24 ** 2 * 128 * 256)
+
+
+def tree_to(tree, device):
+    """A draws dict (nested dicts of tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def near_tie_blocks(img, q: float) -> set:
+    """(by, bx) of every 16×16 MCU of ``img`` (H, W, 3) in [0, 1] whose
+    float32 ``coef / table`` in some channel lies within 1e-4 of a
+    half-integer: where JPEG's rounding may go either way."""
+    import torch
+
+    from s2sr_tpu_torch.ops import jpeg as pj
+
+    x = img.detach().cpu().float() * 255.0
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    h, w = y.shape
+    d = torch.from_numpy(pj.dct8_matrix())
+    bad = set()
+    planes = [(y, pj.luma_qtable(q), 1)] + [
+        (c.reshape(h // 2, 2, w // 2, 2).mean((1, 3)), pj.chroma_qtable(q), 2)
+        for c in (cb, cr)]
+    for ch, table, f in planes:
+        coef = d @ pj._blocks(ch - 128.0) @ d.T
+        frac = (coef / table - torch.floor(coef / table) - 0.5).abs()
+        for by, bx in (frac < 1e-4).any(-1).any(-1).nonzero().tolist():
+            bad.add((by * 8 * f // 16, bx * 8 * f // 16))
+    return bad
+
+
+def chain_jpeg_rule(got, want, hr, d, cfg, scale: int) -> dict:
+    """The chain's LR ``got`` against ``want`` (B, h, w, 3): values more
+    than 1e-5 apart only in 16×16 blocks of the final JPEG's input that
+    hold a rounding tie, or in a sample whose stage-1 JPEG input holds
+    one; fewer than 1% in all. Inputs and draws on the CPU."""
+    import torch
+
+    from s2sr_tpu_torch.training import degradation as deg
+
+    diff = (got - want).abs() > 1e-5
+    img = deg._stage(hr, cfg.stage1, d["stage1"]).clamp(0, 1)
+    x = deg.jpeg_degrade(img, d["stage1"]["q"])
+    x = torch.where(d["use_blur2"].reshape(-1, 1, 1, 1), deg.blur_with_kernel(
+        x, deg.mixed_blur_kernel_from_draws(**d["blur2"])), x)
+    x = deg._stage(x, cfg.stage2, d["stage2"])
+    b, hh, ww, _ = x.shape
+    lr = x.reshape(b, hh // scale, scale, ww // scale, scale, 3).mean((2, 4))
+    sinc = torch.where(d["use_sinc"].reshape(-1, 1, 1, 1), deg.blur_with_kernel(
+        lr, deg.sinc_kernel(d["cutoff"])), lr)
+    final = torch.where(d["order"].reshape(-1, 1, 1, 1), sinc, lr).clamp(0, 1)
+    unexplained = 0
+    for i in diff.any(-1).any(-1).any(-1).nonzero().flatten().tolist():
+        if near_tie_blocks(img[i], float(d["stage1"]["q"][i])):
+            continue
+        bad = near_tie_blocks(final[i], float(d["stage2"]["q"][i]))
+        n = got.shape[1] // 16
+        blocks = diff[i].reshape(n, 16, n, 16, 3).any(-1).any(-2).any(1)
+        unexplained += sum(tuple(bl) not in bad
+                           for bl in blocks.nonzero().tolist())
+    return {"max_abs_err": float((got - want).abs().max()),
+            "share_over_1e-5": float(diff.float().mean()),
+            "blocks_without_a_tie": unexplained}
+
+
+def gan_card_vs_cpu(card: str) -> None:
+    """One float32 G+D step of a 2-block 64/32 generator with
+    ``num_feat_d`` 32, batch 2 at LR 16² (×4), on the card against the
+    same step on the CPU: the metrics within 1e-5 relative, G's params
+    within 1e-5, D's biases within 1e-5 of the tree's largest value
+    (``tests/test_torch_gan.py``'s rule) and its kernels' values within
+    1e-5 of each kernel's largest value but for at most 0.1% of them, all
+    within two Adam steps (2·``lr_d``): Adam's first step is
+    ``lr·g/(|g| + 1e-8)``, so a gradient near 1e-8 turns the two devices'
+    rounding of it into steps that differ by a fraction of ``lr`` (a
+    wrong gradient moves most values by ~``lr``). ``out1``'s bias has a
+    zero gradient up to rounding and is held within two steps too."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models.weights import tree_flatten, tree_map
+    from s2sr_tpu_torch.training.gan import GanConfig, make_gan_train_step
+    from s2sr_tpu_torch.training.train import TrainConfig, init_training
+
+    cfg = GanConfig(base=TrainConfig(num_block=2, dtype="float32"))
+    step, disc, g_tx, d_tx = make_gan_train_step(cfg)
+    g, g_opt = init_training(cfg.base, seed=0, device="cpu")
+    d = disc.init(torch.Generator().manual_seed(7))
+    d_opt = d_tx.init(d)
+    hr = torch.from_numpy(np.stack([synthetic_fields((64, 64), seed=s)
+                                    for s in (3, 4)]).astype(np.float32) / 255)
+    lr = hr.reshape(2, 16, 4, 16, 4, 3).mean((2, 4))
+    cpu = step(g, d, g_opt, d_opt, lr, hr)
+    card_ = step(tree_map(lambda t: t.cuda(), g), tree_map(lambda t: t.cuda(), d),
+                 g_opt.to("cuda"), d_opt.to("cuda"), lr.cuda(), hr.cuda())
+    metrics = {k: abs(float(card_[4][k]) - float(cpu[4][k]))
+               / abs(float(cpu[4][k])) for k in cpu[4]}
+    g_err = max(float((a.cpu() - b).abs().max()) for a, b in
+                zip(tree_flatten(card_[0])[0], tree_flatten(cpu[0])[0]))
+    d_scale = max(float(t.abs().max()) for t in tree_flatten(cpu[1])[0])
+    step2 = 2 * cfg.lr_d * (1 + 1e-3)
+    d_kernel_rel, d_bias, over, total, d_max = 0.0, 0.0, 0, 0, 0.0
+    for name in cpu[1]:
+        a, b = card_[1][name], cpu[1][name]
+        dk = (a["kernel"].cpu() - b["kernel"]).abs()
+        rel = dk / b["kernel"].abs().max()
+        d_kernel_rel = max(d_kernel_rel, float(rel.max()))
+        over += int((rel > 1e-5).sum())
+        total += rel.numel()
+        d_max = max(d_max, float(dk.max()))
+        bias = float((a["bias"].cpu() - b["bias"]).abs().max())
+        if name == "out1":
+            d_max = max(d_max, bias)
+        else:
+            d_bias = max(d_bias, bias / d_scale)
+    emit({"phase": "gan", "check": "float32 G+D step card vs CPU",
+          "model": "2 blocks, 64/32, x4; num_feat_d 32", "batch": [2, 16, 16],
+          "metrics_rel_err": metrics, "g_params_max_abs_err": g_err,
+          "d_kernels_rel_err": d_kernel_rel,
+          "d_kernel_values_over_1e-5": over, "d_kernel_values": total,
+          "d_max_abs_err_in_lr_d": d_max / cfg.lr_d,
+          "d_biases_rel_to_tree": d_bias, "tol": 1e-5, "card": card})
+    if not (max(metrics.values()) <= 1e-5 and g_err <= 1e-5
+            and over <= total // 1000 and d_max <= step2
+            and d_bias <= 1e-5):
+        raise AssertionError("float32 G+D step card vs CPU")
+
+
+def gan_step_split(card: str) -> dict:
+    """One warm full-width G+D step (23 blocks, 64/32, ×4, batch 16, LR
+    crop 48, bf16, remat; D float32) under ``torch.profiler``: launches,
+    device time and busy share; then the step's discriminator work alone
+    (two D forwards, at 192², and a backward to D's params and to its
+    input) under the profiler, for D's share of the step's device time."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models.weights import tree_flatten, tree_unflatten
+    from s2sr_tpu_torch.training.gan import GanConfig, make_gan_train_step
+    from s2sr_tpu_torch.training.train import TrainConfig, init_training
+    from s2sr_tpu_torch.utils.precision import ieee_fp32
+
+    bench0 = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    cfg = GanConfig(base=TrainConfig(remat=True))
+    step, disc, g_tx, d_tx = make_gan_train_step(cfg)
+    g, g_opt = init_training(cfg.base, seed=0, device="cuda")
+    d = disc.init(torch.Generator().manual_seed(7), "cuda")
+    d_opt = d_tx.init(d)
+    scenes = np.stack([synthetic_fields((192, 192), seed=s) for s in range(16)])
+    hr = torch.from_numpy(scenes.astype(np.float32) / 255.0).cuda()
+    lr = hr.reshape(16, 48, 4, 48, 4, 3).mean((2, 4))
+    st = {"s": (g, d, g_opt, d_opt)}
+
+    def one():
+        st["s"] = step(*st["s"], lr, hr)[:4]
+
+    one()
+    prof = device_breakdown(one, top=6)
+    leaves, struct = tree_flatten(st["s"][1])
+    sr = hr.flip(1).contiguous()
+
+    def d_work():
+        ls = [t.detach().requires_grad_(True) for t in leaves]
+        x = sr.detach().requires_grad_(True)
+        with ieee_fp32():
+            tree = tree_unflatten(struct, ls)
+            fake, real = disc.apply(tree, x), disc.apply(tree, hr)
+            loss = 0.5 * (F.softplus(-(real - fake.mean())).mean()
+                          + F.softplus(fake - real.mean()).mean())
+            torch.autograd.grad(loss, ls + [x])
+
+    d_work()
+    dprof = device_breakdown(d_work, top=4)
+    torch.backends.cudnn.benchmark = bench0
+    d_flop = 16 * D_FWD_FLOP_192 * 5        # 2 forwards + ~3 of backward
+    rec = {"phase": "gan", "check": "full-width G+D step under the profiler",
+           "step_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+           "device_busy_share": prof["device_busy_share"],
+           "kernel_launches": prof["launches"], "top": prof["top"],
+           "d_work_device_ms": dprof["device_ms"],
+           "d_work_launches": dprof["launches"],
+           "d_share_of_step_device_time": dprof["device_ms"] / prof["device_ms"],
+           "d_work_tflop": d_flop / 1e12,
+           "d_work_bound_ms": d_flop / PEAK_F32_FLOPS * 1e3,
+           "d_top": dprof["top"], "card": card}
+    emit(rec)
+    return rec
+
+
+def phase_gan(state):
+    """The second-order degradation and the GAN trainer on the card
+    (``training/{degradation,gan}.py``, ``cli.train_demo``; no kernel of
+    their own: PyTorch's ops and cuDNN's convolutions, as JAX's run on
+    XLA): (1) float32 card against CPU on the same draws (made on the
+    CPU): the chain on 4 HR crops of 192² at ×4 under the JPEG rule, and
+    one G+D step (:func:`gan_card_vs_cpu`); (2) the draws' kernel-family
+    and resize-branch frequencies over 4096 draws of the card's
+    generator, within 3σ of ``StageConfig``'s probabilities; (3) the
+    second-order sampler's time per batch (16 × 48² LR) beside the
+    blur/noise/JPEG one, and the G/D split of one full-width step
+    (:func:`gan_step_split`); (4) ``cli.train_demo`` at full width:
+    32 L1 steps with ``--second-order``, then a GAN-only run of 32
+    device-pooled G+D steps from its checkpoint: steps/s, peak memory,
+    finite losses and ``d_loss``; (5) the post-GAN checkpoint served
+    (:func:`serve_checkpoint`, its RDBs in the ``rdb`` kernel)."""
+    import json as _json
+    import re
+
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.training import degradation as deg
+    from s2sr_tpu_torch.training.train import make_pool_sampler
+
+    card = state.get("card") or card_line()
+    work = state["work"] / "gan"
+    work.mkdir()
+    cfg = deg.DegradationConfig()
+
+    # (1) float32, card against CPU
+    hr = torch.from_numpy(np.stack([synthetic_fields((192, 192), seed=s)
+                                    for s in range(4)]).astype(np.float32)
+                          / 255.0)
+    d = deg.draw_second_order((4, 192, 192), cfg,
+                              torch.Generator().manual_seed(0), "cpu")
+    want = deg.second_order_from_draws(hr, 4, cfg, d)
+    got = deg.second_order_from_draws(hr.cuda(), 4, cfg,
+                                      tree_to(d, "cuda")).cpu()
+    rule = chain_jpeg_rule(got, want, hr, d, cfg, 4)
+    emit({"phase": "gan", "check": "second-order chain card vs CPU",
+          "batch": [4, 192, 192], "scale": 4, **rule,
+          "branches": {s: (d[s]["resize"]["fi"] * 3
+                           + d[s]["resize"]["mi"]).tolist()
+                       for s in ("stage1", "stage2")}, "card": card})
+    if not (rule["share_over_1e-5"] < 0.01
+            and rule["blocks_without_a_tie"] == 0):
+        raise AssertionError(f"chain card vs CPU: {rule}")
+    gan_card_vs_cpu(card)
+
+    # (2) the card generator's branch frequencies
+    n = 4096
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    freq = {}
+    for name, st in (("stage1", cfg.stage1), ("stage2", cfg.stage2)):
+        fam = deg.draw_mixed_blur_kernel(st, n, gen, "cuda")["fam"]
+        rs = deg.draw_random_resize(st, n, gen, "cuda")
+        p_branch = np.repeat(deg.resize_probs(st), 3) / 3
+        for what, values, p in (("family", fam, st.kernel_probs),
+                                ("resize_branch", rs["fi"] * 3 + rs["mi"],
+                                 p_branch)):
+            p = np.asarray(p)
+            counts = torch.bincount(values, minlength=len(p)).cpu().numpy()
+            sigma = np.sqrt(n * p * (1 - p))
+            z = np.abs(counts - n * p) / np.where(sigma > 0, sigma, 1)
+            freq[f"{name}_{what}"] = {"counts": counts.tolist(),
+                                      "max_z": float(z.max())}
+            if not (z.max() <= 3 and counts[p == 0].sum() == 0):
+                raise AssertionError(f"{name} {what}: {counts.tolist()}")
+    emit({"phase": "gan", "check": "branch frequencies of the card's draws",
+          "draws": n, **freq, "card": card})
+
+    # (3) the sampler's time per batch, and the G/D split of one step
+    pool = torch.from_numpy(np.stack([
+        synthetic_fields((384, 384), seed=1 + i) for i in range(8)
+    ]).astype(np.float32) / 255.0).cuda()
+    times = {}
+    for label, sampler in (
+            ("second_order", make_pool_sampler(4, 48, 16, second_order=cfg)),
+            ("blur_noise_jpeg", make_pool_sampler(
+                4, 48, 16, blur_sigma=1.0, noise_std=0.01,
+                jpeg_range=(30.0, 95.0)))):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(2):
+            sampler(pool, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            sampler(pool, gen)
+        torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t0) / 10 * 1e3
+        if label == "second_order":
+            so = device_breakdown(lambda: sampler(pool, gen), top=6)
+    emit({"phase": "gan", "check": "pool sampler ms per batch (16 x 48² LR)",
+          "ms": times, "second_order_device_ms": so["device_ms"],
+          "second_order_launches": so["launches"],
+          "second_order_busy_share": so["device_busy_share"],
+          "second_order_top": so["top"], "card": card})
+    del pool
+    split = gan_step_split(card)
+
+    # (4) full width: L1 with the chain, then the GAN from its checkpoint
+    runs = {}
+    for label, extra in (
+            ("l1_second_order", ["--steps", "32", "--second-order",
+                                 "--gan-steps", "0"]),
+            ("gan", ["--steps", "0", "--gan-steps", "32", "--init-ckpt",
+                     str(work / "l1_second_order")])):
+        secs, out = run_cli(["s2sr_tpu_torch.cli.train_demo",
+                             *TRAIN_DEMO_FULL, *extra,
+                             "--ckpt-dir", str(work / label),
+                             "--out", str(work / f"{label}.json")],
+                            work, child_env(), timeout=900)
+        rep = _json.loads((work / f"{label}.json").read_text())
+        phase_line = next(ln for ln in out.splitlines()
+                          if ln.startswith("L1:" if label.startswith("l1")
+                                           else "GAN:"))
+        rate = float(re.search(r"([0-9.]+) steps/s steady",
+                               phase_line).group(1))
+        peak = int(re.search(r"peak device memory: (\d+) bytes",
+                             out).group(1))
+        runs[label] = rec = {
+            "seconds": round(secs, 3), "steps_per_s": rate,
+            "peak_memory_bytes": peak, "line": phase_line,
+            "l1_loss_first": rep["l1_loss_first"],
+            "l1_loss_last": rep["l1_loss_last"],
+            "gan_metrics_every10": rep["gan_metrics_every10"],
+            "psnr": {k: (rep[k] or {}).get("psnr") for k in (
+                "bicubic", "model_init", "after_l1", "after_gan")}}
+        emit({"phase": "gan", "run": label, **rec, "card": card})
+        if label.startswith("l1"):
+            ok = (rep["degradation"]["second_order"]
+                  and np.isfinite([rep["l1_loss_first"],
+                                   rep["l1_loss_last"]]).all())
+        else:
+            ms = rep["gan_metrics_every10"]
+            ok = len(ms) == 4 and all(np.isfinite(list(m.values())).all()
+                                      for m in ms)
+        if not ok:
+            raise AssertionError(f"train_demo {label}: {rec}")
+
+    # (5) serve the GAN-tuned weights
+    state["gan_launches"] = serve_checkpoint(work / "gan", work, "gan", card)
+    state["gan"] = {"sampler_ms": times, "split": {
+        k: split[k] for k in ("step_ms", "device_busy_share",
+                              "kernel_launches",
+                              "d_share_of_step_device_time")},
+        "runs": {k: {kk: v[kk] for kk in ("steps_per_s", "peak_memory_bytes")}
+                 for k, v in runs.items()}}
 
 
 # --- SwinIR: swin_block and window_attention ------------------------------
@@ -4789,7 +5177,8 @@ def kernels_record(state) -> list | None:
              "source": "s2sr_tpu_torch/csrc/rdb.cu",
              "replaces": "s2sr_tpu/ops/pallas/fused_rdb_v4.py:234",
              "launches": (state["main_launches"] + warm.get("rdb", 0)
-                          + state.get("train_launches", 0)),
+                          + state.get("train_launches", 0)
+                          + state.get("gan_launches", 0)),
              "max_abs_err": state["rdb_max_abs_err"],
              "rel_err": state["rdb_rel_err"],
              **state["rdb_numbers"], "library_ms": None},

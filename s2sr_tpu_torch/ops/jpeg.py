@@ -19,6 +19,8 @@ sampler's per-sample quality). A real libjpeg round trip on the host is
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -57,15 +59,23 @@ _CHROMA_Q = np.array([
 ], np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _const(name: str, device: torch.device) -> torch.Tensor:
+    """The float32 constant ``name`` on ``device``, copied there once (a
+    copy from the host per call would wait for the device's queue)."""
+    arr = {"dct": dct8_matrix(), "luma": _LUMA_Q, "chroma": _CHROMA_Q}[name]
+    return torch.from_numpy(arr).to(device)
+
+
 def luma_qtable(quality, device=None) -> torch.Tensor:
-    return _scale_table(_LUMA_Q, quality, device)
+    return _scale_table("luma", quality, device)
 
 
 def chroma_qtable(quality, device=None) -> torch.Tensor:
-    return _scale_table(_CHROMA_Q, quality, device)
+    return _scale_table("chroma", quality, device)
 
 
-def _scale_table(base: np.ndarray, quality, device=None) -> torch.Tensor:
+def _scale_table(base: str, quality, device=None) -> torch.Tensor:
     """libjpeg's quality → table mapping (``jpeg_quality_scaling`` +
     ``jpeg_add_quant_table``) in float32: (..., 8, 8) for a quality of
     shape (...). ``5000 / q`` is libjpeg's integer division, applied to
@@ -74,7 +84,7 @@ def _scale_table(base: np.ndarray, quality, device=None) -> torch.Tensor:
     q = q.clamp(1.0, 100.0)[..., None, None]
     scale = torch.where(q < 50.0, torch.floor(5000.0 / torch.floor(q)),
                         200.0 - 2.0 * q)
-    t = torch.from_numpy(base).to(q.device)
+    t = _const(base, q.device)
     return torch.floor((t * scale + 50.0) / 100.0).clamp(1.0, 255.0)
 
 
@@ -92,7 +102,7 @@ def _unblocks(bl: torch.Tensor) -> torch.Tensor:
 def _dct_quant_idct(ch: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Channels (..., H, W) in the 0..255 domain (H, W multiples of 8)
     through block DCT → quantize → IDCT; ``table`` (..., 8, 8)."""
-    d = torch.from_numpy(dct8_matrix()).to(ch.device, ch.dtype)
+    d = _const("dct", ch.device).to(ch.dtype)
     bl = _blocks(ch - 128.0)
     coef = d @ bl @ d.T
     t = table[..., None, None, :, :]

@@ -1,0 +1,243 @@
+"""Second-stage (GAN) fine-tuning: discriminator, perceptual and
+adversarial losses (the port of ``s2sr_tpu/training/gan.py``).
+
+- :class:`UNetDiscriminator`: the U-Net discriminator shape used by
+  Real-ESRGAN (conv down ×3, conv up ×3 with skip adds), without spectral
+  norm, on a param tree in the JAX layout (HWIO kernels), NHWC in and
+  out. JAX's ``"SAME"`` padding of a stride-2 3×3 conv on an even side is
+  (0, 1), not (1, 1): it is padded so here.
+- Relativistic-average GAN losses (generator and discriminator), with
+  softplus.
+- A perceptual loss on the generator's own frozen ``conv_first``
+  features (an offline stand-in for VGG).
+- :func:`make_gan_train_step` (one G+D step per call) and
+  :func:`make_device_pool_gan_step` (``chunk`` steps per call, each batch
+  sampled on the pool's device).
+
+One step, in JAX's order: G's loss (pixel + perceptual + adversarial)
+and its gradient with respect to G's leaves only; G updated by the L1
+trainer's Adam (``make_optimizer(base)``: cosine and EMA as configured);
+D's loss on G's pre-update ``sr``, detached, and D updated by a plain
+Adam at ``lr_d``. D runs in IEEE float32 (TF32 off), as JAX's float32
+params and inputs do; G in the base config's dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..models.weights import tree_flatten, tree_to_torch, tree_unflatten
+from ..utils.precision import ieee_fp32
+from .train import Adam, TrainConfig, make_optimizer, make_pool_sampler, \
+    model_apply
+
+SLOPE = 0.2
+
+
+def _conv(x: torch.Tensor, p: dict, stride: int = 1) -> torch.Tensor:
+    """NCHW conv with an HWIO kernel and JAX's "SAME" padding: (1, 1) at
+    stride 1, (0, 1) at stride 2 on an even side."""
+    k = p["kernel"].permute(3, 2, 0, 1)
+    x = F.pad(x, (1, 1, 1, 1) if stride == 1 else (0, 1, 0, 1))
+    return F.conv2d(x, k, p["bias"], stride=stride)
+
+
+def _lrelu(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= 0, x, SLOPE * x)
+
+
+def _up2(x: torch.Tensor) -> torch.Tensor:
+    """Nearest ×2 (NCHW)."""
+    return x.repeat_interleave(2, 2).repeat_interleave(2, 3)
+
+
+@dataclass
+class GanConfig:
+    base: TrainConfig = None
+    num_feat_d: int = 32
+    pixel_weight: float = 1.0
+    perceptual_weight: float = 1.0
+    gan_weight: float = 0.1
+    lr_d: float = 1e-4
+
+    def __post_init__(self):
+        if self.base is None:
+            self.base = TrainConfig()
+
+
+class UNetDiscriminator:
+    """U-Net discriminator (Real-ESRGAN's architecture family), NHWC, on
+    a JAX-layout param tree."""
+
+    def __init__(self, num_feat: int = 32):
+        self.num_feat = num_feat
+
+    def init(self, gen: torch.Generator, device="cpu") -> dict:
+        """Kaiming-normal kernels from ``gen`` (drawn on its device, then
+        moved to ``device``), zero biases; float32."""
+        nf = self.num_feat
+
+        def conv_p(cin, cout, k=3):
+            w = torch.randn((k, k, cin, cout), generator=gen,
+                            device=gen.device) * math.sqrt(2.0 / (k * k * cin))
+            return {"kernel": w.to(device),
+                    "bias": torch.zeros(cout, device=device)}
+
+        return {
+            "conv0": conv_p(3, nf),
+            "down1": conv_p(nf, nf * 2),
+            "down2": conv_p(nf * 2, nf * 4),
+            "down3": conv_p(nf * 4, nf * 8),
+            "up3": conv_p(nf * 8, nf * 4),
+            "up2": conv_p(nf * 4, nf * 2),
+            "up1": conv_p(nf * 2, nf),
+            "out0": conv_p(nf, nf),
+            "out1": conv_p(nf, 1),
+        }
+
+    def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) → (N, H, W, 1) float32 logits, IEEE float32."""
+        h, w = x.shape[1], x.shape[2]
+        if h % 8 or w % 8:
+            raise ValueError(
+                f"UNetDiscriminator needs H,W multiples of 8 (3 stride-2 "
+                f"stages with skip adds), got {h}x{w} — use a crop_hr "
+                f"(crop_lr x scale) that is a multiple of 8")
+        with ieee_fp32():
+            x = x.float().permute(0, 3, 1, 2)
+            x0 = _lrelu(_conv(x, params["conv0"]))
+            d1 = _lrelu(_conv(x0, params["down1"], stride=2))
+            d2 = _lrelu(_conv(d1, params["down2"], stride=2))
+            d3 = _lrelu(_conv(d2, params["down3"], stride=2))
+            u3 = _lrelu(_conv(_up2(d3), params["up3"])) + d2
+            u2 = _lrelu(_conv(_up2(u3), params["up2"])) + d1
+            u1 = _lrelu(_conv(_up2(u2), params["up1"])) + x0
+            out = _conv(_lrelu(_conv(u1, params["out0"])), params["out1"])
+        return out.permute(0, 2, 3, 1)
+
+
+def disc_params_from_jax(tree, device="cpu") -> dict:
+    """A JAX discriminator tree (numpy leaves) → the port's, float32 on
+    ``device``."""
+    return tree_to_torch(tree, device)
+
+
+def perceptual_features(gen_params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Shallow generator features as a frozen perceptual embedding: the
+    SR net's ``conv_first`` with its params detached (the gradient still
+    flows through ``x``), float32."""
+    p = {k: v.detach().float() for k, v in gen_params["conv_first"].items()}
+    with ieee_fp32():
+        feat = _conv(x.float().permute(0, 3, 1, 2), p)
+    return _lrelu(feat).permute(0, 2, 3, 1)
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None and math.prod(mesh.shape) != 1:
+        raise ValueError("the GAN trainer takes a one-device mesh; "
+                         "multi-device training is ROADMAP queue 1 item 16")
+
+
+def _gan_step_parts(config: GanConfig):
+    """The step, the discriminator and the two optimizers, shared by the
+    per-call and the device-pool trainers."""
+    base = config.base
+    disc = UNetDiscriminator(config.num_feat_d)
+    g_tx = make_optimizer(base)   # honours base.lr_decay_steps and the EMA
+    d_tx = Adam(TrainConfig(learning_rate=config.lr_d))   # plain Adam
+
+    def losses(g_tree, d_tree, lr_batch, hr_batch) -> tuple:
+        sr = model_apply(base, g_tree, lr_batch)
+        pixel = torch.mean(torch.abs(sr - hr_batch))
+        perceptual = torch.mean(torch.abs(
+            perceptual_features(g_tree, sr)
+            - perceptual_features(g_tree, hr_batch)))
+        # one forward of D on each of sr and hr serves both losses: D's
+        # loss reads the same logits as on sr detached, since G's
+        # gradient is taken with respect to G's leaves alone
+        logits_fake = disc.apply(d_tree, sr)
+        logits_real = disc.apply(d_tree, hr_batch)
+        # relativistic average GAN, generator side
+        adv = 0.5 * (
+            torch.mean(F.softplus(-(logits_fake - logits_real.mean())))
+            + torch.mean(F.softplus(logits_real - logits_fake.mean())))
+        g_loss = (config.pixel_weight * pixel
+                  + config.perceptual_weight * perceptual
+                  + config.gan_weight * adv)
+        # discriminator side, on the pre-update sr
+        d_loss = 0.5 * (
+            torch.mean(F.softplus(-(logits_real - logits_fake.mean())))
+            + torch.mean(F.softplus(logits_fake - logits_real.mean())))
+        return g_loss, d_loss, pixel, adv
+
+    def step(g_params, d_params, g_opt, d_opt, lr_batch, hr_batch):
+        g_leaves, g_struct = tree_flatten(g_params)
+        d_leaves, d_struct = tree_flatten(d_params)
+        g_leaves = [p.detach().requires_grad_(True) for p in g_leaves]
+        d_leaves = [p.detach().requires_grad_(True) for p in d_leaves]
+        # IEEE float32 for D and the float32 parts of G, forward and
+        # backward; a bfloat16 G is unaffected
+        with ieee_fp32():
+            g_loss, d_loss, pixel, adv = losses(
+                tree_unflatten(g_struct, g_leaves),
+                tree_unflatten(d_struct, d_leaves), lr_batch, hr_batch)
+            g_grads = torch.autograd.grad(g_loss, g_leaves,
+                                          retain_graph=True,
+                                          allow_unused=True)
+            d_grads = torch.autograd.grad(d_loss, d_leaves)
+        # a leaf the forward never reads (conv_up2 at ×2) has zero gradient
+        g_grads = [torch.zeros_like(p) if g is None else g
+                   for p, g in zip(g_leaves, g_grads)]
+        g_params, g_opt = g_tx.update(g_grads, g_opt, g_params)
+        d_params, d_opt = d_tx.update(list(d_grads), d_opt, d_params)
+        metrics = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
+                   "pixel": pixel.detach(), "adv": adv.detach()}
+        return g_params, d_params, g_opt, d_opt, metrics
+
+    return step, disc, g_tx, d_tx
+
+
+def make_gan_train_step(config: GanConfig, mesh=None):
+    """→ ``(step, disc, g_tx, d_tx)``; ``step(g_params, d_params, g_opt,
+    d_opt, lr, hr)`` → ``(g_params, d_params, g_opt, d_opt, metrics)``,
+    the metrics (``g_loss``, ``d_loss``, ``pixel``, ``adv``) tensors on the
+    batch's device. ``mesh``: None or a one-device mesh."""
+    _check_mesh(mesh)
+    return _gan_step_parts(config)
+
+
+def make_device_pool_gan_step(config: GanConfig, crop_lr: int, batch: int,
+                              chunk: int, mesh=None, blur_sigma: float = 0.0,
+                              noise_std: float = 0.0,
+                              jpeg_range: Optional[Tuple[float, float]] = None):
+    """The GAN twin of ``train.py::make_device_pool_train_step``: ``chunk``
+    G+D steps per call, each batch sampled on the pool's device (blur,
+    noise and JPEG knobs; no second-order chain, as in JAX).
+
+    → ``(run, disc, g_tx, d_tx)``; ``run(g_params, d_params, g_opt, d_opt,
+    pool, gen, draws=None)`` → ``(g_params, d_params, g_opt, d_opt,
+    metrics)``, each metric stacked ``(chunk,)``; ``draws[i]`` replaces
+    step i's draws from ``gen``."""
+    _check_mesh(mesh)
+    step, disc, g_tx, d_tx = _gan_step_parts(config)
+    sampler = make_pool_sampler(config.base.scale, crop_lr, batch,
+                                blur_sigma, noise_std, jpeg_range)
+
+    def run(g_params, d_params, g_opt, d_opt, pool, gen, draws=None):
+        ms = []
+        for i in range(chunk):
+            d = sampler.draw(pool, gen) if draws is None else draws[i]
+            lr_b, hr_b = sampler.from_draws(pool, **d)
+            g_params, d_params, g_opt, d_opt, m = step(
+                g_params, d_params, g_opt, d_opt, lr_b, hr_b)
+            ms.append(m)
+        metrics = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        return g_params, d_params, g_opt, d_opt, metrics
+
+    run.sampler = sampler
+    return run, disc, g_tx, d_tx

@@ -50,9 +50,6 @@ from ..utils.precision import ieee_fp32
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 COSINE_ALPHA = 0.02
-SECOND_ORDER_REFUSED = (
-    "second_order: the second-order Real-ESRGAN degradation "
-    "(training/degradation.py) is not ported yet (ROADMAP queue 1 item 15c)")
 
 
 @dataclass
@@ -266,18 +263,23 @@ class PoolSampler:
     """Batches cropped on the device from a scene pool (P, H, W, 3)
     float32 in [0, 1]: uniform scene, uniform offset, 0.5 vertical and
     horizontal flips, the area-×scale downsample, then the optional
-    gaussian blur, gaussian noise and per-sample JPEG quality on the LR.
+    gaussian blur, gaussian noise and per-sample JPEG quality on the LR;
+    or, with ``second_order`` (a ``DegradationConfig``), the LR made from
+    the HR crops by the two-stage Real-ESRGAN chain
+    (``training/degradation.py``) in place of all of those.
     :meth:`draw` takes the random values from a ``torch.Generator``;
     :meth:`from_draws` builds the batch from given values (JAX's draws of
     ``jax.random.split(key, 6)`` can be fed to it)."""
 
     def __init__(self, scale: int, crop_lr: int, batch: int,
                  blur_sigma: float = 0.0, noise_std: float = 0.0,
-                 jpeg_range: Optional[Tuple[float, float]] = None):
+                 jpeg_range: Optional[Tuple[float, float]] = None,
+                 second_order=None):
         self.scale, self.crop_lr, self.batch = scale, crop_lr, batch
         self.crop_hr = crop_lr * scale
         self.blur_sigma, self.noise_std = blur_sigma, noise_std
         self.jpeg_range = jpeg_range
+        self.second_order = second_order
 
     def draw(self, pool: torch.Tensor, gen: torch.Generator) -> dict:
         """Scene index, offsets, flips, noise and quality of one batch."""
@@ -292,6 +294,13 @@ class PoolSampler:
         if self.noise_std > 0:
             c = self.crop_lr
             d["noise"] = torch.randn((b, c, c, 3), generator=gen, device=dev)
+        if self.second_order is not None:
+            from .degradation import draw_second_order
+
+            ch = self.crop_hr
+            d["degrade"] = draw_second_order((b, ch, ch), self.second_order,
+                                             gen, dev)
+            return d
         if self.jpeg_range is not None:
             lo, hi = self.jpeg_range
             d["q"] = lo + (hi - lo) * torch.rand((b,), generator=gen,
@@ -299,8 +308,10 @@ class PoolSampler:
         return d
 
     def from_draws(self, pool: torch.Tensor, idx, ys, xs, flips, noise=None,
-                   q=None) -> tuple:
-        """→ (lr (B, c, c, 3), hr (B, c·s, c·s, 3)) float32."""
+                   q=None, degrade=None) -> tuple:
+        """→ (lr (B, c, c, 3), hr (B, c·s, c·s, 3)) float32. ``degrade``:
+        the chain's draws (``degradation.py::draw_second_order``'s
+        layout), with ``second_order`` only."""
         from ..ops.blur import gaussian_blur
         from ..ops.jpeg import jpeg_degrade
 
@@ -311,6 +322,11 @@ class PoolSampler:
         rows = torch.where(flips[:, :1], ch - 1 - ar, ar) + ys[:, None]
         cols = torch.where(flips[:, 1:], ch - 1 - ar, ar) + xs[:, None]
         hr = pool[idx[:, None, None], rows[:, :, None], cols[:, None, :]]
+        if self.second_order is not None:
+            from .degradation import second_order_from_draws
+
+            return second_order_from_draws(hr, s, self.second_order,
+                                           degrade), hr
         lr = hr.reshape(self.batch, c, s, c, s, 3).mean((2, 4))
         if self.blur_sigma > 0:
             lr = gaussian_blur(lr, self.blur_sigma)
@@ -329,15 +345,18 @@ def make_pool_sampler(scale: int, crop_lr: int, batch: int,
                       jpeg_range: Optional[Tuple[float, float]] = None,
                       second_order=None) -> PoolSampler:
     """The device-side batch sampler shared by the trainers. JPEG needs
-    ``crop_lr`` a multiple of 16 (4:2:0 blocks). ``second_order`` (the
-    two-stage Real-ESRGAN chain) is not ported and raises."""
-    if second_order is not None:
-        raise NotImplementedError(SECOND_ORDER_REFUSED)
+    ``crop_lr`` a multiple of 16 (4:2:0 blocks), and so does
+    ``second_order`` (a ``DegradationConfig``: the two-stage Real-ESRGAN
+    chain, which replaces the blur, noise and JPEG knobs; JPEG blocks at
+    both stages' resolutions)."""
     if jpeg_range is not None and crop_lr % 16:
         raise ValueError("jpeg_range needs crop_lr a multiple of 16 "
                          f"(4:2:0 blocks), got {crop_lr}")
+    if second_order is not None and crop_lr % 16:
+        raise ValueError("second_order needs crop_lr a multiple of 16 "
+                         f"(JPEG blocks at both stages), got {crop_lr}")
     return PoolSampler(scale, crop_lr, batch, blur_sigma, noise_std,
-                       jpeg_range)
+                       jpeg_range, second_order)
 
 
 def make_device_pool_train_step(config: TrainConfig, crop_lr: int, batch: int,

@@ -75,7 +75,9 @@ def test_modules_import_with_jax_blocked():
             "s2sr_tpu_torch.training.checkpoint",
             "s2sr_tpu_torch.cli.train", "s2sr_tpu_torch.cli.evaluate",
             "s2sr_tpu_torch.ops.jpeg", "s2sr_tpu_torch.utils.metrics",
-            } <= set(mods) and len(mods) >= 113
+            "s2sr_tpu_torch.training.degradation",
+            "s2sr_tpu_torch.training.gan", "s2sr_tpu_torch.cli.train_demo",
+            } <= set(mods) and len(mods) >= 116
     code = "\n".join([
         "import sys",
         "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic',"

@@ -168,8 +168,10 @@ def test_device_pool_step_matches_jax_draws():
 
 
 def test_pool_sampler_refusals():
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        pt.make_pool_sampler(2, 16, 2, second_order=object())
+    from s2sr_tpu_torch.training.degradation import DegradationConfig
+
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pt.make_pool_sampler(2, 8, 2, second_order=DegradationConfig())
     with pytest.raises(ValueError, match="multiple of 16"):
         pt.make_pool_sampler(2, 8, 2, jpeg_range=(30, 95))
 
