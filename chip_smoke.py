@@ -79,6 +79,15 @@ random weights from seed 0, each at the full width of its model:
   ``--second-order``, then 32 GAN steps from that checkpoint), and the
   GAN-tuned weights served by ``SREngine``, its RDBs in the ``rdb``
   kernel (phase gan);
+- the multi-device mesh (``parallel/{mesh,comm,tiling,tensor,pipeline}.py``)
+  on the one card: ``realesrgan_x4`` served over ``dp=2`` (two engine
+  replicas on ``cuda:0``, whose RDBs run the ``rdb`` kernel) byte-equal to
+  one device, and in one spawn of two gloo ranks that share ``cuda:0``
+  the pipelined serving forward over ``pp=2`` (its RDBs in ``rdb``), L1
+  steps at ``dp=2``, an FSDP step at ``dp=1,tp=2``, a ``pp=2`` train
+  step, the trunk over ``pp=2`` and a GAN step at ``dp=2``, each against
+  the one-device step at full width (phase mesh; it checks sharding and
+  collectives, not the speed of several GPUs);
 - SwinIR serving on ``swinir_x4`` (``process_wow_sr`` on the exact path,
   the halo-tiled engine path, a 3×5 upload, exact 2048² and 2560² images
   with the strip tail held to the whole tail), whose Swin blocks run the
@@ -112,8 +121,9 @@ Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 
 ``--phases`` picks a subset (device, build, kernel, main, numbers,
-fetch, server, vectors, decode, classic, warmup, train, gan, swin_kernel,
-swin_main, swin_large, swin_numbers, ladder, mxu) for a quick check; the
+fetch, server, vectors, decode, classic, warmup, train, gan, mesh,
+swin_kernel, swin_main, swin_large, swin_numbers, ladder, mxu) for a
+quick check; the
 default runs them all.
 ``--seed`` seeds the fetched scene's pixels.
 """
@@ -131,7 +141,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernel", "main", "numbers", "fetch", "server",
-          "vectors", "decode", "classic", "warmup", "train", "gan",
+          "vectors", "decode", "classic", "warmup", "train", "gan", "mesh",
           "swin_kernel", "swin_main", "swin_large", "swin_numbers", "ladder",
           "mxu")
 KERNEL_SOURCES = ("rdb", "window_attention", "rdb_ladder", "rdb_ladder_tc",
@@ -5163,6 +5173,359 @@ def phase_mxu(state):
     emit({"phase": "mxu", "seconds": round(time.perf_counter() - t0, 3)})
 
 
+# --- the multi-device mesh on one card ------------------------------------
+
+# The mesh phase's two ranks share cuda:0 over gloo: they check sharding
+# and collectives on the card, not the speed of several GPUs.
+MESH_RANK_DEVICES = ("cuda:0", "cuda:0")
+# JAX's sharded-against-unsharded tolerances (tests/test_training.py,
+# tests/test_parallel_pp_tp.py)
+MESH_LOSS_REL, MESH_ATOL, MESH_RTOL = 1e-5, 1e-5, 1e-4
+# The pipelined bf16 forward (every RDB in the rdb kernel) against the
+# float32 rrdbnet_apply: its error may be at most this many times the
+# error of the plain bf16 rrdbnet_apply (no kernel) on the same inputs.
+# The random-init output is ~1.8e-4 at its max, so a bound on the bf16
+# gap relative to that max measures a few bf16 steps, not the kernel; a
+# wrong block or packing is off by the output's own size.
+MESH_BF16_VS_PLAIN = 2.0
+
+
+def _tree_apart(a, b, skip=()) -> dict:
+    """Largest |a − b| over two trees and whether every leaf is within
+    ``MESH_ATOL + MESH_RTOL·|b|`` (leaves whose key path ends in one of
+    ``skip`` are left out of the bound)."""
+    from s2sr_tpu_torch.models.weights import tree_flatten
+
+    worst, ok = 0.0, True
+    for path, x, y in zip(_paths(a), tree_flatten(a)[0], tree_flatten(b)[0]):
+        d = (x.float() - y.float()).abs()
+        worst = max(worst, float(d.max()))
+        if not path.endswith(skip):
+            ok &= bool((d <= MESH_ATOL + MESH_RTOL * y.float().abs()).all())
+    return {"max_abs_diff": worst, "within": ok}
+
+
+def _paths(tree, prefix="") -> list:
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def _loss_rel(a, b) -> float:
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+# RRDBNet at realesrgan_x4's width
+MESH_WIDTH = {"num_feat": 64, "num_block": 23, "num_grow_ch": 32}
+
+
+def mesh_rank_program(rank: int, devices: list, width: dict) -> dict:
+    """One of two gloo ranks (phase mesh: both on ``cuda:0``): every
+    scenario of phase mesh that runs over ``torch.distributed``, each
+    against the one-device version on the same inputs (computed on rank 0
+    alone), at ``width`` (the phase: :data:`MESH_WIDTH`); float32 steps
+    with TF32 off (the steps scope it) and cuDNN's deterministic
+    algorithms (this process only)."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models.rrdbnet import rrdbnet_apply
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.parallel.mesh import build_mesh
+    from s2sr_tpu_torch.parallel import pipeline as ppipe
+    from s2sr_tpu_torch.parallel.pipeline import (make_pp_train_step,
+                                                  pipeline_trunk_apply,
+                                                  rrdbnet_pipeline_apply)
+    from s2sr_tpu_torch.parallel.tensor import (gather_tree,
+                                                make_fsdp_train_step,
+                                                shard_tree)
+    from s2sr_tpu_torch.training import gan as pg
+    from s2sr_tpu_torch.training.train import (TrainConfig, init_training,
+                                               make_train_step)
+
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device(devices[rank])
+    one = build_mesh("pp=1", devices=devices[:1])
+    main = rank == 0
+    out: dict = {}
+
+    def hr_batch(n, side, seed):
+        return torch.from_numpy(np.stack([
+            synthetic_fields((side, side), seed=seed + i) for i in range(n)
+        ]).astype(np.float32) / 255.0).to(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, time.perf_counter() - t0
+
+    # (1) the pipelined serving forward: bf16, rdb kernel in every RDB
+    cfg = TrainConfig(dtype="bfloat16", **width)
+    params, _ = init_training(cfg, seed=0, device=dev)
+    x = hr_batch(2, 256, 11)
+    pp2 = build_mesh("pp=2", devices=devices)
+    with torch.no_grad():
+        from s2sr_tpu_torch.models.rrdbnet import _conv, _oihw
+
+        feat = _conv(x.permute(0, 3, 1, 2), _oihw(params["conv_first"]),
+                     torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+        rdb_mod.LAUNCHES = 0
+        trunk, secs = timed(lambda: pipeline_trunk_apply(
+            params["body"], feat, pp2, dtype=torch.bfloat16))
+        launches = rdb_mod.LAUNCHES
+        sr, sr_secs = timed(lambda: rrdbnet_pipeline_apply(
+            params, x, pp2, dtype=torch.bfloat16))
+        launches_full = rdb_mod.LAUNCHES - launches
+        res = {"trunk_seconds": secs, "forward_seconds": sr_secs,
+               "rdb_launches": launches + launches_full,
+               "rdb_launches_trunk": launches, "shape": list(sr.shape)}
+        if main:
+            per = torch.cat([pipeline_trunk_apply(
+                params["body"], feat[i:i + 1], one, dtype=torch.bfloat16)
+                for i in range(2)])
+            whole = rrdbnet_pipeline_apply(params, x, one,
+                                           dtype=torch.bfloat16)
+            # the plain _rrdb_block arithmetic (no rdb kernel), in bf16
+            # and in float32 (TF32 off)
+            plain = rrdbnet_apply(params, x, scale=4, dtype=torch.bfloat16)
+            ref32 = rrdbnet_apply(params, x, scale=4, dtype=torch.float32)
+            top = float(ref32.abs().max())
+            res.update(
+                trunk_values_apart=int((trunk != per).sum()),
+                forward_values_apart=int((sr != whole).sum()),
+                forward_max_abs_diff=float((sr - whole).abs().max()),
+                forward_vs_plain_rel=float((sr - plain).abs().max())
+                / float(plain.abs().max()),
+                forward_vs_f32_rel=float((sr - ref32).abs().max()) / top,
+                plain_vs_f32_rel=float((plain - ref32).abs().max()) / top,
+                forward_scale=float(whole.abs().max()),
+                finite=bool(torch.isfinite(sr).all()))
+    out["pp_serving"] = res
+    del params
+
+    # (2) two L1 steps at dp=2 (batch 4, LR crops 32), float32; then bf16
+    hr = hr_batch(4, 128, 21)
+    lr = hr.reshape(4, 32, 4, 32, 4, 3).mean((2, 4))
+    dp2 = build_mesh("dp=2", devices=devices)
+    for dtype in ("float32", "bfloat16"):
+        cfg = TrainConfig(dtype=dtype, **width)
+        params, opt = init_training(cfg, seed=0, device=dev)
+
+        def two_steps(mesh):
+            step, _ = make_train_step(cfg, mesh)
+            p, o, losses = params, opt, []
+            for _ in range(2):
+                p, o, loss = step(p, o, lr, hr)
+                losses.append(float(loss))
+            return p, losses
+
+        (p_m, l_m), secs = timed(lambda: two_steps(dp2))
+        res = {"seconds": secs, "losses": l_m}
+        if main:
+            p_1, l_1 = two_steps(None)
+            res.update(_tree_apart(p_m, p_1), losses_one=l_1,
+                       loss_rel=max(_loss_rel(a, b) for a, b in zip(l_m, l_1)))
+        out[f"dp_l1_{dtype}"] = res
+    del params, opt
+
+    cfg = TrainConfig(dtype="float32", **width)
+    params, opt = init_training(cfg, seed=0, device=dev)
+    ref = None
+    if main:
+        step, _ = make_train_step(cfg)
+        ref = step(params, opt, lr, hr)
+
+    # (3) one FSDP step at dp=1, tp=2: params and Adam moments in halves
+    tp2 = build_mesh("dp=1,tp=2", devices=devices)
+    step, _ = make_fsdp_train_step(cfg, tp2, params, opt)
+    (p_s, o_s, loss), secs = timed(lambda: step(shard_tree(params, tp2),
+                                                shard_tree(opt, tp2), lr, hr))
+    whole = gather_tree(p_s, params, tp2)
+    res = {"seconds": secs, "loss": float(loss),
+           "local_conv_first": list(p_s["conv_first"]["kernel"].shape),
+           "local_mu_conv_first": list(o_s.mu["conv_first"]["kernel"].shape)}
+    if main:
+        res.update(_tree_apart(whole, ref[0]),
+                   loss_rel=_loss_rel(loss, ref[2]))
+    out["fsdp_tp2"] = res
+
+    # (4) one pp=2 train step: the 23-block trunk ragged 12/11, the
+    # backward through the ring
+    step, _ = make_pp_train_step(cfg, pp2)
+    (p_p, _, loss), secs = timed(lambda: step(params, opt, lr, hr))
+    res = {"seconds": secs, "loss": float(loss),
+           "stages": ppipe._pad_body_to_stages(params["body"], 2)[1]}
+    if main:
+        res.update(_tree_apart(p_p, ref[0]), loss_rel=_loss_rel(loss, ref[2]))
+    out["pp_step"] = res
+
+    # (5) the 23-block trunk over pp=2 under autograd (the training
+    # blocks), float32, against the one-device trunk per microbatch
+    feat32 = torch.randn((2, 32, 32, width["num_feat"]),
+                         generator=torch.Generator(device=dev).manual_seed(5),
+                         device=dev)
+    body = params["body"]
+    got, secs = timed(lambda: pipeline_trunk_apply(body, feat32, pp2))
+    res = {"seconds": secs}
+    if main:
+        per = torch.cat([pipeline_trunk_apply(body, feat32[i:i + 1], one)
+                         for i in range(2)])
+        res.update(values_apart=int((got != per).sum()),
+                   max_abs_diff=float((got - per).abs().max()))
+    out["pp_trunk_f32"] = res
+
+    # (6) one GAN step at dp=2 (G full width float32, D 32 features)
+    gcfg = pg.GanConfig(base=cfg)
+    d = pg.UNetDiscriminator(32).init(torch.Generator(device=dev)
+                                      .manual_seed(1), device=dev)
+    d_opt = pg.Adam(TrainConfig(learning_rate=gcfg.lr_d)).init(d)
+
+    def gan(mesh):
+        step = pg.make_gan_train_step(gcfg, mesh)[0]
+        return step(params, d, opt, d_opt, lr, hr)
+
+    (g1, d1, _, _, m), secs = timed(lambda: gan(dp2))
+    res = {"seconds": secs, **{k: float(v) for k, v in m.items()}}
+    if main:
+        g1r, d1r, _, _, mr = gan(None)
+        res.update(g=_tree_apart(g1, g1r),
+                   # out1's bias: a gradient of zero up to rounding, whose
+                   # Adam step takes either sign (tests/test_torch_gan.py)
+                   d=_tree_apart(d1, d1r, skip=("out1/bias",)),
+                   metrics_rel=max(_loss_rel(m[k], mr[k]) for k in m))
+    out["gan_dp2"] = res
+    return out
+
+
+def phase_mesh(state):
+    """The multi-device mesh on the card, full width (``realesrgan_x4``,
+    RRDBNet 23 blocks, 64/32): (1) serving over ``dp=2`` in one process,
+    a mesh that names ``cuda:0`` twice (two engine replicas): a 1024×768
+    scene through the tiled path (``enhance``) and the serving path
+    (``enhance_serving``), 0 values apart from one device, the ``rdb``
+    kernel launched 69 times per chunk on both replicas; (2) one spawn of
+    two gloo ranks on ``cuda:0`` (``parallel/comm.py::launch``): the
+    pipelined serving forward over ``pp=2`` (bf16, every RDB in ``rdb``;
+    its trunk bit-equal to the one-device trunk run per microbatch, the
+    whole forward bit-equal to the one-device forward through the same
+    kernels, and at most ``MESH_BF16_VS_PLAIN`` times as far from the
+    float32 ``rrdbnet_apply`` as the plain bf16 one), two
+    float32 L1 steps at ``dp=2`` (and their bf16 difference, unbounded),
+    one FSDP step at ``dp=1,tp=2``, one ``pp=2`` train step (ragged 12/11),
+    the float32 trunk over ``pp=2``, and one GAN step at ``dp=2``, each
+    within JAX's sharded-against-unsharded tolerances of the one-device
+    step. The ranks share one card: this checks the sharding and the
+    collectives, not the speed of several GPUs."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models.engine import SREngine
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.parallel import comm
+    from s2sr_tpu_torch.parallel.mesh import build_mesh
+
+    card = state.get("card") or card_line()
+    weights = state["work"] / "weights"          # empty: random init
+    img = synthetic_fields(size=(768, 1024), seed=13)
+    devices = list(MESH_RANK_DEVICES)
+    mesh = build_mesh("dp=2", devices=devices)
+    # batch 8: the 12 windows of the scene make two chunks, one per replica
+    kw = dict(weights_dir=str(weights), batch_size=8, device="cuda")
+    eng = SREngine("realesrgan_x4", mesh=mesh, **kw)
+    ref = SREngine("realesrgan_x4", **kw)
+    n_rdb = 3 * len(eng.model.body)
+    if eng.dtype != torch.bfloat16 or n_rdb != 69:
+        raise AssertionError("phase mesh serves full-width bf16 realesrgan_x4")
+    launches = 0
+    for path in ("enhance", "enhance_serving"):
+        getattr(ref, path)(img)                  # warm: cuDNN's plans
+        t0 = time.perf_counter()
+        want = getattr(ref, path)(img)
+        ref_secs = time.perf_counter() - t0
+        getattr(eng, path)(img)
+        before = list(eng.replica_forwards)
+        rdb_mod.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = getattr(eng, path)(img)
+        secs = time.perf_counter() - t0
+        chunks = [a - b for a, b in zip(eng.replica_forwards, before)]
+        launches += rdb_mod.LAUNCHES
+        rec = {"phase": "mesh", "check": f"serving dp=2 {path}",
+               "scene": [768, 1024], "values_apart": int((got != want).sum()),
+               "seconds": secs, "one_device_seconds": ref_secs,
+               "backend": "none (one process, two replicas)",
+               "world": 2, "devices": devices, "chunks_per_replica": chunks,
+               "rdb_launches": rdb_mod.LAUNCHES,
+               "rdb_launches_per_chunk": rdb_mod.LAUNCHES / max(sum(chunks), 1),
+               "card": card}
+        emit(rec)
+        if (rec["values_apart"] or got.shape != (3072, 4096, 3)
+                or min(chunks) < 1 or rdb_mod.LAUNCHES != n_rdb * sum(chunks)):
+            raise AssertionError(f"mesh serving {path}: {rec}")
+    del eng, ref
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = comm.launch(mesh_rank_program, mesh, args=(devices, MESH_WIDTH),
+                      backend="gloo", timeout=600)
+    spawn_secs = time.perf_counter() - t0
+    common = {"backend": "gloo", "world": 2, "devices": devices,
+              "card": card}
+    r0 = res[0]
+    pps = r0["pp_serving"]
+    launches += sum(r["pp_serving"]["rdb_launches"] for r in res)
+    emit({"phase": "mesh", "check": "pipelined serving forward pp=2 (bf16)",
+          "batch": [2, 256, 256], **pps, "tol_vs_f32": f"{MESH_BF16_VS_PLAIN}× plain's",
+          "rdb_launches_per_rank": [r["pp_serving"]["rdb_launches"]
+                                    for r in res], **common})
+    if not (pps["trunk_values_apart"] == 0 and pps["finite"]
+            and pps["forward_values_apart"] == 0
+            and pps["forward_vs_f32_rel"]
+            <= MESH_BF16_VS_PLAIN * pps["plain_vs_f32_rel"]
+            and all(r["pp_serving"]["rdb_launches"] > 0 for r in res)):
+        raise AssertionError(f"pipelined serving forward: {pps}")
+    for name, tol_note in (("dp_l1_float32", "two steps, batch 4, crop 32"),
+                           ("dp_l1_bfloat16", "no bound"),
+                           ("fsdp_tp2", "one step"), ("pp_step", "one step"),
+                           ("pp_trunk_f32", "batch 2, 32², training blocks"),
+                           ("gan_dp2", "one G+D step, batch 4, crop 32")):
+        rec = r0[name]
+        emit({"phase": "mesh", "check": name, "note": tol_note, **rec,
+              "tol": {"loss_rel": MESH_LOSS_REL, "atol": MESH_ATOL,
+                      "rtol": MESH_RTOL}, **common})
+        if name == "dp_l1_bfloat16":
+            continue
+        if name == "pp_trunk_f32":
+            ok = rec["max_abs_diff"] <= MESH_ATOL
+        elif name == "gan_dp2":
+            ok = (rec["g"]["within"] and rec["d"]["within"]
+                  and rec["metrics_rel"] <= MESH_LOSS_REL)
+        else:
+            ok = (rec["within"] and rec.get("loss_rel", 0.0) <= MESH_LOSS_REL)
+        if name == "fsdp_tp2":
+            ok &= (rec["local_conv_first"][-1] == 32
+                   and rec["local_mu_conv_first"][-1] == 32)
+        if name == "pp_step":
+            ok &= rec["stages"] == [12, 11]
+        if not ok:
+            raise AssertionError(f"mesh {name}: {rec}")
+    emit({"phase": "mesh", "check": "rank spawn", "seconds": spawn_secs,
+          **common})
+    state["mesh_launches"] = launches
+
+
 def kernels_record(state) -> list | None:
     """The kernels' JSON record, or None if a phase it needs did not run."""
     if not {"rdb_numbers", "main_launches", "rdb_i8_numbers",
@@ -5178,7 +5541,8 @@ def kernels_record(state) -> list | None:
              "replaces": "s2sr_tpu/ops/pallas/fused_rdb_v4.py:234",
              "launches": (state["main_launches"] + warm.get("rdb", 0)
                           + state.get("train_launches", 0)
-                          + state.get("gan_launches", 0)),
+                          + state.get("gan_launches", 0)
+                          + state.get("mesh_launches", 0)),
              "max_abs_err": state["rdb_max_abs_err"],
              "rel_err": state["rdb_rel_err"],
              **state["rdb_numbers"], "library_ms": None},

@@ -11,8 +11,13 @@ HR scenes (the port of ``s2sr_tpu.cli.train``).
   run, a weight EMA, periodic checkpoints and ``--resume``.
 
 LR inputs are area-downsampled HR crops, optionally blurred, noised and
-JPEG-compressed. It runs on CUDA unless ``--device cpu``; ``--mesh`` takes
-a one-device spec (``dp=1``).
+JPEG-compressed. It runs on CUDA unless ``--device cpu``. ``--mesh dp=N``
+trains over N ranks, which this command spawns itself
+(``parallel/comm.py::launch``), one per visible GPU with ``--backend
+nccl`` (the default), or over gloo with ``--backend gloo`` (the CPU, or
+ranks that share a GPU). Every rank draws the same global batches and
+trains on its ``dp`` slice; rank 0 alone prints, logs losses and writes
+checkpoints.
 """
 import argparse
 import time
@@ -77,7 +82,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--data-dir", default=None,
                         help="directory of HR GeoTIFFs/PNGs (default: "
                              "synthetic)")
-    parser.add_argument("--mesh", default="", help='a one-device spec, "dp=1"')
+    parser.add_argument("--mesh", default="", help='e.g. "dp=4"')
+    parser.add_argument("--backend", choices=("nccl", "gloo"),
+                        default="nccl",
+                        help="torch.distributed backend of a --mesh over "
+                             "more than one device: nccl (one rank per "
+                             "GPU) or gloo (the CPU, or ranks sharing a "
+                             "GPU)")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--loss-log", default=None, metavar="FILE",
                         help="append every step's loss to FILE, one per "
@@ -89,6 +100,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    from ..parallel.mesh import build_mesh
+
+    mesh = build_mesh(args.mesh, device=args.device) if args.mesh else None
+    if mesh is not None and mesh.size > 1:
+        from ..parallel import comm
+
+        comm.launch(train, mesh, args=(args, mesh), backend=args.backend,
+                    timeout=None)
+        return
+    train(0, args, mesh)
+
+
+def train(rank: int, args, mesh=None) -> None:
+    """The training run of ``args`` on one device, or as ``rank`` of
+    ``mesh`` (every rank calls it)."""
+    main_rank = rank == 0
     jpeg_range = None
     if args.jpeg:
         lo, hi = (float(v) for v in args.jpeg.split(","))
@@ -98,13 +125,13 @@ def main(argv=None) -> None:
 
     from ..fetch.synthetic import synthetic_fields
     from ..models.engine import resolve_device
-    from ..parallel.mesh import build_mesh
     from ..training.checkpoint import CheckpointManager
     from ..training.train import (TrainConfig, init_training,
                                   make_device_pool_train_step,
                                   make_train_step, restore_flexible)
 
-    device = resolve_device(args.device)
+    device = resolve_device(mesh.devices[rank] if mesh is not None
+                            else args.device)
     if device.type == "cuda":
         # training has no shape-invariance contract: cuDNN's fastest pick
         torch.backends.cudnn.benchmark = True
@@ -123,12 +150,12 @@ def main(argv=None) -> None:
                          window=args.window, learning_rate=args.lr,
                          lr_decay_steps=decay, remat=remat,
                          ema_decay=args.ema_decay)
-    mesh = build_mesh(args.mesh, device) if args.mesh else None
     params, opt_state = init_training(config, device=device)
+    say = print if main_rank else (lambda *a, **k: None)
     if args.resume and mgr.latest_step is not None:
         params, opt_state, start, opt_ok = restore_flexible(mgr, config,
                                                             device=device)
-        print(f"resumed from step {start}"
+        say(f"resumed from step {start}"
               + ("" if opt_ok else
                  " (schedule kind changed — Adam moments transplanted, "
                  "schedule state reset)"))
@@ -156,17 +183,19 @@ def main(argv=None) -> None:
              if args.family == "rrdbnet" else
              f"swinir dim {args.embed_dim} depths {args.depths} "
              f"heads {args.heads} window {args.window}")
-    print(f"training: {shape}, "
-          f"{args.steps} steps @ chunk {chunk}, pipeline={args.pipeline}, "
-          f"remat={remat}, decay to step {decay}, pool={len(pool)}, "
-          f"device={device}")
+    say(f"training: {shape}, "
+        f"{args.steps} steps @ chunk {chunk}, pipeline={args.pipeline}, "
+        f"remat={remat}, decay to step {decay}, pool={len(pool)}, "
+        f"device={device}"
+        + ("" if mesh is None else f", mesh={args.mesh} "
+           f"({mesh.size} ranks, {args.backend})"))
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     def log_losses(losses):
-        if args.loss_log:
+        if args.loss_log and main_rank:
             with open(args.loss_log, "a") as f:
                 f.writelines(f"{v!r}\n" for v in losses)
 
@@ -198,9 +227,10 @@ def main(argv=None) -> None:
                 last = float(lvec[-1])
                 rate = ((done - chunk) / (time.monotonic() - t_steady)
                         if done > chunk else 0.0)
-                print(f"step {start + done}/{start + args.steps}: loss "
-                      f"{last:.4f} ({rate:.1f} steps/s)", flush=True)
-            if done % args.save_every < chunk and done != args.steps:
+                say(f"step {start + done}/{start + args.steps}: loss "
+                    f"{last:.4f} ({rate:.1f} steps/s)", flush=True)
+            if (done % args.save_every < chunk and done != args.steps
+                    and main_rank):
                 mgr.save(start + done, params, opt_state)
     else:
         from ..training.data import PairSampler, prefetch
@@ -218,11 +248,14 @@ def main(argv=None) -> None:
             if args.loss_log:
                 log_losses([float(loss)])
             if done % 50 == 0 or done == args.steps:
-                print(f"step {start + done}: loss {float(loss):.4f}",
-                      flush=True)
-            if done % args.save_every == 0 and done != args.steps:
+                say(f"step {start + done}: loss {float(loss):.4f}",
+                    flush=True)
+            if (done % args.save_every == 0 and done != args.steps
+                    and main_rank):
                 mgr.save(start + done, params, opt_state)
 
+    if not main_rank:
+        return
     mgr.save(start + args.steps, params, opt_state)
     mgr.wait()
     print(f"saved checkpoint at step {start + args.steps} -> {args.ckpt_dir}")

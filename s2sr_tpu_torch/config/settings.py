@@ -66,7 +66,7 @@ class Settings:
     sr_exact_area: int = 0
     # per-checkpoint halo-exactness probe at engine build
     sr_pad_probe: bool = True
-    mesh_shape: str = ""         # one device only: "dp=1"; more raise
+    mesh_shape: str = ""         # e.g. "dp=4": serve over that mesh
     offline: bool = True         # no network fetches
     weights_dir: str = "models"  # converted-weight cache directory
 

@@ -19,10 +19,20 @@ into fixed windows that run in power-of-two chunks of at most
 36 Swin blocks, through the hand-written kernels. PyTorch runs eagerly,
 so there is no per-shape compile; the engine runs on ``cuda`` unless
 ``device="cpu"``.
+
+With a mesh (``SREngine(mesh=...)``, or ``Settings.mesh_shape`` through
+:func:`get_engine`) the engine holds one model replica per ``dp`` device
+and sends window chunks round-robin over them, in the tiled path
+(``parallel/tiling.py::tiled_apply``) and in the serving path alike; each
+replica runs whole chunks, so the output is the one-device output byte
+for byte. Images below the engage area run whole on the mesh's first
+device, as JAX's untiled branch does.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import json
 import os
 import threading
@@ -141,6 +151,7 @@ class SREngine:
         pad_probe: bool = True,
         exact_area: int | None = None,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         config = get_model_config(model_name)
         self.family = config["family"]
@@ -152,7 +163,9 @@ class SREngine:
         if dtype not in ("bfloat16", "float32", "int8"):
             raise ValueError(f"dtype must be bfloat16, float32 or int8, "
                              f"got {dtype}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         self.model_name = model_name
         self.scale = config["scale"]
         self.tile_size = tile_size
@@ -193,6 +206,18 @@ class SREngine:
                 "real quality", model_name, weights_dir)
         if dtype == "int8":
             self._quantize()
+        # one replica per dp device of the mesh; the first is self.model.
+        # SwinIR replicas keep the fused swin_block kernel: JAX's mesh
+        # engine turns its Pallas block off only because GSPMD cannot
+        # split a custom call, and the port splits nothing inside a chunk
+        # (tests/test_torch_mesh.py holds it to JAX's mesh engine at the
+        # SwinIR engine tests' tolerance)
+        self.replica_devices = ((self.device,) if mesh is None else
+                                tuple(resolve_device(d)
+                                      for d in mesh.axis_devices("dp")))
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
+                                        for d in self.replica_devices[1:]]
+        self.replica_forwards = [0] * len(self.replicas)
 
         # halo-exactness guard for loaded RRDBNet checkpoints (random init
         # skips; SwinIR's tiled path is approximate, so it has no probe; an
@@ -254,10 +279,13 @@ class SREngine:
 
     # -- model and uint8 contract ----------------------------------------
 
-    def _fwd(self, x: torch.Tensor, mask: torch.Tensor | None = None):
+    def _fwd(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+             replica: int = 0):
+        model = self.replicas[replica]
+        self.replica_forwards[replica] += 1
         if self.family == "swinir":
-            return self.model(x)
-        return self.model(x, mask=mask, up_sub_batch=self.up_sub)
+            return model(x)
+        return model(x, mask=mask, up_sub_batch=self.up_sub)
 
     def _to_float(self, img_u8: torch.Tensor) -> torch.Tensor:
         x = img_u8.float() / 255.0
@@ -268,17 +296,20 @@ class SREngine:
             out = out.flip(-1)
         return torch.trunc(torch.clamp(out * 255.0, 0.0, 255.0)).to(torch.uint8)
 
-    def _chunk(self, wins: np.ndarray, masks: np.ndarray | None):
+    def _chunk(self, wins: np.ndarray, masks: np.ndarray | None,
+               replica: int = 0):
         """(n, wh, ww, 3) uint8 windows → (n, s·wh, s·ww, 3) uint8 on the
-        device, enqueued; with ``masks`` the exact masked-bucket path."""
+        replica's device, enqueued; with ``masks`` the exact masked-bucket
+        path."""
+        dev = self.replica_devices[replica]
         x = self._to_float(torch.from_numpy(np.ascontiguousarray(wins))
-                           .to(self.device))
+                           .to(dev))
         mask = None
         if masks is not None:
-            mask = torch.from_numpy(np.ascontiguousarray(masks)).to(self.device)
+            mask = torch.from_numpy(np.ascontiguousarray(masks)).to(dev)
             x = x * mask           # the zero-pad region must be exactly zero
         self.chunks_dispatched += 1
-        return self._to_u8(self._fwd(x, mask))
+        return self._to_u8(self._fwd(x, mask, replica))
 
     # -- exact per-shape path ----------------------------------------------
 
@@ -289,9 +320,11 @@ class SREngine:
         h, w, _ = x.shape
         s = self.scale
         if h * w > self.engage_area:
-            out = tiled_apply(self._fwd, x, tile=self.tile_size,
-                              pad=self.tile_pad, scale=s,
-                              batch_size=self.batch_size)
+            fns = [functools.partial(self._fwd, replica=i)
+                   for i in range(len(self.replicas))]
+            out = tiled_apply(fns, x, tile=self.tile_size, pad=self.tile_pad,
+                              scale=s, batch_size=self.batch_size,
+                              mesh=self.mesh)
         elif self.family == "swinir":
             out = self._fwd(x[None])[0]
         else:
@@ -318,8 +351,9 @@ class SREngine:
                      masks: np.ndarray | None = None) -> np.ndarray:
         """(N, wh, ww, 3) uint8 windows → (N, s·wh, s·ww, 3) uint8, in
         power-of-two chunks ≤ ``batch_size`` (N's binary decomposition
-        plus repeated full chunks), with at most three chunk outputs on
-        the device while the host copies earlier ones back."""
+        plus repeated full chunks), with at most three chunk outputs per
+        replica on the device while the host copies earlier ones back; the
+        chunks go round-robin over the replicas."""
         n = wins.shape[0]
         pending: list = []
         outs = []
@@ -330,8 +364,9 @@ class SREngine:
                 step //= 2
             step = max(step, 1)
             pending.append(self._chunk(
-                wins[k:k + step], None if masks is None else masks[k:k + step]))
-            while len(pending) >= _MAX_INFLIGHT:
+                wins[k:k + step], None if masks is None else masks[k:k + step],
+                self.chunks_dispatched % len(self.replicas)))
+            while len(pending) >= _MAX_INFLIGHT * len(self.replicas):
                 outs.append(pending.pop(0).cpu().numpy())
             k += step
         outs.extend(o.cpu().numpy() for o in pending)
@@ -418,23 +453,29 @@ def loaded_engines() -> list:
 def get_engine(model_name: str = "realesrgan_x4", **kwargs) -> SREngine:
     """Process-wide engine cache; execution knobs the caller leaves out
     come from :func:`get_settings` before the cache key is formed. A
-    ``Settings.mesh_shape`` over more than one device raises
-    (:func:`~..parallel.mesh.check_single_device`)."""
+    ``Settings.mesh_shape`` (e.g. ``"dp=4"``) spreads the window chunks
+    over that mesh's devices (``sp > 1`` raises: ROADMAP queue 1 item
+    16b); the mesh's devices are part of the cache key."""
     from ..config import get_settings
-    from ..parallel.mesh import check_single_device
+    from ..parallel.mesh import build_mesh
 
     settings = get_settings()
-    check_single_device(settings.mesh_shape)
     kwargs.setdefault("tile_size", settings.sr_tile_size)
     kwargs.setdefault("tile_pad", settings.sr_tile_pad)
     kwargs.setdefault("batch_size", settings.sr_batch_size)
     kwargs.setdefault("dtype", settings.sr_dtype)
     kwargs.setdefault("pad_probe", settings.sr_pad_probe)
-    kwargs.setdefault("device", "cuda")
+    kwargs.setdefault("device", kwargs["mesh"].device
+                      if kwargs.get("mesh") is not None else "cuda")
     if settings.sr_exact_area:
         kwargs.setdefault("exact_area", settings.sr_exact_area)
     kwargs["device"] = str(resolve_device(kwargs["device"]))
-    key = (model_name, tuple(sorted(kwargs.items())))
+    if kwargs.get("mesh") is None and settings.mesh_shape:
+        kwargs["mesh"] = build_mesh(settings.mesh_shape,
+                                    device=kwargs["device"])
+    mesh = kwargs.get("mesh")
+    key = (model_name, None if mesh is None else mesh.key(),
+           tuple(sorted((k, v) for k, v in kwargs.items() if k != "mesh")))
     with _ENGINE_LOCK:
         if key not in _ENGINE_CACHE:
             _ENGINE_CACHE[key] = SREngine(model_name, **kwargs)

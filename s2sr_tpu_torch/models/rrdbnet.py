@@ -315,7 +315,8 @@ def _rrdb_block(x: torch.Tensor, blk: dict, slope: float,
 
 def rrdbnet_apply(params: dict, x: torch.Tensor, scale: int = 4,
                   dtype: torch.dtype = torch.bfloat16, remat: bool = False,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None,
+                  trunk=None) -> torch.Tensor:
     """(N, H, W, C) float in [0, 1] → (N, sH, sW, C) float32 through the
     param tree ``params`` (the JAX layout: ``conv_first``, ``body`` with
     every leaf stacked over blocks, ``conv_body``, ``conv_up1``,
@@ -324,7 +325,9 @@ def rrdbnet_apply(params: dict, x: torch.Tensor, scale: int = 4,
     runs with TF32 off. ``remat`` recomputes each RRDB block's
     activations in the backward pass instead of keeping them. ``mask``
     (N, H, W[, 1]) of 0/1 makes a zero-padded bucket compute the unpadded
-    forward on the true rectangle."""
+    forward on the true rectangle. ``trunk(feat)`` (NCHW in ``dtype``, no
+    mask) replaces the RRDB stack: the pipelined trunk of
+    ``parallel/pipeline.py``."""
     with ieee_fp32(dtype == torch.float32):
         n, h, w, _ = x.shape
         xc = x.permute(0, 3, 1, 2)
@@ -337,12 +340,14 @@ def rrdbnet_apply(params: dict, x: torch.Tensor, scale: int = 4,
 
         feat = m(_conv(xc, _oihw(params["conv_first"]), dtype))
         out = feat
-        for blk in _pack_body(params["body"], dtype):
+        for blk in ([] if trunk else _pack_body(params["body"], dtype)):
             if remat and torch.is_grad_enabled():
                 out = checkpoint(_rrdb_block, out, blk, slope, mk,
                                  use_reentrant=False)
             else:
                 out = _rrdb_block(out, blk, slope, mk)
+        if trunk:
+            out = trunk(feat)
         feat = m(feat + _conv(out, _oihw(params["conv_body"]), dtype))
         m2 = m4 = None
         if mk is not None:

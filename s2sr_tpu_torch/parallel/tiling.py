@@ -115,19 +115,30 @@ def extract_windows(img: torch.Tensor, plan: TilePlan) -> torch.Tensor:
 
 
 def tiled_apply(
-    model_fn: ModelFn,
+    model_fn,
     img: torch.Tensor,
     tile: int = 256,
     pad: int = 10,
     scale: int = 4,
     batch_size: int = 16,
+    mesh=None,
 ) -> torch.Tensor:
     """Whole-image SR via batched halo windows. ``img``: (H, W, C) float.
 
     ``model_fn`` maps (B, win_h, win_w, C) → (B, s·win_h, s·win_w, C).
     Windows run in ``batch_size`` chunks, the last one padded with
     repeats of the last window (stitching reads only the first N
-    outputs)."""
+    outputs).
+
+    With a mesh the chunks go round-robin over its ``dp`` devices
+    (``Mesh.axis_devices``): chunk k runs on replica k mod dp, on that
+    replica's device, and the stitch runs on the mesh's first device.
+    ``model_fn`` is then one callable for every replica or a sequence of
+    one per replica. JAX splits each chunk over dp instead; whole chunks
+    keep every forward at the one-device batch, so a convolution library
+    that picks its algorithm by batch size picks the same one, and the
+    stitched output equals the one-device output bit for bit."""
+    fns, devices = _replicas(model_fn, mesh, img.device)
     h, w, c = img.shape
     plan = TilePlan.for_image(h, w, tile=tile, pad=pad, scale=scale)
     crop_off, dest = plan.crop_boxes()
@@ -140,8 +151,11 @@ def tiled_apply(
     if n_padded != n:
         fill = windows[-1:].expand(n_padded - n, *windows.shape[1:])
         windows = torch.cat([windows, fill], 0)
-    outputs = torch.cat([model_fn(windows[k:k + batch_size])
-                         for k in range(0, n_padded, batch_size)], 0)[:n]
+    outs = []
+    for i, k in enumerate(range(0, n_padded, batch_size)):
+        r = i % len(fns)
+        outs.append(fns[r](windows[k:k + batch_size].to(devices[r])))
+    outputs = torch.cat([o.to(devices[0]) for o in outs], 0)[:n]
 
     keep_h, keep_w = plan.keep_size()
     canvas = torch.zeros((h * s, w * s, c), dtype=outputs.dtype,
@@ -152,6 +166,17 @@ def tiled_apply(
         canvas[dy:dy + keep_h, dx:dx + keep_w] = \
             outputs[i, cy:cy + keep_h, cx:cx + keep_w]
     return canvas
+
+
+def _replicas(model_fn, mesh, device) -> tuple:
+    """(one callable per dp replica, their devices)."""
+    devices = [device] if mesh is None else list(mesh.axis_devices("dp"))
+    fns = (list(model_fn) if isinstance(model_fn, (list, tuple))
+           else [model_fn] * len(devices))
+    if len(fns) != len(devices):
+        raise ValueError(f"{len(fns)} model functions for {len(devices)} "
+                         "dp replicas")
+    return fns, devices
 
 
 def bucket_pad(img: np.ndarray, mult: int = 64):

@@ -12,7 +12,8 @@ adversarial losses (the port of ``s2sr_tpu/training/gan.py``).
   features (an offline stand-in for VGG).
 - :func:`make_gan_train_step` (one G+D step per call) and
   :func:`make_device_pool_gan_step` (``chunk`` steps per call, each batch
-  sampled on the pool's device).
+  sampled on the pool's device), each over a ``dp`` mesh when given one
+  (run in every rank: ``parallel/comm.py::launch``).
 
 One step, in JAX's order: G's loss (pixel + perceptual + adversarial)
 and its gradient with respect to G's leaves only; G updated by the L1
@@ -32,9 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from ..models.weights import tree_flatten, tree_to_torch, tree_unflatten
+from ..parallel import comm
 from ..utils.precision import ieee_fp32
-from .train import Adam, TrainConfig, make_optimizer, make_pool_sampler, \
-    model_apply
+from .train import Adam, TrainConfig, dp_slice, make_optimizer, \
+    make_pool_sampler, model_apply
 
 SLOPE = 0.2
 
@@ -137,16 +139,22 @@ def perceptual_features(gen_params: dict, x: torch.Tensor) -> torch.Tensor:
     return _lrelu(feat).permute(0, 2, 3, 1)
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None and math.prod(mesh.shape) != 1:
-        raise ValueError("the GAN trainer takes a one-device mesh; "
-                         "multi-device training is ROADMAP queue 1 item 16")
-
-
-def _gan_step_parts(config: GanConfig):
+def _gan_step_parts(config: GanConfig, mesh=None):
     """The step, the discriminator and the two optimizers, shared by the
-    per-call and the device-pool trainers."""
+    per-call and the device-pool trainers. With a mesh of more than one
+    device the step runs in every rank on the global batch: each rank
+    keeps its ``dp`` slice, the relativistic losses' logit means are taken
+    over the global batch (an all-reduce in the forward and in the
+    backward), and G's and D's gradients and the metrics are averaged
+    over the ranks."""
     base = config.base
+    rm = comm.for_mesh(mesh)
+
+    def batch_mean(t):
+        if rm is None:
+            return t.mean()
+        return comm.all_reduce_sum(t.mean(), rm.world) / rm.world.size
+
     disc = UNetDiscriminator(config.num_feat_d)
     g_tx = make_optimizer(base)   # honours base.lr_decay_steps and the EMA
     d_tx = Adam(TrainConfig(learning_rate=config.lr_d))   # plain Adam
@@ -162,20 +170,24 @@ def _gan_step_parts(config: GanConfig):
         # gradient is taken with respect to G's leaves alone
         logits_fake = disc.apply(d_tree, sr)
         logits_real = disc.apply(d_tree, hr_batch)
+        mean_fake, mean_real = batch_mean(logits_fake), batch_mean(logits_real)
         # relativistic average GAN, generator side
         adv = 0.5 * (
-            torch.mean(F.softplus(-(logits_fake - logits_real.mean())))
-            + torch.mean(F.softplus(logits_real - logits_fake.mean())))
+            torch.mean(F.softplus(-(logits_fake - mean_real)))
+            + torch.mean(F.softplus(logits_real - mean_fake)))
         g_loss = (config.pixel_weight * pixel
                   + config.perceptual_weight * perceptual
                   + config.gan_weight * adv)
         # discriminator side, on the pre-update sr
         d_loss = 0.5 * (
-            torch.mean(F.softplus(-(logits_real - logits_fake.mean())))
-            + torch.mean(F.softplus(logits_fake - logits_real.mean())))
+            torch.mean(F.softplus(-(logits_real - mean_fake)))
+            + torch.mean(F.softplus(logits_fake - mean_real)))
         return g_loss, d_loss, pixel, adv
 
     def step(g_params, d_params, g_opt, d_opt, lr_batch, hr_batch):
+        if rm is not None:
+            lr_batch, hr_batch = (dp_slice(t, rm.axis("dp"))
+                                  for t in (lr_batch, hr_batch))
         g_leaves, g_struct = tree_flatten(g_params)
         d_leaves, d_struct = tree_flatten(d_params)
         g_leaves = [p.detach().requires_grad_(True) for p in g_leaves]
@@ -193,10 +205,17 @@ def _gan_step_parts(config: GanConfig):
         # a leaf the forward never reads (conv_up2 at ×2) has zero gradient
         g_grads = [torch.zeros_like(p) if g is None else g
                    for p, g in zip(g_leaves, g_grads)]
+        d_grads = list(d_grads)
+        scalars = [t.detach() for t in (g_loss, d_loss, pixel, adv)]
+        if rm is not None:
+            ng, nd = len(g_grads), len(d_grads)
+            flat = comm.all_reduce_mean(g_grads + d_grads + scalars,
+                                        rm.world)
+            g_grads, d_grads = flat[:ng], flat[ng:ng + nd]
+            scalars = flat[ng + nd:]
         g_params, g_opt = g_tx.update(g_grads, g_opt, g_params)
-        d_params, d_opt = d_tx.update(list(d_grads), d_opt, d_params)
-        metrics = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
-                   "pixel": pixel.detach(), "adv": adv.detach()}
+        d_params, d_opt = d_tx.update(d_grads, d_opt, d_params)
+        metrics = dict(zip(("g_loss", "d_loss", "pixel", "adv"), scalars))
         return g_params, d_params, g_opt, d_opt, metrics
 
     return step, disc, g_tx, d_tx
@@ -206,9 +225,9 @@ def make_gan_train_step(config: GanConfig, mesh=None):
     """→ ``(step, disc, g_tx, d_tx)``; ``step(g_params, d_params, g_opt,
     d_opt, lr, hr)`` → ``(g_params, d_params, g_opt, d_opt, metrics)``,
     the metrics (``g_loss``, ``d_loss``, ``pixel``, ``adv``) tensors on the
-    batch's device. ``mesh``: None or a one-device mesh."""
-    _check_mesh(mesh)
-    return _gan_step_parts(config)
+    batch's device. With a mesh, run it in every rank with the global
+    batch (:func:`_gan_step_parts`)."""
+    return _gan_step_parts(config, mesh)
 
 
 def make_device_pool_gan_step(config: GanConfig, crop_lr: int, batch: int,
@@ -223,8 +242,7 @@ def make_device_pool_gan_step(config: GanConfig, crop_lr: int, batch: int,
     pool, gen, draws=None)`` → ``(g_params, d_params, g_opt, d_opt,
     metrics)``, each metric stacked ``(chunk,)``; ``draws[i]`` replaces
     step i's draws from ``gen``."""
-    _check_mesh(mesh)
-    step, disc, g_tx, d_tx = _gan_step_parts(config)
+    step, disc, g_tx, d_tx = _gan_step_parts(config, mesh)
     sampler = make_pool_sampler(config.base.scale, crop_lr, batch,
                                 blur_sigma, noise_std, jpeg_range)
 

@@ -22,8 +22,13 @@ and an optional weight EMA.
   each batch on the device from a ``torch.Generator``
   (:func:`make_pool_sampler`).
 - A float32 step runs forward and backward with TF32 off.
-- A mesh is one device (``parallel/mesh.py::build_mesh``); more is
-  refused there (ROADMAP queue 1 item 16).
+- With a mesh of more than one device the steps run in every rank of it
+  (``parallel/comm.py::launch``). Each rank is given the whole global
+  batch, as JAX's replicated key draws it, and keeps its ``dp`` slice
+  (axes other than ``dp`` replicate the batch; ``sp > 1`` is refused by
+  the mesh, ROADMAP queue 1 item 16b). Params, Adam state and the pool
+  are replicated; the gradients and the loss are averaged over the
+  ranks, so each step is the one-device step on the global batch.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ from ..models.weights import (
     tree_to_torch,
     tree_unflatten,
 )
+from ..parallel import comm
+from ..parallel.mesh import window_sharding
 from ..utils.precision import ieee_fp32
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -224,8 +231,29 @@ def loss_and_grads(params, lr_batch, hr_batch, config: TrainConfig) -> tuple:
     return loss.detach(), grads
 
 
-def _one_step(config, tx, params, opt_state, lr_b, hr_b) -> tuple:
+def batch_sharding(mesh):
+    """(N, H, W, C): N over dp, H over sp (both optional in the mesh)."""
+    return window_sharding(mesh)
+
+
+def dp_slice(batch: torch.Tensor, dp) -> torch.Tensor:
+    """This rank's slice of a global batch along ``dp`` (a
+    ``comm.Axis``)."""
+    n = batch.shape[0]
+    if n % dp.size:
+        raise ValueError(f"batch {n} not divisible by dp={dp.size}")
+    k = n // dp.size
+    return batch[dp.index * k:(dp.index + 1) * k]
+
+
+def _one_step(config, tx, params, opt_state, lr_b, hr_b, rm=None) -> tuple:
+    if rm is not None:
+        lr_b, hr_b = (dp_slice(t, rm.axis("dp")) for t in (lr_b, hr_b))
     loss, grads = loss_and_grads(params, lr_b, hr_b, config)
+    if rm is not None:
+        # ranks that share a dp slice hold equal gradients, so the mean
+        # over every rank is the mean over dp
+        *grads, loss = comm.all_reduce_mean([*grads, loss], rm.world)
     params, opt_state = tx.update(grads, opt_state, params)
     return params, opt_state, loss
 
@@ -233,11 +261,14 @@ def _one_step(config, tx, params, opt_state, lr_b, hr_b) -> tuple:
 def make_train_step(config: TrainConfig, mesh=None):
     """→ ``(step, tx)``; ``step(params, opt_state, lr_batch, hr_batch)``
     → ``(params, opt_state, loss)``, the loss a tensor on the batch's
-    device. ``mesh``: None or a one-device mesh."""
+    device. With a mesh of more than one device, run it in every rank
+    with the global batch: the loss is the global mean on every rank."""
     tx = make_optimizer(config)
+    rm = comm.for_mesh(mesh)
 
     def step(params, opt_state, lr_batch, hr_batch):
-        return _one_step(config, tx, params, opt_state, lr_batch, hr_batch)
+        return _one_step(config, tx, params, opt_state, lr_batch, hr_batch,
+                         rm)
 
     return step, tx
 
@@ -245,14 +276,16 @@ def make_train_step(config: TrainConfig, mesh=None):
 def make_chunked_train_step(config: TrainConfig, mesh=None):
     """→ ``(run, tx)``; ``run(params, opt_state, lr_chunk, hr_chunk)`` runs
     K steps over chunks with a leading steps axis (K, N, h, w, 3) →
-    ``(params, opt_state, losses)``, the K losses stacked."""
+    ``(params, opt_state, losses)``, the K losses stacked. A mesh splits
+    N, as :func:`make_train_step`'s does."""
     tx = make_optimizer(config)
+    rm = comm.for_mesh(mesh)
 
     def run(params, opt_state, lr_chunk, hr_chunk):
         losses = []
         for lr_b, hr_b in zip(lr_chunk, hr_chunk):
             params, opt_state, loss = _one_step(config, tx, params,
-                                                opt_state, lr_b, hr_b)
+                                                opt_state, lr_b, hr_b, rm)
             losses.append(loss)
         return params, opt_state, torch.stack(losses)
 
@@ -368,8 +401,10 @@ def make_device_pool_train_step(config: TrainConfig, crop_lr: int, batch: int,
     runs ``chunk`` steps, each on a batch sampled on the pool's device
     (from ``gen``, or from ``draws[i]``, a dict of
     :meth:`PoolSampler.from_draws`'s arguments) → ``(params, opt_state,
-    losses)``."""
+    losses)``. With a mesh every rank draws the whole ``batch`` from a
+    generator seeded alike and keeps its ``dp`` slice."""
     tx = make_optimizer(config)
+    rm = comm.for_mesh(mesh)
     sampler = make_pool_sampler(config.scale, crop_lr, batch, blur_sigma,
                                 noise_std, jpeg_range,
                                 second_order=second_order)
@@ -380,7 +415,7 @@ def make_device_pool_train_step(config: TrainConfig, crop_lr: int, batch: int,
             d = sampler.draw(pool, gen) if draws is None else draws[i]
             lr_b, hr_b = sampler.from_draws(pool, **d)
             params, opt_state, loss = _one_step(config, tx, params,
-                                                opt_state, lr_b, hr_b)
+                                                opt_state, lr_b, hr_b, rm)
             losses.append(loss)
         return params, opt_state, torch.stack(losses)
 

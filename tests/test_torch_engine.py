@@ -211,10 +211,11 @@ def test_parse_mesh_shape_matches_jax(spec):
 
 
 @pytest.mark.parametrize("spec, serves", [("dp=1", True), ("dp=1,tp=1", True),
-                                          ("dp=4", False), ("dp=2,sp=2", False)])
+                                          ("dp=4", True), ("dp=2,sp=2", False)])
 def test_get_engine_mesh_shape(tiny, monkeypatch, spec, serves):
     """A mesh over one device serves (JAX serves it identically on one
-    chip); any other raises naming ROADMAP queue 1 item 16."""
+    chip), and so does dp=4 (four CPU replicas); sp > 1 raises naming
+    ROADMAP queue 1 item 16b."""
     from s2sr_tpu_torch.config import settings as settings_mod
 
     _, _, d, _ = tiny
@@ -227,7 +228,7 @@ def test_get_engine_mesh_shape(tiny, monkeypatch, spec, serves):
             out = eng.enhance_serving(np.zeros((8, 8, 3), np.uint8))
             assert out.shape == (32, 32, 3)
         else:
-            with pytest.raises(ValueError, match="ROADMAP queue 1 item 16"):
+            with pytest.raises(ValueError, match="ROADMAP queue 1 item 16b"):
                 engine_mod.get_engine("rrdb_tiny", weights_dir=str(d),
                                       dtype="float32", device="cpu")
     finally:

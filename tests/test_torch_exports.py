@@ -43,5 +43,6 @@ def test_build_mesh_one_device():
     assert mesh.axis_names == ("dp",) and mesh.shape == (1,)
     assert build_mesh("", device="cpu").axis_names == ("dp",)
     assert build_mesh("dp=1,sp=1", device="cpu").shape == (1, 1)
-    with pytest.raises(ValueError, match="item 16"):
-        build_mesh("dp=2", device="cpu")
+    assert build_mesh("dp=2", device="cpu").devices == (torch.device("cpu"),) * 2
+    with pytest.raises(ValueError, match="item 16b"):
+        build_mesh("dp=2,sp=2", device="cpu")

@@ -37,7 +37,9 @@ def test_modules_import_with_jax_blocked():
             "s2sr_tpu_torch.server.jobs", "s2sr_tpu_torch.server.persistence",
             "s2sr_tpu_torch.server.app", "s2sr_tpu_torch.cli.serve",
             "s2sr_tpu_torch.models.rrdbnet_int8", "s2sr_tpu_torch.tiles.jpeg",
-            "s2sr_tpu_torch.parallel.mesh",
+            "s2sr_tpu_torch.parallel.mesh", "s2sr_tpu_torch.parallel.comm",
+            "s2sr_tpu_torch.parallel.tensor",
+            "s2sr_tpu_torch.parallel.pipeline",
             "s2sr_tpu_torch.vectors", "s2sr_tpu_torch.vectors.ops",
             "s2sr_tpu_torch.vectors.geometry",
             "s2sr_tpu_torch.vectors.extraction",
@@ -77,7 +79,7 @@ def test_modules_import_with_jax_blocked():
             "s2sr_tpu_torch.ops.jpeg", "s2sr_tpu_torch.utils.metrics",
             "s2sr_tpu_torch.training.degradation",
             "s2sr_tpu_torch.training.gan", "s2sr_tpu_torch.cli.train_demo",
-            } <= set(mods) and len(mods) >= 116
+            } <= set(mods) and len(mods) >= 119
     code = "\n".join([
         "import sys",
         "for name in ('jax', 'jaxlib', 's2sr_tpu', 'PIL', 'pydantic',"

@@ -29,7 +29,9 @@ def jax_tree(scale, seed=0):
     leaf drawn from numpy: weights at a scale where the Swin blocks move
     the output, nonzero biases, norm weights around 1."""
     rng = np.random.default_rng(seed)
-    init = jsw.SwinIR(scale=scale, **KW).init(jax.random.PRNGKey(0))
+    # the structure and shapes only: no init is run
+    init = jax.eval_shape(jsw.SwinIR(scale=scale, **KW).init,
+                          jax.random.PRNGKey(0))
 
     def draw(path, leaf):
         names = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
