@@ -5188,6 +5188,16 @@ MESH_LOSS_REL, MESH_ATOL, MESH_RTOL = 1e-5, 1e-5, 1e-4
 # gap relative to that max measures a few bf16 steps, not the kernel; a
 # wrong block or packing is off by the output's own size.
 MESH_BF16_VS_PLAIN = 2.0
+# The GAN step over sp=2 is held by its gradients, each leaf's largest
+# |Δ| over the leaf's largest gradient: a band's float32 convs run at
+# other shapes than the whole image's, and cuDNN's algorithm for a shape
+# sums in its own order (1.2e-4 for G and 8.5e-5 for D measured on the
+# card), while Adam's first step turns a gradient of a few 1e-9 into a
+# move of its sign times the step size, so the params after one step
+# differ where a gradient is rounding. A halo row's gradient lost would
+# move a weight's gradient by ~1/rows of the band (1e-2 here). D's out1
+# bias is left out, as in the params' check.
+MESH_GRAD_REL = 1e-3
 
 
 def _tree_apart(a, b, skip=()) -> dict:
@@ -5404,7 +5414,340 @@ def mesh_rank_program(rank: int, devices: list, width: dict) -> dict:
                    d=_tree_apart(d1, d1r, skip=("out1/bias",)),
                    metrics_rel=max(_loss_rel(m[k], mr[k]) for k in m))
     out["gan_dp2"] = res
+
+    # (7) the dry run's leg 1 (__graft_entry__.py::dryrun_multichip): a
+    # float32 L1 step over dp=1,sp=2, batch 2·dp, LR H 16·sp
+    sp2 = build_mesh("dp=1,sp=2", devices=devices)
+    rng = np.random.default_rng(0)
+    lr1 = torch.from_numpy(rng.random((2, 32, 16, 3), np.float32)).to(dev)
+    hr1 = torch.from_numpy(rng.random((2, 128, 64, 3), np.float32)).to(dev)
+    leg = TrainConfig(num_feat=16, num_block=2, num_grow_ch=8, scale=4,
+                      dtype="float32")
+    lp, lo = init_training(leg, seed=0, device=dev)
+    for name, c, x_lr, x_hr, ps, os_ in (
+            ("sp_l1_leg1", leg, lr1, hr1, lp, lo),
+            # (8) SwinIR (the training default: embed 60, 2×2 blocks,
+            # window 8) over sp=2: LR crops of 4 window rows, 2 a band
+            ("sp_swinir", TrainConfig(family="swinir", dtype="float32"),
+             lr, hr, None, None)):
+        if ps is None:
+            ps, os_ = init_training(c, seed=0, device=dev)
+            x_lr, x_hr = lr[:2], hr[:2]
+        step, _ = make_train_step(c, sp2)
+        (p_s, _, loss), secs = timed(lambda: step(ps, os_, x_lr, x_hr))
+        res = {"seconds": secs, "loss": float(loss)}
+        if main:
+            ref_step, _ = make_train_step(c)
+            p_1, _, loss_1 = ref_step(ps, os_, x_lr, x_hr)
+            res.update(_tree_apart(p_s, p_1), loss_rel=_loss_rel(loss, loss_1))
+        out[name] = res
+
+    # (9) the GAN step of (6) over sp=2 (HR bands of 64 rows), G's and D's
+    # gradients kept as the optimizers receive them
+    def gan_grads(mesh):
+        step, _, g_tx, d_tx = pg.make_gan_train_step(gcfg, mesh)
+        grads = {}
+        for name, tx in (("g", g_tx), ("d", d_tx)):
+            def keep(gs, st, p, name=name, update=tx.update):
+                grads[name] = [g.detach() for g in gs]
+                return update(gs, st, p)
+            tx.update = keep
+        return step(params, d, opt, d_opt, lr, hr), grads
+
+    ((g1, d1, _, _, m), grads), secs = timed(lambda: gan_grads(sp2))
+    res = {"seconds": secs, **{k: float(v) for k, v in m.items()}}
+    if main:
+        _, grads1 = gan_grads(None)
+        res.update(g=_tree_apart(g1, g1r),
+                   d=_tree_apart(d1, d1r, skip=("out1/bias",)),
+                   metrics_rel=max(_loss_rel(m[k], mr[k]) for k in m),
+                   # out1's bias: the relativistic losses ignore a shift
+                   # of every logit, so its gradient is rounding alone
+                   grad_rel={k: max(float((a - b).abs().max())
+                                    / float(b.abs().max().clamp_min(1e-30))
+                                    for a, b, path in zip(
+                                        grads[k], grads1[k],
+                                        _paths(params if k == "g" else d))
+                                    if path != "/out1/bias")
+                             for k in grads})
+    out["sp_gan"] = res
     return out
+
+
+def band_rows(h: int, sp: int, halo: int) -> list:
+    """Per band of ``h`` rows over ``sp``: (rows kept, rows a layer with a
+    ``halo``-row halo computes on the extended band)."""
+    from s2sr_tpu_torch.parallel.spatial import band_bounds
+
+    return [(b - a, b - a + min(halo, a) + min(halo, h - b))
+            for a, b in band_bounds(h, sp)]
+
+
+def sp_values_apart(got, want) -> dict:
+    """How far an sp serving output is from the one-device output, and
+    whether it is within ``assert_bytes_close``'s bound (|Δ| ≤ 1 on at most
+    0.1% of the bytes)."""
+    import numpy as np
+
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    apart = int((diff > 0).sum())
+    return {"values_apart": apart, "max_abs_diff": int(diff.max()),
+            "share_apart": apart / diff.size,
+            "within": bool(diff.max() <= 1 and apart <= 1e-3 * diff.size)}
+
+
+def sp_cudnn_off(eng, ref, x) -> dict:
+    """One chunk of windows through the band forward and the one-device
+    forward with cuDNN off in both (PyTorch's own convs, whose rounding
+    depends on no shape): values apart. 0 says that a nonzero count with
+    cuDNN on comes from cuDNN's choice of algorithm by shape (the bands'
+    convs run at other shapes than the whole window's)."""
+    import torch
+
+    from s2sr_tpu_torch.parallel import spatial
+
+    group = eng.replica_groups[0]
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=False):
+        whole = ref._fwd(x)
+        parts = spatial.split(x, spatial.band_bounds(x.shape[1], len(group),
+                                                     eng.band_unit), group)
+        bands = spatial.gather(eng._fwd(parts), x.device)
+    return {"cudnn_off_values_apart": int((whole != bands).sum()),
+            "cudnn_off_max_abs_diff": float((whole - bands).abs().max())}
+
+
+def sp_chunk_ms(eng, ref, x) -> dict:
+    """Milliseconds of one chunk's band forward and of its one-device
+    forward (CUDA events, 3 calls after 1 warm-up each)."""
+    import torch
+
+    from s2sr_tpu_torch.parallel import spatial
+
+    group = eng.replica_groups[0]
+    bounds = spatial.band_bounds(x.shape[1], len(group), eng.band_unit)
+    with torch.no_grad():
+        parts = spatial.split(x, bounds, group)
+        return {"band_forward_ms": time_cuda(lambda: eng._fwd(parts), 3, 1),
+                "one_device_forward_ms": time_cuda(lambda: ref._fwd(x), 3, 1)}
+
+
+def swin_band_kernel_check(card: str) -> dict:
+    """The Swin kernels on a rolled band (the shapes of a 288-row SwinIR
+    window at sp=2: (1, 144, 288, 180)), ``last`` false and true, against
+    their plain versions on the same band and arguments; the error over
+    the block's change, as phase swin_kernel measures it, at its
+    tolerances (fp32 1e-4, bf16 0.05)."""
+    import torch
+
+    from s2sr_tpu_torch.ops import window_attention as wa
+
+    tol = {torch.float32: 1e-4, torch.bfloat16: 0.05}
+    launches0 = dict(wa.LAUNCHES)
+    worst = 0.0
+    for name, (fn, ref, mlp) in swin_kernels().items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for last in (False, True):
+                x, t, t32 = swin_inputs((1, 144, 288), dtype, 4, seed=7)
+                got = fn(x, t, rolled=True, last=last).float()
+                want32 = ref(x.float(), t32, rolled=True, last=last)
+                change = ((want32 - x.float()) if mlp else want32) \
+                    .abs().max().item()
+                err = (got - ref(x, t, rolled=True, last=last).float()) \
+                    .abs().max().item()
+                rec = {"phase": "mesh", "check": "swin kernel on a band",
+                       "kernel": name, "dtype": str(dtype), "last": last,
+                       "shape": [1, 144, 288, 180], "max_abs_err": err,
+                       "rel_err": err / change, "tolerance": tol[dtype],
+                       "card": card}
+                emit(rec)
+                if not rec["rel_err"] <= tol[dtype]:
+                    raise AssertionError(f"swin kernel on a band: {rec}")
+                worst = max(worst, rec["rel_err"])
+    wa.LAUNCHES.update(launches0)        # comparison launches
+    return {"rel_err": worst}
+
+
+def sp_chunk_compare(eng, one, ref32, x) -> dict:
+    """One chunk of windows ``x`` through the band forward of ``eng`` and
+    the one-device forward of ``one`` (the same weights), in float, and
+    both against ``ref32``, the float32 forward (TF32 off) on the same
+    weights: values apart, max |Δ|, each one's error relative to the
+    float32 output's max. ``within``: the band forward is at most
+    ``MESH_BF16_VS_PLAIN`` times as far from float32 as the one-device
+    forward (a float32 engine: within 1e-5 of the output's max)."""
+    import torch
+
+    from s2sr_tpu_torch.parallel import spatial
+
+    group = eng.replica_groups[0]
+    bounds = spatial.band_bounds(x.shape[1], len(group), eng.band_unit)
+    with torch.no_grad():
+        whole = one._fwd(x)
+        bands = spatial.gather(eng._fwd(spatial.split(x, bounds, group)),
+                               x.device)
+        f32 = whole if ref32 is None else ref32._fwd(x)
+    top = float(f32.abs().max())
+    rec = {"chunk": list(x.shape), "chunk_values_apart":
+           int((whole != bands).sum()),
+           "chunk_max_abs_diff": float((whole - bands).abs().max()),
+           "out_max": top, "finite": bool(torch.isfinite(bands).all())}
+    if ref32 is None:
+        rec["within_float"] = rec["chunk_max_abs_diff"] <= 1e-5 * top
+    else:
+        one_rel = float((whole - f32).abs().max()) / top
+        band_rel = float((bands - f32).abs().max()) / top
+        rec.update(one_vs_f32_rel=one_rel, bands_vs_f32_rel=band_rel,
+                   within_float=band_rel <= MESH_BF16_VS_PLAIN * one_rel
+                   or rec["chunk_values_apart"] == 0)
+    rec["within_float"] &= rec["finite"]
+    return rec
+
+
+def mesh_sp_serving(card: str, img, kw: dict, ref, wants: dict,
+                    ref_secs: dict) -> dict:
+    """Serving over ``sp`` on one card (every band on ``cuda:0``): the
+    1024×768 scene over ``dp=1,sp=2`` and ``dp=2,sp=2`` on the tiled and
+    the serving path (bf16 ``realesrgan_x4``, every RDB in ``rdb`` on its
+    5-row extended band), the int8 engine over ``sp=2`` (``rdb_i8``) and
+    SwinIR's tiled path over ``sp=2`` (``swin_block`` on rolled bands) in
+    float32 and bf16, each against one device: the uint8 output's values
+    apart (0 expected; bounded as ``assert_bytes_close``, but for bf16
+    SwinIR, whose random-init output peaks near 23, so that its bf16
+    rounding is tens of output steps), launches and seconds; then one
+    chunk in float (:func:`sp_chunk_compare`: the random-init RRDBNet's
+    output peaks near 2e-4 and its uint8 is all 0, so this is the check
+    that bites), its band forward's time against the one-device
+    forward's, and the halo's share of the rows computed. → the
+    main-path launches of each kernel."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models.engine import SREngine
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.ops import window_attention as wa
+    from s2sr_tpu_torch.parallel.mesh import build_mesh
+
+    launches = {"rdb": 0, "rdb_i8": 0, "swin_block": 0}
+    counter = {"rdb": lambda: rdb_mod.LAUNCHES,
+               "rdb_i8": lambda: rdb_mod.LAUNCHES_I8,
+               "swin_block": lambda: wa.LAUNCHES["swin_block"]}
+
+    def zero():
+        rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = 0
+        wa.LAUNCHES.update(swin_block=0, window_attention=0)
+
+    def serve(label, eng, one, image, wants_of, secs_of, kernel, per_chunk,
+              bound_bytes=True):
+        sp = len(eng.replica_groups[0])
+        for path in ("enhance", "enhance_serving"):
+            want = wants_of[path]
+            getattr(eng, path)(image)              # warm: cuDNN's plans
+            before = list(eng.replica_forwards)
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = getattr(eng, path)(image)
+            secs = time.perf_counter() - t0
+            n = counter[kernel]()
+            launches[kernel] += n
+            chunks = [a - b for a, b in zip(eng.replica_forwards, before)]
+            rec = {"phase": "mesh", "check": f"serving {label} {path}",
+                   "scene": list(image.shape[:2]), **sp_values_apart(got, want),
+                   "bytes_bounded": bound_bytes,
+                   "seconds": secs, "one_device_seconds": secs_of[path],
+                   "chunks_per_replica": chunks, "bands_per_replica": sp,
+                   f"{kernel}_launches": n,
+                   f"{kernel}_launches_per_chunk_band":
+                       n / max(sum(chunks) * sp, 1),
+                   "card": card}
+            emit(rec)
+            if (got.shape != want.shape
+                    or (bound_bytes and not rec["within"])
+                    or min(chunks) < 1 or n != per_chunk * sum(chunks) * sp):
+                raise AssertionError(f"sp serving {label} {path}: {rec}")
+
+    def chunk(eng, image):
+        wins = eng._serving_parts(image)[0][:eng.batch_size]
+        return eng._to_float(torch.from_numpy(np.ascontiguousarray(wins))
+                             .cuda())
+
+    def compare(label, eng, one, ref32, x, timed=True):
+        rec = {"phase": "mesh", "check": f"band forward {label}",
+               **sp_chunk_compare(eng, one, ref32, x),
+               **(sp_chunk_ms(eng, one, x) if timed else {}), "card": card}
+        emit(rec)
+        if rec["chunk_values_apart"]:
+            emit({"phase": "mesh", "check": f"band forward {label}: why "
+                  "values are apart", **sp_cudnn_off(eng, one, x[:1]),
+                  "note": "the bands' convs outside the kernels run at "
+                          "other shapes than the whole window's (cuDNN, or "
+                          "cuBLAS under PyTorch's own conv, picks its "
+                          "algorithm by shape); the kernels' outputs on a "
+                          "band equal the whole window's",
+                  "card": card})
+        if not rec["within_float"]:
+            raise AssertionError(f"band forward {label}: {rec}")
+
+    win = 256 + 2 * 4
+    emit({"phase": "mesh", "check": "sp halo share",
+          "window_rows": win, "rdb_halo": 5,
+          "bands_kept_computed": band_rows(win, 2, 5),
+          "halo_share": [1 - k / c for k, c in band_rows(win, 2, 5)],
+          "card": card})
+    ref32 = SREngine("realesrgan_x4", dtype="float32", **kw)
+    for spec, n_dev in (("dp=1,sp=2", 2), ("dp=2,sp=2", 4)):
+        eng = SREngine("realesrgan_x4", mesh=build_mesh(
+            spec, devices=["cuda:0"] * n_dev), **kw)
+        serve(spec, eng, ref, img, wants, ref_secs, "rdb",
+              3 * len(eng.model.body))
+        if n_dev == 2:       # dp=2,sp=2's replica computes the same bands
+            compare(f"{spec} (bf16)", eng, ref, ref32, chunk(eng, img))
+        del eng
+        torch.cuda.empty_cache()
+
+    sp2 = build_mesh("sp=2", devices=["cuda:0"] * 2)
+    one8 = SREngine("realesrgan_x4", dtype="int8", **kw)
+    want8, secs8 = {}, {}
+    for path in ("enhance", "enhance_serving"):
+        getattr(one8, path)(img)
+        t0 = time.perf_counter()
+        want8[path] = getattr(one8, path)(img)
+        secs8[path] = time.perf_counter() - t0
+    eng8 = SREngine("realesrgan_x4", dtype="int8", mesh=sp2, **kw)
+    serve("int8 sp=2", eng8, one8, img, want8, secs8, "rdb_i8",
+          3 * len(eng8.model.body))
+    compare("sp=2 (int8)", eng8, one8, ref32, chunk(eng8, img))
+    del eng8, one8, ref32
+    torch.cuda.empty_cache()
+
+    swin_band_kernel_check(card)
+    # SwinIR-M x4 on its tiled path (exact_area 0): 288-row windows, two
+    # bands of 18 window rows; a 512² scene makes 4 windows, one chunk
+    simg = synthetic_fields(size=(512, 512), seed=17)
+    skw = dict(kw, batch_size=4, exact_area=0)
+    ones32 = None
+    for dtype in ("float32", "bfloat16"):
+        ones = SREngine("swinir_x4", **dict(skw, dtype=dtype))
+        wants_s, secs_s = {}, {}
+        for path in ("enhance", "enhance_serving"):
+            getattr(ones, path)(simg)
+            t0 = time.perf_counter()
+            wants_s[path] = getattr(ones, path)(simg)
+            secs_s[path] = time.perf_counter() - t0
+        engs = SREngine("swinir_x4", mesh=sp2, **dict(skw, dtype=dtype))
+        serve(f"swinir sp=2 ({dtype})", engs, ones, simg, wants_s, secs_s,
+              "swin_block",
+              sum(len(layer.residual_group.blocks)
+                  for layer in engs.model.layers),
+              bound_bytes=dtype == "float32")
+        compare(f"sp=2 (swinir {dtype})", engs, ones, ones32,
+                chunk(engs, simg), timed=dtype == "bfloat16")
+        if dtype == "float32":
+            ones32 = ones
+        del engs
+        torch.cuda.empty_cache()
+    return launches
 
 
 def phase_mesh(state):
@@ -5424,8 +5767,15 @@ def phase_mesh(state):
     one FSDP step at ``dp=1,tp=2``, one ``pp=2`` train step (ragged 12/11),
     the float32 trunk over ``pp=2``, and one GAN step at ``dp=2``, each
     within JAX's sharded-against-unsharded tolerances of the one-device
-    step. The ranks share one card: this checks the sharding and the
-    collectives, not the speed of several GPUs."""
+    step; (3) the ``sp`` axis (:func:`mesh_sp_serving`): the scene over
+    ``dp=1,sp=2`` and ``dp=2,sp=2`` on both paths, the int8 engine over
+    ``sp=2`` and SwinIR's tiled path over ``sp=2`` against one device,
+    the Swin kernels on a rolled band against their plain versions, and
+    in the ranks the dry run's leg 1 (a float32 L1 step over
+    ``dp=1,sp=2``), a SwinIR step and a GAN step over ``sp=2`` against
+    one device at JAX's tolerances. The ranks and the bands share one
+    card: this checks the sharding and the collectives, not the speed of
+    several GPUs."""
     import numpy as np
     import torch
 
@@ -5448,11 +5798,12 @@ def phase_mesh(state):
     if eng.dtype != torch.bfloat16 or n_rdb != 69:
         raise AssertionError("phase mesh serves full-width bf16 realesrgan_x4")
     launches = 0
+    wants, ref_secs_of = {}, {}
     for path in ("enhance", "enhance_serving"):
         getattr(ref, path)(img)                  # warm: cuDNN's plans
         t0 = time.perf_counter()
-        want = getattr(ref, path)(img)
-        ref_secs = time.perf_counter() - t0
+        want = wants[path] = getattr(ref, path)(img)
+        ref_secs = ref_secs_of[path] = time.perf_counter() - t0
         getattr(eng, path)(img)
         before = list(eng.replica_forwards)
         rdb_mod.LAUNCHES = 0
@@ -5474,7 +5825,11 @@ def phase_mesh(state):
         if (rec["values_apart"] or got.shape != (3072, 4096, 3)
                 or min(chunks) < 1 or rdb_mod.LAUNCHES != n_rdb * sum(chunks)):
             raise AssertionError(f"mesh serving {path}: {rec}")
-    del eng, ref
+    del eng
+    torch.cuda.empty_cache()
+    sp_launches = mesh_sp_serving(card, img, kw, ref, wants, ref_secs_of)
+    launches += sp_launches["rdb"]
+    del ref
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -5521,9 +5876,30 @@ def phase_mesh(state):
             ok &= rec["stages"] == [12, 11]
         if not ok:
             raise AssertionError(f"mesh {name}: {rec}")
+    for name, tol_note in (
+            ("sp_l1_leg1", "the dry run's leg 1 (float32, dp=1,sp=2, "
+                           "batch 2, LR 32x16)"),
+            ("sp_swinir", "SwinIR step, sp=2, batch 2, LR crops 32"),
+            ("sp_gan", "one G+D step, sp=2, batch 4, crop 32; held by the "
+                       f"metrics and the gradients (grad_rel ≤ "
+                       f"{MESH_GRAD_REL}), the params reported")):
+        rec = r0[name]
+        emit({"phase": "mesh", "check": name, "note": tol_note, **rec,
+              "tol": {"loss_rel": MESH_LOSS_REL, "atol": MESH_ATOL,
+                      "rtol": MESH_RTOL, "grad_rel": MESH_GRAD_REL},
+              **common})
+        if name == "sp_gan":
+            ok = (rec["metrics_rel"] <= MESH_LOSS_REL
+                  and max(rec["grad_rel"].values()) <= MESH_GRAD_REL)
+        else:
+            ok = rec["within"] and rec["loss_rel"] <= MESH_LOSS_REL
+        if not ok:
+            raise AssertionError(f"mesh {name}: {rec}")
     emit({"phase": "mesh", "check": "rank spawn", "seconds": spawn_secs,
           **common})
     state["mesh_launches"] = launches
+    state["mesh_launches_i8"] = sp_launches["rdb_i8"]
+    state["mesh_swin_launches"] = sp_launches["swin_block"]
 
 
 def kernels_record(state) -> list | None:
@@ -5550,7 +5926,8 @@ def kernels_record(state) -> list | None:
             {"name": "rdb_i8", "route": "cuda",
              "source": "s2sr_tpu_torch/csrc/rdb.cu",
              "replaces": RDB_I8_REPLACES,
-             "launches": state["main_launches_i8"],
+             "launches": (state["main_launches_i8"]
+                          + state.get("mesh_launches_i8", 0)),
              "max_abs_err": state["rdb_i8_max_abs_err"],
              "rel_err": state["rdb_i8_rel_err"],
              **state["rdb_i8_numbers"], "library_ms": None}]
@@ -5560,7 +5937,9 @@ def kernels_record(state) -> list | None:
                      "source": "s2sr_tpu_torch/csrc/window_attention.cu",
                      "replaces": SWIN_REPLACES[name],
                      "launches": (state["swin_launches"][name]
-                                  + warm.get(name, 0)),
+                                  + warm.get(name, 0)
+                                  + (state.get("mesh_swin_launches", 0)
+                                     if name == "swin_block" else 0)),
                      "max_abs_err": err, "rel_err": rel,
                      **state["swin_numbers"][name], "library_ms": None})
     lad = state["ladder"]

@@ -12,11 +12,12 @@ HR scenes (the port of ``s2sr_tpu.cli.train``).
 
 LR inputs are area-downsampled HR crops, optionally blurred, noised and
 JPEG-compressed. It runs on CUDA unless ``--device cpu``. ``--mesh dp=N``
-trains over N ranks, which this command spawns itself
-(``parallel/comm.py::launch``), one per visible GPU with ``--backend
-nccl`` (the default), or over gloo with ``--backend gloo`` (the CPU, or
-ranks that share a GPU). Every rank draws the same global batches and
-trains on its ``dp`` slice; rank 0 alone prints, logs losses and writes
+(or ``dp=N,sp=M``) trains over N (N·M) ranks, which this command spawns
+itself (``parallel/comm.py::launch``), one per visible GPU with
+``--backend nccl`` (the default), or over gloo with ``--backend gloo``
+(the CPU, or ranks that share a GPU). Every rank draws the same global
+batches and trains on its (dp, sp) slice: N over ``dp``, bands of H over
+``sp`` with halo exchanges; rank 0 alone prints, logs losses and writes
 checkpoints.
 """
 import argparse
@@ -82,7 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--data-dir", default=None,
                         help="directory of HR GeoTIFFs/PNGs (default: "
                              "synthetic)")
-    parser.add_argument("--mesh", default="", help='e.g. "dp=4"')
+    parser.add_argument("--mesh", default="",
+                        help='e.g. "dp=4" or "dp=2,sp=2"')
     parser.add_argument("--backend", choices=("nccl", "gloo"),
                         default="nccl",
                         help="torch.distributed backend of a --mesh over "

@@ -16,6 +16,10 @@
 // the roll into their addressing, reading and writing each token at its
 // own place in the unrolled map, and add one of 4 shift masks (0/-100)
 // chosen by 2*(last window row) + (last window column) of the rolled grid.
+// On a band of H (the sp axis, parallel/spatial.py) the caller rolls H
+// across the bands before and after the launch; the kernel then rolls W
+// alone (hshift 0) and gives the last-row mask only to the window row
+// that is the whole image's last (last_wy; -1 on every band but the last).
 //
 // Numerics (shared with the plain version, ops/window_attention.py):
 // LayerNorm statistics, every product sum, scores + bias + mask and the
@@ -221,7 +225,7 @@ swin_kernel(const T* __restrict__ x, T* __restrict__ out,
             const float* __restrict__ g2, const float* __restrict__ b2,
             const T* __restrict__ w1, const float* __restrict__ bf1,
             const T* __restrict__ w2, const float* __restrict__ bf2,
-            int H, int W, int shift) {
+            int H, int W, int shift, int hshift, int last_wy) {
   extern __shared__ __align__(16) float smem[];
   float* sx = smem + OFF_X;
   float* sln = smem + OFF_LN;
@@ -237,11 +241,11 @@ swin_kernel(const T* __restrict__ x, T* __restrict__ out,
   const int wy = (win / nww) % nwh;
   const int wx = win % nww;
   const float* mask =
-      shift > 0 ? masks + (2 * (wy == nwh - 1) + (wx == nww - 1)) * N * N
+      shift > 0 ? masks + (2 * (wy == last_wy) + (wx == nww - 1)) * N * N
                 : nullptr;
   // element offset of token r (row-major in the rolled window) in x/out
   auto pix = [&](int r) -> size_t {
-    const int gy = (wy * WIN + (r >> 3) + shift) % H;
+    const int gy = (wy * WIN + (r >> 3) + hshift) % H;
     const int gx = (wx * WIN + (r & 7) + shift) % W;
     return (((size_t)b * H + gy) * W + gx) * C;
   };
@@ -566,7 +570,7 @@ swin_tc_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ 
                const float* __restrict__ g2, const float* __restrict__ b2,
                const uint2* __restrict__ w1, const float* __restrict__ bf1,
                const uint2* __restrict__ w2, const float* __restrict__ bf2,
-               int H, int W, int shift) {
+               int H, int W, int shift, int hshift, int last_wy) {
   // named apart from swin_kernel's: extern shared arrays share one name space
   extern __shared__ __align__(128) unsigned char tc_smem[];
   unsigned char* smem = tc_smem;
@@ -582,11 +586,11 @@ swin_tc_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ 
   const int wy = (win / nww) % nwh;
   const int wx = win % nww;
   const float* mask =
-      shift > 0 ? masks + (2 * (wy == nwh - 1) + (wx == nww - 1)) * N * N
+      shift > 0 ? masks + (2 * (wy == last_wy) + (wx == nww - 1)) * N * N
                 : nullptr;
   // element offset of token r (row-major in the rolled window) in x/out
   auto pix = [&](int r) -> size_t {
-    const int gy = (wy * WIN + (r >> 3) + shift) % H;
+    const int gy = (wy * WIN + (r >> 3) + hshift) % H;
     const int gx = (wx * WIN + (r & 7) + shift) % W;
     return (((size_t)b * H + gy) * W + gx) * C;
   };
@@ -845,8 +849,15 @@ extern "C" int s2sr_swin_forward(
     const void* bias, const void* masks, const void* g2, const void* b2,
     const void* w1, const void* bf1, const void* w2, const void* bf2,
     const void* wqkv_f, const void* wo_f, const void* w1_f, const void* w2_f,
-    int B, int H, int W, int shift, int dtype, int mlp, void* stream) {
+    int B, int H, int W, int shift, int dtype, int mlp, int band,
+    void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (band < 0 || band > 2) return (int)cudaErrorInvalidValue;
+  // band 0: the whole image, rolled here in H and W; 1, 2: a band of H
+  // already rolled in H by -shift (only W is rolled here), 2 the one that
+  // holds the image's last window row
+  const int hshift = band ? 0 : shift;
+  const int last_wy = band == 1 ? -1 : H / WIN - 1;
   if (dtype == 1 && !(wqkv_f && wo_f && w1_f && w2_f))
     return (int)cudaErrorInvalidValue;
   long long windows;
@@ -870,7 +881,7 @@ extern "C" int s2sr_swin_forward(
         static_cast<const float*>(x), static_cast<float*>(out), f[0], f[1],
         static_cast<const float*>(wqkv), f[2], static_cast<const float*>(wo),
         f[3], f[4], f[5], f[6], f[7], static_cast<const float*>(w1), f[8],
-        static_cast<const float*>(w2), f[9], H, W, shift);
+        static_cast<const float*>(w2), f[9], H, W, shift, hshift, last_wy);
   } else {
     auto k = mlp ? swin_tc_kernel<true> : swin_tc_kernel<false>;
     k<<<grid, TC_THREADS, smem, st>>>(
@@ -878,7 +889,7 @@ extern "C" int s2sr_swin_forward(
         f[0], f[1], static_cast<const uint2*>(wqkv_f), f[2],
         static_cast<const uint2*>(wo_f), f[3], f[4], f[5], f[6], f[7],
         static_cast<const uint2*>(w1_f), f[8], static_cast<const uint2*>(w2_f),
-        f[9], H, W, shift);
+        f[9], H, W, shift, hshift, last_wy);
   }
   return (int)cudaGetLastError();
 }

@@ -21,12 +21,15 @@ c``), which is what the released graphs use and *not*
 JAX trees (``head``, ``body.N.conv1``, ``upsample.N``, ``levels.N.embed.M``,
 ...); :func:`s2sr_tpu_torch.models.weights.params_from_jax_classic`
 carries a JAX tree over. The JAX package runs these convolutions in
-XLA, outside any Pallas kernel; here they are PyTorch's own (cuDNN and,
-for float32 on the CPU, oneDNN off: ``utils/precision.py::
-invariant_convs``), whose rounding depends neither on the shape nor on
-the batch, so the masked bucket and ``run_classic_sr_many`` give the
-single unpadded image's values (cuDNN's by-shape algorithm choice broke
-both on the card). A float32 model runs its convs in IEEE float32 (TF32
+XLA, outside any Pallas kernel; here they are PyTorch's own, whose
+rounding depends neither on the shape nor on the batch, so the masked
+bucket and ``run_classic_sr_many`` give the single unpadded image's
+values (cuDNN's by-shape algorithm choice broke both on the card): on
+the card cuDNN is off around the forward (``utils/precision.py::
+invariant_convs``); for float32 on the CPU each conv calls PyTorch's own
+im2col convolution by name (``aten._slow_conv2d_forward``,
+``aten.slow_conv_transpose2d``), chosen per call, so no process-wide
+flag is written. A float32 model runs its convs in IEEE float32 (TF32
 off), as JAX does.
 """
 
@@ -54,6 +57,31 @@ def _layout(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
 
 
+def _own_cpu(x: torch.Tensor) -> bool:
+    """Whether ``x``'s convs take PyTorch's own CPU convolution by name
+    (float32 on the CPU; bf16 keeps oneDNN, which is not shape-invariant
+    either way)."""
+    return x.device.type == "cpu" and x.dtype == torch.float32
+
+
+def _format(x: torch.Tensor):
+    """The memory format :func:`_layout` gave ``x``."""
+    return (torch.channels_last if x.shape[1] > 1
+            and x.is_contiguous(memory_format=torch.channels_last)
+            else torch.contiguous_format)
+
+
+def _conv2d(x: torch.Tensor, weight: torch.Tensor, pad: int):
+    """``F.conv2d`` without bias; float32 on the CPU through PyTorch's own
+    im2col convolution (the one oneDNN's absence selects), called by
+    name."""
+    if not _own_cpu(x):
+        return F.conv2d(x, weight, padding=pad)
+    weight = weight.contiguous(memory_format=_format(x))
+    return torch.ops.aten._slow_conv2d_forward(
+        x, weight, list(weight.shape[-2:]), None, [1, 1], [pad, pad])
+
+
 def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
     """Stride-1 SAME conv in ``dtype`` (odd kernels), bias added after.
     On the CPU a single output channel is computed as the first of two:
@@ -63,7 +91,7 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
     cout, k = weight.shape[0], weight.shape[-1]
     if cout == 1 and x.device.type == "cpu":
         weight = torch.cat([weight, torch.zeros_like(weight)])
-    out = F.conv2d(_layout(x.to(dtype)), weight, padding=k // 2)[:, :cout]
+    out = _conv2d(_layout(x.to(dtype)), weight, k // 2)[:, :cout]
     return out + conv.bias.to(dtype).view(1, -1, 1, 1)
 
 
@@ -85,7 +113,13 @@ def transposed_conv_x2(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     begin pad ``(k − 2) // 2`` (1 for k = 4), so any k and any H, W."""
     k = weight.shape[-1]
     h, w = x.shape[-2:]
-    full = F.conv_transpose2d(_layout(x), weight.to(x.dtype), stride=2)
+    x, weight = _layout(x), weight.to(x.dtype)
+    if _own_cpu(x):
+        weight = weight.contiguous(memory_format=_format(x))
+        full = torch.ops.aten.slow_conv_transpose2d(
+            x, weight, list(weight.shape[-2:]), None, [2, 2])
+    else:
+        full = F.conv_transpose2d(x, weight, stride=2)
     pb = (k - 2) // 2
     return full[..., pb:pb + 2 * h, pb:pb + 2 * w]
 

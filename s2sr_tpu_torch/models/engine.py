@@ -21,12 +21,18 @@ so there is no per-shape compile; the engine runs on ``cuda`` unless
 ``device="cpu"``.
 
 With a mesh (``SREngine(mesh=...)``, or ``Settings.mesh_shape`` through
-:func:`get_engine`) the engine holds one model replica per ``dp`` device
-and sends window chunks round-robin over them, in the tiled path
-(``parallel/tiling.py::tiled_apply``) and in the serving path alike; each
-replica runs whole chunks, so the output is the one-device output byte
-for byte. Images below the engage area run whole on the mesh's first
-device, as JAX's untiled branch does.
+:func:`get_engine`) the engine holds one model replica per ``dp``
+coordinate and sends window chunks round-robin over them, in the tiled
+path (``parallel/tiling.py::tiled_apply``) and in the serving path
+alike; each replica runs whole chunks, so with ``sp = 1`` the output is
+the one-device output byte for byte. With ``sp > 1`` a replica is the
+``sp`` devices of its ``dp`` coordinate, a model copy on each: every
+chunk's windows are split over H into bands, one per device, which run
+the band forward (``rrdbnet.py::rrdbnet_bands``,
+``swinir.py::swinir_bands``: halo rows exchanged before every conv and
+residual dense block, a shifted Swin block's roll across the bands),
+and are joined again. Images below the engage area run whole on the
+mesh's first device, as JAX's untiled branch does.
 """
 
 from __future__ import annotations
@@ -42,11 +48,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from ..parallel.tiling import TilePlan, bucket_pad, tiled_apply
 from ..utils import setup_logging
 from .registry import get_model_config
-from .rrdbnet import RRDBNet
-from .swinir import SwinIR
+from .rrdbnet import RRDBNet, rrdbnet_bands
+from .swinir import SwinIR, swinir_bands
 from .weights import resolve_params, swinir_kwargs
 
 logger = setup_logging("s2sr_tpu_torch.engine")
@@ -206,17 +213,30 @@ class SREngine:
                 "real quality", model_name, weights_dir)
         if dtype == "int8":
             self._quantize()
-        # one replica per dp device of the mesh; the first is self.model.
-        # SwinIR replicas keep the fused swin_block kernel: JAX's mesh
-        # engine turns its Pallas block off only because GSPMD cannot
-        # split a custom call, and the port splits nothing inside a chunk
-        # (tests/test_torch_mesh.py holds it to JAX's mesh engine at the
+        # one replica per dp coordinate of the mesh: its sp group of
+        # devices, one band each, with one model copy per device (the
+        # first is self.model). SwinIR replicas keep the fused swin_block
+        # kernel: JAX's mesh engine turns its Pallas block off only
+        # because GSPMD cannot split a custom call, and the port's bands
+        # tell the kernel their place (tests/test_torch_mesh.py and
+        # tests/test_torch_sp.py hold it to JAX's mesh engine at the
         # SwinIR engine tests' tolerance)
-        self.replica_devices = ((self.device,) if mesh is None else
-                                tuple(resolve_device(d)
-                                      for d in mesh.axis_devices("dp")))
-        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
-                                        for d in self.replica_devices[1:]]
+        dp = 1 if mesh is None else mesh.axis_size("dp")
+        self.replica_groups = tuple(
+            (self.device,) if mesh is None else
+            tuple(resolve_device(d) for d in mesh.sp_group(i))
+            for i in range(dp))
+        copies = {str(self.device): self.model}
+        for g in self.replica_groups:
+            for d in g:
+                if str(d) not in copies:
+                    copies[str(d)] = copy.deepcopy(self.model).to(d)
+        # a mesh naming one device more than once shares its copy
+        self.band_models = [[copies[str(d)] for d in g]
+                            for g in self.replica_groups]
+        self.replicas = [m[0] for m in self.band_models]
+        self.band_unit = (self.model.window_size if self.family == "swinir"
+                          else 1)
         self.replica_forwards = [0] * len(self.replicas)
 
         # halo-exactness guard for loaded RRDBNet checkpoints (random init
@@ -281,8 +301,16 @@ class SREngine:
 
     def _fwd(self, x: torch.Tensor, mask: torch.Tensor | None = None,
              replica: int = 0):
-        model = self.replicas[replica]
+        """The replica's forward of a batch, or with ``sp > 1`` of the list
+        of its bands (``masks`` a list likewise) → the output, or the list
+        of the bands' outputs."""
         self.replica_forwards[replica] += 1
+        if len(self.replica_groups[replica]) > 1:
+            models = self.band_models[replica]
+            if self.family == "swinir":
+                return swinir_bands(models, x)
+            return rrdbnet_bands(models, x, mask, up_sub_batch=self.up_sub)
+        model = self.replicas[replica]
         if self.family == "swinir":
             return model(x)
         return model(x, mask=mask, up_sub_batch=self.up_sub)
@@ -297,19 +325,28 @@ class SREngine:
         return torch.trunc(torch.clamp(out * 255.0, 0.0, 255.0)).to(torch.uint8)
 
     def _chunk(self, wins: np.ndarray, masks: np.ndarray | None,
-               replica: int = 0):
+               replica: int = 0) -> list:
         """(n, wh, ww, 3) uint8 windows → (n, s·wh, s·ww, 3) uint8 on the
-        replica's device, enqueued; with ``masks`` the exact masked-bucket
+        replica's device, enqueued, as the list of its bands from the top
+        (one without ``sp``); with ``masks`` the exact masked-bucket
         path."""
-        dev = self.replica_devices[replica]
-        x = self._to_float(torch.from_numpy(np.ascontiguousarray(wins))
-                           .to(dev))
-        mask = None
-        if masks is not None:
-            mask = torch.from_numpy(np.ascontiguousarray(masks)).to(dev)
-            x = x * mask           # the zero-pad region must be exactly zero
+        group = self.replica_groups[replica]
+        bounds = spatial.band_bounds(wins.shape[1], len(group),
+                                     self.band_unit)
+        xs, ms = [], []
+        for (a, b), dev in zip(bounds, group):
+            x = self._to_float(torch.from_numpy(np.ascontiguousarray(
+                wins[:, a:b])).to(dev))
+            if masks is not None:
+                ms.append(torch.from_numpy(np.ascontiguousarray(
+                    masks[:, a:b])).to(dev))
+                x = x * ms[-1]     # the zero-pad region must be exactly zero
+            xs.append(x)
         self.chunks_dispatched += 1
-        return self._to_u8(self._fwd(x, mask, replica))
+        if len(group) == 1:
+            return [self._to_u8(self._fwd(xs[0], ms[0] if ms else None,
+                                          replica))]
+        return [self._to_u8(o) for o in self._fwd(xs, ms or None, replica)]
 
     # -- exact per-shape path ----------------------------------------------
 
@@ -324,7 +361,7 @@ class SREngine:
                    for i in range(len(self.replicas))]
             out = tiled_apply(fns, x, tile=self.tile_size, pad=self.tile_pad,
                               scale=s, batch_size=self.batch_size,
-                              mesh=self.mesh)
+                              mesh=self.mesh, band_unit=self.band_unit)
         elif self.family == "swinir":
             out = self._fwd(x[None])[0]
         else:
@@ -367,9 +404,9 @@ class SREngine:
                 wins[k:k + step], None if masks is None else masks[k:k + step],
                 self.chunks_dispatched % len(self.replicas)))
             while len(pending) >= _MAX_INFLIGHT * len(self.replicas):
-                outs.append(pending.pop(0).cpu().numpy())
+                outs.append(_joined(pending.pop(0)))
             k += step
-        outs.extend(o.cpu().numpy() for o in pending)
+        outs.extend(_joined(o) for o in pending)
         return np.concatenate(outs, axis=0)[:n]
 
     def _serving_parts(self, img: np.ndarray):
@@ -437,6 +474,11 @@ class SREngine:
         return results
 
 
+def _joined(bands: list) -> np.ndarray:
+    """A chunk's output bands, copied to the host and joined over H."""
+    return np.concatenate([b.cpu().numpy() for b in bands], axis=1)
+
+
 _ENGINE_CACHE: dict = {}
 # held while an engine is built, so two threads (the server's runner and
 # a direct caller) never build the same engine twice
@@ -453,9 +495,10 @@ def loaded_engines() -> list:
 def get_engine(model_name: str = "realesrgan_x4", **kwargs) -> SREngine:
     """Process-wide engine cache; execution knobs the caller leaves out
     come from :func:`get_settings` before the cache key is formed. A
-    ``Settings.mesh_shape`` (e.g. ``"dp=4"``) spreads the window chunks
-    over that mesh's devices (``sp > 1`` raises: ROADMAP queue 1 item
-    16b); the mesh's devices are part of the cache key."""
+    ``Settings.mesh_shape`` (e.g. ``"dp=4"``, ``"dp=2,sp=2"``) spreads the
+    window chunks over that mesh's ``dp`` replicas and each chunk's H
+    over a replica's ``sp`` bands; the mesh's devices are part of the
+    cache key."""
     from ..config import get_settings
     from ..parallel.mesh import build_mesh
 

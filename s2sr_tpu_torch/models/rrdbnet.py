@@ -18,6 +18,12 @@ so a ``.pth`` state dict loads as it is.
 - ``mask`` (N, H, W[, 1]) of 0/1 re-zeroes every conv input outside the
   true rectangle, so a zero-padded bucket computes exactly the unpadded
   forward on it.
+- :func:`rrdbnet_bands` is the forward over the ``sp`` bands of H of one
+  serving replica (``parallel/spatial.py``): every conv outside the
+  trunk gets a 1-row halo at its own resolution, and every residual dense
+  block a 5-row halo (five chained 3×3 convs) and runs the kernel on the
+  extended band, keeping the band's rows. Layer by layer across the
+  bands, each on its own device.
 
 :func:`rrdbnet_apply` is the functional, differentiable forward the
 trainer runs: any width, on a param tree in the JAX package's layout
@@ -36,7 +42,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.rdb import G, NF, pack_rdb_weights, rdb, rdb_i8
+from ..parallel import spatial
+from ..parallel.comm import halo_exchange
 from ..utils.precision import ieee_fp32
+
+# rows of halo one residual dense block needs: five chained 3×3 convs
+RDB_HALO = 5
 
 
 def _lrelu(t: torch.Tensor) -> torch.Tensor:
@@ -44,9 +55,19 @@ def _lrelu(t: torch.Tensor) -> torch.Tensor:
                                                     device=t.device))
 
 
-def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
-    """3×3 SAME conv in ``dtype``, bias added after the conv."""
-    out = F.conv2d(x.to(dtype), conv.weight.to(dtype), padding=1)
+def _halo(x: torch.Tensor, sp) -> tuple:
+    """(NCHW ``x`` with a 1-row halo over the ``sp`` axis, the conv's
+    padding): SAME padding without one."""
+    if sp is None or sp.size == 1:
+        return x, 1
+    return halo_exchange(x, 1, sp, dim=2), (0, 1)
+
+
+def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype, sp=None) -> torch.Tensor:
+    """3×3 SAME conv in ``dtype``, bias added after the conv; ``sp`` an
+    axis whose ranks hold bands of H (a halo exchange first)."""
+    x, pad = _halo(x.to(dtype), sp)
+    out = F.conv2d(x, conv.weight.to(dtype), padding=pad)
     return out + conv.bias.to(dtype).view(1, -1, 1, 1)
 
 
@@ -54,7 +75,8 @@ def _nearest_x2(t: torch.Tensor) -> torch.Tensor:
     return t.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 
-def _up_conv_fused(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
+def _up_conv_fused(x: torch.Tensor, conv: nn.Conv2d, dtype,
+                   sp=None) -> torch.Tensor:
     """``conv3×3(nearest_×2(x))`` as one low-res conv C → 4C plus a ×2
     pixel shuffle: each output phase (dy, dx) sees combinations of the
     original taps (``rrdbnet.py::_up_conv_fused``)."""
@@ -76,7 +98,8 @@ def _up_conv_fused(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
             phases.append(torch.stack(
                 [combine_cols(stacked[ky], dx) for ky in range(3)], 0))
     w4 = torch.stack(phases, dim=-1).reshape(3, 3, cin, cout * 4)
-    out = F.conv2d(x.to(dtype), w4.permute(3, 2, 0, 1), padding=1)
+    x, pad = _halo(x.to(dtype), sp)
+    out = F.conv2d(x, w4.permute(3, 2, 0, 1), padding=pad)
     out = out + conv.bias.to(dtype).repeat_interleave(4).view(1, -1, 1, 1)
     return F.pixel_shuffle(out, 2)                      # channel c*4+dy*2+dx
 
@@ -243,6 +266,86 @@ class RRDBNet(nn.Module):
         return out.permute(0, 2, 3, 1)
 
 
+# --- the band forward (serving over sp) -----------------------------------
+
+def rrdbnet_bands(models, xs: list, masks: list | None = None,
+                  up_sub_batch: int | None = None) -> list:
+    """:meth:`RRDBNet.forward` over the ``sp`` bands of H of one replica:
+    ``xs[j]`` (N, h_j, W, C) the j-th band from the top on
+    ``models[j]``'s device (``models`` equal models, one per band), masks
+    likewise (N, h_j, W[, 1]) or None → the bands of the output, (N,
+    s·h_j, sW, C) float32. The same arithmetic per pixel as the whole
+    forward: convs on 1-row extended bands, residual dense blocks on
+    5-row extended bands in ``rdb``/``rdb_i8`` (the model's), each layer
+    issued across every band before the next."""
+    with ieee_fp32(models[0].dtype == torch.float32):
+        return _bands_forward(models, xs, masks, up_sub_batch)
+
+
+def _bands_forward(models, xs, masks, up_sub_batch):
+    m0 = models[0]
+    dtype, nb = m0.dtype, len(xs)
+    xs = [x.permute(0, 3, 1, 2) for x in xs]
+    mks = mask_ks = [None] * nb
+    if masks is not None:
+        mks = [m.reshape(x.shape[0], 1, *x.shape[2:]).to(dtype)
+               for m, x in zip(masks, xs)]
+        mask_ks = [m.reshape(x.shape[0], *x.shape[2:]).float().contiguous()
+                   for m, x in zip(masks, xs)]
+
+    def m(ts, ms):
+        return [t if k is None else t * k for t, k in zip(ts, ms)]
+
+    def conv(name, ts, up=False):
+        def one(t, j):
+            c = getattr(models[j], name)
+            return _up_conv_fused(t, c, dtype) if up else _conv(t, c, dtype)
+        return spatial.halo_apply(one, ts, 1, dim=2, scale=2 if up else 1)
+
+    slopes = [torch.tensor(0.2, dtype=dtype, device=x.device) for x in xs]
+    feat = m(conv("conv_first", xs), mks)
+    body = [f.contiguous(memory_format=torch.channels_last) for f in feat]
+    for i in range(len(m0.body)):
+        out = [b.permute(0, 2, 3, 1) for b in body]          # NHWC views
+        for name in ("rdb1", "rdb2", "rdb3"):
+            out = spatial.halo_apply(
+                lambda t, j, mk: getattr(models[j].body[i], name)(
+                    t.contiguous(), mk),
+                out, RDB_HALO, dim=1,
+                extra=[None if masks is None else mask_ks])
+        body = [(o.permute(0, 3, 1, 2) * sl + b).contiguous(
+            memory_format=torch.channels_last)
+            for o, sl, b in zip(out, slopes, body)]
+    feat = m([f + c for f, c in zip(feat, conv("conv_body", body))], mks)
+
+    m2s = m4s = [None] * nb
+    if masks is not None:
+        m2s = [_nearest_x2(k) for k in mks]
+        m4s = [_nearest_x2(k) for k in m2s]
+
+    def upsample(fs, m2, m4):
+        f = [_lrelu(t) for t in conv("conv_up1", fs, up=True)]
+        f = m(f, m2)
+        if m0.scale == 4:
+            f = m([_lrelu(t) for t in conv("conv_up2", f, up=True)], m4)
+        f = m([_lrelu(t) for t in conv("conv_hr", f)],
+              m4 if m0.scale == 4 else m2)
+        return [t.float() for t in conv("conv_last", f)]
+
+    n = xs[0].shape[0]
+    if up_sub_batch and 0 < up_sub_batch < n:
+        parts = []
+        for i in range(0, n, up_sub_batch):
+            sl = slice(i, i + up_sub_batch)
+            parts.append(upsample([f[sl] for f in feat],
+                                  [None if k is None else k[sl] for k in m2s],
+                                  [None if k is None else k[sl] for k in m4s]))
+        out = [torch.cat(p, 0) for p in zip(*parts)]
+    else:
+        out = upsample(feat, m2s, m4s)
+    return [o.permute(0, 2, 3, 1) for o in out]
+
+
 # --- the functional forward (training) -----------------------------------
 
 class _Conv(NamedTuple):
@@ -287,10 +390,15 @@ def _pack_body(body: dict, dtype) -> list:
 
 
 def _rdb_train(x: torch.Tensor, ws: list, bs: list, slope: float,
-               mk=None) -> torch.Tensor:
+               mk=None, sp=None) -> torch.Tensor:
     """One RDB (NCHW, in the weights' dtype) in ``_rdb_packed``'s order:
-    the accumulator's 32-lane tail consumed per stage."""
+    the accumulator's 32-lane tail consumed per stage; with ``sp`` each
+    conv exchanges a 1-row halo first."""
     g = bs[0].shape[1]
+
+    def conv(t, w):
+        t, pad = _halo(t, sp)
+        return F.conv2d(t, w, padding=pad)
 
     def lrelu(t):
         return torch.where(t >= 0, t, t * slope)
@@ -298,25 +406,25 @@ def _rdb_train(x: torch.Tensor, ws: list, bs: list, slope: float,
     def m(t):
         return t if mk is None else t * mk
 
-    acc = F.conv2d(x, ws[0], padding=1)
+    acc = conv(x, ws[0])
     for k in range(1, 5):
         xk = m(lrelu(acc[:, -g:] + bs[k - 1]))
-        acc = acc[:, :-g] + F.conv2d(xk, ws[k], padding=1)
+        acc = acc[:, :-g] + conv(xk, ws[k])
     return m((acc + bs[4]) * slope + x)
 
 
 def _rrdb_block(x: torch.Tensor, blk: dict, slope: float,
-                mk=None) -> torch.Tensor:
+                mk=None, sp=None) -> torch.Tensor:
     out = x
     for name in ("rdb1", "rdb2", "rdb3"):
-        out = _rdb_train(out, *blk[name], slope, mk)
+        out = _rdb_train(out, *blk[name], slope, mk, sp)
     return out * slope + x
 
 
 def rrdbnet_apply(params: dict, x: torch.Tensor, scale: int = 4,
                   dtype: torch.dtype = torch.bfloat16, remat: bool = False,
                   mask: torch.Tensor | None = None,
-                  trunk=None) -> torch.Tensor:
+                  trunk=None, band=None) -> torch.Tensor:
     """(N, H, W, C) float in [0, 1] → (N, sH, sW, C) float32 through the
     param tree ``params`` (the JAX layout: ``conv_first``, ``body`` with
     every leaf stacked over blocks, ``conv_body``, ``conv_up1``,
@@ -327,7 +435,12 @@ def rrdbnet_apply(params: dict, x: torch.Tensor, scale: int = 4,
     (N, H, W[, 1]) of 0/1 makes a zero-padded bucket compute the unpadded
     forward on the true rectangle. ``trunk(feat)`` (NCHW in ``dtype``, no
     mask) replaces the RRDB stack: the pipelined trunk of
-    ``parallel/pipeline.py``."""
+    ``parallel/pipeline.py``. ``band`` (``comm.Band``): ``x`` (and
+    ``mask``) are this rank's band of H, and every conv exchanges a 1-row
+    halo with the neighbouring bands; the result is the band of the
+    output. The recompute of ``remat`` exchanges again, in the same order
+    on every rank."""
+    sp = None if band is None else band.axis
     with ieee_fp32(dtype == torch.float32):
         n, h, w, _ = x.shape
         xc = x.permute(0, 3, 1, 2)
@@ -338,31 +451,33 @@ def rrdbnet_apply(params: dict, x: torch.Tensor, scale: int = 4,
         def m(t):
             return t if mk is None else t * mk
 
-        feat = m(_conv(xc, _oihw(params["conv_first"]), dtype))
+        feat = m(_conv(xc, _oihw(params["conv_first"]), dtype, sp))
         out = feat
         for blk in ([] if trunk else _pack_body(params["body"], dtype)):
             if remat and torch.is_grad_enabled():
-                out = checkpoint(_rrdb_block, out, blk, slope, mk,
+                out = checkpoint(_rrdb_block, out, blk, slope, mk, sp,
                                  use_reentrant=False)
             else:
-                out = _rrdb_block(out, blk, slope, mk)
+                out = _rrdb_block(out, blk, slope, mk, sp)
         if trunk:
             out = trunk(feat)
-        feat = m(feat + _conv(out, _oihw(params["conv_body"]), dtype))
+        feat = m(feat + _conv(out, _oihw(params["conv_body"]), dtype, sp))
         m2 = m4 = None
         if mk is not None:
             m2 = _nearest_x2(mk)
             m4 = _nearest_x2(m2)
         mtop = m4 if scale == 4 else m2
-        f = _lrelu(_up_conv_fused(feat, _oihw(params["conv_up1"]), dtype))
+        f = _lrelu(_up_conv_fused(feat, _oihw(params["conv_up1"]), dtype,
+                                  sp))
         if m2 is not None:
             f = f * m2
         if scale == 4:
-            f = _lrelu(_up_conv_fused(f, _oihw(params["conv_up2"]), dtype))
+            f = _lrelu(_up_conv_fused(f, _oihw(params["conv_up2"]), dtype,
+                                      sp))
             if m4 is not None:
                 f = f * m4
-        f = _lrelu(_conv(f, _oihw(params["conv_hr"]), dtype))
+        f = _lrelu(_conv(f, _oihw(params["conv_hr"]), dtype, sp))
         if mtop is not None:
             f = f * mtop
-        out = _conv(f, _oihw(params["conv_last"]), dtype).float()
+        out = _conv(f, _oihw(params["conv_last"]), dtype, sp).float()
         return out.permute(0, 2, 3, 1)

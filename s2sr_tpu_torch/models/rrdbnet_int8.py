@@ -24,6 +24,10 @@ Scheme, as in the JAX package:
 quant(0) = 0, so a zero-padded bucket with its mask computes the unpadded
 int8 forward bit for bit, as in the float model.
 
+Over the ``sp`` axis the int8 engines serve the band forward of
+``rrdbnet.py::rrdbnet_bands`` as the float ones do: each quantized block
+runs ``rdb_i8`` on its 5-row extended band and keeps the band's rows.
+
 Layouts follow the JAX package: kernels HWIO, activations NHWC, and a
 quantized body (``qbody``) is a dict of stacked per-block tensors with
 the JAX tree's keys, so :func:`qbody_from_jax` carries JAX's tree over

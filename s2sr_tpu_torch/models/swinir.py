@@ -27,12 +27,23 @@ dict loads with ``load_state_dict``.
   ``F.pad(mode="reflect")`` raises).
 - The DIV2K mean is subtracted before and added after, scaled by
   ``img_range`` (the weights were trained with it).
+- :func:`swinir_bands` is the forward over the ``sp`` bands of H of one
+  serving replica, bands of whole window rows (``parallel/spatial.py``):
+  every conv gets a 1-row halo at its resolution; a shifted block's roll
+  in H crosses the bands (``spatial.roll_up`` before the kernel,
+  ``roll_down`` after it) and the kernel is told that its band is rolled
+  and whether it holds the image's last window row; LayerNorm, the MLP
+  and the residuals are per token.
 
 :func:`swinir_apply` is the functional, differentiable forward the
 trainer runs on a param tree in the JAX package's layout: every block in
 plain ``torch`` (the kernels have no backward; JAX training pins its XLA
 attention, ``fused_attn="0"``), each residual group optionally
-rematerialised.
+rematerialised. Given a rank's band of H (``parallel/comm.py::Band``,
+whole window rows), every conv exchanges a 1-row halo
+(``comm.halo_exchange``), a shifted block rolls H across the ranks
+(``comm.ring_shift``), and its shift mask is the whole image's rows of
+the band.
 """
 
 from __future__ import annotations
@@ -54,6 +65,8 @@ from ..ops.window_attention import (
     swin_block,
     window_attention,
 )
+from ..parallel import spatial
+from ..parallel.comm import halo_exchange, ring_shift
 from ..utils.precision import ieee_fp32
 from .weights import tree_map
 
@@ -146,16 +159,18 @@ class SwinBlock(nn.Module):
                                          self.heads, self.window, self.shift,
                                          dtype)
 
-    def forward(self, x: torch.Tensor, level: str) -> torch.Tensor:
-        """(B, H, W, C) → same, in the tables' dtype."""
+    def forward(self, x: torch.Tensor, level: str, rolled: bool = False,
+                last: bool = True) -> torch.Tensor:
+        """(B, H, W, C) → same, in the tables' dtype; ``rolled`` and
+        ``last`` as ``ops/window_attention.py::swin_block``'s (a band)."""
         t = self.tables
         if t is None or t["dtype"] != x.dtype:
             raise RuntimeError("Swin block tables missing or built for "
                                "another dtype: call SwinIR.pack()")
         if level == "block":
-            return swin_block(x, t)
+            return swin_block(x, t, rolled, last)
         dtype = x.dtype
-        y = x + window_attention(x, t)
+        y = x + window_attention(x, t, rolled, last)
         h = _linear(_layer_norm(y, self.norm2, dtype), self.mlp.fc1, dtype)
         h = gelu(h, dtype)
         return y + _linear(h, self.mlp.fc2, dtype)
@@ -306,6 +321,81 @@ class SwinIR(nn.Module):
         return out[:, :h0 * self.scale, :w0 * self.scale]
 
 
+# --- the band forward (serving over sp) -----------------------------------
+
+def swinir_bands(models, xs: list) -> list:
+    """:meth:`SwinIR.forward` over the ``sp`` bands of H of one replica:
+    ``xs[j]`` (B, h_j, W, 3) in [0, 1], the j-th band from the top on
+    ``models[j]``'s device (equal models, one per band); every band whole
+    window rows but the last, which holds at least one window row and is
+    reflect-padded at its bottom as the whole image is (its pad mirrors
+    rows of its own) → the bands of the output, (B, s·h_j, sW, 3)
+    float32. Each Swin block runs in the kernel on its band, each layer
+    issued across every band before the next."""
+    m0 = models[0]
+    with ieee_fp32(m0.dtype == torch.float32):
+        return _bands_forward(models, xs)
+
+
+def _bands_forward(models, xs):
+    level = FUSED_LEVEL
+    if level not in ("block", "attn"):
+        raise ValueError(f"fused level must be 'block' or 'attn', got "
+                         f"{level!r}")
+    m0 = models[0]
+    dtype, win, nb = m0.dtype, m0.window_size, len(xs)
+    rows = [x.shape[1] for x in xs]
+    w0 = xs[0].shape[2]
+    if any(r % win for r in rows[:-1]) or rows[-1] < win:
+        raise ValueError(f"SwinIR bands are whole {win}-row windows (the "
+                         f"last at least one), got {rows}")
+    xs = [reflect_pad(x.float(), (win - r % win) % win if j == nb - 1 else 0,
+                      (win - w0 % win) % win)
+          for j, (x, r) in enumerate(zip(xs, rows))]
+    means = [torch.tensor(DIV2K_MEAN, device=x.device) for x in xs]
+    xs = [((x - mu) * m0.img_range).to(dtype).permute(0, 3, 1, 2)
+          for x, mu in zip(xs, means)]
+
+    def conv(get, ts, nhwc=False):
+        def one(t, j):
+            c = get(models[j])
+            return _nhwc_conv(t, c, dtype) if nhwc else _conv(t, c, dtype)
+        return spatial.halo_apply(one, ts, 1, dim=1 if nhwc else 2)
+
+    feat = conv(lambda m: m.conv_first, xs)
+    tokens = [_layer_norm(f.permute(0, 2, 3, 1), models[j].patch_embed.norm,
+                          dtype).contiguous() for j, f in enumerate(feat)]
+    for li, layer in enumerate(m0.layers):
+        y = tokens
+        for bi, block in enumerate(layer.residual_group.blocks):
+            shift = block.shift
+            if shift:
+                y = spatial.roll_up(y, shift)
+            y = [models[j].layers[li].residual_group.blocks[bi](
+                t, level, rolled=bool(shift), last=j == nb - 1)
+                for j, t in enumerate(y)]
+            if shift:
+                y = [t.contiguous() for t in spatial.roll_down(y, shift)]
+        c = conv(lambda m, li=li: m.layers[li].conv, y, nhwc=True)
+        tokens = [t + ci for t, ci in zip(tokens, c)]
+    body = [_layer_norm(t, models[j].norm, dtype).permute(0, 3, 1, 2)
+            for j, t in enumerate(tokens)]
+    feat = [f + c for f, c in
+            zip(feat, conv(lambda m: m.conv_after_body, body))]
+
+    f = [F.leaky_relu(t, 0.01) for t in
+         conv(lambda m: m.conv_before_upsample[0], feat)]
+    for k, mod in enumerate(m0.upsample):
+        if isinstance(mod, nn.Conv2d):
+            f = conv(lambda m, k=k: m.upsample[k], f)
+        else:
+            f = [F.pixel_shuffle(t, mod.upscale_factor) for t in f]
+    out = conv(lambda m: m.conv_last, f)
+    s = m0.scale
+    return [(o.permute(0, 2, 3, 1).float() / m0.img_range + mu)[
+        :, :r * s, :w0 * s] for o, mu, r in zip(out, means, rows)]
+
+
 # --- the functional forward (training) -----------------------------------
 
 def _ln(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
@@ -322,10 +412,14 @@ def _lin(x: torch.Tensor, p: dict) -> torch.Tensor:
     return x @ p["weight"] + p["bias"]
 
 
-def _conv_hwio(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """3×3 SAME conv of an NHWC map with a HWIO kernel, as NHWC."""
+def _conv_hwio(x: torch.Tensor, p: dict, sp=None) -> torch.Tensor:
+    """3×3 SAME conv of an NHWC map with a HWIO kernel, as NHWC; ``sp``
+    an axis whose ranks hold bands of H (a 1-row halo exchange first)."""
+    pad = 1
+    if sp is not None and sp.size > 1:
+        x, pad = halo_exchange(x, 1, sp, dim=1), (0, 1)
     out = F.conv2d(x.permute(0, 3, 1, 2), p["kernel"].permute(3, 2, 0, 1),
-                   padding=1)
+                   padding=pad)
     return (out + p["bias"].view(1, -1, 1, 1)).permute(0, 2, 3, 1)
 
 
@@ -349,11 +443,24 @@ def _attention_train(x, p, heads: int, bias_idx, mask):
     return _lin(out, p["proj"])
 
 
-def _swin_block_train(x, p, h, w, heads, window, shift, bias_idx, mask):
+def _roll_h(y, shift: int, sp, up: bool):
+    """``torch.roll`` of NHWC ``y`` by ∓``shift`` in H; across the ranks of
+    ``sp`` when they hold bands of H."""
+    if sp is None or sp.size == 1:
+        return torch.roll(y, -shift if up else shift, 1)
+    h = y.shape[1]
+    if up:
+        return torch.cat([y[:, shift:], ring_shift(y[:, :shift], sp, -1)], 1)
+    return torch.cat([ring_shift(y[:, h - shift:], sp, 1), y[:, :h - shift]],
+                     1)
+
+
+def _swin_block_train(x, p, h, w, heads, window, shift, bias_idx, mask,
+                      sp=None):
     b, _, c = x.shape
     y = _ln(x, p["norm1"]).reshape(b, h, w, c)
     if shift:
-        y = torch.roll(y, (-shift, -shift), (1, 2))
+        y = torch.roll(_roll_h(y, shift, sp, up=True), -shift, 2)
     win = y.reshape(b, h // window, window, w // window, window, c)
     win = win.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
     a = _attention_train(win, p["attn"], heads, bias_idx,
@@ -361,7 +468,7 @@ def _swin_block_train(x, p, h, w, heads, window, shift, bias_idx, mask):
     y = a.reshape(b, h // window, w // window, window, window, c)
     y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
     if shift:
-        y = torch.roll(y, (shift, shift), (1, 2))
+        y = _roll_h(torch.roll(y, shift, 2), shift, sp, up=False)
     x = x + y.reshape(b, h * w, c)
     y = _ln(x, p["norm2"])
     y = _lin(F.gelu(_lin(y, p["mlp"]["fc1"]),
@@ -370,20 +477,20 @@ def _swin_block_train(x, p, h, w, heads, window, shift, bias_idx, mask):
     return x + y
 
 
-def _rstb_train(x, layer, h, w, heads, window, bias_idx, mask):
+def _rstb_train(x, layer, h, w, heads, window, bias_idx, mask, sp=None):
     y = x
     for i, blk in enumerate(layer["blocks"]):
         y = _swin_block_train(y, blk, h, w, heads, window,
                               0 if i % 2 == 0 else window // 2,
-                              bias_idx, mask)
-    img = _conv_hwio(y.reshape(x.shape[0], h, w, -1), layer["conv"])
+                              bias_idx, mask, sp)
+    img = _conv_hwio(y.reshape(x.shape[0], h, w, -1), layer["conv"], sp)
     return x + img.reshape(x.shape)
 
 
 def swinir_apply(params: dict, x: torch.Tensor, scale: int = 4,
                  num_heads=(6,) * 6, window_size: int = 8,
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 img_range: float = 1.0) -> torch.Tensor:
+                 img_range: float = 1.0, band=None) -> torch.Tensor:
     """(B, H, W, 3) in [0, 1] → (B, sH, sW, 3) float32 through the JAX
     layout's SwinIR tree (``conv_first``, ``norm_embed``, ``layers`` of
     ``blocks`` and ``conv``, ``norm``, ``conv_after_body``,
@@ -391,10 +498,19 @@ def swinir_apply(params: dict, x: torch.Tensor, scale: int = 4,
     in both. The tree is cast to ``dtype`` once, LayerNorm statistics are
     float32, GELU is tanh in bf16 and erf in float32; float32 runs with
     TF32 off. ``remat`` recomputes each residual group's activations in
-    the backward pass."""
+    the backward pass. ``band`` (``comm.Band``): ``x`` is this rank's band
+    of H, whole window rows of an image whose H is whole windows; every
+    conv exchanges a 1-row halo and every shifted block rolls H across
+    the ranks, in the same order on every rank (the recompute too)."""
+    sp = None if band is None else band.axis
     with ieee_fp32(dtype == torch.float32):
         w = window_size
         _, h0, w0, _ = x.shape
+        if band is not None and (band.height % w or band.start % w
+                                 or h0 % w):
+            raise ValueError(f"a band of H is whole {w}-row windows of an "
+                             f"image of whole windows, got rows "
+                             f"[{band.start}, {band.stop}) of {band.height}")
         x = reflect_pad(x.float(), (w - h0 % w) % w, (w - w0 % w) % w)
         b, h, ww, _ = x.shape
         mean = torch.tensor(DIV2K_MEAN, device=x.device)
@@ -402,28 +518,37 @@ def swinir_apply(params: dict, x: torch.Tensor, scale: int = 4,
         if dtype != torch.float32:
             params = tree_map(lambda a: a.to(dtype), params)
         bias_idx = torch.from_numpy(relative_position_index(w)).to(x.device)
-        mask = torch.from_numpy(shift_mask(h, ww, w, w // 2)).to(x.device)
+        if band is None:
+            mask = torch.from_numpy(shift_mask(h, ww, w, w // 2))
+        else:
+            # the whole image's masks, this band's window rows
+            mask = torch.from_numpy(shift_mask(band.height, ww, w, w // 2))
+            n = w * w
+            mask = mask.reshape(band.height // w, ww // w, n, n)[
+                band.start // w:band.stop // w].reshape(-1, n, n)
+        mask = mask.to(x.device)
 
-        feat = _conv_hwio(x, params["conv_first"])
+        feat = _conv_hwio(x, params["conv_first"], sp)
         tokens = _ln(feat.reshape(b, h * ww, -1), params["norm_embed"])
         for layer, heads in zip(params["layers"], num_heads):
             if remat and torch.is_grad_enabled():
                 tokens = checkpoint(_rstb_train, tokens, layer, h, ww, heads,
-                                    w, bias_idx, mask, use_reentrant=False)
+                                    w, bias_idx, mask, sp,
+                                    use_reentrant=False)
             else:
                 tokens = _rstb_train(tokens, layer, h, ww, heads, w,
-                                     bias_idx, mask)
+                                     bias_idx, mask, sp)
         body = _ln(tokens, params["norm"]).reshape(b, h, ww, -1)
-        feat = feat + _conv_hwio(body, params["conv_after_body"])
+        feat = feat + _conv_hwio(body, params["conv_after_body"], sp)
 
-        f = F.leaky_relu(_conv_hwio(feat, params["conv_before_upsample"]),
-                         0.01)
+        f = F.leaky_relu(_conv_hwio(feat, params["conv_before_upsample"],
+                                    sp), 0.01)
         s = scale
         for up in params["upsample"]:
             factor = 2 if s % 2 == 0 else 3
-            f = _conv_hwio(f, up).permute(0, 3, 1, 2)
+            f = _conv_hwio(f, up, sp).permute(0, 3, 1, 2)
             f = F.pixel_shuffle(f, factor).permute(0, 2, 3, 1)
             s = s // 2 if factor == 2 else 1
-        out = _conv_hwio(f, params["conv_last"])
+        out = _conv_hwio(f, params["conv_last"], sp)
         out = out.float() / img_range + mean
         return out[:, :h0 * scale, :w0 * scale]

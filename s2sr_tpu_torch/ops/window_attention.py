@@ -17,6 +17,12 @@ TPU kernel's window pairs existed only to fill its 128-lane MXU); a
 shifted block adds one of four 0/−100 masks, chosen by whether the
 window sits in the last window row and/or column of the rolled grid.
 
+On a band of H (the ``sp`` axis, ``parallel/spatial.py``) the bands roll
+H among themselves before and after the block (``spatial.roll_up`` /
+``roll_down``), and the functions are told so: ``rolled=True`` rolls W
+alone, and ``last`` says whether the band's last window row is the
+image's, so that the mask types are the whole image's.
+
 Numerics, shared by kernel and plain version: LayerNorm statistics in
 float32; every product summed in float32; scores, relative-position
 bias, mask and softmax in float32; values rounded to the storage dtype
@@ -97,10 +103,11 @@ def shift_mask_types(window: int, shift: int) -> np.ndarray:
     return shift_mask(2 * window, 2 * window, window, shift)
 
 
-def mask_type_index(nh: int, nw: int) -> np.ndarray:
+def mask_type_index(nh: int, nw: int, last: bool = True) -> np.ndarray:
     """(nh·nw,) mask type of each window, row-major:
-    2·(last window row) + (last window column)."""
-    r = (np.arange(nh) == nh - 1).astype(np.int64) * 2
+    2·(last window row) + (last window column); with ``last`` False no
+    row is the image's last (a band of H above the last)."""
+    r = (np.arange(nh) == (nh - 1 if last else -1)).astype(np.int64) * 2
     c = (np.arange(nw) == nw - 1).astype(np.int64)
     return (r[:, None] + c[None, :]).reshape(-1)
 
@@ -247,26 +254,32 @@ def gelu(h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.gelu(h, approximate="tanh" if dtype == torch.bfloat16 else "none")
 
 
-def _partition(x: torch.Tensor, window: int, shift: int) -> torch.Tensor:
-    """(B, H, W, C) → rolled windows (B·nW, N, C) float32."""
+def _partition(x: torch.Tensor, window: int, shift: int,
+               rolled: bool = False) -> torch.Tensor:
+    """(B, H, W, C) → rolled windows (B·nW, N, C) float32 (``rolled``: H
+    is rolled already)."""
     b, h, w, c = x.shape
     if shift:
-        x = torch.roll(x, (-shift, -shift), (1, 2))
+        x = (torch.roll(x, -shift, 2) if rolled
+             else torch.roll(x, (-shift, -shift), (1, 2)))
     x = x.reshape(b, h // window, window, w // window, window, c)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c).float()
 
 
-def _reverse(t: torch.Tensor, shape, window: int, shift: int) -> torch.Tensor:
+def _reverse(t: torch.Tensor, shape, window: int, shift: int,
+             rolled: bool = False) -> torch.Tensor:
     b, h, w, _ = shape
     c = t.shape[-1]
     t = t.reshape(b, h // window, w // window, window, window, c)
     t = t.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
     if shift:
-        t = torch.roll(t, (shift, shift), (1, 2))
+        t = (torch.roll(t, shift, 2) if rolled
+             else torch.roll(t, (shift, shift), (1, 2)))
     return t.contiguous()
 
 
-def _attention(xw: torch.Tensor, t: dict, shape, dtype) -> torch.Tensor:
+def _attention(xw: torch.Tensor, t: dict, shape, dtype,
+               last: bool = True) -> torch.Tensor:
     """Rolled windows (Bn, N, C) float32 → proj output without its bias,
     (Bn, N, cp) float32."""
     heads, dp, window = t["heads"], t["dp"], t["window"]
@@ -278,7 +291,8 @@ def _attention(xw: torch.Tensor, t: dict, shape, dtype) -> torch.Tensor:
     s = q @ k.transpose(-1, -2) + t["bias"]
     if t["shift"]:
         b, h, w, _ = shape
-        types = torch.from_numpy(mask_type_index(h // window, w // window))
+        types = torch.from_numpy(mask_type_index(h // window, w // window,
+                                                 last))
         types = types.to(xw.device).repeat(b)
         s = s + t["masks"][types][:, None]
     p = _round(torch.softmax(s, -1), dtype)
@@ -287,27 +301,30 @@ def _attention(xw: torch.Tensor, t: dict, shape, dtype) -> torch.Tensor:
     return o @ t["wo"].float()
 
 
-def window_attention_reference(x: torch.Tensor, t: dict) -> torch.Tensor:
+def window_attention_reference(x: torch.Tensor, t: dict, rolled: bool = False,
+                               last: bool = True) -> torch.Tensor:
     """Plain version of :func:`window_attention`: (B, H, W, C) → the
     projected attention output (B, H, W, C) in ``x.dtype``, no residual."""
     dtype, c = x.dtype, t["dim"]
-    xw = _partition(x, t["window"], t["shift"])
-    out = _round(_attention(xw, t, x.shape, dtype) + t["bo"], dtype)
-    return _reverse(out[..., :c], x.shape, t["window"], t["shift"]).to(dtype)
+    xw = _partition(x, t["window"], t["shift"], rolled)
+    out = _round(_attention(xw, t, x.shape, dtype, last) + t["bo"], dtype)
+    return _reverse(out[..., :c], x.shape, t["window"], t["shift"],
+                    rolled).to(dtype)
 
 
-def swin_block_reference(x: torch.Tensor, t: dict) -> torch.Tensor:
+def swin_block_reference(x: torch.Tensor, t: dict, rolled: bool = False,
+                         last: bool = True) -> torch.Tensor:
     """Plain version of :func:`swin_block`: (B, H, W, C) → same, in
     ``x.dtype``."""
     dtype, c, hidden = x.dtype, t["dim"], t["hidden"]
-    xw = _partition(x, t["window"], t["shift"])
-    y = xw + _attention(xw, t, x.shape, dtype)[..., :c] + t["bo"][:c]
+    xw = _partition(x, t["window"], t["shift"], rolled)
+    y = xw + _attention(xw, t, x.shape, dtype, last)[..., :c] + t["bo"][:c]
     ln = layer_norm(y, t["g2"], t["b2"], dtype)
     hdn = _round(ln @ t["w1"].float() + t["bf1"], dtype)[..., :hidden]
     hdn = _round(gelu(hdn, dtype), dtype)
     mlp = hdn @ t["w2"].float() + t["bf2"]
     out = _round(y + mlp[..., :c], dtype)
-    return _reverse(out, x.shape, t["window"], t["shift"]).to(dtype)
+    return _reverse(out, x.shape, t["window"], t["shift"], rolled).to(dtype)
 
 
 # --- kernels ---------------------------------------------------------------
@@ -318,7 +335,7 @@ def _lib():
     lib = load("window_attention")
     if not getattr(lib, "_s2sr_typed", False):
         vp = ctypes.c_void_p
-        lib.s2sr_swin_forward.argtypes = ([vp] * 20 + [ctypes.c_int] * 6
+        lib.s2sr_swin_forward.argtypes = ([vp] * 20 + [ctypes.c_int] * 7
                                           + [vp])
         lib.s2sr_swin_forward.restype = ctypes.c_int
         lib.s2sr_swin_smem_bytes.argtypes = [ctypes.c_int]
@@ -398,7 +415,8 @@ def _check(name: str, x: torch.Tensor, t: dict) -> None:
                              f"{v.dtype} {tuple(v.shape)} on {v.device}")
 
 
-def _launch(name: str, x: torch.Tensor, t: dict, mlp: bool) -> torch.Tensor:
+def _launch(name: str, x: torch.Tensor, t: dict, mlp: bool,
+            rolled: bool = False, last: bool = True) -> torch.Tensor:
     if x.device.type != "cuda":
         raise RuntimeError(f"{name}: unsupported device {x.device}")
     _check(name, x, t)
@@ -417,26 +435,31 @@ def _launch(name: str, x: torch.Tensor, t: dict, mlp: bool) -> torch.Tensor:
                                         "bo", "bias", "masks", "g2", "b2",
                                         "w1", "bf1", "w2", "bf2")),
             *frags, bsz, h, w, t["shift"], _DTYPE_CODE[x.dtype], int(mlp),
-            stream)
+            0 if not rolled else 2 if last else 1, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
     return out
 
 
-def swin_block(x: torch.Tensor, t: dict) -> torch.Tensor:
+def swin_block(x: torch.Tensor, t: dict, rolled: bool = False,
+               last: bool = True) -> torch.Tensor:
     """One whole Swin block, (B, H, W, C) → same, in ``x.dtype``, with
-    ``t`` from :func:`build_block_tables`. CPU tensors run
+    ``t`` from :func:`build_block_tables`. ``rolled``: ``x`` is a band of
+    H already rolled by ``-shift`` in H (W is rolled here), and ``last``
+    says whether its last window row is the image's. CPU tensors run
     :func:`swin_block_reference`; CUDA tensors launch the kernel or raise."""
     if x.device.type == "cpu":
-        return swin_block_reference(x, t)
-    return _launch("swin_block", x, t, mlp=True)
+        return swin_block_reference(x, t, rolled, last)
+    return _launch("swin_block", x, t, True, rolled, last)
 
 
-def window_attention(x: torch.Tensor, t: dict) -> torch.Tensor:
-    """LN1 → window attention → proj, (B, H, W, C) → same, no residual.
-    CPU tensors run :func:`window_attention_reference`; CUDA tensors
-    launch the kernel or raise."""
+def window_attention(x: torch.Tensor, t: dict, rolled: bool = False,
+                     last: bool = True) -> torch.Tensor:
+    """LN1 → window attention → proj, (B, H, W, C) → same, no residual;
+    ``rolled`` and ``last`` as :func:`swin_block`'s. CPU tensors run
+    :func:`window_attention_reference`; CUDA tensors launch the kernel or
+    raise."""
     if x.device.type == "cpu":
-        return window_attention_reference(x, t)
-    return _launch("window_attention", x, t, mlp=False)
+        return window_attention_reference(x, t, rolled, last)
+    return _launch("window_attention", x, t, False, rolled, last)

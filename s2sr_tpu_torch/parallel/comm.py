@@ -16,7 +16,9 @@ GSPMD and ``shard_map`` do in the JAX package.
 - The collectives the port needs, autograd-aware where a gradient
   crosses them: :func:`all_gather_cat` (backward: a reduce-scatter of the
   sum), :func:`all_reduce_sum` (backward: the same all-reduce),
-  :func:`ring_shift` (backward: the reverse shift), and
+  :func:`ring_shift` (backward: the reverse shift),
+  :func:`halo_exchange` (the ``sp`` bands' halo rows; backward: the
+  halo's gradient added into the sender's edge rows), and
   :func:`all_reduce_mean` for gradients after the backward.
 
 gloo has CUDA support for only some collectives, so under gloo every
@@ -352,16 +354,126 @@ def _shift(x: torch.Tensor, axis: Axis, step: int) -> torch.Tensor:
 
 class _RingShift(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis = axis
-        return _shift(x, axis, 1)
+    def forward(ctx, x, axis, step):
+        ctx.axis, ctx.step = axis, step
+        return _shift(x, axis, step)
 
     @staticmethod
     def backward(ctx, g):
-        return _shift(g, ctx.axis, -1), None
+        return _shift(g, ctx.axis, -ctx.step), None, None
 
 
-def ring_shift(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """Coordinate i's ``x`` at coordinate i+1 (mod the axis size): JAX's
-    ``ppermute`` over the ring. The gradient travels back, i+1 → i."""
-    return x if axis.size == 1 else _RingShift.apply(x, axis)
+def ring_shift(x: torch.Tensor, axis: Axis, step: int = 1) -> torch.Tensor:
+    """Coordinate i's ``x`` at coordinate i+step (mod the axis size): JAX's
+    ``ppermute`` over the ring. The gradient travels back, i+step → i."""
+    return x if axis.size == 1 else _RingShift.apply(x, axis, step)
+
+
+def _trade(sends: dict, recvs: dict, axis: Axis) -> dict:
+    """Point-to-point over ``axis``: ``sends[c]`` to coordinate c, into
+    ``recvs[c]`` (shaped like what c sends) from coordinate c → the
+    received tensors on each one's device, by coordinate."""
+    ops, bufs = [], {}
+    for c, t in sends.items():
+        ops.append(dist.P2POp(dist.isend, _host(t, axis), axis.ranks[c]))
+    for c, like in recvs.items():
+        bufs[c] = torch.empty_like(_host(like, axis))
+        ops.append(dist.P2POp(dist.irecv, bufs[c], axis.ranks[c]))
+    if ops:
+        for r in dist.batch_isend_irecv(ops):
+            r.wait()
+    return {c: b.to(recvs[c].device) for c, b in bufs.items()}
+
+
+def _edges(x: torch.Tensor, k: int, dim: int) -> tuple:
+    n = x.shape[dim]
+    return x.narrow(dim, 0, k), x.narrow(dim, n - k, k)
+
+
+class _HaloExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k, axis, dim):
+        ctx.k, ctx.axis, ctx.dim = k, axis, dim
+        i, n = axis.index, axis.size
+        first, last = _edges(x, k, dim)
+        sends, recvs = {}, {}
+        if i > 0:
+            sends[i - 1], recvs[i - 1] = first, last
+        if i < n - 1:
+            sends[i + 1], recvs[i + 1] = last, first
+        got = _trade(sends, recvs, axis)
+        zero = torch.zeros_like(first)
+        return torch.cat([got.get(i - 1, zero), x, got.get(i + 1, zero)],
+                         dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        k, axis, dim = ctx.k, ctx.axis, ctx.dim
+        i, n = axis.index, axis.size
+        rows = g.shape[dim] - 2 * k
+        g_top, g_mid, g_bot = (g.narrow(dim, 0, k), g.narrow(dim, k, rows),
+                               g.narrow(dim, k + rows, k))
+        sends, recvs = {}, {}
+        if i > 0:
+            sends[i - 1], recvs[i - 1] = g_top, g_top
+        if i < n - 1:
+            sends[i + 1], recvs[i + 1] = g_bot, g_bot
+        got = _trade(sends, recvs, axis)
+        out = g_mid.clone()
+        if i > 0:
+            out.narrow(dim, 0, k).add_(got[i - 1])
+        if i < n - 1:
+            out.narrow(dim, rows - k, k).add_(got[i + 1])
+        return out, None, None, None
+
+
+def halo_exchange(x: torch.Tensor, k: int, axis: Axis,
+                  dim: int = 1) -> torch.Tensor:
+    """This rank's band ``x`` with ``k`` rows of each ``axis`` neighbour
+    along ``dim``: the last ``k`` rows of the band above, then ``x``, then
+    the first ``k`` of the band below. A band at the image's edge gets
+    ``k`` zero rows there, the zero padding of a SAME conv, so a conv with
+    no padding along ``dim`` gives the band's rows of the whole image's
+    conv. The gradient of the received rows is sent back and added into
+    the sender's edge rows. Every band needs at least ``k`` rows; with one
+    band this is zero padding."""
+    if x.shape[dim] < k:
+        raise ValueError(f"a band of {x.shape[dim]} rows cannot send a "
+                         f"{k}-row halo")
+    return _HaloExchange.apply(x, k, axis, dim)
+
+
+@dataclass(frozen=True)
+class Band:
+    """This rank's band of H: rows ``[start, stop)`` of ``height``, one of
+    the bands of ``axis`` (``sp``)."""
+
+    axis: Axis
+    start: int
+    stop: int
+    height: int
+
+    def scaled(self, s: int) -> "Band":
+        """The same band at ``s`` times the resolution."""
+        return Band(self.axis, self.start * s, self.stop * s, self.height * s)
+
+
+def band_of(h: int, axis: Axis, unit: int = 1) -> Band:
+    """This rank's band of ``h`` rows along ``axis``
+    (``parallel/spatial.py::band_bounds``)."""
+    from .spatial import band_bounds
+
+    start, stop = band_bounds(h, axis.size, unit)[axis.index]
+    return Band(axis, start, stop, h)
+
+
+def global_mean(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The mean of every element of ``t`` over every rank of ``axis``
+    (bands of unequal size weighted by their elements), on every rank;
+    its gradient reaches each rank's elements through the sum's
+    all-reduce."""
+    if axis.size == 1:
+        return t.mean()
+    count = _all_reduce(torch.tensor(float(t.numel()), device=t.device),
+                        axis)
+    return all_reduce_sum(t.sum(), axis) / count

@@ -9,14 +9,18 @@ grid point, row-major:
   (``parallel/pipeline.py``);
 - ``tp`` — the tensor axis: weights and Adam moments stored in slices of
   their last dim (``parallel/tensor.py``);
-- ``sp`` — the spatial split of H, which JAX leaves to GSPMD's conv halo
-  exchanges. It is not ported yet (ROADMAP queue 1 item 16b): a mesh with
-  ``sp > 1`` raises.
+- ``sp`` — the spatial split of H inside a serving window or a training
+  crop: each device holds one band of rows and exchanges halo rows with
+  the bands above and below before every conv or block that reaches
+  across the band's edge (``parallel/spatial.py``, the port's stand-in
+  for GSPMD's conv halos).
 
-Serving runs one process with one model replica per ``dp`` device
-(``parallel/tiling.py``, ``models/engine.py``). Training runs one
-``torch.distributed`` rank per mesh device (``parallel/comm.py``). A mesh
-may name one device more than once: ranks or replicas that share one card.
+Serving runs one process with one model replica per ``dp`` group; a group
+is the ``sp`` devices of one ``dp`` coordinate (:meth:`Mesh.sp_group`),
+one band each (``parallel/tiling.py``, ``models/engine.py``). Training
+runs one ``torch.distributed`` rank per mesh device (``parallel/comm.py``);
+a rank's ``sp`` coordinate is its band. A mesh may name one device more
+than once: ranks, replicas or bands that share one card.
 """
 
 from __future__ import annotations
@@ -40,15 +44,6 @@ def parse_mesh_shape(spec: str) -> Tuple[Tuple[str, int], ...]:
     return tuple(out)
 
 
-def check_no_sp(axes) -> None:
-    """Raise if ``axes`` (``(name, size)`` pairs) split H over ``sp``."""
-    if dict(axes).get("sp", 1) > 1:
-        raise ValueError(
-            "a mesh with sp > 1 splits H inside a window or a crop, with a "
-            "halo exchange before every conv: not ported yet (ROADMAP "
-            "queue 1 item 16b)")
-
-
 @dataclass(frozen=True)
 class Mesh:
     """Axis names, their sizes, and the devices of the grid, row-major."""
@@ -63,7 +58,6 @@ class Mesh:
         if len(self.devices) != math.prod(self.shape):
             raise ValueError(f"mesh {self.shape} needs {math.prod(self.shape)}"
                              f" devices, got {len(self.devices)}")
-        check_no_sp(zip(self.axis_names, self.shape))
 
     @property
     def size(self) -> int:
@@ -92,6 +86,19 @@ class Mesh:
         return tuple(self.devices[self.rank_of({name: i})]
                      for i in range(self.axis_size(name)))
 
+    def coords(self, rank: int) -> dict:
+        """The coordinates of device ``rank`` (row-major), by axis."""
+        out = {}
+        for name, n in reversed(tuple(zip(self.axis_names, self.shape))):
+            rank, out[name] = divmod(rank, n)
+        return {name: out[name] for name in self.axis_names}
+
+    def sp_group(self, dp: int = 0) -> Tuple[torch.device, ...]:
+        """The devices of ``dp`` replica ``dp``'s ``sp`` group, one per band
+        from the top of H down (every other coordinate 0)."""
+        return tuple(self.devices[self.rank_of({"dp": dp, "sp": j})]
+                     for j in range(self.axis_size("sp")))
+
     def key(self) -> tuple:
         """Structural identity (axes, sizes, devices), for caches."""
         return (self.axis_names, self.shape,
@@ -106,7 +113,6 @@ def build_mesh(spec: str = "", devices: Optional[Sequence] = None,
     spec needs for ``device="cpu"``. An explicit list may name one device
     more than once."""
     axes = parse_mesh_shape(spec)
-    check_no_sp(axes)
     total = math.prod(n for _, n in axes) if axes else None
     if devices is None:
         dev = torch.device(device)

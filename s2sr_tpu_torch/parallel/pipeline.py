@@ -14,6 +14,9 @@ replicates the last stage's buffer.
 
 - ``dp`` splits each microbatch's batch; the ``pp`` ring stays within a
   ``dp`` slice, and the slices are gathered at the end.
+- ``sp`` replicates the batch, as JAX's ``shard_map`` does
+  (``pipeline.py:180``: microbatches over ``dp`` alone): the ranks of one
+  ``sp`` group compute the same stage on the whole of H.
 - ``tp``: :func:`shard_stage` stores a rank's stage as its slice of each
   weight's output channels, 1/|tp| of the stage; given such a stage, the
   trunk all-gathers it over ``tp`` once per call. Given the whole body, a

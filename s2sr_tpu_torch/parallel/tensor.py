@@ -11,10 +11,12 @@ holds 1/|tp| of the model and of its optimizer.
 JAX leaves the collectives to GSPMD, which partitions each conv's output
 channels. The port's step (:func:`make_fsdp_train_step`) all-gathers the
 weights over ``tp`` before the forward, runs forward and backward on the
-rank's ``dp`` slice of the batch, reduce-scatters the weight gradients
-over ``tp`` and means them over ``dp``, and updates Adam (elementwise, no
-global-norm clipping) and the EMA on the local slices only. Params,
-``mu`` and ``nu`` stay sliced between steps.
+rank's (dp, sp) slice of the batch (JAX shards it by ``batch_sharding``:
+N over ``dp``, H over ``sp`` as bands with halo exchanges, as the L1
+step's), reduce-scatters the weight gradients over ``tp`` and means them
+over ``dp`` and ``sp``, and updates Adam (elementwise, no global-norm
+clipping) and the EMA on the local slices only. Params, ``mu`` and
+``nu`` stay sliced between steps.
 """
 
 from __future__ import annotations
@@ -95,16 +97,18 @@ def make_fsdp_train_step(config, mesh: Mesh, params, opt_state):
     → ``(step, tx)`` with ``step(params, opt_state, lr, hr) -> (params,
     opt_state, loss)``: ``params``/``opt_state`` this rank's slices
     (:func:`shard_tree`), and so are the outputs; ``lr``/``hr`` the global
-    batch (every rank passes all of it and keeps its ``dp`` slice); the
+    batch (every rank passes all of it and keeps its (dp, sp) slice); the
     loss the global mean, on every rank."""
     import torch
 
-    from ..training.train import _dtype, dp_slice, loss_fn, make_optimizer
+    from ..training.train import (_dtype, band_unit, loss_fn, make_optimizer,
+                                  rank_batch)
     from ..utils.precision import ieee_fp32
 
     tx = make_optimizer(config)
     rm = comm.for_mesh(mesh)
     tp, dp = comm.axis_of(rm, "tp"), comm.axis_of(rm, "dp")
+    sp = comm.axis_of(rm, "sp")
     world = rm.world if rm else tp
     flags = [bool(sh.spec) for sh in
              tree_flatten(tp_shardings(params, mesh))[0]]
@@ -115,26 +119,29 @@ def make_fsdp_train_step(config, mesh: Mesh, params, opt_state):
         sharded = iter(comm.all_gather_cat(
             [t for t, f in zip(leaves, flags) if f], tp))
         whole = [next(sharded) if f else t for t, f in zip(leaves, flags)]
-        lr_b, hr_b = dp_slice(lr_batch, dp), dp_slice(hr_batch, dp)
+        lr_b, hr_b, band = rank_batch(lr_batch, hr_batch, rm, config.scale,
+                                      band_unit(config))
         with ieee_fp32(_dtype(config) == torch.float32):
-            loss = loss_fn(tree_unflatten(struct, whole), lr_b, hr_b, config)
+            # the global mean on every rank: each rank's gradient is its
+            # (dp, sp) share times the number of (dp, sp) slices
+            loss = loss_fn(tree_unflatten(struct, whole), lr_b, hr_b, config,
+                           band, None if rm is None else world)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
         # the gather's backward summed the |tp| equal gradients of each
-        # slice: their mean over tp, then the mean over dp
-        part = iter(comm.all_reduce_mean(
-            [g / tp.size for g, f in zip(grads, flags) if f], dp))
-        # replicated leaves and the loss: equal across tp, so the mean over
-        # every rank is the mean over dp, and keeps them equal everywhere
-        rest = comm.all_reduce_mean(
-            [g for g, f in zip(grads, flags) if not f] + [loss.detach()],
-            world)
-        loss = rest.pop()
-        rest = iter(rest)
+        # slice: their mean over tp, then the mean over dp and over sp
+        part = comm.all_reduce_mean(
+            [g / tp.size for g, f in zip(grads, flags) if f], dp)
+        part = iter(comm.all_reduce_mean(part, sp))
+        # replicated leaves: every tp rank holds its slice's share, so the
+        # mean over every rank is the mean over dp and sp, and keeps them
+        # equal everywhere
+        rest = iter(comm.all_reduce_mean(
+            [g for g, f in zip(grads, flags) if not f], world))
         grads = [next(part) if f else next(rest) for f in flags]
         p, s = tx.update(grads, s, tree_unflatten(struct, [
             t.detach() for t in leaves]))
-        return p, s, loss
+        return p, s, loss.detach()
 
     return step, tx

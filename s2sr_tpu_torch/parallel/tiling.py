@@ -20,6 +20,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from . import spatial
+
 ModelFn = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -122,6 +124,7 @@ def tiled_apply(
     scale: int = 4,
     batch_size: int = 16,
     mesh=None,
+    band_unit: int = 1,
 ) -> torch.Tensor:
     """Whole-image SR via batched halo windows. ``img``: (H, W, C) float.
 
@@ -137,8 +140,17 @@ def tiled_apply(
     one per replica. JAX splits each chunk over dp instead; whole chunks
     keep every forward at the one-device batch, so a convolution library
     that picks its algorithm by batch size picks the same one, and the
-    stitched output equals the one-device output bit for bit."""
-    fns, devices = _replicas(model_fn, mesh, img.device)
+    stitched output equals the one-device output bit for bit.
+
+    With ``sp > 1`` a replica is the ``sp`` group of its ``dp``
+    coordinate (``Mesh.sp_group``): each chunk's windows are split over H
+    into the group's bands (``spatial.band_bounds``, in ``band_unit``
+    rows), band j on the group's device j, and the replica's callable
+    maps that list of bands to the list of their outputs (the halo
+    exchange is its own, ``parallel/spatial.py``); the outputs are joined
+    on the group's first device. JAX's counterpart shards the window
+    batch's H over ``sp`` (``tiling.py:195-203``)."""
+    fns, groups = _replicas(model_fn, mesh, img.device)
     h, w, c = img.shape
     plan = TilePlan.for_image(h, w, tile=tile, pad=pad, scale=scale)
     crop_off, dest = plan.crop_boxes()
@@ -154,8 +166,9 @@ def tiled_apply(
     outs = []
     for i, k in enumerate(range(0, n_padded, batch_size)):
         r = i % len(fns)
-        outs.append(fns[r](windows[k:k + batch_size].to(devices[r])))
-    outputs = torch.cat([o.to(devices[0]) for o in outs], 0)[:n]
+        outs.append(_run_replica(fns[r], windows[k:k + batch_size], groups[r],
+                                band_unit))
+    outputs = torch.cat([o.to(groups[0][0]) for o in outs], 0)[:n]
 
     keep_h, keep_w = plan.keep_size()
     canvas = torch.zeros((h * s, w * s, c), dtype=outputs.dtype,
@@ -168,15 +181,27 @@ def tiled_apply(
     return canvas
 
 
+def _run_replica(fn, batch: torch.Tensor, group, band_unit: int = 1):
+    """``fn`` on ``batch`` on one replica: its one device, or the bands of
+    its ``sp`` group (a list in, a list out), joined on the group's first
+    device."""
+    if len(group) == 1:
+        return fn(batch.to(group[0]))
+    bounds = spatial.band_bounds(batch.shape[1], len(group), band_unit)
+    return spatial.gather(fn(spatial.split(batch, bounds, group)), group[0])
+
+
 def _replicas(model_fn, mesh, device) -> tuple:
-    """(one callable per dp replica, their devices)."""
-    devices = [device] if mesh is None else list(mesh.axis_devices("dp"))
+    """(one callable per dp replica, the devices of each replica: its
+    ``sp`` group)."""
+    groups = ([(device,)] if mesh is None else
+              [mesh.sp_group(d) for d in range(mesh.axis_size("dp"))])
     fns = (list(model_fn) if isinstance(model_fn, (list, tuple))
-           else [model_fn] * len(devices))
-    if len(fns) != len(devices):
-        raise ValueError(f"{len(fns)} model functions for {len(devices)} "
+           else [model_fn] * len(groups))
+    if len(fns) != len(groups):
+        raise ValueError(f"{len(fns)} model functions for {len(groups)} "
                          "dp replicas")
-    return fns, devices
+    return fns, groups
 
 
 def bucket_pad(img: np.ndarray, mult: int = 64):

@@ -24,11 +24,17 @@ and an optional weight EMA.
 - A float32 step runs forward and backward with TF32 off.
 - With a mesh of more than one device the steps run in every rank of it
   (``parallel/comm.py::launch``). Each rank is given the whole global
-  batch, as JAX's replicated key draws it, and keeps its ``dp`` slice
-  (axes other than ``dp`` replicate the batch; ``sp > 1`` is refused by
-  the mesh, ROADMAP queue 1 item 16b). Params, Adam state and the pool
-  are replicated; the gradients and the loss are averaged over the
-  ranks, so each step is the one-device step on the global batch.
+  batch, as JAX's replicated key draws it, and keeps its (dp, sp) slice
+  (:func:`rank_batch`, JAX's ``batch_sharding``): N over ``dp``, and H
+  over ``sp`` as bands of rows (the HR band ``scale`` times the LR
+  band's rows; SwinIR's in whole window rows), the forward exchanging
+  halo rows with the neighbouring bands before every conv. The loss is
+  the global batch's mean on every rank (an all-reduce of its sums,
+  unequal bands weighted by their pixels), so each rank's gradient is
+  its share of the global gradient times the number of ranks, and the
+  mean of the gradients over every rank is the global gradient. Params,
+  Adam state and the pool are replicated; each step is the one-device
+  step on the global batch.
 """
 
 from __future__ import annotations
@@ -187,43 +193,56 @@ def _dtype(config: TrainConfig) -> torch.dtype:
     return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
 
 
-def model_apply(config: TrainConfig, params, x: torch.Tensor) -> torch.Tensor:
+def model_apply(config: TrainConfig, params, x: torch.Tensor,
+                band=None) -> torch.Tensor:
     """Family-dispatched differentiable forward: (B, h, w, 3) in [0, 1] →
-    (B, sh, sw, 3) float32."""
+    (B, sh, sw, 3) float32; ``band`` (``comm.Band``): ``x`` is this
+    rank's band of H."""
     dtype = _dtype(config)
     if config.family == "rrdbnet":
         return rrdbnet_apply(params, x, scale=config.scale, dtype=dtype,
-                             remat=config.remat)
+                             remat=config.remat, band=band)
     if config.family == "swinir":
         return swinir_apply(params, x, scale=config.scale,
                             num_heads=config.heads,
                             window_size=config.window, dtype=dtype,
-                            remat=config.remat)
+                            remat=config.remat, band=band)
     raise ValueError(f"unknown model family {config.family!r}")
 
 
+def mean_over(t: torch.Tensor, axis=None) -> torch.Tensor:
+    """The mean of ``t``, or with ``axis`` (a ``comm.Axis``) the mean over
+    every element of every rank's ``t`` (``comm.global_mean``)."""
+    return t.mean() if axis is None else comm.global_mean(t, axis)
+
+
 def loss_from_pred(pred: torch.Tensor, hr_batch: torch.Tensor,
-                   config: TrainConfig) -> torch.Tensor:
-    """Charbonnier (or plain L1) pixel loss of a prediction."""
+                   config: TrainConfig, axis=None) -> torch.Tensor:
+    """Charbonnier (or plain L1) pixel loss of a prediction; with ``axis``
+    the mean over every rank's pixels."""
     diff = pred - hr_batch
     if config.charbonnier_eps > 0:
-        return torch.mean(torch.sqrt(diff * diff + config.charbonnier_eps ** 2))
-    return torch.mean(torch.abs(diff))
+        return mean_over(torch.sqrt(diff * diff + config.charbonnier_eps ** 2),
+                         axis)
+    return mean_over(torch.abs(diff), axis)
 
 
-def loss_fn(params, lr_batch, hr_batch, config: TrainConfig) -> torch.Tensor:
-    return loss_from_pred(model_apply(config, params, lr_batch), hr_batch,
-                          config)
+def loss_fn(params, lr_batch, hr_batch, config: TrainConfig, band=None,
+            axis=None) -> torch.Tensor:
+    return loss_from_pred(model_apply(config, params, lr_batch, band),
+                          hr_batch, config, axis)
 
 
-def loss_and_grads(params, lr_batch, hr_batch, config: TrainConfig) -> tuple:
+def loss_and_grads(params, lr_batch, hr_batch, config: TrainConfig,
+                   band=None, axis=None) -> tuple:
     """→ (loss, the gradients of the params' leaves in
-    :func:`tree_flatten` order); float32 with TF32 off."""
+    :func:`tree_flatten` order); float32 with TF32 off. ``band`` and
+    ``axis`` as :func:`loss_fn`'s (a rank's slice of the global batch)."""
     leaves, struct = tree_flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in leaves]
     with ieee_fp32(config.dtype != "bfloat16"):
         loss = loss_fn(tree_unflatten(struct, leaves), lr_batch, hr_batch,
-                       config)
+                       config, band, axis)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     # a leaf the forward never reads (conv_up2 at ×2) has zero gradient
     grads = [torch.zeros_like(p) if g is None else g
@@ -246,14 +265,38 @@ def dp_slice(batch: torch.Tensor, dp) -> torch.Tensor:
     return batch[dp.index * k:(dp.index + 1) * k]
 
 
+def band_unit(config: TrainConfig) -> int:
+    """LR rows per unit of an ``sp`` band: a window row for SwinIR."""
+    return config.window if config.family == "swinir" else 1
+
+
+def rank_batch(lr_batch: torch.Tensor, hr_batch: torch.Tensor, rm,
+               scale: int, unit: int = 1) -> tuple:
+    """This rank's (dp, sp) slice of a global batch → ``(lr, hr, band)``:
+    N over ``dp``; H over ``sp``, the LR band's rows ``[a, b)``
+    (``comm.band_of`` in ``unit`` rows) and the HR band's ``[s·a, s·b)``.
+    ``band`` is the LR ``comm.Band``, None without ``sp`` (or a rank
+    mesh)."""
+    if rm is None:
+        return lr_batch, hr_batch, None
+    lr_b, hr_b = (dp_slice(t, rm.axis("dp")) for t in (lr_batch, hr_batch))
+    sp = rm.axis("sp")
+    if sp.size == 1:
+        return lr_b, hr_b, None
+    band = comm.band_of(lr_b.shape[1], sp, unit)
+    return (lr_b[:, band.start:band.stop],
+            hr_b[:, band.start * scale:band.stop * scale], band)
+
+
 def _one_step(config, tx, params, opt_state, lr_b, hr_b, rm=None) -> tuple:
+    lr_b, hr_b, band = rank_batch(lr_b, hr_b, rm, config.scale,
+                                  band_unit(config))
+    loss, grads = loss_and_grads(params, lr_b, hr_b, config, band,
+                                 None if rm is None else rm.world)
     if rm is not None:
-        lr_b, hr_b = (dp_slice(t, rm.axis("dp")) for t in (lr_b, hr_b))
-    loss, grads = loss_and_grads(params, lr_b, hr_b, config)
-    if rm is not None:
-        # ranks that share a dp slice hold equal gradients, so the mean
-        # over every rank is the mean over dp
-        *grads, loss = comm.all_reduce_mean([*grads, loss], rm.world)
+        # the loss is the global mean on every rank, so each rank holds
+        # its share of the gradient times the number of ranks
+        grads = comm.all_reduce_mean(grads, rm.world)
     params, opt_state = tx.update(grads, opt_state, params)
     return params, opt_state, loss
 
@@ -262,7 +305,8 @@ def make_train_step(config: TrainConfig, mesh=None):
     """→ ``(step, tx)``; ``step(params, opt_state, lr_batch, hr_batch)``
     → ``(params, opt_state, loss)``, the loss a tensor on the batch's
     device. With a mesh of more than one device, run it in every rank
-    with the global batch: the loss is the global mean on every rank."""
+    with the global batch (N over ``dp``, H over ``sp``): the loss is the
+    global mean on every rank."""
     tx = make_optimizer(config)
     rm = comm.for_mesh(mesh)
 
@@ -277,7 +321,7 @@ def make_chunked_train_step(config: TrainConfig, mesh=None):
     """→ ``(run, tx)``; ``run(params, opt_state, lr_chunk, hr_chunk)`` runs
     K steps over chunks with a leading steps axis (K, N, h, w, 3) →
     ``(params, opt_state, losses)``, the K losses stacked. A mesh splits
-    N, as :func:`make_train_step`'s does."""
+    N and H, as :func:`make_train_step`'s does."""
     tx = make_optimizer(config)
     rm = comm.for_mesh(mesh)
 
@@ -402,7 +446,7 @@ def make_device_pool_train_step(config: TrainConfig, crop_lr: int, batch: int,
     (from ``gen``, or from ``draws[i]``, a dict of
     :meth:`PoolSampler.from_draws`'s arguments) → ``(params, opt_state,
     losses)``. With a mesh every rank draws the whole ``batch`` from a
-    generator seeded alike and keeps its ``dp`` slice."""
+    generator seeded alike and keeps its (dp, sp) slice."""
     tx = make_optimizer(config)
     rm = comm.for_mesh(mesh)
     sampler = make_pool_sampler(config.scale, crop_lr, batch, blur_sigma,

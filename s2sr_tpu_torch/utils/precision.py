@@ -34,26 +34,23 @@ def ieee_fp32(enabled: bool = True):
 
 @contextlib.contextmanager
 def invariant_convs(device: torch.device, dtype: torch.dtype):
-    """PyTorch's own convolutions inside the block (im2col and a GEMM per
-    image), whose rounding depends neither on the image's shape nor on
-    the batch: a zero-padded bucket and a batch then give the unpadded
-    single image's values. On CUDA cuDNN is off: it picks its algorithm
+    """PyTorch's own convolutions inside the block on CUDA (im2col and a
+    GEMM per image), whose rounding depends neither on the image's shape
+    nor on the batch: a zero-padded bucket and a batch then give the
+    unpadded single image's values. cuDNN is off: it picks its algorithm
     by shape and batch size (a transposed conv differs between 576×432
     and its 576×448 bucket, a 256-channel bf16 conv between a batch of 2
-    and one image at 64²; ``chip_smoke.py`` phase ``classic``). On the
-    CPU oneDNN is off for float32, for the same reason; the CPU's bf16
-    convs are not shape-invariant either way and keep oneDNN. The flag
-    as it was afterwards."""
-    if device.type == "cuda":
-        backend = torch.backends.cudnn
-    elif device.type == "cpu" and dtype == torch.float32:
-        backend = torch.backends.mkldnn
-    else:
+    and one image at 64²; ``chip_smoke.py`` phase ``classic``); the flag
+    as it was afterwards. On the CPU nothing is switched: the classic
+    models call PyTorch's own float32 convolution by name
+    (``models/classic.py``), without writing oneDNN's process-wide flag,
+    and the CPU's bf16 convs are not shape-invariant either way."""
+    if device.type != "cuda":
         yield
         return
-    flag = backend.enabled
-    backend.enabled = False
+    flag = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
     try:
         yield
     finally:
-        backend.enabled = flag
+        torch.backends.cudnn.enabled = flag

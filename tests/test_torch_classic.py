@@ -7,6 +7,8 @@ executor on the JAX tests' in-test graphs, and the serving pipeline.
 Sizes are small: EDSR with 2 blocks of 16 features, LapSRN with depth 2,
 images of at most 48 px (64 where a bucket must be on the grid)."""
 
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -76,9 +78,60 @@ CASES = ([("edsr", s, 3, dt) for s in (2, 3, 4)
          + [("lapsrn", s, c, "float32") for s in (2, 4, 8) for c in (1, 3)])
 
 
+def rounding_probe() -> dict:
+    """The calling thread's float32 rounding, from numpy, and torch's on
+    every intra-op thread: 1 + 1.5·2⁻²⁴ rounds up to 1 + 2⁻²³ only under
+    round-to-nearest."""
+    tiny = 1.5 * 2.0 ** -24
+    up = np.float32(1) + np.float32(2.0 ** -23)
+    chunks = torch.get_num_threads()
+    t = torch.ones(chunks * (1 << 16)) + tiny      # every thread a chunk
+    off = [int((c != float(up)).any()) for c in t.chunk(chunks)]
+    return {"numpy_rounds_to_nearest":
+            bool(np.float32(1) + np.float32(tiny) == up),
+            "torch_chunks": chunks, "torch_chunks_rounded_otherwise":
+            sum(off)}
+
+
+def f32_failure_report(tm, x, got, want, tol, tmp_path) -> str:
+    """What a float32 mismatch needs to settle its cause: the error and
+    the limit, the same forward re-run in a fresh process on the same
+    inputs (does this process's result move?), the rounding probes and
+    the CPU conv settings."""
+    limit = tol * float(np.abs(want).max())
+    np.save(tmp_path / "x.npy", x)
+    torch.save(tm, tmp_path / "model.pt")
+    code = (
+        "import sys, numpy as np, torch; sys.path.insert(0, sys.argv[1]); "
+        "m = torch.load(sys.argv[2], weights_only=False); "
+        "x = torch.from_numpy(np.load(sys.argv[3])); "
+        "np.save(sys.argv[4], m(x).numpy())")
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path / "fresh.npy"
+    run = subprocess.run(
+        [sys.executable, "-c", code, str(root), str(tmp_path / "model.pt"),
+         str(tmp_path / "x.npy"), str(out)], capture_output=True, text=True,
+        timeout=120)
+    if run.returncode == 0:
+        fresh = np.load(out)
+        rerun = {"fresh_vs_jax": float(np.abs(fresh - want).max()),
+                 "fresh_vs_this_process": float(np.abs(fresh - got).max())}
+    else:
+        rerun = {"fresh_process_failed": run.stderr[-2000:]}
+    return str({
+        "max_abs_err": float(np.abs(got - want).max()), "limit": limit,
+        **rerun, **rounding_probe(),
+        "mkldnn_enabled": torch.backends.mkldnn.enabled,
+        "num_threads": torch.get_num_threads(),
+        "cpu_capability": torch.backends.cpu.get_cpu_capability()})
+
+
 @pytest.mark.parametrize("size", sorted(SIZES))
 @pytest.mark.parametrize("family,scale,num_ch,dtype", CASES)
-def test_classic_model_matches_jax(family, scale, num_ch, dtype, size):
+def test_classic_model_matches_jax(family, scale, num_ch, dtype, size,
+                                   tmp_path):
+    """The port on JAX's weights. A float32 failure's message carries
+    :func:`f32_failure_report`."""
     jm, tree, tm = pair(family, scale, num_ch, dtype)
     h, w = SIZES[size]
     x = np.random.default_rng(1).random((1, h, w, num_ch)).astype(np.float32)
@@ -87,7 +140,9 @@ def test_classic_model_matches_jax(family, scale, num_ch, dtype, size):
     assert got.shape == want.shape == (1, h * scale, w * scale, num_ch)
     assert got.dtype == np.float32
     tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
-    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+    assert np.abs(got - want).max() <= tol * np.abs(want).max(), (
+        "" if dtype == "bfloat16"
+        else f32_failure_report(tm, x, got, want, tol, tmp_path))
 
 
 MASK_CASES = ([("edsr", s, 3) for s in (2, 3, 4)]

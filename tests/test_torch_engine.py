@@ -210,27 +210,31 @@ def test_parse_mesh_shape_matches_jax(spec):
     assert parse_mesh_shape(spec) == jax_parse(spec)
 
 
-@pytest.mark.parametrize("spec, serves", [("dp=1", True), ("dp=1,tp=1", True),
-                                          ("dp=4", True), ("dp=2,sp=2", False)])
-def test_get_engine_mesh_shape(tiny, monkeypatch, spec, serves):
+@pytest.mark.parametrize("spec, one_band", [("dp=1", True),
+                                             ("dp=1,tp=1", True),
+                                             ("dp=4", True),
+                                             ("dp=2,sp=2", False)])
+def test_get_engine_mesh_shape(tiny, monkeypatch, spec, one_band):
     """A mesh over one device serves (JAX serves it identically on one
-    chip), and so does dp=4 (four CPU replicas); sp > 1 raises naming
-    ROADMAP queue 1 item 16b."""
+    chip), and so does dp=4 (four CPU replicas); dp=2,sp=2 serves two
+    replicas of two bands each, the one-device engine's bytes."""
     from s2sr_tpu_torch.config import settings as settings_mod
 
-    _, _, d, _ = tiny
+    _, one, d, _ = tiny
     monkeypatch.setenv("MESH_SHAPE", spec)
     settings_mod.get_settings.cache_clear()
     try:
-        if serves:
-            eng = engine_mod.get_engine("rrdb_tiny", weights_dir=str(d),
-                                        dtype="float32", device="cpu")
-            out = eng.enhance_serving(np.zeros((8, 8, 3), np.uint8))
-            assert out.shape == (32, 32, 3)
-        else:
-            with pytest.raises(ValueError, match="ROADMAP queue 1 item 16b"):
-                engine_mod.get_engine("rrdb_tiny", weights_dir=str(d),
-                                      dtype="float32", device="cpu")
+        eng = engine_mod.get_engine("rrdb_tiny", weights_dir=str(d),
+                                    dtype="float32", device="cpu")
+        assert [len(g) == 1 for g in eng.replica_groups] == \
+            [one_band] * len(eng.replica_groups)
+        out = eng.enhance_serving(np.zeros((8, 8, 3), np.uint8))
+        assert out.shape == (32, 32, 3)
+        if not one_band:
+            img = np.random.default_rng(2).integers(0, 256, (24, 20, 3),
+                                                    dtype=np.uint8)
+            assert np.array_equal(eng.enhance_serving(img),
+                                  one.enhance_serving(img))
     finally:
         monkeypatch.delenv("MESH_SHAPE")
         settings_mod.get_settings.cache_clear()

@@ -44,5 +44,6 @@ def test_build_mesh_one_device():
     assert build_mesh("", device="cpu").axis_names == ("dp",)
     assert build_mesh("dp=1,sp=1", device="cpu").shape == (1, 1)
     assert build_mesh("dp=2", device="cpu").devices == (torch.device("cpu"),) * 2
-    with pytest.raises(ValueError, match="item 16b"):
-        build_mesh("dp=2,sp=2", device="cpu")
+    # sp splits H: a replica is its dp coordinate's sp group
+    mesh = build_mesh("dp=2,sp=2", device="cpu")
+    assert mesh.shape == (2, 2) and len(mesh.sp_group(1)) == 2

@@ -182,19 +182,18 @@ def test_swinir_gan_step_matches_jax():
 
 
 def test_mesh_of_more_than_one_device_refused():
-    """A one-device mesh, and dp=2 (two gloo ranks on the CPU: one step,
-    the same loss on both), train; sp > 1 is refused naming item 16b."""
+    """A one-device mesh, dp=2 and sp=2 (two gloo ranks on the CPU: one
+    step each, the same loss on both ranks and on both meshes) train;
+    the sp step is no longer refused."""
     from s2sr_tpu_torch.parallel import comm
     from s2sr_tpu_torch.parallel.mesh import Mesh, build_mesh
 
-    from torch_mesh_ranks import gan_dp2_step
+    from torch_mesh_ranks import gan_mesh_steps
 
     cfg = pg.GanConfig(base=pt.TrainConfig(**RRDB))
     one = Mesh(("dp",), (1,), (torch.device("cpu"),))
     assert pg.make_gan_train_step(cfg, one)[1].num_feat == 32
-    losses = comm.launch(gan_dp2_step, build_mesh("dp=2", device="cpu"),
+    losses = comm.launch(gan_mesh_steps, build_mesh("dp=2", device="cpu"),
                          args=(RRDB,), timeout=120)
-    assert losses[0] == losses[1] and np.isfinite(losses[0])
-    with pytest.raises(ValueError, match="item 16b"):
-        pg.make_gan_train_step(cfg, Mesh(("dp", "sp"), (1, 2),
-                                         (torch.device("cpu"),) * 2))
+    assert losses[0] == losses[1] and np.isfinite(losses[0]["dp=2"])
+    assert losses[0]["sp=2"] == pytest.approx(losses[0]["dp=2"], rel=1e-5)

@@ -40,6 +40,7 @@ def test_modules_import_with_jax_blocked():
             "s2sr_tpu_torch.parallel.mesh", "s2sr_tpu_torch.parallel.comm",
             "s2sr_tpu_torch.parallel.tensor",
             "s2sr_tpu_torch.parallel.pipeline",
+            "s2sr_tpu_torch.parallel.spatial",
             "s2sr_tpu_torch.vectors", "s2sr_tpu_torch.vectors.ops",
             "s2sr_tpu_torch.vectors.geometry",
             "s2sr_tpu_torch.vectors.extraction",

@@ -1,6 +1,6 @@
 """The port's device mesh and multi-device serving against the JAX
 package's: ``parallel/mesh.py`` (specs, device grids, the shardings'
-specs, the ``sp`` refusal), ``parallel/tiling.py::tiled_apply`` over a
+specs, the ``sp`` groups), ``parallel/tiling.py::tiled_apply`` over a
 ``dp`` mesh against JAX's over ``build_mesh("dp=8")``
 (``tests/test_tiling.py``'s sharded tests), and ``SREngine`` /
 ``get_engine`` with a mesh of two CPU devices against JAX's mesh engine
@@ -49,7 +49,7 @@ def test_build_mesh_and_shardings_match_jax():
         mesh_mod.build_mesh("dp=4", devices=two)
     for spec in ("dp=8", "dp=4,sp=2", "pp=2,tp=4"):
         jm = jax_mesh_mod.build_mesh(spec)
-        pm = mesh_mod.build_mesh(spec.replace("sp=2", "sp=1"), device="cpu")
+        pm = mesh_mod.build_mesh(spec, device="cpu")
         assert jm.axis_names == pm.axis_names
         assert tuple(jax_mesh_mod.window_sharding(jm).spec) == \
             mesh_mod.window_sharding(pm).spec
@@ -61,12 +61,27 @@ def test_build_mesh_and_shardings_match_jax():
     assert mesh_mod.replicated(None) is None
 
 
-def test_sp_refused_naming_item_16b():
-    with pytest.raises(ValueError, match="item 16b"):
-        mesh_mod.build_mesh("dp=2,sp=2", device="cpu")
-    with pytest.raises(ValueError, match="item 16b"):
-        mesh_mod.Mesh(("sp",), (2,), (torch.device("cpu"),) * 2)
-    assert mesh_mod.build_mesh("dp=2,sp=1", device="cpu").size == 2
+def test_sp_mesh_groups_and_coords_match_jax():
+    """An sp mesh: JAX's axis names and shape; each dp replica's sp group
+    in row-major order; every device's coordinates."""
+    jm = jax_mesh_mod.build_mesh("dp=2,sp=2")
+    devs = [torch.device(f"cuda:{i}") for i in range(4)]
+    m = mesh_mod.build_mesh("dp=2,sp=2", devices=devs)
+    assert m.axis_names == jm.axis_names == ("dp", "sp")
+    assert m.shape == tuple(jm.devices.shape) == (2, 2)
+    assert m.sp_group(0) == tuple(devs[:2]) and m.sp_group(1) == tuple(
+        devs[2:])
+    # JAX's grid: dp replica i holds devices 2i, 2i+1 along sp
+    assert [[d.id for d in row] for row in jm.devices] == [[0, 1], [2, 3]]
+    assert [m.coords(r) for r in range(4)] == [
+        {"dp": 0, "sp": 0}, {"dp": 0, "sp": 1}, {"dp": 1, "sp": 0},
+        {"dp": 1, "sp": 1}]
+    assert all(m.rank_of(m.coords(r)) == r for r in range(4))
+    assert m.axis_devices("dp") == (devs[0], devs[2])
+    one = mesh_mod.Mesh(("sp",), (2,), (torch.device("cpu"),) * 2)
+    assert one.sp_group() == (torch.device("cpu"),) * 2
+    assert mesh_mod.build_mesh("dp=2,sp=1", device="cpu").sp_group(1) == (
+        torch.device("cpu"),)
 
 
 def test_tiled_apply_sharded_matches_jax():

@@ -3,8 +3,8 @@ sharded steps (``tests/test_training.py``'s sharded tests): the L1 step,
 the chunked step, the device-pool step (fed JAX's draws), SwinIR's step
 and the GAN step, each also against the port's own one-device step; then
 ``cli.train --mesh dp=2 --backend gloo`` against the one-device CLI, and
-the backend's refusals. The ``sp`` cases of those tests wait for ROADMAP
-queue 1 item 16b.
+the backend's refusals. The ``sp`` cases of those tests (dp=2,sp=2) are
+in ``tests/test_torch_sp.py``.
 
 The port's side runs in two gloo ranks on the CPU, started once for the
 module (``tests/torch_mesh_ranks.py::train_program``); every rank is

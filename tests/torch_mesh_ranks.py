@@ -215,8 +215,9 @@ def train_program(rank: int, cases: dict) -> dict:
 
 # --- tests/test_torch_gan.py: two ranks -----------------------------------
 
-def gan_dp2_step(rank: int, config: dict) -> float:
-    """One G+D step of a fresh GAN over dp=2 → its g_loss."""
+def gan_mesh_steps(rank: int, config: dict) -> dict:
+    """One G+D step of a fresh GAN over dp=2 and over sp=2 (two bands of
+    the 16-row HR crops) → their g_loss by mesh."""
     torch.set_num_threads(1)
     from s2sr_tpu_torch.training import gan as pg
     from s2sr_tpu_torch.training import train as pt
@@ -227,5 +228,118 @@ def gan_dp2_step(rank: int, config: dict) -> float:
     do = pt.make_optimizer(pt.TrainConfig(learning_rate=gcfg.lr_d)).init(d)
     hr = torch.rand((2, 16, 16, 3), generator=torch.Generator().manual_seed(2))
     lr = hr.reshape(2, 8, 2, 8, 2, 3).mean((2, 4))
-    step = pg.make_gan_train_step(gcfg, build_mesh("dp=2", device="cpu"))[0]
-    return float(step(g, d, go, do, lr, hr)[4]["g_loss"])
+    out = {}
+    for spec in ("dp=2", "sp=2"):
+        step = pg.make_gan_train_step(gcfg, build_mesh(spec, device="cpu"))[0]
+        out[spec] = float(step(g, d, go, do, lr, hr)[4]["g_loss"])
+    return out
+
+
+# --- tests/test_torch_sp.py: four ranks -----------------------------------
+
+def _halo_chain(x, ws, sp=None):
+    """Two 3×3 convs (NCHW, no bias), each with a 1-row halo over ``sp``."""
+    import torch.nn.functional as F
+
+    for w in ws:
+        if sp is None:
+            x = F.conv2d(x, w, padding=1)
+        else:
+            x = F.conv2d(comm.halo_exchange(x, 1, sp, dim=2), w,
+                         padding=(0, 1))
+        x = torch.tanh(x)
+    return x
+
+
+def sp_program(rank: int, cases: dict) -> dict:
+    """Every scenario of ``tests/test_torch_sp.py`` that runs over ranks:
+    the float64 halo gradient over the ``sp`` axis, then the L1, chunked,
+    SwinIR, FSDP and GAN steps over ``dp=2,sp=2`` (FSDP over
+    ``dp=1,sp=2,tp=2``), each beside the one-device step."""
+    torch.set_num_threads(1)
+    from s2sr_tpu_torch.parallel.tensor import (gather_tree,
+                                                make_fsdp_train_step,
+                                                shard_tree)
+    from s2sr_tpu_torch.training import gan as pg
+    from s2sr_tpu_torch.training import train as pt
+
+    mesh = build_mesh("dp=2,sp=2", device="cpu")
+    rm = comm.rank_mesh(mesh)
+    sp = rm.axis("sp")
+    out = {}
+
+    c = cases["halo"]
+    x = _t(c["x"]).requires_grad_(True)
+    ws = [_t(w).requires_grad_(True) for w in c["ws"]]
+    r = _t(c["r"])
+    band = comm.band_of(x.shape[2], sp)
+    xb = x.detach()[:, :, band.start:band.stop].clone().requires_grad_(True)
+    wb = [w.detach().clone().requires_grad_(True) for w in ws]
+    yb = _halo_chain(xb, wb, sp)
+    (yb * r[:, :, band.start:band.stop]).sum().backward()
+    (_halo_chain(x, ws) * r).sum().backward()
+    out["halo"] = {
+        "band": (band.start, band.stop),
+        "y": yb.detach().numpy(),
+        "y_one": _halo_chain(x.detach(), [w.detach() for w in ws])[
+            :, :, band.start:band.stop].numpy(),
+        "gx": xb.grad.numpy(),
+        "gx_one": x.grad[:, :, band.start:band.stop].numpy(),
+        "gw": [comm.all_reduce_sum(w.grad, sp).numpy() for w in wb],
+        "gw_one": [w.grad.numpy() for w in ws]}
+
+    for name in ("l1", "l1_odd", "swinir"):
+        c = cases[name]
+        config = pt.TrainConfig(**c["config"])
+        params, opt = _state(c["params"], config)
+        lr, hr = _t(c["lr"]), _t(c["hr"])
+        res = {}
+        for label, m in (("mesh", mesh), ("one", None)):
+            step, _ = pt.make_train_step(config, m)
+            p1, _, loss = step(params, opt, lr, hr)
+            res[label] = {"loss": float(loss), "params": tree_to_numpy(p1)}
+        out[name] = res
+
+    c = cases["chunked"]
+    config = pt.TrainConfig(**c["config"])
+    params, opt = _state(c["params"], config)
+    res = {}
+    for label, m in (("mesh", mesh), ("one", None)):
+        run, _ = pt.make_chunked_train_step(config, m)
+        p1, o1, losses = run(params, opt, _t(c["lr"]), _t(c["hr"]))
+        res[label] = {"losses": losses.numpy(), "params": tree_to_numpy(p1),
+                      "opt": _opt_np(o1)}
+    out["chunked"] = res
+
+    c = cases["fsdp"]
+    config = pt.TrainConfig(**c["config"])
+    fmesh = build_mesh(c["mesh"], device="cpu")
+    params, opt = _state(c["params"], config)
+    lr, hr = _t(c["lr"]), _t(c["hr"])
+    step, _ = make_fsdp_train_step(config, fmesh, params, opt)
+    p1, o1, loss = step(shard_tree(params, fmesh), shard_tree(opt, fmesh),
+                        lr, hr)
+    ref, _ = pt.make_train_step(config)
+    rp, _, rloss = ref(params, opt, lr, hr)
+    out["fsdp"] = {"loss": float(loss), "ref_loss": float(rloss),
+                   "params": tree_to_numpy(gather_tree(p1, params, fmesh)),
+                   "ref_params": tree_to_numpy(rp),
+                   "mu_shape": tuple(o1.mu["conv_first"]["kernel"].shape)}
+
+    c = cases["gan"]
+    gcfg = pg.GanConfig(base=pt.TrainConfig(**c["config"]),
+                        num_feat_d=c["num_feat_d"])
+    res = {}
+    for label, m in (("mesh", mesh), ("one", None)):
+        g, go = _state(c["g"], gcfg.base)
+        d = tree_to_torch(c["d"])
+        do = pt.make_optimizer(pt.TrainConfig(learning_rate=gcfg.lr_d)).init(d)
+        step = pg.make_gan_train_step(gcfg, m)[0]
+        g1, d1, go1, _, metrics = step(g, d, go, do, _t(c["lr"]),
+                                       _t(c["hr"]))
+        res[label] = {"g": tree_to_numpy(g1), "d": tree_to_numpy(d1),
+                      "ema": tree_to_numpy(go1.ema),
+                      "metrics": {k: float(v) for k, v in metrics.items()}}
+    out["gan"] = res
+    return out
+
