@@ -5194,9 +5194,9 @@ MESH_BF16_VS_PLAIN = 2.0
 # sums in its own order (1.2e-4 for G and 8.5e-5 for D measured on the
 # card), while Adam's first step turns a gradient of a few 1e-9 into a
 # move of its sign times the step size, so the params after one step
-# differ where a gradient is rounding. A halo row's gradient lost would
-# move a weight's gradient by ~1/rows of the band (1e-2 here). D's out1
-# bias is left out, as in the params' check.
+# differ where a gradient is rounding. A control drops the halo's
+# gradient on its way back and must land above the bound for G and for
+# D. D's out1 bias is left out, as in the params' check.
 MESH_GRAD_REL = 1e-3
 
 
@@ -5246,6 +5246,7 @@ def mesh_rank_program(rank: int, devices: list, width: dict) -> dict:
     from s2sr_tpu_torch.models.rrdbnet import rrdbnet_apply
     from s2sr_tpu_torch.ops import rdb as rdb_mod
     from s2sr_tpu_torch.parallel.mesh import build_mesh
+    from s2sr_tpu_torch.parallel import comm as pcomm
     from s2sr_tpu_torch.parallel import pipeline as ppipe
     from s2sr_tpu_torch.parallel.pipeline import (make_pp_train_step,
                                                   pipeline_trunk_apply,
@@ -5456,20 +5457,40 @@ def mesh_rank_program(rank: int, devices: list, width: dict) -> dict:
 
     ((g1, d1, _, _, m), grads), secs = timed(lambda: gan_grads(sp2))
     res = {"seconds": secs, **{k: float(v) for k, v in m.items()}}
+
+    # (10) the control of (9)'s bound: the same step with the halo's
+    # gradient dropped on its way back (each band keeps only its own
+    # rows' gradient), a fault the metrics cannot see
+    sound = pcomm._HaloExchange.__dict__["backward"]
+
+    def dropped(ctx, g):
+        rows = g.shape[ctx.dim] - 2 * ctx.k
+        return g.narrow(ctx.dim, ctx.k, rows).clone(), None, None, None
+
+    pcomm._HaloExchange.backward = staticmethod(dropped)
+    try:
+        _, fault = gan_grads(sp2)
+    finally:
+        pcomm._HaloExchange.backward = sound
     if main:
         _, grads1 = gan_grads(None)
+
+        def grad_rel(gs):
+            # out1's bias: the relativistic losses ignore a shift of every
+            # logit, so its gradient is rounding alone
+            return {k: max(float((a - b).abs().max())
+                           / float(b.abs().max().clamp_min(1e-30))
+                           for a, b, path in zip(
+                               gs[k], grads1[k],
+                               _paths(params if k == "g" else d))
+                           if path != "/out1/bias")
+                    for k in gs}
+
         res.update(g=_tree_apart(g1, g1r),
                    d=_tree_apart(d1, d1r, skip=("out1/bias",)),
                    metrics_rel=max(_loss_rel(m[k], mr[k]) for k in m),
-                   # out1's bias: the relativistic losses ignore a shift
-                   # of every logit, so its gradient is rounding alone
-                   grad_rel={k: max(float((a - b).abs().max())
-                                    / float(b.abs().max().clamp_min(1e-30))
-                                    for a, b, path in zip(
-                                        grads[k], grads1[k],
-                                        _paths(params if k == "g" else d))
-                                    if path != "/out1/bias")
-                             for k in grads})
+                   grad_rel=grad_rel(grads),
+                   grad_rel_halo_grad_dropped=grad_rel(fault))
     out["sp_gan"] = res
     return out
 
@@ -5511,7 +5532,7 @@ def sp_cudnn_off(eng, ref, x) -> dict:
         whole = ref._fwd(x)
         parts = spatial.split(x, spatial.band_bounds(x.shape[1], len(group),
                                                      eng.band_unit), group)
-        bands = spatial.gather(eng._fwd(parts), x.device)
+        bands = spatial.gather(eng._bands(parts), x.device)
     return {"cudnn_off_values_apart": int((whole != bands).sum()),
             "cudnn_off_max_abs_diff": float((whole - bands).abs().max())}
 
@@ -5527,7 +5548,8 @@ def sp_chunk_ms(eng, ref, x) -> dict:
     bounds = spatial.band_bounds(x.shape[1], len(group), eng.band_unit)
     with torch.no_grad():
         parts = spatial.split(x, bounds, group)
-        return {"band_forward_ms": time_cuda(lambda: eng._fwd(parts), 3, 1),
+        return {"band_forward_ms": time_cuda(lambda: eng._bands(parts), 3,
+                                             1),
                 "one_device_forward_ms": time_cuda(lambda: ref._fwd(x), 3, 1)}
 
 
@@ -5583,7 +5605,7 @@ def sp_chunk_compare(eng, one, ref32, x) -> dict:
     bounds = spatial.band_bounds(x.shape[1], len(group), eng.band_unit)
     with torch.no_grad():
         whole = one._fwd(x)
-        bands = spatial.gather(eng._fwd(spatial.split(x, bounds, group)),
+        bands = spatial.gather(eng._bands(spatial.split(x, bounds, group)),
                                x.device)
         f32 = whole if ref32 is None else ref32._fwd(x)
     top = float(f32.abs().max())
@@ -5667,6 +5689,31 @@ def mesh_sp_serving(card: str, img, kw: dict, ref, wants: dict,
                     or min(chunks) < 1 or n != per_chunk * sum(chunks) * sp):
                 raise AssertionError(f"sp serving {label} {path}: {rec}")
 
+    def below_engage(label, eng, one, image, kernel, per_path):
+        """An image below the engage area: ``enhance`` runs it whole on
+        the mesh's first device (0 values apart from one device), the
+        serving path as its family serves it; every forward on replica
+        0."""
+        for path, n_want in per_path.items():
+            want = getattr(one, path)(image)
+            before = list(eng.replica_forwards)
+            zero()
+            got = getattr(eng, path)(image)
+            n = counter[kernel]()
+            launches[kernel] += n
+            fwds = [a - b for a, b in zip(eng.replica_forwards, before)]
+            rec = {"phase": "mesh", "check": f"below the engage area "
+                   f"{label} {path}", "scene": list(image.shape[:2]),
+                   **sp_values_apart(got, want),
+                   "forwards_per_replica": fwds, f"{kernel}_launches": n,
+                   f"{kernel}_launches_want": n_want, "card": card}
+            emit(rec)
+            if (got.shape != want.shape or not rec["within"]
+                    or (path == "enhance" and rec["values_apart"])
+                    or fwds != [1] + [0] * (len(fwds) - 1) or n != n_want):
+                raise AssertionError(f"below the engage area {label} "
+                                     f"{path}: {rec}")
+
     def chunk(eng, image):
         wins = eng._serving_parts(image)[0][:eng.batch_size]
         return eng._to_float(torch.from_numpy(np.ascontiguousarray(wins))
@@ -5703,6 +5750,13 @@ def mesh_sp_serving(card: str, img, kw: dict, ref, wants: dict,
               3 * len(eng.model.body))
         if n_dev == 2:       # dp=2,sp=2's replica computes the same bands
             compare(f"{spec} (bf16)", eng, ref, ref32, chunk(eng, img))
+        else:
+            # enhance whole (69 launches), the serving path's 64-multiple
+            # bucket in two masked bands (138)
+            nb = 3 * len(eng.model.body)
+            below_engage(spec, eng, ref, synthetic_fields(size=(200, 152),
+                                                          seed=19),
+                         "rdb", {"enhance": nb, "enhance_serving": 2 * nb})
         del eng
         torch.cuda.empty_cache()
 
@@ -5747,6 +5801,17 @@ def mesh_sp_serving(card: str, img, kw: dict, ref, wants: dict,
             ones32 = ones
         del engs
         torch.cuda.empty_cache()
+    # SwinIR at its default exact area (SWINIR_EXACT_AREA, 2560²) over
+    # dp=2,sp=2: both paths run a 256² image whole on the first device
+    xkw = dict(kw, batch_size=4, dtype="bfloat16")
+    engx = SREngine("swinir_x4", mesh=build_mesh(
+        "dp=2,sp=2", devices=["cuda:0"] * 4), **xkw)
+    nb = sum(len(layer.residual_group.blocks) for layer in engx.model.layers)
+    below_engage("swinir dp=2,sp=2", engx, SREngine("swinir_x4", **xkw),
+                 synthetic_fields(size=(256, 256), seed=19), "swin_block",
+                 {"enhance": nb, "enhance_serving": nb})
+    del engx
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -5890,7 +5955,9 @@ def phase_mesh(state):
               **common})
         if name == "sp_gan":
             ok = (rec["metrics_rel"] <= MESH_LOSS_REL
-                  and max(rec["grad_rel"].values()) <= MESH_GRAD_REL)
+                  and max(rec["grad_rel"].values()) <= MESH_GRAD_REL
+                  and min(rec["grad_rel_halo_grad_dropped"].values())
+                  > MESH_GRAD_REL)
         else:
             ok = rec["within"] and rec["loss_rel"] <= MESH_LOSS_REL
         if not ok:

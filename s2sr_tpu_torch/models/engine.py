@@ -31,8 +31,10 @@ chunk's windows are split over H into bands, one per device, which run
 the band forward (``rrdbnet.py::rrdbnet_bands``,
 ``swinir.py::swinir_bands``: halo rows exchanged before every conv and
 residual dense block, a shifted Swin block's roll across the bands),
-and are joined again. Images below the engage area run whole on the
-mesh's first device, as JAX's untiled branch does.
+and are joined again. :meth:`SREngine.enhance` runs an image below the
+engage area whole on the mesh's first device, as JAX's untiled branch
+does; the serving path's bucketed small images run in bands like any
+chunk.
 """
 
 from __future__ import annotations
@@ -300,20 +302,20 @@ class SREngine:
     # -- model and uint8 contract ----------------------------------------
 
     def _fwd(self, x: torch.Tensor, mask: torch.Tensor | None = None,
-             replica: int = 0):
-        """The replica's forward of a batch, or with ``sp > 1`` of the list
-        of its bands (``masks`` a list likewise) → the output, or the list
-        of the bands' outputs."""
+             replica: int = 0) -> torch.Tensor:
+        """The forward of a whole batch on the replica's first device."""
+        return self._bands([x], None if mask is None else [mask], replica)[0]
+
+    def _bands(self, xs: list, masks: list | None = None,
+               replica: int = 0) -> list:
+        """The replica's forward of a batch given as its bands of H from
+        the top, band j on the replica's device j (``masks`` a list
+        likewise, or None) → the list of the bands' outputs."""
         self.replica_forwards[replica] += 1
-        if len(self.replica_groups[replica]) > 1:
-            models = self.band_models[replica]
-            if self.family == "swinir":
-                return swinir_bands(models, x)
-            return rrdbnet_bands(models, x, mask, up_sub_batch=self.up_sub)
-        model = self.replicas[replica]
+        models = self.band_models[replica][:len(xs)]
         if self.family == "swinir":
-            return model(x)
-        return model(x, mask=mask, up_sub_batch=self.up_sub)
+            return swinir_bands(models, xs)
+        return rrdbnet_bands(models, xs, masks, up_sub_batch=self.up_sub)
 
     def _to_float(self, img_u8: torch.Tensor) -> torch.Tensor:
         x = img_u8.float() / 255.0
@@ -343,10 +345,7 @@ class SREngine:
                 x = x * ms[-1]     # the zero-pad region must be exactly zero
             xs.append(x)
         self.chunks_dispatched += 1
-        if len(group) == 1:
-            return [self._to_u8(self._fwd(xs[0], ms[0] if ms else None,
-                                          replica))]
-        return [self._to_u8(o) for o in self._fwd(xs, ms or None, replica)]
+        return [self._to_u8(o) for o in self._bands(xs, ms or None, replica)]
 
     # -- exact per-shape path ----------------------------------------------
 
@@ -357,8 +356,11 @@ class SREngine:
         h, w, _ = x.shape
         s = self.scale
         if h * w > self.engage_area:
-            fns = [functools.partial(self._fwd, replica=i)
-                   for i in range(len(self.replicas))]
+            # tiled_apply hands a replica of one device its batch, and a
+            # replica of sp devices the list of its bands
+            fns = [functools.partial(self._bands if len(g) > 1 else self._fwd,
+                                     replica=i)
+                   for i, g in enumerate(self.replica_groups)]
             out = tiled_apply(fns, x, tile=self.tile_size, pad=self.tile_pad,
                               scale=s, batch_size=self.batch_size,
                               mesh=self.mesh, band_unit=self.band_unit)

@@ -23,7 +23,8 @@ so a ``.pth`` state dict loads as it is.
   trunk gets a 1-row halo at its own resolution, and every residual dense
   block a 5-row halo (five chained 3×3 convs) and runs the kernel on the
   extended band, keeping the band's rows. Layer by layer across the
-  bands, each on its own device.
+  bands, each on its own device. :meth:`RRDBNet.forward` is its one-band
+  case.
 
 :func:`rrdbnet_apply` is the functional, differentiable forward the
 trainer runs: any width, on a param tree in the JAX package's layout
@@ -199,90 +200,37 @@ class RRDBNet(nn.Module):
         self.quantized = True
         return self
 
-    def _upsample(self, f, m2=None, m4=None):
-        dtype = self.dtype
-        mtop = m4 if self.scale == 4 else m2
-        f = _lrelu(_up_conv_fused(f, self.conv_up1, dtype))
-        if m2 is not None:
-            f = f * m2
-        if self.scale == 4:
-            f = _lrelu(_up_conv_fused(f, self.conv_up2, dtype))
-            if m4 is not None:
-                f = f * m4
-        f = _lrelu(_conv(f, self.conv_hr, dtype))
-        if mtop is not None:
-            f = f * mtop
-        return _conv(f, self.conv_last, dtype).float()
-
     @torch.no_grad()
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 up_sub_batch: int | None = None, rdb_fn=None) -> torch.Tensor:
-        """(N, H, W, C) float in [0, 1] → (N, sH, sW, C) float32. A float32
-        model runs its convs in IEEE float32 (TF32 off), as JAX does.
-        ``rdb_fn(index, x, mask)`` replaces the residual dense blocks
-        (index 0 .. 3·blocks − 1; x NHWC, mask (N, H, W) or None)."""
-        with ieee_fp32(self.dtype == torch.float32):
-            return self._forward(x, mask, up_sub_batch, rdb_fn)
-
-    def _forward(self, x, mask, up_sub_batch, rdb_fn=None):
-        dtype = self.dtype
-        n, h, w, _ = x.shape
-        x = x.permute(0, 3, 1, 2)
-        mk = mask_k = None
-        if mask is not None:
-            # cast once: a float32 mask would upcast every bf16 product
-            mk = mask.reshape(n, 1, h, w).to(dtype)
-            mask_k = mask.reshape(n, h, w).float().contiguous()
-
-        def m(t):
-            return t if mk is None else t * mk
-
-        slope = torch.tensor(0.2, dtype=dtype, device=x.device)
-        feat = m(_conv(x, self.conv_first, dtype))
-        body = feat.contiguous(memory_format=torch.channels_last)
-        for i, block in enumerate(self.body):
-            out = body.permute(0, 2, 3, 1)                   # NHWC view
-            for j, r in enumerate((block.rdb1, block.rdb2, block.rdb3)):
-                out = (r(out, mask_k) if rdb_fn is None
-                       else rdb_fn(3 * i + j, out, mask_k))
-            body = (out.permute(0, 3, 1, 2) * slope + body).contiguous(
-                memory_format=torch.channels_last)
-        feat = m(feat + _conv(body, self.conv_body, dtype))
-
-        m2 = m4 = None
-        if mk is not None:
-            m2 = _nearest_x2(mk)
-            m4 = _nearest_x2(m2)
-        if up_sub_batch and 0 < up_sub_batch < n:
-            outs = []
-            for i in range(0, n, up_sub_batch):
-                sl = slice(i, i + up_sub_batch)
-                outs.append(self._upsample(
-                    feat[sl], None if m2 is None else m2[sl],
-                    None if m4 is None else m4[sl]))
-            out = torch.cat(outs, 0)
-        else:
-            out = self._upsample(feat, m2, m4)
-        return out.permute(0, 2, 3, 1)
+        """(N, H, W, C) float in [0, 1] → (N, sH, sW, C) float32: the band
+        forward of one band. A float32 model runs its convs in IEEE
+        float32 (TF32 off), as JAX does. ``rdb_fn(index, x, mask)``
+        replaces the residual dense blocks (index 0 .. 3·blocks − 1; x
+        NHWC, mask (N, H, W) or None)."""
+        return rrdbnet_bands([self], [x], None if mask is None else [mask],
+                             up_sub_batch, rdb_fn)[0]
 
 
 # --- the band forward (serving over sp) -----------------------------------
 
+@torch.no_grad()
 def rrdbnet_bands(models, xs: list, masks: list | None = None,
-                  up_sub_batch: int | None = None) -> list:
+                  up_sub_batch: int | None = None, rdb_fn=None) -> list:
     """:meth:`RRDBNet.forward` over the ``sp`` bands of H of one replica:
     ``xs[j]`` (N, h_j, W, C) the j-th band from the top on
     ``models[j]``'s device (``models`` equal models, one per band), masks
     likewise (N, h_j, W[, 1]) or None → the bands of the output, (N,
-    s·h_j, sW, C) float32. The same arithmetic per pixel as the whole
-    forward: convs on 1-row extended bands, residual dense blocks on
-    5-row extended bands in ``rdb``/``rdb_i8`` (the model's), each layer
-    issued across every band before the next."""
+    s·h_j, sW, C) float32. The same arithmetic per pixel as one band:
+    convs on 1-row extended bands, residual dense blocks on 5-row
+    extended bands in ``rdb``/``rdb_i8`` (the model's) or ``rdb_fn``,
+    each layer issued across every band before the next. One band is the
+    whole forward (nothing to exchange)."""
     with ieee_fp32(models[0].dtype == torch.float32):
-        return _bands_forward(models, xs, masks, up_sub_batch)
+        return _bands_forward(models, xs, masks, up_sub_batch, rdb_fn)
 
 
-def _bands_forward(models, xs, masks, up_sub_batch):
+def _bands_forward(models, xs, masks, up_sub_batch, rdb_fn):
     m0 = models[0]
     dtype, nb = m0.dtype, len(xs)
     xs = [x.permute(0, 3, 1, 2) for x in xs]
@@ -307,12 +255,14 @@ def _bands_forward(models, xs, masks, up_sub_batch):
     body = [f.contiguous(memory_format=torch.channels_last) for f in feat]
     for i in range(len(m0.body)):
         out = [b.permute(0, 2, 3, 1) for b in body]          # NHWC views
-        for name in ("rdb1", "rdb2", "rdb3"):
-            out = spatial.halo_apply(
-                lambda t, j, mk: getattr(models[j].body[i], name)(
-                    t.contiguous(), mk),
-                out, RDB_HALO, dim=1,
-                extra=[None if masks is None else mask_ks])
+        for k, name in enumerate(("rdb1", "rdb2", "rdb3")):
+            def one(t, j, mk, name=name, index=3 * i + k):
+                if rdb_fn is not None:
+                    return rdb_fn(index, t, mk)
+                return getattr(models[j].body[i], name)(t, mk)
+            out = spatial.halo_apply(one, out, RDB_HALO, dim=1,
+                                     extra=[None if masks is None
+                                            else mask_ks])
         body = [(o.permute(0, 3, 1, 2) * sl + b).contiguous(
             memory_format=torch.channels_last)
             for o, sl, b in zip(out, slopes, body)]

@@ -254,13 +254,7 @@ class SwinIR(nn.Module):
 
     def _tail(self, feat: torch.Tensor) -> torch.Tensor:
         """NCHW: conv_before_upsample → pixel-shuffle chain → conv_last."""
-        dtype = self.dtype
-        f = F.leaky_relu(_conv(feat, self.conv_before_upsample[0], dtype),
-                         0.01)
-        for m in self.upsample:
-            f = (_conv(f, m, dtype) if isinstance(m, nn.Conv2d)
-                 else F.pixel_shuffle(f, m.upscale_factor))
-        return _conv(f, self.conv_last, dtype)
+        return _tail_bands([self], [feat])[0]
 
     def _tail_strips(self, feat: torch.Tensor) -> torch.Tensor:
         """The tail in row strips of ``TAIL_STRIP`` trunk rows with a
@@ -283,46 +277,15 @@ class SwinIR(nn.Module):
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) in [0, 1] → (B, sH, sW, 3) float32. A float32 model
-        runs its convs and products in IEEE float32 (TF32 off), as JAX
-        does."""
-        with ieee_fp32(self.dtype == torch.float32):
-            return self._forward(x)
-
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        level = FUSED_LEVEL
-        if level not in ("block", "attn"):
-            raise ValueError(f"fused level must be 'block' or 'attn', got "
-                             f"{level!r}")
-        dtype, w = self.dtype, self.window_size
-        _, h0, w0, _ = x.shape
-        x = reflect_pad(x.float(), (w - h0 % w) % w, (w - w0 % w) % w)
-        mean = torch.tensor(DIV2K_MEAN, device=x.device)
-        x = ((x - mean) * self.img_range).to(dtype)
-
-        feat = _conv(x.permute(0, 3, 1, 2), self.conv_first, dtype)
-        tokens = _layer_norm(feat.permute(0, 2, 3, 1), self.patch_embed.norm,
-                             dtype).contiguous()
-        for layer in self.layers:
-            y = tokens
-            for block in layer.residual_group.blocks:
-                y = block(y, level)
-            tokens = tokens + _nhwc_conv(y, layer.conv, dtype)
-        body = _layer_norm(tokens, self.norm, dtype)
-        feat = feat + _conv(body.permute(0, 3, 1, 2), self.conv_after_body,
-                            dtype)
-
-        h, ww = feat.shape[2:]
-        if h * ww > TAIL_STRIP_AREA and h >= 2 * _TAIL_PAD + TAIL_STRIP:
-            out = self._tail_strips(feat)
-        else:
-            out = self._tail(feat)
-        out = out.permute(0, 2, 3, 1).float() / self.img_range + mean
-        return out[:, :h0 * self.scale, :w0 * self.scale]
+        """(B, H, W, 3) in [0, 1] → (B, sH, sW, 3) float32: the band
+        forward of one band. A float32 model runs its convs and products in
+        IEEE float32 (TF32 off), as JAX does."""
+        return swinir_bands([self], [x])[0]
 
 
 # --- the band forward (serving over sp) -----------------------------------
 
+@torch.no_grad()
 def swinir_bands(models, xs: list) -> list:
     """:meth:`SwinIR.forward` over the ``sp`` bands of H of one replica:
     ``xs[j]`` (B, h_j, W, 3) in [0, 1], the j-th band from the top on
@@ -331,7 +294,9 @@ def swinir_bands(models, xs: list) -> list:
     reflect-padded at its bottom as the whole image is (its pad mirrors
     rows of its own) → the bands of the output, (B, s·h_j, sW, 3)
     float32. Each Swin block runs in the kernel on its band, each layer
-    issued across every band before the next."""
+    issued across every band before the next. One band is the whole
+    forward: nothing to exchange, no roll outside the kernel, and above
+    ``TAIL_STRIP_AREA`` the tail in row strips."""
     m0 = models[0]
     with ieee_fp32(m0.dtype == torch.float32):
         return _bands_forward(models, xs)
@@ -346,7 +311,7 @@ def _bands_forward(models, xs):
     dtype, win, nb = m0.dtype, m0.window_size, len(xs)
     rows = [x.shape[1] for x in xs]
     w0 = xs[0].shape[2]
-    if any(r % win for r in rows[:-1]) or rows[-1] < win:
+    if nb > 1 and (any(r % win for r in rows[:-1]) or rows[-1] < win):
         raise ValueError(f"SwinIR bands are whole {win}-row windows (the "
                          f"last at least one), got {rows}")
     xs = [reflect_pad(x.float(), (win - r % win) % win if j == nb - 1 else 0,
@@ -368,7 +333,8 @@ def _bands_forward(models, xs):
     for li, layer in enumerate(m0.layers):
         y = tokens
         for bi, block in enumerate(layer.residual_group.blocks):
-            shift = block.shift
+            # one band rolls inside the kernel
+            shift = block.shift if nb > 1 else 0
             if shift:
                 y = spatial.roll_up(y, shift)
             y = [models[j].layers[li].residual_group.blocks[bi](
@@ -383,17 +349,34 @@ def _bands_forward(models, xs):
     feat = [f + c for f, c in
             zip(feat, conv(lambda m: m.conv_after_body, body))]
 
+    h, ww = feat[0].shape[2:]
+    if (nb == 1 and h * ww > TAIL_STRIP_AREA
+            and h >= 2 * _TAIL_PAD + TAIL_STRIP):
+        out = [m0._tail_strips(feat[0])]
+    else:
+        out = _tail_bands(models, feat)
+    s = m0.scale
+    return [(o.permute(0, 2, 3, 1).float() / m0.img_range + mu)[
+        :, :r * s, :w0 * s] for o, mu, r in zip(out, means, rows)]
+
+
+def _tail_bands(models, fs: list) -> list:
+    """The tail over bands of NCHW ``fs``: conv_before_upsample →
+    pixel-shuffle chain → conv_last, each conv on a 1-row extended band."""
+    dtype = models[0].dtype
+
+    def conv(get, ts):
+        return spatial.halo_apply(
+            lambda t, j: _conv(t, get(models[j]), dtype), ts, 1, dim=2)
+
     f = [F.leaky_relu(t, 0.01) for t in
-         conv(lambda m: m.conv_before_upsample[0], feat)]
-    for k, mod in enumerate(m0.upsample):
+         conv(lambda m: m.conv_before_upsample[0], fs)]
+    for k, mod in enumerate(models[0].upsample):
         if isinstance(mod, nn.Conv2d):
             f = conv(lambda m, k=k: m.upsample[k], f)
         else:
             f = [F.pixel_shuffle(t, mod.upscale_factor) for t in f]
-    out = conv(lambda m: m.conv_last, f)
-    s = m0.scale
-    return [(o.permute(0, 2, 3, 1).float() / m0.img_range + mu)[
-        :, :r * s, :w0 * s] for o, mu, r in zip(out, means, rows)]
+    return conv(lambda m: m.conv_last, f)
 
 
 # --- the functional forward (training) -----------------------------------

@@ -467,12 +467,12 @@ def band_of(h: int, axis: Axis, unit: int = 1) -> Band:
     return Band(axis, start, stop, h)
 
 
-def global_mean(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+def global_mean(t: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     """The mean of every element of ``t`` over every rank of ``axis``
     (bands of unequal size weighted by their elements), on every rank;
     its gradient reaches each rank's elements through the sum's
-    all-reduce."""
-    if axis.size == 1:
+    all-reduce. ``t.mean()`` without an axis."""
+    if axis is None or axis.size == 1:
         return t.mean()
     count = _all_reduce(torch.tensor(float(t.numel()), device=t.device),
                         axis)

@@ -19,8 +19,9 @@ Serving runs one process with one model replica per ``dp`` group; a group
 is the ``sp`` devices of one ``dp`` coordinate (:meth:`Mesh.sp_group`),
 one band each (``parallel/tiling.py``, ``models/engine.py``). Training
 runs one ``torch.distributed`` rank per mesh device (``parallel/comm.py``);
-a rank's ``sp`` coordinate is its band. A mesh may name one device more
-than once: ranks, replicas or bands that share one card.
+a rank's ``sp`` coordinate (``comm.rank_mesh(mesh).axis("sp").index``)
+is its band. A mesh may name one device more than once: ranks, replicas
+or bands that share one card.
 """
 
 from __future__ import annotations
@@ -85,13 +86,6 @@ class Mesh:
         one per ``dp`` replica of a serving mesh."""
         return tuple(self.devices[self.rank_of({name: i})]
                      for i in range(self.axis_size(name)))
-
-    def coords(self, rank: int) -> dict:
-        """The coordinates of device ``rank`` (row-major), by axis."""
-        out = {}
-        for name, n in reversed(tuple(zip(self.axis_names, self.shape))):
-            rank, out[name] = divmod(rank, n)
-        return {name: out[name] for name in self.axis_names}
 
     def sp_group(self, dp: int = 0) -> Tuple[torch.device, ...]:
         """The devices of ``dp`` replica ``dp``'s ``sp`` group, one per band

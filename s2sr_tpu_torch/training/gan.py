@@ -40,7 +40,7 @@ from ..models.weights import tree_flatten, tree_to_torch, tree_unflatten
 from ..parallel import comm
 from ..utils.precision import ieee_fp32
 from .train import Adam, TrainConfig, band_unit, make_optimizer, \
-    make_pool_sampler, mean_over, model_apply, rank_batch
+    make_pool_sampler, model_apply, rank_batch
 
 SLOPE = 0.2
 
@@ -175,7 +175,7 @@ def _gan_step_parts(config: GanConfig, mesh=None):
     unit = math.lcm(band_unit(base), 8 // math.gcd(8, base.scale))
 
     def batch_mean(t):
-        return mean_over(t, axis)
+        return comm.global_mean(t, axis)
 
     disc = UNetDiscriminator(config.num_feat_d)
     g_tx = make_optimizer(base)   # honours base.lr_decay_steps and the EMA

@@ -210,21 +210,15 @@ def model_apply(config: TrainConfig, params, x: torch.Tensor,
     raise ValueError(f"unknown model family {config.family!r}")
 
 
-def mean_over(t: torch.Tensor, axis=None) -> torch.Tensor:
-    """The mean of ``t``, or with ``axis`` (a ``comm.Axis``) the mean over
-    every element of every rank's ``t`` (``comm.global_mean``)."""
-    return t.mean() if axis is None else comm.global_mean(t, axis)
-
-
 def loss_from_pred(pred: torch.Tensor, hr_batch: torch.Tensor,
                    config: TrainConfig, axis=None) -> torch.Tensor:
     """Charbonnier (or plain L1) pixel loss of a prediction; with ``axis``
     the mean over every rank's pixels."""
     diff = pred - hr_batch
     if config.charbonnier_eps > 0:
-        return mean_over(torch.sqrt(diff * diff + config.charbonnier_eps ** 2),
-                         axis)
-    return mean_over(torch.abs(diff), axis)
+        return comm.global_mean(
+            torch.sqrt(diff * diff + config.charbonnier_eps ** 2), axis)
+    return comm.global_mean(torch.abs(diff), axis)
 
 
 def loss_fn(params, lr_batch, hr_batch, config: TrainConfig, band=None,

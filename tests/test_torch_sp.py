@@ -9,7 +9,8 @@ against the port's one device (bit-equal with oneDNN off; within 1e-6
 of the output's largest value with it on); the RRDBNet and SwinIR
 engines over ``dp=2,sp=2`` on windows of an odd height (uneven bands)
 against one device (byte-equal) and against JAX's mesh engine at
-``assert_bytes_close``; the int8 engine over ``sp=2`` against its one
+``assert_bytes_close``, and below the engage area (``enhance`` whole on
+the first device); the int8 engine over ``sp=2`` against its one
 device; the Swin block's plain version on rolled bands against the whole
 image.
 
@@ -181,6 +182,28 @@ def test_engine_dp_sp_matches_one_device_and_jax(tiny, model, kw, shape):
     jeng = jax_engine_mod.SREngine(model, mesh=jax_mesh_mod.build_mesh(
         "dp=2,sp=2"), **kw)
     assert_bytes_close(got, jeng.enhance(img))
+
+
+@pytest.mark.parametrize("model, kw, shape", [
+    ("rrdb_tiny", dict(tile_size=31, tile_pad=10, batch_size=2,
+                       pad_probe=False), (20, 30)),
+    # the default exact area (SWINIR_EXACT_AREA): nearly every request
+    ("swinir_tiny", dict(tile_size=20, batch_size=4), (30, 26)),
+])
+def test_engine_dp_sp_below_engage_area(tiny, model, kw, shape):
+    """Over dp=2,sp=2, ``enhance`` of an image below the engage area runs
+    it whole on the mesh's first device, and ``enhance_serving`` gives the
+    one-device bytes too (RRDBNet's bucket in masked bands, SwinIR's exact
+    path whole): two forwards, both on replica 0."""
+    kw = dict(kw, weights_dir=tiny, dtype="float32")
+    img = _image(shape, 6)
+    eng = engine_mod.SREngine(model, device="cpu", mesh=build_mesh(
+        "dp=2,sp=2", device="cpu"), **kw)
+    one = engine_mod.SREngine(model, device="cpu", **kw)
+    assert shape[0] * shape[1] <= eng.engage_area
+    assert np.array_equal(eng.enhance(img), one.enhance(img))
+    assert np.array_equal(eng.enhance_serving(img), one.enhance_serving(img))
+    assert eng.replica_forwards == [2, 0]
 
 
 def test_int8_engine_sp_matches_one_device(tiny):
