@@ -14,6 +14,13 @@ random weights from seed 0, each at the full width of its model:
   ``SREngine.enhance_serving_many``) on ``realesrgan_x4``, whose residual
   dense blocks run the ``rdb`` kernel, and at precision "int8" (the
   int8-mixed trunk) the ``rdb_i8`` kernel (phases kernel, main, numbers);
+- full W8A8 (``quantize_rrdbnet(mode="full")``,
+  ``rrdbnet_apply_int8(mode="full")``) on ``realesrgan_x4``: a chunk of
+  16 windows of 264² and a tiled 1024² scene, every residual dense block
+  in the ``rdb_w8a8`` kernel, its bucket, card vs CPU, quality against
+  float32 beside mixed, and the scene's seconds beside mixed and bf16
+  (phase int8; the kernel against its plain version in phase kernel, and
+  a chunk over ``sp=2`` in phase mesh);
 - the HTTP server (``s2sr_tpu_torch.server.app`` over a live socket): its
   job routes ``/api/pipeline`` (offline synthetic scene → tiles → WOW SR
   → SR tiles), ``/api/wow``, ``/api/enhance`` (two uploads coalesced) and
@@ -97,9 +104,10 @@ random weights from seed 0, each at the full width of its model:
 
 It also drives the RDB ablation ladder (``s2sr_tpu_torch.bench.rdb_ladder``)
 at the main path's chunk shape, whose rungs run the ``rdb_v1``, ``rdb_v2``
-and ``rdb_v3`` kernels (bf16 ``v1`` and ``v3`` on the tensor cores in
-``csrc/rdb_ladder_tc.cu``, the rest in ``csrc/rdb_ladder.cu``; phase
-ladder), and the
+and ``rdb_v3`` kernels (bf16 ``v1``, ``v2`` and ``v3`` on the tensor cores in
+``csrc/rdb_ladder_tc.cu``, fp32 in ``csrc/rdb_ladder.cu``), with the JAX
+ladder's int8 and Winograd variants (``i8`` on ``rdb_w8a8``, ``i8mix`` on
+``rdb_i8``, the rest plain PyTorch; phase ladder), and the
 matrix-unit microbenchmark (``s2sr_tpu_torch.bench.mxu`` and
 ``bench.peak``), whose chains and pairs run the ``matmul_chain`` and
 ``pair_chain`` kernels of ``csrc/matmul_chain.cu`` (phase mxu).
@@ -120,7 +128,7 @@ JSON record, and the one before that the card's name and power limit.
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 
-``--phases`` picks a subset (device, build, kernel, main, numbers,
+``--phases`` picks a subset (device, build, kernel, main, int8, numbers,
 fetch, server, vectors, decode, classic, warmup, train, gan, mesh,
 swin_kernel, swin_main, swin_large, swin_numbers, ladder, mxu) for a
 quick check; the
@@ -140,7 +148,8 @@ import tempfile
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernel", "main", "numbers", "fetch", "server",
+PHASES = ("device", "build", "kernel", "main", "int8", "numbers", "fetch",
+          "server",
           "vectors", "decode", "classic", "warmup", "train", "gan", "mesh",
           "swin_kernel", "swin_main", "swin_large", "swin_numbers", "ladder",
           "mxu")
@@ -276,6 +285,7 @@ def phase_build(state):
           "ptxas": ptxas})
     # the tensor-core kernels, one line each: registers and spills
     for name, pattern in (("rdb", "rdb_tc_kernel"), ("rdb", "rdb_i8_kernel"),
+                          ("rdb", "rdb_w8a8_kernel"),
                           ("matmul_chain", "wg_chain_kernel"),
                           ("window_attention", "swin_tc_kernel"),
                           ("rdb_ladder_tc", "_tc_kernel")):
@@ -488,6 +498,148 @@ def hold_i8_against_plain(state) -> None:
     state["rdb_i8_max_abs_err"], state["rdb_i8_rel_err"] = worst
 
 
+# the full-W8A8 RDB (rrdbnet_apply_int8(mode="full")): its cases are the
+# int8 RDB's; its bound counts all 26,624 multiply-adds a pixel at the int8
+# rate
+RDB_W8A8_REPLACES = "s2sr_tpu/models/rrdbnet_int8.py:169"
+RDB_W8A8_WEIGHT_BYTES = 9 * 26624 + (640 + 5 + 192) * 4
+
+
+def rdb_w8a8_bound_ms(shape, masked: bool) -> tuple:
+    """Least time for one full-W8A8 RDB on the H100: its operations
+    (479,232 a pixel) at the int8 peak against its bytes (x and out in
+    bf16, the int8 kernels, 640 factors, 5 multipliers, 192 biases, the
+    mask)."""
+    bsz, h, w = shape
+    pixels = bsz * h * w
+    t_ops = RDB_FLOP_PER_PIXEL * pixels / PEAK_I8_OPS * 1e3
+    nbytes = (2 * pixels * 64 * 2 + RDB_W8A8_WEIGHT_BYTES
+              + (pixels * 4 if masked else 0))
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def rdb_w8a8_params(x, w, b) -> dict:
+    """One RDB quantized as ``rrdbnet_int8.quantize_body`` does, from its
+    packed float weights, with the activation scales a float32
+    calibration pass on x gives (max |input| of each conv / 127): the
+    ``qp`` of ``rdb_w8a8``, on x's device."""
+    import torch
+
+    from s2sr_tpu_torch.models.rrdbnet_int8 import (_pack_rdb_kernels,
+                                                    _quantize_kernel,
+                                                    _rdb_stats)
+    from s2sr_tpu_torch.ops.rdb import unpack_rdb_weights
+
+    kernels, biases = unpack_rdb_weights(w, b)
+    p = {f"conv{k}": {"kernel": kernels[k - 1].permute(2, 3, 1, 0),
+                      "bias": biases[k - 1]} for k in range(1, 6)}
+    _, maxes = _rdb_stats(x.float(), p)
+    s_act = torch.clamp(maxes, min=1e-12) / 127.0
+    w8, sw = zip(*(_quantize_kernel(k) for k in _pack_rdb_kernels(p)))
+    return {"w8": tuple(w8),
+            "deq": tuple((d * s_act[k]).float() for k, d in enumerate(sw)),
+            "qm": (1.0 / s_act).float(),
+            "b": tuple(biases[k].float() for k in range(5))}
+
+
+def hold_w8a8_against_plain(state) -> None:
+    """``rdb_w8a8`` (the full-W8A8 kernel) against ``rdb_w8a8_reference``
+    on the card at :data:`RDB_I8_CASES`: within 0.05 of max |out − x| of
+    the float32 plain version from the bf16 plain version (which rounds
+    its prefix accumulator to bf16 after every stage, so a round(v·qm) at
+    a half step can land one quantization step away in x1..x4), its
+    distance from the float32 plain version printed, and three planted
+    faults further than the tolerance: stage 1's dequantization factors
+    zeroed, stage 5's zeroed (every source's), and x2's qm doubled. Then
+    its ms per launch at the chunk shape beside its bound, its plain
+    version's, and ``rdb_i8``'s and the bf16 ``rdb``'s ms in the same
+    run."""
+    import torch
+
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+
+    tol = 0.05
+    launches0 = (rdb_mod.LAUNCHES_W8A8, rdb_mod.LAUNCHES_I8,
+                 rdb_mod.LAUNCHES)
+    failures, worst = [], (0.0, 0.0)
+    for shape, masked_hw in RDB_I8_CASES:
+        x, w, b, mask = rdb_inputs(shape, torch.bfloat16, masked_hw)
+        qp = rdb_w8a8_params(x, w, b)
+        packed = rdb_mod.pack_rdb_w8a8(qp)
+        got = rdb_mod.rdb_w8a8(x, qp, mask, packed).float()
+        torch.cuda.synchronize()
+        ref32 = rdb_mod.rdb_w8a8_reference(x.float(), qp, mask)
+        change = (ref32 - x.float()).abs().max().item()
+        err32 = (got - ref32).abs().max().item()
+        del ref32
+
+        def err_vs(q=qp):
+            ref = rdb_mod.rdb_w8a8_reference(x, q, mask)
+            return (got - ref.float()).abs().max().item()
+
+        def faulted(stage_cols, sources, qm_k=None):
+            deq = list(qp["deq"])
+            for j in sources:
+                deq[j] = deq[j].clone()
+                deq[j][stage_cols] = 0
+            qm = qp["qm"].clone()
+            if qm_k is not None:
+                qm[qm_k] *= 2
+            return dict(qp, deq=tuple(deq), qm=qm)
+
+        err = err_vs()
+        faults = {"stage1_deq_zero": err_vs(faulted(slice(160, 192), [0])),
+                  "stage5_deq_zero": err_vs(faulted(slice(0, 64),
+                                                    range(5))),
+                  "x2_qm_doubled": err_vs(faulted(slice(0, 0), [], 2))}
+        faults = {k: v / change for k, v in faults.items()}
+        rel = err / change
+        finite = bool(torch.isfinite(got).all().item())
+        emit({"phase": "kernel", "kernel": "rdb_w8a8", "dtype": "int8",
+              "shape": list(shape), "masked": masked_hw is not None,
+              **rdb_mod.kernel_tiling_w8a8(), "max_abs_err": err,
+              "max_change": change, "rel_err": rel, "tolerance": tol,
+              "rel_err_vs_float32_plain": err32 / change,
+              "rel_err_vs_planted_fault": faults, "finite": finite})
+        case = f"rdb_w8a8 {shape} masked={masked_hw}"
+        if not finite or not rel <= tol:
+            failures.append(f"{case}: rel err {rel} over {tol}")
+        if not min(faults.values()) > tol:
+            failures.append(f"{case}: a planted fault is within {tol}: {faults}")
+        worst = max(worst, (err, rel), key=lambda e: e[1])
+        if masked_hw is None:
+            ms = time_cuda(lambda: rdb_mod.rdb_w8a8(x, qp, None, packed),
+                           iters=10)
+            plain_ms = time_cuda(lambda: rdb_mod.rdb_w8a8_reference(x, qp),
+                                 iters=5)
+            wx8, deq, qm = rdb_i8_params(x, w, b)
+            i8_ms = time_cuda(lambda: rdb_mod.rdb_i8(x, w, b, wx8, deq, qm),
+                              iters=10)
+            bf16_ms = time_cuda(lambda: rdb_mod.rdb(x, w, b), iters=10)
+            bound_ms, bound_by = rdb_w8a8_bound_ms(shape, masked=False)
+            state["rdb_w8a8_numbers"] = {"ms": ms, "plain_ms": plain_ms,
+                                         "bound_ms": bound_ms,
+                                         "bound_by": bound_by}
+            emit({"phase": "kernel", "card": state.get("card"),
+                  "kernel": "rdb_w8a8", "shape": list(shape), "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "rdb_i8_ms_same_run": i8_ms,
+                  "rdb_bf16_ms_same_run": bf16_ms,
+                  "w8a8_over_bf16": ms / bf16_ms,
+                  "w8a8_over_i8": ms / i8_ms})
+            del wx8, deq
+        del x, w, b, mask, got, qp, packed
+        torch.cuda.empty_cache()
+    (rdb_mod.LAUNCHES_W8A8, rdb_mod.LAUNCHES_I8,
+     rdb_mod.LAUNCHES) = launches0
+    if failures:
+        raise AssertionError("rdb_w8a8 kernel vs plain:\n"
+                             + "\n".join(failures))
+    state["rdb_w8a8_max_abs_err"], state["rdb_w8a8_rel_err"] = worst
+
+
 @ieee_phase
 def phase_kernel(state):
     import torch
@@ -510,6 +662,9 @@ def phase_kernel(state):
     i8 = [c for k, c in sass.items() if "rdb_i8_kernel" in k]
     if len(i8) != 1 or i8[0]["IMMA"] == 0 or i8[0]["HMMA"] == 0:
         raise AssertionError(f"rdb's int8 kernel issues no IMMA or HMMA: {sass}")
+    w8 = [c for k, c in sass.items() if "rdb_w8a8_kernel" in k]
+    if len(w8) != 1 or w8[0]["IMMA"] == 0 or w8[0]["HMMA"] != 0:
+        raise AssertionError(f"rdb's full-W8A8 kernel is not all IMMA: {sass}")
     launches0 = rdb_mod.LAUNCHES
     state["rdb_max_abs_err"], state["rdb_rel_err"] = hold_against_plain(
         "kernel", "rdb", rdb_mod.rdb, rdb_mod.rdb_reference, cases,
@@ -517,6 +672,7 @@ def phase_kernel(state):
     # comparison launches are not main-path launches
     rdb_mod.LAUNCHES = launches0
     hold_i8_against_plain(state)
+    hold_w8a8_against_plain(state)
     emit({"phase": "kernel", "seconds": round(time.perf_counter() - t0, 3)})
 
 
@@ -823,6 +979,255 @@ def check_int8_engine(state, eng) -> None:
     if not psnr > 35.0:
         raise AssertionError(f"int8 vs bf16 PSNR {psnr} dB")
     state["int8_numbers"] = {"psnr_db": psnr, "mpix_per_s": rate}
+
+
+# full W8A8 (phase int8): the weights of the CPU and quality checks
+# (check_against_plain's scaling: the RDB convs ×5, the rest ×4, so the
+# output spans about 0..0.7 and the trunk moves it), their image, and the
+# bound on max |card − CPU| over the CPU output's largest magnitude
+W8A8_SCALE = {"body": 5.0, "rest": 4.0}
+W8A8_IMAGE = (48, 40)
+W8A8_CPU_TOL = 0.1
+INT8_PSNR_BAR = 35.0
+
+
+def _psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
+    return 99.0 if mse == 0 else float(10 * np.log10(1.0 / mse))
+
+
+def w8a8_quality(state, card) -> None:
+    """Full W8A8 on weights whose trunk moves the output
+    (:data:`W8A8_SCALE`), full width: the card (every RDB in
+    ``rdb_w8a8``) against the same quantized model on the CPU (every RDB
+    in ``rdb_w8a8_reference``, bf16) within :data:`W8A8_CPU_TOL` of the
+    CPU output's largest magnitude; then quality as JAX's
+    ``tests/test_int8.py`` bounds it, PSNR of the clipped output against
+    the float32 forward (TF32 off) above 35 dB, and the quantized trunk
+    engaged (a zeroed body moves the output by more than 1e-3): served on
+    the card in bf16 (full and mixed, each above the bar; bf16's own
+    rounding is as large as the quantization's there, so which of the
+    two is closer says little, and is printed), and in float32 as JAX's
+    test runs it, on the CPU's plain versions, where mixed must beat
+    full."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models import rrdbnet_int8 as q8
+    from s2sr_tpu_torch.models.rrdbnet import RRDBNet
+
+    eng = state["engine_for_int8"]
+    sd = {k: v.detach().cpu() * (1 if not k.endswith("weight")
+                                 else W8A8_SCALE["body"]
+                                 if k.startswith("body.")
+                                 else W8A8_SCALE["rest"])
+          for k, v in eng.model.state_dict().items()}
+
+    def net(dtype):
+        model = RRDBNet(num_block=len(eng.model.body), dtype=dtype)
+        model.load_state_dict(sd)
+        return model.pack()
+
+    def on_cpu(q):
+        return {r: {k: (tuple(t.cpu() for t in v) if isinstance(v, tuple)
+                        else v.cpu()) for k, v in d.items()}
+                for r, d in q.items()}
+
+    mq, m32 = net(torch.bfloat16).cuda(), net(torch.float32)
+    calib = state["int8_calib"]
+    q = {mode: q8.quantize_rrdbnet(mq, calib, mode=mode)
+         for mode in ("full", "mixed")}
+    qc = {mode: on_cpu(v) for mode, v in q.items()}
+    x = torch.from_numpy(synthetic_fields(W8A8_IMAGE, seed=14)).float()
+    x = (x[None] / 255.0).flip(-1)
+    xc = x.cuda()
+    outs = {"full": q8.rrdbnet_apply_int8(mq, q["full"], xc, mode="full"),
+            "mixed": q8.rrdbnet_apply_int8(mq, q["mixed"], xc, mode="mixed"),
+            "bf16": mq(xc)}
+    outs = {k: v.cpu() for k, v in outs.items()}
+    ref = m32.cuda()(xc).cpu()
+    dead = q8.rrdbnet_apply_int8(
+        mq, {r: {k: (tuple(torch.zeros_like(t) for t in v)
+                     if isinstance(v, tuple) else torch.zeros_like(v))
+                 for k, v in d.items()} for r, d in q["full"].items()},
+        xc, mode="full").cpu()
+    cpu = q8.rrdbnet_apply_int8(copy.deepcopy(mq).cpu(), qc["full"], x,
+                                mode="full").float()
+    m32 = m32.cpu()
+    outs32 = {mode: q8.rrdbnet_apply_int8(m32, qc[mode], x, mode=mode)
+              for mode in ("full", "mixed")}
+    scale = cpu.abs().max().item()
+    rel = (outs["full"] - cpu).abs().max().item() / scale
+
+    def psnr_of(got):
+        return _psnr(np.clip(got.float().numpy(), 0, 1),
+                     np.clip(ref.numpy(), 0, 1))
+
+    psnr = {k: psnr_of(v) for k, v in outs.items()}
+    psnr32 = {k: psnr_of(v) for k, v in outs32.items()}
+    engaged = (outs["full"] - dead).abs().max().item()
+    rec = {"phase": "int8", "check": "full W8A8 card vs CPU, quality",
+           "weights": f"seed-0 init, RDB convs x{W8A8_SCALE['body']}, "
+                      f"the rest x{W8A8_SCALE['rest']}",
+           "image": list(W8A8_IMAGE), "ref_min": ref.min().item(),
+           "ref_max": ref.max().item(),
+           "ref_share_inside_0_1": float(((ref > 0) & (ref < 1)).float()
+                                         .mean()),
+           "cpu_max_abs": scale, "rel_err_card_vs_cpu": rel,
+           "tolerance": W8A8_CPU_TOL,
+           "psnr_db_vs_float32_served_bf16": psnr,
+           "psnr_db_vs_float32_plain_float32": psnr32,
+           "psnr_bar_db": INT8_PSNR_BAR, "zeroed_body_moves_output": engaged,
+           "card": card}
+    emit(rec)
+    if not rel <= W8A8_CPU_TOL:
+        raise AssertionError(f"full W8A8 card vs CPU: {rec}")
+    if not (min(psnr["full"], psnr["mixed"], psnr32["full"],
+                psnr32["mixed"]) > INT8_PSNR_BAR
+            and psnr32["mixed"] > psnr32["full"] and engaged > 1e-3):
+        raise AssertionError(f"full W8A8 quality: {rec}")
+    state["w8a8_quality"] = {"psnr_db": psnr, "psnr_db_float32": psnr32,
+                             "rel_err_card_vs_cpu": rel}
+    del mq, m32
+    torch.cuda.empty_cache()
+
+
+def phase_int8(state):
+    """Full W8A8 on the card (``quantize_rrdbnet(mode="full")``,
+    ``rrdbnet_apply_int8(mode="full")``) at the full width of
+    ``realesrgan_x4`` (23 RRDBs, seed-0 random init, calibrated on the
+    engine's input): one chunk of 16 windows of 264² and the 1024² scene
+    tiled as the engine tiles it (tile 256, pad 4: one chunk), each with
+    69 ``rdb_w8a8`` launches a chunk and no other RDB kernel; the
+    576×432 image's 576×448 bucket 0 values apart from the unpadded
+    forward (quant(0) = 0); :func:`w8a8_quality`; and the seconds of a
+    warm 1024² scene in full W8A8, mixed and bf16 through the same
+    tiling, in turns."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models import engine as engine_mod
+    from s2sr_tpu_torch.models import rrdbnet_int8 as q8
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.parallel.tiling import bucket_pad, tiled_apply
+
+    t0 = time.perf_counter()
+    card = state.get("card") or card_line()
+    eng = state.get("engine") or engine_mod.get_engine(
+        "realesrgan_x4", weights_dir=str(state["work"] / "weights"),
+        device="cuda")
+    model = eng.model
+    if (eng.dtype != torch.bfloat16 or len(model.body) != 23
+            or eng.quantized):
+        raise AssertionError("phase int8 runs full-width bf16 realesrgan_x4")
+    n_rdb = 3 * len(model.body)
+    calib = torch.from_numpy(synthetic_fields(size=(256, 256), seed=42))
+    calib = calib.cuda().float()[None].flip(-1) / 255.0
+    state["engine_for_int8"], state["int8_calib"] = eng, calib
+    t1 = time.perf_counter()
+    qfull = q8.quantize_rrdbnet(model, calib, mode="full")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t1
+    qmixed = q8.quantize_rrdbnet(model, calib, mode="mixed")
+
+    def zero():
+        rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = rdb_mod.LAUNCHES_W8A8 = 0
+
+    def counts():
+        return {"rdb_w8a8": rdb_mod.LAUNCHES_W8A8,
+                "rdb_i8": rdb_mod.LAUNCHES_I8, "rdb": rdb_mod.LAUNCHES}
+
+    fns = {"full": lambda b: q8.rrdbnet_apply_int8(
+               model, qfull, b, up_sub_batch=eng.up_sub, mode="full"),
+           "mixed": lambda b: q8.rrdbnet_apply_int8(
+               model, qmixed, b, up_sub_batch=eng.up_sub, mode="mixed"),
+           "bfloat16": lambda b: model(b, up_sub_batch=eng.up_sub)}
+    img = synthetic_fields((1024, 1024), seed=3)
+    wins = eng._serving_parts(img)[0]
+    chunk = eng._to_float(torch.from_numpy(np.ascontiguousarray(wins)).cuda())
+    main_launches = 0
+    # one chunk: 16 windows of 264²
+    zero()
+    out = fns["full"](chunk)
+    torch.cuda.synchronize()
+    c = counts()
+    rec = {"phase": "int8", "check": "full W8A8 chunk",
+           "chunk": list(chunk.shape), "out": list(out.shape),
+           "finite": bool(torch.isfinite(out).all()), **c,
+           "quantize_full_seconds": quant_s, "card": card}
+    emit(rec)
+    if (c != {"rdb_w8a8": n_rdb, "rdb_i8": 0, "rdb": 0} or not rec["finite"]
+            or tuple(out.shape) != (16, 1056, 1056, 3)):
+        raise AssertionError(f"full W8A8 chunk: {rec}")
+    main_launches += c["rdb_w8a8"]
+    chunk_ms = {k: time_cuda(lambda f=f: f(chunk), iters=3, warmup=1)
+                for k, f in fns.items()}
+    # the 1024² scene, tiled as the engine tiles it
+    x = eng._to_float(torch.from_numpy(img).cuda())
+
+    def scene(name):
+        out = tiled_apply(fns[name], x, tile=eng.tile_size, pad=eng.tile_pad,
+                          scale=eng.scale, batch_size=eng.batch_size)
+        return eng._to_u8(out)
+
+    zero()
+    full_u8 = scene("full")
+    torch.cuda.synchronize()
+    c = counts()
+    chunks = -(-len(wins) // eng.batch_size)
+    emit({"phase": "int8", "check": "full W8A8 1024² scene",
+          "windows": len(wins), "chunks": chunks, **c,
+          "shape": list(full_u8.shape), "card": card})
+    if (c != {"rdb_w8a8": n_rdb * chunks, "rdb_i8": 0, "rdb": 0}
+            or tuple(full_u8.shape) != (4096, 4096, 3)):
+        raise AssertionError(f"full W8A8 scene: launches {c}")
+    main_launches += c["rdb_w8a8"]
+    reps = {k: [] for k in fns}
+    for name in ("full", "mixed", "bfloat16", "bfloat16", "mixed", "full"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scene(name)
+        torch.cuda.synchronize()
+        reps[name].append(time.perf_counter() - t1)
+    rate = {k: 1024 * 1024 / min(v) / 1e6 for k, v in reps.items()}
+    emit({"phase": "int8", "check": "1024² scene seconds, warm, in turns",
+          "sr_1024_seconds": reps, "sr_1024_mpix_per_s": rate,
+          "chunk_forward_ms": chunk_ms,
+          "full_over_bf16_rate": rate["full"] / rate["bfloat16"],
+          "full_over_mixed_rate": rate["full"] / rate["mixed"],
+          "card": card})
+    # the bucket contract
+    h, w = CONTRACT_BUCKET
+    up = synthetic_fields((h, w), seed=14)
+    padded, mask = bucket_pad(up)
+    xe = eng._to_float(torch.from_numpy(up).cuda())[None]
+    xp = eng._to_float(torch.from_numpy(padded).cuda())[None]
+    mk = torch.from_numpy(mask).cuda()[None]
+    exact = fns["full"](xe)
+    bucket = q8.rrdbnet_apply_int8(model, qfull, xp * mk, mask=mk,
+                                   mode="full")[:, :4 * h, :4 * w]
+    torch.cuda.synchronize()
+    b_diff = int((exact != bucket).sum().item())
+    emit({"phase": "int8", "check": "byte contracts", "dtype": "int8 full",
+          "bucket": list(padded.shape[:2]), "image": [h, w],
+          "bucket_vs_unpadded_values_differing": b_diff,
+          "bucket_max_abs_diff": (exact - bucket).abs().max().item(),
+          "card": card})
+    if b_diff:
+        raise AssertionError(f"full W8A8 bucket differs from the unpadded "
+                             f"forward on {b_diff} values")
+    del exact, bucket, xe, xp, chunk, out
+    w8a8_quality(state, card)
+    zero()
+    state["int8_launches_w8a8"] = main_launches
+    state["w8a8_numbers"] = {"mpix_per_s": rate, "chunk_ms": chunk_ms}
+    emit({"phase": "int8", "seconds": round(time.perf_counter() - t0, 3)})
 
 
 def wow_op_checks() -> dict:
@@ -4944,15 +5349,25 @@ def phase_ladder(state):
 
     # the ladder itself, as `python -m s2sr_tpu_torch.bench.rdb_ladder`
     # runs it; its v4 launches are not main-path launches of rdb
-    rdb0 = rdb_mod.LAUNCHES
+    # with JAX's int8 and Winograd variants (wino gated in float32); the
+    # launches of i8 (rdb_w8a8) and i8mix (rdb_i8) are the ladder's
+    rdb0 = rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES_W8A8
     for k in lad.LAUNCHES:
         lad.LAUNCHES[k] = 0
-    lines = bench.ladder(bench.VARIANTS, LADDER_SHAPE, LADDER_CHAIN,
+    rdb_mod.LAUNCHES_I8 = rdb_mod.LAUNCHES_W8A8 = 0
+    lines = bench.ladder(bench.KNOWN, LADDER_SHAPE, LADDER_CHAIN,
                          LADDER_RUNS, "cuda",
                          emit=lambda obj: emit({"phase": "ladder", **obj}))
     torch.cuda.synchronize()
-    launches = dict(lad.LAUNCHES)
-    rdb_mod.LAUNCHES = rdb0
+    launches = dict(lad.LAUNCHES, i8=rdb_mod.LAUNCHES_W8A8,
+                    i8mix=rdb_mod.LAUNCHES_I8)
+    emit({"phase": "ladder", "card": card, "check": "int8 variants' kernel "
+          "launches (the ladder's, not the main path's)",
+          "rdb_w8a8": launches["i8"], "rdb_i8": launches["i8mix"]})
+    if not launches["i8"] or not launches["i8mix"]:
+        raise AssertionError(f"ladder i8 / i8mix launched no kernel: "
+                             f"{launches}")
+    rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES_W8A8 = rdb0
     per_launch = {ln["variant"]: ln["ms_per_launch"] for ln in lines}
 
     # the CUDA-core kernels the tensor-core ones replaced, in the same run
@@ -5625,6 +6040,49 @@ def sp_chunk_compare(eng, one, ref32, x) -> dict:
     return rec
 
 
+def w8a8_band_check(card: str, one8, x) -> int:
+    """Full W8A8 over ``sp=2``: one chunk of windows ``x`` through the band
+    forward (``rrdbnet_bands`` with ``int8_rdb_fn(mode="full")``: every
+    RDB in ``rdb_w8a8`` on its 5-row extended band, both bands on
+    ``cuda:0``) against the one-device full-W8A8 forward of the same
+    quantized model: 0 values apart, as the mixed engine's. → its
+    ``rdb_w8a8`` launches (69 a band and 69 for the one device)."""
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models import rrdbnet_int8 as q8
+    from s2sr_tpu_torch.models.rrdbnet import rrdbnet_bands
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.parallel import spatial
+
+    model = one8.model
+    calib = torch.from_numpy(synthetic_fields(size=(256, 256), seed=42))
+    calib = calib.cuda().float()[None].flip(-1) / 255.0
+    qfull = q8.quantize_rrdbnet(model, calib, mode="full")
+    rdb_mod.LAUNCHES_W8A8 = 0
+    with torch.no_grad():
+        whole = q8.rrdbnet_apply_int8(model, qfull, x,
+                                      up_sub_batch=one8.up_sub, mode="full")
+        parts = spatial.split(x, spatial.band_bounds(x.shape[1], 2),
+                              [x.device] * 2)
+        bands = spatial.gather(rrdbnet_bands(
+            [model, model], parts, None, one8.up_sub,
+            q8.int8_rdb_fn(model, qfull, "full")), x.device)
+    torch.cuda.synchronize()
+    n = rdb_mod.LAUNCHES_W8A8
+    rec = {"phase": "mesh", "check": "band forward sp=2 (int8 full)",
+           "chunk": list(x.shape), "values_apart": int((whole != bands).sum()),
+           "max_abs_diff": float((whole - bands).abs().max()),
+           "out_max": float(whole.abs().max()),
+           "finite": bool(torch.isfinite(bands).all()),
+           "rdb_w8a8_launches": n, "card": card}
+    emit(rec)
+    nb = 3 * len(model.body)
+    if rec["values_apart"] or not rec["finite"] or n != 3 * nb:
+        raise AssertionError(f"full W8A8 band forward: {rec}")
+    return n
+
+
 def mesh_sp_serving(card: str, img, kw: dict, ref, wants: dict,
                     ref_secs: dict) -> dict:
     """Serving over ``sp`` on one card (every band on ``cuda:0``): the
@@ -5650,13 +6108,13 @@ def mesh_sp_serving(card: str, img, kw: dict, ref, wants: dict,
     from s2sr_tpu_torch.ops import window_attention as wa
     from s2sr_tpu_torch.parallel.mesh import build_mesh
 
-    launches = {"rdb": 0, "rdb_i8": 0, "swin_block": 0}
+    launches = {"rdb": 0, "rdb_i8": 0, "rdb_w8a8": 0, "swin_block": 0}
     counter = {"rdb": lambda: rdb_mod.LAUNCHES,
                "rdb_i8": lambda: rdb_mod.LAUNCHES_I8,
                "swin_block": lambda: wa.LAUNCHES["swin_block"]}
 
     def zero():
-        rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = 0
+        rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = rdb_mod.LAUNCHES_W8A8 = 0
         wa.LAUNCHES.update(swin_block=0, window_attention=0)
 
     def serve(label, eng, one, image, wants_of, secs_of, kernel, per_chunk,
@@ -5772,6 +6230,7 @@ def mesh_sp_serving(card: str, img, kw: dict, ref, wants: dict,
     serve("int8 sp=2", eng8, one8, img, want8, secs8, "rdb_i8",
           3 * len(eng8.model.body))
     compare("sp=2 (int8)", eng8, one8, ref32, chunk(eng8, img))
+    launches["rdb_w8a8"] = w8a8_band_check(card, one8, chunk(eng8, img))
     del eng8, one8, ref32
     torch.cuda.empty_cache()
 
@@ -5966,14 +6425,16 @@ def phase_mesh(state):
           **common})
     state["mesh_launches"] = launches
     state["mesh_launches_i8"] = sp_launches["rdb_i8"]
+    state["mesh_launches_w8a8"] = sp_launches["rdb_w8a8"]
     state["mesh_swin_launches"] = sp_launches["swin_block"]
 
 
 def kernels_record(state) -> list | None:
     """The kernels' JSON record, or None if a phase it needs did not run."""
     if not {"rdb_numbers", "main_launches", "rdb_i8_numbers",
-            "main_launches_i8", "swin_numbers", "swin_launches", "swin_err",
-            "ladder", "mxu"} <= state.keys():
+            "main_launches_i8", "rdb_w8a8_numbers", "int8_launches_w8a8",
+            "swin_numbers", "swin_launches", "swin_err", "ladder",
+            "mxu"} <= state.keys():
         return None
     from s2sr_tpu_torch.ops.rdb_ladder import TC_RUNGS
 
@@ -5997,7 +6458,16 @@ def kernels_record(state) -> list | None:
                           + state.get("mesh_launches_i8", 0)),
              "max_abs_err": state["rdb_i8_max_abs_err"],
              "rel_err": state["rdb_i8_rel_err"],
-             **state["rdb_i8_numbers"], "library_ms": None}]
+             **state["rdb_i8_numbers"], "library_ms": None},
+            # no TPU kernel: JAX runs these five convs as XLA int8 convs
+            {"name": "rdb_w8a8", "route": "cuda",
+             "source": "s2sr_tpu_torch/csrc/rdb.cu",
+             "replaces": RDB_W8A8_REPLACES,
+             "launches": (state["int8_launches_w8a8"]
+                          + state.get("mesh_launches_w8a8", 0)),
+             "max_abs_err": state["rdb_w8a8_max_abs_err"],
+             "rel_err": state["rdb_w8a8_rel_err"],
+             **state["rdb_w8a8_numbers"], "library_ms": None}]
     for name in ("swin_block", "window_attention"):
         err, rel = state["swin_err"][name]
         rows.append({"name": name, "route": "cuda",

@@ -9,10 +9,24 @@ Port of ``scripts/bench_kernels.py``'s gate and timing. Variants:
   rungs (``ops/rdb_ladder.py``): in bfloat16 ``v1`` and ``v3`` on the
   tensor cores (``csrc/rdb_ladder_tc.cu``), ``v2`` and the float32 gate
   on the CUDA cores (``csrc/rdb_ladder.cu``);
-- ``v4``: ``ops/rdb.py::rdb``, the main path's kernel ``csrc/rdb.cu``.
+- ``v4``: ``ops/rdb.py::rdb``, the main path's kernel ``csrc/rdb.cu``;
+- the JAX ladder's int8 and Winograd variants (``scripts/bench_kernels.py``
+  keeps them as closures in ``main()``; here they are importable
+  functions): ``xla`` and ``xp`` (JAX's names for its XLA RDB, the port's
+  ``plain``), ``i8`` (full W8A8, every activation scale 1/127: the kernel
+  ``ops/rdb.py::rdb_w8a8``), ``i8mix`` (the mixed block, qm 127 and
+  ``deq = s_w/127``: the kernel ``ops/rdb.py::rdb_i8``), ``i8fast``
+  (quantization and dequantization in bf16), ``i8acc`` (joint per-channel
+  scales, a raw int32 prefix accumulator), ``i8noq`` (a time-attribution
+  ablation whose math is wrong on purpose) and ``wino`` (Winograd
+  F(2×2, 3×3) as einsums). ``i8fast``, ``i8acc`` and ``i8noq`` take their
+  int8 convs from ``ops/rdb.py::conv_i8_int`` (an int8 GEMM on the card)
+  and run the rest as plain PyTorch, as XLA runs them in JAX.
 
 Each kernel variant is first gated in float32 at (1, 40, 72) against
-``rdb_reference`` (max abs error < 1e-4; TF32 off). Then a chain of
+``rdb_reference`` (max abs error < 1e-4; TF32 off), ``wino`` within 1e-3
+(JAX's gate: the transforms round); the int8 variants have no gate, as
+in JAX. Then a chain of
 ``--chain`` RDBs runs on one stream at ``--shape`` in bfloat16, ``--runs``
 times back to back, each run fed the last one's output, timed with CUDA
 events. One JSON line per variant: ``variant, shape, chain,
@@ -26,6 +40,7 @@ as the kernel source counts them.
 ``--shape``): a check of the harness, not a measurement of a card.
 
 Usage: python -m s2sr_tpu_torch.bench.rdb_ladder [--variants plain,v1,v2,v3,v4]
+       (any of plain, v1..v4, xla, xp, i8, i8fast, i8acc, i8noq, i8mix, wino)
        [--runs 3] [--chain 12] [--shape 16,264,264] [--device cuda|cpu]
 """
 
@@ -40,6 +55,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..models.weights import init_state_dict
 from ..ops import rdb as rdb_mod
@@ -48,8 +64,18 @@ from ..utils.precision import ieee_fp32
 
 FLOP_PER_PIXEL = 2 * 9 * (64 * 192 + 32 * (160 + 128 + 96 + 64))
 VARIANTS = ("plain", "v1", "v2", "v3", "v4")
+INT8_VARIANTS = ("xla", "xp", "i8", "i8fast", "i8acc", "i8noq", "i8mix",
+                 "wino")
+KNOWN = VARIANTS + INT8_VARIANTS
+# variants that launch a hand-written kernel on the card
+KERNEL_VARIANTS = ("v1", "v2", "v3", "v4", "i8", "i8mix")
 GATE_SHAPE = (1, 40, 72)
 GATE_TOL = 1e-4
+# float32 gates against rdb_reference: the kernel rungs, and Winograd's
+# looser one (its transforms round)
+GATES = {"v1": GATE_TOL, "v2": GATE_TOL, "v3": GATE_TOL, "v4": GATE_TOL,
+         "wino": 1e-3}
+G = 32
 
 
 def card_name(device: str) -> str:
@@ -71,16 +97,244 @@ def ladder_weights(seed: int = 0):
             [sd[f"body.0.rdb1.conv{k}.bias"] for k in range(1, 6)])
 
 
+def jax_tree(kernels, biases) -> dict:
+    """Five OIHW kernels and biases as one RDB of the JAX tree, float32:
+    ``{"convK": {"kernel": HWIO, "bias"}}``."""
+    return {f"conv{k}": {"kernel": kernels[k - 1].float().permute(2, 3, 1, 0),
+                         "bias": biases[k - 1].float()} for k in range(1, 6)}
+
+
+def _quantized_kernels(p: dict) -> tuple:
+    """``_quantize_kernel`` of each packed kernel: ((w8, s_w), ...)."""
+    from ..models.rrdbnet_int8 import _pack_rdb_kernels, _quantize_kernel
+
+    return tuple(_quantize_kernel(w) for w in _pack_rdb_kernels(p))
+
+
+def _conv_int(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """NHWC integer values ⊛ HWIO int8 kernel: the exact int32 sums as
+    float32 (``conv_i8_int``: an int8 GEMM on the card)."""
+    out = rdb_mod.conv_i8_int(x8.permute(0, 3, 1, 2), w8.permute(3, 2, 0, 1))
+    return out.permute(0, 2, 3, 1)
+
+
+def xla_int8(t: torch.Tensor) -> torch.Tensor:
+    """``t.astype(int8)`` as XLA converts a float: truncate toward zero,
+    clamp to [-128, 127], NaN to 0 (not C's undefined cast)."""
+    t = torch.nan_to_num(torch.trunc(t.float()), nan=0.0)
+    return t.clamp(-128, 127).to(torch.int8)
+
+
+def i8_params(p: dict) -> dict:
+    """Variant ``i8`` (``bench_kernels.py:165-181``): one RDB quantized as
+    ``quantize_body`` does, every activation scale 1/127; the ``qp`` of
+    ``ops/rdb.py::rdb_w8a8``."""
+    w8s, sws = zip(*_quantized_kernels(p))
+    s_act = torch.full((5,), 1.0 / 127.0, dtype=torch.float32)
+    return {"w8": tuple(w8s),
+            "deq": tuple(d * s_act[i] for i, d in enumerate(sws)),
+            "qm": 1.0 / s_act,
+            "b": tuple(p[f"conv{k}"]["bias"].float() for k in range(1, 6))}
+
+
+def i8mix_params(p: dict) -> tuple:
+    """Variant ``i8mix`` (``bench_kernels.py:314-354``): the x conv's
+    ``(wx8, deq = s_w/127, qm = 127)`` of ``ops/rdb.py::rdb_i8``."""
+    wx8, sw = _quantized_kernels(p)[0]
+    return wx8, (sw / 127.0).float(), 127.0
+
+
+def i8fast_params(p: dict) -> dict:
+    """Variant ``i8fast`` (``bench_kernels.py:183-219``): the int8 kernels,
+    ``deq = s_w/127`` and the biases in bf16."""
+    w8s, sws = zip(*_quantized_kernels(p))
+    return {"w8": w8s,
+            "deq": tuple((d / 127.0).to(torch.bfloat16) for d in sws),
+            "b": tuple(p[f"conv{k}"]["bias"].to(torch.bfloat16)
+                       for k in range(1, 6))}
+
+
+def rdb_i8fast(x: torch.Tensor, q: dict) -> torch.Tensor:
+    """``rdb_i8f``: the full-W8A8 block with quantization and
+    dequantization in bf16 (``round(x·127)`` of a bf16 product, the int32
+    sums rounded to bf16 and scaled in bf16); bf16 in and out."""
+    qm = torch.tensor(127.0, dtype=torch.bfloat16, device=x.device)
+    slope = torch.tensor(0.2, dtype=torch.bfloat16, device=x.device)
+
+    def quant(t):
+        return torch.round(t * qm).clamp(-127, 127)
+
+    def conv(t8, k):
+        return _conv_int(t8, q["w8"][k]).to(torch.bfloat16) * q["deq"][k]
+
+    def lrelu(t):
+        return torch.where(t >= 0, t, t * slope)
+
+    acc = conv(quant(x), 0)
+    for k in range(1, 5):
+        xk = quant(lrelu(acc[..., -G:] + q["b"][k - 1]))
+        acc = acc[..., :-G] + conv(xk, k)
+    x5 = acc + q["b"][4]
+    return x5 * slope + x
+
+
+def i8acc_params(p: dict) -> dict:
+    """Variant ``i8acc`` (``bench_kernels.py:221-277``): joint per-channel
+    weight scales over the packed prefix lanes (lane c takes the largest
+    |w| of every kernel that covers it), the kernels quantized with them,
+    one activation scale 1/127, ``d192 = s192·s_a`` and float32 biases."""
+    from ..models.rrdbnet_int8 import _pack_rdb_kernels
+
+    ws = _pack_rdb_kernels(p)
+    s192 = torch.zeros(192)
+    for wk in ws:
+        co = wk.shape[-1]
+        s192[:co] = torch.maximum(s192[:co], wk.abs().amax(dim=(0, 1, 2)))
+    s192 = torch.clamp(s192, min=1e-12) / 127.0
+    w8s = tuple(torch.round(wk / s192[:wk.shape[-1]]).clamp(-127, 127)
+                .to(torch.int8) for wk in ws)
+    s_a = 1.0 / 127.0
+    return {"w8": w8s, "d192": s192 * torch.tensor(s_a),
+            "qa": torch.tensor(1.0 / s_a),
+            "b": tuple(p[f"conv{k}"]["bias"].float() for k in range(1, 6))}
+
+
+def rdb_i8acc(x: torch.Tensor, q: dict) -> torch.Tensor:
+    """``rdb_i8acc``: the int32 sums of the five convs added in int32 (up
+    to 5·127²·576 ≈ 4.6e7, past float32's exact integers) in the prefix
+    accumulator, dequantized by ``d192`` only at each stage's 32-lane tail
+    and the final 64 lanes; ``(x5·0.2)`` rounded to bf16, plus x."""
+    d192, b = q["d192"], q["b"]
+
+    def quant(t):
+        return torch.round(t.float() * q["qa"]).clamp(-127, 127)
+
+    def conv32(t8, k):
+        return _conv_int(t8, q["w8"][k]).to(torch.int32)
+
+    def tail(acc32, k):
+        co = acc32.shape[-1]
+        t = acc32[..., -G:].float() * d192[co - G:co] + b[k]
+        return quant(torch.where(t >= 0, t, t * 0.2))
+
+    acc = conv32(quant(x), 0)                           # int32, 192 lanes
+    for k in range(1, 5):
+        acc = acc[..., :-G] + conv32(tail(acc, k - 1), k)
+    x5 = acc.float() * d192[:64] + b[4]
+    return (x5 * 0.2).to(torch.bfloat16) + x
+
+
+def i8noq_params(p: dict) -> tuple:
+    """Variant ``i8noq`` (``bench_kernels.py:279-312``): each packed kernel
+    times 64, rounded and clamped to int8."""
+    from ..models.rrdbnet_int8 import _pack_rdb_kernels
+
+    return tuple(torch.round(wk * 64).clamp(-127, 127).to(torch.int8)
+                 for wk in _pack_rdb_kernels(p))
+
+
+def rdb_i8noq(x: torch.Tensor, w8n: tuple) -> torch.Tensor:
+    """``rdb_i8noq``: a time-attribution ablation whose math is wrong on
+    purpose. The int8 convs with every quantization a bare cast
+    (:func:`xla_int8`) and the accumulator in bf16; ``acc·1e-4 + x``."""
+    def conv(t, k):
+        return _conv_int(xla_int8(t).float(), w8n[k]).to(torch.bfloat16)
+
+    acc = conv(x, 0)
+    for k in range(1, 5):
+        acc = acc[..., :-G] + conv(acc[..., -G:], k)
+    return acc * torch.tensor(1e-4, dtype=torch.bfloat16) + x
+
+
+# Winograd F(2×2, 3×3): input, kernel and output transforms
+WINO_BT = ((1, 0, -1, 0), (0, 1, 1, 0), (0, -1, 1, 0), (0, 1, 0, -1))
+WINO_G = ((1, 0, 0), (.5, .5, .5), (.5, -.5, .5), (0, 0, 1))
+WINO_AT = ((1, 1, 1, 0), (0, 1, -1, -1))
+
+
+def wino_u(wk: torch.Tensor, dtype) -> torch.Tensor:
+    """An HWIO 3×3 kernel's Winograd transform ``G·w·Gᵀ`` (4, 4, Cin,
+    Cout), in float32, rounded to ``dtype``."""
+    gw = torch.tensor(WINO_G, dtype=torch.float32, device=wk.device)
+    return torch.einsum("ur,rsco,vs->uvco", gw, wk.float(), gw).to(dtype)
+
+
+def wino_conv(t: torch.Tensor, u: torch.Tensor, dtype) -> torch.Tensor:
+    """3×3 SAME conv of NHWC ``t`` (even H and W) by Winograd: 4×4 input
+    tiles at stride 2, ``Bᵀ·d·B``, 16 batched products with ``u``, then
+    ``Aᵀ·m·A`` (``wino_conv`` of ``bench_kernels.py:382-397``)."""
+    n, hh, ww, c = t.shape
+    tp = F.pad(t, (0, 0, 1, 1, 1, 1))
+    th, tw = hh // 2, ww // 2
+    d = torch.stack([tp[:, r:r + 2 * th:2, s:s + 2 * tw:2, :]
+                     for r in range(4) for s in range(4)])
+    d = d.reshape(4, 4, n, th, tw, c)
+    btd = torch.tensor(WINO_BT, dtype=dtype, device=t.device)
+    v = torch.einsum("ur,rsnhwc->usnhwc", btd, d)
+    v = torch.einsum("usnhwc,vs->uvnhwc", v, btd)
+    m = torch.einsum("uvnhwc,uvco->uvnhwo", v, u)
+    atd = torch.tensor(WINO_AT, dtype=dtype, device=t.device)
+    y = torch.einsum("iu,uvnhwo->ivnhwo", atd, m)
+    y = torch.einsum("ivnhwo,jv->nhiwjo", y, atd)
+    return y.reshape(n, hh, ww, -1)
+
+
+def make_wino_rdb(p: dict, dtype):
+    """Variant ``wino`` (``bench_kernels.py:356-425``): the packed-prefix
+    RDB with every conv in :func:`wino_conv`, kernels transformed once,
+    biases in ``dtype``."""
+    from ..models.rrdbnet import _lrelu, packed_prefix_kernels
+
+    us = tuple(wino_u(wk, dtype) for wk in packed_prefix_kernels(p))
+    bs = tuple(p[f"conv{k}"]["bias"].to(dtype) for k in range(1, 6))
+
+    def rdb_w(t):
+        acc = wino_conv(t, us[0], dtype)
+        for k in range(1, 5):
+            xk = _lrelu(acc[..., -G:] + bs[k - 1])
+            acc = acc[..., :-G] + wino_conv(xk, us[k], dtype)
+        x5 = acc + bs[4]
+        return x5 * torch.tensor(0.2, dtype=dtype, device=t.device) + t
+
+    return rdb_w
+
+
+def _on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_on(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
 def variant_fns(variants, kernels, biases, dtype, device) -> dict:
     """name → one RDB on ``x`` with the variant's weights in ``dtype``."""
     w, b = (t.to(device) for t in rdb_mod.pack_rdb_weights(kernels, biases,
                                                            dtype))
+    p = jax_tree(kernels, biases)
     fns = {}
     for name in variants:
-        if name == "plain":
+        if name in ("plain", "xla", "xp"):
             fns[name] = lambda x: rdb_mod.rdb_reference(x, w, b)
         elif name == "v4":
             fns[name] = lambda x: rdb_mod.rdb(x, w, b)
+        elif name == "i8":
+            qp = _on(i8_params(p), device)
+            packed = None if device == "cpu" else rdb_mod.pack_rdb_w8a8(qp)
+            fns[name] = (lambda x, qp=qp, packed=packed:
+                         rdb_mod.rdb_w8a8(x, qp, packed=packed))
+        elif name == "i8mix":
+            wx8, deq, qm = _on(i8mix_params(p), device)
+            fns[name] = (lambda x, wx8=wx8, deq=deq, qm=qm:
+                         rdb_mod.rdb_i8(x, w, b, wx8, deq, qm))
+        elif name in ("i8fast", "i8acc", "i8noq"):
+            params = {"i8fast": i8fast_params, "i8acc": i8acc_params,
+                      "i8noq": i8noq_params}[name](p)
+            fn = {"i8fast": rdb_i8fast, "i8acc": rdb_i8acc,
+                  "i8noq": rdb_i8noq}[name]
+            fns[name] = (lambda x, fn=fn, q=_on(params, device): fn(x, q))
+        elif name == "wino":
+            fns[name] = make_wino_rdb(_on(p, device), dtype)
         else:
             blocks, b14, b5 = ladder_mod.pack_ladder_weights(w, b, name, dtype)
             packed = (tuple(t.to(device) for t in blocks), b14.to(device),
@@ -97,10 +351,12 @@ def variant_fns(variants, kernels, biases, dtype, device) -> dict:
 def kernel_info(name: str, shape, dtype, device: str) -> dict:
     """Tile and executed FLOP per output pixel (halo and padding included)
     of a kernel variant on the card; empty for ``plain`` or the CPU."""
-    if device == "cpu" or name == "plain":
+    if device == "cpu" or name not in KERNEL_VARIANTS:
         return {}
     bsz, h, w = shape
     t = (rdb_mod.kernel_tiling(dtype) if name == "v4"
+         else rdb_mod.kernel_tiling_w8a8() if name == "i8"
+         else rdb_mod.kernel_tiling_i8() if name == "i8mix"
          else ladder_mod.kernel_tiling(name, dtype))
     tiles = bsz * math.ceil(h / t["tile"]) * math.ceil(w / t["tile"])
     executed = 2 * t.pop("macs_per_tile") * tiles / (bsz * h * w)
@@ -109,17 +365,18 @@ def kernel_info(name: str, shape, dtype, device: str) -> dict:
 
 
 def gate(fns32: dict, xs: torch.Tensor, w, b, emit) -> None:
-    """Each kernel variant in float32 against ``rdb_reference`` (TF32
-    off for the reference's convs), max abs error < 1e-4."""
+    """Each gated variant in float32 against ``rdb_reference`` (TF32 off
+    for every conv and product): max abs error under its :data:`GATES`
+    tolerance."""
     with ieee_fp32():
         want = rdb_mod.rdb_reference(xs, w, b)
         for name, fn in fns32.items():
-            if name == "plain":
-                continue
             err = (fn(xs) - want).abs().max().item()
-            emit({"check": f"{name}_exact", "shape": list(xs.shape[:3]),
-                  "max_err": err, "tolerance": GATE_TOL})
-            if not err < GATE_TOL:
+            tol = GATES[name]
+            emit({"check": f"{name}_exact" if tol == GATE_TOL
+                  else f"{name}_close", "shape": list(xs.shape[:3]),
+                  "max_err": err, "tolerance": tol})
+            if not err < tol:
                 raise AssertionError(f"{name} inexact on {xs.device}: {err}")
 
 
@@ -167,7 +424,8 @@ def ladder(variants=VARIANTS, shape=(16, 264, 264), chain: int = 12,
     rng = np.random.default_rng(7)
     xs = torch.from_numpy(rng.random((*GATE_SHAPE, 64)).astype(np.float32))
     w32, b32 = rdb_mod.pack_rdb_weights(kernels, biases, torch.float32)
-    gate(variant_fns(variants, kernels, biases, torch.float32, device),
+    gate(variant_fns([v for v in variants if v in GATES], kernels, biases,
+                     torch.float32, device),
          xs.to(device), w32.to(device), b32.to(device), emit)
     x = torch.from_numpy(rng.random((*shape, 64)).astype(np.float32)).to(
         device=device, dtype=torch.bfloat16)
@@ -189,17 +447,17 @@ def ladder(variants=VARIANTS, shape=(16, 264, 264), chain: int = 12,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", default=",".join(VARIANTS),
-                    help="comma-separated subset of " + ",".join(VARIANTS))
+                    help="comma-separated subset of " + ",".join(KNOWN))
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--chain", type=int, default=12)
     ap.add_argument("--shape", default="16,264,264", help="B,H,W")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     variants = [v for v in args.variants.split(",") if v]
-    unknown = sorted(set(variants) - set(VARIANTS))
+    unknown = sorted(set(variants) - set(KNOWN))
     if unknown or not variants:
         ap.error(f"unknown variants {unknown}: the port has "
-                 f"{','.join(VARIANTS)}")
+                 f"{','.join(KNOWN)}")
     shape = tuple(int(v) for v in args.shape.split(","))
     if len(shape) != 3:
         ap.error("--shape is B,H,W")

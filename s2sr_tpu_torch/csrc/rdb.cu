@@ -44,6 +44,18 @@
 //   before x1..x4 add their bf16 products (157,440 B shared). The JAX
 //   package computes this conv with XLA's int8 convolution; it has no TPU
 //   kernel of its own.
+// - full W8A8 (every conv input quantized, all five convs int8:
+//   s2sr_tpu/models/rrdbnet_int8.py::_rdb_packed_i8), rdb_w8a8_kernel: the
+//   int8 instance carried to every stage. x is quantized on load with
+//   qm[0], each stage's epilogue stores x1..x4 in shared memory as int8
+//   (round half to even of v * qm[k] after bias, LeakyReLU and the mask;
+//   quant(0) = 0 keeps the halo outside the image zero), and every source
+//   of every stage runs on mma.sync.m16n8k32 s8 x s8 into int32. Each
+//   source has its own activation scale, so a source's int32 sums are
+//   dequantized by its own factors into the stage's float32 accumulators
+//   before the next source starts (100,352 B shared). The JAX package runs
+//   these convs with XLA's int8 convolution; it has no TPU kernel of its
+//   own.
 // - float32, rdb_kernel: float32 FMA on the CUDA cores (the tensor cores
 //   would make it TF32), 8x8 tiles (172,032 B shared), the sources planar
 //   [channel][y][x] so that the 32 lanes of a warp read 32 neighbouring
@@ -677,6 +689,252 @@ rdb_i8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mas
   tc_stage<5, true>(sbase, wf, wq, deq, bias, mask, x, out, b, H, W, oy0, ox0);
 }
 
+// --- full W8A8: every source in int8 ------------------------------------------
+//
+// Shared memory holds x (4 chunks a pixel) and x1..x4 (2 chunks a pixel) in
+// int8, each swizzled as above. A k32 slab is (source, tap, 32 channels): two
+// slabs a tap for x, one for x1..x4. wq holds, stage by stage and source by
+// source, the s8 B fragments of the columns of the stage's output channels in
+// that source's packed kernel (ops/rdb.py::pack_rdb_w8a8); deq the five
+// sources' dequantization factors concatenated (192, 160, 128, 96, 64), qm
+// their five quantization multipliers.
+
+// byte offset of source buffer j, every one a multiple of 128 bytes
+__host__ __device__ constexpr int w8_off(int j) {
+  int off = 0;
+  for (int k = 0; k < j; ++k) off += tc_side(k) * tc_side(k) * src_chans(k);
+  return off;
+}
+// uint4s (per lane, 32 lanes) of the B fragments before source j of stage s
+__host__ __device__ constexpr int w8_woff(int s, int j) {
+  int off = 0;
+  for (int k = 1; k <= s; ++k)
+    for (int i = 0; i < (k < s ? k : j); ++i)
+      off += 9 * src_chans(i) / 32 * stage_cout(k) / 16 * 32;
+  return off;
+}
+// first of source j's factors in deq
+__host__ __device__ constexpr int w8_deq_off(int j) {
+  int off = 0;
+  for (int k = 0; k < j; ++k) off += NF + (4 - k) * G;
+  return off;
+}
+
+template <int S>
+__device__ __forceinline__ void w8_stage(uint32_t sbase, const uint4* __restrict__ wq,
+                                         const float* __restrict__ deq,
+                                         const float* __restrict__ qm,
+                                         const float* __restrict__ bias,
+                                         const float* __restrict__ mask,
+                                         const __nv_bfloat16* __restrict__ x,
+                                         __nv_bfloat16* __restrict__ out,
+                                         int b, int H, int W, int oy0, int ox0) {
+  constexpr int RS = tc_side(S);
+  constexpr int NPIX = RS * RS;
+  constexpr int NT = tc_mtiles(S);
+  constexpr int MT = tc_mt(S);
+  constexpr int COUT = stage_cout(S);
+  constexpr int NB = COUT / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  int py[MT], px[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    int p = (warp + TC_WARPS * m) * 16 + (lane & 15);
+    p = p < NPIX ? p : NPIX - 1;
+    py[m] = p / RS;
+    px[m] = p % RS;
+  }
+  float acc[MT][2 * NB][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < 2 * NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int rj = tc_side(j);
+    const int cq = src_chans(j) / 16;     // 16-byte chunks a pixel
+    const int nk = src_chans(j) / 32;     // k32 slabs a tap
+    const int nq = 9 * nk;
+    const int d = S - 1 - j;              // the region's offset in source j
+    const uint32_t base = sbase + w8_off(j);
+    const uint4* qs = wq + w8_woff(S, j) + lane;
+    int iacc[MT][2 * NB][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < 2 * NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) iacc[m][n][e] = 0;
+    int sp0[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) sp0[m] = (py[m] + d) * rj + px[m] + d;
+    uint4 qcur[NB], qnext[NB];
+#pragma unroll
+    for (int n = 0; n < NB; ++n) qcur[n] = __ldg(qs + n * 32);
+    int qsl = 0;
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int toff = (tap / 3) * rj + tap % 3;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (c >= nk) break;
+        const int nxt = qsl + 1 < nq ? qsl + 1 : qsl;
+#pragma unroll
+        for (int n = 0; n < NB; ++n) qnext[n] = __ldg(qs + (nxt * NB + n) * 32);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (warp + TC_WARPS * m >= NT) break;
+          const uint32_t q = (uint32_t)(sp0[m] + toff) * cq + 2 * c + (lane >> 4);
+          uint32_t a[4];
+          tc_ldmatrix(a, base + swz(q) * 16);
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {
+            i8_mma(iacc[m][2 * n], a, qcur[n].x, qcur[n].y);
+            i8_mma(iacc[m][2 * n + 1], a, qcur[n].z, qcur[n].w);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NB; ++n) qcur[n] = qnext[n];
+        ++qsl;
+      }
+    }
+    // this source's sums, dequantized by its own factors at the stage's
+    // columns: accumulator (m, n8 tile k, e) is channel 8k + 2t + e % 2.
+    // |sum| <= 127 * 127 * 576 < 2^24 converts exactly; a product and then
+    // a sum, each rounded once, as the plain version in float32
+    const float* dq = deq + w8_deq_off(j) + i8_col(S);
+#pragma unroll
+    for (int k = 0; k < 2 * NB; ++k) {
+      const float d0 = __ldg(dq + 8 * k + 2 * t);
+      const float d1 = __ldg(dq + 8 * k + 2 * t + 1);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[m][k][e] = __fadd_rn(acc[m][k][e],
+                                   __fmul_rn(__int2float_rn(iacc[m][k][e]),
+                                             (e & 1) ? d1 : d0));
+    }
+  }
+
+  const size_t img_off = (size_t)b * H * W;
+  const float qs_out = S < 5 ? __ldg(qm + S) : 0.f;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    if (warp + TC_WARPS * m >= NT) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = (warp + TC_WARPS * m) * 16 + g + 8 * h;
+      if (p >= NPIX) continue;
+      const int ry = p / RS, rx = p % RS;
+      if constexpr (S < 5) {
+        constexpr int HS = HALO - S;
+        const int gy = oy0 - HS + ry, gx = ox0 - HS + rx;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const float mk = !inside ? 0.f
+                         : (mask ? mask[img_off + (size_t)gy * W + gx] : 1.f);
+        // x_S at its own region's pixel p in int8: channels co, co + 1 are
+        // bytes co % 16, co % 16 + 1 of chunk co / 16 of a 2-chunk pixel
+        const uint32_t dst = sbase + w8_off(S);
+#pragma unroll
+        for (int k = 0; k < 2 * NB; ++k) {
+          const int co = 8 * k + 2 * t;
+          float v0 = __fadd_rn(acc[m][k][2 * h], __ldg(bias + (S - 1) * G + co));
+          float v1 = __fadd_rn(acc[m][k][2 * h + 1], __ldg(bias + (S - 1) * G + co + 1));
+          v0 = __fmul_rn(v0 >= 0.f ? v0 : __fmul_rn(0.2f, v0), mk);
+          v1 = __fmul_rn(v1 >= 0.f ? v1 : __fmul_rn(0.2f, v1), mk);
+          const uint32_t pr = inside ? (quant1(v0, qs_out) | quant1(v1, qs_out) << 8) : 0u;
+          const uint32_t q = (uint32_t)p * 2 + (co >> 4);
+          asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(dst + swz(q) * 16 + (co & 15)),
+                       "h"((unsigned short)pr) : "memory");
+        }
+      } else {
+        const int gy = oy0 + ry, gx = ox0 + rx;
+        if (gy >= H || gx >= W) continue;
+        const size_t pix = img_off + (size_t)gy * W + gx;
+        const float mk = mask ? mask[pix] : 1.f;
+#pragma unroll
+        for (int k = 0; k < 2 * NB; ++k) {
+          const int co = 8 * k + 2 * t;
+          const uint32_t xin = __ldg(reinterpret_cast<const unsigned int*>(x + pix * NF + co));
+          const float2 xf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&xin));
+          const float v0 = (acc[m][k][2 * h] + __ldg(bias + 4 * G + co)) * 0.2f + xf.x;
+          const float v1 = (acc[m][k][2 * h + 1] + __ldg(bias + 4 * G + co + 1)) * 0.2f + xf.y;
+          const __nv_bfloat162 pr = __floats2bfloat162_rn(v0 * mk, v1 * mk);
+          *reinterpret_cast<__nv_bfloat162*>(out + pix * NF + co) = pr;
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TC_WARPS * 32, 1)
+rdb_w8a8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
+                __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wq,
+                const float* __restrict__ deq, const float* __restrict__ qm,
+                const float* __restrict__ bias, int H, int W) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const int b = blockIdx.z;
+  const int oy0 = blockIdx.y * TC_TILE, ox0 = blockIdx.x * TC_TILE;
+  const size_t img_off = (size_t)b * H * W;
+  {
+    // input tile + 5-px halo quantized with qm[0] on the way in, as
+    // rdb_i8_kernel does; zero outside the image
+    const float q0 = __ldg(qm);
+    constexpr int R = tc_side(0);
+    for (int i = threadIdx.x; i < R * R * 8; i += TC_WARPS * 32) {
+      const int p = i >> 3, c = i & 7;
+      const int gy = oy0 - HALO + p / R, gx = ox0 - HALO + p % R;
+      uint32_t lo = 0, hi = 0;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+            x + (img_off + (size_t)gy * W + gx) * NF + 8 * c));
+        lo = quant4(v.x, v.y, q0);
+        hi = quant4(v.z, v.w, q0);
+      }
+      const uint32_t q = (uint32_t)p * 4 + (c >> 1);
+      asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n"
+                   ::"r"(sbase + swz(q) * 16 + 8 * (c & 1)), "r"(lo), "r"(hi)
+                   : "memory");
+    }
+  }
+  __syncthreads();
+  w8_stage<1>(sbase, wq, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  __syncthreads();
+  w8_stage<2>(sbase, wq, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  __syncthreads();
+  w8_stage<3>(sbase, wq, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  __syncthreads();
+  w8_stage<4>(sbase, wq, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  __syncthreads();
+  w8_stage<5>(sbase, wq, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+}
+
+constexpr size_t w8_smem_bytes() { return (size_t)w8_off(5); }
+
+int launch_w8a8(const void* x, const void* mask, void* out, const void* wq,
+                const void* deq, const void* qm, const void* bias, int B, int H,
+                int W, cudaStream_t stream) {
+  constexpr size_t smem = w8_smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(
+      rdb_w8a8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + TC_TILE - 1) / TC_TILE, (H + TC_TILE - 1) / TC_TILE, B);
+  rdb_w8a8_kernel<<<grid, TC_WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
+      static_cast<__nv_bfloat16*>(out), static_cast<const uint4*>(wq),
+      static_cast<const float*>(deq), static_cast<const float*>(qm),
+      static_cast<const float*>(bias), H, W);
+  return (int)cudaGetLastError();
+}
+
 constexpr size_t tc_smem_bytes(bool i8 = false) { return (size_t)tc_off(5, i8); }
 
 int launch_tc(const void* x, const void* mask, void* out, const void* wf,
@@ -765,6 +1023,24 @@ extern "C" int s2sr_rdb_i8_forward(const void* x, const void* mask, void* out,
   if (!wf || !wq || !deq) return (int)cudaErrorInvalidValue;
   return launch_i8(x, mask, out, wf, wq, deq, bias, qm, B, H, W,
                    static_cast<cudaStream_t>(stream));
+}
+
+// The full-W8A8 RDB: x, out (B, H, W, 64) bf16; mask as above; wq the int8 B
+// fragments of the five packed kernels (ops/rdb.py::pack_rdb_w8a8); deq the
+// 640 dequantization factors of x, x1..x4 concatenated; qm their 5
+// quantization multipliers; bias 192 float32. Returns the CUDA error code of
+// the launch.
+extern "C" int s2sr_rdb_w8a8_forward(const void* x, const void* mask, void* out,
+                                     const void* wq, const void* deq,
+                                     const void* qm, const void* bias, int B,
+                                     int H, int W, void* stream) {
+  if (!wq || !deq || !qm || !bias) return (int)cudaErrorInvalidValue;
+  return launch_w8a8(x, mask, out, wq, deq, qm, bias, B, H, W,
+                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" long long s2sr_rdb_w8a8_smem_bytes() {
+  return (long long)w8_smem_bytes();
 }
 
 extern "C" long long s2sr_rdb_i8_smem_bytes() {

@@ -42,7 +42,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.rdb import G, NF, pack_rdb_weights, rdb, rdb_i8
+from ..ops.rdb import (G, NF, pack_rdb_weights, prefix_kernels, rdb,
+                       rdb_i8)
 from ..parallel import spatial
 from ..parallel.comm import halo_exchange
 from ..utils.precision import ieee_fp32
@@ -310,26 +311,26 @@ def _oihw(p: dict) -> _Conv:
     return _Conv(p["kernel"].permute(3, 2, 0, 1), p["bias"])
 
 
+def packed_prefix_kernels(p: dict) -> tuple:
+    """One RDB's five per-source kernels in the packed prefix layout:
+    ``p`` the JAX tree's ``{"convK": {"kernel": HWIO, "bias"}}`` → ``(wx,
+    w1, w2, w3, w4)``, HWIO, columns ``[a5|a4|a3|a2|a1]`` (``wx``) and
+    its tails (``rrdbnet.py::packed_prefix_kernels``; the one definition,
+    :func:`~s2sr_tpu_torch.ops.rdb.prefix_kernels`)."""
+    return prefix_kernels([p[f"conv{k}"]["kernel"] for k in range(1, 6)])
+
+
 def _pack_body(body: dict, dtype) -> list:
     """Per block and RDB, the per-source wide kernels of
-    ``rrdbnet.py::_rdb_packed`` (``wx``: conv5..conv1's x slices → the
-    accumulator ``[a5|a4|a3|a2|a1]``; ``w1``..``w4`` likewise) and the
-    five biases, in ``dtype``, built once over the stacked block axis:
-    casting and slicing commute, so these are the values a per-conv cast
-    gives."""
+    ``rrdbnet.py::_rdb_packed`` (:func:`packed_prefix_kernels`, OIHW) and
+    the five biases, in ``dtype``, built once over the stacked block
+    axis: casting and slicing commute, so these are the values a per-conv
+    cast gives."""
     blocks = None
     for name, convs in body.items():
-        k = {i: convs[f"conv{i}"]["kernel"].to(dtype).permute(0, 4, 3, 1, 2)
-             for i in range(1, 6)}                  # (nb, O, I, 3, 3)
-        g, nf = k[1].shape[1], k[1].shape[2]
-
-        def wide(lo, hi, srcs):
-            return torch.cat([k[i][:, :, lo:hi] for i in srcs], 1).unbind(0)
-
-        ws = (wide(0, nf, (5, 4, 3, 2, 1)), wide(nf, nf + g, (5, 4, 3, 2)),
-              wide(nf + g, nf + 2 * g, (5, 4, 3)),
-              wide(nf + 2 * g, nf + 3 * g, (5, 4)),
-              wide(nf + 3 * g, nf + 4 * g, (5,)))
+        k = [convs[f"conv{i}"]["kernel"].to(dtype).permute(0, 4, 3, 1, 2)
+             for i in range(1, 6)]                  # (nb, O, I, 3, 3)
+        ws = [w.unbind(0) for w in prefix_kernels(k, 2, 1)]
         bs = [convs[f"conv{i}"]["bias"].to(dtype)[:, None, :, None, None]
               .unbind(0) for i in range(1, 6)]
         if blocks is None:

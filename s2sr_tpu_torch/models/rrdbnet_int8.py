@@ -7,7 +7,10 @@ each residual dense block runs in int8, the four growth convs stay in the
 model dtype. On the card every such block runs in the int8 instance of
 the fused RDB kernel (``ops/rdb.py::rdb_i8``); on the CPU in its plain
 version. The **full** formulation (all five convs W8A8, JAX's measured
-harness) is ported as a plain version only.
+harness) is reached, as in JAX, through ``quantize_rrdbnet(mode="full")``
+and ``rrdbnet_apply_int8(mode="full")``: on the card every block runs the
+all-int8 kernel ``ops/rdb.py::rdb_w8a8`` (its operands packed once per
+quantized body and device), on the CPU ``rdb_w8a8_reference``.
 
 Scheme, as in the JAX package:
 
@@ -27,6 +30,8 @@ int8 forward bit for bit, as in the float model.
 Over the ``sp`` axis the int8 engines serve the band forward of
 ``rrdbnet.py::rrdbnet_bands`` as the float ones do: each quantized block
 runs ``rdb_i8`` on its 5-row extended band and keeps the band's rows.
+Full mode takes the band forward the same way, through
+:func:`int8_rdb_fn` (``rdb_w8a8`` on each band's device).
 
 Layouts follow the JAX package: kernels HWIO, activations NHWC, and a
 quantized body (``qbody``) is a dict of stacked per-block tensors with
@@ -39,12 +44,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
-from ..ops.rdb import (conv_i8_int, pack_rdb_weights, quant_i8, rdb_i8,
-                       rdb_i8_reference)
+from ..ops.rdb import (pack_rdb_w8a8, pack_rdb_weights, quant_i8, rdb_i8,
+                       rdb_i8_reference, rdb_w8a8)
 from ..utils.precision import ieee_fp32
-from .rrdbnet import RRDBNet, _conv, _lrelu
-
+from .rrdbnet import RRDBNet, _conv, _lrelu, packed_prefix_kernels
 
 
 def rdb_params(rdb) -> dict:
@@ -66,19 +71,9 @@ def _rdbs(model: RRDBNet):
 
 def _pack_rdb_kernels(p: dict) -> tuple:
     """The five per-source packed HWIO kernels in float32, columns in the
-    prefix order ``[a5|a4|a3|a2|...]`` (``rrdbnet.py::packed_prefix_kernels``)."""
-    g = p["conv1"]["kernel"].shape[-1]
-    nf = p["conv1"]["kernel"].shape[-2]
-
-    def sl(k, lo, hi):
-        return p[f"conv{k}"]["kernel"][:, :, lo:hi, :].float()
-
-    wx = torch.cat([sl(k, 0, nf) for k in (5, 4, 3, 2, 1)], -1)
-    w1 = torch.cat([sl(k, nf, nf + g) for k in (5, 4, 3, 2)], -1)
-    w2 = torch.cat([sl(k, nf + g, nf + 2 * g) for k in (5, 4, 3)], -1)
-    w3 = torch.cat([sl(k, nf + 2 * g, nf + 3 * g) for k in (5, 4)], -1)
-    w4 = sl(5, nf + 3 * g, nf + 4 * g)
-    return wx, w1, w2, w3, w4
+    prefix order ``[a5|a4|a3|a2|...]`` (:func:`.rrdbnet.packed_prefix_kernels`,
+    the one definition of the layout)."""
+    return tuple(w.float() for w in packed_prefix_kernels(p))
 
 
 def _quantize_kernel(w: torch.Tensor) -> tuple:
@@ -201,39 +196,6 @@ def _quant(x: torch.Tensor, qm) -> torch.Tensor:
     return quant_i8(x, qm).to(torch.int8)
 
 
-def _conv_i8(x8: torch.Tensor, w8: torch.Tensor, deq: torch.Tensor,
-             dtype) -> torch.Tensor:
-    """int8 NHWC ``x8`` ⊛ int8 HWIO ``w8``, summed exactly, dequantized by
-    ``deq[cout]`` into ``dtype``."""
-    out = conv_i8_int(x8.float().permute(0, 3, 1, 2), w8.permute(3, 2, 0, 1))
-    return (out.permute(0, 2, 3, 1) * deq.float()).to(dtype)
-
-
-def _rdb_packed_i8(x: torch.Tensor, qp: dict, dtype,
-                   mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Full W8A8 RDB (NHWC; ``qp`` one RDB of :func:`quantize_body`): every
-    conv input quantized, every conv int8. A plain version only."""
-    g = qp["w8"][4].shape[2]
-    w8, deq, qm, b = qp["w8"], qp["deq"], qp["qm"], qp["b"]
-
-    def m(t):
-        return t if mask is None else t * mask
-
-    def bias(i):
-        return b[i].to(dtype)
-
-    acc = _conv_i8(_quant(x, qm[0]), w8[0], deq[0], dtype)
-    x1 = _quant(m(_lrelu(acc[..., -g:] + bias(0))), qm[1])
-    acc = acc[..., :-g] + _conv_i8(x1, w8[1], deq[1], dtype)
-    x2 = _quant(m(_lrelu(acc[..., -g:] + bias(1))), qm[2])
-    acc = acc[..., :-g] + _conv_i8(x2, w8[2], deq[2], dtype)
-    x3 = _quant(m(_lrelu(acc[..., -g:] + bias(2))), qm[3])
-    acc = acc[..., :-g] + _conv_i8(x3, w8[3], deq[3], dtype)
-    x4 = _quant(m(_lrelu(acc[..., -g:] + bias(3))), qm[4])
-    x5 = acc[..., :-g] + _conv_i8(x4, w8[4], deq[4], dtype) + bias(4)
-    return m(x5 * torch.tensor(0.2, dtype=dtype) + x)
-
-
 def _rdb_packed_mixed(x: torch.Tensor, p: dict, qp: dict, dtype,
                       mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mixed RDB (NHWC; ``p`` :func:`rdb_params`, ``qp`` one RDB of
@@ -246,6 +208,60 @@ def _rdb_packed_mixed(x: torch.Tensor, p: dict, qp: dict, dtype,
                             float(qp["qm"]), mk)
 
 
+# full-W8A8 operands per quantized body (keyed by its first kernel) and
+# device: packed once, not per launch
+_W8A8_PACKS = WeakIdKeyDictionary()
+
+
+def _w8a8_packs(qbody: dict, device) -> dict:
+    """``{"rdbJ": W8A8Weights stacked over blocks}`` of a full-mode
+    ``qbody`` on ``device``, packed on first use. A body changed in place
+    after its first use on a device keeps its old operands there: pass
+    a new body instead."""
+    per_dev = _W8A8_PACKS.setdefault(qbody["rdb1"]["w8"][0], {})
+    key = str(device)
+    if key not in per_dev:
+        per_dev[key] = {name: pack_rdb_w8a8({
+            k: (tuple(t.to(device) for t in v) if isinstance(v, tuple)
+                else v.to(device)) for k, v in q.items()})
+            for name, q in qbody.items()}
+    return per_dev[key]
+
+
+def int8_rdb_fn(model: RRDBNet, qbody: dict, mode: str = "mixed"):
+    """The ``rdb_fn(index, x, mask)`` hook of :meth:`RRDBNet.forward` and
+    ``rrdbnet_bands`` that runs residual dense block ``index`` (0 ..
+    3·blocks − 1) quantized: "mixed" in :func:`~..ops.rdb.rdb_i8` from
+    ``model``'s packed float weights, "full" in
+    :func:`~..ops.rdb.rdb_w8a8` (on a CUDA tensor the kernel, on the
+    device the band lies on)."""
+    if mode not in ("mixed", "full"):
+        raise ValueError(f"unknown int8 mode {mode!r}")
+    dtype = model.dtype
+    rdbs = list(_rdbs(model))
+    per_rdb = [{k: (tuple(t[i] for t in v) if isinstance(v, tuple) else v[i])
+                for k, v in qbody[name].items()} for i, name, _ in rdbs]
+    # x's multipliers as floats, read once (not one device sync a block)
+    qms = ({name: q["qm"].tolist() for name, q in qbody.items()}
+           if mode == "mixed" else None)
+
+    def rdb_fn(index, out, mask_k):
+        q, dev = per_rdb[index], out.device
+        i, name, r = rdbs[index]
+        if mode == "full":
+            packed = (None if dev.type == "cpu"
+                      else _w8a8_packs(qbody, dev)[name].block(i))
+            return rdb_w8a8(out.contiguous(), q, mask_k, packed)
+        if r.packed_dtype != dtype:
+            raise RuntimeError(f"RDB weights packed for {r.packed_dtype}, "
+                               f"model is {dtype}: call RRDBNet.pack()")
+        return rdb_i8(out.contiguous(), r.w_packed, r.b_packed,
+                      q["wx8"].to(dev), q["deq"].to(dev).contiguous(),
+                      qms[name][i], mask_k)
+
+    return rdb_fn
+
+
 def rrdbnet_apply_int8(model: RRDBNet, qbody: dict, x: torch.Tensor,
                        up_sub_batch: int | None = None,
                        mask: torch.Tensor | None = None,
@@ -255,31 +271,8 @@ def rrdbnet_apply_int8(model: RRDBNet, qbody: dict, x: torch.Tensor,
     float model's, which must be packed. ``mode`` must match the one
     ``qbody`` was built with. The model is not changed.
 
-    "mixed" runs every RDB in :func:`~..ops.rdb.rdb_i8`: the kernel on
-    the card. "full" has a plain version only and raises on a CUDA
-    tensor."""
-    if mode not in ("mixed", "full"):
-        raise ValueError(f"unknown int8 mode {mode!r}")
-    if mode == "full" and x.device.type == "cuda":
-        raise NotImplementedError(
-            "full W8A8 on the card is not ported yet (ROADMAP queue 1 "
-            "item 19); it has a plain version on the CPU")
-    dtype = model.dtype
-    rdbs = [r for _, _, r in _rdbs(model)]
-    per_rdb = [{k: (tuple(t[i] for t in v) if isinstance(v, tuple) else v[i])
-                for k, v in qbody[name].items()} for i, name, _ in _rdbs(model)]
-
-    def rdb_fn(index, out, mask_k):
-        q = per_rdb[index]
-        if mode == "full":
-            mk = None if mask_k is None else mask_k[..., None].to(dtype)
-            return _rdb_packed_i8(out, q, dtype, mk)
-        r, dev = rdbs[index], out.device
-        if r.packed_dtype != dtype:
-            raise RuntimeError(f"RDB weights packed for {r.packed_dtype}, "
-                               f"model is {dtype}: call RRDBNet.pack()")
-        return rdb_i8(out.contiguous(), r.w_packed, r.b_packed,
-                      q["wx8"].to(dev), q["deq"].to(dev).contiguous(),
-                      float(q["qm"]), mask_k)
-
-    return model(x, mask=mask, up_sub_batch=up_sub_batch, rdb_fn=rdb_fn)
+    "mixed" runs every RDB in :func:`~..ops.rdb.rdb_i8`, "full" in
+    :func:`~..ops.rdb.rdb_w8a8`: on the card their kernels (``rdb_w8a8``
+    takes bfloat16 only), on the CPU their plain versions."""
+    return model(x, mask=mask, up_sub_batch=up_sub_batch,
+                 rdb_fn=int8_rdb_fn(model, qbody, mode))

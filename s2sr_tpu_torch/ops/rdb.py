@@ -24,6 +24,15 @@ kernel refused).
   on a CPU tensor :func:`rdb_i8_reference`; :data:`LAUNCHES_I8` counts its
   launches, and :func:`pack_rdb_i8_fragments` lays the int8 x conv out as
   that kernel's B fragments.
+- :func:`rdb_w8a8` is the block in full W8A8 (every conv input quantized,
+  all five convs int8: ``rrdbnet_int8.py::_rdb_packed_i8``): on a CUDA
+  tensor ``rdb_w8a8_kernel``, on a CPU tensor
+  :func:`rdb_w8a8_reference`; :data:`LAUNCHES_W8A8` counts its launches,
+  and :func:`pack_rdb_w8a8` lays one quantized block (or a stack of
+  them) out as that kernel's operands, once.
+- :func:`prefix_kernels` is the packed prefix layout of the five convs
+  (``rrdbnet.py::packed_prefix_kernels``), which every plain version here
+  and the int8 quantizer read.
 
 Weights travel packed: :func:`pack_rdb_weights` rounds the five conv
 kernels and biases to the compute dtype (as the reference casts them)
@@ -33,6 +42,7 @@ and stores them as float32, kernels HWIO-flattened and concatenated.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +51,7 @@ NF = 64
 G = 32
 LAUNCHES = 0
 LAUNCHES_I8 = 0
+LAUNCHES_W8A8 = 0
 # columns of the packed 64 → 192 x conv, [a5|a4|a3|a2|a1]
 WX_COLS = NF + 4 * G
 
@@ -55,6 +66,26 @@ def check_kernel_shapes(kernels) -> None:
         if tuple(kernels[k].shape) != (cout, cin, 3, 3):
             raise ValueError(f"conv{k + 1} kernel has shape "
                              f"{tuple(kernels[k].shape)}, want {(cout, cin, 3, 3)}")
+
+
+def prefix_kernels(kernels, cin_dim: int = -2, cout_dim: int = -1) -> tuple:
+    """The five per-source kernels of the packed prefix layout, from the
+    five conv kernels of one RDB (``conv1`` .. ``conv5``, any width, input
+    channels on ``cin_dim`` and output channels on ``cout_dim``: HWIO by
+    default, ``(1, 0)`` for OIHW).
+
+    Source j (x, then x1..x4) gets the slices of conv5 .. conv(j+1) that
+    read it, concatenated over output channels in that order, so the
+    accumulator reads ``[a5|a4|a3|a2|a1]`` and each stage consumes a
+    G-lane tail: ``(wx, w1, w2, w3, w4)`` with ``wx`` 64 → 192 at the
+    kernel's widths. The counterpart of
+    ``s2sr_tpu/models/rrdbnet.py::packed_prefix_kernels``."""
+    nf = kernels[0].shape[cin_dim]               # conv1 sees only x
+    g = kernels[0].shape[cout_dim]
+    srcs = [(0, nf)] + [(nf + (j - 1) * g, g) for j in range(1, 5)]
+    return tuple(torch.cat([kernels[k - 1].narrow(cin_dim, lo, n)
+                            for k in range(5, j, -1)], cout_dim)
+                 for j, (lo, n) in enumerate(srcs))
 
 
 def pack_rdb_weights(kernels, biases, dtype: torch.dtype):
@@ -162,15 +193,39 @@ def quant_i8(x: torch.Tensor, qm) -> torch.Tensor:
     return torch.round(x.float() * qm).clamp_(-127, 127)
 
 
+def conv_i8_gemm(x8: torch.Tensor, wx8: torch.Tensor) -> torch.Tensor:
+    """The int8 conv as an int8 GEMM with int32 sums (``torch._int_mm``):
+    NCHW integer-valued ``x8`` gathered to ``(pixels, 9·Cin)`` int8 rows
+    (tap-major, the zero border of SAME padding included) against the
+    OIHW ``wx8`` as ``(9·Cin, Cout)`` int8 → NCHW int32. Rows are padded
+    to at least 32 for the GEMM's shape rule and sliced back."""
+    b, cin, h, w = x8.shape
+    xp = F.pad(x8.to(torch.int8).permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))
+    rows = torch.cat([xp[:, dy:dy + h, dx:dx + w]
+                      for dy in range(3) for dx in range(3)], -1)
+    rows = rows.reshape(b * h * w, 9 * cin)
+    n = rows.shape[0]
+    if n < 32:
+        rows = torch.cat([rows, rows.new_zeros(32 - n, 9 * cin)])
+    wmat = wx8.to(torch.int8).permute(2, 3, 1, 0).reshape(9 * cin, -1)
+    out = torch._int_mm(rows.contiguous(), wmat.contiguous())[:n]
+    return out.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+
+
 def conv_i8_int(x8: torch.Tensor, wx8: torch.Tensor) -> torch.Tensor:
     """The int8 conv's exact int32-valued sums, as float32: NCHW
-    integer-valued ``x8`` with OIHW ``wx8``. Every partial sum is an
-    integer with |sum| ≤ 127²·576 < 2²⁴, so float32 adds it exactly in
-    any order; TF32 is kept off."""
+    integer-valued ``x8`` with OIHW ``wx8``. On a CUDA tensor an int8 GEMM
+    on the tensor cores (:func:`conv_i8_gemm`, XLA's int8 conv in the JAX
+    package); on the CPU a float32 conv of the integer values: every
+    partial sum is an integer with |sum| ≤ 127²·576 < 2²⁴, so float32
+    adds it exactly in any order (TF32 kept off). Both are exact, so they
+    agree bit for bit."""
     from ..utils.precision import ieee_fp32
 
+    if x8.device.type == "cuda":
+        return conv_i8_gemm(x8, wx8).float()
     with ieee_fp32():
-        return F.conv2d(x8, wx8.float(), padding=1)
+        return F.conv2d(x8.float(), wx8.float(), padding=1)
 
 
 def _mask_nchw(mask, x):
@@ -202,18 +257,10 @@ def rdb_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     def lrelu(t):
         return torch.where(t >= 0, t, t * slope)
 
-    def sl(k, lo, hi):
-        return ks[k - 1][:, lo:hi]
-
     def conv(t, kernel):
         return F.conv2d(t, kernel, padding=1)
 
-    wx = torch.cat([sl(k, 0, NF) for k in (5, 4, 3, 2, 1)], 0)
-    w1 = torch.cat([sl(k, NF, NF + G) for k in (5, 4, 3, 2)], 0)
-    w2 = torch.cat([sl(k, NF + G, NF + 2 * G) for k in (5, 4, 3)], 0)
-    w3 = torch.cat([sl(k, NF + 2 * G, NF + 3 * G) for k in (5, 4)], 0)
-    w4 = sl(5, NF + 3 * G, NF + 4 * G)
-
+    wx, w1, w2, w3, w4 = prefix_kernels(ks, 1, 0)
     acc = conv(xc, wx)                                   # [a5|a4|a3|a2|a1]
     x1 = m(lrelu(acc[:, -G:] + bs[0]))
     acc = acc[:, :-G] + conv(x1, w1)                     # [a5|a4|a3|a2]
@@ -252,18 +299,12 @@ def rdb_i8_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     def lrelu(t):
         return torch.where(t >= 0, t, t * slope)
 
-    def sl(k, lo, hi):
-        return ks[k - 1][:, lo:hi]
-
     def conv(t, kernel):
         return F.conv2d(t, kernel, padding=1)
 
     prod = conv_i8_int(quant_i8(xc, qm), wx8.permute(3, 2, 0, 1))  # OIHW
     acc = (prod * deq.float().view(1, -1, 1, 1)).to(dtype)   # [a5|..|a1]
-    w1 = torch.cat([sl(k, NF, NF + G) for k in (5, 4, 3, 2)], 0)
-    w2 = torch.cat([sl(k, NF + G, NF + 2 * G) for k in (5, 4, 3)], 0)
-    w3 = torch.cat([sl(k, NF + 2 * G, NF + 3 * G) for k in (5, 4)], 0)
-    w4 = sl(5, NF + 3 * G, NF + 4 * G)
+    _, w1, w2, w3, w4 = prefix_kernels(ks, 1, 0)
     x1 = m(lrelu(acc[:, -G:] + bs[0]))
     acc = acc[:, :-G] + conv(x1, w1)
     x2 = m(lrelu(acc[:, -G:] + bs[1]))
@@ -274,6 +315,48 @@ def rdb_i8_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     x5 = acc[:, :-G] + conv(x4, w4) + bs[4]
     out = m(x5 * slope + xc)
     return out.permute(0, 2, 3, 1).contiguous()
+
+
+def rdb_w8a8_reference(x: torch.Tensor, qp: dict,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the full-W8A8 block (``_rdb_packed_i8`` of
+    the JAX package), (B, H, W, 64) → same, in ``x.dtype``.
+
+    ``qp``: one RDB of ``rrdbnet_int8.quantize_body`` on ``x``'s device:
+    ``w8`` the five int8 packed HWIO kernels (:func:`prefix_kernels`),
+    ``deq`` their dequantization factors, ``qm`` (5,) the inverse
+    activation scales of x, x1..x4, ``b`` the five float32 biases.
+    ``mask``: None or 0/1 of shape (B, H, W) or (B, H, W, 1).
+
+    As in JAX, per stage: the int8 conv's exact sums (:func:`conv_i8_int`)
+    times ``deq`` in float32, rounded to ``x.dtype``; the prefix
+    accumulator in ``x.dtype``; bias, LeakyReLU and the mask, then the
+    quantization of x1..x4; ``x5 = (acc + conv) + bias``; ``out =
+    m(x5·0.2 + x)``."""
+    dtype = x.dtype
+    w8, deq, qm, b = qp["w8"], qp["deq"], qp["qm"], qp["b"]
+    g = w8[4].shape[2]
+    mk = None if mask is None else mask.reshape(*x.shape[:3], 1).to(dtype)
+    slope = torch.tensor(0.2, dtype=dtype, device=x.device)
+
+    def m(t):
+        return t if mk is None else t * mk
+
+    def lrelu(t):
+        return torch.where(t >= 0, t, t * slope)
+
+    def conv(t, k):
+        # the int8 values of NHWC t with source k's kernel, dequantized
+        out = conv_i8_int(quant_i8(t, qm[k]).permute(0, 3, 1, 2),
+                          w8[k].permute(3, 2, 0, 1))
+        return (out.permute(0, 2, 3, 1) * deq[k].float()).to(dtype)
+
+    acc = conv(x, 0)                                     # [a5|a4|a3|a2|a1]
+    for k in range(1, 5):
+        xk = m(lrelu(acc[..., -g:] + b[k - 1].to(dtype)))
+        acc = acc[..., :-g] + conv(xk, k)
+    x5 = acc + b[4].to(dtype)
+    return m(x5 * slope + x)
 
 
 def _lib():
@@ -290,8 +373,13 @@ def _lib():
                                             ctypes.c_float, ctypes.c_int,
                                             ctypes.c_int, ctypes.c_int, vp]
         lib.s2sr_rdb_i8_forward.restype = ctypes.c_int
-        lib.s2sr_rdb_i8_smem_bytes.argtypes = []
-        lib.s2sr_rdb_i8_smem_bytes.restype = ctypes.c_longlong
+        lib.s2sr_rdb_w8a8_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                              ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_int, vp]
+        lib.s2sr_rdb_w8a8_forward.restype = ctypes.c_int
+        for name in ("s2sr_rdb_i8_smem_bytes", "s2sr_rdb_w8a8_smem_bytes"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_longlong
         lib.s2sr_rdb_tile.argtypes = [ctypes.c_int]
         lib.s2sr_rdb_tile.restype = ctypes.c_int
         for name in ("s2sr_rdb_smem_bytes", "s2sr_rdb_macs_per_tile"):
@@ -312,18 +400,22 @@ def kernel_tiling(dtype: torch.dtype) -> dict:
 
 
 def _check(x, w, b, mask):
-    if x.dim() != 4 or x.shape[-1] != NF:
-        raise ValueError(f"rdb wants (B, H, W, {NF}), got {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"rdb supports float32/bfloat16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("rdb wants a contiguous NHWC tensor")
+    _check_x(x, mask)
     n_w = sum(9 * ci * co for ci, co in zip(_CIN, _COUT))
     for name, t, n in (("w", w, n_w), ("b", b, sum(_COUT))):
         if (t.device != x.device or t.dtype != torch.float32
                 or t.dim() != 1 or t.numel() != n or not t.is_contiguous()):
             raise ValueError(f"rdb packed {name} must be a contiguous float32 "
                              f"vector of {n} on {x.device}")
+
+
+def _check_x(x, mask):
+    if x.dim() != 4 or x.shape[-1] != NF:
+        raise ValueError(f"rdb wants (B, H, W, {NF}), got {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"rdb supports float32/bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("rdb wants a contiguous NHWC tensor")
     if mask is not None:
         bsz, h, wd, _ = x.shape
         if (mask.device != x.device or mask.dtype != torch.float32
@@ -417,4 +509,146 @@ def rdb_i8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"rdb_i8 kernel launch failed: CUDA error {rc}")
     LAUNCHES_I8 += 1
+    return out
+
+
+# --- full W8A8 ---------------------------------------------------------------
+
+# input channels of source j's packed int8 kernel (x, then x1..x4)
+_W8_CIN = (NF, G, G, G, G)
+
+
+def _w8_cols(j: int) -> int:
+    """Output columns of source j's packed kernel: ``[a5|..|a(j+1)]``."""
+    return WX_COLS - j * G
+
+
+def _stage_col(s: int) -> int:
+    """Column of stage s's output channel 0 in every source's packed
+    kernel (the columns run a5, a4, .. in each)."""
+    return 0 if s == 5 else NF + (4 - s) * G
+
+
+def fragment_index_w8a8(device=None) -> torch.Tensor:
+    """Indices into the five int8 packed kernels (``w8``, HWIO, flattened
+    and concatenated in source order) that put them in the full-W8A8
+    kernel's B fragments (``csrc/rdb.cu``, ``rdb_w8a8_kernel``).
+
+    Stage s reads from each source j < s the columns of its own output
+    channels (:func:`_stage_col`, the same in every source's kernel); the
+    source's matrix has rows (tap, channel), 9·Cin_j / 32 k32 slabs (18
+    for x, 9 for x1..x4), each laid out as ``mma.m16n8k32``'s s8 B
+    fragments, ``[slab][Cout/16][lane][16]`` (lane ``4g + t``, byte
+    ``8h + 4a + e``: row 16a + 4t + e of column 8h + g). Sources follow
+    one another within a stage, and the stages follow one another: every
+    weight appears once."""
+    key = str(device)
+    if key not in _FRAG_INDEX_W8A8:
+        offs, off = [], 0
+        for j, cin in enumerate(_W8_CIN):
+            offs.append(off)
+            off += 9 * cin * _w8_cols(j)
+        parts = []
+        for s, cout in enumerate(_COUT, start=1):
+            col = _stage_col(s)
+            for j in range(s):
+                cin, cols = _W8_CIN[j], _w8_cols(j)
+                flat = torch.arange(9 * cin * cols).view(9 * cin, cols) + offs[j]
+                mat = flat[:, col:col + cout]
+                parts.append(mat.reshape(9 * cin // 32, 2, 4, 4, cout // 16, 2, 8)
+                             .permute(0, 4, 6, 2, 5, 1, 3).reshape(-1))
+        _FRAG_INDEX_W8A8[key] = torch.cat(parts).to(device)
+    return _FRAG_INDEX_W8A8[key]
+
+
+_FRAG_INDEX_W8A8: dict = {}
+
+
+class W8A8Weights(NamedTuple):
+    """One quantized block's operands of ``rdb_w8a8_kernel``, or a stack
+    of them on leading axes (:meth:`block` takes one)."""
+
+    wq: torch.Tensor     # int8 B fragments (:func:`fragment_index_w8a8`)
+    deq: torch.Tensor    # float32 (640,): x's 192, x1's 160, .. x4's 64
+    qm: torch.Tensor     # float32 (5,): x's, then x1..x4's
+    b: torch.Tensor      # float32 (192,): conv1..conv5's biases
+
+    def block(self, i) -> "W8A8Weights":
+        return W8A8Weights(*(t[i] for t in self))
+
+
+def pack_rdb_w8a8(qp: dict) -> W8A8Weights:
+    """One RDB of ``rrdbnet_int8.quantize_body`` (``w8``, ``deq``, ``qm``,
+    ``b``), or a stack of them on leading axes (a quantized body's
+    ``rdbJ``), as the full-W8A8 kernel's operands on the same device:
+    the fragment gather runs once here, not per launch."""
+    w8 = qp["w8"]
+    lead = tuple(w8[0].shape[:-4])
+    for j, w in enumerate(w8):
+        want = (*lead, 3, 3, _W8_CIN[j], _w8_cols(j))
+        if tuple(w.shape) != want or w.dtype != torch.int8:
+            raise ValueError(f"w8[{j}] must be int8 {want}, got {w.dtype} "
+                             f"{tuple(w.shape)}")
+    flat = torch.cat([w.reshape(*lead, -1) for w in w8], -1)
+    wq = flat[..., fragment_index_w8a8(flat.device)]
+    return W8A8Weights(
+        wq.contiguous(),
+        torch.cat([d.float() for d in qp["deq"]], -1).contiguous(),
+        qp["qm"].float().contiguous(),
+        torch.cat([t.float() for t in qp["b"]], -1).contiguous())
+
+
+def kernel_tiling_w8a8() -> dict:
+    """:func:`kernel_tiling` of the full-W8A8 kernel: its tile and work are
+    the bf16 kernel's, its shared memory holds x and x1..x4 in int8."""
+    return {**kernel_tiling(torch.bfloat16),
+            "smem_bytes": int(_lib().s2sr_rdb_w8a8_smem_bytes())}
+
+
+def rdb_w8a8(x: torch.Tensor, qp: dict | None,
+             mask: torch.Tensor | None = None,
+             packed: W8A8Weights | None = None) -> torch.Tensor:
+    """One residual dense block in full W8A8, (B, H, W, 64) → same, in
+    ``x.dtype``.
+
+    ``qp``: one RDB of ``rrdbnet_int8.quantize_body``; ``packed``: its
+    :func:`pack_rdb_w8a8` on ``x``'s device, packed once by the caller;
+    ``mask``: None or float32 0/1 of shape (B, H, W) or (B, H, W, 1). CPU
+    tensors run :func:`rdb_w8a8_reference` on ``qp``; CUDA tensors launch
+    ``rdb_w8a8_kernel`` on ``packed`` or raise (it takes bfloat16
+    only)."""
+    global LAUNCHES_W8A8
+    if x.device.type == "cpu":
+        return rdb_w8a8_reference(x, qp, mask)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"rdb_w8a8: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"rdb_w8a8's kernel takes bfloat16, got {x.dtype}")
+    _check_x(x, mask)
+    if packed is None:
+        raise ValueError("rdb_w8a8 on the card takes its operands packed: "
+                         "pass packed=pack_rdb_w8a8(qp)")
+    n_wq = fragment_index_w8a8().numel()
+    for name, t, dt, n in (("wq", packed.wq, torch.int8, n_wq),
+                           ("deq", packed.deq, torch.float32, 640),
+                           ("qm", packed.qm, torch.float32, 5),
+                           ("b", packed.b, torch.float32, sum(_COUT))):
+        if (t.device != x.device or t.dtype != dt or t.dim() != 1
+                or t.numel() != n or not t.is_contiguous()):
+            raise ValueError(f"rdb_w8a8 packed {name} must be a contiguous "
+                             f"{dt} vector of {n} on {x.device}")
+    bsz, h, wd, _ = x.shape
+    out = torch.empty_like(x)
+    if bsz * h * wd == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.s2sr_rdb_w8a8_forward(
+            x.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), packed.wq.data_ptr(), packed.deq.data_ptr(),
+            packed.qm.data_ptr(), packed.b.data_ptr(), bsz, h, wd, stream)
+    if rc != 0:
+        raise RuntimeError(f"rdb_w8a8 kernel launch failed: CUDA error {rc}")
+    LAUNCHES_W8A8 += 1
     return out

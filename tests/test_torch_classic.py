@@ -24,6 +24,7 @@ from s2sr_tpu_torch.models.weights import params_from_jax_classic
 from test_graph_executor import (GB, _edsr_wired_graph, _k,
                                  _lapsrn_wired_graph)
 from test_pb_reader import _edsr_graph, _lapsrn_graph, const_node
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = 1e-5          # of max |out|
 BF16_TOL = 0.05         # EDSR bf16, of max |out|

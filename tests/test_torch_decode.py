@@ -27,6 +27,7 @@ from PIL import Image
 from s2sr_tpu_torch.pipelines.io import decode_upload, load_rgb
 from s2sr_tpu_torch.tiles.jpeg import decode_jpeg
 from s2sr_tpu_torch.tiles.png import decode_png, encode_png
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURES = Path(__file__).parent / "fixtures_torch"
 

@@ -20,6 +20,7 @@ from PIL import Image
 from s2sr_tpu_torch.pipelines.io import decode_upload, load_rgb
 
 from test_torch_decode import photo, pil_rgb
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _same_as_pil(data: bytes) -> None:

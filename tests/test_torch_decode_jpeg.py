@@ -26,6 +26,7 @@ from s2sr_tpu_torch.tiles.jpeg import decode_jpeg
 from s2sr_tpu_torch.tiles.jpeg_arith import ARITAB
 
 from test_torch_decode import _dct_blocks, own_jpeg, photo, pil_jpeg, pil_rgb
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # --- an arithmetic-coding encoder (jcarith.c) ----------------------------------

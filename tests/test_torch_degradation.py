@@ -22,19 +22,10 @@ from s2sr_tpu_torch.ops.resize import resize_jax
 from s2sr_tpu_torch.training import degradation as pd
 from s2sr_tpu_torch.training import train as pt
 from test_torch_train_ops import _near_half_blocks
+from torch_threads import one_torch_thread  # noqa: F401
 
 SCALE, HR = 4, 64
 CFG_J, CFG_P = jd.DegradationConfig(), pd.DegradationConfig()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: as fast at these tiny shapes, and no
-    oversubscribed cores when the suite runs in parallel workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # --- JAX's draws, by its split tree -------------------------------------

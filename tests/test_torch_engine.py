@@ -20,6 +20,7 @@ from s2sr_tpu.models import registry as jax_registry
 from s2sr_tpu.models.weights import save_params
 from s2sr_tpu_torch.models import engine as engine_mod
 from s2sr_tpu_torch.models import registry
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = {"family": "rrdbnet", "scale": 4, "channels": 64, "blocks": 1,
         "growth": 32, "num_in_ch": 3, "description": "test"}

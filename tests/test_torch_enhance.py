@@ -28,6 +28,7 @@ from s2sr_tpu_torch.ops import blur as tb
 from s2sr_tpu_torch.ops import clahe as tcl
 from s2sr_tpu_torch.ops import color as tc
 from s2sr_tpu_torch.ops import enhance as te
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def rand_u8(shape, seed):

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("pkg", ["ops", "models", "parallel", "training"])

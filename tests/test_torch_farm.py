@@ -33,6 +33,7 @@ from s2sr_tpu_torch.pipelines.farm_sr import process_farm_sr
 from s2sr_tpu_torch.tiles.png import decode_png
 
 from test_torch_engine import TINY, jax_tree_one_block
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def rand_u8(shape, seed):

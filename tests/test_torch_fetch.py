@@ -57,6 +57,7 @@ from s2sr_tpu_torch.geo.crs import lonlat_to_utm
 from s2sr_tpu_torch.tiles.png import decode_png
 
 from test_torch_tiles import assert_bytes_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 AOI_BOUNDS = (35.01, 32.01, 35.03, 32.03)        # ~1.9 × 2.2 km
 W, S, E, N = AOI_BOUNDS

@@ -19,21 +19,12 @@ from s2sr_tpu_torch.models.weights import train_state_from_jax, tree_flatten
 from s2sr_tpu_torch.training import gan as pg
 from s2sr_tpu_torch.training import train as pt
 from test_torch_train import jax_draws, jax_state, max_diff, np_tree, rel
+from torch_threads import one_torch_thread  # noqa: F401
 
 RRDB = dict(num_feat=16, num_block=2, num_grow_ch=8, scale=2,
             dtype="float32", learning_rate=1e-3, lr_decay_steps=4,
             ema_decay=0.9)
 METRICS = ("g_loss", "d_loss", "pixel", "adv")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: as fast at these tiny shapes, and no
-    oversubscribed cores when the suite runs in parallel workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def leaf_rel(jtree, ptree) -> dict:

@@ -11,6 +11,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "s2sr_tpu_torch"

@@ -30,6 +30,7 @@ from s2sr_tpu_torch.ops import rdb as rdb_mod
 
 from test_torch_engine import TINY, jax_tree_one_block
 from test_torch_rdb import _swz, _unpack_b_slabs, torch_weights
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def unscaled_tree(seed: int):

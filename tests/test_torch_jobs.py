@@ -18,6 +18,7 @@ from s2sr_tpu.server import jobs as jax_jobs
 from s2sr_tpu.server import persistence as jax_persistence
 from s2sr_tpu_torch.server import jobs
 from s2sr_tpu_torch.server.persistence import DurableJobStore
+from torch_threads import one_torch_thread  # noqa: F401
 
 WAIT = 10.0
 

@@ -32,6 +32,7 @@ from jax.experimental import pallas as pl
 from s2sr_tpu_torch.bench import mxu as bench
 from s2sr_tpu_torch.bench import peak as peak_bench
 from s2sr_tpu_torch.ops import matmul_chain as mc
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 M, MT = 96, 48

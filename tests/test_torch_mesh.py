@@ -33,6 +33,7 @@ from s2sr_tpu_torch.training import train as pt
 from test_tiling import mock_model_jax
 from test_torch_engine import TINY, assert_bytes_close, jax_tree_one_block
 from test_torch_swinir import DEPTHS, DIM, HEADS, WIN, jax_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_build_mesh_and_shardings_match_jax():

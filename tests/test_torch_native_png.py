@@ -20,6 +20,7 @@ from s2sr_tpu.tiles import png as jpng
 from s2sr_tpu_torch import native
 from s2sr_tpu_torch.ops import _build
 from s2sr_tpu_torch.tiles import png
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(256, 256, 4), (17, 23, 3), (9, 6), (8, 5, 2), (1, 1, 4),
           (300, 7, 3)]

@@ -24,6 +24,7 @@ from s2sr_tpu_torch.decode import service as p_service
 from s2sr_tpu_torch.pipelines.io import decode_upload
 
 from test_ocr import FONT_BOLD, FONT_MONO, render
+from torch_threads import one_torch_thread  # noqa: F401
 
 CONF_TOL = 1e-6
 FIXTURES = Path(__file__).parent / "fixtures_torch"

@@ -34,6 +34,7 @@ from s2sr_tpu_torch.training import train as pt
 
 from test_torch_train import max_diff, np_tree, rel
 from torch_mesh_ranks import launch_async, pp_tp_program
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEP = dict(num_feat=16, num_grow_ch=8, scale=2, dtype="float32")
 

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from s2sr_tpu_torch.models import rrdbnet, swinir
 from s2sr_tpu_torch.utils.precision import ieee_fp32
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _model(family: str, dtype):

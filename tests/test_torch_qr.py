@@ -33,6 +33,7 @@ from s2sr_tpu_torch.decode import qr_decode as p_qr
 from s2sr_tpu_torch.decode import qr_encode as p_enc
 from s2sr_tpu_torch.decode import qr_tables as p_tables
 from s2sr_tpu_torch.decode import serial as p_serial
+from torch_threads import one_torch_thread  # noqa: F401
 
 PAYLOAD = "KBTX1234567890123"
 LOCATION_TOL = 1e-6

@@ -16,6 +16,7 @@ from s2sr_tpu.models.rrdbnet import _rdb_packed
 from s2sr_tpu_torch.ops import rdb as rdb_mod
 from s2sr_tpu_torch.ops.rdb import (pack_rdb_weights, rdb, rdb_reference,
                                     unpack_rdb_weights)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ import torch
 
 from s2sr_tpu_torch.ops import rdb_ladder as lad
 from s2sr_tpu_torch.ops.matmul_chain import pack_wgmma
+from torch_threads import one_torch_thread  # noqa: F401
 
 NF, G, LANES = 64, 32, 128
 WGS, THREADS = 2, 256

@@ -14,6 +14,7 @@ from s2sr_tpu.models.weights import convert_rrdbnet_state_dict as jax_convert
 from s2sr_tpu_torch.models.rrdbnet import RRDBNet
 from s2sr_tpu_torch.models.weights import (convert_rrdbnet_state_dict,
                                            init_state_dict, params_from_jax)
+from torch_threads import one_torch_thread  # noqa: F401
 
 NF, GC, NB = 64, 32, 2    # the kernel's widths, two RRDB blocks
 

@@ -49,6 +49,7 @@ from s2sr_tpu_torch.utils import write_json
 from s2sr_tpu_torch.utils import validation
 
 from test_torch_engine import TINY, jax_tree_one_block
+from torch_threads import one_torch_thread  # noqa: F401
 
 def call(app, method, path, json_body=None, body=b"", headers=None,
          run_background=True):

@@ -55,6 +55,7 @@ from test_torch_gan import METRICS, RRDB, assert_disc_close, gan_states, \
 from test_torch_mesh import _image, tiny  # noqa: F401  (fixture)
 from test_torch_train import jax_state, max_diff, np_tree, rel
 from torch_mesh_ranks import launch_async, sp_program
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(num_feat=8, num_block=1, num_grow_ch=4, scale=2,
             dtype="float32", learning_rate=1e-3)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from s2sr_tpu_torch.models.weights import init_state_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

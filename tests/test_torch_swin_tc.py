@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from s2sr_tpu_torch.ops import window_attention as wa
+from torch_threads import one_torch_thread  # noqa: F401
 
 C, HEADS, DP, WIN, N = 180, 6, 32, 8, 64
 CP, HP, QKV_N = 192, 384, 576

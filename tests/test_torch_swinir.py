@@ -18,6 +18,7 @@ from s2sr_tpu_torch.models.weights import (
     params_from_jax_swinir,
     resolve_params,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIM, DEPTHS, HEADS, WIN, NF = 12, (2, 2), (2, 2), 4, 64
 KW = dict(embed_dim=DIM, depths=DEPTHS, num_heads=HEADS, window_size=WIN,

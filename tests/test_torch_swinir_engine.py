@@ -19,6 +19,7 @@ from s2sr_tpu_torch.pipelines import wow_sr
 
 from test_torch_engine import assert_bytes_close
 from test_torch_swinir import DEPTHS, DIM, HEADS, WIN, jax_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = {"family": "swinir", "scale": 2, "embed_dim": DIM, "depths": DEPTHS,
         "num_heads": HEADS, "window_size": WIN, "description": "test"}

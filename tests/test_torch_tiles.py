@@ -44,6 +44,7 @@ from s2sr_tpu_torch.tiles import mercator as tm
 from s2sr_tpu_torch.tiles import pyramid as tp
 from s2sr_tpu_torch.tiles import tiling as tt
 from s2sr_tpu_torch.tiles.png import decode_png
+from torch_threads import one_torch_thread  # noqa: F401
 
 FLOAT_TOL = 0.01          # warped values vs jitted JAX, 0-255 scale
 BYTE_SHARE = 5e-4         # share of uint8 values allowed to differ by 1

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 
 from s2sr_tpu.parallel import tiling as jt
 from s2sr_tpu_torch.parallel import tiling as tt
+from torch_threads import one_torch_thread  # noqa: F401
 
 PLANS = [(100, 80, 32, 4, 4), (256, 256, 64, 10, 4), (70, 200, 32, 8, 2),
          (33, 33, 32, 4, 4), (600, 450, 256, 4, 4)]

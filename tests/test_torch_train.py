@@ -27,6 +27,7 @@ from s2sr_tpu_torch.models.weights import (
 )
 from s2sr_tpu_torch.training import train as pt
 from s2sr_tpu_torch.training.checkpoint import CheckpointManager
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(num_feat=8, num_block=1, num_grow_ch=4, scale=2,
             dtype="float32", learning_rate=1e-3)

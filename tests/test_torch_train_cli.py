@@ -10,6 +10,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 TINY = ["--device", "cpu", "--blocks", "1",

@@ -13,6 +13,7 @@ import torch
 
 from s2sr_tpu.training import data as jdata
 from s2sr_tpu_torch.training import data as pdata
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def scenes(n=3, side=40, seed=0):

@@ -16,20 +16,11 @@ import torch
 
 from s2sr_tpu_torch.cli import train_demo
 from s2sr_tpu_torch.training.checkpoint import CheckpointManager
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = ["--cpu", "--batch", "2", "--crop", "16", "--feat", "8", "--blocks",
         "1", "--grow", "4", "--pool", "2", "--eval-size", "16",
         "--eval-scenes", "1"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: as fast at these tiny shapes, and no
-    oversubscribed cores when the suite runs in parallel workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def jax_report_keys() -> dict:

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from s2sr_tpu_torch.models.weights import (tree_flatten, tree_to_torch,
                                            tree_unflatten)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_gaussian_blur_matches_jax():

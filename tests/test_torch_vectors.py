@@ -39,6 +39,7 @@ from s2sr_tpu_torch.vectors import geometry as tgeo
 from s2sr_tpu_torch.vectors import ops as tops
 from s2sr_tpu_torch.vectors.extraction import extract_field_polygons
 from s2sr_tpu_torch.vectors.synthetic import planted_field_rgb, write_planted_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 64
 

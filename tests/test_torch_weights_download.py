@@ -19,6 +19,7 @@ from s2sr_tpu.models import registry as jreg
 from s2sr_tpu.models import weights as jweights
 from s2sr_tpu_torch.models import registry as preg
 from s2sr_tpu_torch.models import weights as pweights
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAME = "tiny_download_x4"
 ENTRY = {"family": "rrdbnet", "scale": 4, "channels": 64, "blocks": 1,

@@ -22,6 +22,7 @@ from s2sr_tpu.ops.pallas.window_attention import (
     window_attention_fused,
 )
 from s2sr_tpu_torch.ops import window_attention as wa
+from torch_threads import one_torch_thread  # noqa: F401
 
 C, HEADS, WIN, HIDDEN = 180, 6, 8, 360
 

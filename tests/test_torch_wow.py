@@ -18,6 +18,7 @@ from s2sr_tpu_torch.pipelines.wow_sr import process_wow_sr
 from s2sr_tpu_torch.tiles.png import decode_png
 
 from test_torch_engine import TINY, jax_tree_one_block
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
