@@ -197,12 +197,12 @@ def time_cuda(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def rdb_inputs(shape, dtype, masked_hw=None, seed=0):
+def rdb_inputs(shape, dtype, masked_hw=None, seed=0, weight_scale=10):
     """Input, packed weights and mask for one RDB on the card. Weights
-    are the model's init ×10, i.e. plain Kaiming without the 0.1 residual
-    scaling, so x1..x4 move the output by O(0.1) and a kernel that drops
-    one of them shows; biases are nonzero, and x spans both signs so both
-    LeakyReLU branches run."""
+    are the model's init ×``weight_scale``: ×10 is plain Kaiming without
+    the 0.1 residual scaling, so x1..x4 move the output by O(0.1) and a
+    kernel that drops one of them shows; biases are nonzero, and x spans
+    both signs so both LeakyReLU branches run."""
     import torch
 
     from s2sr_tpu_torch.models.weights import init_state_dict
@@ -210,7 +210,8 @@ def rdb_inputs(shape, dtype, masked_hw=None, seed=0):
 
     g = torch.Generator().manual_seed(seed)
     sd = init_state_dict(num_block=1, seed=seed)
-    kernels = [sd[f"body.0.rdb1.conv{k}.weight"] * 10 for k in range(1, 6)]
+    kernels = [sd[f"body.0.rdb1.conv{k}.weight"] * weight_scale
+               for k in range(1, 6)]
     biases = [torch.randn(sd[f"body.0.rdb1.conv{k}.bias"].shape,
                           generator=g) * 0.05 for k in range(1, 6)]
     w, b = pack_rdb_weights(kernels, biases, dtype)
@@ -286,6 +287,7 @@ def phase_build(state):
     # the tensor-core kernels, one line each: registers and spills
     for name, pattern in (("rdb", "rdb_tc_kernel"), ("rdb", "rdb_i8_kernel"),
                           ("rdb", "rdb_w8a8_kernel"),
+                          ("rdb", "rdb_tc_ablate_kernel"),
                           ("matmul_chain", "wg_chain_kernel"),
                           ("window_attention", "swin_tc_kernel"),
                           ("rdb_ladder_tc", "_tc_kernel")):
@@ -640,6 +642,10 @@ def hold_w8a8_against_plain(state) -> None:
     state["rdb_w8a8_max_abs_err"], state["rdb_w8a8_rel_err"] = worst
 
 
+# the served bf16 kernel's mangled name holds its identifier length-prefixed
+SERVED_TC = "13rdb_tc_kernelE"
+
+
 @ieee_phase
 def phase_kernel(state):
     import torch
@@ -656,9 +662,12 @@ def phase_kernel(state):
     t0 = time.perf_counter()
     sass = sass_counts(_build.lib_path("rdb"))
     emit({"phase": "kernel", "sass": sass})
-    tc = [c for k, c in sass.items() if "rdb_tc_kernel" in k]
+    # the served bf16 kernel by its full name (the ablation instances are
+    # rdb_tc_ablate_kernel<V>)
+    tc = [c for k, c in sass.items() if SERVED_TC in k]
     if len(tc) != 1 or tc[0]["HMMA"] == 0:
         raise AssertionError(f"rdb's bf16 kernel issues no HMMA: {sass}")
+    emit({"phase": "kernel", "kernel": "rdb_tc_kernel", "sass": tc[0]})
     i8 = [c for k, c in sass.items() if "rdb_i8_kernel" in k]
     if len(i8) != 1 or i8[0]["IMMA"] == 0 or i8[0]["HMMA"] == 0:
         raise AssertionError(f"rdb's int8 kernel issues no IMMA or HMMA: {sass}")
@@ -5317,6 +5326,237 @@ def ladder_tc_report(state, lines: list, parent_ms: dict) -> None:
                   rung, torch.bfloat16, cuda_cores=True)})
 
 
+# the ablations of v4's kernel (ops/rdb.py::ABLATIONS): the TPU knob each
+# ports (s2sr_tpu/ops/pallas/fused_rdb_v4.py)
+ABLATION_REPLACES = {
+    "v4_no_fill": "s2sr_tpu/ops/pallas/fused_rdb_v4.py:188",
+    "v4_no_acc": "s2sr_tpu/ops/pallas/fused_rdb_v4.py:211",
+    "v4_serialdma": "s2sr_tpu/ops/pallas/fused_rdb_v4.py:113"}
+# rounds of the timing in turns, each a chain of LADDER_CHAIN launches per
+# variant, the order reversed every other round
+ABLATION_ROUNDS = 6
+
+
+def ablation_sass() -> dict:
+    """SASS counts of the served ``rdb_tc_kernel`` and of each ablation
+    instance ``rdb_tc_ablate_kernel<V>``. Raises unless every instance
+    issues the served kernel's HMMA and LDSM, and STS is lower only in
+    ``v4_no_fill`` (the others store as the served kernel does)."""
+    from s2sr_tpu_torch.ops import _build
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+
+    sass = sass_counts(_build.lib_path("rdb"))
+    served = [c for k, c in sass.items() if SERVED_TC in k]
+    out = {"v4": served[0] if len(served) == 1 else None}
+    bad = [] if len(served) == 1 else [f"served instances {len(served)}"]
+    for name, code in rdb_mod.ABLATIONS.items():
+        found = [c for k, c in sass.items()
+                 if f"20rdb_tc_ablate_kernelILi{code}E" in k]
+        if len(found) != 1:
+            bad.append(f"{name}: {len(found)} instances")
+            continue
+        out[name] = c = found[0]
+        if bad:
+            continue
+        for op in ("HMMA", "LDSM"):
+            if c[op] != out["v4"][op]:
+                bad.append(f"{name} {op} {c[op]} != served {out['v4'][op]}")
+        lower = c["STS"] < out["v4"]["STS"]
+        if lower != (name == "v4_no_fill") or c["STS"] > out["v4"]["STS"]:
+            bad.append(f"{name} STS {c['STS']} vs served {out['v4']['STS']}")
+    if bad:
+        raise AssertionError(f"ablation instances: {bad}; {sass}")
+    return out
+
+
+def hold_ablations(card) -> dict:
+    """The ablation instances against what they must compute, in bf16 on
+    the main path's shapes: ``v4_serialdma`` bit-equal to the served
+    ``rdb``; ``v4_no_acc`` against ``rdb_no_acc_reference``
+    within phase kernel's bf16 bound (0.05 of the largest change its plain
+    version makes in float32), further than that from each planted fault
+    (x1..x4 stored as zero) and from the full block (the accumulate kept);
+    ``v4_no_fill`` run and reported, not gated: its output has no
+    definition. Returns the worst abs error per gated variant.
+
+    The weights are the init ×20, not phase kernel's ×10: ``no_acc``'s
+    chain reads one 32-channel slice a stage under a Kaiming scale set by
+    the whole concat, so at ×10 it moves x by only ~0.05 and x's own bf16
+    rounding (0.14 of that change between the plain version in bf16 and
+    in float32, on the CPU) would decide the error; at ×20 it moves x by
+    ~1.4 and that floor is 0.009."""
+    import torch
+
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+
+    tol = 0.05
+    cases = [((1, 12, 12), None), ((2, 70, 50), None),
+             ((2, 70, 50), (61, 37)), (LADDER_SHAPE, None)]
+    worst = dict.fromkeys(("v4_no_acc", "v4_serialdma"), 0.0)
+    failures = []
+    for shape, masked_hw in cases:
+        x, w, b, mask = rdb_inputs(shape, torch.bfloat16, masked_hw,
+                                   weight_scale=20)
+        served = rdb_mod.rdb(x, w, b, mask)
+        got = {v: rdb_mod.rdb_ablated(x, w, b, v, mask)
+               for v in rdb_mod.ABLATIONS}
+        torch.cuda.synchronize()
+        line = {"phase": "ladder", "card": card, "check": "ablations",
+                "shape": list(shape), "masked": masked_hw is not None}
+        d = (got["v4_serialdma"].float() - served.float()).abs()
+        line["v4_serialdma"] = {"max_abs_err_vs_rdb": d.max().item(),
+                                "n_differ": int((d > 0).sum()),
+                                "tolerance": 0.0}
+        worst["v4_serialdma"] = max(worst["v4_serialdma"], d.max().item())
+        if not torch.equal(got["v4_serialdma"], served):
+            failures.append(f"v4_serialdma {shape} masked={masked_hw}: not "
+                            f"bit-equal to rdb")
+        change = (rdb_mod.rdb_no_acc_reference(x.float(), w, b, mask)
+                  - x.float()).abs().max().item()
+
+        def rel_vs(want):
+            return (got["v4_no_acc"].float() - want.float()).abs().max().item() / change
+
+        err = rel_vs(rdb_mod.rdb_no_acc_reference(x, w, b, mask))
+        faults = {f"x{i}_zero": rel_vs(rdb_mod.rdb_no_acc_reference(
+            x, drop_dense_input(w, b, i), b, mask)) for i in (1, 2, 3, 4)}
+        faults["full_block"] = rel_vs(rdb_mod.rdb_reference(x, w, b, mask))
+        worst["v4_no_acc"] = max(worst["v4_no_acc"], err * change)
+        line["v4_no_acc"] = {"max_abs_err": err * change,
+                             "max_change": change, "rel_err": err,
+                             "tolerance": tol,
+                             "rel_err_vs_planted_fault": faults}
+        if not err <= tol or not min(faults.values()) > tol:
+            failures.append(f"v4_no_acc {shape} masked={masked_hw}: rel err "
+                            f"{err} (tolerance {tol}), faults {faults}")
+        d = (got["v4_no_fill"].float() - served.float()).abs()
+        finite = torch.isfinite(d)
+        line["v4_no_fill"] = {
+            "gated": False, "math": "wrong on purpose: stages 1-4 store "
+            "nothing, later stages read stale shared memory",
+            "finite_share": finite.float().mean().item(),
+            "max_abs_vs_rdb_where_finite": (d[finite].max().item()
+                                            if finite.any() else None)}
+        emit(line)
+        del x, w, b, mask, served, got
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("ablations:\n" + "\n".join(failures))
+    return worst
+
+
+def time_ablations(card) -> dict:
+    """``v4`` and the ablation instances at the chunk shape in bf16, in
+    turns: :data:`ABLATION_ROUNDS` rounds, each a chain of
+    ``LADDER_CHAIN`` launches per variant on the same input (no_fill's
+    output is not fed on), the order reversed every other round. Returns
+    per variant the median ms per launch and its range."""
+    import statistics
+
+    import torch
+
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+
+    x, w, b, _ = rdb_inputs(LADDER_SHAPE, torch.bfloat16)
+    fns = {"v4": lambda: rdb_mod.rdb(x, w, b),
+           **{v: functools.partial(rdb_mod.rdb_ablated, x, w, b, v)
+              for v in rdb_mod.ABLATIONS}}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for fn in fns.values():                      # warm: built and loaded
+        fn()
+    torch.cuda.synchronize()
+    ms = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(ABLATION_ROUNDS):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            start.record()
+            for _ in range(LADDER_CHAIN):
+                fns[name]()
+            end.record()
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end) / LADDER_CHAIN)
+    del x, w, b
+    torch.cuda.empty_cache()
+    return {name: {"ms": statistics.median(v), "min": min(v), "max": max(v),
+                   "runs": v} for name, v in ms.items()}
+
+
+def ladder_ablations(state, card, lines: list, launches: dict) -> dict:
+    """The v4 staging knobs on the card: SASS counts, the checks of
+    :func:`hold_ablations`, the timing in turns, and the split of ``rdb``'s
+    time above its bound. Returns the kernels-line numbers per ablation."""
+    import torch
+
+    from s2sr_tpu_torch.bench import rdb_ladder as bench
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+
+    counts0 = dict(rdb_mod.LAUNCHES_ABLATED), rdb_mod.LAUNCHES
+    held = bench.v4t9_bytes()["held"]
+    smem = rdb_mod.kernel_tiling(torch.bfloat16)["smem_bytes"]
+    emit({"phase": "ladder", "card": card, "check": "v4t9 refused",
+          "reason": bench.v4t9_refusal(), "smem_bytes_rdb_tc_kernel": smem})
+    if held != smem:
+        raise AssertionError(f"v4t9's arithmetic holds {held} B, the kernel "
+                             f"{smem} B")
+    sass = ablation_sass()
+    ptxas = state.get("ptxas", {}).get("rdb", {})
+    emit({"phase": "ladder", "card": card, "check": "ablation SASS: HMMA and "
+          "LDSM as served, STS lower only in v4_no_fill", "sass": sass,
+          "ptxas": {k: v for k, v in ptxas.items() if "rdb_tc_" in k}
+          or "cached build: see phase build"})
+    errs = hold_ablations(card)
+    turns = time_ablations(card)
+    # comparison and timing launches are not the ladder's
+    rdb_mod.LAUNCHES_ABLATED.update(counts0[0])
+    rdb_mod.LAUNCHES = counts0[1]
+    for name, t in turns.items():
+        emit({"phase": "ladder", "card": card, "timing": "in turns",
+              "variant": name, "shape": list(LADDER_SHAPE),
+              "chain": LADDER_CHAIN, "rounds": ABLATION_ROUNDS, **t,
+              "minus_v4_ms": t["ms"] - turns["v4"]["ms"], "sass": sass[name],
+              "ladder_launches": launches[name]})
+    bound_ms, bound_by = rdb_bound_ms(LADDER_SHAPE, torch.bfloat16,
+                                      masked=False)
+    by_variant = {ln["variant"]: ln for ln in lines}
+    ms = {name: t["ms"] for name, t in turns.items()}
+    over = ms["v4"] - bound_ms
+    epilogue = ms["v4"] - ms["v4_no_fill"]
+    accumulate = ms["v4"] - ms["v4_no_acc"]
+    halo = bound_ms * (by_variant["v4"]["executed_over_useful"] - 1)
+    emit({"phase": "ladder", "card": card, "split": "rdb's ms above its "
+          "bound, from the ablations in turns", "rdb_ms": ms["v4"],
+          "bound_ms": bound_ms, "above_bound_ms": over,
+          "epilogue_stores_and_masking_ms": epilogue,
+          "accumulate_ms": accumulate,
+          "b_lookahead_saves_ms": ms["v4_serialdma"] - ms["v4"],
+          "halo_recompute_at_peak_ms": halo,
+          "rest_mma_issue_and_ldmatrix_ms": over - epilogue - accumulate
+          - halo})
+    # the plain version each is held to, timed at the same shape
+    xb, w, b, _ = rdb_inputs(LADDER_SHAPE, torch.bfloat16)
+    plain = {"rdb_reference": by_variant["plain"]["ms_per_launch"],
+             "rdb_no_acc_reference": time_cuda(
+                 lambda: rdb_mod.rdb_no_acc_reference(xb, w, b), iters=3,
+                 warmup=1)}
+    del xb, w, b
+    torch.cuda.empty_cache()
+    numbers = {}
+    for name in rdb_mod.ABLATIONS:
+        ref = ("rdb_no_acc_reference" if name == "v4_no_acc"
+               else "rdb_reference")
+        numbers[name] = {
+            "ms": ms[name], "plain": ref, "plain_ms": plain[ref],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no_fill's output has no definition: its distance from rdb
+            "max_abs_err": errs.get(name),
+            "gated": name != "v4_no_fill", "launches": launches[name]}
+        emit({"phase": "ladder", "card": card, "kernel": f"rdb_{name}",
+              "shape": list(LADDER_SHAPE), "dtype": "bfloat16",
+              **numbers[name]})
+    return numbers
+
+
 @ieee_phase
 def phase_ladder(state):
     import torch
@@ -5351,24 +5591,31 @@ def phase_ladder(state):
     # runs it; its v4 launches are not main-path launches of rdb
     # with JAX's int8 and Winograd variants (wino gated in float32); the
     # launches of i8 (rdb_w8a8) and i8mix (rdb_i8) are the ladder's
+    # and the v4 staging knobs (rdb_ablated); their launches are the
+    # ladder's too
     rdb0 = rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES_W8A8
     for k in lad.LAUNCHES:
         lad.LAUNCHES[k] = 0
-    rdb_mod.LAUNCHES_I8 = rdb_mod.LAUNCHES_W8A8 = 0
+    for k in rdb_mod.LAUNCHES_ABLATED:
+        rdb_mod.LAUNCHES_ABLATED[k] = 0
+    rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = rdb_mod.LAUNCHES_W8A8 = 0
     lines = bench.ladder(bench.KNOWN, LADDER_SHAPE, LADDER_CHAIN,
                          LADDER_RUNS, "cuda",
                          emit=lambda obj: emit({"phase": "ladder", **obj}))
     torch.cuda.synchronize()
     launches = dict(lad.LAUNCHES, i8=rdb_mod.LAUNCHES_W8A8,
-                    i8mix=rdb_mod.LAUNCHES_I8)
-    emit({"phase": "ladder", "card": card, "check": "int8 variants' kernel "
-          "launches (the ladder's, not the main path's)",
-          "rdb_w8a8": launches["i8"], "rdb_i8": launches["i8mix"]})
-    if not launches["i8"] or not launches["i8mix"]:
-        raise AssertionError(f"ladder i8 / i8mix launched no kernel: "
+                    i8mix=rdb_mod.LAUNCHES_I8, v4=rdb_mod.LAUNCHES,
+                    **rdb_mod.LAUNCHES_ABLATED)
+    emit({"phase": "ladder", "card": card, "check": "kernel launches of the "
+          "int8 variants and the v4 ablations (the ladder's, not the main "
+          "path's)", "rdb_w8a8": launches["i8"], "rdb_i8": launches["i8mix"],
+          **{f"rdb_{v}": launches[v] for v in rdb_mod.ABLATIONS}})
+    if not all(launches[v] for v in ("i8", "i8mix", *rdb_mod.ABLATIONS)):
+        raise AssertionError(f"a ladder variant launched no kernel: "
                              f"{launches}")
     rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES_W8A8 = rdb0
     per_launch = {ln["variant"]: ln["ms_per_launch"] for ln in lines}
+    ablations = ladder_ablations(state, card, lines, launches)
 
     # the CUDA-core kernels the tensor-core ones replaced, in the same run
     parent_ms = {}
@@ -5399,7 +5646,7 @@ def phase_ladder(state):
         del x, w, b, pk
         torch.cuda.empty_cache()
     state["ladder"] = {"launches": launches, "numbers": numbers,
-                       "err": worst}
+                       "err": worst, "ablations": ablations}
     emit({"phase": "ladder", "seconds": round(time.perf_counter() - t0, 3)})
 
 
@@ -6488,6 +6735,13 @@ def kernels_record(state) -> list | None:
                      "replaces": replaces, "launches": lad["launches"][rung],
                      "max_abs_err": err, "rel_err": rel,
                      **lad["numbers"][rung], "library_ms": None})
+    # the v4 staging knobs: instances of rdb's kernel that only the ladder
+    # launches (no_fill's max_abs_err is null: it has no defined output)
+    for name, num in lad["ablations"].items():
+        rows.append({"name": f"rdb_{name}", "route": "cuda",
+                     "source": "s2sr_tpu_torch/csrc/rdb.cu",
+                     "replaces": ABLATION_REPLACES[name],
+                     "instance_of": "rdb", **num, "library_ms": None})
     mxu = state["mxu"]
     for name, replaces in MXU_REPLACES.items():
         err, rel = mxu["err"][name]

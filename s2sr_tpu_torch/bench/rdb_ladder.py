@@ -21,7 +21,16 @@ Port of ``scripts/bench_kernels.py``'s gate and timing. Variants:
   ablation whose math is wrong on purpose) and ``wino`` (Winograd
   F(2×2, 3×3) as einsums). ``i8fast``, ``i8acc`` and ``i8noq`` take their
   int8 convs from ``ops/rdb.py::conv_i8_int`` (an int8 GEMM on the card)
-  and run the rest as plain PyTorch, as XLA runs them in JAX.
+  and run the rest as plain PyTorch, as XLA runs them in JAX;
+- the JAX ladder's staging knobs of ``rdb_pallas_v4`` as time-attribution
+  instances of ``v4``'s kernel (``ops/rdb.py::rdb_ablated``, never
+  served): ``v4_no_fill`` (stages 1-4 skip their epilogue's stores and
+  masking; no defined output, so ``--device cpu`` refuses it),
+  ``v4_no_acc`` (each source's products overwrite the accumulator;
+  ``rdb_no_acc_reference`` on the CPU) and ``v4_serialdma`` (the B
+  fragments without their one-slab lookahead; the served math). ``v4t9``
+  (9-tap growth staging) is refused with the shared-memory arithmetic
+  that rules it out (:func:`v4t9_refusal`).
 
 Each kernel variant is first gated in float32 at (1, 40, 72) against
 ``rdb_reference`` (max abs error < 1e-4; TF32 off), ``wino`` within 1e-3
@@ -40,7 +49,8 @@ as the kernel source counts them.
 ``--shape``): a check of the harness, not a measurement of a card.
 
 Usage: python -m s2sr_tpu_torch.bench.rdb_ladder [--variants plain,v1,v2,v3,v4]
-       (any of plain, v1..v4, xla, xp, i8, i8fast, i8acc, i8noq, i8mix, wino)
+       (any of plain, v1..v4, xla, xp, i8, i8fast, i8acc, i8noq, i8mix, wino,
+       v4_no_fill, v4_no_acc, v4_serialdma)
        [--runs 3] [--chain 12] [--shape 16,264,264] [--device cuda|cpu]
 """
 
@@ -66,9 +76,11 @@ FLOP_PER_PIXEL = 2 * 9 * (64 * 192 + 32 * (160 + 128 + 96 + 64))
 VARIANTS = ("plain", "v1", "v2", "v3", "v4")
 INT8_VARIANTS = ("xla", "xp", "i8", "i8fast", "i8acc", "i8noq", "i8mix",
                  "wino")
-KNOWN = VARIANTS + INT8_VARIANTS
+# time-attribution instances of v4's kernel (ops/rdb.py::ABLATIONS)
+ABLATION_VARIANTS = tuple(rdb_mod.ABLATIONS)
+KNOWN = VARIANTS + INT8_VARIANTS + ABLATION_VARIANTS
 # variants that launch a hand-written kernel on the card
-KERNEL_VARIANTS = ("v1", "v2", "v3", "v4", "i8", "i8mix")
+KERNEL_VARIANTS = ("v1", "v2", "v3", "v4", "i8", "i8mix") + ABLATION_VARIANTS
 GATE_SHAPE = (1, 40, 72)
 GATE_TOL = 1e-4
 # float32 gates against rdb_reference: the kernel rungs, and Winograd's
@@ -76,6 +88,40 @@ GATE_TOL = 1e-4
 GATES = {"v1": GATE_TOL, "v2": GATE_TOL, "v3": GATE_TOL, "v4": GATE_TOL,
          "wino": 1e-3}
 G = 32
+# the H100's shared memory a block may have, bytes
+SMEM_BLOCK_MAX = 232_448
+
+
+def v4t9_bytes() -> dict:
+    """The shared-memory arithmetic that rules out ``v4t9``
+    (``rdb_pallas_v4(stage_taps=9)``: a growth source's 9 taps staged side
+    by side, K = 288) in ``csrc/rdb.cu::rdb_tc_kernel``: tile 16, halo 5,
+    source j's region 16 + 2·(5 − j) pixels a side, x 64 and x1..x4 32
+    bf16 channels, 8 warps. ``held``: x and x1..x4; ``free``: what a block
+    has left; ``whole``: x1's 9 taps over stage 2's region; ``per_warp``:
+    those of one 16-pixel M tile."""
+    def side(j):
+        return 16 + 2 * (5 - j)
+
+    held = sum(side(j) ** 2 * (64 if j == 0 else G) * 2 for j in range(5))
+    per_warp = 16 * 9 * G * 2
+    return {"held": held, "free": SMEM_BLOCK_MAX - held, "side": side(2),
+            "whole": side(2) ** 2 * 9 * G * 2, "per_warp": per_warp,
+            "eight_warps": 8 * per_warp}
+
+
+def v4t9_refusal() -> str:
+    """Why ``v4t9`` has no instance of v4's kernel (:func:`v4t9_bytes`)."""
+    n = v4t9_bytes()
+    return (f"v4t9 has no instance of v4's kernel: rdb_tc_kernel holds x and "
+            f"x1..x4 in {n['held']:,} B of the {SMEM_BLOCK_MAX:,} B of "
+            f"shared memory a block may have, leaving {n['free']:,} B; a "
+            f"9-tap copy of x1 over stage 2's {n['side']}x{n['side']} region "
+            f"takes {n['whole']:,} B, and one of a 16-pixel M tile per warp "
+            f"{n['per_warp']:,} B a warp, {n['eight_warps']:,} B for 8 "
+            f"warps. Staging needs another tile or the delta form, another "
+            f"kernel; 9-tap against 3-tap staging is on the ladder as v3 "
+            f"against v2")
 
 
 def card_name(device: str) -> str:
@@ -318,6 +364,9 @@ def variant_fns(variants, kernels, biases, dtype, device) -> dict:
             fns[name] = lambda x: rdb_mod.rdb_reference(x, w, b)
         elif name == "v4":
             fns[name] = lambda x: rdb_mod.rdb(x, w, b)
+        elif name in rdb_mod.ABLATIONS:
+            fns[name] = (lambda x, name=name:
+                         rdb_mod.rdb_ablated(x, w, b, name))
         elif name == "i8":
             qp = _on(i8_params(p), device)
             packed = None if device == "cpu" else rdb_mod.pack_rdb_w8a8(qp)
@@ -355,6 +404,7 @@ def kernel_info(name: str, shape, dtype, device: str) -> dict:
         return {}
     bsz, h, w = shape
     t = (rdb_mod.kernel_tiling(dtype) if name == "v4"
+         or name in rdb_mod.ABLATIONS
          else rdb_mod.kernel_tiling_w8a8() if name == "i8"
          else rdb_mod.kernel_tiling_i8() if name == "i8mix"
          else ladder_mod.kernel_tiling(name, dtype))
@@ -454,6 +504,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     variants = [v for v in args.variants.split(",") if v]
+    if "v4t9" in variants:
+        ap.error(v4t9_refusal())
+    if "v4_no_fill" in variants and args.device == "cpu":
+        ap.error("v4_no_fill reads shared memory that nothing wrote: it has "
+                 "no defined output and no plain version, so it runs only on "
+                 "the card")
     unknown = sorted(set(variants) - set(KNOWN))
     if unknown or not variants:
         ap.error(f"unknown variants {unknown}: the port has "

@@ -44,6 +44,10 @@
 //   before x1..x4 add their bf16 products (157,440 B shared). The JAX
 //   package computes this conv with XLA's int8 convolution; it has no TPU
 //   kernel of its own.
+// - the time-attribution instances of the bf16 kernel, rdb_tc_ablate_kernel
+//   (the ports of rdb_pallas_v4's staging knobs, never served): the same
+//   kernel with its epilogue's stores, its accumulation or its B lookahead
+//   taken out (enum Variant below).
 // - full W8A8 (every conv input quantized, all five convs int8:
 //   s2sr_tpu/models/rrdbnet_int8.py::_rdb_packed_i8), rdb_w8a8_kernel: the
 //   int8 instance carried to every stage. x is quantized on load with
@@ -325,6 +329,31 @@ constexpr int TILE_F32 = 8;
 constexpr int TC_TILE = 16;
 constexpr int TC_WARPS = 8;
 
+// The instances of the bf16 kernel. SERVED is rdb_tc_kernel; the others are
+// rdb_tc_ablate_kernel<V>, the ports of the TPU kernel's staging knobs
+// (s2sr_tpu/ops/pallas/fused_rdb_v4.py), reached only through
+// s2sr_rdb_ablate_forward and never served. They time where the served
+// kernel's time goes, and each keeps every ldmatrix and every mma.sync
+// (tc_keep below):
+// - NO_FILL (ablate="no_fill", fused_rdb_v4.py:188): stages 1-4 skip their
+//   epilogue (bias, LeakyReLU, masking and the st.shared of x1..x4). Later
+//   stages read whatever shared memory holds: the output has no defined
+//   value, on purpose.
+// - NO_ACC (ablate="no_acc", :211): each source's products start from zero,
+//   so stage S keeps only the product of source S-1 (x1 from x, x(k+1) from
+//   xk, x5 from x4): ops/rdb.py::rdb_no_acc_reference.
+// - SERIAL_B (prefetch=False, :113): each slab loads its B fragments from L2
+//   just before its MMAs, without the one-slab lookahead. The TPU knob
+//   serialises the input DMA; here the input tile is already copied with
+//   cp.async and waited for before stage 1 in every instance, so the B
+//   lookahead is the only copy that overlaps the MMAs. Same slabs in the
+//   same order: bit-equal to the served kernel.
+// The TPU kernel's fourth knob, stage_taps=9 (9-tap staging of the growth
+// convs, K = 288), has no instance: x and x1..x4 take 200,704 B of the
+// block's 232,448 B of shared memory, and one 9-tap copy of x1 for stage 2
+// takes 22 * 22 * 288 * 2 = 278,784 B (bench/rdb_ladder.py says so).
+enum Variant : int { SERVED = 0, NO_FILL = 1, NO_ACC = 2, SERIAL_B = 3 };
+
 __host__ __device__ constexpr int tc_side(int j) { return TC_TILE + 2 * (HALO - j); }
 // byte offset of source buffer j (0 = x, 1..4 = x1..x4), each a multiple of
 // 128 bytes; with i8, x is stored as int8 (one byte a value)
@@ -377,6 +406,28 @@ __device__ __forceinline__ void tc_mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The ablations' keep-alive for the products they drop. ptxas deletes an
+// mma.sync whose result is never read, and the ldmatrix that feeds it;
+// asm volatile does not stop it (it binds nvcc only). So the dropped
+// accumulators are stored under a guard that is never true: sink is null on
+// every launch, which ptxas cannot know. The guard costs one branch; the
+// stores never run. Each (stage, source) slot has its own addresses, so no
+// store hides another.
+template <int MT, int NN>
+__device__ __forceinline__ void tc_keep(float* sink, const float (&acc)[MT][NN][4],
+                                        int slot) {
+  if (sink) {
+    constexpr int T = TC_WARPS * 32;
+    float* s = sink + (size_t)slot * 128 * T + threadIdx.x;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[((m * NN + n) * 4 + e) * T] = acc[m][n][e];
+  }
+}
+
 __device__ __forceinline__ void i8_mma(int (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
@@ -402,8 +453,9 @@ __device__ __forceinline__ uint32_t quant4(uint32_t lo, uint32_t hi, float qm) {
 
 // One conv stage S (1..5) on the tensor cores. With I8, x's rows come from
 // the int8 copy of x (s8 B fragments wq, dequantized by deq) and the
-// residual reads x from device memory.
-template <int S, bool I8>
+// residual reads x from device memory. V: the instance (enum Variant);
+// sink: tc_keep's, null on every launch.
+template <int S, bool I8, int V = SERVED>
 __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict__ wf,
                                          const uint4* __restrict__ wq,
                                          const float* __restrict__ deq,
@@ -411,7 +463,8 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
                                          const float* __restrict__ mask,
                                          const __nv_bfloat16* __restrict__ x,
                                          __nv_bfloat16* __restrict__ out,
-                                         int b, int H, int W, int oy0, int ox0) {
+                                         int b, int H, int W, int oy0, int ox0,
+                                         float* sink = nullptr) {
   constexpr int RS = tc_side(S);          // region side of this stage
   constexpr int NPIX = RS * RS;
   constexpr int NT = tc_mtiles(S);
@@ -421,6 +474,7 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const uint4* ws = wf + tc_woff(S) + lane;
+  static_assert(V == SERVED || !I8, "the ablations are of the bf16 kernel");
 
   // this lane's ldmatrix pixel in each of the warp's M tiles
   int py[MT], px[MT];
@@ -502,11 +556,26 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
   }
 
   uint4 bcur[NB], bnext[NB];
+  if constexpr (V != SERIAL_B) {
 #pragma unroll
-  for (int n = 0; n < NB; ++n) bcur[n] = __ldg(ws + (slab * NB + n) * 32);
+    for (int n = 0; n < NB; ++n) bcur[n] = __ldg(ws + (slab * NB + n) * 32);
+  }
   constexpr int NSLAB = 9 * stage_cin(S) / 16;
 #pragma unroll
   for (int j = I8 ? 1 : 0; j < S; ++j) {
+    if constexpr (V == NO_ACC) {
+      // overwrite, not add: the earlier sources' products are dropped
+      // (kept alive for ptxas, so their MMAs still run)
+      if (j > 0) {
+        tc_keep(sink, acc, S * 8 + j);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < 2 * NB; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+      }
+    }
     const int rj = tc_side(j);
     const int cq = src_chans(j) / 8;      // 16-byte chunks a pixel
     const int d = S - 1 - j;              // the region's offset in source j
@@ -520,9 +589,15 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         if (c >= src_chans(j) / 16) break;
-        const int nxt = slab + 1 < NSLAB ? slab + 1 : slab;
+        if constexpr (V == SERIAL_B) {
+          // this slab's fragments, just before its MMAs
 #pragma unroll
-        for (int n = 0; n < NB; ++n) bnext[n] = __ldg(ws + (nxt * NB + n) * 32);
+          for (int n = 0; n < NB; ++n) bcur[n] = __ldg(ws + (slab * NB + n) * 32);
+        } else {
+          const int nxt = slab + 1 < NSLAB ? slab + 1 : slab;
+#pragma unroll
+          for (int n = 0; n < NB; ++n) bnext[n] = __ldg(ws + (nxt * NB + n) * 32);
+        }
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           if (warp + TC_WARPS * m >= NT) break;
@@ -535,11 +610,19 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
             tc_mma(acc[m][2 * n + 1], a, bcur[n].z, bcur[n].w);
           }
         }
+        if constexpr (V != SERIAL_B) {
 #pragma unroll
-        for (int n = 0; n < NB; ++n) bcur[n] = bnext[n];
+          for (int n = 0; n < NB; ++n) bcur[n] = bnext[n];
+        }
         ++slab;
       }
     }
+  }
+
+  // NO_FILL: stages 1-4 store nothing (their products kept alive for ptxas)
+  if constexpr (V == NO_FILL && S < 5) {
+    tc_keep(sink, acc, S * 8);
+    return;
   }
 
   // epilogue: accumulator (m, n8 tile k, e) is region pixel (tile, g + 8(e/2))
@@ -606,10 +689,12 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
   }
 }
 
-__global__ void __launch_bounds__(TC_WARPS * 32, 1)
-rdb_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
-              __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wf,
-              const float* __restrict__ bias, int H, int W) {
+// The bf16 kernel's body, instance V (enum Variant)
+template <int V>
+__device__ __forceinline__ void rdb_tc_body(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
+    __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wf,
+    const float* __restrict__ bias, float* sink, int H, int W) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const int b = blockIdx.z;
@@ -632,15 +717,37 @@ rdb_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mas
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
   __syncthreads();
-  tc_stage<1, false>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0);
+  tc_stage<1, false, V>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0,
+                        sink);
   __syncthreads();
-  tc_stage<2, false>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0);
+  tc_stage<2, false, V>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0,
+                        sink);
   __syncthreads();
-  tc_stage<3, false>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0);
+  tc_stage<3, false, V>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0,
+                        sink);
   __syncthreads();
-  tc_stage<4, false>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0);
+  tc_stage<4, false, V>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0,
+                        sink);
   __syncthreads();
-  tc_stage<5, false>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0);
+  tc_stage<5, false, V>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0,
+                        sink);
+}
+
+__global__ void __launch_bounds__(TC_WARPS * 32, 1)
+rdb_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
+              __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wf,
+              const float* __restrict__ bias, int H, int W) {
+  rdb_tc_body<SERVED>(x, mask, out, wf, bias, nullptr, H, W);
+}
+
+// The time-attribution instances (enum Variant): never served. sink is
+// tc_keep's, null on every launch.
+template <int V>
+__global__ void __launch_bounds__(TC_WARPS * 32, 1)
+rdb_tc_ablate_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
+                     __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wf,
+                     const float* __restrict__ bias, float* sink, int H, int W) {
+  rdb_tc_body<V>(x, mask, out, wf, bias, sink, H, W);
 }
 
 // The int8 x stage: wq holds the packed 64 -> 192 x conv as int8 B fragments
@@ -951,6 +1058,21 @@ int launch_tc(const void* x, const void* mask, void* out, const void* wf,
   return (int)cudaGetLastError();
 }
 
+template <int V>
+int launch_tc_ablate(const void* x, const void* mask, void* out, const void* wf,
+                     const void* bias, int B, int H, int W, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(
+      rdb_tc_ablate_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + TC_TILE - 1) / TC_TILE, (H + TC_TILE - 1) / TC_TILE, B);
+  rdb_tc_ablate_kernel<V><<<grid, TC_WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
+      static_cast<__nv_bfloat16*>(out), static_cast<const uint4*>(wf),
+      static_cast<const float*>(bias), nullptr, H, W);
+  return (int)cudaGetLastError();
+}
+
 int launch_i8(const void* x, const void* mask, void* out, const void* wf,
               const void* wq, const void* deq, const void* bias, float qm,
               int B, int H, int W, cudaStream_t stream) {
@@ -1009,6 +1131,24 @@ extern "C" int s2sr_rdb_forward(const void* x, const void* mask, void* out,
   if (dtype == 1 && wf)
     return launch_tc(x, mask, out, wf, bias, B, H, W, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// A time-attribution instance of the bf16 kernel (enum Variant: 1 NO_FILL,
+// 2 NO_ACC, 3 SERIAL_B) on the operands of s2sr_rdb_forward's
+// bfloat16 path (x, out bf16; wf the B fragments; bias 192 float32). Only
+// ops/rdb.py::rdb_ablated calls it; nothing served does. Returns the CUDA
+// error code of the launch.
+extern "C" int s2sr_rdb_ablate_forward(const void* x, const void* mask, void* out,
+                                       const void* wf, const void* bias, int B,
+                                       int H, int W, int variant, void* stream) {
+  if (!wf || !bias) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case NO_FILL: return launch_tc_ablate<NO_FILL>(x, mask, out, wf, bias, B, H, W, st);
+    case NO_ACC: return launch_tc_ablate<NO_ACC>(x, mask, out, wf, bias, B, H, W, st);
+    case SERIAL_B: return launch_tc_ablate<SERIAL_B>(x, mask, out, wf, bias, B, H, W, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The bf16 RDB with its x stage in int8: x, out (B, H, W, 64) bf16; mask as

@@ -35,6 +35,7 @@ training runs XLA's convs), each RRDB block optionally rematerialised.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -47,6 +48,7 @@ from ..ops.rdb import (G, NF, pack_rdb_weights, prefix_kernels, rdb,
 from ..parallel import spatial
 from ..parallel.comm import halo_exchange
 from ..utils.precision import ieee_fp32
+from .weights import tree_flatten
 
 # rows of halo one residual dense block needs: five chained 3×3 convs
 RDB_HALO = 5
@@ -432,3 +434,10 @@ def rrdbnet_apply(params: dict, x: torch.Tensor, scale: int = 4,
             f = f * mtop
         out = _conv(f, _oihw(params["conv_last"]), dtype, sp).float()
         return out.permute(0, 2, 3, 1)
+
+
+def num_parameters(params) -> int:
+    """Scalars in a param tree (nested dicts and lists of tensors or
+    arrays, such as :func:`rrdbnet_apply`'s tree or a state dict):
+    ``s2sr_tpu/models/rrdbnet.py::num_parameters``."""
+    return int(sum(math.prod(p.shape) for p in tree_flatten(params)[0]))

@@ -406,6 +406,22 @@ def _conv_hwio(x: torch.Tensor, p: dict, sp=None) -> torch.Tensor:
     return (out + p["bias"].view(1, -1, 1, 1)).permute(0, 2, 3, 1)
 
 
+def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
+    """(B, H, W, C) → (B·nW, w·w, C): the ``w``×``w`` windows in raster
+    order (``s2sr_tpu/models/swinir.py::window_partition``)."""
+    b, h, ww, c = x.shape
+    x = x.reshape(b, h // w, w, ww // w, w, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, w * w, c)
+
+
+def window_reverse(x: torch.Tensor, w: int, h: int, ww: int) -> torch.Tensor:
+    """Inverse of :func:`window_partition`: (B·nW, w·w, C) → (B, h, ww,
+    C) (``s2sr_tpu/models/swinir.py::window_reverse``)."""
+    b = x.shape[0] // ((h // w) * (ww // w))
+    x = x.reshape(b, h // w, ww // w, w, w, -1).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, ww, -1)
+
+
 def _attention_train(x, p, heads: int, bias_idx, mask):
     """Window attention over (B·nW, N, C) windows, as JAX's unfused path
     computes it (windows unpaired: a pair's cross terms weigh exactly 0)."""
@@ -444,12 +460,9 @@ def _swin_block_train(x, p, h, w, heads, window, shift, bias_idx, mask,
     y = _ln(x, p["norm1"]).reshape(b, h, w, c)
     if shift:
         y = torch.roll(_roll_h(y, shift, sp, up=True), -shift, 2)
-    win = y.reshape(b, h // window, window, w // window, window, c)
-    win = win.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
-    a = _attention_train(win, p["attn"], heads, bias_idx,
-                         mask if shift else None)
-    y = a.reshape(b, h // window, w // window, window, window, c)
-    y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+    a = _attention_train(window_partition(y, window), p["attn"], heads,
+                         bias_idx, mask if shift else None)
+    y = window_reverse(a, window, h, w)
     if shift:
         y = _roll_h(torch.roll(y, shift, 2), shift, sp, up=False)
     x = x + y.reshape(b, h * w, c)

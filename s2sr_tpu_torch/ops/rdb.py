@@ -30,6 +30,12 @@ kernel refused).
   :func:`rdb_w8a8_reference`; :data:`LAUNCHES_W8A8` counts its launches,
   and :func:`pack_rdb_w8a8` lays one quantized block (or a stack of
   them) out as that kernel's operands, once.
+- :func:`rdb_ablated` launches the bf16 kernel's time-attribution
+  instances (``rdb_tc_ablate_kernel``, the ports of ``rdb_pallas_v4``'s
+  staging knobs, :data:`ABLATIONS`); only the RDB ladder
+  (``bench/rdb_ladder.py``) and ``chip_smoke.py`` call it, nothing served.
+  :func:`rdb_no_acc_reference` is the plain version of ``v4_no_acc``;
+  :data:`LAUNCHES_ABLATED` counts their launches.
 - :func:`prefix_kernels` is the packed prefix layout of the five convs
   (``rrdbnet.py::packed_prefix_kernels``), which every plain version here
   and the int8 quantizer read.
@@ -52,6 +58,10 @@ G = 32
 LAUNCHES = 0
 LAUNCHES_I8 = 0
 LAUNCHES_W8A8 = 0
+# the bf16 kernel's time-attribution instances by ladder variant: the codes
+# of csrc/rdb.cu's enum Variant
+ABLATIONS = {"v4_no_fill": 1, "v4_no_acc": 2, "v4_serialdma": 3}
+LAUNCHES_ABLATED = dict.fromkeys(ABLATIONS, 0)
 # columns of the packed 64 → 192 x conv, [a5|a4|a3|a2|a1]
 WX_COLS = NF + 4 * G
 
@@ -274,6 +284,34 @@ def rdb_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out.permute(0, 2, 3, 1).contiguous()
 
 
+def rdb_no_acc_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                         mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the ablation ``v4_no_acc``, (B, H, W, 64) → same,
+    in ``x.dtype``: what ``rdb_pallas_v4(..., ablate="no_acc")`` computes,
+    whose stages overwrite the accumulator instead of adding to it. Each
+    stage reads the previous source alone: x1 from x, x(k+1) from xk
+    (conv k+1's slice of xk's channels), x5 from x4, then
+    ``out = m(0.2·(x5 + b5) + x)``; bias, LeakyReLU and the mask as in
+    :func:`rdb_reference`. Not an RDB: a time attribution whose math is
+    wrong on purpose."""
+    dtype = x.dtype
+    ks, bs = unpack_rdb_weights(w, b)
+    xc = x.permute(0, 3, 1, 2)
+    mk = _mask_nchw(mask, x)
+    slope = torch.tensor(0.2, dtype=dtype, device=x.device)
+    t = xc
+    for k in range(1, 6):
+        lo = 0 if k == 1 else NF + (k - 2) * G          # source k-1's channels
+        kernel = ks[k - 1][:, lo:lo + t.shape[1]].to(dtype)
+        v = F.conv2d(t, kernel, padding=1) + bs[k - 1].to(dtype).view(1, -1, 1, 1)
+        if k < 5:
+            v = torch.where(v >= 0, v, v * slope)
+            t = v if mk is None else v * mk
+    out = v * slope + xc
+    out = out if mk is None else out * mk
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
 def rdb_i8_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      wx8: torch.Tensor, deq: torch.Tensor, qm,
                      mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -377,6 +415,10 @@ def _lib():
                                               ctypes.c_int, ctypes.c_int,
                                               ctypes.c_int, vp]
         lib.s2sr_rdb_w8a8_forward.restype = ctypes.c_int
+        lib.s2sr_rdb_ablate_forward.argtypes = [vp, vp, vp, vp, vp,
+                                                ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_int, ctypes.c_int, vp]
+        lib.s2sr_rdb_ablate_forward.restype = ctypes.c_int
         for name in ("s2sr_rdb_i8_smem_bytes", "s2sr_rdb_w8a8_smem_bytes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_longlong
@@ -457,6 +499,57 @@ def rdb(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"rdb kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     return out
+
+
+def rdb_ablated(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                variant: str, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One RDB through a time-attribution instance of the bf16 kernel
+    (``variant``, a key of :data:`ABLATIONS`), (B, H, W, 64) → same.
+
+    Only the RDB ladder and ``chip_smoke.py`` call this; nothing served
+    does. Operands as :func:`rdb`'s. On a CUDA tensor it launches
+    ``rdb_tc_ablate_kernel`` or raises (bfloat16 only). On a CPU tensor it
+    runs the plain version of the variant's function: :func:`rdb_reference`
+    for ``v4_serialdma`` (the served math),
+    :func:`rdb_no_acc_reference` for ``v4_no_acc``; ``v4_no_fill`` has no
+    defined output and raises."""
+    if variant not in ABLATIONS:
+        raise ValueError(f"unknown ablation {variant!r}: {sorted(ABLATIONS)}")
+    if x.device.type == "cpu":
+        if variant == "v4_no_fill":
+            raise ValueError("v4_no_fill reads shared memory that nothing "
+                             "wrote: it has no defined output, so no plain "
+                             "version; it runs only on the card")
+        if variant == "v4_no_acc":
+            return rdb_no_acc_reference(x, w, b, mask)
+        return rdb_reference(x, w, b, mask)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"rdb_ablated: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"rdb_ablated's kernel takes bfloat16, got {x.dtype}")
+    _check(x, w, b, mask)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _launch_ablated(_lib(), x, pack_rdb_fragments(w), b, mask, out,
+                        variant, stream)
+    return out
+
+
+def _launch_ablated(lib, x, wf, b, mask, out, variant: str, stream) -> None:
+    """``s2sr_rdb_ablate_forward`` of ``lib`` with the variant's code;
+    counts the launch in :data:`LAUNCHES_ABLATED`."""
+    bsz, h, wd, _ = x.shape
+    rc = lib.s2sr_rdb_ablate_forward(
+        x.data_ptr(), None if mask is None else mask.data_ptr(),
+        out.data_ptr(), wf.data_ptr(), b.data_ptr(), bsz, h, wd,
+        ABLATIONS[variant], stream)
+    if rc != 0:
+        raise RuntimeError(f"rdb_ablated({variant}) kernel launch failed: "
+                           f"CUDA error {rc}")
+    LAUNCHES_ABLATED[variant] += 1
 
 
 def kernel_tiling_i8() -> dict:
