@@ -270,6 +270,7 @@ def phase_device(state):
 
 
 def phase_build(state):
+    import re
     from concurrent.futures import ThreadPoolExecutor
 
     from s2sr_tpu_torch.ops import _build
@@ -281,9 +282,14 @@ def phase_build(state):
                                                   KERNEL_SOURCES)))
     ptxas = {name: ptxas_summary(log) for name, (_, log) in built.items()}
     state["ptxas"] = ptxas
+    # ptxas's notes on wgmma: an instruction it serialised (C751x), a fence
+    # or wait it injected (C7517, C7519), a setmaxnreg it ignored (C7508)
+    state["ptxas_wgmma"] = {name: [ln.strip() for ln in log.splitlines()
+                                   if re.search(r"\(C75\d\d\)", ln)]
+                            for name, (_, log) in built.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_kernel_seconds": {n: b[0] for n, b in built.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "ptxas_wgmma_notes": state["ptxas_wgmma"]})
     # the tensor-core kernels, one line each: registers and spills
     for name, pattern in (("rdb", "rdb_tc_kernel"), ("rdb", "rdb_i8_kernel"),
                           ("rdb", "rdb_w8a8_kernel"),
@@ -389,7 +395,7 @@ def hold_against_plain(phase, name, run, plain, cases, tiling):
 # chunk shape and a masked bucket; its bound counts the x conv's 12,288 of
 # the 26,624 multiply-adds a pixel at the int8 rate
 RDB_I8_CASES = (((16, 264, 264), None), ((1, 40, 72), (33, 61)))
-RDB_I8_REPLACES = "s2sr_tpu/models/rrdbnet_int8.py:155"
+RDB_I8_REPLACES = "s2sr_tpu/models/rrdbnet_int8.py:224"
 PEAK_I8_OPS = 1979e12
 RDB_I8_X_MACS = 9 * 64 * 192
 
@@ -429,7 +435,7 @@ def rdb_i8_params(x, w, b):
 
 
 def hold_i8_against_plain(state) -> None:
-    """``rdb_i8`` (the int8 instance of the bf16 kernel) against
+    """``rdb_i8`` (``rdb_i8_kernel``, on ``wgmma``) against
     ``rdb_i8_reference`` on the card at :data:`RDB_I8_CASES`, within 0.05
     of max |out − x| of the fp32 plain version (the bf16 ``rdb``'s bound),
     with three planted faults further than that: stage 1's dequantization
@@ -547,7 +553,7 @@ def rdb_w8a8_params(x, w, b) -> dict:
 
 
 def hold_w8a8_against_plain(state) -> None:
-    """``rdb_w8a8`` (the full-W8A8 kernel) against ``rdb_w8a8_reference``
+    """``rdb_w8a8`` (``rdb_w8a8_kernel``, on ``wgmma``) against ``rdb_w8a8_reference``
     on the card at :data:`RDB_I8_CASES`: within 0.05 of max |out − x| of
     the float32 plain version from the bf16 plain version (which rounds
     its prefix accumulator to bf16 after every stage, so a round(v·qm) at
@@ -668,12 +674,32 @@ def phase_kernel(state):
     if len(tc) != 1 or tc[0]["HMMA"] == 0:
         raise AssertionError(f"rdb's bf16 kernel issues no HMMA: {sass}")
     emit({"phase": "kernel", "kernel": "rdb_tc_kernel", "sass": tc[0]})
+    # the int8 kernels on wgmma (s8 IGMMA; rdb_i8's bf16 x1..x4 HGMMA), no
+    # mma.sync left, and none of their wgmmas serialised by ptxas
     i8 = [c for k, c in sass.items() if "rdb_i8_kernel" in k]
-    if len(i8) != 1 or i8[0]["IMMA"] == 0 or i8[0]["HMMA"] == 0:
-        raise AssertionError(f"rdb's int8 kernel issues no IMMA or HMMA: {sass}")
+    if (len(i8) != 1 or i8[0]["IGMMA"] == 0 or i8[0]["HGMMA"] == 0
+            or i8[0]["IMMA"] or i8[0]["HMMA"]):
+        raise AssertionError(f"rdb's int8 kernel is not IGMMA and HGMMA alone: {sass}")
     w8 = [c for k, c in sass.items() if "rdb_w8a8_kernel" in k]
-    if len(w8) != 1 or w8[0]["IMMA"] == 0 or w8[0]["HMMA"] != 0:
-        raise AssertionError(f"rdb's full-W8A8 kernel is not all IMMA: {sass}")
+    if (len(w8) != 1 or w8[0]["IGMMA"] == 0 or w8[0]["HGMMA"]
+            or w8[0]["IMMA"] or w8[0]["HMMA"]):
+        raise AssertionError(f"rdb's full-W8A8 kernel is not IGMMA alone: {sass}")
+    notes = [n for n in state.get("ptxas_wgmma", {}).get("rdb", [])
+             if "rdb_i8_kernel" in n or "rdb_w8a8_kernel" in n]
+    regs = {k: v for k, v in state.get("ptxas", {}).get("rdb", {}).items()
+            if "rdb_i8_kernel" in k or "rdb_w8a8_kernel" in k}
+    smem = {"rdb_i8": (rdb_mod.kernel_tiling_i8()["smem_bytes"],
+                       rdb_mod.wg_smem_plan(False)["total"]),
+            "rdb_w8a8": (rdb_mod.kernel_tiling_w8a8()["smem_bytes"],
+                         rdb_mod.wg_smem_plan(True)["total"])}
+    emit({"phase": "kernel", "kernel": "rdb_i8_kernel", "sass": i8[0]})
+    emit({"phase": "kernel", "kernel": "rdb_w8a8_kernel", "sass": w8[0]})
+    emit({"phase": "kernel", "int8_kernels_ptxas": regs,
+          "ptxas_wgmma_notes": notes, "smem_bytes_vs_plan": smem})
+    if notes:
+        raise AssertionError(f"ptxas serialised or fenced the int8 kernels' wgmmas: {notes}")
+    if any(a != b for a, b in smem.values()):
+        raise AssertionError(f"int8 kernels' shared memory differs from wg_smem_plan: {smem}")
     launches0 = rdb_mod.LAUNCHES
     state["rdb_max_abs_err"], state["rdb_rel_err"] = hold_against_plain(
         "kernel", "rdb", rdb_mod.rdb, rdb_mod.rdb_reference, cases,
@@ -1211,6 +1237,35 @@ def phase_int8(state):
           "full_over_bf16_rate": rate["full"] / rate["bfloat16"],
           "full_over_mixed_rate": rate["full"] / rate["mixed"],
           "card": card})
+    # the three RDB kernels on the chunk's first trunk input with the
+    # model's first block (bf16, its mixed and its full quantization), in
+    # turns in one call: the int8 kernels' ms beside rdb's
+    launches0 = (rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES_W8A8)
+    fn_full = q8.int8_rdb_fn(model, qfull, "full")
+    fn_mixed = q8.int8_rdb_fn(model, qmixed, "mixed")
+    first = {}
+
+    def capture(index, t, mk):
+        if index == 0:
+            first["x"] = t.contiguous()
+        return fn_full(index, t, mk)
+
+    model(chunk, up_sub_batch=eng.up_sub, rdb_fn=capture)
+    xt, r0 = first["x"], model.body[0].rdb1
+    per = {"rdb": lambda: rdb_mod.rdb(xt, r0.w_packed, r0.b_packed),
+           "rdb_i8": lambda: fn_mixed(0, xt, None),
+           "rdb_w8a8": lambda: fn_full(0, xt, None)}
+    kernel_ms = {k: [] for k in per}
+    for name in ("rdb", "rdb_i8", "rdb_w8a8", "rdb_w8a8", "rdb_i8", "rdb"):
+        kernel_ms[name].append(time_cuda(per[name], iters=10))
+    (rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES_W8A8) = launches0
+    best = {k: min(v) for k, v in kernel_ms.items()}
+    emit({"phase": "int8", "check": "RDB kernels on the trunk input, in turns",
+          "shape": list(xt.shape), "kernel_ms": kernel_ms,
+          "i8_over_rdb": best["rdb_i8"] / best["rdb"],
+          "w8a8_over_rdb": best["rdb_w8a8"] / best["rdb"], "card": card})
+    state["int8_kernel_ms"] = best
+    del first, xt
     # the bucket contract
     h, w = CONTRACT_BUCKET
     up = synthetic_fields((h, w), seed=14)
@@ -5711,9 +5766,8 @@ def mxu_faults(ws) -> dict:
 def sass_counts(lib) -> dict:
     """Per kernel of the built library, the SASS instructions that show
     the tensor cores at work (HMMA for mma.sync, HGMMA for wgmma, IMMA for
-    the int8 mma.sync), the A
-    loads (LDSM) and the shared stores (STS), as ``cuobjdump -sass``
-    lists them."""
+    the int8 mma.sync, IGMMA for the int8 wgmma), the A loads (LDSM) and
+    the shared stores (STS), as ``cuobjdump -sass`` lists them."""
     import re
     import shutil
 
@@ -5725,8 +5779,8 @@ def sass_counts(lib) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"HMMA": 0, "HGMMA": 0, "IMMA": 0, "LDSM": 0,
-                            "STS": 0}
+            counts[name] = {"HMMA": 0, "HGMMA": 0, "IMMA": 0, "IGMMA": 0,
+                            "LDSM": 0, "STS": 0}
         elif name:
             for op in counts[name]:
                 if re.search(rf"\b{op}\b", line):

@@ -35,31 +35,37 @@
 //   implicit GEMM on the tensor cores (mma.sync.m16n8k16, float32
 //   accumulators), 16x16 tiles, the sources pixel-major with a swizzle
 //   (200,704 B shared).
-// - bfloat16 with an int8 x stage (precision "int8", the int8-mixed trunk of
-//   s2sr_tpu/models/rrdbnet_int8.py::_rdb_packed_mixed), rdb_i8_kernel: the
-//   same kernel, but x is quantized to int8 as it is loaded (round half to
-//   even of x * qm, clamped to +-127; 43,264 B instead of 86,528) and the
-//   9 * 64 rows of x in every stage run on mma.sync.m16n8k32 s8 x s8 into
-//   int32, dequantized per output channel into the float32 accumulators
-//   before x1..x4 add their bf16 products (157,440 B shared). The JAX
-//   package computes this conv with XLA's int8 convolution; it has no TPU
-//   kernel of its own.
+// - bfloat16 with its x conv in int8, rdb_i8_kernel: the int8-mixed block of
+//   precision "int8" (s2sr_tpu/models/rrdbnet_int8.py:224 _rdb_packed_mixed,
+//   which JAX runs with XLA's int8 convolution: no Pallas kernel). x is
+//   quantized as it is loaded (round half to even of x * qm, clamped to
+//   +-127); x's rows run as s8 x s8 into int32, dequantized per output
+//   channel into the float32 accumulators before x1..x4 add their bf16
+//   products. On wgmma (section "the int8 kernels on wgmma" below).
 // - the time-attribution instances of the bf16 kernel, rdb_tc_ablate_kernel
 //   (the ports of rdb_pallas_v4's staging knobs, never served): the same
 //   kernel with its epilogue's stores, its accumulation or its B lookahead
 //   taken out (enum Variant below).
-// - full W8A8 (every conv input quantized, all five convs int8:
-//   s2sr_tpu/models/rrdbnet_int8.py::_rdb_packed_i8), rdb_w8a8_kernel: the
-//   int8 instance carried to every stage. x is quantized on load with
-//   qm[0], each stage's epilogue stores x1..x4 in shared memory as int8
-//   (round half to even of v * qm[k] after bias, LeakyReLU and the mask;
-//   quant(0) = 0 keeps the halo outside the image zero), and every source
-//   of every stage runs on mma.sync.m16n8k32 s8 x s8 into int32. Each
-//   source has its own activation scale, so a source's int32 sums are
-//   dequantized by its own factors into the stage's float32 accumulators
-//   before the next source starts (100,352 B shared). The JAX package runs
-//   these convs with XLA's int8 convolution; it has no TPU kernel of its
-//   own.
+// - full W8A8, rdb_w8a8_kernel: every conv input quantized, all five convs
+//   int8 (s2sr_tpu/models/rrdbnet_int8.py:169 _rdb_packed_i8, XLA's int8
+//   convolution in JAX: no Pallas kernel). Each stage's epilogue stores
+//   x1..x4 in shared memory as int8 (round half to even of v * qm[k] after
+//   bias, LeakyReLU and the mask; quant(0) = 0 keeps the halo outside the
+//   image zero); each source's exact int32 sums are dequantized by its own
+//   factors into the float32 accumulators before the next source starts.
+//   The all-s8 instance of rdb_i8_kernel's design.
+//
+//   What bounds the two int8 kernels on this card: as counted in
+//   chip_smoke.py (each input read once, the int8 products at 1,979 TOPS),
+//   operations. What bounds the design: shared memory. A wgmma's A (64 rows
+//   x 32 bytes) is read from the resident sources by ldmatrix and its B
+//   (N rows x 32 bytes) by the tensor cores, so at N = 32 (stages 1-4) each
+//   k-step moves 3 KB of shared memory for 64 x 32 x 32 s8 multiply-adds:
+//   at 128 B a clock that is 24 clocks against the tensor cores' 16 (67%);
+//   at N = 64 (stage 5) 4 KB against 32 (100%). The design keeps x and
+//   x1..x4 resident (no copy of A a step), streams B by bulk copies that
+//   no thread issues but one, and keeps a k-step's products in flight
+//   while the next k-step's A loads.
 // - float32, rdb_kernel: float32 FMA on the CUDA cores (the tensor cores
 //   would make it TF32), 8x8 tiles (172,032 B shared), the sources planar
 //   [channel][y][x] so that the 32 lanes of a warp read 32 neighbouring
@@ -377,13 +383,6 @@ __host__ __device__ constexpr int tc_woff(int s) {
   return off;
 }
 
-// uint4s (per lane, 32 lanes) of the packed int8 x fragments before stage s:
-// 18 k32 slabs of Cout / 16 blocks each
-__host__ __device__ constexpr int i8_woff(int s) {
-  int off = 0;
-  for (int k = 1; k < s; ++k) off += 9 * NF / 32 * stage_cout(k) / 16 * 32;
-  return off;
-}
 // column of stage s's output channel 0 in the packed 64 -> 192 x conv,
 // whose columns are [a5 | a4 | a3 | a2 | a1] (rrdbnet.py::packed_prefix_kernels)
 __host__ __device__ constexpr int i8_col(int s) {
@@ -428,14 +427,6 @@ __device__ __forceinline__ void tc_keep(float* sink, const float (&acc)[MT][NN][
   }
 }
 
-__device__ __forceinline__ void i8_mma(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // round(v * qm) clamped to +-127 as int8 in the low byte: jnp.round is
 // round half to even, as rintf
 __device__ __forceinline__ uint32_t quant1(float v, float qm) {
@@ -451,17 +442,12 @@ __device__ __forceinline__ uint32_t quant4(uint32_t lo, uint32_t hi, float qm) {
          | quant1(__uint_as_float(hi & 0xffff0000u), qm) << 24;
 }
 
-// One conv stage S (1..5) on the tensor cores. With I8, x's rows come from
-// the int8 copy of x (s8 B fragments wq, dequantized by deq) and the
-// residual reads x from device memory. V: the instance (enum Variant);
-// sink: tc_keep's, null on every launch.
-template <int S, bool I8, int V = SERVED>
+// One conv stage S (1..5) on the tensor cores. V: the instance (enum
+// Variant); sink: tc_keep's, null on every launch.
+template <int S, int V = SERVED>
 __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict__ wf,
-                                         const uint4* __restrict__ wq,
-                                         const float* __restrict__ deq,
                                          const float* __restrict__ bias,
                                          const float* __restrict__ mask,
-                                         const __nv_bfloat16* __restrict__ x,
                                          __nv_bfloat16* __restrict__ out,
                                          int b, int H, int W, int oy0, int ox0,
                                          float* sink = nullptr) {
@@ -474,7 +460,6 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const uint4* ws = wf + tc_woff(S) + lane;
-  static_assert(V == SERVED || !I8, "the ablations are of the bf16 kernel");
 
   // this lane's ldmatrix pixel in each of the warp's M tiles
   int py[MT], px[MT];
@@ -486,74 +471,13 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
     px[m] = p % RS;
   }
   float acc[MT][2 * NB][4];
-  // the bf16 fragments of x's rows (the first 9 * 64 / 16 slabs) are not
-  // read by the int8 instance
-  int slab = I8 ? 9 * NF / 16 : 0;
-  if constexpr (I8) {
-    // x's rows: k32 slabs of (tap, 32 channels) of the int8 copy of x (4
-    // chunks a pixel), int32 accumulators
-    int iacc[MT][2 * NB][4];
+  int slab = 0;
 #pragma unroll
-    for (int m = 0; m < MT; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int n = 0; n < 2 * NB; ++n)
+    for (int n = 0; n < 2 * NB; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) iacc[m][n][e] = 0;
-    const uint4* qs = wq + i8_woff(S) + lane;
-    constexpr int NQ = 9 * NF / 32;
-    uint4 qcur[NB], qnext[NB];
-#pragma unroll
-    for (int n = 0; n < NB; ++n) qcur[n] = __ldg(qs + n * 32);
-    const int r0 = tc_side(0);
-    int sp0[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) sp0[m] = (py[m] + S - 1) * r0 + px[m] + S - 1;
-    int qsl = 0;
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = (tap / 3) * r0 + tap % 3;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int nxt = qsl + 1 < NQ ? qsl + 1 : qsl;
-#pragma unroll
-        for (int n = 0; n < NB; ++n) qnext[n] = __ldg(qs + (nxt * NB + n) * 32);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if (warp + TC_WARPS * m >= NT) break;
-          const uint32_t q = (uint32_t)(sp0[m] + toff) * 4 + 2 * c + (lane >> 4);
-          uint32_t a[4];
-          tc_ldmatrix(a, sbase + swz(q) * 16);
-#pragma unroll
-          for (int n = 0; n < NB; ++n) {
-            i8_mma(iacc[m][2 * n], a, qcur[n].x, qcur[n].y);
-            i8_mma(iacc[m][2 * n + 1], a, qcur[n].z, qcur[n].w);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < NB; ++n) qcur[n] = qnext[n];
-        ++qsl;
-      }
-    }
-    // dequantize: accumulator (m, n8 tile k, e) is channel 8k + 2t + e % 2;
-    // |sum| <= 127 * 127 * 576 < 2^24, so the conversion is exact
-#pragma unroll
-    for (int k = 0; k < 2 * NB; ++k) {
-      const float d0 = __ldg(deq + i8_col(S) + 8 * k + 2 * t);
-      const float d1 = __ldg(deq + i8_col(S) + 8 * k + 2 * t + 1);
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[m][k][e] = __fmul_rn(__int2float_rn(iacc[m][k][e]), (e & 1) ? d1 : d0);
-    }
-  } else {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int n = 0; n < 2 * NB; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-  }
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
 
   uint4 bcur[NB], bnext[NB];
   if constexpr (V != SERIAL_B) {
@@ -562,7 +486,7 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
   }
   constexpr int NSLAB = 9 * stage_cin(S) / 16;
 #pragma unroll
-  for (int j = I8 ? 1 : 0; j < S; ++j) {
+  for (int j = 0; j < S; ++j) {
     if constexpr (V == NO_ACC) {
       // overwrite, not add: the earlier sources' products are dropped
       // (kept alive for ptxas, so their MMAs still run)
@@ -579,7 +503,7 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
     const int rj = tc_side(j);
     const int cq = src_chans(j) / 8;      // 16-byte chunks a pixel
     const int d = S - 1 - j;              // the region's offset in source j
-    const uint32_t base = sbase + tc_off(j, I8);
+    const uint32_t base = sbase + tc_off(j);
     int sp0[MT];
 #pragma unroll
     for (int m = 0; m < MT; ++m) sp0[m] = (py[m] + d) * rj + px[m] + d;
@@ -643,7 +567,7 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
         const float mk = !inside ? 0.f
                          : (mask ? mask[img_off + (size_t)gy * W + gx] : 1.f);
         // x_S at its own region's pixel p: 4 chunks a pixel
-        const uint32_t dst = sbase + tc_off(S, I8);
+        const uint32_t dst = sbase + tc_off(S);
 #pragma unroll
         for (int k = 0; k < 2 * NB; ++k) {
           const int co = 8 * k + 2 * t;
@@ -662,21 +586,15 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
         if (gy >= H || gx >= W) continue;
         const size_t pix = img_off + (size_t)gy * W + gx;
         const float mk = mask ? mask[pix] : 1.f;
-        // x at the same pixel: region 0 has a 5-pixel halo, 8 chunks a
-        // pixel; the int8 instance keeps only x's int8 copy, so it reads the
-        // residual from device memory
+        // x at the same pixel: region 0 has a 5-pixel halo, 8 chunks a pixel
         const int xp = (ry + HALO) * tc_side(0) + rx + HALO;
 #pragma unroll
         for (int k = 0; k < 2 * NB; ++k) {
           const int co = 8 * k + 2 * t;
           uint32_t xin;
-          if constexpr (I8) {
-            xin = __ldg(reinterpret_cast<const unsigned int*>(x + pix * NF + co));
-          } else {
-            const uint32_t q = (uint32_t)xp * 8 + k;
-            asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(xin)
-                         : "r"(sbase + swz(q) * 16 + 4 * t) : "memory");
-          }
+          const uint32_t q = (uint32_t)xp * 8 + k;
+          asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(xin)
+                       : "r"(sbase + swz(q) * 16 + 4 * t) : "memory");
           const float2 xf = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(&xin));
           const float v0 = (acc[m][k][2 * h] + __ldg(bias + 4 * G + co)) * 0.2f + xf.x;
@@ -717,20 +635,15 @@ __device__ __forceinline__ void rdb_tc_body(
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
   __syncthreads();
-  tc_stage<1, false, V>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0,
-                        sink);
+  tc_stage<1, V>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0, sink);
   __syncthreads();
-  tc_stage<2, false, V>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0,
-                        sink);
+  tc_stage<2, V>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0, sink);
   __syncthreads();
-  tc_stage<3, false, V>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0,
-                        sink);
+  tc_stage<3, V>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0, sink);
   __syncthreads();
-  tc_stage<4, false, V>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0,
-                        sink);
+  tc_stage<4, V>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0, sink);
   __syncthreads();
-  tc_stage<5, false, V>(sbase, wf, nullptr, nullptr, bias, mask, x, out, b, H, W, oy0, ox0,
-                        sink);
+  tc_stage<5, V>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0, sink);
 }
 
 __global__ void __launch_bounds__(TC_WARPS * 32, 1)
@@ -750,85 +663,440 @@ rdb_tc_ablate_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
   rdb_tc_body<V>(x, mask, out, wf, bias, sink, H, W);
 }
 
-// The int8 x stage: wq holds the packed 64 -> 192 x conv as int8 B fragments
-// of m16n8k32 (ops/rdb.py::pack_rdb_i8_fragments), deq its 192 dequantization
-// factors in packed column order, qm x's quantization multiplier.
-__global__ void __launch_bounds__(TC_WARPS * 32, 1)
-rdb_i8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
-              __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wf,
-              const uint4* __restrict__ wq, const float* __restrict__ deq,
-              const float* __restrict__ bias, float qm, int H, int W) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_raw);
-  const int b = blockIdx.z;
-  const int oy0 = blockIdx.y * TC_TILE, ox0 = blockIdx.x * TC_TILE;
-  const size_t img_off = (size_t)b * H * W;
-  {
-    // input tile + 5-px halo quantized on the way in: one 16-byte load of 8
-    // channels becomes 8 bytes of chunk (c / 2) of a 4-chunk pixel; zero
-    // outside the image (quant(0) = 0)
-    constexpr int R = tc_side(0);
-    for (int i = threadIdx.x; i < R * R * 8; i += TC_WARPS * 32) {
-      const int p = i >> 3, c = i & 7;
-      const int gy = oy0 - HALO + p / R, gx = ox0 - HALO + p % R;
-      uint32_t lo = 0, hi = 0;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const uint4 v = __ldg(reinterpret_cast<const uint4*>(
-            x + (img_off + (size_t)gy * W + gx) * NF + 8 * c));
-        lo = quant4(v.x, v.y, qm);
-        hi = quant4(v.z, v.w, qm);
-      }
-      const uint32_t q = (uint32_t)p * 4 + (c >> 1);
-      asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n"
-                   ::"r"(sbase + swz(q) * 16 + 8 * (c & 1)), "r"(lo), "r"(hi)
-                   : "memory");
-    }
-  }
-  __syncthreads();
-  tc_stage<1, true>(sbase, wf, wq, deq, bias, mask, x, out, b, H, W, oy0, ox0);
-  __syncthreads();
-  tc_stage<2, true>(sbase, wf, wq, deq, bias, mask, x, out, b, H, W, oy0, ox0);
-  __syncthreads();
-  tc_stage<3, true>(sbase, wf, wq, deq, bias, mask, x, out, b, H, W, oy0, ox0);
-  __syncthreads();
-  tc_stage<4, true>(sbase, wf, wq, deq, bias, mask, x, out, b, H, W, oy0, ox0);
-  __syncthreads();
-  tc_stage<5, true>(sbase, wf, wq, deq, bias, mask, x, out, b, H, W, oy0, ox0);
-}
-
-// --- full W8A8: every source in int8 ------------------------------------------
+// --- the int8 kernels on wgmma: rdb_i8_kernel and rdb_w8a8_kernel -----------
 //
-// Shared memory holds x (4 chunks a pixel) and x1..x4 (2 chunks a pixel) in
-// int8, each swizzled as above. A k32 slab is (source, tap, 32 channels): two
-// slabs a tap for x, one for x1..x4. wq holds, stage by stage and source by
-// source, the s8 B fragments of the columns of the stage's output channels in
-// that source's packed kernel (ops/rdb.py::pack_rdb_w8a8); deq the five
-// sources' dequantization factors concatenated (192, 160, 128, 96, 64), qm
-// their five quantization multipliers.
+// Each conv stage is the implicit GEMM of rdb_tc_kernel, issued by two
+// consumer warpgroups (4 warps each) as wgmma.mma_async with 64-row M tiles:
+// m64nNk32 s8 x s8 into int32 for every s8 source, m64nNk16 bf16 into
+// float32 for rdb_i8's x1..x4; N is the stage's Cout (32, or 64 in stage 5).
+//
+// A comes from registers. Each warp's 16 rows of a tile are 16 region
+// pixels, loaded by ldmatrix.x4 from the resident sources at the tap's shift
+// (wgmma's register layout of A is mma.sync's A fragment). Chosen over A by
+// descriptor from shared memory: a descriptor's 8-row core matrices must be
+// 8 pixels a constant stride apart, so its M tile is an 8 x 8 patch
+// (executed / useful 1.67, against 1.48 here) and a tap's dx shift moves the
+// start off the swizzle atom (the base-offset field); the register route
+// takes any tap shift from any pixel. The resident sources are laid out so
+// that an ldmatrix phase hits 8 bank groups from any first pixel (rot).
+//
+// B comes from shared memory by descriptor. The wrapper packs each stage's
+// rows of B once, as slabs of KQ k-steps in wgmma's K-major layout with the
+// 128-byte swizzle (row n of a slab is output channel n, 4 k-steps of 32
+// bytes; its 16-byte chunk c at c ^ (n % 8); 8-row groups 1024 bytes apart),
+// and a producer warpgroup streams them in the order the consumers read them
+// through a ring of NBUF slots: one cp.async.bulk a slab by one thread,
+// completing on the slot's `full` mbarrier; the consumers arrive on its
+// `empty` mbarrier once their wgmmas on it have completed, and the producer
+// refills it NBUF slabs ahead. No consumer loads B.
+//
+// The pipeline (wg_run): per k-step, ldmatrix of its A into one of two
+// register sets, wgmma.fence, one wgmma a tile, commit; then wait_group 1,
+// so that a step's products run while the next step's A loads. An s8
+// source's sums start from zeroed registers; after its last step,
+// wait_group 0 and they are dequantized per output channel into the float32
+// accumulators (exact: |sum| <= 127 * 127 * 576 < 2^24): rdb_i8 before
+// x1..x4 add their bf16 products, rdb_w8a8 before the next source starts. Both warpgroups run the same number of M tiles (a branch on the
+// warpgroup would serialise the wgmmas): tile w + 2m for warpgroup w; rows
+// past the region load its last pixel and are dropped. ptxas keeps the
+// wgmmas in flight together only in wg_run's shape; chip_smoke.py fails on
+// any wgmma note of ptxas for these kernels.
+//
+// A block: 384 threads (launch bounds 384, 1 block an SM); setmaxnreg gives
+// the consumers 240 registers a thread and the producer warpgroup 24.
+// Shared memory: the ring (NBUF x 8 KB) and the resident sources, 224,128
+// bytes for rdb_i8 and 167,040 for rdb_w8a8 (wg_smem_bytes).
 
-// byte offset of source buffer j, every one a multiple of 128 bytes
+constexpr int WGS = TC_WARPS / 4;        // consumer warpgroups a block
+constexpr int WG_THREADS = TC_WARPS * 32 + 128;  // and a producer warpgroup
+constexpr int KQ = 4;                    // k-steps a slab: 128 bytes of K a row
+constexpr int NBUF = 8;                  // slots of the B ring
+constexpr int SLOT = 64 * 128;           // bytes a slot: one slab at N 64
+constexpr int RING = NBUF * SLOT;
+
+// 64-row M tiles over stage s's region, and the tiles each warpgroup runs
+__host__ __device__ constexpr int wg_tiles(int s) {
+  return (tc_side(s) * tc_side(s) + 63) / 64;
+}
+__host__ __device__ constexpr int wg_mt(int s) { return (wg_tiles(s) + WGS - 1) / WGS; }
+
+// k-steps (32 bytes of K in a row of B: 32 s8 or 16 bf16 values) of source j:
+// two a tap for x (64 channels in s8) and for rdb_i8's bf16 x1..x4, one a tap
+// for rdb_w8a8's s8 x1..x4
+template <bool W8>
+__host__ __device__ constexpr int src_steps(int j) { return j > 0 && W8 ? 9 : 18; }
+
+// A stage's parts, each a run of k-steps from one packed stream: rdb_i8's
+// part 0 is x (s8, stream wq) and part 1 x1..x_{s-1} (bf16, stream wf; stage
+// 1 has none); rdb_w8a8's one part is x, x1..x_{s-1} (s8, stream wq)
+template <bool W8>
+__host__ __device__ constexpr int n_parts(int s) { return W8 || s == 1 ? 1 : 2; }
+template <bool W8>
+__host__ __device__ constexpr int part_steps(int s, int part) {
+  int n = 0;
+  for (int j = 0; j < s; ++j)
+    if (W8 || (part == 0) == (j == 0)) n += src_steps<W8>(j);
+  return n;
+}
+__host__ __device__ constexpr int n_slabs(int steps) { return (steps + KQ - 1) / KQ; }
+// global index of part p of stage s's first slab; slab0(6, 0) counts them all
+template <bool W8>
+__host__ __device__ constexpr int slab0(int s, int p) {
+  int n = 0;
+  for (int k = 1; k < s; ++k)
+    for (int q = 0; q < n_parts<W8>(k); ++q) n += n_slabs(part_steps<W8>(k, q));
+  for (int q = 0; q < p; ++q) n += n_slabs(part_steps<W8>(s, q));
+  return n;
+}
+template <bool W8>
+__host__ __device__ constexpr int total_slabs() { return slab0<W8>(6, 0); }
+
+// byte offset of source buffer j after the ring: rdb_i8 holds x in int8 (4
+// chunks a pixel) and x1..x4 in bf16 (4 chunks), rdb_w8a8 all in int8 (x 4
+// chunks, x1..x4 2); every offset a multiple of 128 bytes
 __host__ __device__ constexpr int w8_off(int j) {
   int off = 0;
   for (int k = 0; k < j; ++k) off += tc_side(k) * tc_side(k) * src_chans(k);
   return off;
 }
-// uint4s (per lane, 32 lanes) of the B fragments before source j of stage s
-__host__ __device__ constexpr int w8_woff(int s, int j) {
-  int off = 0;
-  for (int k = 1; k <= s; ++k)
-    for (int i = 0; i < (k < s ? k : j); ++i)
-      off += 9 * src_chans(i) / 32 * stage_cout(k) / 16 * 32;
-  return off;
+template <bool W8>
+__host__ __device__ constexpr int wg_src_off(int j) { return W8 ? w8_off(j) : tc_off(j, true); }
+// [up to 1024 bytes to align the ring][ring][sources][2 NBUF mbarriers]
+template <bool W8>
+constexpr size_t wg_smem_bytes() { return 1024 + RING + wg_src_off<W8>(5) + 2 * NBUF * 8; }
+static_assert(wg_smem_bytes<false>() <= 232448 && wg_smem_bytes<true>() <= 232448,
+              "shared memory over the block limit");
+
+// Byte offset of 16-byte chunk c of pixel p in a resident source of CQ chunks
+// a pixel (4: 64 bytes, 2: 32 bytes): the 8 / CQ pixels of a 128-byte line
+// side by side, chunk c of pixel p at bank group (p + 8 / CQ * c) % 8. The 8
+// rows of an ldmatrix phase, 8 consecutive pixels at one chunk, then hit 8
+// bank groups from any first pixel; the XOR swizzle of rdb_tc_kernel (swz)
+// does so only from an even one. Over these kernels' tap shifts, by count,
+// 48-51% of the phases take two wavefronts with swz and 12-13% (those that
+// cross a region row) with rot (tests/test_torch_int8.py counts them).
+template <int CQ>
+__device__ __forceinline__ uint32_t rot(uint32_t p, uint32_t c) {
+  return (p * CQ / 8) * 128 + ((p + 8 / CQ * c) & 7) * 16;
 }
-// first of source j's factors in deq
+
+// first of source j's factors in rdb_w8a8's deq
 __host__ __device__ constexpr int w8_deq_off(int j) {
   int off = 0;
   for (int k = 0; k < j; ++k) off += NF + (4 - k) * G;
   return off;
 }
 
-template <int S>
-__device__ __forceinline__ void w8_stage(uint32_t sbase, const uint4* __restrict__ wq,
+// wgmma.mma_async, A from registers, B by descriptor: d += A B (scale-d 1;
+// sums start from zeroed registers). m64nNk32 s8 x s8 into int32 (N / 2 a
+// thread), m64nNk16 bf16 into float32.
+__device__ __forceinline__ void wg_s8_32(int* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wg_s8_64(int* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wg_bf16_32(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wg_bf16_64(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wg_mma(int* d, const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 32) wg_s8_32(d, a, b);
+  else wg_s8_64(d, a, b);
+}
+template <int N>
+__device__ __forceinline__ void wg_mma(float* d, const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 32) wg_bf16_32(d, a, b);
+  else wg_bf16_64(d, a, b);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+// Orders the accumulators after a wgmma_wait for the compiler, which sees no
+// register operand on the wait (CUTLASS's warpgroup_fence_operand).
+template <int MT, int NA>
+__device__ __forceinline__ void fence_acc(int (&d)[MT][NA]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) asm volatile("" : "+r"(d[m][i])::"memory");
+}
+template <int MT, int NA>
+__device__ __forceinline__ void fence_acc(float (&d)[MT][NA]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[m][i])::"memory");
+}
+
+// Descriptor of a K-major, 128-byte-swizzled B slab at shared address addr:
+// 8-row groups 1024 bytes apart (SBO 64), the leading offset unused by this
+// layout (1), layout type 1 (SWIZZLE_128B). A k-step's start lies (k % 4) * 32
+// bytes into its slab's 1024-aligned rows, so the base offset stays 0.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
+}
+
+// Waits for the phase of parity `parity` of the mbarrier at `bar`, polling
+// inside one asm block, so that the consumers' wgmma pipeline holds no branch
+// the compiler sees. A wait of 2^33 clocks (seconds) traps: a fault in the
+// ring's bookkeeping ends the launch with an error instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile("{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+               "mov.u64 t0, %%clock64;\n"
+               "WAIT:\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+               "@p bra DONE;\n"
+               "mov.u64 t1, %%clock64;\n"
+               "sub.u64 t1, t1, t0;\n"
+               "setp.lt.u64 p, t1, 8589934592;\n"
+               "@p bra WAIT;\n"
+               "trap;\n"
+               "DONE:\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+// The B ring: NBUF slots of SLOT bytes from 1024-aligned `slots`, a `full`
+// and an `empty` mbarrier a slot; wq and wf the packed streams.
+struct Ring {
+  uint32_t slots, full, empty;
+  const unsigned char* wq;
+  const unsigned char* wf;
+};
+
+// The producer: slab g into its slot, one bulk copy from its stream (its
+// place found by walking the parts in order), completing on the slot's full
+// barrier.
+template <bool W8>
+__device__ __forceinline__ void issue_slab(const Ring& r, int g) {
+  const unsigned char* src = nullptr;
+  uint32_t bytes = 0;
+  size_t off[2] = {0, 0};
+  int h = g;
+#pragma unroll
+  for (int s = 1; s <= 5; ++s)
+#pragma unroll
+    for (int p = 0; p < n_parts<W8>(s); ++p) {
+      const int n = n_slabs(part_steps<W8>(s, p));
+      const uint32_t qb = stage_cout(s) * 128;
+      if (h >= 0 && h < n) {
+        src = (p ? r.wf : r.wq) + off[p] + (size_t)h * qb;
+        bytes = qb;
+      }
+      h -= n;
+      off[p] += (size_t)n * qb;
+    }
+  const uint32_t slot = (uint32_t)g % NBUF;
+  const uint32_t bar = r.full + 8 * slot;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];\n"
+               ::"r"(r.slots + slot * SLOT), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void ring_wait(const Ring& r, int g) {
+  mbar_wait(r.full + 8 * (g % NBUF), (uint32_t)(g / NBUF) & 1);
+}
+
+// This thread's wgmmas on slab g have completed: it arrives on the slot's
+// empty barrier (all 256 consumer threads arrive, so no branch).
+__device__ __forceinline__ void ring_release(const Ring& r, int g) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(r.empty + 8 * (g % NBUF)) : "memory");
+}
+
+// The producer warp's lane 0: every slab in order, each into its slot once
+// the consumers have released the slab NBUF before it.
+template <bool W8>
+__device__ __forceinline__ void ring_produce(const Ring& r) {
+  for (int g = 0; g < total_slabs<W8>(); ++g) {
+    if (g >= NBUF) mbar_wait(r.empty + 8 * (g % NBUF), (uint32_t)(g / NBUF - 1) & 1);
+    issue_slab<W8>(r, g);
+  }
+}
+
+// The consumers' barrier between stages (named barrier 1: the producer warp
+// does not take part)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TC_WARPS * 32) : "memory");
+}
+
+// Where a k-step's A lies: its source's buffer, the source's region side,
+// the stage region's offset in it, k-steps a tap.
+struct Src {
+  uint32_t base;
+  int rj, d, spt;
+};
+
+// One k-step of the pipeline: index k of the run (src(k, kk) gives its
+// source and sets kk, its index in that source), t0 + k of its part, whose
+// slabs start at global index s0. ldmatrix of the M tiles' A, one fence, one
+// wgmma a tile, one commit; then wait_group 1, so that a step's products run
+// while the next step's A loads. The step before has then completed: a slab
+// whose last k-step it was is released. CQ: 16-byte chunks a pixel of the
+// run's sources; py, px: this lane's ldmatrix pixel in each M tile.
+template <int CQ, typename T, int MT, int NA, typename F>
+__device__ __forceinline__ void wg_step(T (&acc)[MT][NA], uint32_t (&a)[MT][4],
+                                        const Ring& ring, const int (&py)[MT],
+                                        const int (&px)[MT], int k, int t0, int s0,
+                                        F src) {
+  const int tt = t0 + k;
+  const int g = s0 + tt / KQ;
+  if (tt % KQ == 0) ring_wait(ring, g);
+  int kk;
+  const Src sr = src(k, kk);
+  const int tap = kk / sr.spt, cc = kk % sr.spt;
+  const int oy = sr.d + tap / 3, ox = sr.d + tap % 3;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const uint32_t p = (uint32_t)((py[m] + oy) * sr.rj + px[m] + ox);
+    tc_ldmatrix(a[m], sr.base + rot<CQ>(p, 2 * cc + (lane >> 4)));
+  }
+  // every input register of the step's wgmmas (A, B's descriptor, the
+  // accumulators) defined before the fence: an instruction defining one
+  // between the fence and the wgmmas serialises them (ptxas C7513)
+  uint64_t desc = b_desc(ring.slots + (uint32_t)(g % NBUF) * SLOT + (tt % KQ) * 32);
+  asm volatile("" : "+l"(desc)::"memory");
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int m = 0; m < MT; ++m) wg_mma<2 * NA>(acc[m], a[m], desc);
+  wgmma_commit();
+  wgmma_wait<1>();
+  if (tt % KQ == 0 && tt > 0) ring_release(ring, g - 1);
+}
+
+// The N k-steps (N >= 3) of a part from its index t0, whose slabs start at
+// global index s0 (src as wg_step's), on two register sets of A in turn: a
+// prologue of two steps (three if N is odd), then a runtime loop over pairs.
+// Nothing is in flight when it starts; the caller waits for all at its end
+// and releases the part's last slab. ptxas keeps consecutive steps' wgmmas
+// in flight together only in this shape: a loop entered with accumulators
+// that no wgmma has written yet (C7515), a third register set or a step
+// after the loop (C7513) serialise them. (Two k-steps a fence measured no
+// faster, and rdb_w8a8 then spills.)
+template <int N, int CQ, typename T, int MT, int NA, typename F>
+__device__ __forceinline__ void wg_run(T (&acc)[MT][NA], const Ring& ring, int t0, int s0,
+                                       const int (&py)[MT], const int (&px)[MT], F src) {
+  static_assert(N >= 3, "a run of at least three k-steps");
+  uint32_t a0[MT][4], a1[MT][4];
+  wg_step<CQ>(acc, a0, ring, py, px, 0, t0, s0, src);
+  wg_step<CQ>(acc, a1, ring, py, px, 1, t0, s0, src);
+  if constexpr (N % 2 == 1) wg_step<CQ>(acc, a0, ring, py, px, 2, t0, s0, src);
+  // then the pairs: (a0, a1) after two steps, (a1, a0) after three
+  uint32_t (&b0)[MT][4] = N % 2 == 1 ? a1 : a0;
+  uint32_t (&b1)[MT][4] = N % 2 == 1 ? a0 : a1;
+#pragma unroll 1
+  for (int k = N % 2 == 1 ? 3 : 2; k < N; k += 2) {
+    wg_step<CQ>(acc, b0, ring, py, px, k, t0, s0, src);
+    wg_step<CQ>(acc, b1, ring, py, px, k + 1, t0, s0, src);
+  }
+}
+
+template <int MT, int NA>
+__device__ __forceinline__ void zero_acc(int (&d)[MT][NA]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) d[m][i] = 0;
+}
+
+// rdb_w8a8's sources J.. S-1 of stage S, each an s8 run from zero, its sums
+// dequantized by its own factors at the stage's columns and added to acc
+// before the next starts: a product and then a sum, each rounded once, as
+// the plain version in float32.
+template <int S, int J, int MT, int NA>
+__device__ __forceinline__ void w8_sources(float (&acc)[MT][NA], int (&iacc)[MT][NA],
+                                           const Ring& ring, uint32_t sbase,
+                                           const float* __restrict__ deq,
+                                           const int (&py)[MT], const int (&px)[MT]) {
+  if constexpr (J < S) {
+    constexpr int NK = src_steps<true>(J);
+    constexpr int T0 = J == 0 ? 0 : 18 + 9 * (J - 1);
+    const Src src = {sbase + wg_src_off<true>(J), tc_side(J), S - 1 - J, NK / 9};
+    zero_acc(iacc);
+    wg_run<NK, J == 0 ? 4 : 2>(iacc, ring, T0, slab0<true>(S, 0), py, px,
+                               [&](int k, int& kk) {
+      kk = k;
+      return src;
+    });
+    wgmma_wait<0>();
+    fence_acc(iacc);
+    const int t = threadIdx.x & 3;
+    const float* dq = deq + w8_deq_off(J) + i8_col(S);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const float d = __ldg(dq + 8 * (i / 4) + 2 * t + (i & 1));
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        acc[m][i] = __fadd_rn(acc[m][i], __fmul_rn(__int2float_rn(iacc[m][i]), d));
+    }
+    w8_sources<S, J + 1>(acc, iacc, ring, sbase, deq, py, px);
+  }
+}
+
+// One conv stage S (1..5) of rdb_i8 (W8 false: x in s8, x1..x4 in bf16) or
+// rdb_w8a8 (all in s8). deq: rdb_i8's 192 factors of the x conv, or
+// rdb_w8a8's 640 of x, x1..x4; qm: rdb_w8a8's five multipliers.
+template <int S, bool W8>
+__device__ __forceinline__ void wg_stage(const Ring& ring, uint32_t sbase,
                                          const float* __restrict__ deq,
                                          const float* __restrict__ qm,
                                          const float* __restrict__ bias,
@@ -838,211 +1106,331 @@ __device__ __forceinline__ void w8_stage(uint32_t sbase, const uint4* __restrict
                                          int b, int H, int W, int oy0, int ox0) {
   constexpr int RS = tc_side(S);
   constexpr int NPIX = RS * RS;
-  constexpr int NT = tc_mtiles(S);
-  constexpr int MT = tc_mt(S);
+  constexpr int MT = wg_mt(S);
   constexpr int COUT = stage_cout(S);
-  constexpr int NB = COUT / 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  constexpr int NA = COUT / 2;            // accumulators a thread a tile
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
   int py[MT], px[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
-    int p = (warp + TC_WARPS * m) * 16 + (lane & 15);
+    int p = (wg + WGS * m) * 64 + warp * 16 + (lane & 15);
     p = p < NPIX ? p : NPIX - 1;
     py[m] = p / RS;
     px[m] = p % RS;
   }
-  float acc[MT][2 * NB][4];
+  // accumulator (m, i = 4k + 2h + e) is tile pixel 16 warp + g + 8h at
+  // channel 8k + 2t + e
+  float acc[MT][NA];
+  int iacc[MT][NA];
+  constexpr int S0 = slab0<W8>(S, 0);
+  if constexpr (!W8) {
+    // part 0: x's rows in s8, dequantized by the x conv's stage columns
+    const Src xs = {sbase, tc_side(0), S - 1, 2};
+    zero_acc(iacc);
+    wg_run<18, 4>(iacc, ring, 0, S0, py, px, [&](int k, int& kk) {
+      kk = k;
+      return xs;
+    });
+    wgmma_wait<0>();
+    fence_acc(iacc);
+    ring_release(ring, S0 + n_slabs(part_steps<W8>(S, 0)) - 1);
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int i = 0; i < NA; ++i) {
+      const float dq = __ldg(deq + i8_col(S) + 8 * (i / 4) + 2 * t + (i & 1));
 #pragma unroll
-    for (int n = 0; n < 2 * NB; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const int rj = tc_side(j);
-    const int cq = src_chans(j) / 16;     // 16-byte chunks a pixel
-    const int nk = src_chans(j) / 32;     // k32 slabs a tap
-    const int nq = 9 * nk;
-    const int d = S - 1 - j;              // the region's offset in source j
-    const uint32_t base = sbase + w8_off(j);
-    const uint4* qs = wq + w8_woff(S, j) + lane;
-    int iacc[MT][2 * NB][4];
+      for (int m = 0; m < MT; ++m) acc[m][i] = __fmul_rn(__int2float_rn(iacc[m][i]), dq);
+    }
+    // part 1: x1..x_{S-1} in bf16, added in order (source j's 18 k-steps
+    // from part index 18 (j - 1))
+    if constexpr (S > 1) {
+      wg_run<18 * (S - 1), 4>(acc, ring, 0, slab0<W8>(S, 1), py, px,
+                              [&](int k, int& kk) {
+        const int j = 1 + k / 18;
+        kk = k % 18;
+        const uint32_t off = j == 1   ? wg_src_off<W8>(1)
+                             : j == 2 ? wg_src_off<W8>(2)
+                             : j == 3 ? wg_src_off<W8>(3)
+                                      : wg_src_off<W8>(4);
+        return Src{sbase + off, tc_side(j), S - 1 - j, 2};
+      });
+      wgmma_wait<0>();
+      fence_acc(acc);
+      ring_release(ring, slab0<W8>(S, 1) + n_slabs(part_steps<W8>(S, 1)) - 1);
+    }
+  } else {
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int n = 0; n < 2 * NB; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) iacc[m][n][e] = 0;
-    int sp0[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) sp0[m] = (py[m] + d) * rj + px[m] + d;
-    uint4 qcur[NB], qnext[NB];
-#pragma unroll
-    for (int n = 0; n < NB; ++n) qcur[n] = __ldg(qs + n * 32);
-    int qsl = 0;
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = (tap / 3) * rj + tap % 3;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        if (c >= nk) break;
-        const int nxt = qsl + 1 < nq ? qsl + 1 : qsl;
-#pragma unroll
-        for (int n = 0; n < NB; ++n) qnext[n] = __ldg(qs + (nxt * NB + n) * 32);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if (warp + TC_WARPS * m >= NT) break;
-          const uint32_t q = (uint32_t)(sp0[m] + toff) * cq + 2 * c + (lane >> 4);
-          uint32_t a[4];
-          tc_ldmatrix(a, base + swz(q) * 16);
-#pragma unroll
-          for (int n = 0; n < NB; ++n) {
-            i8_mma(iacc[m][2 * n], a, qcur[n].x, qcur[n].y);
-            i8_mma(iacc[m][2 * n + 1], a, qcur[n].z, qcur[n].w);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < NB; ++n) qcur[n] = qnext[n];
-        ++qsl;
-      }
-    }
-    // this source's sums, dequantized by its own factors at the stage's
-    // columns: accumulator (m, n8 tile k, e) is channel 8k + 2t + e % 2.
-    // |sum| <= 127 * 127 * 576 < 2^24 converts exactly; a product and then
-    // a sum, each rounded once, as the plain version in float32
-    const float* dq = deq + w8_deq_off(j) + i8_col(S);
-#pragma unroll
-    for (int k = 0; k < 2 * NB; ++k) {
-      const float d0 = __ldg(dq + 8 * k + 2 * t);
-      const float d1 = __ldg(dq + 8 * k + 2 * t + 1);
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[m][k][e] = __fadd_rn(acc[m][k][e],
-                                   __fmul_rn(__int2float_rn(iacc[m][k][e]),
-                                             (e & 1) ? d1 : d0));
-    }
+      for (int i = 0; i < NA; ++i) acc[m][i] = 0.f;
+    w8_sources<S, 0>(acc, iacc, ring, sbase, deq, py, px);
+    ring_release(ring, S0 + n_slabs(part_steps<W8>(S, 0)) - 1);
   }
 
-  const size_t img_off = (size_t)b * H * W;
-  const float qs_out = S < 5 ? __ldg(qm + S) : 0.f;
+  // epilogue. Every global value it reads (biases, rdb_w8a8's multiplier,
+  // the mask, x's residual) is loaded into registers before the first store:
+  // a load behind a shared-memory store waits for it, one round trip each.
+  float bv[COUT / 8][2];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (warp + TC_WARPS * m >= NT) break;
+  for (int k = 0; k < COUT / 8; ++k) {
+    bv[k][0] = __ldg(bias + (S - 1) * G + 8 * k + 2 * t);
+    bv[k][1] = __ldg(bias + (S - 1) * G + 8 * k + 2 * t + 1);
+  }
+  const size_t img_off = (size_t)b * H * W;
+  // this thread's rows: tile pixel p (16 warp + g + 8h of tile w + 2m), its
+  // place in the image, and whether it is there
+  int gy[MT][2], gx[MT][2];
+  float mk[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int p = (warp + TC_WARPS * m) * 16 + g + 8 * h;
-      if (p >= NPIX) continue;
-      const int ry = p / RS, rx = p % RS;
-      if constexpr (S < 5) {
-        constexpr int HS = HALO - S;
-        const int gy = oy0 - HS + ry, gx = ox0 - HS + rx;
-        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-        const float mk = !inside ? 0.f
-                         : (mask ? mask[img_off + (size_t)gy * W + gx] : 1.f);
-        // x_S at its own region's pixel p in int8: channels co, co + 1 are
-        // bytes co % 16, co % 16 + 1 of chunk co / 16 of a 2-chunk pixel
-        const uint32_t dst = sbase + w8_off(S);
+      const int p = (wg + WGS * m) * 64 + warp * 16 + g + 8 * h;
+      constexpr int HS = S < 5 ? HALO - S : 0;
+      gy[m][h] = p < NPIX ? oy0 - HS + p / RS : -1;
+      gx[m][h] = ox0 - HS + p % RS;
+      const bool in = gy[m][h] >= 0 && gy[m][h] < H && gx[m][h] >= 0 && gx[m][h] < W;
+      mk[m][h] = !in ? 0.f : (mask ? mask[img_off + (size_t)gy[m][h] * W + gx[m][h]] : 1.f);
+    }
+  if constexpr (S < 5) {
+    const float qs = W8 ? __ldg(qm + S) : 0.f;
+    const uint32_t dst = sbase + wg_src_off<W8>(S);
 #pragma unroll
-        for (int k = 0; k < 2 * NB; ++k) {
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = (wg + WGS * m) * 64 + warp * 16 + g + 8 * h;
+        if (p >= NPIX) continue;
+        // outside the image x_S is 0 (the SAME padding of the next convs)
+        const bool inside = gy[m][h] >= 0 && gy[m][h] < H && gx[m][h] >= 0 && gx[m][h] < W;
+#pragma unroll
+        for (int k = 0; k < COUT / 8; ++k) {
           const int co = 8 * k + 2 * t;
-          float v0 = __fadd_rn(acc[m][k][2 * h], __ldg(bias + (S - 1) * G + co));
-          float v1 = __fadd_rn(acc[m][k][2 * h + 1], __ldg(bias + (S - 1) * G + co + 1));
-          v0 = __fmul_rn(v0 >= 0.f ? v0 : __fmul_rn(0.2f, v0), mk);
-          v1 = __fmul_rn(v1 >= 0.f ? v1 : __fmul_rn(0.2f, v1), mk);
-          const uint32_t pr = inside ? (quant1(v0, qs_out) | quant1(v1, qs_out) << 8) : 0u;
-          const uint32_t q = (uint32_t)p * 2 + (co >> 4);
-          asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(dst + swz(q) * 16 + (co & 15)),
-                       "h"((unsigned short)pr) : "memory");
+          const float a0 = acc[m][4 * k + 2 * h], a1 = acc[m][4 * k + 2 * h + 1];
+          if constexpr (W8) {
+            // x_S in int8: channels co, co + 1 are bytes co % 16, co % 16 + 1
+            // of chunk co / 16 of a 2-chunk pixel; quant(0) = 0
+            float v0 = __fadd_rn(a0, bv[k][0]);
+            float v1 = __fadd_rn(a1, bv[k][1]);
+            v0 = __fmul_rn(v0 >= 0.f ? v0 : __fmul_rn(0.2f, v0), mk[m][h]);
+            v1 = __fmul_rn(v1 >= 0.f ? v1 : __fmul_rn(0.2f, v1), mk[m][h]);
+            const uint32_t pr = inside ? (quant1(v0, qs) | quant1(v1, qs) << 8) : 0u;
+            asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(dst + rot<2>(p, co >> 4) + (co & 15)),
+                         "h"((unsigned short)pr) : "memory");
+          } else {
+            // x_S in bf16: channels 8k.. are chunk k of a 4-chunk pixel
+            float v0 = a0 + bv[k][0];
+            float v1 = a1 + bv[k][1];
+            v0 = (v0 >= 0.f ? v0 : 0.2f * v0) * mk[m][h];
+            v1 = (v1 >= 0.f ? v1 : 0.2f * v1) * mk[m][h];
+            if (!inside) v0 = v1 = 0.f;
+            const __nv_bfloat162 pr = __floats2bfloat162_rn(v0, v1);
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst + rot<4>(p, k) + 4 * t),
+                         "r"(*reinterpret_cast<const uint32_t*>(&pr)) : "memory");
+          }
         }
-      } else {
-        const int gy = oy0 + ry, gx = ox0 + rx;
-        if (gy >= H || gx >= W) continue;
-        const size_t pix = img_off + (size_t)gy * W + gx;
-        const float mk = mask ? mask[pix] : 1.f;
+      }
+  } else {
+    // out = m(0.2 (x5 + b5) + x); shared memory holds x only in int8, so the
+    // residual comes from device memory, every value of it before any store
+    uint32_t xin[MT][2][COUT / 8];
 #pragma unroll
-        for (int k = 0; k < 2 * NB; ++k) {
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool in = gy[m][h] >= 0 && gy[m][h] < H && gx[m][h] < W;
+        const size_t pix = img_off + (size_t)(in ? gy[m][h] : 0) * W + (in ? gx[m][h] : 0);
+#pragma unroll
+        for (int k = 0; k < COUT / 8; ++k)
+          xin[m][h][k] = in ? __ldg(reinterpret_cast<const unsigned int*>(
+                                  x + pix * NF + 8 * k + 2 * t))
+                            : 0u;
+      }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (gy[m][h] < 0 || gy[m][h] >= H || gx[m][h] >= W) continue;
+        const size_t pix = img_off + (size_t)gy[m][h] * W + gx[m][h];
+#pragma unroll
+        for (int k = 0; k < COUT / 8; ++k) {
           const int co = 8 * k + 2 * t;
-          const uint32_t xin = __ldg(reinterpret_cast<const unsigned int*>(x + pix * NF + co));
           const float2 xf = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&xin));
-          const float v0 = (acc[m][k][2 * h] + __ldg(bias + 4 * G + co)) * 0.2f + xf.x;
-          const float v1 = (acc[m][k][2 * h + 1] + __ldg(bias + 4 * G + co + 1)) * 0.2f + xf.y;
-          const __nv_bfloat162 pr = __floats2bfloat162_rn(v0 * mk, v1 * mk);
+              *reinterpret_cast<const __nv_bfloat162*>(&xin[m][h][k]));
+          const float v0 = (acc[m][4 * k + 2 * h] + bv[k][0]) * 0.2f + xf.x;
+          const float v1 = (acc[m][4 * k + 2 * h + 1] + bv[k][1]) * 0.2f + xf.y;
+          const __nv_bfloat162 pr = __floats2bfloat162_rn(v0 * mk[m][h], v1 * mk[m][h]);
           *reinterpret_cast<__nv_bfloat162*>(out + pix * NF + co) = pr;
         }
       }
-    }
   }
 }
 
-__global__ void __launch_bounds__(TC_WARPS * 32, 1)
-rdb_w8a8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
-                __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wq,
-                const float* __restrict__ deq, const float* __restrict__ qm,
-                const float* __restrict__ bias, int H, int W) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_raw);
+// The consumers' part of the body: the input tile with its 5-pixel halo
+// quantized on the way in (one 16-byte load of 8 channels becomes 8 bytes of
+// chunk c / 2 of a 4-chunk pixel; zero outside the image, quant(0) = 0),
+// then the five stages.
+template <bool W8>
+__device__ __forceinline__ void wg_consume(const Ring& ring, uint32_t sbase,
+                                           const __nv_bfloat16* __restrict__ x,
+                                           const float* __restrict__ mask,
+                                           __nv_bfloat16* __restrict__ out,
+                                           const float* __restrict__ deq,
+                                           const float* __restrict__ qm, float qm0,
+                                           const float* __restrict__ bias, int H, int W) {
   const int b = blockIdx.z;
   const int oy0 = blockIdx.y * TC_TILE, ox0 = blockIdx.x * TC_TILE;
   const size_t img_off = (size_t)b * H * W;
   {
-    // input tile + 5-px halo quantized with qm[0] on the way in, as
-    // rdb_i8_kernel does; zero outside the image
-    const float q0 = __ldg(qm);
-    constexpr int R = tc_side(0);
-    for (int i = threadIdx.x; i < R * R * 8; i += TC_WARPS * 32) {
-      const int p = i >> 3, c = i & 7;
-      const int gy = oy0 - HALO + p / R, gx = ox0 - HALO + p % R;
-      uint32_t lo = 0, hi = 0;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const uint4 v = __ldg(reinterpret_cast<const uint4*>(
-            x + (img_off + (size_t)gy * W + gx) * NF + 8 * c));
-        lo = quant4(v.x, v.y, q0);
-        hi = quant4(v.z, v.w, q0);
+    // eleven 16-byte loads in flight a thread before their stores (two
+    // rounds for the 5,408 loads of the tile)
+    constexpr int R = tc_side(0), N = R * R * 8, T = TC_WARPS * 32, U = 11;
+    for (int i0 = threadIdx.x; i0 < N; i0 += U * T) {
+      uint4 v[U];
+      bool in[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * T, p = i >> 3, c = i & 7;
+        const int gy = oy0 - HALO + p / R, gx = ox0 - HALO + p % R;
+        in[u] = i < N && gy >= 0 && gy < H && gx >= 0 && gx < W;
+        if (in[u])
+          v[u] = __ldg(reinterpret_cast<const uint4*>(
+              x + (img_off + (size_t)gy * W + gx) * NF + 8 * c));
       }
-      const uint32_t q = (uint32_t)p * 4 + (c >> 1);
-      asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n"
-                   ::"r"(sbase + swz(q) * 16 + 8 * (c & 1)), "r"(lo), "r"(hi)
-                   : "memory");
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * T, p = i >> 3, c = i & 7;
+        if (i >= N) break;
+        const uint32_t lo = in[u] ? quant4(v[u].x, v[u].y, qm0) : 0u;
+        const uint32_t hi = in[u] ? quant4(v[u].z, v[u].w, qm0) : 0u;
+        asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n"
+                     ::"r"(sbase + rot<4>(p, c >> 1) + 8 * (c & 1)), "r"(lo), "r"(hi)
+                     : "memory");
+      }
     }
   }
-  __syncthreads();
-  w8_stage<1>(sbase, wq, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
-  __syncthreads();
-  w8_stage<2>(sbase, wq, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
-  __syncthreads();
-  w8_stage<3>(sbase, wq, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
-  __syncthreads();
-  w8_stage<4>(sbase, wq, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
-  __syncthreads();
-  w8_stage<5>(sbase, wq, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  consumer_sync();
+  wg_stage<1, W8>(ring, sbase, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  consumer_sync();
+  wg_stage<2, W8>(ring, sbase, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  consumer_sync();
+  wg_stage<3, W8>(ring, sbase, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  consumer_sync();
+  wg_stage<4, W8>(ring, sbase, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  consumer_sync();
+  wg_stage<5, W8>(ring, sbase, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
 }
 
-constexpr size_t w8_smem_bytes() { return (size_t)w8_off(5); }
+// The body of both int8 kernels: the ring and its barriers, then the
+// producer warp and the consumers.
+template <bool W8>
+__device__ __forceinline__ void wg_body(const __nv_bfloat16* __restrict__ x,
+                                        const float* __restrict__ mask,
+                                        __nv_bfloat16* __restrict__ out,
+                                        const unsigned char* wq, const unsigned char* wf,
+                                        const float* __restrict__ deq,
+                                        const float* __restrict__ qm, float qm0,
+                                        const float* __restrict__ bias, int H, int W) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  Ring ring;
+  ring.slots = (raw + 1023) & ~1023u;
+  const uint32_t sbase = ring.slots + RING;
+  ring.full = sbase + wg_src_off<W8>(5);
+  ring.empty = ring.full + 8 * NBUF;
+  ring.wq = wq;
+  ring.wf = wf;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NBUF; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   ::"r"(ring.full + 8 * i) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   ::"r"(ring.empty + 8 * i), "r"(TC_WARPS * 32) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the roles, read warp-uniform (as CUTLASS reads them), in one if-else
+  // that never rejoins, so that setmaxnreg holds: warpgroups 0 and 1
+  // consume with 240 registers a thread, warpgroup 2 gives its registers
+  // down to 24 and its first thread produces. The launch's 384 threads
+  // start at 168 a thread, too few for rdb_w8a8's int32 and float32
+  // accumulators and two sets of A (ptxas serialises the wgmmas: C7512).
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == WGS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == WGS * 128) ring_produce<W8>(ring);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    wg_consume<W8>(ring, sbase, x, mask, out, deq, qm, qm0, bias, H, W);
+  }
+}
+
+// The bf16 RDB with its x conv in int8: wq the x conv's s8 slabs, wf x1..x4's
+// bf16 slabs (ops/rdb.py::pack_rdb_i8_fragments, pack_rdb_i8_bf16), deq
+// the x conv's 192 dequantization factors in packed column order, qm x's
+// quantization multiplier.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+rdb_i8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
+              __nv_bfloat16* __restrict__ out, const unsigned char* __restrict__ wf,
+              const unsigned char* __restrict__ wq, const float* __restrict__ deq,
+              const float* __restrict__ bias, float qm, int H, int W) {
+  wg_body<false>(x, mask, out, wq, wf, deq, nullptr, qm, bias, H, W);
+}
+
+// The full-W8A8 RDB: wq the s8 slabs of the five packed kernels, stage by
+// stage (ops/rdb.py::pack_rdb_w8a8), deq the 640 factors of x, x1..x4
+// concatenated, qm their five quantization multipliers.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+rdb_w8a8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
+                __nv_bfloat16* __restrict__ out, const unsigned char* __restrict__ wq,
+                const float* __restrict__ deq, const float* __restrict__ qm,
+                const float* __restrict__ bias, int H, int W) {
+  wg_body<true>(x, mask, out, wq, nullptr, deq, qm, __ldg(qm), bias, H, W);
+}
+
+int launch_i8(const void* x, const void* mask, void* out, const void* wf,
+              const void* wq, const void* deq, const void* bias, float qm,
+              int B, int H, int W, cudaStream_t stream) {
+  constexpr size_t smem = wg_smem_bytes<false>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      rdb_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + TC_TILE - 1) / TC_TILE, (H + TC_TILE - 1) / TC_TILE, B);
+  rdb_i8_kernel<<<grid, WG_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
+      static_cast<__nv_bfloat16*>(out), static_cast<const unsigned char*>(wf),
+      static_cast<const unsigned char*>(wq), static_cast<const float*>(deq),
+      static_cast<const float*>(bias), qm, H, W);
+  return (int)cudaGetLastError();
+}
 
 int launch_w8a8(const void* x, const void* mask, void* out, const void* wq,
                 const void* deq, const void* qm, const void* bias, int B, int H,
                 int W, cudaStream_t stream) {
-  constexpr size_t smem = w8_smem_bytes();
+  constexpr size_t smem = wg_smem_bytes<true>();
   const cudaError_t e = cudaFuncSetAttribute(
       rdb_w8a8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((W + TC_TILE - 1) / TC_TILE, (H + TC_TILE - 1) / TC_TILE, B);
-  rdb_w8a8_kernel<<<grid, TC_WARPS * 32, smem, stream>>>(
+  rdb_w8a8_kernel<<<grid, WG_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
-      static_cast<__nv_bfloat16*>(out), static_cast<const uint4*>(wq),
+      static_cast<__nv_bfloat16*>(out), static_cast<const unsigned char*>(wq),
       static_cast<const float*>(deq), static_cast<const float*>(qm),
       static_cast<const float*>(bias), H, W);
   return (int)cudaGetLastError();
 }
 
-constexpr size_t tc_smem_bytes(bool i8 = false) { return (size_t)tc_off(5, i8); }
+// Multiply-adds the int8 kernels execute per output tile: each stage's
+// 2 * wg_mt 64-row M tiles over all 9 * Cin x Cout.
+constexpr long long wg_macs_per_tile() {
+  long long macs = 0;
+  for (int s = 1; s <= 5; ++s)
+    macs += (long long)WGS * wg_mt(s) * 64 * 9 * stage_cin(s) * stage_cout(s);
+  return macs;
+}
+
+constexpr size_t tc_smem_bytes() { return (size_t)tc_off(5); }
 
 int launch_tc(const void* x, const void* mask, void* out, const void* wf,
               const void* bias, int B, int H, int W, cudaStream_t stream) {
@@ -1070,22 +1458,6 @@ int launch_tc_ablate(const void* x, const void* mask, void* out, const void* wf,
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
       static_cast<__nv_bfloat16*>(out), static_cast<const uint4*>(wf),
       static_cast<const float*>(bias), nullptr, H, W);
-  return (int)cudaGetLastError();
-}
-
-int launch_i8(const void* x, const void* mask, void* out, const void* wf,
-              const void* wq, const void* deq, const void* bias, float qm,
-              int B, int H, int W, cudaStream_t stream) {
-  constexpr size_t smem = tc_smem_bytes(true);
-  const cudaError_t e = cudaFuncSetAttribute(
-      rdb_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + TC_TILE - 1) / TC_TILE, (H + TC_TILE - 1) / TC_TILE, B);
-  rdb_i8_kernel<<<grid, TC_WARPS * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
-      static_cast<__nv_bfloat16*>(out), static_cast<const uint4*>(wf),
-      static_cast<const uint4*>(wq), static_cast<const float*>(deq),
-      static_cast<const float*>(bias), qm, H, W);
   return (int)cudaGetLastError();
 }
 
@@ -1152,10 +1524,11 @@ extern "C" int s2sr_rdb_ablate_forward(const void* x, const void* mask, void* ou
 }
 
 // The bf16 RDB with its x stage in int8: x, out (B, H, W, 64) bf16; mask as
-// above; wf the bf16 B fragments (x's rows are not read); wq the int8 B
-// fragments of the packed x conv (ops/rdb.py::pack_rdb_i8_fragments); deq
-// its 192 dequantization factors in packed column order; bias 192 float32;
-// qm x's quantization multiplier. Returns the CUDA error code of the launch.
+// above; wf the bf16 slabs of x1..x4's rows (ops/rdb.py::pack_rdb_i8_bf16);
+// wq the s8 slabs of the packed x conv (ops/rdb.py::pack_rdb_i8_fragments);
+// deq its 192 dequantization factors in packed column order; bias 192
+// float32; qm x's quantization multiplier. Returns the CUDA error code of the
+// launch.
 extern "C" int s2sr_rdb_i8_forward(const void* x, const void* mask, void* out,
                                    const void* wf, const void* wq,
                                    const void* deq, const void* bias, float qm,
@@ -1165,8 +1538,8 @@ extern "C" int s2sr_rdb_i8_forward(const void* x, const void* mask, void* out,
                    static_cast<cudaStream_t>(stream));
 }
 
-// The full-W8A8 RDB: x, out (B, H, W, 64) bf16; mask as above; wq the int8 B
-// fragments of the five packed kernels (ops/rdb.py::pack_rdb_w8a8); deq the
+// The full-W8A8 RDB: x, out (B, H, W, 64) bf16; mask as above; wq the s8 slabs
+// of the five packed kernels (ops/rdb.py::pack_rdb_w8a8); deq the
 // 640 dequantization factors of x, x1..x4 concatenated; qm their 5
 // quantization multipliers; bias 192 float32. Returns the CUDA error code of
 // the launch.
@@ -1180,12 +1553,16 @@ extern "C" int s2sr_rdb_w8a8_forward(const void* x, const void* mask, void* out,
 }
 
 extern "C" long long s2sr_rdb_w8a8_smem_bytes() {
-  return (long long)w8_smem_bytes();
+  return (long long)wg_smem_bytes<true>();
 }
 
 extern "C" long long s2sr_rdb_i8_smem_bytes() {
-  return (long long)tc_smem_bytes(true);
+  return (long long)wg_smem_bytes<false>();
 }
+
+// Multiply-adds rdb_i8_kernel and rdb_w8a8_kernel execute per output tile
+// (64-row M tiles, halo included).
+extern "C" long long s2sr_rdb_i8_macs_per_tile() { return wg_macs_per_tile(); }
 
 // Output tile side and dynamic shared-memory bytes per block, by dtype.
 extern "C" int s2sr_rdb_tile(int dtype) {

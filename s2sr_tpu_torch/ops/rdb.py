@@ -20,16 +20,18 @@ kernel refused).
   kernel's B fragments.
 - :func:`rdb_i8` is the same block with its packed 64→192 x conv in int8
   (precision "int8", ``s2sr_tpu/models/rrdbnet_int8.py::_rdb_packed_mixed``):
-  on a CUDA tensor the bf16 kernel's int8 instance (``rdb_i8_kernel``),
-  on a CPU tensor :func:`rdb_i8_reference`; :data:`LAUNCHES_I8` counts its
-  launches, and :func:`pack_rdb_i8_fragments` lays the int8 x conv out as
-  that kernel's B fragments.
+  on a CUDA tensor ``rdb_i8_kernel`` (``wgmma``: s8 for x's rows, bf16
+  for x1..x4's, B streamed through a ring by bulk copies), on a CPU
+  tensor :func:`rdb_i8_reference`; :data:`LAUNCHES_I8` counts its
+  launches, and :func:`pack_rdb_i8_fragments` and :func:`pack_rdb_i8_bf16`
+  lay the int8 x conv and x1..x4's bf16 rows out as that kernel's B slabs.
 - :func:`rdb_w8a8` is the block in full W8A8 (every conv input quantized,
   all five convs int8: ``rrdbnet_int8.py::_rdb_packed_i8``): on a CUDA
-  tensor ``rdb_w8a8_kernel``, on a CPU tensor
-  :func:`rdb_w8a8_reference`; :data:`LAUNCHES_W8A8` counts its launches,
-  and :func:`pack_rdb_w8a8` lays one quantized block (or a stack of
-  them) out as that kernel's operands, once.
+  tensor ``rdb_w8a8_kernel`` (the all-s8 instance of ``rdb_i8_kernel``'s
+  design), on a CPU tensor :func:`rdb_w8a8_reference`;
+  :data:`LAUNCHES_W8A8` counts its launches, and :func:`pack_rdb_w8a8`
+  lays one quantized block (or a stack of them) out as that kernel's
+  operands, once.
 - :func:`rdb_ablated` launches the bf16 kernel's time-attribution
   instances (``rdb_tc_ablate_kernel``, the ports of ``rdb_pallas_v4``'s
   staging knobs, :data:`ABLATIONS`); only the RDB ladder
@@ -48,10 +50,12 @@ and stores them as float32, kernels HWIO-flattened and concatenated.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 NF = 64
 G = 32
@@ -160,40 +164,138 @@ def pack_rdb_fragments(w: torch.Tensor) -> torch.Tensor:
     return w[fragment_index(w.device)].to(torch.bfloat16)
 
 
-def fragment_index_i8(device=None) -> torch.Tensor:
+# --- the int8 kernels' B slabs -----------------------------------------------
+
+# rdb_i8_kernel's and rdb_w8a8_kernel's B ring (csrc/rdb.cu KQ, NBUF, SLOT):
+# k-steps a slab (4 of 32 bytes of K a row), slots, bytes a slot (a slab at
+# N 64)
+KQ = 4
+RING_SLOTS = 8
+RING_SLOT_BYTES = 64 * 128
+
+
+def wg_smem_plan(full: bool) -> dict:
+    """Shared-memory bytes of ``rdb_i8_kernel`` (``full`` False) or
+    ``rdb_w8a8_kernel`` (True) as ``csrc/rdb.cu`` lays them out
+    (``wg_smem_bytes``): up to 1024 to align the ring, the ring, the
+    sources x, x1..x4 over their regions (sides 26, 24, .., 18; x in int8,
+    x1..x4 in bf16 or, in full W8A8, int8), a full and an empty mbarrier a
+    slot; ``total`` their sum."""
+    sources = sum((16 + 2 * (5 - j)) ** 2 * (NF if j == 0 else G)
+                  * (1 if j == 0 or full else 2) for j in range(5))
+    plan = {"align": 1024, "ring": RING_SLOTS * RING_SLOT_BYTES,
+            "sources": sources, "barriers": 2 * RING_SLOTS * 8}
+    return {**plan, "total": sum(plan.values())}
+
+
+def _slabs(steps: torch.Tensor) -> torch.Tensor:
+    """One part's rows of B as the int8 kernels' ring holds them.
+
+    ``steps`` (n_steps, N, 32): for each k-step and output channel n, the
+    indices of its 32 bytes of K in a source byte array (−1: none). The
+    steps are padded with −1 to whole slabs of :data:`KQ`; each slab is N
+    rows of 128 bytes, row n its KQ k-steps side by side, in ``wgmma``'s
+    K-major layout with the 128-byte swizzle: logical 16-byte chunk c of
+    row n stored at chunk c ^ (n % 8). Returns the flat index array."""
+    n_steps, n, _ = steps.shape
+    nsl = -(-n_steps // KQ)
+    pad = steps.new_full((nsl * KQ - n_steps, n, 32), -1)
+    rows = torch.cat([steps, pad]).reshape(nsl, KQ, n, 32).permute(0, 2, 1, 3)
+    rows = rows.reshape(nsl, n, 8, 16)
+    # physical chunk p of row n holds logical chunk p ^ (n % 8)
+    chunk = torch.arange(8)[None, :] ^ (torch.arange(n)[:, None] % 8)
+    return torch.gather(rows, 2, chunk[None, :, :, None].expand(nsl, n, 8, 16)
+                        ).reshape(-1)
+
+
+def _s8_steps(j: int, s: int, cols: int, off: int = 0) -> torch.Tensor:
+    """k-steps of s8 source j (x: 64 channels, two a tap; x_j: 32, one a
+    tap) for stage s, as indices into an HWIO int8 kernel (3, 3, Cin_j,
+    cols) flattened from ``off``: stage s's columns from
+    :func:`_stage_col`, 32 channels a step."""
+    cin = NF if j == 0 else G
+    spt = cin // 32
+    k = torch.arange(9 * spt)
+    ch = 32 * (k % spt)[:, None] + torch.arange(32)[None, :]       # (steps, 32)
+    n = torch.arange(_COUT[s - 1])
+    return (off + ((k // spt)[:, None, None] * cin + ch[:, None, :]) * cols
+            + _stage_col(s) + n[None, :, None])
+
+
+def _bf16_steps(j: int, s: int) -> torch.Tensor:
+    """rdb_i8's k-steps of bf16 source j (x1..x4, 32 channels, two a tap)
+    for stage s, as byte indices into :func:`pack_rdb_weights`' flat ``w``
+    in bf16 (two bytes a value, low byte first): conv s's rows of x_j's
+    channels, 16 values a step."""
+    cin, cout = _CIN[s - 1], _COUT[s - 1]
+    off = sum(9 * ci * co for ci, co in zip(_CIN[:s - 1], _COUT[:s - 1]))
+    k = torch.arange(18)
+    ch = NF + (j - 1) * G + 16 * (k % 2)[:, None] + torch.arange(16)[None, :]
+    val = (off + ((k // 2)[:, None, None] * cin + ch[:, None, :]) * cout
+           + torch.arange(cout)[None, :, None])                   # (18, cout, 16)
+    return torch.stack([2 * val, 2 * val + 1], -1).reshape(18, cout, 32)
+
+
+def slab_index_i8(device=None) -> torch.Tensor:
     """Indices into the flattened HWIO int8 x conv (3, 3, 64, 192), whose
-    columns are ``[a5|a4|a3|a2|a1]``, that put it in the int8 kernel's B
-    fragments (``csrc/rdb.cu``, ``rdb_i8_kernel``).
-
-    Stage s reads the columns of its own output channels; its matrix has
-    rows (tap, channel), 18 k32 slabs. Each is laid out as
-    ``mma.m16n8k32``'s s8 B fragments, ``[18][Cout/16][lane][16]`` (lane
-    ``4g + t``, byte ``8h + 4a + e``: row 16a + 4t + e of column 8h + g),
-    and the stages follow one another."""
-    key = str(device)
-    if key not in _FRAG_INDEX_I8:
-        flat = torch.arange(9 * NF * WX_COLS).view(9 * NF, WX_COLS)
-        parts = []
-        for s, cout in enumerate(_COUT, start=1):
-            col = 0 if s == 5 else NF + (4 - s) * G
-            mat = flat[:, col:col + cout]                  # (576, cout)
-            parts.append(mat.reshape(18, 2, 4, 4, cout // 16, 2, 8)
-                         .permute(0, 4, 6, 2, 5, 1, 3).reshape(-1))
-        _FRAG_INDEX_I8[key] = torch.cat(parts).to(device)
-    return _FRAG_INDEX_I8[key]
+    columns are ``[a5|a4|a3|a2|a1]``, that give ``rdb_i8_kernel``'s stream
+    ``wq`` (−1: a padding byte): per stage, the 18 k-steps of x's rows at
+    the stage's columns (tap, then 32 of the 64 channels), as
+    :func:`_slabs` lays them out, the stages one after another."""
+    key = ("i8", str(device))
+    if key not in _SLAB_INDEX:
+        _SLAB_INDEX[key] = torch.cat([_slabs(_s8_steps(0, s, WX_COLS))
+                                      for s in range(1, 6)]).to(device)
+    return _SLAB_INDEX[key]
 
 
-_FRAG_INDEX_I8: dict = {}
+def slab_index_i8_bf16(device=None) -> torch.Tensor:
+    """Byte indices into :func:`pack_rdb_weights`' ``w`` in bf16 that give
+    ``rdb_i8_kernel``'s stream ``wf`` (−1: a padding byte): per stage 2..5,
+    the k-steps of x1..x_{s-1}'s rows in order (18 each: tap, then 16 of
+    the 32 channels), as :func:`_slabs` lays them out."""
+    key = ("bf16", str(device))
+    if key not in _SLAB_INDEX:
+        _SLAB_INDEX[key] = torch.cat([
+            _slabs(torch.cat([_bf16_steps(j, s) for j in range(1, s)]))
+            for s in range(2, 6)]).to(device)
+    return _SLAB_INDEX[key]
+
+
+_SLAB_INDEX: dict = {}
+
+
+def _gather(flat: torch.Tensor, index) -> torch.Tensor:
+    """``flat[..., index()]`` with a zero wherever the index is −1."""
+    key = (index.__name__, str(flat.device))
+    if key not in _RESOLVED:
+        idx = index(flat.device)
+        _RESOLVED[key] = torch.where(idx < 0, flat.shape[-1], idx)
+    flat = torch.cat([flat, flat.new_zeros(*flat.shape[:-1], 1)], -1)
+    return flat[..., _RESOLVED[key]].contiguous()
+
+
+# _gather's indices with −1 resolved to the appended zero, by index and
+# device
+_RESOLVED: dict = {}
 
 
 def pack_rdb_i8_fragments(wx8: torch.Tensor) -> torch.Tensor:
     """The int8 x conv, HWIO (3, 3, 64, 192) with columns ``[a5|..|a1]``
-    (``rrdbnet_int8.py::quantize_body_mixed``'s ``wx8``), as the int8
-    kernel's B fragments (:func:`fragment_index_i8`), flat int8."""
+    (``rrdbnet_int8.py::quantize_body_mixed``'s ``wx8``), as
+    ``rdb_i8_kernel``'s s8 B slabs (:func:`slab_index_i8`), flat int8."""
     if tuple(wx8.shape) != (3, 3, NF, WX_COLS) or wx8.dtype != torch.int8:
         raise ValueError(f"wx8 must be int8 (3, 3, {NF}, {WX_COLS}), got "
                          f"{wx8.dtype} {tuple(wx8.shape)}")
-    return wx8.reshape(-1)[fragment_index_i8(wx8.device)].contiguous()
+    return _gather(wx8.reshape(-1), slab_index_i8)
+
+
+def pack_rdb_i8_bf16(w: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_rdb_weights`' flat float32 ``w`` (bf16 values) as
+    ``rdb_i8_kernel``'s bf16 B slabs of x1..x4's rows
+    (:func:`slab_index_i8_bf16`), flat uint8; exact."""
+    raw = w.to(torch.bfloat16).view(torch.uint8)
+    return _gather(raw, slab_index_i8_bf16)
 
 
 def quant_i8(x: torch.Tensor, qm) -> torch.Tensor:
@@ -419,7 +521,8 @@ def _lib():
                                                 ctypes.c_int, ctypes.c_int,
                                                 ctypes.c_int, ctypes.c_int, vp]
         lib.s2sr_rdb_ablate_forward.restype = ctypes.c_int
-        for name in ("s2sr_rdb_i8_smem_bytes", "s2sr_rdb_w8a8_smem_bytes"):
+        for name in ("s2sr_rdb_i8_smem_bytes", "s2sr_rdb_w8a8_smem_bytes",
+                     "s2sr_rdb_i8_macs_per_tile"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_longlong
         lib.s2sr_rdb_tile.argtypes = [ctypes.c_int]
@@ -552,11 +655,31 @@ def _launch_ablated(lib, x, wf, b, mask, out, variant: str, stream) -> None:
     LAUNCHES_ABLATED[variant] += 1
 
 
+# rdb_i8's slab streams by its x conv tensor: packed on first use, again only
+# when ``w`` is another tensor or either was changed in place
+_I8_PACKS = WeakIdKeyDictionary()
+
+
+def _i8_streams(w: torch.Tensor, wx8: torch.Tensor) -> tuple:
+    """``(pack_rdb_i8_fragments(wx8), pack_rdb_i8_bf16(w))``, packed once a
+    body: a block's weights stay the same tensors from launch to launch."""
+    versions = (w._version, wx8._version)
+    hit = _I8_PACKS.get(wx8)
+    if hit is not None and hit[0]() is w and hit[1] == versions:
+        return hit[2]
+    streams = (pack_rdb_i8_fragments(wx8), pack_rdb_i8_bf16(w))
+    _I8_PACKS[wx8] = (weakref.ref(w), versions, streams)
+    return streams
+
+
 def kernel_tiling_i8() -> dict:
-    """:func:`kernel_tiling` of the int8 instance: its tile and work are
-    the bf16 kernel's, its shared memory holds x in int8."""
+    """:func:`kernel_tiling` of ``rdb_i8_kernel``: the bf16 kernel's tile;
+    its shared memory (the B ring, x in int8, x1..x4 in bf16) and the
+    multiply-adds of its 64-row M tiles."""
+    lib = _lib()
     return {**kernel_tiling(torch.bfloat16),
-            "smem_bytes": int(_lib().s2sr_rdb_i8_smem_bytes())}
+            "smem_bytes": int(lib.s2sr_rdb_i8_smem_bytes()),
+            "macs_per_tile": int(lib.s2sr_rdb_i8_macs_per_tile())}
 
 
 def rdb_i8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -569,8 +692,8 @@ def rdb_i8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     x1..x4); ``wx8``: the int8 x conv, HWIO (3, 3, 64, 192) with columns
     ``[a5|..|a1]``; ``deq``: its 192 float32 dequantization factors in
     packed column order; ``qm``: x's quantization multiplier (a float).
-    CPU tensors run :func:`rdb_i8_reference`; CUDA tensors launch the
-    bf16 kernel's int8 instance or raise (it takes bfloat16 only)."""
+    CPU tensors run :func:`rdb_i8_reference`; CUDA tensors launch
+    ``rdb_i8_kernel`` or raise (it takes bfloat16 only)."""
     global LAUNCHES_I8
     if x.device.type == "cpu":
         return rdb_i8_reference(x, w, b, wx8, deq, qm, mask)
@@ -590,9 +713,7 @@ def rdb_i8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if bsz * h * wd == 0:
         return out
     lib = _lib()
-    # both B-fragment sets are packed per call, as in rdb
-    wf = pack_rdb_fragments(w)
-    wq = pack_rdb_i8_fragments(wx8)
+    wq, wf = _i8_streams(w, wx8)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.s2sr_rdb_i8_forward(
@@ -622,46 +743,33 @@ def _stage_col(s: int) -> int:
     return 0 if s == 5 else NF + (4 - s) * G
 
 
-def fragment_index_w8a8(device=None) -> torch.Tensor:
+def slab_index_w8a8(device=None) -> torch.Tensor:
     """Indices into the five int8 packed kernels (``w8``, HWIO, flattened
-    and concatenated in source order) that put them in the full-W8A8
-    kernel's B fragments (``csrc/rdb.cu``, ``rdb_w8a8_kernel``).
+    and concatenated in source order) that give ``rdb_w8a8_kernel``'s
+    stream ``wq`` (−1: a padding byte).
 
     Stage s reads from each source j < s the columns of its own output
-    channels (:func:`_stage_col`, the same in every source's kernel); the
-    source's matrix has rows (tap, channel), 9·Cin_j / 32 k32 slabs (18
-    for x, 9 for x1..x4), each laid out as ``mma.m16n8k32``'s s8 B
-    fragments, ``[slab][Cout/16][lane][16]`` (lane ``4g + t``, byte
-    ``8h + 4a + e``: row 16a + 4t + e of column 8h + g). Sources follow
-    one another within a stage, and the stages follow one another: every
-    weight appears once."""
-    key = str(device)
-    if key not in _FRAG_INDEX_W8A8:
-        offs, off = [], 0
+    channels (:func:`_stage_col`, the same in every source's kernel), as
+    k-steps of 32 channels: 18 for x (two a tap), 9 for x1..x4. A stage's
+    sources follow one another as one part, laid out by :func:`_slabs`,
+    and the stages follow one another: every weight appears once."""
+    key = ("w8a8", str(device))
+    if key not in _SLAB_INDEX:
+        offs = [0]
         for j, cin in enumerate(_W8_CIN):
-            offs.append(off)
-            off += 9 * cin * _w8_cols(j)
-        parts = []
-        for s, cout in enumerate(_COUT, start=1):
-            col = _stage_col(s)
-            for j in range(s):
-                cin, cols = _W8_CIN[j], _w8_cols(j)
-                flat = torch.arange(9 * cin * cols).view(9 * cin, cols) + offs[j]
-                mat = flat[:, col:col + cout]
-                parts.append(mat.reshape(9 * cin // 32, 2, 4, 4, cout // 16, 2, 8)
-                             .permute(0, 4, 6, 2, 5, 1, 3).reshape(-1))
-        _FRAG_INDEX_W8A8[key] = torch.cat(parts).to(device)
-    return _FRAG_INDEX_W8A8[key]
-
-
-_FRAG_INDEX_W8A8: dict = {}
+            offs.append(offs[-1] + 9 * cin * _w8_cols(j))
+        _SLAB_INDEX[key] = torch.cat([
+            _slabs(torch.cat([_s8_steps(j, s, _w8_cols(j), offs[j])
+                              for j in range(s)]))
+            for s in range(1, 6)]).to(device)
+    return _SLAB_INDEX[key]
 
 
 class W8A8Weights(NamedTuple):
     """One quantized block's operands of ``rdb_w8a8_kernel``, or a stack
     of them on leading axes (:meth:`block` takes one)."""
 
-    wq: torch.Tensor     # int8 B fragments (:func:`fragment_index_w8a8`)
+    wq: torch.Tensor     # int8 B slabs (:func:`slab_index_w8a8`)
     deq: torch.Tensor    # float32 (640,): x's 192, x1's 160, .. x4's 64
     qm: torch.Tensor     # float32 (5,): x's, then x1..x4's
     b: torch.Tensor      # float32 (192,): conv1..conv5's biases
@@ -674,7 +782,7 @@ def pack_rdb_w8a8(qp: dict) -> W8A8Weights:
     """One RDB of ``rrdbnet_int8.quantize_body`` (``w8``, ``deq``, ``qm``,
     ``b``), or a stack of them on leading axes (a quantized body's
     ``rdbJ``), as the full-W8A8 kernel's operands on the same device:
-    the fragment gather runs once here, not per launch."""
+    the slab gather runs once here, not per launch."""
     w8 = qp["w8"]
     lead = tuple(w8[0].shape[:-4])
     for j, w in enumerate(w8):
@@ -683,19 +791,21 @@ def pack_rdb_w8a8(qp: dict) -> W8A8Weights:
             raise ValueError(f"w8[{j}] must be int8 {want}, got {w.dtype} "
                              f"{tuple(w.shape)}")
     flat = torch.cat([w.reshape(*lead, -1) for w in w8], -1)
-    wq = flat[..., fragment_index_w8a8(flat.device)]
     return W8A8Weights(
-        wq.contiguous(),
+        _gather(flat, slab_index_w8a8),
         torch.cat([d.float() for d in qp["deq"]], -1).contiguous(),
         qp["qm"].float().contiguous(),
         torch.cat([t.float() for t in qp["b"]], -1).contiguous())
 
 
 def kernel_tiling_w8a8() -> dict:
-    """:func:`kernel_tiling` of the full-W8A8 kernel: its tile and work are
-    the bf16 kernel's, its shared memory holds x and x1..x4 in int8."""
+    """:func:`kernel_tiling` of ``rdb_w8a8_kernel``: the bf16 kernel's
+    tile; its shared memory (the B ring, x and x1..x4 in int8) and the
+    multiply-adds of its 64-row M tiles (``rdb_i8_kernel``'s)."""
+    lib = _lib()
     return {**kernel_tiling(torch.bfloat16),
-            "smem_bytes": int(_lib().s2sr_rdb_w8a8_smem_bytes())}
+            "smem_bytes": int(lib.s2sr_rdb_w8a8_smem_bytes()),
+            "macs_per_tile": int(lib.s2sr_rdb_i8_macs_per_tile())}
 
 
 def rdb_w8a8(x: torch.Tensor, qp: dict | None,
@@ -721,7 +831,7 @@ def rdb_w8a8(x: torch.Tensor, qp: dict | None,
     if packed is None:
         raise ValueError("rdb_w8a8 on the card takes its operands packed: "
                          "pass packed=pack_rdb_w8a8(qp)")
-    n_wq = fragment_index_w8a8().numel()
+    n_wq = slab_index_w8a8().numel()
     for name, t, dt, n in (("wq", packed.wq, torch.int8, n_wq),
                            ("deq", packed.deq, torch.float32, 640),
                            ("qm", packed.qm, torch.float32, 5),

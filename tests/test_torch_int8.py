@@ -5,9 +5,11 @@
 Weights and inputs come from numpy seeds and go to both packages; JAX's
 quantized tree is carried to the port (``qbody_from_jax``) wherever a
 test compares forwards, so both quantize with the same scales. On the
-CPU the wrapper runs its plain version; the CUDA kernel's indexing is
-emulated in numpy here and the kernel itself is held against the plain
-version on the card by ``chip_smoke.py`` (phase kernel).
+CPU the wrapper runs its plain version; the CUDA kernel's data movement
+(``wgmma`` tiles, the B ring, the descriptor's swizzle) is emulated in
+numpy here (:func:`emulate_wg_rdb`, shared with the full-W8A8 kernel's
+test) and the kernel itself is held against the plain version on the card
+by ``chip_smoke.py`` (phase kernel).
 """
 
 import numpy as np
@@ -29,7 +31,7 @@ from s2sr_tpu_torch.models.weights import params_from_jax
 from s2sr_tpu_torch.ops import rdb as rdb_mod
 
 from test_torch_engine import TINY, jax_tree_one_block
-from test_torch_rdb import _swz, _unpack_b_slabs, torch_weights
+from test_torch_rdb import torch_weights
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -214,140 +216,254 @@ def test_unknown_int8_modes_refused():
         tq.rrdbnet_apply_int8(model, {}, torch.rand(1, 8, 8, 3), mode="w4")
 
 
-# --- the int8 kernel's indexing, emulated in numpy --------------------------
+# --- the int8 kernels' data movement, emulated in numpy ---------------------
+#
+# rdb_i8_kernel and rdb_w8a8_kernel (csrc/rdb.cu) run only on the card
+# (chip_smoke.py, phase kernel). Here every address they compute is followed
+# in numpy: the input tile quantized into swizzled 4-chunk pixels; per stage
+# two warpgroups of 64-row M tiles (tile w + 2m), each row's A gathered as
+# ldmatrix.x4 returns it from the per-lane tap addresses; B read from the
+# ring's slot through the 128-byte swizzle of the wgmma descriptor's address
+# (start = slot + (k-step % 4)·32); the ring filled by whole-slab copies from
+# the packed streams in slab order, a slot refilled with slab g + NBUF once
+# slab g is released, and every read checked against the slab the slot
+# holds. s8 sums are exact integers, dequantized per source; bf16 products
+# and x1..x4 are kept in float32, so the result is the float32 block.
 
 TC_TILE, TC_HALO = 16, 5
 COUTS = (32, 32, 32, 32, 64)
+CINS = (64, 96, 128, 160, 192)
+# stage s's output channel 0 in every packed kernel ([a5|a4|a3|a2|a1])
+COLS = (160, 128, 96, 64, 0)
+WGS, KQ, NBUF, SLOT = 2, 4, 8, 64 * 128
+SMEM_LIMIT = 232448
 
 
-def _i8_layout():
-    """Byte offsets of x (int8, 64 bytes a pixel) and x1..x4 (bf16) in the
-    int8 kernel's shared memory (``tc_off(j, true)``)."""
+def side(j):
+    """Region side of source j (x: j = 0) and of stage j's output."""
+    return TC_TILE + 2 * (TC_HALO - j)
+
+
+def wg_mt(s):
+    """64-row M tiles each warpgroup runs in stage s (both the same)."""
+    return -(-(-(-side(s) ** 2 // 64)) // WGS)
+
+
+def src_layout(full):
+    """Per source j: (byte offset after the ring, region side, channels,
+    bytes a value): x in int8, x1..x4 in bf16 (rdb_i8) or int8 (full)."""
     out, off = [], 0
     for j in range(5):
-        side, ch = TC_TILE + 2 * (TC_HALO - j), 64 if j == 0 else 32
-        out.append((off, side, ch))
-        off += side * side * ch * (1 if j == 0 else 2)
+        ch, nb = (64 if j == 0 else 32), (1 if j == 0 or full else 2)
+        out.append((off, side(j), ch, nb))
+        off += side(j) ** 2 * ch * nb
     return out, off
 
 
-def _unpack_q_slabs(wq: np.ndarray, cout: int) -> np.ndarray:
-    """A stage's s8 B fragments (``[18][Cout/16][lane][16]``) read back as
-    ``mma.m16n8k32`` reads them: lane 4g + t's byte 8h + 4a + e is row
-    16a + 4t + e of column 16n + 8h + g."""
-    pk = wq.reshape(18, cout // 16, 32, 16)
-    lanes = np.arange(32)
-    g, t = lanes // 4, lanes % 4
-    out = np.zeros((18, 32, cout), np.int64)
-    for n in range(cout // 16):
-        for h in range(2):
-            for a in range(2):
-                for e in range(4):
-                    out[:, 16 * a + 4 * t + e, 16 * n + 8 * h + g] = \
-                        pk[:, n, :, 8 * h + 4 * a + e]
-    return out
+def src_steps(j, full):
+    """k-steps (32 bytes of K) of source j: two a tap, one for full's x_j."""
+    return 9 if j > 0 and full else 18
 
 
-def emulate_i8_rdb(x, wf, wq, deq, qm, bias, mask=None):
-    """``rdb_i8_kernel`` in numpy, tile by tile: x quantized on load into
-    its swizzled 4-chunk pixels, every k32 slab's A gathered as ldmatrix.x4
-    returns it from the per-lane tap addresses, int64 sums dequantized by
-    the stage's columns of ``deq``, then x1..x4's bf16 slabs (in float32)
-    from the bf16 fragments past x's rows, and the residual read from x."""
+def parts(s, full):
+    """Stage s's parts as (stream, sources): rdb_i8 x from wq (0), then
+    x1..x_{s-1} from wf (1); full W8A8 all its sources from wq."""
+    if full:
+        return [(0, list(range(s)))]
+    return [(0, [0])] + ([(1, list(range(1, s)))] if s > 1 else [])
+
+
+def slab_plan(full):
+    """Every slab in the kernel's order as (stream, byte offset, bytes),
+    each (stage, part)'s first slab, and each stream's length."""
+    slabs, first, off = [], {}, [0, 0]
+    for s in range(1, 6):
+        for i, (stream, srcs) in enumerate(parts(s, full)):
+            n = -(-sum(src_steps(j, full) for j in srcs) // KQ)
+            first[(s, i)] = len(slabs)
+            qb = COUTS[s - 1] * 128
+            slabs += [(stream, off[stream] + k * qb, qb) for k in range(n)]
+            off[stream] += n * qb
+    return slabs, first, off
+
+
+def wg_macs_per_tile():
+    """``wg_macs_per_tile``: each stage's 2·wg_mt 64-row tiles, 9 Cin × Cout."""
+    return sum(WGS * wg_mt(s) * 64 * 9 * CINS[s - 1] * COUTS[s - 1]
+               for s in range(1, 6))
+
+
+class Ring:
+    """The B ring: NBUF slots of SLOT bytes, 1024-aligned, the first NBUF
+    slabs copied in at the start; ``release(g)``: every consumer has read
+    slab g (``ring_release``), and the producer warp copies slab g + NBUF
+    into its slot. A copy over a slab with steps still to read, or a read
+    of a slot that holds another slab, fails."""
+
+    def __init__(self, streams, plan):
+        self.mem = np.zeros(NBUF * SLOT, np.uint8)
+        self.tag = [-1] * NBUF
+        self.streams, self.plan, self.released = streams, plan, []
+        for g in range(min(NBUF, len(plan))):
+            self.issue(g)
+
+    def issue(self, g):
+        slot = g % NBUF
+        assert self.tag[slot] < 0 or self.tag[slot] in self.released, \
+            "a slab overwritten before read"
+        stream, off, n = self.plan[g]
+        self.mem[slot * SLOT:slot * SLOT + n] = self.streams[stream][off:off + n]
+        self.tag[slot] = g
+
+    def release(self, g):
+        """Every consumer has read slab g: it must be the next slab."""
+        assert g == len(self.released), f"slab {g} released out of turn"
+        self.released.append(g)
+        if g + NBUF < len(self.plan):
+            self.issue(g + NBUF)
+
+    def b(self, g, kk, n, s8):
+        """k-step kk of slab g as wgmma reads it: (K, n), int64 for s8, the
+        bf16 values as float32 (16 a row) otherwise."""
+        assert self.tag[g % NBUF] == g, "the slot holds another slab"
+        rows, kb = np.arange(n)[:, None], np.arange(32)[None, :]
+        addr = (g % NBUF) * SLOT + kk * 32 + (rows // 8) * 1024 + (rows % 8) * 128 + kb
+        raw = np.ascontiguousarray(self.mem[addr ^ (((addr >> 7) & 7) << 4)])
+        if s8:
+            return raw.view(np.int8).astype(np.int64).T
+        u16 = raw.view("<u2").astype(np.uint32) << 16
+        return u16.view(np.float32).T
+
+
+def rot(p, c, cq):
+    """Byte offset of 16-byte chunk c of pixel p in a source of cq chunks a
+    pixel (``rot<CQ>``): 8 / cq pixels a 128-byte line, chunk c of pixel p
+    at bank group (p + 8 / cq · c) % 8."""
+    return (p * cq // 8) * 128 + ((p + 8 // cq * c) % 8) * 16
+
+
+def emulate_wg_rdb(x, streams, deq, qm, bias, full, mask=None):
+    """``rdb_i8_kernel`` (``full`` False; ``qm`` x's multiplier, ``deq``
+    the x conv's 192 factors) or ``rdb_w8a8_kernel`` (``qm`` five
+    multipliers, ``deq`` 640) in numpy, block by block. ``streams``: the
+    packed (wq, wf) as uint8. Returns the output and the multiply-adds
+    each block executed."""
     bsz, h, w, _ = x.shape
-    layout, nbytes = _i8_layout()
-    cins = (64, 96, 128, 160, 192)
-    cols = (160, 128, 96, 64, 0)
-    bslabs, qslabs, off, qoff = [], [], 0, 0
-    for cin, cout in zip(cins, COUTS):
-        n = 9 * cin * cout
-        bslabs.append(_unpack_b_slabs(wf[off:off + n], cin, cout))
-        qslabs.append(_unpack_q_slabs(wq[qoff:qoff + 576 * cout], cout))
-        off += n
-        qoff += 576 * cout
-    lanes = np.arange(32)
+    layout, nbytes = src_layout(full)
+    plan, first, lengths = slab_plan(full)
+    assert [len(t) for t in streams] == lengths[:len(streams)]
+    qms = np.atleast_1d(np.float32(qm))
+    deq_off = np.cumsum((0, 192, 160, 128, 96))
     out = np.zeros_like(x)
-    xq = np.clip(np.round(x * np.float32(qm)), -127, 127).astype(np.int64)
+    xq = np.clip(np.round(x * qms[0]), -127, 127).astype(np.int64)
+    macs = set()
     for b in range(bsz):
         for oy0 in range(0, h, TC_TILE):
             for ox0 in range(0, w, TC_TILE):
-                mem8 = np.full(layout[1][0], -999, np.int64)
-                mem = np.full(nbytes // 2, np.nan, np.float32)  # by 2 bytes
-                r0 = layout[0][1]
+                ring = Ring(streams, plan)
+                mem8 = np.full(nbytes, -999, np.int64)              # by byte
+                memf = np.full(nbytes // 2, np.nan, np.float32)    # by 2 bytes
+                r0 = side(0)
                 for p in range(r0 * r0):
                     gy, gx = oy0 - TC_HALO + p // r0, ox0 - TC_HALO + p % r0
                     inside = 0 <= gy < h and 0 <= gx < w
                     for c in range(8):
-                        at = _swz(p * 4 + c // 2) * 16 + 8 * (c % 2)
+                        at = rot(p, c // 2, 4) + 8 * (c % 2)
                         mem8[at:at + 8] = xq[b, gy, gx, 8 * c:8 * c + 8] \
                             if inside else 0
+                done = 0
                 for s in range(1, 6):
-                    rs = TC_TILE + 2 * (TC_HALO - s)
-                    npix, cout = rs * rs, COUTS[s - 1]
-                    d = deq[cols[s - 1]:cols[s - 1] + cout]
-                    for mt in range((npix + 15) // 16):
-                        pix = np.minimum(mt * 16 + lanes % 16, npix - 1)
-                        py, px = pix // rs, pix % rs
-                        iacc = np.zeros((16, cout), np.int64)
-                        sp0 = (py + s - 1) * r0 + px + s - 1
-                        k = 0
-                        for tap in range(9):
-                            toff = (tap // 3) * r0 + tap % 3
-                            for c in range(2):
-                                q = (sp0 + toff) * 4 + 2 * c + lanes // 16
-                                rows = mem8[(_swz(q) * 16)[:, None] + np.arange(16)]
-                                tile_a = np.concatenate([rows[:16], rows[16:]], 1)
-                                assert (tile_a != -999).all()
-                                iacc += tile_a @ qslabs[s - 1][k]
-                                k += 1
-                        acc = iacc.astype(np.float32) * d
-                        k = 36                     # past x's bf16 rows
-                        for j in range(1, s):
-                            base, rj, cj = layout[j]
-                            spj = (py + s - 1 - j) * rj + px + s - 1 - j
-                            for tap in range(9):
-                                toff = (tap // 3) * rj + tap % 3
-                                for c in range(cj // 16):
-                                    q = (spj + toff) * (cj // 8) + 2 * c + lanes // 16
-                                    addr = base + _swz(q) * 16
-                                    rows = mem[(addr // 2)[:, None] + np.arange(8)]
-                                    tile_a = np.concatenate([rows[:16], rows[16:]], 1)
-                                    acc += tile_a @ bslabs[s - 1][k]
-                                    k += 1
-                        for r in range(16):
-                            p = mt * 16 + r
-                            if p >= npix:
-                                continue
-                            ry, rx = divmod(p, rs)
-                            v = acc[r] + bias[(s - 1) * 32:(s - 1) * 32 + cout]
-                            if s < 5:
-                                hs = TC_HALO - s
-                                gy, gx = oy0 - hs + ry, ox0 - hs + rx
-                                ins = 0 <= gy < h and 0 <= gx < w
-                                mk = (mask[b, gy, gx] if mask is not None
-                                      else 1.0) if ins else 0.0
-                                val = np.where(v >= 0, v, 0.2 * v) * mk
-                                for co in range(cout):
-                                    addr = (layout[s][0] + _swz(p * 4 + co // 8) * 16
-                                            + 2 * (co % 8))
-                                    mem[addr // 2] = val[co] if ins else 0.0
+                    rs, cout = side(s), COUTS[s - 1]
+                    npix = rs * rs
+                    tiles = [wg + WGS * m for m in range(wg_mt(s))
+                             for wg in range(WGS)]
+                    rows = (np.array(tiles)[:, None] * 64
+                            + np.arange(64)[None, :]).reshape(-1)
+                    pix = np.minimum(rows, npix - 1)
+                    py, px = pix // rs, pix % rs
+                    acc = np.zeros((rows.size, cout), np.float32)
+                    for i, (_, srcs) in enumerate(parts(s, full)):
+                        s0, t = first[(s, i)], 0
+                        for j in srcs:
+                            base, rj, ch, nb = layout[j]
+                            nk, s8, cq = src_steps(j, full), nb == 1, ch * nb // 16
+                            spt, d = nk // 9, s - 1 - j
+                            sp0 = (py + d) * rj + px + d
+                            isum = np.zeros((rows.size, cout), np.int64)
+                            for k in range(nk):
+                                tt = t + k
+                                g = s0 + tt // KQ
+                                tap, cc = divmod(k, spt)
+                                pa = sp0 + (tap // 3) * rj + tap % 3
+                                # lanes 0-15: chunk 2cc of rows 0-15, 16-31: 2cc + 1
+                                if s8:
+                                    a = np.concatenate(
+                                        [mem8[base + rot(pa, 2 * cc + e, cq)[:, None]
+                                              + np.arange(16)] for e in (0, 1)], 1)
+                                    assert (a != -999).all()
+                                    isum += a @ ring.b(g, tt % KQ, cout, True)
+                                else:
+                                    a = np.concatenate(
+                                        [memf[(base + rot(pa, 2 * cc + e, cq))[:, None] // 2
+                                              + np.arange(8)] for e in (0, 1)], 1)
+                                    assert not np.isnan(a).any()
+                                    acc += a @ ring.b(g, tt % KQ, cout, False)
+                                done += rows.size * a.shape[1] * cout
+                                # wgmma_wait<1>: the step before has completed
+                                if tt % KQ == 0 and tt > 0:
+                                    ring.release(g - 1)
+                            if s8:
+                                col = COLS[s - 1] + (deq_off[j] if full else 0)
+                                acc = acc + isum.astype(np.float32) * deq[col:col + cout]
+                            t += nk
+                        ring.release(s0 + (t - 1) // KQ)       # the part's last
+                    for r, p in enumerate(rows):
+                        if p >= npix:
+                            continue
+                        ry, rx = divmod(int(p), rs)
+                        v = acc[r] + bias[(s - 1) * 32:(s - 1) * 32 + cout]
+                        co = np.arange(cout)
+                        if s < 5:
+                            hs = TC_HALO - s
+                            gy, gx = oy0 - hs + ry, ox0 - hs + rx
+                            ins = 0 <= gy < h and 0 <= gx < w
+                            mk = np.float32((mask[b, gy, gx] if mask is not None
+                                             else 1.0) if ins else 0.0)
+                            val = np.where(v >= 0, v, np.float32(0.2) * v) * mk
+                            if full:
+                                q8 = np.clip(np.round(val * qms[s]), -127, 127)
+                                addr = layout[s][0] + rot(p, co // 16, 2) + co % 16
+                                mem8[addr] = q8 if ins else 0
                             else:
-                                gy, gx = oy0 + ry, ox0 + rx
-                                if gy >= h or gx >= w:
-                                    continue
-                                mk = mask[b, gy, gx] if mask is not None else 1.0
-                                out[b, gy, gx] = (v * 0.2 + x[b, gy, gx]) * mk
-    return out
+                                addr = layout[s][0] + rot(p, co // 8, 4) + 2 * (co % 8)
+                                memf[addr // 2] = val if ins else 0.0
+                        else:
+                            gy, gx = oy0 + ry, ox0 + rx
+                            if gy >= h or gx >= w:
+                                continue
+                            mk = np.float32(mask[b, gy, gx] if mask is not None
+                                            else 1.0)
+                            out[b, gy, gx] = (v * np.float32(0.2) + x[b, gy, gx]) * mk
+                assert ring.released == list(range(len(plan)))  # each slab once
+                macs.add(done)
+    return out, macs.pop()
+
+
+def _as_u8(t):
+    return t.contiguous().view(torch.uint8).numpy()
 
 
 @pytest.mark.parametrize("masked", [False, True])
 def test_i8_kernel_emulation_matches_reference(masked):
-    """The int8 kernel's indexing (x quantized into swizzled 4-chunk
-    pixels, per-lane ldmatrix tap addresses for k32 slabs, the s8
-    B-fragment packer, the stage → packed-column map of deq, x1..x4's bf16
-    slabs after x's rows, the residual from x), emulated on a 2×2-tile
-    image in float32, gives the float32 plain version within rtol 1e-4 /
-    atol 1e-5 (summation order)."""
+    """The int8-mixed kernel's data movement (x quantized into swizzled
+    4-chunk pixels; 64-row warpgroup tiles with per-lane ldmatrix tap
+    addresses; x's s8 slabs and x1..x4's bf16 slabs from their packers,
+    streamed through the ring in slab order and read through the
+    descriptor's swizzle; the stage → packed-column map of deq; the
+    residual from x), emulated on a ragged 2×2-tile image in float32 with
+    bf16-valued weights, gives the float32 plain version within rtol 1e-4
+    / atol 1e-5 (summation order); each block executes the kernel's
+    count of multiply-adds."""
     p = rdb_tree(11)
     rng = np.random.default_rng(12)
     x = rng.normal(size=(1, 18, 21, 64)).astype(np.float32)
@@ -357,38 +473,157 @@ def test_i8_kernel_emulation_matches_reference(masked):
         mask[:, :13, :17] = 1
         x = x * mask[..., None]
     qp = mixed_qp(p, x)
-    w, b = torch_weights(p)
-    wf = w[rdb_mod.fragment_index()].numpy()
+    w, b = torch_weights(p, torch.bfloat16)
     wx8 = torch.from_numpy(qp["wx8"])
-    wq = rdb_mod.pack_rdb_i8_fragments(wx8)
     deq = torch.from_numpy(qp["deq"])
-    got = emulate_i8_rdb(x, wf, wq.numpy().astype(np.int64), qp["deq"],
-                         qp["qm"], b.numpy(), mask)
+    streams = (_as_u8(rdb_mod.pack_rdb_i8_fragments(wx8)),
+               _as_u8(rdb_mod.pack_rdb_i8_bf16(w)))
+    got, macs = emulate_wg_rdb(x, streams, qp["deq"], qp["qm"], b.numpy(),
+                               False, mask)
     want = rdb_mod.rdb_i8_reference(
         torch.from_numpy(x), w, b, wx8, deq, float(qp["qm"]),
         None if mask is None else torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    assert macs == wg_macs_per_tile()
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_int8_kernels_shared_memory_fits(full):
+    """The B ring (8 slots of 8 KB), x and x1..x4 and the ring's barriers
+    fit the 232,448 bytes a block may have, as ``wg_smem_plan`` (the
+    kernel source's layout, which phase kernel holds to the built
+    library) counts them: rdb_i8's ring fits the 75,008 bytes its
+    sources leave."""
+    plan = rdb_mod.wg_smem_plan(full)
+    layout, sources = src_layout(full)
+    assert plan["sources"] == sources and plan["ring"] == NBUF * SLOT
+    assert plan["total"] == 1024 + NBUF * SLOT + sources + 2 * NBUF * 8
+    assert plan["total"] <= SMEM_LIMIT
+    assert sources == (100352 if full else 157440)
+    assert plan["ring"] + plan["align"] + plan["barriers"] <= SMEM_LIMIT - sources
+
+
+def two_wavefront_share(full, layout):
+    """Share of the ldmatrix phases (8 lanes: 8 pixels of a warp's rows at
+    one chunk) of all five stages' k-steps that take two wavefronts or
+    more: distinct 16-byte addresses in one bank group, by count over the
+    kernel's tiles, taps and chunks (lanes on one address share it).
+    ``layout``: "rot" (the int8 kernels') or "swz" (rdb_tc_kernel's XOR
+    swizzle)."""
+    worse = total = 0
+    for s in range(1, 6):
+        rs = side(s)
+        npix = rs * rs
+        tiles = WGS * wg_mt(s)
+        for j in range(s):
+            rj, d = side(j), s - 1 - j
+            nb = 1 if j == 0 or full else 2
+            cq = (64 if j == 0 else 32) * nb // 16
+            spt = src_steps(j, full) // 9
+            lanes = np.arange(32)
+            rows = (np.arange(tiles)[:, None, None] * 64
+                    + np.arange(4)[None, :, None] * 16 + (lanes & 15))
+            pix = np.minimum(rows, npix - 1)
+            for tap in range(9):
+                p = ((pix // rs + d + tap // 3) * rj + pix % rs + d + tap % 3)
+                for cc in range(spt):
+                    c = 2 * cc + (lanes >> 4)
+                    if layout == "rot":
+                        at = rot(p, c, cq) // 16
+                    else:
+                        q = p * cq + c
+                        at = q ^ ((q >> 3) & 7)
+                    for ph in range(4):
+                        a = at[..., 8 * ph:8 * ph + 8].reshape(-1, 8)
+                        for row in a:
+                            u = np.unique(row)
+                            worse += np.bincount(u % 8).max() > 1
+                            total += 1
+    return worse / total
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_int8_kernels_source_layout(full):
+    """``rot``, the resident sources' layout: every chunk of every pixel at
+    its own 16 bytes (a bijection onto the buffer), and an ldmatrix phase
+    (8 consecutive pixels, one chunk) on 8 bank groups from any first
+    pixel, where the XOR swizzle of rdb_tc_kernel takes two wavefronts
+    from an odd one. Over the kernel's own phases (rdb_i8's, or
+    rdb_w8a8's if ``full``) two wavefronts are left only where a phase
+    crosses a region row: 13.4% and 12.2% of them, against 47.8% and
+    50.7% with the XOR swizzle (counted here, quoted in csrc/rdb.cu)."""
+    npix = 26 * 26
+    for cq in (2, 4):
+        p, c = np.meshgrid(np.arange(npix), np.arange(cq), indexing="ij")
+        at = rot(p, c, cq)
+        assert sorted(at.ravel().tolist()) == list(range(0, npix * cq * 16, 16))
+        for first in range(64):
+            for chunk in range(cq):
+                banks = rot(np.arange(first, first + 8), chunk, cq) // 16 % 8
+                assert len(set(banks.tolist())) == 8
+    q = np.arange(1, 9) * 4                 # 8 pixels from an odd one, chunk 0
+    assert len(set(((q ^ ((q >> 3) & 7)) % 8).tolist())) < 8
+    want = (0.122, 0.507) if full else (0.134, 0.478)
+    assert two_wavefront_share(full, "rot") == pytest.approx(want[0], abs=0.005)
+    assert two_wavefront_share(full, "swz") == pytest.approx(want[1], abs=0.005)
+
+
+def test_i8_executed_over_useful():
+    """64-row M tiles, the same number for both warpgroups: 1.48 of the
+    block's useful multiply-adds (1.42 if the tiles were split exactly,
+    1.434 for rdb_tc_kernel's 16-row tiles)."""
+    useful = 256 * 9 * sum(c * n for c, n in zip(CINS, COUTS))
+    assert wg_macs_per_tile() / useful == pytest.approx(1.4808, abs=1e-4)
+    exact = sum(-(-side(s) ** 2 // 64) * 64 * 9 * CINS[s - 1] * COUTS[s - 1]
+                for s in range(1, 6))
+    assert exact / useful == pytest.approx(1.423, abs=1e-3)
 
 
 def test_i8_fragments_roundtrip_and_layout():
-    """The s8 fragment index is a permutation (exact round trip) and
-    puts each weight where m16n8k32 reads it."""
-    idx = rdb_mod.fragment_index_i8()
-    assert sorted(idx.tolist()) == list(range(9 * 64 * 192))
+    """The x conv's s8 slab index and x1..x4's bf16 byte index are
+    permutations of what each packer reads (every weight once, an exact
+    round trip, the rest padding), and a byte lands where wgmma's
+    descriptor reads it: stage 2's k-step 1 (tap 0, channels 32..63),
+    output channel n at byte kb of its 32 is logical chunk 2 + kb // 16 of
+    row n, stored at chunk (2 + kb // 16) ^ (n % 8)."""
+    idx = rdb_mod.slab_index_i8()
+    real = idx[idx >= 0]
+    assert sorted(real.tolist()) == list(range(9 * 64 * 192))
     wx8 = torch.randint(-127, 128, (3, 3, 64, 192), dtype=torch.int8)
-    frag = rdb_mod.pack_rdb_i8_fragments(wx8)
-    back = torch.empty_like(frag)
-    back[idx] = frag
+    slabs = rdb_mod.pack_rdb_i8_fragments(wx8)
+    assert slabs.dtype == torch.int8 and slabs.numel() == idx.numel()
+    assert (slabs[idx < 0] == 0).all()
+    back = torch.empty(9 * 64 * 192, dtype=torch.int8)
+    back[real] = slabs[idx >= 0]
     assert torch.equal(back.view(3, 3, 64, 192), wx8)
-    # stage 1 (packed columns 160..191), slab 0, lane 4g + t of n16 block
-    # 0: bytes 8h + 4a + e are row 16a + 4t + e of column 160 + 8h + g
-    g, t = 5, 3
-    flat = wx8.reshape(576, 192)
-    want = [int(flat[16 * a + 4 * t + e, 160 + 8 * h + g])
-            for h in (0, 1) for a in (0, 1) for e in range(4)]
-    assert frag[(4 * g + t) * 16:][:16].tolist() == want
+    # stage 1's 5 slabs of 32 rows come first
+    n, kb = 5, 17
+    at = 5 * 32 * 128 + n * 128 + ((2 + kb // 16) ^ (n % 8)) * 16 + kb % 16
+    assert int(slabs[at]) == int(wx8[0, 0, 32 + kb, 128 + n])
     with pytest.raises(ValueError, match="int8"):
         rdb_mod.pack_rdb_i8_fragments(wx8.float())
+    # x1..x4's rows: two bytes of every weight of conv s that reads x_j
+    bidx = rdb_mod.slab_index_i8_bf16()
+    breal = bidx[bidx >= 0]
+    assert breal.numel() == len(set(breal.tolist()))
+    offs = np.cumsum([0] + [9 * c * o for c, o in zip(CINS, COUTS)])
+    want = set()
+    for s in range(2, 6):
+        cin, cout = CINS[s - 1], COUTS[s - 1]
+        v = np.arange(9 * cin * cout).reshape(9, cin, cout)[:, 64:] + offs[s - 1]
+        want |= set((2 * v).ravel().tolist()) | set((2 * v + 1).ravel().tolist())
+    assert set(breal.tolist()) == want
+    w = torch.randn(int(offs[-1])).bfloat16().float()
+    bslabs = rdb_mod.pack_rdb_i8_bf16(w)
+    assert bslabs.dtype == torch.uint8 and bslabs.numel() == bidx.numel()
+    # stage 3's part (after stage 2's 5 slabs): x1's 18 k-steps, then x2's;
+    # step 19 is x2's tap 0, channels 16..31 (conv 3's 112..127), in slab
+    # 4 at k-step 3; output channel 3, value 5: bytes 10, 11 of its 32
+    n, i, kb = 3, 5, 10
+    at = (5 + 4) * 32 * 128 + n * 128 + ((2 * 3 + kb // 16) ^ (n % 8)) * 16 + kb % 16
+    got = bslabs[at:at + 2].view(torch.bfloat16).float().item()
+    val = w[int(offs[2]) + (64 + 32 + 16 + i) * 32 + n].item()
+    assert got == val
 
 
 def test_rdb_i8_wrapper_cpu_plain_and_refuses_other_devices():

@@ -5,10 +5,13 @@ against the JAX package's ``s2sr_tpu/models/rrdbnet.py`` and
 ``rrdbnet_int8.py``, on the CPU.
 
 On the CPU the wrapper runs its plain version; ``rdb_w8a8_kernel``'s
-indexing (int8 x and x1..x4 in swizzled shared memory, k32 slabs per
-source, per-source dequantization at the stage's packed columns) is
-emulated in numpy here, and the kernel itself is held against the plain
-version on the card by ``chip_smoke.py`` (phase kernel).
+data movement (int8 x and x1..x4 in swizzled shared memory, 64-row
+warpgroup tiles, the s8 B slabs streamed through the ring and read
+through the wgmma descriptor's swizzle, per-source dequantization at the
+stage's packed columns) is emulated in numpy here
+(``test_torch_int8.py::emulate_wg_rdb``), and the kernel itself is held
+against the plain version on the card by ``chip_smoke.py`` (phase
+kernel).
 """
 
 import numpy as np
@@ -25,13 +28,10 @@ from s2sr_tpu_torch.models.rrdbnet import packed_prefix_kernels, rrdbnet_bands
 from s2sr_tpu_torch.ops import rdb as rdb_mod
 from s2sr_tpu_torch.parallel import spatial
 
-from test_torch_int8 import (COUTS, TC_HALO, TC_TILE, port_model, rdb_tree,
-                             to_jax, torch_p, unscaled_tree)
-from test_torch_rdb import _swz
+from test_torch_int8 import (COUTS, emulate_wg_rdb, port_model, rdb_tree,
+                             to_jax, torch_p, unscaled_tree, wg_macs_per_tile)
 from torch_threads import one_torch_thread  # noqa: F401
 
-# deq columns of stage s's output channel 0 in every source's kernel
-COLS = (160, 128, 96, 64, 0)
 SRC_CIN = (64, 32, 32, 32, 32)
 SRC_COLS = (192, 160, 128, 96, 64)
 
@@ -105,137 +105,23 @@ def test_rdb_w8a8_reference_matches_jax(dtype, masked):
     assert np.abs(got - want).max() <= tol * change
 
 
-# --- the full-W8A8 kernel's indexing, emulated in numpy ----------------------
-
-def _w8_layout():
-    """Byte offsets of x (64 bytes a pixel) and x1..x4 (32 bytes a pixel),
-    all int8, in the kernel's shared memory (``w8_off(j)``)."""
-    out, off = [], 0
-    for j in range(5):
-        side, ch = TC_TILE + 2 * (TC_HALO - j), SRC_CIN[j]
-        out.append((off, side, ch))
-        off += side * side * ch
-    return out, off
-
-
-def _unpack_w8_slabs(wq: np.ndarray) -> dict:
-    """``{(stage, source): (slabs, 32, Cout)}`` read back from the packed
-    B fragments as ``mma.m16n8k32`` reads them, in the order the kernel
-    walks them (``w8_woff``): lane 4g + t's byte 8h + 4a + e of n16 block
-    n is row 16a + 4t + e of column 16n + 8h + g."""
-    lanes = np.arange(32)
-    g, t = lanes // 4, lanes % 4
-    out, off = {}, 0
-    for s, cout in enumerate(COUTS, start=1):
-        for j in range(s):
-            nslab = 9 * SRC_CIN[j] // 32
-            n = nslab * 32 * cout
-            pk = wq[off:off + n].reshape(nslab, cout // 16, 32, 16)
-            mat = np.zeros((nslab, 32, cout), np.int64)
-            for nb in range(cout // 16):
-                for h in range(2):
-                    for a in range(2):
-                        for e in range(4):
-                            mat[:, 16 * a + 4 * t + e, 16 * nb + 8 * h + g] = \
-                                pk[:, nb, :, 8 * h + 4 * a + e]
-            out[(s, j)] = mat
-            off += n
-    assert off == wq.size
-    return out
-
-
-def emulate_w8a8_rdb(x, wq, deq, qm, bias, mask=None):
-    """``rdb_w8a8_kernel`` in numpy, tile by tile: x quantized on load into
-    its swizzled 4-chunk pixels; per stage and source, every k32 slab's A
-    gathered as ldmatrix.x4 returns it from the per-lane tap addresses
-    (two slabs a tap for x, one for x1..x4), the int64 sums dequantized by
-    that source's factors at the stage's columns and added to the float32
-    accumulator; x1..x4 stored as int8 (bias, LeakyReLU, mask, then
-    round(v·qm)) into swizzled 2-chunk pixels; the residual from x."""
-    bsz, h, w, _ = x.shape
-    layout, nbytes = _w8_layout()
-    slabs = _unpack_w8_slabs(wq)
-    deq_off = np.cumsum((0,) + SRC_COLS[:-1])
-    lanes = np.arange(32)
-    out = np.zeros_like(x)
-    xq = np.clip(np.round(x * qm[0]), -127, 127).astype(np.int64)
-    for b in range(bsz):
-        for oy0 in range(0, h, TC_TILE):
-            for ox0 in range(0, w, TC_TILE):
-                mem8 = np.full(nbytes, -999, np.int64)
-                r0 = layout[0][1]
-                for p in range(r0 * r0):
-                    gy, gx = oy0 - TC_HALO + p // r0, ox0 - TC_HALO + p % r0
-                    inside = 0 <= gy < h and 0 <= gx < w
-                    for c in range(8):
-                        at = _swz(p * 4 + c // 2) * 16 + 8 * (c % 2)
-                        mem8[at:at + 8] = xq[b, gy, gx, 8 * c:8 * c + 8] \
-                            if inside else 0
-                for s in range(1, 6):
-                    rs = TC_TILE + 2 * (TC_HALO - s)
-                    npix, cout = rs * rs, COUTS[s - 1]
-                    for mt in range((npix + 15) // 16):
-                        pix = np.minimum(mt * 16 + lanes % 16, npix - 1)
-                        py, px = pix // rs, pix % rs
-                        acc = np.zeros((16, cout), np.float32)
-                        for j in range(s):
-                            base, rj, cj = layout[j]
-                            d = s - 1 - j
-                            spj = (py + d) * rj + px + d
-                            iacc = np.zeros((16, cout), np.int64)
-                            k = 0
-                            for tap in range(9):
-                                toff = (tap // 3) * rj + tap % 3
-                                for c in range(cj // 32):
-                                    q = (spj + toff) * (cj // 16) + 2 * c + lanes // 16
-                                    rows = mem8[base + (_swz(q) * 16)[:, None]
-                                                + np.arange(16)]
-                                    tile_a = np.concatenate([rows[:16], rows[16:]], 1)
-                                    assert (tile_a != -999).all()
-                                    iacc += tile_a @ slabs[(s, j)][k]
-                                    k += 1
-                            dq = deq[deq_off[j] + COLS[s - 1]:][:cout]
-                            acc = acc + iacc.astype(np.float32) * dq
-                        for r in range(16):
-                            p = mt * 16 + r
-                            if p >= npix:
-                                continue
-                            ry, rx = divmod(p, rs)
-                            v = acc[r] + bias[(s - 1) * 32:(s - 1) * 32 + cout]
-                            if s < 5:
-                                hs = TC_HALO - s
-                                gy, gx = oy0 - hs + ry, ox0 - hs + rx
-                                ins = 0 <= gy < h and 0 <= gx < w
-                                mk = np.float32((mask[b, gy, gx] if mask is not None
-                                                 else 1.0) if ins else 0.0)
-                                val = np.where(v >= 0, v, np.float32(0.2) * v) * mk
-                                q8 = np.clip(np.round(val * qm[s]), -127, 127)
-                                co = np.arange(cout)
-                                addr = (layout[s][0] + _swz(p * 2 + co // 16) * 16
-                                        + co % 16)
-                                mem8[addr] = q8 if ins else 0
-                            else:
-                                gy, gx = oy0 + ry, ox0 + rx
-                                if gy >= h or gx >= w:
-                                    continue
-                                mk = np.float32(mask[b, gy, gx] if mask is not None
-                                                else 1.0)
-                                out[b, gy, gx] = (v * np.float32(0.2)
-                                                  + x[b, gy, gx]) * mk
-    return out
-
+# --- the full-W8A8 kernel's data movement, emulated in numpy -----------------
+# (test_torch_int8.py::emulate_wg_rdb, the all-s8 instance)
 
 @pytest.mark.parametrize("shape, masked", [((1, 16, 16), False),
                                            ((1, 18, 21), True)])
 def test_w8a8_kernel_emulation_matches_reference(shape, masked):
-    """The kernel's indexing (x and x1..x4 in int8 in swizzled shared
-    memory, per-lane ldmatrix tap addresses for k32 slabs of each source,
-    the five-kernel fragment packer, each source's deq at the stage's
-    packed columns, x1..x4 quantized with their own qm, the residual from
-    x), emulated on one 16² tile and on a ragged masked image of 2×2
-    tiles in float32, gives the float32 plain version within 1e-6 of max
-    |out| (the same sums in the same order: every int8 product is exact,
-    each dequantization a product and a sum rounded once)."""
+    """The kernel's data movement (x and x1..x4 in int8 in swizzled shared
+    memory; 64-row warpgroup tiles with per-lane ldmatrix tap addresses for
+    each source's k-steps; the five kernels' s8 slabs from the packer,
+    streamed through the ring in slab order and read through the
+    descriptor's swizzle; each source's deq at the stage's packed columns;
+    x1..x4 quantized with their own qm; the residual from x), emulated on
+    one 16² tile and on a ragged masked image of 2×2 tiles in float32,
+    gives the float32 plain version within 1e-6 of max |out| (the same
+    sums in the same order: every int8 product is exact, each
+    dequantization a product and a sum rounded once), executing the
+    kernel's count of multiply-adds."""
     p = rdb_tree(33)
     rng = np.random.default_rng(34)
     x = rng.normal(size=(*shape, 64)).astype(np.float32)
@@ -247,8 +133,10 @@ def test_w8a8_kernel_emulation_matches_reference(shape, masked):
         x = x * mask[..., None]
     qp = w8a8_qp(p, x)
     pk = rdb_mod.pack_rdb_w8a8(qp)
-    got = emulate_w8a8_rdb(x, pk.wq.numpy().astype(np.int64), pk.deq.numpy(),
-                           pk.qm.numpy(), pk.b.numpy(), mask)
+    got, macs = emulate_wg_rdb(x, (pk.wq.view(torch.uint8).numpy(),),
+                               pk.deq.numpy(), pk.qm.numpy(), pk.b.numpy(),
+                               True, mask)
+    assert macs == wg_macs_per_tile()
     want = rdb_mod.rdb_w8a8_reference(
         torch.from_numpy(x), qp,
         None if mask is None else torch.from_numpy(mask)).numpy()
@@ -258,13 +146,14 @@ def test_w8a8_kernel_emulation_matches_reference(shape, masked):
 
 
 def test_w8a8_fragments_roundtrip_and_layout():
-    """The five-kernel fragment index is a permutation (every weight once,
-    an exact round trip), puts a weight where m16n8k32 reads it, and a
-    stack of blocks packs as each block alone; deq, qm and the biases
-    concatenate in source order."""
-    idx = rdb_mod.fragment_index_w8a8()
+    """The five-kernel slab index is a permutation (every weight once, an
+    exact round trip, the rest padding), puts a weight where wgmma's
+    descriptor reads it, and a stack of blocks packs as each block alone;
+    deq, qm and the biases concatenate in source order."""
+    idx = rdb_mod.slab_index_w8a8()
     total = sum(9 * c * n for c, n in zip(SRC_CIN, SRC_COLS))
-    assert sorted(idx.tolist()) == list(range(total))
+    real = idx[idx >= 0]
+    assert sorted(real.tolist()) == list(range(total))
     gen = torch.Generator().manual_seed(35)
     w8 = tuple(torch.randint(-127, 128, (2, 3, 3, c, n), generator=gen,
                              dtype=torch.int8)
@@ -274,9 +163,10 @@ def test_w8a8_fragments_roundtrip_and_layout():
           "qm": torch.rand(2, 5, generator=gen),
           "b": tuple(torch.rand(2, n, generator=gen) for n in COUTS)}
     pk = rdb_mod.pack_rdb_w8a8(qp)
+    assert pk.wq.shape == (2, idx.numel()) and (pk.wq[:, idx < 0] == 0).all()
     flat = torch.cat([w.reshape(2, -1) for w in w8], -1)
     back = torch.empty_like(flat)
-    back[:, idx] = pk.wq
+    back[:, real] = pk.wq[:, idx >= 0]
     assert torch.equal(back, flat)
     one = rdb_mod.pack_rdb_w8a8({k: (tuple(t[1] for t in v)
                                      if isinstance(v, tuple) else v[1])
@@ -285,16 +175,14 @@ def test_w8a8_fragments_roundtrip_and_layout():
         assert torch.equal(a, b)
     assert torch.equal(one.deq, torch.cat([d[1] for d in qp["deq"]]))
     assert one.deq.numel() == 640 and one.b.numel() == 192
-    # stage 2 reads x1's packed columns 128..159; its first slab follows
-    # stage 1's 18 slabs of x and stage 2's 18 of x (2 n16 blocks of 32
-    # lanes × 16 bytes each); lane 4g + t's bytes 8h + 4a + e are row
-    # 16a + 4t + e of column 128 + 8h + g
-    g, t = 6, 1
-    at = 2 * 18 * 2 * 32 * 16 + (4 * g + t) * 16
-    mat = w8[1][1].reshape(9 * 32, 160)
-    want = [int(mat[16 * a + 4 * t + e, 128 + 8 * h + g])
-            for h in (0, 1) for a in (0, 1) for e in range(4)]
-    assert one.wq[at:at + 16].tolist() == want
+    # stage 2's part follows stage 1's 5 slabs of 32 rows: x's 18 k-steps,
+    # then x1's 9 (one a tap); its k-step 20 is x1's tap 2 (32 channels),
+    # in slab 5 at k-step 0, reading x1's packed columns 128..159. Output
+    # channel n's byte kb is logical chunk kb // 16 of row n, stored at
+    # chunk (kb // 16) ^ (n % 8)
+    n, kb = 6, 21
+    at = (5 + 5) * 32 * 128 + n * 128 + ((kb // 16) ^ (n % 8)) * 16 + kb % 16
+    assert int(one.wq[at]) == int(w8[1][1, 0, 2, kb, 128 + n])
     with pytest.raises(ValueError, match="int8"):
         rdb_mod.pack_rdb_w8a8(dict(qp, w8=(w8[0].float(),) + w8[1:]))
 
