@@ -12,7 +12,9 @@ random weights from seed 0, each at the full width of its model:
 
 - the ``/api/wow`` path (``process_wow_sr`` and
   ``SREngine.enhance_serving_many``) on ``realesrgan_x4``, whose residual
-  dense blocks run the ``rdb`` kernel, and at precision "int8" (the
+  dense blocks run the ``rdb`` kernel (bf16 ``rdb_wg_kernel`` on
+  ``wgmma``, timed in turns beside ``v4_mma``, the ``mma.sync`` design it
+  replaced, and ``rdb_i8``), and at precision "int8" (the
   int8-mixed trunk) the ``rdb_i8`` kernel (phases kernel, main, numbers);
 - full W8A8 (``quantize_rrdbnet(mode="full")``,
   ``rrdbnet_apply_int8(mode="full")``) on ``realesrgan_x4``: a chunk of
@@ -107,7 +109,9 @@ at the main path's chunk shape, whose rungs run the ``rdb_v1``, ``rdb_v2``
 and ``rdb_v3`` kernels (bf16 ``v1``, ``v2`` and ``v3`` on the tensor cores in
 ``csrc/rdb_ladder_tc.cu``, fp32 in ``csrc/rdb_ladder.cu``), with the JAX
 ladder's int8 and Winograd variants (``i8`` on ``rdb_w8a8``, ``i8mix`` on
-``rdb_i8``, the rest plain PyTorch; phase ladder), and the
+``rdb_i8``, the rest plain PyTorch), ``v4_mma`` (``rdb_tc_kernel``) and the
+v4 staging knobs as instances of ``rdb``'s kernel, with the split of its
+time above its bound (phase ladder), and the
 matrix-unit microbenchmark (``s2sr_tpu_torch.bench.mxu`` and
 ``bench.peak``), whose chains and pairs run the ``matmul_chain`` and
 ``pair_chain`` kernels of ``csrc/matmul_chain.cu`` (phase mxu).
@@ -291,9 +295,9 @@ def phase_build(state):
           "per_kernel_seconds": {n: b[0] for n, b in built.items()},
           "ptxas": ptxas, "ptxas_wgmma_notes": state["ptxas_wgmma"]})
     # the tensor-core kernels, one line each: registers and spills
-    for name, pattern in (("rdb", "rdb_tc_kernel"), ("rdb", "rdb_i8_kernel"),
-                          ("rdb", "rdb_w8a8_kernel"),
-                          ("rdb", "rdb_tc_ablate_kernel"),
+    for name, pattern in (("rdb", "rdb_wg_kernel"), ("rdb", "rdb_tc_kernel"),
+                          ("rdb", "rdb_i8_kernel"), ("rdb", "rdb_w8a8_kernel"),
+                          ("rdb", "rdb_wg_ablate_kernel"),
                           ("matmul_chain", "wg_chain_kernel"),
                           ("window_attention", "swin_tc_kernel"),
                           ("rdb_ladder_tc", "_tc_kernel")):
@@ -335,10 +339,12 @@ def drop_dense_input(w, b, i: int):
     return w
 
 
-def hold_against_plain(phase, name, run, plain, cases, tiling):
+def hold_against_plain(phase, name, run, plain, cases, tiling,
+                       dtypes=("float32", "bfloat16")):
     """Hold one fused-RDB kernel against its plain version on the card.
 
-    For fp32 and bf16 and each ``(shape, masked_hw)`` of ``cases``, the
+    For each of ``dtypes`` (fp32 and bf16, or bf16 alone for a bf16-only
+    kernel) and each ``(shape, masked_hw)`` of ``cases``, the
     inputs of :func:`rdb_inputs` go through ``run(x, w, b, mask)`` (the
     kernel) and ``plain(x, w, b, mask)`` (its plain version, from the same
     flat weights). The error is max |kernel − plain| over the largest
@@ -355,7 +361,7 @@ def hold_against_plain(phase, name, run, plain, cases, tiling):
     tol = {torch.float32: 1e-4, torch.bfloat16: 0.05}
     worst_abs = worst_rel = 0.0
     failures = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (getattr(torch, d) for d in dtypes):
         for shape, masked_hw in cases:
             x, w, b, mask = rdb_inputs(shape, dtype, masked_hw)
             got = run(x, w, b, mask).float()
@@ -648,8 +654,44 @@ def hold_w8a8_against_plain(state) -> None:
     state["rdb_w8a8_max_abs_err"], state["rdb_w8a8_rel_err"] = worst
 
 
-# the served bf16 kernel's mangled name holds its identifier length-prefixed
-SERVED_TC = "13rdb_tc_kernelE"
+# the served bf16 kernel's mangled name holds its identifier length-prefixed,
+# and so does the design it replaced, the ladder's v4_mma
+SERVED_WG = "13rdb_wg_kernelE"
+MMA_TC = "13rdb_tc_kernelE"
+# the served kernel's TPU kernel, which v4_mma and the ablations share
+RDB_REPLACES = "s2sr_tpu/ops/pallas/fused_rdb_v4.py:234"
+
+
+def time_rdb_designs(state) -> None:
+    """The served ``rdb`` (``rdb_wg_kernel``), ``v4_mma`` (``rdb_tc_kernel``,
+    the design it replaced) and ``rdb_i8`` at the main path's chunk shape
+    in bf16, in turns in one call: 10 launches each, in the order rdb,
+    v4_mma, rdb_i8, rdb_i8, v4_mma, rdb; the lower of each kernel's two
+    beside the bound."""
+    import torch
+
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+
+    shape = (16, 264, 264)
+    x, w, b, _ = rdb_inputs(shape, torch.bfloat16)
+    wx8, deq, qm = rdb_i8_params(x, w, b)
+    fns = {"rdb": lambda: rdb_mod.rdb(x, w, b),
+           "v4_mma": lambda: rdb_mod.rdb_mma(x, w, b),
+           "rdb_i8": lambda: rdb_mod.rdb_i8(x, w, b, wx8, deq, qm)}
+    ms = {k: [] for k in fns}
+    for name in ("rdb", "v4_mma", "rdb_i8", "rdb_i8", "v4_mma", "rdb"):
+        ms[name].append(time_cuda(fns[name], iters=10))
+    best = {k: min(v) for k, v in ms.items()}
+    bound_ms, bound_by = rdb_bound_ms(shape, torch.bfloat16, masked=False)
+    state["rdb_turns"] = best
+    emit({"phase": "kernel", "card": state.get("card"), "timing": "in turns",
+          "shape": list(shape), "kernel_ms": ms, "best_ms": best,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "rdb_over_v4_mma": best["rdb"] / best["v4_mma"],
+          "rdb_over_rdb_i8": best["rdb"] / best["rdb_i8"],
+          "rdb_over_bound": best["rdb"] / bound_ms})
+    del x, w, b, wx8, deq
+    torch.cuda.empty_cache()
 
 
 @ieee_phase
@@ -669,10 +711,16 @@ def phase_kernel(state):
     sass = sass_counts(_build.lib_path("rdb"))
     emit({"phase": "kernel", "sass": sass})
     # the served bf16 kernel by its full name (the ablation instances are
-    # rdb_tc_ablate_kernel<V>)
-    tc = [c for k, c in sass.items() if SERVED_TC in k]
+    # rdb_wg_ablate_kernel<V>): wgmma (HGMMA) alone, no mma.sync left
+    wg = [c for k, c in sass.items() if SERVED_WG in k]
+    if (len(wg) != 1 or wg[0]["HGMMA"] == 0 or wg[0]["HMMA"]
+            or wg[0]["IMMA"] or wg[0]["IGMMA"]):
+        raise AssertionError(f"rdb's bf16 kernel is not HGMMA alone: {sass}")
+    emit({"phase": "kernel", "kernel": "rdb_wg_kernel", "sass": wg[0]})
+    # the design it replaced, the ladder's v4_mma, on mma.sync
+    tc = [c for k, c in sass.items() if MMA_TC in k]
     if len(tc) != 1 or tc[0]["HMMA"] == 0:
-        raise AssertionError(f"rdb's bf16 kernel issues no HMMA: {sass}")
+        raise AssertionError(f"v4_mma's kernel issues no HMMA: {sass}")
     emit({"phase": "kernel", "kernel": "rdb_tc_kernel", "sass": tc[0]})
     # the int8 kernels on wgmma (s8 IGMMA; rdb_i8's bf16 x1..x4 HGMMA), no
     # mma.sync left, and none of their wgmmas serialised by ptxas
@@ -684,28 +732,35 @@ def phase_kernel(state):
     if (len(w8) != 1 or w8[0]["IGMMA"] == 0 or w8[0]["HGMMA"]
             or w8[0]["IMMA"] or w8[0]["HMMA"]):
         raise AssertionError(f"rdb's full-W8A8 kernel is not IGMMA alone: {sass}")
+    served = ("rdb_wg_kernel", "rdb_i8_kernel", "rdb_w8a8_kernel")
     notes = [n for n in state.get("ptxas_wgmma", {}).get("rdb", [])
-             if "rdb_i8_kernel" in n or "rdb_w8a8_kernel" in n]
+             if any(k in n for k in served)]
     regs = {k: v for k, v in state.get("ptxas", {}).get("rdb", {}).items()
-            if "rdb_i8_kernel" in k or "rdb_w8a8_kernel" in k}
-    smem = {"rdb_i8": (rdb_mod.kernel_tiling_i8()["smem_bytes"],
+            if any(n in k for n in served)}
+    smem = {"rdb": (rdb_mod.kernel_tiling(torch.bfloat16)["smem_bytes"],
+                    rdb_mod.rdb_wg_smem_plan()["total"]),
+            "rdb_i8": (rdb_mod.kernel_tiling_i8()["smem_bytes"],
                        rdb_mod.wg_smem_plan(False)["total"]),
             "rdb_w8a8": (rdb_mod.kernel_tiling_w8a8()["smem_bytes"],
                          rdb_mod.wg_smem_plan(True)["total"])}
     emit({"phase": "kernel", "kernel": "rdb_i8_kernel", "sass": i8[0]})
     emit({"phase": "kernel", "kernel": "rdb_w8a8_kernel", "sass": w8[0]})
-    emit({"phase": "kernel", "int8_kernels_ptxas": regs,
+    emit({"phase": "kernel", "wgmma_kernels_ptxas": regs,
           "ptxas_wgmma_notes": notes, "smem_bytes_vs_plan": smem})
     if notes:
-        raise AssertionError(f"ptxas serialised or fenced the int8 kernels' wgmmas: {notes}")
+        raise AssertionError(f"ptxas serialised or fenced the wgmma kernels' wgmmas: {notes}")
     if any(a != b for a, b in smem.values()):
-        raise AssertionError(f"int8 kernels' shared memory differs from wg_smem_plan: {smem}")
-    launches0 = rdb_mod.LAUNCHES
+        raise AssertionError(f"wgmma kernels' shared memory differs from its plan: {smem}")
+    launches0 = rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_MMA, rdb_mod.LAUNCHES_I8
     state["rdb_max_abs_err"], state["rdb_rel_err"] = hold_against_plain(
         "kernel", "rdb", rdb_mod.rdb, rdb_mod.rdb_reference, cases,
         rdb_mod.kernel_tiling)
-    # comparison launches are not main-path launches
-    rdb_mod.LAUNCHES = launches0
+    state["rdb_mma_err"] = hold_against_plain(
+        "kernel", "rdb_mma", rdb_mod.rdb_mma, rdb_mod.rdb_reference, cases,
+        lambda dtype: rdb_mod.kernel_tiling_mma(), dtypes=("bfloat16",))
+    time_rdb_designs(state)
+    # comparison and timing launches are not main-path launches
+    rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_MMA, rdb_mod.LAUNCHES_I8 = launches0
     hold_i8_against_plain(state)
     hold_w8a8_against_plain(state)
     emit({"phase": "kernel", "seconds": round(time.perf_counter() - t0, 3)})
@@ -3255,7 +3310,7 @@ def phase_decode(state):
             failures.append(name)
 
     # the SR retry on the card: the low-quality plate through the full-width
-    # bf16 realesrgan_x4 (the route's engine), every RDB in rdb_tc_kernel
+    # bf16 realesrgan_x4 (the route's engine), every RDB in rdb_wg_kernel
     eng = engine_mod.get_engine("realesrgan_x4",
                                 weights_dir=str(state["work"] / "weights"),
                                 device="cuda")
@@ -5393,27 +5448,32 @@ ABLATION_ROUNDS = 6
 
 
 def ablation_sass() -> dict:
-    """SASS counts of the served ``rdb_tc_kernel`` and of each ablation
-    instance ``rdb_tc_ablate_kernel<V>``. Raises unless every instance
-    issues the served kernel's HMMA and LDSM, and STS is lower only in
+    """SASS counts of the served ``rdb_wg_kernel``, of each ablation
+    instance ``rdb_wg_ablate_kernel<V>`` and of ``v4_mma``'s
+    ``rdb_tc_kernel``. Raises unless every instance issues the served
+    kernel's HGMMA and LDSM and no HMMA, and STS is lower only in
     ``v4_no_fill`` (the others store as the served kernel does)."""
     from s2sr_tpu_torch.ops import _build
     from s2sr_tpu_torch.ops import rdb as rdb_mod
 
     sass = sass_counts(_build.lib_path("rdb"))
-    served = [c for k, c in sass.items() if SERVED_TC in k]
-    out = {"v4": served[0] if len(served) == 1 else None}
+    served = [c for k, c in sass.items() if SERVED_WG in k]
+    mma = [c for k, c in sass.items() if MMA_TC in k]
+    out = {"v4": served[0] if len(served) == 1 else None,
+           "v4_mma": mma[0] if len(mma) == 1 else None}
     bad = [] if len(served) == 1 else [f"served instances {len(served)}"]
     for name, code in rdb_mod.ABLATIONS.items():
         found = [c for k, c in sass.items()
-                 if f"20rdb_tc_ablate_kernelILi{code}E" in k]
+                 if f"20rdb_wg_ablate_kernelILi{code}E" in k]
         if len(found) != 1:
             bad.append(f"{name}: {len(found)} instances")
             continue
         out[name] = c = found[0]
         if bad:
             continue
-        for op in ("HMMA", "LDSM"):
+        if c["HMMA"]:
+            bad.append(f"{name} issues HMMA {c['HMMA']}")
+        for op in ("HGMMA", "LDSM"):
             if c[op] != out["v4"][op]:
                 bad.append(f"{name} {op} {c[op]} != served {out['v4'][op]}")
         lower = c["STS"] < out["v4"]["STS"]
@@ -5501,8 +5561,8 @@ def hold_ablations(card) -> dict:
 
 
 def time_ablations(card) -> dict:
-    """``v4`` and the ablation instances at the chunk shape in bf16, in
-    turns: :data:`ABLATION_ROUNDS` rounds, each a chain of
+    """``v4``, ``v4_mma`` and the ablation instances at the chunk shape in
+    bf16, in turns: :data:`ABLATION_ROUNDS` rounds, each a chain of
     ``LADDER_CHAIN`` launches per variant on the same input (no_fill's
     output is not fed on), the order reversed every other round. Returns
     per variant the median ms per launch and its range."""
@@ -5514,6 +5574,7 @@ def time_ablations(card) -> dict:
 
     x, w, b, _ = rdb_inputs(LADDER_SHAPE, torch.bfloat16)
     fns = {"v4": lambda: rdb_mod.rdb(x, w, b),
+           "v4_mma": lambda: rdb_mod.rdb_mma(x, w, b),
            **{v: functools.partial(rdb_mod.rdb_ablated, x, w, b, v)
               for v in rdb_mod.ABLATIONS}}
     start = torch.cuda.Event(enable_timing=True)
@@ -5546,25 +5607,34 @@ def ladder_ablations(state, card, lines: list, launches: dict) -> dict:
     from s2sr_tpu_torch.bench import rdb_ladder as bench
     from s2sr_tpu_torch.ops import rdb as rdb_mod
 
-    counts0 = dict(rdb_mod.LAUNCHES_ABLATED), rdb_mod.LAUNCHES
+    counts0 = (dict(rdb_mod.LAUNCHES_ABLATED), rdb_mod.LAUNCHES,
+               rdb_mod.LAUNCHES_MMA)
     held = bench.v4t9_bytes()["held"]
+    plan = rdb_mod.rdb_wg_smem_plan()
     smem = rdb_mod.kernel_tiling(torch.bfloat16)["smem_bytes"]
     emit({"phase": "ladder", "card": card, "check": "v4t9 refused",
-          "reason": bench.v4t9_refusal(), "smem_bytes_rdb_tc_kernel": smem})
-    if held != smem:
-        raise AssertionError(f"v4t9's arithmetic holds {held} B, the kernel "
-                             f"{smem} B")
+          "reason": bench.v4t9_refusal(), "smem_bytes_rdb_wg_kernel": smem,
+          "sources_bytes": plan["sources"]})
+    if held != plan["sources"] or smem != plan["total"]:
+        raise AssertionError(f"v4t9's arithmetic holds {held} B, the plan "
+                             f"{plan}, the kernel {smem} B")
     sass = ablation_sass()
     ptxas = state.get("ptxas", {}).get("rdb", {})
-    emit({"phase": "ladder", "card": card, "check": "ablation SASS: HMMA and "
-          "LDSM as served, STS lower only in v4_no_fill", "sass": sass,
-          "ptxas": {k: v for k, v in ptxas.items() if "rdb_tc_" in k}
-          or "cached build: see phase build"})
+    emit({"phase": "ladder", "card": card, "check": "ablation SASS: HGMMA "
+          "and LDSM as served, no HMMA, STS lower only in v4_no_fill",
+          "sass": sass,
+          "ptxas": {k: v for k, v in ptxas.items() if "rdb_wg_" in k}
+          or "cached build: see phase build",
+          # not gated: a note would make an ablation's time attribute
+          # ptxas's serialisation too; PERF.md says so where one shows
+          "ablation_ptxas_wgmma_notes": [
+              n for n in state.get("ptxas_wgmma", {}).get("rdb", [])
+              if "rdb_wg_ablate_kernel" in n]})
     errs = hold_ablations(card)
     turns = time_ablations(card)
     # comparison and timing launches are not the ladder's
     rdb_mod.LAUNCHES_ABLATED.update(counts0[0])
-    rdb_mod.LAUNCHES = counts0[1]
+    rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_MMA = counts0[1:]
     for name, t in turns.items():
         emit({"phase": "ladder", "card": card, "timing": "in turns",
               "variant": name, "shape": list(LADDER_SHAPE),
@@ -5579,15 +5649,23 @@ def ladder_ablations(state, card, lines: list, launches: dict) -> dict:
     epilogue = ms["v4"] - ms["v4_no_fill"]
     accumulate = ms["v4"] - ms["v4_no_acc"]
     halo = bound_ms * (by_variant["v4"]["executed_over_useful"] - 1)
+    rest = over - epilogue - accumulate - halo
     emit({"phase": "ladder", "card": card, "split": "rdb's ms above its "
           "bound, from the ablations in turns", "rdb_ms": ms["v4"],
+          "v4_mma_ms": ms["v4_mma"], "rdb_over_v4_mma": ms["v4"] / ms["v4_mma"],
           "bound_ms": bound_ms, "above_bound_ms": over,
           "epilogue_stores_and_masking_ms": epilogue,
           "accumulate_ms": accumulate,
           "b_lookahead_saves_ms": ms["v4_serialdma"] - ms["v4"],
           "halo_recompute_at_peak_ms": halo,
-          "rest_mma_issue_and_ldmatrix_ms": over - epilogue - accumulate
-          - halo})
+          "rest_mma_issue_and_ldmatrix_ms": rest,
+          "shares": {"epilogue": epilogue / over, "accumulate": accumulate / over,
+                     "halo": halo / over, "mma_issue_and_ldmatrix": rest / over},
+          # the same split of rdb_tc_kernel (now v4_mma), measured before
+          "pr21_split": {"source": "PERF.md, PR 21's ablations of "
+                         "rdb_tc_kernel", "above_bound_ms": 3.345,
+                         "epilogue_share": 0.05,
+                         "mma_issue_and_ldmatrix_share": 0.89}})
     # the plain version each is held to, timed at the same shape
     xb, w, b, _ = rdb_inputs(LADDER_SHAPE, torch.bfloat16)
     plain = {"rdb_reference": by_variant["plain"]["ms_per_launch"],
@@ -5648,27 +5726,32 @@ def phase_ladder(state):
     # launches of i8 (rdb_w8a8) and i8mix (rdb_i8) are the ladder's
     # and the v4 staging knobs (rdb_ablated); their launches are the
     # ladder's too
-    rdb0 = rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES_W8A8
+    rdb0 = (rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES_W8A8,
+            rdb_mod.LAUNCHES_MMA)
     for k in lad.LAUNCHES:
         lad.LAUNCHES[k] = 0
     for k in rdb_mod.LAUNCHES_ABLATED:
         rdb_mod.LAUNCHES_ABLATED[k] = 0
     rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = rdb_mod.LAUNCHES_W8A8 = 0
+    rdb_mod.LAUNCHES_MMA = 0
     lines = bench.ladder(bench.KNOWN, LADDER_SHAPE, LADDER_CHAIN,
                          LADDER_RUNS, "cuda",
                          emit=lambda obj: emit({"phase": "ladder", **obj}))
     torch.cuda.synchronize()
     launches = dict(lad.LAUNCHES, i8=rdb_mod.LAUNCHES_W8A8,
                     i8mix=rdb_mod.LAUNCHES_I8, v4=rdb_mod.LAUNCHES,
-                    **rdb_mod.LAUNCHES_ABLATED)
+                    v4_mma=rdb_mod.LAUNCHES_MMA, **rdb_mod.LAUNCHES_ABLATED)
     emit({"phase": "ladder", "card": card, "check": "kernel launches of the "
-          "int8 variants and the v4 ablations (the ladder's, not the main "
-          "path's)", "rdb_w8a8": launches["i8"], "rdb_i8": launches["i8mix"],
+          "int8 variants, v4_mma and the v4 ablations (the ladder's, not "
+          "the main path's)", "rdb_w8a8": launches["i8"],
+          "rdb_i8": launches["i8mix"], "rdb_v4_mma": launches["v4_mma"],
           **{f"rdb_{v}": launches[v] for v in rdb_mod.ABLATIONS}})
-    if not all(launches[v] for v in ("i8", "i8mix", *rdb_mod.ABLATIONS)):
+    if not all(launches[v] for v in ("i8", "i8mix", "v4_mma",
+                                     *rdb_mod.ABLATIONS)):
         raise AssertionError(f"a ladder variant launched no kernel: "
                              f"{launches}")
-    rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES_W8A8 = rdb0
+    (rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_I8, rdb_mod.LAUNCHES_W8A8,
+     rdb_mod.LAUNCHES_MMA) = rdb0
     per_launch = {ln["variant"]: ln["ms_per_launch"] for ln in lines}
     ablations = ladder_ablations(state, card, lines, launches)
 
@@ -5700,8 +5783,16 @@ def phase_ladder(state):
               "ladder_launches": launches[rung], **numbers[rung]})
         del x, w, b, pk
         torch.cuda.empty_cache()
+    # v4_mma, the design rdb replaced, beside the plain version it is held
+    # to (rdb_reference, the ladder's plain)
+    v4_mma = {"ms": per_launch["v4_mma"], "plain_ms": per_launch["plain"],
+              "bound_ms": bound_ms, "bound_by": bound_by}
+    emit({"phase": "ladder", "card": card, "kernel": "rdb_v4_mma",
+          "shape": list(LADDER_SHAPE), "dtype": "bfloat16",
+          "ladder_launches": launches["v4_mma"], **v4_mma,
+          "v4_ms": per_launch["v4"]})
     state["ladder"] = {"launches": launches, "numbers": numbers,
-                       "err": worst, "ablations": ablations}
+                       "err": worst, "ablations": ablations, "v4_mma": v4_mma}
     emit({"phase": "ladder", "seconds": round(time.perf_counter() - t0, 3)})
 
 
@@ -6732,7 +6823,7 @@ def phase_mesh(state):
 
 def kernels_record(state) -> list | None:
     """The kernels' JSON record, or None if a phase it needs did not run."""
-    if not {"rdb_numbers", "main_launches", "rdb_i8_numbers",
+    if not {"rdb_numbers", "rdb_mma_err", "main_launches", "rdb_i8_numbers",
             "main_launches_i8", "rdb_w8a8_numbers", "int8_launches_w8a8",
             "swin_numbers", "swin_launches", "swin_err", "ladder",
             "mxu"} <= state.keys():
@@ -6743,7 +6834,7 @@ def kernels_record(state) -> list | None:
     warm = state.get("warmup_launches", {})
     rows = [{"name": "rdb", "route": "cuda",
              "source": "s2sr_tpu_torch/csrc/rdb.cu",
-             "replaces": "s2sr_tpu/ops/pallas/fused_rdb_v4.py:234",
+             "replaces": RDB_REPLACES,
              "launches": (state["main_launches"] + warm.get("rdb", 0)
                           + state.get("train_launches", 0)
                           + state.get("gan_launches", 0)
@@ -6751,6 +6842,15 @@ def kernels_record(state) -> list | None:
              "max_abs_err": state["rdb_max_abs_err"],
              "rel_err": state["rdb_rel_err"],
              **state["rdb_numbers"], "library_ms": None},
+            # the design rdb replaced (rdb_tc_kernel, mma.sync): a rung of
+            # the ladder, launched by nothing served
+            {"name": "rdb_v4_mma", "route": "cuda",
+             "source": "s2sr_tpu_torch/csrc/rdb.cu",
+             "replaces": RDB_REPLACES, "instance_of": "rdb",
+             "launches": state["ladder"]["launches"]["v4_mma"],
+             "max_abs_err": state["rdb_mma_err"][0],
+             "rel_err": state["rdb_mma_err"][1],
+             **state["ladder"]["v4_mma"], "library_ms": None},
             # no TPU kernel: JAX runs this conv as XLA's int8 convolution
             {"name": "rdb_i8", "route": "cuda",
              "source": "s2sr_tpu_torch/csrc/rdb.cu",

@@ -9,7 +9,11 @@ Port of ``scripts/bench_kernels.py``'s gate and timing. Variants:
   rungs (``ops/rdb_ladder.py``): in bfloat16 ``v1`` and ``v3`` on the
   tensor cores (``csrc/rdb_ladder_tc.cu``), ``v2`` and the float32 gate
   on the CUDA cores (``csrc/rdb_ladder.cu``);
-- ``v4``: ``ops/rdb.py::rdb``, the main path's kernel ``csrc/rdb.cu``;
+- ``v4``: ``ops/rdb.py::rdb``, the main path's kernel ``csrc/rdb.cu``
+  (bf16 ``rdb_wg_kernel`` on ``wgmma``);
+- ``v4_mma``: ``ops/rdb.py::rdb_mma``, the same block on the design it
+  replaced (``rdb_tc_kernel``, ``mma.sync``), served by nothing: one call
+  times both designs;
 - the JAX ladder's int8 and Winograd variants (``scripts/bench_kernels.py``
   keeps them as closures in ``main()``; here they are importable
   functions): ``xla`` and ``xp`` (JAX's names for its XLA RDB, the port's
@@ -27,8 +31,9 @@ Port of ``scripts/bench_kernels.py``'s gate and timing. Variants:
   served): ``v4_no_fill`` (stages 1-4 skip their epilogue's stores and
   masking; no defined output, so ``--device cpu`` refuses it),
   ``v4_no_acc`` (each source's products overwrite the accumulator;
-  ``rdb_no_acc_reference`` on the CPU) and ``v4_serialdma`` (the B
-  fragments without their one-slab lookahead; the served math). ``v4t9``
+  ``rdb_no_acc_reference`` on the CPU) and ``v4_serialdma`` (each B slab
+  copied only when the consumers reach it: no lookahead; the served
+  math). ``v4t9``
   (9-tap growth staging) is refused with the shared-memory arithmetic
   that rules it out (:func:`v4t9_refusal`).
 
@@ -50,7 +55,7 @@ as the kernel source counts them.
 
 Usage: python -m s2sr_tpu_torch.bench.rdb_ladder [--variants plain,v1,v2,v3,v4]
        (any of plain, v1..v4, xla, xp, i8, i8fast, i8acc, i8noq, i8mix, wino,
-       v4_no_fill, v4_no_acc, v4_serialdma)
+       v4_mma, v4_no_fill, v4_no_acc, v4_serialdma)
        [--runs 3] [--chain 12] [--shape 16,264,264] [--device cuda|cpu]
 """
 
@@ -78,9 +83,9 @@ INT8_VARIANTS = ("xla", "xp", "i8", "i8fast", "i8acc", "i8noq", "i8mix",
                  "wino")
 # time-attribution instances of v4's kernel (ops/rdb.py::ABLATIONS)
 ABLATION_VARIANTS = tuple(rdb_mod.ABLATIONS)
-KNOWN = VARIANTS + INT8_VARIANTS + ABLATION_VARIANTS
+KNOWN = VARIANTS + INT8_VARIANTS + ("v4_mma",) + ABLATION_VARIANTS
 # variants that launch a hand-written kernel on the card
-KERNEL_VARIANTS = ("v1", "v2", "v3", "v4", "i8", "i8mix") + ABLATION_VARIANTS
+KERNEL_VARIANTS = ("v1", "v2", "v3", "v4", "i8", "i8mix", "v4_mma") + ABLATION_VARIANTS
 GATE_SHAPE = (1, 40, 72)
 GATE_TOL = 1e-4
 # float32 gates against rdb_reference: the kernel rungs, and Winograd's
@@ -95,11 +100,12 @@ SMEM_BLOCK_MAX = 232_448
 def v4t9_bytes() -> dict:
     """The shared-memory arithmetic that rules out ``v4t9``
     (``rdb_pallas_v4(stage_taps=9)``: a growth source's 9 taps staged side
-    by side, K = 288) in ``csrc/rdb.cu::rdb_tc_kernel``: tile 16, halo 5,
-    source j's region 16 + 2·(5 − j) pixels a side, x 64 and x1..x4 32
-    bf16 channels, 8 warps. ``held``: x and x1..x4; ``free``: what a block
-    has left; ``whole``: x1's 9 taps over stage 2's region; ``per_warp``:
-    those of one 16-pixel M tile."""
+    by side, K = 288) in v4's kernel, ``csrc/rdb.cu::rdb_wg_kernel`` (and
+    in ``rdb_tc_kernel`` before it): tile 16, halo 5, source j's region
+    16 + 2·(5 − j) pixels a side, x 64 and x1..x4 32 bf16 channels.
+    ``held``: x and x1..x4; ``free``: what a block has left beside them;
+    ``whole``: x1's 9 taps over stage 2's region; ``per_warp``: those of
+    one 16-pixel M tile, for 8 warps."""
     def side(j):
         return 16 + 2 * (5 - j)
 
@@ -113,9 +119,11 @@ def v4t9_bytes() -> dict:
 def v4t9_refusal() -> str:
     """Why ``v4t9`` has no instance of v4's kernel (:func:`v4t9_bytes`)."""
     n = v4t9_bytes()
-    return (f"v4t9 has no instance of v4's kernel: rdb_tc_kernel holds x and "
+    ring = rdb_mod.rdb_wg_smem_plan()["total"] - n["held"]
+    return (f"v4t9 has no instance of v4's kernel: rdb_wg_kernel holds x and "
             f"x1..x4 in {n['held']:,} B of the {SMEM_BLOCK_MAX:,} B of "
-            f"shared memory a block may have, leaving {n['free']:,} B; a "
+            f"shared memory a block may have, leaving {n['free']:,} B, "
+            f"{ring:,} of them its B ring and barriers; a "
             f"9-tap copy of x1 over stage 2's {n['side']}x{n['side']} region "
             f"takes {n['whole']:,} B, and one of a 16-pixel M tile per warp "
             f"{n['per_warp']:,} B a warp, {n['eight_warps']:,} B for 8 "
@@ -364,6 +372,8 @@ def variant_fns(variants, kernels, biases, dtype, device) -> dict:
             fns[name] = lambda x: rdb_mod.rdb_reference(x, w, b)
         elif name == "v4":
             fns[name] = lambda x: rdb_mod.rdb(x, w, b)
+        elif name == "v4_mma":
+            fns[name] = lambda x: rdb_mod.rdb_mma(x, w, b)
         elif name in rdb_mod.ABLATIONS:
             fns[name] = (lambda x, name=name:
                          rdb_mod.rdb_ablated(x, w, b, name))
@@ -405,6 +415,7 @@ def kernel_info(name: str, shape, dtype, device: str) -> dict:
     bsz, h, w = shape
     t = (rdb_mod.kernel_tiling(dtype) if name == "v4"
          or name in rdb_mod.ABLATIONS
+         else rdb_mod.kernel_tiling_mma() if name == "v4_mma"
          else rdb_mod.kernel_tiling_w8a8() if name == "i8"
          else rdb_mod.kernel_tiling_i8() if name == "i8mix"
          else ladder_mod.kernel_tiling(name, dtype))

@@ -31,18 +31,23 @@
 // 4, 3, 2, 1); x5 and the residual over the tile itself go straight to
 // device memory.
 //
-// - bfloat16 (the main path), rdb_tc_kernel below: every stage is an
-//   implicit GEMM on the tensor cores (mma.sync.m16n8k16, float32
-//   accumulators), 16x16 tiles, the sources pixel-major with a swizzle
-//   (200,704 B shared).
+// - bfloat16 (the main path), rdb_wg_kernel: every stage an implicit GEMM
+//   on wgmma (bf16 into float32 accumulators) issued by two consumer
+//   warpgroups, A from the resident bf16 sources by ldmatrix, B streamed
+//   by a producer warpgroup through a ring of bulk copies; 16x16 tiles.
+//   Section "the wgmma kernels" below.
+// - bfloat16 on mma.sync, rdb_tc_kernel: the same implicit GEMM on Ampere's
+//   mma.sync.m16n8k16, every warp loading its own B fragments from L2
+//   (200,704 B shared). Served by nothing: the RDB ladder's rung v4_mma
+//   (ops/rdb.py::rdb_mma), kept so that one call times both designs.
 // - bfloat16 with its x conv in int8, rdb_i8_kernel: the int8-mixed block of
 //   precision "int8" (s2sr_tpu/models/rrdbnet_int8.py:224 _rdb_packed_mixed,
 //   which JAX runs with XLA's int8 convolution: no Pallas kernel). x is
 //   quantized as it is loaded (round half to even of x * qm, clamped to
 //   +-127); x's rows run as s8 x s8 into int32, dequantized per output
 //   channel into the float32 accumulators before x1..x4 add their bf16
-//   products. On wgmma (section "the int8 kernels on wgmma" below).
-// - the time-attribution instances of the bf16 kernel, rdb_tc_ablate_kernel
+//   products. On wgmma (section "the wgmma kernels" below).
+// - the time-attribution instances of the bf16 kernel, rdb_wg_ablate_kernel
 //   (the ports of rdb_pallas_v4's staging knobs, never served): the same
 //   kernel with its epilogue's stores, its accumulation or its B lookahead
 //   taken out (enum Variant below).
@@ -55,14 +60,15 @@
 //   factors into the float32 accumulators before the next source starts.
 //   The all-s8 instance of rdb_i8_kernel's design.
 //
-//   What bounds the two int8 kernels on this card: as counted in
-//   chip_smoke.py (each input read once, the int8 products at 1,979 TOPS),
-//   operations. What bounds the design: shared memory. A wgmma's A (64 rows
-//   x 32 bytes) is read from the resident sources by ldmatrix and its B
-//   (N rows x 32 bytes) by the tensor cores, so at N = 32 (stages 1-4) each
-//   k-step moves 3 KB of shared memory for 64 x 32 x 32 s8 multiply-adds:
-//   at 128 B a clock that is 24 clocks against the tensor cores' 16 (67%);
-//   at N = 64 (stage 5) 4 KB against 32 (100%). The design keeps x and
+//   What bounds the three wgmma kernels on this card: as counted in
+//   chip_smoke.py (each input read once, the products at 989 TFLOP/s in
+//   bf16, 1,979 TOPS in int8), operations. What bounds the design: shared
+//   memory. A wgmma's A (64 rows x 32 bytes) is read from the resident
+//   sources by ldmatrix and its B (N rows x 32 bytes) by the tensor cores,
+//   so at N = 32 (stages 1-4) each k-step moves 3 KB of shared memory for
+//   64 x 32 x 32 s8 or 64 x 32 x 16 bf16 multiply-adds (16 tensor-core
+//   clocks either way): at 128 B a clock that is 24 clocks against 16
+//   (67%); at N = 64 (stage 5) 4 KB against 32 (100%). The design keeps x and
 //   x1..x4 resident (no copy of A a step), streams B by bulk copies that
 //   no thread issues but one, and keeps a k-step's products in flight
 //   while the next k-step's A loads.
@@ -308,7 +314,10 @@ int launch(const void* x, const void* mask, void* out, const void* w,
 
 constexpr int TILE_F32 = 8;
 
-// --- bf16: implicit GEMM on the tensor cores --------------------------------
+// --- bf16 on mma.sync: rdb_tc_kernel, the ladder's v4_mma -------------------
+//
+// The main path's kernel from its redesign onto the tensor cores until the
+// wgmma kernel below took its place; served by nothing now.
 //
 // Each conv stage is a product of the im2col matrix of its region (pixels x
 // 9 * Cin) with the weights (9 * Cin x Cout) on mma.sync.m16n8k16 (bf16 in,
@@ -334,31 +343,6 @@ constexpr int TILE_F32 = 8;
 
 constexpr int TC_TILE = 16;
 constexpr int TC_WARPS = 8;
-
-// The instances of the bf16 kernel. SERVED is rdb_tc_kernel; the others are
-// rdb_tc_ablate_kernel<V>, the ports of the TPU kernel's staging knobs
-// (s2sr_tpu/ops/pallas/fused_rdb_v4.py), reached only through
-// s2sr_rdb_ablate_forward and never served. They time where the served
-// kernel's time goes, and each keeps every ldmatrix and every mma.sync
-// (tc_keep below):
-// - NO_FILL (ablate="no_fill", fused_rdb_v4.py:188): stages 1-4 skip their
-//   epilogue (bias, LeakyReLU, masking and the st.shared of x1..x4). Later
-//   stages read whatever shared memory holds: the output has no defined
-//   value, on purpose.
-// - NO_ACC (ablate="no_acc", :211): each source's products start from zero,
-//   so stage S keeps only the product of source S-1 (x1 from x, x(k+1) from
-//   xk, x5 from x4): ops/rdb.py::rdb_no_acc_reference.
-// - SERIAL_B (prefetch=False, :113): each slab loads its B fragments from L2
-//   just before its MMAs, without the one-slab lookahead. The TPU knob
-//   serialises the input DMA; here the input tile is already copied with
-//   cp.async and waited for before stage 1 in every instance, so the B
-//   lookahead is the only copy that overlaps the MMAs. Same slabs in the
-//   same order: bit-equal to the served kernel.
-// The TPU kernel's fourth knob, stage_taps=9 (9-tap staging of the growth
-// convs, K = 288), has no instance: x and x1..x4 take 200,704 B of the
-// block's 232,448 B of shared memory, and one 9-tap copy of x1 for stage 2
-// takes 22 * 22 * 288 * 2 = 278,784 B (bench/rdb_ladder.py says so).
-enum Variant : int { SERVED = 0, NO_FILL = 1, NO_ACC = 2, SERIAL_B = 3 };
 
 __host__ __device__ constexpr int tc_side(int j) { return TC_TILE + 2 * (HALO - j); }
 // byte offset of source buffer j (0 = x, 1..4 = x1..x4), each a multiple of
@@ -405,28 +389,6 @@ __device__ __forceinline__ void tc_mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The ablations' keep-alive for the products they drop. ptxas deletes an
-// mma.sync whose result is never read, and the ldmatrix that feeds it;
-// asm volatile does not stop it (it binds nvcc only). So the dropped
-// accumulators are stored under a guard that is never true: sink is null on
-// every launch, which ptxas cannot know. The guard costs one branch; the
-// stores never run. Each (stage, source) slot has its own addresses, so no
-// store hides another.
-template <int MT, int NN>
-__device__ __forceinline__ void tc_keep(float* sink, const float (&acc)[MT][NN][4],
-                                        int slot) {
-  if (sink) {
-    constexpr int T = TC_WARPS * 32;
-    float* s = sink + (size_t)slot * 128 * T + threadIdx.x;
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int n = 0; n < NN; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[((m * NN + n) * 4 + e) * T] = acc[m][n][e];
-  }
-}
-
 // round(v * qm) clamped to +-127 as int8 in the low byte: jnp.round is
 // round half to even, as rintf
 __device__ __forceinline__ uint32_t quant1(float v, float qm) {
@@ -442,15 +404,13 @@ __device__ __forceinline__ uint32_t quant4(uint32_t lo, uint32_t hi, float qm) {
          | quant1(__uint_as_float(hi & 0xffff0000u), qm) << 24;
 }
 
-// One conv stage S (1..5) on the tensor cores. V: the instance (enum
-// Variant); sink: tc_keep's, null on every launch.
-template <int S, int V = SERVED>
+// One conv stage S (1..5) on mma.sync.
+template <int S>
 __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict__ wf,
                                          const float* __restrict__ bias,
                                          const float* __restrict__ mask,
                                          __nv_bfloat16* __restrict__ out,
-                                         int b, int H, int W, int oy0, int ox0,
-                                         float* sink = nullptr) {
+                                         int b, int H, int W, int oy0, int ox0) {
   constexpr int RS = tc_side(S);          // region side of this stage
   constexpr int NPIX = RS * RS;
   constexpr int NT = tc_mtiles(S);
@@ -480,26 +440,11 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
       for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
 
   uint4 bcur[NB], bnext[NB];
-  if constexpr (V != SERIAL_B) {
 #pragma unroll
-    for (int n = 0; n < NB; ++n) bcur[n] = __ldg(ws + (slab * NB + n) * 32);
-  }
+  for (int n = 0; n < NB; ++n) bcur[n] = __ldg(ws + (slab * NB + n) * 32);
   constexpr int NSLAB = 9 * stage_cin(S) / 16;
 #pragma unroll
   for (int j = 0; j < S; ++j) {
-    if constexpr (V == NO_ACC) {
-      // overwrite, not add: the earlier sources' products are dropped
-      // (kept alive for ptxas, so their MMAs still run)
-      if (j > 0) {
-        tc_keep(sink, acc, S * 8 + j);
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int n = 0; n < 2 * NB; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-      }
-    }
     const int rj = tc_side(j);
     const int cq = src_chans(j) / 8;      // 16-byte chunks a pixel
     const int d = S - 1 - j;              // the region's offset in source j
@@ -513,11 +458,7 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         if (c >= src_chans(j) / 16) break;
-        if constexpr (V == SERIAL_B) {
-          // this slab's fragments, just before its MMAs
-#pragma unroll
-          for (int n = 0; n < NB; ++n) bcur[n] = __ldg(ws + (slab * NB + n) * 32);
-        } else {
+        {
           const int nxt = slab + 1 < NSLAB ? slab + 1 : slab;
 #pragma unroll
           for (int n = 0; n < NB; ++n) bnext[n] = __ldg(ws + (nxt * NB + n) * 32);
@@ -534,19 +475,11 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
             tc_mma(acc[m][2 * n + 1], a, bcur[n].z, bcur[n].w);
           }
         }
-        if constexpr (V != SERIAL_B) {
 #pragma unroll
-          for (int n = 0; n < NB; ++n) bcur[n] = bnext[n];
-        }
+        for (int n = 0; n < NB; ++n) bcur[n] = bnext[n];
         ++slab;
       }
     }
-  }
-
-  // NO_FILL: stages 1-4 store nothing (their products kept alive for ptxas)
-  if constexpr (V == NO_FILL && S < 5) {
-    tc_keep(sink, acc, S * 8);
-    return;
   }
 
   // epilogue: accumulator (m, n8 tile k, e) is region pixel (tile, g + 8(e/2))
@@ -607,12 +540,10 @@ __device__ __forceinline__ void tc_stage(uint32_t sbase, const uint4* __restrict
   }
 }
 
-// The bf16 kernel's body, instance V (enum Variant)
-template <int V>
-__device__ __forceinline__ void rdb_tc_body(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
-    __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wf,
-    const float* __restrict__ bias, float* sink, int H, int W) {
+__global__ void __launch_bounds__(TC_WARPS * 32, 1)
+rdb_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
+              __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wf,
+              const float* __restrict__ bias, int H, int W) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const int b = blockIdx.z;
@@ -635,40 +566,25 @@ __device__ __forceinline__ void rdb_tc_body(
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
   __syncthreads();
-  tc_stage<1, V>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0, sink);
+  tc_stage<1>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
   __syncthreads();
-  tc_stage<2, V>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0, sink);
+  tc_stage<2>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
   __syncthreads();
-  tc_stage<3, V>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0, sink);
+  tc_stage<3>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
   __syncthreads();
-  tc_stage<4, V>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0, sink);
+  tc_stage<4>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
   __syncthreads();
-  tc_stage<5, V>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0, sink);
+  tc_stage<5>(sbase, wf, bias, mask, out, b, H, W, oy0, ox0);
 }
 
-__global__ void __launch_bounds__(TC_WARPS * 32, 1)
-rdb_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
-              __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wf,
-              const float* __restrict__ bias, int H, int W) {
-  rdb_tc_body<SERVED>(x, mask, out, wf, bias, nullptr, H, W);
-}
-
-// The time-attribution instances (enum Variant): never served. sink is
-// tc_keep's, null on every launch.
-template <int V>
-__global__ void __launch_bounds__(TC_WARPS * 32, 1)
-rdb_tc_ablate_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
-                     __nv_bfloat16* __restrict__ out, const uint4* __restrict__ wf,
-                     const float* __restrict__ bias, float* sink, int H, int W) {
-  rdb_tc_body<V>(x, mask, out, wf, bias, sink, H, W);
-}
-
-// --- the int8 kernels on wgmma: rdb_i8_kernel and rdb_w8a8_kernel -----------
+// --- the wgmma kernels: rdb_wg_kernel, rdb_i8_kernel, rdb_w8a8_kernel -------
 //
 // Each conv stage is the implicit GEMM of rdb_tc_kernel, issued by two
 // consumer warpgroups (4 warps each) as wgmma.mma_async with 64-row M tiles:
-// m64nNk32 s8 x s8 into int32 for every s8 source, m64nNk16 bf16 into
-// float32 for rdb_i8's x1..x4; N is the stage's Cout (32, or 64 in stage 5).
+// m64nNk16 bf16 into float32 for every bf16 source (all of rdb_wg's, rdb_i8's
+// x1..x4), m64nNk32 s8 x s8 into int32 for every s8 source; N is the
+// stage's Cout (32, or 64 in stage 5). The three kernels differ in what
+// they hold resident and how their sums are scaled (enum Kind).
 //
 // A comes from registers. Each warp's 16 rows of a tile are 16 region
 // pixels, loaded by ldmatrix.x4 from the resident sources at the tap's shift
@@ -696,23 +612,77 @@ rdb_tc_ablate_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
 // source's sums start from zeroed registers; after its last step,
 // wait_group 0 and they are dequantized per output channel into the float32
 // accumulators (exact: |sum| <= 127 * 127 * 576 < 2^24): rdb_i8 before
-// x1..x4 add their bf16 products, rdb_w8a8 before the next source starts. Both warpgroups run the same number of M tiles (a branch on the
-// warpgroup would serialise the wgmmas): tile w + 2m for warpgroup w; rows
-// past the region load its last pixel and are dropped. ptxas keeps the
-// wgmmas in flight together only in wg_run's shape; chip_smoke.py fails on
-// any wgmma note of ptxas for these kernels.
+// x1..x4 add their bf16 products, rdb_w8a8 before the next source starts.
+// rdb_wg's sums are bf16 products into float32 from zeroed registers, x's
+// 36 k-steps (four a tap) and then x1..x_{s-1}'s 18 each, in that order for
+// every pixel. Both warpgroups run the same number of M tiles (a branch on
+// the warpgroup would serialise the wgmmas): tile w + 2m for warpgroup w;
+// rows past the region load its last pixel and are dropped. So every output
+// sums the same slabs in the same order with the same wgmma shape wherever
+// its pixel lies (tile, batch, image, sp band): the serving contracts. ptxas
+// keeps the wgmmas in flight together only in wg_run's shape; chip_smoke.py
+// fails on any wgmma note of ptxas for the served kernels.
 //
 // A block: 384 threads (launch bounds 384, 1 block an SM); setmaxnreg gives
 // the consumers 240 registers a thread and the producer warpgroup 24.
-// Shared memory: the ring (NBUF x 8 KB) and the resident sources, 224,128
-// bytes for rdb_i8 and 167,040 for rdb_w8a8 (wg_smem_bytes).
+// Shared memory: the ring (nbuf x 8 KB), the resident sources and a full
+// and an empty mbarrier a slot (wg_smem_bytes): 224,128 bytes for rdb_i8,
+// 167,040 for rdb_w8a8 (8 slots), and for rdb_wg, whose sources are all
+// bf16 (x 26 * 26 * 128 = 86,528, x1..x4 36,864 + 30,976 + 25,600 + 20,736:
+// 200,704), 1,024 + 3 * 8,192 + 200,704 + 48 = 226,352 of the block's
+// 232,448. Eight slots would make 267,392. The plans that fit were (a) this
+// one, 3 slots of 8 KB at tile 16; (b) 7 slots of 4 KB at tile 16, stage 5
+// as two N = 32 halves (230,512 B); (c) tile 14 with 8 slots (225,904 B,
+// 19^2 = 361 blocks an image instead of 17^2 = 289, and more halo). (a) keeps
+// the design of the int8 kernels whole; three slots leave the producer one
+// slab of lookahead past the two a consumer may hold (the one it reads and
+// the one whose last step may still run), and the ablation SERIAL_B (enum
+// Variant) measures what that lookahead is worth.
 
 constexpr int WGS = TC_WARPS / 4;        // consumer warpgroups a block
 constexpr int WG_THREADS = TC_WARPS * 32 + 128;  // and a producer warpgroup
 constexpr int KQ = 4;                    // k-steps a slab: 128 bytes of K a row
-constexpr int NBUF = 8;                  // slots of the B ring
+constexpr int NBUF = 8;                  // slots of the int8 kernels' B ring
+constexpr int NBUF_BF16 = 3;             // slots of rdb_wg's
 constexpr int SLOT = 64 * 128;           // bytes a slot: one slab at N 64
-constexpr int RING = NBUF * SLOT;
+
+// The three kernels of this design: what they hold and how they sum.
+// KI8 rdb_i8 (x in s8, x1..x4 in bf16), KW8 rdb_w8a8 (all in s8), KBF rdb_wg
+// (all in bf16).
+enum Kind : int { KI8 = 0, KW8 = 1, KBF = 2 };
+
+// The instances of the bf16 kernel. SERVED is rdb_wg_kernel (and the only
+// instance of the int8 kernels); the others are rdb_wg_ablate_kernel<V>, the
+// ports of the TPU kernel's staging knobs (s2sr_tpu/ops/pallas/
+// fused_rdb_v4.py), reached only through s2sr_rdb_ablate_forward and never
+// served. They time where the served kernel's time goes; each issues every
+// ldmatrix and every wgmma of the served kernel:
+// - NO_FILL (ablate="no_fill", fused_rdb_v4.py:188): stages 1-4 skip their
+//   epilogue (bias, LeakyReLU, masking and the st.shared of x1..x4). Later
+//   stages read whatever shared memory holds: the output has no defined
+//   value, on purpose. The dropped sums are kept alive by wg_keep.
+// - NO_ACC (ablate="no_acc", :211): the first k-step of each source issues
+//   its wgmmas with scale-d 0 (D = A B), which zeroes the accumulators, so
+//   stage S keeps only the product of source S-1 (x1 from x, x(k+1) from xk,
+//   x5 from x4): ops/rdb.py::rdb_no_acc_reference. ptxas reads through an
+//   empty asm: with scale-d a constant 0 it deleted the x products that
+//   only fed it (52 ldmatrix, by the SASS count). So scale-d also ors in
+//   Ring::keep, which is 1 only if the launch passes a sink (never).
+// - SERIAL_B (prefetch=False, :113): the producer copies a slab only when
+//   the consumers reach it (they arrive on the slot's empty barrier once
+//   they have issued their last wgmma on the slab before), so every bulk
+//   copy's latency is exposed instead of hidden behind the products. The
+//   TPU knob serialises the input DMA; here the ring is the only copy that
+//   overlaps the products. Same slabs in the same order: bit-equal to the
+//   served kernel.
+// The TPU kernel's fourth knob, stage_taps=9 (9-tap staging of the growth
+// convs, K = 288), has no instance: x and x1..x4 take 200,704 B of the
+// block's 232,448 B of shared memory, and one 9-tap copy of x1 for stage 2
+// takes 22 * 22 * 288 * 2 = 278,784 B (bench/rdb_ladder.py says so).
+enum Variant : int { SERVED = 0, NO_FILL = 1, NO_ACC = 2, SERIAL_B = 3 };
+
+template <int K>
+__host__ __device__ constexpr int nbuf() { return K == KBF ? NBUF_BF16 : NBUF; }
 
 // 64-row M tiles over stage s's region, and the tiles each warpgroup runs
 __host__ __device__ constexpr int wg_tiles(int s) {
@@ -721,60 +691,73 @@ __host__ __device__ constexpr int wg_tiles(int s) {
 __host__ __device__ constexpr int wg_mt(int s) { return (wg_tiles(s) + WGS - 1) / WGS; }
 
 // k-steps (32 bytes of K in a row of B: 32 s8 or 16 bf16 values) of source j:
-// two a tap for x (64 channels in s8) and for rdb_i8's bf16 x1..x4, one a tap
-// for rdb_w8a8's s8 x1..x4
-template <bool W8>
-__host__ __device__ constexpr int src_steps(int j) { return j > 0 && W8 ? 9 : 18; }
+// two a tap for x (64 channels in s8) and for bf16 x1..x4, four a tap for
+// rdb_wg's bf16 x, one a tap for rdb_w8a8's s8 x1..x4
+template <int K>
+__host__ __device__ constexpr int src_steps(int j) {
+  return j == 0 ? (K == KBF ? 36 : 18) : (K == KW8 ? 9 : 18);
+}
 
 // A stage's parts, each a run of k-steps from one packed stream: rdb_i8's
 // part 0 is x (s8, stream wq) and part 1 x1..x_{s-1} (bf16, stream wf; stage
-// 1 has none); rdb_w8a8's one part is x, x1..x_{s-1} (s8, stream wq)
-template <bool W8>
-__host__ __device__ constexpr int n_parts(int s) { return W8 || s == 1 ? 1 : 2; }
-template <bool W8>
+// 1 has none); rdb_w8a8's and rdb_wg's one part is x, x1..x_{s-1} (stream wq:
+// s8, or bf16)
+template <int K>
+__host__ __device__ constexpr int n_parts(int s) { return K != KI8 || s == 1 ? 1 : 2; }
+template <int K>
 __host__ __device__ constexpr int part_steps(int s, int part) {
   int n = 0;
   for (int j = 0; j < s; ++j)
-    if (W8 || (part == 0) == (j == 0)) n += src_steps<W8>(j);
+    if (K != KI8 || (part == 0) == (j == 0)) n += src_steps<K>(j);
   return n;
 }
 __host__ __device__ constexpr int n_slabs(int steps) { return (steps + KQ - 1) / KQ; }
 // global index of part p of stage s's first slab; slab0(6, 0) counts them all
-template <bool W8>
+template <int K>
 __host__ __device__ constexpr int slab0(int s, int p) {
   int n = 0;
   for (int k = 1; k < s; ++k)
-    for (int q = 0; q < n_parts<W8>(k); ++q) n += n_slabs(part_steps<W8>(k, q));
-  for (int q = 0; q < p; ++q) n += n_slabs(part_steps<W8>(s, q));
+    for (int q = 0; q < n_parts<K>(k); ++q) n += n_slabs(part_steps<K>(k, q));
+  for (int q = 0; q < p; ++q) n += n_slabs(part_steps<K>(s, q));
   return n;
 }
-template <bool W8>
-__host__ __device__ constexpr int total_slabs() { return slab0<W8>(6, 0); }
+template <int K>
+__host__ __device__ constexpr int total_slabs() { return slab0<K>(6, 0); }
 
 // byte offset of source buffer j after the ring: rdb_i8 holds x in int8 (4
 // chunks a pixel) and x1..x4 in bf16 (4 chunks), rdb_w8a8 all in int8 (x 4
-// chunks, x1..x4 2); every offset a multiple of 128 bytes
+// chunks, x1..x4 2), rdb_wg all in bf16 (x 8 chunks, x1..x4 4); every offset
+// a multiple of 128 bytes
 __host__ __device__ constexpr int w8_off(int j) {
   int off = 0;
   for (int k = 0; k < j; ++k) off += tc_side(k) * tc_side(k) * src_chans(k);
   return off;
 }
-template <bool W8>
-__host__ __device__ constexpr int wg_src_off(int j) { return W8 ? w8_off(j) : tc_off(j, true); }
-// [up to 1024 bytes to align the ring][ring][sources][2 NBUF mbarriers]
-template <bool W8>
-constexpr size_t wg_smem_bytes() { return 1024 + RING + wg_src_off<W8>(5) + 2 * NBUF * 8; }
-static_assert(wg_smem_bytes<false>() <= 232448 && wg_smem_bytes<true>() <= 232448,
-              "shared memory over the block limit");
+template <int K>
+__host__ __device__ constexpr int wg_src_off(int j) {
+  return K == KW8 ? w8_off(j) : tc_off(j, K == KI8);
+}
+// [up to 1024 bytes to align the ring][ring][sources][2 nbuf mbarriers]
+template <int K>
+constexpr size_t wg_smem_bytes() {
+  return 1024 + nbuf<K>() * SLOT + wg_src_off<K>(5) + 2 * nbuf<K>() * 8;
+}
+static_assert(wg_smem_bytes<KI8>() <= 232448 && wg_smem_bytes<KW8>() <= 232448 &&
+              wg_smem_bytes<KBF>() <= 232448, "shared memory over the block limit");
+static_assert(wg_smem_bytes<KBF>() == 226352 && wg_src_off<KBF>(5) == 200704,
+              "rdb_wg's shared memory as its note counts it");
 
 // Byte offset of 16-byte chunk c of pixel p in a resident source of CQ chunks
-// a pixel (4: 64 bytes, 2: 32 bytes): the 8 / CQ pixels of a 128-byte line
-// side by side, chunk c of pixel p at bank group (p + 8 / CQ * c) % 8. The 8
-// rows of an ldmatrix phase, 8 consecutive pixels at one chunk, then hit 8
-// bank groups from any first pixel; the XOR swizzle of rdb_tc_kernel (swz)
-// does so only from an even one. Over these kernels' tap shifts, by count,
-// 48-51% of the phases take two wavefronts with swz and 12-13% (those that
-// cross a region row) with rot (tests/test_torch_int8.py counts them).
+// a pixel (8: 128 bytes, 4: 64 bytes, 2: 32 bytes): the 8 / CQ pixels of a
+// 128-byte line side by side, chunk c of pixel p at bank group
+// (p + 8 / CQ * c) % 8. The 8 rows of an ldmatrix phase, 8 consecutive
+// pixels at one chunk, then hit 8 bank groups from any first pixel; the XOR
+// swizzle of rdb_tc_kernel (swz) does so only from an even one where a line
+// holds two pixels. Over the int8 kernels' tap shifts, by count, 48-51% of
+// the phases take two wavefronts with swz and 12-13% (those that cross a
+// region row) with rot (tests/test_torch_int8.py counts them); over rdb_wg's,
+// whose x fills a line a pixel (CQ 8), 27.1% with swz and 12.2% with rot
+// (tests/test_torch_rdb_wg.py).
 template <int CQ>
 __device__ __forceinline__ uint32_t rot(uint32_t p, uint32_t c) {
   return (p * CQ / 8) * 128 + ((p + 8 / CQ * c) & 7) * 16;
@@ -788,8 +771,9 @@ __host__ __device__ constexpr int w8_deq_off(int j) {
 }
 
 // wgmma.mma_async, A from registers, B by descriptor: d += A B (scale-d 1;
-// sums start from zeroed registers). m64nNk32 s8 x s8 into int32 (N / 2 a
-// thread), m64nNk16 bf16 into float32.
+// sums start from zeroed registers), or d = A B where a bf16 product's sd is
+// 0 (the ablation NO_ACC). m64nNk32 s8 x s8 into int32 (N / 2 a thread),
+// m64nNk16 bf16 into float32.
 __device__ __forceinline__ void wg_s8_32(int* d, const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
@@ -818,7 +802,8 @@ __device__ __forceinline__ void wg_s8_64(int* d, const uint32_t (&a)[4], uint64_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ void wg_bf16_32(float* d, const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wg_bf16_32(float* d, const uint32_t (&a)[4], uint64_t b,
+                                           int sd) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -827,10 +812,11 @@ __device__ __forceinline__ void wg_bf16_32(float* d, const uint32_t (&a)[4], uin
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
 }
 
-__device__ __forceinline__ void wg_bf16_64(float* d, const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wg_bf16_64(float* d, const uint32_t (&a)[4], uint64_t b,
+                                           int sd) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -843,18 +829,20 @@ __device__ __forceinline__ void wg_bf16_64(float* d, const uint32_t (&a)[4], uin
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
 }
 
 template <int N>
-__device__ __forceinline__ void wg_mma(int* d, const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wg_mma(int* d, const uint32_t (&a)[4], uint64_t b,
+                                       int = 1) {
   if constexpr (N == 32) wg_s8_32(d, a, b);
   else wg_s8_64(d, a, b);
 }
 template <int N>
-__device__ __forceinline__ void wg_mma(float* d, const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 32) wg_bf16_32(d, a, b);
-  else wg_bf16_64(d, a, b);
+__device__ __forceinline__ void wg_mma(float* d, const uint32_t (&a)[4], uint64_t b,
+                                       int sd = 1) {
+  if constexpr (N == 32) wg_bf16_32(d, a, b, sd);
+  else wg_bf16_64(d, a, b, sd);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -911,18 +899,21 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
                "DONE:\n}\n" ::"r"(bar), "r"(parity) : "memory");
 }
 
-// The B ring: NBUF slots of SLOT bytes from 1024-aligned `slots`, a `full`
-// and an `empty` mbarrier a slot; wq and wf the packed streams.
+// The B ring: nbuf<K>() slots of SLOT bytes from 1024-aligned `slots`, a
+// `full` and an `empty` mbarrier a slot; wq and wf the packed streams (wq
+// holds every stage's part 0: rdb_i8's s8 slabs of x, rdb_w8a8's s8 slabs,
+// rdb_wg's bf16 slabs; wf rdb_i8's bf16 slabs of x1..x4).
 struct Ring {
   uint32_t slots, full, empty;
   const unsigned char* wq;
   const unsigned char* wf;
+  int keep;   // 1 if the launch passed a sink (wg_keep's; never): NO_ACC's
 };
 
 // The producer: slab g into its slot, one bulk copy from its stream (its
 // place found by walking the parts in order), completing on the slot's full
 // barrier.
-template <bool W8>
+template <int K>
 __device__ __forceinline__ void issue_slab(const Ring& r, int g) {
   const unsigned char* src = nullptr;
   uint32_t bytes = 0;
@@ -931,8 +922,8 @@ __device__ __forceinline__ void issue_slab(const Ring& r, int g) {
 #pragma unroll
   for (int s = 1; s <= 5; ++s)
 #pragma unroll
-    for (int p = 0; p < n_parts<W8>(s); ++p) {
-      const int n = n_slabs(part_steps<W8>(s, p));
+    for (int p = 0; p < n_parts<K>(s); ++p) {
+      const int n = n_slabs(part_steps<K>(s, p));
       const uint32_t qb = stage_cout(s) * 128;
       if (h >= 0 && h < n) {
         src = (p ? r.wf : r.wq) + off[p] + (size_t)h * qb;
@@ -941,7 +932,7 @@ __device__ __forceinline__ void issue_slab(const Ring& r, int g) {
       h -= n;
       off[p] += (size_t)n * qb;
     }
-  const uint32_t slot = (uint32_t)g % NBUF;
+  const uint32_t slot = (uint32_t)g % nbuf<K>();
   const uint32_t bar = r.full + 8 * slot;
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                ::"r"(bar), "r"(bytes) : "memory");
@@ -950,24 +941,32 @@ __device__ __forceinline__ void issue_slab(const Ring& r, int g) {
                ::"r"(r.slots + slot * SLOT), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
+template <int NB>
 __device__ __forceinline__ void ring_wait(const Ring& r, int g) {
-  mbar_wait(r.full + 8 * (g % NBUF), (uint32_t)(g / NBUF) & 1);
+  mbar_wait(r.full + 8 * (g % NB), (uint32_t)(g / NB) & 1);
 }
 
 // This thread's wgmmas on slab g have completed: it arrives on the slot's
-// empty barrier (all 256 consumer threads arrive, so no branch).
+// empty barrier (all 256 consumer threads arrive, so no branch). Under
+// SERIAL_B the same arrival, made as the consumers reach slab g, asks for it.
+template <int NB>
 __device__ __forceinline__ void ring_release(const Ring& r, int g) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               ::"r"(r.empty + 8 * (g % NBUF)) : "memory");
+               ::"r"(r.empty + 8 * (g % NB)) : "memory");
 }
 
 // The producer warp's lane 0: every slab in order, each into its slot once
-// the consumers have released the slab NBUF before it.
-template <bool W8>
+// the consumers have released the slab nbuf before it (SERIAL_B: once they
+// have asked for it).
+template <int K, int V>
 __device__ __forceinline__ void ring_produce(const Ring& r) {
-  for (int g = 0; g < total_slabs<W8>(); ++g) {
-    if (g >= NBUF) mbar_wait(r.empty + 8 * (g % NBUF), (uint32_t)(g / NBUF - 1) & 1);
-    issue_slab<W8>(r, g);
+  constexpr int NB = nbuf<K>();
+  for (int g = 0; g < total_slabs<K>(); ++g) {
+    if constexpr (V == SERIAL_B)
+      mbar_wait(r.empty + 8 * (g % NB), (uint32_t)(g / NB) & 1);
+    else if (g >= NB)
+      mbar_wait(r.empty + 8 * (g % NB), (uint32_t)(g / NB - 1) & 1);
+    issue_slab<K>(r, g);
   }
 }
 
@@ -990,15 +989,19 @@ struct Src {
 // wgmma a tile, one commit; then wait_group 1, so that a step's products run
 // while the next step's A loads. The step before has then completed: a slab
 // whose last k-step it was is released. CQ: 16-byte chunks a pixel of the
-// run's sources; py, px: this lane's ldmatrix pixel in each M tile.
-template <int CQ, typename T, int MT, int NA, typename F>
+// run's sources; NB: slots of the ring; V: the instance (enum Variant); py,
+// px: this lane's ldmatrix pixel in each M tile.
+template <int CQ, int NB, int V, typename T, int MT, int NA, typename F>
 __device__ __forceinline__ void wg_step(T (&acc)[MT][NA], uint32_t (&a)[MT][4],
                                         const Ring& ring, const int (&py)[MT],
                                         const int (&px)[MT], int k, int t0, int s0,
                                         F src) {
   const int tt = t0 + k;
   const int g = s0 + tt / KQ;
-  if (tt % KQ == 0) ring_wait(ring, g);
+  if (tt % KQ == 0) {
+    if constexpr (V == SERIAL_B) ring_release<NB>(ring, g);    // asks for slab g
+    ring_wait<NB>(ring, g);
+  }
   int kk;
   const Src sr = src(k, kk);
   const int tap = kk / sr.spt, cc = kk % sr.spt;
@@ -1012,18 +1015,23 @@ __device__ __forceinline__ void wg_step(T (&acc)[MT][NA], uint32_t (&a)[MT][4],
   // every input register of the step's wgmmas (A, B's descriptor, the
   // accumulators) defined before the fence: an instruction defining one
   // between the fence and the wgmmas serialises them (ptxas C7513)
-  uint64_t desc = b_desc(ring.slots + (uint32_t)(g % NBUF) * SLOT + (tt % KQ) * 32);
+  uint64_t desc = b_desc(ring.slots + (uint32_t)(g % NB) * SLOT + (tt % KQ) * 32);
   asm volatile("" : "+l"(desc)::"memory");
+  // NO_ACC: a source's first k-step overwrites the sums (scale-d 0; keep
+  // is 0 on every launch, which ptxas cannot know)
+  int sd = 1;
+  if constexpr (V == NO_ACC) sd = (kk != 0) | ring.keep;
   fence_acc(acc);
   wgmma_fence();
 #pragma unroll
-  for (int m = 0; m < MT; ++m) wg_mma<2 * NA>(acc[m], a[m], desc);
+  for (int m = 0; m < MT; ++m) wg_mma<2 * NA>(acc[m], a[m], desc, sd);
   wgmma_commit();
   wgmma_wait<1>();
-  if (tt % KQ == 0 && tt > 0) ring_release(ring, g - 1);
+  if constexpr (V != SERIAL_B)
+    if (tt % KQ == 0 && tt > 0) ring_release<NB>(ring, g - 1);
 }
 
-// The N k-steps (N >= 3) of a part from its index t0, whose slabs start at
+// The N k-steps (N >= 3) of a run from part index t0, whose slabs start at
 // global index s0 (src as wg_step's), on two register sets of A in turn: a
 // prologue of two steps (three if N is odd), then a runtime loop over pairs.
 // Nothing is in flight when it starts; the caller waits for all at its end
@@ -1032,30 +1040,47 @@ __device__ __forceinline__ void wg_step(T (&acc)[MT][NA], uint32_t (&a)[MT][4],
 // that no wgmma has written yet (C7515), a third register set or a step
 // after the loop (C7513) serialise them. (Two k-steps a fence measured no
 // faster, and rdb_w8a8 then spills.)
-template <int N, int CQ, typename T, int MT, int NA, typename F>
+template <int N, int CQ, int NB, int V, typename T, int MT, int NA, typename F>
 __device__ __forceinline__ void wg_run(T (&acc)[MT][NA], const Ring& ring, int t0, int s0,
                                        const int (&py)[MT], const int (&px)[MT], F src) {
   static_assert(N >= 3, "a run of at least three k-steps");
   uint32_t a0[MT][4], a1[MT][4];
-  wg_step<CQ>(acc, a0, ring, py, px, 0, t0, s0, src);
-  wg_step<CQ>(acc, a1, ring, py, px, 1, t0, s0, src);
-  if constexpr (N % 2 == 1) wg_step<CQ>(acc, a0, ring, py, px, 2, t0, s0, src);
+  wg_step<CQ, NB, V>(acc, a0, ring, py, px, 0, t0, s0, src);
+  wg_step<CQ, NB, V>(acc, a1, ring, py, px, 1, t0, s0, src);
+  if constexpr (N % 2 == 1) wg_step<CQ, NB, V>(acc, a0, ring, py, px, 2, t0, s0, src);
   // then the pairs: (a0, a1) after two steps, (a1, a0) after three
   uint32_t (&b0)[MT][4] = N % 2 == 1 ? a1 : a0;
   uint32_t (&b1)[MT][4] = N % 2 == 1 ? a0 : a1;
 #pragma unroll 1
   for (int k = N % 2 == 1 ? 3 : 2; k < N; k += 2) {
-    wg_step<CQ>(acc, b0, ring, py, px, k, t0, s0, src);
-    wg_step<CQ>(acc, b1, ring, py, px, k + 1, t0, s0, src);
+    wg_step<CQ, NB, V>(acc, b0, ring, py, px, k, t0, s0, src);
+    wg_step<CQ, NB, V>(acc, b1, ring, py, px, k + 1, t0, s0, src);
   }
 }
 
-template <int MT, int NA>
-__device__ __forceinline__ void zero_acc(int (&d)[MT][NA]) {
+template <typename T, int MT, int NA>
+__device__ __forceinline__ void zero_acc(T (&d)[MT][NA]) {
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int i = 0; i < NA; ++i) d[m][i] = 0;
+}
+
+// NO_FILL's keep-alive for the sums its stages 1-4 drop: stored under a
+// guard that is never true (sink is null on every launch, which ptxas
+// cannot know), so ptxas keeps the wgmmas that make them (it deletes an
+// unread mma.sync even under asm volatile). The stores never run; each
+// stage has its own addresses.
+template <int MT, int NA>
+__device__ __forceinline__ void wg_keep(float* sink, const float (&acc)[MT][NA], int slot) {
+  if (sink) {
+    constexpr int T = TC_WARPS * 32;
+    float* s = sink + (size_t)slot * 128 * T + threadIdx.x;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < NA; ++i) s[(m * NA + i) * T] = acc[m][i];
+  }
 }
 
 // rdb_w8a8's sources J.. S-1 of stage S, each an s8 run from zero, its sums
@@ -1068,12 +1093,12 @@ __device__ __forceinline__ void w8_sources(float (&acc)[MT][NA], int (&iacc)[MT]
                                            const float* __restrict__ deq,
                                            const int (&py)[MT], const int (&px)[MT]) {
   if constexpr (J < S) {
-    constexpr int NK = src_steps<true>(J);
+    constexpr int NK = src_steps<KW8>(J);
     constexpr int T0 = J == 0 ? 0 : 18 + 9 * (J - 1);
-    const Src src = {sbase + wg_src_off<true>(J), tc_side(J), S - 1 - J, NK / 9};
+    const Src src = {sbase + wg_src_off<KW8>(J), tc_side(J), S - 1 - J, NK / 9};
     zero_acc(iacc);
-    wg_run<NK, J == 0 ? 4 : 2>(iacc, ring, T0, slab0<true>(S, 0), py, px,
-                               [&](int k, int& kk) {
+    wg_run<NK, J == 0 ? 4 : 2, NBUF, SERVED>(iacc, ring, T0, slab0<KW8>(S, 0), py, px,
+                                            [&](int k, int& kk) {
       kk = k;
       return src;
     });
@@ -1092,18 +1117,20 @@ __device__ __forceinline__ void w8_sources(float (&acc)[MT][NA], int (&iacc)[MT]
   }
 }
 
-// One conv stage S (1..5) of rdb_i8 (W8 false: x in s8, x1..x4 in bf16) or
-// rdb_w8a8 (all in s8). deq: rdb_i8's 192 factors of the x conv, or
-// rdb_w8a8's 640 of x, x1..x4; qm: rdb_w8a8's five multipliers.
-template <int S, bool W8>
+// One conv stage S (1..5) of kernel K (enum Kind), instance V (enum Variant:
+// SERVED but for rdb_wg's ablations). deq: rdb_i8's 192 factors of the x
+// conv, or rdb_w8a8's 640 of x, x1..x4; qm: rdb_w8a8's five multipliers;
+// sink: wg_keep's.
+template <int S, int K, int V>
 __device__ __forceinline__ void wg_stage(const Ring& ring, uint32_t sbase,
                                          const float* __restrict__ deq,
                                          const float* __restrict__ qm,
                                          const float* __restrict__ bias,
                                          const float* __restrict__ mask,
                                          const __nv_bfloat16* __restrict__ x,
-                                         __nv_bfloat16* __restrict__ out,
+                                         __nv_bfloat16* __restrict__ out, float* sink,
                                          int b, int H, int W, int oy0, int ox0) {
+  constexpr int NB = nbuf<K>();
   constexpr int RS = tc_side(S);
   constexpr int NPIX = RS * RS;
   constexpr int MT = wg_mt(S);
@@ -1123,19 +1150,19 @@ __device__ __forceinline__ void wg_stage(const Ring& ring, uint32_t sbase,
   // accumulator (m, i = 4k + 2h + e) is tile pixel 16 warp + g + 8h at
   // channel 8k + 2t + e
   float acc[MT][NA];
-  int iacc[MT][NA];
-  constexpr int S0 = slab0<W8>(S, 0);
-  if constexpr (!W8) {
+  constexpr int S0 = slab0<K>(S, 0);
+  if constexpr (K == KI8) {
     // part 0: x's rows in s8, dequantized by the x conv's stage columns
+    int iacc[MT][NA];
     const Src xs = {sbase, tc_side(0), S - 1, 2};
     zero_acc(iacc);
-    wg_run<18, 4>(iacc, ring, 0, S0, py, px, [&](int k, int& kk) {
+    wg_run<18, 4, NB, V>(iacc, ring, 0, S0, py, px, [&](int k, int& kk) {
       kk = k;
       return xs;
     });
     wgmma_wait<0>();
     fence_acc(iacc);
-    ring_release(ring, S0 + n_slabs(part_steps<W8>(S, 0)) - 1);
+    ring_release<NB>(ring, S0 + n_slabs(part_steps<K>(S, 0)) - 1);
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
       const float dq = __ldg(deq + i8_col(S) + 8 * (i / 4) + 2 * t + (i & 1));
@@ -1145,27 +1172,59 @@ __device__ __forceinline__ void wg_stage(const Ring& ring, uint32_t sbase,
     // part 1: x1..x_{S-1} in bf16, added in order (source j's 18 k-steps
     // from part index 18 (j - 1))
     if constexpr (S > 1) {
-      wg_run<18 * (S - 1), 4>(acc, ring, 0, slab0<W8>(S, 1), py, px,
-                              [&](int k, int& kk) {
+      wg_run<18 * (S - 1), 4, NB, V>(acc, ring, 0, slab0<K>(S, 1), py, px,
+                                     [&](int k, int& kk) {
         const int j = 1 + k / 18;
         kk = k % 18;
-        const uint32_t off = j == 1   ? wg_src_off<W8>(1)
-                             : j == 2 ? wg_src_off<W8>(2)
-                             : j == 3 ? wg_src_off<W8>(3)
-                                      : wg_src_off<W8>(4);
+        const uint32_t off = j == 1   ? wg_src_off<K>(1)
+                             : j == 2 ? wg_src_off<K>(2)
+                             : j == 3 ? wg_src_off<K>(3)
+                                      : wg_src_off<K>(4);
         return Src{sbase + off, tc_side(j), S - 1 - j, 2};
       });
       wgmma_wait<0>();
       fence_acc(acc);
-      ring_release(ring, slab0<W8>(S, 1) + n_slabs(part_steps<W8>(S, 1)) - 1);
+      ring_release<NB>(ring, slab0<K>(S, 1) + n_slabs(part_steps<K>(S, 1)) - 1);
     }
-  } else {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int i = 0; i < NA; ++i) acc[m][i] = 0.f;
+  } else if constexpr (K == KW8) {
+    int iacc[MT][NA];
+    zero_acc(acc);
     w8_sources<S, 0>(acc, iacc, ring, sbase, deq, py, px);
-    ring_release(ring, S0 + n_slabs(part_steps<W8>(S, 0)) - 1);
+    ring_release<NB>(ring, S0 + n_slabs(part_steps<K>(S, 0)) - 1);
+  } else {
+    // rdb_wg: one part, bf16 products into float32 from zeroed registers:
+    // x's 36 k-steps (8-chunk pixels, four a tap), then x1..x_{S-1}'s 18
+    // each (4-chunk pixels) from part index 36, x's last slab released by
+    // the second run's first step
+    zero_acc(acc);
+    const Src xs = {sbase, tc_side(0), S - 1, 4};
+    wg_run<36, 8, NB, V>(acc, ring, 0, S0, py, px, [&](int k, int& kk) {
+      kk = k;
+      return xs;
+    });
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if constexpr (S > 1) {
+      wg_run<18 * (S - 1), 4, NB, V>(acc, ring, 36, S0, py, px, [&](int k, int& kk) {
+        const int j = 1 + k / 18;
+        kk = k % 18;
+        const uint32_t off = j == 1   ? wg_src_off<K>(1)
+                             : j == 2 ? wg_src_off<K>(2)
+                             : j == 3 ? wg_src_off<K>(3)
+                                      : wg_src_off<K>(4);
+        return Src{sbase + off, tc_side(j), S - 1 - j, 2};
+      });
+      wgmma_wait<0>();
+      fence_acc(acc);
+    }
+    if constexpr (V != SERIAL_B)
+      ring_release<NB>(ring, S0 + n_slabs(part_steps<K>(S, 0)) - 1);
+  }
+
+  // NO_FILL: stages 1-4 store nothing (their sums kept alive for ptxas)
+  if constexpr (V == NO_FILL && S < 5) {
+    wg_keep(sink, acc, S);
+    return;
   }
 
   // epilogue. Every global value it reads (biases, rdb_w8a8's multiplier,
@@ -1194,8 +1253,8 @@ __device__ __forceinline__ void wg_stage(const Ring& ring, uint32_t sbase,
       mk[m][h] = !in ? 0.f : (mask ? mask[img_off + (size_t)gy[m][h] * W + gx[m][h]] : 1.f);
     }
   if constexpr (S < 5) {
-    const float qs = W8 ? __ldg(qm + S) : 0.f;
-    const uint32_t dst = sbase + wg_src_off<W8>(S);
+    const float qs = K == KW8 ? __ldg(qm + S) : 0.f;
+    const uint32_t dst = sbase + wg_src_off<K>(S);
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -1208,7 +1267,7 @@ __device__ __forceinline__ void wg_stage(const Ring& ring, uint32_t sbase,
         for (int k = 0; k < COUT / 8; ++k) {
           const int co = 8 * k + 2 * t;
           const float a0 = acc[m][4 * k + 2 * h], a1 = acc[m][4 * k + 2 * h + 1];
-          if constexpr (W8) {
+          if constexpr (K == KW8) {
             // x_S in int8: channels co, co + 1 are bytes co % 16, co % 16 + 1
             // of chunk co / 16 of a 2-chunk pixel; quant(0) = 0
             float v0 = __fadd_rn(a0, bv[k][0]);
@@ -1232,20 +1291,33 @@ __device__ __forceinline__ void wg_stage(const Ring& ring, uint32_t sbase,
         }
       }
   } else {
-    // out = m(0.2 (x5 + b5) + x); shared memory holds x only in int8, so the
-    // residual comes from device memory, every value of it before any store
+    // out = m(0.2 (x5 + b5) + x), every value of x read before any store:
+    // rdb_wg from its resident bf16 copy (region 0 has a 5-pixel halo, 8
+    // chunks a pixel), the int8 kernels, which hold x only in int8, from
+    // device memory
     uint32_t xin[MT][2][COUT / 8];
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const bool in = gy[m][h] >= 0 && gy[m][h] < H && gx[m][h] < W;
-        const size_t pix = img_off + (size_t)(in ? gy[m][h] : 0) * W + (in ? gx[m][h] : 0);
+        if constexpr (K == KBF) {
+          const int p = (wg + WGS * m) * 64 + warp * 16 + g + 8 * h;
+          const int xp = in ? (p / RS + HALO) * tc_side(0) + p % RS + HALO : 0;
 #pragma unroll
-        for (int k = 0; k < COUT / 8; ++k)
-          xin[m][h][k] = in ? __ldg(reinterpret_cast<const unsigned int*>(
-                                  x + pix * NF + 8 * k + 2 * t))
-                            : 0u;
+          for (int k = 0; k < COUT / 8; ++k) {
+            asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(xin[m][h][k])
+                         : "r"(sbase + rot<8>(xp, k) + 4 * t) : "memory");
+            if (!in) xin[m][h][k] = 0u;
+          }
+        } else {
+          const size_t pix = img_off + (size_t)(in ? gy[m][h] : 0) * W + (in ? gx[m][h] : 0);
+#pragma unroll
+          for (int k = 0; k < COUT / 8; ++k)
+            xin[m][h][k] = in ? __ldg(reinterpret_cast<const unsigned int*>(
+                                    x + pix * NF + 8 * k + 2 * t))
+                              : 0u;
+        }
       }
 #pragma unroll
     for (int m = 0; m < MT; ++m)
@@ -1267,22 +1339,38 @@ __device__ __forceinline__ void wg_stage(const Ring& ring, uint32_t sbase,
   }
 }
 
-// The consumers' part of the body: the input tile with its 5-pixel halo
-// quantized on the way in (one 16-byte load of 8 channels becomes 8 bytes of
-// chunk c / 2 of a 4-chunk pixel; zero outside the image, quant(0) = 0),
-// then the five stages.
-template <bool W8>
+// The consumers' part of the body: the input tile with its 5-pixel halo,
+// then the five stages. rdb_wg copies it in bf16 (16-byte cp.async copies
+// into chunk c of 8-chunk pixel p, zero-filled outside the image: a source
+// size of 0 reads nothing); the int8 kernels quantize it on the way in (one
+// 16-byte load of 8 channels becomes 8 bytes of chunk c / 2 of a 4-chunk
+// pixel; zero outside the image, quant(0) = 0).
+template <int K, int V>
 __device__ __forceinline__ void wg_consume(const Ring& ring, uint32_t sbase,
                                            const __nv_bfloat16* __restrict__ x,
                                            const float* __restrict__ mask,
                                            __nv_bfloat16* __restrict__ out,
                                            const float* __restrict__ deq,
                                            const float* __restrict__ qm, float qm0,
-                                           const float* __restrict__ bias, int H, int W) {
+                                           const float* __restrict__ bias, float* sink,
+                                           int H, int W) {
   const int b = blockIdx.z;
   const int oy0 = blockIdx.y * TC_TILE, ox0 = blockIdx.x * TC_TILE;
   const size_t img_off = (size_t)b * H * W;
-  {
+  if constexpr (K == KBF) {
+    constexpr int R = tc_side(0);
+    for (int i = threadIdx.x; i < R * R * 8; i += TC_WARPS * 32) {
+      const int p = i >> 3, c = i & 7;
+      const int gy = oy0 - HALO + p / R, gx = ox0 - HALO + p % R;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const __nv_bfloat16* src =
+          in ? x + (img_off + (size_t)gy * W + gx) * NF + 8 * c : x;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   ::"r"(sbase + rot<8>(p, c)), "l"(src), "r"(in ? 16 : 0)
+                   : "memory");
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
     // eleven 16-byte loads in flight a thread before their stores (two
     // rounds for the 5,408 loads of the tile)
     constexpr int R = tc_side(0), N = R * R * 8, T = TC_WARPS * 32, U = 11;
@@ -1311,38 +1399,41 @@ __device__ __forceinline__ void wg_consume(const Ring& ring, uint32_t sbase,
     }
   }
   consumer_sync();
-  wg_stage<1, W8>(ring, sbase, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  wg_stage<1, K, V>(ring, sbase, deq, qm, bias, mask, x, out, sink, b, H, W, oy0, ox0);
   consumer_sync();
-  wg_stage<2, W8>(ring, sbase, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  wg_stage<2, K, V>(ring, sbase, deq, qm, bias, mask, x, out, sink, b, H, W, oy0, ox0);
   consumer_sync();
-  wg_stage<3, W8>(ring, sbase, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  wg_stage<3, K, V>(ring, sbase, deq, qm, bias, mask, x, out, sink, b, H, W, oy0, ox0);
   consumer_sync();
-  wg_stage<4, W8>(ring, sbase, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  wg_stage<4, K, V>(ring, sbase, deq, qm, bias, mask, x, out, sink, b, H, W, oy0, ox0);
   consumer_sync();
-  wg_stage<5, W8>(ring, sbase, deq, qm, bias, mask, x, out, b, H, W, oy0, ox0);
+  wg_stage<5, K, V>(ring, sbase, deq, qm, bias, mask, x, out, sink, b, H, W, oy0, ox0);
 }
 
-// The body of both int8 kernels: the ring and its barriers, then the
+// The body of the three kernels: the ring and its barriers, then the
 // producer warp and the consumers.
-template <bool W8>
+template <int K, int V>
 __device__ __forceinline__ void wg_body(const __nv_bfloat16* __restrict__ x,
                                         const float* __restrict__ mask,
                                         __nv_bfloat16* __restrict__ out,
                                         const unsigned char* wq, const unsigned char* wf,
                                         const float* __restrict__ deq,
                                         const float* __restrict__ qm, float qm0,
-                                        const float* __restrict__ bias, int H, int W) {
+                                        const float* __restrict__ bias, float* sink,
+                                        int H, int W) {
+  constexpr int NB = nbuf<K>();
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   Ring ring;
   ring.slots = (raw + 1023) & ~1023u;
-  const uint32_t sbase = ring.slots + RING;
-  ring.full = sbase + wg_src_off<W8>(5);
-  ring.empty = ring.full + 8 * NBUF;
+  const uint32_t sbase = ring.slots + NB * SLOT;
+  ring.full = sbase + wg_src_off<K>(5);
+  ring.empty = ring.full + 8 * NB;
   ring.wq = wq;
   ring.wf = wf;
+  ring.keep = sink != nullptr;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < NBUF; ++i) {
+    for (int i = 0; i < NB; ++i) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
                    ::"r"(ring.full + 8 * i) : "memory");
       asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
@@ -1359,11 +1450,31 @@ __device__ __forceinline__ void wg_body(const __nv_bfloat16* __restrict__ x,
   // accumulators and two sets of A (ptxas serialises the wgmmas: C7512).
   if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == WGS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == WGS * 128) ring_produce<W8>(ring);
+    if (threadIdx.x == WGS * 128) ring_produce<K, V>(ring);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    wg_consume<W8>(ring, sbase, x, mask, out, deq, qm, qm0, bias, H, W);
+    wg_consume<K, V>(ring, sbase, x, mask, out, deq, qm, qm0, bias, sink, H, W);
   }
+}
+
+// The main path's bf16 RDB: wb the bf16 slabs of the five convs, stage by
+// stage (ops/rdb.py::pack_rdb_wg).
+__global__ void __launch_bounds__(WG_THREADS, 1)
+rdb_wg_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
+              __nv_bfloat16* __restrict__ out, const unsigned char* __restrict__ wb,
+              const float* __restrict__ bias, int H, int W) {
+  wg_body<KBF, SERVED>(x, mask, out, wb, nullptr, nullptr, nullptr, 0.f, bias, nullptr,
+                       H, W);
+}
+
+// The time-attribution instances of rdb_wg_kernel (enum Variant): never
+// served. sink is wg_keep's, null on every launch.
+template <int V>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+rdb_wg_ablate_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
+                     __nv_bfloat16* __restrict__ out, const unsigned char* __restrict__ wb,
+                     const float* __restrict__ bias, float* sink, int H, int W) {
+  wg_body<KBF, V>(x, mask, out, wb, nullptr, nullptr, nullptr, 0.f, bias, sink, H, W);
 }
 
 // The bf16 RDB with its x conv in int8: wq the x conv's s8 slabs, wf x1..x4's
@@ -1375,7 +1486,7 @@ rdb_i8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mas
               __nv_bfloat16* __restrict__ out, const unsigned char* __restrict__ wf,
               const unsigned char* __restrict__ wq, const float* __restrict__ deq,
               const float* __restrict__ bias, float qm, int H, int W) {
-  wg_body<false>(x, mask, out, wq, wf, deq, nullptr, qm, bias, H, W);
+  wg_body<KI8, SERVED>(x, mask, out, wq, wf, deq, nullptr, qm, bias, nullptr, H, W);
 }
 
 // The full-W8A8 RDB: wq the s8 slabs of the five packed kernels, stage by
@@ -1386,18 +1497,49 @@ rdb_w8a8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ m
                 __nv_bfloat16* __restrict__ out, const unsigned char* __restrict__ wq,
                 const float* __restrict__ deq, const float* __restrict__ qm,
                 const float* __restrict__ bias, int H, int W) {
-  wg_body<true>(x, mask, out, wq, nullptr, deq, qm, __ldg(qm), bias, H, W);
+  wg_body<KW8, SERVED>(x, mask, out, wq, nullptr, deq, qm, __ldg(qm), bias, nullptr,
+                       H, W);
+}
+
+dim3 tile_grid(int B, int H, int W) {
+  return dim3((W + TC_TILE - 1) / TC_TILE, (H + TC_TILE - 1) / TC_TILE, B);
+}
+
+// rdb_wg_kernel (V SERVED) or its instance V
+template <int V>
+int launch_wg(const void* x, const void* mask, void* out, const void* wb,
+              const void* bias, int B, int H, int W, cudaStream_t stream) {
+  constexpr size_t smem = wg_smem_bytes<KBF>();
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* mk = static_cast<const float*>(mask);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  const auto* wbb = static_cast<const unsigned char*>(wb);
+  const auto* bb = static_cast<const float*>(bias);
+  cudaError_t e;
+  if constexpr (V == SERVED) {
+    e = cudaFuncSetAttribute(rdb_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    rdb_wg_kernel<<<tile_grid(B, H, W), WG_THREADS, smem, stream>>>(xb, mk, ob, wbb, bb,
+                                                                    H, W);
+  } else {
+    e = cudaFuncSetAttribute(rdb_wg_ablate_kernel<V>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    rdb_wg_ablate_kernel<V><<<tile_grid(B, H, W), WG_THREADS, smem, stream>>>(
+        xb, mk, ob, wbb, bb, nullptr, H, W);
+  }
+  return (int)cudaGetLastError();
 }
 
 int launch_i8(const void* x, const void* mask, void* out, const void* wf,
               const void* wq, const void* deq, const void* bias, float qm,
               int B, int H, int W, cudaStream_t stream) {
-  constexpr size_t smem = wg_smem_bytes<false>();
+  constexpr size_t smem = wg_smem_bytes<KI8>();
   const cudaError_t e = cudaFuncSetAttribute(
       rdb_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + TC_TILE - 1) / TC_TILE, (H + TC_TILE - 1) / TC_TILE, B);
-  rdb_i8_kernel<<<grid, WG_THREADS, smem, stream>>>(
+  rdb_i8_kernel<<<tile_grid(B, H, W), WG_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
       static_cast<__nv_bfloat16*>(out), static_cast<const unsigned char*>(wf),
       static_cast<const unsigned char*>(wq), static_cast<const float*>(deq),
@@ -1408,12 +1550,11 @@ int launch_i8(const void* x, const void* mask, void* out, const void* wf,
 int launch_w8a8(const void* x, const void* mask, void* out, const void* wq,
                 const void* deq, const void* qm, const void* bias, int B, int H,
                 int W, cudaStream_t stream) {
-  constexpr size_t smem = wg_smem_bytes<true>();
+  constexpr size_t smem = wg_smem_bytes<KW8>();
   const cudaError_t e = cudaFuncSetAttribute(
       rdb_w8a8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + TC_TILE - 1) / TC_TILE, (H + TC_TILE - 1) / TC_TILE, B);
-  rdb_w8a8_kernel<<<grid, WG_THREADS, smem, stream>>>(
+  rdb_w8a8_kernel<<<tile_grid(B, H, W), WG_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
       static_cast<__nv_bfloat16*>(out), static_cast<const unsigned char*>(wq),
       static_cast<const float*>(deq), static_cast<const float*>(qm),
@@ -1421,7 +1562,7 @@ int launch_w8a8(const void* x, const void* mask, void* out, const void* wq,
   return (int)cudaGetLastError();
 }
 
-// Multiply-adds the int8 kernels execute per output tile: each stage's
+// Multiply-adds the wgmma kernels execute per output tile: each stage's
 // 2 * wg_mt 64-row M tiles over all 9 * Cin x Cout.
 constexpr long long wg_macs_per_tile() {
   long long macs = 0;
@@ -1438,32 +1579,15 @@ int launch_tc(const void* x, const void* mask, void* out, const void* wf,
   const cudaError_t e = cudaFuncSetAttribute(
       rdb_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + TC_TILE - 1) / TC_TILE, (H + TC_TILE - 1) / TC_TILE, B);
-  rdb_tc_kernel<<<grid, TC_WARPS * 32, smem, stream>>>(
+  rdb_tc_kernel<<<tile_grid(B, H, W), TC_WARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
       static_cast<__nv_bfloat16*>(out), static_cast<const uint4*>(wf),
       static_cast<const float*>(bias), H, W);
   return (int)cudaGetLastError();
 }
 
-template <int V>
-int launch_tc_ablate(const void* x, const void* mask, void* out, const void* wf,
-                     const void* bias, int B, int H, int W, cudaStream_t stream) {
-  constexpr size_t smem = tc_smem_bytes();
-  const cudaError_t e = cudaFuncSetAttribute(
-      rdb_tc_ablate_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + TC_TILE - 1) / TC_TILE, (H + TC_TILE - 1) / TC_TILE, B);
-  rdb_tc_ablate_kernel<V><<<grid, TC_WARPS * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mask),
-      static_cast<__nv_bfloat16*>(out), static_cast<const uint4*>(wf),
-      static_cast<const float*>(bias), nullptr, H, W);
-  return (int)cudaGetLastError();
-}
-
-// Multiply-adds the tensor-core kernel executes per output tile: every M
-// tile of each stage's region (16 pixels, the last one padded) over all
-// 9 * Cin x Cout.
+// Multiply-adds rdb_tc_kernel executes per output tile: every M tile of each
+// stage's region (16 pixels, the last one padded) over all 9 * Cin x Cout.
 constexpr long long tc_macs_per_tile() {
   long long macs = 0;
   for (int s = 1; s <= 5; ++s)
@@ -1490,7 +1614,7 @@ constexpr long long macs_per_tile() {
 // dtype: 0 = float32, 1 = bfloat16. x, out: (B, H, W, 64) contiguous;
 // mask: (B, H, W) float32 or null; w: the five HWIO conv kernels
 // flattened and concatenated (float32), read by the float32 kernel; wf:
-// the same weights as bf16 B fragments (ops/rdb.py::pack_rdb_fragments),
+// the same weights as rdb_wg_kernel's bf16 slabs (ops/rdb.py::pack_rdb_wg),
 // read by the bfloat16 kernel (null for float32); bias: 192 float32.
 // Returns the CUDA error code of the launch (0 = success).
 extern "C" int s2sr_rdb_forward(const void* x, const void* mask, void* out,
@@ -1501,13 +1625,24 @@ extern "C" int s2sr_rdb_forward(const void* x, const void* mask, void* out,
   if (dtype == 0)
     return launch<float, TILE_F32>(x, mask, out, w, bias, B, H, W, st);
   if (dtype == 1 && wf)
-    return launch_tc(x, mask, out, wf, bias, B, H, W, st);
+    return launch_wg<SERVED>(x, mask, out, wf, bias, B, H, W, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// A time-attribution instance of the bf16 kernel (enum Variant: 1 NO_FILL,
-// 2 NO_ACC, 3 SERIAL_B) on the operands of s2sr_rdb_forward's
-// bfloat16 path (x, out bf16; wf the B fragments; bias 192 float32). Only
+// rdb_tc_kernel, the ladder's v4_mma: x, out (B, H, W, 64) bf16; mask as
+// above; wf the weights as mma.sync B fragments (ops/rdb.py::
+// pack_rdb_fragments); bias 192 float32. Only ops/rdb.py::rdb_mma calls it;
+// nothing served does. Returns the CUDA error code of the launch.
+extern "C" int s2sr_rdb_mma_forward(const void* x, const void* mask, void* out,
+                                    const void* wf, const void* bias, int B, int H,
+                                    int W, void* stream) {
+  if (!wf || !bias) return (int)cudaErrorInvalidValue;
+  return launch_tc(x, mask, out, wf, bias, B, H, W, static_cast<cudaStream_t>(stream));
+}
+
+// A time-attribution instance of rdb_wg_kernel (enum Variant: 1 NO_FILL,
+// 2 NO_ACC, 3 SERIAL_B) on the operands of s2sr_rdb_forward's bfloat16 path
+// (x, out bf16; wf the bf16 slabs; bias 192 float32). Only
 // ops/rdb.py::rdb_ablated calls it; nothing served does. Returns the CUDA
 // error code of the launch.
 extern "C" int s2sr_rdb_ablate_forward(const void* x, const void* mask, void* out,
@@ -1516,9 +1651,9 @@ extern "C" int s2sr_rdb_ablate_forward(const void* x, const void* mask, void* ou
   if (!wf || !bias) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (variant) {
-    case NO_FILL: return launch_tc_ablate<NO_FILL>(x, mask, out, wf, bias, B, H, W, st);
-    case NO_ACC: return launch_tc_ablate<NO_ACC>(x, mask, out, wf, bias, B, H, W, st);
-    case SERIAL_B: return launch_tc_ablate<SERIAL_B>(x, mask, out, wf, bias, B, H, W, st);
+    case NO_FILL: return launch_wg<NO_FILL>(x, mask, out, wf, bias, B, H, W, st);
+    case NO_ACC: return launch_wg<NO_ACC>(x, mask, out, wf, bias, B, H, W, st);
+    case SERIAL_B: return launch_wg<SERIAL_B>(x, mask, out, wf, bias, B, H, W, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1553,16 +1688,20 @@ extern "C" int s2sr_rdb_w8a8_forward(const void* x, const void* mask, void* out,
 }
 
 extern "C" long long s2sr_rdb_w8a8_smem_bytes() {
-  return (long long)wg_smem_bytes<true>();
+  return (long long)wg_smem_bytes<KW8>();
 }
 
 extern "C" long long s2sr_rdb_i8_smem_bytes() {
-  return (long long)wg_smem_bytes<false>();
+  return (long long)wg_smem_bytes<KI8>();
 }
 
-// Multiply-adds rdb_i8_kernel and rdb_w8a8_kernel execute per output tile
-// (64-row M tiles, halo included).
+// Multiply-adds the wgmma kernels (rdb_wg_kernel, rdb_i8_kernel,
+// rdb_w8a8_kernel) execute per output tile (64-row M tiles, halo included).
 extern "C" long long s2sr_rdb_i8_macs_per_tile() { return wg_macs_per_tile(); }
+
+// rdb_tc_kernel's (v4_mma's) shared-memory bytes and multiply-adds a tile.
+extern "C" long long s2sr_rdb_mma_smem_bytes() { return (long long)tc_smem_bytes(); }
+extern "C" long long s2sr_rdb_mma_macs_per_tile() { return tc_macs_per_tile(); }
 
 // Output tile side and dynamic shared-memory bytes per block, by dtype.
 extern "C" int s2sr_rdb_tile(int dtype) {
@@ -1571,10 +1710,10 @@ extern "C" int s2sr_rdb_tile(int dtype) {
 
 extern "C" long long s2sr_rdb_smem_bytes(int dtype) {
   return dtype == 0 ? (long long)smem_bytes<float, TILE_F32>()
-                    : (long long)tc_smem_bytes();
+                    : (long long)wg_smem_bytes<KBF>();
 }
 
 // Multiply-adds executed per output tile (halo included), by dtype.
 extern "C" long long s2sr_rdb_macs_per_tile(int dtype) {
-  return dtype == 0 ? macs_per_tile<TILE_F32>() : tc_macs_per_tile();
+  return dtype == 0 ? macs_per_tile<TILE_F32>() : wg_macs_per_tile();
 }

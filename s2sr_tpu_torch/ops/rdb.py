@@ -10,14 +10,22 @@ kernel refused).
 
 - :func:`rdb` is the wrapper. On a CUDA tensor it launches the kernel in
   ``csrc/rdb.cu`` (one launch per block, x1..x4 kept in shared memory;
-  bf16 on the tensor cores, fp32 on the CUDA cores) or raises; on a CPU
-  tensor it runs :func:`rdb_reference`.
+  bf16 ``rdb_wg_kernel`` on ``wgmma`` with B streamed through a ring of
+  bulk copies, fp32 on the CUDA cores) or raises; on a CPU tensor it runs
+  :func:`rdb_reference`.
 - :data:`LAUNCHES` counts kernel launches, nothing else.
 - What bounds the kernel on the H100 is operations (479,232 FLOP per
   pixel against 256 bytes per pixel in bf16); the source's header says
   what the design does about it.
-- :func:`pack_rdb_fragments` lays the packed weights out as the bf16
-  kernel's B fragments.
+- :func:`pack_rdb_wg` lays the packed weights out as the bf16 kernel's B
+  slabs (:func:`slab_index_wg`), packed once a body (:func:`rdb` caches
+  them by ``w``'s identity and version); :func:`rdb_wg_smem_plan` is its
+  shared memory.
+- :func:`rdb_mma` launches ``rdb_tc_kernel``, the bf16 design before it
+  (``mma.sync``), which nothing served reaches: the RDB ladder's rung
+  ``v4_mma``, so one call times both designs. :func:`pack_rdb_fragments`
+  lays the packed weights out as its B fragments; :data:`LAUNCHES_MMA`
+  counts its launches.
 - :func:`rdb_i8` is the same block with its packed 64→192 x conv in int8
   (precision "int8", ``s2sr_tpu/models/rrdbnet_int8.py::_rdb_packed_mixed``):
   on a CUDA tensor ``rdb_i8_kernel`` (``wgmma``: s8 for x's rows, bf16
@@ -33,7 +41,7 @@ kernel refused).
   lays one quantized block (or a stack of them) out as that kernel's
   operands, once.
 - :func:`rdb_ablated` launches the bf16 kernel's time-attribution
-  instances (``rdb_tc_ablate_kernel``, the ports of ``rdb_pallas_v4``'s
+  instances (``rdb_wg_ablate_kernel``, the ports of ``rdb_pallas_v4``'s
   staging knobs, :data:`ABLATIONS`); only the RDB ladder
   (``bench/rdb_ladder.py``) and ``chip_smoke.py`` call it, nothing served.
   :func:`rdb_no_acc_reference` is the plain version of ``v4_no_acc``;
@@ -50,7 +58,6 @@ and stores them as float32, kernels HWIO-flattened and concatenated.
 from __future__ import annotations
 
 import ctypes
-import weakref
 from typing import NamedTuple
 
 import torch
@@ -60,6 +67,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 NF = 64
 G = 32
 LAUNCHES = 0
+LAUNCHES_MMA = 0
 LAUNCHES_I8 = 0
 LAUNCHES_W8A8 = 0
 # the bf16 kernel's time-attribution instances by ladder variant: the codes
@@ -126,8 +134,9 @@ def unpack_rdb_weights(w: torch.Tensor, b: torch.Tensor):
 
 
 def fragment_index(device=None) -> torch.Tensor:
-    """Indices into :func:`pack_rdb_weights`' flat ``w`` that put it in the
-    bf16 kernel's B-fragment order (``csrc/rdb.cu``, ``rdb_tc_kernel``).
+    """Indices into :func:`pack_rdb_weights`' flat ``w`` that put it in
+    ``rdb_tc_kernel``'s B-fragment order (``csrc/rdb.cu``; the ladder's
+    ``v4_mma``).
 
     Stage s's im2col matrix has rows (source j, tap, channel) in the order
     the kernel walks its k16 slabs: sources x, x1, .. x_{s-1}, then the 9
@@ -158,34 +167,47 @@ _FRAG_INDEX: dict = {}
 
 
 def pack_rdb_fragments(w: torch.Tensor) -> torch.Tensor:
-    """:func:`pack_rdb_weights`' flat float32 ``w`` as the bf16 kernel's B
-    fragments (:func:`fragment_index`); exact, since ``w`` holds bf16
+    """:func:`pack_rdb_weights`' flat float32 ``w`` as ``rdb_tc_kernel``'s
+    B fragments (:func:`fragment_index`); exact, since ``w`` holds bf16
     values."""
     return w[fragment_index(w.device)].to(torch.bfloat16)
 
 
-# --- the int8 kernels' B slabs -----------------------------------------------
+# --- the wgmma kernels' B slabs -----------------------------------------------
 
-# rdb_i8_kernel's and rdb_w8a8_kernel's B ring (csrc/rdb.cu KQ, NBUF, SLOT):
-# k-steps a slab (4 of 32 bytes of K a row), slots, bytes a slot (a slab at
-# N 64)
+# the B ring of rdb_wg_kernel, rdb_i8_kernel and rdb_w8a8_kernel (csrc/rdb.cu
+# KQ, NBUF, NBUF_BF16, SLOT): k-steps a slab (4 of 32 bytes of K a row),
+# slots (the int8 kernels', rdb_wg's), bytes a slot (a slab at N 64)
 KQ = 4
 RING_SLOTS = 8
+RING_SLOTS_BF16 = 3
 RING_SLOT_BYTES = 64 * 128
 
 
-def wg_smem_plan(full: bool) -> dict:
-    """Shared-memory bytes of ``rdb_i8_kernel`` (``full`` False) or
-    ``rdb_w8a8_kernel`` (True) as ``csrc/rdb.cu`` lays them out
-    (``wg_smem_bytes``): up to 1024 to align the ring, the ring, the
-    sources x, x1..x4 over their regions (sides 26, 24, .., 18; x in int8,
-    x1..x4 in bf16 or, in full W8A8, int8), a full and an empty mbarrier a
-    slot; ``total`` their sum."""
-    sources = sum((16 + 2 * (5 - j)) ** 2 * (NF if j == 0 else G)
-                  * (1 if j == 0 or full else 2) for j in range(5))
-    plan = {"align": 1024, "ring": RING_SLOTS * RING_SLOT_BYTES,
-            "sources": sources, "barriers": 2 * RING_SLOTS * 8}
+def _smem_plan(slots: int, x_bytes: int, grow_bytes: int) -> dict:
+    """A wgmma kernel's shared memory as ``csrc/rdb.cu`` lays it out
+    (``wg_smem_bytes``): up to 1024 to align the ring, the ring of
+    ``slots``, the sources x, x1..x4 over their regions (sides 26, 24, ..,
+    18; x at ``x_bytes`` a value, x1..x4 at ``grow_bytes``), a full and an
+    empty mbarrier a slot; ``total`` their sum."""
+    sources = sum((16 + 2 * (5 - j)) ** 2
+                  * (NF * x_bytes if j == 0 else G * grow_bytes)
+                  for j in range(5))
+    plan = {"align": 1024, "ring": slots * RING_SLOT_BYTES,
+            "sources": sources, "barriers": 2 * slots * 8}
     return {**plan, "total": sum(plan.values())}
+
+
+def wg_smem_plan(full: bool) -> dict:
+    """Shared-memory bytes of ``rdb_i8_kernel`` (``full`` False: x in int8,
+    x1..x4 in bf16) or ``rdb_w8a8_kernel`` (True: all in int8)."""
+    return _smem_plan(RING_SLOTS, 1, 1 if full else 2)
+
+
+def rdb_wg_smem_plan() -> dict:
+    """Shared-memory bytes of ``rdb_wg_kernel``: every source in bf16, a
+    ring of :data:`RING_SLOTS_BF16` slots."""
+    return _smem_plan(RING_SLOTS_BF16, 2, 2)
 
 
 def _slabs(steps: torch.Tensor) -> torch.Tensor:
@@ -223,17 +245,19 @@ def _s8_steps(j: int, s: int, cols: int, off: int = 0) -> torch.Tensor:
 
 
 def _bf16_steps(j: int, s: int) -> torch.Tensor:
-    """rdb_i8's k-steps of bf16 source j (x1..x4, 32 channels, two a tap)
-    for stage s, as byte indices into :func:`pack_rdb_weights`' flat ``w``
-    in bf16 (two bytes a value, low byte first): conv s's rows of x_j's
-    channels, 16 values a step."""
+    """The k-steps of bf16 source j for stage s (x: 64 channels, four a
+    tap, rdb_wg's; x1..x4: 32, two a tap, rdb_wg's and rdb_i8's), as byte
+    indices into :func:`pack_rdb_weights`' flat ``w`` in bf16 (two bytes a
+    value, low byte first): conv s's rows of source j's channels, tap by
+    tap, 16 values a step."""
     cin, cout = _CIN[s - 1], _COUT[s - 1]
     off = sum(9 * ci * co for ci, co in zip(_CIN[:s - 1], _COUT[:s - 1]))
-    k = torch.arange(18)
-    ch = NF + (j - 1) * G + 16 * (k % 2)[:, None] + torch.arange(16)[None, :]
-    val = (off + ((k // 2)[:, None, None] * cin + ch[:, None, :]) * cout
-           + torch.arange(cout)[None, :, None])                   # (18, cout, 16)
-    return torch.stack([2 * val, 2 * val + 1], -1).reshape(18, cout, 32)
+    lo, spt = (0, NF // 16) if j == 0 else (NF + (j - 1) * G, G // 16)
+    k = torch.arange(9 * spt)
+    ch = lo + 16 * (k % spt)[:, None] + torch.arange(16)[None, :]
+    val = (off + ((k // spt)[:, None, None] * cin + ch[:, None, :]) * cout
+           + torch.arange(cout)[None, :, None])                  # (steps, cout, 16)
+    return torch.stack([2 * val, 2 * val + 1], -1).reshape(9 * spt, cout, 32)
 
 
 def slab_index_i8(device=None) -> torch.Tensor:
@@ -259,6 +283,20 @@ def slab_index_i8_bf16(device=None) -> torch.Tensor:
         _SLAB_INDEX[key] = torch.cat([
             _slabs(torch.cat([_bf16_steps(j, s) for j in range(1, s)]))
             for s in range(2, 6)]).to(device)
+    return _SLAB_INDEX[key]
+
+
+def slab_index_wg(device=None) -> torch.Tensor:
+    """Byte indices into :func:`pack_rdb_weights`' ``w`` in bf16 that give
+    ``rdb_wg_kernel``'s stream (−1: a padding byte): per stage, one part,
+    the k-steps of x's rows (36: tap, then 16 of the 64 channels) and then
+    of x1..x_{s-1}'s (18 each), as :func:`_slabs` lays them out, the
+    stages one after another: every weight's two bytes once."""
+    key = ("wg", str(device))
+    if key not in _SLAB_INDEX:
+        _SLAB_INDEX[key] = torch.cat([
+            _slabs(torch.cat([_bf16_steps(j, s) for j in range(s)]))
+            for s in range(1, 6)]).to(device)
     return _SLAB_INDEX[key]
 
 
@@ -296,6 +334,13 @@ def pack_rdb_i8_bf16(w: torch.Tensor) -> torch.Tensor:
     (:func:`slab_index_i8_bf16`), flat uint8; exact."""
     raw = w.to(torch.bfloat16).view(torch.uint8)
     return _gather(raw, slab_index_i8_bf16)
+
+
+def pack_rdb_wg(w: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_rdb_weights`' flat float32 ``w`` (bf16 values) as
+    ``rdb_wg_kernel``'s bf16 B slabs (:func:`slab_index_wg`), flat uint8;
+    exact."""
+    return _gather(w.to(torch.bfloat16).view(torch.uint8), slab_index_wg)
 
 
 def quant_i8(x: torch.Tensor, qm) -> torch.Tensor:
@@ -509,6 +554,9 @@ def _lib():
                                          ctypes.c_int, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_int, vp]
         lib.s2sr_rdb_forward.restype = ctypes.c_int
+        lib.s2sr_rdb_mma_forward.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int,
+                                             ctypes.c_int, ctypes.c_int, vp]
+        lib.s2sr_rdb_mma_forward.restype = ctypes.c_int
         lib.s2sr_rdb_i8_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                             ctypes.c_float, ctypes.c_int,
                                             ctypes.c_int, ctypes.c_int, vp]
@@ -522,7 +570,8 @@ def _lib():
                                                 ctypes.c_int, ctypes.c_int, vp]
         lib.s2sr_rdb_ablate_forward.restype = ctypes.c_int
         for name in ("s2sr_rdb_i8_smem_bytes", "s2sr_rdb_w8a8_smem_bytes",
-                     "s2sr_rdb_i8_macs_per_tile"):
+                     "s2sr_rdb_i8_macs_per_tile", "s2sr_rdb_mma_smem_bytes",
+                     "s2sr_rdb_mma_macs_per_tile"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_longlong
         lib.s2sr_rdb_tile.argtypes = [ctypes.c_int]
@@ -536,12 +585,23 @@ def _lib():
 
 def kernel_tiling(dtype: torch.dtype) -> dict:
     """The kernel's output tile side, shared-memory bytes per block and
-    multiply-adds executed per tile (halo recompute included)."""
+    multiply-adds executed per tile (halo recompute included): bf16
+    ``rdb_wg_kernel``, or the float32 kernel."""
     lib = _lib()
     code = _DTYPE_CODE[dtype]
     return {"tile": int(lib.s2sr_rdb_tile(code)),
             "smem_bytes": int(lib.s2sr_rdb_smem_bytes(code)),
             "macs_per_tile": int(lib.s2sr_rdb_macs_per_tile(code))}
+
+
+def kernel_tiling_mma() -> dict:
+    """:func:`kernel_tiling` of ``rdb_tc_kernel`` (``v4_mma``): the same
+    tile; its shared memory (x and x1..x4 in bf16) and the multiply-adds
+    of its 16-row M tiles."""
+    lib = _lib()
+    return {**kernel_tiling(torch.bfloat16),
+            "smem_bytes": int(lib.s2sr_rdb_mma_smem_bytes()),
+            "macs_per_tile": int(lib.s2sr_rdb_mma_macs_per_tile())}
 
 
 def _check(x, w, b, mask):
@@ -589,9 +649,8 @@ def rdb(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if bsz * h * wd == 0:
         return out
     lib = _lib()
-    # the bf16 kernel reads its weights as B fragments, packed per call
-    # (one gather of 240k values)
-    wf = pack_rdb_fragments(w) if x.dtype == torch.bfloat16 else None
+    # the bf16 kernel reads its weights as B slabs, packed once a body
+    wf = _packed(_WG_PACKS, w, pack_rdb_wg) if x.dtype == torch.bfloat16 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.s2sr_rdb_forward(
@@ -604,6 +663,56 @@ def rdb(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
+# the bf16 kernels' weights by ``w``: packed on first use, again only when
+# ``w`` was changed in place (its version) or is another tensor
+_WG_PACKS = WeakIdKeyDictionary()
+_MMA_PACKS = WeakIdKeyDictionary()
+
+
+def _packed(cache, t: torch.Tensor, pack) -> torch.Tensor:
+    """``pack(t)``, packed once a body: a block's weights stay the same
+    tensors from launch to launch. ``cache`` maps ``t`` (weakly) to its
+    version and packing."""
+    hit = cache.get(t)
+    if hit is not None and hit[0] == t._version:
+        return hit[1]
+    packed = pack(t)
+    cache[t] = (t._version, packed)
+    return packed
+
+
+def rdb_mma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One RDB through ``rdb_tc_kernel``, the bf16 design on ``mma.sync``
+    that :func:`rdb` served before ``rdb_wg_kernel``: the RDB ladder's
+    rung ``v4_mma``. Nothing served calls it. Operands as :func:`rdb`'s.
+    On a CUDA tensor it launches the kernel or raises (bfloat16 only); on
+    a CPU tensor it runs :func:`rdb_reference`."""
+    global LAUNCHES_MMA
+    if x.device.type == "cpu":
+        return rdb_reference(x, w, b, mask)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"rdb_mma: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"rdb_mma's kernel takes bfloat16, got {x.dtype}")
+    _check(x, w, b, mask)
+    bsz, h, wd, _ = x.shape
+    out = torch.empty_like(x)
+    if bsz * h * wd == 0:
+        return out
+    lib = _lib()
+    wf = _packed(_MMA_PACKS, w, pack_rdb_fragments)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.s2sr_rdb_mma_forward(
+            x.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), wf.data_ptr(), b.data_ptr(), bsz, h, wd, stream)
+    if rc != 0:
+        raise RuntimeError(f"rdb_mma kernel launch failed: CUDA error {rc}")
+    LAUNCHES_MMA += 1
+    return out
+
+
 def rdb_ablated(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 variant: str, mask: torch.Tensor | None = None) -> torch.Tensor:
     """One RDB through a time-attribution instance of the bf16 kernel
@@ -611,7 +720,7 @@ def rdb_ablated(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
     Only the RDB ladder and ``chip_smoke.py`` call this; nothing served
     does. Operands as :func:`rdb`'s. On a CUDA tensor it launches
-    ``rdb_tc_ablate_kernel`` or raises (bfloat16 only). On a CPU tensor it
+    ``rdb_wg_ablate_kernel`` or raises (bfloat16 only). On a CPU tensor it
     runs the plain version of the variant's function: :func:`rdb_reference`
     for ``v4_serialdma`` (the served math),
     :func:`rdb_no_acc_reference` for ``v4_no_acc``; ``v4_no_fill`` has no
@@ -636,8 +745,8 @@ def rdb_ablated(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _launch_ablated(_lib(), x, pack_rdb_fragments(w), b, mask, out,
-                        variant, stream)
+        _launch_ablated(_lib(), x, _packed(_WG_PACKS, w, pack_rdb_wg), b,
+                        mask, out, variant, stream)
     return out
 
 
@@ -655,21 +764,9 @@ def _launch_ablated(lib, x, wf, b, mask, out, variant: str, stream) -> None:
     LAUNCHES_ABLATED[variant] += 1
 
 
-# rdb_i8's slab streams by its x conv tensor: packed on first use, again only
-# when ``w`` is another tensor or either was changed in place
+# rdb_i8's slab streams, by the tensor each is packed from (as _packed)
 _I8_PACKS = WeakIdKeyDictionary()
-
-
-def _i8_streams(w: torch.Tensor, wx8: torch.Tensor) -> tuple:
-    """``(pack_rdb_i8_fragments(wx8), pack_rdb_i8_bf16(w))``, packed once a
-    body: a block's weights stay the same tensors from launch to launch."""
-    versions = (w._version, wx8._version)
-    hit = _I8_PACKS.get(wx8)
-    if hit is not None and hit[0]() is w and hit[1] == versions:
-        return hit[2]
-    streams = (pack_rdb_i8_fragments(wx8), pack_rdb_i8_bf16(w))
-    _I8_PACKS[wx8] = (weakref.ref(w), versions, streams)
-    return streams
+_I8_BF16_PACKS = WeakIdKeyDictionary()
 
 
 def kernel_tiling_i8() -> dict:
@@ -713,7 +810,8 @@ def rdb_i8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if bsz * h * wd == 0:
         return out
     lib = _lib()
-    wq, wf = _i8_streams(w, wx8)
+    wq = _packed(_I8_PACKS, wx8, pack_rdb_i8_fragments)
+    wf = _packed(_I8_BF16_PACKS, w, pack_rdb_i8_bf16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.s2sr_rdb_i8_forward(

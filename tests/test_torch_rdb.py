@@ -138,7 +138,7 @@ def test_pack_rejects_wrong_widths():
         pack_rdb_weights(kernels, [torch.zeros(16)] * 5, torch.float32)
 
 
-# --- the bf16 tensor-core kernel's indexing, emulated in numpy --------------
+# --- rdb_tc_kernel's indexing (the ladder's v4_mma), emulated in numpy -----
 
 TC_TILE, TC_HALO, TC_WARPS = 16, 5, 8
 

@@ -159,11 +159,19 @@ def kernel_variants() -> dict:
 
 
 def test_variant_codes_match_the_kernel_source():
+    """The codes are ``enum Variant``'s, and the instances they pick are
+    the served ``wgmma`` kernel's (``rdb_wg_ablate_kernel<V>``, launched
+    by ``launch_wg<V>``); the ``mma.sync`` design keeps none."""
     enum = kernel_variants()
     assert enum["SERVED"] == 0
     assert rdb_mod.ABLATIONS == {
         "v4_no_fill": enum["NO_FILL"], "v4_no_acc": enum["NO_ACC"],
         "v4_serialdma": enum["SERIAL_B"]}
+    src = RDB_CU.read_text()
+    for name in ("NO_FILL", "NO_ACC", "SERIAL_B"):
+        assert f"case {name}: return launch_wg<{name}>(" in src
+    assert "rdb_wg_ablate_kernel<V><<<" in src
+    assert "rdb_tc_ablate_kernel" not in src
 
 
 class FakeLib:
@@ -185,7 +193,7 @@ def test_launch_passes_the_variant_code(rdb_params, variant, monkeypatch):
     x = torch.zeros(2, 5, 7, 64, dtype=torch.bfloat16)
     out = torch.empty_like(x)
     w, b = torch_weights(rdb_params)
-    wf = rdb_mod.pack_rdb_fragments(w)
+    wf = rdb_mod.pack_rdb_wg(w)
     lib = FakeLib()
     rdb_mod._launch_ablated(lib, x, wf, b, None, out, variant, 1234)
     (args,) = lib.calls
@@ -200,9 +208,9 @@ def test_launch_passes_the_variant_code(rdb_params, variant, monkeypatch):
 
 
 def test_v4t9_arithmetic():
-    """The bytes of the refusal: ``rdb_tc_kernel``'s shared memory
-    (``csrc/rdb.cu::tc_off(5)``, also stated in its source) against the
-    block's limit and the 9-tap copies."""
+    """The bytes of the refusal: the sources v4's kernel holds
+    (``csrc/rdb.cu``'s x and x1..x4, also stated in its source) against
+    the block's limit and the 9-tap copies."""
     n = bench.v4t9_bytes()
     assert n == {"held": 200_704, "free": 31_744, "side": 22,
                  "whole": 278_784, "per_warp": 9_216, "eight_warps": 73_728}
