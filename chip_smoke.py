@@ -280,10 +280,13 @@ def phase_build(state):
     from s2sr_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    # one nvcc per source, all at once
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    # one nvcc per source, all at once, and the Swin kernels' copy with
+    # phase clocks (phase swin_numbers)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+        stamped = pool.submit(_build.build, "window_attention", SWIN_STAMPS)
         built = dict(zip(KERNEL_SOURCES, pool.map(_build.build,
                                                   KERNEL_SOURCES)))
+        stamped.result()
     ptxas = {name: ptxas_summary(log) for name, (_, log) in built.items()}
     state["ptxas"] = ptxas
     # ptxas's notes on wgmma: an instruction it serialised (C751x), a fence
@@ -299,10 +302,18 @@ def phase_build(state):
                           ("rdb", "rdb_i8_kernel"), ("rdb", "rdb_w8a8_kernel"),
                           ("rdb", "rdb_wg_ablate_kernel"),
                           ("matmul_chain", "wg_chain_kernel"),
+                          ("window_attention", "swin_wg_kernel"),
+                          ("window_attention", "swin_wg_no_l2_kernel"),
                           ("window_attention", "swin_tc_kernel"),
                           ("rdb_ladder_tc", "_tc_kernel")):
         emit({"phase": "build", "kernel": pattern, "ptxas": {
             k: v for k, v in ptxas[name].items() if pattern in k}})
+    # the served Swin kernels' wgmmas: none serialised or fenced by ptxas
+    notes = [n for n in state["ptxas_wgmma"].get("window_attention", [])
+             if SWIN_SERVED_WG in n]
+    if notes:
+        raise AssertionError(f"ptxas serialised or fenced swin_wg_kernel's "
+                             f"wgmmas: {notes}")
 
 
 def ptxas_summary(log: str) -> dict:
@@ -4618,6 +4629,16 @@ SWIN_REPLACES = {
     "window_attention": "s2sr_tpu/ops/pallas/window_attention.py:385",
 }
 SWIN_BLOCKS = 36
+# the define that builds window_attention.cu with swin_wg_kernel's phase
+# clocks (its enum WgStamp)
+SWIN_STAMPS = ("-DS2SR_SWIN_STAMPS",)
+SWIN_ST = {"start": 0, "ln1": 1, "attn": 2, "proj": 3, "ln2": 4, "fc1": 5,
+           "gelu": 6, "fc2": 13, "out": 15, "end": 16, "t0": 17, "t1": 18}
+# the Swin kernels by (mangled) name: the served bf16 swin_wg_kernel<MLP>,
+# its time-attribution instance, and the mma.sync design swin_tc_kernel
+SWIN_SERVED_WG = "14swin_wg_kernelI"
+SWIN_NO_L2 = "20swin_wg_no_l2_kernel"
+SWIN_MMA = "14swin_tc_kernelI"
 # Full swinir_x4 in bf16 against fp32, relative to the largest output:
 # the plain model on the CPU sits 0.012–0.015 from fp32 (both levels)
 # and the attn level 0.015–0.022 from the block level (measured on
@@ -4693,6 +4714,50 @@ def swin_faults(t: dict, mlp: bool) -> dict:
     return out
 
 
+def paired_mask_reference(ref, x, t):
+    """``ref(x, t)`` as a kernel computes it whose second consumer takes
+    its partner's mask type: every odd window (counted over the image, B
+    1) gets the mask of the window before it."""
+    from s2sr_tpu_torch.ops import window_attention as wa
+
+    orig = wa.mask_type_index
+
+    def paired(nh, nw, last=True):
+        types = orig(nh, nw, last).copy()
+        types[1::2] = types[0::2][:len(types[1::2])]
+        return types
+
+    wa.mask_type_index = paired
+    try:
+        return ref(x, t)
+    finally:
+        wa.mask_type_index = orig
+
+
+def swin_windows_apart(fn, t_of_shift) -> dict:
+    """Values apart between the windows of an odd-count map (1, 24, 40: 15
+    windows, the last block's second consumer computing the last window
+    again) and the same windows inside an even-count map (1, 24, 48,
+    unshifted: its first 40 columns), and inside a B = 2 batch whose
+    windows pair across the images (both shifts)."""
+    import torch
+
+    out = {}
+    for shift in (0, 4):
+        t = t_of_shift(shift)
+        g = torch.Generator().manual_seed(11 + shift)
+        wide = (torch.randn(1, 24, 48, 180, generator=g) * 0.05).to(
+            torch.bfloat16).cuda()
+        odd = wide[:, :, :40].contiguous()
+        got = fn(odd, t)
+        pair = fn(torch.cat([odd, wide[:, :, 8:]], 0).contiguous(), t)
+        out[f"b2_shift{shift}"] = int((got != pair[:1]).sum().item())
+        if shift == 0:
+            even = fn(wide, t)[:, :, :40]
+            out["even_map_shift0"] = int((got != even).sum().item())
+    return out
+
+
 def swin_bound_ms(name: str, shape, dtype) -> tuple:
     """Least time for one launch on the H100: the larger of its FLOPs at
     the dtype's dense peak and its bytes (x and out once, the weights,
@@ -4726,18 +4791,38 @@ def phase_swin_kernel(state):
     # bf16 version sits 0.006 of the change from the fp32 one on the
     # CPU). Each case also holds the kernel further than the tolerance
     # from the plain version with each planted fault (0.45–1.03 of the
-    # change on the CPU at (1, 24, 32); the head swap 0.63–0.87).
+    # change on the CPU at (1, 24, 32); the head swap 0.63–0.87), and the
+    # served bf16 kernel, where a shift masks, from a pairing fault (a
+    # block's second window given its partner's mask type; B 1 grids).
+    # The mma.sync design (swin_mma, served by nothing) is held at the
+    # same tolerance.
     tol = {torch.float32: 1e-4, torch.bfloat16: 0.05}
     grids = [(1, 24, 32), (2, 40, 72), (1, 512, 512)]
-    launches0 = dict(wa.LAUNCHES)
+    launches0 = dict(wa.LAUNCHES), dict(wa.LAUNCHES_MMA)
     failures = []
-    worst = {}
+    worst, worst_mma = {}, {}
     t0 = time.perf_counter()
     sass = sass_counts(_build.lib_path("window_attention"))
     emit({"phase": "swin_kernel", "sass": sass})
-    tc = [c for k, c in sass.items() if "swin_tc_kernel" in k]
+    # the served bf16 instances (swin_wg_kernel<MLP>) and the never-served
+    # one on wgmma (HGMMA) alone; the mma.sync design on HMMA
+    wg = [c for k, c in sass.items() if SWIN_SERVED_WG in k]
+    nl = [c for k, c in sass.items() if SWIN_NO_L2 in k]
+    tc = [c for k, c in sass.items() if SWIN_MMA in k]
+    if (len(wg) != 2 or len(nl) != 1
+            or any(c["HGMMA"] == 0 or c["HMMA"] for c in wg + nl)):
+        raise AssertionError(f"a served bf16 Swin kernel is not HGMMA alone: {sass}")
     if len(tc) != 2 or any(c["HMMA"] == 0 for c in tc):
-        raise AssertionError(f"a bf16 Swin kernel issues no HMMA: {sass}")
+        raise AssertionError(f"swin_mma's kernels issue no HMMA: {sass}")
+    smem = (wa.kernel_tiling(torch.bfloat16, True)["smem_bytes"],
+            wa.wg_smem_plan()["total"])
+    emit({"phase": "swin_kernel", "kernel": "swin_wg_kernel",
+          "sass": wg, "sass_no_l2": nl[0], "smem_bytes_vs_plan": smem,
+          "ptxas": {k: v for k, v in state.get("ptxas", {})
+                    .get("window_attention", {}).items() if "swin_wg" in k}})
+    if smem[0] != smem[1]:
+        raise AssertionError(f"swin_wg_kernel's shared memory differs from "
+                             f"its plan: {smem}")
     for name, (fn, ref, mlp) in swin_kernels().items():
         for dtype in (torch.float32, torch.bfloat16):
             tiling = wa.kernel_tiling(dtype, mlp)
@@ -4751,36 +4836,64 @@ def phase_swin_kernel(state):
                     want32 = ref(x.float(), t32)
                     change = ((want32 - x.float()) if mlp else want32) \
                         .abs().max().item()
-                    err = (got - ref(x, t).float()).abs().max().item()
+                    plain = ref(x, t).float()
+                    err = (got - plain).abs().max().item()
                     rel = err / change
                     faults = {k: (got - ref(x, f).float()).abs().max().item()
                               / change
                               for k, f in swin_faults(t, mlp).items()}
+                    bf16 = dtype == torch.bfloat16
+                    if bf16 and shift and grid[0] == 1:
+                        faults["pairing"] = (got - paired_mask_reference(
+                            ref, x, t).float()).abs().max().item() / change
                     finite = bool(torch.isfinite(got).all().item())
-                    emit({"phase": "swin_kernel", "kernel": name,
-                          "dtype": str(dtype), "shape": [*grid, 180],
-                          "shift": shift, "max_abs_err": err,
-                          "max_change": change, "rel_err": rel,
-                          "tolerance": tol[dtype],
-                          "rel_err_vs_planted_fault": faults,
-                          "finite": finite})
+                    rec = {"phase": "swin_kernel", "kernel": name,
+                           "dtype": str(dtype), "shape": [*grid, 180],
+                           "shift": shift, "max_abs_err": err,
+                           "max_change": change, "rel_err": rel,
+                           "tolerance": tol[dtype],
+                           "rel_err_vs_planted_fault": faults,
+                           "finite": finite}
                     case = f"{name} {dtype} {grid} shift {shift}"
+                    if bf16:
+                        mma = fn(x, t, design="mma").float()
+                        err_mma = (mma - plain).abs().max().item()
+                        rec["mma_rel_err"] = err_mma / change
+                        rec["rel_apart_from_mma"] = ((got - mma).abs().max()
+                                                     .item() / change)
+                        if not err_mma / change <= tol[dtype]:
+                            failures.append(f"{case} mma: rel err "
+                                            f"{err_mma / change}")
+                        a, r = worst_mma.get(name, (0.0, 0.0))
+                        worst_mma[name] = (max(a, err_mma),
+                                           max(r, err_mma / change))
+                        a, r = worst.get(name, (0.0, 0.0))
+                        worst[name] = (max(a, err), max(r, rel))
+                    emit(rec)
                     if not finite or not rel <= tol[dtype]:
                         failures.append(f"{case}: rel err {rel} over "
                                         f"{tol[dtype]}")
                     if not min(faults.values()) > tol[dtype]:
                         failures.append(f"{case}: a planted fault is within "
                                         f"tolerance {faults}")
-                    if dtype == torch.bfloat16:
-                        a, r = worst.get(name, (0.0, 0.0))
-                        worst[name] = (max(a, err), max(r, rel))
-                    del x, t, t32, got, want32
+                    del x, t, t32, got, want32, plain
                     torch.cuda.empty_cache()
+        # a window's bytes whatever its block and partner
+        tables = {k: swin_inputs((1, 8, 8), torch.bfloat16, k)[1]
+                  for k in (0, 4)}
+        apart = swin_windows_apart(fn, tables.get)
+        emit({"phase": "swin_kernel", "kernel": name,
+              "check": "odd-count windows vs even-count map and B = 2",
+              "values_apart": apart})
+        if any(apart.values()):
+            failures.append(f"{name}: windows differ by pairing: {apart}")
     # comparison launches are not main-path launches
-    wa.LAUNCHES.update(launches0)
+    wa.LAUNCHES.update(launches0[0])
+    wa.LAUNCHES_MMA.update(launches0[1])
     if failures:
         raise AssertionError("swin kernels vs plain:\n" + "\n".join(failures))
     state["swin_err"] = worst
+    state["swin_mma_err"] = worst_mma
     emit({"phase": "swin_kernel", "seconds": round(time.perf_counter() - t0, 3)})
 
 
@@ -5161,10 +5274,13 @@ def l2_copy_rate() -> float:
     return 2 * src.numel() * 2 / (ms * 1e-3)
 
 
-def swin_l2_bytes(name: str, shape, dtype) -> int:
-    """Bytes a launch reads from L2 for its tables, per window: the
-    matrices as the kernel reads them (bf16 fragments with K padded; the
-    fp32 matrices), the bias of every head and the window's mask."""
+def swin_l2_bytes(name: str, shape, dtype, design: str = "served") -> int:
+    """Bytes a launch reads from L2 for its tables. The served bf16 kernel:
+    per block of two windows, its B slabs (48 for swin_block, 24 for
+    window_attention; no_l2: the first 6) and the compact bias table. The
+    mma.sync design and fp32, per window: the matrices as the kernel reads
+    them (bf16 fragments with K padded; the fp32 matrices), the bias of
+    every head and the window's mask."""
     import numpy as np
     import torch
 
@@ -5172,12 +5288,100 @@ def swin_l2_bytes(name: str, shape, dtype) -> int:
 
     bsz, h, w = shape
     windows = bsz * (h // 8) * (w // 8)
+    if dtype == torch.bfloat16 and design != "mma":
+        slabs = (wa.RING_SLOTS if design == "no_l2"
+                 else len(wa.wg_slab_plan()) // (1 if name == "swin_block" else 2))
+        return -(-windows // 2) * (slabs * wa.RING_SLOT_BYTES
+                                   + wa.wg_smem_plan()["table"])
     keys = ("wqkv", "wo") + (("w1", "w2") if name == "swin_block" else ())
     if dtype == torch.bfloat16:
         mats = sum(int(np.prod(wa._MMA_SHAPES[k + "_mma"])) * 2 for k in keys)
     else:
         mats = sum(int(np.prod(wa._TABLE_SHAPES[k])) * 4 for k in keys)
     return windows * (mats + (6 + 1) * 64 * 64 * 4)
+
+
+def swin_phase_clocks(card: str, ms: dict) -> dict:
+    """The served bf16 kernel's time by phase: the copy built with its
+    phase clocks (SWIN_STAMPS) launched at (1, 512, 512) bf16 on both
+    shifts, the clocks of every window pair's first consumer read back;
+    per phase the median cycles of a pair, and its share of the pair
+    applied to the served kernel's ms in turns (``ms``: name → ms)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.ops import _build
+
+    _build.build("window_attention", SWIN_STAMPS)
+    lib = ctypes.CDLL(str(_build.lib_path("window_attention", SWIN_STAMPS)))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.s2sr_swin_wg_forward.argtypes = [vp] * 12 + [ci] * 7 + [vp]
+    lib.s2sr_swin_wg_forward.restype = ci
+    lib.s2sr_swin_wg_stamps.argtypes = [vp, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+    lib.s2sr_swin_wg_stamps.restype = ci
+    npairs, nst = ci(), ci()
+    if lib.s2sr_swin_wg_stamps(None, ctypes.byref(npairs), ctypes.byref(nst)):
+        raise AssertionError("the stamped Swin library has no phase clocks")
+    out = {}
+    for name, (_, _, mlp) in swin_kernels().items():
+        per = []
+        for shift in (0, 4):
+            x, t, _ = swin_inputs((1, 512, 512), torch.bfloat16, shift)
+            y = torch.empty_like(x)
+            for _ in range(2):
+                rc = lib.s2sr_swin_wg_forward(
+                    x.data_ptr(), y.data_ptr(),
+                    *(t[k].data_ptr() for k in ("g1", "b1", "bqkv", "bo", "bias_table",
+                                                "g2", "b2", "bf1", "bf2", "wg_slabs")),
+                    1, 512, 512, shift, int(mlp), 0, 0,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise AssertionError(f"stamped {name}: CUDA error {rc}")
+            torch.cuda.synchronize()
+            buf = np.zeros((npairs.value, 2, nst.value), np.int64)
+            if lib.s2sr_swin_wg_stamps(ctypes.c_void_p(buf.ctypes.data),
+                                       ctypes.byref(npairs), ctypes.byref(nst)):
+                raise AssertionError("reading the Swin phase clocks failed")
+            c = buf[:2048, 0]                       # (1, 512, 512): 2048 pairs
+            st = SWIN_ST
+
+            def span(a_, b_):
+                return c[:, b_] - c[:, a_]
+            ph = {"ln1": span(st["start"], st["ln1"]),
+                  "attention": span(st["ln1"], st["attn"]),
+                  "proj": span(st["attn"], st["proj"])}
+            if mlp:
+                fc1 = gelu = fc2 = 0
+                prev = st["ln2"]
+                for h in range(2):
+                    for q in range(2):
+                        f, g_ = st["fc1"] + 2 * (2 * h + q), st["gelu"] + 2 * (2 * h + q)
+                        fc1, gelu = fc1 + span(prev, f), gelu + span(f, g_)
+                        prev = g_
+                    fc2 = fc2 + span(prev, st["fc2"] + h)
+                    prev = st["fc2"] + h
+                ph.update({"ln2": span(st["proj"], st["ln2"]), "fc1": fc1,
+                           "gelu": gelu, "fc2": fc2,
+                           "to_out": span(prev, st["out"])})
+            else:
+                ph["to_out"] = span(st["proj"], st["out"])
+            ph["store"] = span(st["out"], st["end"])
+            total = span(st["start"], st["end"])
+            ghz = float(np.median(total / np.maximum(
+                c[:, st["t1"]] - c[:, st["t0"]], 1)))
+            per.append({k: float(np.median(v)) for k, v in ph.items()}
+                       | {"pair": float(np.median(total)), "ghz": ghz})
+        med = {k: sum(p[k] for p in per) / 2 for k in per[0]}
+        share = {k: v / med["pair"] for k, v in med.items()
+                 if k not in ("pair", "ghz")}
+        out[name] = {"cycles_a_pair": med, "share_of_pair": share,
+                     "ms_by_phase": {k: v * ms[name] for k, v in share.items()}}
+        emit({"phase": "swin_numbers", "card": card, "kernel": name,
+              "clocks": "phase clocks of swin_wg_kernel, median of 2048 "
+                        "window pairs, shifts 0 and 4", **out[name]})
+    return out
 
 
 def phase_swin_numbers(state):
@@ -5195,38 +5399,87 @@ def phase_swin_numbers(state):
     l2_rate = l2_copy_rate()
     emit({"phase": "swin_numbers", "card": card,
           "l2_bytes_per_s_copy_8MiB": l2_rate})
-    numbers = {}
+    numbers, mma_numbers, no_l2, executed_ms = {}, {}, {}, {}
+    counts0 = dict(wa.LAUNCHES_MMA), dict(wa.LAUNCHES_NO_L2)
+    for key in wa.LAUNCHES_MMA:
+        wa.LAUNCHES_MMA[key] = 0
+    wa.LAUNCHES_NO_L2["swin_block"] = 0
+    tokens = int(np.prod(shape))
     for name, (fn, ref, mlp) in swin_kernels().items():
+        # the served kernel, the mma.sync design and (swin_block) the
+        # no_l2 instance in turns, 10 launches a turn: served, mma, no_l2,
+        # no_l2, mma, served; the lower of each one's two, both shifts
+        designs = ("served", "mma", "no_l2") if mlp else ("served", "mma")
         per_shift = {}
         for shift in (0, 4):
             x, t, _ = swin_inputs(shape, dtype, shift)
-            per_shift[shift] = (time_cuda(lambda: fn(x, t), iters=10),
-                                time_cuda(lambda: ref(x, t), iters=5))
+            turns = {d: [] for d in designs}
+            for d in designs + designs[::-1]:
+                turns[d].append(time_cuda(lambda: fn(x, t, design=d),
+                                          iters=10))
+            per_shift[shift] = ({d: min(v) for d, v in turns.items()},
+                                time_cuda(lambda: ref(x, t), iters=5), turns)
             del x, t
         # the main path runs both shifts equally often
-        ms = sum(v[0] for v in per_shift.values()) / 2
+        ms = {d: sum(v[0][d] for v in per_shift.values()) / 2 for d in designs}
         plain_ms = sum(v[1] for v in per_shift.values()) / 2
         bound_ms, bound_by = swin_bound_ms(name, shape, dtype)
-        numbers[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by}
-        tiling = wa.kernel_tiling(dtype, mlp)
-        tokens = int(np.prod(shape))
-        l2 = swin_l2_bytes(name, shape, dtype)
-        emit({"phase": "swin_numbers", "card": card, "kernel": name,
-              "shape": [*shape, 180], "dtype": "bfloat16",
-              "ms_by_shift": {s: v[0] for s, v in per_shift.items()},
-              "plain_ms_by_shift": {s: v[1] for s, v in per_shift.items()},
-              **numbers[name],
-              "tflops_useful": SWIN_FLOP_PER_TOKEN[name] * tokens / ms / 1e9,
-              "tflops_executed": 2 * tiling["macs_per_window"] * tokens / 64
-              / ms / 1e9,
-              "blocks_per_sm": tiling["blocks_per_sm"],
-              "smem_bytes": tiling["smem_bytes"],
-              "l2_table_bytes_per_launch": l2,
-              "l2_table_ms_at_copy_rate": l2 / l2_rate * 1e3,
-              "l2_table_bytes_per_s_in_kernel": l2 / (ms * 1e-3)})
+        numbers[name] = {"ms": ms["served"], "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+        mma_numbers[name] = {**numbers[name], "ms": ms["mma"]}
+        tiling = {d: wa.kernel_tiling(dtype, mlp, d) for d in ("served", "mma")}
+        flop = SWIN_FLOP_PER_TOKEN[name] * tokens
+        executed = 2 * tiling["served"]["macs_per_window"] * tokens / 64
+        l2 = {d: swin_l2_bytes(name, shape, dtype, d) for d in designs}
+        rec = {"phase": "swin_numbers", "card": card, "kernel": name,
+               "timing": "in turns", "shape": [*shape, 180],
+               "dtype": "bfloat16",
+               "ms_by_shift": {s_: v[0] for s_, v in per_shift.items()},
+               "turns_by_shift": {s_: v[2] for s_, v in per_shift.items()},
+               "plain_ms_by_shift": {s_: v[1] for s_, v in per_shift.items()},
+               **numbers[name], "ms_by_design": ms,
+               "served_over_mma": ms["served"] / ms["mma"],
+               "served_over_bound": ms["served"] / bound_ms,
+               "tflops_useful": {d: flop / v / 1e9 for d, v in ms.items()},
+               "tflops_executed": {d: executed / v / 1e9 for d, v in ms.items()},
+               "executed_ms_at_peak": executed / PEAK_BF16_FLOPS * 1e3,
+               "blocks_per_sm": {d: v["blocks_per_sm"] for d, v in tiling.items()},
+               "smem_bytes": {d: v["smem_bytes"] for d, v in tiling.items()},
+               "l2_table_bytes_per_launch": l2,
+               "l2_table_ms_at_copy_rate": {d: v / l2_rate * 1e3
+                                            for d, v in l2.items()},
+               "l2_table_bytes_per_s_in_kernel": {d: l2[d] / (ms[d] * 1e-3)
+                                                  for d in designs}}
+        executed_ms[name] = rec["executed_ms_at_peak"]
+        if mlp:
+            no_l2[name] = {**numbers[name], "ms": ms["no_l2"]}
+        emit(rec)
         torch.cuda.empty_cache()
     wa.LAUNCHES.update(launches0)
+    state["swin_design_launches"] = {"mma": dict(wa.LAUNCHES_MMA),
+                                     "no_l2": dict(wa.LAUNCHES_NO_L2)}
+    wa.LAUNCHES_MMA.update(counts0[0])
+    wa.LAUNCHES_NO_L2.update(counts0[1])
+    state["swin_numbers_mma"] = mma_numbers
+    state["swin_numbers_no_l2"] = no_l2["swin_block"]
+    clocks = swin_phase_clocks(card, {k: v["ms"] for k, v in numbers.items()})
+    # swin_block's time above its bound: B's L2 reads past the first six
+    # slabs (served − no_l2); by the phase clocks' shares, the serial phases
+    # the tensor cores wait through (LN1, LN2 with the residual, the GELU
+    # epilogues, the output's store) and the phases that issue products
+    # (attention, proj, fc1, fc2, with their waits and softmax); and the
+    # pads' share of the executed work at peak
+    blk = numbers["swin_block"]
+    by = clocks["swin_block"]["ms_by_phase"]
+    serial = sum(by[k] for k in ("ln1", "ln2", "gelu", "to_out", "store"))
+    emit({"phase": "swin_numbers", "card": card, "kernel": "swin_block",
+          "split_of_time_above_bound_ms": {
+              "above_bound": blk["ms"] - blk["bound_ms"],
+              "l2_reads": blk["ms"] - no_l2["swin_block"]["ms"],
+              "serial_phases": serial,
+              "product_phases": sum(by[k] for k in ("attention", "proj", "fc1",
+                                                    "fc2")),
+              "executed_pads_at_peak": executed_ms["swin_block"] - blk["bound_ms"]}})
     # warm 512² exact enhance_serving
     eng = state.get("swin_engine") or engine_mod.get_engine(
         "swinir_x4", weights_dir=str(state["work"] / "weights"),
@@ -5820,6 +6073,9 @@ MXU_TOL = 2.0 ** -5
 MXU_RECORD = {"matmul_chain": (192, None, "cuda_dot", "torch_dot"),
               "pair_chain": (96, 160, "pair", "torch_pair")}
 MXU_HI = 1024
+# the benchmark's shapes still on mma.sync, reported against cuBLAS
+MXU_MMA_SHAPES = {"matmul_chain": (512, None, "cuda_dot", "torch_dot"),
+                  "pair_chain": (384, 192, "pair", "torch_pair")}
 
 
 def mxu_inputs(m: int, k: int, n, seed: int):
@@ -5975,6 +6231,18 @@ def phase_mxu(state):
               "k": k, "n": n or k, "repeat": MXU_HI,
               "bench_launches": launches[name], **numbers[name]})
         del x, ws
+    # the shapes still on mma.sync (the chain at K 512, the 384×192 pair)
+    # against cuBLAS at repeat 1024, from the benchmark's lines
+    for name, (k, n, kernel_bench, lib_bench) in MXU_MMA_SHAPES.items():
+        line = {ln["bench"]: ln for ln in lines
+                if ln["k"] == k and ln["n"] == (n or k)}
+        emit({"phase": "mxu", "card": card, "kernel": name, "route": "mma.sync",
+              "m": MXU_M, "k": k, "n": n or k, "repeat": MXU_HI,
+              "ms": line[kernel_bench]["ms_hi"],
+              "bound_ms": line[kernel_bench]["bound_ms_hi"],
+              "library_ms": line[lib_bench]["ms_hi"],
+              "over_library": line[kernel_bench]["ms_hi"]
+              / line[lib_bench]["ms_hi"]})
     mc.LAUNCHES.update(launches0)
     state["mxu"] = {"launches": launches, "numbers": numbers, "err": worst}
     emit({"phase": "mxu", "seconds": round(time.perf_counter() - t0, 3)})
@@ -6869,6 +7137,7 @@ def kernels_record(state) -> list | None:
              "max_abs_err": state["rdb_w8a8_max_abs_err"],
              "rel_err": state["rdb_w8a8_rel_err"],
              **state["rdb_w8a8_numbers"], "library_ms": None}]
+    design_launches = state["swin_design_launches"]
     for name in ("swin_block", "window_attention"):
         err, rel = state["swin_err"][name]
         rows.append({"name": name, "route": "cuda",
@@ -6880,6 +7149,23 @@ def kernels_record(state) -> list | None:
                                      if name == "swin_block" else 0)),
                      "max_abs_err": err, "rel_err": rel,
                      **state["swin_numbers"][name], "library_ms": None})
+        # the design it replaced (swin_tc_kernel, mma.sync): launched by
+        # nothing served, timed in turns against it
+        err, rel = state["swin_mma_err"][name]
+        rows.append({"name": f"{name}_mma", "route": "cuda",
+                     "source": "s2sr_tpu_torch/csrc/window_attention.cu",
+                     "replaces": SWIN_REPLACES[name], "instance_of": name,
+                     "launches": design_launches["mma"][name],
+                     "max_abs_err": err, "rel_err": rel,
+                     **state["swin_numbers_mma"][name], "library_ms": None})
+    # the time-attribution instance (no defined output, no plain version)
+    rows.append({"name": "swin_block_no_l2", "route": "cuda",
+                 "source": "s2sr_tpu_torch/csrc/window_attention.cu",
+                 "replaces": SWIN_REPLACES["swin_block"],
+                 "instance_of": "swin_block",
+                 "launches": design_launches["no_l2"]["swin_block"],
+                 "max_abs_err": None, "gated": False,
+                 **state["swin_numbers_no_l2"], "library_ms": None})
     lad = state["ladder"]
     for rung, replaces in LADDER_REPLACES.items():
         err, rel = lad["err"][rung]

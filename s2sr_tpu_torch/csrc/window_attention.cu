@@ -33,13 +33,20 @@
 // (qkv 194,400, proj 64,800, fc1 and fc2 129,600 each, QK^T and PV 23,040
 // each) against 720 bytes per token in bf16 (x read once, out written
 // once): ~780 FLOP per byte, above the H100's ~295 FLOP/byte balance.
-// Both kernels keep everything between x and out in shared memory, so
-// their time is their arithmetic, and stream the ~0.5 MB of weights of a
-// block from L2, which all windows share.
+// The kernels keep everything between x and out on the chip (shared
+// memory, and registers), so their time is their arithmetic, and stream
+// the ~0.5 MB of weights of a block from L2, which all windows share.
 //
-// - bfloat16 (the serving type), swin_tc_kernel below: every product on
-//   the tensor cores (mma.sync.m16n8k16, float32 accumulators), attention
-//   in registers; 111,616 B of shared memory, two blocks per SM.
+// - bfloat16 (the serving type), swin_wg_kernel below: every product on
+//   wgmma (float32 accumulators), two windows a block sharing every B slab,
+//   B streamed by a producer warpgroup through a ring of bulk copies, A by
+//   descriptor or (Q, P) from registers; 225,016 B of shared memory, one
+//   block per SM, each walking window pairs.
+// - bfloat16 on mma.sync, swin_tc_kernel: the design swin_wg_kernel
+//   replaced (every warp loads its own B fragments from L2; 111,616 B, two
+//   blocks per SM). Served by nothing: the timing baseline swin_mma
+//   (ops/window_attention.py, design="mma"), kept so that one call times
+//   both designs.
 // - float32, swin_kernel: float32 FMA on the CUDA cores (the tensor cores
 //   would make it TF32), one 256-thread block per window. Shared memory
 //   (float32, 225,152 bytes, one block per SM):
@@ -205,6 +212,14 @@ __device__ __forceinline__ void layer_norm(const float* __restrict__ src,
   }
 }
 
+// GELU's tanh form with the hardware's tanh.approx.f32 (relative error
+// under 2^-10.9, a quarter of a bf16 step): the served bf16 kernel's
+__device__ __forceinline__ float gelu_approx(float h) {
+  const float u = 0.7978845608028654f * (h + 0.044715f * h * h * h);
+  float th;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(u));
+  return 0.5f * h * (1.f + th);
+}
 template <typename T> __device__ __forceinline__ float gelu(float h);
 template <> __device__ __forceinline__ float gelu<float>(float h) {
   return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
@@ -805,6 +820,1015 @@ swin_tc_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ 
   }
 }
 
+// --- bf16 on wgmma: swin_wg_kernel, the served bf16 kernel ------------------
+//
+// The design of csrc/rdb.cu's wgmma kernels (rdb_wg_kernel: a producer
+// warpgroup streaming B through a ring of bulk copies, consumer warpgroups
+// issuing wgmma), shaped for a window. The TPU kernel holds a block's
+// weights in VMEM once for 8 window pairs a grid step; swin_tc_kernel runs a
+// window a block, so every window re-reads its 589,824 bytes of B fragments
+// and 114,688 bytes of dense bias and mask from L2 (2.89 GB a launch at
+// (1, 512, 512), as chip_smoke.py::swin_l2_bytes counts them). Here a block
+// runs two windows, one on each of two consumer warpgroups (64 tokens: one
+// wgmma M tile), and both read every B slab the producer brings in: half
+// the L2 reads of the weights. A block walks the window pairs blockIdx.x,
+// + gridDim.x, ... (one block an SM), so that the next pair's x is copied
+// into shared memory while the current pair runs.
+//
+// B. The wrapper packs each matrix once (ops/window_attention.py::
+// pack_wg_slabs) as slabs of 96 rows x 128 bytes (12,288 B) in wgmma's
+// K-major layout with the 128-byte swizzle: row n is output column n0 + n,
+// its 64 K values in 16-byte chunks, chunk c at c ^ (n % 8), 8-row groups
+// 1024 bytes apart. A slab is one 64-wide K block of 96 columns of one
+// product; the stream is in the order the consumers read it: qkv of heads
+// 0..5 (3 K blocks of the head's [q|k|v] each), proj (per K block columns
+// 0..95, 96..191), then per half h of the hidden fc1's quarters 2h and
+// 2h + 1 (3 K blocks each) and fc2 over the half's 192 hidden rows (per K
+// block two column halves): 48 slabs, the first 24 window_attention's. One
+// thread of the producer warpgroup streams them, pair after pair, with
+// cp.async.bulk into a ring of 6 slots, each completing on its slot's full
+// mbarrier; all 256 consumer threads arrive on the slot's empty mbarrier
+// once their wgmmas on it have completed. No consumer loads B. Every big
+// product is m64n96k16 (one shape), 12 k-steps of one or two wgmmas, a
+// k-step's B at slot + (k % 4) * 32.
+//
+// A. LN1, LN2, the head outputs O and the GELU'd hidden H are written by
+// the consumers themselves, straight into the same K-major 128-byte-swizzle
+// layout (64 rows, three 8,192-byte K blocks), and read by descriptor: no
+// tap shifts here, so the descriptor route that rdb_wg_kernel rejected
+// fits. Each shared store is followed by fence.proxy.async before the
+// warpgroup's named barrier, so that wgmma (the async proxy) sees it.
+//
+// Attention in registers (FlashAttention-3's route), a head at a time. The
+// qkv accumulator of a head is rounded to bf16 with its bias: q becomes the
+// A fragments of S = Q K^T (a wgmma A register fragment is mma.sync's
+// m16k16 A fragment, and two n8 tiles of the accumulator are one), k and v
+// go to shared memory. S is m64n64k16 with B = K, K-major 128-byte swizzle,
+// a key a row holding two heads ([k of an even head | k of an odd one],
+// 128 bytes; an odd head's k-steps start 64 bytes in). Scores + bias + mask
+// and the exact full-row softmax work on the accumulator (a row lives in
+// one quad), P rounded to bf16 is the A of O = P V, m64n32k16, B = V
+// MN-major (the transpose bit) with the 64-byte swizzle: V of a head is 64
+// keys x 64 bytes, chunk c of key k at c ^ ((k >> 1) & 3), 8-key groups 512
+// bytes apart. Head h + 1's qkv (12 wgmmas behind one fence, one commit
+// group, its 3 slabs held until it completes) is issued behind head h's S;
+// the ring's other three slots take head h + 2's slabs meanwhile.
+//
+// Bias and mask. The bias is the compact (225, 6) table (5,400 B), staged
+// once a block, read at the tokens' relative offset ((yi - yj + 7) * 15 +
+// xi - xj + 7, ops/window_attention.py::relative_position_index); the mask
+// is its 0/-100 rule: in a window of the last window row, tokens on the two
+// sides of row 8 - shift are apart, in the last column those of column
+// 8 - shift. Both give the floats of build_block_tables' bias and masks.
+//
+// x, y and the output. x of a window is copied raw (cp.async, 8-byte
+// pieces: a token is 360 bytes, 8-byte aligned) into shared memory during
+// the pair before (over K and V, which are free after attention, and a
+// tail), and LN1 reads it there, four rows' reductions interleaved a warp.
+// y, the residual stream, lives in the consumers' accumulator registers
+// from proj on (96 floats a thread for 64 x 192): x for the residual is
+// copied into the LN buffer while proj runs, LN2's row statistics come
+// from quad shuffles, and fc2 accumulates straight into y. The output is
+// staged in the LN buffer and written a token row at a time.
+//
+// Shared memory (bytes, from a 1024-aligned base; wg_smem_plan):
+//   ring      0        6 slots x 12,288                          73,728
+//   window w  73,728 + 65,536 w (w = 0, 1):
+//     LN      +0       LN1, then the residual's x, LN2, the out  24,576
+//     O       +24,576  the head outputs O, then H               24,576
+//     K       +49,152  K of two heads (even | odd), 128 B a key   8,192
+//     V       +57,344  V of an even head, then of an odd one     8,192
+//                      (K and V: the next x's tokens 0..44 after attention)
+//   x tails   204,800  the next x's tokens 45..63, 6,848 a window 13,696
+//   table     218,496  the bias table, [head][225] float32        5,400
+//   barriers  223,896  a full and an empty mbarrier a slot          96
+// 223,992 + up to 1,024 to align = 225,016 of the block's 232,448. Keeping
+// y in shared memory instead (46,080 B a window) would leave no room for
+// the ring; a seventh slot would make 237,304.
+//
+// Registers. ptxas allocates every thread the launch's 168 (65,536 / 384),
+// whatever setmaxnreg grants at run time: y and a 96-column accumulator
+// (192) spilled. So a slab is 96 columns wide and fc1 runs a quarter of
+// the hidden at a time (y 96 + 48). Values the compiler would otherwise
+// keep live across a product or the pair loop, and spill, are recomputed
+// where they are used: the thread index (tidx), the bias vectors (ld2), and
+// y - mean in LN2 (fence_acc).
+//
+// Contracts. Every window sums the same slabs in the same order with the
+// same wgmma shapes, whichever consumer, block or partner computes it; an
+// odd window count leaves the last pair's second consumer a valid window to
+// compute again (the last one), whose stores it drops, so that no branch on
+// the warpgroup surrounds a wgmma. Windows pair across images when B > 1.
+// The shift roll (and hshift, last_wy for sp bands) is folded into the
+// addressing as in swin_tc_kernel; each consumer takes its own window's
+// mask type.
+//
+// Numerics as swin_tc_kernel's (this file's head), but the order of two
+// float32 sums: y = (x + proj) + bo and out = (y + fc2) + bf2, fc2's
+// products added into y as they come; and three float32 functions taken
+// from the hardware: the softmax's exp by ex2.approx (__expf), its
+// division as one reciprocal a row, GELU's tanh by tanh.approx.f32. Each
+// errs by well under a bf16 step of the value it feeds (P, H), and the
+// first two keep masked rows off the IEEE division's slow path.
+//
+// 384 threads, one block an SM; setmaxnreg gives the consumers 240
+// registers a thread and the producer 24.
+//
+// The instance swin_wg_no_l2_kernel (never served) splits the time: its
+// producer copies the first six slabs and then only re-arms each slot's
+// full barrier, so the consumers run every product, in the same order, on
+// whatever their slot holds, and no B comes from L2 after the first six.
+// Its output has no defined value; every product still feeds it, so ptxas
+// keeps them all.
+
+constexpr int WG_WIN = 2;                      // consumer warpgroups a block
+constexpr int WG_THREADS = WG_WIN * 128 + 128;  // and a producer warpgroup
+constexpr int WG_NBUF = 6;
+constexpr int SLAB_N = 96;                     // columns of a slab
+constexpr int WG_SLAB = SLAB_N * 128;          // 96 rows x 128 bytes
+constexpr int KBLK = N * 128;                  // a 64-row A buffer's K block
+constexpr int ATTN_SLABS = 6 * (HEADS / 2) + 6;
+constexpr int BLOCK_SLABS = ATTN_SLABS + 24;
+constexpr int TABLE = (2 * WIN - 1) * (2 * WIN - 1);
+constexpr int W_LN = 0, W_O = 3 * KBLK, W_K = 6 * KBLK, W_V = 7 * KBLK;
+constexpr int W_BYTES = 8 * KBLK;
+constexpr int WO_WIN = WG_NBUF * WG_SLAB;
+// the next window's x staged raw, 360 bytes a token: tokens 0..44 over K
+// and V, 45..63 in a tail of their own
+constexpr int X_ROW = 2 * C;
+constexpr int X_IN_KV = (2 * KBLK) / X_ROW;
+constexpr int X_TAIL = ((N - X_IN_KV) * X_ROW + 15) / 16 * 16;
+constexpr int WO_XT = WO_WIN + WG_WIN * W_BYTES;
+constexpr int WO_TABLE = WO_XT + WG_WIN * X_TAIL;
+constexpr int WO_BAR = WO_TABLE + HEADS * TABLE * 4;
+constexpr int WG_SMEM = 1024 + WO_BAR + 2 * WG_NBUF * 8;
+static_assert(X_IN_KV == 45 && X_TAIL == 6848, "the staging split as noted");
+static_assert(WO_WIN == 73728 && WO_TABLE == 218496 && WO_BAR == 223896 &&
+              WG_SMEM == 225016, "shared memory as the note counts it");
+static_assert(WG_SMEM <= 232448, "over the 227 KB a block may opt into");
+static_assert(WO_BAR % 8 == 0, "mbarriers 8-byte aligned");
+
+enum WgVariant : int { WG_SERVED = 0, WG_NO_L2 = 1 };
+
+struct SwinArgs {
+  const __nv_bfloat16* x;
+  __nv_bfloat16* out;
+  const float *g1, *b1, *bqkv, *bo, *table, *g2, *b2, *bf1, *bf2;
+  const unsigned char* slabs;
+  int H, W, shift, hshift, last_wy, windows;
+};
+
+// byte offset of bf16 element (row, col) of a K-major 128-byte-swizzle
+// buffer (rows of 128 bytes, col < 64) and of an MN-major 64-byte-swizzle
+// one (rows of 64 bytes, col < 32), from a 1024-aligned base
+__device__ __forceinline__ uint32_t sw128(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+__device__ __forceinline__ uint32_t sw64(int row, int col) {
+  return row * 64 + ((((col >> 3) ^ (row >> 1)) & 3) << 4) + (col & 7) * 2;
+}
+
+// Descriptors: K-major, 128-byte swizzle (8-row groups 1024 bytes apart, the
+// leading offset unused by the layout); MN-major, 64-byte swizzle (8-row
+// groups along K 512 bytes apart, one 32-column atom along N)
+__device__ __forceinline__ uint64_t desc_k128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ uint64_t desc_mn64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)32 << 32) | ((uint64_t)2 << 62);
+}
+
+// wgmma.mma_async, float32 sums from bf16, d += A B: A by descriptor
+// (m64n96k16) or from registers (m64n64k16; m64n32k16 with B MN-major)
+__device__ __forceinline__ void wg_ss96(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wg_rs64(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wg_rs32t(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+// Orders the accumulators around the wgmmas for the compiler, which sees no
+// register operand on the fence or the wait (CUTLASS's
+// warpgroup_fence_operand).
+template <int NA>
+__device__ __forceinline__ void fence_acc(float (&d)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int NA>
+__device__ __forceinline__ void zero(float (&d)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) d[i] = 0.f;
+}
+// the consumers' own shared stores made visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// the 128 threads of consumer warpgroup wg (named barrier 1 + wg)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// Waits for the phase of parity `parity` of the mbarrier at `bar`, polling
+// inside one asm block; a wait of 2^33 clocks (seconds) traps, so that a
+// fault in the ring's bookkeeping ends the launch with an error instead of
+// hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile("{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+               "mov.u64 t0, %%clock64;\n"
+               "WAIT:\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+               "@p bra DONE;\n"
+               "mov.u64 t1, %%clock64;\n"
+               "sub.u64 t1, t1, t0;\n"
+               "setp.lt.u64 p, t1, 8589934592;\n"
+               "@p bra WAIT;\n"
+               "trap;\n"
+               "DONE:\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+// The B ring: WG_NBUF slots of WG_SLAB bytes from 1024-aligned `slots`, a
+// full and an empty mbarrier a slot. A consumer numbers the slabs of its
+// current window pair from 0; `base` is the ring's count of the slabs
+// before them (the pairs the block ran before, BLOCK_SLABS or ATTN_SLABS
+// each, multiples of WG_NBUF).
+struct WgRing {
+  uint32_t slots, full, empty;
+  int base;
+};
+
+__device__ __forceinline__ void slab_wait(const WgRing& r, int g) {
+  g += r.base;
+  mbar_wait(r.full + 8 * (g % WG_NBUF), (uint32_t)(g / WG_NBUF) & 1);
+}
+// this thread's wgmmas on slab g have completed
+__device__ __forceinline__ void slab_release(const WgRing& r, int g) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(r.empty + 8 * ((g + r.base) % WG_NBUF)) : "memory");
+}
+// the shared address of slab g's slot
+__device__ __forceinline__ uint32_t slab_addr(const WgRing& r, int g) {
+  return r.slots + (uint32_t)((g + r.base) % WG_NBUF) * WG_SLAB;
+}
+
+// The producer's thread: the stream's n slabs once for each of the block's
+// `pairs` window pairs, every slab in order, each into its slot once the
+// consumers have released the slab WG_NBUF before it. WG_NO_L2 copies the
+// first WG_NBUF and then re-arms the full barrier without a copy.
+template <int V>
+__device__ __forceinline__ void wg_produce(const WgRing& r, const unsigned char* slabs,
+                                           int n, int pairs) {
+  for (int g = 0; g < n * pairs; ++g) {
+    const uint32_t slot = (uint32_t)(g % WG_NBUF);
+    const uint32_t bar = r.full + 8 * slot;
+    if (g >= WG_NBUF) mbar_wait(r.empty + 8 * slot, (uint32_t)(g / WG_NBUF - 1) & 1);
+    if (V == WG_NO_L2 && g >= WG_NBUF) {
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+      continue;
+    }
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(WG_SLAB) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1], %2, [%3];\n"
+                 ::"r"(r.slots + slot * WG_SLAB), "l"(slabs + (size_t)(g % n) * WG_SLAB),
+                   "r"(WG_SLAB), "r"(bar) : "memory");
+  }
+}
+
+// acc += A B over one product of 96 NS columns: A the 64 x 192 buffer at
+// `abuf` (three K blocks), B the slabs from global index g0, NS a K block
+// (the accumulator's columns 96 s.. from slab g0 + NS kb + s). Per k-step
+// NS wgmmas, committed, then wait_group 1, so that a step runs while the
+// next is issued; the step before has then completed, and the slabs of a K
+// block whose last step it was are released. Fully unrolled: no loop is
+// entered with sums in flight. The accumulators of the NS slabs side by
+// side are the m64n(96 NS) layout: element 4j + e, n8 tile j.
+template <int NS>
+__device__ __forceinline__ void wg_gemm(float (&acc)[48 * NS], uint32_t abuf,
+                                        const WgRing& r, int g0) {
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    const int g = g0 + NS * (k / 4);
+    if (k % 4 == 0)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) slab_wait(r, g + s);
+    // every input of the wgmmas defined before the fence (ptxas C7513)
+    uint64_t da = desc_k128(abuf + (k / 4) * KBLK + (k % 4) * 32);
+    uint64_t db[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      db[s] = desc_k128(slab_addr(r, g + s) + (k % 4) * 32);
+      asm volatile("" : "+l"(db[s])::"memory");
+    }
+    asm volatile("" : "+l"(da)::"memory");
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < NS; ++s) wg_ss96(acc + 48 * s, da, db[s]);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (k % 4 == 0 && k > 0)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) slab_release(r, g - NS + s);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) slab_release(r, g0 + 2 * NS + s);
+}
+
+// The thread's index, read where it is used: every per-thread address of
+// the consumers derives from it, and the compiler would otherwise hoist
+// them (hundreds, all the same for every window pair) out of the block's
+// loop over pairs and spill them
+__device__ __forceinline__ int tidx() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(v));
+  return v;
+}
+
+// Phase clocks, compiled only with -DS2SR_SWIN_STAMPS (chip_smoke.py's
+// phase swin_numbers builds such a copy): clock64 at a window's phase
+// boundaries (enum WgStamp) by the first thread of each consumer, and the
+// global timer at its start and end, for window pairs 0..STAMP_PAIRS - 1,
+// read back by s2sr_swin_wg_stamps. Without the macro WG_STAMP is nothing.
+enum WgStamp : int {
+  ST_START = 0, ST_LN1 = 1, ST_ATTN = 2, ST_PROJ = 3, ST_LN2 = 4,
+  ST_FC1 = 5,      // + 2 (2h + q): fc1 quarter q of half h done
+  ST_GELU = 6,     // + 2 (2h + q): its GELU stored
+  ST_FC2 = 13,     // + h
+  ST_OUT = 15, ST_END = 16, ST_T0 = 17, ST_T1 = 18, STAMPS = 19
+};
+#ifdef S2SR_SWIN_STAMPS
+constexpr int STAMP_PAIRS = 4096;
+__device__ long long g_stamps[STAMP_PAIRS][2][STAMPS];
+__device__ __forceinline__ void wg_stamp(int pair, int k) {
+  if ((tidx() & 127) == 0 && pair < STAMP_PAIRS) {
+    long long v;
+    if (k >= ST_T0) asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(v));
+    else asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(v));
+    g_stamps[pair][tidx() >> 7][k] = v;
+  }
+}
+#define WG_STAMP(pair, k) wg_stamp(pair, k)
+#else
+#define WG_STAMP(pair, k) \
+  do {                    \
+  } while (0)
+#endif
+
+// two consecutive float32 of a vector, col even (8-byte aligned), read
+// where it stands: an asm volatile load is not hoisted above the wgmmas
+// and waits before it, where the compiler would hold it in registers
+// across a product (and spill)
+__device__ __forceinline__ float2 ld2(const float* p) {
+  float2 v;
+  asm volatile("ld.global.nc.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "l"(p));
+  return v;
+}
+
+// warp_sum of four values at once, their shuffles interleaved
+__device__ __forceinline__ void warp_sum4(float (&v)[4]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] += __shfl_xor_sync(0xffffffffu, v[u], o);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// acc += A B over one product of 96 columns, issued at once: its three
+// slabs from g0 waited for, 12 wgmmas into acc behind one fence (wgmmas on
+// the same accumulator need none between them; a fence before each waits
+// for the one before), one commit group. The caller waits for the group,
+// then releases the slabs (slabs_release), so that work on other
+// registers runs meanwhile.
+__device__ __forceinline__ void wg_issue(float (&acc)[48], uint32_t abuf, const WgRing& r,
+                                         int g0) {
+#pragma unroll
+  for (int s = 0; s < 3; ++s) slab_wait(r, g0 + s);
+  uint64_t da[12], db[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    da[k] = desc_k128(abuf + (k / 4) * KBLK + (k % 4) * 32);
+    db[k] = desc_k128(slab_addr(r, g0 + k / 4) + (k % 4) * 32);
+    asm volatile("" : "+l"(da[k]), "+l"(db[k])::"memory");
+  }
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 12; ++k) wg_ss96(acc, da[k], db[k]);
+  wgmma_commit();
+}
+__device__ __forceinline__ void slabs_release(const WgRing& r, int g0) {
+#pragma unroll
+  for (int s = 0; s < 3; ++s) slab_release(r, g0 + s);
+}
+
+// Head h's qkv accumulator (columns [q|k|v] of 32, n8 tiles 0-3, 4-7,
+// 8-11) + bias, rounded to bf16: q into S's A fragments (n8 tiles 2s,
+// 2s + 1 are k16 slab s), k into K's 64-byte half h % 2 (keys a row), v
+// into V buffer h % 2.
+__device__ __forceinline__ void qkv_epilogue(const float (&acc)[48], const float* bqkv,
+                                             int h, uint32_t kb, uint32_t vb,
+                                             uint32_t (&qa)[2][4]) {
+  const int lane = tidx() & 31, t = lane & 3;
+  const int r0 = 16 * ((tidx() >> 5) & 3) + (lane >> 2), r1 = r0 + 8;
+  const int par = h & 1;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const float2 c = ld2(bqkv + 96 * h + 8 * j + 2 * t);
+    const uint32_t lo = pack2(acc[4 * j] + c.x, acc[4 * j + 1] + c.y);
+    const uint32_t hi = pack2(acc[4 * j + 2] + c.x, acc[4 * j + 3] + c.y);
+    if (j < 4) {
+      qa[j >> 1][2 * (j & 1)] = lo;
+      qa[j >> 1][2 * (j & 1) + 1] = hi;
+    } else if (j < 8) {
+      const int d = 32 * par + 8 * (j - 4) + 2 * t;
+      sts(kb + sw128(r0, d), lo);
+      sts(kb + sw128(r1, d), hi);
+    } else {
+      const int d = 8 * (j - 8) + 2 * t;
+      sts(vb + par * (N * 64) + sw64(r0, d), lo);
+      sts(vb + par * (N * 64) + sw64(r1, d), hi);
+    }
+  }
+}
+
+// Head h: S = q k^T (2 wgmmas, A = q from registers) committed; with NEXT,
+// head h + 1's qkv issued behind it; the scores + bias + mask and the
+// softmax while those run; O = P V (4 wgmmas, A = P); O rounded to bf16
+// into K block h / 2 of O; with NEXT, head h + 1's epilogue.
+template <bool NEXT>
+__device__ __forceinline__ void wg_head(const SwinArgs& a, const WgRing& ring, uint32_t ln,
+                                        uint32_t ob, uint32_t kb, uint32_t vb,
+                                        const float* tb, int h, bool lr, bool lc,
+                                        float (&acc)[48], uint32_t (&qa)[2][4], int wg) {
+  const int warp = (tidx() >> 5) & 3, lane = tidx() & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  const int par = h & 1, shift = a.shift;
+  // S: key tile n holds keys 8n + 2t (+1) of rows r0, r1
+  float sc[32];
+  zero(sc);
+  {
+    uint64_t d0 = desc_k128(kb + 64 * par), d1 = desc_k128(kb + 64 * par + 32);
+    asm volatile("" : "+l"(d0), "+l"(d1)::"memory");
+    fence_acc(sc);
+    wgmma_fence();
+    wg_rs64(sc, qa[0], d0);
+    wg_rs64(sc, qa[1], d1);
+    wgmma_commit();
+  }
+  if constexpr (NEXT) {
+    zero(acc);
+    wg_issue(acc, ln, ring, 3 * (h + 1));
+    wgmma_wait<1>();
+  } else {
+    wgmma_wait<0>();
+  }
+  fence_acc(sc);
+  // + bias + mask (row i = 8 yi + xi: yi = 2 warp + e / 2, xi = g; key
+  // j = 8n + 2t + e % 2: yj = n, xj = 2t + e % 2), then the softmax
+  const float* bias = tb + h * TABLE;
+  const int edge = WIN - shift;
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int yi = 2 * warp + (e >> 1), xi = g, yj = n, xj = 2 * t + (e & 1);
+      float v = sc[4 * n + e] + bias[(yi - yj + WIN - 1) * (2 * WIN - 1) + xi - xj + WIN - 1];
+      if (shift > 0) {
+        const bool apart = (lr && ((yi >= edge) != (yj >= edge))) ||
+                           (lc && ((xi >= edge) != (xj >= edge)));
+        v += apart ? -100.f : 0.f;
+      }
+      sc[4 * n + e] = v;
+      if (e < 2) mx0 = fmaxf(mx0, v);
+      else mx1 = fmaxf(mx1, v);
+    }
+  mx0 = quad_max(mx0);
+  mx1 = quad_max(mx1);
+  // exp by ex2.approx (__expf), the row's sum inverted once: masked terms
+  // are denormal (e^-100), where an IEEE division per term takes its slow
+  // path
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    sc[4 * n] = __expf(sc[4 * n] - mx0);
+    sc[4 * n + 1] = __expf(sc[4 * n + 1] - mx0);
+    sc[4 * n + 2] = __expf(sc[4 * n + 2] - mx1);
+    sc[4 * n + 3] = __expf(sc[4 * n + 3] - mx1);
+    sum0 += sc[4 * n] + sc[4 * n + 1];
+    sum1 += sc[4 * n + 2] + sc[4 * n + 3];
+  }
+  const float inv0 = 1.f / quad_sum(sum0), inv1 = 1.f / quad_sum(sum1);
+  // P rounded to bf16 as PV's A: k16 slab s is key tiles 2s, 2s + 1
+  uint32_t pa[N / 16][4];
+#pragma unroll
+  for (int s = 0; s < N / 16; ++s) {
+    pa[s][0] = pack2(sc[8 * s] * inv0, sc[8 * s + 1] * inv0);
+    pa[s][1] = pack2(sc[8 * s + 2] * inv1, sc[8 * s + 3] * inv1);
+    pa[s][2] = pack2(sc[8 * s + 4] * inv0, sc[8 * s + 5] * inv0);
+    pa[s][3] = pack2(sc[8 * s + 6] * inv1, sc[8 * s + 7] * inv1);
+  }
+  // O = P V: B = V (keys 16s.. at 1024 s), MN-major
+  float oa[16];
+  zero(oa);
+  {
+    uint64_t dv[N / 16];
+#pragma unroll
+    for (int s = 0; s < N / 16; ++s) dv[s] = desc_mn64(vb + par * (N * 64) + s * 1024);
+    asm volatile("" : "+l"(dv[0]), "+l"(dv[1]), "+l"(dv[2]), "+l"(dv[3])::"memory");
+    fence_acc(oa);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < N / 16; ++s) wg_rs32t(oa, pa[s], dv[s]);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(oa);
+  }
+  if constexpr (NEXT) {
+    fence_acc(acc);
+    slabs_release(ring, 3 * (h + 1));
+  }
+  // O rounded to bf16: head h's 32 columns are K block h / 2, 32 (h % 2)..
+#pragma unroll
+  for (int d = 0; d < DP / 8; ++d) {
+    const int col = 32 * par + 8 * d + 2 * t;
+    sts(ob + (h >> 1) * KBLK + sw128(r0, col), pack2(oa[4 * d], oa[4 * d + 1]));
+    sts(ob + (h >> 1) * KBLK + sw128(r1, col), pack2(oa[4 * d + 2], oa[4 * d + 3]));
+  }
+  if constexpr (NEXT) {
+    // the next head's k and v go to the other halves, which its S and PV
+    // read after the barrier
+    qkv_epilogue(acc, a.bqkv, h + 1, kb, vb, qa);
+    fence_async();
+    wg_sync(wg);
+  }
+}
+
+// The window's output: bf16(acc + bias) for the 180 columns, staged in the
+// LN buffer as 64 tokens x 360 bytes, then written a token row at a time
+// in 8-byte pieces (a warp's 32 lanes 256 contiguous bytes), instead of
+// each thread's 8 scattered 16-byte pieces a store. Not where `valid` is
+// false (the duplicate window of an odd count).
+template <typename Pix>
+__device__ __forceinline__ void wg_store(const SwinArgs& a, uint32_t stage, Pix pix,
+                                         const float (&acc)[96], const float* bias,
+                                         bool valid, int wg) {
+  const int tid = tidx() & 127, lane = tid & 31, t = lane & 3;
+  const int r0 = 16 * (tid >> 5) + (lane >> 2), r1 = r0 + 8;
+#pragma unroll
+  for (int j = 0; j < 24; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col >= C) continue;
+    const float2 c = ld2(bias + col);
+    sts(stage + r0 * (2 * C) + 2 * col, pack2(acc[4 * j] + c.x, acc[4 * j + 1] + c.y));
+    sts(stage + r1 * (2 * C) + 2 * col, pack2(acc[4 * j + 2] + c.x, acc[4 * j + 3] + c.y));
+  }
+  wg_sync(wg);
+  if (valid) {
+    for (int i = tid; i < N * (C / 4); i += 128) {
+      const int r = i / (C / 4), c = i - r * (C / 4);
+      uint2 v;
+      asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y)
+                   : "r"(stage + r * (2 * C) + 8 * c));
+      *reinterpret_cast<uint2*>(a.out + pix(r) + 4 * c) = v;
+    }
+  }
+  // the next window's LN1 writes this buffer
+  wg_sync(wg);
+}
+
+// fc1's 96 columns c0.. of the half (acc, m64n96) + bias, rounded to bf16,
+// through GELU, rounded again, into H (the O buffer's K blocks)
+__device__ __forceinline__ void gelu_store(const float (&f)[48], const float* bf1,
+                                           uint32_t ob, int c0) {
+  const int lane = tidx() & 31, t = lane & 3;
+  const int r0 = 16 * ((tidx() >> 5) & 3) + (lane >> 2), r1 = r0 + 8;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const int col = c0 + 8 * j + 2 * t;
+    const float2 c = ld2(bf1 + col);
+    const float v0 = rnd<__nv_bfloat16>(f[4 * j] + c.x);
+    const float v1 = rnd<__nv_bfloat16>(f[4 * j + 1] + c.y);
+    const float v2 = rnd<__nv_bfloat16>(f[4 * j + 2] + c.x);
+    const float v3 = rnd<__nv_bfloat16>(f[4 * j + 3] + c.y);
+    sts(ob + (col >> 6) * KBLK + sw128(r0, col & 63), pack2(gelu_approx(v0), gelu_approx(v1)));
+    sts(ob + (col >> 6) * KBLK + sw128(r1, col & 63), pack2(gelu_approx(v2), gelu_approx(v3)));
+  }
+}
+
+// A window's place: its image, window row and column.
+struct WinPos {
+  int b, wy, wx;
+};
+__device__ __forceinline__ WinPos win_pos(const SwinArgs& a, int win) {
+  const int nwh = a.H / WIN, nww = a.W / WIN;
+  return {win / (nwh * nww), (win / nww) % nwh, win % nww};
+}
+// element offset of token r (row-major in the rolled window) of window p in
+// x / out; the rolled place is under 2H (2W), so one subtraction wraps it
+__device__ __forceinline__ size_t token(const SwinArgs& a, const WinPos& p, int r) {
+  int gy = p.wy * WIN + (r >> 3) + a.hshift;
+  int gx = p.wx * WIN + (r & 7) + a.shift;
+  gy -= gy >= a.H ? a.H : 0;
+  gx -= gx >= a.W ? a.W : 0;
+  return (((size_t)p.b * a.H + gy) * a.W + gx) * C;
+}
+
+// Shared address of token r's raw x in window wg's staging (over K and V,
+// then the tail)
+__device__ __forceinline__ uint32_t x_stage(uint32_t sbase, int wg, int r) {
+  return r < X_IN_KV ? sbase + WO_WIN + wg * W_BYTES + W_K + r * X_ROW
+                     : sbase + WO_XT + wg * X_TAIL + (r - X_IN_KV) * X_ROW;
+}
+// cp.async of a token row (360 bytes, 8-byte aligned) by a warp, 8-byte
+// pieces, the lanes on consecutive ones (256 bytes an instruction)
+__device__ __forceinline__ void copy_row(uint32_t dst, const __nv_bfloat16* src) {
+  const int lane = tidx() & 31;
+#pragma unroll
+  for (int c = lane; c < C / 4; c += 32)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 ::"r"(dst + 8 * c), "l"(src + 4 * c) : "memory");
+}
+// window p's x into the staging, a warp the rows warp + 4i; the caller
+// commits
+__device__ __forceinline__ void stage_x(const SwinArgs& a, uint32_t sbase, int wg,
+                                        const WinPos& p) {
+  const int warp = (tidx() >> 5) & 3;
+#pragma unroll 4
+  for (int r = warp; r < N; r += 4) copy_row(x_stage(sbase, wg, r), a.x + token(a, p, r));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One consumer warpgroup: window 2 pair + wg. Thread (warp, g, t) holds
+// accumulator rows r0 = 16 warp + g and r1 = r0 + 8, and of each n8 tile j
+// the columns 8j + 2t, +1: element 4j + e is row r0 (e < 2) or r1, column
+// 8j + 2t + (e & 1).
+template <bool MLP>
+__device__ __forceinline__ void wg_window(const SwinArgs& a, const WgRing& ring,
+                                          uint32_t sbase, const float* tb, int pair) {
+  const int wg = tidx() >> 7, tid = tidx() & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  int win = 2 * pair + wg;
+  const bool valid = win < a.windows;
+  if (!valid) win = a.windows - 1;        // computed again, stores dropped
+  const int shift = a.shift;
+  const WinPos wp = win_pos(a, win);
+  const bool lr = shift > 0 && wp.wy == a.last_wy;
+  const bool lc = shift > 0 && wp.wx == a.W / WIN - 1;
+  auto pix = [&](int r) -> size_t { return token(a, wp, r); };
+  const uint32_t wbase = sbase + WO_WIN + wg * W_BYTES;
+  const uint32_t ln = wbase + W_LN, ob = wbase + W_O, kb = wbase + W_K, vb = wbase + W_V;
+
+  // LN1 from the staged x (copied during the pair before, or at the
+  // block's first pair now): a warp the rows warp + 4i, a lane the column
+  // pairs 2 lane + 64 k (K block k)
+  WG_STAMP(pair, ST_START);
+  WG_STAMP(pair, ST_T0);
+  if (pair == (int)blockIdx.x) {
+    stage_x(a, sbase, wg, wp);
+    cp_commit();
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  wg_sync(wg);
+  {
+    uint32_t xv[N / 4][3];
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const uint32_t row = x_stage(sbase, wg, warp + 4 * i);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int c = 2 * lane + 64 * k;
+        xv[i][k] = 0u;
+        if (c < C)
+          asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(xv[i][k]) : "r"(row + 2 * c));
+      }
+    }
+    float2 gg[3], bb[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int c = 2 * lane + 64 * k;
+      gg[k] = c < C ? ld2(a.g1 + c) : make_float2(0.f, 0.f);
+      bb[k] = c < C ? ld2(a.b1 + c) : make_float2(0.f, 0.f);
+    }
+    // four rows at a time, their shuffle reductions interleaved
+#pragma unroll
+    for (int i0 = 0; i0 < N / 4; i0 += 4) {
+      float v[4][3][2], s[4], q[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        s[u] = 0.f;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&xv[i0 + u][k]));
+          v[u][k][0] = f.x;
+          v[u][k][1] = f.y;
+          s[u] += f.x + f.y;
+        }
+      }
+      warp_sum4(s);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        s[u] /= C;
+        q[u] = 0.f;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          if (2 * lane + 64 * k < C) {
+            const float d0 = v[u][k][0] - s[u], d1 = v[u][k][1] - s[u];
+            q[u] += d0 * d0 + d1 * d1;
+          }
+        }
+      }
+      warp_sum4(q);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = warp + 4 * (i0 + u);
+        const float rstd = rsqrtf(q[u] / C + EPS);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const uint32_t o = 2 * lane + 64 * k < C
+              ? pack2((v[u][k][0] - s[u]) * rstd * gg[k].x + bb[k].x,
+                      (v[u][k][1] - s[u]) * rstd * gg[k].y + bb[k].y)
+              : 0u;
+          sts(ln + k * KBLK + sw128(r, 2 * lane), o);
+        }
+      }
+    }
+  }
+  fence_async();
+  wg_sync(wg);
+  WG_STAMP(pair, ST_LN1);
+
+  // attention, a head at a time: head h + 1's qkv runs on the tensor cores
+  // while head h's softmax runs on the CUDA cores
+  uint32_t qa[2][4];
+  float acc[48];
+  zero(acc);
+  wg_issue(acc, ln, ring, 0);
+  wgmma_wait<0>();
+  fence_acc(acc);
+  slabs_release(ring, 0);
+  qkv_epilogue(acc, a.bqkv, 0, kb, vb, qa);
+  fence_async();
+  wg_sync(wg);
+#pragma unroll 1
+  for (int h = 0; h < HEADS - 1; ++h)
+    wg_head<true>(a, ring, ln, ob, kb, vb, tb, h, lr, lc, acc, qa, wg);
+  wg_head<false>(a, ring, ln, ob, kb, vb, tb, HEADS - 1, lr, lc, acc, qa, wg);
+  fence_async();
+  wg_sync(wg);
+  WG_STAMP(pair, ST_ATTN);
+
+  // x again for the residual: 8-byte copies into the LN buffer (free once
+  // the last qkv completed) while proj runs, a token 360 bytes
+  if constexpr (MLP) {
+#pragma unroll 4
+    for (int r = warp; r < N; r += 4) copy_row(ln + r * X_ROW, a.x + pix(r));
+    cp_commit();
+  }
+  // the block's next window pair: its x into the staging (K and V are free
+  // now), ready for its LN1; a group of its own, empty after the last pair,
+  // so that waiting for all but one group waits for the residual
+  {
+    const int np = pair + (int)gridDim.x;
+    if (np < (a.windows + 1) / 2) {
+      const int nw = 2 * np + wg;
+      stage_x(a, sbase, wg, win_pos(a, nw < a.windows ? nw : a.windows - 1));
+    }
+    cp_commit();
+  }
+  // proj over the 6 heads' outputs (K = 192); y = (x + proj) + bo
+  float y[96];
+  zero(y);
+  wg_gemm<2>(y, ob, ring, 3 * HEADS);
+  WG_STAMP(pair, ST_PROJ);
+  if constexpr (!MLP) {
+    WG_STAMP(pair, ST_OUT);
+    wg_store(a, ln, pix, y, a.bo, valid, wg);
+    WG_STAMP(pair, ST_END);
+    WG_STAMP(pair, ST_T1);
+    return;
+  }
+  // the residual's group; the next pair's may still run
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  wg_sync(wg);
+  {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < C) {
+        const float2 c = ld2(a.bo + col);
+        uint32_t xa, xb;
+        asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(xa) : "r"(ln + r0 * (2 * C) + 2 * col));
+        asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(xb) : "r"(ln + r1 * (2 * C) + 2 * col));
+        const float2 x0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xa));
+        const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xb));
+        y[4 * j] = (x0.x + y[4 * j]) + c.x;
+        y[4 * j + 1] = (x0.y + y[4 * j + 1]) + c.y;
+        y[4 * j + 2] = (x1.x + y[4 * j + 2]) + c.x;
+        y[4 * j + 3] = (x1.y + y[4 * j + 3]) + c.y;
+        s0 += y[4 * j] + y[4 * j + 1];
+        s1 += y[4 * j + 2] + y[4 * j + 3];
+      } else {
+        y[4 * j] = y[4 * j + 1] = y[4 * j + 2] = y[4 * j + 3] = 0.f;
+      }
+    }
+    // LN2 from the registers: row statistics over the quad
+    const float mean0 = quad_sum(s0) / C, mean1 = quad_sum(s1) / C;
+    float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      if (8 * j + 2 * t < C) {
+        const float d0 = y[4 * j] - mean0, d1 = y[4 * j + 1] - mean0;
+        const float d2 = y[4 * j + 2] - mean1, d3 = y[4 * j + 3] - mean1;
+        q0 += d0 * d0 + d1 * d1;
+        q1 += d2 * d2 + d3 * d3;
+      }
+    }
+    const float rstd0 = rsqrtf(quad_sum(q0) / C + EPS);
+    const float rstd1 = rsqrtf(quad_sum(q1) / C + EPS);
+    // y - mean again below, not kept from the loop above: 96 more live
+    // floats beside y spill
+    fence_acc(y);
+    // LN2 overwrites the staged x the other warps read
+    wg_sync(wg);
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const int col = 8 * j + 2 * t;
+      uint32_t o0 = 0, o1 = 0;
+      if (col < C) {
+        const float2 gv = ld2(a.g2 + col), bv = ld2(a.b2 + col);
+        o0 = pack2((y[4 * j] - mean0) * rstd0 * gv.x + bv.x,
+                   (y[4 * j + 1] - mean0) * rstd0 * gv.y + bv.y);
+        o1 = pack2((y[4 * j + 2] - mean1) * rstd1 * gv.x + bv.x,
+                   (y[4 * j + 3] - mean1) * rstd1 * gv.y + bv.y);
+      }
+      sts(ln + (j >> 3) * KBLK + sw128(r0, col & 63), o0);
+      sts(ln + (j >> 3) * KBLK + sw128(r1, col & 63), o1);
+    }
+  }
+  fence_async();
+  wg_sync(wg);
+  WG_STAMP(pair, ST_LN2);
+  // the MLP in two halves of the hidden: fc1 half h, a quarter of 96
+  // columns at a time, into H (over O), then fc2 over those 192 hidden
+  // columns, added into y
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll 1
+    for (int q = 0; q < 2; ++q) {
+      float f[48];
+      zero(f);
+      wg_gemm<1>(f, ln, ring, ATTN_SLABS + 12 * h + 3 * q);
+      WG_STAMP(pair, ST_FC1 + 2 * (2 * h + q));
+      gelu_store(f, a.bf1 + 192 * h, ob, 96 * q);
+      WG_STAMP(pair, ST_GELU + 2 * (2 * h + q));
+    }
+    fence_async();
+    wg_sync(wg);
+    wg_gemm<2>(y, ob, ring, ATTN_SLABS + 12 * h + 6);
+    WG_STAMP(pair, ST_FC2 + h);
+    // the next half's H overwrites this one
+    wg_sync(wg);
+  }
+  WG_STAMP(pair, ST_OUT);
+  wg_store(a, ln, pix, y, a.bf2, valid, wg);
+  WG_STAMP(pair, ST_END);
+  WG_STAMP(pair, ST_T1);
+}
+
+// The body: the ring's barriers and the bias table, then the roles.
+template <bool MLP, int V>
+__device__ __forceinline__ void wg_body(const SwinArgs& a) {
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(wg_smem);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  unsigned char* base = wg_smem + (sbase - raw);
+  WgRing ring;
+  ring.slots = sbase;
+  ring.full = sbase + WO_BAR;
+  ring.empty = ring.full + 8 * WG_NBUF;
+  ring.base = 0;
+  float* tb = reinterpret_cast<float*>(base + WO_TABLE);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < WG_NBUF; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   ::"r"(ring.full + 8 * i) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   ::"r"(ring.empty + 8 * i), "r"(WG_WIN * 128) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the bias table, [head][225]
+  for (int i = threadIdx.x; i < HEADS * TABLE; i += WG_THREADS)
+    tb[i] = __ldg(a.table + (i % TABLE) * HEADS + i / TABLE);
+  __syncthreads();
+  // the roles, read warp-uniform, in one if-else that never rejoins, so
+  // that setmaxnreg holds: warpgroups 0 and 1 consume with 240 registers a
+  // thread, warpgroup 2 gives its registers down to 24 and its first thread
+  // produces
+  // the block walks the window pairs blockIdx.x, + gridDim.x, ...
+  constexpr int n = MLP ? BLOCK_SLABS : ATTN_SLABS;
+  const int pairs = (a.windows + 1) / 2;
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == WG_WIN) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == WG_WIN * 128)
+      wg_produce<V>(ring, a.slabs, n,
+                    (pairs - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+#pragma unroll 1
+    for (int p = blockIdx.x; p < pairs; p += gridDim.x) {
+      wg_window<MLP>(a, ring, sbase, tb, p);
+      ring.base += n;
+    }
+  }
+}
+
+template <bool MLP>
+__global__ void __launch_bounds__(WG_THREADS, 1) swin_wg_kernel(const SwinArgs a) {
+  wg_body<MLP, WG_SERVED>(a);
+}
+
+// the time-attribution instance (never served): B from L2 only for the
+// first six slabs
+__global__ void __launch_bounds__(WG_THREADS, 1) swin_wg_no_l2_kernel(const SwinArgs a) {
+  wg_body<true, WG_NO_L2>(a);
+}
+
 int check_grid(int B, int H, int W, int shift, long long* windows) {
   *windows = (long long)B * (H / WIN) * (W / WIN);
   if (*windows <= 0 || *windows > 0x7fffffffLL || H % WIN || W % WIN ||
@@ -831,6 +1855,19 @@ int prepare(int dtype, int mlp, const void** fn, int* smem) {
   return (int)e;
 }
 
+// swin_wg_kernel<mlp> (variant 0) or swin_wg_no_l2_kernel (variant 1, mlp
+// only), its shared memory set on it; set on every call, so that it holds
+// on whichever device is current.
+int prepare_wg(int mlp, int variant, const void** fn) {
+  const void* k = variant == WG_NO_L2 ? (const void*)swin_wg_no_l2_kernel
+                  : mlp              ? (const void*)swin_wg_kernel<true>
+                                     : (const void*)swin_wg_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       WG_SMEM);
+  *fn = k;
+  return (int)e;
+}
+
 }  // namespace
 
 // x, out: (B, H, W, 180) contiguous, float32 (dtype 0) or bfloat16 (1),
@@ -840,9 +1877,11 @@ int prepare(int dtype, int mlp, const void** fn, int* smem) {
 // float32; the matrices wqkv (180, 576), wo (192, 192), w1 (180, 384),
 // w2 (360, 192) in float32, read by the float32 kernel, and their bf16 B
 // fragments wqkv_mma, wo_mma, w1_mma, w2_mma (pack_mma_b), read by the
-// bfloat16 kernel (the other four may be null there, and these for
-// float32). mlp: 1 = whole Swin block, 0 = attention only. Returns the
-// CUDA error code of the launch (0 = success).
+// bfloat16 kernel, swin_tc_kernel (the other four may be null there, and
+// these for float32). mlp: 1 = whole Swin block, 0 = attention only.
+// bfloat16 here is the mma.sync design, swin_mma, which nothing served
+// launches: served bf16 goes to s2sr_swin_wg_forward. Returns the CUDA
+// error code of the launch (0 = success).
 extern "C" int s2sr_swin_forward(
     const void* x, void* out, const void* g1, const void* b1,
     const void* wqkv, const void* bqkv, const void* wo, const void* bo,
@@ -894,7 +1933,94 @@ extern "C" int s2sr_swin_forward(
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared-memory bytes per block, by dtype (both modes).
+// The served bf16 kernel, swin_wg_kernel: x, out (B, H, W, 180) bf16
+// contiguous, H and W multiples of 8, 16-byte aligned; g1, b1, g2, b2 (180),
+// bqkv (576), bo (192), bf1 (384), bf2 (192) float32; table the (225, 6)
+// float32 relative-position bias table; slabs the bf16 B slabs of wqkv, wo,
+// w1, w2 (ops/window_attention.py::pack_wg_slabs). mlp: 1 = whole Swin
+// block, 0 = attention only; band as s2sr_swin_forward's; variant 0 the
+// served kernel, 1 swin_wg_no_l2_kernel (mlp 1 only; never served).
+// Returns the CUDA error code of the launch (0 = success).
+extern "C" int s2sr_swin_wg_forward(
+    const void* x, void* out, const void* g1, const void* b1, const void* bqkv,
+    const void* bo, const void* table, const void* g2, const void* b2,
+    const void* bf1, const void* bf2, const void* slabs, int B, int H, int W,
+    int shift, int mlp, int band, int variant, void* stream) {
+  if (band < 0 || band > 2 || variant < 0 || variant > 1 || (variant && !mlp) ||
+      !slabs || !table)
+    return (int)cudaErrorInvalidValue;
+  long long windows;
+  int rc = check_grid(B, H, W, shift, &windows);
+  if (rc) return rc;
+  const void* fn;
+  rc = prepare_wg(mlp, variant, &fn);
+  if (rc) return rc;
+  SwinArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.g1 = static_cast<const float*>(g1);
+  a.b1 = static_cast<const float*>(b1);
+  a.bqkv = static_cast<const float*>(bqkv);
+  a.bo = static_cast<const float*>(bo);
+  a.table = static_cast<const float*>(table);
+  a.g2 = static_cast<const float*>(g2);
+  a.b2 = static_cast<const float*>(b2);
+  a.bf1 = static_cast<const float*>(bf1);
+  a.bf2 = static_cast<const float*>(bf2);
+  a.slabs = static_cast<const unsigned char*>(slabs);
+  a.H = H;
+  a.W = W;
+  a.shift = shift;
+  a.hshift = band ? 0 : shift;
+  a.last_wy = band == 1 ? -1 : H / WIN - 1;
+  a.windows = (int)windows;
+  // one block an SM, each walking window pairs
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long pairs = (windows + WG_WIN - 1) / WG_WIN;
+  const unsigned grid = (unsigned)(pairs < sms ? pairs : sms);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == WG_NO_L2)
+    swin_wg_no_l2_kernel<<<grid, WG_THREADS, WG_SMEM, st>>>(a);
+  else if (mlp)
+    swin_wg_kernel<true><<<grid, WG_THREADS, WG_SMEM, st>>>(a);
+  else
+    swin_wg_kernel<false><<<grid, WG_THREADS, WG_SMEM, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" long long s2sr_swin_wg_smem_bytes() { return (long long)WG_SMEM; }
+
+// The phase clocks of the last launch, [pair][consumer][WgStamp] int64, into
+// host memory dst (STAMP_PAIRS x 2 x STAMPS): 0 on success; -1 where the
+// library was built without -DS2SR_SWIN_STAMPS.
+extern "C" int s2sr_swin_wg_stamps(void* dst, int* pairs, int* stamps) {
+#ifdef S2SR_SWIN_STAMPS
+  *pairs = STAMP_PAIRS;
+  *stamps = STAMPS;
+  return dst ? (int)cudaMemcpyFromSymbol(dst, g_stamps, sizeof(g_stamps)) : 0;
+#else
+  *pairs = 0;
+  *stamps = STAMPS;
+  return -1;
+#endif
+}
+
+// Resident blocks per SM of swin_wg_kernel<mlp> on the current device;
+// negative: minus the CUDA error code.
+extern "C" int s2sr_swin_wg_blocks_per_sm(int mlp) {
+  const void* fn;
+  int n = 0;
+  int rc = prepare_wg(mlp, WG_SERVED, &fn);
+  if (!rc)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, WG_THREADS, WG_SMEM);
+  return rc ? -rc : n;
+}
+
+// Dynamic shared-memory bytes per block of s2sr_swin_forward's kernels, by
+// dtype (both modes).
 extern "C" long long s2sr_swin_smem_bytes(int dtype) {
   return dtype == 0 ? (long long)F32_SMEM : (long long)TC_SMEM;
 }

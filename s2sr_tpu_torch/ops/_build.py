@@ -48,20 +48,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
-def lib_path(name: str) -> Path:
+def lib_path(name: str, defines=()) -> Path:
+    """The cached library of ``csrc/<name>.cu`` built with ``defines``
+    (``-D`` flags, none for the library the package loads)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src.read_bytes() + " ".join(
+        [*NVCC_FLAGS, *defines]).encode()).hexdigest()
     return build_dir() / f"lib{name}_{digest[:16]}.so"
 
 
-def build(name: str) -> tuple:
-    """Compile ``csrc/<name>.cu`` unless it is cached. Returns
-    ``(seconds, compiler output)``, ``(0.0, "")`` on a cache hit; the
-    output holds ptxas's ``-v`` report. Raises with the output if
-    ``nvcc`` fails."""
-    return _compile([_nvcc(), *NVCC_FLAGS], CSRC / f"{name}.cu",
-                    lib_path(name), ())
+def build(name: str, defines=()) -> tuple:
+    """Compile ``csrc/<name>.cu`` (with ``defines``, ``-D`` flags) unless
+    it is cached. Returns ``(seconds, compiler output)``, ``(0.0, "")`` on
+    a cache hit; the output holds ptxas's ``-v`` report. Raises with the
+    output if ``nvcc`` fails."""
+    return _compile([_nvcc(), *NVCC_FLAGS, *defines], CSRC / f"{name}.cu",
+                    lib_path(name, defines), ())
 
 
 def _compile(compiler: list, src: Path, lib: Path, libs) -> tuple:

@@ -34,15 +34,22 @@ erf form in float32 and the tanh form in bfloat16, as the JAX package's
 - :func:`swin_block` / :func:`window_attention` are the wrappers: on a
   CUDA tensor they launch the kernel of ``csrc/window_attention.cu`` or
   raise; on a CPU tensor they run the plain version.
-- :data:`LAUNCHES` counts kernel launches per kernel, nothing else.
+- :data:`LAUNCHES` counts the served kernels' launches per kernel,
+  nothing else; :data:`LAUNCHES_MMA` and :data:`LAUNCHES_NO_L2` those of
+  the designs nothing served launches (``design="mma"``, ``"no_l2"``).
 - :func:`build_block_tables` turns one block's weights (the released
   checkpoint's names and layouts) into the kernel's inputs; for bf16 it
-  adds the matrices as the tensor-core kernel's B fragments
-  (:func:`pack_mma_b`).
+  adds the matrices as the served kernel's B slabs
+  (:func:`pack_wg_slabs`) and as the ``mma.sync`` design's B fragments
+  (:func:`pack_mma_b`), and the compact bias table for both dtypes.
 
-The bf16 kernel runs every product on the tensor cores; the fp32 one
-runs float32 FMA on the CUDA cores (``csrc/window_attention.cu`` says
-why and how).
+The served bf16 kernel, ``swin_wg_kernel``, runs every product on
+``wgmma``, two windows a block sharing each B slab a producer warpgroup
+streams through a ring of bulk copies; ``swin_tc_kernel`` (``mma.sync``,
+a window a block), the design it replaced, is reached only through
+``design="mma"``, so that one call can time both. The fp32 kernel runs
+float32 FMA on the CUDA cores (``csrc/window_attention.cu`` says why and
+how).
 """
 
 from __future__ import annotations
@@ -54,6 +61,13 @@ import torch
 import torch.nn.functional as F
 
 LAUNCHES = {"swin_block": 0, "window_attention": 0}
+# launches of swin_tc_kernel (design "mma") and of swin_wg_no_l2_kernel
+# (design "no_l2", swin_block only), which nothing served makes
+LAUNCHES_MMA = {"swin_block": 0, "window_attention": 0}
+LAUNCHES_NO_L2 = {"swin_block": 0}
+# the kernels a wrapper can launch for bf16: the served one, the mma.sync
+# design it replaced, and the time-attribution instance of the served one
+DESIGNS = ("served", "mma", "no_l2")
 
 # the one configuration the kernels are built for (both registry SwinIR
 # models): embed 180, 6 heads of 30, window 8, MLP hidden 360
@@ -137,9 +151,88 @@ def pack_mma_b(w: torch.Tensor, kpad: int) -> torch.Tensor:
     return wp.reshape(-1)[idx].reshape(kpad // 16, n // 8, 32, 4)
 
 
-# the bf16 kernel's packed matrices: key → the table's matrix
+# the mma.sync design's packed matrices: key → the table's matrix
 MMA_KEYS = {"wqkv_mma": "wqkv", "wo_mma": "wo", "w1_mma": "w1",
             "w2_mma": "w2"}
+
+# The served kernel's B slabs: 96 rows (output columns) × 64 K values
+# each, in wgmma's K-major layout with the 128-byte swizzle; the stream
+# in the order the kernel reads it (csrc/window_attention.cu).
+SLAB_ROWS, SLAB_K = 96, 64
+WG_MATRICES = {"wqkv": (180, 576), "wo": (192, 192), "w1": (180, 384),
+               "w2": (360, 192)}
+RING_SLOTS, RING_SLOT_BYTES = 6, SLAB_ROWS * SLAB_K * 2
+
+
+def wg_slab_plan() -> list:
+    """The stream's slabs in order, each ``(matrix, first K row, first
+    column)``: qkv of heads 0..5 (the head's 96 columns, 3 K blocks each),
+    proj (per K block columns 0.., 96..), then per half h of the hidden
+    fc1's quarters 2h and 2h + 1 (3 K blocks each) and fc2's K rows 192h..
+    (per K block two column halves): 48 slabs, the first 24
+    window_attention's."""
+    plan = [("wqkv", 64 * kb, 96 * h) for h in range(6) for kb in range(3)]
+    plan += [("wo", 64 * kb, 96 * s) for kb in range(3) for s in range(2)]
+    for h in range(2):
+        plan += [("w1", 64 * kb, 192 * h + 96 * q)
+                 for q in range(2) for kb in range(3)]
+        plan += [("w2", 192 * h + 64 * kb, 96 * s)
+                 for kb in range(3) for s in range(2)]
+    return plan
+
+
+def wg_slab_index(device=None) -> torch.Tensor:
+    """For each bf16 of the stream, (48, 96, 64) flattened, the flat index
+    of the matrix element it holds in ``wqkv``, ``wo``, ``w1``, ``w2``
+    flattened (in, out) and concatenated in that order, −1 for a K pad
+    (qkv and fc1's K 180 → 192, fc2's 360 → 384): slab row n holds column
+    n0 + n, its 16-byte chunk p the logical chunk p ^ (n % 8), K rows
+    k0 + 8 (p ^ (n % 8)) ..."""
+    key = str(device)
+    if key not in _WG_INDEX:
+        offs, off = {}, 0
+        for name, (k, n) in WG_MATRICES.items():
+            offs[name] = off
+            off += k * n
+        row = torch.arange(SLAB_ROWS)[:, None, None]
+        chunk = torch.arange(8)[None, :, None] ^ (row % 8)
+        kk = 8 * chunk + torch.arange(8)[None, None, :]
+        slabs = []
+        for name, k0, n0 in wg_slab_plan():
+            k, n = WG_MATRICES[name]
+            idx = offs[name] + (k0 + kk) * n + n0 + row
+            slabs.append(torch.where(k0 + kk < k, idx, -1))
+        _WG_INDEX[key] = torch.stack(slabs).reshape(-1).to(device)
+    return _WG_INDEX[key]
+
+
+_WG_INDEX: dict = {}
+
+
+def pack_wg_slabs(t: dict) -> torch.Tensor:
+    """The tables' ``wqkv``, ``wo``, ``w1``, ``w2`` as the served kernel's
+    B slabs (:func:`wg_slab_index`), (48, 96, 64) in their dtype, K pads
+    zero; exact."""
+    flat = torch.cat([t[k].reshape(-1) for k in WG_MATRICES])
+    flat = torch.cat([flat, flat.new_zeros(1)])
+    idx = wg_slab_index(flat.device)
+    return flat[torch.where(idx < 0, flat.numel() - 1, idx)].reshape(
+        len(wg_slab_plan()), SLAB_ROWS, SLAB_K).contiguous()
+
+
+def wg_smem_plan() -> dict:
+    """``swin_wg_kernel``'s shared memory as ``csrc/window_attention.cu``
+    lays it out: up to 1024 to align, the ring, two windows (LN, O, K, V:
+    65,536 each), each window's tail of the next window's staged x (its
+    tokens 45..63 at 360 bytes; 0..44 lie over K and V), the bias table
+    [head][225] in float32, a full and an empty mbarrier a slot; ``total``
+    their sum."""
+    plan = {"align": 1024, "ring": RING_SLOTS * RING_SLOT_BYTES,
+            "windows": 2 * (3 * 8192 + 3 * 8192 + 8192 + 8192),
+            "x_tails": 2 * 6848,
+            "table": 6 * 225 * 4, "barriers": 2 * RING_SLOTS * 8}
+    return {**plan, "total": sum(plan.values())}
+
 
 def build_block_tables(p, num_heads: int, window: int, shift: int,
                        dtype: torch.dtype) -> dict:
@@ -158,9 +251,13 @@ def build_block_tables(p, num_heads: int, window: int, shift: int,
     - ``wo`` (heads·dp, cp): proj, rows per head;
     - ``w1`` (C, hp), ``w2`` (hidden, cp);
     - ``bias`` (heads, N, N): the relative-position bias;
+    - ``bias_table`` ((2w−1)², heads): the checkpoint's table in float32,
+      which the served bf16 kernel reads at the tokens' offset;
     - ``masks`` (4, N, N): the shift-mask types (zeros when unshifted);
     - bf16 only, :data:`MMA_KEYS`: ``wqkv``, ``wo``, ``w1``, ``w2`` as B
-      fragments (:func:`pack_mma_b`), K padded to cp (wqkv, w1), hp (w2).
+      fragments (:func:`pack_mma_b`), K padded to cp (wqkv, w1), hp (w2);
+      and at the kernel's configuration ``wg_slabs``, the same four as the
+      served kernel's B slabs (:func:`pack_wg_slabs`).
     A table that changes must be built again, so that both copies agree.
     """
     def f32(name):
@@ -215,6 +312,7 @@ def build_block_tables(p, num_heads: int, window: int, shift: int,
         "wo": mat(wo.reshape(num_heads * dp, cp)),
         "bo": vec("attn.proj.bias", cp),
         "bias": bias.contiguous(),
+        "bias_table": table.contiguous(),
         "masks": torch.from_numpy(masks).to(dev).contiguous(),
         "g2": vec("norm2.weight", c), "b2": vec("norm2.bias", c),
         "w1": mat(w1), "bf1": vec("mlp.fc1.bias", hp),
@@ -227,6 +325,8 @@ def build_block_tables(p, num_heads: int, window: int, shift: int,
         kpad = {"wqkv": cp, "wo": num_heads * dp, "w1": cp, "w2": hp}
         for key, name in MMA_KEYS.items():
             t[key] = pack_mma_b(t[name], kpad[name])
+        if all(tuple(t[k].shape) == s for k, s in WG_MATRICES.items()):
+            t["wg_slabs"] = pack_wg_slabs(t)
     return t
 
 
@@ -344,20 +444,32 @@ def _lib():
         lib.s2sr_swin_blocks_per_sm.restype = ctypes.c_int
         lib.s2sr_swin_macs_per_window.argtypes = [ctypes.c_int] * 2
         lib.s2sr_swin_macs_per_window.restype = ctypes.c_longlong
+        lib.s2sr_swin_wg_forward.argtypes = ([vp] * 12 + [ctypes.c_int] * 7
+                                             + [vp])
+        lib.s2sr_swin_wg_forward.restype = ctypes.c_int
+        lib.s2sr_swin_wg_smem_bytes.argtypes = []
+        lib.s2sr_swin_wg_smem_bytes.restype = ctypes.c_longlong
+        lib.s2sr_swin_wg_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.s2sr_swin_wg_blocks_per_sm.restype = ctypes.c_int
         lib._s2sr_typed = True
     return lib
 
 
-def kernel_tiling(dtype: torch.dtype, mlp: bool = True) -> dict:
+def kernel_tiling(dtype: torch.dtype, mlp: bool = True,
+                  design: str = "served") -> dict:
     """The kernel's shared-memory bytes per block, its resident blocks per
     SM on the current device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
-    and the multiply-adds it executes per 64-token window, pads included."""
+    and the multiply-adds it executes per 64-token window, pads included:
+    the served kernel of ``dtype``, or (bf16) ``design="mma"``'s."""
     lib, code = _lib(), _DTYPE_CODE[dtype]
-    blocks = int(lib.s2sr_swin_blocks_per_sm(code, int(mlp)))
+    wg = dtype == torch.bfloat16 and design != "mma"
+    blocks = int(lib.s2sr_swin_wg_blocks_per_sm(int(mlp)) if wg
+                 else lib.s2sr_swin_blocks_per_sm(code, int(mlp)))
     if blocks < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-blocks}")
-    return {"smem_bytes": int(lib.s2sr_swin_smem_bytes(code)),
-            "blocks_per_sm": blocks,
+    smem = (lib.s2sr_swin_wg_smem_bytes() if wg
+            else lib.s2sr_swin_smem_bytes(code))
+    return {"smem_bytes": int(smem), "blocks_per_sm": blocks,
             "macs_per_window": int(lib.s2sr_swin_macs_per_window(code,
                                                                  int(mlp)))}
 
@@ -371,9 +483,11 @@ _TABLE_SHAPES = {
     "w2": (360, 192), "bf2": (192,),
 }
 _MATRICES = ("wqkv", "wo", "w1", "w2")
-# the bf16 kernel's B fragments (pack_mma_b), bf16
+# the mma.sync design's B fragments (pack_mma_b), bf16
 _MMA_SHAPES = {"wqkv_mma": (12, 72, 32, 4), "wo_mma": (12, 24, 32, 4),
                "w1_mma": (12, 48, 32, 4), "w2_mma": (24, 24, 32, 4)}
+# the served bf16 kernel's B slabs (bf16) and bias table (float32)
+_WG_SHAPES = {"wg_slabs": (48, SLAB_ROWS, SLAB_K), "bias_table": (225, 6)}
 
 
 def _check(name: str, x: torch.Tensor, t: dict) -> None:
@@ -401,13 +515,14 @@ def _check(name: str, x: torch.Tensor, t: dict) -> None:
     shapes = dict(_TABLE_SHAPES)
     if x.dtype == torch.bfloat16:
         shapes.update(_MMA_SHAPES)
+        shapes.update(_WG_SHAPES)
     for key, shape in shapes.items():
         v = t.get(key)
         if v is None:
             raise ValueError(f"{name}: table {key} missing; build the tables "
                              f"with build_block_tables")
         want_dtype = (x.dtype if key in _MATRICES or key in _MMA_SHAPES
-                      else torch.float32)
+                      or key == "wg_slabs" else torch.float32)
         if (v.device != x.device or v.dtype != want_dtype
                 or tuple(v.shape) != shape or not v.is_contiguous()):
             raise ValueError(f"{name}: table {key} must be a contiguous "
@@ -415,51 +530,84 @@ def _check(name: str, x: torch.Tensor, t: dict) -> None:
                              f"{v.dtype} {tuple(v.shape)} on {v.device}")
 
 
+def _check_design(name: str, x: torch.Tensor, mlp: bool, design: str) -> None:
+    if design not in DESIGNS:
+        raise ValueError(f"{name}: design {design!r} not in {DESIGNS}")
+    if design != "served" and x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: design {design!r} is a bfloat16 kernel, "
+                        f"got {x.dtype}")
+    if design == "no_l2" and not mlp:
+        raise ValueError(f"{name}: design 'no_l2' exists for swin_block only")
+
+
 def _launch(name: str, x: torch.Tensor, t: dict, mlp: bool,
-            rolled: bool = False, last: bool = True) -> torch.Tensor:
+            rolled: bool = False, last: bool = True,
+            design: str = "served") -> torch.Tensor:
     if x.device.type != "cuda":
         raise RuntimeError(f"{name}: unsupported device {x.device}")
     _check(name, x, t)
+    _check_design(name, x, mlp, design)
     bsz, h, w, _ = x.shape
     out = torch.empty_like(x)
     if bsz * h * w == 0:
         return out
     lib = _lib()
-    frags = ([t[k].data_ptr() for k in MMA_KEYS]
-             if x.dtype == torch.bfloat16 else [None] * 4)
+    band = 0 if not rolled else 2 if last else 1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.s2sr_swin_forward(
-            x.data_ptr(), out.data_ptr(),
-            *(t[k].data_ptr() for k in ("g1", "b1", "wqkv", "bqkv", "wo",
-                                        "bo", "bias", "masks", "g2", "b2",
-                                        "w1", "bf1", "w2", "bf2")),
-            *frags, bsz, h, w, t["shift"], _DTYPE_CODE[x.dtype], int(mlp),
-            0 if not rolled else 2 if last else 1, stream)
+        if x.dtype == torch.bfloat16 and design != "mma":
+            rc = lib.s2sr_swin_wg_forward(
+                x.data_ptr(), out.data_ptr(),
+                *(t[k].data_ptr() for k in ("g1", "b1", "bqkv", "bo",
+                                            "bias_table", "g2", "b2", "bf1",
+                                            "bf2", "wg_slabs")),
+                bsz, h, w, t["shift"], int(mlp), band,
+                int(design == "no_l2"), stream)
+        else:
+            frags = ([t[k].data_ptr() for k in MMA_KEYS]
+                     if x.dtype == torch.bfloat16 else [None] * 4)
+            rc = lib.s2sr_swin_forward(
+                x.data_ptr(), out.data_ptr(),
+                *(t[k].data_ptr() for k in ("g1", "b1", "wqkv", "bqkv", "wo",
+                                            "bo", "bias", "masks", "g2", "b2",
+                                            "w1", "bf1", "w2", "bf2")),
+                *frags, bsz, h, w, t["shift"], _DTYPE_CODE[x.dtype], int(mlp),
+                band, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    counts = {"served": LAUNCHES, "mma": LAUNCHES_MMA,
+              "no_l2": LAUNCHES_NO_L2}[design]
+    counts[name] += 1
     return out
 
 
 def swin_block(x: torch.Tensor, t: dict, rolled: bool = False,
-               last: bool = True) -> torch.Tensor:
+               last: bool = True, design: str = "served") -> torch.Tensor:
     """One whole Swin block, (B, H, W, C) → same, in ``x.dtype``, with
     ``t`` from :func:`build_block_tables`. ``rolled``: ``x`` is a band of
     H already rolled by ``-shift`` in H (W is rolled here), and ``last``
     says whether its last window row is the image's. CPU tensors run
-    :func:`swin_block_reference`; CUDA tensors launch the kernel or raise."""
+    :func:`swin_block_reference`; CUDA tensors launch the kernel or raise.
+    ``design`` (bf16, nothing served passes it): ``"mma"`` launches the
+    ``mma.sync`` design, ``"no_l2"`` the served kernel's instance that
+    takes B from L2 only for its first six slabs (no defined output, no
+    plain version)."""
     if x.device.type == "cpu":
+        if design == "no_l2":
+            raise ValueError("swin_block: design 'no_l2' has no plain version")
         return swin_block_reference(x, t, rolled, last)
-    return _launch("swin_block", x, t, True, rolled, last)
+    return _launch("swin_block", x, t, True, rolled, last, design)
 
 
 def window_attention(x: torch.Tensor, t: dict, rolled: bool = False,
-                     last: bool = True) -> torch.Tensor:
+                     last: bool = True, design: str = "served") -> torch.Tensor:
     """LN1 → window attention → proj, (B, H, W, C) → same, no residual;
-    ``rolled`` and ``last`` as :func:`swin_block`'s. CPU tensors run
-    :func:`window_attention_reference`; CUDA tensors launch the kernel or
-    raise."""
+    ``rolled``, ``last`` and ``design`` as :func:`swin_block`'s (``"mma"``
+    only). CPU tensors run :func:`window_attention_reference`; CUDA tensors
+    launch the kernel or raise."""
     if x.device.type == "cpu":
+        if design == "no_l2":
+            raise ValueError("window_attention: design 'no_l2' exists for "
+                             "swin_block only")
         return window_attention_reference(x, t, rolled, last)
-    return _launch("window_attention", x, t, False, rolled, last)
+    return _launch("window_attention", x, t, False, rolled, last, design)
