@@ -114,7 +114,9 @@ v4 staging knobs as instances of ``rdb``'s kernel, with the split of its
 time above its bound (phase ladder), and the
 matrix-unit microbenchmark (``s2sr_tpu_torch.bench.mxu`` and
 ``bench.peak``), whose chains and pairs run the ``matmul_chain`` and
-``pair_chain`` kernels of ``csrc/matmul_chain.cu`` (phase mxu).
+``pair_chain`` kernels of ``csrc/matmul_chain.cu``, W resident or, at K 512
+and 384×192, streamed through a ring, timed there in turns beside the
+ring's multicast instance, ``mma.sync`` and cuBLAS (phase mxu).
 
 It checks the outputs, that every block of each path went through its
 kernel, the main path's contracts on the card (a float32 engine with
@@ -302,6 +304,7 @@ def phase_build(state):
                           ("rdb", "rdb_i8_kernel"), ("rdb", "rdb_w8a8_kernel"),
                           ("rdb", "rdb_wg_ablate_kernel"),
                           ("matmul_chain", "wg_chain_kernel"),
+                          ("matmul_chain", "wg_ring_chain_kernel"),
                           ("window_attention", "swin_wg_kernel"),
                           ("window_attention", "swin_wg_no_l2_kernel"),
                           ("window_attention", "swin_tc_kernel"),
@@ -6059,11 +6062,14 @@ MXU_M = 27840
 MXU_KS = (192, 128, 256, 512)
 MXU_PAIRS = ((96, 160), (96, 128), (288, 128), (384, 192), (64, 128))
 # held against the plain version: (M, K, N), N None for the chain
+# (48, 512) leaves the second block of the ring's one cluster without rows
 MXU_CASES = {"matmul_chain": [(48, 64, None), (1000, 96, None),
-                              (1000, 160, None), (100, 80, None)]
+                              (1000, 160, None), (100, 80, None),
+                              (48, 512, None), (1000, 512, None)]
              + [(MXU_M, k, None) for k in MXU_KS],
              "pair_chain": [(1000, 64, 128), (1000, 96, 128), (MXU_M, 96, 160),
-                            (MXU_M, 288, 128), (MXU_M, 384, 192)]}
+                            (MXU_M, 288, 128), (100, 384, 192), (1000, 384, 192),
+                            (MXU_M, 384, 192)]}
 MXU_CHECK_REPEAT = 8
 # max |kernel − plain| over max |plain|: both round each float32 product
 # to bf16, but sum it in other orders, so a rounding moves by one ulp now
@@ -6073,9 +6079,21 @@ MXU_TOL = 2.0 ** -5
 MXU_RECORD = {"matmul_chain": (192, None, "cuda_dot", "torch_dot"),
               "pair_chain": (96, 160, "pair", "torch_pair")}
 MXU_HI = 1024
-# the benchmark's shapes still on mma.sync, reported against cuBLAS
-MXU_MMA_SHAPES = {"matmul_chain": (512, None, "cuda_dot", "torch_dot"),
-                  "pair_chain": (384, 192, "pair", "torch_pair")}
+# the ring kernel's shapes (W streamed), timed in turns at MXU_HI: the
+# served ring, its multicast instance, the mma.sync kernel and cuBLAS
+MXU_RING_SHAPES = {"matmul_chain": (512, None), "pair_chain": (384, 192)}
+MXU_RING_TURNS = 3
+MXU_RING_NAMES = {"matmul_chain": "matmul_chain_k512",
+                  "pair_chain": "pair_chain_384x192"}
+MXU_RING_KERNEL = "20wg_ring_chain_kernelI"
+
+
+def mxu_l2_bytes(m: int, k: int, n, repeat: int, rows: int) -> int:
+    """Bytes of W the ring kernel streams from L2 in one launch: W once a
+    step for each tile of ``rows`` rows that shares a slab (128 for the
+    served ring, 256 with the multicast instance's cluster)."""
+    wbytes = 2 * k * k if n is None else 4 * k * n
+    return -(-m // rows) * repeat * wbytes
 
 
 def mxu_inputs(m: int, k: int, n, seed: int):
@@ -6148,65 +6166,97 @@ def phase_mxu(state):
     card = state.get("card") or card_line()
     sass = sass_counts(_build.lib_path("matmul_chain"))
     emit({"phase": "mxu", "sass": sass})
-    # the wgmma instances (wg_chain_kernel) must issue HGMMA, the mma.sync
-    # ones (chain_kernel) HMMA
+    # the wgmma instances (wg_chain_kernel, the ring's wg_ring_chain_kernel
+    # without and with its cluster) must issue HGMMA and no HMMA, the
+    # mma.sync ones (chain_kernel) HMMA
     wg = {k: c for k, c in sass.items() if "wg_chain_kernel" in k}
-    mma = {k: c for k, c in sass.items() if "wg_chain_kernel" not in k
-           and "chain_kernel" in k}
-    if (len(wg) != 10 or not mma or any(c["HGMMA"] == 0 for c in wg.values())
+    ring = {k: c for k, c in sass.items() if MXU_RING_KERNEL in k}
+    mma = {k: c for k, c in sass.items() if "chain_kernel" in k
+           and k not in wg and k not in ring}
+    if (len(wg) != 10 or len(ring) != 4 or not mma
+            or any(c["HGMMA"] == 0 or c["HMMA"] for c in (*wg.values(),
+                                                          *ring.values()))
             or any(c["HMMA"] == 0 for c in mma.values())):
         raise AssertionError(f"a matmul_chain kernel lacks its tensor-core "
                              f"instruction: {sass}")
+    # no ptxas note on the ring's wgmmas (serialised, fenced), and its
+    # shared memory as ops/matmul_chain.py::ring_smem_plan computes it
+    notes = [n for n in state.get("ptxas_wgmma", {}).get("matmul_chain", [])
+             if MXU_RING_KERNEL in n]
+    plans = {(name, d): mc.kernel_tiling(name, k, n or k, False, d)
+             for name, (k, n) in MXU_RING_SHAPES.items()
+             for d in ("served", "multicast")}
+    emit({"phase": "mxu", "ring_ptxas_notes": notes,
+          "ring_plans": {f"{a} {d}": p for (a, d), p in plans.items()}})
+    if notes:
+        raise AssertionError(f"ptxas serialised or fenced "
+                             f"wg_ring_chain_kernel's wgmmas: {notes}")
+    for (name, d), plan in plans.items():
+        want = mc.ring_smem_plan(name)
+        if (plan["route"] != "wgmma_ring" or plan["cluster"] != (d == "multicast") + 1
+                or plan["smem_bytes"] != want["smem_bytes"]
+                or plan["ring_slots"] != want["ring_slots"]):
+            raise AssertionError(f"{name} {d}: ring plan {plan} against {want}")
 
-    # 1. each kernel against its plain version, staged equal to unstaged,
-    # every planted fault further than the tolerance
+    # 1. each kernel against its plain version: every design of the shape
+    # (the ring's shapes: served, multicast, mma; else served, mma), every
+    # planted fault further than the tolerance from each, and the staged
+    # call bit-equal to the unstaged call of its own route (at the ring's
+    # shapes the staged variant runs chain_kernel: design "mma")
     r = MXU_CHECK_REPEAT
-    failures, worst = [], {}
+    failures, worst, ring_err = [], {}, {}
     for name, cases in MXU_CASES.items():
         fn, ref = mc.WRAPPERS[name], mc.REFERENCES[name]
         for i, (m, k, n) in enumerate(cases):
             x, ws = mxu_inputs(m, k, n, seed=i)
-            got = fn(x, *ws, r)
+            on_ring = mc.on_ring(name, k, n or k, False)
+            designs = mc.DESIGNS if on_ring else ("served", "mma")
+            outs = {d: fn(x, *ws, r, design=d) for d in designs}
             staged = fn(x, *ws, r, stage=True)
             torch.cuda.synchronize()
             want = ref(x, *ws, r).float()
+            fwant = {f: ref(x, *fws, r + dr).float()
+                     for f, (fws, dr) in mxu_faults(ws).items()}
             scale = want.abs().max().item()
-            err = (got.float() - want).abs().max().item()
-            faults = {f: (got.float() - ref(x, *fws, r + dr).float()).abs()
-                      .max().item() / scale
-                      for f, (fws, dr) in mxu_faults(ws).items()}
-            finite = bool(torch.isfinite(got.float()).all().item())
-            same = torch.equal(got, staged)
-            emit({"phase": "mxu", "kernel": name, "m": m, "k": k,
-                  "n": n or k, "repeat": r,
-                  **mc.kernel_tiling(name, k, n or k, False),
-                  "max_abs_err": err, "max_abs_plain": scale,
-                  "rel_err": err / scale, "tolerance": MXU_TOL,
-                  "staged_equals_unstaged": same,
-                  "rel_err_vs_planted_fault": faults, "finite": finite})
-            case = f"{name} ({m}, {k}, {n})"
-            if not (finite and err / scale <= MXU_TOL and same):
-                failures.append(f"{case}: rel err {err / scale}, staged equal "
-                                f"{same}, finite {finite}")
-            if not min(faults.values()) > MXU_TOL:
-                failures.append(f"{case}: a planted fault is within "
-                                f"tolerance {faults}")
-            if (k, n) == MXU_RECORD[name][:2] and m == MXU_M:
-                worst[name] = (err, err / scale)
-            del x, ws, got, staged, want
+            same = torch.equal(outs["mma" if on_ring else "served"], staged)
+            for d, got in outs.items():
+                err = (got.float() - want).abs().max().item()
+                faults = {f: (got.float() - fw).abs().max().item() / scale
+                          for f, fw in fwant.items()}
+                finite = bool(torch.isfinite(got.float()).all().item())
+                emit({"phase": "mxu", "kernel": name, "design": d, "m": m,
+                      "k": k, "n": n or k, "repeat": r,
+                      **mc.kernel_tiling(name, k, n or k, False, d),
+                      "max_abs_err": err, "max_abs_plain": scale,
+                      "rel_err": err / scale, "tolerance": MXU_TOL,
+                      "staged_equals_unstaged": same,
+                      "rel_err_vs_planted_fault": faults, "finite": finite})
+                case = f"{name} {d} ({m}, {k}, {n})"
+                if not (finite and err / scale <= MXU_TOL and same):
+                    failures.append(f"{case}: rel err {err / scale}, staged "
+                                    f"equal {same}, finite {finite}")
+                if not min(faults.values()) > MXU_TOL:
+                    failures.append(f"{case}: a planted fault is within "
+                                    f"tolerance {faults}")
+                if d == "served" and (k, n) == MXU_RECORD[name][:2] and m == MXU_M:
+                    worst[name] = (err, err / scale)
+                if on_ring and m == MXU_M:
+                    ring_err[name, d] = (err, err / scale)
+            del x, ws, outs, staged, want, fwant
     if failures:
         raise AssertionError("mxu kernels vs plain:\n" + "\n".join(failures))
 
     # 2. the benchmark at full size, as `python -m s2sr_tpu_torch.bench.mxu`
     # runs it, chains then pairs
     for key in mc.LAUNCHES:
-        mc.LAUNCHES[key] = 0
+        mc.LAUNCHES[key] = mc.LAUNCHES_RING[key] = 0
     lines = bench.run(MXU_KS, (), MXU_M, hi=MXU_HI,
                       emit=lambda obj: emit({"phase": "mxu", **obj}))
     lines += bench.run((), MXU_PAIRS, MXU_M, hi=MXU_HI,
                        emit=lambda obj: emit({"phase": "mxu", **obj}))
     torch.cuda.synchronize()
     launches = dict(mc.LAUNCHES)
+    ring_launches = dict(mc.LAUNCHES_RING)
     if not all(ln["finite"] for ln in lines):
         raise AssertionError(f"a benchmark chain is not finite: {lines}")
 
@@ -6231,20 +6281,60 @@ def phase_mxu(state):
               "k": k, "n": n or k, "repeat": MXU_HI,
               "bench_launches": launches[name], **numbers[name]})
         del x, ws
-    # the shapes still on mma.sync (the chain at K 512, the 384×192 pair)
-    # against cuBLAS at repeat 1024, from the benchmark's lines
-    for name, (k, n, kernel_bench, lib_bench) in MXU_MMA_SHAPES.items():
-        line = {ln["bench"]: ln for ln in lines
-                if ln["k"] == k and ln["n"] == (n or k)}
-        emit({"phase": "mxu", "card": card, "kernel": name, "route": "mma.sync",
+    # 5. the ring's shapes in turns at repeat MXU_HI: the served ring, its
+    # multicast instance, the mma.sync kernel and cuBLAS, medians of
+    # MXU_RING_TURNS turns (forward, then backward), beside the plain
+    # version's ms and the W bytes each ring design streams from L2
+    import statistics
+
+    for key in mc.LAUNCHES:
+        mc.LAUNCHES_MULTICAST[key] = mc.LAUNCHES_MMA[key] = 0
+    ring = {}
+    for name, (k, n) in MXU_RING_SHAPES.items():
+        x, ws = mxu_inputs(MXU_M, k, n, seed=0)
+        fn = mc.WRAPPERS[name]
+        lib = (mc.matmul_chain_library if n is None else mc.pair_chain_library)
+        runs = {"served": lambda: fn(x, *ws, MXU_HI),
+                "multicast": lambda: fn(x, *ws, MXU_HI, design="multicast"),
+                "mma": lambda: fn(x, *ws, MXU_HI, design="mma"),
+                "library": lambda: lib(x, *ws, MXU_HI)}
+        times = {d: [] for d in runs}
+        for turn in range(MXU_RING_TURNS):
+            order = list(runs) if turn % 2 == 0 else list(runs)[::-1]
+            for d in order:
+                times[d].append(time_cuda(runs[d], iters=2, warmup=1))
+        ms = {d: statistics.median(t) for d, t in times.items()}
+        plain_ms = time_cuda(lambda: mc.REFERENCES[name](x, *ws, MXU_HI),
+                             iters=1, warmup=1)
+        bound = bench.bound_ms(MXU_M, k, n, MXU_HI)
+        ring[name] = {"ms": ms, "times": times, "plain_ms": plain_ms,
+                      "bound_ms": bound,
+                      "l2_bytes": {"served": mxu_l2_bytes(MXU_M, k, n, MXU_HI, 128),
+                                   "multicast": mxu_l2_bytes(MXU_M, k, n, MXU_HI, 256)}}
+        emit({"phase": "mxu", "card": card, "kernel": name, "ring_timing": True,
               "m": MXU_M, "k": k, "n": n or k, "repeat": MXU_HI,
-              "ms": line[kernel_bench]["ms_hi"],
-              "bound_ms": line[kernel_bench]["bound_ms_hi"],
-              "library_ms": line[lib_bench]["ms_hi"],
-              "over_library": line[kernel_bench]["ms_hi"]
-              / line[lib_bench]["ms_hi"]})
+              "groups": {d: mc.ring_groups(name, d, MXU_M)
+                         for d in ("served", "multicast")},
+              **{f"{d}_ms": v for d, v in ms.items()}, "turns": times,
+              "bound_ms": bound, "plain_ms": plain_ms,
+              "served_over_bound": ms["served"] / bound,
+              "served_over_library": ms["served"] / ms["library"],
+              "multicast_over_served": ms["multicast"] / ms["served"],
+              "mma_over_served": ms["mma"] / ms["served"],
+              "l2_bytes": ring[name]["l2_bytes"],
+              "l2_tb_s": {d: b / (ms[d] * 1e9)
+                          for d, b in ring[name]["l2_bytes"].items()},
+              "bench_ms": {ln["bench"]: ln["ms_hi"] for ln in lines
+                           if ln["k"] == k and ln["n"] == (n or k)}})
+        del x, ws
+    torch.cuda.synchronize()
+    design_launches = {"multicast": dict(mc.LAUNCHES_MULTICAST),
+                       "mma": dict(mc.LAUNCHES_MMA)}
     mc.LAUNCHES.update(launches0)
-    state["mxu"] = {"launches": launches, "numbers": numbers, "err": worst}
+    state["mxu"] = {"launches": launches, "numbers": numbers, "err": worst,
+                    "ring": ring, "ring_err": ring_err,
+                    "ring_launches": ring_launches,
+                    "design_launches": design_launches}
     emit({"phase": "mxu", "seconds": round(time.perf_counter() - t0, 3)})
 
 
@@ -7190,6 +7280,23 @@ def kernels_record(state) -> list | None:
                      "replaces": replaces, "launches": mxu["launches"][name],
                      "max_abs_err": err, "rel_err": rel,
                      **mxu["numbers"][name]})
+    # the ring's shapes: the served ring (launched on the benchmark), its
+    # multicast instance and the mma.sync kernel (launched by the timing)
+    for name, numbers in mxu["ring"].items():
+        for d in ("served", "multicast", "mma"):
+            err, rel = mxu["ring_err"][name, d]
+            launches = (mxu["ring_launches"][name] if d == "served"
+                        else mxu["design_launches"][d][name])
+            suffix = "" if d == "served" else f"_{d}"
+            rows.append({"name": MXU_RING_NAMES[name] + suffix, "route": "cuda",
+                         "source": "s2sr_tpu_torch/csrc/matmul_chain.cu",
+                         "replaces": MXU_REPLACES[name], "instance_of": name,
+                         "launches": launches, "max_abs_err": err,
+                         "rel_err": rel, "ms": numbers["ms"][d],
+                         "plain_ms": numbers["plain_ms"],
+                         "bound_ms": numbers["bound_ms"],
+                         "bound_by": "operations",
+                         "library_ms": numbers["ms"]["library"]})
     return rows
 
 

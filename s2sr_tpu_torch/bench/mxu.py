@@ -7,7 +7,9 @@ it stands for:
 - ``cuda_dot`` (``pallas_dot``): ``repeat`` chained (M, K)×(K, K) bf16
   products with float32 accumulation in one launch of the hand-written
   kernel ``csrc/matmul_chain.cu`` (``ops/matmul_chain.py::matmul_chain``):
-  the tensor cores' rate with the carry resident in shared memory;
+  the tensor cores' rate with the carry in registers, W resident in
+  shared memory where it fits and streamed through a ring of slabs at
+  K 512;
 - ``cuda_dot_stage`` (``pallas_dot_stage``): the same, each product's
   output stored in three slots first, as the TPU's v2 kernel stages its
   taps: the cost of staging;

@@ -24,8 +24,15 @@
 // - wgmma (wg_chain_kernel, the path wherever an instance exists and W
 //   fits shared memory): the carry stays in registers from step to step;
 //   the section "the wgmma path" below says how.
-// - mma.sync (chain_kernel: K 512, the 384 x 192 pair and widths without a
-//   wgmma instance): mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
+// - wgmma with W streamed (wg_ring_chain_kernel: the unstaged chain at
+//   K 512 and the unstaged 384 x 192 pair, whose W, 512 and 288 KB, does
+//   not fit a block): W goes through a ring of slabs in shared memory
+//   every step; design="multicast" runs its instance that multicasts each
+//   slab to both blocks of a 2-block cluster, which nothing serves (it is
+//   slower); the section "the ring path" below says how.
+// - mma.sync (chain_kernel: the staged variants at those two shapes,
+//   widths without a wgmma instance, and design="mma" at any shape, a
+//   timing baseline): mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 //   A from shared memory through ldmatrix, B as 16-byte fragment loads.
 //   Each warp owns 16 rows (one m16 tile): the carry lives in the warp's
 //   own rows of shared memory. Step i+1 reads every column of step i's
@@ -86,14 +93,27 @@ struct Plan {
   int copies;
   int kmax;
   long long smem;
-  int wgmma;             // 1: wg_chain_kernel (below), 0: chain_kernel
+  int wgmma;             // 1: the B operand packed for wgmma, 0: for mma.sync
+  int path;              // 0 chain_kernel, 1 wg_chain_kernel, 2 wg_ring_chain_kernel
+  int threads;           // threads a block
+  int slots;             // slots of the B ring (the ring path), else 0
+  int cluster;           // blocks a cluster (2: the ring's multicast), else 1
+  int cols;              // columns of a B slab (the ring path), else 0
 };
 
-Plan make_plan(int k, int n, int pair, int stage);
+// The kernels a call can launch: the served route for its shape, the ring
+// kernel's multicast instance on a 2-block cluster (MULTICAST, ring shapes
+// only) and chain_kernel (MMA, any shape): the last two are timing
+// baselines nothing serves.
+enum Design : int { SERVED = 0, MULTICAST = 1, MMA = 2 };
 
 Plan make_mma_plan(int k, int n, int pair, int stage) {
   Plan p;
   p.wgmma = 0;
+  p.path = 0;
+  p.slots = 0;
+  p.cluster = 1;
+  p.cols = 0;
   const int width = pair && n > k ? n : k;          // widest product output
   p.copies = stage ? (pair ? 2 : 3) : 1;
   p.ldc = p.copies * width + PAD;
@@ -107,6 +127,7 @@ Plan make_mma_plan(int k, int n, int pair, int stage) {
   const long long nw = p.w_smem ? fit : SMEM_LIMIT / carry;
   p.warps = (int)(nw < cap ? nw : cap);
   p.smem = (p.w_smem ? wbytes : 0) + p.warps * carry;
+  p.threads = p.warps * 32;
   return p;
 }
 
@@ -672,14 +693,542 @@ const WgInstance* find_instance(int k, int n, int pair) {
   return nullptr;
 }
 
-// The wgmma path where an instance exists and its weights (and, staged,
-// at least one warpgroup's stage) fit shared memory; else chain_kernel.
-// K 512 and the 384 x 192 pair (weights of 512 and 288 KB) take the latter.
-Plan make_plan(int k, int n, int pair, int stage) {
+// --- the ring path ------------------------------------------------------------
+//
+// wg_ring_chain_kernel<K, N, PAIR, MCAST> serves the unstaged chain at K 512
+// and the unstaged 384 x 192 pair, whose weights (512 KB; w1 + w2 288 KB)
+// do not fit the block's 232,448 B. Under chain_kernel each warp read every
+// B fragment of W from L2 every step (16 rows of work a byte of W, ~16
+// FLOP a byte: 934 GB of fragment loads a launch at K 512, M 27,840,
+// repeat 1024), and the tensor cores idled behind them.
+//
+// Each step needs all of W, so each block streams W once a step through
+// shared memory and shares every slab among all of its rows: the FLOP a
+// byte of W streamed equals the rows that share the slab. With 128 rows a
+// block, L2 would have to give 989e12 / 128 ~ 7.7 TB/s to keep up with the
+// tensor cores, above the ~4.7 TB/s copy rate measured on this card; with
+// each slab multicast to both blocks of a 2-block cluster (256 rows a
+// slab), 3.9 TB/s. At K 512, M 27,840, repeat 1024 that is 218 row tiles x
+// 1024 steps x 512 KiB = 117 GB from L2 a launch (58.5 GB with the
+// cluster); the pair 65.8 GB (32.9 GB). On the card (chip_smoke.py phase
+// mxu, NVIDIA H100) L2 gave the 128-row blocks more than 5 TB/s, and the
+// served ring, without the cluster, runs close to the tensor cores' rate;
+// the multicast instance, which halves the L2 reads, runs slower: every
+// slot it refills waits for both blocks' readers, which couples the two
+// SMs. So the served route is the ring without the cluster, and the
+// multicast instance (MCAST) is timed beside it (design="multicast").
+//
+// A block: 256 threads, two warpgroups of 64 rows each, one block an SM
+// (__launch_bounds__(256, 1)), and no producer. Registers set the shape:
+// the chain at K 512 holds A (64 x 512 bf16: 128 registers) and a
+// 128-column float32 accumulator (64), 192 and addressing; the pair holds
+// x (96) and a 192-column accumulator (96) in product 1, and in product 2
+// mid (48), the first half's packed output (48) and a 192-column
+// accumulator (96). ptxas allocates every thread the launch's share,
+// counting warps in fours and whatever setmaxnreg grants at run time:
+// with a producer warp (288 threads) or warpgroup (384) it held these
+// threads to 168 registers, spilling 0.4-4.5 KB a thread with the wgmmas
+// serialised (C7512; NVIDIA H100, measured on the way to this design).
+// 256 threads leave 255.
+//
+// W is packed once a call into slabs of 64 K values x COLS columns in the
+// wgmma K-major image with the 128-byte swizzle (pack_wgmma's layout, one
+// slab = one K block of it), in the order the consumers read them
+// (ops/matmul_chain.py::pack_wgmma_slabs). One cp.async.bulk a slab,
+// completing on the slot's `full` mbarrier in each block it lands in.
+// Without a producer, the consumers refill the ring themselves: each
+// warp's lane 0, once the warp's wgmmas on a slab have completed, adds one
+// to its block's count of the slot (atom.shared); the warp that completes
+// the block's count of 8 adds one to the cluster's count of the slot (in
+// the rank-0 block, through mapa; without the cluster it is the last), and
+// the warp that completes that count issues the slab SLOTS after the
+// released one into the slot: it arms the full barrier of every block the
+// copy lands in (mbarrier.arrive.expect_tx, the partner's through mapa)
+// and issues the copy. So no thread waits for a slot: a slab is issued as
+// soon as the last of its slot's readers lets it go (under MCAST a slab
+// later: ring_free says why), and the ring holds SLOTS slabs ahead of the
+// slowest reader. Designs the card ruled out on the way (NVIDIA H100):
+// a consumer thread that issued the copies and waited for the slot two
+// slabs back, or polled for free slots, put the copies on a warpgroup's
+// path and coupled the warpgroups and the cluster's blocks; a remote
+// release at cluster scope (.release.cluster / .acq_rel.cluster) cost
+// more than the multicast saved, and waiting for the remote count's
+// return still did. The slab sequence is W's again every step, so the
+// copies run ahead across step and tile boundaries and the ring never
+// drains at one.
+//
+// - Chain, K 512: 4 output chunks of 128 columns x 8 K slabs of 64 (16 KiB
+//   a slab, 32 a step). A stays in registers (m64n128k16, A from
+//   registers). A step cannot overwrite A until its last chunk is done, so
+//   chunks 0-2 are written as bf16 into the warpgroup's stage tile, 64 x
+//   (384 + 8) bf16 (50,176 B; each thread stores and reloads only its own
+//   fragment places, so no barrier, and the 392-element row keeps a warp's
+//   stores on 32 banks), and chunk 3 goes straight into A's last 8 K
+//   slabs; then A's first 24 are reloaded from the stage. Shared memory:
+//   1,024 alignment + 7 slots x 16,384 + 2 x 50,176 + 7 x 16 bytes of a
+//   slot's barrier and two counts = 216,176 of 232,448 (an eighth slot
+//   would make 232,576).
+// - Pair, 384 x 192: slabs of 64 K x 192 columns (24 KiB). w1 is 6 slabs;
+//   w2 is 3 K slabs x 2 halves of 192 output columns: 12 a step. Product 1
+//   is x @ w1 into 96 registers, rounded to bf16 mid in registers; product
+//   2 runs mid @ w2 a half at a time (m64n192k16), the first half's packed
+//   output held in x's first 12 K slabs (x is dead by then) while the
+//   second runs; together they are the next x. No stage; 8 slots: 1,024 +
+//   8 x 24,576 + 8 x 16 = 197,760 B.
+// - The staged variants stay on chain_kernel: their stage, the chain's 3
+//   copies and the pair's 2 side by side, takes 64 x (3 x 512 + 8) x 2 =
+//   197,632 B and 64 x (2 x 384 + 8) x 2 = 99,328 B a warpgroup; two
+//   warpgroups' stages leave no room for a ring of even 2 slots.
+// - MCAST false (served): each block walks 128-row tiles, persistent over
+//   as many blocks as can be resident (one an SM), its own warps refilling
+//   its ring.
+// - MCAST (design="multicast", never served): the grid is clusters of 2
+//   blocks. Each slab is multicast to both (cp.async.bulk ...
+//   multicast::cluster, CTA mask 0b11) by whichever warp of the two
+//   blocks released its slot last; each block's full barrier expects the
+//   whole slab's bytes. The rank-0 block's thread 0 issues the first
+//   SLOTS slabs. A cluster barrier follows the barriers' init and precedes
+//   the exit, so that no block exits while its partner can still write
+//   its shared memory, count on its counters or arm its barriers. The
+//   cluster walks 256-row cluster tiles (rank r takes rows 128 r..),
+//   persistent over as many clusters as can be resident
+//   (cudaOccupancyMaxActiveClusters). A block whose rows all lie past M
+//   (the last cluster tile, or M <= 128) runs the ring in step on zero
+//   rows and stores nothing: otherwise the cluster hangs.
+// - No branch on the warpgroup surrounds a wgmma (ptxas serialises them);
+//   every input of a slab's wgmmas (A, the descriptors, the accumulators)
+//   is defined before its fence. Every product sums in float32 from zeroed
+//   accumulators over the same slabs in the same order wherever its row
+//   lies, and rounds to bf16 (RN).
+
+constexpr int RING_CONSUMER_WARPS = 8;
+constexpr int RING_THREADS = 2 * WG_THREADS;         // 256
+constexpr int RING_MAX_SLOTS = 8;
+
+// The ring kernel's shape at (K, N, PAIR): a slab's columns (the wgmma's N)
+// and bytes, slabs a step, the stage's row (bf16) and bytes a warpgroup,
+// the ring's slots and the block's dynamic shared bytes.
+template <int K, int N, bool PAIR>
+struct RingShape {
+  static_assert(PAIR ? K % 64 == 0 && N % 64 == 0 && K % N == 0 && N <= 256
+                     : K % 128 == 0 && K > 128,
+                "ring shape");
+  static constexpr int COLS = PAIR ? N : 128;
+  static constexpr int SLAB = COLS * 128;
+  static constexpr int STEP = PAIR ? K / 64 + (N / 64) * (K / N) : (K / 128) * (K / 64);
+  static constexpr int LDS = PAIR ? 0 : K - 128 + PAD;
+  static constexpr int STAGE = 2 * WG_ROWS * LDS;
+  static constexpr long long FIT = (SMEM_LIMIT - 1024 - 2LL * STAGE) / (SLAB + 16);
+  static constexpr int SLOTS = FIT < RING_MAX_SLOTS ? (int)FIT : RING_MAX_SLOTS;
+  static constexpr long long SMEM = 1024 + (long long)SLOTS * SLAB + 2LL * STAGE + 16LL * SLOTS;
+  static_assert(SLOTS >= 2 && SMEM <= SMEM_LIMIT, "ring fit");
+};
+
+struct RingArgs {
+  const bf16* x;
+  bf16* out;
+  const unsigned char* w;   // one step's slabs in order (pack_wgmma_slabs)
+  int m, repeat;
+};
+
+// The ring as a thread sees it: the slots, full barriers and the block's
+// counts of the slots (shared::cta addresses); under MCAST the cluster's
+// counts (in the rank-0 block) and the partner's full barriers
+// (shared::cluster addresses); the slot of the next slab to consume and
+// its phase; the slab stream; and, for the next slab to be released, the
+// place in the step of the slab its release refills the slot with and
+// how many slabs are still to be issued after that one.
+struct RingState {
+  uint32_t slots, full, cnt, ccnt, pfull;
+  int slot;
+  uint32_t phase;
+  const unsigned char* w;
+  int src;
+  long long left;
+  uint32_t pend;      // MCAST, lane 0: the cluster count the last release read
+};
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+// Orders the accumulators around the wgmmas for the compiler, which sees no
+// register operand on the fence or the wait (CUTLASS's
+// warpgroup_fence_operand).
+template <int NA>
+__device__ __forceinline__ void fence_acc(float (&d)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Waits for the phase of parity `parity` of the mbarrier at `bar`; a wait of
+// 2^33 clocks (seconds) traps, so that a fault in the ring's bookkeeping
+// ends the launch with an error instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile("{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+               "mov.u64 t0, %%clock64;\n"
+               "WAIT:\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+               "@p bra DONE;\n"
+               "mov.u64 t1, %%clock64;\n"
+               "sub.u64 t1, t1, t0;\n"
+               "setp.lt.u64 p, t1, 8589934592;\n"
+               "@p bra WAIT;\n"
+               "trap;\n"
+               "DONE:\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of the cluster's blocks, released and acquired at cluster
+// scope
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the shared::cluster address of `addr` in the block of cluster rank `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Slab `src` of the stream into `slot`: the full barrier of every block it
+// lands in armed with its bytes, then one bulk copy (under MCAST to both
+// blocks of the cluster).
+template <class S, bool MCAST>
+__device__ __forceinline__ void ring_fill(const RingState& r, int slot, int src) {
+  const uint32_t bar = r.full + 8 * slot;
+  const uint32_t dst = r.slots + (uint32_t)slot * S::SLAB;
+  const unsigned char* from = r.w + (size_t)src * S::SLAB;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(S::SLAB) : "memory");
+  if constexpr (MCAST) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cluster.b64 _, [%0], %1;\n"
+                 ::"r"(r.pfull + 8 * slot), "r"(S::SLAB) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+                 ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
+                 ::"r"(dst), "l"(from), "r"(S::SLAB), "r"(bar), "h"((unsigned short)3)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1], %2, [%3];\n"
+                 ::"r"(dst), "l"(from), "r"(S::SLAB), "r"(bar) : "memory");
+  }
+}
+
+// This warp's wgmmas on the slab in `slot` have completed. Lane 0 counts it
+// in its block; the warp that completes the block's count refills the slot
+// with the slab SLOTS later or, under MCAST, counts the block in the
+// cluster, and the warp that completes the cluster's count refills it.
+// The cluster count is a remote atomic: its old value is read only at the
+// warp's next release, one slab later, so that its round trip overlaps the
+// products instead of holding the warpgroup (the slot released before this
+// one is the one refilled then).
+template <class S, bool MCAST>
+__device__ __forceinline__ void ring_free(RingState& r, int slot, int lane) {
+  if (lane == 0) {
+    if constexpr (MCAST) {
+      if (r.pend & 1) {
+        const int before = slot == 0 ? S::SLOTS - 1 : slot - 1;
+        if (r.left >= 0) ring_fill<S, MCAST>(r, before, r.src == 0 ? S::STEP - 1 : r.src - 1);
+      }
+      r.pend = 0;
+    }
+    uint32_t old;
+    asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+                 : "=r"(old) : "r"(r.cnt + 4 * slot) : "memory");
+    const bool last = (old & (RING_CONSUMER_WARPS - 1)) == RING_CONSUMER_WARPS - 1;
+    if constexpr (MCAST) {
+      if (last)
+        asm volatile("atom.relaxed.cluster.shared::cluster.add.u32 %0, [%1], 1;\n"
+                     : "=r"(r.pend) : "r"(r.ccnt + 4 * slot) : "memory");
+    } else {
+      if (last && r.left > 0) ring_fill<S, MCAST>(r, slot, r.src);
+    }
+  }
+  if (++r.src == S::STEP) r.src = 0;
+  --r.left;
+}
+
+// acc = A @ B over K = 16 KS: the KS / 4 slabs of the ring from its current
+// slot on, 64 K x S::COLS each. Per slab: its four wgmmas (A's K slabs
+// 4j..4j+3), one commit, then wait_group 1: the slab before has then been
+// read and is released. Fully unrolled; from zeroed accumulators.
+template <class S, int KS, bool MCAST>
+__device__ __forceinline__ void ring_product(float (&acc)[S::COLS / 2],
+                                             const uint32_t (&a)[KS][4],
+                                             RingState& r, int lane) {
+#pragma unroll
+  for (int i = 0; i < S::COLS / 2; ++i) acc[i] = 0.f;
+  int prev = 0;
+#pragma unroll
+  for (int j = 0; j < KS / 4; ++j) {
+    mbar_wait(r.full + 8 * r.slot, r.phase);
+    // every input of the slab's wgmmas defined before the fence (ptxas C7513)
+    uint64_t d[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      d[kk] = b_desc(r.slots + (uint32_t)r.slot * S::SLAB + 32 * kk);
+      asm volatile("" : "+l"(d[kk])::"memory");
+    }
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<S::COLS>(acc, a[4 * j + kk], d[kk], 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (j > 0) ring_free<S, MCAST>(r, prev, lane);
+    prev = r.slot;
+    if (++r.slot == S::SLOTS) {
+      r.slot = 0;
+      r.phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  ring_free<S, MCAST>(r, prev, lane);
+}
+
+// One warp's 16 rows of the chain from row0 for `repeat` steps; `stage` is
+// the warp's 16 rows of its warpgroup's stage tile (rows of S::LDS bf16).
+template <class S, int K, bool MCAST>
+__device__ __forceinline__ void ring_chain(const RingArgs& p, RingState& r,
+                                           uint32_t stage, int row0, int lane) {
+  constexpr int KS = K / 16, C = K / 128;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t a[KS][4];
+  rows_io<K, true>(a, p.x, nullptr, row0, p.m, lane);
+  for (int step = 0; step < p.repeat; ++step) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float acc[64];
+      ring_product<S, KS, MCAST>(acc, a, r, lane);
+      // register q of slab s: row g + 8 (q & 1), columns 16 s + 8 (q >> 1)
+      // + 2t (+1) of the chunk, from acc[8 s + 2 q], acc[8 s + 2 q + 1]
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t v = pack_bf16(acc[8 * s + 2 * q], acc[8 * s + 2 * q + 1]);
+          if (c < C - 1)
+            st_shared(stage + 2 * ((g + 8 * (q & 1)) * S::LDS + 128 * c + 16 * s +
+                                   8 * (q >> 1) + 2 * t), v);
+          else
+            a[KS - 8 + s][q] = v;
+        }
+    }
+#pragma unroll
+    for (int s = 0; s < KS - 8; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        a[s][q] = ld_shared(stage + 2 * ((g + 8 * (q & 1)) * S::LDS + 16 * s +
+                                         8 * (q >> 1) + 2 * t));
+  }
+  rows_io<K, false>(a, nullptr, p.out, row0, p.m, lane);
+}
+
+// One warp's 16 rows of the pair from row0 for `repeat` steps.
+template <class S, int K, int N, bool MCAST>
+__device__ __forceinline__ void ring_pair(const RingArgs& p, RingState& r,
+                                          int row0, int lane) {
+  constexpr int KS = K / 16, NS = N / 16;
+  uint32_t a[KS][4];
+  rows_io<K, true>(a, p.x, nullptr, row0, p.m, lane);
+  for (int step = 0; step < p.repeat; ++step) {
+    uint32_t mid[NS][4];
+    {
+      float acc[N / 2];
+      ring_product<S, KS, MCAST>(acc, a, r, lane);
+      to_operand<N>(mid, acc);
+    }
+    // x is dead: half h of the next x goes into its K slabs NS h..
+#pragma unroll
+    for (int h = 0; h < K / N; ++h) {
+      float acc[N / 2];
+      ring_product<S, NS, MCAST>(acc, mid, r, lane);
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          a[h * NS + s][q] = pack_bf16(acc[8 * s + 2 * q], acc[8 * s + 2 * q + 1]);
+    }
+  }
+  rows_io<K, false>(a, nullptr, p.out, row0, p.m, lane);
+}
+
+template <int K, int N, bool PAIR, bool MCAST>
+__global__ void __launch_bounds__(RING_THREADS, 1) wg_ring_chain_kernel(RingArgs p) {
+  using S = RingShape<K, N, PAIR>;
+  constexpr int CL = MCAST ? 2 : 1;
+  RingState r;
+  r.slots = (smem_addr(smem) + 1023) & ~1023u;       // the swizzle's 1024-byte atoms
+  const uint32_t stage0 = r.slots + S::SLOTS * S::SLAB;
+  r.full = stage0 + 2 * S::STAGE;
+  r.cnt = r.full + 8 * S::SLOTS;
+  r.slot = 0;
+  r.phase = 0;
+  const uint32_t rank = MCAST ? cluster_rank() : 0;
+  r.ccnt = MCAST ? mapa(r.cnt + 4 * S::SLOTS, 0) : 0;
+  r.pfull = MCAST ? mapa(r.full, rank ^ 1u) : 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::SLOTS; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(r.full + 8 * i) : "memory");
+    }
+    for (int i = 0; i < 2 * S::SLOTS; ++i) st_shared(r.cnt + 4 * i, 0u);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (MCAST) cluster_sync();
+  else __syncthreads();
+  // the blocks of a cluster walk the same cluster tiles of CL x 128 rows
+  const int group = blockIdx.x / CL, groups = gridDim.x / CL;
+  const int gtiles = (p.m + CL * 2 * WG_ROWS - 1) / (CL * 2 * WG_ROWS);
+  const long long total = (group < gtiles ? (gtiles - 1 - group) / groups + 1 : 0) *
+                          (long long)p.repeat * S::STEP;
+  r.w = p.w;
+  r.src = S::SLOTS % S::STEP;
+  r.left = total - S::SLOTS;
+  r.pend = 0;
+  // the first SLOTS slabs (under MCAST the rank-0 block's, to both)
+  if (threadIdx.x == 0 && rank == 0)
+    for (int i = 0; i < S::SLOTS && i < total; ++i) ring_fill<S, MCAST>(r, i, i % S::STEP);
+  const int lane = threadIdx.x & 31;
+  const int wg = threadIdx.x / WG_THREADS, warp = (threadIdx.x / 32) % 4;
+  const uint32_t stage = stage0 + wg * S::STAGE + 2 * warp * 16 * S::LDS;
+  for (int gt = group; gt < gtiles; gt += groups) {
+    const int row0 = (gt * CL + (int)rank) * 2 * WG_ROWS + wg * WG_ROWS + warp * 16;
+    if constexpr (PAIR) ring_pair<S, K, N, MCAST>(p, r, row0, lane);
+    else ring_chain<S, K, MCAST>(p, r, stage, row0, lane);
+  }
+  if constexpr (MCAST) cluster_sync();
+}
+
+// The shapes the ring serves (unstaged): the chain at K 512, the pair at
+// 384 x 192.
+bool ring_shape(int k, int n, int pair) {
+  return pair ? k == 384 && n == 192 : k == 512;
+}
+
+template <int K, int N, bool PAIR>
+Plan ring_plan(bool mcast) {
+  using S = RingShape<K, N, PAIR>;
+  Plan p;
+  p.path = 2;
+  p.wgmma = 1;
+  p.w_smem = 0;
+  p.kmax = 0;
+  p.copies = 0;
+  p.ldc = S::LDS;
+  p.warps = RING_CONSUMER_WARPS;
+  p.threads = RING_THREADS;
+  p.slots = S::SLOTS;
+  p.cluster = mcast ? 2 : 1;
+  p.cols = S::COLS;
+  p.smem = S::SMEM;
+  return p;
+}
+
+// The launch of the ring kernel at M rows: its dynamic shared memory set,
+// the cluster dimension under MCAST, and the grid persistent over as many
+// groups (clusters, or blocks) as can be resident at once.
+template <int K, int N, bool PAIR, bool MCAST>
+cudaError_t ring_config(int m, cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                        int& groups) {
+  void (*kernel)(RingArgs) = wg_ring_chain_kernel<K, N, PAIR, MCAST>;
+  using S = RingShape<K, N, PAIR>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
+  if (e != cudaSuccess) return e;
+  constexpr int CL = MCAST ? 2 : 1;
+  const int gtiles = (m + CL * 2 * WG_ROWS - 1) / (CL * 2 * WG_ROWS);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg = {};
+  cfg.gridDim = dim3(CL * gtiles);
+  cfg.blockDim = dim3(RING_THREADS);
+  cfg.dynamicSmemBytes = (size_t)S::SMEM;
+  cfg.attrs = attr;
+  cfg.numAttrs = MCAST ? 1 : 0;
+  groups = 0;
+  if constexpr (MCAST) {
+    if ((e = cudaOccupancyMaxActiveClusters(&groups, kernel, &cfg)) != cudaSuccess)
+      return e;
+  } else {
+    int dev = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&groups, cudaDevAttrMultiProcessorCount, dev)) !=
+        cudaSuccess)
+      return e;
+  }
+  if (groups < 1) return cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3(CL * (groups < gtiles ? groups : gtiles));
+  return cudaSuccess;
+}
+
+template <int K, int N, bool PAIR, bool MCAST>
+int launch_ring(const Args& a, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int groups = 0;
+  cudaError_t e = ring_config<K, N, PAIR, MCAST>(a.m, cfg, attr, groups);
+  if (e != cudaSuccess) return (int)e;
+  cfg.stream = stream;
+  RingArgs r;
+  r.x = a.x;
+  r.out = a.out;
+  r.w = reinterpret_cast<const unsigned char*>(a.w[0]);
+  r.m = a.m;
+  r.repeat = a.repeat;
+  if ((e = cudaLaunchKernelEx(&cfg, wg_ring_chain_kernel<K, N, PAIR, MCAST>, r)) !=
+      cudaSuccess)
+    return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int K, int N, bool PAIR, bool MCAST>
+int ring_groups(int m) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int groups = 0;
+  const cudaError_t e = ring_config<K, N, PAIR, MCAST>(m, cfg, attr, groups);
+  return e == cudaSuccess ? (int)cfg.gridDim.x / (MCAST ? 2 : 1) : -(int)e;
+}
+
+int launch_ring_plan(const Args& a, const Plan& p, cudaStream_t st) {
+  const bool mc = p.cluster == 2;
+  if (a.pair)
+    return mc ? launch_ring<384, 192, true, true>(a, st)
+              : launch_ring<384, 192, true, false>(a, st);
+  return mc ? launch_ring<512, 512, false, true>(a, st)
+            : launch_ring<512, 512, false, false>(a, st);
+}
+
+// design MMA: chain_kernel. Else the ring for the unstaged chain at K 512
+// and the unstaged 384 x 192 pair (weights of 512 and 288 KB; their staged
+// variants take chain_kernel, the ring section says why); else the wgmma
+// path where an instance exists and its weights (and, staged, at least one
+// warpgroup's stage) fit shared memory; else chain_kernel.
+Plan make_plan(int k, int n, int pair, int stage, int design) {
+  if (design == MMA) return make_mma_plan(k, n, pair, stage);
+  if (!stage && ring_shape(k, n, pair))
+    return pair ? ring_plan<384, 192, true>(design == MULTICAST)
+                : ring_plan<512, 512, false>(design == MULTICAST);
   const WgInstance* w = find_instance(k, n, pair);
   if (!w) return make_mma_plan(k, n, pair, stage);
   Plan p;
   p.wgmma = 1;
+  p.path = 1;
+  p.slots = 0;
+  p.cluster = 1;
+  p.cols = 0;
   p.w_smem = 1;
   p.kmax = 0;
   p.copies = stage ? (pair ? 2 : 3) : 0;
@@ -692,6 +1241,7 @@ Plan make_plan(int k, int n, int pair, int stage) {
   if (per_wg && (SMEM_LIMIT - fixed) / per_wg < nwg) nwg = (SMEM_LIMIT - fixed) / per_wg;
   if (fixed > SMEM_LIMIT || nwg < 1) return make_mma_plan(k, n, pair, stage);
   p.warps = (int)nwg * 4;
+  p.threads = p.warps * 32;
   p.smem = fixed + nwg * per_wg;
   return p;
 }
@@ -740,24 +1290,29 @@ int launch_kmax(const Args& a, const Plan& p, cudaStream_t stream) {
                   : launch<KMAX, false>(a, p, stream);
 }
 
-bool valid(int m, int k, int n, int pair, int repeat) {
+bool valid(int m, int k, int n, int pair, int repeat, int stage, int design) {
   const auto dim_ok = [](int d) { return d >= 16 && d <= MAX_WIDTH && d % 16 == 0; };
-  return m >= 1 && repeat >= 0 && dim_ok(k) && (!pair || dim_ok(n));
+  return m >= 1 && repeat >= 0 && dim_ok(k) && (!pair || dim_ok(n)) &&
+         (stage == 0 || stage == 1) && design >= SERVED && design <= MMA &&
+         (design != MULTICAST || (!stage && ring_shape(k, n, pair)));
 }
 
 }  // namespace
 
 // x, out: (M, K) bf16, contiguous, 16-byte aligned. w1: the chain's W (K, K)
 // or the pair's w1 (K, N); w2: the pair's w2 (N, K), unused by the chain;
-// both fragment-packed bf16 (ops/matmul_chain.py::pack_fragments). pair: 0
-// chain, 1 pair; stage: 0 or 1. K and N are multiples of 16 in [16, 512].
+// both packed as the plan's path takes them (ops/matmul_chain.py:
+// pack_fragments for mma.sync, pack_wgmma for wg_chain_kernel; for the
+// ring, w1 is one step's slabs, pack_wgmma_slabs, and w2 is unused). pair:
+// 0 chain, 1 pair; stage: 0 or 1; design: 0 served, 1 multicast (the ring
+// shapes, unstaged), 2 mma. K and N are multiples of 16 in [16, 512].
 // Returns the CUDA error code of the launch (0 = success).
 extern "C" int s2sr_matmul_chain_forward(const void* x, void* out,
                                          const void* w1, const void* w2, int M,
                                          int K, int N, int repeat, int pair,
-                                         int stage, void* stream) {
-  if (!valid(M, K, N, pair, repeat)) return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(K, N, pair, stage);
+                                         int stage, int design, void* stream) {
+  if (!valid(M, K, N, pair, repeat, stage, design)) return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(K, N, pair, stage, design);
   Args a;
   a.x = static_cast<const bf16*>(x);
   a.out = static_cast<bf16*>(out);
@@ -771,7 +1326,8 @@ extern "C" int s2sr_matmul_chain_forward(const void* x, void* out,
   a.copies = p.copies;
   a.ldc = p.ldc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.wgmma) return launch_wgmma(a, p, st);
+  if (p.path == 2) return launch_ring_plan(a, p, st);
+  if (p.path == 1) return launch_wgmma(a, p, st);
   switch (p.kmax) {
     case 128: return launch_kmax<128>(a, p, st);
     case 256: return launch_kmax<256>(a, p, st);
@@ -779,16 +1335,19 @@ extern "C" int s2sr_matmul_chain_forward(const void* x, void* out,
   }
 }
 
-// The launch plan of a (K, N, pair, stage): what = 0 rows per block, 1
-// dynamic shared-memory bytes per block, 2 whether the weights sit in
-// shared memory (1) or are read from L2 (0), 3 warps per block, 4 the
-// register class of A (KMAX; 0 on the wgmma path), 5 copies of each
-// product's output stored, 6 the path (1 wgmma, 0 mma.sync, whose
-// weights are fragment-packed); -1 for an unknown field or shape.
+// The launch plan of a (K, N, pair, stage, design): what = 0 rows per
+// block, 1 dynamic shared-memory bytes per block, 2 whether the weights sit
+// in shared memory (1) or not (0), 3 warps per block (the ring: its
+// consumer warps), 4 the register class of A (KMAX; 0 on the wgmma paths),
+// 5 copies of each product's output stored, 6 whether B is packed for
+// wgmma (1) or mma.sync (0), 7 the path (0 chain_kernel, 1 wg_chain_kernel,
+// 2 wg_ring_chain_kernel), 8 threads per block, 9 slots of the B ring, 10
+// blocks a cluster, 11 columns of a B slab; -1 for an unknown field or an
+// invalid call.
 extern "C" long long s2sr_matmul_chain_query(int K, int N, int pair, int stage,
-                                             int what) {
-  if (!valid(1, K, N, pair, 0)) return -1;
-  const Plan p = make_plan(K, N, pair, stage);
+                                             int design, int what) {
+  if (!valid(1, K, N, pair, 0, stage, design)) return -1;
+  const Plan p = make_plan(K, N, pair, stage, design);
   switch (what) {
     case 0: return (long long)p.warps * WARP_ROWS;
     case 1: return p.smem;
@@ -797,6 +1356,23 @@ extern "C" long long s2sr_matmul_chain_query(int K, int N, int pair, int stage,
     case 4: return p.kmax;
     case 5: return p.copies;
     case 6: return p.wgmma;
+    case 7: return p.path;
+    case 8: return p.threads;
+    case 9: return p.slots;
+    case 10: return p.cluster;
+    case 11: return p.cols;
   }
   return -1;
+}
+
+// The groups (blocks for design 0, clusters of 2 for design 1) the ring
+// kernel of the pair (1) or the chain (0) runs at M rows: as many as can be
+// resident at once, at most one a tile; the negative CUDA error code if
+// the query fails. Needs the device.
+extern "C" int s2sr_matmul_chain_ring_groups(int pair, int design, int M) {
+  if (M < 1 || (design != SERVED && design != MULTICAST)) return -(int)cudaErrorInvalidValue;
+  const bool mc = design == MULTICAST;
+  if (pair)
+    return mc ? ring_groups<384, 192, true, true>(M) : ring_groups<384, 192, true, false>(M);
+  return mc ? ring_groups<512, 512, false, true>(M) : ring_groups<512, 512, false, false>(M);
 }

@@ -96,7 +96,7 @@ def assert_tracks(got, want, steps):
 
 @pytest.mark.parametrize("stage", [False, True])
 @pytest.mark.parametrize("repeat", [1, 3])
-@pytest.mark.parametrize("k", [64, 96, 192])
+@pytest.mark.parametrize("k", [64, 96, 192, 512])
 def test_chain_matches_jax_pallas(jax_mxu, k, repeat, stage):
     x = zero_mean((M, k), 1, 1)
     w = zero_mean((k, k), k, 2)
@@ -122,6 +122,25 @@ def test_pair_matches_jax_pallas(jax_mxu, k, n, stage):
                         3, stage)
     assert got.shape == (M, k)
     assert_tracks(got, want, 3)
+
+
+# The ring's pair, 384×192, at one step (two products): after three, 1%
+# of the elements sit 1 bf16 ulp off JAX's even for the exactly rounded
+# (float64) chain (1.03% measured on these inputs), as JAX's float32 sums
+# at K 384 round otherwise; one step keeps SHARE[1].
+@pytest.mark.parametrize("stage", [False, True])
+def test_ring_pair_matches_jax_pallas(jax_mxu, stage):
+    k, n = mc.RING_SHAPES["pair_chain"]
+    x = zero_mean((M, k), 1, 3)
+    w1 = zero_mean((k, n), k, 4)
+    w2 = zero_mean((n, k), n, 5)
+    want = np.asarray(jax_mxu._pair_chain(k, n, 1, stage)(
+        *(jnp.asarray(v, jnp.bfloat16) for v in (x, w1, w2))
+    ).astype(jnp.float32))
+    got = mc.pair_chain(*(torch.from_numpy(v).bfloat16() for v in (x, w1, w2)),
+                        1, stage)
+    assert got.shape == (M, k)
+    assert_tracks(got, want, 1)
 
 
 def test_chain_is_not_trivial():
@@ -309,6 +328,215 @@ def test_wgmma_chain_step_emulation():
                 nxt[row, col] = acc[wp, :, 8 * s_ + 2 * r]
                 nxt[row, col + 1] = acc[wp, :, 8 * s_ + 2 * r + 1]
     np.testing.assert_allclose(nxt, a @ w, rtol=1e-5, atol=1e-5)
+
+
+# --- the ring kernel (wg_ring_chain_kernel) -----------------------------------
+
+LANES = np.arange(32)
+G, T = LANES // 4, LANES % 4
+
+
+def frag_at(s: int, q: int):
+    """Rows (warp, lane) and first columns of register ``q`` of K slab
+    ``s`` in wgmma's A layout (= its accumulator's pairing, to_operand):
+    row 16w + g + 8(q & 1), columns 16s + 8(q >> 1) + 2t, +1."""
+    rows = 16 * np.arange(4)[:, None] + G[None, :] + 8 * (q & 1)
+    return rows, np.broadcast_to(16 * s + 8 * (q >> 1) + 2 * T, rows.shape)
+
+
+def to_regs(mat: np.ndarray) -> np.ndarray:
+    """(64, W) → registers ``[W/16][4][warp][lane][2]``."""
+    regs = np.zeros((mat.shape[1] // 16, 4, 4, 32, 2), mat.dtype)
+    for s_ in range(regs.shape[0]):
+        for q in range(4):
+            rows, cols = frag_at(s_, q)
+            regs[s_, q, ..., 0] = mat[rows, cols]
+            regs[s_, q, ..., 1] = mat[rows, cols + 1]
+    return regs
+
+
+def from_regs(regs: np.ndarray) -> np.ndarray:
+    mat = np.zeros((64, 16 * regs.shape[0]), regs.dtype)
+    for s_ in range(regs.shape[0]):
+        for q in range(4):
+            rows, cols = frag_at(s_, q)
+            mat[rows, cols] = regs[s_, q, ..., 0]
+            mat[rows, cols + 1] = regs[s_, q, ..., 1]
+    return mat
+
+
+def acc_to_regs(acc: np.ndarray) -> np.ndarray:
+    """The m64nN float accumulator ``[warp][lane][N/2]`` paired as the
+    kernel packs it: register q of slab s ← acc[8s + 2q], acc[8s + 2q + 1],
+    rounded to bf16 (RN)."""
+    ns = acc.shape[2] // 8
+    regs = np.zeros((ns, 4, 4, 32, 2))
+    for s_ in range(ns):
+        for q in range(4):
+            for e in range(2):
+                regs[s_, q, ..., e] = acc[..., 8 * s_ + 2 * q + e]
+    return bf16(regs)
+
+
+def bf16(v: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(np.asarray(v, np.float32)).bfloat16().double().numpy()
+
+
+class Ring:
+    """The slab stream as the consumers meet it: slab after slab of the
+    packed image, in order, each read by its four descriptors."""
+
+    def __init__(self, image: np.ndarray, cols: int):
+        self.slabs = image.reshape(-1, cols * 64)
+        self.cols, self.next = cols, 0
+
+    def product(self, a_regs: np.ndarray) -> np.ndarray:
+        """ring_product: acc = A @ B over A's K slabs, four a ring slab,
+        each wgmma m64n(cols)k16 from A's registers into the float
+        accumulator's layout (n8 tile j: acc[4j], acc[4j+1] at row g,
+        columns 8j + 2t, +1; acc[4j+2], acc[4j+3] at row g + 8)."""
+        acc = np.zeros((4, 32, self.cols // 2))
+        for j in range(a_regs.shape[0] // 4):
+            slab = self.slabs[self.next]
+            self.next += 1
+            for kk in range(4):
+                d = from_regs(a_regs[4 * j + kk][None]) @ wgmma_b_tile(
+                    slab, 64, self.cols, kk).astype(np.float64)
+                for jt in range(self.cols // 8):
+                    for e in range(2):
+                        r0 = 16 * np.arange(4)[:, None] + G[None, :]
+                        c = 8 * jt + 2 * T + e
+                        acc[..., 4 * jt + e] += d[r0, c]
+                        acc[..., 4 * jt + 2 + e] += d[r0 + 8, c]
+        return acc
+
+
+@pytest.mark.parametrize("kin,nout,cols", [(512, 512, 128), (384, 192, 192),
+                                           (192, 384, 192)])
+def test_wgmma_slabs_unpack_to_w(kin, nout, cols):
+    """``pack_wgmma_slabs``'s stream, walked slab by slab by the ring
+    kernel's four descriptors a slab, gives back W: slab i is K block
+    i % (K/64) of column block i // (K/64)."""
+    w = zero_mean((kin, nout), kin, 24)
+    image = mc.pack_wgmma_slabs(torch.from_numpy(w), cols).numpy()
+    slabs = image.reshape(-1, cols * 64)
+    assert slabs.shape[0] == (nout // cols) * (kin // 64)
+    got = np.zeros_like(w)
+    for i, slab in enumerate(slabs):
+        cb, kb = divmod(i, kin // 64)
+        for kk in range(4):
+            got[64 * kb + 16 * kk:64 * kb + 16 * kk + 16,
+                cols * cb:cols * (cb + 1)] = wgmma_b_tile(slab, 64, cols, kk)
+    assert np.array_equal(got, w)
+
+
+def test_ring_chain_step_emulation():
+    """One K-512 chain step of a warpgroup as wg_ring_chain_kernel runs it:
+    A in registers, 4 chunks of 128 columns × 8 ring slabs; chunks 0–2
+    packed into the warpgroup's stage tile at each thread's own places
+    (row stride K − 128 + 8, 4-byte stores), chunk 3 straight into A's
+    last 8 K slabs, then A's first 24 reloaded from the stage. The next A
+    must be bf16(A @ W) bit for bit (sums in float64 here); every stage
+    element is written once a step, and a warp's 32 stores of one register
+    fall on 32 banks."""
+    k = 512
+    plan = mc.ring_smem_plan("matmul_chain")
+    lds = plan["stage_bytes"] // (64 * 2)           # a warpgroup's tile
+    assert lds == k - 128 + 8
+    a = bf16(zero_mean((64, k), 1, 25))
+    w = zero_mean((k, k), k, 26)
+    ring = Ring(mc.pack_wgmma_slabs(torch.from_numpy(w), 128).numpy(), 128)
+    regs = to_regs(a)
+    stage = np.full(64 * lds, np.nan)
+    writes = np.zeros(64 * lds, int)
+    for c in range(k // 128):
+        chunk = acc_to_regs(ring.product(regs))
+        if c == k // 128 - 1:
+            regs[k // 16 - 8:] = chunk
+            continue
+        for s_ in range(8):
+            for q in range(4):
+                rows, _ = frag_at(0, q)                   # 16w + g + 8(q & 1)
+                at = rows * lds + 128 * c + 16 * s_ + 8 * (q >> 1) + 2 * T
+                words = (at // 2) % 32
+                assert all(len(set(words[wp])) == 32 for wp in range(4))
+                for e in range(2):
+                    stage[at + e] = chunk[s_, q, ..., e]
+                    np.add.at(writes, at + e, 1)
+    assert ring.next == plan["slabs_a_step"] == 32
+    assert writes.max() == 1 and writes.reshape(64, lds)[:, :k - 128].min() == 1
+    for s_ in range(k // 16 - 8):
+        for q in range(4):
+            rows, _ = frag_at(0, q)
+            at = rows * lds + 16 * s_ + 8 * (q >> 1) + 2 * T
+            for e in range(2):
+                regs[s_, q, ..., e] = stage[at + e]
+    assert np.array_equal(from_regs(regs), bf16(a @ w.astype(np.float64)))
+
+
+def test_ring_pair_step_emulation():
+    """One 384×192 pair step as wg_ring_chain_kernel runs it: x @ w1 over 6
+    ring slabs of 192 columns, mid = bf16 in registers, then mid @ w2 a
+    half of 192 columns at a time (3 slabs each), the first half's packed
+    output held in x's first 12 K slabs while the second runs. The next x
+    must be bf16(bf16(x @ w1) @ w2) bit for bit (sums in float64)."""
+    k, n = mc.RING_SHAPES["pair_chain"]
+    x = bf16(zero_mean((64, k), 1, 27))
+    w1 = zero_mean((k, n), k, 28)
+    w2 = zero_mean((n, k), n, 29)
+    image = torch.cat([mc.pack_wgmma_slabs(torch.from_numpy(v), n)
+                       for v in (w1, w2)]).numpy()
+    ring = Ring(image, n)
+    regs = to_regs(x)
+    mid = acc_to_regs(ring.product(regs))
+    for h in range(k // n):
+        regs[h * (n // 16):(h + 1) * (n // 16)] = acc_to_regs(ring.product(mid))
+    assert ring.next == mc.ring_smem_plan("pair_chain")["slabs_a_step"] == 12
+    want = bf16(bf16(x @ w1.astype(np.float64)) @ w2.astype(np.float64))
+    assert np.array_equal(from_regs(regs), want)
+
+
+def test_ring_smem_plan_fits():
+    """The ring's shared memory, as the kernel source computes it: the
+    chain 1,024 + 7 × 16,384 + 2 × 50,176 + 7 × 16 (an eighth slot would
+    pass the block's 232,448 B), the pair 1,024 + 8 × 24,576 + 8 × 16; the
+    staged variants' stages (3 and 2 copies a warpgroup) leave no room for
+    two warpgroups and a ring of 2."""
+    chain, pair = mc.ring_smem_plan("matmul_chain"), mc.ring_smem_plan("pair_chain")
+    assert (chain["ring_slots"], chain["smem_bytes"]) == (7, 216176)
+    assert chain["smem_bytes"] + 16384 + 16 > 232448
+    assert (pair["ring_slots"], pair["smem_bytes"]) == (8, 197760)
+    for copies, k, slab in ((3, 512, 16384), (2, 384, 24576)):
+        assert 1024 + 2 * 2 * 64 * (copies * k + 8) + 2 * (slab + 16) > 232448
+
+
+@pytest.mark.parametrize("name", mc.KERNELS)
+def test_designs_on_cpu(name):
+    """On the CPU every design runs the plain version and counts nothing;
+    an unknown design, and "multicast" off the ring's unstaged shape,
+    raise."""
+    k, n = mc.RING_SHAPES[name]
+    x = torch.from_numpy(zero_mean((24, k), 1, 30)).bfloat16()
+    ws = ((torch.from_numpy(zero_mean((k, k), k, 31)).bfloat16(),)
+          if name == "matmul_chain" else
+          (torch.from_numpy(zero_mean((k, n), k, 31)).bfloat16(),
+           torch.from_numpy(zero_mean((n, k), n, 32)).bfloat16()))
+    counts = [dict(c) for c in (mc.LAUNCHES, mc.LAUNCHES_RING,
+                                mc.LAUNCHES_MULTICAST, mc.LAUNCHES_MMA)]
+    want = mc.REFERENCES[name](x, *ws, 2)
+    for design in mc.DESIGNS:
+        assert torch.equal(mc.WRAPPERS[name](x, *ws, 2, design=design), want)
+    assert mc.on_ring(name, k, n, False) and not mc.on_ring(name, k, n, True)
+    with pytest.raises(ValueError, match="design"):
+        mc.WRAPPERS[name](x, *ws, 2, design="ring")
+    with pytest.raises(ValueError, match="multicast"):
+        mc.WRAPPERS[name](x, *ws, 2, stage=True, design="multicast")
+    small = x[:, :64].contiguous()
+    sws = tuple(w[:64, :64].contiguous() for w in ws)
+    with pytest.raises(ValueError, match="multicast"):
+        mc.WRAPPERS[name](small, *sws, 2, design="multicast")
+    assert counts == [dict(c) for c in (mc.LAUNCHES, mc.LAUNCHES_RING,
+                                        mc.LAUNCHES_MULTICAST, mc.LAUNCHES_MMA)]
 
 
 def test_pack_fragments_is_a_permutation():
