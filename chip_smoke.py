@@ -53,8 +53,9 @@ random weights from seed 0, each at the full width of its model:
   structured-append, and in a 1024×768 scene, each decoded on the card
   and held to the CPU; the committed plates' OCR held to the JAX
   package's recorded answers; the low-quality plate's SR retry on the
-  full-width ``realesrgan_x4``, its RDBs in the ``rdb`` kernel (phase
-  decode);
+  full-width ``realesrgan_x4``, its RDBs in the ``rdb`` kernel; and
+  ``cli.ocr_eval`` raw (card and CPU equal), with the bicubic retry and
+  with the engine's (phase decode);
 - field-boundary vectors (``s2sr_tpu_torch.vectors``): the card's
   ``fields.geojson`` held to the CPU's on a 1024² planted scene, then
   over a live socket ``/api/wow`` → ``/api/vectors`` (the job finds the
@@ -85,9 +86,11 @@ random weights from seed 0, each at the full width of its model:
   one G+D step card vs CPU on the same draws, the draws' branch
   frequencies on the card, the sampler's time per batch and the G/D split
   of a full-width step, ``cli.train_demo`` at full width (32 L1 steps with
-  ``--second-order``, then 32 GAN steps from that checkpoint), and the
+  ``--second-order``, then 32 GAN steps from that checkpoint), the
   GAN-tuned weights served by ``SREngine``, its RDBs in the ``rdb``
-  kernel (phase gan);
+  kernel, and ``cli.eval_trained`` on both checkpoints (bf16, float32 and
+  the int8-mixed trunk's ``rdb_i8``; float32 again on the CPU) with the
+  L1 checkpoint's full W8A8 PSNR beside it (phase gan);
 - the multi-device mesh (``parallel/{mesh,comm,tiling,tensor,pipeline}.py``)
   on the one card: ``realesrgan_x4`` served over ``dp=2`` (two engine
   replicas on ``cuda:0``, whose RDBs run the ``rdb`` kernel) byte-equal to
@@ -3230,13 +3233,67 @@ def upscale4(arr):
     return np.kron(arr, np.ones((4, 4, 1), np.uint8))
 
 
+def ocr_eval_lines(argv: list) -> tuple:
+    """``cli.ocr_eval.main(argv)`` in this process → (its JSON lines,
+    seconds)."""
+    import contextlib
+    import io
+
+    from s2sr_tpu_torch.cli import ocr_eval
+
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ocr_eval.main(argv)
+    secs = time.perf_counter() - t1
+    return [json.loads(ln) for ln in buf.getvalue().splitlines()], secs
+
+
+def ocr_eval_step(state, card) -> list:
+    """``cli.ocr_eval`` at ``--n 10`` on the card: raw (``--composed
+    off``), then the scan flow with the bicubic retry and with the
+    engine's (the resident ``realesrgan_x4``, its RDBs in the ``rdb``
+    kernel: the launches a multiple of 69, and above 0 whenever a
+    condition retried; they count for ``rdb``), then raw again on the CPU,
+    whose lines must equal the card's. → the failures."""
+    import torch
+
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+
+    failures, lines = [], {}
+    for mode, n_lines in (("off", 8), ("bicubic", 4), ("engine", 4)):
+        rdb_mod.LAUNCHES = 0
+        got, secs = ocr_eval_lines(["--n", "10", "--composed", mode])
+        torch.cuda.synchronize()
+        launches = rdb_mod.LAUNCHES
+        lines[mode] = got
+        emit({"phase": "decode", "ocr_eval": mode, "lines": got,
+              "seconds": round(secs, 3), "rdb_launches": launches,
+              "card": card})
+        if not (len(got) == n_lines and all(
+                ln.get("condition") and ln.get("n") == 10 for ln in got)):
+            failures.append(f"ocr_eval {mode}: {got}")
+        if mode == "engine":
+            retried = any(ln["retry_rate"] > 0 for ln in got)
+            if launches % 69 or (retried and not launches):
+                failures.append(f"ocr_eval engine: {launches} rdb launches")
+            state["main_launches"] = state.get("main_launches", 0) + launches
+    cpu, secs = ocr_eval_lines(["--n", "10", "--cpu"])
+    emit({"phase": "decode", "ocr_eval": "off on the CPU",
+          "equal_to_card": cpu == lines["off"], "seconds": round(secs, 3)})
+    if cpu != lines["off"]:
+        failures.append(f"ocr_eval raw, CPU vs card: {cpu}")
+    return failures
+
+
 def phase_decode(state):
     """The QR/serial scan of ``/api/decode`` (``s2sr_tpu_torch.decode``)
     with binarization on the card: QR codes of every level at versions 1
     to 40 and their variants, decoded on the card and held to the CPU;
     the committed plates' OCR and scan flow held to the JAX package's
     recorded answers; the low-quality plate's SR retry on the card's
-    full-width ``realesrgan_x4`` (rdb launches = 69 × chunks)."""
+    full-width ``realesrgan_x4`` (rdb launches = 69 × chunks); then
+    ``cli.ocr_eval`` (:func:`ocr_eval_step`)."""
     import dataclasses
 
     import numpy as np
@@ -3349,6 +3406,9 @@ def phase_decode(state):
             launches != n_rdb * chunks or len(eng.model.body) != 23:
         failures.append(f"retry: {launches} rdb launches for {chunks} chunks")
     state["main_launches"] = state.get("main_launches", 0) + launches
+
+    # the OCR envelope and the scan's SR retry (cli.ocr_eval)
+    failures += ocr_eval_step(state, card)
     emit({"phase": "decode", "seconds": round(time.perf_counter() - t0, 3)})
     if failures:
         raise AssertionError(f"decode: {failures}")
@@ -4463,6 +4523,162 @@ def gan_step_split(card: str) -> dict:
     return rec
 
 
+# cli.eval_trained at realesrgan_x4's width on phase gan's checkpoints, the
+# JAX script's own eval (3 held-out 192² LR scenes), and the kernel each
+# dtype's engine serves its residual dense blocks with
+EVAL_TRAINED_FULL = ["--feat", "64", "--blocks", "23", "--grow", "32",
+                     "--eval-size", "192", "--eval-scenes", "3"]
+EVAL_TRAINED_RUNS = (("l1_second_order", "bfloat16"),
+                     ("l1_second_order", "float32"),
+                     ("l1_second_order", "int8"), ("gan", "bfloat16"))
+EVAL_KERNEL = {"bfloat16": ("rdb", "rdb_wg_kernel"),
+               "float32": ("rdb", "rdb_kernel<float>"),
+               "int8": ("rdb_i8", "rdb_i8_kernel")}
+EVAL_CPU_TOL_DB = 0.01      # float32 engine PSNR, card vs CPU
+
+
+def eval_trained(work: Path, ckpt: str, dtype: str, *extra) -> tuple:
+    """``cli.eval_trained`` in this process at full width on phase gan's
+    checkpoint ``ckpt`` → (report, engine)."""
+    from s2sr_tpu_torch.cli import eval_trained as cli
+
+    tag = "_cpu" if "--cpu" in extra else ""
+    return cli.run(cli.build_parser().parse_args([
+        "--ckpt-dir", str(work / ckpt), *EVAL_TRAINED_FULL, "--dtype", dtype,
+        "--out", str(work / f"eval_{ckpt}_{dtype}{tag}.json"), *extra]))
+
+
+def eval_trained_step(work: Path, card: str) -> tuple:
+    """(6) of phase gan: ``cli.eval_trained`` on the L1 checkpoint in
+    bfloat16, float32 and int8 and on the GAN checkpoint in bfloat16, each
+    report printed with its step; the engine pretrained (23 blocks), every
+    PSNR and SSIM finite, the dtype's kernel launched at least 69 × scenes
+    (counts set to 0 before each run), the bicubic PSNR identical across
+    the runs, and one scene of the float32 report again on the CPU within
+    :data:`EVAL_CPU_TOL_DB` of the card's; the int8 run's model measured
+    beside it (:func:`trunk_on_trained_weights`). → (the launches by
+    counter: ``rdb`` of the bf16 runs (``rdb_wg_kernel``), ``rdb_f32`` of
+    the float32 run (``rdb_kernel<float>``), ``rdb_i8``; that
+    measurement's record)."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+
+    failures, bicubic = [], {}
+    launches = {"rdb": 0, "rdb_f32": 0, "rdb_i8": 0}
+    for ckpt, dtype in EVAL_TRAINED_RUNS:
+        rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = 0
+        t1 = time.perf_counter()
+        rep, eng = eval_trained(work, ckpt, dtype)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = {"rdb": rdb_mod.LAUNCHES, "rdb_i8": rdb_mod.LAUNCHES_I8}
+        launches["rdb_f32" if dtype == "float32" else "rdb"] += counts["rdb"]
+        launches["rdb_i8"] += counts["rdb_i8"]
+        counter, kernel = EVAL_KERNEL[dtype]
+        scenes = rep["config"]["eval_scenes"]
+        emit({"phase": "gan", "eval_trained": ckpt, "dtype": dtype,
+              "ckpt_step": rep["ckpt_step"], "pretrained": eng.pretrained,
+              "precision": eng.precision, "blocks": len(eng.model.body),
+              "kernel": kernel, "kernel_launches": counts[counter],
+              "launches": counts, "mean": rep["mean"],
+              "scenes": rep["scenes"], "beats_bicubic": rep["beats_bicubic"],
+              "platform": rep["platform"], "seconds": round(secs, 3),
+              "card": card})
+        values = [v for r in rep["scenes"] for k, v in r.items()
+                  if k != "seed"]
+        if not (eng.pretrained and len(eng.model.body) == 23
+                and len(rep["scenes"]) == scenes == 3
+                and np.isfinite(values).all()
+                and counts[counter] >= 69 * scenes):
+            failures.append(f"{ckpt} {dtype}")
+        bicubic[f"{ckpt} {dtype}"] = [r["bicubic_psnr"] for r in rep["scenes"]]
+        if (ckpt, dtype) == ("l1_second_order", "float32"):
+            card32 = rep["scenes"][0]
+        if (ckpt, dtype) == ("l1_second_order", "int8"):
+            trunk = trunk_on_trained_weights(eng, rep, card)
+        del eng
+    torch.cuda.empty_cache()
+    same = len({tuple(v) for v in bicubic.values()}) == 1
+    t1 = time.perf_counter()
+    cpu, _ = eval_trained(work, "l1_second_order", "float32", "--cpu",
+                          "--eval-scenes", "1")
+    cpu32 = cpu["scenes"][0]
+    diff = abs(cpu32["engine_psnr"] - card32["engine_psnr"])
+    emit({"phase": "gan", "check": "eval_trained bicubic across runs, "
+          "float32 card vs CPU", "bicubic_psnr_identical": same,
+          "cpu_scene": cpu32, "card_scene": card32,
+          "engine_psnr_diff_db": diff, "tol_db": EVAL_CPU_TOL_DB,
+          "cpu_seconds": round(time.perf_counter() - t1, 3), "card": card})
+    if not (same and diff <= EVAL_CPU_TOL_DB
+            and cpu32["bicubic_psnr"] == card32["bicubic_psnr"]):
+        failures.append(f"bicubic identical {same}, card vs CPU {diff} dB")
+    if failures:
+        raise AssertionError(f"eval_trained: {failures}")
+    return launches, trunk
+
+
+def trunk_on_trained_weights(eng, rep: dict, card: str) -> dict:
+    """A measurement, no check, on the model of ``cli.eval_trained``'s int8
+    run (the L1 checkpoint, bf16, its RDBs' packed weights) and its three
+    LR scenes: whole-image forwards truncated to uint8 as the engine does,
+    each RDB run four ways through the band forward's ``rdb_fn`` hook:
+    the bf16 ``rdb`` kernel, the engine's int8-mixed trunk (``rdb_i8``),
+    full W8A8 (``quantize_rrdbnet(mode="full")`` calibrated on the
+    engine's input, ``rdb_w8a8``), and the trunk bypassed (each of the 23
+    RRDBs returning its input: rdb1 and rdb2 pass x on, rdb3 gives 0, so
+    0.2·0 + x). PSNR against HR and against the bf16 forward's uint8: how
+    far quantization moves the output beside how far the whole trunk
+    does. A W8A8 figure says something of quantization only where the
+    bypass moves the output well beyond the quantized forwards."""
+    import numpy as np
+    import torch
+
+    from s2sr_tpu_torch.cli.eval_trained import eval_scenes
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models import rrdbnet_int8 as q8
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.utils.metrics import psnr
+
+    model, dev = eng.model, eng.device
+    rdbs = [r for b in model.body for r in (b.rdb1, b.rdb2, b.rdb3)]
+    calib = torch.from_numpy(synthetic_fields(size=(256, 256), seed=42))
+    calib = calib.to(dev).float()[None] / 255.0
+    full = q8.quantize_rrdbnet(model, calib, mode="full")
+    hooks = {
+        "bf16": lambda i, t, mk: rdb_mod.rdb(t.contiguous(), rdbs[i].w_packed,
+                                             rdbs[i].b_packed, mk),
+        "mixed": None,                     # the model's own: rdb_i8
+        "full": q8.int8_rdb_fn(model, full, mode="full"),
+        "bypass": lambda i, t, mk: t if i % 3 < 2 else torch.zeros_like(t)}
+    cfg = rep["config"]
+    vs_hr = {k: [] for k in hooks}
+    vs_bf16 = {k: [] for k in hooks if k != "bf16"}
+    rdb_mod.LAUNCHES_W8A8 = 0
+    for _, hr, lr in eval_scenes(cfg["eval_lr_size"], cfg["eval_scenes"]):
+        x = torch.from_numpy(lr).to(dev).float()[None] / 255.0
+        outs = {}
+        for k, fn in hooks.items():
+            out = model(x, rdb_fn=fn)[0]
+            u8 = torch.trunc(torch.clamp(out * 255.0, 0.0, 255.0))
+            outs[k] = u8.to(torch.uint8).cpu().numpy()
+            vs_hr[k].append(psnr(outs[k], hr))
+        for k in vs_bf16:
+            vs_bf16[k].append(psnr(outs[k], outs["bf16"]))
+    rec = {"phase": "gan", "measurement": "the trunk on trained weights",
+           "checkpoint": "l1_second_order", "ckpt_step": rep["ckpt_step"],
+           "psnr_vs_hr_db": vs_hr,
+           "mean_psnr_vs_hr_db": {k: float(np.mean(v))
+                                  for k, v in vs_hr.items()},
+           "psnr_vs_bf16_db": vs_bf16,
+           "mean_psnr_vs_bf16_db": {k: float(np.mean(v))
+                                    for k, v in vs_bf16.items()},
+           "rdb_w8a8_launches": rdb_mod.LAUNCHES_W8A8, "card": card}
+    emit(rec)
+    return rec
+
+
 def phase_gan(state):
     """The second-order degradation and the GAN trainer on the card
     (``training/{degradation,gan}.py``, ``cli.train_demo``; no kernel of
@@ -4478,7 +4694,10 @@ def phase_gan(state):
     32 L1 steps with ``--second-order``, then a GAN-only run of 32
     device-pooled G+D steps from its checkpoint: steps/s, peak memory,
     finite losses and ``d_loss``; (5) the post-GAN checkpoint served
-    (:func:`serve_checkpoint`, its RDBs in the ``rdb`` kernel)."""
+    (:func:`serve_checkpoint`, its RDBs in the ``rdb`` kernel); (6)
+    ``cli.eval_trained`` on both checkpoints (:func:`eval_trained_step`)
+    and, a measurement, the L1 checkpoint's full W8A8 and bypassed trunk
+    beside its bf16 and mixed ones (:func:`trunk_on_trained_weights`)."""
     import json as _json
     import re
 
@@ -4607,12 +4826,17 @@ def phase_gan(state):
 
     # (5) serve the GAN-tuned weights
     state["gan_launches"] = serve_checkpoint(work / "gan", work, "gan", card)
+
+    # (6) quality on the phase's checkpoints, and what the trunk moves
+    state["eval_launches"], trunk = eval_trained_step(work, card)
     state["gan"] = {"sampler_ms": times, "split": {
         k: split[k] for k in ("step_ms", "device_busy_share",
                               "kernel_launches",
                               "d_share_of_step_device_time")},
         "runs": {k: {kk: v[kk] for kk in ("steps_per_s", "peak_memory_bytes")}
-                 for k, v in runs.items()}}
+                 for k, v in runs.items()},
+        "trunk_mean_psnr_vs_hr_db": trunk["mean_psnr_vs_hr_db"],
+        "trunk_mean_psnr_vs_bf16_db": trunk["mean_psnr_vs_bf16_db"]}
 
 
 # --- SwinIR: swin_block and window_attention ------------------------------
@@ -7190,12 +7414,14 @@ def kernels_record(state) -> list | None:
 
     # phase warmup's child processes count their own launches
     warm = state.get("warmup_launches", {})
+    evals = state.get("eval_launches", {})
     rows = [{"name": "rdb", "route": "cuda",
              "source": "s2sr_tpu_torch/csrc/rdb.cu",
              "replaces": RDB_REPLACES,
              "launches": (state["main_launches"] + warm.get("rdb", 0)
                           + state.get("train_launches", 0)
                           + state.get("gan_launches", 0)
+                          + evals.get("rdb", 0)
                           + state.get("mesh_launches", 0)),
              "max_abs_err": state["rdb_max_abs_err"],
              "rel_err": state["rdb_rel_err"],
@@ -7213,7 +7439,7 @@ def kernels_record(state) -> list | None:
             {"name": "rdb_i8", "route": "cuda",
              "source": "s2sr_tpu_torch/csrc/rdb.cu",
              "replaces": RDB_I8_REPLACES,
-             "launches": (state["main_launches_i8"]
+             "launches": (state["main_launches_i8"] + evals.get("rdb_i8", 0)
                           + state.get("mesh_launches_i8", 0)),
              "max_abs_err": state["rdb_i8_max_abs_err"],
              "rel_err": state["rdb_i8_rel_err"],

@@ -56,7 +56,7 @@ from ..utils import setup_logging
 from .registry import get_model_config
 from .rrdbnet import RRDBNet, rrdbnet_bands
 from .swinir import SwinIR, swinir_bands
-from .weights import resolve_params, swinir_kwargs
+from .weights import resolve_params, rrdbnet_dims, swinir_kwargs
 
 logger = setup_logging("s2sr_tpu_torch.engine")
 
@@ -201,11 +201,11 @@ class SREngine:
             self.tile_pad = max(tile_pad, 16)
             self.model = SwinIR(**swinir_kwargs(config), dtype=self.dtype)
         else:
-            self.model = RRDBNet(
-                num_in_ch=config.get("num_in_ch", 3),
-                num_feat=config["channels"], num_block=config["blocks"],
-                num_grow_ch=config["growth"], scale=self.scale,
-                dtype=self.dtype)
+            # sized from the loaded weights, as JAX's stateless apply
+            # is: a trained checkpoint of any depth may sit under a
+            # registry name (the kernel's widths are checked by RRDBNet)
+            self.model = RRDBNet(**rrdbnet_dims(sd), scale=self.scale,
+                                 dtype=self.dtype)
         self.model.load_state_dict(sd)
         self.model.to(self.device).eval().pack()
         if not self.pretrained:

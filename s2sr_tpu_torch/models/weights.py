@@ -167,6 +167,16 @@ def load_npz_tree(path: Path | str) -> dict:
         return _unflatten({k: data[k] for k in data.files})
 
 
+def rrdbnet_dims(sd: Mapping[str, Any]) -> dict:
+    """An RRDBNet state dict's input channels, widths and depth, as
+    ``RRDBNet``'s keyword arguments."""
+    first = sd["conv_first.weight"]
+    blocks = {k.split(".")[1] for k in sd if k.startswith("body.")}
+    return {"num_in_ch": int(first.shape[1]), "num_feat": int(first.shape[0]),
+            "num_block": len(blocks),
+            "num_grow_ch": int(sd["body.0.rdb1.conv1.weight"].shape[0])}
+
+
 def load_params(path: Path | str) -> StateDict:
     """A JAX-layout rrdbnet ``.npz`` → the port's state dict."""
     return params_from_jax(load_npz_tree(path))

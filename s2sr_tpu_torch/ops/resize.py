@@ -12,12 +12,18 @@ coordinates in float64, weights and the weighted sum in float32, taps in
 the order −1, 0, +1, +2. The division is by a 0-dim tensor, a true
 division on the card too (a CUDA division by a Python scalar multiplies
 by its reciprocal).
+
+:func:`resize_pil_bicubic_u8` is PIL's ``Image.resize(BICUBIC)`` of a
+uint8 image in Resample.c's integer arithmetic, on the host: the OCR
+evaluation's bicubic retry (``cli/ocr_eval.py``) without PIL, which the
+card's machine lacks.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 
@@ -138,4 +144,85 @@ def resize_jax(img: torch.Tensor, shape, method: str) -> torch.Tensor:
         if w_out != w_in:
             ww = _weight_mat(w_in, w_out, method, dev)
             img = torch.einsum("...hwc,wW->...hWc", img, ww)
+    return img
+
+
+# --- PIL's Image.resize(..., BICUBIC) ------------------------------------
+
+# Resample.c keeps its 8-bit coefficients in fixed point with this many
+# fraction bits (32 − 8 − 2)
+_PIL_PRECISION_BITS = 22
+
+
+def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+    """Resample.c's ``bicubic_filter`` (a = −0.5) in float64, its
+    operations in its order."""
+    a = -0.5
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+def _pil_coeffs(n_in: int, n_out: int) -> tuple:
+    """Resample.c's ``precompute_coeffs`` (box 0..n_in) and
+    ``normalize_coeffs_8bpc`` for one axis → (first source index (n_out,),
+    int64 weights (n_out, ksize) in 22-bit fixed point, 0 past each
+    output's taps)."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(n_out) + 0.5) * scale
+    # (int) of C truncates toward zero
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64),
+                      n_in) - xmin
+    taps = np.arange(ksize)
+    w = _pil_bicubic((taps[None, :] + xmin[:, None] - center[:, None] + 0.5)
+                     * (1.0 / filterscale))
+    w = np.where(taps[None, :] < xmax[:, None], w, 0.0)
+    ww = np.zeros(n_out)
+    for k in range(ksize):              # C's running sum, tap by tap
+        ww = ww + w[:, k]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww != 0.0, ww, 1.0)[:, None],
+                 w)
+    fixed = w * (1 << _PIL_PRECISION_BITS)
+    fixed = np.trunc(np.where(fixed < 0, fixed - 0.5, fixed + 0.5))
+    return xmin, fixed.astype(np.int64)
+
+
+def _pil_pass(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+    """One of Resample.c's 8-bit passes along ``axis``: each sum starts at
+    2²¹, is shifted right by 22 and clipped to uint8."""
+    n_in = img.shape[axis]
+    xmin, k = _pil_coeffs(n_in, n_out)
+    idx = np.minimum(xmin[:, None] + np.arange(k.shape[1])[None, :], n_in - 1)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)       # (n_in, ...)
+    acc = np.full((n_out,) + src.shape[1:], 1 << (_PIL_PRECISION_BITS - 1),
+                  np.int64)
+    kk = k.reshape(k.shape + (1,) * (src.ndim - 1))
+    for t in range(k.shape[1]):
+        acc += src[idx[:, t]] * kk[:, t]
+    out = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_pil_bicubic_u8(img: np.ndarray, shape) -> np.ndarray:
+    """PIL's ``Image.fromarray(img).resize((w, h), Image.BICUBIC)`` of a
+    uint8 L (H, W) or RGB (H, W, 3) image, byte for byte, on the host:
+    ``shape`` = (h, w). Resample.c's integer arithmetic (a = −0.5,
+    support 2 widened by the scale when reducing, coefficients normalised
+    and fixed to 22 bits rounding half away from zero), the horizontal
+    pass first into a clipped uint8 image, then the vertical; an axis
+    whose size does not change is not resampled, as in PIL."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"want a uint8 (H, W) or (H, W, C) image, got "
+                         f"{img.dtype} {img.shape}")
+    h_out, w_out = shape
+    if w_out != img.shape[1]:
+        img = _pil_pass(img, w_out, 1)
+    if h_out != img.shape[0]:
+        img = _pil_pass(img, h_out, 0)
     return img
