@@ -14,7 +14,10 @@ random weights from seed 0, each at the full width of its model:
   ``SREngine.enhance_serving_many``) on ``realesrgan_x4``, whose residual
   dense blocks run the ``rdb`` kernel (bf16 ``rdb_wg_kernel`` on
   ``wgmma``, timed in turns beside ``v4_mma``, the ``mma.sync`` design it
-  replaced, and ``rdb_i8``), and at precision "int8" (the
+  replaced, and ``rdb_i8``), at precision "float32" its float32 instance
+  ``rdb_f32_wg_kernel`` (split TF32 on ``wgmma``, timed in turns beside
+  ``rdb_kernel<float>``, the CUDA-core design it replaced, which one pass
+  of the float32 1024² scene also runs), and at precision "int8" (the
   int8-mixed trunk) the ``rdb_i8`` kernel (phases kernel, main, numbers);
 - full W8A8 (``quantize_rrdbnet(mode="full")``,
   ``rrdbnet_apply_int8(mode="full")``) on ``realesrgan_x4``: a chunk of
@@ -237,9 +240,10 @@ def rdb_inputs(shape, dtype, masked_hw=None, seed=0, weight_scale=10):
     return x.to(dtype).cuda(), w.cuda(), b.cuda(), mask
 
 
-def rdb_bound_ms(shape, dtype, masked: bool) -> tuple:
-    """Least time for one RDB on the H100: the larger of its FLOPs at the
-    dtype's dense peak and its bytes (x and out once, weights, mask)."""
+def rdb_bound_ms(shape, dtype, masked: bool, peak=None) -> tuple:
+    """Least time for one RDB on the H100: the larger of its FLOPs at
+    ``peak`` (the dtype's dense peak unless given) and its bytes (x and out
+    once, weights, mask)."""
     import torch
 
     bsz, h, w = shape
@@ -248,7 +252,8 @@ def rdb_bound_ms(shape, dtype, masked: bool) -> tuple:
     flops = RDB_FLOP_PER_PIXEL * pixels
     nbytes = (2 * pixels * 64 * item + RDB_WEIGHT_FLOATS * 4
               + (pixels * 4 if masked else 0))
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    if peak is None:
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -304,6 +309,7 @@ def phase_build(state):
           "ptxas": ptxas, "ptxas_wgmma_notes": state["ptxas_wgmma"]})
     # the tensor-core kernels, one line each: registers and spills
     for name, pattern in (("rdb", "rdb_wg_kernel"), ("rdb", "rdb_tc_kernel"),
+                          ("rdb", "rdb_f32_wg_kernel"), ("rdb", FFMA_F32),
                           ("rdb", "rdb_i8_kernel"), ("rdb", "rdb_w8a8_kernel"),
                           ("rdb", "rdb_wg_ablate_kernel"),
                           ("matmul_chain", "wg_chain_kernel"),
@@ -370,15 +376,17 @@ def hold_against_plain(phase, name, run, plain, cases, tiling,
     own work. Each case also runs the plain version with each of x1..x4
     stored as zero: the kernel must sit further than the tolerance from
     all four, or the check could not see a dense connection gone wrong.
-    Raises on any failure; returns the worst bf16 (abs, rel) error."""
+    Raises on any failure; returns the worst (abs, rel) error of each
+    dtype, keyed by its name."""
     import torch
 
     from s2sr_tpu_torch.ops import rdb as rdb_mod
 
     tol = {torch.float32: 1e-4, torch.bfloat16: 0.05}
-    worst_abs = worst_rel = 0.0
+    worst = {d: (0.0, 0.0) for d in dtypes}
     failures = []
-    for dtype in (getattr(torch, d) for d in dtypes):
+    for d in dtypes:
+        dtype = getattr(torch, d)
         for shape, masked_hw in cases:
             x, w, b, mask = rdb_inputs(shape, dtype, masked_hw)
             got = run(x, w, b, mask).float()
@@ -405,13 +413,12 @@ def hold_against_plain(phase, name, run, plain, cases, tiling,
             if not min(faults.values()) > tol[dtype]:
                 failures.append(f"{case}: a planted fault is within "
                                 f"tolerance {faults}")
-            if dtype == torch.bfloat16:
-                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            worst[d] = (max(worst[d][0], err), max(worst[d][1], rel))
             del x, w, b, mask, got
             torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"{name} kernel vs plain:\n" + "\n".join(failures))
-    return worst_abs, worst_rel
+    return worst
 
 
 # the int8 RDB (precision "int8"): its shapes on the card, the main path's
@@ -672,9 +679,16 @@ def hold_w8a8_against_plain(state) -> None:
 
 
 # the served bf16 kernel's mangled name holds its identifier length-prefixed,
-# and so does the design it replaced, the ladder's v4_mma
+# and so does the design it replaced, the ladder's v4_mma; the served
+# float32 kernel and its CUDA-core design (rdb_kernel<float, 8>)
 SERVED_WG = "13rdb_wg_kernelE"
 MMA_TC = "13rdb_tc_kernelE"
+SERVED_F32 = "17rdb_f32_wg_kernelE"
+FFMA_F32 = "10rdb_kernelIfLi8EE"
+# TF32 on the tensor cores (H100 SXM data sheet, dense), and float32 at
+# float32's accuracy there: three TF32 products a multiply-add (split TF32)
+PEAK_TF32_FLOPS = 495e12
+PEAK_F32_SPLIT_TF32 = PEAK_TF32_FLOPS / 3
 # the served kernel's TPU kernel, which v4_mma and the ablations share
 RDB_REPLACES = "s2sr_tpu/ops/pallas/fused_rdb_v4.py:234"
 
@@ -711,6 +725,114 @@ def time_rdb_designs(state) -> None:
     torch.cuda.empty_cache()
 
 
+# the float32 kernel against the IEEE plain version, relative to the
+# block's change: split TF32 keeps float32's accuracy (~1e-6 in the CPU
+# emulation, tests/test_torch_rdb_f32_wg.py), plain TF32 does not (~4e-4)
+RDB_F32_TOL = 1e-5
+
+
+def hold_f32_against_plain(state, cases) -> None:
+    """``rdb_f32_wg_kernel`` beyond :func:`hold_against_plain`'s 1e-4: at
+    each case, within :data:`RDB_F32_TOL` of the block's change (max |out −
+    x|) of the IEEE plain version, and the plain version run under cuDNN's
+    TF32 (``allow_tf32`` True, PyTorch's default) further from the IEEE
+    plain version than the kernel: the check tells split TF32 from plain
+    TF32. Sets ``state["rdb_f32_err"]``, the worst (abs, rel)."""
+    import torch
+
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+
+    worst_abs = worst_rel = 0.0
+    failures = []
+    for shape, masked_hw in cases:
+        x, w, b, mask = rdb_inputs(shape, torch.float32, masked_hw)
+        got = rdb_mod.rdb(x, w, b, mask)
+        want = rdb_mod.rdb_reference(x, w, b, mask)
+        flag = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = rdb_mod.rdb_reference(x, w, b, mask)
+        finally:
+            torch.backends.cudnn.allow_tf32 = flag
+        torch.cuda.synchronize()
+        change = (want - x).abs().max().item()
+        err = (got - want).abs().max().item()
+        rel, rel_tf32 = err / change, (tf32 - want).abs().max().item() / change
+        emit({"phase": "kernel", "kernel": "rdb_f32", "check": "split TF32 "
+              "vs IEEE plain, TF32 plain further", "shape": list(shape),
+              "masked": masked_hw is not None, "max_abs_err": err,
+              "rel_err": rel, "tolerance": RDB_F32_TOL,
+              "rel_err_plain_tf32": rel_tf32})
+        if not (rel <= RDB_F32_TOL and rel_tf32 > rel):
+            failures.append(f"{shape} masked={masked_hw}: rel err {rel}, "
+                            f"plain TF32 {rel_tf32}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        del x, w, b, mask, got, want, tf32
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("rdb float32 kernel vs IEEE plain:\n"
+                             + "\n".join(failures))
+    state["rdb_f32_err"] = (worst_abs, worst_rel)
+
+
+def time_rdb_f32_designs(state) -> None:
+    """The served float32 ``rdb`` (``rdb_f32_wg_kernel``) and ``rdb_ffma``
+    (``rdb_kernel<float>``, the design it replaced) at the main path's
+    chunk shape, in turns in one call: 10 launches each, in the order
+    rdb_f32, ffma, ffma, rdb_f32; the lower of each kernel's two beside
+    the bound (float32's accuracy at its least cost on the card: three
+    TF32 products a multiply-add at 495 TFLOP/s, unpadded), the split-TF32
+    floor of the work as executed, the bound at FP32 FMA, and the bytes
+    of B the kernel streams from L2 a launch."""
+    import math
+
+    import torch
+
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+
+    shape = (16, 264, 264)
+    x, w, b, _ = rdb_inputs(shape, torch.float32)
+    fns = {"rdb_f32": lambda: rdb_mod.rdb(x, w, b),
+           "rdb_f32_ffma": lambda: rdb_mod.rdb_ffma(x, w, b)}
+    ms = {k: [] for k in fns}
+    for name in ("rdb_f32", "rdb_f32_ffma", "rdb_f32_ffma", "rdb_f32"):
+        ms[name].append(time_cuda(fns[name], iters=10))
+    plain_ms = time_cuda(lambda: rdb_mod.rdb_reference(x, w, b), iters=5)
+    best = {k: min(v) for k, v in ms.items()}
+    bound_ms, bound_by = rdb_bound_ms(shape, torch.float32, masked=False,
+                                      peak=PEAK_F32_SPLIT_TF32)
+    fma_bound_ms, _ = rdb_bound_ms(shape, torch.float32, masked=False)
+    bsz, h, wd = shape
+    tile = rdb_mod.F32_TILE
+    tiles = bsz * math.ceil(h / tile) * math.ceil(wd / tile)
+    flop = RDB_FLOP_PER_PIXEL * bsz * h * wd
+    executed = 2 * tiles * rdb_mod.kernel_tiling(torch.float32)["macs_per_tile"]
+    ffma_executed = 2 * tiles * rdb_mod.kernel_tiling_ffma()["macs_per_tile"]
+    b_bytes = tiles * rdb_mod.slab_index_f32_wg().numel()
+    rec = {"phase": "kernel", "card": state.get("card"), "timing": "in turns",
+           "dtype": "float32", "shape": list(shape), "kernel_ms": ms,
+           "best_ms": best, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "fma_bound_ms": fma_bound_ms,
+           "split_tf32_executed_floor_ms": 3 * executed / PEAK_TF32_FLOPS * 1e3,
+           "ffma_executed_floor_ms": ffma_executed / PEAK_F32_FLOPS * 1e3,
+           "rdb_f32_over_ffma": best["rdb_f32"] / best["rdb_f32_ffma"],
+           "rdb_f32_over_bound": best["rdb_f32"] / bound_ms,
+           "b_bytes_from_l2": b_bytes,
+           "b_bytes_per_s": b_bytes / (best["rdb_f32"] * 1e-3),
+           "tflops_useful": flop / best["rdb_f32"] / 1e9}
+    emit(rec)
+    if not best["rdb_f32"] < best["rdb_f32_ffma"]:
+        raise AssertionError(f"rdb_f32_wg_kernel is not faster than "
+                             f"rdb_kernel<float>: {rec}")
+    state["rdb_f32_numbers"] = {"ms": best["rdb_f32"], "plain_ms": plain_ms,
+                                "bound_ms": bound_ms, "bound_by": bound_by,
+                                "fma_bound_ms": fma_bound_ms}
+    state["rdb_f32_ffma_numbers"] = {**state["rdb_f32_numbers"],
+                                     "ms": best["rdb_f32_ffma"]}
+    del x, w, b
+    torch.cuda.empty_cache()
+
+
 @ieee_phase
 def phase_kernel(state):
     import torch
@@ -739,6 +861,18 @@ def phase_kernel(state):
     if len(tc) != 1 or tc[0]["HMMA"] == 0:
         raise AssertionError(f"v4_mma's kernel issues no HMMA: {sass}")
     emit({"phase": "kernel", "kernel": "rdb_tc_kernel", "sass": tc[0]})
+    # the served float32 kernel on wgmma (HGMMA: TF32), its multiply-adds
+    # off the CUDA cores (FFMA under a tenth of rdb_kernel<float>'s, whose
+    # main loop is FFMA; the epilogue's stay)
+    f32 = [c for k, c in sass.items() if SERVED_F32 in k]
+    ff = [c for k, c in sass.items() if FFMA_F32 in k]
+    if (len(f32) != 1 or len(ff) != 1 or f32[0]["HGMMA"] == 0
+            or f32[0]["HMMA"] or f32[0]["IMMA"] or f32[0]["IGMMA"]
+            or not 10 * f32[0]["FFMA"] < ff[0]["FFMA"]):
+        raise AssertionError(f"rdb's float32 kernel is not HGMMA with its "
+                             f"main loop off the CUDA cores: {sass}")
+    emit({"phase": "kernel", "kernel": "rdb_f32_wg_kernel", "sass": f32[0],
+          "sass_rdb_kernel_float": ff[0]})
     # the int8 kernels on wgmma (s8 IGMMA; rdb_i8's bf16 x1..x4 HGMMA), no
     # mma.sync left, and none of their wgmmas serialised by ptxas
     i8 = [c for k, c in sass.items() if "rdb_i8_kernel" in k]
@@ -749,13 +883,16 @@ def phase_kernel(state):
     if (len(w8) != 1 or w8[0]["IGMMA"] == 0 or w8[0]["HGMMA"]
             or w8[0]["IMMA"] or w8[0]["HMMA"]):
         raise AssertionError(f"rdb's full-W8A8 kernel is not IGMMA alone: {sass}")
-    served = ("rdb_wg_kernel", "rdb_i8_kernel", "rdb_w8a8_kernel")
+    served = ("rdb_wg_kernel", "rdb_i8_kernel", "rdb_w8a8_kernel",
+              "rdb_f32_wg_kernel")
     notes = [n for n in state.get("ptxas_wgmma", {}).get("rdb", [])
              if any(k in n for k in served)]
     regs = {k: v for k, v in state.get("ptxas", {}).get("rdb", {}).items()
             if any(n in k for n in served)}
     smem = {"rdb": (rdb_mod.kernel_tiling(torch.bfloat16)["smem_bytes"],
                     rdb_mod.rdb_wg_smem_plan()["total"]),
+            "rdb_f32": (rdb_mod.kernel_tiling(torch.float32)["smem_bytes"],
+                        rdb_mod.rdb_f32_wg_smem_plan()["total"]),
             "rdb_i8": (rdb_mod.kernel_tiling_i8()["smem_bytes"],
                        rdb_mod.wg_smem_plan(False)["total"]),
             "rdb_w8a8": (rdb_mod.kernel_tiling_w8a8()["smem_bytes"],
@@ -768,16 +905,25 @@ def phase_kernel(state):
         raise AssertionError(f"ptxas serialised or fenced the wgmma kernels' wgmmas: {notes}")
     if any(a != b for a, b in smem.values()):
         raise AssertionError(f"wgmma kernels' shared memory differs from its plan: {smem}")
-    launches0 = rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_MMA, rdb_mod.LAUNCHES_I8
+    launches0 = (rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_MMA, rdb_mod.LAUNCHES_I8,
+                 rdb_mod.LAUNCHES_F32, rdb_mod.LAUNCHES_FFMA)
     state["rdb_max_abs_err"], state["rdb_rel_err"] = hold_against_plain(
         "kernel", "rdb", rdb_mod.rdb, rdb_mod.rdb_reference, cases,
-        rdb_mod.kernel_tiling)
+        rdb_mod.kernel_tiling)["bfloat16"]
+    hold_f32_against_plain(state, cases)
+    state["rdb_ffma_err"] = hold_against_plain(
+        "kernel", "rdb_ffma", rdb_mod.rdb_ffma, rdb_mod.rdb_reference, cases,
+        lambda dtype: rdb_mod.kernel_tiling_ffma(),
+        dtypes=("float32",))["float32"]
     state["rdb_mma_err"] = hold_against_plain(
         "kernel", "rdb_mma", rdb_mod.rdb_mma, rdb_mod.rdb_reference, cases,
-        lambda dtype: rdb_mod.kernel_tiling_mma(), dtypes=("bfloat16",))
+        lambda dtype: rdb_mod.kernel_tiling_mma(),
+        dtypes=("bfloat16",))["bfloat16"]
     time_rdb_designs(state)
+    time_rdb_f32_designs(state)
     # comparison and timing launches are not main-path launches
-    rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_MMA, rdb_mod.LAUNCHES_I8 = launches0
+    (rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_MMA, rdb_mod.LAUNCHES_I8,
+     rdb_mod.LAUNCHES_F32, rdb_mod.LAUNCHES_FFMA) = launches0
     hold_i8_against_plain(state)
     hold_w8a8_against_plain(state)
     emit({"phase": "kernel", "seconds": round(time.perf_counter() - t0, 3)})
@@ -866,8 +1012,13 @@ def phase_main(state):
           "equal_to_single": same})
     state["main_launches"] += launches
     state["engine"] = eng
+    # the float32 engine's path: its model against the CPU, its byte
+    # contracts and its 1024² scene, each through rdb_f32_wg_kernel
+    rdb_mod.LAUNCHES_F32 = 0
     eng32 = check_against_plain(eng, work)
     check_byte_contracts(eng, eng32)
+    launches_f32 = rdb_mod.LAUNCHES_F32
+    state["main_launches_f32"] = launches_f32 + f32_scene(state, eng, eng32)
     check_wow_chain()
     check_int8_engine(state, eng)
     emit({"phase": "main", "seconds": round(time.perf_counter() - t0, 3)})
@@ -1512,6 +1663,82 @@ def check_against_plain(eng, work: Path):
         raise AssertionError(f"the check cannot tell TF32 ({rel_tf32}) from "
                              f"IEEE float32 ({rel32})")
     return eng32
+
+
+def f32_scene(state, eng, eng32) -> int:
+    """The float32 1024² scene, warm, on the host clock ending in
+    ``synchronize``: its MPix/s through ``eng32.enhance_serving`` (one
+    chunk: 69 ``rdb_f32_wg_kernel`` launches, checked), and through phase
+    int8's device-tiled harness (``tiled_apply`` over the model's forward
+    at the engine's tile, pad and batch) in float32 and bf16 in turns
+    (float32, bf16, bf16, float32); then one pass of the float32 harness
+    with ``rdb_ffma`` patched in for the model's ``rdb`` (rrdbnet's name:
+    the program has no switch for it), ``rdb_kernel<float>``'s rate, its
+    launches checked and kept as its main-path count. → the serving run's
+    ``rdb_f32_wg_kernel`` launches."""
+    from unittest import mock
+
+    import torch
+
+    from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models import rrdbnet as rrdb_mod
+    from s2sr_tpu_torch.ops import rdb as rdb_mod
+    from s2sr_tpu_torch.parallel.tiling import tiled_apply
+
+    card = state.get("card") or card_line()
+    img = synthetic_fields((1024, 1024), seed=3)
+    n_rdb = 3 * len(eng32.model.body)
+    eng32.enhance_serving(img)                 # warm: packs, cuDNN's plans
+    chunks0 = eng32.chunks_dispatched
+    rdb_mod.LAUNCHES_F32 = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng32.enhance_serving(img)
+    torch.cuda.synchronize()
+    serving_s = time.perf_counter() - t1
+    launches, chunks = rdb_mod.LAUNCHES_F32, eng32.chunks_dispatched - chunks0
+
+    def harness(e):
+        x = e._to_float(torch.from_numpy(img).cuda())
+        out = tiled_apply(lambda b: e.model(b, up_sub_batch=e.up_sub), x,
+                          tile=e.tile_size, pad=e.tile_pad, scale=e.scale,
+                          batch_size=e.batch_size)
+        return e._to_u8(out)
+
+    def timed(e):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        harness(e)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    launches0 = rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_F32
+    reps = {"float32": [], "bfloat16": []}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        reps[name].append(timed(eng32 if name == "float32" else eng))
+    rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_F32 = launches0
+    ffma0 = rdb_mod.LAUNCHES_FFMA
+    with mock.patch.object(rrdb_mod, "rdb", rdb_mod.rdb_ffma):
+        ffma_s = timed(eng32)
+    ffma_launches = rdb_mod.LAUNCHES_FFMA - ffma0
+    mpix = 1024 * 1024 / 1e6
+    rate = {k: mpix / min(v) for k, v in reps.items()}
+    rec = {"phase": "main", "check": "float32 1024² scene, warm",
+           "chunks": chunks, "rdb_f32_launches": launches,
+           "serving_seconds": serving_s,
+           "serving_mpix_per_s": mpix / serving_s,
+           "tiled_seconds_in_turns": reps, "tiled_mpix_per_s": rate,
+           "tiled_ffma_seconds": ffma_s, "tiled_ffma_mpix_per_s": mpix / ffma_s,
+           "rdb_ffma_launches": ffma_launches,
+           "float32_over_bf16_rate": rate["float32"] / rate["bfloat16"],
+           "float32_over_ffma_rate": rate["float32"] / (mpix / ffma_s),
+           "card": card}
+    emit(rec)
+    if (launches != n_rdb * chunks or chunks == 0 or ffma_launches == 0
+            or ffma_launches % n_rdb):
+        raise AssertionError(f"float32 1024² scene: {rec}")
+    state["ffma_launches"] = ffma_launches
+    return launches
 
 
 # the byte contracts' tiled scenes (bf16 engine, fp32 engine) and the
@@ -3889,6 +4116,22 @@ def run_cli(args: list, cwd: Path, env: dict, timeout: int) -> tuple:
     return secs, proc.stdout
 
 
+def run_cli_here(args: list) -> tuple:
+    """A CLI of the port run in this process through its ``main(argv)``
+    (``args``: the module, then its arguments, as for :func:`run_cli`):
+    (seconds, stdout). The same code as ``python -m`` without a child's
+    start-up (Python, torch, the card: 8–16 s on the card's host)."""
+    import contextlib
+    import importlib
+    import io
+
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        importlib.import_module(args[0]).main(list(args[1:]))
+    return time.perf_counter() - t1, buf.getvalue()
+
+
 def child_env(**extra) -> dict:
     root = Path(__file__).resolve().parent
     env = dict(os.environ, **extra)
@@ -4128,11 +4371,11 @@ def train_cli(args: list, work: Path, label: str, card: str) -> dict:
 
 
 def serve_checkpoint(ckpt: Path, work: Path, phase: str, card: str) -> int:
-    """A training checkpoint exported by ``convert_weights --from-ckpt`` and
-    served by ``SREngine`` on ``realesrgan_x4``: its RDBs in the ``rdb``
-    kernel (launches counted, returned), held within the bf16 tolerance
-    of ``rrdbnet_apply`` on the same weights, and ``cli.evaluate`` on its
-    output."""
+    """A training checkpoint exported by ``convert_weights --from-ckpt``
+    (its ``main``, in this process) and served by ``SREngine`` on
+    ``realesrgan_x4``: its RDBs in the ``rdb`` kernel (launches counted,
+    returned), held within the bf16 tolerance of ``rrdbnet_apply`` on the
+    same weights, and ``cli.evaluate`` (in this process) on its output."""
     import json as _json
 
     import numpy as np
@@ -4146,10 +4389,10 @@ def serve_checkpoint(ckpt: Path, work: Path, phase: str, card: str) -> int:
     from s2sr_tpu_torch.tiles.png import encode_png
 
     wdir = work / "weights"
-    secs, out = run_cli(["s2sr_tpu_torch.cli.convert_weights", "--from-ckpt",
-                         str(ckpt), "--model-name", "realesrgan_x4", "-o",
-                         str(wdir / "realesrgan_x4.npz")], work, child_env(),
-                        timeout=300)
+    secs, out = run_cli_here(["s2sr_tpu_torch.cli.convert_weights",
+                              "--from-ckpt", str(ckpt), "--model-name",
+                              "realesrgan_x4", "-o",
+                              str(wdir / "realesrgan_x4.npz")])
     scene = synthetic_fields((128, 128), seed=77)
     small = scene.reshape(32, 4, 32, 4, 3).mean((1, 3)).round().astype(
         np.uint8)
@@ -4172,8 +4415,8 @@ def serve_checkpoint(ckpt: Path, work: Path, phase: str, card: str) -> int:
     rel = float((got - want).abs().max()) / scale
     (work / "sr.png").write_bytes(encode_png(sr))
     (work / "hr.png").write_bytes(encode_png(scene))
-    _, ev = run_cli(["s2sr_tpu_torch.cli.evaluate", str(work / "sr.png"),
-                     str(work / "hr.png")], work, child_env(), timeout=300)
+    _, ev = run_cli_here(["s2sr_tpu_torch.cli.evaluate", str(work / "sr.png"),
+                          str(work / "hr.png")])
     emit({"phase": phase, "check": "trained weights served",
           "checkpoint": ckpt.name, "export_seconds": round(secs, 3),
           "rdb_launches": launches, "pretrained": eng.pretrained,
@@ -4532,7 +4775,7 @@ EVAL_TRAINED_RUNS = (("l1_second_order", "bfloat16"),
                      ("l1_second_order", "float32"),
                      ("l1_second_order", "int8"), ("gan", "bfloat16"))
 EVAL_KERNEL = {"bfloat16": ("rdb", "rdb_wg_kernel"),
-               "float32": ("rdb", "rdb_kernel<float>"),
+               "float32": ("rdb_f32", "rdb_f32_wg_kernel"),
                "int8": ("rdb_i8", "rdb_i8_kernel")}
 EVAL_CPU_TOL_DB = 0.01      # float32 engine PSNR, card vs CPU
 
@@ -4558,7 +4801,7 @@ def eval_trained_step(work: Path, card: str) -> tuple:
     :data:`EVAL_CPU_TOL_DB` of the card's; the int8 run's model measured
     beside it (:func:`trunk_on_trained_weights`). → (the launches by
     counter: ``rdb`` of the bf16 runs (``rdb_wg_kernel``), ``rdb_f32`` of
-    the float32 run (``rdb_kernel<float>``), ``rdb_i8``; that
+    the float32 run (``rdb_f32_wg_kernel``), ``rdb_i8``; that
     measurement's record)."""
     import numpy as np
     import torch
@@ -4568,14 +4811,15 @@ def eval_trained_step(work: Path, card: str) -> tuple:
     failures, bicubic = [], {}
     launches = {"rdb": 0, "rdb_f32": 0, "rdb_i8": 0}
     for ckpt, dtype in EVAL_TRAINED_RUNS:
-        rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = 0
+        rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = rdb_mod.LAUNCHES_F32 = 0
         t1 = time.perf_counter()
         rep, eng = eval_trained(work, ckpt, dtype)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
-        counts = {"rdb": rdb_mod.LAUNCHES, "rdb_i8": rdb_mod.LAUNCHES_I8}
-        launches["rdb_f32" if dtype == "float32" else "rdb"] += counts["rdb"]
-        launches["rdb_i8"] += counts["rdb_i8"]
+        counts = {"rdb": rdb_mod.LAUNCHES, "rdb_f32": rdb_mod.LAUNCHES_F32,
+                  "rdb_i8": rdb_mod.LAUNCHES_I8}
+        for k, n in counts.items():
+            launches[k] += n
         counter, kernel = EVAL_KERNEL[dtype]
         scenes = rep["config"]["eval_scenes"]
         emit({"phase": "gan", "eval_trained": ckpt, "dtype": dtype,
@@ -4985,10 +5229,10 @@ def swin_windows_apart(fn, t_of_shift) -> dict:
     return out
 
 
-def swin_bound_ms(name: str, shape, dtype) -> tuple:
+def swin_bound_ms(name: str, shape, dtype, peak=None) -> tuple:
     """Least time for one launch on the H100: the larger of its FLOPs at
-    the dtype's dense peak and its bytes (x and out once, the weights,
-    the bias table and masks)."""
+    ``peak`` (the dtype's dense peak unless given) and its bytes (x and out
+    once, the weights, the bias table and masks)."""
     import torch
 
     bsz, h, w = shape
@@ -4997,10 +5241,46 @@ def swin_bound_ms(name: str, shape, dtype) -> tuple:
     flops = SWIN_FLOP_PER_TOKEN[name] * tokens
     nbytes = (2 * tokens * 180 * item + SWIN_WEIGHTS[name] * item
               + (6 + 4) * 64 * 64 * 4)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    if peak is None:
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def swin_f32_numbers(card) -> dict:
+    """The float32 Swin kernel (``swin_kernel<float, true>``, on the CUDA
+    cores, never redesigned) at the bf16 timing's shape (1, 512, 512, 180),
+    both shifts, 5 launches each: its ms (the shifts' mean: the main path
+    runs both equally often), the plain version's (IEEE float32) and its
+    bound at FP32 FMA, and its bound as split TF32 (float32's accuracy on
+    the tensor cores, the route of its redesign). The caller restores the
+    launch counts."""
+    import torch
+
+    from s2sr_tpu_torch.ops import window_attention as wa
+
+    shape = (1, 512, 512)
+    ms, plain = {}, {}
+    for shift in (0, 4):
+        x, t, _ = swin_inputs(shape, torch.float32, shift)
+        ms[shift] = time_cuda(lambda: wa.swin_block(x, t), iters=5)
+        plain[shift] = time_cuda(lambda: wa.swin_block_reference(x, t), iters=3)
+        del x, t
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = swin_bound_ms("swin_block", shape, torch.float32)
+    split_ms, _ = swin_bound_ms("swin_block", shape, torch.float32,
+                                peak=PEAK_F32_SPLIT_TF32)
+    rec = {"phase": "swin_kernel", "kernel": "swin_block",
+           "instance": "swin_kernel<float, true>", "dtype": "float32",
+           "shape": [*shape, 180], "ms_by_shift": ms,
+           "ms": sum(ms.values()) / 2, "plain_ms_by_shift": plain,
+           "plain_ms": sum(plain.values()) / 2, "bound_ms": bound_ms,
+           "bound_by": bound_by, "split_tf32_bound_ms": split_ms,
+           "card": card}
+    rec["over_bound"] = rec["ms"] / bound_ms
+    emit(rec)
+    return rec
 
 
 @ieee_phase
@@ -5114,7 +5394,8 @@ def phase_swin_kernel(state):
               "values_apart": apart})
         if any(apart.values()):
             failures.append(f"{name}: windows differ by pairing: {apart}")
-    # comparison launches are not main-path launches
+    state["swin_f32_numbers"] = swin_f32_numbers(state.get("card"))
+    # comparison and timing launches are not main-path launches
     wa.LAUNCHES.update(launches0[0])
     wa.LAUNCHES_MMA.update(launches0[1])
     if failures:
@@ -6195,7 +6476,7 @@ def phase_ladder(state):
         worst[rung] = hold_against_plain(
             "ladder", f"rdb_{rung}", on_flat_weights(lad.WRAPPERS[rung], rung),
             on_flat_reference(rung), cases,
-            functools.partial(lad.kernel_tiling, rung))
+            functools.partial(lad.kernel_tiling, rung))["bfloat16"]
     # comparison launches are not the ladder's launches
     lad.LAUNCHES.update(launches0)
     ladder_step0(card)
@@ -6355,8 +6636,9 @@ def mxu_faults(ws) -> dict:
 def sass_counts(lib) -> dict:
     """Per kernel of the built library, the SASS instructions that show
     the tensor cores at work (HMMA for mma.sync, HGMMA for wgmma, IMMA for
-    the int8 mma.sync, IGMMA for the int8 wgmma), the A loads (LDSM) and
-    the shared stores (STS), as ``cuobjdump -sass`` lists them."""
+    the int8 mma.sync, IGMMA for the int8 wgmma), the A loads (LDSM), the
+    shared stores (STS) and the CUDA cores' float32 multiply-adds (FFMA),
+    as ``cuobjdump -sass`` lists them."""
     import re
     import shutil
 
@@ -6369,7 +6651,7 @@ def sass_counts(lib) -> dict:
         if m:
             name = m.group(1)
             counts[name] = {"HMMA": 0, "HGMMA": 0, "IMMA": 0, "IGMMA": 0,
-                            "LDSM": 0, "STS": 0}
+                            "LDSM": 0, "STS": 0, "FFMA": 0}
         elif name:
             for op in counts[name]:
                 if re.search(rf"\b{op}\b", line):
@@ -7406,6 +7688,7 @@ def phase_mesh(state):
 def kernels_record(state) -> list | None:
     """The kernels' JSON record, or None if a phase it needs did not run."""
     if not {"rdb_numbers", "rdb_mma_err", "main_launches", "rdb_i8_numbers",
+            "rdb_f32_numbers", "main_launches_f32", "ffma_launches",
             "main_launches_i8", "rdb_w8a8_numbers", "int8_launches_w8a8",
             "swin_numbers", "swin_launches", "swin_err", "ladder",
             "mxu"} <= state.keys():
@@ -7435,6 +7718,24 @@ def kernels_record(state) -> list | None:
              "max_abs_err": state["rdb_mma_err"][0],
              "rel_err": state["rdb_mma_err"][1],
              **state["ladder"]["v4_mma"], "library_ms": None},
+            # the float32 instance (rdb_f32_wg_kernel, split TF32 on wgmma)
+            # and the design it replaced (rdb_kernel<float>, FFMA), launched
+            # on the main path with rdb_ffma patched in for one pass
+            {"name": "rdb_f32", "route": "cuda",
+             "source": "s2sr_tpu_torch/csrc/rdb.cu",
+             "replaces": RDB_REPLACES, "instance_of": "rdb",
+             "launches": (state["main_launches_f32"]
+                          + evals.get("rdb_f32", 0)),
+             "max_abs_err": state["rdb_f32_err"][0],
+             "rel_err": state["rdb_f32_err"][1],
+             **state["rdb_f32_numbers"], "library_ms": None},
+            {"name": "rdb_f32_ffma", "route": "cuda",
+             "source": "s2sr_tpu_torch/csrc/rdb.cu",
+             "replaces": RDB_REPLACES, "instance_of": "rdb",
+             "launches": state["ffma_launches"],
+             "max_abs_err": state["rdb_ffma_err"][0],
+             "rel_err": state["rdb_ffma_err"][1],
+             **state["rdb_f32_ffma_numbers"], "library_ms": None},
             # no TPU kernel: JAX runs this conv as XLA's int8 convolution
             {"name": "rdb_i8", "route": "cuda",
              "source": "s2sr_tpu_torch/csrc/rdb.cu",

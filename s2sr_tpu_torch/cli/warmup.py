@@ -109,8 +109,8 @@ def main(argv=None) -> None:
         segment_fields(mask, vcfg, device=device)
         tick("vector mask + segmentation chains")
 
-    launches = {"rdb": rdb.LAUNCHES, "rdb_i8": rdb.LAUNCHES_I8,
-                **window_attention.LAUNCHES}
+    launches = {"rdb": rdb.LAUNCHES, "rdb_f32": rdb.LAUNCHES_F32,
+                "rdb_i8": rdb.LAUNCHES_I8, **window_attention.LAUNCHES}
     print("kernel launches: " + ", ".join(f"{k} {v}"
                                           for k, v in launches.items()))
     print(f"warmup done in {time.monotonic() - t0:.0f}s")

@@ -72,8 +72,15 @@
 //   x1..x4 resident (no copy of A a step), streams B by bulk copies that
 //   no thread issues but one, and keeps a k-step's products in flight
 //   while the next k-step's A loads.
-// - float32, rdb_kernel: float32 FMA on the CUDA cores (the tensor cores
-//   would make it TF32), 8x8 tiles (172,032 B shared), the sources planar
+// - float32 (precision "float32"), rdb_f32_wg_kernel: every stage an
+//   implicit GEMM on wgmma in split TF32 ("3xTF32"): each float32 operand
+//   split into two TF32 values, three TF32 products a multiply-add, so the
+//   sums keep float32's accuracy; the sources resident in float32, B
+//   streamed as hi and lo slabs through a ring of bulk copies; 8x8 tiles.
+//   Section "float32 on wgmma" below.
+// - float32 on the CUDA cores, rdb_kernel<float, 8>: the float32 design
+//   before it, served by nothing (ops/rdb.py::rdb_ffma, the timing
+//   baseline). float32 FMA, 8x8 tiles (172,032 B shared), the sources planar
 //   [channel][y][x] so that the 32 lanes of a warp read 32 neighbouring
 //   pixels of one channel without bank conflicts. A warp task is 128
 //   pixels (4 per lane) x 16 output channels: per (tap, input channel) a
@@ -1562,6 +1569,567 @@ int launch_w8a8(const void* x, const void* mask, void* out, const void* wq,
   return (int)cudaGetLastError();
 }
 
+// --- float32 on wgmma: rdb_f32_wg_kernel, split TF32 --------------------------
+//
+// The float32 block (precision "float32": _rdb_packed in float32, the
+// function of fused_rdb_v4.py:234 rdb_pallas_v4) on the tensor cores. What
+// bounds it on this card: as counted in chip_smoke.py, operations, 479,232
+// FLOP a pixel at 67 TFLOP/s of FP32 FMA (7.98 ms at (16, 264, 264)). The
+// tensor cores take float32 only as TF32 (10 stored mantissa bits), which
+// alone keeps about three decimal digits. So each operand v is split into
+// hi = cvt.rna.tf32(v) and lo = cvt.rna.tf32(v - hi) (CUTLASS's
+// OpMultiplyAddFastF32, "3xTF32"), and every multiply-add is taken as three
+// wgmma.m64nNk8.f32.tf32.tf32 products, in this order every k-step: lo_a
+// hi_b, hi_a lo_b, hi_a hi_b (the small terms first); lo_a lo_b, under
+// 2^-22 of the product, is dropped. The three go into float32 partial sums
+// of their own, which are added to the running float32 sums, rounded, once
+// they have completed (f32_step says why). At 495 TFLOP/s of TF32 the three
+// products floor the kernel at 3.24 ms unpadded and 7.23 ms as executed
+// (34.21 M multiply-adds a tile, 17,424 tiles; 6.73 ms at the 31.85 M of
+// a design without stage 3's padded tile, below), against 21.5 ms for the
+// CUDA-core design at full issue.
+//
+// The design is rdb_wg_kernel's with float32 where it holds bf16, at
+// rdb_kernel<float>'s 8x8 tile, whose sources fill the same 172,032 bytes:
+// - The sources x, x1..x4 resident in float32, pixel-major: x 16 chunks of
+//   16 bytes a pixel, x1..x4 8, chunk c of pixel p at bank group
+//   (p + c) % 8 (rot_f32), so that an ldmatrix phase of 8 consecutive
+//   pixels hits 8 bank groups.
+// - A from registers: ldmatrix.x4 of 32-bit elements (four 8-pixel x
+//   4-channel matrices) returns wgmma's TF32 A fragment (a0 (g, t), a1
+//   (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)); each thread splits it
+//   into hi and lo in registers, and the three products read them from
+//   there. A k-step is 8 channels of one tap: x's 72, x1..x4's 36 each.
+// - B packed once a body by ops/rdb.py::pack_rdb_f32_wg: per 4 k-steps a
+//   slab of N rows x 128 bytes (rdb_wg's K-major layout with the 128-byte
+//   swizzle, 8 TF32 values a k-step) for hi and one for lo. The stream is a
+//   run of 8 KB units: a stage 1-4 group's hi and lo slabs (32 rows) in one,
+//   stage 5's hi (64 rows), then its lo, in two. A producer warpgroup's
+//   first thread copies unit g into slot g % 7 of the ring by one
+//   cp.async.bulk, completing on the slot's full mbarrier; all consumers
+//   arrive on its empty mbarrier once their wgmmas on it have completed.
+// - M tiles of 64 region pixels: 4, 4, 3, 2 and 1 over stages 1-4 and 5.
+//   In stages 1-4 warpgroup w runs tiles w, w + 2 over all of Cout (N 32;
+//   stage 3's fourth tile is all padding); stage 5 gives both warpgroups its
+//   one tile over half of Cout (N 32 each, B from row 32 w). 34.21 M
+//   multiply-adds a tile executed (31.85 M if stage 3 ran only its 3
+//   tiles: each warpgroup all 3 at N 16, half of Cout, which was slower
+//   on an H100: an N 16 wgmma is half the work for the same A and its
+//   split).
+// - A step is 2 k-steps (4 in stage 5) under one wait: a step of one
+//   k-step (48 tensor clocks at N 32 a tile) is shorter than the step's
+//   own wait, fold, loads and split (slower on an H100).
+// - Per k-step at N 32 shared memory moves A once into registers (2 KB)
+//   and B three times (hi twice, lo once: 3 KB), about 40 clocks of its
+//   128 bytes a clock against 48 of the tensor cores; unlike the bf16
+//   kernel's (24 against 16), the port does not bind first.
+// Every output sums the same units in the same order with the same wgmma
+// shape and product order wherever its pixel lies (tile, batch, image):
+// the float32 serving contracts. Shared memory: 1,024 to align the ring,
+// 7 x 8,192, the sources 172,032 and two mbarriers a slot: 230,512 of the
+// block's 232,448 (ops/rdb.py::rdb_f32_wg_smem_plan). A 10x10 tile's
+// sources alone would take 220,160, leaving one slot.
+
+constexpr int F32_NBUF = 7;        // slots of the B ring
+constexpr int F32_UNIT = 8192;     // bytes a slot: one unit of the stream
+
+__host__ __device__ constexpr int f32_side(int j) { return TILE_F32 + 2 * (HALO - j); }
+// byte offset of source j (0 = x, 1..4 = x1..x4) after the ring, float32
+__host__ __device__ constexpr int f32_off(int j) {
+  int off = 0;
+  for (int k = 0; k < j; ++k) off += f32_side(k) * f32_side(k) * src_chans(k) * 4;
+  return off;
+}
+// 64-row M tiles over stage s's region; a stage of one tile (stage 5)
+// gives both warpgroups that tile over half of Cout (f32_split), the others
+// give warpgroup w tiles w, w + 2 (stage 3's fourth all padding)
+__host__ __device__ constexpr int f32_tiles(int s) {
+  return (f32_side(s) * f32_side(s) + 63) / 64;
+}
+__host__ __device__ constexpr bool f32_split(int s) { return f32_tiles(s) < WGS; }
+__host__ __device__ constexpr int f32_mt(int s) {
+  return f32_split(s) ? f32_tiles(s) : (f32_tiles(s) + WGS - 1) / WGS;
+}
+__host__ __device__ constexpr int f32_nw(int s) {
+  return f32_split(s) ? stage_cout(s) / WGS : stage_cout(s);
+}
+// k-steps (8 channels of one tap) of source j, and of stage s
+__host__ __device__ constexpr int f32_src_steps(int j) { return j == 0 ? 72 : 36; }
+__host__ __device__ constexpr int f32_steps(int s) {
+  return f32_src_steps(0) + (s - 1) * f32_src_steps(1);
+}
+// units a group of KQ k-steps takes (hi and lo of 32 rows in one; of 64 in
+// two), and the first unit of stage s; f32_unit0(6) counts them all
+__host__ __device__ constexpr int f32_upg(int s) { return stage_cout(s) / G; }
+__host__ __device__ constexpr int f32_unit0(int s) {
+  int n = 0;
+  for (int k = 1; k < s; ++k) n += f32_steps(k) / KQ * f32_upg(k);
+  return n;
+}
+constexpr int F32_UNITS = f32_unit0(6);
+// [up to 1024 bytes to align the ring][ring][sources][2 F32_NBUF mbarriers]
+constexpr size_t f32_smem_bytes() {
+  return 1024 + F32_NBUF * F32_UNIT + f32_off(5) + 2 * F32_NBUF * 8;
+}
+static_assert(f32_off(5) == 172032 && F32_UNITS == 234, "the float32 sources and stream");
+static_assert(f32_smem_bytes() == 230512 && f32_smem_bytes() <= 232448,
+              "rdb_f32_wg's shared memory as its note counts it");
+
+// Byte offset of 16-byte chunk c of pixel p in a float32 source of CQ (8 or
+// 16) chunks a pixel: CQ / 8 128-byte lines a pixel, chunk c at bank group
+// (p + c) % 8.
+template <int CQ>
+__device__ __forceinline__ uint32_t rot_f32(uint32_t p, uint32_t c) {
+  return (p * CQ + (c & ~7u)) * 16 + ((p + c) & 7) * 16;
+}
+
+// float32 -> TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away from
+// zero; bit for bit on finite values): half of the 13 dropped bits' range
+// added to the bit pattern, then those bits cleared. An add and a mask on
+// the integer pipe, where the conversion issues at a quarter of the FP32
+// rate: 8 a value quad would cost ~64 clocks a tile's k8 slice against
+// the tensor cores' 48 (the conversion made the kernel slower on an
+// H100).
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// wgmma.mma_async, A (TF32) from registers, B (TF32) by descriptor:
+// m64n16k8 and m64n32k8 into float32, d += A B, or with FIRST d = A B
+// (scale-d 0), d then an output alone: no instruction but a wgmma defines
+// a partial sum (ptxas serialises the wgmmas if one does: C7515)
+#define S2SR_TF32_ASM(N, D)                                                     \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" #D ", 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 "
+template <bool FIRST>
+__device__ __forceinline__ void wg_tf32_16(float* d, const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (FIRST)
+    asm volatile(S2SR_TF32_ASM(16, 13)
+                 "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+                 : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+                   "=f"(d[5]), "=f"(d[6]), "=f"(d[7])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+  else
+    asm volatile(S2SR_TF32_ASM(16, 13)
+                 "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                   "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <bool FIRST>
+__device__ __forceinline__ void wg_tf32_32(float* d, const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (FIRST)
+    asm volatile(S2SR_TF32_ASM(32, 21)
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+                 "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+                   "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+                   "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+                   "=f"(d[15])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+  else
+    asm volatile(S2SR_TF32_ASM(32, 21)
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+                 "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                   "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+                   "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+                   "+f"(d[15])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef S2SR_TF32_ASM
+
+template <int N, bool FIRST>
+__device__ __forceinline__ void wg_tf32(float* d, const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 16) wg_tf32_16<FIRST>(d, a, b);
+  else wg_tf32_32<FIRST>(d, a, b);
+}
+
+// The producer's thread: every unit in order, each into its slot once the
+// consumers have released the unit F32_NBUF before it.
+__device__ __forceinline__ void f32_produce(const Ring& r) {
+  for (int g = 0; g < F32_UNITS; ++g) {
+    const uint32_t slot = (uint32_t)g % F32_NBUF;
+    if (g >= F32_NBUF) mbar_wait(r.empty + 8 * slot, (uint32_t)(g / F32_NBUF - 1) & 1);
+    const uint32_t bar = r.full + 8 * slot;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"((uint32_t)F32_UNIT) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1], %2, [%3];\n"
+                 ::"r"(r.slots + slot * F32_UNIT), "l"(r.wq + (size_t)g * F32_UNIT),
+                 "r"((uint32_t)F32_UNIT), "r"(bar) : "memory");
+  }
+}
+
+// acc += p, each sum rounded to nearest; p read after the wait that
+// completed the wgmmas writing it
+template <int MT, int NA>
+__device__ __forceinline__ void f32_fold(float (&acc)[MT][NA], float (&p)[MT][NA]) {
+  fence_acc(p);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[m][i] = __fadd_rn(acc[m][i], p[m][i]);
+}
+
+// k8 slices (8 channels of one tap) a step of stage S: two; four in stage 5,
+// whose warpgroups run one M tile each (a step of one slice is 48 tensor
+// clocks there, short of the step's own wait, fold, loads and split)
+__host__ __device__ constexpr int f32_sl(int s) { return s == 5 ? 4 : 2; }
+
+// One step of stage S (wg_step's pipeline), SL k8 slices of one tap: step
+// k of the run (src(k SL, kk) as wg_step's, kk the source's k8 index),
+// slices t0 + k SL.. of the stage. Its group's units waited for at the
+// group's first step (a step never crosses a group); per slice, ldmatrix
+// of the M tiles' A, split into hi and lo (ah, al: one of the run's two
+// register sets); one fence, per tile and slice the three products into
+// the step's partial sums pn (the first with scale-d 0), one commit; then
+// wait_group 1, after which the step before has completed: unless this is
+// the run's first step (FOLD false), its partials po are added to acc,
+// rounded (__fadd_rn), and a group whose last step it was is released. The
+// tensor cores truncate where they add a product sum to an accumulator;
+// chained over a stage's 216 slices (648 sums) that loses more than the
+// 1e-5 of the block's change float32 is held to (tests/
+// test_torch_rdb_f32_wg.py emulates both), 6 or 12 sums a chain keep it
+// near float32's. boff: byte offset of the warpgroup's first B row in a
+// slab.
+template <int S, int CQ, bool FOLD, int MT, int SL, int NA, typename F>
+__device__ __forceinline__ void f32_step(float (&acc)[MT][NA], float (&pn)[MT][NA],
+                                         float (&po)[MT][NA], uint32_t (&ah)[MT][SL][4],
+                                         uint32_t (&al)[MT][SL][4], const Ring& ring,
+                                         const int (&py)[MT], const int (&px)[MT],
+                                         uint32_t boff, int k, int t0, F src) {
+  constexpr int U = f32_upg(S);
+  const int tt = t0 + k * SL, r = tt % KQ;
+  const int g = f32_unit0(S) + tt / KQ * U;
+  if (r == 0) {
+    ring_wait<F32_NBUF>(ring, g);
+    if constexpr (U == 2) ring_wait<F32_NBUF>(ring, g + 1);
+  }
+  int kk;
+  const Src sr = src(k * SL, kk);
+  const int tap = kk / sr.spt, cc = kk % sr.spt;
+  const int oy = sr.d + tap / 3, ox = sr.d + tap % 3;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const uint32_t p = (uint32_t)((py[m] + oy) * sr.rj + px[m] + ox);
+#pragma unroll
+    for (int q = 0; q < SL; ++q) {
+      uint32_t v[4];
+      tc_ldmatrix(v, sr.base + rot_f32<CQ>(p, 2 * (cc + q) + (lane >> 4)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float f = __uint_as_float(v[i]);
+        ah[m][q][i] = tf32_rna(f);
+        al[m][q][i] = tf32_rna(__fsub_rn(f, __uint_as_float(ah[m][q][i])));
+      }
+    }
+  }
+  // hi at the group's unit; lo 4 KB into it (32 rows), or the next unit
+  const uint32_t hi = ring.slots + (uint32_t)(g % F32_NBUF) * F32_UNIT + boff + r * 32;
+  const uint32_t lo = U == 2 ? ring.slots + (uint32_t)((g + 1) % F32_NBUF) * F32_UNIT +
+                                   boff + r * 32
+                             : hi + F32_UNIT / 2;
+  uint64_t dh[SL], dl[SL];
+#pragma unroll
+  for (int q = 0; q < SL; ++q) {
+    dh[q] = b_desc(hi + q * 32);
+    dl[q] = b_desc(lo + q * 32);
+    asm volatile("" : "+l"(dh[q]), "+l"(dl[q])::"memory");
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    wg_tf32<2 * NA, true>(pn[m], al[m][0], dh[0]);
+    wg_tf32<2 * NA, false>(pn[m], ah[m][0], dl[0]);
+    wg_tf32<2 * NA, false>(pn[m], ah[m][0], dh[0]);
+#pragma unroll
+    for (int q = 1; q < SL; ++q) {
+      wg_tf32<2 * NA, false>(pn[m], al[m][q], dh[q]);
+      wg_tf32<2 * NA, false>(pn[m], ah[m][q], dl[q]);
+      wg_tf32<2 * NA, false>(pn[m], ah[m][q], dh[q]);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<1>();
+  if constexpr (FOLD) f32_fold(acc, po);
+  if (r == 0 && tt > 0) {
+    ring_release<F32_NBUF>(ring, g - U);
+    if constexpr (U == 2) ring_release<F32_NBUF>(ring, g - 1);
+  }
+}
+
+// The N steps (N even) of a run from stage slice t0 on two register sets of
+// A and of partial sums in turn (wg_run's shape, which keeps ptxas from
+// serialising the wgmmas): a prologue of two steps, then a runtime loop over
+// pairs; at its end every step's partials are in acc, in step order.
+template <int N, int CQ, int S, int MT, int NA, typename F>
+__device__ __forceinline__ void f32_run(float (&acc)[MT][NA], const Ring& ring, int t0,
+                                        uint32_t boff, const int (&py)[MT],
+                                        const int (&px)[MT], F src) {
+  static_assert(N >= 2 && N % 2 == 0, "a run of pairs of steps");
+  constexpr int SL = f32_sl(S);
+  uint32_t h0[MT][SL][4], l0[MT][SL][4], h1[MT][SL][4], l1[MT][SL][4];
+  float p0[MT][NA], p1[MT][NA];    // written first by a step's first wgmma
+  f32_step<S, CQ, false>(acc, p0, p1, h0, l0, ring, py, px, boff, 0, t0, src);
+  f32_step<S, CQ, true>(acc, p1, p0, h1, l1, ring, py, px, boff, 1, t0, src);
+#pragma unroll 1
+  for (int k = 2; k < N; k += 2) {
+    f32_step<S, CQ, true>(acc, p0, p1, h0, l0, ring, py, px, boff, k, t0, src);
+    f32_step<S, CQ, true>(acc, p1, p0, h1, l1, ring, py, px, boff, k + 1, t0, src);
+  }
+  wgmma_wait<0>();
+  f32_fold(acc, p1);
+}
+
+// One conv stage S (1..5) of rdb_f32_wg_kernel: x's 72 k-steps, then
+// x1..x_{S-1}'s 36 each, in steps of f32_sl(S), every step's partial sums
+// added to the running float32 sums (from zero); the stage's last group
+// released; then the epilogue (rdb_wg_kernel's, in float32, with
+// rdb_kernel<float>'s arithmetic).
+template <int S>
+__device__ __forceinline__ void f32_stage(const Ring& ring, uint32_t sbase,
+                                          const float* __restrict__ bias,
+                                          const float* __restrict__ mask,
+                                          float* __restrict__ out, int b, int H, int W,
+                                          int oy0, int ox0) {
+  constexpr int RS = f32_side(S);
+  constexpr int NPIX = RS * RS;
+  constexpr int MT = f32_mt(S);
+  constexpr int NW = f32_nw(S);           // output channels a warpgroup
+  constexpr int NA = NW / 2;              // accumulators a thread a tile
+  constexpr bool SPLIT = f32_split(S);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int col0 = SPLIT ? wg * NW : 0;   // the warpgroup's first channel
+
+  // tile of the warpgroup's m-th: every tile (SPLIT) or w + 2m
+  int py[MT], px[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int tile = SPLIT ? m : wg + WGS * m;
+    int p = tile * 64 + warp * 16 + (lane & 15);
+    p = p < NPIX ? p : NPIX - 1;
+    py[m] = p / RS;
+    px[m] = p % RS;
+  }
+  // accumulator (m, i = 4k + 2h + e) is tile pixel 16 warp + g + 8h at
+  // channel col0 + 8k + 2t + e
+  float acc[MT][NA];
+  zero_acc(acc);
+  const uint32_t boff = (uint32_t)col0 * 128;
+  const Src xs = {sbase, f32_side(0), S - 1, 8};
+  constexpr int SL = f32_sl(S);
+  f32_run<f32_src_steps(0) / SL, 16, S>(acc, ring, 0, boff, py, px, [&](int k, int& kk) {
+    kk = k;
+    return xs;
+  });
+  if constexpr (S > 1) {
+    f32_run<(f32_steps(S) - f32_src_steps(0)) / SL, 8, S>(acc, ring, f32_src_steps(0), boff,
+                                                          py, px, [&](int k, int& kk) {
+      const int j = 1 + k / f32_src_steps(1);
+      kk = k % f32_src_steps(1);
+      const uint32_t off = j == 1   ? f32_off(1)
+                           : j == 2 ? f32_off(2)
+                           : j == 3 ? f32_off(3)
+                                    : f32_off(4);
+      return Src{sbase + off, f32_side(j), S - 1 - j, 4};
+    });
+  }
+  {
+    constexpr int U = f32_upg(S);
+    constexpr int LAST = f32_unit0(S + 1) - U;
+    ring_release<F32_NBUF>(ring, LAST);
+    if constexpr (U == 2) ring_release<F32_NBUF>(ring, LAST + 1);
+  }
+
+  // epilogue: biases, mask and x's residual in registers before any store
+  float bv[NW / 8][2];
+#pragma unroll
+  for (int k = 0; k < NW / 8; ++k) {
+    bv[k][0] = __ldg(bias + (S - 1) * G + col0 + 8 * k + 2 * t);
+    bv[k][1] = __ldg(bias + (S - 1) * G + col0 + 8 * k + 2 * t + 1);
+  }
+  const size_t img_off = (size_t)b * H * W;
+  int gy[MT][2], gx[MT][2], pp[MT][2];
+  float mk[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tile = SPLIT ? m : wg + WGS * m;
+      const int p = tile * 64 + warp * 16 + g + 8 * h;
+      constexpr int HS = S < 5 ? HALO - S : 0;
+      pp[m][h] = p;
+      gy[m][h] = p < NPIX ? oy0 - HS + p / RS : -1;
+      gx[m][h] = ox0 - HS + p % RS;
+      const bool in = gy[m][h] >= 0 && gy[m][h] < H && gx[m][h] >= 0 && gx[m][h] < W;
+      mk[m][h] = !in ? 0.f : (mask ? mask[img_off + (size_t)gy[m][h] * W + gx[m][h]] : 1.f);
+    }
+  if constexpr (S < 5) {
+    // x_S = m(lrelu(acc + b)), 0 outside the image (the SAME padding of the
+    // next convs): channels co, co + 1 are bytes 4 (co % 4).. of chunk co / 4
+    // of an 8-chunk pixel
+    const uint32_t dst = sbase + f32_off(S);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = pp[m][h];
+        if (p >= NPIX) continue;
+        const bool inside = gy[m][h] >= 0 && gy[m][h] < H && gx[m][h] >= 0 && gx[m][h] < W;
+#pragma unroll
+        for (int k = 0; k < NW / 8; ++k) {
+          const int co = col0 + 8 * k + 2 * t;
+          float v0 = acc[m][4 * k + 2 * h] + bv[k][0];
+          float v1 = acc[m][4 * k + 2 * h + 1] + bv[k][1];
+          v0 = (v0 >= 0.f ? v0 : 0.2f * v0) * mk[m][h];
+          v1 = (v1 >= 0.f ? v1 : 0.2f * v1) * mk[m][h];
+          if (!inside) v0 = v1 = 0.f;
+          asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n"
+                       ::"r"(dst + rot_f32<8>((uint32_t)p, (uint32_t)co >> 2) + 4 * (co & 3)),
+                       "f"(v0), "f"(v1) : "memory");
+        }
+      }
+  } else {
+    // out = m(0.2 (x5 + b5) + x), x from its resident copy (region 0 has
+    // a 5-pixel halo, 16 chunks a pixel), every value read before any store
+    float2 xin[MT][2][NW / 8];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool in = gy[m][h] >= 0 && gy[m][h] < H && gx[m][h] < W;
+        const int p = pp[m][h];
+        const int xp = in ? (p / RS + HALO) * f32_side(0) + p % RS + HALO : 0;
+#pragma unroll
+        for (int k = 0; k < NW / 8; ++k) {
+          const int co = col0 + 8 * k + 2 * t;
+          asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                       : "=f"(xin[m][h][k].x), "=f"(xin[m][h][k].y)
+                       : "r"(sbase + rot_f32<16>((uint32_t)xp, (uint32_t)co >> 2) +
+                             4 * (co & 3))
+                       : "memory");
+        }
+      }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (gy[m][h] < 0 || gy[m][h] >= H || gx[m][h] >= W) continue;
+        const size_t pix = img_off + (size_t)gy[m][h] * W + gx[m][h];
+#pragma unroll
+        for (int k = 0; k < NW / 8; ++k) {
+          const int co = col0 + 8 * k + 2 * t;
+          const float v0 = (acc[m][4 * k + 2 * h] + bv[k][0]) * 0.2f + xin[m][h][k].x;
+          const float v1 = (acc[m][4 * k + 2 * h + 1] + bv[k][1]) * 0.2f + xin[m][h][k].y;
+          *reinterpret_cast<float2*>(out + pix * NF + co) =
+              make_float2(v0 * mk[m][h], v1 * mk[m][h]);
+        }
+      }
+  }
+}
+
+// The consumers' part: the input tile with its 5-pixel halo in float32
+// (16-byte cp.async copies into chunk c of 16-chunk pixel p, zero-filled
+// outside the image: a source size of 0 reads nothing), then the stages.
+__device__ __forceinline__ void f32_consume(const Ring& ring, uint32_t sbase,
+                                            const float* __restrict__ x,
+                                            const float* __restrict__ mask,
+                                            float* __restrict__ out,
+                                            const float* __restrict__ bias, int H, int W) {
+  const int b = blockIdx.z;
+  const int oy0 = blockIdx.y * TILE_F32, ox0 = blockIdx.x * TILE_F32;
+  const size_t img_off = (size_t)b * H * W;
+  constexpr int R = f32_side(0);
+  for (int i = threadIdx.x; i < R * R * 16; i += TC_WARPS * 32) {
+    const int p = i >> 4, c = i & 15;
+    const int gy = oy0 - HALO + p / R, gx = ox0 - HALO + p % R;
+    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const float* src = in ? x + (img_off + (size_t)gy * W + gx) * NF + 4 * c : x;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(sbase + rot_f32<16>((uint32_t)p, (uint32_t)c)), "l"(src),
+                 "r"(in ? 16 : 0)
+                 : "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  consumer_sync();
+  f32_stage<1>(ring, sbase, bias, mask, out, b, H, W, oy0, ox0);
+  consumer_sync();
+  f32_stage<2>(ring, sbase, bias, mask, out, b, H, W, oy0, ox0);
+  consumer_sync();
+  f32_stage<3>(ring, sbase, bias, mask, out, b, H, W, oy0, ox0);
+  consumer_sync();
+  f32_stage<4>(ring, sbase, bias, mask, out, b, H, W, oy0, ox0);
+  consumer_sync();
+  f32_stage<5>(ring, sbase, bias, mask, out, b, H, W, oy0, ox0);
+}
+
+// The float32 RDB: wb the hi and lo slabs of the five convs as 8 KB units
+// (ops/rdb.py::pack_rdb_f32_wg). The roles as wg_body's: warpgroups 0 and 1
+// consume with 240 registers a thread, warpgroup 2 gives its registers down
+// to 24 and its first thread produces.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+rdb_f32_wg_kernel(const float* __restrict__ x, const float* __restrict__ mask,
+                  float* __restrict__ out, const unsigned char* __restrict__ wb,
+                  const float* __restrict__ bias, int H, int W) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  Ring ring;
+  ring.slots = (raw + 1023) & ~1023u;
+  const uint32_t sbase = ring.slots + F32_NBUF * F32_UNIT;
+  ring.full = sbase + f32_off(5);
+  ring.empty = ring.full + 8 * F32_NBUF;
+  ring.wq = wb;
+  ring.wf = nullptr;
+  ring.keep = 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < F32_NBUF; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   ::"r"(ring.full + 8 * i) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   ::"r"(ring.empty + 8 * i), "r"(TC_WARPS * 32) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == WGS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == WGS * 128) f32_produce(ring);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    f32_consume(ring, sbase, x, mask, out, bias, H, W);
+  }
+}
+
+int launch_f32_wg(const void* x, const void* mask, void* out, const void* wb,
+                  const void* bias, int B, int H, int W, cudaStream_t stream) {
+  constexpr size_t smem = f32_smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(
+      rdb_f32_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + TILE_F32 - 1) / TILE_F32, (H + TILE_F32 - 1) / TILE_F32, B);
+  rdb_f32_wg_kernel<<<grid, WG_THREADS, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(mask),
+      static_cast<float*>(out), static_cast<const unsigned char*>(wb),
+      static_cast<const float*>(bias), H, W);
+  return (int)cudaGetLastError();
+}
+
+// Multiply-adds rdb_f32_wg_kernel executes per output tile (each of three
+// TF32 products): each stage's M tiles (stage 3's padded fourth included)
+// over all 9 * Cin x Cout.
+constexpr long long f32_macs_per_tile() {
+  long long macs = 0;
+  for (int s = 1; s <= 5; ++s)
+    macs += (long long)(f32_split(s) ? 1 : WGS) * f32_mt(s) * 64 * 9 * stage_cin(s) *
+            stage_cout(s);
+  return macs;
+}
+static_assert(f32_macs_per_tile() == 34209792, "34.21 M multiply-adds a tile");
+
 // Multiply-adds the wgmma kernels execute per output tile: each stage's
 // 2 * wg_mt 64-row M tiles over all 9 * Cin x Cout.
 constexpr long long wg_macs_per_tile() {
@@ -1612,21 +2180,33 @@ constexpr long long macs_per_tile() {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x, out: (B, H, W, 64) contiguous;
-// mask: (B, H, W) float32 or null; w: the five HWIO conv kernels
-// flattened and concatenated (float32), read by the float32 kernel; wf:
-// the same weights as rdb_wg_kernel's bf16 slabs (ops/rdb.py::pack_rdb_wg),
-// read by the bfloat16 kernel (null for float32); bias: 192 float32.
-// Returns the CUDA error code of the launch (0 = success).
+// mask: (B, H, W) float32 or null; wf: the five convs' weights as the
+// dtype's kernel reads them: rdb_f32_wg_kernel's hi and lo TF32 units
+// (ops/rdb.py::pack_rdb_f32_wg) or rdb_wg_kernel's bf16 slabs
+// (ops/rdb.py::pack_rdb_wg); bias: 192 float32. Returns the CUDA error
+// code of the launch (0 = success).
 extern "C" int s2sr_rdb_forward(const void* x, const void* mask, void* out,
-                                const void* w, const void* wf,
-                                const void* bias, int B, int H, int W,
-                                int dtype, void* stream) {
+                                const void* wf, const void* bias, int B, int H,
+                                int W, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, TILE_F32>(x, mask, out, w, bias, B, H, W, st);
+  if (dtype == 0 && wf)
+    return launch_f32_wg(x, mask, out, wf, bias, B, H, W, st);
   if (dtype == 1 && wf)
     return launch_wg<SERVED>(x, mask, out, wf, bias, B, H, W, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// rdb_kernel<float, 8>, the float32 design on the CUDA cores that
+// rdb_f32_wg_kernel replaced: x, out (B, H, W, 64) float32; mask as above;
+// w the five HWIO kernels flattened and concatenated (float32); bias 192
+// float32. Only ops/rdb.py::rdb_ffma calls it (the timing baseline);
+// nothing served does. Returns the CUDA error code of the launch.
+extern "C" int s2sr_rdb_ffma_forward(const void* x, const void* mask, void* out,
+                                     const void* w, const void* bias, int B, int H,
+                                     int W, void* stream) {
+  if (!w || !bias) return (int)cudaErrorInvalidValue;
+  return launch<float, TILE_F32>(x, mask, out, w, bias, B, H, W,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // rdb_tc_kernel, the ladder's v4_mma: x, out (B, H, W, 64) bf16; mask as
@@ -1703,17 +2283,24 @@ extern "C" long long s2sr_rdb_i8_macs_per_tile() { return wg_macs_per_tile(); }
 extern "C" long long s2sr_rdb_mma_smem_bytes() { return (long long)tc_smem_bytes(); }
 extern "C" long long s2sr_rdb_mma_macs_per_tile() { return tc_macs_per_tile(); }
 
+// rdb_kernel<float>'s (rdb_ffma's) shared-memory bytes and multiply-adds a
+// tile (its tile is the float32 kernel's, 8).
+extern "C" long long s2sr_rdb_ffma_smem_bytes() {
+  return (long long)smem_bytes<float, TILE_F32>();
+}
+extern "C" long long s2sr_rdb_ffma_macs_per_tile() { return macs_per_tile<TILE_F32>(); }
+
 // Output tile side and dynamic shared-memory bytes per block, by dtype.
 extern "C" int s2sr_rdb_tile(int dtype) {
   return dtype == 0 ? TILE_F32 : TC_TILE;
 }
 
 extern "C" long long s2sr_rdb_smem_bytes(int dtype) {
-  return dtype == 0 ? (long long)smem_bytes<float, TILE_F32>()
-                    : (long long)wg_smem_bytes<KBF>();
+  return dtype == 0 ? (long long)f32_smem_bytes() : (long long)wg_smem_bytes<KBF>();
 }
 
-// Multiply-adds executed per output tile (halo included), by dtype.
+// Multiply-adds executed per output tile (halo included), by dtype: for
+// float32 those of each of rdb_f32_wg_kernel's three TF32 products.
 extern "C" long long s2sr_rdb_macs_per_tile(int dtype) {
-  return dtype == 0 ? macs_per_tile<TILE_F32>() : wg_macs_per_tile();
+  return dtype == 0 ? f32_macs_per_tile() : wg_macs_per_tile();
 }

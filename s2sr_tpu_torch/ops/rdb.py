@@ -11,16 +11,25 @@ kernel refused).
 - :func:`rdb` is the wrapper. On a CUDA tensor it launches the kernel in
   ``csrc/rdb.cu`` (one launch per block, x1..x4 kept in shared memory;
   bf16 ``rdb_wg_kernel`` on ``wgmma`` with B streamed through a ring of
-  bulk copies, fp32 on the CUDA cores) or raises; on a CPU tensor it runs
-  :func:`rdb_reference`.
-- :data:`LAUNCHES` counts kernel launches, nothing else.
+  bulk copies; float32 ``rdb_f32_wg_kernel``, the same design in split
+  TF32: three TF32 products a multiply-add, so the sums keep float32's
+  accuracy) or raises; on a CPU tensor it runs :func:`rdb_reference`.
+- :data:`LAUNCHES` counts the bf16 kernel's launches, :data:`LAUNCHES_F32`
+  the float32 kernel's, nothing else.
 - What bounds the kernel on the H100 is operations (479,232 FLOP per
   pixel against 256 bytes per pixel in bf16); the source's header says
   what the design does about it.
 - :func:`pack_rdb_wg` lays the packed weights out as the bf16 kernel's B
   slabs (:func:`slab_index_wg`), packed once a body (:func:`rdb` caches
   them by ``w``'s identity and version); :func:`rdb_wg_smem_plan` is its
-  shared memory.
+  shared memory. :func:`pack_rdb_f32_wg` lays float32 weights out as the
+  float32 kernel's hi and lo TF32 slabs (:func:`tf32_split`,
+  :func:`slab_index_f32_wg`), cached the same way;
+  :func:`rdb_f32_wg_smem_plan` is its shared memory.
+- :func:`rdb_ffma` launches ``rdb_kernel<float>``, the float32 design
+  before it (FFMA on the CUDA cores), which nothing served reaches: the
+  baseline the float32 kernel is timed against; :data:`LAUNCHES_FFMA`
+  counts its launches.
 - :func:`rdb_mma` launches ``rdb_tc_kernel``, the bf16 design before it
   (``mma.sync``), which nothing served reaches: the RDB ladder's rung
   ``v4_mma``, so one call times both designs. :func:`pack_rdb_fragments`
@@ -67,7 +76,9 @@ from torch.utils.weak import WeakIdKeyDictionary
 NF = 64
 G = 32
 LAUNCHES = 0
+LAUNCHES_F32 = 0
 LAUNCHES_MMA = 0
+LAUNCHES_FFMA = 0
 LAUNCHES_I8 = 0
 LAUNCHES_W8A8 = 0
 # the bf16 kernel's time-attribution instances by ladder variant: the codes
@@ -210,6 +221,29 @@ def rdb_wg_smem_plan() -> dict:
     return _smem_plan(RING_SLOTS_BF16, 2, 2)
 
 
+# rdb_f32_wg_kernel (csrc/rdb.cu F32_NBUF, F32_UNIT): its 8×8 tile, slots of
+# its ring, bytes a slot (one 8 KB unit of its stream), k-steps of 8 TF32
+# values a tap of x and of x1..x4
+F32_TILE = 8
+F32_RING_SLOTS = 7
+F32_UNIT_BYTES = 8192
+F32_STEPS_PER_TAP = (NF // 8, G // 8)
+
+
+def rdb_f32_wg_smem_plan() -> dict:
+    """Shared-memory bytes of ``rdb_f32_wg_kernel`` as ``csrc/rdb.cu``
+    lays it out (``f32_smem_bytes``): up to 1024 to align the ring, its
+    :data:`F32_RING_SLOTS` slots of 8 KB, the sources x, x1..x4 in float32
+    over the 8×8 tile's regions (sides 18, 16, .., 10: 172,032 bytes, as
+    ``rdb_kernel<float>``'s), a full and an empty mbarrier a slot;
+    ``total`` their sum (230,512 of the block's 232,448)."""
+    sources = sum((F32_TILE + 2 * (5 - j)) ** 2 * (NF if j == 0 else G) * 4
+                  for j in range(5))
+    plan = {"align": 1024, "ring": F32_RING_SLOTS * F32_UNIT_BYTES,
+            "sources": sources, "barriers": 2 * F32_RING_SLOTS * 8}
+    return {**plan, "total": sum(plan.values())}
+
+
 def _slabs(steps: torch.Tensor) -> torch.Tensor:
     """One part's rows of B as the int8 kernels' ring holds them.
 
@@ -300,7 +334,59 @@ def slab_index_wg(device=None) -> torch.Tensor:
     return _SLAB_INDEX[key]
 
 
+def _f32_steps(j: int, s: int) -> torch.Tensor:
+    """The k-steps of source j for stage s in the float32 kernel (8
+    channels of one tap: x's 72, x1..x4's 36 each), as byte indices into
+    :func:`pack_rdb_weights`' flat float32 ``w`` (four bytes a value):
+    ``(steps, cout, 32)``, as :func:`_slabs` takes them."""
+    cin, cout = _CIN[s - 1], _COUT[s - 1]
+    off = sum(9 * ci * co for ci, co in zip(_CIN[:s - 1], _COUT[:s - 1]))
+    lo = 0 if j == 0 else NF + (j - 1) * G
+    spt = F32_STEPS_PER_TAP[j > 0]
+    k = torch.arange(9 * spt)
+    ch = lo + 8 * (k % spt)[:, None] + torch.arange(8)[None, :]
+    val = (off + ((k // spt)[:, None, None] * cin + ch[:, None, :]) * cout
+           + torch.arange(cout)[None, :, None])                  # (steps, cout, 8)
+    return (4 * val[..., None] + torch.arange(4)).reshape(9 * spt, cout, 32)
+
+
+def slab_index_f32_wg(device=None) -> torch.Tensor:
+    """Byte indices into ``cat([hi, lo])`` of :func:`tf32_split` of
+    :func:`pack_rdb_weights`' flat float32 ``w`` that give
+    ``rdb_f32_wg_kernel``'s stream: 8 KB units in the order the kernel
+    reads them. Per stage, slabs of :data:`KQ` k-steps (x's 72, then
+    x1..x_{s-1}'s 36 each; 8 channels of one tap a k-step) laid out by
+    :func:`_slabs`, each followed by its lo slab: a stage 1-4 slab pair (32
+    rows) is one unit, a stage 5 pair (64 rows) two. Every weight's hi and
+    lo once; no padding."""
+    key = ("f32", str(device))
+    if key not in _SLAB_INDEX:
+        n_bytes = 4 * sum(9 * ci * co for ci, co in zip(_CIN, _COUT))
+        units = []
+        for s, cout in enumerate(_COUT, start=1):
+            hi = _slabs(torch.cat([_f32_steps(j, s) for j in range(s)]))
+            hi = hi.reshape(-1, cout * 128)
+            units.append(torch.stack([hi, hi + n_bytes], 1).reshape(-1))
+        _SLAB_INDEX[key] = torch.cat(units).to(device)
+    return _SLAB_INDEX[key]
+
+
 _SLAB_INDEX: dict = {}
+
+
+def tf32_split(t: torch.Tensor) -> tuple:
+    """float32 ``t`` as ``(hi, lo)``: ``hi`` rounded to TF32 (10 stored
+    mantissa bits) to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32``, by adding half of the dropped 13 bits' range to
+    the bit pattern and clearing them; ``lo`` = the same rounding of ``t −
+    hi`` (exact in float32). ``hi + lo`` is ``t`` within 2⁻²² of it."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    t = t.float()
+    hi = rna(t)
+    return hi, rna(t - hi)
 
 
 def _gather(flat: torch.Tensor, index) -> torch.Tensor:
@@ -341,6 +427,13 @@ def pack_rdb_wg(w: torch.Tensor) -> torch.Tensor:
     ``rdb_wg_kernel``'s bf16 B slabs (:func:`slab_index_wg`), flat uint8;
     exact."""
     return _gather(w.to(torch.bfloat16).view(torch.uint8), slab_index_wg)
+
+
+def pack_rdb_f32_wg(w: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_rdb_weights`' flat float32 ``w`` as
+    ``rdb_f32_wg_kernel``'s stream of hi and lo TF32 slabs
+    (:func:`tf32_split`, :func:`slab_index_f32_wg`), flat uint8."""
+    return _gather(torch.cat(tf32_split(w)).view(torch.uint8), slab_index_f32_wg)
 
 
 def quant_i8(x: torch.Tensor, qm) -> torch.Tensor:
@@ -550,13 +643,16 @@ def _lib():
     lib = load("rdb")
     if not getattr(lib, "_s2sr_typed", False):
         vp = ctypes.c_void_p
-        lib.s2sr_rdb_forward.argtypes = [vp, vp, vp, vp, vp, vp,
+        lib.s2sr_rdb_forward.argtypes = [vp, vp, vp, vp, vp,
                                          ctypes.c_int, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_int, vp]
         lib.s2sr_rdb_forward.restype = ctypes.c_int
         lib.s2sr_rdb_mma_forward.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int,
                                              ctypes.c_int, ctypes.c_int, vp]
         lib.s2sr_rdb_mma_forward.restype = ctypes.c_int
+        lib.s2sr_rdb_ffma_forward.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_int, vp]
+        lib.s2sr_rdb_ffma_forward.restype = ctypes.c_int
         lib.s2sr_rdb_i8_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                             ctypes.c_float, ctypes.c_int,
                                             ctypes.c_int, ctypes.c_int, vp]
@@ -571,7 +667,8 @@ def _lib():
         lib.s2sr_rdb_ablate_forward.restype = ctypes.c_int
         for name in ("s2sr_rdb_i8_smem_bytes", "s2sr_rdb_w8a8_smem_bytes",
                      "s2sr_rdb_i8_macs_per_tile", "s2sr_rdb_mma_smem_bytes",
-                     "s2sr_rdb_mma_macs_per_tile"):
+                     "s2sr_rdb_mma_macs_per_tile", "s2sr_rdb_ffma_smem_bytes",
+                     "s2sr_rdb_ffma_macs_per_tile"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_longlong
         lib.s2sr_rdb_tile.argtypes = [ctypes.c_int]
@@ -586,12 +683,23 @@ def _lib():
 def kernel_tiling(dtype: torch.dtype) -> dict:
     """The kernel's output tile side, shared-memory bytes per block and
     multiply-adds executed per tile (halo recompute included): bf16
-    ``rdb_wg_kernel``, or the float32 kernel."""
+    ``rdb_wg_kernel``, or float32 ``rdb_f32_wg_kernel`` (those of each of
+    its three TF32 products)."""
     lib = _lib()
     code = _DTYPE_CODE[dtype]
     return {"tile": int(lib.s2sr_rdb_tile(code)),
             "smem_bytes": int(lib.s2sr_rdb_smem_bytes(code)),
             "macs_per_tile": int(lib.s2sr_rdb_macs_per_tile(code))}
+
+
+def kernel_tiling_ffma() -> dict:
+    """:func:`kernel_tiling` of ``rdb_kernel<float>`` (:func:`rdb_ffma`):
+    the float32 kernel's 8×8 tile; its shared memory (the sources planar in
+    float32) and the multiply-adds of its warp tasks."""
+    lib = _lib()
+    return {**kernel_tiling(torch.float32),
+            "smem_bytes": int(lib.s2sr_rdb_ffma_smem_bytes()),
+            "macs_per_tile": int(lib.s2sr_rdb_ffma_macs_per_tile())}
 
 
 def kernel_tiling_mma() -> dict:
@@ -637,8 +745,9 @@ def rdb(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     ``w``, ``b``: :func:`pack_rdb_weights` output on ``x``'s device.
     ``mask``: None or float32 0/1 of shape (B, H, W) or (B, H, W, 1).
     CPU tensors run :func:`rdb_reference`; CUDA tensors launch the
-    kernel or raise."""
-    global LAUNCHES
+    kernel of their dtype (bf16 ``rdb_wg_kernel``, float32
+    ``rdb_f32_wg_kernel``) or raise."""
+    global LAUNCHES, LAUNCHES_F32
     if x.device.type == "cpu":
         return rdb_reference(x, w, b, mask)
     if x.device.type != "cuda":
@@ -649,23 +758,29 @@ def rdb(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if bsz * h * wd == 0:
         return out
     lib = _lib()
-    # the bf16 kernel reads its weights as B slabs, packed once a body
-    wf = _packed(_WG_PACKS, w, pack_rdb_wg) if x.dtype == torch.bfloat16 else None
+    # both kernels read their weights as B slabs, packed once a body
+    f32 = x.dtype == torch.float32
+    wf = (_packed(_F32_PACKS, w, pack_rdb_f32_wg) if f32
+          else _packed(_WG_PACKS, w, pack_rdb_wg))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.s2sr_rdb_forward(
             x.data_ptr(), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), w.data_ptr(), None if wf is None else wf.data_ptr(),
-            b.data_ptr(), bsz, h, wd, _DTYPE_CODE[x.dtype], stream)
+            out.data_ptr(), wf.data_ptr(), b.data_ptr(), bsz, h, wd,
+            _DTYPE_CODE[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"rdb kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    if f32:
+        LAUNCHES_F32 += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
-# the bf16 kernels' weights by ``w``: packed on first use, again only when
+# the kernels' weights by ``w``: packed on first use, again only when
 # ``w`` was changed in place (its version) or is another tensor
 _WG_PACKS = WeakIdKeyDictionary()
+_F32_PACKS = WeakIdKeyDictionary()
 _MMA_PACKS = WeakIdKeyDictionary()
 
 
@@ -710,6 +825,38 @@ def rdb_mma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"rdb_mma kernel launch failed: CUDA error {rc}")
     LAUNCHES_MMA += 1
+    return out
+
+
+def rdb_ffma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+             mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One RDB through ``rdb_kernel<float>``, the float32 design on the
+    CUDA cores (FFMA) that :func:`rdb` served before ``rdb_f32_wg_kernel``:
+    the baseline the float32 kernel is timed against. Nothing served calls
+    it. Operands as :func:`rdb`'s. On a CUDA tensor it launches the kernel
+    or raises (float32 only); on a CPU tensor it runs
+    :func:`rdb_reference`."""
+    global LAUNCHES_FFMA
+    if x.device.type == "cpu":
+        return rdb_reference(x, w, b, mask)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"rdb_ffma: unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"rdb_ffma's kernel takes float32, got {x.dtype}")
+    _check(x, w, b, mask)
+    bsz, h, wd, _ = x.shape
+    out = torch.empty_like(x)
+    if bsz * h * wd == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.s2sr_rdb_ffma_forward(
+            x.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), w.data_ptr(), b.data_ptr(), bsz, h, wd, stream)
+    if rc != 0:
+        raise RuntimeError(f"rdb_ffma kernel launch failed: CUDA error {rc}")
+    LAUNCHES_FFMA += 1
     return out
 
 

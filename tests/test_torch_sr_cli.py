@@ -209,8 +209,8 @@ def test_warmup_on_cpu_tiny_engine(tmp_path, monkeypatch, capsys):
                       "warmed tile warp",
                       "warmed vector mask + segmentation chains"]
     assert any("pngenc in" in ln for ln in lines)
-    assert lines[-2] == ("kernel launches: rdb 0, rdb_i8 0, swin_block 0, "
-                         "window_attention 0")
+    assert lines[-2] == ("kernel launches: rdb 0, rdb_f32 0, rdb_i8 0, "
+                         "swin_block 0, window_attention 0")
     assert lines[-1].startswith("warmup done in ")
     engine = engine_mod._ENGINE_CACHE[next(iter(engine_mod._ENGINE_CACHE))]
     assert engine.chunks_dispatched == 1
