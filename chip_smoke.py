@@ -16,8 +16,8 @@ random weights from seed 0, each at the full width of its model:
   ``wgmma``, timed in turns beside ``v4_mma``, the ``mma.sync`` design it
   replaced, and ``rdb_i8``), at precision "float32" its float32 instance
   ``rdb_f32_wg_kernel`` (split TF32 on ``wgmma``, timed in turns beside
-  ``rdb_kernel<float>``, the CUDA-core design it replaced, which one pass
-  of the float32 1024² scene also runs), and at precision "int8" (the
+  ``rdb_kernel<float>``, the CUDA-core design it replaced), and at
+  precision "int8" (the
   int8-mixed trunk) the ``rdb_i8`` kernel (phases kernel, main, numbers);
 - full W8A8 (``quantize_rrdbnet(mode="full")``,
   ``rrdbnet_apply_int8(mode="full")``) on ``realesrgan_x4``: a chunk of
@@ -107,8 +107,12 @@ random weights from seed 0, each at the full width of its model:
   the halo-tiled engine path, a 3×5 upload, exact 2048² and 2560² images
   with the strip tail held to the whole tail), whose Swin blocks run the
   ``swin_block`` kernel, or ``window_attention`` under
-  ``S2SR_SWINIR_FUSED_LEVEL=attn`` (phases swin_kernel, swin_main,
-  swin_large, swin_numbers).
+  ``S2SR_SWINIR_FUSED_LEVEL=attn`` (bf16 ``swin_wg_kernel``), and at
+  precision "float32" (the exact 512×384 scene, the full model at both
+  levels, its 512² rate) their float32 instance ``swin_f32_wg_kernel``
+  (split TF32 on ``wgmma``), timed in turns beside
+  ``swin_kernel<float>``, the CUDA-core design it replaced (phases
+  swin_kernel, swin_main, swin_large, swin_numbers).
 
 It also drives the RDB ablation ladder (``s2sr_tpu_torch.bench.rdb_ladder``)
 at the main path's chunk shape, whose rungs run the ``rdb_v1``, ``rdb_v2``
@@ -317,6 +321,8 @@ def phase_build(state):
                           ("window_attention", "swin_wg_kernel"),
                           ("window_attention", "swin_wg_no_l2_kernel"),
                           ("window_attention", "swin_tc_kernel"),
+                          ("window_attention", SWIN_FFMA),
+                          ("window_attention", "swin_f32_wg_kernel"),
                           ("rdb_ladder_tc", "_tc_kernel")):
         emit({"phase": "build", "kernel": pattern, "ptxas": {
             k: v for k, v in ptxas[name].items() if pattern in k}})
@@ -795,8 +801,11 @@ def time_rdb_f32_designs(state) -> None:
     fns = {"rdb_f32": lambda: rdb_mod.rdb(x, w, b),
            "rdb_f32_ffma": lambda: rdb_mod.rdb_ffma(x, w, b)}
     ms = {k: [] for k in fns}
+    ffma0 = rdb_mod.LAUNCHES_FFMA
     for name in ("rdb_f32", "rdb_f32_ffma", "rdb_f32_ffma", "rdb_f32"):
         ms[name].append(time_cuda(fns[name], iters=10))
+    # the baseline's launches: its timing's (nothing served launches it)
+    state["ffma_launches"] = rdb_mod.LAUNCHES_FFMA - ffma0
     plain_ms = time_cuda(lambda: rdb_mod.rdb_reference(x, w, b), iters=5)
     best = {k: min(v) for k, v in ms.items()}
     bound_ms, bound_by = rdb_bound_ms(shape, torch.float32, masked=False,
@@ -1671,17 +1680,11 @@ def f32_scene(state, eng, eng32) -> int:
     chunk: 69 ``rdb_f32_wg_kernel`` launches, checked), and through phase
     int8's device-tiled harness (``tiled_apply`` over the model's forward
     at the engine's tile, pad and batch) in float32 and bf16 in turns
-    (float32, bf16, bf16, float32); then one pass of the float32 harness
-    with ``rdb_ffma`` patched in for the model's ``rdb`` (rrdbnet's name:
-    the program has no switch for it), ``rdb_kernel<float>``'s rate, its
-    launches checked and kept as its main-path count. → the serving run's
+    (float32, bf16, bf16, float32). → the serving run's
     ``rdb_f32_wg_kernel`` launches."""
-    from unittest import mock
-
     import torch
 
     from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
-    from s2sr_tpu_torch.models import rrdbnet as rrdb_mod
     from s2sr_tpu_torch.ops import rdb as rdb_mod
     from s2sr_tpu_torch.parallel.tiling import tiled_apply
 
@@ -1717,10 +1720,6 @@ def f32_scene(state, eng, eng32) -> int:
     for name in ("float32", "bfloat16", "bfloat16", "float32"):
         reps[name].append(timed(eng32 if name == "float32" else eng))
     rdb_mod.LAUNCHES, rdb_mod.LAUNCHES_F32 = launches0
-    ffma0 = rdb_mod.LAUNCHES_FFMA
-    with mock.patch.object(rrdb_mod, "rdb", rdb_mod.rdb_ffma):
-        ffma_s = timed(eng32)
-    ffma_launches = rdb_mod.LAUNCHES_FFMA - ffma0
     mpix = 1024 * 1024 / 1e6
     rate = {k: mpix / min(v) for k, v in reps.items()}
     rec = {"phase": "main", "check": "float32 1024² scene, warm",
@@ -1728,16 +1727,11 @@ def f32_scene(state, eng, eng32) -> int:
            "serving_seconds": serving_s,
            "serving_mpix_per_s": mpix / serving_s,
            "tiled_seconds_in_turns": reps, "tiled_mpix_per_s": rate,
-           "tiled_ffma_seconds": ffma_s, "tiled_ffma_mpix_per_s": mpix / ffma_s,
-           "rdb_ffma_launches": ffma_launches,
            "float32_over_bf16_rate": rate["float32"] / rate["bfloat16"],
-           "float32_over_ffma_rate": rate["float32"] / (mpix / ffma_s),
            "card": card}
     emit(rec)
-    if (launches != n_rdb * chunks or chunks == 0 or ffma_launches == 0
-            or ffma_launches % n_rdb):
+    if launches != n_rdb * chunks or chunks == 0:
         raise AssertionError(f"float32 1024² scene: {rec}")
-    state["ffma_launches"] = ffma_launches
     return launches
 
 
@@ -5110,6 +5104,18 @@ SWIN_ST = {"start": 0, "ln1": 1, "attn": 2, "proj": 3, "ln2": 4, "fc1": 5,
 SWIN_SERVED_WG = "14swin_wg_kernelI"
 SWIN_NO_L2 = "20swin_wg_no_l2_kernel"
 SWIN_MMA = "14swin_tc_kernelI"
+# the served float32 swin_f32_wg_kernel<MLP> and the
+# CUDA-core design it replaced, swin_kernel<float, MLP> (design "ffma")
+SWIN_SERVED_F32 = "18swin_f32_wg_kernelI"
+SWIN_FFMA = "11swin_kernelIf"
+# The served float32 kernel against the IEEE plain version, relative to
+# the block's change: split TF32 keeps float32's accuracy (~1e-6 in the
+# CPU emulation with the tensor cores' truncating adds,
+# tests/test_torch_swin_f32_wg.py), plain TF32 does not (~5e-4 there):
+# every planted fault and the plain version run with TF32 allowed must lie
+# at least SWIN_F32_APART away. design="ffma" keeps fp32's 1e-4.
+SWIN_F32_TOL = 1e-5
+SWIN_F32_APART = 1e-4
 # Full swinir_x4 in bf16 against fp32, relative to the largest output:
 # the plain model on the CPU sits 0.012–0.015 from fp32 (both levels)
 # and the attn level 0.015–0.022 from the block level (measured on
@@ -5249,38 +5255,102 @@ def swin_bound_ms(name: str, shape, dtype, peak=None) -> tuple:
 
 
 def swin_f32_numbers(card) -> dict:
-    """The float32 Swin kernel (``swin_kernel<float, true>``, on the CUDA
-    cores, never redesigned) at the bf16 timing's shape (1, 512, 512, 180),
-    both shifts, 5 launches each: its ms (the shifts' mean: the main path
-    runs both equally often), the plain version's (IEEE float32) and its
-    bound at FP32 FMA, and its bound as split TF32 (float32's accuracy on
-    the tensor cores, the route of its redesign). The caller restores the
-    launch counts."""
+    """The float32 Swin kernels at the bf16 timing's shape (1, 512, 512,
+    180), both shifts: the served ``swin_f32_wg_kernel`` and
+    ``design="ffma"`` (``swin_kernel<float, MLP>``, the CUDA-core design it
+    replaced) in turns, 5 launches a turn (served, ffma, ffma, served; the
+    lower of each one's two, the shifts' mean: the main path runs both
+    equally often), the plain version's ms (IEEE float32); the bound as
+    split TF32 (three TF32 products a multiply-add at 495 TFLOP/s,
+    unpadded), the floor of the work as executed, the FP32 FMA bound, and
+    the bytes of B units and bias table the kernel reads from L2 a launch.
+    Fails unless the served kernel is faster than ffma. → name →
+    {"served": numbers, "ffma": numbers}, and the ffma launches of the
+    timing."""
     import torch
 
     from s2sr_tpu_torch.ops import window_attention as wa
 
     shape = (1, 512, 512)
-    ms, plain = {}, {}
-    for shift in (0, 4):
-        x, t, _ = swin_inputs(shape, torch.float32, shift)
-        ms[shift] = time_cuda(lambda: wa.swin_block(x, t), iters=5)
-        plain[shift] = time_cuda(lambda: wa.swin_block_reference(x, t), iters=3)
-        del x, t
-    torch.cuda.empty_cache()
-    bound_ms, bound_by = swin_bound_ms("swin_block", shape, torch.float32)
-    split_ms, _ = swin_bound_ms("swin_block", shape, torch.float32,
-                                peak=PEAK_F32_SPLIT_TF32)
-    rec = {"phase": "swin_kernel", "kernel": "swin_block",
-           "instance": "swin_kernel<float, true>", "dtype": "float32",
-           "shape": [*shape, 180], "ms_by_shift": ms,
-           "ms": sum(ms.values()) / 2, "plain_ms_by_shift": plain,
-           "plain_ms": sum(plain.values()) / 2, "bound_ms": bound_ms,
-           "bound_by": bound_by, "split_tf32_bound_ms": split_ms,
-           "card": card}
-    rec["over_bound"] = rec["ms"] / bound_ms
-    emit(rec)
-    return rec
+    tokens = shape[0] * shape[1] * shape[2]
+    out, launches = {}, {}
+    for name, (fn, ref, mlp) in swin_kernels().items():
+        per_shift = {}
+        ff0 = wa.LAUNCHES_FFMA[name]
+        for shift in (0, 4):
+            x, t, _ = swin_inputs(shape, torch.float32, shift)
+            turns = {"served": [], "ffma": []}
+            for d in ("served", "ffma", "ffma", "served"):
+                turns[d].append(time_cuda(lambda: fn(x, t, design=d), iters=5))
+            per_shift[shift] = (turns, time_cuda(lambda: ref(x, t), iters=3))
+            del x, t
+        torch.cuda.empty_cache()
+        launches[name] = wa.LAUNCHES_FFMA[name] - ff0
+        ms = {d: sum(min(v[0][d]) for v in per_shift.values()) / 2
+              for d in ("served", "ffma")}
+        plain_ms = sum(v[1] for v in per_shift.values()) / 2
+        bound_ms, bound_by = swin_bound_ms(name, shape, torch.float32,
+                                           peak=PEAK_F32_SPLIT_TF32)
+        fma_bound_ms, _ = swin_bound_ms(name, shape, torch.float32)
+        tiling = wa.kernel_tiling(torch.float32, mlp)
+        executed = 2 * tiling["macs_per_window"] * tokens / 64
+        l2 = swin_l2_bytes(name, shape, torch.float32)
+        base = {"plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "fma_bound_ms": fma_bound_ms}
+        out[name] = {d: {**base, "ms": ms[d]} for d in ms}
+        rec = {"phase": "swin_kernel", "kernel": name, "dtype": "float32",
+               "timing": "in turns", "shape": [*shape, 180],
+               "instances": {"served": f"swin_f32_wg_kernel<{str(mlp).lower()}>",
+                             "ffma": f"swin_kernel<float, {str(mlp).lower()}>"},
+               "turns_by_shift": {s_: v[0] for s_, v in per_shift.items()},
+               "plain_ms_by_shift": {s_: v[1] for s_, v in per_shift.items()},
+               "ms": ms, **base,
+               "split_tf32_executed_floor_ms": 3 * executed / PEAK_TF32_FLOPS * 1e3,
+               "served_over_ffma": ms["served"] / ms["ffma"],
+               "served_over_bound": ms["served"] / bound_ms,
+               "served_over_fma_bound": ms["served"] / fma_bound_ms,
+               "smem_bytes": tiling["smem_bytes"],
+               "blocks_per_sm": tiling["blocks_per_sm"],
+               "l2_bytes_per_launch": l2,
+               "l2_bytes_per_s_in_kernel": l2 / (ms["served"] * 1e-3),
+               "ffma_launches_in_timing": launches[name], "card": card}
+        emit(rec)
+        if not ms["served"] < ms["ffma"]:
+            raise AssertionError(f"swin_f32_wg_kernel is not faster than "
+                                 f"swin_kernel<float>: {rec}")
+    return out, launches
+
+
+def hold_swin_f32(fn, ref, x, t, got, change, faults) -> tuple:
+    """The float32 cases' added checks: the served kernel within
+    SWIN_F32_TOL of the IEEE plain version, every planted fault and the
+    plain version with TF32 allowed (cuBLAS's flag on) at least
+    SWIN_F32_APART away, ``design="ffma"`` within fp32's 1e-4. → the
+    record's fields and the failures."""
+    import torch
+
+    want = ref(x, t)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = ref(x, t)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    ffma = fn(x, t, design="ffma")
+    torch.cuda.synchronize()
+    rec = {"rel_err_plain_tf32": (tf32 - want).abs().max().item() / change,
+           "ffma_max_abs_err": (ffma - want).abs().max().item()}
+    rec["ffma_rel_err"] = rec["ffma_max_abs_err"] / change
+    rel = (got - want).abs().max().item() / change
+    fails = []
+    if not rel <= SWIN_F32_TOL:
+        fails.append(f"rel err {rel} over {SWIN_F32_TOL}")
+    if not min(*faults.values(), rec["rel_err_plain_tf32"]) >= SWIN_F32_APART:
+        fails.append(f"a planted fault or TF32 within {SWIN_F32_APART}: "
+                     f"{faults}, TF32 {rec['rel_err_plain_tf32']}")
+    if not rec["ffma_rel_err"] <= 1e-4:
+        fails.append(f"ffma rel err {rec['ffma_rel_err']}")
+    return rec, fails
 
 
 @ieee_phase
@@ -5303,11 +5373,14 @@ def phase_swin_kernel(state):
     # block's second window given its partner's mask type; B 1 grids).
     # The mma.sync design (swin_mma, served by nothing) is held at the
     # same tolerance.
-    tol = {torch.float32: 1e-4, torch.bfloat16: 0.05}
+    # The float32 served kernel (split TF32 on wgmma) at SWIN_F32_TOL, its
+    # faults, TF32 and ffma by hold_swin_f32.
+    tol = {torch.float32: SWIN_F32_TOL, torch.bfloat16: 0.05}
     grids = [(1, 24, 32), (2, 40, 72), (1, 512, 512)]
-    launches0 = dict(wa.LAUNCHES), dict(wa.LAUNCHES_MMA)
+    launches0 = (dict(wa.LAUNCHES), dict(wa.LAUNCHES_MMA), dict(wa.LAUNCHES_F32),
+                 dict(wa.LAUNCHES_FFMA))
     failures = []
-    worst, worst_mma = {}, {}
+    worst, worst_mma, worst_f32, worst_ffma = {}, {}, {}, {}
     t0 = time.perf_counter()
     sass = sass_counts(_build.lib_path("window_attention"))
     emit({"phase": "swin_kernel", "sass": sass})
@@ -5330,6 +5403,26 @@ def phase_swin_kernel(state):
     if smem[0] != smem[1]:
         raise AssertionError(f"swin_wg_kernel's shared memory differs from "
                              f"its plan: {smem}")
+    # the served float32 instances on wgmma (HGMMA: TF32) with no mma.sync;
+    # the CUDA-core design they replaced on neither
+    f32 = [c for k, c in sass.items() if SWIN_SERVED_F32 in k]
+    ff = [c for k, c in sass.items() if SWIN_FFMA in k]
+    if (len(f32) != 2 or len(ff) != 2
+            or any(c["HGMMA"] == 0 or c["HMMA"] for c in f32)
+            or any(c["HGMMA"] or c["HMMA"] for c in ff)):
+        raise AssertionError(f"the float32 Swin kernels' SASS: served {f32}, "
+                             f"ffma {ff}")
+    smem32 = (wa.kernel_tiling(torch.float32, True)["smem_bytes"],
+              wa.f32_wg_smem_plan()["total"])
+    emit({"phase": "swin_kernel", "kernel": "swin_f32_wg_kernel", "sass": f32,
+          "sass_ffma": ff, "smem_bytes_vs_plan": smem32,
+          "ptxas": {k: v for k, v in state.get("ptxas", {})
+                    .get("window_attention", {}).items() if "swin_f32" in k},
+          "ptxas_wgmma_notes": [n for n in state.get("ptxas_wgmma", {})
+                                .get("window_attention", []) if "swin_f32" in n]})
+    if smem32[0] != smem32[1]:
+        raise AssertionError(f"swin_f32_wg_kernel's shared memory differs "
+                             f"from its plan: {smem32}")
     for name, (fn, ref, mlp) in swin_kernels().items():
         for dtype in (torch.float32, torch.bfloat16):
             tiling = wa.kernel_tiling(dtype, mlp)
@@ -5362,6 +5455,16 @@ def phase_swin_kernel(state):
                            "rel_err_vs_planted_fault": faults,
                            "finite": finite}
                     case = f"{name} {dtype} {grid} shift {shift}"
+                    if not bf16:
+                        more, fails = hold_swin_f32(fn, ref, x, t, got,
+                                                    change, faults)
+                        rec.update(more)
+                        failures += [f"{case}: {f}" for f in fails]
+                        a, r = worst_f32.get(name, (0.0, 0.0))
+                        worst_f32[name] = (max(a, err), max(r, rel))
+                        a, r = worst_ffma.get(name, (0.0, 0.0))
+                        worst_ffma[name] = (max(a, more["ffma_max_abs_err"]),
+                                            max(r, more["ffma_rel_err"]))
                     if bf16:
                         mma = fn(x, t, design="mma").float()
                         err_mma = (mma - plain).abs().max().item()
@@ -5394,14 +5497,20 @@ def phase_swin_kernel(state):
               "values_apart": apart})
         if any(apart.values()):
             failures.append(f"{name}: windows differ by pairing: {apart}")
-    state["swin_f32_numbers"] = swin_f32_numbers(state.get("card"))
-    # comparison and timing launches are not main-path launches
-    wa.LAUNCHES.update(launches0[0])
-    wa.LAUNCHES_MMA.update(launches0[1])
     if failures:
         raise AssertionError("swin kernels vs plain:\n" + "\n".join(failures))
+    state["swin_f32_numbers"], state["swin_ffma_launches"] = swin_f32_numbers(
+        state.get("card"))
+    swin_f32_phase_clocks(state.get("card"), {
+        k: v["served"]["ms"] for k, v in state["swin_f32_numbers"].items()})
+    # comparison and timing launches are not main-path launches
+    for counts, before in zip((wa.LAUNCHES, wa.LAUNCHES_MMA, wa.LAUNCHES_F32,
+                               wa.LAUNCHES_FFMA), launches0):
+        counts.update(before)
     state["swin_err"] = worst
     state["swin_mma_err"] = worst_mma
+    state["swin_f32_err"] = worst_f32
+    state["swin_ffma_err"] = worst_ffma
     emit({"phase": "swin_kernel", "seconds": round(time.perf_counter() - t0, 3)})
 
 
@@ -5422,15 +5531,21 @@ def check_swin_against_plain(eng) -> dict:
     """The main path's SwinIR at full width, with the kernels on the card
     (fp32 and bf16, both fused levels), against the same weights in fp32
     on the CPU, where every block runs its plain version, relative to
-    the reference's largest output. The random init's Linear weights
+    the reference's largest output; beside it the float32 model with TF32
+    forced on (its own IEEE scope bypassed, cuDNN's and cuBLAS's flags
+    on), which must lie further than the IEEE one. The random init's Linear weights
     (std 0.02) barely move the output, so here they and the bias tables
     are scaled ×5: the 36 blocks then change the output by a multiple of
     the tolerance. Two exact-path images: 40×56 (window multiples) and
     37×53 (reflect-padded)."""
+    import contextlib
+    from unittest import mock
+
     import numpy as np
     import torch
 
     from s2sr_tpu_torch.fetch.synthetic import synthetic_fields
+    from s2sr_tpu_torch.models import swinir as swin_mod
     from s2sr_tpu_torch.models.swinir import SwinIR
 
     kw = {"scale": eng.model.scale, "embed_dim": 180, "depths": (6,) * 6,
@@ -5463,15 +5578,30 @@ def check_swin_against_plain(eng) -> dict:
         ref = ref_model(x)
         scale = ref.abs().max().item()
         trunk = (blockless(x) - ref).abs().max().item() / scale
-        outs = {"fp32": m32(x.cuda()), "bf16": mbf(x.cuda()),
+        outs = {"fp32": m32(x.cuda()),
+                "fp32_attn": at_level("attn", lambda: m32(x.cuda())),
+                "bf16": mbf(x.cuda()),
                 "bf16_attn": at_level("attn", lambda: mbf(x.cuda()))}
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        with mock.patch.object(swin_mod, "ieee_fp32",
+                               lambda enabled=True: contextlib.nullcontext()):
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                outs["fp32_tf32_forced"] = m32(x.cuda())
+            finally:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = flags
         rels = {k: (o.cpu() - ref).abs().max().item() / scale
                 for k, o in outs.items()}
         emit({"phase": "swin_main", "check": "full swinir_x4 vs fp32 plain "
               "on CPU", "image": [h, w], "ref_max_abs": scale,
               "rel_change_without_blocks": trunk, "rel_err": rels,
               "tol_fp32": tol32, "tol_bf16": tolbf})
-        if not (rels["fp32"] <= tol32 and rels["bf16"] <= tolbf
+        if not (rels["fp32"] <= tol32 and rels["fp32_attn"] <= tol32
+                and rels["fp32_tf32_forced"] > rels["fp32"]
+                and rels["bf16"] <= tolbf
                 and rels["bf16_attn"] <= tolbf and np.isfinite(scale)
                 and trunk > 5 * tolbf):
             raise AssertionError(f"full SwinIR disagrees with the plain "
@@ -5545,6 +5675,38 @@ def phase_swin_main(state):
               "seconds": round(secs, 3), "stages": stages,
               "png_mean": float(png.mean())})
 
+        # 1b. the same scene at precision "float32": every Swin block in
+        # swin_f32_wg_kernel
+        for k in wa.LAUNCHES_F32:
+            wa.LAUNCHES_F32[k] = 0
+        process_wow_sr(tif, work / "out_swin32_warm", model="swinir_x4",
+                       weights_dir=weights, device="cuda", precision="float32")
+        for k in wa.LAUNCHES_F32:
+            wa.LAUNCHES_F32[k] = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        result = process_wow_sr(tif, work / "out_swin32", model="swinir_x4",
+                                weights_dir=weights, device="cuda",
+                                precision="float32")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        meta = result["sr_metadata"]
+        png32 = decode_png(Path(result["outputs"]["sr_png"]).read_bytes())
+        f32_launches = dict(wa.LAUNCHES_F32)
+        rec = {"phase": "swin_main", "scene": "exact_512x384_float32",
+               "swin_block_f32_launches": f32_launches["swin_block"],
+               "seconds": round(secs, 3),
+               "stages": {s["name"]: s["seconds"]
+                          for s in meta["timing"]["stages"]},
+               "mpix_per_s": 512 * 384 / secs / 1e6,
+               "png_mean": float(png32.mean()),
+               "png_values_apart_from_bf16": int((png32 != png).sum())}
+        emit(rec)
+        if (png32.shape != png.shape or meta["precision"] != "float32"
+                or f32_launches != {"swin_block": SWIN_BLOCKS,
+                                    "window_attention": 0}):
+            raise AssertionError(f"swin exact 512x384 float32: {rec}")
+
         # 2. the halo-tiled engine path: 600×520 → 9 windows of 288²
         eng_t = engine_mod.get_engine("swinir_x4", weights_dir=weights,
                                       device="cuda", exact_area=0)
@@ -5610,7 +5772,13 @@ def phase_swin_main(state):
                              f"{forwards} block-level forwards")
     state["swin_launches"] = main_launches
     state["swin_engine"] = eng
+    before = dict(wa.LAUNCHES_F32)
     state["swin_model_rel_err"] = check_swin_against_plain(eng)
+    # the float32 model at both levels: swin_f32_wg_kernel on the path
+    state["swin_launches_f32"] = {
+        k: f32_launches[k] + wa.LAUNCHES_F32[k] - before[k] for k in before}
+    if not all(state["swin_launches_f32"].values()):
+        raise AssertionError(f"float32 Swin launches {state['swin_launches_f32']}")
     wa.LAUNCHES.update(main_launches)
     emit({"phase": "swin_main", "seconds": round(time.perf_counter() - t0, 3)})
 
@@ -5786,9 +5954,12 @@ def swin_l2_bytes(name: str, shape, dtype, design: str = "served") -> int:
     """Bytes a launch reads from L2 for its tables. The served bf16 kernel:
     per block of two windows, its B slabs (48 for swin_block, 24 for
     window_attention; no_l2: the first 6) and the compact bias table. The
-    mma.sync design and fp32, per window: the matrices as the kernel reads
-    them (bf16 fragments with K padded; the fp32 matrices), the bias of
-    every head and the window's mask."""
+    served float32 kernel: per window pair its TF32 hi and lo units (192
+    for swin_block, 96 for window_attention), and the bias table once a
+    block (one block an SM). The mma.sync design and fp32's ffma, per
+    window: the matrices as the kernel reads them (bf16 fragments with K
+    padded; the fp32 matrices), the bias of every head and the window's
+    mask."""
     import numpy as np
     import torch
 
@@ -5796,6 +5967,12 @@ def swin_l2_bytes(name: str, shape, dtype, design: str = "served") -> int:
 
     bsz, h, w = shape
     windows = bsz * (h // 8) * (w // 8)
+    if dtype == torch.float32 and design == "served":
+        pairs = -(-windows // 2)
+        units = len(wa.f32_wg_unit_plan()) // (1 if name == "swin_block" else 2)
+        blocks = min(pairs, torch.cuda.get_device_properties(0).multi_processor_count)
+        return (pairs * units * wa.F32_UNIT_BYTES
+                + blocks * wa.f32_wg_smem_plan()["table"])
     if dtype == torch.bfloat16 and design != "mma":
         slabs = (wa.RING_SLOTS if design == "no_l2"
                  else len(wa.wg_slab_plan()) // (1 if name == "swin_block" else 2))
@@ -5809,12 +5986,16 @@ def swin_l2_bytes(name: str, shape, dtype, design: str = "served") -> int:
     return windows * (mats + (6 + 1) * 64 * 64 * 4)
 
 
-def swin_phase_clocks(card: str, ms: dict) -> dict:
-    """The served bf16 kernel's time by phase: the copy built with its
-    phase clocks (SWIN_STAMPS) launched at (1, 512, 512) bf16 on both
-    shifts, the clocks of every window pair's first consumer read back;
-    per phase the median cycles of a pair, and its share of the pair
-    applied to the served kernel's ms in turns (``ms``: name → ms)."""
+def stamped_phase_clocks(dtype, launch, phases, start: int, end: int) -> dict:
+    """Phase clocks of a Swin kernel from its copy built with SWIN_STAMPS
+    (phase build): ``launch(lib, x, y, t, shift, mlp)`` runs the kernel at
+    (1, 512, 512) in ``dtype`` (twice a shift, shifts 0 and 4), and the
+    clocks of every window pair's first consumer are read back;
+    ``phases(span, mlp)`` names the phases, ``span(a, b)`` being the
+    cycles from stamp a to stamp b of each pair. → kernel name →
+    {"cycles_a_pair": each phase's median over the pairs (the shifts'
+    mean), with the pair's ("pair", from ``start`` to ``end``) and the
+    clock rate ("ghz"), "share_of_pair": each phase's share}."""
     import ctypes
 
     import numpy as np
@@ -5824,10 +6005,9 @@ def swin_phase_clocks(card: str, ms: dict) -> dict:
 
     _build.build("window_attention", SWIN_STAMPS)
     lib = ctypes.CDLL(str(_build.lib_path("window_attention", SWIN_STAMPS)))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.s2sr_swin_wg_forward.argtypes = [vp] * 12 + [ci] * 7 + [vp]
-    lib.s2sr_swin_wg_forward.restype = ci
-    lib.s2sr_swin_wg_stamps.argtypes = [vp, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+    ci = ctypes.c_int
+    lib.s2sr_swin_wg_stamps.argtypes = [ctypes.c_void_p, ctypes.POINTER(ci),
+                                        ctypes.POINTER(ci)]
     lib.s2sr_swin_wg_stamps.restype = ci
     npairs, nst = ci(), ci()
     if lib.s2sr_swin_wg_stamps(None, ctypes.byref(npairs), ctypes.byref(nst)):
@@ -5836,59 +6016,132 @@ def swin_phase_clocks(card: str, ms: dict) -> dict:
     for name, (_, _, mlp) in swin_kernels().items():
         per = []
         for shift in (0, 4):
-            x, t, _ = swin_inputs((1, 512, 512), torch.bfloat16, shift)
+            x, t, _ = swin_inputs((1, 512, 512), dtype, shift)
             y = torch.empty_like(x)
             for _ in range(2):
-                rc = lib.s2sr_swin_wg_forward(
-                    x.data_ptr(), y.data_ptr(),
-                    *(t[k].data_ptr() for k in ("g1", "b1", "bqkv", "bo", "bias_table",
-                                                "g2", "b2", "bf1", "bf2", "wg_slabs")),
-                    1, 512, 512, shift, int(mlp), 0, 0,
-                    torch.cuda.current_stream().cuda_stream)
+                rc = launch(lib, x, y, t, shift, mlp)
                 if rc:
-                    raise AssertionError(f"stamped {name}: CUDA error {rc}")
+                    raise AssertionError(f"stamped {name} ({dtype}): CUDA error {rc}")
             torch.cuda.synchronize()
             buf = np.zeros((npairs.value, 2, nst.value), np.int64)
             if lib.s2sr_swin_wg_stamps(ctypes.c_void_p(buf.ctypes.data),
                                        ctypes.byref(npairs), ctypes.byref(nst)):
                 raise AssertionError("reading the Swin phase clocks failed")
             c = buf[:2048, 0]                       # (1, 512, 512): 2048 pairs
-            st = SWIN_ST
 
             def span(a_, b_):
                 return c[:, b_] - c[:, a_]
-            ph = {"ln1": span(st["start"], st["ln1"]),
-                  "attention": span(st["ln1"], st["attn"]),
-                  "proj": span(st["attn"], st["proj"])}
-            if mlp:
-                fc1 = gelu = fc2 = 0
-                prev = st["ln2"]
-                for h in range(2):
-                    for q in range(2):
-                        f, g_ = st["fc1"] + 2 * (2 * h + q), st["gelu"] + 2 * (2 * h + q)
-                        fc1, gelu = fc1 + span(prev, f), gelu + span(f, g_)
-                        prev = g_
-                    fc2 = fc2 + span(prev, st["fc2"] + h)
-                    prev = st["fc2"] + h
-                ph.update({"ln2": span(st["proj"], st["ln2"]), "fc1": fc1,
-                           "gelu": gelu, "fc2": fc2,
-                           "to_out": span(prev, st["out"])})
-            else:
-                ph["to_out"] = span(st["proj"], st["out"])
-            ph["store"] = span(st["out"], st["end"])
-            total = span(st["start"], st["end"])
+            total = span(start, end)
             ghz = float(np.median(total / np.maximum(
-                c[:, st["t1"]] - c[:, st["t0"]], 1)))
-            per.append({k: float(np.median(v)) for k, v in ph.items()}
+                span(SWIN_ST["t0"], SWIN_ST["t1"]), 1)))
+            per.append({k: float(np.median(v)) for k, v in phases(span, mlp).items()}
                        | {"pair": float(np.median(total)), "ghz": ghz})
-        med = {k: sum(p[k] for p in per) / 2 for k in per[0]}
-        share = {k: v / med["pair"] for k, v in med.items()
-                 if k not in ("pair", "ghz")}
-        out[name] = {"cycles_a_pair": med, "share_of_pair": share,
-                     "ms_by_phase": {k: v * ms[name] for k, v in share.items()}}
+            del x, t, y
+        med = {k: sum(p_[k] for p_ in per) / 2 for k in per[0]}
+        out[name] = {"cycles_a_pair": med,
+                     "share_of_pair": {k: v / med["pair"] for k, v in med.items()
+                                       if k not in ("pair", "ghz")}}
+    return out
+
+
+def swin_phase_clocks(card: str, ms: dict) -> dict:
+    """The served bf16 kernel's time by phase (:func:`stamped_phase_clocks`
+    of swin_wg_kernel, bf16): per phase the median cycles of a pair, and its
+    share of the pair applied to the served kernel's ms in turns (``ms``:
+    name → ms)."""
+    import ctypes
+
+    import torch
+
+    st = SWIN_ST
+
+    def launch(lib, x, y, t, shift, mlp):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.s2sr_swin_wg_forward.argtypes = [vp] * 12 + [ci] * 7 + [vp]
+        lib.s2sr_swin_wg_forward.restype = ci
+        return lib.s2sr_swin_wg_forward(
+            x.data_ptr(), y.data_ptr(),
+            *(t[k].data_ptr() for k in ("g1", "b1", "bqkv", "bo", "bias_table",
+                                        "g2", "b2", "bf1", "bf2", "wg_slabs")),
+            1, 512, 512, shift, int(mlp), 0, 0, torch.cuda.current_stream().cuda_stream)
+
+    def phases(span, mlp):
+        ph = {"ln1": span(st["start"], st["ln1"]),
+              "attention": span(st["ln1"], st["attn"]),
+              "proj": span(st["attn"], st["proj"])}
+        if mlp:
+            fc1 = gelu = fc2 = 0
+            prev = st["ln2"]
+            for h in range(2):
+                for q in range(2):
+                    f, g_ = st["fc1"] + 2 * (2 * h + q), st["gelu"] + 2 * (2 * h + q)
+                    fc1, gelu = fc1 + span(prev, f), gelu + span(f, g_)
+                    prev = g_
+                fc2 = fc2 + span(prev, st["fc2"] + h)
+                prev = st["fc2"] + h
+            ph.update({"ln2": span(st["proj"], st["ln2"]), "fc1": fc1,
+                       "gelu": gelu, "fc2": fc2, "to_out": span(prev, st["out"])})
+        else:
+            ph["to_out"] = span(st["proj"], st["out"])
+        ph["store"] = span(st["out"], st["end"])
+        return ph
+
+    out = stamped_phase_clocks(torch.bfloat16, launch, phases, st["start"], st["end"])
+    for name, o in out.items():
+        o["ms_by_phase"] = {k: v * ms[name] for k, v in o["share_of_pair"].items()}
         emit({"phase": "swin_numbers", "card": card, "kernel": name,
               "clocks": "phase clocks of swin_wg_kernel, median of 2048 "
-                        "window pairs, shifts 0 and 4", **out[name]})
+                        "window pairs, shifts 0 and 4", **o})
+    return out
+
+
+# swin_f32_wg_kernel's phase clocks (csrc/window_attention.cu enum
+# F32Stamp): a window's phases, head 0 and hidden quarter 0 by step
+SWIN_F32_ST = {"start": 0, "ln1": 1, "qkv": 2, "epilogue": 3, "s": 4,
+               "softmax": 5, "pv": 6, "head": 7, "attn": 8, "ln2": 9,
+               "fc1": 10, "gelu": 11, "quarter": 12, "mlp": 13, "end": 14}
+
+
+def swin_f32_phase_clocks(card: str, ms: dict) -> dict:
+    """The served float32 kernel's time by phase (:func:`stamped_phase_clocks`
+    of swin_f32_wg_kernel, float32): head 0's and hidden quarter 0's steps,
+    the other five heads and three quarters together; each phase's share
+    of the pair applied to the kernel's ms in turns (``ms``: name → ms)."""
+    import ctypes
+
+    import torch
+
+    st = SWIN_F32_ST
+
+    def launch(lib, x, y, t, shift, mlp):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.s2sr_swin_f32_wg_forward.argtypes = [vp] * 12 + [ci] * 6 + [vp]
+        lib.s2sr_swin_f32_wg_forward.restype = ci
+        return lib.s2sr_swin_f32_wg_forward(
+            x.data_ptr(), y.data_ptr(),
+            *(t[k].data_ptr() for k in ("g1", "b1", "bqkv", "bo", "bias_table",
+                                        "g2", "b2", "bf1", "bf2", "f32_units")),
+            1, 512, 512, shift, int(mlp), 0, torch.cuda.current_stream().cuda_stream)
+
+    def phases(span, mlp):
+        steps = (("ln1", "start", "ln1"), ("head0_qkv", "ln1", "qkv"),
+                 ("head0_epilogue", "qkv", "epilogue"), ("head0_s", "epilogue", "s"),
+                 ("head0_softmax", "s", "softmax"), ("head0_pv", "softmax", "pv"),
+                 ("head0_o_and_proj", "pv", "head"), ("heads1_5", "head", "attn"))
+        if mlp:
+            steps += (("ln2", "attn", "ln2"), ("q0_fc1", "ln2", "fc1"),
+                      ("q0_gelu", "fc1", "gelu"), ("q0_fc2", "gelu", "quarter"),
+                      ("quarters1_3", "quarter", "mlp"), ("store", "mlp", "end"))
+        else:
+            steps += (("store", "attn", "end"),)
+        return {k: span(st[a_], st[b_]) for k, a_, b_ in steps}
+
+    out = stamped_phase_clocks(torch.float32, launch, phases, st["start"], st["end"])
+    for name, o in out.items():
+        o["ms_by_phase"] = {k: v * ms[name] for k, v in o["share_of_pair"].items()}
+        emit({"phase": "swin_kernel", "card": card, "kernel": f"{name}_f32",
+              "clocks": "phase clocks of swin_f32_wg_kernel, median of 2048 "
+                        "window pairs, shifts 0 and 4", **o})
     return out
 
 
@@ -6006,6 +6259,35 @@ def phase_swin_numbers(state):
     emit({"phase": "swin_numbers", "card": card,
           "profile": "one warm 512² swinir_x4 enhance_serving",
           **device_breakdown(lambda: eng.enhance_serving(img))})
+    # the same at precision "float32" (swin_f32_wg_kernel), and the Swin
+    # kernel's share of its device time
+    f32_counts = dict(wa.LAUNCHES_F32)
+    eng32 = engine_mod.get_engine(
+        "swinir_x4", weights_dir=str(state["work"] / "weights"), device="cuda",
+        dtype="float32")
+    eng32.enhance_serving(img)
+    torch.cuda.synchronize()
+    reps32 = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        eng32.enhance_serving(img)
+        torch.cuda.synchronize()
+        reps32.append(time.perf_counter() - t1)
+    prof = device_breakdown(lambda: eng32.enhance_serving(img))
+    share = sum(r["share_of_device"] or 0.0 for r in prof["top"]
+                if "swin_f32_wg_kernel" in r["kernel"])
+    emit({"phase": "swin_numbers", "card": card,
+          "sr_512_float32_seconds": reps32,
+          "sr_512_float32_mpix_per_s": 512 * 512 / min(reps32) / 1e6,
+          "float32_over_bf16_rate": min(reps) / min(reps32)})
+    emit({"phase": "swin_numbers", "card": card,
+          "profile": "one warm 512² swinir_x4 enhance_serving, float32",
+          "swin_f32_share_of_device": share, **prof})
+    if not share > 0:
+        raise AssertionError(f"float32 SwinIR ran no swin_f32_wg_kernel: {prof}")
+    del eng32
+    torch.cuda.empty_cache()
+    wa.LAUNCHES_F32.update(f32_counts)
     wa.LAUNCHES.update(launches0)
     state["swin_numbers"] = numbers
     emit({"phase": "swin_numbers",
@@ -7235,7 +7517,7 @@ def swin_band_kernel_check(card: str) -> dict:
     from s2sr_tpu_torch.ops import window_attention as wa
 
     tol = {torch.float32: 1e-4, torch.bfloat16: 0.05}
-    launches0 = dict(wa.LAUNCHES)
+    launches0 = dict(wa.LAUNCHES), dict(wa.LAUNCHES_F32)
     worst = 0.0
     for name, (fn, ref, mlp) in swin_kernels().items():
         for dtype in (torch.float32, torch.bfloat16):
@@ -7256,7 +7538,8 @@ def swin_band_kernel_check(card: str) -> dict:
                 if not rec["rel_err"] <= tol[dtype]:
                     raise AssertionError(f"swin kernel on a band: {rec}")
                 worst = max(worst, rec["rel_err"])
-    wa.LAUNCHES.update(launches0)        # comparison launches
+    wa.LAUNCHES.update(launches0[0])        # comparison launches
+    wa.LAUNCHES_F32.update(launches0[1])
     return {"rel_err": worst}
 
 
@@ -7364,14 +7647,17 @@ def mesh_sp_serving(card: str, img, kw: dict, ref, wants: dict,
     from s2sr_tpu_torch.ops import window_attention as wa
     from s2sr_tpu_torch.parallel.mesh import build_mesh
 
-    launches = {"rdb": 0, "rdb_i8": 0, "rdb_w8a8": 0, "swin_block": 0}
+    launches = {"rdb": 0, "rdb_i8": 0, "rdb_w8a8": 0, "swin_block": 0,
+                "swin_block_f32": 0}
     counter = {"rdb": lambda: rdb_mod.LAUNCHES,
                "rdb_i8": lambda: rdb_mod.LAUNCHES_I8,
-               "swin_block": lambda: wa.LAUNCHES["swin_block"]}
+               "swin_block": lambda: wa.LAUNCHES["swin_block"],
+               "swin_block_f32": lambda: wa.LAUNCHES_F32["swin_block"]}
 
     def zero():
         rdb_mod.LAUNCHES = rdb_mod.LAUNCHES_I8 = rdb_mod.LAUNCHES_W8A8 = 0
         wa.LAUNCHES.update(swin_block=0, window_attention=0)
+        wa.LAUNCHES_F32.update(swin_block=0, window_attention=0)
 
     def serve(label, eng, one, image, wants_of, secs_of, kernel, per_chunk,
               bound_bytes=True):
@@ -7506,7 +7792,7 @@ def mesh_sp_serving(card: str, img, kw: dict, ref, wants: dict,
             secs_s[path] = time.perf_counter() - t0
         engs = SREngine("swinir_x4", mesh=sp2, **dict(skw, dtype=dtype))
         serve(f"swinir sp=2 ({dtype})", engs, ones, simg, wants_s, secs_s,
-              "swin_block",
+              "swin_block_f32" if dtype == "float32" else "swin_block",
               sum(len(layer.residual_group.blocks)
                   for layer in engs.model.layers),
               bound_bytes=dtype == "float32")
@@ -7683,6 +7969,7 @@ def phase_mesh(state):
     state["mesh_launches_i8"] = sp_launches["rdb_i8"]
     state["mesh_launches_w8a8"] = sp_launches["rdb_w8a8"]
     state["mesh_swin_launches"] = sp_launches["swin_block"]
+    state["mesh_swin_f32_launches"] = sp_launches["swin_block_f32"]
 
 
 def kernels_record(state) -> list | None:
@@ -7690,7 +7977,8 @@ def kernels_record(state) -> list | None:
     if not {"rdb_numbers", "rdb_mma_err", "main_launches", "rdb_i8_numbers",
             "rdb_f32_numbers", "main_launches_f32", "ffma_launches",
             "main_launches_i8", "rdb_w8a8_numbers", "int8_launches_w8a8",
-            "swin_numbers", "swin_launches", "swin_err", "ladder",
+            "swin_numbers", "swin_launches", "swin_err", "swin_f32_numbers",
+            "swin_launches_f32", "swin_f32_err", "ladder",
             "mxu"} <= state.keys():
         return None
     from s2sr_tpu_torch.ops.rdb_ladder import TC_RUNGS
@@ -7720,7 +8008,7 @@ def kernels_record(state) -> list | None:
              **state["ladder"]["v4_mma"], "library_ms": None},
             # the float32 instance (rdb_f32_wg_kernel, split TF32 on wgmma)
             # and the design it replaced (rdb_kernel<float>, FFMA), launched
-            # on the main path with rdb_ffma patched in for one pass
+            # by nothing served, timed in turns against it
             {"name": "rdb_f32", "route": "cuda",
              "source": "s2sr_tpu_torch/csrc/rdb.cu",
              "replaces": RDB_REPLACES, "instance_of": "rdb",
@@ -7775,6 +8063,29 @@ def kernels_record(state) -> list | None:
                      "launches": design_launches["mma"][name],
                      "max_abs_err": err, "rel_err": rel,
                      **state["swin_numbers_mma"][name], "library_ms": None})
+    # the float32 instances (swin_f32_wg_kernel, split TF32 on wgmma), on
+    # the float32 path (the scene, the model at both levels, phase mesh's
+    # float32 serves over sp=2), and the design they replaced
+    # (swin_kernel<float>, FFMA), launched by nothing served, timed in turns
+    # against them; bound_ms is split TF32's, fma_bound_ms FP32 FMA's
+    for name in ("swin_block", "window_attention"):
+        nums = state["swin_f32_numbers"][name]
+        err, rel = state["swin_f32_err"][name]
+        rows.append({"name": f"{name}_f32", "route": "cuda",
+                     "source": "s2sr_tpu_torch/csrc/window_attention.cu",
+                     "replaces": SWIN_REPLACES[name], "instance_of": name,
+                     "launches": (state["swin_launches_f32"][name]
+                                  + (state.get("mesh_swin_f32_launches", 0)
+                                     if name == "swin_block" else 0)),
+                     "max_abs_err": err, "rel_err": rel, **nums["served"],
+                     "library_ms": None})
+        err, rel = state["swin_ffma_err"][name]
+        rows.append({"name": f"{name}_f32_ffma", "route": "cuda",
+                     "source": "s2sr_tpu_torch/csrc/window_attention.cu",
+                     "replaces": SWIN_REPLACES[name], "instance_of": name,
+                     "launches": state["swin_ffma_launches"][name],
+                     "max_abs_err": err, "rel_err": rel, **nums["ffma"],
+                     "library_ms": None})
     # the time-attribution instance (no defined output, no plain version)
     rows.append({"name": "swin_block_no_l2", "route": "cuda",
                  "source": "s2sr_tpu_torch/csrc/window_attention.cu",

@@ -47,8 +47,13 @@
 //   blocks per SM). Served by nothing: the timing baseline swin_mma
 //   (ops/window_attention.py, design="mma"), kept so that one call times
 //   both designs.
-// - float32, swin_kernel: float32 FMA on the CUDA cores (the tensor cores
-//   would make it TF32), one 256-thread block per window. Shared memory
+// - float32 (precision "float32"), swin_f32_wg_kernel below: swin_wg_kernel's
+//   design in split TF32 (three TF32 wgmma products a multiply-add),
+//   256 threads with no producer, two windows a block; 231,764 B.
+// - float32 on the CUDA cores, swin_kernel: the design swin_f32_wg_kernel
+//   replaced, one 256-thread block per window. Served by nothing: the
+//   timing baseline design="ffma" of the wrappers (ops/window_attention.py),
+//   kept so that one call times both. Shared memory
 //   (float32, 225,152 bytes, one block per SM):
 //     X   64 x 180   x, then y in place
 //     LN  64 x 180   LN1 output, then LN2 output
@@ -1489,13 +1494,15 @@ __device__ __forceinline__ void gelu_store(const float (&f)[48], const float* bf
 struct WinPos {
   int b, wy, wx;
 };
-__device__ __forceinline__ WinPos win_pos(const SwinArgs& a, int win) {
+template <typename A>
+__device__ __forceinline__ WinPos win_pos(const A& a, int win) {
   const int nwh = a.H / WIN, nww = a.W / WIN;
   return {win / (nwh * nww), (win / nww) % nwh, win % nww};
 }
 // element offset of token r (row-major in the rolled window) of window p in
 // x / out; the rolled place is under 2H (2W), so one subtraction wraps it
-__device__ __forceinline__ size_t token(const SwinArgs& a, const WinPos& p, int r) {
+template <typename A>
+__device__ __forceinline__ size_t token(const A& a, const WinPos& p, int r) {
   int gy = p.wy * WIN + (r >> 3) + a.hshift;
   int gx = p.wx * WIN + (r & 7) + a.shift;
   gy -= gy >= a.H ? a.H : 0;
@@ -1829,6 +1836,883 @@ __global__ void __launch_bounds__(WG_THREADS, 1) swin_wg_no_l2_kernel(const Swin
   wg_body<true, WG_NO_L2>(a);
 }
 
+// --- float32 on wgmma: swin_f32_wg_kernel, split TF32 ------------------------
+//
+// The served float32 kernel (SwinIR at precision "float32"): both TPU
+// kernels of this file's head (swin_block_fused, MLP true;
+// window_attention_fused, MLP false) for float32 storage, replacing
+// swin_kernel<float, MLP>, the CUDA-core design, which stays as the
+// never-served timing baseline design="ffma". The shift roll, hshift and
+// last_wy (sp bands) are folded into the addressing, the bias is the
+// compact (225, 6) table and the mask its 0/-100 rule, all as
+// swin_wg_kernel has them.
+//
+// Numerics (this file's head, float32 storage): LayerNorm
+// statistics, scores + bias + mask and the softmax in float32 (expf, one
+// IEEE reciprocal a row), GELU in the exact erff form, y, the residual
+// stream, in float32; nothing rounded below float32. The products run on
+// the tensor cores, which take float32 only as TF32 (10 stored mantissa
+// bits), in split TF32 ("3xTF32", csrc/rdb.cu's rdb_f32_wg_kernel): each
+// operand v becomes hi = rna(v) and lo = rna(v - hi) (tf32_rna: an integer
+// add and mask, bit-equal to cvt.rna.tf32, which issues at a quarter
+// rate), and every multiply-add is three wgmma.m64nNk8.f32.tf32.tf32
+// products, lo_a hi_b, hi_a lo_b, hi_a hi_b; lo_a lo_b is dropped. The
+// tensor cores truncate where they add a product sum to an accumulator,
+// so a product runs into partial sums of its own (the first wgmma with
+// scale-d 0) over at most one K block of 32 (12 sums; fc2's 96-row
+// quarter 36) and the partials are folded into the float32 sums by
+// rounded adds (__fadd_rn): qkv and fc1 a K block at a time, proj a head
+// at a time and fc2 a hidden quarter at a time into y.
+//
+// What bounds it: operations. 564,480 useful FLOP a token at 495 TFLOP/s
+// of TF32 for three products: 0.897 ms at (1, 512, 512); as executed (the
+// pads: head dim 32, C 192, hidden 384; 20,447,232 multiply-adds a
+// window) 1.015 ms; at 67 TFLOP/s of FP32 FMA (swin_kernel<float, MLP>'s
+// route, the CUDA-core design this replaces, kept as the never-served
+// timing baseline design="ffma") 2.209 ms.
+//
+// Design: swin_wg_kernel's (two windows a block sharing every B unit a
+// ring streams) in float32, with three changes that float32 forces:
+// - Shared memory. A window's float32 LN buffer is 48 KB, and K and V of
+//   a head with their hi and lo copies 32 KB; with O (48 KB) two windows
+//   would not fit. So O never stays: each head's output O_h (64 x 32,
+//   written over its K) is multiplied at once by its 32 rows of wo and
+//   added into y, which lives in the consumers' registers from the first
+//   head on; the MLP's hidden runs a quarter of 96 at a time, its GELU'd
+//   output H_q (64 x 96) written over K and V and read back as fc2's A.
+// - Registers. y (96 a thread), a 96-column sum and its partial (48 each)
+//   and a K block's A fragments (32) need about 240 registers; a producer
+//   warpgroup would hold every thread to 168. So the block has no
+//   producer: 256 threads, two consumer warpgroups (255 registers), and
+//   the warp that releases a slot last refills it (csrc/matmul_chain.cu's
+//   wg_ring_chain_kernel).
+// - Operand layouts. TF32 wgmma reads A and B only K-major (the transpose
+//   bits are for 16-bit types), so V is written transposed (V^T: a head
+//   dim a row, 64 keys along K). A float32 accumulator's n8 tile holds
+//   columns 2t, 2t + 1 of rows g and g + 8, where a TF32 k8 A fragment
+//   wants columns t and t + 4; so q (for S = Q K^T) and P (for O = P V)
+//   are used as they come, with K within each group of 8 relabelled
+//   [0, 2, 4, 6, 1, 3, 5, 7] (fragment k t holds column 2t, k t + 4 column
+//   2t + 1), and the kernel writes K's head dims and V^T's keys in that
+//   order: each k8 sum only changes its order.
+//
+// B. The wrapper packs the four matrices once a body (ops/window_attention
+// .py::pack_f32_wg_units) as units of 96 rows x 128 bytes (12,288 B): 32
+// TF32 values of K a row in wgmma's K-major layout with the 128-byte
+// swizzle (16-byte chunk c of row n at c ^ (n % 8), 8-row groups 1024
+// bytes apart), a unit the hi or the lo half of one K block of 96 output
+// columns. The stream, in the order the consumers read it: per head h its
+// qkv columns 96h.. (6 K blocks, hi then lo each), then proj's wo rows
+// 32h.. (columns 0.., 96..); then per hidden quarter q fc1's columns 96q..
+// (6 K blocks), fc2's w2 rows 96q.. (per column half 3 K blocks): 192
+// units, the first 96 window_attention's. The block walks window pairs
+// blockIdx.x, + gridDim.x, ...; its ring of 5 slots holds units g..g+4 of
+// its pairs' run; each warp's lane 0, once the warp's wgmmas on a unit have
+// completed, counts it in the slot's count, and the one that completes the
+// count of 8 issues unit g + 5 into the slot (one cp.async.bulk completing
+// on the slot's full mbarrier). L2 reads a launch: the units a pair
+// (2,359,296 B, 1,179,648 for window_attention) and the bias table once a
+// block: 4.83 GB at (1, 512, 512) (chip_smoke.py::swin_l2_bytes), half of
+// a window a block.
+//
+// A. LN1 (read from x in global memory), LN2, O_h and H_q are written by
+// the consumers into float32 buffers of 16-byte chunks, chunk c of row r
+// at c ^ (r % 8) (every ldmatrix phase and every accumulator store on 8
+// bank groups), and read by ldmatrix of 32-bit elements: its four 8 x 4
+// matrices are wgmma's TF32 A fragment (a0 (g, t), a1 (g + 8, t), a2 (g,
+// t + 4), a3 (g + 8, t + 4)), split into hi and lo in registers.
+//
+// Per window (a consumer warpgroup; warp w holds rows 16w + g, + 8):
+//   LN1 -> A.
+//   Per head: qkv (m64n96, 6 K blocks of 12 wgmmas, partials folded);
+//     + bias; q as S's A fragments (hi, lo) in registers; k into K, v into
+//     V^T (hi and lo copies, relabelled); S (m64n64, 12 wgmmas); + bias +
+//     mask, softmax; P as O's A fragments; O (m64n32, 24 wgmmas); O_h
+//     over K; y += O_h wo_h (two m64n96 halves, 12 wgmmas each).
+//   window_attention: out = y + bo. swin_block: y = (x + y) + bo; LN2
+//   from y in registers (row statistics over the quad) -> A; per quarter
+//   q: fc1 (m64n96, 6 K blocks) + bias -> H_q, GELU in place; per column half,
+//   fc2's partial over H_q (3 K blocks) folded into y; out = y + bf2.
+// Every window sums the same units in the same order with the same
+// shapes wherever it lies; an odd window count's last pair computes its
+// last window again on its second consumer and drops the stores.
+//
+// Each K block's 12 wgmmas are waited for (wait_group 0) before its
+// partial is folded; the other warpgroup's K block runs on the tensor
+// cores meanwhile. The GELU runs as a loop over the thread's own values of
+// H_q in shared memory, with one erff in the code: 48 inlined copies ran
+// markedly slower on an H100. Tried on an H100 and not kept, none faster
+// beyond the spread of the in-turns timing and some slower: y's first 64
+// sums parked in the K / V^T region while qkv and fc1 run (fewer spills),
+// wait_group 1 between K blocks, two K blocks a partial, O = P V in two
+// halves, the next window's x staged into the A buffer by cp.async (a
+// shorter LN1, not a shorter launch), GELU called instead of inlined (the
+// calls spill), LN1 in batches of 4 rows, LN2 and the softmax as loops
+// through shared memory like the GELU. The phase clocks
+// (-DS2SR_SWIN_STAMPS, chip_smoke.py::swin_f32_phase_clocks) say where the
+// time goes.
+//
+// Shared memory (bytes from a 1024-aligned base; ops/window_attention.py
+// ::f32_wg_smem_plan):
+//   ring      0        5 slots x 12,288                          61,440
+//   window w  61,440 + 81,920 w (w = 0, 1):
+//     A       +0       LN1, then LN2 (64 x 192 float32)          49,152
+//     K hi    +49,152  K of a head (64 keys x 32), then O_h       8,192
+//     K lo    +57,344                                             8,192
+//     V^T hi  +65,536  V^T of a head (32 dims x 64 keys)          8,192
+//     V^T lo  +73,728                                             8,192
+//                      (K and V^T: the MLP's H_q, 64 x 96)
+//   table     225,280  the bias table, [head][225] float32        5,400
+//   barriers  230,680  a full mbarrier a slot                        40
+//   counts    230,720  a release count a slot                        20
+// 230,740 + up to 1,024 to align = 231,764 of the block's 232,448; a
+// sixth slot would make 244,052.
+
+constexpr int F32_THREADS = WG_WIN * 128;     // two consumer warpgroups, no producer
+constexpr int F32_NBUF = 5;                   // slots of the B ring
+constexpr int F32_UNIT = 96 * 128;            // a unit: 96 rows x 32 TF32
+constexpr int HEAD_UNITS = 12 + 4;            // qkv's 6 K blocks, proj's 2 halves
+constexpr int QUARTER_UNITS = 12 + 12;        // fc1's 6 K blocks, fc2's 2 x 3
+constexpr int ATTN_UNITS = HEADS * HEAD_UNITS;               // 96
+constexpr int BLOCK_UNITS = ATTN_UNITS + 4 * QUARTER_UNITS;  // 192
+constexpr int LDA = CP / 4;                   // 16-byte chunks a row of A
+constexpr int A_BYTES = N * CP * 4;
+constexpr int HALF = 8192;                    // K or V^T of a head, hi or lo
+constexpr int W_A = 0, W_KH = A_BYTES, W_KL = W_KH + HALF, W_VH = W_KL + HALF,
+              W_VL = W_VH + HALF;
+constexpr int F32_WIN_BYTES = W_VL + HALF;
+constexpr int F32_OFF_WIN = F32_NBUF * F32_UNIT;
+constexpr int F32_OFF_TABLE = F32_OFF_WIN + WG_WIN * F32_WIN_BYTES;
+constexpr int F32_OFF_BAR = F32_OFF_TABLE + HEADS * TABLE * 4;
+constexpr int F32_OFF_CNT = F32_OFF_BAR + 8 * F32_NBUF;
+constexpr int F32_WG_SMEM = 1024 + F32_OFF_CNT + 4 * F32_NBUF;
+static_assert(ATTN_UNITS == 96 && BLOCK_UNITS == 192, "the stream as noted");
+static_assert(F32_OFF_WIN == 61440 && F32_WIN_BYTES == 81920 && F32_OFF_TABLE == 225280 &&
+              F32_OFF_BAR == 230680 && F32_OFF_CNT == 230720 && F32_WG_SMEM == 231764,
+              "shared memory as the note counts it");
+static_assert(F32_WG_SMEM <= 232448, "over the 227 KB a block may opt into");
+static_assert(F32_WG_SMEM + F32_UNIT > 232448, "room for another slot");
+static_assert(F32_OFF_WIN % 1024 == 0 && F32_WIN_BYTES % 1024 == 0 && W_KH % 1024 == 0,
+              "wgmma operands on 1024-byte swizzle atoms");
+static_assert(N * 96 * 4 <= 4 * HALF, "H_q fits over K and V^T");
+
+struct F32Args {
+  const float* x;
+  float* out;
+  const float *g1, *b1, *bqkv, *bo, *table, *g2, *b2, *bf1, *bf2;
+  const unsigned char* units;
+  int H, W, shift, hshift, last_wy, windows;
+};
+
+// float32 -> TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away from
+// zero): half of the 13 dropped bits' range added, then those bits cleared
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+// v as TF32 hi and lo: hi = rna(v), lo = rna(v - hi) (the difference exact)
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// wgmma.mma_async m64nNk8 into float32, A (TF32) from registers, B (TF32)
+// by descriptor: d += A B, or with FIRST d = A B (scale-d 0), so that no
+// instruction but a wgmma defines a partial sum (ptxas serialises the
+// wgmmas if one does: C7515)
+#define S2SR_TF32_ASM(N, D)                                                     \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" #D ", 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 "
+template <bool FIRST>
+__device__ __forceinline__ void wg96(float* d, const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (FIRST)
+    asm volatile(S2SR_TF32_ASM(96, 53)
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+                 "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+                 "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+                 "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+                 "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+                 : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+                   "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+                   "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+                   "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+                   "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+                   "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+                   "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
+                   "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+                   "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]),
+                   "=f"(d[45]), "=f"(d[46]), "=f"(d[47])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+  else
+    asm volatile(S2SR_TF32_ASM(96, 53)
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+                 "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+                 "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+                 "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+                 "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                   "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+                   "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+                   "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                   "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+                   "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+                   "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+                   "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+                   "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <bool FIRST>
+__device__ __forceinline__ void wg64(float* d, const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (FIRST)
+    asm volatile(S2SR_TF32_ASM(64, 37)
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+                 "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+                 "%24, %25, %26, %27, %28, %29, %30, %31}, "
+                 "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+                 : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+                   "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+                   "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+                   "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+                   "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+                   "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+                   "=f"(d[30]), "=f"(d[31])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+  else
+    asm volatile(S2SR_TF32_ASM(64, 37)
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+                 "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+                 "%24, %25, %26, %27, %28, %29, %30, %31}, "
+                 "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                   "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+                   "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+                   "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                   "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+                   "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <bool FIRST>
+__device__ __forceinline__ void wg32(float* d, const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (FIRST)
+    asm volatile(S2SR_TF32_ASM(32, 21)
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+                 "%12, %13, %14, %15}, "
+                 "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+                   "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+                   "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+                   "=f"(d[15])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+  else
+    asm volatile(S2SR_TF32_ASM(32, 21)
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+                 "%12, %13, %14, %15}, "
+                 "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                   "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+                   "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+                   "+f"(d[15])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef S2SR_TF32_ASM
+
+// d += p, each sum rounded to nearest
+template <int NA>
+__device__ __forceinline__ void fold(float* d, const float (&p)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) d[i] = __fadd_rn(d[i], p[i]);
+}
+
+__device__ __forceinline__ void stsf(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ void sts2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+__device__ __forceinline__ float2 lds2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+// Byte offset of float32 (row, col) in an A buffer of LDC 16-byte chunks a
+// row, chunk c of row r stored at c ^ (r % 8)
+template <int LDC>
+__device__ __forceinline__ uint32_t a_at(int row, int col) {
+  return (uint32_t)(row * LDC * 16 + ((((col >> 2) ^ row) & 7) | ((col >> 2) & ~7)) * 16 +
+                    (col & 3) * 4);
+}
+// Byte offset of TF32 (row, position p < 32) of a K-major 128-byte-swizzle
+// operand of 128-byte rows
+__device__ __forceinline__ uint32_t b_at(int row, int p) {
+  return (uint32_t)(row * 128 + (((p >> 2) ^ row) & 7) * 16 + (p & 3) * 4);
+}
+// The place of column c of a group of 8 in a relabelled k8 step: column 2t
+// at t, 2t + 1 at t + 4
+__device__ __forceinline__ int relabel(int c) { return (c >> 1) + 4 * (c & 1); }
+
+// k8 step s (columns 8s..8s+7) of the warp's 16 rows of the A buffer at
+// `abuf` (LDC chunks a row) as wgmma's TF32 A fragment, split into hi, lo:
+// lane l points ldmatrix.x4 at row l % 16, chunk 2s + l / 16, so that
+// matrix i is a0..a3 in turn
+template <int LDC>
+__device__ __forceinline__ void a_frag(uint32_t (&h)[4], uint32_t (&l)[4], uint32_t abuf,
+                                       int s) {
+  const int lane = tidx() & 31;
+  uint32_t v[4];
+  ldsm(v, abuf + a_at<LDC>(16 * ((tidx() >> 5) & 3) + (lane & 15), 8 * s + 4 * (lane >> 4)));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(__uint_as_float(v[i]), h[i], l[i]);
+}
+
+// The B ring as a warp sees it: F32_NBUF slots of a unit from 1024-aligned
+// `slots`, a full mbarrier and a release count a slot; the stream of n
+// units a window pair; `base` the units of the block's pairs before this
+// one; `total` the units of all its pairs.
+struct F32Ring {
+  uint32_t slots, full, cnt;
+  const unsigned char* units;
+  int n, base, total;
+};
+
+// unit g of the block's run into its slot: the slot's full barrier armed
+// with the unit's bytes, then one bulk copy
+__device__ __forceinline__ void ring_fill(const F32Ring& r, int g) {
+  const uint32_t slot = (uint32_t)(g % F32_NBUF);
+  const uint32_t bar = r.full + 8 * slot;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(F32_UNIT) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];\n"
+               ::"r"(r.slots + slot * F32_UNIT), "l"(r.units + (size_t)(g % r.n) * F32_UNIT),
+                 "r"(F32_UNIT), "r"(bar) : "memory");
+}
+// unit i of the current pair has landed
+__device__ __forceinline__ void unit_wait(const F32Ring& r, int i) {
+  const int g = r.base + i;
+  mbar_wait(r.full + 8 * (g % F32_NBUF), (uint32_t)(g / F32_NBUF) & 1);
+}
+__device__ __forceinline__ uint32_t unit_addr(const F32Ring& r, int i) {
+  return r.slots + (uint32_t)((r.base + i) % F32_NBUF) * F32_UNIT;
+}
+// This warp's wgmmas on unit i have completed: lane 0 counts it in its
+// slot; the warp that completes the slot's count of 8 (both warpgroups'
+// warps) issues the unit F32_NBUF later into it.
+__device__ __forceinline__ void unit_release(const F32Ring& r, int i) {
+  if ((tidx() & 31) == 0) {
+    const int g = r.base + i;
+    uint32_t old;
+    asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+                 : "=r"(old) : "r"(r.cnt + 4 * (g % F32_NBUF)) : "memory");
+    if ((old & 7) == 7 && g + F32_NBUF < r.total) ring_fill(r, g + F32_NBUF);
+  }
+}
+
+// part = A B from zero over KB K blocks of 32: A's K blocks kb0.. of the
+// buffer at `abuf` (LDC chunks a row), B units i0 + 2b (hi) and i0 + 2b + 1
+// (lo). A K block: its two units waited for, A's 4 k8 steps by ldmatrix and
+// split, one fence, per k8 step lo_a hi_b, hi_a lo_b, hi_a hi_b (the
+// chain's first with scale-d 0), one commit, wait_group 0, its units
+// released: the other warpgroup's K block runs on the tensor cores
+// meanwhile. Unrolled: no wgmma under a branch.
+template <int KB, int LDC>
+__device__ __forceinline__ void chain96(float (&part)[48], uint32_t abuf, int kb0,
+                                        const F32Ring& r, int i0) {
+#pragma unroll
+  for (int b = 0; b < KB; ++b) {
+    const int i = i0 + 2 * b;
+    unit_wait(r, i);
+    unit_wait(r, i + 1);
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) a_frag<LDC>(ah[s], al[s], abuf, 4 * (kb0 + b) + s);
+    const uint32_t hi = unit_addr(r, i), lo = unit_addr(r, i + 1);
+    uint64_t dh[4], dl[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      dh[s] = desc_k128(hi + 32 * s);
+      dl[s] = desc_k128(lo + 32 * s);
+      asm volatile("" : "+l"(dh[s]), "+l"(dl[s])::"memory");
+    }
+    if (b > 0) fence_acc(part);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (b == 0 && s == 0) wg96<true>(part, al[s], dh[s]);
+      else wg96<false>(part, al[s], dh[s]);
+      wg96<false>(part, ah[s], dl[s]);
+      wg96<false>(part, ah[s], dh[s]);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(part);
+    unit_release(r, i);
+    unit_release(r, i + 1);
+  }
+}
+
+// acc = A B over the 6 K blocks of the 192-wide A buffer at `abuf`, units
+// i0.. (hi, lo a K block), each K block's partial folded into acc
+__device__ __forceinline__ void gemm96(float (&acc)[48], uint32_t abuf, const F32Ring& r,
+                                       int i0) {
+  zero(acc);
+#pragma unroll 1
+  for (int b = 0; b < CP / 32; ++b) {
+    float part[48];
+    chain96<1, LDA>(part, abuf, b, r, i0 + 2 * b);
+    fold(acc, part);
+  }
+}
+
+// LN1 of the window's x (global) into A: warp w the rows w + 4i, eight at a
+// time, lane the column pairs 2 lane + 64k (columns 180..191 zero)
+__device__ __forceinline__ void ln1(const F32Args& a, const WinPos& wp, uint32_t ab) {
+  const int warp = (tidx() >> 5) & 3, lane = tidx() & 31;
+  float2 gg[3], bb[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int c = 2 * lane + 64 * k;
+    gg[k] = c < C ? ld2(a.g1 + c) : make_float2(0.f, 0.f);
+    bb[k] = c < C ? ld2(a.b1 + c) : make_float2(0.f, 0.f);
+  }
+#pragma unroll 1
+  for (int i0 = 0; i0 < N / 4; i0 += 8) {
+    float2 v[8][3];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float* src = a.x + token(a, wp, warp + 4 * (i0 + u));
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int c = 2 * lane + 64 * k;
+        v[u][k] = c < C ? ld2(src + c) : make_float2(0.f, 0.f);
+      }
+    }
+    float s[8], q[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) s[u] = (v[u][0].x + v[u][0].y) + (v[u][1].x + v[u][1].y) +
+                                      (v[u][2].x + v[u][2].y);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) s[u] = warp_sum(s[u]) / C;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      q[u] = 0.f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        if (2 * lane + 64 * k < C) {
+          const float d0 = v[u][k].x - s[u], d1 = v[u][k].y - s[u];
+          q[u] += d0 * d0 + d1 * d1;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int r = warp + 4 * (i0 + u);
+      const float rstd = 1.f / sqrtf(warp_sum(q[u]) / C + EPS);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int c = 2 * lane + 64 * k;
+        float o0 = 0.f, o1 = 0.f;
+        if (c < C) {
+          o0 = (v[u][k].x - s[u]) * rstd * gg[k].x + bb[k].x;
+          o1 = (v[u][k].y - s[u]) * rstd * gg[k].y + bb[k].y;
+        }
+        sts2(ab + a_at<LDA>(r, c), o0, o1);
+      }
+    }
+  }
+}
+
+// Phase clocks of swin_f32_wg_kernel, with -DS2SR_SWIN_STAMPS only (the
+// copy chip_smoke.py's phase build makes): WG_STAMP at a window's phase
+// boundaries into swin_wg_kernel's buffer, head 0 and hidden quarter 0
+// split into their steps (every head and quarter runs the same code).
+enum F32Stamp : int {
+  FS_START = 0, FS_LN1 = 1, FS_QKV = 2, FS_EPI = 3, FS_S = 4, FS_SOFTMAX = 5,
+  FS_PV = 6, FS_HEAD = 7, FS_ATTN = 8, FS_LN2 = 9, FS_FC1 = 10, FS_GELU = 11,
+  FS_QUARTER = 12, FS_MLP = 13, FS_END = 14
+};
+
+// y (m64n192: 24 n8 tiles) + v (a vector of 192, columns < 180) into out
+// at the window's tokens, rows r0 and r0 + 8 of the thread
+__device__ __forceinline__ void store_out(const F32Args& a, const WinPos& wp,
+                                          const float (&y)[96],
+                                          const float* v) {
+  const int lane = tidx() & 31, t = lane & 3;
+  const int r0 = 16 * ((tidx() >> 5) & 3) + (lane >> 2);
+  float* o0 = a.out + token(a, wp, r0);
+  float* o1 = a.out + token(a, wp, r0 + 8);
+#pragma unroll
+  for (int j = 0; j < 24; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col >= C) continue;
+    const float2 c = ld2(v + col);
+    *reinterpret_cast<float2*>(o0 + col) = make_float2(y[4 * j] + c.x, y[4 * j + 1] + c.y);
+    *reinterpret_cast<float2*>(o1 + col) = make_float2(y[4 * j + 2] + c.x, y[4 * j + 3] + c.y);
+  }
+}
+
+// One consumer warpgroup: window 2 pair + wg. Thread (warp, g, t) holds
+// accumulator rows r0 = 16 warp + g and r1 = r0 + 8, and of each n8 tile j
+// the columns 8j + 2t, + 1: element 4j + e is row r0 (e < 2) or r1, column
+// 8j + 2t + (e & 1).
+template <bool MLP>
+__device__ __forceinline__ void f32_window(const F32Args& a, const F32Ring& ring, uint32_t sbase,
+                                           const float* tb, int pair) {
+  const int wg = tidx() >> 7;
+  const int warp = (tidx() >> 5) & 3, lane = tidx() & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  int win = 2 * pair + wg;
+  const bool valid = win < a.windows;
+  if (!valid) win = a.windows - 1;        // computed again, stores dropped
+  const int shift = a.shift;
+  const WinPos wp = win_pos(a, win);
+  const bool lr = shift > 0 && wp.wy == a.last_wy;
+  const bool lc = shift > 0 && wp.wx == a.W / WIN - 1;
+  const uint32_t wb = sbase + F32_OFF_WIN + wg * F32_WIN_BYTES;
+  const uint32_t ab = wb + W_A, kh = wb + W_KH, kl = wb + W_KL, vh = wb + W_VH, vl = wb + W_VL;
+
+  WG_STAMP(pair, FS_START);
+  WG_STAMP(pair, ST_T0);
+  ln1(a, wp, ab);
+  wg_sync(wg);
+  WG_STAMP(pair, FS_LN1);
+
+  float y[96];
+  zero(y);
+#pragma unroll 1
+  for (int h = 0; h < HEADS; ++h) {
+    const int u0 = HEAD_UNITS * h;
+    uint32_t qh[4][4], ql[4][4];
+    {
+      float acc[48];
+      gemm96(acc, ab, ring, u0);
+      if (h == 0) WG_STAMP(pair, FS_QKV);
+      // + bias: q as S's A fragments (k8 step s: q's columns 8s + 2t at
+      // a0 / a1, 8s + 2t + 1 at a2 / a3); k into K at key r, places
+      // relabelled; v into V^T at dim d, its keys' places relabelled
+#pragma unroll
+      for (int j = 0; j < 12; ++j) {
+        const float2 c = ld2(a.bqkv + 96 * h + 8 * j + 2 * t);
+        const float v00 = acc[4 * j] + c.x, v01 = acc[4 * j + 1] + c.y;
+        const float v10 = acc[4 * j + 2] + c.x, v11 = acc[4 * j + 3] + c.y;
+        uint32_t s00, s01, s10, s11, z00, z01, z10, z11;
+        split(v00, s00, z00);
+        split(v01, s01, z01);
+        split(v10, s10, z10);
+        split(v11, s11, z11);
+        if (j < 4) {
+          qh[j][0] = s00, ql[j][0] = z00;
+          qh[j][1] = s10, ql[j][1] = z10;
+          qh[j][2] = s01, ql[j][2] = z01;
+          qh[j][3] = s11, ql[j][3] = z11;
+        } else if (j < 8) {
+          const int p = 8 * (j - 4) + t;
+          stsf(kh + b_at(r0, p), __uint_as_float(s00));
+          stsf(kl + b_at(r0, p), __uint_as_float(z00));
+          stsf(kh + b_at(r0, p + 4), __uint_as_float(s01));
+          stsf(kl + b_at(r0, p + 4), __uint_as_float(z01));
+          stsf(kh + b_at(r1, p), __uint_as_float(s10));
+          stsf(kl + b_at(r1, p), __uint_as_float(z10));
+          stsf(kh + b_at(r1, p + 4), __uint_as_float(s11));
+          stsf(kl + b_at(r1, p + 4), __uint_as_float(z11));
+        } else {
+          const int d = 8 * (j - 8) + 2 * t;
+          const int p = 16 * warp + relabel(g);        // key r0's place; r1's + 8
+          const uint32_t o = (uint32_t)(p >> 5) * 4096;
+          stsf(vh + o + b_at(d, p & 31), __uint_as_float(s00));
+          stsf(vl + o + b_at(d, p & 31), __uint_as_float(z00));
+          stsf(vh + o + b_at(d + 1, p & 31), __uint_as_float(s01));
+          stsf(vl + o + b_at(d + 1, p & 31), __uint_as_float(z01));
+          stsf(vh + o + b_at(d, (p + 8) & 31), __uint_as_float(s10));
+          stsf(vl + o + b_at(d, (p + 8) & 31), __uint_as_float(z10));
+          stsf(vh + o + b_at(d + 1, (p + 8) & 31), __uint_as_float(s11));
+          stsf(vl + o + b_at(d + 1, (p + 8) & 31), __uint_as_float(z11));
+        }
+      }
+    }
+    fence_async();
+    wg_sync(wg);
+    if (h == 0) WG_STAMP(pair, FS_EPI);
+    // S = q K^T: key tile n holds keys 8n + 2t (+1) of rows r0, r1
+    float sc[32];
+    {
+      uint64_t dh[4], dl[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        dh[s] = desc_k128(kh + 32 * s);
+        dl[s] = desc_k128(kl + 32 * s);
+        asm volatile("" : "+l"(dh[s]), "+l"(dl[s])::"memory");
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (s == 0) wg64<true>(sc, ql[s], dh[s]);
+        else wg64<false>(sc, ql[s], dh[s]);
+        wg64<false>(sc, qh[s], dl[s]);
+        wg64<false>(sc, qh[s], dh[s]);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+    }
+    if (h == 0) WG_STAMP(pair, FS_S);
+    // + bias + mask (row i = 8 yi + xi: yi = 2 warp + e / 2, xi = g; key
+    // j = 8n + 2t + e % 2: yj = n, xj = 2t + e % 2), then the softmax
+    {
+      const float* bias = tb + h * TABLE;
+      const int edge = WIN - shift;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int yi = 2 * warp + (e >> 1), xi = g, yj = n, xj = 2 * t + (e & 1);
+          float v = sc[4 * n + e] +
+                    bias[(yi - yj + WIN - 1) * (2 * WIN - 1) + xi - xj + WIN - 1];
+          if (shift > 0) {
+            const bool apart = (lr && ((yi >= edge) != (yj >= edge))) ||
+                               (lc && ((xi >= edge) != (xj >= edge)));
+            v += apart ? -100.f : 0.f;
+          }
+          sc[4 * n + e] = v;
+          if (e < 2) mx0 = fmaxf(mx0, v);
+          else mx1 = fmaxf(mx1, v);
+        }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n) {
+        sc[4 * n] = expf(sc[4 * n] - mx0);
+        sc[4 * n + 1] = expf(sc[4 * n + 1] - mx0);
+        sc[4 * n + 2] = expf(sc[4 * n + 2] - mx1);
+        sc[4 * n + 3] = expf(sc[4 * n + 3] - mx1);
+        sum0 += sc[4 * n] + sc[4 * n + 1];
+        sum1 += sc[4 * n + 2] + sc[4 * n + 3];
+      }
+      const float inv0 = 1.f / quad_sum(sum0), inv1 = 1.f / quad_sum(sum1);
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n) {
+        sc[4 * n] *= inv0;
+        sc[4 * n + 1] *= inv0;
+        sc[4 * n + 2] *= inv1;
+        sc[4 * n + 3] *= inv1;
+      }
+    }
+    if (h == 0) WG_STAMP(pair, FS_SOFTMAX);
+    // O = P V: P's key tile n is k8 step n (keys 8n + 2t at a0 / a1, 8n + 2t
+    // + 1 at a2 / a3), V^T's keys relabelled to match; in two halves of 4
+    // k8 steps (keys 0..31, 32..63: V^T's two K blocks), each waited for
+    // before the next, so that a half's A fragments and descriptors alone
+    // are live beside y
+    float oa[16];
+    {
+      uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        split(sc[4 * n], ph[n][0], pl[n][0]);
+        split(sc[4 * n + 2], ph[n][1], pl[n][1]);
+        split(sc[4 * n + 1], ph[n][2], pl[n][2]);
+        split(sc[4 * n + 3], ph[n][3], pl[n][3]);
+      }
+      uint64_t dh[8], dl[8];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const uint32_t o = (uint32_t)(n >> 2) * 4096 + 32 * (n & 3);
+        dh[n] = desc_k128(vh + o);
+        dl[n] = desc_k128(vl + o);
+        asm volatile("" : "+l"(dh[n]), "+l"(dl[n])::"memory");
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (n == 0) wg32<true>(oa, pl[n], dh[n]);
+        else wg32<false>(oa, pl[n], dh[n]);
+        wg32<false>(oa, ph[n], dl[n]);
+        wg32<false>(oa, ph[n], dh[n]);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(oa);
+    }
+    if (h == 0) WG_STAMP(pair, FS_PV);
+    // O_h over K hi (64 x 32, 8 chunks a row), then y += O_h wo_h a column
+    // half at a time
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const int col = 8 * d + 2 * t;
+      sts2(kh + a_at<8>(r0, col), oa[4 * d], oa[4 * d + 1]);
+      sts2(kh + a_at<8>(r1, col), oa[4 * d + 2], oa[4 * d + 3]);
+    }
+    wg_sync(wg);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float part[48];
+      chain96<1, 8>(part, kh, 0, ring, u0 + 12 + 2 * u);
+      fold(y + 48 * u, part);
+    }
+    // O_h read by every warp before the next head's K overwrites it
+    wg_sync(wg);
+    if (h == 0) WG_STAMP(pair, FS_HEAD);
+  }
+  WG_STAMP(pair, FS_ATTN);
+
+  if constexpr (!MLP) {
+    if (valid) store_out(a, wp, y, a.bo);
+    WG_STAMP(pair, FS_END);
+    WG_STAMP(pair, ST_T1);
+    return;
+  }
+  // y = (x + proj) + bo over the 180 columns (the pads 0); LN2 from the
+  // registers: row statistics over the quad
+  {
+    const float* x0 = a.x + token(a, wp, r0);
+    const float* x1 = a.x + token(a, wp, r1);
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < C) {
+        const float2 c = ld2(a.bo + col), xa = ld2(x0 + col), xb = ld2(x1 + col);
+        y[4 * j] = (xa.x + y[4 * j]) + c.x;
+        y[4 * j + 1] = (xa.y + y[4 * j + 1]) + c.y;
+        y[4 * j + 2] = (xb.x + y[4 * j + 2]) + c.x;
+        y[4 * j + 3] = (xb.y + y[4 * j + 3]) + c.y;
+        s0 += y[4 * j] + y[4 * j + 1];
+        s1 += y[4 * j + 2] + y[4 * j + 3];
+      } else {
+        y[4 * j] = y[4 * j + 1] = y[4 * j + 2] = y[4 * j + 3] = 0.f;
+      }
+    }
+    const float mean0 = quad_sum(s0) / C, mean1 = quad_sum(s1) / C;
+    float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      if (8 * j + 2 * t < C) {
+        const float d0 = y[4 * j] - mean0, d1 = y[4 * j + 1] - mean0;
+        const float d2 = y[4 * j + 2] - mean1, d3 = y[4 * j + 3] - mean1;
+        q0 += d0 * d0 + d1 * d1;
+        q1 += d2 * d2 + d3 * d3;
+      }
+    }
+    const float rstd0 = 1.f / sqrtf(quad_sum(q0) / C + EPS);
+    const float rstd1 = 1.f / sqrtf(quad_sum(q1) / C + EPS);
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const int col = 8 * j + 2 * t;
+      float o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
+      if (col < C) {
+        const float2 gv = ld2(a.g2 + col), bv = ld2(a.b2 + col);
+        o0 = (y[4 * j] - mean0) * rstd0 * gv.x + bv.x;
+        o1 = (y[4 * j + 1] - mean0) * rstd0 * gv.y + bv.y;
+        o2 = (y[4 * j + 2] - mean1) * rstd1 * gv.x + bv.x;
+        o3 = (y[4 * j + 3] - mean1) * rstd1 * gv.y + bv.y;
+      }
+      sts2(ab + a_at<LDA>(r0, col), o0, o1);
+      sts2(ab + a_at<LDA>(r1, col), o2, o3);
+    }
+  }
+  wg_sync(wg);
+  WG_STAMP(pair, FS_LN2);
+  // the MLP a quarter of the hidden at a time: fc1's 96 columns 96q.. + bias,
+  // GELU, into H_q over K and V^T (24 chunks a row); y += H_q w2's rows
+  // 96q.. a column half at a time
+#pragma unroll 1
+  for (int q = 0; q < 4; ++q) {
+    const int u0 = ATTN_UNITS + QUARTER_UNITS * q;
+    {
+      float f[48];
+      gemm96(f, ab, ring, u0);
+      if (q == 0) WG_STAMP(pair, FS_FC1);
+#pragma unroll
+      for (int j = 0; j < 12; ++j) {
+        const int col = 8 * j + 2 * t;
+        const float2 c = ld2(a.bf1 + 96 * q + col);
+        sts2(kh + a_at<24>(r0, col), f[4 * j] + c.x, f[4 * j + 1] + c.y);
+        sts2(kh + a_at<24>(r1, col), f[4 * j + 2] + c.x, f[4 * j + 3] + c.y);
+      }
+      // GELU over the thread's own 48 values in place, in a loop: one erff
+      // in the code (48 inlined copies ran slower on an H100, likely for
+      // the size of the code a quarter runs)
+#pragma unroll 1
+      for (int k = 0; k < 24; ++k) {
+        const uint32_t at = kh + a_at<24>(k & 1 ? r1 : r0, 8 * (k >> 1) + 2 * t);
+        float2 v = lds2(at);
+        v.x = 0.5f * v.x * (1.f + erff(v.x * 0.70710678118654752f));
+        v.y = 0.5f * v.y * (1.f + erff(v.y * 0.70710678118654752f));
+        sts2(at, v.x, v.y);
+      }
+    }
+    wg_sync(wg);
+    if (q == 0) WG_STAMP(pair, FS_GELU);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float part[48];
+      chain96<3, 24>(part, kh, 0, ring, u0 + 12 + 6 * u);
+      fold(y + 48 * u, part);
+    }
+    // H_q read by every warp before the next quarter's overwrites it
+    wg_sync(wg);
+    if (q == 0) WG_STAMP(pair, FS_QUARTER);
+  }
+  WG_STAMP(pair, FS_MLP);
+  if (valid) store_out(a, wp, y, a.bf2);
+  WG_STAMP(pair, FS_END);
+  WG_STAMP(pair, ST_T1);
+}
+
+// The body: the ring's barriers and counts, the bias table, the first F32_NBUF
+// units, then the window pairs blockIdx.x, + gridDim.x, ...
+template <bool MLP>
+__global__ void __launch_bounds__(F32_THREADS, 1) swin_f32_wg_kernel(const F32Args a) {
+  extern __shared__ __align__(128) unsigned char f32_smem[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(f32_smem);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  unsigned char* base = f32_smem + (sbase - raw);
+  const int pairs = (a.windows + 1) / 2;
+  F32Ring ring;
+  ring.slots = sbase;
+  ring.full = sbase + F32_OFF_BAR;
+  ring.cnt = sbase + F32_OFF_CNT;
+  ring.units = a.units;
+  ring.n = MLP ? BLOCK_UNITS : ATTN_UNITS;
+  ring.base = 0;
+  ring.total = ring.n * ((pairs - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x);
+  float* tb = reinterpret_cast<float*>(base + F32_OFF_TABLE);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < F32_NBUF; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   ::"r"(ring.full + 8 * i) : "memory");
+      asm volatile("st.shared.u32 [%0], 0;\n" ::"r"(ring.cnt + 4 * i) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the bias table, [head][225]
+  for (int i = threadIdx.x; i < HEADS * TABLE; i += F32_THREADS)
+    tb[i] = __ldg(a.table + (i % TABLE) * HEADS + i / TABLE);
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int g = 0; g < F32_NBUF && g < ring.total; ++g) ring_fill(ring, g);
+#pragma unroll 1
+  for (int p = blockIdx.x; p < pairs; p += gridDim.x) {
+    f32_window<MLP>(a, ring, sbase, tb, p);
+    ring.base += ring.n;
+  }
+}
+
+// swin_f32_wg_kernel<mlp>, its shared memory set on it; set on every call,
+// so that it holds on whichever device is current
+int prepare_f32(int mlp, const void** fn) {
+  const void* k = mlp ? (const void*)swin_f32_wg_kernel<true>
+                      : (const void*)swin_f32_wg_kernel<false>;
+  *fn = k;
+  return (int)cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   F32_WG_SMEM);
+}
+
 int check_grid(int B, int H, int W, int shift, long long* windows) {
   *windows = (long long)B * (H / WIN) * (W / WIN);
   if (*windows <= 0 || *windows > 0x7fffffffLL || H % WIN || W % WIN ||
@@ -1879,9 +2763,11 @@ int prepare_wg(int mlp, int variant, const void** fn) {
 // fragments wqkv_mma, wo_mma, w1_mma, w2_mma (pack_mma_b), read by the
 // bfloat16 kernel, swin_tc_kernel (the other four may be null there, and
 // these for float32). mlp: 1 = whole Swin block, 0 = attention only.
-// bfloat16 here is the mma.sync design, swin_mma, which nothing served
-// launches: served bf16 goes to s2sr_swin_wg_forward. Returns the CUDA
-// error code of the launch (0 = success).
+// Both dtypes here are designs which nothing served launches: bfloat16 the
+// mma.sync design, swin_mma, float32 the CUDA-core design, design="ffma";
+// served bf16 goes to s2sr_swin_wg_forward, served float32 to
+// s2sr_swin_f32_wg_forward. Returns the CUDA error code
+// of the launch (0 = success).
 extern "C" int s2sr_swin_forward(
     const void* x, void* out, const void* g1, const void* b1,
     const void* wqkv, const void* bqkv, const void* wo, const void* bo,
@@ -2047,4 +2933,82 @@ extern "C" long long s2sr_swin_macs_per_window(int dtype, int mlp) {
   const long long attn = N * kc * QKV_N + 2LL * HEADS * N * N * DP
                          + (long long)N * HEADS * DP * CP;
   return attn + (mlp ? N * kc * HP + N * kh * CP : 0);
+}
+
+// The served float32 kernel, swin_f32_wg_kernel: x, out (B, H, W, 180)
+// float32 contiguous, H and W multiples of 8, 16-byte aligned; g1, b1, g2,
+// b2 (180), bqkv (576), bo (192), bf1 (384), bf2 (192) float32; table the
+// (225, 6) float32 relative-position bias table; units the hi and lo TF32
+// units of wqkv, wo, w1, w2 (ops/window_attention.py::pack_f32_wg_units).
+// mlp: 1 = whole Swin block, 0 = attention only; band 0: the whole image,
+// rolled here in H and W; 1, 2: a band of H already rolled in H by -shift
+// (only W is rolled here), 2 the one that holds the image's last window
+// row. Returns the CUDA error code of the launch (0 = success).
+extern "C" int s2sr_swin_f32_wg_forward(
+    const void* x, void* out, const void* g1, const void* b1, const void* bqkv,
+    const void* bo, const void* table, const void* g2, const void* b2,
+    const void* bf1, const void* bf2, const void* units, int B, int H, int W,
+    int shift, int mlp, int band, void* stream) {
+  if (band < 0 || band > 2 || !units || !table) return (int)cudaErrorInvalidValue;
+  long long windows;
+  int rc = check_grid(B, H, W, shift, &windows);
+  if (rc) return rc;
+  const void* fn;
+  rc = prepare_f32(mlp, &fn);
+  if (rc) return rc;
+  F32Args a;
+  a.x = static_cast<const float*>(x);
+  a.out = static_cast<float*>(out);
+  a.g1 = static_cast<const float*>(g1);
+  a.b1 = static_cast<const float*>(b1);
+  a.bqkv = static_cast<const float*>(bqkv);
+  a.bo = static_cast<const float*>(bo);
+  a.table = static_cast<const float*>(table);
+  a.g2 = static_cast<const float*>(g2);
+  a.b2 = static_cast<const float*>(b2);
+  a.bf1 = static_cast<const float*>(bf1);
+  a.bf2 = static_cast<const float*>(bf2);
+  a.units = static_cast<const unsigned char*>(units);
+  a.H = H;
+  a.W = W;
+  a.shift = shift;
+  a.hshift = band ? 0 : shift;
+  a.last_wy = band == 1 ? -1 : H / WIN - 1;
+  a.windows = (int)windows;
+  // one block an SM, each walking window pairs
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long pairs = (windows + 1) / 2;
+  const unsigned grid = (unsigned)(pairs < sms ? pairs : sms);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mlp)
+    swin_f32_wg_kernel<true><<<grid, F32_THREADS, F32_WG_SMEM, st>>>(a);
+  else
+    swin_f32_wg_kernel<false><<<grid, F32_THREADS, F32_WG_SMEM, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" long long s2sr_swin_f32_wg_smem_bytes() { return (long long)F32_WG_SMEM; }
+
+// Resident blocks per SM of swin_f32_wg_kernel<mlp> on the current device;
+// negative: minus the CUDA error code.
+extern "C" int s2sr_swin_f32_wg_blocks_per_sm(int mlp) {
+  const void* fn;
+  int n = 0;
+  int rc = prepare_f32(mlp, &fn);
+  if (!rc)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, F32_THREADS, F32_WG_SMEM);
+  return rc ? -rc : n;
+}
+
+// Multiply-adds swin_f32_wg_kernel<mlp> executes per window, each of its
+// three TF32 products (pads included: head dim 32, C 192, hidden 384): qkv
+// 64 x 192 x 576, S and PV 6 x 64 x 64 x 32 each, proj 64 x 192 x 192, fc1
+// 64 x 192 x 384, fc2 64 x 384 x 192.
+extern "C" long long s2sr_swin_f32_wg_macs_per_window(int mlp) {
+  const long long attn = (long long)N * CP * 576 + 2LL * HEADS * N * N * 32 +
+                         (long long)N * CP * CP;
+  return attn + (mlp ? 2LL * N * CP * 384 : 0);
 }

@@ -34,22 +34,29 @@ erf form in float32 and the tanh form in bfloat16, as the JAX package's
 - :func:`swin_block` / :func:`window_attention` are the wrappers: on a
   CUDA tensor they launch the kernel of ``csrc/window_attention.cu`` or
   raise; on a CPU tensor they run the plain version.
-- :data:`LAUNCHES` counts the served kernels' launches per kernel,
-  nothing else; :data:`LAUNCHES_MMA` and :data:`LAUNCHES_NO_L2` those of
-  the designs nothing served launches (``design="mma"``, ``"no_l2"``).
+- :data:`LAUNCHES` counts the served bf16 kernel's launches per kernel,
+  :data:`LAUNCHES_F32` the served float32 kernel's, nothing else;
+  :data:`LAUNCHES_MMA`, :data:`LAUNCHES_NO_L2` and :data:`LAUNCHES_FFMA`
+  those of the designs nothing served launches (``design="mma"``,
+  ``"no_l2"``, ``"ffma"``).
 - :func:`build_block_tables` turns one block's weights (the released
   checkpoint's names and layouts) into the kernel's inputs; for bf16 it
   adds the matrices as the served kernel's B slabs
   (:func:`pack_wg_slabs`) and as the ``mma.sync`` design's B fragments
-  (:func:`pack_mma_b`), and the compact bias table for both dtypes.
+  (:func:`pack_mma_b`), for float32 as the served kernel's TF32 hi and
+  lo units (:func:`pack_f32_wg_units`), and the compact bias table for
+  both dtypes.
 
 The served bf16 kernel, ``swin_wg_kernel``, runs every product on
 ``wgmma``, two windows a block sharing each B slab a producer warpgroup
 streams through a ring of bulk copies; ``swin_tc_kernel`` (``mma.sync``,
 a window a block), the design it replaced, is reached only through
-``design="mma"``, so that one call can time both. The fp32 kernel runs
-float32 FMA on the CUDA cores (``csrc/window_attention.cu`` says why and
-how).
+``design="mma"``, so that one call can time both. The served float32
+kernel, ``swin_f32_wg_kernel``, is the same design in split TF32 (three
+TF32 products a multiply-add: float32's accuracy on the tensor cores;
+``csrc/window_attention.cu`` says how); ``swin_kernel<float>``, float32 FMA on
+the CUDA cores, the design it replaced, is reached only through
+``design="ffma"``.
 """
 
 from __future__ import annotations
@@ -60,14 +67,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .rdb import tf32_split
+
 LAUNCHES = {"swin_block": 0, "window_attention": 0}
-# launches of swin_tc_kernel (design "mma") and of swin_wg_no_l2_kernel
-# (design "no_l2", swin_block only), which nothing served makes
+# launches of the served float32 kernel, swin_f32_wg_kernel
+LAUNCHES_F32 = {"swin_block": 0, "window_attention": 0}
+# launches of swin_tc_kernel (design "mma"), of swin_wg_no_l2_kernel
+# (design "no_l2", swin_block only) and of swin_kernel<float> (design
+# "ffma"), which nothing served makes
 LAUNCHES_MMA = {"swin_block": 0, "window_attention": 0}
 LAUNCHES_NO_L2 = {"swin_block": 0}
-# the kernels a wrapper can launch for bf16: the served one, the mma.sync
-# design it replaced, and the time-attribution instance of the served one
-DESIGNS = ("served", "mma", "no_l2")
+LAUNCHES_FFMA = {"swin_block": 0, "window_attention": 0}
+# the kernels a wrapper can launch: the served one of its dtype; for bf16
+# the mma.sync design it replaced and the time-attribution instance of the
+# served one; for float32 the CUDA-core design it replaced
+DESIGNS = ("served", "mma", "no_l2", "ffma")
+BF16_DESIGNS = ("mma", "no_l2")
 
 # the one configuration the kernels are built for (both registry SwinIR
 # models): embed 180, 6 heads of 30, window 8, MLP hidden 360
@@ -181,32 +196,46 @@ def wg_slab_plan() -> list:
     return plan
 
 
+def _slab_index(plan, per_chunk: int) -> torch.Tensor:
+    """For each value of a stream of 96-row slabs in wgmma's K-major layout
+    with the 128-byte swizzle, ``per_chunk`` values a 16-byte chunk (8 K
+    values a row of bf16, 4 of float32: a row is 128 bytes), the flat index
+    of the matrix element it holds in ``wqkv``, ``wo``, ``w1``, ``w2``
+    flattened (in, out) and concatenated in that order, offset by ``half``
+    times their size (``plan``: (matrix, first K row, first column, half)
+    a slab), −1 for a K pad: slab row n holds column n0 + n, its 16-byte
+    chunk p the logical chunk p ^ (n % 8), K rows k0 + per_chunk (p ^ (n
+    % 8)) ..."""
+    offs, off = {}, 0
+    for name, (k, n) in WG_MATRICES.items():
+        offs[name] = off
+        off += k * n
+    row = torch.arange(SLAB_ROWS)[:, None, None]
+    chunk = torch.arange(8)[None, :, None] ^ (row % 8)
+    kk = per_chunk * chunk + torch.arange(per_chunk)[None, None, :]
+    slabs = []
+    for name, k0, n0, half in plan:
+        k, n = WG_MATRICES[name]
+        idx = half * off + offs[name] + (k0 + kk) * n + n0 + row
+        slabs.append(torch.where(k0 + kk < k, idx, -1))
+    return torch.stack(slabs).reshape(-1)
+
+
 def wg_slab_index(device=None) -> torch.Tensor:
     """For each bf16 of the stream, (48, 96, 64) flattened, the flat index
     of the matrix element it holds in ``wqkv``, ``wo``, ``w1``, ``w2``
     flattened (in, out) and concatenated in that order, −1 for a K pad
     (qkv and fc1's K 180 → 192, fc2's 360 → 384): slab row n holds column
     n0 + n, its 16-byte chunk p the logical chunk p ^ (n % 8), K rows
-    k0 + 8 (p ^ (n % 8)) ..."""
-    key = str(device)
-    if key not in _WG_INDEX:
-        offs, off = {}, 0
-        for name, (k, n) in WG_MATRICES.items():
-            offs[name] = off
-            off += k * n
-        row = torch.arange(SLAB_ROWS)[:, None, None]
-        chunk = torch.arange(8)[None, :, None] ^ (row % 8)
-        kk = 8 * chunk + torch.arange(8)[None, None, :]
-        slabs = []
-        for name, k0, n0 in wg_slab_plan():
-            k, n = WG_MATRICES[name]
-            idx = offs[name] + (k0 + kk) * n + n0 + row
-            slabs.append(torch.where(k0 + kk < k, idx, -1))
-        _WG_INDEX[key] = torch.stack(slabs).reshape(-1).to(device)
-    return _WG_INDEX[key]
+    k0 + 8 (p ^ (n % 8)) ... (:func:`_slab_index`)."""
+    key = ("bf16", str(device))
+    if key not in _INDEX:
+        _INDEX[key] = _slab_index([(*u, 0) for u in wg_slab_plan()], 8).to(device)
+    return _INDEX[key]
 
 
-_WG_INDEX: dict = {}
+# the stream indices, by dtype and device
+_INDEX: dict = {}
 
 
 def pack_wg_slabs(t: dict) -> torch.Tensor:
@@ -218,6 +247,72 @@ def pack_wg_slabs(t: dict) -> torch.Tensor:
     idx = wg_slab_index(flat.device)
     return flat[torch.where(idx < 0, flat.numel() - 1, idx)].reshape(
         len(wg_slab_plan()), SLAB_ROWS, SLAB_K).contiguous()
+
+
+# The served float32 kernel's B units: 96 rows (output columns) × 32 TF32
+# K values each, in wgmma's K-major layout with the 128-byte swizzle, the
+# hi or the lo half (:func:`tf32_split`) of one K block; the stream in the
+# order the kernel reads it (csrc/window_attention.cu).
+F32_UNIT_ROWS, F32_UNIT_K = 96, 32
+F32_RING_SLOTS, F32_UNIT_BYTES = 5, F32_UNIT_ROWS * F32_UNIT_K * 4
+
+
+def f32_wg_unit_plan() -> list:
+    """The float32 stream's units in order, each ``(matrix, first K row,
+    first column, half)`` (half 0 hi, 1 lo): per head h its qkv columns
+    96h.. (6 K blocks of 32, hi then lo each), then proj's ``wo`` rows
+    32h.. (columns 0.., then 96..); then per hidden quarter q fc1's
+    columns 96q.. (6 K blocks), fc2's ``w2`` rows 96q.. (per column half
+    3 K blocks): 192 units, the first 96 window_attention's."""
+    def kblocks(name, k0s, n0):
+        return [(name, k0, n0, half) for k0 in k0s for half in (0, 1)]
+
+    plan = []
+    for h in range(6):
+        plan += kblocks("wqkv", range(0, 192, 32), 96 * h)
+        plan += [u for n0 in (0, 96) for u in kblocks("wo", [32 * h], n0)]
+    for q in range(4):
+        plan += kblocks("w1", range(0, 192, 32), 96 * q)
+        plan += [u for n0 in (0, 96)
+                 for u in kblocks("w2", range(96 * q, 96 * q + 96, 32), n0)]
+    return plan
+
+
+def f32_wg_unit_index(device=None) -> torch.Tensor:
+    """For each float32 of the stream, (192, 96, 32) flattened, the flat
+    index of the value it holds in ``cat([hi, lo])`` of :func:`tf32_split`
+    of ``wqkv``, ``wo``, ``w1``, ``w2`` flattened (in, out) and concatenated
+    in that order, −1 for a K pad (qkv and fc1's K 180 → 192, fc2's 360 →
+    384): unit row n holds column n0 + n, its 16-byte chunk p the K rows
+    k0 + 4 (p ^ (n % 8)) .. + 3 (:func:`_slab_index`)."""
+    key = ("f32", str(device))
+    if key not in _INDEX:
+        _INDEX[key] = _slab_index(f32_wg_unit_plan(), 4).to(device)
+    return _INDEX[key]
+
+
+def pack_f32_wg_units(t: dict) -> torch.Tensor:
+    """The float32 tables' ``wqkv``, ``wo``, ``w1``, ``w2`` as the served
+    float32 kernel's stream of TF32 hi and lo units
+    (:func:`f32_wg_unit_index`), (192, 96, 32) float32, K pads zero."""
+    flat = torch.cat([t[k].float().reshape(-1) for k in WG_MATRICES])
+    flat = torch.cat([*tf32_split(flat), flat.new_zeros(1)])
+    idx = f32_wg_unit_index(flat.device)
+    return flat[torch.where(idx < 0, flat.numel() - 1, idx)].reshape(
+        len(f32_wg_unit_plan()), F32_UNIT_ROWS, F32_UNIT_K).contiguous()
+
+
+def f32_wg_smem_plan() -> dict:
+    """``swin_f32_wg_kernel``'s shared memory as
+    ``csrc/window_attention.cu`` lays it out: up to 1024 to align, the
+    ring, two windows (the float32 A buffer 64 × 192, then K and V^T of a
+    head with their hi and lo copies: 81,920 each), the bias table
+    [head][225] in float32, a full mbarrier and a release count a slot;
+    ``total`` their sum."""
+    plan = {"align": 1024, "ring": F32_RING_SLOTS * F32_UNIT_BYTES,
+            "windows": 2 * (64 * 192 * 4 + 4 * 8192),
+            "table": 6 * 225 * 4, "barriers": F32_RING_SLOTS * (8 + 4)}
+    return {**plan, "total": sum(plan.values())}
 
 
 def wg_smem_plan() -> dict:
@@ -257,7 +352,10 @@ def build_block_tables(p, num_heads: int, window: int, shift: int,
     - bf16 only, :data:`MMA_KEYS`: ``wqkv``, ``wo``, ``w1``, ``w2`` as B
       fragments (:func:`pack_mma_b`), K padded to cp (wqkv, w1), hp (w2);
       and at the kernel's configuration ``wg_slabs``, the same four as the
-      served kernel's B slabs (:func:`pack_wg_slabs`).
+      served kernel's B slabs (:func:`pack_wg_slabs`);
+    - float32 only, at the kernel's configuration: ``f32_units``, the four
+      as the served float32 kernel's TF32 hi and lo units
+      (:func:`pack_f32_wg_units`).
     A table that changes must be built again, so that both copies agree.
     """
     def f32(name):
@@ -327,6 +425,9 @@ def build_block_tables(p, num_heads: int, window: int, shift: int,
             t[key] = pack_mma_b(t[name], kpad[name])
         if all(tuple(t[k].shape) == s for k, s in WG_MATRICES.items()):
             t["wg_slabs"] = pack_wg_slabs(t)
+    elif (dtype == torch.float32
+          and all(tuple(t[k].shape) == s for k, s in WG_MATRICES.items())):
+        t["f32_units"] = pack_f32_wg_units(t)
     return t
 
 
@@ -451,6 +552,15 @@ def _lib():
         lib.s2sr_swin_wg_smem_bytes.restype = ctypes.c_longlong
         lib.s2sr_swin_wg_blocks_per_sm.argtypes = [ctypes.c_int]
         lib.s2sr_swin_wg_blocks_per_sm.restype = ctypes.c_int
+        ci = ctypes.c_int
+        lib.s2sr_swin_f32_wg_forward.argtypes = [vp] * 12 + [ci] * 6 + [vp]
+        lib.s2sr_swin_f32_wg_forward.restype = ci
+        lib.s2sr_swin_f32_wg_smem_bytes.argtypes = []
+        lib.s2sr_swin_f32_wg_smem_bytes.restype = ctypes.c_longlong
+        lib.s2sr_swin_f32_wg_blocks_per_sm.argtypes = [ci]
+        lib.s2sr_swin_f32_wg_blocks_per_sm.restype = ci
+        lib.s2sr_swin_f32_wg_macs_per_window.argtypes = [ci]
+        lib.s2sr_swin_f32_wg_macs_per_window.restype = ctypes.c_longlong
         lib._s2sr_typed = True
     return lib
 
@@ -459,8 +569,19 @@ def kernel_tiling(dtype: torch.dtype, mlp: bool = True,
                   design: str = "served") -> dict:
     """The kernel's shared-memory bytes per block, its resident blocks per
     SM on the current device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
-    and the multiply-adds it executes per 64-token window, pads included:
-    the served kernel of ``dtype``, or (bf16) ``design="mma"``'s."""
+    and the multiply-adds it executes per 64-token window, pads included
+    (float32's served kernel: each of its three TF32 products): the served
+    kernel of ``dtype``, or ``design="mma"``'s (bf16) or ``"ffma"``'s
+    (float32)."""
+    if dtype == torch.float32 and design == "served":
+        lib = _lib()
+        blocks = int(lib.s2sr_swin_f32_wg_blocks_per_sm(int(mlp)))
+        if blocks < 0:
+            raise RuntimeError(f"occupancy query failed: CUDA error {-blocks}")
+        return {"smem_bytes": int(lib.s2sr_swin_f32_wg_smem_bytes()),
+                "blocks_per_sm": blocks,
+                "macs_per_window": int(lib.s2sr_swin_f32_wg_macs_per_window(
+                    int(mlp)))}
     lib, code = _lib(), _DTYPE_CODE[dtype]
     wg = dtype == torch.bfloat16 and design != "mma"
     blocks = int(lib.s2sr_swin_wg_blocks_per_sm(int(mlp)) if wg
@@ -488,9 +609,12 @@ _MMA_SHAPES = {"wqkv_mma": (12, 72, 32, 4), "wo_mma": (12, 24, 32, 4),
                "w1_mma": (12, 48, 32, 4), "w2_mma": (24, 24, 32, 4)}
 # the served bf16 kernel's B slabs (bf16) and bias table (float32)
 _WG_SHAPES = {"wg_slabs": (48, SLAB_ROWS, SLAB_K), "bias_table": (225, 6)}
+# the served float32 kernel's TF32 units and the bias table (float32)
+_F32_SHAPES = {"f32_units": (192, F32_UNIT_ROWS, F32_UNIT_K),
+               "bias_table": (225, 6)}
 
 
-def _check(name: str, x: torch.Tensor, t: dict) -> None:
+def _check(name: str, x: torch.Tensor, t: dict, design: str = "served") -> None:
     cfg = KERNEL_CONFIG
     got = {"dim": t["dim"], "heads": t["heads"], "window": t["window"],
            "hidden": t["hidden"]}
@@ -516,6 +640,8 @@ def _check(name: str, x: torch.Tensor, t: dict) -> None:
     if x.dtype == torch.bfloat16:
         shapes.update(_MMA_SHAPES)
         shapes.update(_WG_SHAPES)
+    elif design == "served":
+        shapes.update(_F32_SHAPES)
     for key, shape in shapes.items():
         v = t.get(key)
         if v is None:
@@ -533,9 +659,12 @@ def _check(name: str, x: torch.Tensor, t: dict) -> None:
 def _check_design(name: str, x: torch.Tensor, mlp: bool, design: str) -> None:
     if design not in DESIGNS:
         raise ValueError(f"{name}: design {design!r} not in {DESIGNS}")
-    if design != "served" and x.dtype != torch.bfloat16:
+    if design in BF16_DESIGNS and x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: design {design!r} is a bfloat16 kernel, "
                         f"got {x.dtype}")
+    if design == "ffma" and x.dtype != torch.float32:
+        raise TypeError(f"{name}: design 'ffma' is a float32 kernel, got "
+                        f"{x.dtype}")
     if design == "no_l2" and not mlp:
         raise ValueError(f"{name}: design 'no_l2' exists for swin_block only")
 
@@ -545,17 +674,25 @@ def _launch(name: str, x: torch.Tensor, t: dict, mlp: bool,
             design: str = "served") -> torch.Tensor:
     if x.device.type != "cuda":
         raise RuntimeError(f"{name}: unsupported device {x.device}")
-    _check(name, x, t)
     _check_design(name, x, mlp, design)
+    _check(name, x, t, design)
     bsz, h, w, _ = x.shape
     out = torch.empty_like(x)
     if bsz * h * w == 0:
         return out
-    lib = _lib()
     band = 0 if not rolled else 2 if last else 1
+    f32 = x.dtype == torch.float32 and design == "served"
+    lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.bfloat16 and design != "mma":
+        if f32:
+            rc = lib.s2sr_swin_f32_wg_forward(
+                x.data_ptr(), out.data_ptr(),
+                *(t[k].data_ptr() for k in ("g1", "b1", "bqkv", "bo",
+                                            "bias_table", "g2", "b2", "bf1",
+                                            "bf2", "f32_units")),
+                bsz, h, w, t["shift"], int(mlp), band, stream)
+        elif x.dtype == torch.bfloat16 and design != "mma":
             rc = lib.s2sr_swin_wg_forward(
                 x.data_ptr(), out.data_ptr(),
                 *(t[k].data_ptr() for k in ("g1", "b1", "bqkv", "bo",
@@ -575,8 +712,8 @@ def _launch(name: str, x: torch.Tensor, t: dict, mlp: bool,
                 band, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    counts = {"served": LAUNCHES, "mma": LAUNCHES_MMA,
-              "no_l2": LAUNCHES_NO_L2}[design]
+    counts = {"served": LAUNCHES_F32 if f32 else LAUNCHES, "mma": LAUNCHES_MMA,
+              "no_l2": LAUNCHES_NO_L2, "ffma": LAUNCHES_FFMA}[design]
     counts[name] += 1
     return out
 
@@ -588,13 +725,14 @@ def swin_block(x: torch.Tensor, t: dict, rolled: bool = False,
     H already rolled by ``-shift`` in H (W is rolled here), and ``last``
     says whether its last window row is the image's. CPU tensors run
     :func:`swin_block_reference`; CUDA tensors launch the kernel or raise.
-    ``design`` (bf16, nothing served passes it): ``"mma"`` launches the
+    ``design`` (nothing served passes it): for bf16 ``"mma"`` launches the
     ``mma.sync`` design, ``"no_l2"`` the served kernel's instance that
     takes B from L2 only for its first six slabs (no defined output, no
-    plain version)."""
+    plain version); for float32 ``"ffma"`` the CUDA-core design."""
     if x.device.type == "cpu":
         if design == "no_l2":
             raise ValueError("swin_block: design 'no_l2' has no plain version")
+        _check_design("swin_block", x, True, design)
         return swin_block_reference(x, t, rolled, last)
     return _launch("swin_block", x, t, True, rolled, last, design)
 
@@ -603,11 +741,12 @@ def window_attention(x: torch.Tensor, t: dict, rolled: bool = False,
                      last: bool = True, design: str = "served") -> torch.Tensor:
     """LN1 → window attention → proj, (B, H, W, C) → same, no residual;
     ``rolled``, ``last`` and ``design`` as :func:`swin_block`'s (``"mma"``
-    only). CPU tensors run :func:`window_attention_reference`; CUDA tensors
-    launch the kernel or raise."""
+    and ``"ffma"`` only). CPU tensors run :func:`window_attention_reference`;
+    CUDA tensors launch the kernel or raise."""
     if x.device.type == "cpu":
         if design == "no_l2":
             raise ValueError("window_attention: design 'no_l2' exists for "
                              "swin_block only")
+        _check_design("window_attention", x, False, design)
         return window_attention_reference(x, t, rolled, last)
     return _launch("window_attention", x, t, False, rolled, last, design)
